@@ -1,0 +1,45 @@
+"""Carrying configurations and state from the JAX package to the port.
+
+Both directions go through plain Python and numpy, so neither package
+imports the other: ``config_from_dict`` takes ``dataclasses.asdict`` of a
+JAX ``SimConfig``; ``state_from_numpy`` takes the fields of a JAX
+``FlowState`` as numpy arrays (a mapping or a named tuple).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .config import SimConfig
+from .uniform import FlowState
+
+
+def config_from_dict(d: dict) -> SimConfig:
+    """Build the port's ``SimConfig`` from the dict form of a JAX one; the
+    derived fields (h0, extents, min_h) are recomputed, not copied."""
+    init = {f.name for f in dataclasses.fields(SimConfig) if f.init}
+    unknown = set(d) - {f.name for f in dataclasses.fields(SimConfig)}
+    if unknown:
+        raise ValueError(f"unknown SimConfig fields: {sorted(unknown)}")
+    return SimConfig(**{k: v for k, v in d.items() if k in init})
+
+
+def state_from_numpy(fields, device, dtype) -> FlowState:
+    """The port's ``FlowState`` from numpy arrays of every field."""
+    if hasattr(fields, "_asdict"):
+        fields = fields._asdict()
+    missing = set(FlowState._fields) - set(fields)
+    if missing:
+        raise ValueError(f"missing FlowState fields: {sorted(missing)}")
+    return FlowState(**{
+        k: torch.tensor(np.asarray(fields[k]), dtype=dtype, device=device)
+        for k in FlowState._fields})
+
+
+def state_to_numpy(state: FlowState) -> dict:
+    """The fields of a port ``FlowState`` as numpy arrays."""
+    return {k: getattr(state, k).detach().cpu().numpy()
+            for k in FlowState._fields}

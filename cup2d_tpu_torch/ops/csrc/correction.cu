@@ -1,0 +1,81 @@
+// Projection correction epilogue on a Neumann box:
+//   pres = ((x - mx) + pold) - mp
+//   vel += pfac * grad(pres) * ih2
+// with the gradient as zero-ghost central differences plus the rank-1 wall
+// term (-1 at the low wall, +1 at the high wall: the one-sided Neumann
+// difference). x, pold, pres [L, ny, nx] f32; vel, vout [L, 2, ny, nx] f32;
+// scal [L, 3] f32 holds (mx, mp, pfac) per member, the means taken outside.
+//
+// Replaces: cup2d_tpu/ops/pallas_kernels.py _correct_kernel (reached from
+// fused_correction), all-Neumann pressure signs gs = (1, 1, 1, 1).
+//
+// Bound on this card: memory. It reads x, pold and vel and writes pres and
+// vel, 28 bytes per cell, for about 15 operations per cell.
+//
+// Design: the TPU kernel walks row strips in sequence and keeps the
+// neighbour strips in a VMEM ring. Here every thread owns one cell and
+// forms the mean-free pressure at the cell and its four neighbours from x
+// and pold directly; the neighbour reads of a warp hit the same cache
+// lines as the centre reads of the adjacent warps, so device memory sees
+// each input about once.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ float mean_free(const float* __restrict__ x,
+                                           const float* __restrict__ pold,
+                                           int j, int i, int ny, int nx,
+                                           float mx, float mp) {
+    if (j < 0 || j >= ny || i < 0 || i >= nx) return 0.0f;
+    size_t k = (size_t)j * nx + i;
+    return ((x[k] - mx) + pold[k]) - mp;
+}
+
+__global__ void correction_kernel(const float* __restrict__ x,
+                                  const float* __restrict__ pold,
+                                  const float* __restrict__ vel,
+                                  const float* __restrict__ scal,
+                                  float* __restrict__ pres,
+                                  float* __restrict__ vout, int ny, int nx,
+                                  float ih2) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const int j = blockIdx.y * blockDim.y + threadIdx.y;
+    const int l = blockIdx.z;
+    if (i >= nx || j >= ny) return;
+    const size_t plane = (size_t)ny * nx;
+    const float* xl = x + (size_t)l * plane;
+    const float* pl = pold + (size_t)l * plane;
+    const float mx = scal[3 * l];
+    const float mp = scal[3 * l + 1];
+    const float pfac = scal[3 * l + 2];
+
+    const float cur = mean_free(xl, pl, j, i, ny, nx, mx, mp);
+    const float gx = i == 0 ? -1.0f : (i == nx - 1 ? 1.0f : 0.0f);
+    const float gy = j == 0 ? -1.0f : (j == ny - 1 ? 1.0f : 0.0f);
+    const float dpx = (mean_free(xl, pl, j, i + 1, ny, nx, mx, mp)
+                       - mean_free(xl, pl, j, i - 1, ny, nx, mx, mp))
+                      + cur * gx;
+    const float dpy = (mean_free(xl, pl, j + 1, i, ny, nx, mx, mp)
+                       - mean_free(xl, pl, j - 1, i, ny, nx, mx, mp))
+                      + cur * gy;
+    const size_t cell = (size_t)j * nx + i;
+    pres[(size_t)l * plane + cell] = cur;
+    const size_t u = (size_t)l * 2 * plane + cell;
+    vout[u] = vel[u] + (pfac * dpx) * ih2;
+    vout[u + plane] = vel[u + plane] + (pfac * dpy) * ih2;
+}
+
+}  // namespace
+
+extern "C" int cup2d_fused_correction(const float* x, const float* pold,
+                                      const float* vel, const float* scal,
+                                      float* pres, float* vout, int L,
+                                      int ny, int nx, float ih2,
+                                      void* stream) {
+    dim3 block(64, 4);
+    dim3 grid((nx + 63) / 64, (ny + 3) / 4, L);
+    correction_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        x, pold, vel, scal, pres, vout, ny, nx, ih2);
+    return (int)cudaGetLastError();
+}

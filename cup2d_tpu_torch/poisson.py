@@ -1,0 +1,356 @@
+"""Matrix-free pressure-Poisson solvers: the counterpart of
+``cup2d_tpu.poisson`` for the uniform Neumann box.
+
+* ``block_precond_matrix`` / ``apply_block_precond``: the reference's
+  block-Jacobi preconditioner (main.cpp:6451-6488) as a batched GEMM.
+* ``MultigridPreconditioner``: the geometric V-cycle (damped-Jacobi
+  smoothing, 2x2 sum restriction, nearest prolongation). Under an f32
+  Krylov solve the cycle runs in bf16 (a preconditioner only shapes the
+  error); as the FAS solver it runs at solver precision and its sweep
+  chains go through ``hopper_kernels.fused_jacobi_sweeps``.
+* ``bicgstab``: flexible BiCGSTAB with the reference's Linf criterion,
+  breakdown restarts, periodic true-residual refresh and the L2 stall
+  exit.
+* ``mg_solve``: repeated V-cycles (optionally opened by an F-cycle) with
+  the true residual.
+* ``project_correct``: the projection epilogue, through
+  ``hopper_kernels.fused_correction``.
+
+The JAX package runs both solvers as on-device ``lax.while_loop``s. Here
+they are host loops that read the iteration's few control bits from the
+device once or twice per iteration, so they take exactly the branches the
+JAX loop takes and their iteration counts are equal.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from .ops.hopper_kernels import (fused_correction, fused_jacobi_sweeps,
+                                 jacobi_sweeps_plain)
+from .ops.stencil import laplacian5_neumann
+
+
+def block_precond_matrix(bs: int, dtype=np.float64) -> np.ndarray:
+    """P_inv = -inv(A_local), the negated inverse of the bs^2 x bs^2
+    single-block 5-point Laplacian with homogeneous Dirichlet truncation
+    at the block edge (reference getA_local main.cpp:46-57)."""
+    n = bs * bs
+    ii = np.arange(n)
+    xi, yi = ii % bs, ii // bs
+    a = np.zeros((n, n), dtype=np.float64)
+    dx = np.abs(xi[:, None] - xi[None, :])
+    dy = np.abs(yi[:, None] - yi[None, :])
+    a[(dx + dy) == 1] = -1.0
+    np.fill_diagonal(a, 4.0)
+    return (-np.linalg.inv(a)).astype(dtype)
+
+
+def apply_block_precond(r: torch.Tensor, p_inv: torch.Tensor,
+                        bs: int) -> torch.Tensor:
+    """z = P_inv r per bs x bs tile of a [..., Ny, Nx] field (batched
+    GEMM). The product runs in full f32 on the card: the caller
+    (``UniformGrid``) sets ``torch.backends.cuda.matmul.allow_tf32 =
+    False``."""
+    ny, nx = r.shape[-2], r.shape[-1]
+    nby, nbx = ny // bs, nx // bs
+    lead = r.shape[:-2]
+    tiles = r.reshape(*lead, nby, bs, nbx, bs)
+    tiles = tiles.transpose(-3, -2).reshape(*lead, nby, nbx, bs * bs)
+    z = tiles @ p_inv.T
+    z = z.reshape(*lead, nby, nbx, bs, bs).transpose(-3, -2)
+    return z.reshape(r.shape)
+
+
+class MultigridPreconditioner:
+    """V(nu1, nu2)-cycle for lap(e) = r on a [Ny, Nx] all-Neumann grid.
+
+    Undivided operators throughout; the restricted residual is the 2x2
+    SUM (x4 of the mean) because the undivided coarse operator is 4x the
+    fine one. ``cycle_dtype=None`` under an f32 solver gives the bf16
+    preconditioner cycle; the FAS solver passes its own dtype.
+    ``fused_smoother`` sends every sweep chain through the
+    ``fused_jacobi_sweeps`` wrapper (kernel on the card, twin on the
+    CPU); otherwise the chains are plain tensor code, as the XLA chains
+    are in the JAX package. The Jacobi diagonal (``_inv_diag`` in the JAX
+    package) is ``ops.stencil.inv_diag_neumann``, shared with the twin."""
+
+    def __init__(self, ny: int, nx: int, dtype, nu1: int = 2,
+                 nu2: int = 2, coarsest: int = 16, omega: float = 0.8,
+                 cycle_dtype=None, fused_smoother: bool = False):
+        self.nu1 = nu1
+        self.nu2 = nu2
+        self.omega = omega
+        self.dtype = cycle_dtype or (
+            torch.bfloat16 if dtype == torch.float32 else dtype)
+        self.out_dtype = dtype
+        self.fused_smoother = fused_smoother
+        self.shapes = []
+        while ny >= coarsest and nx >= coarsest \
+                and ny % 2 == 0 and nx % 2 == 0:
+            self.shapes.append((ny, nx))
+            ny //= 2
+            nx //= 2
+        self.shapes.append((ny, nx))
+
+    def _lap(self, p):
+        return laplacian5_neumann(p)
+
+    def _smooth(self, e, r, lvl, n, from_zero=False):
+        if self.fused_smoother:
+            return fused_jacobi_sweeps(e, r, self.omega, n, from_zero)
+        return jacobi_sweeps_plain(e, r, self.omega, n, from_zero)
+
+    def __call__(self, r):
+        return self._cycle(r.to(self.dtype), 0).to(self.out_dtype)
+
+    def fcycle(self, r):
+        """One F-cycle: recurse to the coarsest level first, prolongate
+        each coarse solution as the finer level's initial guess, then one
+        V-cycle relaxation there (the opening move of ``fmg``)."""
+        return self._fcycle(r.to(self.dtype), 0).to(self.out_dtype)
+
+    @staticmethod
+    def _restrict(res):
+        rows = res[..., 0::2, :] + res[..., 1::2, :]
+        return rows[..., :, 0::2] + rows[..., :, 1::2]
+
+    @staticmethod
+    def _prolong(ec):
+        return ec.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+    def _fcycle(self, r, lvl):
+        if lvl == len(self.shapes) - 1:
+            return self._smooth(None, r, lvl, 24, from_zero=True)
+        ec = self._fcycle(self._restrict(r), lvl + 1)
+        return self._cycle(r, lvl, e0=self._prolong(ec))
+
+    def _cycle(self, r, lvl, e0=None):
+        if lvl == len(self.shapes) - 1:
+            # coarsest: enough sweeps to wash out the local modes; the
+            # constant mode is the outer solver's job
+            if e0 is not None:
+                return self._smooth(e0, r, lvl, 24)
+            return self._smooth(None, r, lvl, 24, from_zero=True)
+        if e0 is not None:
+            e = self._smooth(e0, r, lvl, self.nu1)
+        else:
+            e = self._smooth(None, r, lvl, self.nu1, from_zero=True)
+        rc = self._restrict(r - self._lap(e))
+        e = e + self._prolong(self._cycle(rc, lvl + 1))
+        return self._smooth(e, r, lvl, self.nu2)
+
+
+class BiCGSTABResult(NamedTuple):
+    x: torch.Tensor
+    iters: int
+    residual: float      # Linf of the best residual seen
+    converged: bool
+    stalled: bool        # exited via the stall detector
+
+
+def _reducers(dt_, sum_dtype):
+    sd = sum_dtype or dt_
+
+    def dot(a, c):
+        if sd == dt_:
+            return torch.sum(a * c)
+        return torch.sum(a * c, dtype=sd).to(dt_)
+
+    def linf(a):
+        return torch.amax(torch.abs(a))
+
+    return dot, linf
+
+
+def bicgstab(
+    A: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    M: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    x0: torch.Tensor | None = None,
+    tol: float = 1e-3,
+    tol_rel: float = 1e-2,
+    max_iter: int = 1000,
+    max_restarts: int = 0,
+    sum_dtype=None,
+    refresh_every: int = 50,
+    stall_iters: int = 120,
+    stall_rtol: float = 0.999,
+) -> BiCGSTABResult:
+    """Preconditioned flexible BiCGSTAB (reference cuda.cu:403-548).
+
+    Converges on Linf(r) <= max(tol, tol_rel * Linf(r0)). Inner products
+    accumulate in ``sum_dtype`` (default: b's dtype). A serious breakdown
+    restarts with rhat = r while ``max_restarts`` lasts; every
+    ``refresh_every`` iterations since the last restart the recursive
+    residual is replaced by the true residual of the current iterate
+    (re-grounding the best-iterate tracking too), and the L2 norm sampled
+    at those refreshes drives the stall exit: no ``stall_rtol`` gain for
+    ``stall_iters`` iterations ends the solve with the best iterate."""
+    if M is None:
+        M = lambda v: v  # noqa: E731
+    dt_ = b.dtype
+    dot, linf = _reducers(dt_, sum_dtype)
+
+    if x0 is None:
+        # A(0) = 0: the initial residual is b
+        x = torch.zeros_like(b)
+        r = b
+    else:
+        x = x0
+        r = b - A(x0)
+    norm0 = linf(r)
+    target = torch.maximum(torch.tensor(tol, dtype=dt_, device=b.device),
+                           tol_rel * norm0)
+    one = torch.ones_like(norm0)
+    rhat = r
+    p = torch.zeros_like(b)
+    v = torch.zeros_like(b)
+    rho = alpha = omega = one
+    x_opt, norm_opt = x, norm0
+    best_l2 = torch.sqrt(dot(r, r))
+    it = restarts = best_it = impr_it = 0
+    done = bool(norm0 <= target)
+    eps = torch.tensor(1e-21 if dt_ == torch.float64 else 1e-30, dtype=dt_,
+                       device=b.device)
+
+    while not done and it < max_iter:
+        rho_probe = dot(rhat, r)
+        norm_r = torch.sqrt(dot(r, r))
+        norm_rhat = torch.sqrt(dot(rhat, rhat))
+        can_restart = restarts < max_restarts
+        refresh = (it - best_it) >= refresh_every
+        # a serious breakdown restarts with rhat = r (cuda.cu:457-477);
+        # it matters only where it can restart or give up
+        breakdown = (can_restart or not refresh) and bool(
+            torch.abs(rho_probe) < (1e-16 * norm_r * norm_rhat + eps))
+        do_restart = (breakdown and can_restart) or refresh
+        give_up = breakdown and not can_restart and not refresh
+
+        if refresh:
+            r = b - A(x)
+            n_true = linf(r)
+            n_opt_true = linf(b - A(x_opt))
+            if bool(n_true <= n_opt_true):
+                x_opt, norm_opt = x, n_true
+            else:
+                norm_opt = n_opt_true
+        if do_restart:
+            rhat = r
+            rho_new = dot(rhat, r)
+            beta = torch.zeros_like(rho_new)
+        else:
+            rho_new = rho_probe
+            beta = (rho_new / (rho + eps)) * (alpha / (omega + eps))
+        p = r + beta * (p - omega * v)
+        z = M(p)
+        v = A(z)
+        alpha = rho_new / (dot(rhat, v) + eps)
+        h = x + alpha * z
+        sres = r - alpha * v
+        zs = M(sres)
+        t = A(zs)
+        omega = dot(t, sres) / (dot(t, t) + eps)
+        x = h + omega * zs
+        r = sres - omega * t
+        rho = rho_new
+
+        norm = linf(r)
+        l2_now = torch.sqrt(dot(r, r))
+        flags = torch.stack([norm < norm_opt, norm <= target,
+                             l2_now < stall_rtol * best_l2]).tolist()
+        better, reached, gain = flags
+        if better:
+            x_opt, norm_opt = x, norm
+        if refresh:
+            if gain:
+                impr_it = it
+            best_l2 = torch.minimum(best_l2, l2_now)
+        if breakdown and can_restart:
+            restarts += 1
+        if do_restart:
+            best_it = it
+        stalled = (it - impr_it) >= stall_iters
+        done = reached or give_up or stalled
+        it += 1
+
+    final_norm = linf(r)
+    use_x = bool(final_norm <= norm_opt)
+    residual = final_norm if use_x else norm_opt
+    converged = bool(residual <= target)
+    stalled = not converged and (it - impr_it) >= stall_iters
+    return BiCGSTABResult(x=x if use_x else x_opt, iters=it,
+                          residual=float(residual), converged=converged,
+                          stalled=stalled)
+
+
+def mg_solve(
+    A: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    mg: MultigridPreconditioner,
+    x0: torch.Tensor | None = None,
+    tol: float = 1e-3,
+    tol_rel: float = 1e-2,
+    max_cycles: int = 50,
+    stall_cycles: int = 4,
+    stall_rtol: float = 0.999,
+    fmg: bool = False,
+) -> BiCGSTABResult:
+    """Solve A x = b by repeated multigrid cycles x += mg(b - A x) with the
+    true residual each cycle; same result contract and criterion as
+    ``bicgstab``, ``iters`` counting cycles. ``fmg`` opens with one
+    F-cycle (counted). ``stall_cycles`` consecutive cycles without a
+    ``stall_rtol`` gain over the running best end the solve ``stalled``."""
+    _, linf = _reducers(b.dtype, None)
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b
+    else:
+        x = x0
+        r = b - A(x0)
+    norm0 = linf(r)
+    target = torch.maximum(
+        torch.tensor(tol, dtype=b.dtype, device=b.device), tol_rel * norm0)
+    it = 0
+    if fmg:
+        x = x + mg.fcycle(r)
+        r = b - A(x)
+        it = 1
+    norm = linf(r)
+    best = norm
+    no_impr = 0
+    done = bool(norm <= target)
+    while not done and it < max_cycles:
+        x = x + mg(r)
+        r = b - A(x)
+        norm = linf(r)
+        improved, reached = torch.stack(
+            [norm < stall_rtol * best, norm <= target]).tolist()
+        best = torch.minimum(best, norm)
+        no_impr = 0 if improved else no_impr + 1
+        done = reached or no_impr >= stall_cycles
+        it += 1
+    converged = bool(norm <= target)
+    return BiCGSTABResult(x=x, iters=it, residual=float(norm),
+                          converged=converged,
+                          stalled=not converged and no_impr >= stall_cycles)
+
+
+def project_correct(x, pres_old, vel, h, dt):
+    """Projection epilogue: ``pres = (x - mean x) + pres_old - mean
+    pres_old`` and ``vel += -dt/(2h) grad_neumann(pres) / h^2``, the means
+    taken here and the rest in ``fused_correction``. x, pres_old
+    [..., Ny, Nx]; vel [..., 2, Ny, Nx]; dt a scalar. Returns (vel, pres)."""
+    ny, nx = x.shape[-2:]
+    L = math.prod(x.shape[:-2])
+    dt = torch.as_tensor(dt, dtype=x.dtype, device=x.device)
+    scal = torch.stack([torch.mean(x), torch.mean(pres_old),
+                        -0.5 * dt * h]).reshape(1, 3).expand(L, 3)
+    pres, velc = fused_correction(
+        x.reshape(L, ny, nx), pres_old.reshape(L, ny, nx),
+        vel.reshape(L, 2, ny, nx), scal.contiguous(), 1.0 / (h * h))
+    return velc.reshape(vel.shape), pres.reshape(x.shape)

@@ -1,0 +1,94 @@
+"""Where the time of the uniform step goes on the card.
+
+Runs ``UniformGrid.step(obstacle_terms=False)`` on the benchmark state
+(``bench_state``, dt = h/2, f32) under each solver, one warm-up step and
+then ``--steps`` steps under ``torch.profiler``, and prints per solver:
+the wall time per step, the device-busy share (sum of kernel times over
+the wall time of the window), the Poisson iterations, and the kernels
+that take the most device time. The Chrome trace of each window goes to
+``--out`` (default ``build/profile/``, which git ignores).
+
+    python -m cup2d_tpu_torch.profile_step --size 8192 --steps 3
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+
+def profile_solver(size: int, steps: int, pois: str, out_dir: str,
+                   top: int) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .config import SimConfig
+    from .uniform import UniformGrid, bench_state
+
+    os.environ["CUP2D_POIS"] = pois
+    try:
+        grid = UniformGrid(
+            SimConfig(bpdx=1, bpdy=1, level_max=1, level_start=0,
+                      extent=1.0, nu=4e-5, cfl=0.5, dtype="float32"),
+            level=(size // 8).bit_length() - 1)
+    finally:
+        os.environ.pop("CUP2D_POIS", None)
+    state = bench_state(grid)
+    dt = torch.tensor(0.5 * grid.h, device=grid.device)
+    state, _ = grid.step(state, dt, obstacle_terms=False)
+    torch.cuda.synchronize()
+    iters = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, diag = grid.step(state, dt, obstacle_terms=False)
+            iters.append(diag["poisson_iters"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        out_dir, f"trace_{grid.poisson_mode}_{size}.json"))
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    rows = [{"kernel": e.key[:90], "calls": e.count,
+             "ms_per_step": e.self_device_time_total / 1e3 / steps}
+            for e in events[:top]]
+    return {"mode": grid.poisson_mode, "size": size, "steps": steps,
+            "iters": iters, "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms / steps,
+            "device_busy_share": device_ms / wall_ms, "top": rows}
+
+
+def main(argv=None) -> int:
+    import subprocess
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--size", type=int, default=8192)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--out", default="build/profile")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"card: {card}")
+    for pois in ("", "fas"):
+        res = profile_solver(args.size, args.steps, pois, args.out,
+                             args.top)
+        print(json.dumps({k: v for k, v in res.items() if k != "top"}))
+        for row in res["top"]:
+            print(f"  {row['ms_per_step']:9.3f} ms/step  "
+                  f"{row['calls']:6d} calls  {row['kernel']}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

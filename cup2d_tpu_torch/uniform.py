@@ -1,0 +1,362 @@
+"""Uniform-grid execution path on dense tensors: the counterpart of
+``cup2d_tpu.uniform`` for the obstacle-free free-slip box.
+
+One step (main.cpp:6576-7290): CFL dt control, two-stage Heun
+advection-diffusion (WENO5 + central diffusion, ``fused_advect_heun``),
+the deltap pressure projection (divergence RHS minus lap(pold), the
+Poisson solve, ``project_correct``) and the step diagnostics.
+
+Device policy: ``UniformGrid`` and ``UniformSim`` run on ``cuda`` unless
+the caller passes ``device="cpu"``; with no device given and no card they
+raise. The card runs f32 state only; the CPU runs f32 or f64. On the card
+the three Hopper kernels always run (there is no kernel-tier switch), on
+the CPU their plain twins.
+
+Environment, read once per ``UniformGrid``: ``CUP2D_POIS`` selects the
+solver (""/structured/tables/fft: bicgstab + MG, fas: MG cycles, fas-f:
+the same opened by an F-cycle; fftd is not ported yet and refuses);
+``CUP2D_PREC`` accepts f32 only (the bf16 storage tier is not ported yet
+and refuses).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .config import SimConfig
+from .ops.hopper_kernels import fused_advect_heun
+from .ops.stencil import (divergence_freeslip, divergence_rhs_fused,
+                          dt_from_umax, laplacian5_neumann, pad_scalar,
+                          pad_vector, vorticity)
+from .poisson import (MultigridPreconditioner, apply_block_precond,
+                      bicgstab, block_precond_matrix, mg_solve,
+                      project_correct)
+
+__all__ = ["FlowState", "UniformGrid", "UniformSim", "bench_state",
+           "pad_scalar", "pad_vector", "resolve_device",
+           "taylor_green_state"]
+
+_FREE_SLIP_TOKEN = "fs,fs,fs,fs"
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names a device; no card and no device
+    given raises instead of dropping to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run the port on the "
+                "CPU (plain twins of the kernels)")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class FlowState(NamedTuple):
+    """Per-step state (the reference's field grids, main.cpp:3264-3278).
+    ``us`` is the full solid velocity targeted by penalization, ``udef``
+    the deformation-only part in the pressure RHS; ``pres`` at entry to a
+    step is the previous pressure."""
+
+    vel: torch.Tensor    # [2, Ny, Nx]
+    pres: torch.Tensor   # [Ny, Nx]
+    chi: torch.Tensor    # [Ny, Nx]
+    us: torch.Tensor     # [2, Ny, Nx]
+    udef: torch.Tensor   # [2, Ny, Nx]
+
+
+def taylor_green_state(grid) -> FlowState:
+    """Taylor-Green vortex compatible with the free-slip box (zero normal
+    velocity at all walls), decaying as exp(-2 nu pi^2 (1/Lx^2 + 1/Ly^2) t)."""
+    x, y = grid.cell_centers()
+    lx, ly = grid.cfg.extents
+    u = np.sin(np.pi * x / lx) * np.cos(np.pi * y / ly)
+    v = -(ly / lx) * np.cos(np.pi * x / lx) * np.sin(np.pi * y / ly)
+    return grid.zero_state()._replace(vel=grid.tensor(np.stack([u, v])))
+
+
+def bench_state(grid) -> FlowState:
+    """The benchmark's initial velocity (``bench.bench_state`` of the JAX
+    package): a shear-layer pair, a mid-scale mode and a non-solenoidal
+    mode at a fixed 64 cells per wavelength, so the Poisson load does not
+    fade with resolution. Normal components vanish at the walls."""
+    x, y = grid.cell_centers()
+    lx, ly = grid.cfg.extents
+    xs, ys = np.pi * x / lx, np.pi * y / ly
+    m = max(grid.nx // 64, 32)
+    u = (np.sin(xs) * np.cos(ys)
+         + 0.25 * np.sin(8 * xs) * np.cos(8 * ys)
+         + 0.3 * np.sin(m * xs) * np.sin(m * ys))
+    v = (-np.cos(xs) * np.sin(ys)
+         + 0.25 * np.sin(16 * ys) * np.sin(16 * xs)
+         + 0.3 * np.sin(m * ys) * np.sin(m * xs))
+    return grid.zero_state()._replace(vel=grid.tensor(np.stack([u, v])))
+
+
+class UniformGrid:
+    """Geometry and operators for one uniform resolution."""
+
+    def __init__(self, cfg: SimConfig, level: Optional[int] = None,
+                 device=None, bc=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if cfg.dtype not in _DTYPES:
+            raise ValueError(f"dtype {cfg.dtype!r}: expected float32|float64")
+        self.dtype = _DTYPES[cfg.dtype]
+        if self.device.type == "cuda" and self.dtype != torch.float32:
+            raise ValueError(
+                f"dtype {cfg.dtype} on {self.device}: the card runs f32 "
+                "state only (f64 runs on device='cpu')")
+        token = getattr(bc, "token", bc)
+        if token not in (None, _FREE_SLIP_TOKEN):
+            raise NotImplementedError(
+                f"boundary table {token!r}: only the free-slip box "
+                f"({_FREE_SLIP_TOKEN}) is ported so far")
+        prec = os.environ.get("CUP2D_PREC", "") or "f32"
+        if prec == "bf16":
+            raise NotImplementedError(
+                "CUP2D_PREC=bf16 (bf16 storage of the advection and "
+                "smoother operands) is not ported yet; unset it")
+        if prec != "f32":
+            raise ValueError(f"CUP2D_PREC={prec!r}: expected f32|bf16")
+        pois = os.environ.get("CUP2D_POIS", "")
+        if pois == "fftd":
+            raise NotImplementedError(
+                "CUP2D_POIS=fftd (FFT-diagonalized direct solve) is not "
+                "ported yet; it also needs a periodic table")
+        if pois not in ("", "structured", "tables", "fft", "fas", "fas-f"):
+            raise ValueError(
+                f"CUP2D_POIS={pois!r}: expected "
+                "structured|tables|fft|fas|fas-f|fftd")
+        self.solver_mode = "fas" if pois in ("fas", "fas-f") else "bicgstab"
+        self.fas_fmg = pois == "fas-f"
+        lvl = cfg.level_start if level is None else level
+        self.level = lvl
+        self.nx = cfg.bpdx * cfg.bs << lvl
+        self.ny = cfg.bpdy * cfg.bs << lvl
+        self.h = cfg.h_at(lvl)
+        if self.device.type == "cuda":
+            # the block preconditioner's GEMM stays in full f32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.p_inv = self.tensor(block_precond_matrix(cfg.bs))
+        fas = self.solver_mode == "fas"
+        self.mg = MultigridPreconditioner(
+            self.ny, self.nx, self.dtype,
+            cycle_dtype=self.dtype if fas else None, fused_smoother=fas)
+        # f32 fields take their Krylov dot products in f64 (the JAX
+        # package does so whenever x64 is on)
+        self.sum_dtype = (torch.float64 if self.dtype == torch.float32
+                          else None)
+
+    def tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                               device=self.device)
+
+    def cell_centers(self):
+        x = (np.arange(self.nx) + 0.5) * self.h
+        y = (np.arange(self.ny) + 0.5) * self.h
+        return np.meshgrid(x, y, indexing="xy")
+
+    def zero_state(self) -> FlowState:
+        def z(*lead):
+            return torch.zeros(*lead, self.ny, self.nx, dtype=self.dtype,
+                               device=self.device)
+
+        return FlowState(vel=z(2), pres=z(), chi=z(), us=z(2), udef=z(2))
+
+    # -- dt control (main.cpp:6579-6595) --
+    def dt_from_umax(self, umax) -> torch.Tensor:
+        return dt_from_umax(
+            torch.as_tensor(umax, dtype=self.dtype, device=self.device),
+            torch.tensor(self.h, dtype=self.dtype, device=self.device),
+            self.cfg.nu, self.cfg.cfl)
+
+    def compute_dt(self, vel: torch.Tensor) -> torch.Tensor:
+        return self.dt_from_umax(torch.amax(torch.abs(vel)))
+
+    def laplacian(self, p: torch.Tensor) -> torch.Tensor:
+        return laplacian5_neumann(p)
+
+    def poisson_rhs(self, vel, chi, udef, dt) -> torch.Tensor:
+        """(h/2dt)[div u* - chi div u_def]; ``chi=None`` drops the obstacle
+        term."""
+        if chi is None:
+            return (0.5 * self.h / dt) * divergence_freeslip(vel)
+        return divergence_rhs_fused(vel, udef, chi, self.h, dt)
+
+    def precond(self, r: torch.Tensor) -> torch.Tensor:
+        return apply_block_precond(r, self.p_inv, self.cfg.bs)
+
+    @property
+    def poisson_mode(self) -> str:
+        if self.solver_mode == "fas":
+            return "fas-f" if self.fas_fmg else "fas"
+        return "bicgstab+mg" if self.cfg.precond else "bicgstab"
+
+    def pressure_solve(self, rhs: torch.Tensor, exact: bool = False):
+        """Solve lap(dp) = rhs (undivided). ``exact`` is the reference's
+        first-10-steps override (main.cpp:7028-7030): tol 0 with 100
+        restarts, exiting through the stall detector at the precision
+        floor; it always runs Krylov, also under fas."""
+        cfg = self.cfg
+        if self.solver_mode == "fas" and not exact:
+            return mg_solve(
+                self.laplacian, rhs, self.mg,
+                tol=cfg.poisson_tol, tol_rel=cfg.poisson_tol_rel,
+                max_cycles=cfg.max_poisson_iterations, fmg=self.fas_fmg)
+        return bicgstab(
+            self.laplacian, rhs,
+            M=self.mg if cfg.precond else None,
+            tol=0.0 if exact else cfg.poisson_tol,
+            tol_rel=0.0 if exact else cfg.poisson_tol_rel,
+            max_iter=cfg.max_poisson_iterations,
+            max_restarts=100 if exact else cfg.max_poisson_restarts,
+            sum_dtype=self.sum_dtype,
+            refresh_every=10 if exact else 50,
+            stall_iters=20 if exact else 120,
+            stall_rtol=0.99 if exact else 0.999,
+        )
+
+    def advect_heun(self, vel: torch.Tensor, dt) -> torch.Tensor:
+        """Two-stage Heun advection-diffusion (main.cpp:6607-6642), both
+        substages through the substage kernel (its twin on the CPU)."""
+        return fused_advect_heun(vel, self.h, self.cfg.nu, dt)
+
+    def project(self, vel, pres_old, chi, udef, dt, exact_poisson=False):
+        """deltap solve and correction (main.cpp:7007-7187). Returns (vel,
+        pres, solver_result, div_linf), div_linf the max |div| of the
+        pre-projection velocity in physical units."""
+        h = self.h
+        b = self.poisson_rhs(vel, chi, udef, dt)
+        div_linf = torch.amax(torch.abs(b)) * (dt / (h * h))
+        b = b - self.laplacian(pres_old)
+        res = self.pressure_solve(b, exact=exact_poisson)
+        vel, pres = project_correct(res.x, pres_old, vel, h, dt)
+        return vel, pres, res, div_linf
+
+    def precond_cycles(self, res, exact) -> int:
+        """Hierarchy cycles of one solve: FAS iterations are cycles,
+        flexible BiCGSTAB applies M twice per iteration."""
+        if self.solver_mode == "fas" and not exact:
+            return res.iters
+        if self.cfg.precond:
+            return 2 * res.iters
+        return 0
+
+    def step_diag(self, vel, pres, res, div_linf=None,
+                  exact=False) -> dict:
+        """Step diagnostics; tensor values stay on the device."""
+        umax = torch.amax(torch.abs(vel))
+        vv = vel.to(self.sum_dtype) if self.sum_dtype is not None else vel
+        energy = 0.5 * self.h * self.h * torch.sum(vv * vv)
+        return {
+            "poisson_iters": res.iters,
+            "poisson_residual": res.residual,
+            "poisson_stalled": res.stalled,
+            "poisson_converged": res.converged,
+            "finite": torch.isfinite(vel).all() & torch.isfinite(pres).all(),
+            "umax": umax,
+            "energy": energy,
+            "div_linf": div_linf,
+            "precond_cycles": self.precond_cycles(res, exact),
+            "dt_next": self.dt_from_umax(umax),
+        }
+
+    def step(self, state: FlowState, dt, exact_poisson: bool = False,
+             obstacle_terms: bool = True) -> tuple[FlowState, dict]:
+        """One projection step. ``obstacle_terms=False`` drops the
+        penalization update and the chi*div(u_def) RHS term, identically
+        zero without shapes."""
+        dt = torch.as_tensor(dt, dtype=self.dtype, device=self.device)
+        vel = self.advect_heun(state.vel, dt)
+        if obstacle_terms:
+            # Brinkman penalization implicit update (main.cpp:6961-6977)
+            alpha = torch.where(state.chi > 0.5, 1.0 / (1.0 + self.cfg.lam
+                                                         * dt),
+                                torch.ones_like(state.chi))
+            vel = alpha * vel + (1.0 - alpha) * state.us
+        vel, pres, res, div_linf = self.project(
+            vel, state.pres,
+            state.chi if obstacle_terms else None,
+            state.udef if obstacle_terms else None, dt, exact_poisson)
+        return state._replace(vel=vel, pres=pres), \
+            self.step_diag(vel, pres, res, div_linf, exact=exact_poisson)
+
+    def vorticity_field(self, vel: torch.Tensor) -> torch.Tensor:
+        return vorticity(pad_vector(vel, 1), 1, self.h)
+
+
+def _to_host(diag: dict) -> dict:
+    return {k: (v.item() if torch.is_tensor(v) else v)
+            for k, v in diag.items()}
+
+
+class UniformSim:
+    """Host-side driver of the obstacle-free step: time and step
+    counters, cached next dt."""
+
+    def __init__(self, cfg: SimConfig, level: Optional[int] = None,
+                 device=None, bc=None):
+        self.grid = UniformGrid(cfg, level, device=device, bc=bc)
+        self.cfg = cfg
+        self.state = self.grid.zero_state()
+        self.time = 0.0
+        self.step_count = 0
+        self._next_dt = None
+        self._force_exact = False
+        self.async_diag = False
+
+    @property
+    def poisson_mode(self) -> str:
+        return self.grid.poisson_mode
+
+    def step_once(self, dt: Optional[float] = None):
+        """One step with the reference's exact solves for the first 10
+        steps, the cached dt_next of the previous step, and one pull of
+        the diagnostics to the host; under ``async_diag`` the tensor
+        diagnostics (including the dt used) stay on the device and the
+        clock is left to the caller."""
+        g = self.grid
+        if dt is None:
+            if self._next_dt is not None:
+                dt = self._next_dt
+            else:
+                dt = float(g.compute_dt(self.state.vel))
+        exact = self.step_count < 10 or self._force_exact
+        dt_dev = torch.as_tensor(dt, dtype=g.dtype, device=g.device)
+        self.state, diag = g.step(self.state, dt_dev, exact_poisson=exact,
+                                  obstacle_terms=False)
+        if self.async_diag:
+            diag["dt"] = dt_dev
+            self._next_dt = diag["dt_next"]
+            self.step_count += 1
+            return diag
+        diag = _to_host(diag)
+        diag["dt"] = float(dt)
+        self._next_dt = float(diag["dt_next"])
+        self.time += float(dt)
+        self.step_count += 1
+        return diag
+
+    def advance(self, n_steps: int = 1, tend: Optional[float] = None,
+                exact_first_steps: bool = False):
+        """``n_steps`` steps at the CFL dt (clipped to land on ``tend``);
+        ``exact_first_steps`` mirrors the reference's tol-0 solves for
+        steps < 10."""
+        diag = {}
+        for _ in range(n_steps):
+            if tend is not None and self.time >= tend:
+                break
+            dt = float(self.grid.compute_dt(self.state.vel))
+            if tend is not None:
+                dt = min(dt, tend - self.time + 1e-15)
+            exact = exact_first_steps and self.step_count < 10
+            self.state, diag = self.grid.step(
+                self.state, dt, exact_poisson=exact, obstacle_terms=False)
+            self.time += dt
+            self.step_count += 1
+        return diag

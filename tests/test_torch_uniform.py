@@ -1,0 +1,198 @@
+"""Port parity for the whole obstacle-free uniform step (slice 1).
+
+* 10 production steps of Taylor-Green at 64^2 f64 under the default
+  solver and under CUP2D_POIS=fas/fas-f: vel and pres within 1e-10 of the
+  JAX package, equal Poisson iterations every step.
+* ``step_once``: the first 10 steps are the exact tol-0 solves, then the
+  production ones, with equal iterations and the same dt sequence.
+* The Taylor-Green decay bar of tests/test_taylor_green.py on the port.
+* convert.py round trip, the device policy and the loud refusals.
+* The port imports neither jax nor cup2d_tpu."""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import torch  # noqa: E402
+
+from cup2d_tpu.config import SimConfig  # noqa: E402
+from cup2d_tpu.uniform import UniformSim  # noqa: E402
+from cup2d_tpu.uniform import taylor_green_state as jtg  # noqa: E402
+from cup2d_tpu_torch import SimConfig as TConfig  # noqa: E402
+from cup2d_tpu_torch import UniformGrid as TGrid  # noqa: E402
+from cup2d_tpu_torch import UniformSim as TSim  # noqa: E402
+from cup2d_tpu_torch.convert import (config_from_dict,  # noqa: E402
+                                     state_from_numpy, state_to_numpy)
+from cup2d_tpu_torch.uniform import taylor_green_state  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TRAJ_BAR = 1e-10
+
+
+def _tg_kw(**kw):
+    base = dict(bpdx=1, bpdy=1, level_max=4, level_start=3, extent=1.0,
+                nu=1e-3, cfl=0.4, lam=0.0, dtype="float64")
+    base.update(kw)
+    return base
+
+
+def _pair(**kw):
+    """The same Taylor-Green start in both packages (state carried over
+    through convert.py)."""
+    cfg = SimConfig(**_tg_kw(**kw))
+    js = UniformSim(cfg)
+    js.state = jtg(js.grid)
+    ts = TSim(config_from_dict(dataclasses.asdict(cfg)), device="cpu")
+    ts.state = state_from_numpy(
+        {k: np.asarray(v) for k, v in js.state._asdict().items()},
+        "cpu", torch.float64)
+    return js, ts
+
+
+def _state_err(js, ts):
+    ev = np.max(np.abs(np.asarray(js.state.vel) - ts.state.vel.numpy()))
+    ep = np.max(np.abs(np.asarray(js.state.pres) - ts.state.pres.numpy()))
+    return ev, ep
+
+
+@pytest.mark.parametrize("pois", ["", "fas", "fas-f"])
+def test_trajectory_matches_jax(monkeypatch, pois):
+    monkeypatch.setenv("CUP2D_POIS", pois)
+    js, ts = _pair(poisson_tol=1e-9, poisson_tol_rel=0.0)
+    assert ts.poisson_mode == js.poisson_mode
+    for _ in range(10):
+        jd = js.advance(1)
+        td = ts.advance(1)
+        assert td["poisson_iters"] == int(jd["poisson_iters"]) > 0
+        assert td["poisson_converged"] == bool(jd["poisson_converged"])
+        ev, ep = _state_err(js, ts)
+        assert ev <= TRAJ_BAR and ep <= TRAJ_BAR, (ev, ep)
+    assert abs(ts.time - js.time) <= 1e-14
+
+
+def test_step_once_exact_startup_matches_jax():
+    js, ts = _pair()
+    for k in range(12):
+        jd = js.step_once()
+        td = ts.step_once()
+        # dt comes from umax, a reduction: equal to the last bit or two
+        assert abs(td["dt"] - jd["dt"]) <= 1e-15
+        assert td["poisson_iters"] == int(jd["poisson_iters"])
+        # the first 10 solves run at tol 0 and end at the precision floor
+        assert td["poisson_stalled"] == bool(jd["poisson_stalled"])
+        assert td["poisson_stalled"] == (k < 10)
+        assert td["precond_cycles"] == 2 * td["poisson_iters"]
+        for key in ("umax", "energy", "div_linf", "dt_next"):
+            assert abs(td[key] - float(jd[key])) <= TRAJ_BAR
+        ev, ep = _state_err(js, ts)
+        assert ev <= TRAJ_BAR and ep <= TRAJ_BAR, (ev, ep)
+
+
+def _tg_port(level=3, nu=1e-3):
+    cfg = TConfig(**_tg_kw(level_max=level + 1, level_start=level, nu=nu,
+                           poisson_tol=1e-11, poisson_tol_rel=0.0))
+    sim = TSim(cfg, device="cpu")
+    sim.state = taylor_green_state(sim.grid)
+    return sim
+
+
+def test_taylor_green_decay_bar():
+    nu = 1e-3
+    sim = _tg_port(nu=nu)
+    w0 = float(sim.grid.vorticity_field(sim.state.vel).abs().max())
+    sim.advance(n_steps=10_000, tend=0.2)
+    assert sim.time >= 0.2
+    w1 = float(sim.grid.vorticity_field(sim.state.vel).abs().max())
+    expected = np.exp(-2 * nu * np.pi ** 2 * sim.time)
+    assert abs(w1 / w0 - expected) / expected < 0.02, (w1 / w0, expected)
+
+
+def test_divergence_free_and_bounded_energy():
+    sim = _tg_port(level=2)
+    e0 = float((sim.state.vel ** 2).sum())
+    sim.advance(n_steps=20)
+    assert float((sim.state.vel ** 2).sum()) <= e0 * 1.001
+    # the central divergence of the projected field vanishes only to
+    # O(h^2) (the compact Laplacian is not div(grad)); at 64^2 the
+    # (h/2)-scaled form stays below 1e-5
+    from cup2d_tpu_torch.ops.stencil import divergence_freeslip
+    sim = _tg_port(level=3)
+    sim.advance(n_steps=5)
+    div = 0.5 * sim.grid.h * divergence_freeslip(sim.state.vel)
+    assert float(div.abs().max()) < 1e-5
+
+
+def test_convert_round_trip():
+    cfg = SimConfig(**_tg_kw(nu=3e-4, poisson_tol=1e-6))
+    tcfg = config_from_dict(dataclasses.asdict(cfg))
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
+    grid = TGrid(tcfg, device="cpu")
+    st = taylor_green_state(grid)
+    back = state_from_numpy(state_to_numpy(st), "cpu", torch.float64)
+    for a, b in zip(st, back):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="unknown"):
+        config_from_dict({"bogus": 1})
+
+
+def test_no_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TSim(TConfig(**_tg_kw()))
+
+
+def test_f64_on_the_card_refuses():
+    with pytest.raises(ValueError, match="f32 state only"):
+        TGrid(TConfig(**_tg_kw()), device="cuda")
+
+
+@pytest.mark.parametrize("env,value,exc", [
+    ("CUP2D_POIS", "fftd", NotImplementedError),
+    ("CUP2D_POIS", "typo", ValueError),
+    ("CUP2D_PREC", "bf16", NotImplementedError),
+    ("CUP2D_PREC", "f16", ValueError),
+])
+def test_latches_refuse_loudly(monkeypatch, env, value, exc):
+    monkeypatch.setenv(env, value)
+    with pytest.raises(exc, match=env):
+        TGrid(TConfig(**_tg_kw()), device="cpu")
+
+
+@pytest.mark.parametrize("pois", ["structured", "tables", "fft"])
+def test_forest_tokens_are_inert(monkeypatch, pois):
+    monkeypatch.setenv("CUP2D_POIS", pois)
+    assert TGrid(TConfig(**_tg_kw()), device="cpu").poisson_mode == \
+        "bicgstab+mg"
+
+
+def test_non_free_slip_table_refuses():
+    TGrid(TConfig(**_tg_kw()), device="cpu", bc="fs,fs,fs,fs")
+    with pytest.raises(NotImplementedError, match="ns,ns,ns,ns"):
+        TGrid(TConfig(**_tg_kw()), device="cpu", bc="ns,ns,ns,ns")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = ("import sys, cup2d_tpu_torch, cup2d_tpu_torch.convert; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'cup2d_tpu' "
+            "or m.startswith('cup2d_tpu.')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
+                     r"import\s+cup2d_tpu(?!_torch)\b|"
+                     r"from\s+cup2d_tpu(?!_torch)\b)", re.M)
+    files = [os.path.join(d, f)
+             for d, _, fs in os.walk(os.path.join(REPO, "cup2d_tpu_torch"))
+             for f in fs if f.endswith(".py")]
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    for path in files:
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
