@@ -7,17 +7,41 @@ NVIDIA card. Run from the repository root with no arguments:
 Phases, one output line or more each; any failure exits non-zero before
 the result lines:
 
-1. build the three Hopper kernels from ``cup2d_tpu_torch/ops/csrc`` (one
+1. build the five Hopper kernels from ``cup2d_tpu_torch/ops/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card;
 2. each kernel against its plain PyTorch twin on the card, f32, with the
-   bounds stated below, plus kernel and twin times (CUDA events);
-3. the main path: ``UniformGrid.step(obstacle_terms=False)`` on the
-   8192^2 f32 benchmark state, under the default solver (BiCGSTAB + bf16
-   multigrid) and under CUP2D_POIS=fas, one warm-up and five timed steps
-   each, with the kernel launch counts read around the whole phase;
+   bounds stated below (the forest lab RHS per h class, at the path's nu
+   and at a diffusion-dominated nu = 1), plus kernel and twin times
+   (CUDA events) and, for the block-Jacobi update, the time of
+   ``torch.addmm``;
+3. the uniform main path: ``UniformGrid.step(obstacle_terms=False)`` on
+   the 8192^2 f32 benchmark state, under the default solver (BiCGSTAB +
+   bf16 multigrid) and under CUP2D_POIS=fas, one warm-up and five timed
+   steps each, with the uniform kernels' launch counts set to 0 before
+   the phase and read after it;
 4. five ``UniformSim.step_once`` steps at 256^2 f32 on the card and on
    the CPU (which runs the twins), velocity relative Linf <= 1e-4: the
-   two devices sum in different orders.
+   two devices sum in different orders;
+5. the forest main path: ``amr.vortex_forest``, the synthetic-vortex
+   forest of the canonical domain (bpdx 2, bpdy 1, extent 4, levelStart 6,
+   levelMax 8, rtol 0.05, no compression, f32) adapted on the card past
+   10,000 blocks, then under the default solver (BiCGSTAB + block-Jacobi,
+   two-level on the iters>15 trigger) and under CUP2D_POIS=fas: 10
+   startup steps (exact solves), 5 production steps and one ``adapt()``,
+   each timed, with the forest kernels' launch counts set to 0 before
+   each run and read after it (2 lab-RHS launches per step; one
+   block-Jacobi launch per production FAS cycle, none under the default).
+   The default run is made twice from the same state and must repeat
+   itself bit for bit;
+6. a multilevel forest (``amr.multilevel_forest``, levelMax 5) on the
+   card and on the CPU, f32, 5 steps with an ``adapt()`` after the
+   second: equal block key sets and velocity relative Linf <= 1e-4, once
+   under CUP2D_POIS=fas at the production tolerances and once under the
+   default BiCGSTAB at tolerances 1e-6/1e-5. (At the production 1e-3/1e-2
+   a BiCGSTAB convergence test that lands on its edge takes one more
+   iteration on one device than on the other, and the states then differ
+   by the tolerance, not by rounding; 1000 times tighter, they agree
+   whatever the iteration counts.)
 
 Then one JSON line of per-kernel numbers, the card's name and power limit
 as nvidia-smi prints them, and the result line
@@ -35,8 +59,15 @@ import time
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import numpy as np  # noqa: E402
+
 from cup2d_tpu_torch import SimConfig, UniformGrid, UniformSim  # noqa: E402
+from cup2d_tpu_torch.amr import (AMRSim, multilevel_forest,  # noqa: E402
+                                 vortex_forest)
+from cup2d_tpu_torch.convert import (forest_from_numpy,  # noqa: E402
+                                     forest_to_numpy)
 from cup2d_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
+from cup2d_tpu_torch.poisson import block_precond_matrix  # noqa: E402
 from cup2d_tpu_torch.uniform import bench_state  # noqa: E402
 
 # bounds (f32, kernel vs plain twin on the same inputs)
@@ -44,7 +75,13 @@ HEUN_ABS = 2e-6        # unit-scale operands at dt = h/2; FMA contraction
 #                        in the kernel, amplified by ih2 = 1/h^2
 CORRECTION_ABS = 5e-6  # unit-scale operands
 JACOBI_REL = 2e-6      # relative to max |result|
+LAB_RHS_REL = 2e-6     # relative to max |result| over the blocks of one
+#                        h: the output scales with h and nu dt; FMA
+#                        contraction in the kernel
+BLOCK_JACOBI_REL = 2e-6  # relative to max |result|: summation order of
+#                          the 64-term products differs from the GEMM's
 TRAJ_REL = 1e-4        # card vs CPU after 5 steps: reduction order differs
+FOREST_TARGET = 10000  # active blocks of the forest main path
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # f32 operations/s outside the tensor cores
@@ -59,6 +96,12 @@ PEAK_F32 = 67e12
 OPS_SUBSTAGE_CELL = 2 * 368
 OPS_CORRECTION_CELL = 15     # 3 pressure, 2 x 3 gradient, 2 x 3 update
 OPS_SWEEP_CELL = 9           # 5 Laplacian, 4 update
+# forest lab RHS: the substage cell less its 3-op update, per component
+OPS_LAB_RHS_CELL = 2 * 365
+BYTES_LAB_RHS_BLOCK = 4 * (2 * 14 * 14 + 2 * 8 * 8 + 1)
+# block-Jacobi update: 64-term FMA chain (2 ops a term), subtract, add
+OPS_BLOCK_JACOBI_ELEM = 2 * 64 + 2
+BYTES_BLOCK_JACOBI_BLOCK = 4 * 4 * 64     # e, r, lap read; out written
 
 
 def card_line() -> str:
@@ -88,9 +131,44 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(fns, reps: int = 24) -> float:
+    """Device time per call of the small forest kernels: ``reps`` calls,
+    cycling over ``fns`` (one per operand set, so that the sets together
+    exceed the 50 MB L2 and every call reads cold operands), captured in
+    one CUDA graph and replayed, so host launch overhead does not count."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for k in range(reps):
+            fns[k % len(fns)]()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(5):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (5 * reps)
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def bench_grid(ny: int, nx: int, device):
@@ -201,6 +279,82 @@ def phase_kernels(dev):
                         ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
         del e, r
     torch.cuda.empty_cache()
+
+    # K4 on labs of unit-scale velocity with mixed per-block h: levels 6
+    # and 7 of the canonical domain and the pad rows' h = 1, at dt = h7/2.
+    # The output scales with the block (afac = -dt h, dfac = nu dt), so
+    # each h class is held relative to its own max |ref|: at the path's
+    # nu, where advection dominates and diffusion is 1-2% of a real row,
+    # and at nu = 1, where diffusion dominates 250-500x; a wrong afac or
+    # dfac fails both. Times (path's nu): per call in eager order (host
+    # launch included), and device time from graph replays over 3
+    # operand sets (77 MB at 16384 labs)
+    h6 = 4.0 / 2 / 8 / 64
+    dt = torch.tensor(0.25 * h6, device=dev)
+    for n in (128, 16384):
+        labs = [rn(n, 2, 14, 14) for _ in range(3)]
+        lab = labs[0]
+        cls = torch.arange(n, device=dev) % 3
+        h = torch.tensor([h6, h6 / 2, 1.0], device=dev)[cls].reshape(
+            n, 1, 1, 1)
+        for nu in (4e-5, 1.0):
+            got = hk.fused_lab_rhs(lab, h, nu, dt)
+            ref = hk.fused_lab_rhs_plain(lab, h, nu, dt)
+            diff = (got - ref).abs()
+            err = float(diff.max())
+            rel = max(float(diff[cls == c].max() / ref[cls == c].abs().max())
+                      for c in range(3))
+            check(rel <= LAB_RHS_REL, f"fused_lab_rhs [{n},2,14,14] nu={nu}"
+                  f": rel {rel} > {LAB_RHS_REL}")
+            note("fused_lab_rhs", err)
+            print(f"phase 2 fused_lab_rhs [{n},2,14,14] nu={nu}: max_abs_err "
+                  f"{err} (rel, worst h class, {rel})", flush=True)
+        eager = cuda_ms(lambda: hk.fused_lab_rhs(lab, h, 4e-5, dt), 20)
+        ms = graph_ms([lambda x=x: hk.fused_lab_rhs(x, h, 4e-5, dt)
+                       for x in labs])
+        pms = graph_ms([lambda x=x: hk.fused_lab_rhs_plain(x, h, 4e-5, dt)
+                        for x in labs], reps=6)
+        print(f"phase 2 fused_lab_rhs [{n},2,14,14]: kernel_ms {ms} (eager "
+              f"per call {eager}) twin_ms {pms}", flush=True)
+        b = bound(BYTES_LAB_RHS_BLOCK * n, OPS_LAB_RHS_CELL * 64 * n)
+        res["fused_lab_rhs"].update(ms=ms, plain_ms=pms, bound_ms=b[0],
+                                    bound_by=b[1], library_ms=None)
+        del labs, lab, got, ref
+
+    # K8 with the forest's own P_inv; library: one addmm, TF32 off.
+    # Device times from graph replays over 6 operand sets (72 MB at 16384)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p_inv = torch.tensor(block_precond_matrix(8), dtype=torch.float32,
+                         device=dev)
+    for n in (128, 16384):
+        sets = [(rn(n, 8, 8), rn(n, 8, 8), rn(n, 8, 8)) for _ in range(6)]
+        e, r, lap = sets[0]
+        got = hk.fused_block_jacobi_update(e, r, lap, p_inv)
+        ref = hk.block_jacobi_plain(e, r, lap, p_inv)
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        check(rel <= BLOCK_JACOBI_REL, f"fused_block_jacobi_update [{n},8,8]"
+              f": rel {rel} > {BLOCK_JACOBI_REL}")
+        note("fused_block_jacobi_update", err)
+        eager = cuda_ms(lambda: hk.fused_block_jacobi_update(
+            e, r, lap, p_inv), 50)
+        ms = graph_ms([lambda o=o: hk.fused_block_jacobi_update(*o, p_inv)
+                       for o in sets])
+        pms = graph_ms([lambda o=o: hk.block_jacobi_plain(*o, p_inv)
+                        for o in sets])
+        pt = p_inv.T
+        lms = graph_ms([lambda o=o: torch.addmm(
+            o[0].reshape(n, 64), o[1].reshape(n, 64) - o[2].reshape(n, 64),
+            pt) for o in sets])
+        print(f"phase 2 fused_block_jacobi_update [{n},8,8]: max_abs_err "
+              f"{err} (rel {rel}) kernel_ms {ms} (eager per call {eager}) "
+              f"twin_ms {pms} addmm_ms {lms}", flush=True)
+        b = bound(BYTES_BLOCK_JACOBI_BLOCK * n + 4 * 64 * 64,
+                  OPS_BLOCK_JACOBI_ELEM * 64 * n)
+        res["fused_block_jacobi_update"].update(
+            ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+            library_ms=lms)
+        del sets, e, r, lap, got, ref
     return res
 
 
@@ -268,6 +422,141 @@ def phase_trajectory(dev):
     check(rel <= TRAJ_REL, f"trajectory: card vs CPU {rel} > {TRAJ_REL}")
 
 
+def run_forest(sim, label: str) -> dict:
+    """10 startup steps, 5 production steps and one adapt() of one forest
+    sim, each timed; the forest kernels' counts run from 0."""
+    dev = sim.device
+    cuda = dev.type == "cuda"
+    n_blocks, n_pad = len(sim.forest.blocks), None
+    if cuda:
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats()
+    hk.reset_launches()
+    times, iters, cycles = [], [], []
+    for k in range(15):
+        sync(dev)
+        t0 = time.perf_counter()
+        d = sim.step_once()
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        iters.append(d["poisson_iters"])
+        cycles.append(d["precond_cycles"])
+        check(d["finite"], f"forest {label}: non-finite state at step {k}")
+        n_pad = sim._npad_hwm
+    t0 = time.perf_counter()
+    changed = sim.adapt()
+    sim._refresh()     # the table rebuild the next step would pay
+    sync(dev)
+    adapt_s = time.perf_counter() - t0
+    launches = {k: hk.launches[k] for k in
+                ("fused_lab_rhs", "fused_block_jacobi_update")}
+    out = {"mode": sim.poisson_mode, "blocks": n_blocks, "n_pad": n_pad,
+           "startup_ms_per_step": sum(times[:10]) / 10 * 1e3,
+           "ms_per_step": sum(times[10:]) / 5 * 1e3,
+           "startup_iters": iters[:10], "iters": iters[10:],
+           "precond_cycles": cycles[10:],
+           "adapt_s": adapt_s, "adapt_changed": changed,
+           "blocks_after_adapt": len(sim.forest.blocks),
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                        if cuda else None),
+           "launches": launches}
+    print(f"phase 5 forest {label} {json.dumps(out)}", flush=True)
+    check(launches["fused_lab_rhs"] == 2 * 15,
+          f"forest {label}: lab-RHS launches {launches} != 2/step")
+    fas_cycles = sum(iters[10:]) if label == "fas" else 0
+    check(launches["fused_block_jacobi_update"] == fas_cycles,
+          f"forest {label}: block-Jacobi launches {launches} != {fas_cycles}"
+          " (one per production FAS cycle)")
+    return out
+
+
+def phase_forest(dev, target=FOREST_TARGET, **kw) -> tuple[list, dict]:
+    """Phase 5: the forest main path under both solvers. Returns the runs
+    and the forest kernels' launch counts summed over them."""
+    os.environ.pop("CUP2D_POIS", None)
+    t0 = time.perf_counter()
+    sim = vortex_forest(target=target, device=dev, **kw)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    n = len(sim.forest.blocks)
+    levels = sorted({l for l, _, _ in sim.forest.blocks})
+    print(f"phase 5 forest built: {n} blocks on levels {levels} in "
+          f"{build_s} s", flush=True)
+    check(n >= target, f"forest: {n} blocks < {target}")
+    cfg, snap = sim.cfg, forest_to_numpy(sim)
+    del sim
+
+    def fresh(pois=None):
+        if pois:
+            os.environ["CUP2D_POIS"] = pois
+        try:
+            s = AMRSim(cfg, shapes=[], device=dev)
+        finally:
+            os.environ.pop("CUP2D_POIS", None)
+        forest_from_numpy(s, *snap)
+        return s
+
+    # the default run twice from the same state: the card must repeat
+    # itself bit for bit (iterations, adapted block set, velocity)
+    sims = [fresh(), fresh()]
+    runs = [run_forest(sims[0], "default")]
+    again = run_forest(sims[1], "default (repeat)")
+    (ka, va), (kb, vb) = (_ordered_vel(s) for s in sims)
+    same = (again["startup_iters"] == runs[0]["startup_iters"]
+            and again["iters"] == runs[0]["iters"] and ka == kb
+            and bool(torch.equal(va, vb)))
+    print(f"phase 5 forest default repeated bit for bit: {same}", flush=True)
+    check(same, "forest: two runs of the same state differ on the card")
+    del sims
+    runs.append(run_forest(fresh("fas"), "fas"))
+    total = {k: sum(r["launches"][k] for r in runs)
+             for k in runs[0]["launches"]}
+    return runs, total
+
+
+def _ordered_vel(sim) -> tuple[list, np.ndarray]:
+    fields = sim.fields()
+    order = sim.forest.order()
+    f = sim.forest
+    keys = [(int(f.level[s]), int(f.bi[s]), int(f.bj[s])) for s in order]
+    return keys, fields["vel"][torch.as_tensor(order, dtype=torch.long,
+                                               device=sim.device)].cpu()
+
+
+def phase_forest_cpu(dev, pois=None, **kw):
+    """Phase 6: the same small multilevel forest on the card and on the
+    CPU under one solver (None: the default), 5 steps with an adapt()
+    after the second."""
+    if pois:
+        os.environ["CUP2D_POIS"] = pois
+    try:
+        cpu = multilevel_forest(dtype="float32", device="cpu", **kw)
+        card = AMRSim(cpu.cfg, shapes=[], device=dev)
+    finally:
+        os.environ.pop("CUP2D_POIS", None)
+    forest_from_numpy(card, *forest_to_numpy(cpu))
+    card.step_count = cpu.step_count
+    iters = {"card": [], "cpu": []}
+    for k in range(5):
+        if k == 2:
+            a, b = card.adapt(), cpu.adapt()
+            check(a == b, f"multilevel: adapt changed card {a} cpu {b}")
+            check(set(card.forest.blocks) == set(cpu.forest.blocks),
+                  "multilevel: the card and the CPU adapted to different "
+                  "block sets (a tag within rounding of rtol)")
+        iters["card"].append(card.step_once()["poisson_iters"])
+        iters["cpu"].append(cpu.step_once()["poisson_iters"])
+    (kc, a), (kp, b) = _ordered_vel(card), _ordered_vel(cpu)
+    check(kc == kp, "multilevel: ordered block keys differ")
+    rel = float((a - b).abs().max() / b.abs().max())
+    print(f"phase 6 multilevel forest {card.poisson_mode} tol "
+          f"{card.cfg.poisson_tol}/{card.cfg.poisson_tol_rel} {len(kp)} "
+          f"blocks x5 steps: card iters {iters['card']} cpu iters "
+          f"{iters['cpu']} vel rel Linf {rel}", flush=True)
+    check(bool(torch.isfinite(a).all()), "multilevel: non-finite state")
+    check(rel <= TRAJ_REL, f"multilevel: card vs CPU {rel} > {TRAJ_REL}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -287,22 +576,34 @@ def main() -> int:
 
     res = phase_kernels(dev)
 
+    uniform = ("fused_advect_heun", "fused_correction",
+               "fused_jacobi_sweeps")
     hk.reset_launches()
     runs = [run_main_path(dev, p) for p in ("", "fas")]
-    launches = dict(hk.launches)
+    launches = {k: hk.launches[k] for k in uniform}
     for k, n in launches.items():
-        check(n > 0, f"{k}: launched no time on the main path")
+        check(n > 0, f"{k}: launched no time on the uniform main path")
 
     phase_trajectory(dev)
+
+    forest_runs, forest_launches = phase_forest(dev)
+    for k, n in forest_launches.items():
+        check(n > 0, f"{k}: launched no time on the forest main path")
+    launches.update(forest_launches)
+
+    phase_forest_cpu(dev, "fas")
+    phase_forest_cpu(dev, tol=1e-6, tol_rel=1e-5)
     check("jax" not in sys.modules, "the smoke imported jax")
 
     kernels = [dict(name=k, route="cuda", source=hk.SOURCES[k],
                     replaces=hk.REPLACES[k], launches=launches[k],
                     max_abs_err=res[k]["max_abs_err"], ms=res[k]["ms"],
                     plain_ms=res[k]["plain_ms"], bound_ms=res[k]["bound_ms"],
-                    bound_by=res[k]["bound_by"], library_ms=None)
+                    bound_by=res[k]["bound_by"],
+                    library_ms=res[k].get("library_ms"))
                for k in hk.launches]
     print(f"main path summary: {json.dumps(runs)}")
+    print(f"forest main path summary: {json.dumps(forest_runs)}")
     print(f"total {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,14 +1,17 @@
 """PyTorch/CUDA port of ``cup2d_tpu``: the obstacle-free uniform-grid
-projection step (``UniformGrid``, ``UniformSim``) with hand-written Hopper
-kernels for the Heun substage, the projection correction and the Jacobi
-smoother chains (``ops/hopper_kernels.py``).
+projection step (``UniformGrid``, ``UniformSim``) and the obstacle-free
+adaptive forest step (``amr.AMRSim``), with hand-written Hopper kernels
+for the Heun substage, the projection correction, the Jacobi smoother
+chains, the forest lab RHS and the forest block-Jacobi update
+(``ops/hopper_kernels.py``).
 
 The port imports torch and numpy only, never jax and nothing of
 ``cup2d_tpu``. Entry points run on ``cuda`` unless given
 ``device="cpu"``.
 """
 
+from .amr import AMRSim
 from .config import SimConfig
 from .uniform import FlowState, UniformGrid, UniformSim
 
-__all__ = ["FlowState", "SimConfig", "UniformGrid", "UniformSim"]
+__all__ = ["AMRSim", "FlowState", "SimConfig", "UniformGrid", "UniformSim"]

@@ -3,7 +3,11 @@
 Both directions go through plain Python and numpy, so neither package
 imports the other: ``config_from_dict`` takes ``dataclasses.asdict`` of a
 JAX ``SimConfig``; ``state_from_numpy`` takes the fields of a JAX
-``FlowState`` as numpy arrays (a mapping or a named tuple).
+``FlowState`` as numpy arrays (a mapping or a named tuple);
+``forest_from_numpy`` takes a forest's block keys and slot-layout fields
+(``{(level, i, j): slot}`` and ``{name: [capacity, dim, BS, BS]}``, as
+``Forest.blocks`` and ``Forest.fields`` of either package hold them) into
+a port ``AMRSim`` with the same topology.
 """
 
 from __future__ import annotations
@@ -43,3 +47,20 @@ def state_to_numpy(state: FlowState) -> dict:
     """The fields of a port ``FlowState`` as numpy arrays."""
     return {k: getattr(state, k).detach().cpu().numpy()
             for k in FlowState._fields}
+
+
+def forest_from_numpy(sim, blocks: dict, fields: dict) -> None:
+    """Give the port ``AMRSim`` ``sim`` the topology ``blocks`` and the
+    slot-layout ``fields`` of another forest (JAX or port). The port
+    assigns its own slots; the SFC order, and so the ordered state, is
+    the same block for block."""
+    sim.load_forest(dict(blocks),
+                    {k: np.asarray(v) for k, v in fields.items()})
+
+
+def forest_to_numpy(sim) -> tuple[dict, dict]:
+    """(blocks, fields) of a port ``AMRSim``, current (synced), fields as
+    numpy slot-layout arrays; the inverse of ``forest_from_numpy``."""
+    fields = sim.fields()
+    return (dict(sim.forest.blocks),
+            {k: v.detach().cpu().numpy() for k, v in fields.items()})

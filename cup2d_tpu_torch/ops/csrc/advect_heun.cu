@@ -22,13 +22,16 @@
 // (y ghosts copy u and negate v, x ghosts negate u and copy v of the
 // y-completed column, so a corner is (-u, -v) of the corner cell). The
 // halo is re-read by neighbouring blocks (1.6x loads, served mostly by
-// L2). Arithmetic follows ops/stencil.py term for term in f32; the
-// normalizer of the WENO weights is the bit-trick reciprocal, the weight
-// divide is a correctly rounded reciprocal. Only FMA contraction by the
-// compiler separates the result from the plain PyTorch version.
+// L2). The per-cell arithmetic is weno.cuh, shared with lab_rhs.cu: it
+// follows ops/stencil.py term for term in f32; the normalizer of the WENO
+// weights is the bit-trick reciprocal, the weight divide a correctly
+// rounded reciprocal. Only FMA contraction by the compiler separates the
+// result from the plain PyTorch version.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "weno.cuh"
 
 namespace {
 
@@ -38,55 +41,6 @@ constexpr int TY = 16;
 constexpr int LX = TX + 2 * G;
 constexpr int LY = TY + 2 * G;
 constexpr int THREADS_Y = 8;
-
-__device__ __forceinline__ float sq(float x) { return x * x; }
-
-__device__ __forceinline__ float weno5_plus(float um2, float um1, float u,
-                                            float up1, float up2) {
-    const float c1312 = (float)(13.0 / 12.0);
-    float b1 = c1312 * sq((um2 + u) - 2.0f * um1)
-             + 0.25f * sq((um2 + 3.0f * u) - 4.0f * um1);
-    float b2 = c1312 * sq((um1 + up1) - 2.0f * u) + 0.25f * sq(um1 - up1);
-    float b3 = c1312 * sq((u + up2) - 2.0f * up1)
-             + 0.25f * sq((3.0f * u + up2) - 4.0f * up1);
-    // max-normalized weights, bit-trick reciprocal of the normalizer
-    float bmax = fmaxf(fmaxf(b1, b2), b3) + 1e-6f;
-    float m = __int_as_float(0x7EF311C3 - __float_as_int(bmax));
-    float r1 = (b1 + 1e-6f) * m;
-    float r2 = (b2 + 1e-6f) * m;
-    float r3 = (b3 + 1e-6f) * m;
-    float s1 = r1 * r1, s2 = r2 * r2, s3 = r3 * r3;
-    float n1 = 0.1f * (s2 * s3);
-    float n2 = 0.6f * (s1 * s3);
-    float n3 = 0.3f * (s1 * s2);
-    float den = (n1 + n3) + n2;
-    bool ok = den > 1e-35f;
-    float aux = __frcp_rn(ok ? den : 1.0f);
-    float w1 = ok ? n1 * aux : 0.1f;
-    float w2 = ok ? n2 * aux : 0.6f;
-    float w3 = ok ? n3 * aux : 0.3f;
-    float f1 = (float)(11.0 / 6.0) * u
-             + ((float)(1.0 / 3.0) * um2 - (float)(7.0 / 6.0) * um1);
-    float f2 = (float)(5.0 / 6.0) * u
-             + ((float)(-1.0 / 6.0) * um1 + (float)(1.0 / 3.0) * up1);
-    float f3 = (float)(1.0 / 3.0) * u
-             + ((float)(5.0 / 6.0) * up1 - (float)(1.0 / 6.0) * up2);
-    return (w1 * f1 + w3 * f3) + w2 * f2;
-}
-
-// the mirror identity: weno5_minus(a,b,c,d,e) == weno5_plus(e,d,c,b,a),
-// so the stencil is selected by wind sign (strict: wind == 0 -> minus)
-__device__ __forceinline__ float weno_derivative(float wind, float um3,
-                                                 float um2, float um1,
-                                                 float u, float up1,
-                                                 float up2, float up3) {
-    bool pos = wind > 0.0f;
-    float t1 = weno5_plus(pos ? um2 : up3, pos ? um1 : up2, pos ? u : up1,
-                          pos ? up1 : u, pos ? up2 : um1);
-    float t2 = weno5_plus(pos ? um3 : up2, pos ? um2 : up1, pos ? um1 : u,
-                          pos ? u : um1, pos ? up1 : um2);
-    return t1 - t2;
-}
 
 __global__ void __launch_bounds__(TX * THREADS_Y)
 substage_kernel(const float* __restrict__ v, const float* __restrict__ vold,
@@ -128,18 +82,11 @@ substage_kernel(const float* __restrict__ v, const float* __restrict__ vold,
         const size_t cell = (size_t)y * nx + x;
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-            const float (*q)[LX] = lab[c];
-            float dx = weno_derivative(wu, q[j][i - 3], q[j][i - 2],
-                                       q[j][i - 1], q[j][i], q[j][i + 1],
-                                       q[j][i + 2], q[j][i + 3]);
-            float dy = weno_derivative(wv, q[j - 3][i], q[j - 2][i],
-                                       q[j - 1][i], q[j][i], q[j + 1][i],
-                                       q[j + 2][i], q[j + 3][i]);
-            float lap = q[j][i + 1] + q[j][i - 1] + q[j + 1][i]
-                      + q[j - 1][i] - 4.0f * q[j][i];
-            float rhs = afac * (wu * dx + wv * dy) + dfac * lap;
+            const float* q = &lab[c][j][i];
+            float rhs = cup2d::advect_diffuse_cell(q, LX, wu, wv, afac,
+                                                   dfac);
             size_t o = ((size_t)l * 2 + c) * plane + cell;
-            float vo = vold ? vold[o] : q[j][i];
+            float vo = vold ? vold[o] : q[0];
             out[o] = vo + cfac * rhs * ih2;
         }
     }

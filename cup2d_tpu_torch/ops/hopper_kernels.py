@@ -1,19 +1,27 @@
-"""Hand-written Hopper kernels of the uniform step, their plain PyTorch
-twins and their launch counters.
+"""Hand-written Hopper kernels of the uniform and forest steps, their
+plain PyTorch twins and their launch counters.
 
-Three CUDA C++ kernels (``csrc/*.cu``, built for ``sm_90a``) replace the
-three Pallas kernels of ``cup2d_tpu/ops/pallas_kernels.py`` that the
-obstacle-free uniform step runs:
+Five CUDA C++ kernels (``csrc/*.cu``, built for ``sm_90a``) replace the
+Pallas kernels of ``cup2d_tpu/ops/pallas_kernels.py`` that the
+obstacle-free uniform step (the first three) and the obstacle-free forest
+step (the last two) run:
 
-=======================  ==================================  ==================
-wrapper                  replaces                            source
-=======================  ==================================  ==================
-``fused_advect_heun``    ``_substage_kernel`` (both Heun     ``advect_heun.cu``
-                         substages, free-slip, f32)
-``fused_correction``     ``_correct_kernel`` (Neumann, f32)  ``correction.cu``
-``fused_jacobi_sweeps``  ``_jacobi_strips_kernel``           ``jacobi.cu``
-                         (Neumann, f32)
-=======================  ==================================  ==================
+=============================  ===============================  ===================
+wrapper                        replaces                         source
+=============================  ===============================  ===================
+``fused_advect_heun``          ``_substage_kernel`` (both Heun  ``advect_heun.cu``
+                               substages, free-slip, f32)
+``fused_correction``           ``_correct_kernel`` (Neumann,    ``correction.cu``
+                               f32)
+``fused_jacobi_sweeps``        ``_jacobi_strips_kernel``        ``jacobi.cu``
+                               (Neumann, f32)
+``fused_lab_rhs``              ``_lab_kernel`` (forest labs,    ``lab_rhs.cu``
+                               f32)
+``fused_block_jacobi_update``  ``_block_jacobi_kernel`` (f32)   ``block_jacobi.cu``
+=============================  ===============================  ===================
+
+The two WENO kernels share their per-cell arithmetic through
+``csrc/weno.cuh``.
 
 Dispatch is by the device of the tensors alone: CPU tensors run the plain
 twin (the same op sequence as the JAX package's XLA chain, which the CPU
@@ -28,8 +36,8 @@ without ``--use_fast_math``: IEEE divides and denormals are kept, which
 the WENO ``den > 1e-35`` guard relies on.
 
 ``launches`` counts kernel launches per wrapper (one per substage for the
-advection kernel, one per chain of at most six sweeps for the smoother);
-twin calls do not count.
+advection kernel, one per chain of at most six sweeps for the smoother,
+one per call for the forest kernels); twin calls do not count.
 """
 
 from __future__ import annotations
@@ -45,8 +53,8 @@ from pathlib import Path
 import torch
 
 from .stencil import (_edge_ones, _zshift, advect_diffuse_core,
-                      heun_substage, inv_diag_neumann, laplacian5_neumann,
-                      pad_vector)
+                      advect_diffuse_rhs, heun_substage, inv_diag_neumann,
+                      laplacian5_neumann, pad_vector)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
@@ -62,21 +70,28 @@ _ENTRIES = {
                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]),
     "jacobi": ("cup2d_jacobi_sweeps",
                [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
+    "lab_rhs": ("cup2d_lab_rhs", [_P, _P, _P, _F, _P, _I, _P]),
+    "block_jacobi": ("cup2d_block_jacobi", [_P, _P, _P, _P, _P, _I, _P]),
 }
 
 launches = {"fused_advect_heun": 0, "fused_correction": 0,
-            "fused_jacobi_sweeps": 0}
+            "fused_jacobi_sweeps": 0, "fused_lab_rhs": 0,
+            "fused_block_jacobi_update": 0}
 
 # the TPU kernel each wrapper replaces, for reports
 REPLACES = {
     "fused_advect_heun": "cup2d_tpu/ops/pallas_kernels.py:329",
     "fused_correction": "cup2d_tpu/ops/pallas_kernels.py:804",
     "fused_jacobi_sweeps": "cup2d_tpu/ops/pallas_kernels.py:979",
+    "fused_lab_rhs": "cup2d_tpu/ops/pallas_kernels.py:756",
+    "fused_block_jacobi_update": "cup2d_tpu/ops/pallas_kernels.py:1345",
 }
 SOURCES = {
     "fused_advect_heun": "cup2d_tpu_torch/ops/csrc/advect_heun.cu",
     "fused_correction": "cup2d_tpu_torch/ops/csrc/correction.cu",
     "fused_jacobi_sweeps": "cup2d_tpu_torch/ops/csrc/jacobi.cu",
+    "fused_lab_rhs": "cup2d_tpu_torch/ops/csrc/lab_rhs.cu",
+    "fused_block_jacobi_update": "cup2d_tpu_torch/ops/csrc/block_jacobi.cu",
 }
 
 JACOBI_MAX_SWEEPS = 6
@@ -105,7 +120,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(stem: str) -> Path:
-    src = (_CSRC / f"{stem}.cu").read_bytes()
+    # every header counts: a .cu that includes one must rebuild with it
+    src = (_CSRC / f"{stem}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{stem}-{tag[:16]}.so"
 
@@ -323,3 +340,75 @@ def fused_jacobi_sweeps(e, r, omega, n, from_zero=False):
         cur = out
         left -= k
     return cur
+
+
+# ---------------------------------------------------------------------------
+# K4: WENO5 advection + diffusion RHS over forest labs
+# ---------------------------------------------------------------------------
+
+def fused_lab_rhs_plain(lab, h, nu, dt):
+    """Plain twin: ``advect_diffuse_rhs(lab, 3, h, nu, dt)`` on labs
+    [N, 2, 14, 14] with ``h`` shaped [N, 1, 1, 1] (or a scalar)."""
+    return advect_diffuse_rhs(lab, 3, h, nu, dt)
+
+
+def fused_lab_rhs(lab, h, nu, dt):
+    """WENO5 advect-diffuse RHS over pre-assembled forest labs
+    [N, 2, BS+6, BS+6] -> [N, 2, BS, BS] with per-block h ([N, 1, 1, 1]
+    or [N]) and a scalar dt: the kernel for CUDA tensors, the twin for
+    CPU ones. The kernel forms afac = -dt h and dfac = nu dt itself, from
+    device operands, so a call is one launch."""
+    if not _on_cuda(lab):
+        return fused_lab_rhs_plain(lab, h, nu, dt)
+    n, two, hp, wp = lab.shape
+    if two != 2 or hp != 14 or wp != 14:
+        raise ValueError(f"fused_lab_rhs: lab {tuple(lab.shape)}: expected "
+                         "[N, 2, 14, 14] (BS 8, 3 ghost cells)")
+    if not torch.is_tensor(h):
+        h = torch.full((n,), float(h), device=lab.device)
+    if not torch.is_tensor(dt):
+        dt = torch.tensor(float(dt), device=lab.device)
+    h = h.reshape(-1)
+    if h.shape != (n,) or dt.numel() != 1:
+        raise ValueError(f"fused_lab_rhs: h {tuple(h.shape)} / dt "
+                         f"{tuple(dt.shape)}: expected one h per block and "
+                         "a scalar dt")
+    _check_f32("fused_lab_rhs", lab=lab, h=h, dt=dt)
+    out = lab.new_empty((n, 2, 8, 8))
+    _launch("lab_rhs", lab.data_ptr(), h.data_ptr(), dt.data_ptr(),
+            float(nu), out.data_ptr(), n)
+    launches["fused_lab_rhs"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K8: one forest block-Jacobi update e + P_inv (r - lap)
+# ---------------------------------------------------------------------------
+
+def block_jacobi_plain(e, r, lap, p_inv):
+    """Plain twin: ``e + apply_block_precond_blocks(r - lap, p_inv)`` on
+    [N, BS, BS] block stacks (the JAX package's XLA composition)."""
+    n, bs, _ = r.shape
+    d = r - lap
+    return e + (d.reshape(n, bs * bs) @ p_inv.T).reshape(n, bs, bs)
+
+
+def fused_block_jacobi_update(e, r, lap, p_inv):
+    """e + P_inv (r - lap) over [N, 8, 8] f32 stacks, P_inv [64, 64]: the
+    kernel for CUDA tensors (an f32 FMA chain, no TF32), the twin for CPU
+    ones."""
+    if not _on_cuda(e, r, lap, p_inv):
+        return block_jacobi_plain(e, r, lap, p_inv)
+    n = e.shape[0]
+    if (e.shape != (n, 8, 8) or r.shape != e.shape or lap.shape != e.shape
+            or p_inv.shape != (64, 64)):
+        raise ValueError(
+            f"fused_block_jacobi_update: e {tuple(e.shape)}, r "
+            f"{tuple(r.shape)}, lap {tuple(lap.shape)}, p_inv "
+            f"{tuple(p_inv.shape)}: expected [N, 8, 8] x3 and [64, 64]")
+    _check_f32("fused_block_jacobi_update", e=e, r=r, lap=lap, p_inv=p_inv)
+    out = torch.empty_like(e)
+    _launch("block_jacobi", p_inv.data_ptr(), e.data_ptr(), r.data_ptr(),
+            lap.data_ptr(), out.data_ptr(), n)
+    launches["fused_block_jacobi_update"] += 1
+    return out

@@ -285,6 +285,46 @@ def pressure_gradient_update_fused(p: torch.Tensor, h, dt) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Lab forms of the projection operators (the forest assembles ghost labs)
+# ---------------------------------------------------------------------------
+
+def divergence(vlab: torch.Tensor, g: int) -> torch.Tensor:
+    """Undivided central divergence of a vector lab
+    [..., 2, Ny+2g, Nx+2g] -> [..., Ny, Nx] (pressure_rhs,
+    main.cpp:6105-6139)."""
+    if g < 1:
+        raise ValueError(f"divergence needs g >= 1 ghost cells, got {g}")
+    return (
+        shift(vlab, g, 0, 1)[..., 0, :, :] - shift(vlab, g, 0, -1)[..., 0, :, :]
+        + shift(vlab, g, 1, 0)[..., 1, :, :] - shift(vlab, g, -1, 0)[..., 1, :, :]
+    )
+
+
+def laplacian5(plab: torch.Tensor, g: int) -> torch.Tensor:
+    """Undivided 5-point Laplacian of a scalar lab [..., Ny+2g, Nx+2g]."""
+    if g < 1:
+        raise ValueError(f"laplacian5 needs g >= 1 ghost cells, got {g}")
+    return (
+        shift(plab, g, 0, 1) + shift(plab, g, 0, -1)
+        + shift(plab, g, 1, 0) + shift(plab, g, -1, 0)
+        - 4.0 * shift(plab, g, 0, 0)
+    )
+
+
+def pressure_gradient_update(plab: torch.Tensor, g: int, h, dt):
+    """h^2-scaled velocity increment -(dt h / 2) grad p [..., 2, Ny, Nx]
+    from a pressure lab [..., Ny+2g, Nx+2g] (pressureCorrectionKernel,
+    main.cpp:6021-6043)."""
+    if g < 1:
+        raise ValueError(f"pressure_gradient_update needs g >= 1 ghost "
+                         f"cells, got {g}")
+    pfac = -0.5 * dt * h
+    dpx = shift(plab, g, 0, 1) - shift(plab, g, 0, -1)
+    dpy = shift(plab, g, 1, 0) - shift(plab, g, -1, 0)
+    return pfac * torch.stack([dpx, dpy], dim=-3)
+
+
+# ---------------------------------------------------------------------------
 # Vorticity (KernelVorticity, main.cpp:3343-3366)
 # ---------------------------------------------------------------------------
 

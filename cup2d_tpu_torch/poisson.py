@@ -1,5 +1,5 @@
 """Matrix-free pressure-Poisson solvers: the counterpart of
-``cup2d_tpu.poisson`` for the uniform Neumann box.
+``cup2d_tpu.poisson`` for the uniform Neumann box and the forest.
 
 * ``block_precond_matrix`` / ``apply_block_precond``: the reference's
   block-Jacobi preconditioner (main.cpp:6451-6488) as a batched GEMM.
@@ -15,6 +15,10 @@
   the true residual.
 * ``project_correct``: the projection epilogue, through
   ``hopper_kernels.fused_correction``.
+* The forest's pieces: ``apply_block_precond_blocks``, the DCT-II exact
+  Neumann base solve (``dct_neumann_operators``,
+  ``coarse_neumann_solve_dct``), the image ladder steps and
+  ``ForestFASCycle``.
 
 The JAX package runs both solvers as on-device ``lax.while_loop``s. Here
 they are host loops that read the iteration's few control bits from the
@@ -64,6 +68,13 @@ def apply_block_precond(r: torch.Tensor, p_inv: torch.Tensor,
     z = tiles @ p_inv.T
     z = z.reshape(*lead, nby, nbx, bs, bs).transpose(-3, -2)
     return z.reshape(r.shape)
+
+
+def apply_block_precond_blocks(r: torch.Tensor,
+                               p_inv: torch.Tensor) -> torch.Tensor:
+    """Same, for block-forest layout [N, bs, bs]."""
+    n, bs, _ = r.shape
+    return (r.reshape(n, bs * bs) @ p_inv.T).reshape(n, bs, bs)
 
 
 class MultigridPreconditioner:
@@ -338,6 +349,167 @@ def mg_solve(
     return BiCGSTABResult(x=x, iters=it, residual=float(norm),
                           converged=converged,
                           stalled=not converged and no_impr >= stall_cycles)
+
+
+# ---------------------------------------------------------------------------
+# The spectral base solve and the forest-native FAS hierarchy
+# ---------------------------------------------------------------------------
+
+def dct_neumann_operators(ncy: int, ncx: int, dtype=np.float32):
+    """Host operators of the matmul form of the exact Neumann solve:
+    DCT-II basis matrices (forward, and the exact inverse from the
+    orthogonality weights) and the reciprocal eigenvalue grid with the
+    constant nullspace mode zeroed. The basis is cos(pi k (i+0.5)/n) with
+    eigenvalues 2cos(pi k/n) - 2 per axis."""
+    def fwd(n):
+        k = np.arange(n)[:, None]
+        i = np.arange(n)[None, :]
+        return np.cos(np.pi * k * (i + 0.5) / n)
+
+    cyf = fwd(ncy)
+    cxf = fwd(ncx)
+    # exact inverse from DCT-II row orthogonality: row norms are n (k=0)
+    # and n/2 (k>0)
+    wy = np.full(ncy, 2.0 / ncy)
+    wy[0] = 1.0 / ncy
+    wx = np.full(ncx, 2.0 / ncx)
+    wx[0] = 1.0 / ncx
+    cyi = (cyf * wy[:, None]).T
+    cxi = (cxf * wx[:, None]).T
+    ky = 2.0 * np.cos(np.pi * np.arange(ncy) / ncy) - 2.0
+    kx = 2.0 * np.cos(np.pi * np.arange(ncx) / ncx) - 2.0
+    lam = ky[:, None] + kx[None, :]
+    ilam = np.where(lam < -1e-12, 1.0 / np.where(lam < -1e-12, lam, 1.0),
+                    0.0)
+    return (cyf.astype(dtype), cyi.astype(dtype),
+            cxf.astype(dtype), cxi.astype(dtype), ilam.astype(dtype))
+
+
+def coarse_neumann_solve_dct(rc: torch.Tensor, ops, h2) -> torch.Tensor:
+    """Exact solve of the undivided 5-point Neumann Laplacian as 4
+    matmuls (see dct_neumann_operators), returning e * h2 with the
+    constant mode projected out. The products run in full f32 on the
+    card (TF32 off, set by ``AMRSim``): a truncated pass would corrupt the
+    cosine bases."""
+    cyf, cyi, cxf, cxi, ilam = ops
+    F = (cyf @ rc) @ cxf.T
+    return h2 * ((cyi @ (F * ilam)) @ cxi.T)
+
+
+def _up2_bilinear(a: torch.Tensor) -> torch.Tensor:
+    """Cell-centred 2x bilinear upsample of a [H, W] image with edge
+    clamp: fine centres sit at quarter offsets, so the separable weights
+    are (3/4, 1/4)."""
+    def up1(v):
+        vm = torch.cat([v[:1], v[:-1]], dim=0)
+        vp = torch.cat([v[1:], v[-1:]], dim=0)
+        even = 0.75 * v + 0.25 * vm
+        odd = 0.75 * v + 0.25 * vp
+        return torch.stack([even, odd], dim=1).reshape(
+            2 * v.shape[0], *v.shape[1:])
+    return up1(up1(a).T).T
+
+
+def _down2_mean(a: torch.Tensor) -> torch.Tensor:
+    """2x2 mean coarsening of a [H, W] image (each fine cell carries
+    weight 1/4)."""
+    rows = a[0::2, :] + a[1::2, :]
+    return 0.25 * (rows[:, 0::2] + rows[:, 1::2])
+
+
+def _img_lap_neumann(a: torch.Tensor) -> torch.Tensor:
+    """Undivided 5-point Laplacian of a [H, W] image with zero-gradient
+    (edge-replicate) ghosts: a window edge is a domain wall or a
+    refinement interface, where zero-gradient extrapolation suits the
+    smooth error the coarser rungs carry."""
+    p = torch.nn.functional.pad(a[None, None], (1, 1, 1, 1),
+                                mode="replicate")[0, 0]
+    return (p[2:, 1:-1] + p[:-2, 1:-1]
+            + p[1:-1, 2:] + p[1:-1, :-2]) - 4.0 * a
+
+
+class ForestFASCycle:
+    """One multigrid cycle over the composite forest's own refinement
+    levels: the ``mg`` object of ``mg_solve`` for the forest's
+    ``CUP2D_POIS=fas|fas-f`` production solve (a linear problem, so FAS
+    reduces to the correction scheme).
+
+    Levels, finest first: the composite level (all active blocks at
+    their own resolution, damped block-Jacobi through ``smooth_blocks``);
+    one window image per forest level above the coarse level c (painted
+    by ``paint_fine``, smoothed by damped Jacobi on ``_img_lap_neumann``,
+    walked by 2x sum / bilinear steps); the uniform base level c, solved
+    exactly by the DCT-II solve (``base_solve``). The transfer closures
+    come from ``AMRSim._fas_transfers``. ``__call__`` runs a V-cycle
+    (block pre-smooth first); ``fcycle`` opens base level first (no
+    pre-smooth) for cold right-hand sides. Every leg runs at solver
+    precision (the JAX package's bf16 leg tier is not ported)."""
+
+    def __init__(self, A, smooth_blocks, paint_fine, base_solve,
+                 extract_all, cih2, nu_img: int = 2,
+                 omega: float = 0.8, nu_pre: int = 1, nu_post: int = 1):
+        self.A = A
+        self.smooth_blocks = smooth_blocks
+        self.paint_fine = paint_fine
+        self.base_solve = base_solve
+        self.extract_all = extract_all
+        self.cih2 = cih2
+        self.nu_img = nu_img
+        self.omega = omega
+        self.nu_pre = nu_pre
+        self.nu_post = nu_post
+
+    def _img_smooth(self, e, r, n: int, from_zero: bool = False):
+        # damped Jacobi on the Neumann-ghost window image; interior
+        # diagonal of the undivided 5-point operator is -4
+        if from_zero and n > 0:
+            e = (-0.25 * self.omega) * r
+            n -= 1
+        for _ in range(n):
+            e = e - 0.25 * self.omega * (r - _img_lap_neumann(e))
+        return e
+
+    def _cycle(self, r, pre: bool):
+        if pre:
+            e = self.smooth_blocks(None, r, self.nu_pre, from_zero=True)
+            r1 = r - self.A(e)
+        else:
+            e = None
+            r1 = r
+        rdiv = r1 * self.cih2            # divided residual per block
+        rimgs = self.paint_fine(rdiv)    # finest -> c+1, undivided
+        # V-down over the window-image levels: smooth, restrict the
+        # smoothed residual one ladder step, fold in the next level's
+        # own deposit (undivided restriction = sum of 4)
+        es, accs = [], []
+        racc = None
+        for R in rimgs:
+            racc = R if racc is None else R + racc
+            accs.append(racc)
+            el = self._img_smooth(None, racc, self.nu_img, from_zero=True)
+            es.append(el)
+            res = racc - _img_lap_neumann(el)
+            rows = res[0::2, :] + res[1::2, :]
+            racc = rows[:, 0::2] + rows[:, 1::2]
+        # exact spectral base solve (folds the <= c deposits of rdiv in);
+        # awin = the window slice of the base correction
+        ec, awin = self.base_solve(rdiv, racc)
+        # V-up: prolongate, add the stored level error, post-smooth
+        # against the stored accumulated RHS
+        for i in range(len(rimgs) - 1, -1, -1):
+            a = _up2_bilinear(awin) + es[i]
+            awin = self._img_smooth(a, accs[i], self.nu_img)
+            es[i] = awin
+        corr = self.extract_all(ec, es)
+        e = corr if e is None else e + corr
+        return self.smooth_blocks(e, r, self.nu_post)
+
+    def __call__(self, r):
+        return self._cycle(r, pre=True)
+
+    def fcycle(self, r):
+        # coarse-first opening for cold right-hand sides (fas-f)
+        return self._cycle(r, pre=False)
 
 
 def project_correct(x, pres_old, vel, h, dt):

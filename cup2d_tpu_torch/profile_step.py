@@ -1,14 +1,19 @@
-"""Where the time of the uniform step goes on the card.
+"""Where the time of the uniform or the forest step goes on the card.
 
-Runs ``UniformGrid.step(obstacle_terms=False)`` on the benchmark state
-(``bench_state``, dt = h/2, f32) under each solver, one warm-up step and
-then ``--steps`` steps under ``torch.profiler``, and prints per solver:
-the wall time per step, the device-busy share (sum of kernel times over
-the wall time of the window), the Poisson iterations, and the kernels
-that take the most device time. The Chrome trace of each window goes to
+Uniform (default): runs ``UniformGrid.step(obstacle_terms=False)`` on the
+benchmark state (``bench_state``, dt = h/2, f32) under each solver, one
+warm-up step and then ``--steps`` steps under ``torch.profiler``.
+Forest (``--forest``): builds ``amr.vortex_forest`` (the ~1e4-block
+synthetic-vortex forest of the canonical domain), runs its 10 startup
+steps and one production step unprofiled, then ``--steps`` production
+``AMRSim.step_once`` steps under the profiler. Prints per solver: the
+wall time per step, the device-busy share (sum of kernel times over the
+wall time of the window), the Poisson iterations, and the kernels that
+take the most device time. The Chrome trace of each window goes to
 ``--out`` (default ``build/profile/``, which git ignores).
 
     python -m cup2d_tpu_torch.profile_step --size 8192 --steps 3
+    python -m cup2d_tpu_torch.profile_step --forest --steps 3
 """
 
 from __future__ import annotations
@@ -17,6 +22,62 @@ import argparse
 import json
 import os
 import time
+
+
+def _summary(prof, steps, wall_ms, top):
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    rows = [{"kernel": e.key[:90], "calls": e.count,
+             "ms_per_step": e.self_device_time_total / 1e3 / steps}
+            for e in events[:top]]
+    return {"wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms / steps,
+            "device_busy_share": device_ms / wall_ms, "top": rows}
+
+
+def profile_forest(steps: int, pois: str, out_dir: str, top: int,
+                   start=None) -> tuple[dict, tuple]:
+    """Profile ``steps`` production steps of the forest under ``pois``.
+    ``start`` = (cfg, blocks, fields) of a forest built earlier, or None
+    to build ``vortex_forest``; returns the summary and the start."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .amr import AMRSim, vortex_forest
+    from .convert import forest_from_numpy, forest_to_numpy
+
+    os.environ.pop("CUP2D_POIS", None)
+    if pois:
+        os.environ["CUP2D_POIS"] = pois
+    try:
+        if start is None:
+            sim = vortex_forest()
+            start = (sim.cfg,) + forest_to_numpy(sim)
+        else:
+            sim = AMRSim(start[0], shapes=[])
+            forest_from_numpy(sim, start[1], start[2])
+    finally:
+        os.environ.pop("CUP2D_POIS", None)
+    for _ in range(11):
+        sim.step_once()
+    torch.cuda.synchronize()
+    iters = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            iters.append(sim.step_once()["poisson_iters"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        out_dir, f"trace_forest_{sim.poisson_mode}.json"))
+    out = {"mode": sim.poisson_mode, "blocks": len(sim.forest.blocks),
+           "n_pad": sim._npad_hwm, "steps": steps, "iters": iters}
+    out.update(_summary(prof, steps, wall_ms, top))
+    return out, start
 
 
 def profile_solver(size: int, steps: int, pois: str, out_dir: str,
@@ -51,17 +112,10 @@ def profile_solver(size: int, steps: int, pois: str, out_dir: str,
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(
         out_dir, f"trace_{grid.poisson_mode}_{size}.json"))
-    events = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA"]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    rows = [{"kernel": e.key[:90], "calls": e.count,
-             "ms_per_step": e.self_device_time_total / 1e3 / steps}
-            for e in events[:top]]
-    return {"mode": grid.poisson_mode, "size": size, "steps": steps,
-            "iters": iters, "wall_ms_per_step": wall_ms / steps,
-            "device_ms_per_step": device_ms / steps,
-            "device_busy_share": device_ms / wall_ms, "top": rows}
+    out = {"mode": grid.poisson_mode, "size": size, "steps": steps,
+           "iters": iters}
+    out.update(_summary(prof, steps, wall_ms, top))
+    return out
 
 
 def main(argv=None) -> int:
@@ -72,6 +126,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--forest", action="store_true",
+                    help="profile the forest step instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
@@ -80,9 +136,14 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(f"card: {card}")
+    start = None
     for pois in ("", "fas"):
-        res = profile_solver(args.size, args.steps, pois, args.out,
-                             args.top)
+        if args.forest:
+            res, start = profile_forest(args.steps, pois, args.out,
+                                        args.top, start)
+        else:
+            res = profile_solver(args.size, args.steps, pois, args.out,
+                                 args.top)
         print(json.dumps({k: v for k, v in res.items() if k != "top"}))
         for row in res["top"]:
             print(f"  {row['ms_per_step']:9.3f} ms/step  "

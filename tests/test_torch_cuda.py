@@ -6,13 +6,18 @@ here skips. They import no JAX, so they run on a machine without it:
 
 Bounds: the substage pair <= 2e-6 on unit-scale operands at dt = h/2
 (FMA contraction in the kernel, amplified by ih2 = 1/h^2), the correction
-<= 5e-6, the sweep chains <= 2e-6 relative."""
+<= 5e-6, the sweep chains <= 2e-6 relative, the forest lab RHS <= 2e-6
+relative per block-size class, the block-Jacobi update <= 2e-6 relative
+(summation order of its 64-term products)."""
 
 import numpy as np
 import pytest
 import torch
 
+from cup2d_tpu_torch.amr import multilevel_forest
+from cup2d_tpu_torch.convert import forest_from_numpy, forest_to_numpy
 from cup2d_tpu_torch.ops import hopper_kernels as hk
+from cup2d_tpu_torch.poisson import block_precond_matrix
 
 pytestmark = pytest.mark.cuda
 
@@ -68,3 +73,102 @@ def test_kernel_refuses_f64(cuda):
     e = torch.zeros(16, 16, dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError, match="float32"):
         hk.fused_jacobi_sweeps(e, e, 0.8, 2)
+
+
+@pytest.mark.parametrize("n", [3, 128])
+@pytest.mark.parametrize("nu", [4e-5, 1.0])
+def test_lab_rhs_kernel_vs_twin(cuda, n, nu):
+    """Held per h class, relative to that class's max |ref|: the output
+    scales with h (advection) and nu dt (diffusion, which dominates at
+    nu = 1)."""
+    lab = _rand((n, 2, 14, 14), 7, cuda)
+    cls = torch.arange(n, device=cuda) % 3
+    h = torch.tensor([1 / 64, 1 / 128, 1.0], device=cuda)[cls].reshape(
+        n, 1, 1, 1)
+    dt = torch.tensor(0.5 / 128, device=cuda)
+    hk.reset_launches()
+    got = hk.fused_lab_rhs(lab, h, nu, dt)
+    ref = hk.fused_lab_rhs_plain(lab, h, nu, dt)
+    torch.cuda.synchronize()
+    assert hk.launches["fused_lab_rhs"] == 1
+    for c in range(min(n, 3)):
+        d, r = (got - ref)[cls == c], ref[cls == c]
+        assert float(d.abs().max() / r.abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("n", [1, 5, 300])
+def test_block_jacobi_kernel_vs_twin(cuda, n):
+    e, r, lap = (_rand((n, 8, 8), s, cuda) for s in (8, 9, 10))
+    p = torch.tensor(block_precond_matrix(8), dtype=torch.float32,
+                     device=cuda)
+    hk.reset_launches()
+    got = hk.fused_block_jacobi_update(e, r, lap, p)
+    ref = hk.block_jacobi_plain(e, r, lap, p)
+    torch.cuda.synchronize()
+    assert hk.launches["fused_block_jacobi_update"] == 1
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 2e-6
+
+
+def test_forest_kernels_refuse_bad_operands(cuda):
+    lab = torch.zeros(4, 2, 14, 14, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        hk.fused_lab_rhs(lab, 0.1, 4e-5, 1e-3)
+    lab = torch.zeros(4, 2, 14, 28, device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        hk.fused_lab_rhs(lab, 0.1, 4e-5, 1e-3)
+    e = torch.zeros(8, 8, 16, device=cuda)[..., ::2]
+    p = torch.zeros(64, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        hk.fused_block_jacobi_update(e, e, e, p)
+    with pytest.raises(TypeError, match="float32"):
+        hk.fused_block_jacobi_update(e.double(), e.double(), e.double(),
+                                     p.double())
+
+
+def test_forest_step_on_the_card_launches_both_kernels(cuda, monkeypatch):
+    """A short forest step on the card under CUP2D_POIS=fas: the lab RHS
+    twice a step, the block-Jacobi update once a production cycle; the
+    state agrees with the CPU run of the same forest to 1e-4 relative."""
+    monkeypatch.setenv("CUP2D_POIS", "fas")
+    cpu = multilevel_forest(bpd=2, level_max=4, dtype="float32",
+                            device="cpu")
+    card = type(cpu)(cpu.cfg, shapes=[], device=cuda)
+    forest_from_numpy(card, *forest_to_numpy(cpu))
+    card.step_count = cpu.step_count
+    hk.reset_launches()
+    d = card.step_once()
+    cpu.step_once()
+    torch.cuda.synchronize()
+    assert hk.launches["fused_lab_rhs"] == 2
+    assert hk.launches["fused_block_jacobi_update"] == d["poisson_iters"] > 0
+    a = card.fields()["vel"].cpu()[
+        torch.as_tensor(card.forest.order(), dtype=torch.long)]
+    b = cpu.fields()["vel"][
+        torch.as_tensor(cpu.forest.order(), dtype=torch.long)]
+    assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+
+
+def test_forest_default_solver_on_the_card_matches_cpu(cuda, monkeypatch):
+    """Two forest steps on the card under the default BiCGSTAB (block
+    Jacobi, then the two-level M once a solve took > 15 iterations),
+    against the CPU: 1e-4 relative at tolerances 1e-6/1e-5, where a
+    convergence test on its edge cannot move the states apart."""
+    monkeypatch.delenv("CUP2D_POIS", raising=False)
+    cpu = multilevel_forest(bpd=2, level_max=4, dtype="float32",
+                            tol=1e-6, tol_rel=1e-5, device="cpu")
+    card = type(cpu)(cpu.cfg, shapes=[], device=cuda)
+    forest_from_numpy(card, *forest_to_numpy(cpu))
+    card.step_count = cpu.step_count
+    hk.reset_launches()
+    for _ in range(2):
+        card.step_once()
+        cpu.step_once()
+    torch.cuda.synchronize()
+    assert hk.launches["fused_lab_rhs"] == 4
+    assert hk.launches["fused_block_jacobi_update"] == 0
+    assert card.poisson_mode == "bicgstab+twolevel"
+    a = card.fields()["vel"].cpu()[
+        torch.as_tensor(card.forest.order(), dtype=torch.long)]
+    b = cpu.fields()["vel"][
+        torch.as_tensor(cpu.forest.order(), dtype=torch.long)]
+    assert float((a - b).abs().max() / b.abs().max()) <= 1e-4

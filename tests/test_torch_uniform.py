@@ -178,7 +178,8 @@ def test_non_free_slip_table_refuses():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    code = ("import sys, cup2d_tpu_torch, cup2d_tpu_torch.convert; "
+    code = ("import sys, cup2d_tpu_torch, cup2d_tpu_torch.convert, "
+            "cup2d_tpu_torch.amr; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'cup2d_tpu' "
             "or m.startswith('cup2d_tpu.')]; print(bad)")
