@@ -7,13 +7,20 @@ NVIDIA card. Run from the repository root with no arguments:
 Phases, one output line or more each; any failure exits non-zero before
 the result lines:
 
-1. build the five Hopper kernels from ``cup2d_tpu_torch/ops/csrc`` (one
+1. build the eight Hopper kernels from ``cup2d_tpu_torch/ops/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card;
 2. each kernel against its plain PyTorch twin on the card, f32, with the
    bounds stated below (the forest lab RHS per h class, at the path's nu
    and at a diffusion-dominated nu = 1), plus kernel and twin times
    (CUDA events) and, for the block-Jacobi update, the time of
-   ``torch.addmm``;
+   ``torch.addmm``. The x-split step's halo kernels run at its main
+   path's shapes (8192^2 on 4 slabs of one card), each shard against its
+   twin, and the assembled slabs against the solo kernels (substage pair,
+   single sweep) to at most 1 ulp (the same per-cell code and ghost
+   values: bit for bit is expected); the single-op RHS, which lies on no
+   path, runs on an 8192^2 normal lab (<= 2e-6 relative) and on the
+   benchmark's padded lab (<= 2e-6 once scaled by 1/h^2, as a Heun stage
+   adds it: its smooth differences cancel to ~1e-4 of an ulp's weight);
 3. the uniform main path: ``UniformGrid.step(obstacle_terms=False)`` on
    the 8192^2 f32 benchmark state, under the default solver (BiCGSTAB +
    bf16 multigrid) and under CUP2D_POIS=fas, one warm-up and five timed
@@ -42,6 +49,16 @@ the result lines:
    iteration on one device than on the other, and the states then differ
    by the tolerance, not by rounding; 1000 times tighter, they agree
    whatever the iteration counts.)
+7. the x-split main path: ``parallel.mesh.ShardedUniformSim`` on
+   ``make_mesh(devices=["cuda:0"] * 4)`` at 8192^2 f32, ``bench_state``,
+   fixed dt = h/2, production steps (step_count set past the exact
+   startup), under the default solver and under CUP2D_POIS=fas: one
+   warm-up and three timed steps, the launch counts set to 0 before the
+   split run and read after it (2 halo-substage launches per shard and
+   step; halo sweeps under fas only; no solo substage, correction or
+   sweep-chain launch), then the solo ``UniformSim`` from the same state:
+   equal iterations every step and velocity within 1e-5 relative (only
+   the order of the reductions differs, and they accumulate in f64).
 
 Then one JSON line of per-kernel numbers, the card's name and power limit
 as nvidia-smi prints them, and the result line
@@ -67,6 +84,12 @@ from cup2d_tpu_torch.amr import (AMRSim, multilevel_forest,  # noqa: E402
 from cup2d_tpu_torch.convert import (forest_from_numpy,  # noqa: E402
                                      forest_to_numpy)
 from cup2d_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
+from cup2d_tpu_torch.ops.stencil import pad_vector  # noqa: E402
+from cup2d_tpu_torch.parallel.mesh import (ShardedUniformSim,  # noqa: E402
+                                           make_mesh)
+from cup2d_tpu_torch.parallel.shard_halo import (  # noqa: E402
+    Slabs, exchange_x, fused_advect_heun_sharded, gather_x,
+    overlap_jacobi_sweeps, split_x)
 from cup2d_tpu_torch.poisson import block_precond_matrix  # noqa: E402
 from cup2d_tpu_torch.uniform import bench_state  # noqa: E402
 
@@ -81,7 +104,13 @@ LAB_RHS_REL = 2e-6     # relative to max |result| over the blocks of one
 BLOCK_JACOBI_REL = 2e-6  # relative to max |result|: summation order of
 #                          the 64-term products differs from the GEMM's
 TRAJ_REL = 1e-4        # card vs CPU after 5 steps: reduction order differs
+RHS_REL = 2e-6         # single-op RHS relative to max |result| on a
+#                        normal lab: FMA contraction in the kernel
+SPLIT_ULPS = 1         # assembled halo-kernel slabs vs the solo kernel
+SHARDED_REL = 1e-5     # split vs solo step on one card: the Krylov and
+#                        FAS reductions sum in another order
 FOREST_TARGET = 10000  # active blocks of the forest main path
+MESH_D = 4             # slabs of the split main path, all on one card
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # f32 operations/s outside the tensor cores
@@ -166,16 +195,29 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance of two f32 tensors in units of the last place
+    (0 when they are equal bit for bit)."""
+    return int((a.view(torch.int32).long()
+                - b.view(torch.int32).long()).abs().max())
+
+
 def sync(dev) -> None:
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
 
 
-def bench_grid(ny: int, nx: int, device):
-    """A UniformGrid of the benchmark's configuration at ny x nx."""
+def bench_cfg(ny: int, nx: int):
+    """The benchmark's configuration and the level that gives ny x nx."""
     level = (ny // 8).bit_length() - 1
     cfg = SimConfig(bpdx=nx // ny, bpdy=1, level_max=1, level_start=0,
                     extent=1.0, nu=4e-5, cfl=0.5, dtype="float32")
+    return cfg, level
+
+
+def bench_grid(ny: int, nx: int, device):
+    """A UniformGrid of the benchmark's configuration at ny x nx."""
+    cfg, level = bench_cfg(ny, nx)
     return UniformGrid(cfg, level=level, device=device)
 
 
@@ -356,6 +398,232 @@ def phase_kernels(dev):
             library_ms=lms)
         del sets, e, r, lap, got, ref
     return res
+
+
+def phase_halo_kernels(dev, res, size: int = 8192) -> None:
+    """Phase 2, continued: the x-split step's halo kernels on the 8192^2
+    benchmark velocity and on seeded normal fields split into MESH_D slabs
+    of one card, and the single-op RHS on a normal lab and on the
+    benchmark's padded lab. Fills ``res`` for the three kernels."""
+    mesh = make_mesh(devices=[dev] * MESH_D)
+    walls = [(d == 0, d == MESH_D - 1) for d in range(MESH_D)]
+    g = bench_grid(size, size, dev)
+    cells = g.ny * g.nx
+    v = bench_state(g).vel[None].contiguous()
+    dt = torch.tensor([0.5], device=dev) * g.h
+    ih2 = 1.0 / (g.h * g.h)
+
+    # K3: assembled slabs vs the solo kernel, then shard by shard vs the
+    # twin on the split step's own operands (both substages)
+    s0 = split_x(v, mesh)
+    solo = hk.fused_advect_heun(v, g.h, 4e-5, dt)
+    split = gather_x(fused_advect_heun_sharded(s0, g.h, 4e-5, dt))
+    u3 = ulps(split, solo)
+    del split, solo
+    print(f"phase 2 advect_substage_halo {size}^2 on {MESH_D} slabs vs "
+          f"fused_advect_heun: max {u3} ulp", flush=True)
+    check(u3 <= SPLIT_ULPS, f"advect_substage_halo: {u3} ulp from the solo "
+          "kernel")
+    facs = hk._substage_facs(dt, g.h, 4e-5, (1,), 1, torch.float32, dev)
+    aux0 = exchange_x(s0, 3)
+    s1 = Slabs([hk.advect_substage_halo(p, None, aux0[d], facs, 0.5, ih2,
+                                        *walls[d])
+                for d, p in enumerate(s0.parts)], mesh)
+    aux1 = exchange_x(s1, 3)
+    err = 0.0
+    for d in range(MESH_D):
+        for args in ((s0.parts[d], None, aux0[d], facs, 0.5),
+                     (s1.parts[d], s0.parts[d], aux1[d], facs, 1.0)):
+            k = hk.advect_substage_halo(*args, ih2, *walls[d])
+            p = hk.advect_substage_halo_plain(*args, ih2, *walls[d])
+            err = max(err, float((k - p).abs().max()))
+            del k, p
+    check(err <= HEUN_ABS, f"advect_substage_halo: {err} > {HEUN_ABS}")
+
+    def k3(sub):
+        for d in range(MESH_D):
+            sub(s0.parts[d], None, aux0[d], facs, 0.5, ih2, *walls[d])
+        for d in range(MESH_D):
+            sub(s1.parts[d], s0.parts[d], aux1[d], facs, 1.0, ih2,
+                *walls[d])
+
+    ms = cuda_ms(lambda: k3(hk.advect_substage_halo), 10)
+    pms = cuda_ms(lambda: k3(hk.advect_substage_halo_plain), 1)
+    aux_bytes = 2 * sum(a.numel() for a in aux0) * 4
+    b = bound(40.0 * cells + aux_bytes, 2 * OPS_SUBSTAGE_CELL * cells)
+    res["advect_substage_halo"].update(max_abs_err=err, ms=ms, plain_ms=pms,
+                                       bound_ms=b[0], bound_by=b[1],
+                                       library_ms=None)
+    print(f"phase 2 advect_substage_halo [1,2,{size},{size // MESH_D}] "
+          f"x{MESH_D}, both "
+          f"substages: max_abs_err {err} kernel_ms {ms} twin_ms {pms}",
+          flush=True)
+    del s0, s1, aux0, aux1
+
+    # K1 on a seeded normal lab (neighbours differ by O(1): the RHS has no
+    # cancellation, and is held relative to its max) and on the
+    # benchmark's padded lab. There the undivided WENO derivative of a
+    # smooth field is a difference of two O(1) reconstructions ~1e-3
+    # apart, so one ulp of a reconstruction is ~1e-4 of the RHS in either
+    # implementation; it is held at the scale a Heun stage adds it to the
+    # velocity (x ih2), the substage's own absolute bar
+    before = hk.launches["advect_diffuse_rhs"]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    err = 0.0
+    for name, lab in (("normal", torch.randn(2, g.ny + 6, g.nx + 6,
+                                             generator=gen, device=dev)),
+                      ("benchmark", pad_vector(v, 3)[0].contiguous())):
+        got = hk.advect_diffuse_rhs(lab, g.h, 4e-5, 0.5 * g.h)
+        ref = hk.advect_diffuse_rhs_plain(lab, g.h, 4e-5, 0.5 * g.h)
+        e = float((got - ref).abs().max())
+        rel = e / float(ref.abs().max())
+        del got, ref
+        print(f"phase 2 advect_diffuse_rhs {name} lab {list(lab.shape)}: "
+              f"max_abs_err {e} (rel {rel}; x ih2 {e * ih2})", flush=True)
+        if name == "normal":
+            check(rel <= RHS_REL, f"advect_diffuse_rhs {name}: rel {rel} "
+                  f"> {RHS_REL}")
+        else:
+            check(e * ih2 <= HEUN_ABS, f"advect_diffuse_rhs {name}: "
+                  f"{e} x ih2 > {HEUN_ABS}")
+        err = max(err, e)
+    del v
+    ms = cuda_ms(lambda: hk.advect_diffuse_rhs(lab, g.h, 4e-5, 0.5 * g.h),
+                 10)
+    pms = cuda_ms(lambda: hk.advect_diffuse_rhs_plain(lab, g.h, 4e-5,
+                                                      0.5 * g.h), 1)
+    b = bound(4.0 * lab.numel() + 8.0 * cells, OPS_LAB_RHS_CELL * cells)
+    res["advect_diffuse_rhs"].update(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        library_ms=None,
+        launches=hk.launches["advect_diffuse_rhs"] - before)
+    print(f"phase 2 advect_diffuse_rhs {list(lab.shape)}: kernel_ms {ms} "
+          f"twin_ms {pms}", flush=True)
+    del lab
+    torch.cuda.empty_cache()
+
+    # K7: the finest split level and two coarse ones (a split 64^2 level
+    # of 16-wide slabs and a gathered 16^2 level on one shard)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    err = 0.0
+    for n, m in ((size, mesh), (64, mesh), (16, make_mesh(devices=[dev]))):
+        e = torch.randn(n, n, generator=gen, device=dev)
+        r = torch.randn(n, n, generator=gen, device=dev)
+        es, rs = split_x(e, m), split_x(r, m)
+        for fz in (False, True):
+            split = gather_x(overlap_jacobi_sweeps(es, rs, 0.8, 1, fz))
+            u7 = ulps(split, hk.fused_jacobi_sweeps(e, r, 0.8, 1, fz))
+            check(u7 <= SPLIT_ULPS, f"jacobi_halo_sweep {n}^2 from_zero="
+                  f"{fz}: {u7} ulp from the solo kernel")
+            print(f"phase 2 jacobi_halo_sweep {n}^2 on {m.size} slabs "
+                  f"from_zero={fz} vs fused_jacobi_sweeps(n=1): max {u7} "
+                  "ulp", flush=True)
+        aux = exchange_x(es, 1)
+        mw = [(d == 0, d == m.size - 1) for d in range(m.size)]
+        for d in range(m.size):
+            k = hk.jacobi_halo_sweep(es.parts[d], rs.parts[d], aux[d], 0.8,
+                                     *mw[d])
+            p = hk.jacobi_halo_sweep_plain(es.parts[d], rs.parts[d],
+                                           aux[d], 0.8, *mw[d])
+            rel = float((k - p).abs().max() / p.abs().max())
+            check(rel <= JACOBI_REL, f"jacobi_halo_sweep {n}^2 shard {d}: "
+                  f"rel {rel} > {JACOBI_REL}")
+            err = max(err, float((k - p).abs().max()))
+        if n == size:
+            def k7(sweep):
+                for d in range(MESH_D):
+                    sweep(es.parts[d], rs.parts[d], aux[d], 0.8, *mw[d])
+            ms = cuda_ms(lambda: k7(hk.jacobi_halo_sweep), 20)
+            pms = cuda_ms(lambda: k7(hk.jacobi_halo_sweep_plain), 2)
+            b = bound(12.0 * n * n + 8.0 * 2 * n * MESH_D,
+                      OPS_SWEEP_CELL * n * n)
+            res["jacobi_halo_sweep"].update(ms=ms, plain_ms=pms,
+                                            bound_ms=b[0], bound_by=b[1],
+                                            library_ms=None)
+            print(f"phase 2 jacobi_halo_sweep [{n},{n // MESH_D}] x{MESH_D}"
+                  f", one sweep: kernel_ms {ms} twin_ms {pms}", flush=True)
+        del e, r, es, rs, aux
+    res["jacobi_halo_sweep"]["max_abs_err"] = err
+    torch.cuda.empty_cache()
+
+
+def run_sharded(dev, pois: str, steps: int = 3, size: int = 8192) -> dict:
+    """Phase 7 under one solver: the split run (counts from 0), then the
+    solo run from the same state, ``steps`` timed production steps after
+    a warm-up. Checks the launches; returns both runs' numbers and their
+    velocity difference."""
+    cfg, level = bench_cfg(size, size)
+    os.environ["CUP2D_POIS"] = pois
+    try:
+        sims = {"sharded": lambda: ShardedUniformSim(
+                    cfg, make_mesh(devices=[dev] * MESH_D), level=level),
+                "solo": lambda: UniformSim(cfg, level=level, device=dev)}
+        out, vel = {}, {}
+        for label, make in sims.items():
+            sim = make()
+            if label == "sharded":
+                sim.set_state(bench_state(sim.grid))
+            else:
+                sim.state = bench_state(sim.grid)
+            sim.step_count = 10          # production solves
+            dt = 0.5 * sim.grid.h
+            sync(dev)
+            torch.cuda.reset_peak_memory_stats()
+            hk.reset_launches()
+            iters = [sim.step_once(dt)["poisson_iters"]]      # warm-up
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                d = sim.step_once(dt)
+                iters.append(d["poisson_iters"])
+            sync(dev)
+            ms = (time.perf_counter() - t0) / steps * 1e3
+            out[label] = {
+                "mode": sim.poisson_mode, "ms_per_step": ms,
+                "iters_per_step": sum(iters[1:]) / steps, "iters": iters,
+                "umax": d["umax"], "finite": bool(d["finite"]),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "launches": dict(hk.launches)}
+            v = sim.state.vel
+            vel[label] = gather_x(v) if label == "sharded" else v
+            del sim, v
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("CUP2D_POIS", None)
+    a, b = vel["sharded"], vel["solo"]
+    rel = float((a - b).abs().max() / b.abs().max())
+    out["vel_rel_linf"] = rel
+    print(f"phase 7 sharded main path {size}^2 D={MESH_D} "
+          f"{json.dumps(out)}", flush=True)
+    sh, so = out["sharded"], out["solo"]
+    nsteps = steps + 1
+    check(sh["finite"] and so["finite"], f"{pois}: non-finite state")
+    la = sh["launches"]
+    check(la["advect_substage_halo"] == 2 * MESH_D * nsteps,
+          f"sharded: halo substage launches {la} != 2 D per step")
+    check((la["jacobi_halo_sweep"] > 0) == (pois == "fas"),
+          f"sharded {pois or 'default'}: halo sweep launches {la}")
+    for k in ("fused_advect_heun", "fused_correction",
+              "fused_jacobi_sweeps"):
+        check(la[k] == 0, f"sharded: a solo kernel launched ({k}: {la})")
+    return out
+
+
+def phase_sharded(dev, size: int = 8192) -> list:
+    """Phase 7: the split main path against the solo step under both
+    solvers: equal iterations every step and velocity within SHARDED_REL.
+    Only the reductions' order differs; the means and the Krylov dots
+    accumulate in f64, so their f32 values (and with them the two steps)
+    agree unless a sum lands within its rounding error of an f32 rounding
+    boundary."""
+    runs = [run_sharded(dev, p, size=size) for p in ("", "fas")]
+    for r, p in zip(runs, ("default", "fas")):
+        check(r["sharded"]["iters"] == r["solo"]["iters"],
+              f"sharded {p}: iterations {r['sharded']['iters']} != solo "
+              f"{r['solo']['iters']}")
+        check(r["vel_rel_linf"] <= SHARDED_REL, f"sharded {p}: vel rel "
+              f"{r['vel_rel_linf']} > {SHARDED_REL} from the solo step")
+    return runs
 
 
 def run_main_path(dev, pois: str) -> dict:
@@ -575,6 +843,7 @@ def main() -> int:
                 print(f"phase 1 ptxas {stem}: {line.strip()}")
 
     res = phase_kernels(dev)
+    phase_halo_kernels(dev, res)
 
     uniform = ("fused_advect_heun", "fused_correction",
                "fused_jacobi_sweeps")
@@ -593,6 +862,13 @@ def main() -> int:
 
     phase_forest_cpu(dev, "fas")
     phase_forest_cpu(dev, tol=1e-6, tol_rel=1e-5)
+
+    sharded = phase_sharded(dev)
+    for k in ("advect_substage_halo", "jacobi_halo_sweep"):
+        launches[k] = sum(r["sharded"]["launches"][k] for r in sharded)
+        check(launches[k] > 0, f"{k}: launched no time on the split path")
+    # the single-op RHS lies on no path: its launches are phase 2's
+    launches["advect_diffuse_rhs"] = res["advect_diffuse_rhs"]["launches"]
     check("jax" not in sys.modules, "the smoke imported jax")
 
     kernels = [dict(name=k, route="cuda", source=hk.SOURCES[k],
@@ -600,10 +876,12 @@ def main() -> int:
                     max_abs_err=res[k]["max_abs_err"], ms=res[k]["ms"],
                     plain_ms=res[k]["plain_ms"], bound_ms=res[k]["bound_ms"],
                     bound_by=res[k]["bound_by"],
-                    library_ms=res[k].get("library_ms"))
+                    library_ms=res[k].get("library_ms"),
+                    on_main_path=k != "advect_diffuse_rhs")
                for k in hk.launches]
     print(f"main path summary: {json.dumps(runs)}")
     print(f"forest main path summary: {json.dumps(forest_runs)}")
+    print(f"sharded main path summary: {json.dumps(sharded)}")
     print(f"total {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -17,7 +17,11 @@
 // forms the mean-free pressure at the cell and its four neighbours from x
 // and pold directly; the neighbour reads of a warp hit the same cache
 // lines as the centre reads of the adjacent warps, so device memory sees
-// each input about once.
+// each input about once. The velocity update rounds its multiply and add
+// apart (__fmul_rn, __fadd_rn), as the plain epilogue's separate tensor
+// operations do: a contracted FMA would differ from it by an ulp, which the
+// next step's Poisson solve amplifies (the x-split step keeps the plain
+// epilogue, and is held to this kernel's solo step).
 
 #include <cuda_runtime.h>
 
@@ -62,8 +66,8 @@ __global__ void correction_kernel(const float* __restrict__ x,
     const size_t cell = (size_t)j * nx + i;
     pres[(size_t)l * plane + cell] = cur;
     const size_t u = (size_t)l * 2 * plane + cell;
-    vout[u] = vel[u] + (pfac * dpx) * ih2;
-    vout[u + plane] = vel[u + plane] + (pfac * dpy) * ih2;
+    vout[u] = __fadd_rn(vel[u], __fmul_rn(pfac * dpx, ih2));
+    vout[u + plane] = __fadd_rn(vel[u + plane], __fmul_rn(pfac * dpy, ih2));
 }
 
 }  // namespace

@@ -1,10 +1,13 @@
 """Hand-written Hopper kernels of the uniform and forest steps, their
 plain PyTorch twins and their launch counters.
 
-Five CUDA C++ kernels (``csrc/*.cu``, built for ``sm_90a``) replace the
-Pallas kernels of ``cup2d_tpu/ops/pallas_kernels.py`` that the
-obstacle-free uniform step (the first three) and the obstacle-free forest
-step (the last two) run:
+Eight CUDA C++ kernels (``csrc/*.cu``, built for ``sm_90a``) replace the
+eight Pallas kernels of ``cup2d_tpu/ops/pallas_kernels.py``: the
+obstacle-free uniform step runs the first three, the obstacle-free forest
+step the next two, the x-split sharded uniform step
+(``parallel.shard_halo``) the two halo kernels, and the single-op RHS
+lies on no step (the JAX package keeps it as a parity and history
+baseline):
 
 =============================  ===============================  ===================
 wrapper                        replaces                         source
@@ -18,9 +21,16 @@ wrapper                        replaces                         source
 ``fused_lab_rhs``              ``_lab_kernel`` (forest labs,    ``lab_rhs.cu``
                                f32)
 ``fused_block_jacobi_update``  ``_block_jacobi_kernel`` (f32)   ``block_jacobi.cu``
+``advect_substage_halo``       ``_sharded_substage_kernel``     ``advect_heun_halo.cu``
+                               (one substage on an x slab,
+                               free-slip, f32)
+``jacobi_halo_sweep``          ``_jacobi_halo_kernel`` (one     ``jacobi_halo.cu``
+                               sweep on an x slab, f32)
+``advect_diffuse_rhs``         ``_adv_kernel`` (RHS over a      ``advect_rhs.cu``
+                               pre-padded lab, f32)
 =============================  ===============================  ===================
 
-The two WENO kernels share their per-cell arithmetic through
+The four WENO kernels share their per-cell arithmetic through
 ``csrc/weno.cuh``.
 
 Dispatch is by the device of the tensors alone: CPU tensors run the plain
@@ -36,8 +46,10 @@ without ``--use_fast_math``: IEEE divides and denormals are kept, which
 the WENO ``den > 1e-35`` guard relies on.
 
 ``launches`` counts kernel launches per wrapper (one per substage for the
-advection kernel, one per chain of at most six sweeps for the smoother,
-one per call for the forest kernels); twin calls do not count.
+advection kernels, one per chain of at most six sweeps for the smoother,
+one per sweep and slab for the halo smoother, one per call for the
+others); twin calls do not count. A launch runs on the current stream of
+its tensors' device.
 """
 
 from __future__ import annotations
@@ -52,9 +64,11 @@ from pathlib import Path
 
 import torch
 
+from . import stencil
 from .stencil import (_edge_ones, _zshift, advect_diffuse_core,
-                      advect_diffuse_rhs, heun_substage, inv_diag_neumann,
-                      laplacian5_neumann, pad_vector)
+                      heun_substage, inv_diag_neumann, inv_diag_slab,
+                      laplacian5_neumann, laplacian5_neumann_slab,
+                      pad_vector, pad_vector_slab)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
@@ -72,11 +86,18 @@ _ENTRIES = {
                [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
     "lab_rhs": ("cup2d_lab_rhs", [_P, _P, _P, _F, _P, _I, _P]),
     "block_jacobi": ("cup2d_block_jacobi", [_P, _P, _P, _P, _P, _I, _P]),
+    "advect_heun_halo": ("cup2d_advect_substage_halo",
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I,
+                          _P]),
+    "jacobi_halo": ("cup2d_jacobi_halo_sweep",
+                    [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P]),
+    "advect_rhs": ("cup2d_advect_rhs", [_P, _P, _P, _I, _I, _I, _P]),
 }
 
 launches = {"fused_advect_heun": 0, "fused_correction": 0,
             "fused_jacobi_sweeps": 0, "fused_lab_rhs": 0,
-            "fused_block_jacobi_update": 0}
+            "fused_block_jacobi_update": 0, "advect_substage_halo": 0,
+            "jacobi_halo_sweep": 0, "advect_diffuse_rhs": 0}
 
 # the TPU kernel each wrapper replaces, for reports
 REPLACES = {
@@ -85,6 +106,9 @@ REPLACES = {
     "fused_jacobi_sweeps": "cup2d_tpu/ops/pallas_kernels.py:979",
     "fused_lab_rhs": "cup2d_tpu/ops/pallas_kernels.py:756",
     "fused_block_jacobi_update": "cup2d_tpu/ops/pallas_kernels.py:1345",
+    "advect_substage_halo": "cup2d_tpu/ops/pallas_kernels.py:576",
+    "jacobi_halo_sweep": "cup2d_tpu/ops/pallas_kernels.py:1202",
+    "advect_diffuse_rhs": "cup2d_tpu/ops/pallas_kernels.py:130",
 }
 SOURCES = {
     "fused_advect_heun": "cup2d_tpu_torch/ops/csrc/advect_heun.cu",
@@ -92,6 +116,9 @@ SOURCES = {
     "fused_jacobi_sweeps": "cup2d_tpu_torch/ops/csrc/jacobi.cu",
     "fused_lab_rhs": "cup2d_tpu_torch/ops/csrc/lab_rhs.cu",
     "fused_block_jacobi_update": "cup2d_tpu_torch/ops/csrc/block_jacobi.cu",
+    "advect_substage_halo": "cup2d_tpu_torch/ops/csrc/advect_heun_halo.cu",
+    "jacobi_halo_sweep": "cup2d_tpu_torch/ops/csrc/jacobi_halo.cu",
+    "advect_diffuse_rhs": "cup2d_tpu_torch/ops/csrc/advect_rhs.cu",
 }
 
 JACOBI_MAX_SWEEPS = 6
@@ -165,10 +192,13 @@ def build() -> dict:
     return logs
 
 
-def _launch(stem: str, *args) -> None:
+def _launch(stem: str, device: torch.device, *args) -> None:
+    """Launch on ``device`` (made current for the call) and its current
+    stream."""
     if stem not in _fns:
         build()
-    rc = _fns[stem](*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        rc = _fns[stem](*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA launch of {stem} failed: error {rc}")
 
@@ -223,7 +253,7 @@ def advect_substage(v, vold, facs, cfac, ih2):
         raise ValueError("advect_substage: vold shape differs from v")
     _check_f32("advect_substage", v=v, vold=vold, facs=facs)
     out = torch.empty_like(v)
-    _launch("advect_heun", v.data_ptr(),
+    _launch("advect_heun", v.device, v.data_ptr(),
             None if vold is None else vold.data_ptr(), out.data_ptr(),
             facs.data_ptr(), L, ny, nx, float(cfac), float(ih2))
     launches["fused_advect_heun"] += 1
@@ -292,9 +322,9 @@ def fused_correction(x, pres_old, vel, scal, ih2):
                scal=scal)
     pres = torch.empty_like(x)
     vout = torch.empty_like(vel)
-    _launch("correction", x.data_ptr(), pres_old.data_ptr(), vel.data_ptr(),
-            scal.data_ptr(), pres.data_ptr(), vout.data_ptr(), L, ny, nx,
-            float(ih2))
+    _launch("correction", x.device, x.data_ptr(), pres_old.data_ptr(),
+            vel.data_ptr(), scal.data_ptr(), pres.data_ptr(),
+            vout.data_ptr(), L, ny, nx, float(ih2))
     launches["fused_correction"] += 1
     return pres, vout
 
@@ -333,9 +363,9 @@ def fused_jacobi_sweeps(e, r, omega, n, from_zero=False):
     while left > 0:
         k = min(left, JACOBI_MAX_SWEEPS)
         out = torch.empty_like(r)
-        _launch("jacobi", None if cur is None else cur.data_ptr(),
-                r.data_ptr(), out.data_ptr(), L, ny, nx, k, float(omega),
-                int(cur is None))
+        _launch("jacobi", r.device,
+                None if cur is None else cur.data_ptr(), r.data_ptr(),
+                out.data_ptr(), L, ny, nx, k, float(omega), int(cur is None))
         launches["fused_jacobi_sweeps"] += 1
         cur = out
         left -= k
@@ -349,7 +379,7 @@ def fused_jacobi_sweeps(e, r, omega, n, from_zero=False):
 def fused_lab_rhs_plain(lab, h, nu, dt):
     """Plain twin: ``advect_diffuse_rhs(lab, 3, h, nu, dt)`` on labs
     [N, 2, 14, 14] with ``h`` shaped [N, 1, 1, 1] (or a scalar)."""
-    return advect_diffuse_rhs(lab, 3, h, nu, dt)
+    return stencil.advect_diffuse_rhs(lab, 3, h, nu, dt)
 
 
 def fused_lab_rhs(lab, h, nu, dt):
@@ -375,8 +405,8 @@ def fused_lab_rhs(lab, h, nu, dt):
                          "a scalar dt")
     _check_f32("fused_lab_rhs", lab=lab, h=h, dt=dt)
     out = lab.new_empty((n, 2, 8, 8))
-    _launch("lab_rhs", lab.data_ptr(), h.data_ptr(), dt.data_ptr(),
-            float(nu), out.data_ptr(), n)
+    _launch("lab_rhs", lab.device, lab.data_ptr(), h.data_ptr(),
+            dt.data_ptr(), float(nu), out.data_ptr(), n)
     launches["fused_lab_rhs"] += 1
     return out
 
@@ -408,7 +438,127 @@ def fused_block_jacobi_update(e, r, lap, p_inv):
             f"{tuple(p_inv.shape)}: expected [N, 8, 8] x3 and [64, 64]")
     _check_f32("fused_block_jacobi_update", e=e, r=r, lap=lap, p_inv=p_inv)
     out = torch.empty_like(e)
-    _launch("block_jacobi", p_inv.data_ptr(), e.data_ptr(), r.data_ptr(),
-            lap.data_ptr(), out.data_ptr(), n)
+    _launch("block_jacobi", e.device, p_inv.data_ptr(), e.data_ptr(),
+            r.data_ptr(), lap.data_ptr(), out.data_ptr(), n)
     launches["fused_block_jacobi_update"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: one Heun substage on an x slab of a split field (free-slip box)
+# ---------------------------------------------------------------------------
+
+def advect_substage_halo_plain(v, vold, aux, facs, cfac, ih2, is_lo, is_hi):
+    """Plain twin of one substage on an x slab: v, vold [L, 2, Ny, w]
+    (vold None on the first substage); aux [L, 2, Ny, 6] the three columns
+    either side of the slab (the neighbours' edge columns; ignored on a
+    side whose wall the slab owns, ``is_lo``/``is_hi``); facs [L, 2]
+    per-member (afac, dfac). The slabs of a split field give
+    ``advect_substage_plain`` of the whole field bit for bit."""
+    afac = facs[:, 0].reshape(-1, 1, 1, 1)
+    dfac = facs[:, 1].reshape(-1, 1, 1, 1)
+    lab = pad_vector_slab(v, aux, 3, is_lo, is_hi)
+    rhs = advect_diffuse_core(lab, 3, afac, dfac)
+    return heun_substage(v if vold is None else vold, cfac, rhs, ih2)
+
+
+def advect_substage_halo(v, vold, aux, facs, cfac, ih2, is_lo, is_hi):
+    """One substage on an x slab: the kernel for CUDA tensors, the twin
+    for CPU ones. Same arguments and result as the twin."""
+    if not _on_cuda(v, vold, aux, facs):
+        return advect_substage_halo_plain(v, vold, aux, facs, cfac, ih2,
+                                          is_lo, is_hi)
+    L, two, ny, nxl = v.shape
+    if (two != 2 or facs.shape != (L, 2)
+            or aux.shape != (L, 2, ny, 6)):
+        raise ValueError(
+            f"advect_substage_halo: v {tuple(v.shape)}, aux "
+            f"{tuple(aux.shape)}, facs {tuple(facs.shape)}: expected "
+            "[L,2,Ny,w], [L,2,Ny,6], [L,2]")
+    if vold is not None and vold.shape != v.shape:
+        raise ValueError("advect_substage_halo: vold shape differs from v")
+    _check_f32("advect_substage_halo", v=v, vold=vold, aux=aux, facs=facs)
+    out = torch.empty_like(v)
+    _launch("advect_heun_halo", v.device, v.data_ptr(),
+            None if vold is None else vold.data_ptr(), aux.data_ptr(),
+            out.data_ptr(), facs.data_ptr(), L, ny, nxl, float(cfac),
+            float(ih2), int(bool(is_lo)), int(bool(is_hi)))
+    launches["advect_substage_halo"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7: one damped-Jacobi sweep on an x slab of a split field
+# ---------------------------------------------------------------------------
+
+def jacobi_halo_sweep_plain(e, r, aux, omega, is_lo, is_hi,
+                            from_zero=False):
+    """Plain twin of one sweep e + omega*(r - lap(e))*inv_d on an x slab
+    [..., Ny, w]: aux [..., Ny, 2] the neighbours' edge columns (zeros at
+    a wall); the x-wall diagonal only on the sides the slab owns.
+    ``from_zero`` gives omega*r*inv_d and reads neither e nor aux. The
+    slabs of a split field give one sweep of ``jacobi_sweeps_plain`` bit
+    for bit, in any dtype."""
+    ny, w = r.shape[-2:]
+    inv_d = inv_diag_slab(ny, w, r.dtype, r.device, bool(is_lo),
+                          bool(is_hi))
+    if from_zero:
+        return omega * r * inv_d
+    return e + omega * (r - laplacian5_neumann_slab(e, aux, is_lo, is_hi)
+                        ) * inv_d
+
+
+def jacobi_halo_sweep(e, r, aux, omega, is_lo, is_hi, from_zero=False):
+    """One sweep on an x slab: the kernel for CUDA tensors (one launch),
+    the twin for CPU ones. Same arguments and result as the twin."""
+    if from_zero:
+        e = aux = None
+    if not _on_cuda(e, r, aux):
+        return jacobi_halo_sweep_plain(e, r, aux, omega, is_lo, is_hi,
+                                       from_zero)
+    ny, nxl = r.shape[-2:]
+    L = math.prod(r.shape[:-2])
+    if e is not None and (e.shape != r.shape
+                          or aux.shape != r.shape[:-1] + (2,)):
+        raise ValueError(
+            f"jacobi_halo_sweep: e {tuple(e.shape)}, r {tuple(r.shape)}, "
+            f"aux {tuple(aux.shape)}: expected [...,Ny,w] x2, [...,Ny,2]")
+    _check_f32("jacobi_halo_sweep", e=e, r=r, aux=aux)
+    out = torch.empty_like(r)
+    _launch("jacobi_halo", r.device, None if e is None else e.data_ptr(),
+            r.data_ptr(), None if aux is None else aux.data_ptr(),
+            out.data_ptr(), L, ny, nxl, float(omega), int(bool(is_lo)),
+            int(bool(is_hi)), int(e is None))
+    launches["jacobi_halo_sweep"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K1: WENO5 advect-diffuse RHS over a pre-padded lab (single op)
+# ---------------------------------------------------------------------------
+
+def advect_diffuse_rhs_plain(vlab, h, nu, dt):
+    """Plain twin: ``stencil.advect_diffuse_rhs(vlab, 3, h, nu, dt)`` on a
+    lab [..., 2, Ny+6, Nx+6] -> [..., 2, Ny, Nx]."""
+    return stencil.advect_diffuse_rhs(vlab, 3, h, nu, dt)
+
+
+def advect_diffuse_rhs(vlab, h, nu, dt):
+    """WENO5 advect-diffuse RHS over a ghost-padded lab (ghosts read, not
+    painted), afac = -dt h, dfac = nu dt with numbers h, nu and dt: the
+    kernel for CUDA tensors, the twin for CPU ones."""
+    if not _on_cuda(vlab):
+        return advect_diffuse_rhs_plain(vlab, h, nu, dt)
+    if vlab.dim() < 3 or vlab.shape[-3] != 2:
+        raise ValueError(f"advect_diffuse_rhs: lab {tuple(vlab.shape)}: "
+                         "expected [..., 2, Ny+6, Nx+6]")
+    ny, nx = vlab.shape[-2] - 6, vlab.shape[-1] - 6
+    L = math.prod(vlab.shape[:-3])
+    facs = torch.tensor([-dt * h, nu * dt], dtype=torch.float32,
+                        device=vlab.device)
+    _check_f32("advect_diffuse_rhs", vlab=vlab)
+    out = vlab.new_empty(vlab.shape[:-2] + (ny, nx))
+    _launch("advect_rhs", vlab.device, vlab.data_ptr(), out.data_ptr(),
+            facs.data_ptr(), L, ny, nx)
+    launches["advect_diffuse_rhs"] += 1
     return out

@@ -57,16 +57,33 @@ def pad_vector(v: torch.Tensor, g: int) -> torch.Tensor:
     """[..., 2, Ny, Nx] -> [..., 2, Ny+2g, Nx+2g], free-slip mirror
     (zeroth order, like the reference): every y-ghost row equals the edge
     row with v negated; x-ghost columns then copy the y-completed edge
-    column with u negated, so a corner is (-u, -v) of the corner cell."""
-    out = F.pad(v, (g, g, g, g))
-    out[..., 0:1, :g, g:-g] = v[..., 0:1, :1, :]
-    out[..., 1:2, :g, g:-g] = -v[..., 1:2, :1, :]
-    out[..., 0:1, -g:, g:-g] = v[..., 0:1, -1:, :]
-    out[..., 1:2, -g:, g:-g] = -v[..., 1:2, -1:, :]
-    out[..., 0:1, :, :g] = -out[..., 0:1, :, g:g + 1]
-    out[..., 1:2, :, :g] = out[..., 1:2, :, g:g + 1]
-    out[..., 0:1, :, -g:] = -out[..., 0:1, :, -g - 1:-g]
-    out[..., 1:2, :, -g:] = out[..., 1:2, :, -g - 1:-g]
+    column with u negated, so a corner is (-u, -v) of the corner cell.
+    The whole field is the slab that owns both walls."""
+    return pad_vector_slab(v, v.new_zeros(v.shape[:-1] + (2 * g,)), g,
+                           True, True)
+
+
+def pad_vector_slab(v: torch.Tensor, aux: torch.Tensor, g: int,
+                    is_lo: bool, is_hi: bool) -> torch.Tensor:
+    """``pad_vector`` on one x slab [..., 2, Ny, w] of a split field: aux
+    [..., 2, Ny, 2g] holds the g columns left of the slab ([..., :g], the
+    left neighbour's last) and the g right of it ([..., g:]). The y ghost
+    rows are painted over those columns too, as the neighbour paints them;
+    the x ghosts are painted only on the sides the slab owns, over the
+    y-completed edge column. Every value is the one ``pad_vector`` of the
+    whole field puts at the same place."""
+    ext = torch.cat([aux[..., :g], v, aux[..., g:]], dim=-1)
+    out = F.pad(ext, (0, 0, g, g))
+    out[..., 0:1, :g, :] = ext[..., 0:1, :1, :]
+    out[..., 1:2, :g, :] = -ext[..., 1:2, :1, :]
+    out[..., 0:1, -g:, :] = ext[..., 0:1, -1:, :]
+    out[..., 1:2, -g:, :] = -ext[..., 1:2, -1:, :]
+    if is_lo:
+        out[..., 0:1, :, :g] = -out[..., 0:1, :, g:g + 1]
+        out[..., 1:2, :, :g] = out[..., 1:2, :, g:g + 1]
+    if is_hi:
+        out[..., 0:1, :, -g:] = -out[..., 0:1, :, -g - 1:-g]
+        out[..., 1:2, :, -g:] = out[..., 1:2, :, -g - 1:-g]
     return out
 
 
@@ -225,6 +242,27 @@ def _zshift(p: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def _slab_edge_ones(n: int, dtype, device, lo=0.0, hi=0.0) -> torch.Tensor:
+    """The edge line of an x slab: ``lo`` at index 0, ``hi`` at n-1, else
+    0; a slab that owns no wall on a side passes 0 for it (a one-column
+    slab owning one wall gets that wall's value). Memoized like
+    ``_edge_ones``, whose values it equals on a slab that owns both walls
+    and is at least two columns wide."""
+    i = torch.arange(n, device=device)
+    return (torch.where(i == 0, lo, 0.0)
+            + torch.where(i == n - 1, hi, 0.0)).to(dtype)
+
+
+def _halo_x(p: torch.Tensor, aux: torch.Tensor):
+    """(xp, xm) of a slab p [..., Ny, w]: the field shifted by one column
+    either way, the missing column taken from aux [..., Ny, 2] (the
+    columns right of the slab in aux[..., 1], left of it in aux[..., 0])."""
+    xp = torch.cat([p[..., 1:], aux[..., 1:2]], dim=-1)
+    xm = torch.cat([aux[..., 0:1], p[..., :-1]], dim=-1)
+    return xp, xm
+
+
 def laplacian5_neumann(p: torch.Tensor) -> torch.Tensor:
     """Undivided 5-point Laplacian with zero-Neumann walls on an unpadded
     [..., Ny, Nx] field."""
@@ -238,12 +276,38 @@ def laplacian5_neumann(p: torch.Tensor) -> torch.Tensor:
     )
 
 
-@functools.lru_cache(maxsize=64)
 def inv_diag_neumann(ny: int, nx: int, dtype, device) -> torch.Tensor:
     """1/(-4 + wall-side count): the Jacobi diagonal of
-    ``laplacian5_neumann`` as a [Ny, Nx] field, memoized like
-    ``_edge_ones`` (one per multigrid level and dtype)."""
-    ex = _edge_ones(nx, dtype, device)
+    ``laplacian5_neumann`` as a [Ny, Nx] field (the slab that owns both
+    walls), memoized like ``_edge_ones`` (one per multigrid level and
+    dtype)."""
+    return inv_diag_slab(ny, nx, dtype, device, True, True)
+
+
+def laplacian5_neumann_slab(p: torch.Tensor, aux: torch.Tensor,
+                            is_lo: bool, is_hi: bool) -> torch.Tensor:
+    """``laplacian5_neumann`` on one x slab [..., Ny, w] of a split field:
+    aux [..., Ny, 2] holds the neighbours' edge columns (zeros at a wall),
+    the x-wall diagonal applies only on the sides the slab owns. Terms in
+    the whole-field order, so a split field's slabs give its Laplacian bit
+    for bit."""
+    ny, w = p.shape[-2], p.shape[-1]
+    ex = _slab_edge_ones(w, p.dtype, p.device, float(is_lo), float(is_hi))
+    ey = _edge_ones(ny, p.dtype, p.device)
+    xp, xm = _halo_x(p, aux)
+    return (
+        xp + xm
+        + _zshift(p, 1, 0) + _zshift(p, -1, 0)
+        + p * ((ey[:, None] + ex[None, :]) - 4.0)
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def inv_diag_slab(ny: int, w: int, dtype, device, is_lo: bool,
+                  is_hi: bool) -> torch.Tensor:
+    """``inv_diag_neumann`` of one x slab: the x-wall rows only on the
+    sides the slab owns."""
+    ex = _slab_edge_ones(w, dtype, device, float(is_lo), float(is_hi))
     ey = _edge_ones(ny, dtype, device)
     return 1.0 / (ey[:, None] + ex[None, :] - 4.0)
 
@@ -259,6 +323,27 @@ def divergence_freeslip(v: torch.Tensor) -> torch.Tensor:
     gy = _edge_ones(ny, v.dtype, v.device, lo=1.0, hi=-1.0)
     return (
         _zshift(u, 0, 1) - _zshift(u, 0, -1)
+        + u * gx[None, :]
+        + _zshift(w, 1, 0) - _zshift(w, -1, 0)
+        + w * gy[:, None]
+    )
+
+
+def divergence_freeslip_slab(v: torch.Tensor, aux: torch.Tensor,
+                             is_lo: bool, is_hi: bool) -> torch.Tensor:
+    """``divergence_freeslip`` on one x slab [..., 2, Ny, w]: aux
+    [..., 2, Ny, 2] holds the neighbours' edge columns (only u's are
+    read); the mirrored wall terms apply only on the sides the slab
+    owns. Terms in the whole-field order."""
+    u = v[..., 0, :, :]
+    w = v[..., 1, :, :]
+    ny, nxl = u.shape[-2], u.shape[-1]
+    gx = _slab_edge_ones(nxl, v.dtype, v.device, 1.0 if is_lo else 0.0,
+                         -1.0 if is_hi else 0.0)
+    gy = _edge_ones(ny, v.dtype, v.device, lo=1.0, hi=-1.0)
+    xp, xm = _halo_x(u, aux[..., 0, :, :])
+    return (
+        xp - xm
         + u * gx[None, :]
         + _zshift(w, 1, 0) - _zshift(w, -1, 0)
         + w * gy[:, None]
@@ -282,6 +367,23 @@ def pressure_gradient_update_fused(p: torch.Tensor, h, dt) -> torch.Tensor:
     dpx = (_zshift(p, 0, 1) - _zshift(p, 0, -1)) + p * gx[None, :]
     dpy = (_zshift(p, 1, 0) - _zshift(p, -1, 0)) + p * gy[:, None]
     return pfac * torch.stack([dpx, dpy], dim=-3)
+
+
+def pressure_gradient_slab(p: torch.Tensor, aux: torch.Tensor,
+                           is_lo: bool, is_hi: bool) -> torch.Tensor:
+    """The undivided Neumann gradient (dpx, dpy) [..., 2, Ny, w] of one x
+    slab of the pressure, as ``pressure_gradient_update_fused`` and the
+    correction epilogue form it before scaling: aux [..., Ny, 2] holds the
+    neighbours' edge columns; the one-sided wall terms apply only on the
+    sides the slab owns."""
+    ny, w = p.shape[-2], p.shape[-1]
+    gx = _slab_edge_ones(w, p.dtype, p.device, -1.0 if is_lo else 0.0,
+                         1.0 if is_hi else 0.0)
+    gy = _edge_ones(ny, p.dtype, p.device, lo=-1.0, hi=1.0)
+    xp, xm = _halo_x(p, aux)
+    dpx = (xp - xm) + p * gx[None, :]
+    dpy = (_zshift(p, 1, 0) - _zshift(p, -1, 0)) + p * gy[:, None]
+    return torch.stack([dpx, dpy], dim=-3)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,78 @@
+"""Slab mesh and the x-split uniform step: the counterpart of
+``cup2d_tpu.parallel.mesh``.
+
+The JAX package splits the x axis of every field over a device mesh with
+a ``NamedSharding`` and lets XLA's SPMD partitioner insert the halo
+exchanges and all-reduces. Here one process drives D slabs, each a tensor
+on its own ``torch.device`` (devices may repeat: four shards on one card,
+eight on the CPU; several cards in one process get peer copies), and
+``parallel.shard_halo`` writes every exchange and reduction out.
+``ShardedUniformSim`` runs the same numerics and host loop as
+``UniformSim`` on that layout; the elastic re-mesh and multi-host launch
+of the JAX package are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..config import SimConfig
+from ..uniform import FlowState, UniformSim
+from .shard_halo import SlabMesh, gather_x, split_x
+
+__all__ = ["ShardedUniformSim", "SlabMesh", "make_mesh", "shard_state",
+           "unshard_state"]
+
+
+def make_mesh(n_devices: Optional[int] = None, devices=None) -> SlabMesh:
+    """A 1-D mesh along x. ``devices`` defaults to every visible CUDA
+    device and must be given without a card; it may repeat a device, e.g.
+    ``make_mesh(devices=["cuda:0"] * 4)``. ``n_devices`` takes the first
+    n and raises when there are fewer."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass devices=[...] (e.g. ['cpu'] * 4) to "
+                "build a slab mesh on the CPU")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if n_devices is not None:
+        if len(devices) < n_devices:
+            raise ValueError(
+                f"need {n_devices} devices, have {len(devices)}")
+        devices = devices[:n_devices]
+    return SlabMesh(devices)
+
+
+def shard_state(state: FlowState, mesh: SlabMesh) -> FlowState:
+    """Split every field of a whole FlowState along x over ``mesh``."""
+    return FlowState(*(split_x(f, mesh) for f in state))
+
+
+def unshard_state(state: FlowState, device=None) -> FlowState:
+    """The whole fields of a split FlowState on one device (for tests and
+    dumps; the step never gathers a fine-level field)."""
+    return FlowState(*(gather_x(f, device) for f in state))
+
+
+class ShardedUniformSim(UniformSim):
+    """``UniformSim`` on a slab mesh: the state lives x-split over
+    ``mesh`` (no fine-level field is ever whole on one device during a
+    step), the advection runs the halo-mode substage kernel per shard,
+    the FAS solver smooths its split levels with the halo Jacobi kernel
+    per sweep and shard, and the reductions combine per-shard partials.
+    The step's diagnostics carry the same keys as ``UniformSim``'s."""
+
+    def __init__(self, cfg: SimConfig, mesh: SlabMesh,
+                 level: Optional[int] = None, bc=None):
+        super().__init__(cfg, level, device=mesh.devices[0], bc=bc)
+        self.mesh = mesh
+        self.grid.attach_mesh(mesh)
+        self.state = shard_state(self.state, mesh)
+
+    def set_state(self, state: FlowState) -> None:
+        """Split a whole state over the mesh and take it."""
+        self.state = shard_state(state, self.mesh)

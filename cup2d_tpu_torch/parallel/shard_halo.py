@@ -1,0 +1,401 @@
+"""Slab mesh, split fields and the explicit halo exchange of the x-split
+uniform step: the counterpart of the uniform half of
+``cup2d_tpu.parallel.shard_halo`` and of the partitioning that the JAX
+package leaves to GSPMD.
+
+A field split over a ``SlabMesh`` of D shards is a ``Slabs``: D
+contiguous tensors ``[..., Ny, Nx/D]``, slab d on ``mesh.devices[d]``
+holding the global columns ``[d*Nx/D, (d+1)*Nx/D)``. One process drives
+every shard (a single-controller mesh); devices may repeat, so four
+shards can share one card or eight the CPU. Data crosses shards in two
+ways only:
+
+1. ``exchange_x``, the edge-column exchange (the reference's pair of
+   ``lax.ppermute``s): shard d's left halo is shard d-1's last g columns,
+   its right halo shard d+1's first g; wall shards receive zeros there.
+   Copies are ``copy_`` without a host synchronization, so a peer copy
+   follows the producer's stream. A multi-host backend plugs in here.
+2. The global reductions (``slab_reducers``, ``slab_sum``,
+   ``slab_mean``, ``slab_linf``): per-shard partials in the dtype that
+   ``poisson._reducers`` uses, combined in shard order on
+   ``mesh.devices[0]``, where every scalar of a step lives.
+
+Every stencil the step applies to a split field is written out here: the
+JAX package's GSPMD partitioner inserted the halo exchanges of its
+shifted slices and the all-reduces of its reductions implicitly. The
+per-slab arithmetic is the whole-field arithmetic term for term
+(``ops.stencil``'s ``*_slab`` forms, the halo kernels), so a split field
+gives the whole field's values bit for bit; only the reductions' order
+differs.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..ops.hopper_kernels import (_substage_facs, advect_substage_halo,
+                                  jacobi_halo_sweep, jacobi_halo_sweep_plain)
+from ..ops.stencil import (divergence_freeslip_slab, laplacian5_neumann_slab,
+                           pressure_gradient_slab)
+
+_FREE_SLIP_TOKEN = "fs,fs,fs,fs"
+WENO_HALO = 3
+# a multigrid level stays split while its slab is at least this wide;
+# narrower levels are gathered onto mesh.devices[0] (see level_meshes)
+MIN_SPLIT_WIDTH = 8
+
+
+def canonical_device(d) -> torch.device:
+    """``d`` with its index: a bare ``cuda`` is the current card."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+class SlabMesh:
+    """D shards along x: shard d lives on ``devices[d]``. Devices may
+    repeat (several shards on one card, or on the CPU)."""
+
+    def __init__(self, devices):
+        self.devices = tuple(canonical_device(d) for d in devices)
+        if not self.devices:
+            raise ValueError("SlabMesh: no devices")
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def __repr__(self) -> str:
+        return f"SlabMesh({[str(d) for d in self.devices]})"
+
+
+def _scalar_on(s, device):
+    if torch.is_tensor(s):
+        return s.to(device, non_blocking=True)
+    return s
+
+
+class Slabs:
+    """A field split along x over ``mesh``: ``parts[d]`` on
+    ``mesh.devices[d]``. Arithmetic with another ``Slabs`` of the same
+    mesh, a number or a 0-d tensor is slab by slab (a 0-d tensor is moved
+    to each slab's device), so the solvers' vector updates run unchanged.
+    ``device`` is ``mesh.devices[0]``, where reductions land."""
+
+    __slots__ = ("parts", "mesh")
+
+    def __init__(self, parts, mesh: SlabMesh):
+        self.parts = list(parts)
+        self.mesh = mesh
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.devices[0]
+
+    @property
+    def shape(self) -> torch.Size:
+        s = self.parts[0].shape
+        return s[:-1] + (sum(p.shape[-1] for p in self.parts),)
+
+    def map(self, fn, *others) -> "Slabs":
+        """``fn`` slab by slab, over this field and ``others`` (Slabs of
+        the same mesh)."""
+        return Slabs([fn(p, *(o.parts[d] for o in others))
+                      for d, p in enumerate(self.parts)], self.mesh)
+
+    def _bin(self, other, op) -> "Slabs":
+        if isinstance(other, Slabs):
+            return Slabs([op(p, o) for p, o in zip(self.parts, other.parts)],
+                         self.mesh)
+        return Slabs([op(p, _scalar_on(other, p.device))
+                      for p in self.parts], self.mesh)
+
+    def __add__(self, o):
+        return self._bin(o, torch.add)
+
+    def __sub__(self, o):
+        return self._bin(o, torch.sub)
+
+    def __mul__(self, o):
+        return self._bin(o, torch.mul)
+
+    # an IEEE product does not depend on the operands' order
+    __rmul__ = __mul__
+
+    def to(self, dtype) -> "Slabs":
+        return Slabs([p.to(dtype) for p in self.parts], self.mesh)
+
+    def zeros_like(self) -> "Slabs":
+        return Slabs([torch.zeros_like(p) for p in self.parts], self.mesh)
+
+
+def split_x(t: torch.Tensor, mesh: SlabMesh) -> Slabs:
+    """Split a whole field [..., Nx] into ``mesh.size`` contiguous slabs,
+    each copied to its device."""
+    nx = t.shape[-1]
+    D = mesh.size
+    if nx % D:
+        raise ValueError(f"Nx={nx} not divisible by the mesh size {D}")
+    w = nx // D
+    parts = []
+    for d, dev in enumerate(mesh.devices):
+        p = torch.empty(t.shape[:-1] + (w,), dtype=t.dtype, device=dev)
+        p.copy_(t[..., d * w:(d + 1) * w])
+        parts.append(p)
+    return Slabs(parts, mesh)
+
+
+def gather_x(s: Slabs, device=None) -> torch.Tensor:
+    """The whole field of a split one, on ``device`` (default
+    ``mesh.devices[0]``)."""
+    dev = s.device if device is None else torch.device(device)
+    return torch.cat([p.to(dev) for p in s.parts], dim=-1)
+
+
+def reshard(s: Slabs, mesh: SlabMesh) -> Slabs:
+    """The same field over another mesh: gathered onto a one-device mesh,
+    or split from one."""
+    if mesh is s.mesh:
+        return s
+    if mesh.size == 1:
+        return Slabs([gather_x(s, mesh.devices[0])], mesh)
+    return split_x(gather_x(s), mesh)
+
+
+def exchange_x(s: Slabs, g: int) -> list:
+    """The edge-column exchange: per shard an aux tensor [..., 2g] whose
+    first g columns are the left neighbour's last g (zeros on shard 0)
+    and whose last g are the right neighbour's first g (zeros on the last
+    shard)."""
+    parts = s.parts
+    D = len(parts)
+    if any(p.shape[-1] < g for p in parts):
+        raise ValueError(f"exchange_x: slab widths "
+                         f"{[p.shape[-1] for p in parts]} < halo {g}")
+    out = []
+    for d, p in enumerate(parts):
+        shape = p.shape[:-1] + (2 * g,)
+        if D == 1:
+            out.append(p.new_zeros(shape))
+            continue
+        aux = p.new_empty(shape)
+        if d > 0:
+            aux[..., :g].copy_(parts[d - 1][..., -g:], non_blocking=True)
+        else:
+            aux[..., :g].zero_()
+        if d < D - 1:
+            aux[..., g:].copy_(parts[d + 1][..., :g], non_blocking=True)
+        else:
+            aux[..., g:].zero_()
+        out.append(aux)
+    return out
+
+
+def _walls(s: Slabs):
+    D = len(s.parts)
+    return [(d == 0, d == D - 1) for d in range(D)]
+
+
+# ---------------------------------------------------------------------------
+# global reductions: per-shard partials, combined in shard order
+# ---------------------------------------------------------------------------
+
+def _combine(partials, device):
+    acc = partials[0].to(device)
+    for p in partials[1:]:
+        acc = acc + p.to(device)
+    return acc
+
+
+def slab_sum(a: Slabs, dtype=None) -> torch.Tensor:
+    """Sum of a split field (accumulated in ``dtype``, default its own)."""
+    return _combine([torch.sum(p, dtype=dtype) for p in a.parts], a.device)
+
+
+def slab_mean(a: Slabs) -> torch.Tensor:
+    """Mean accumulated in f64 (``poisson.project_correct`` takes its
+    means so): the f32 value does not hang on the summation order."""
+    return (slab_sum(a, torch.float64) / math.prod(a.shape)).to(a.dtype)
+
+
+def slab_linf(a: Slabs) -> torch.Tensor:
+    """max |a|: exact in any order."""
+    m = [torch.amax(torch.abs(p)).to(a.device) for p in a.parts]
+    acc = m[0]
+    for x in m[1:]:
+        acc = torch.maximum(acc, x)
+    return acc
+
+
+def slab_all_finite(*fields: Slabs) -> torch.Tensor:
+    flags = [torch.isfinite(p).all().to(f.device)
+             for f in fields for p in f.parts]
+    acc = flags[0]
+    for x in flags[1:]:
+        acc = acc & x
+    return acc
+
+
+def slab_reducers(dt_, sum_dtype):
+    """``poisson._reducers`` for split fields: (dot, linf, zeros_like),
+    dot products accumulated per shard in ``sum_dtype`` (default the
+    field dtype) and combined in shard order."""
+    sd = sum_dtype or dt_
+
+    def dot(a, c):
+        if sd == dt_:
+            return _combine([torch.sum(x * y)
+                             for x, y in zip(a.parts, c.parts)], a.device)
+        return _combine([torch.sum(x * y, dtype=sd)
+                         for x, y in zip(a.parts, c.parts)],
+                        a.device).to(dt_)
+
+    return dot, slab_linf, Slabs.zeros_like
+
+
+# ---------------------------------------------------------------------------
+# the split stencils of the step (what GSPMD partitioned in the reference)
+# ---------------------------------------------------------------------------
+
+def laplacian5_neumann_x(p: Slabs) -> Slabs:
+    """``ops.stencil.laplacian5_neumann`` of a split field: one edge
+    column exchanged, then the slab form on every shard (the x-wall
+    diagonal on the wall shards only). GSPMD partitioned the whole-field
+    form's shifted slices into the same exchange."""
+    aux = exchange_x(p, 1)
+    return Slabs([laplacian5_neumann_slab(part, aux[d], lo, hi)
+                  for d, (part, (lo, hi))
+                  in enumerate(zip(p.parts, _walls(p)))], p.mesh)
+
+
+def divergence_rhs_x(v: Slabs, h, dt) -> Slabs:
+    """The obstacle-free pressure RHS (h/2dt) div(u*) of a split
+    velocity (``UniformGrid.poisson_rhs`` with chi None, the obstacle-free
+    form of ``divergence_rhs_fused``): one edge column of u exchanged,
+    then ``divergence_freeslip_slab`` on every shard, the mirrored wall
+    terms on the wall shards only."""
+    aux = exchange_x(v, 1)
+    div = Slabs([divergence_freeslip_slab(part, aux[d], lo, hi)
+                 for d, (part, (lo, hi))
+                 in enumerate(zip(v.parts, _walls(v)))], v.mesh)
+    return (0.5 * h / dt) * div
+
+
+def project_correct_x(x: Slabs, pres_old: Slabs, vel: Slabs, h, dt):
+    """The projection epilogue of ``poisson.project_correct`` on split
+    fields, written out as plain per-slab code (the correction kernel has
+    no split form, as in the JAX package, whose mesh keeps the XLA
+    epilogue): pres = ((x - mean x) + pres_old) - mean pres_old, then one
+    edge column of pres exchanged and vel += (pfac grad_neumann(pres)) /
+    h^2 with pfac = -dt h / 2, the one-sided wall terms on the wall shards
+    only (``pressure_gradient_update_fused``). Returns (vel, pres)."""
+    dt = torch.as_tensor(dt, dtype=x.dtype, device=x.device)
+    mx, mp = slab_mean(x), slab_mean(pres_old)
+    pfac = -0.5 * dt * h
+    ih2 = 1.0 / (h * h)
+    pres = Slabs([((xp - mx.to(xp.device)) + pp) - mp.to(xp.device)
+                  for xp, pp in zip(x.parts, pres_old.parts)], x.mesh)
+    aux = exchange_x(pres, 1)
+    out = []
+    for d, (pp, vp, (lo, hi)) in enumerate(zip(pres.parts, vel.parts,
+                                               _walls(pres))):
+        dv = pfac.to(pp.device) * pressure_gradient_slab(pp, aux[d], lo, hi)
+        out.append(vp + dv * ih2)
+    return Slabs(out, vel.mesh), pres
+
+
+def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None) -> Slabs:
+    """Both Heun substages on a split velocity [..., 2, Ny, w] per slab:
+    each substage exchanges three edge columns (in the storage dtype),
+    then runs the halo-mode substage (``advect_substage_halo``: the kernel
+    on the card, its twin on the CPU) on every shard, wall shards painting
+    their x ghosts. dt is a scalar or shaped like the leading dims. Only
+    the free-slip box is ported: any other table (periodic included, whose
+    wrap would need a ring exchange) refuses."""
+    token = getattr(bc, "token", bc)
+    if token not in (None, _FREE_SLIP_TOKEN):
+        raise NotImplementedError(
+            f"fused_advect_heun_sharded: boundary table {token!r}: only "
+            f"the free-slip box ({_FREE_SLIP_TOKEN}) is ported")
+    if any(p.shape[-1] < WENO_HALO for p in vel.parts):
+        raise ValueError(
+            f"fused_advect_heun_sharded: slab width "
+            f"{vel.parts[0].shape[-1]} < the WENO halo {WENO_HALO}")
+    p0 = vel.parts[0]
+    lead = p0.shape[:-3]
+    L = math.prod(lead)
+    facs = _substage_facs(dt, float(h), nu, lead, L, p0.dtype, vel.device)
+    facs = [facs.to(p.device) for p in vel.parts]
+    ih2 = 1.0 / (float(h) * float(h))
+    walls = _walls(vel)
+    v0 = Slabs([p.reshape((L,) + p.shape[-3:]) for p in vel.parts],
+               vel.mesh)
+
+    def sub(stage, vold, cfac):
+        aux = exchange_x(stage, WENO_HALO)
+        return Slabs([advect_substage_halo(
+            p, None if vold is None else vold.parts[d], aux[d], facs[d],
+            cfac, ih2, lo, hi)
+            for d, (p, (lo, hi)) in enumerate(zip(stage.parts, walls))],
+            stage.mesh)
+
+    v2 = sub(sub(v0, None, 0.5), v0, 1.0)
+    return Slabs([p.reshape(q.shape) for p, q in zip(v2.parts, vel.parts)],
+                 vel.mesh)
+
+
+def overlap_jacobi_sweeps(e, r: Slabs, omega: float, n: int,
+                          from_zero: bool = False,
+                          fused: bool = True) -> Slabs:
+    """n damped-Jacobi sweeps e + omega (r - lap e) inv_d on split fields
+    [Ny, w] per slab: each sweep exchanges one edge column, then sweeps
+    every slab (``jacobi_halo_sweep``, the halo kernel on the card, one
+    launch per sweep and shard; ``fused=False`` takes its plain twin, as
+    the bf16 preconditioner cycle takes plain sweeps). The chain cannot
+    block sweeps in time: each needs fresh neighbour columns.
+    ``from_zero`` makes the first sweep omega r inv_d (no exchange)."""
+    sweep = jacobi_halo_sweep if fused else jacobi_halo_sweep_plain
+    walls = _walls(r)
+    if from_zero and n > 0:
+        e = Slabs([sweep(None, rp, None, omega, lo, hi, True)
+                   for rp, (lo, hi) in zip(r.parts, walls)], r.mesh)
+        n -= 1
+    for _ in range(n):
+        aux = exchange_x(e, 1)
+        e = Slabs([sweep(ep, rp, aux[d], omega, lo, hi)
+                   for d, (ep, rp, (lo, hi))
+                   in enumerate(zip(e.parts, r.parts, walls))], r.mesh)
+    return e
+
+
+def level_meshes(shapes, mesh: SlabMesh) -> list:
+    """The mesh of every multigrid level (finest first): ``mesh`` while
+    the level stays split, else the one-device mesh of
+    ``mesh.devices[0]``. A level stays split while the finer level's slab
+    width is even (so the 2x2 restriction and the repeat prolongation
+    stay local to a slab) and its own slab is at least
+    ``MIN_SPLIT_WIDTH`` columns wide. Narrower levels gather: there a
+    sweep is a few hundred cells per slab, and D launches plus an
+    exchange per sweep cost more than the sweep. Every transfer is
+    pointwise, so either form gives the solo cycle's values bit for
+    bit."""
+    D = mesh.size
+    ny0, nx0 = shapes[0]
+    if nx0 % D:
+        raise ValueError(f"Nx={nx0} not divisible by the mesh size {D}")
+    one = SlabMesh(mesh.devices[:1]) if D > 1 else mesh
+    out = [mesh]
+    split = True
+    for lvl in range(1, len(shapes)):
+        w_prev = shapes[lvl - 1][1] // D
+        split = (split and w_prev % 2 == 0
+                 and shapes[lvl][1] // D >= MIN_SPLIT_WIDTH)
+        out.append(mesh if split else one)
+    return out

@@ -7,7 +7,8 @@
   smoothing, 2x2 sum restriction, nearest prolongation). Under an f32
   Krylov solve the cycle runs in bf16 (a preconditioner only shapes the
   error); as the FAS solver it runs at solver precision and its sweep
-  chains go through ``hopper_kernels.fused_jacobi_sweeps``.
+  chains go through ``hopper_kernels.fused_jacobi_sweeps``. With a slab
+  mesh it runs on x-split fields (``parallel.shard_halo``).
 * ``bicgstab``: flexible BiCGSTAB with the reference's Linf criterion,
   breakdown restarts, periodic true-residual refresh and the L2 stall
   exit.
@@ -37,6 +38,8 @@ import torch
 from .ops.hopper_kernels import (fused_correction, fused_jacobi_sweeps,
                                  jacobi_sweeps_plain)
 from .ops.stencil import laplacian5_neumann
+from .parallel.shard_halo import (laplacian5_neumann_x, level_meshes,
+                                  overlap_jacobi_sweeps, reshard)
 
 
 def block_precond_matrix(bs: int, dtype=np.float64) -> np.ndarray:
@@ -88,11 +91,26 @@ class MultigridPreconditioner:
     ``fused_jacobi_sweeps`` wrapper (kernel on the card, twin on the
     CPU); otherwise the chains are plain tensor code, as the XLA chains
     are in the JAX package. The Jacobi diagonal (``_inv_diag`` in the JAX
-    package) is ``ops.stencil.inv_diag_neumann``, shared with the twin."""
+    package) is ``ops.stencil.inv_diag_neumann``, shared with the twin.
+
+    ``mesh`` (a ``SlabMesh``) runs the cycle on x-split fields
+    (``Slabs``). The JAX package splits only its finest level by hand
+    (``overlap_levels=1``) and leaves the coarser ones to GSPMD; here every
+    level is written out, and ``shard_halo.level_meshes`` chooses per
+    level between two forms: split halo sweeps (each sweep exchanges one
+    edge column, then sweeps every slab: the halo kernel under
+    ``fused_smoother``, its plain twin in the bf16 cycle) while the slabs
+    stay even and at least ``MIN_SPLIT_WIDTH`` wide, and below that the
+    level gathered onto ``mesh.devices[0]`` (a one-shard mesh, the same
+    sweeps without an exchange), where D launches and an exchange per
+    sweep of a few hundred cells cost more than the sweep. Sweeps,
+    restriction and prolongation are pointwise, so the split cycle equals
+    the solo one bit for bit."""
 
     def __init__(self, ny: int, nx: int, dtype, nu1: int = 2,
                  nu2: int = 2, coarsest: int = 16, omega: float = 0.8,
-                 cycle_dtype=None, fused_smoother: bool = False):
+                 cycle_dtype=None, fused_smoother: bool = False,
+                 mesh=None):
         self.nu1 = nu1
         self.nu2 = nu2
         self.omega = omega
@@ -107,11 +125,18 @@ class MultigridPreconditioner:
             ny //= 2
             nx //= 2
         self.shapes.append((ny, nx))
+        self.meshes = (None if mesh is None
+                       else level_meshes(self.shapes, mesh))
 
     def _lap(self, p):
+        if self.meshes is not None:
+            return laplacian5_neumann_x(p)
         return laplacian5_neumann(p)
 
     def _smooth(self, e, r, lvl, n, from_zero=False):
+        if self.meshes is not None:
+            return overlap_jacobi_sweeps(e, r, self.omega, n, from_zero,
+                                         fused=self.fused_smoother)
         if self.fused_smoother:
             return fused_jacobi_sweeps(e, r, self.omega, n, from_zero)
         return jacobi_sweeps_plain(e, r, self.omega, n, from_zero)
@@ -134,11 +159,25 @@ class MultigridPreconditioner:
     def _prolong(ec):
         return ec.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
 
+    def _down(self, res, lvl):
+        """Restrict level ``lvl`` to ``lvl + 1``, gathering first where the
+        coarser level runs on fewer shards."""
+        if self.meshes is None:
+            return self._restrict(res)
+        return reshard(res, self.meshes[lvl + 1]).map(self._restrict)
+
+    def _up(self, ec, lvl):
+        """Prolong level ``lvl + 1`` to ``lvl``, splitting after where the
+        finer level runs on more shards."""
+        if self.meshes is None:
+            return self._prolong(ec)
+        return reshard(ec.map(self._prolong), self.meshes[lvl])
+
     def _fcycle(self, r, lvl):
         if lvl == len(self.shapes) - 1:
             return self._smooth(None, r, lvl, 24, from_zero=True)
-        ec = self._fcycle(self._restrict(r), lvl + 1)
-        return self._cycle(r, lvl, e0=self._prolong(ec))
+        ec = self._fcycle(self._down(r, lvl), lvl + 1)
+        return self._cycle(r, lvl, e0=self._up(ec, lvl))
 
     def _cycle(self, r, lvl, e0=None):
         if lvl == len(self.shapes) - 1:
@@ -151,8 +190,8 @@ class MultigridPreconditioner:
             e = self._smooth(e0, r, lvl, self.nu1)
         else:
             e = self._smooth(None, r, lvl, self.nu1, from_zero=True)
-        rc = self._restrict(r - self._lap(e))
-        e = e + self._prolong(self._cycle(rc, lvl + 1))
+        rc = self._down(r - self._lap(e), lvl)
+        e = e + self._up(self._cycle(rc, lvl + 1), lvl)
         return self._smooth(e, r, lvl, self.nu2)
 
 
@@ -165,6 +204,9 @@ class BiCGSTABResult(NamedTuple):
 
 
 def _reducers(dt_, sum_dtype):
+    """(dot, linf, zeros_like) of whole fields; dot products accumulate in
+    ``sum_dtype`` (default the field dtype). The split-field counterpart
+    is ``parallel.shard_halo.slab_reducers``."""
     sd = sum_dtype or dt_
 
     def dot(a, c):
@@ -175,7 +217,7 @@ def _reducers(dt_, sum_dtype):
     def linf(a):
         return torch.amax(torch.abs(a))
 
-    return dot, linf
+    return dot, linf, torch.zeros_like
 
 
 def bicgstab(
@@ -191,6 +233,7 @@ def bicgstab(
     refresh_every: int = 50,
     stall_iters: int = 120,
     stall_rtol: float = 0.999,
+    reducers=_reducers,
 ) -> BiCGSTABResult:
     """Preconditioned flexible BiCGSTAB (reference cuda.cu:403-548).
 
@@ -201,15 +244,17 @@ def bicgstab(
     residual is replaced by the true residual of the current iterate
     (re-grounding the best-iterate tracking too), and the L2 norm sampled
     at those refreshes drives the stall exit: no ``stall_rtol`` gain for
-    ``stall_iters`` iterations ends the solve with the best iterate."""
+    ``stall_iters`` iterations ends the solve with the best iterate.
+    ``reducers(dtype, sum_dtype)`` gives (dot, linf, zeros_like): the
+    whole-field ones, or ``shard_halo.slab_reducers`` for split fields."""
     if M is None:
         M = lambda v: v  # noqa: E731
     dt_ = b.dtype
-    dot, linf = _reducers(dt_, sum_dtype)
+    dot, linf, zeros_like = reducers(dt_, sum_dtype)
 
     if x0 is None:
         # A(0) = 0: the initial residual is b
-        x = torch.zeros_like(b)
+        x = zeros_like(b)
         r = b
     else:
         x = x0
@@ -219,8 +264,8 @@ def bicgstab(
                            tol_rel * norm0)
     one = torch.ones_like(norm0)
     rhat = r
-    p = torch.zeros_like(b)
-    v = torch.zeros_like(b)
+    p = zeros_like(b)
+    v = zeros_like(b)
     rho = alpha = omega = one
     x_opt, norm_opt = x, norm0
     best_l2 = torch.sqrt(dot(r, r))
@@ -310,15 +355,17 @@ def mg_solve(
     stall_cycles: int = 4,
     stall_rtol: float = 0.999,
     fmg: bool = False,
+    reducers=_reducers,
 ) -> BiCGSTABResult:
     """Solve A x = b by repeated multigrid cycles x += mg(b - A x) with the
     true residual each cycle; same result contract and criterion as
     ``bicgstab``, ``iters`` counting cycles. ``fmg`` opens with one
     F-cycle (counted). ``stall_cycles`` consecutive cycles without a
-    ``stall_rtol`` gain over the running best end the solve ``stalled``."""
-    _, linf = _reducers(b.dtype, None)
+    ``stall_rtol`` gain over the running best end the solve ``stalled``.
+    ``reducers`` as in ``bicgstab``."""
+    _, linf, zeros_like = reducers(b.dtype, None)
     if x0 is None:
-        x = torch.zeros_like(b)
+        x = zeros_like(b)
         r = b
     else:
         x = x0
@@ -515,12 +562,18 @@ class ForestFASCycle:
 def project_correct(x, pres_old, vel, h, dt):
     """Projection epilogue: ``pres = (x - mean x) + pres_old - mean
     pres_old`` and ``vel += -dt/(2h) grad_neumann(pres) / h^2``, the means
-    taken here and the rest in ``fused_correction``. x, pres_old
-    [..., Ny, Nx]; vel [..., 2, Ny, Nx]; dt a scalar. Returns (vel, pres)."""
+    taken here (accumulated in f64, so that their f32 value does not hang
+    on the summation order: the x-split step's per-shard partials give the
+    same) and the rest in ``fused_correction``. x, pres_old [..., Ny, Nx];
+    vel [..., 2, Ny, Nx]; dt a scalar. Returns (vel, pres)."""
     ny, nx = x.shape[-2:]
     L = math.prod(x.shape[:-2])
     dt = torch.as_tensor(dt, dtype=x.dtype, device=x.device)
-    scal = torch.stack([torch.mean(x), torch.mean(pres_old),
+
+    def mean(a):
+        return torch.mean(a, dtype=torch.float64).to(a.dtype)
+
+    scal = torch.stack([mean(x), mean(pres_old),
                         -0.5 * dt * h]).reshape(1, 3).expand(L, 3)
     pres, velc = fused_correction(
         x.reshape(L, ny, nx), pres_old.reshape(L, ny, nx),

@@ -2,17 +2,21 @@
 
 Uniform (default): runs ``UniformGrid.step(obstacle_terms=False)`` on the
 benchmark state (``bench_state``, dt = h/2, f32) under each solver, one
-warm-up step and then ``--steps`` steps under ``torch.profiler``.
+warm-up step and then ``--steps`` steps under ``torch.profiler``;
+``--mesh D`` splits the grid along x into D slabs on the one card
+(``UniformGrid.attach_mesh``, the step of ``ShardedUniformSim``).
 Forest (``--forest``): builds ``amr.vortex_forest`` (the ~1e4-block
 synthetic-vortex forest of the canonical domain), runs its 10 startup
 steps and one production step unprofiled, then ``--steps`` production
 ``AMRSim.step_once`` steps under the profiler. Prints per solver: the
 wall time per step, the device-busy share (sum of kernel times over the
-wall time of the window), the Poisson iterations, and the kernels that
-take the most device time. The Chrome trace of each window goes to
+wall time of the window), the device operations (kernels and copies)
+launched per step, the Poisson iterations, and the kernels that take the
+most device time. The Chrome trace of each window goes to
 ``--out`` (default ``build/profile/``, which git ignores).
 
     python -m cup2d_tpu_torch.profile_step --size 8192 --steps 3
+    python -m cup2d_tpu_torch.profile_step --size 8192 --mesh 4
     python -m cup2d_tpu_torch.profile_step --forest --steps 3
 """
 
@@ -34,6 +38,7 @@ def _summary(prof, steps, wall_ms, top):
             for e in events[:top]]
     return {"wall_ms_per_step": wall_ms / steps,
             "device_ms_per_step": device_ms / steps,
+            "launches_per_step": sum(e.count for e in events) / steps,
             "device_busy_share": device_ms / wall_ms, "top": rows}
 
 
@@ -81,11 +86,12 @@ def profile_forest(steps: int, pois: str, out_dir: str, top: int,
 
 
 def profile_solver(size: int, steps: int, pois: str, out_dir: str,
-                   top: int) -> dict:
+                   top: int, mesh: int = 0) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from .config import SimConfig
+    from .parallel.mesh import make_mesh, shard_state
     from .uniform import UniformGrid, bench_state
 
     os.environ["CUP2D_POIS"] = pois
@@ -97,7 +103,11 @@ def profile_solver(size: int, steps: int, pois: str, out_dir: str,
     finally:
         os.environ.pop("CUP2D_POIS", None)
     state = bench_state(grid)
+    if mesh:
+        grid.attach_mesh(make_mesh(devices=[grid.device] * mesh))
+        state = shard_state(state, grid.mesh)
     dt = torch.tensor(0.5 * grid.h, device=grid.device)
+    torch.cuda.reset_peak_memory_stats()
     state, _ = grid.step(state, dt, obstacle_terms=False)
     torch.cuda.synchronize()
     iters = []
@@ -110,10 +120,12 @@ def profile_solver(size: int, steps: int, pois: str, out_dir: str,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     os.makedirs(out_dir, exist_ok=True)
+    tag = f"_mesh{mesh}" if mesh else ""
     prof.export_chrome_trace(os.path.join(
-        out_dir, f"trace_{grid.poisson_mode}_{size}.json"))
-    out = {"mode": grid.poisson_mode, "size": size, "steps": steps,
-           "iters": iters}
+        out_dir, f"trace_{grid.poisson_mode}_{size}{tag}.json"))
+    out = {"mode": grid.poisson_mode, "size": size, "mesh": mesh,
+           "steps": steps, "iters": iters,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     out.update(_summary(prof, steps, wall_ms, top))
     return out
 
@@ -128,6 +140,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--forest", action="store_true",
                     help="profile the forest step instead")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="split the uniform step into this many slabs on "
+                         "the one card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
@@ -143,7 +158,7 @@ def main(argv=None) -> int:
                                         args.top, start)
         else:
             res = profile_solver(args.size, args.steps, pois, args.out,
-                                 args.top)
+                                 args.top, args.mesh)
         print(json.dumps({k: v for k, v in res.items() if k != "top"}))
         for row in res["top"]:
             print(f"  {row['ms_per_step']:9.3f} ms/step  "

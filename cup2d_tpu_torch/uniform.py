@@ -9,8 +9,14 @@ Poisson solve, ``project_correct``) and the step diagnostics.
 Device policy: ``UniformGrid`` and ``UniformSim`` run on ``cuda`` unless
 the caller passes ``device="cpu"``; with no device given and no card they
 raise. The card runs f32 state only; the CPU runs f32 or f64. On the card
-the three Hopper kernels always run (there is no kernel-tier switch), on
-the CPU their plain twins.
+the Hopper kernels always run (there is no kernel-tier switch), on the
+CPU their plain twins.
+
+``UniformGrid.attach_mesh`` splits the step along x over a slab mesh
+(``parallel.mesh.ShardedUniformSim`` drives it): the advection runs the
+halo-mode substage per shard, the multigrid cycles run on split fields,
+the epilogue is plain per-slab code and the reductions combine per-shard
+partials (``parallel.shard_halo``).
 
 Environment, read once per ``UniformGrid``: ``CUP2D_POIS`` selects the
 solver (""/structured/tables/fft: bicgstab + MG, fas: MG cycles, fas-f:
@@ -32,9 +38,14 @@ from .ops.hopper_kernels import fused_advect_heun
 from .ops.stencil import (divergence_freeslip, divergence_rhs_fused,
                           dt_from_umax, laplacian5_neumann, pad_scalar,
                           pad_vector, vorticity)
-from .poisson import (MultigridPreconditioner, apply_block_precond,
-                      bicgstab, block_precond_matrix, mg_solve,
-                      project_correct)
+from .parallel.shard_halo import (canonical_device, divergence_rhs_x,
+                                  fused_advect_heun_sharded,
+                                  laplacian5_neumann_x, project_correct_x,
+                                  slab_all_finite, slab_linf, slab_reducers,
+                                  slab_sum)
+from .poisson import (MultigridPreconditioner, _reducers,
+                      apply_block_precond, bicgstab, block_precond_matrix,
+                      mg_solve, project_correct)
 
 __all__ = ["FlowState", "UniformGrid", "UniformSim", "bench_state",
            "pad_scalar", "pad_vector", "resolve_device",
@@ -143,14 +154,38 @@ class UniformGrid:
             # the block preconditioner's GEMM stays in full f32
             torch.backends.cuda.matmul.allow_tf32 = False
         self.p_inv = self.tensor(block_precond_matrix(cfg.bs))
-        fas = self.solver_mode == "fas"
-        self.mg = MultigridPreconditioner(
-            self.ny, self.nx, self.dtype,
-            cycle_dtype=self.dtype if fas else None, fused_smoother=fas)
+        self.mesh = None
+        self.mg = self._multigrid()
         # f32 fields take their Krylov dot products in f64 (the JAX
         # package does so whenever x64 is on)
         self.sum_dtype = (torch.float64 if self.dtype == torch.float32
                           else None)
+
+    def _multigrid(self) -> MultigridPreconditioner:
+        fas = self.solver_mode == "fas"
+        return MultigridPreconditioner(
+            self.ny, self.nx, self.dtype,
+            cycle_dtype=self.dtype if fas else None, fused_smoother=fas,
+            mesh=self.mesh)
+
+    def attach_mesh(self, mesh) -> None:
+        """Split the step along x over ``mesh`` (a ``SlabMesh`` whose first
+        device is this grid's): the fields it takes and returns are then
+        ``Slabs``. The advection runs the halo-mode substage per shard,
+        the multigrid hierarchy (the FAS solver's and the bf16
+        preconditioner's) is rebuilt on split fields, the projection
+        epilogue is plain per-slab code (the correction kernel stays off,
+        as in the JAX package), and every reduction combines per-shard
+        partials. fftd and the bf16 storage tier refuse at construction
+        already; Nx must divide by the mesh size."""
+        if self.nx % mesh.size:
+            raise ValueError(f"Nx={self.nx} not divisible by mesh size "
+                             f"{mesh.size}")
+        if mesh.devices[0] != canonical_device(self.device):
+            raise ValueError(f"mesh {mesh} does not start on the grid's "
+                             f"device {self.device}")
+        self.mesh = mesh
+        self.mg = self._multigrid()
 
     def tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=self.dtype,
@@ -175,15 +210,24 @@ class UniformGrid:
             torch.tensor(self.h, dtype=self.dtype, device=self.device),
             self.cfg.nu, self.cfg.cfl)
 
+    def _linf(self, a) -> torch.Tensor:
+        if self.mesh is not None:
+            return slab_linf(a)
+        return torch.amax(torch.abs(a))
+
     def compute_dt(self, vel: torch.Tensor) -> torch.Tensor:
-        return self.dt_from_umax(torch.amax(torch.abs(vel)))
+        return self.dt_from_umax(self._linf(vel))
 
     def laplacian(self, p: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            return laplacian5_neumann_x(p)
         return laplacian5_neumann(p)
 
     def poisson_rhs(self, vel, chi, udef, dt) -> torch.Tensor:
         """(h/2dt)[div u* - chi div u_def]; ``chi=None`` drops the obstacle
-        term."""
+        term (the only form on a mesh)."""
+        if self.mesh is not None and chi is None:
+            return divergence_rhs_x(vel, self.h, dt)
         if chi is None:
             return (0.5 * self.h / dt) * divergence_freeslip(vel)
         return divergence_rhs_fused(vel, udef, chi, self.h, dt)
@@ -203,11 +247,13 @@ class UniformGrid:
         restarts, exiting through the stall detector at the precision
         floor; it always runs Krylov, also under fas."""
         cfg = self.cfg
+        reducers = _reducers if self.mesh is None else slab_reducers
         if self.solver_mode == "fas" and not exact:
             return mg_solve(
                 self.laplacian, rhs, self.mg,
                 tol=cfg.poisson_tol, tol_rel=cfg.poisson_tol_rel,
-                max_cycles=cfg.max_poisson_iterations, fmg=self.fas_fmg)
+                max_cycles=cfg.max_poisson_iterations, fmg=self.fas_fmg,
+                reducers=reducers)
         return bicgstab(
             self.laplacian, rhs,
             M=self.mg if cfg.precond else None,
@@ -219,11 +265,15 @@ class UniformGrid:
             refresh_every=10 if exact else 50,
             stall_iters=20 if exact else 120,
             stall_rtol=0.99 if exact else 0.999,
+            reducers=reducers,
         )
 
     def advect_heun(self, vel: torch.Tensor, dt) -> torch.Tensor:
         """Two-stage Heun advection-diffusion (main.cpp:6607-6642), both
-        substages through the substage kernel (its twin on the CPU)."""
+        substages through the substage kernel (its twin on the CPU), or
+        through the halo-mode substage per shard on a mesh."""
+        if self.mesh is not None:
+            return fused_advect_heun_sharded(vel, self.h, self.cfg.nu, dt)
         return fused_advect_heun(vel, self.h, self.cfg.nu, dt)
 
     def project(self, vel, pres_old, chi, udef, dt, exact_poisson=False):
@@ -232,10 +282,11 @@ class UniformGrid:
         pre-projection velocity in physical units."""
         h = self.h
         b = self.poisson_rhs(vel, chi, udef, dt)
-        div_linf = torch.amax(torch.abs(b)) * (dt / (h * h))
+        div_linf = self._linf(b) * (dt / (h * h))
         b = b - self.laplacian(pres_old)
         res = self.pressure_solve(b, exact=exact_poisson)
-        vel, pres = project_correct(res.x, pres_old, vel, h, dt)
+        correct = project_correct if self.mesh is None else project_correct_x
+        vel, pres = correct(res.x, pres_old, vel, h, dt)
         return vel, pres, res, div_linf
 
     def precond_cycles(self, res, exact) -> int:
@@ -250,15 +301,20 @@ class UniformGrid:
     def step_diag(self, vel, pres, res, div_linf=None,
                   exact=False) -> dict:
         """Step diagnostics; tensor values stay on the device."""
-        umax = torch.amax(torch.abs(vel))
+        umax = self._linf(vel)
         vv = vel.to(self.sum_dtype) if self.sum_dtype is not None else vel
-        energy = 0.5 * self.h * self.h * torch.sum(vv * vv)
+        if self.mesh is not None:
+            energy = 0.5 * self.h * self.h * slab_sum(vv * vv)
+            finite = slab_all_finite(vel, pres)
+        else:
+            energy = 0.5 * self.h * self.h * torch.sum(vv * vv)
+            finite = torch.isfinite(vel).all() & torch.isfinite(pres).all()
         return {
             "poisson_iters": res.iters,
             "poisson_residual": res.residual,
             "poisson_stalled": res.stalled,
             "poisson_converged": res.converged,
-            "finite": torch.isfinite(vel).all() & torch.isfinite(pres).all(),
+            "finite": finite,
             "umax": umax,
             "energy": energy,
             "div_linf": div_linf,
@@ -270,7 +326,11 @@ class UniformGrid:
              obstacle_terms: bool = True) -> tuple[FlowState, dict]:
         """One projection step. ``obstacle_terms=False`` drops the
         penalization update and the chi*div(u_def) RHS term, identically
-        zero without shapes."""
+        zero without shapes; a mesh-attached grid takes only that form."""
+        if obstacle_terms and self.mesh is not None:
+            raise NotImplementedError(
+                "the obstacle terms of the split step are not ported: step "
+                "it with obstacle_terms=False")
         dt = torch.as_tensor(dt, dtype=self.dtype, device=self.device)
         vel = self.advect_heun(state.vel, dt)
         if obstacle_terms:

@@ -8,16 +8,29 @@ Bounds: the substage pair <= 2e-6 on unit-scale operands at dt = h/2
 (FMA contraction in the kernel, amplified by ih2 = 1/h^2), the correction
 <= 5e-6, the sweep chains <= 2e-6 relative, the forest lab RHS <= 2e-6
 relative per block-size class, the block-Jacobi update <= 2e-6 relative
-(summation order of its 64-term products)."""
+(summation order of its 64-term products), the single-op RHS <= 2e-6
+relative. The halo kernels of the x-split step reproduce the solo kernels
+bit for bit once their slabs are assembled (the same per-cell code and
+the same ghost values), and a split step on one card follows the solo
+step to 1e-5 relative (only the reductions' order differs)."""
 
 import numpy as np
 import pytest
 import torch
 
+from cup2d_tpu_torch import SimConfig, UniformSim
 from cup2d_tpu_torch.amr import multilevel_forest
 from cup2d_tpu_torch.convert import forest_from_numpy, forest_to_numpy
 from cup2d_tpu_torch.ops import hopper_kernels as hk
+from cup2d_tpu_torch.parallel.mesh import (ShardedUniformSim, make_mesh,
+                                           unshard_state)
+from cup2d_tpu_torch.parallel.shard_halo import (exchange_x,
+                                                 fused_advect_heun_sharded,
+                                                 gather_x,
+                                                 overlap_jacobi_sweeps,
+                                                 split_x)
 from cup2d_tpu_torch.poisson import block_precond_matrix
+from cup2d_tpu_torch.uniform import bench_state
 
 pytestmark = pytest.mark.cuda
 
@@ -172,3 +185,76 @@ def test_forest_default_solver_on_the_card_matches_cpu(cuda, monkeypatch):
     b = cpu.fields()["vel"][
         torch.as_tensor(cpu.forest.order(), dtype=torch.long)]
     assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_halo_substage_kernel_vs_twin_and_solo_kernel(cuda, D):
+    h = 1.0 / 96
+    v = _rand((2, 2, 40, 96), 11, cuda)
+    dt = torch.tensor([0.5 * h, 0.3 * h], device=cuda)
+    mesh = make_mesh(devices=[cuda] * D)
+    hk.reset_launches()
+    split = gather_x(fused_advect_heun_sharded(split_x(v, mesh), h, 4e-5,
+                                               dt))
+    solo = hk.fused_advect_heun(v, h, 4e-5, dt)
+    torch.cuda.synchronize()
+    assert hk.launches["advect_substage_halo"] == 2 * D
+    assert torch.equal(split, solo)
+    # one shard against its twin
+    s = split_x(v, mesh)
+    aux = exchange_x(s, 3)[0]
+    facs = torch.stack([-dt * h, 4e-5 * dt], -1).contiguous()
+    got = hk.advect_substage_halo(s.parts[0], None, aux, facs, 0.5,
+                                  1 / h ** 2, True, D == 1)
+    ref = hk.advect_substage_halo_plain(s.parts[0], None, aux, facs, 0.5,
+                                        1 / h ** 2, True, D == 1)
+    assert float((got - ref).abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("from_zero", [False, True])
+def test_halo_jacobi_kernel_vs_twin_and_solo_kernel(cuda, D, from_zero):
+    e, r = _rand((72, 136), 12, cuda), _rand((72, 136), 13, cuda)
+    mesh = make_mesh(devices=[cuda] * D)
+    hk.reset_launches()
+    split = gather_x(overlap_jacobi_sweeps(split_x(e, mesh), split_x(r, mesh),
+                                           0.8, 3, from_zero))
+    solo = hk.fused_jacobi_sweeps(e, r, 0.8, 3, from_zero)
+    torch.cuda.synchronize()
+    assert hk.launches["jacobi_halo_sweep"] == 3 * D
+    assert torch.equal(split, solo)
+    twin = hk.jacobi_sweeps_plain(e, r, 0.8, 3, from_zero)
+    assert float((split - twin).abs().max() / twin.abs().max()) <= 2e-6
+
+
+def test_advect_rhs_kernel_vs_twin(cuda):
+    lab = _rand((2, 70, 134), 14, cuda)
+    hk.reset_launches()
+    got = hk.advect_diffuse_rhs(lab, 1 / 128, 4e-5, 0.5 / 128)
+    ref = hk.advect_diffuse_rhs_plain(lab, 1 / 128, 4e-5, 0.5 / 128)
+    torch.cuda.synchronize()
+    assert hk.launches["advect_diffuse_rhs"] == 1
+    assert got.shape == (2, 64, 128)
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("pois", ["", "fas"])
+def test_sharded_step_on_one_card_matches_solo(cuda, monkeypatch, pois):
+    """Two production steps of a D = 2 split on cuda:0 against the solo
+    step: equal iterations, velocity within 1e-5 relative."""
+    monkeypatch.setenv("CUP2D_POIS", pois)
+    cfg = SimConfig(bpdx=2, bpdy=1, level_max=1, level_start=0,
+                    extent=2.0, nu=4e-5, cfl=0.5, dtype="float32")
+    solo = UniformSim(cfg, level=5, device=cuda)
+    solo.state = bench_state(solo.grid)
+    sh = ShardedUniformSim(cfg, make_mesh(devices=[cuda] * 2), level=5)
+    sh.set_state(bench_state(sh.grid))
+    hk.reset_launches()
+    for _ in range(2):
+        ds, dh = solo.advance(1), sh.advance(1)
+        assert ds["poisson_iters"] == dh["poisson_iters"]
+    torch.cuda.synchronize()
+    assert hk.launches["advect_substage_halo"] == 2 * 2 * 2
+    assert (hk.launches["jacobi_halo_sweep"] > 0) == (pois == "fas")
+    a, b = unshard_state(sh.state).vel, solo.state.vel
+    assert float((a - b).abs().max() / b.abs().max()) <= 1e-5

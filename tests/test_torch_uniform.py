@@ -179,7 +179,8 @@ def test_non_free_slip_table_refuses():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, cup2d_tpu_torch, cup2d_tpu_torch.convert, "
-            "cup2d_tpu_torch.amr; "
+            "cup2d_tpu_torch.amr, cup2d_tpu_torch.parallel.mesh, "
+            "cup2d_tpu_torch.parallel.shard_halo; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'cup2d_tpu' "
             "or m.startswith('cup2d_tpu.')]; print(bad)")
