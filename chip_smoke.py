@@ -12,8 +12,12 @@ the result lines:
 2. each kernel against its plain PyTorch twin on the card, f32, with the
    bounds stated below (the forest lab RHS per h class, at the path's nu
    and at a diffusion-dominated nu = 1), plus kernel and twin times
-   (CUDA events) and, for the block-Jacobi update, the time of
-   ``torch.addmm``. The x-split step's halo kernels run at its main
+   (CUDA events) and, for the block-Jacobi update (at 1, 1000 and 16384
+   blocks), the time of ``torch.addmm``; the sweep chain at every level of
+   the 8192^2 V-cycle hierarchy with the chains a cycle launches there
+   (graph replays: ms, bound and launches per level and per cycle); the
+   two redesigned kernels' times beside their earlier designs'. The x-split
+   step's halo kernels run at its main
    path's shapes (8192^2 on 4 slabs of one card), each shard against its
    twin, and the assembled slabs against the solo kernels (substage pair,
    single sweep) to at most 1 ulp (the same per-cell code and ghost
@@ -84,6 +88,9 @@ from cup2d_tpu_torch.amr import (AMRSim, multilevel_forest,  # noqa: E402
 from cup2d_tpu_torch.convert import (forest_from_numpy,  # noqa: E402
                                      forest_to_numpy)
 from cup2d_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
+from cup2d_tpu_torch.ops.timing import (OPS_SWEEP_CELL, bound,  # noqa: E402
+                                        cuda_ms, graph_ms,
+                                        sweep_level_table)
 from cup2d_tpu_torch.ops.stencil import pad_vector  # noqa: E402
 from cup2d_tpu_torch.parallel.mesh import (ShardedUniformSim,  # noqa: E402
                                            make_mesh)
@@ -112,10 +119,12 @@ SHARDED_REL = 1e-5     # split vs solo step on one card: the Krylov and
 FOREST_TARGET = 10000  # active blocks of the forest main path
 MESH_D = 4             # slabs of the split main path, all on one card
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
-# f32 operations/s outside the tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
+# the previous designs of the two redesigned kernels, at the shapes of
+# their JSON entries (n = 2 on 8192^2; [16384, 8, 8] in graph replay):
+# chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W before the redesign
+# (PERF.md section 6); cup2d_tpu_torch.kernel_ab times both in one run
+EARLIER_MS = {"fused_jacobi_sweeps": 0.681,
+              "fused_block_jacobi_update": 0.0191}
 
 # operations per cell, counting each add, multiply, compare, select, max,
 # integer op and reciprocal as one: one WENO5 reconstruction is 83 (33
@@ -124,7 +133,6 @@ PEAK_F32 = 67e12
 # derivatives, a 5-op Laplacian, a 6-op RHS and a 3-op update: 368
 OPS_SUBSTAGE_CELL = 2 * 368
 OPS_CORRECTION_CELL = 15     # 3 pressure, 2 x 3 gradient, 2 x 3 update
-OPS_SWEEP_CELL = 9           # 5 Laplacian, 4 update
 # forest lab RHS: the substage cell less its 3-op update, per component
 OPS_LAB_RHS_CELL = 2 * 365
 BYTES_LAB_RHS_BLOCK = 4 * (2 * 14 * 14 + 2 * 8 * 8 + 1)
@@ -144,55 +152,6 @@ def card_line() -> str:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
-
-
-def cuda_ms(fn, reps: int, warm: int = 1) -> float:
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def graph_ms(fns, reps: int = 24) -> float:
-    """Device time per call of the small forest kernels: ``reps`` calls,
-    cycling over ``fns`` (one per operand set, so that the sets together
-    exceed the 50 MB L2 and every call reads cold operands), captured in
-    one CUDA graph and replayed, so host launch overhead does not count."""
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for fn in fns:
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for k in range(reps):
-            fns[k % len(fns)]()
-    g.replay()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(5):
-        g.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / (5 * reps)
-
-
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -319,8 +278,13 @@ def phase_kernels(dev):
                     b = bound(12.0 * cells, OPS_SWEEP_CELL * n * cells)
                     res["fused_jacobi_sweeps"].update(
                         ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+                    print(f"phase 2 fused_jacobi_sweeps [8192,8192] n=2: "
+                          f"kernel_ms {ms} (earlier design "
+                          f"{EARLIER_MS['fused_jacobi_sweeps']}) bound_ms "
+                          f"{b[0]}", flush=True)
         del e, r
     torch.cuda.empty_cache()
+    phase_sweep_levels(dev)
 
     # K4 on labs of unit-scale velocity with mixed per-block h: levels 6
     # and 7 of the canonical domain and the pad rows' h = 1, at dt = h7/2.
@@ -365,10 +329,12 @@ def phase_kernels(dev):
 
     # K8 with the forest's own P_inv; library: one addmm, TF32 off.
     # Device times from graph replays over 6 operand sets (72 MB at 16384)
+    # at 1 block, at a count that is no multiple of the kernel's 32-block
+    # tile, and at the forest path's 16384
     torch.backends.cuda.matmul.allow_tf32 = False
     p_inv = torch.tensor(block_precond_matrix(8), dtype=torch.float32,
                          device=dev)
-    for n in (128, 16384):
+    for n in (1, 1000, 16384):
         sets = [(rn(n, 8, 8), rn(n, 8, 8), rn(n, 8, 8)) for _ in range(6)]
         e, r, lap = sets[0]
         got = hk.fused_block_jacobi_update(e, r, lap, p_inv)
@@ -388,9 +354,12 @@ def phase_kernels(dev):
         lms = graph_ms([lambda o=o: torch.addmm(
             o[0].reshape(n, 64), o[1].reshape(n, 64) - o[2].reshape(n, 64),
             pt) for o in sets])
+        earlier = (f" (earlier design "
+                   f"{EARLIER_MS['fused_block_jacobi_update']})"
+                   if n == 16384 else "")
         print(f"phase 2 fused_block_jacobi_update [{n},8,8]: max_abs_err "
-              f"{err} (rel {rel}) kernel_ms {ms} (eager per call {eager}) "
-              f"twin_ms {pms} addmm_ms {lms}", flush=True)
+              f"{err} (rel {rel}) kernel_ms {ms}{earlier} (eager per call "
+              f"{eager}) twin_ms {pms} addmm_ms {lms}", flush=True)
         b = bound(BYTES_BLOCK_JACOBI_BLOCK * n + 4 * 64 * 64,
                   OPS_BLOCK_JACOBI_ELEM * 64 * n)
         res["fused_block_jacobi_update"].update(
@@ -398,6 +367,28 @@ def phase_kernels(dev):
             library_ms=lms)
         del sets, e, r, lap, got, ref
     return res
+
+
+def phase_sweep_levels(dev, size: int = 8192) -> list:
+    """Phase 2, continued: the sweep chain at each level of the 8192^2
+    V-cycle hierarchy with the chains one cycle launches there (n = 2 from
+    zero and n = 2 from the corrected e down to 16^2, 24 from zero on
+    8^2), device time from graph replays; per level its ms, bound and
+    launches per cycle, then the sums over one cycle."""
+    rows = sweep_level_table(hk.fused_jacobi_sweeps, dev, size=size)
+    for row in rows:
+        chains = ", ".join(
+            f"n={c['n']}{' from zero' if c['from_zero'] else ''} "
+            f"{c['ms']} ms" for c in row["chains"])
+        print(f"phase 2 sweep level {row['level']}^2: kernel_ms {row['ms']} "
+              f"bound_ms {row['bound_ms']} launches/cycle {row['launches']}"
+              f" ({chains})", flush=True)
+    print(f"phase 2 sweep levels per V-cycle: kernel_ms "
+          f"{sum(r['ms'] for r in rows)} bound_ms "
+          f"{sum(r['bound_ms'] for r in rows)} launches "
+          f"{sum(r['launches'] for r in rows)}", flush=True)
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_halo_kernels(dev, res, size: int = 8192) -> None:

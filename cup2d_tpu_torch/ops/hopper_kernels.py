@@ -55,6 +55,7 @@ its tensors' device.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -83,9 +84,10 @@ _ENTRIES = {
     "correction": ("cup2d_fused_correction",
                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]),
     "jacobi": ("cup2d_jacobi_sweeps",
-               [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
+               [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P]),
     "lab_rhs": ("cup2d_lab_rhs", [_P, _P, _P, _F, _P, _I, _P]),
-    "block_jacobi": ("cup2d_block_jacobi", [_P, _P, _P, _P, _P, _I, _P]),
+    "block_jacobi": ("cup2d_block_jacobi",
+                     [_P, _P, _P, _P, _P, _I, _I, _P]),
     "advect_heun_halo": ("cup2d_advect_substage_halo",
                          [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I,
                           _P]),
@@ -122,6 +124,15 @@ SOURCES = {
 }
 
 JACOBI_MAX_SWEEPS = 6
+# jacobi.cu's two tiles, (rows out, shared columns), and the CTAs of each
+# that fit on an SM (shared memory for the big one, registers for the
+# small one)
+JACOBI_TILES = {True: (64, 128), False: (16, 32)}
+JACOBI_CTAS_PER_SM = {True: 1, False: 4}
+JACOBI_BIG_ROUNDS = 4
+# block_jacobi.cu's blocks per tile (fixed in the kernel) and CTAs per SM
+BLOCK_JACOBI_TILE = 32
+BLOCK_JACOBI_CTAS_PER_SM = 2
 
 _fns: dict = {}          # source stem -> loaded C entry point
 
@@ -201,6 +212,19 @@ def _launch(stem: str, device: torch.device, *args) -> None:
         rc = _fns[stem](*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA launch of {stem} failed: error {rc}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _aligned16(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts if t is not None)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _on_cuda(*ts) -> bool:
@@ -347,9 +371,44 @@ def jacobi_sweeps_plain(e, r, omega, n, from_zero=False):
     return e
 
 
+def sweep_chain(n: int) -> list[int]:
+    """The sweeps of each launch of an n-sweep chain: launches of
+    ``JACOBI_MAX_SWEEPS`` and one of the rest, in that order."""
+    full, rest = divmod(int(n), JACOBI_MAX_SWEEPS)
+    return [JACOBI_MAX_SWEEPS] * full + ([rest] if rest else [])
+
+
+@functools.lru_cache(maxsize=4096)
+def jacobi_plan(L: int, ny: int, nx: int, n: int, sms: int,
+                aligned: bool) -> tuple[bool, int, int]:
+    """Launch plan of ``jacobi.cu`` for an n-sweep launch on L members of
+    ny x nx on a card of ``sms`` SMs: (big, vec, grid). The 128-column
+    tile where the level has at least ``JACOBI_BIG_ROUNDS`` per SM (fewer
+    leave the last round's SMs idle for a whole tile), else the 32-column
+    one (each puts out its width less twice the x halo, n rounded up to 4);
+    16-byte copies where rows are whole 16-byte words and the pointers
+    ``aligned``, else 4-byte ones; persistent CTAs, as many as the tiles
+    up to the SMs' room."""
+    hx = 4 * _cdiv(n, 4)
+
+    def tiles(big):
+        ty, w = JACOBI_TILES[big]
+        return L * _cdiv(ny, ty) * _cdiv(nx, w - 2 * hx)
+    big = tiles(True) >= JACOBI_BIG_ROUNDS * sms
+    vec = 4 if nx % 4 == 0 and aligned else 1
+    return big, vec, min(tiles(big), sms * JACOBI_CTAS_PER_SM[big])
+
+
+def block_jacobi_grid(n: int, sms: int) -> int:
+    """Persistent CTAs of ``block_jacobi.cu`` for n blocks: two per SM, or
+    one per tile of ``BLOCK_JACOBI_TILE`` blocks where there are fewer."""
+    return min(_cdiv(n, BLOCK_JACOBI_TILE), BLOCK_JACOBI_CTAS_PER_SM * sms)
+
+
 def fused_jacobi_sweeps(e, r, omega, n, from_zero=False):
     """n sweeps: on CUDA tensors as launches of at most six sweeps each
-    (the first carries ``from_zero``), on CPU tensors the twin."""
+    (``sweep_chain``; the first carries ``from_zero``), on CPU tensors the
+    twin."""
     if not _on_cuda(None if from_zero else e, r):
         return jacobi_sweeps_plain(e, r, omega, n, from_zero)
     ny, nx = r.shape[-2:]
@@ -359,16 +418,16 @@ def fused_jacobi_sweeps(e, r, omega, n, from_zero=False):
                          f"{tuple(r.shape)}")
     _check_f32("fused_jacobi_sweeps", r=r, e=None if from_zero else e)
     cur = None if from_zero else e
-    left = int(n)
-    while left > 0:
-        k = min(left, JACOBI_MAX_SWEEPS)
+    sms = _sm_count(r.device)
+    for k in sweep_chain(n):
         out = torch.empty_like(r)
+        big, vec, grid = jacobi_plan(L, ny, nx, k, sms, _aligned16(cur, r))
         _launch("jacobi", r.device,
                 None if cur is None else cur.data_ptr(), r.data_ptr(),
-                out.data_ptr(), L, ny, nx, k, float(omega), int(cur is None))
+                out.data_ptr(), L, ny, nx, k, float(omega), int(cur is None),
+                int(big), vec, grid)
         launches["fused_jacobi_sweeps"] += 1
         cur = out
-        left -= k
     return cur
 
 
@@ -425,8 +484,8 @@ def block_jacobi_plain(e, r, lap, p_inv):
 
 def fused_block_jacobi_update(e, r, lap, p_inv):
     """e + P_inv (r - lap) over [N, 8, 8] f32 stacks, P_inv [64, 64]: the
-    kernel for CUDA tensors (an f32 FMA chain, no TF32), the twin for CPU
-    ones."""
+    kernel for CUDA tensors (an f32 FMA chain, no TF32; every operand
+    16-byte aligned), the twin for CPU ones."""
     if not _on_cuda(e, r, lap, p_inv):
         return block_jacobi_plain(e, r, lap, p_inv)
     n = e.shape[0]
@@ -437,9 +496,16 @@ def fused_block_jacobi_update(e, r, lap, p_inv):
             f"{tuple(r.shape)}, lap {tuple(lap.shape)}, p_inv "
             f"{tuple(p_inv.shape)}: expected [N, 8, 8] x3 and [64, 64]")
     _check_f32("fused_block_jacobi_update", e=e, r=r, lap=lap, p_inv=p_inv)
+    if not _aligned16(e, r, lap, p_inv):
+        raise ValueError("fused_block_jacobi_update: operands must start on "
+                         "16-byte boundaries (the kernel copies 16 bytes at "
+                         "a time)")
     out = torch.empty_like(e)
+    if n == 0:
+        return out
     _launch("block_jacobi", e.device, p_inv.data_ptr(), e.data_ptr(),
-            r.data_ptr(), lap.data_ptr(), out.data_ptr(), n)
+            r.data_ptr(), lap.data_ptr(), out.data_ptr(), n,
+            block_jacobi_grid(n, _sm_count(e.device)))
     launches["fused_block_jacobi_update"] += 1
     return out
 

@@ -318,6 +318,20 @@ def test_block_jacobi_twin_vs_pallas_interpret_f32():
     assert np.abs(got - ref).max() <= TWIN_F32_REL * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("n", [1, 33])
+def test_block_jacobi_twin_vs_pallas_interpret_block_counts_f32(n):
+    """One block, and a count that is no multiple of the card kernel's
+    32-block tile."""
+    e, r, lap = (_rand((n, 8, 8), 50 + k).astype(np.float32)
+                 for k in range(3))
+    p = tpois.block_precond_matrix(8, dtype=np.float32)
+    ref = np.asarray(pk.fused_block_jacobi_update(
+        *(jnp.asarray(a) for a in (e, r, lap, p)), interpret=True))
+    got = hk.fused_block_jacobi_update(
+        *(torch.tensor(a) for a in (e, r, lap, p))).numpy()
+    assert np.abs(got - ref).max() <= TWIN_F32_REL * np.abs(ref).max()
+
+
 def test_block_jacobi_twin_vs_xla_f64():
     e, r, lap, p = _jacobi_operands(np.float64, 30)
     ref = np.asarray(jnp.asarray(e) + jpois.apply_block_precond_blocks(

@@ -132,6 +132,22 @@ def test_jacobi_twin_vs_pallas_f32(n, from_zero):
     assert rel <= JACOBI_REL_BOUND, rel
 
 
+@pytest.mark.parametrize("shape", [(8, 8), (16, 16), (16, 40)])
+@pytest.mark.parametrize("from_zero", [False, True])
+def test_jacobi_twin_vs_pallas_coarse_levels_f32(shape, from_zero):
+    """The coarse V-cycle levels, where the card kernel's tile is wider
+    than the level (8^2 is the coarsest of the 8192^2 hierarchy), with
+    the coarsest level's 24-sweep chain."""
+    e = _rand(shape, 90 + shape[1])
+    r = _rand(shape, 91 + shape[1])
+    ref = np.asarray(jpk.fused_jacobi_sweeps(jnp.asarray(e), jnp.asarray(r),
+                                             0.8, 24, from_zero=from_zero))
+    got = hk.fused_jacobi_sweeps(torch.tensor(e), torch.tensor(r), 0.8, 24,
+                                 from_zero).numpy()
+    rel = np.max(np.abs(got - ref)) / np.max(np.abs(ref))
+    assert rel <= JACOBI_REL_BOUND, rel
+
+
 @pytest.mark.parametrize("n", [2, 24])
 @pytest.mark.parametrize("from_zero", [False, True])
 def test_jacobi_twin_vs_xla_f64(n, from_zero):
