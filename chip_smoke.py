@@ -16,7 +16,10 @@ the result lines:
    blocks), the time of ``torch.addmm``; the sweep chain at every level of
    the 8192^2 V-cycle hierarchy with the chains a cycle launches there
    (graph replays: ms, bound and launches per level and per cycle); the
-   two redesigned kernels' times beside their earlier designs'. The x-split
+   four redesigned kernels' times beside their earlier designs', and the
+   substage pairs' bounds at the face-sharing design's operation count
+   on their own inputs beside the fixed per-cell count of the earlier
+   design (both printed; the JSON line carries the first). The x-split
    step's halo kernels run at its main
    path's shapes (8192^2 on 4 slabs of one card), each shard against its
    twin, and the assembled slabs against the solo kernels (substage pair,
@@ -89,8 +92,8 @@ from cup2d_tpu_torch.convert import (forest_from_numpy,  # noqa: E402
                                      forest_to_numpy)
 from cup2d_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from cup2d_tpu_torch.ops.timing import (OPS_SWEEP_CELL, bound,  # noqa: E402
-                                        cuda_ms, graph_ms,
-                                        sweep_level_table)
+                                        cuda_ms, graph_ms, substage_ops,
+                                        sweep_level_table, weno_faces)
 from cup2d_tpu_torch.ops.stencil import pad_vector  # noqa: E402
 from cup2d_tpu_torch.parallel.mesh import (ShardedUniformSim,  # noqa: E402
                                            make_mesh)
@@ -119,18 +122,24 @@ SHARDED_REL = 1e-5     # split vs solo step on one card: the Krylov and
 FOREST_TARGET = 10000  # active blocks of the forest main path
 MESH_D = 4             # slabs of the split main path, all on one card
 
-# the previous designs of the two redesigned kernels, at the shapes of
-# their JSON entries (n = 2 on 8192^2; [16384, 8, 8] in graph replay):
-# chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W before the redesign
-# (PERF.md section 6); cup2d_tpu_torch.kernel_ab times both in one run
+# the previous designs of the four redesigned kernels, at the shapes of
+# their JSON entries (n = 2 on 8192^2; [16384, 8, 8] in graph replay;
+# both substages on [1, 2, 8192, 8192], and on 4 slabs of it):
+# chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W before each redesign
+# (PERF.md section 6); cup2d_tpu_torch.kernel_ab times each pair in one run
 EARLIER_MS = {"fused_jacobi_sweeps": 0.681,
-              "fused_block_jacobi_update": 0.0191}
+              "fused_block_jacobi_update": 0.0191,
+              "fused_advect_heun": 3.973,
+              "advect_substage_halo": 4.320}
 
 # operations per cell, counting each add, multiply, compare, select, max,
 # integer op and reciprocal as one: one WENO5 reconstruction is 83 (33
 # smoothness, 30 weights, 15 candidate stencils, 5 blend), a derivative
 # 177 (10 selects, 2 reconstructions, 1 difference); per component two
-# derivatives, a 5-op Laplacian, a 6-op RHS and a 3-op update: 368
+# derivatives, a 5-op Laplacian, a 6-op RHS and a 3-op update: 368 in
+# the per-cell design, which reconstructs every face twice. The substage
+# bound counts the face-sharing design's operations on its inputs
+# instead (ops.timing.substage_ops); this count is printed beside it
 OPS_SUBSTAGE_CELL = 2 * 368
 OPS_CORRECTION_CELL = 15     # 3 pressure, 2 x 3 gradient, 2 x 3 update
 # forest lab RHS: the substage cell less its 3-op update, per component
@@ -213,9 +222,21 @@ def phase_kernels(dev):
               f"(rel {rel}) kernel_ms {ms} twin_ms {pms}", flush=True)
         if ny == 8192:
             cells = ny * nx
-            b = bound(40.0 * cells, 2 * OPS_SUBSTAGE_CELL * cells)
+            facs = hk._substage_facs(dt, g.h, 4e-5, (L,), L, torch.float32,
+                                     dev)
+            v1 = hk.advect_substage(v, None, facs, 0.5, 1.0 / (g.h * g.h))
+            faces = (weno_faces(v) + weno_faces(v1)) / (2 * L * cells)
+            b = bound(40.0 * cells, substage_ops(v) + substage_ops(v1))
+            b_old = bound(40.0 * cells, 2 * OPS_SUBSTAGE_CELL * cells)
+            del v1
             res["fused_advect_heun"].update(ms=ms, plain_ms=pms,
                                             bound_ms=b[0], bound_by=b[1])
+            print(f"phase 2 fused_advect_heun {list(shape)} both "
+                  f"substages: kernel_ms {ms} (earlier design "
+                  f"{EARLIER_MS['fused_advect_heun']}) bound_ms {b[0]} "
+                  f"({b[1]}; {faces} reconstructions per cell and "
+                  f"component) bound_ms at 368 operations a cell and "
+                  f"component {b_old[0]} ({b_old[1]})", flush=True)
         del v
         torch.cuda.empty_cache()
 
@@ -441,14 +462,18 @@ def phase_halo_kernels(dev, res, size: int = 8192) -> None:
     ms = cuda_ms(lambda: k3(hk.advect_substage_halo), 10)
     pms = cuda_ms(lambda: k3(hk.advect_substage_halo_plain), 1)
     aux_bytes = 2 * sum(a.numel() for a in aux0) * 4
-    b = bound(40.0 * cells + aux_bytes, 2 * OPS_SUBSTAGE_CELL * cells)
+    ops = sum(substage_ops(p) for p in s0.parts + s1.parts)
+    b = bound(40.0 * cells + aux_bytes, ops)
+    b_old = bound(40.0 * cells + aux_bytes, 2 * OPS_SUBSTAGE_CELL * cells)
     res["advect_substage_halo"].update(max_abs_err=err, ms=ms, plain_ms=pms,
                                        bound_ms=b[0], bound_by=b[1],
                                        library_ms=None)
     print(f"phase 2 advect_substage_halo [1,2,{size},{size // MESH_D}] "
           f"x{MESH_D}, both "
-          f"substages: max_abs_err {err} kernel_ms {ms} twin_ms {pms}",
-          flush=True)
+          f"substages: max_abs_err {err} kernel_ms {ms} (earlier design "
+          f"{EARLIER_MS['advect_substage_halo']}) twin_ms {pms} bound_ms "
+          f"{b[0]} ({b[1]}) bound_ms at 368 operations a cell and "
+          f"component {b_old[0]} ({b_old[1]})", flush=True)
     del s0, s1, aux0, aux1
 
     # K1 on a seeded normal lab (neighbours differ by O(1): the RHS has no
@@ -831,7 +856,7 @@ def main() -> int:
     for stem, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
-                print(f"phase 1 ptxas {stem}: {line.strip()}")
+                print(f"phase 1 ptxas {stem}: {line.strip()}", flush=True)
 
     res = phase_kernels(dev)
     phase_halo_kernels(dev, res)

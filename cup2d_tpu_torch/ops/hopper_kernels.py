@@ -31,7 +31,8 @@ wrapper                        replaces                         source
 =============================  ===============================  ===================
 
 The four WENO kernels share their per-cell arithmetic through
-``csrc/weno.cuh``.
+``csrc/weno.cuh``; the two substage kernels share their tiles, loader and
+face-sharing core through ``csrc/substage.cuh``.
 
 Dispatch is by the device of the tensors alone: CPU tensors run the plain
 twin (the same op sequence as the JAX package's XLA chain, which the CPU
@@ -80,7 +81,7 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRIES = {
     "advect_heun": ("cup2d_advect_substage",
-                    [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P]),
+                    [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P]),
     "correction": ("cup2d_fused_correction",
                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]),
     "jacobi": ("cup2d_jacobi_sweeps",
@@ -90,7 +91,7 @@ _ENTRIES = {
                      [_P, _P, _P, _P, _P, _I, _I, _P]),
     "advect_heun_halo": ("cup2d_advect_substage_halo",
                          [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I,
-                          _P]),
+                          _I, _I, _P]),
     "jacobi_halo": ("cup2d_jacobi_halo_sweep",
                     [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P]),
     "advect_rhs": ("cup2d_advect_rhs", [_P, _P, _P, _I, _I, _I, _P]),
@@ -133,6 +134,10 @@ JACOBI_BIG_ROUNDS = 4
 # block_jacobi.cu's blocks per tile (fixed in the kernel) and CTAs per SM
 BLOCK_JACOBI_TILE = 32
 BLOCK_JACOBI_CTAS_PER_SM = 2
+# the substage kernels' tile (rows, columns out; csrc/substage.cuh) and
+# CTAs per SM (96 KB of shared memory and 128 registers a thread each)
+SUBSTAGE_TILE = (32, 128)
+SUBSTAGE_CTAS_PER_SM = 2
 
 _fns: dict = {}          # source stem -> loaded C entry point
 
@@ -265,6 +270,20 @@ def advect_substage_plain(v, vold, facs, cfac, ih2):
     return heun_substage(v if vold is None else vold, cfac, rhs, ih2)
 
 
+@functools.lru_cache(maxsize=4096)
+def substage_plan(L: int, ny: int, nx: int, sms: int,
+                  aligned: bool) -> tuple[int, int]:
+    """Launch plan of the substage kernels (``advect_heun.cu``,
+    ``advect_heun_halo.cu``) for L members of ny x nx (a slab's width for
+    the halo kernel) on a card of ``sms`` SMs: (vec, grid). 16-byte copies
+    where rows are whole 16-byte words and v is ``aligned``, else 4-byte
+    ones; persistent CTAs, as many as the tiles up to the SMs' room."""
+    ty, tx = SUBSTAGE_TILE
+    tiles = L * _cdiv(ny, ty) * _cdiv(nx, tx)
+    vec = 4 if nx % 4 == 0 and aligned else 1
+    return vec, min(tiles, sms * SUBSTAGE_CTAS_PER_SM)
+
+
 def advect_substage(v, vold, facs, cfac, ih2):
     """One substage: the kernel for CUDA tensors, the twin for CPU ones."""
     if not _on_cuda(v, vold, facs):
@@ -277,9 +296,11 @@ def advect_substage(v, vold, facs, cfac, ih2):
         raise ValueError("advect_substage: vold shape differs from v")
     _check_f32("advect_substage", v=v, vold=vold, facs=facs)
     out = torch.empty_like(v)
+    vec, grid = substage_plan(L, ny, nx, _sm_count(v.device),
+                              _aligned16(v))
     _launch("advect_heun", v.device, v.data_ptr(),
             None if vold is None else vold.data_ptr(), out.data_ptr(),
-            facs.data_ptr(), L, ny, nx, float(cfac), float(ih2))
+            facs.data_ptr(), L, ny, nx, float(cfac), float(ih2), vec, grid)
     launches["fused_advect_heun"] += 1
     return out
 
@@ -545,10 +566,12 @@ def advect_substage_halo(v, vold, aux, facs, cfac, ih2, is_lo, is_hi):
         raise ValueError("advect_substage_halo: vold shape differs from v")
     _check_f32("advect_substage_halo", v=v, vold=vold, aux=aux, facs=facs)
     out = torch.empty_like(v)
+    vec, grid = substage_plan(L, ny, nxl, _sm_count(v.device),
+                              _aligned16(v))
     _launch("advect_heun_halo", v.device, v.data_ptr(),
             None if vold is None else vold.data_ptr(), aux.data_ptr(),
             out.data_ptr(), facs.data_ptr(), L, ny, nxl, float(cfac),
-            float(ih2), int(bool(is_lo)), int(bool(is_hi)))
+            float(ih2), int(bool(is_lo)), int(bool(is_hi)), vec, grid)
     launches["advect_substage_halo"] += 1
     return out
 

@@ -17,6 +17,13 @@ from .hopper_kernels import sweep_chain
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 OPS_SWEEP_CELL = 9           # 5 Laplacian, 4 update
+# WENO substage operations, counting each add, multiply, compare, select,
+# max, integer op and reciprocal as one: a reconstruction is 83 (33
+# smoothness, 30 weights, 15 candidate stencils, 5 blend) and its 5
+# operand selects; per cell and component besides its faces, 2
+# differences, a 5-op Laplacian, a 6-op RHS and a 3-op update
+OPS_WENO_FACE = 88
+OPS_SUBSTAGE_REST = 16
 
 
 def cuda_ms(fn, reps: int, warm: int = 1) -> float:
@@ -68,6 +75,27 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     and which of the two sets it."""
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def weno_faces(v: torch.Tensor) -> int:
+    """WENO reconstructions that one substage on v [..., 2, ny, nx] needs
+    per component when each face is reconstructed once where its two
+    cells' winds agree in sign (u > 0 along x, v > 0 along y) and twice
+    where they differ; the field's outer faces once."""
+    ny, nx = v.shape[-2:]
+    n = v[..., 0, 0, 0].numel()
+    pu, pv = v[..., 0, :, :] > 0, v[..., 1, :, :] > 0
+    fx = n * ny * (nx + 1) + int((pu[..., 1:] != pu[..., :-1]).sum())
+    fy = n * nx * (ny + 1) + int((pv[..., 1:, :] != pv[..., :-1, :]).sum())
+    return fx + fy
+
+
+def substage_ops(v: torch.Tensor) -> float:
+    """Operations of one substage on v: both components' reconstructions
+    (``weno_faces``) and the rest of each cell's arithmetic."""
+    ny, nx = v.shape[-2:]
+    cells = v[..., 0, 0, 0].numel() * ny * nx
+    return 2.0 * (OPS_WENO_FACE * weno_faces(v) + OPS_SUBSTAGE_REST * cells)
 
 
 def vcycle_chains(size: int, coarsest: int = 16, nu: int = 2,

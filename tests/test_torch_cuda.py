@@ -15,8 +15,9 @@ relative per block-size class, the block-Jacobi update <= 2e-6 relative
 (summation order of its 64-term products), the single-op RHS <= 2e-6
 relative. The halo kernels of the x-split step reproduce the solo kernels
 bit for bit once their slabs are assembled (the same per-cell code and
-the same ghost values), and a split step on one card follows the solo
-step to 1e-5 relative (only the reductions' order differs)."""
+the same ghost values), on smooth and on adversarial winds, and a split
+step on one card follows the solo step to 1e-5 relative (only the
+reductions' order differs)."""
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ import torch
 from cup2d_tpu_torch import SimConfig, UniformSim
 from cup2d_tpu_torch.amr import multilevel_forest
 from cup2d_tpu_torch.convert import forest_from_numpy, forest_to_numpy
+from cup2d_tpu_torch.kernel_ab import WIND_PATTERNS, wind_field
 from cup2d_tpu_torch.ops import hopper_kernels as hk
 from cup2d_tpu_torch.parallel.mesh import (ShardedUniformSim, make_mesh,
                                            unshard_state)
@@ -274,6 +276,43 @@ def test_halo_substage_kernel_vs_twin_and_solo_kernel(cuda, D):
     ref = hk.advect_substage_halo_plain(s.parts[0], None, aux, facs, 0.5,
                                         1 / h ** 2, True, D == 1)
     assert float((got - ref).abs().max()) <= 2e-6
+
+
+# ragged shapes: no side a multiple of the 32 x 128 tile, rows that are
+# whole 16-byte words or not (the 4-byte copy route), member stacks
+SUBSTAGE_SHAPES = [(1, 2, 37, 150), (2, 2, 33, 72), (1, 2, 130, 260)]
+
+
+@pytest.mark.parametrize("shape", SUBSTAGE_SHAPES)
+@pytest.mark.parametrize("pattern", WIND_PATTERNS)
+def test_substage_kernels_on_adversarial_winds(cuda, shape, pattern):
+    """Winds of random signs, exact zeros, one sign, or a checkerboard
+    (every face split between two signs): both substages of the solo
+    kernel against the twin, the halo kernel on two slabs against the
+    twin shard by shard, and the assembled slabs against the solo kernel
+    bit for bit."""
+    L, _, ny, nx = shape
+    h = 1.0 / nx
+    v = wind_field(shape, pattern, 60, cuda)
+    dt = torch.tensor([0.5 * h, 0.35 * h][:L], device=cuda)
+    hk.reset_launches()
+    got = hk.fused_advect_heun(v, h, 4e-5, dt)
+    ref = hk.fused_advect_heun_plain(v, h, 4e-5, dt)
+    torch.cuda.synchronize()
+    assert hk.launches["fused_advect_heun"] == 2
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 2e-6
+    mesh = make_mesh(devices=[cuda] * 2)
+    s = split_x(v, mesh)
+    assert torch.equal(gather_x(fused_advect_heun_sharded(s, h, 4e-5, dt)),
+                       got)
+    aux = exchange_x(s, 3)
+    facs = hk._substage_facs(dt, h, 4e-5, (L,), L, torch.float32, cuda)
+    for d in range(2):
+        args = (s.parts[d], None, aux[d], facs, 0.5, 1 / h ** 2, d == 0,
+                d == 1)
+        k = hk.advect_substage_halo(*args)
+        p = hk.advect_substage_halo_plain(*args)
+        assert float((k - p).abs().max() / p.abs().max()) <= 2e-6
 
 
 @pytest.mark.parametrize("D", [1, 2, 4])
