@@ -27,7 +27,15 @@ the result lines:
    values: bit for bit is expected); the single-op RHS, which lies on no
    path, runs on an 8192^2 normal lab (<= 2e-6 relative) and on the
    benchmark's padded lab (<= 2e-6 once scaled by 1/h^2, as a Heun stage
-   adds it: its smooth differences cancel to ~1e-4 of an ulp's weight);
+   adds it: its smooth differences cancel to ~1e-4 of an ulp's weight).
+   The boundary-table forms: the substage pair under the four tables of
+   tests/test_megakernel.py (the cavity, the uniform and the parabolic
+   channel, parabolic inflow through a y face with outflow opposite) on
+   the 8192^2 benchmark velocity and on a ragged member stack, <= 2e-6
+   relative to max |ref|, each table's kernel_ms printed beside the
+   free-slip kernel's; the correction with the channel's pressure signs
+   (<= 5e-6) and the sweep chain with signs (1, -1, 1, 1) at n = 1..3 on
+   8192^2 (<= 2e-6 relative);
 3. the uniform main path: ``UniformGrid.step(obstacle_terms=False)`` on
    the 8192^2 f32 benchmark state, under the default solver (BiCGSTAB +
    bf16 multigrid) and under CUP2D_POIS=fas, one warm-up and five timed
@@ -66,6 +74,22 @@ the result lines:
    sweep-chain launch), then the solo ``UniformSim`` from the same state:
    equal iterations every step and velocity within 1e-5 relative (only
    the order of the reductions differs, and they accumulate in f64).
+8. the wall-bounded main path: the lid-driven cavity of the case catalog
+   (``cases.make_sim("cavity")``, Re 100) at 8192^2 f32 (level 10) from
+   the benchmark's velocity, and the obstacle-free channel table with a
+   parabolic inflow (u_in 0.2) on 8192 x 2048 (bpdx 4, level 8, the JAX
+   package's channel configuration without its disk) from the impulsive
+   start u = u_in, each under the default solver and under CUP2D_POIS=fas:
+   production ``step_once`` steps at the CFL dt, one warm-up and five
+   timed, the launch counts set to 0 before each run and read after it
+   (2 boundary-table substage launches and 1 signed correction a step,
+   signed sweep chains under fas only: every ``+bc`` counter non-zero);
+   then the cavity at 256^2 on the card and on the CPU, 5 ``step_once``
+   steps from the same start (velocity relative Linf <= 1e-4), and the
+   plug flow u = u_in through the uniform channel table on the card, 25
+   steps (exact to 1e-6). The Ghia et al. (1982) Re 100 cavity (128^2 f32
+   from rest to t = 30, ~23k steps, ~4 minutes on the H100) runs apart:
+   ``python -m cup2d_tpu_torch.cases --ghia``.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit
 as nvidia-smi prints them, and the result line
@@ -86,6 +110,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 
 from cup2d_tpu_torch import SimConfig, UniformGrid, UniformSim  # noqa: E402
+from cup2d_tpu_torch import bc as tbc  # noqa: E402
+from cup2d_tpu_torch import cases  # noqa: E402
 from cup2d_tpu_torch.amr import (AMRSim, multilevel_forest,  # noqa: E402
                                  vortex_forest)
 from cup2d_tpu_torch.convert import (forest_from_numpy,  # noqa: E402
@@ -94,7 +120,7 @@ from cup2d_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from cup2d_tpu_torch.ops.timing import (OPS_SWEEP_CELL, bound,  # noqa: E402
                                         cuda_ms, graph_ms, substage_ops,
                                         sweep_level_table, weno_faces)
-from cup2d_tpu_torch.ops.stencil import pad_vector  # noqa: E402
+from cup2d_tpu_torch.ops.stencil import inv_diag_bc, pad_vector  # noqa: E402
 from cup2d_tpu_torch.parallel.mesh import (ShardedUniformSim,  # noqa: E402
                                            make_mesh)
 from cup2d_tpu_torch.parallel.shard_halo import (  # noqa: E402
@@ -121,6 +147,20 @@ SHARDED_REL = 1e-5     # split vs solo step on one card: the Krylov and
 #                        FAS reductions sum in another order
 FOREST_TARGET = 10000  # active blocks of the forest main path
 MESH_D = 4             # slabs of the split main path, all on one card
+PLUG_ABS = 1e-6        # plug flow on the card: f32 rounding of an exact
+#                        steady state (the JAX package pins 1e-10 at f64)
+EDGE_SIGNS = (1.0, -1.0, 1.0, 1.0)   # the channel's pressure signs
+
+# the four tables of tests/test_megakernel.py
+BC_TABLES = {
+    "cavity": cases.cavity_table(1.0),
+    "channel_uniform": cases.channel_table(1.0),
+    "channel_parabolic": cases.channel_table(1.0, profile="parabolic"),
+    "outflow_y": tbc.BCTable(tbc.no_slip(), tbc.no_slip(),
+                             tbc.dirichlet_inflow(0.0, 1.0,
+                                                  profile="parabolic"),
+                             tbc.convective_outflow()),
+}
 
 # the previous designs of the four redesigned kernels, at the shapes of
 # their JSON entries (n = 2 on 8192^2; [16384, 8, 8] in graph replay;
@@ -388,6 +428,136 @@ def phase_kernels(dev):
             library_ms=lms)
         del sets, e, r, lap, got, ref
     return res
+
+
+def phase_bc_kernels(dev, res, size: int = 8192) -> None:
+    """Phase 2, continued: the boundary-table forms of the substage pair,
+    the correction and the sweep chain against their twins (the bounds of
+    their free-slip forms), with kernel and twin times at 8192^2. Fills
+    ``res`` for the three ``+bc`` entries."""
+    g = bench_grid(size, size, dev)
+    cells = g.ny * g.nx
+    base = res["fused_advect_heun"]["ms"]
+    v = bench_state(g).vel[None].contiguous()
+    dt = torch.tensor([0.5], device=dev) * g.h
+    err = 0.0
+    for name, table in BC_TABLES.items():
+        got = hk.fused_advect_heun(v, g.h, 4e-5, dt, bc=table)
+        ref = hk.fused_advect_heun_plain(v, g.h, 4e-5, dt, bc=table)
+        e = float((got - ref).abs().max())
+        rel = e / float(ref.abs().max())
+        del got, ref
+        check(rel <= HEUN_ABS, f"fused_advect_heun+bc {name} {size}^2: rel "
+              f"{rel} > {HEUN_ABS}")
+        err = max(err, e)
+        ms = cuda_ms(lambda: hk.fused_advect_heun(v, g.h, 4e-5, dt,
+                                                  bc=table), 10)
+        print(f"phase 2 fused_advect_heun+bc {name} [1,2,{size},{size}] both"
+              f" substages: max_abs_err {e} (rel {rel}) kernel_ms {ms} "
+              f"(free-slip kernel {base})", flush=True)
+        if name == "cavity":
+            pms = cuda_ms(lambda: hk.fused_advect_heun_plain(
+                v, g.h, 4e-5, dt, bc=table), 2)
+            facs = hk._substage_facs(dt, g.h, 4e-5, (1,), 1, torch.float32,
+                                     dev, with_dt=True)
+            v1 = hk.advect_substage(v, None, facs, 0.5, 1.0 / g.h ** 2,
+                                    table, g.h)
+            b = bound(40.0 * cells, substage_ops(v) + substage_ops(v1))
+            del v1
+            res["fused_advect_heun+bc"].update(
+                ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                library_ms=None)
+            print(f"phase 2 fused_advect_heun+bc cavity twin_ms {pms} "
+                  f"bound_ms {b[0]} ({b[1]})", flush=True)
+    del v
+    torch.cuda.empty_cache()
+    # a ragged member stack with per-member dt (4-byte rows, tiles across
+    # both a y and an x wall)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    vr = torch.randn(2, 2, 1000, 1501, generator=gen, device=dev)
+    hr = 1.0 / 1501
+    dtr = torch.tensor([0.5, 0.3], device=dev) * hr
+    for name, table in BC_TABLES.items():
+        got = hk.fused_advect_heun(vr, hr, 4e-5, dtr, bc=table)
+        ref = hk.fused_advect_heun_plain(vr, hr, 4e-5, dtr, bc=table)
+        e = float((got - ref).abs().max())
+        rel = e / float(ref.abs().max())
+        check(rel <= HEUN_ABS, f"fused_advect_heun+bc {name} "
+              f"{list(vr.shape)}: rel {rel} > {HEUN_ABS}")
+        err = max(err, e)
+        print(f"phase 2 fused_advect_heun+bc {name} {list(vr.shape)}: "
+              f"max_abs_err {e} (rel {rel})", flush=True)
+    res["fused_advect_heun+bc"]["max_abs_err"] = err
+    del vr, got, ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    # K5 with the channel's signs; its means are 0 (an outflow table keeps
+    # the pressure level)
+    h = 1.0 / size
+    x, p, v = rn(1, size, size), rn(1, size, size), rn(1, 2, size, size)
+    scal = torch.tensor([[0.0, 0.0, -0.25 * h * h]], device=dev)
+    got = hk.fused_correction(x, p, v, scal, 1.0 / (h * h),
+                              grad_signs=EDGE_SIGNS)
+    ref = hk.fused_correction_plain(x, p, v, scal, 1.0 / (h * h),
+                                    grad_signs=EDGE_SIGNS)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    del got, ref
+    check(err <= CORRECTION_ABS, f"fused_correction+bc: {err} > "
+          f"{CORRECTION_ABS}")
+    ms = cuda_ms(lambda: hk.fused_correction(
+        x, p, v, scal, 1.0 / (h * h), grad_signs=EDGE_SIGNS), 10)
+    pms = cuda_ms(lambda: hk.fused_correction_plain(
+        x, p, v, scal, 1.0 / (h * h), grad_signs=EDGE_SIGNS), 3)
+    b = bound(28.0 * cells, OPS_CORRECTION_CELL * cells)
+    res["fused_correction+bc"].update(max_abs_err=err, ms=ms, plain_ms=pms,
+                                      bound_ms=b[0], bound_by=b[1],
+                                      library_ms=None)
+    print(f"phase 2 fused_correction+bc {list(EDGE_SIGNS)} [1,{size},{size}]"
+          f": max_abs_err {err} kernel_ms {ms} (free-slip kernel "
+          f"{res['fused_correction']['ms']}) twin_ms {pms}", flush=True)
+    del x, p, v
+
+    # K6 with signs, n = 1..3 from e and from zero
+    e, r = rn(size, size), rn(size, size)
+    err = 0.0
+    for n in (1, 2, 3):
+        for fz in (False, True):
+            got = hk.fused_jacobi_sweeps(e, r, 0.8, n, fz,
+                                         edge_signs=EDGE_SIGNS)
+            ref = hk.jacobi_sweeps_plain(e, r, 0.8, n, fz,
+                                         edge_signs=EDGE_SIGNS)
+            d = float((got - ref).abs().max())
+            rel = d / float(ref.abs().max())
+            del got, ref
+            check(rel <= JACOBI_REL, f"fused_jacobi_sweeps+bc n={n} "
+                  f"from_zero={fz}: rel {rel} > {JACOBI_REL}")
+            err = max(err, d)
+            ms = cuda_ms(lambda: hk.fused_jacobi_sweeps(
+                e, r, 0.8, n, fz, edge_signs=EDGE_SIGNS), 10)
+            print(f"phase 2 fused_jacobi_sweeps+bc {list(EDGE_SIGNS)} "
+                  f"[{size},{size}] n={n} from_zero={fz}: max_abs_err {d} "
+                  f"(rel {rel}) kernel_ms {ms}", flush=True)
+            if n == 2 and not fz:
+                pms = cuda_ms(lambda: hk.jacobi_sweeps_plain(
+                    e, r, 0.8, n, fz, edge_signs=EDGE_SIGNS), 2)
+                b = bound(12.0 * cells, OPS_SWEEP_CELL * n * cells)
+                res["fused_jacobi_sweeps+bc"].update(
+                    ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                    library_ms=None)
+                print(f"phase 2 fused_jacobi_sweeps+bc n=2: kernel_ms {ms} "
+                      f"(free-slip kernel "
+                      f"{res['fused_jacobi_sweeps']['ms']}) twin_ms {pms}",
+                      flush=True)
+    res["fused_jacobi_sweeps+bc"]["max_abs_err"] = err
+    del e, r
+    # the twin's memoized 8192^2 signed diagonal would count in phase 3's
+    # peak memory
+    inv_diag_bc.cache_clear()
+    torch.cuda.empty_cache()
 
 
 def phase_sweep_levels(dev, size: int = 8192) -> list:
@@ -841,6 +1011,118 @@ def phase_forest_cpu(dev, pois=None, **kw):
     check(rel <= TRAJ_REL, f"multilevel: card vs CPU {rel} > {TRAJ_REL}")
 
 
+CHANNEL_CFG = dict(bpdx=4, bpdy=1, level_max=1, level_start=0, extent=4.0,
+                   nu=1e-4, cfl=0.5, max_poisson_iterations=200,
+                   poisson_tol=1e-3, poisson_tol_rel=1e-2, dtype="float32")
+
+
+def walled_sim(kind: str, dev, level: int):
+    """Phase 8's drivers: the catalog's cavity from the benchmark's
+    velocity, or the parabolic channel table from u = u_in."""
+    if kind == "cavity":
+        sim = cases.make_sim("cavity", level=level, device=dev)
+        sim.state = bench_state(sim.grid)
+        return sim
+    sim = UniformSim(SimConfig(**CHANNEL_CFG), level=level, device=dev,
+                     bc=cases.channel_table(0.2, profile="parabolic"))
+    st = sim.grid.zero_state()
+    st.vel[0] = 0.2
+    sim.state = st
+    return sim
+
+
+def run_walled(dev, kind: str, pois: str, level: int,
+               steps: int = 5) -> dict:
+    """Phase 8 under one solver: production steps at the CFL dt (a warm-up
+    and ``steps`` timed), the launch counts from 0."""
+    os.environ["CUP2D_POIS"] = pois
+    try:
+        sim = walled_sim(kind, dev, level)
+    finally:
+        os.environ.pop("CUP2D_POIS", None)
+    sim.step_count = 10              # production solves
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    hk.reset_launches()
+    iters = [sim.step_once()["poisson_iters"]]               # warm-up
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        d = sim.step_once()
+        iters.append(d["poisson_iters"])
+    sync(dev)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    la = {k: n for k, n in hk.launches.items() if n}
+    out = {"case": kind, "table": sim.bc_table, "tier": sim.kernel_tier,
+           "shape": [sim.grid.ny, sim.grid.nx], "mode": sim.poisson_mode,
+           "ms_per_step": ms, "iters_per_step": sum(iters[1:]) / steps,
+           "iters": iters, "dt": d["dt"], "umax": d["umax"],
+           "finite": bool(d["finite"]),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": la}
+    print(f"phase 8 {kind} {json.dumps(out)}", flush=True)
+    n = steps + 1
+    label = f"{kind} {pois or 'default'}"
+    check(out["finite"], f"{label}: non-finite state")
+    check(la.get("fused_advect_heun+bc", 0) == 2 * n
+          and la.get("fused_advect_heun", 0) == 2 * n,
+          f"{label}: substage launches {la} != 2 boundary-table ones a step")
+    check(la.get("fused_correction+bc", 0) == n,
+          f"{label}: correction launches {la} != 1 signed one a step")
+    check((la.get("fused_jacobi_sweeps+bc", 0) > 0) == (pois == "fas")
+          and la.get("fused_jacobi_sweeps", 0)
+          == la.get("fused_jacobi_sweeps+bc", 0),
+          f"{label}: sweep-chain launches {la}")
+    del sim
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_walled(dev) -> tuple[list, dict]:
+    """Phase 8: the cavity (8192^2) and the parabolic channel (8192 x
+    2048) under both solvers; the card against the CPU; the plug flow.
+    Returns the runs and the +bc launch counts summed over the four
+    main-path runs."""
+    runs = [run_walled(dev, kind, pois, level)
+            for kind, level in (("cavity", 10), ("channel", 8))
+            for pois in ("", "fas")]
+    total = {k: sum(r["launches"].get(k, 0) for r in runs)
+             for k in ("fused_advect_heun+bc", "fused_correction+bc",
+                       "fused_jacobi_sweeps+bc")}
+
+    # card vs CPU: the cavity at 256^2 from the benchmark's velocity
+    sims = [walled_sim("cavity", d, 5) for d in (dev, "cpu")]
+    iters = [[s.step_once()["poisson_iters"] for _ in range(5)]
+             for s in sims]
+    a, b = sims[0].state.vel.cpu(), sims[1].state.vel
+    rel = float((a - b).abs().max() / b.abs().max())
+    print(f"phase 8 cavity 256^2 x5 card vs CPU: card iters {iters[0]} cpu "
+          f"iters {iters[1]} vel rel Linf {rel}", flush=True)
+    check(bool(torch.isfinite(a).all()), "cavity 256^2: non-finite state")
+    check(rel <= TRAJ_REL, f"cavity 256^2: card vs CPU {rel} > {TRAJ_REL}")
+    del sims
+
+    # the plug flow: an exact steady state through inflow and outflow
+    cfg = SimConfig(bpdx=2, bpdy=1, level_max=1, level_start=0,
+                    extent=2.0, nu=1e-3, cfl=0.3, dtype="float32",
+                    max_poisson_iterations=100)
+    sim = UniformSim(cfg, level=5, device=dev, bc=cases.channel_table(0.2))
+    st = sim.grid.zero_state()
+    st.vel[0] = 0.2
+    sim.state = st
+    for _ in range(25):
+        sim.step_once()
+    vel = sim.state.vel
+    du = float((vel[0] - 0.2).abs().max())
+    dv = float(vel[1].abs().max())
+    print(f"phase 8 plug flow {sim.grid.ny}x{sim.grid.nx} x25 on the card: "
+          f"max |u - u_in| {du} max |v| {dv}", flush=True)
+    check(du <= PLUG_ABS and dv <= PLUG_ABS,
+          f"plug flow: {du}, {dv} > {PLUG_ABS}")
+    del sim
+    return runs, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -860,6 +1142,7 @@ def main() -> int:
 
     res = phase_kernels(dev)
     phase_halo_kernels(dev, res)
+    phase_bc_kernels(dev, res)
 
     uniform = ("fused_advect_heun", "fused_correction",
                "fused_jacobi_sweeps")
@@ -885,10 +1168,16 @@ def main() -> int:
         check(launches[k] > 0, f"{k}: launched no time on the split path")
     # the single-op RHS lies on no path: its launches are phase 2's
     launches["advect_diffuse_rhs"] = res["advect_diffuse_rhs"]["launches"]
+
+    walled, walled_launches = phase_walled(dev)
+    for k, n in walled_launches.items():
+        check(n > 0, f"{k}: launched no time on the wall-bounded path")
+    launches.update(walled_launches)
     check("jax" not in sys.modules, "the smoke imported jax")
 
-    kernels = [dict(name=k, route="cuda", source=hk.SOURCES[k],
-                    replaces=hk.REPLACES[k], launches=launches[k],
+    kernels = [dict(name=k, route="cuda", source=hk.SOURCES[hk.kernel_of(k)],
+                    replaces=hk.REPLACES[hk.kernel_of(k)],
+                    launches=launches[k],
                     max_abs_err=res[k]["max_abs_err"], ms=res[k]["ms"],
                     plain_ms=res[k]["plain_ms"], bound_ms=res[k]["bound_ms"],
                     bound_by=res[k]["bound_by"],
@@ -898,6 +1187,7 @@ def main() -> int:
     print(f"main path summary: {json.dumps(runs)}")
     print(f"forest main path summary: {json.dumps(forest_runs)}")
     print(f"sharded main path summary: {json.dumps(sharded)}")
+    print(f"wall-bounded main path summary: {json.dumps(walled)}")
     print(f"total {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,11 +1,14 @@
 """PyTorch/CUDA port of ``cup2d_tpu``: the obstacle-free uniform-grid
-projection step (``UniformGrid``, ``UniformSim``), the obstacle-free
-adaptive forest step (``amr.AMRSim``) and the x-split sharded uniform
-step (``parallel.mesh.ShardedUniformSim``), with hand-written Hopper
-kernels for the Heun substage, the projection correction, the Jacobi
-smoother chains, the forest lab RHS, the forest block-Jacobi update, the
-halo-mode substage and Jacobi sweep of the split step, and the single-op
-advection RHS (``ops/hopper_kernels.py``).
+projection step (``UniformGrid``, ``UniformSim``) in the free-slip box or
+walled by a boundary table (``bc.py``; the case catalog ``cases.py`` and
+its lid-driven cavity), the obstacle-free adaptive forest step
+(``amr.AMRSim``) and the x-split sharded uniform step
+(``parallel.mesh.ShardedUniformSim``), with hand-written Hopper kernels
+for the Heun substage, the projection correction, the Jacobi smoother
+chains (the three with boundary-table forms), the forest lab RHS, the
+forest block-Jacobi update, the halo-mode substage and Jacobi sweep of
+the split step, and the single-op advection RHS
+(``ops/hopper_kernels.py``).
 
 The port imports torch and numpy only, never jax and nothing of
 ``cup2d_tpu``. Entry points run on ``cuda`` unless given

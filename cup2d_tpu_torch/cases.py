@@ -1,0 +1,259 @@
+"""The validation-case catalog: the counterpart of ``cup2d_tpu.cases``.
+
+A case bundles a ``SimConfig``, a boundary table (``bc.py``) and its
+initial state behind one name. The listing is the JAX package's:
+
+``cavity``
+    Lid-driven cavity: unit box, four no-slip walls, the y_hi lid moving
+    at ``lid_u``, Re = lid_u / nu. Obstacle-free (``UniformSim``), and the
+    one case the port runs so far. Validated against Ghia, Ghia & Shin
+    (1982) at Re 100 (``ghia_errors``; ``python -m cup2d_tpu_torch.cases
+    --ghia``).
+``channel``, ``cylinder``
+    Flow past a fixed disk between an inflow and an outflow face, and the
+    towed cylinder in the free-slip box: shaped cases, which wait for the
+    shaped steps (ROADMAP queue 1 item 1). Their tables (``channel_table``)
+    run on the obstacle-free step already.
+``tgv_periodic``, ``shear_layer``, ``turb2d``
+    Doubly-periodic cases, which wait for the periodic tables and fftd
+    (ROADMAP queue 1 item 3).
+
+The catalog's drivers run on ``cuda`` unless given ``device="cpu"``. Run
+the Ghia comparison with
+
+    python -m cup2d_tpu_torch.cases --ghia [--level 4] [--device cpu]
+
+(Re 100 at 128^2 to t = 30, about 23,000 steps; both centreline errors
+must be at most 0.02 of the lid speed).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+
+from .bc import (BCTable, convective_outflow, dirichlet_inflow, free_slip,
+                 no_slip, periodic)
+from .config import SimConfig
+
+# Ghia, Ghia & Shin (1982), Re 100: u along the vertical centreline x = 0.5
+# (Table I) and v along the horizontal centreline y = 0.5 (Table II), on
+# their 129 x 129 grid, end points included.
+GHIA_Y = np.array([
+    0.0000, 0.0547, 0.0625, 0.0703, 0.1016, 0.1719, 0.2813, 0.4531,
+    0.5000, 0.6172, 0.7344, 0.8516, 0.9531, 0.9609, 0.9688, 0.9766,
+    1.0000])
+GHIA_U = np.array([
+    0.00000, -0.03717, -0.04192, -0.04775, -0.06434, -0.10150,
+    -0.15662, -0.21090, -0.20581, -0.13641, 0.00332, 0.23151,
+    0.68717, 0.73722, 0.78871, 0.84123, 1.00000])
+GHIA_X = np.array([
+    0.0000, 0.0625, 0.0703, 0.0781, 0.0938, 0.1563, 0.2266, 0.2344,
+    0.5000, 0.8047, 0.8594, 0.9063, 0.9453, 0.9531, 0.9609, 0.9688,
+    1.0000])
+GHIA_V = np.array([
+    0.00000, 0.09233, 0.10091, 0.10890, 0.12317, 0.16077, 0.17507,
+    0.17527, 0.05454, -0.24533, -0.22445, -0.16914, -0.10313,
+    -0.08864, -0.07391, -0.05906, 0.00000])
+GHIA_BAR = 0.02        # of the lid speed, both centrelines
+
+
+@dataclass(frozen=True)
+class CaseSpec:
+    """One catalog entry: ``build(**kw)`` returns a driver with ``case``
+    set; ``default_level`` is the validation resolution; ``fleet_ok``
+    marks the cases the JAX package's fleet pool serves."""
+
+    name: str
+    describe: str
+    build: Callable
+    default_level: int
+    fleet_ok: bool = False
+
+
+def cavity_table(lid_u: float = 1.0) -> BCTable:
+    """Four no-slip walls, the y_hi lid moving at (+lid_u, 0)."""
+    return BCTable(no_slip(), no_slip(), no_slip(), no_slip(lid_u, 0.0))
+
+
+def channel_table(u_in: float, profile: str = "uniform") -> BCTable:
+    """Dirichlet inflow at x_lo, convective outflow at x_hi, free-slip side
+    walls."""
+    return BCTable(dirichlet_inflow(u_in, profile=profile),
+                   convective_outflow(), free_slip(), free_slip())
+
+
+def periodic_table() -> BCTable:
+    """Doubly-periodic box."""
+    return BCTable(periodic(), periodic(), periodic(), periodic())
+
+
+def periodic_channel_table() -> BCTable:
+    """Periodic in x, no-slip walls in y."""
+    return BCTable(periodic(), periodic(), no_slip(), no_slip())
+
+
+def build_cavity(level: Optional[int] = None, re: float = 100.0,
+                 lid_u: float = 1.0, dtype: str = "float32", mesh=None,
+                 members: int = 0, cfl: float = 0.4, device=None):
+    """Lid-driven cavity at Re = lid_u * L / nu on the unit box, from rest:
+    a solo ``UniformSim`` (the JAX package's split and fleet drivers of it
+    are not ported)."""
+    if members > 0:
+        raise NotImplementedError(
+            "cavity with members: the fleet driver is not ported yet "
+            "(ROADMAP queue 1 item 6)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "cavity on a slab mesh: the split step's boundary-table forms "
+            "are not ported yet (ROADMAP queue 2 item 6)")
+    from .uniform import UniformSim
+    lvl = 4 if level is None else level
+    cfg = SimConfig(bpdx=1, bpdy=1, level_max=1, level_start=0,
+                    extent=1.0, dtype=dtype, nu=lid_u / re, cfl=cfl,
+                    poisson_tol=1e-4, poisson_tol_rel=1e-3)
+    sim = UniformSim(cfg, level=lvl, device=device, bc=cavity_table(lid_u))
+    sim.case = "cavity"
+    return sim
+
+
+def _waits(name: str, what: str):
+    def build(**_):
+        raise NotImplementedError(f"case {name!r}: {what}")
+    return build
+
+
+_SHAPED = ("a shaped case; the port's shaped steps are not ported yet "
+           "(ROADMAP queue 1 item 1)")
+_PERIODIC = ("a periodic case; periodic tables and fftd are not ported yet "
+             "(ROADMAP queue 1 item 3)")
+
+CASES: Tuple[CaseSpec, ...] = (
+    CaseSpec("cavity",
+             "lid-driven cavity (4x no-slip, moving lid), Re=100",
+             build_cavity, default_level=4, fleet_ok=True),
+    CaseSpec("channel",
+             "channel past a fixed cylinder (inflow/outflow), Re=200",
+             _waits("channel", _SHAPED), default_level=5),
+    CaseSpec("cylinder",
+             "towed cylinder in the free-slip box (legacy validation)",
+             _waits("cylinder", _SHAPED), default_level=5),
+    CaseSpec("tgv_periodic",
+             "doubly-periodic Taylor-Green vortex (analytic KE decay)",
+             _waits("tgv_periodic", _PERIODIC), default_level=4,
+             fleet_ok=True),
+    CaseSpec("shear_layer",
+             "doubly-periodic double shear layer roll-up (BCG 1989)",
+             _waits("shear_layer", _PERIODIC), default_level=4,
+             fleet_ok=True),
+    CaseSpec("turb2d",
+             "seeded decaying 2D turbulence, doubly-periodic",
+             _waits("turb2d", _PERIODIC), default_level=4, fleet_ok=True),
+)
+
+REGISTRY = {c.name: c for c in CASES}
+
+
+def case_names() -> Tuple[str, ...]:
+    return tuple(c.name for c in CASES)
+
+
+def make_sim(name: str, **kw):
+    """Build a named case's driver; an unknown name raises with the
+    listing, a case that waits for an unported part names it."""
+    spec = REGISTRY.get(name)
+    if spec is None:
+        listing = ", ".join(f"{c.name} ({c.describe})" for c in CASES)
+        raise ValueError(f"unknown case {name!r}; catalog: {listing}")
+    return spec.build(**kw)
+
+
+# ---------------------------------------------------------------------------
+# Ghia et al. (1982) comparison
+# ---------------------------------------------------------------------------
+
+def centerline_profiles(sim):
+    """(y, u(x=0.5)) and (x, v(y=0.5)) with the wall and lid values
+    appended, from the cell-centred state: each centreline lies on cell
+    faces, so each profile averages the two adjacent centre columns or
+    rows."""
+    grid = sim.grid
+    vel = sim.state.vel.detach().cpu().double().numpy()
+    ny, nx, h = grid.ny, grid.nx, grid.h
+    yc = (np.arange(ny) + 0.5) * h
+    xc = (np.arange(nx) + 0.5) * h
+    u_mid = 0.5 * (vel[0][:, nx // 2 - 1] + vel[0][:, nx // 2])
+    v_mid = 0.5 * (vel[1][ny // 2 - 1, :] + vel[1][ny // 2, :])
+    lid_u = grid.bc.y_hi.u_wall[0]
+    y = np.concatenate([[0.0], yc, [ny * h]])
+    u = np.concatenate([[0.0], u_mid, [lid_u]])
+    x = np.concatenate([[0.0], xc, [nx * h]])
+    v = np.concatenate([[0.0], v_mid, [0.0]])
+    return (y, u), (x, v)
+
+
+def ghia_errors(sim) -> tuple[float, float]:
+    """Max |u - Ghia| and |v - Ghia| along the two centrelines, in units of
+    the lid speed (which is 1 in the catalog's cavity)."""
+    (y, u), (x, v) = centerline_profiles(sim)
+    return (float(np.max(np.abs(np.interp(GHIA_Y, y, u) - GHIA_U))),
+            float(np.max(np.abs(np.interp(GHIA_X, x, v) - GHIA_V))))
+
+
+def ghia_run(level: int = 4, re: float = 100.0, t_end: float = 30.0,
+             dtype: str = "float32", device=None) -> dict:
+    """The cavity at Re ``re`` from rest to ``t_end`` (``step_once``: the
+    first 10 solves exact), then ``ghia_errors``. Returns the errors, the
+    steps, the seconds of the stepping loop and whether both errors are
+    within ``GHIA_BAR``."""
+    sim = make_sim("cavity", level=level, re=re, dtype=dtype, device=device)
+    dev = sim.grid.device
+    t0 = time.perf_counter()
+    while sim.time < t_end:
+        sim.step_once()
+    if dev.type == "cuda":
+        import torch
+        torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    err_u, err_v = ghia_errors(sim)
+    return {"case": "cavity", "re": re, "n": sim.grid.nx, "dtype": dtype,
+            "device": str(dev), "poisson_mode": sim.poisson_mode,
+            "steps": sim.step_count, "t": sim.time, "seconds": secs,
+            "err_u": err_u, "err_v": err_v,
+            "ok": err_u <= GHIA_BAR and err_v <= GHIA_BAR}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="The case catalog; --ghia runs the Re 100 cavity "
+                    "against Ghia et al. (1982).")
+    ap.add_argument("--ghia", action="store_true",
+                    help="run the cavity to --t-end and compare with Ghia")
+    ap.add_argument("--level", type=int, default=4,
+                    help="grid level (4: 128^2)")
+    ap.add_argument("--t-end", type=float, default=30.0)
+    ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if not args.ghia:
+        for c in CASES:
+            print(f"{c.name}: {c.describe}")
+        return 0
+    out = ghia_run(level=args.level, t_end=args.t_end, dtype=args.dtype,
+                   device=args.device)
+    if out["device"].startswith("cuda"):
+        import torch
+        out["card"] = torch.cuda.get_device_name(0)
+    print(json.dumps(out))
+    return 0 if out["ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

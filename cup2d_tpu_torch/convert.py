@@ -7,7 +7,9 @@ JAX ``SimConfig``; ``state_from_numpy`` takes the fields of a JAX
 ``forest_from_numpy`` takes a forest's block keys and slot-layout fields
 (``{(level, i, j): slot}`` and ``{name: [capacity, dim, BS, BS]}``, as
 ``Forest.blocks`` and ``Forest.fields`` of either package hold them) into
-a port ``AMRSim`` with the same topology.
+a port ``AMRSim`` with the same topology; ``bc_from_fields`` takes a
+boundary table of either package (read by its fields, no import) into the
+port's ``bc.BCTable``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .bc import BCTable, FaceBC
 from .config import SimConfig
 from .uniform import FlowState
 
@@ -29,6 +32,19 @@ def config_from_dict(d: dict) -> SimConfig:
     if unknown:
         raise ValueError(f"unknown SimConfig fields: {sorted(unknown)}")
     return SimConfig(**{k: v for k, v in d.items() if k in init})
+
+
+def bc_from_fields(obj) -> BCTable:
+    """The port's ``BCTable`` with the faces of ``obj``, a boundary table
+    of either package: each of ``x_lo``, ``x_hi``, ``y_lo`` and ``y_hi``
+    is read for its ``kind``, ``u_wall`` and ``profile``. Validated."""
+    faces = []
+    for name in ("x_lo", "x_hi", "y_lo", "y_hi"):
+        f = getattr(obj, name)
+        u, v = f.u_wall
+        faces.append(FaceBC(str(f.kind), (float(u), float(v)),
+                            str(f.profile)))
+    return BCTable(*faces).validate()
 
 
 def state_from_numpy(fields, device, dtype) -> FlowState:

@@ -6,8 +6,8 @@ on the card: bit for bit, and in time.
 ``DIR`` is a ``csrc`` directory of an earlier tree (for instance the
 ``cup2d_tpu_torch/ops/csrc`` of ``git archive <commit>`` unpacked under
 ``build/``) that holds ``jacobi.cu``, ``block_jacobi.cu``,
-``advect_heun.cu``, ``advect_heun_halo.cu``, ``lab_rhs.cu`` and
-``advect_rhs.cu`` with their headers. Each earlier C entry point takes
+``advect_heun.cu``, ``advect_heun_halo.cu``, ``lab_rhs.cu``,
+``advect_rhs.cu`` and ``correction.cu`` with their headers. Each earlier C entry point takes
 today's arguments (it then runs behind today's wrapper) or, for the two
 substage kernels, those of their per-cell design, without a launch plan
 (``_LEGACY``): ``cup2d_advect_substage(v, vold, out, facs, L, ny, nx,
@@ -21,13 +21,18 @@ the same operands:
    substages (vold absent and given) of the solo kernel on the 8192^2
    benchmark state, a member stack, ragged shapes and adversarial winds
    (``wind_field``), and of the halo kernel under the four wall
-   combinations; the forest lab RHS and the single-op RHS on normal labs.
+   combinations; the forest lab RHS and the single-op RHS on normal labs;
+   the projection correction on 8192^2, a member stack and ragged shapes.
    The largest distance in ulp must be 0;
 2. time, in turns (earlier, this, this, earlier) within the one process:
    device time from graph replays of each V-cycle chain per level, of the
    block-Jacobi update at 16384 blocks over 6 operand sets, and of each
    substage at the main paths' shapes (8192^2 solo, and 4 slabs of
-   8192 x 2048 for the halo kernel).
+   8192 x 2048 for the halo kernel), and of the correction on 8192^2;
+3. this tree's boundary-table forms beside its free-slip forms, in turns
+   (free-slip, table, table, free-slip), at 8192^2: the substage pair
+   under the cavity and the parabolic channel tables, the correction and
+   the n = 2 sweep chain with the channel's signs (1, -1, 1, 1).
 
 Prints one JSON line per comparison and a summary line last; exits 1 if
 any output differs. Needs a card and nvcc.
@@ -63,7 +68,7 @@ _LEGACY = {"advect_heun": ("cup2d_advect_substage",
                                 [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                                  _I, _I, _P])}
 _STEMS = ("jacobi", "block_jacobi", "advect_heun", "advect_heun_halo",
-          "lab_rhs", "advect_rhs")
+          "lab_rhs", "advect_rhs", "correction")
 
 WIND_PATTERNS = ("normal", "random_sign", "zeros", "positive", "negative",
                  "checker")
@@ -324,6 +329,85 @@ def rhs_bit_checks(fns, dev) -> list[dict]:
              "ulps": ulps(this[1], then[1])}]
 
 
+def correction_bit_checks(corr_o, dev) -> list[dict]:
+    """The correction against its earlier build: 8192^2, a member stack
+    and ragged shapes, means and pfac per member."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    for shape in [(1, 8192, 8192), (3, 256, 512), (1, 37, 150),
+                  (2, 33, 70)]:
+        L = shape[0]
+        x = torch.randn(shape, generator=gen, device=dev)
+        p = torch.randn(shape, generator=gen, device=dev)
+        v = torch.randn((L, 2) + shape[1:], generator=gen, device=dev)
+        scal = torch.stack([x.mean((1, 2)), p.mean((1, 2)),
+                            -0.25 * torch.rand(L, generator=gen,
+                                               device=dev) / shape[-1] ** 2],
+                           -1).contiguous()
+        ih2 = float(shape[-1]) ** 2
+        this = hk.fused_correction(x, p, v, scal, ih2)
+        then = corr_o(x, p, v, scal, ih2)
+        rows.append({"kernel": "fused_correction", "shape": list(shape),
+                     "ulps": max(ulps(a, b) for a, b in zip(this, then))})
+        del x, p, v, this, then
+    torch.cuda.empty_cache()
+    return rows
+
+
+def correction_times(corr_o, dev, size: int = 8192) -> dict:
+    """Device ms of the correction on [1, size, size], in turns."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x, p = (torch.randn(1, size, size, generator=gen, device=dev)
+            for _ in range(2))
+    v = torch.randn(1, 2, size, size, generator=gen, device=dev)
+    scal = torch.tensor([[0.01, -0.02, -0.25 / size ** 2]], device=dev)
+    out = {"earlier": [], "this": []}
+    for who in ("earlier", "this", "this", "earlier"):
+        fn = corr_o if who == "earlier" else hk.fused_correction
+        out[who].append(graph_ms([lambda: fn(x, p, v, scal,
+                                             float(size) ** 2)], reps=4))
+    return out
+
+
+def bc_form_times(dev, size: int = 8192) -> dict:
+    """This tree's boundary-table forms beside its free-slip forms, device
+    ms in turns (free-slip, table, table, free-slip) at size^2: the
+    substage pair (cavity and parabolic channel tables), the correction
+    and the n = 2 sweep chain (the channel's signs)."""
+    from .cases import cavity_table, channel_table
+    signs = (1.0, -1.0, 1.0, 1.0)
+    v, h = _bench_velocity(size, dev)
+    dt = torch.tensor([0.5], device=dev) * h
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x, p = (torch.randn(1, size, size, generator=gen, device=dev)
+            for _ in range(2))
+    scal = torch.tensor([[0.0, 0.0, -0.25 / size ** 2]], device=dev)
+    e, r = x[0], p[0]
+    ih2 = float(size) ** 2
+    arms = {
+        "substage_pair_cavity": (
+            lambda: hk.fused_advect_heun(v, h, 4e-5, dt),
+            lambda: hk.fused_advect_heun(v, h, 4e-5, dt, bc=cavity_table())),
+        "substage_pair_channel_parabolic": (
+            lambda: hk.fused_advect_heun(v, h, 4e-5, dt),
+            lambda: hk.fused_advect_heun(
+                v, h, 4e-5, dt, bc=channel_table(1.0, "parabolic"))),
+        "correction": (
+            lambda: hk.fused_correction(x, p, v, scal, ih2),
+            lambda: hk.fused_correction(x, p, v, scal, ih2,
+                                        grad_signs=signs)),
+        "sweep_chain_n2": (
+            lambda: hk.fused_jacobi_sweeps(e, r, 0.8, 2),
+            lambda: hk.fused_jacobi_sweeps(e, r, 0.8, 2, edge_signs=signs)),
+    }
+    out = {k: {"free_slip": [], "table": []} for k in arms}
+    for who in ("free_slip", "table", "table", "free_slip"):
+        for k, (fs, tb) in arms.items():
+            out[k][who].append(graph_ms([fs if who == "free_slip" else tb],
+                                        reps=4))
+    return out
+
+
 def substage_times(sub_o, halo_o, dev, size: int = 8192,
                    slabs: int = 4) -> dict:
     """Device ms of each substage at the main paths' shapes, in turns
@@ -399,6 +483,7 @@ def main(argv=None) -> int:
                     other_substage)
     halo_o = earlier(fns, current, "advect_heun_halo",
                      hk.advect_substage_halo, other_substage_halo)
+    corr_o = earlier(fns, current, "correction", hk.fused_correction)
     lines = []
 
     def emit(obj):
@@ -407,7 +492,8 @@ def main(argv=None) -> int:
         print(line, flush=True)
 
     bits = (substage_bit_checks(sub_o, halo_o, dev) + rhs_bit_checks(fns, dev)
-            + bit_checks(sweeps_o, bj_o, dev))
+            + bit_checks(sweeps_o, bj_o, dev)
+            + correction_bit_checks(corr_o, dev))
     for row in bits:
         emit({"bits": row})
     worst = max(row["ulps"] for row in bits)
@@ -428,6 +514,11 @@ def main(argv=None) -> int:
     sub = substage_times(sub_o, halo_o, dev)
     for k, row in sub.items():
         emit({"substage": k, **row})
+    corr = correction_times(corr_o, dev)
+    emit({"correction_8192_ms": corr})
+    forms = bc_form_times(dev)
+    for k, row in forms.items():
+        emit({"bc_form": k, **row})
     emit({"summary": {
         "card": torch.cuda.get_device_name(0), "worst_ulps": worst,
         "substage_pair_ms": {
@@ -436,6 +527,9 @@ def main(argv=None) -> int:
                 for who in ("earlier", "this")} for mode in ("solo", "halo")},
         "cycle_ms": {who: [sum(r["ms"] for r in t) for t in tables[who]]
                      for who in tables},
+        "correction_ms": corr,
+        "bc_form_ms": forms,
+        "operand_sets": len(bits),
         "cycle_bound_ms": sum(r["bound_ms"] for r in tables["this"][0])}})
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

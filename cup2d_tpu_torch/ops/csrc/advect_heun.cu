@@ -6,7 +6,10 @@
 // (the first substage).
 //
 // Replaces: cup2d_tpu/ops/pallas_kernels.py _substage_kernel (reached from
-// fused_advect_heun through _fused_substage), free-slip table, f32 storage.
+// fused_advect_heun through _fused_substage), f32 storage: the free-slip
+// table (cup2d_advect_substage) and any other non-periodic boundary table
+// (cup2d_advect_substage_bc, the kernel's BC branch: _bc_ghost, _bc_uw_y,
+// _bc_uw_x).
 //
 // Bound on this card: the arithmetic of the WENO reconstructions, about
 // 2 per cell and component once each face is reconstructed once (193
@@ -36,4 +39,20 @@ extern "C" int cup2d_advect_substage(const float* v, const float* vold,
                                      int vec, int grid, void* stream) {
     return substage::launch(v, vold, nullptr, out, facs, L, ny, nx, cfac,
                             ih2, 1, 1, vec, grid, stream);
+}
+
+// The boundary-table form: facs [L, 3] = (afac, dfac, dt) per member, h the
+// grid spacing (outflow speed), faces the table (substage.cuh: kind, wall
+// velocity, parabolic flag per face); ny, nx >= 2, so that every face's
+// edge and inner lines are distinct.
+extern "C" int cup2d_advect_substage_bc(const float* v, const float* vold,
+                                        float* out, const float* facs,
+                                        int L, int ny, int nx, float cfac,
+                                        float ih2, float h,
+                                        substage::Faces faces, int vec,
+                                        int grid, void* stream) {
+    if (ny < 2 || nx < 2) return (int)cudaErrorInvalidValue;
+    return substage::launch_form<true>(v, vold, nullptr, out, facs, L, ny,
+                                       nx, cfac, ih2, 1, 1, faces, h, vec,
+                                       grid, stream);
 }

@@ -7,7 +7,11 @@
 // scal [L, 3] f32 holds (mx, mp, pfac) per member, the means taken outside.
 //
 // Replaces: cup2d_tpu/ops/pallas_kernels.py _correct_kernel (reached from
-// fused_correction), all-Neumann pressure signs gs = (1, 1, 1, 1).
+// fused_correction): the all-Neumann signs gs = (1, 1, 1, 1)
+// (cup2d_fused_correction) and a boundary table's per-face pressure signs
+// (cup2d_fused_correction_signed: the wall terms -s_lo and +s_hi, s = -1
+// at a Dirichlet outflow face; the table's means come in as 0 where it
+// has one).
 //
 // Bound on this card: memory. It reads x, pold and vel and writes pres and
 // vel, 28 bytes per cell, for about 15 operations per cell.
@@ -27,6 +31,11 @@
 
 namespace {
 
+// per-face pressure-ghost signs (x_lo, x_hi, y_lo, y_hi)
+struct Signs {
+    float x_lo, x_hi, y_lo, y_hi;
+};
+
 __device__ __forceinline__ float mean_free(const float* __restrict__ x,
                                            const float* __restrict__ pold,
                                            int j, int i, int ny, int nx,
@@ -36,13 +45,15 @@ __device__ __forceinline__ float mean_free(const float* __restrict__ x,
     return ((x[k] - mx) + pold[k]) - mp;
 }
 
+// SIGNED: the wall terms from gs; else the Neumann constants.
+template <bool SIGNED>
 __global__ void correction_kernel(const float* __restrict__ x,
                                   const float* __restrict__ pold,
                                   const float* __restrict__ vel,
                                   const float* __restrict__ scal,
                                   float* __restrict__ pres,
                                   float* __restrict__ vout, int ny, int nx,
-                                  float ih2) {
+                                  float ih2, Signs gs) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     const int j = blockIdx.y * blockDim.y + threadIdx.y;
     const int l = blockIdx.z;
@@ -55,8 +66,14 @@ __global__ void correction_kernel(const float* __restrict__ x,
     const float pfac = scal[3 * l + 2];
 
     const float cur = mean_free(xl, pl, j, i, ny, nx, mx, mp);
-    const float gx = i == 0 ? -1.0f : (i == nx - 1 ? 1.0f : 0.0f);
-    const float gy = j == 0 ? -1.0f : (j == ny - 1 ? 1.0f : 0.0f);
+    float gx, gy;
+    if constexpr (SIGNED) {
+        gx = i == 0 ? -gs.x_lo : (i == nx - 1 ? gs.x_hi : 0.0f);
+        gy = j == 0 ? -gs.y_lo : (j == ny - 1 ? gs.y_hi : 0.0f);
+    } else {
+        gx = i == 0 ? -1.0f : (i == nx - 1 ? 1.0f : 0.0f);
+        gy = j == 0 ? -1.0f : (j == ny - 1 ? 1.0f : 0.0f);
+    }
     const float dpx = (mean_free(xl, pl, j, i + 1, ny, nx, mx, mp)
                        - mean_free(xl, pl, j, i - 1, ny, nx, mx, mp))
                       + cur * gx;
@@ -70,6 +87,17 @@ __global__ void correction_kernel(const float* __restrict__ x,
     vout[u + plane] = __fadd_rn(vel[u + plane], __fmul_rn(pfac * dpy, ih2));
 }
 
+template <bool SIGNED>
+int launch(const float* x, const float* pold, const float* vel,
+           const float* scal, float* pres, float* vout, int L, int ny,
+           int nx, float ih2, Signs gs, cudaStream_t st) {
+    dim3 block(64, 4);
+    dim3 grid((nx + 63) / 64, (ny + 3) / 4, L);
+    correction_kernel<SIGNED><<<grid, block, 0, st>>>(
+        x, pold, vel, scal, pres, vout, ny, nx, ih2, gs);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int cup2d_fused_correction(const float* x, const float* pold,
@@ -77,9 +105,18 @@ extern "C" int cup2d_fused_correction(const float* x, const float* pold,
                                       float* pres, float* vout, int L,
                                       int ny, int nx, float ih2,
                                       void* stream) {
-    dim3 block(64, 4);
-    dim3 grid((nx + 63) / 64, (ny + 3) / 4, L);
-    correction_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        x, pold, vel, scal, pres, vout, ny, nx, ih2);
-    return (int)cudaGetLastError();
+    return launch<false>(x, pold, vel, scal, pres, vout, L, ny, nx, ih2,
+                         Signs{1.0f, 1.0f, 1.0f, 1.0f},
+                         (cudaStream_t)stream);
+}
+
+// gs_*: the table's pressure signs (bc.pressure_signs)
+extern "C" int cup2d_fused_correction_signed(
+        const float* x, const float* pold, const float* vel,
+        const float* scal, float* pres, float* vout, int L, int ny, int nx,
+        float ih2, float gs_x_lo, float gs_x_hi, float gs_y_lo,
+        float gs_y_hi, void* stream) {
+    return launch<true>(x, pold, vel, scal, pres, vout, L, ny, nx, ih2,
+                        Signs{gs_x_lo, gs_x_hi, gs_y_lo, gs_y_hi},
+                        (cudaStream_t)stream);
 }

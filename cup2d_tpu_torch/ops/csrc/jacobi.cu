@@ -1,12 +1,16 @@
 // n damped-Jacobi sweeps (1 <= n <= 6) of the undivided zero-ghost 5-point
 // Laplacian with the Neumann wall diagonal, in one pass:
 //   e <- e + omega * (r - lap(e)) / d,   d = (ey + ex) - 4
-// ey/ex are 1 on the wall rows/columns, else 0. from_zero makes the first
-// sweep e = omega * r / d and ignores e (which may then be null).
+// ey/ex are 1 on the wall rows/columns, else 0 (the signed form: a
+// boundary table's pressure sign of the face there, -1 at a Dirichlet
+// outflow face, also in lap's wall term). from_zero makes the first sweep
+// e = omega * r / d and ignores e (which may then be null).
 // e, r, out [L, ny, nx] f32.
 //
 // Replaces: cup2d_tpu/ops/pallas_kernels.py _jacobi_strips_kernel (reached
-// from fused_jacobi_sweeps), all-Neumann edge signs, f32 storage.
+// from fused_jacobi_sweeps), f32 storage: all-Neumann edge signs
+// (cup2d_jacobi_sweeps) and a table's edge signs (cup2d_jacobi_sweeps_signed,
+// a template instance of its own, so the Neumann instances are unchanged).
 //
 // Bound on this card: memory. n sweeps read e and r once and write the
 // result once, 12 bytes per cell (8 from zero), for 9 operations per cell
@@ -33,7 +37,9 @@
 //   column's values through registers: 4 shared loads and 1 store a cell.
 //   Tiles clear of the domain's edge (all but a few percent on the fine
 //   levels) take a path with no domain tests and the interior diagonal
-//   (-4, whose reciprocal -0.25 is exact); edge tiles test every cell.
+//   (-4, whose reciprocal -0.25 is exact); edge tiles test every cell, and
+//   only they read the signs (their diagonal and its reciprocal come from
+//   the signed (ey + ex) - 4, as the plain version's inv_diag does).
 // - Two tiles: 128 columns x 64 rows (120 or 112 columns out; 512
 //   threads, one CTA per SM: 174-195 KB of shared memory for n = 1..6,
 //   two stages of e and r plus one sweep buffer) where a level has at
@@ -51,6 +57,21 @@
 #include <stdint.h>
 
 namespace {
+
+// per-face edge signs (x_lo, x_hi, y_lo, y_hi)
+struct Signs {
+    float x_lo, x_hi, y_lo, y_hi;
+};
+
+// The wall indicator of global index k of n: the Neumann 1, or the face's
+// sign (SIGNED), at index 0 and n - 1; 0 elsewhere.
+template <bool SIGNED>
+__device__ __forceinline__ float edge(int k, int n, float lo, float hi) {
+    if constexpr (SIGNED)
+        return k == 0 ? lo : (k == n - 1 ? hi : 0.0f);
+    else
+        return k == 0 ? 1.0f : (k == n - 1 ? 1.0f : 0.0f);
+}
 
 template <int NSW, int W_, int TY_, int GROUPS_>
 struct Geo {
@@ -137,20 +158,20 @@ __device__ __forceinline__ void load_tile(float* es, float* rs,
 // from the shared tile's edge in y, S + HX - N in x). Thread (g, i) owns
 // column i over row group g and rolls the column through registers.
 // EDGE: the tile reaches the domain's edge, so every cell is tested.
-template <class G, int S, bool EDGE>
+template <class G, int S, bool EDGE, bool SIGNED>
 __device__ __forceinline__ void sweep(const float* __restrict__ src,
                                       float* __restrict__ dst,
                                       const float* __restrict__ rs,
                                       const Tile& T,
                                       int ny, int nx, float omega,
-                                      int from_zero) {
+                                      int from_zero, const Signs& sg) {
     constexpr int R = (G::H - 2 * S + G::GROUPS - 1) / G::GROUPS;
     const int i = threadIdx.x % G::W;
     const int j0 = S + (threadIdx.x / G::W) * R;
     const int j1 = min(j0 + R, G::H - S);
     if (i == 0 || i == G::W - 1 || j0 >= j1) return;
     const int gx = T.ox + i;
-    float exv = gx == 0 ? 1.0f : (gx == nx - 1 ? 1.0f : 0.0f);
+    float exv = edge<SIGNED>(gx, nx, sg.x_lo, sg.x_hi);
     const bool xin = gx >= 0 && gx < nx;
     if (S == 1 && from_zero) {
         for (int j = j0; j < j1; ++j) {
@@ -165,7 +186,7 @@ __device__ __forceinline__ void sweep(const float* __restrict__ src,
                 dst[idx] = 0.0f;
                 continue;
             }
-            float eyv = gy == 0 ? 1.0f : (gy == ny - 1 ? 1.0f : 0.0f);
+            float eyv = edge<SIGNED>(gy, ny, sg.y_lo, sg.y_hi);
             float corr = (eyv + exv) - 4.0f;
             float inv_d = 1.0f / corr;
             dst[idx] = omega * rv * inv_d;
@@ -189,7 +210,7 @@ __device__ __forceinline__ void sweep(const float* __restrict__ src,
                 cur = yp;
                 continue;
             }
-            float eyv = gy == 0 ? 1.0f : (gy == ny - 1 ? 1.0f : 0.0f);
+            float eyv = edge<SIGNED>(gy, ny, sg.y_lo, sg.y_hi);
             corr = (eyv + exv) - 4.0f;
             inv_d = 1.0f / corr;
         }
@@ -201,22 +222,24 @@ __device__ __forceinline__ void sweep(const float* __restrict__ src,
 }
 
 // Sweeps S..N, alternating between the two buffers.
-template <class G, int S, bool EDGE>
+template <class G, int S, bool EDGE, bool SIGNED>
 __device__ __forceinline__ void sweeps(float* a, float* b, const float* rs,
                                        const Tile& T, int ny, int nx,
-                                       float omega, int from_zero) {
+                                       float omega, int from_zero,
+                                       const Signs& sg) {
     if constexpr (S <= G::N) {
-        sweep<G, S, EDGE>(a, b, rs, T, ny, nx, omega, from_zero);
+        sweep<G, S, EDGE, SIGNED>(a, b, rs, T, ny, nx, omega, from_zero, sg);
         __syncthreads();
-        sweeps<G, S + 1, EDGE>(b, a, rs, T, ny, nx, omega, from_zero);
+        sweeps<G, S + 1, EDGE, SIGNED>(b, a, rs, T, ny, nx, omega,
+                                       from_zero, sg);
     }
 }
 
-template <class G, int VEC>
+template <class G, int VEC, bool SIGNED>
 __global__ void __launch_bounds__(G::THREADS)
 jacobi_kernel(const float* __restrict__ e, const float* __restrict__ r,
               float* __restrict__ out, int L, int ny, int nx, float omega,
-              int from_zero) {
+              int from_zero, Signs sg) {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
     float* buf = smem + 4 * G::CELLS;      // the sweep buffer
@@ -241,9 +264,11 @@ jacobi_kernel(const float* __restrict__ e, const float* __restrict__ r,
         __syncthreads();
         if (T.oy >= 0 && T.oy + G::H <= ny && T.ox >= 0
                 && T.ox + G::W <= nx)
-            sweeps<G, 1, false>(es, buf, rs, T, ny, nx, omega, from_zero);
+            sweeps<G, 1, false, SIGNED>(es, buf, rs, T, ny, nx, omega,
+                                        from_zero, sg);
         else
-            sweeps<G, 1, true>(es, buf, rs, T, ny, nx, omega, from_zero);
+            sweeps<G, 1, true, SIGNED>(es, buf, rs, T, ny, nx, omega,
+                                       from_zero, sg);
         const float* res = (G::N % 2) ? buf : es;
         constexpr int CX = G::TX / VEC;
         for (int q = threadIdx.x; q < G::TY * CX; q += G::THREADS) {
@@ -265,11 +290,12 @@ jacobi_kernel(const float* __restrict__ e, const float* __restrict__ r,
 }
 
 using Launch = int (*)(const float*, const float*, float*, int, int, int,
-                       float, int, int, cudaStream_t);
+                       float, int, Signs, int, cudaStream_t);
 
-template <class G, int VEC>
+template <class G, int VEC, bool SIGNED>
 int launch(const float* e, const float* r, float* out, int L, int ny,
-           int nx, float omega, int from_zero, int grid, cudaStream_t st) {
+           int nx, float omega, int from_zero, Signs sg, int grid,
+           cudaStream_t st) {
     // above 48 KB of shared memory once per device (a bit per ordinal)
     static unsigned long long opted_in = 0;
     int dev = 0;
@@ -277,34 +303,47 @@ int launch(const float* e, const float* r, float* out, int L, int ny,
     if (err != cudaSuccess) return (int)err;
     if (G::SMEM > 48 * 1024 && !(dev < 64 && (opted_in >> dev & 1))) {
         err = cudaFuncSetAttribute(
-            jacobi_kernel<G, VEC>,
+            jacobi_kernel<G, VEC, SIGNED>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM);
         if (err != cudaSuccess) return (int)err;
         if (dev < 64) opted_in |= 1ull << dev;
     }
-    jacobi_kernel<G, VEC><<<grid, G::THREADS, G::SMEM, st>>>(
-        e, r, out, L, ny, nx, omega, from_zero);
+    jacobi_kernel<G, VEC, SIGNED><<<grid, G::THREADS, G::SMEM, st>>>(
+        e, r, out, L, ny, nx, omega, from_zero, sg);
     return (int)cudaGetLastError();
 }
 
 // 128 x 64 tiles for the fine levels, 32 x 16 for the coarse ones
-template <int NSW, int VEC>
+template <int NSW, int VEC, bool SIGNED>
 Launch pick(int big) {
-    return big ? launch<Geo<NSW, 128, 64, 4>, VEC>
-               : launch<Geo<NSW, 32, 16, 8>, VEC>;
+    return big ? launch<Geo<NSW, 128, 64, 4>, VEC, SIGNED>
+               : launch<Geo<NSW, 32, 16, 8>, VEC, SIGNED>;
 }
 
-template <int VEC>
+template <int VEC, bool SIGNED>
 Launch pick_n(int nsw, int big) {
     switch (nsw) {
-        case 1: return pick<1, VEC>(big);
-        case 2: return pick<2, VEC>(big);
-        case 3: return pick<3, VEC>(big);
-        case 4: return pick<4, VEC>(big);
-        case 5: return pick<5, VEC>(big);
-        case 6: return pick<6, VEC>(big);
+        case 1: return pick<1, VEC, SIGNED>(big);
+        case 2: return pick<2, VEC, SIGNED>(big);
+        case 3: return pick<3, VEC, SIGNED>(big);
+        case 4: return pick<4, VEC, SIGNED>(big);
+        case 5: return pick<5, VEC, SIGNED>(big);
+        case 6: return pick<6, VEC, SIGNED>(big);
         default: return nullptr;
     }
+}
+
+template <bool SIGNED>
+int sweeps_entry(const float* e, const float* r, float* out, int L, int ny,
+                 int nx, int nsw, float omega, int from_zero, int big,
+                 int vec, int grid, Signs sg, void* stream) {
+    if (L < 1 || ny < 1 || nx < 1 || grid < 1 || (vec == 4 && nx % 4))
+        return (int)cudaErrorInvalidValue;
+    Launch fn = vec == 4 ? pick_n<4, SIGNED>(nsw, big)
+              : (vec == 1 ? pick_n<1, SIGNED>(nsw, big) : nullptr);
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    return fn(e, r, out, L, ny, nx, omega, from_zero, sg, grid,
+              (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -317,11 +356,19 @@ extern "C" int cup2d_jacobi_sweeps(const float* e, const float* r,
                                    float* out, int L, int ny, int nx,
                                    int nsw, float omega, int from_zero,
                                    int big, int vec, int grid, void* stream) {
-    if (L < 1 || ny < 1 || nx < 1 || grid < 1 || (vec == 4 && nx % 4))
-        return (int)cudaErrorInvalidValue;
-    Launch fn = vec == 4 ? pick_n<4>(nsw, big)
-              : (vec == 1 ? pick_n<1>(nsw, big) : nullptr);
-    if (fn == nullptr) return (int)cudaErrorInvalidValue;
-    return fn(e, r, out, L, ny, nx, omega, from_zero, grid,
-              (cudaStream_t)stream);
+    return sweeps_entry<false>(e, r, out, L, ny, nx, nsw, omega, from_zero,
+                               big, vec, grid, Signs{1.0f, 1.0f, 1.0f, 1.0f},
+                               stream);
+}
+
+// es_*: the table's edge signs (bc.pressure_signs)
+extern "C" int cup2d_jacobi_sweeps_signed(
+        const float* e, const float* r, float* out, int L, int ny, int nx,
+        int nsw, float omega, int from_zero, int big, int vec, int grid,
+        float es_x_lo, float es_x_hi, float es_y_lo, float es_y_hi,
+        void* stream) {
+    return sweeps_entry<true>(e, r, out, L, ny, nx, nsw, omega, from_zero,
+                              big, vec, grid,
+                              Signs{es_x_lo, es_x_hi, es_y_lo, es_y_hi},
+                              stream);
 }

@@ -1,9 +1,10 @@
-// One Heun substage of WENO5 advection plus diffusion on a free-slip box,
-// whole (advect_heun.cu) or as one x slab of a split field
-// (advect_heun_halo.cu): the tile geometry, the loader with its ghost
-// painting and the compute core the two kernels share. They differ only
-// in what the loader is given: the solo kernel no aux and both x walls,
-// the halo kernel its neighbours' edge columns and the walls it owns.
+// One Heun substage of WENO5 advection plus diffusion on a free-slip box
+// or a boundary table's box, whole (advect_heun.cu) or, free-slip, as one
+// x slab of a split field (advect_heun_halo.cu): the tile geometry, the
+// loader with its ghost painting and the compute core the two kernels
+// share. They differ only in what the loader is given: the solo kernel no
+// aux and both x walls, the halo kernel its neighbours' edge columns and
+// the walls it owns.
 //
 //   out = vold + cfac * rhs * ih2,
 //   rhs = afac * (u . grad) q + dfac * lap(q)   (undivided, per component q)
@@ -61,6 +62,15 @@
 //   corner is (-u, -v) of the corner cell, as ops/stencil.py pads. Cells
 //   past the ghosts of a ragged tile are never copied and feed no output
 //   cell.
+// - The boundary-table form (BC = true, the solo kernel only) differs in
+//   the painting alone: paint_ghosts_bc paints each face by its kind
+//   (free-slip mirror, no-slip or inflow 2 uw - edge with the parabolic
+//   profile, convective outflow edge + c (edge - inner)), y faces over
+//   every column first, then x faces over the y-completed columns, so the
+//   corners compose y then x as bc.pad_vector_bc does. Each ghost layer
+//   is one painted line. The free-slip instance (BC = false) is the
+//   kernel above unchanged: the form is a template parameter, not a
+//   branch in the loader or the walk.
 
 #pragma once
 
@@ -69,11 +79,29 @@
 
 #include "weno.cuh"
 
-// Internal linkage in each source that includes this: two libraries that
-// shared these templates would also share launch_vec's opt-in flag (a
-// static local of a template is one object per process), and the second
-// would launch without its own shared-memory opt-in.
 namespace substage {
+
+// A face of a boundary table (cup2d_tpu_torch/bc.py): its ghost kind, its
+// wall velocity (no-slip lid or inflow) and whether an inflow is parabolic
+// (4 s (1 - s) along the face). Passed to the kernel by value. Outside the
+// unnamed namespace below: a C entry point that takes it by value must
+// keep external linkage.
+enum FaceKind { FREE_SLIP = 0, NO_SLIP = 1, INFLOW = 2, OUTFLOW = 3 };
+
+struct Face {
+    int kind;
+    int parabolic;
+    float u, v;
+};
+
+struct Faces {
+    Face x_lo, x_hi, y_lo, y_hi;
+};
+
+// Internal linkage for the rest in each source that includes this: two
+// libraries that shared these templates would also share launch_vec's
+// opt-in flag (a static local of a template is one object per process),
+// and the second would launch without its own shared-memory opt-in.
 namespace {
 
 constexpr int G = 3;                     // ghost cells a WENO5 cell reads
@@ -229,6 +257,120 @@ __device__ __forceinline__ void paint_ghosts(float* st, const Tile& T,
         }
         u[j * W + i] = -u[j * W + from];
         w[j * W + i] = w[j * W + from];
+    }
+    __syncthreads();
+}
+
+// 4 s (1 - s), rounded as the plain profile is
+__device__ __forceinline__ float parabola(float s) {
+    return __fmul_rn(__fmul_rn(4.0f, s), __fsub_rn(1.0f, s));
+}
+
+// A face's wall velocity at profile value p: parabolic inflow scales its
+// nonzero components by p.
+__device__ __forceinline__ void wall_velocity(const Face& f, float p,
+                                              float& wu, float& wv) {
+    wu = f.u;
+    wv = f.v;
+    if (f.kind == INFLOW && f.parabolic) {
+        if (wu != 0.0f) wu = __fmul_rn(wu, p);
+        if (wv != 0.0f) wv = __fmul_rn(wv, p);
+    }
+}
+
+// The ghost pair of a face whose normal component is nc (1: a y face, v;
+// 0: an x face, u) and whose outward direction is sign, from the edge and
+// inner cells' (u, v), rounded as bc.pad_vector_bc's plain expressions
+// (no contraction): the mirror; 2 uw - edge; or edge + c (edge - inner)
+// with c = clip(sign * edge_n * dt / h, 0, 1), the outflow speed taken
+// from the edge cell, not from a ghost.
+__device__ __forceinline__ void bc_ghost(const Face& f, int nc, float sign,
+                                         float eu, float ev, float iu,
+                                         float iv, float wu, float wv,
+                                         float dt, float h, float& gu,
+                                         float& gv) {
+    if (f.kind == FREE_SLIP) {
+        gu = nc == 0 ? -eu : eu;
+        gv = nc == 1 ? -ev : ev;
+    } else if (f.kind == OUTFLOW) {
+        const float en = nc == 0 ? eu : ev;
+        const float c = fminf(fmaxf(__fdiv_rn(__fmul_rn(__fmul_rn(sign, en),
+                                                        dt), h), 0.0f),
+                              1.0f);
+        gu = __fadd_rn(eu, __fmul_rn(c, __fsub_rn(eu, iu)));
+        gv = __fadd_rn(ev, __fmul_rn(c, __fsub_rn(ev, iv)));
+    } else {
+        gu = __fsub_rn(__fmul_rn(2.0f, wu), eu);
+        gv = __fsub_rn(__fmul_rn(2.0f, wv), ev);
+    }
+}
+
+// Paint the boundary table's ghosts of a stage whose copies have landed (a
+// whole field: both x sides walled): the y faces over every column, each
+// ghost row from the edge row (and the next one in, for outflow), the
+// parabolic profile at s = (gx + 0.5) / nx; then the x faces over the
+// y-completed columns, the profile at s = (gy + 0.5) / ny clamped to
+// [0, 1], so that it closes to 0 at the corners. dt is the member's raw
+// dt. Ends synchronised.
+__device__ __forceinline__ void paint_ghosts_bc(float* st, const Tile& T,
+                                                int ny, int nx,
+                                                const Faces& F, float dt,
+                                                float h) {
+    float* u = st;
+    float* w = st + CELLS;
+    const int jhi = ny - 1 - T.y0 + G;   // shared row of gy = ny - 1
+    for (int q = threadIdx.x; q < 2 * G * W; q += THREADS) {
+        const int r = q / W, i = q - r * W;
+        const bool lo = r < G;
+        int j, e, in;
+        if (lo) {
+            if (T.y0 != 0) continue;
+            j = r;
+            e = G;
+            in = G + 1;
+        } else {
+            j = jhi + 1 + (r - G);
+            if (j >= H) continue;
+            e = jhi;
+            in = jhi - 1;
+        }
+        const Face f = lo ? F.y_lo : F.y_hi;
+        const float p = parabola(__fdiv_rn(
+            __fadd_rn((float)(T.x0 - XO + i), 0.5f), (float)nx));
+        float wu, wv, gu, gv;
+        wall_velocity(f, p, wu, wv);
+        bc_ghost(f, 1, lo ? -1.0f : 1.0f, u[e * W + i], w[e * W + i],
+                 u[in * W + i], w[in * W + i], wu, wv, dt, h, gu, gv);
+        u[j * W + i] = gu;
+        w[j * W + i] = gv;
+    }
+    __syncthreads();
+    const int ihi = nx - 1 - T.x0 + XO;  // shared column of gx = nx - 1
+    for (int q = threadIdx.x; q < 2 * G * H; q += THREADS) {
+        const int k = q / H, j = q - k * H;
+        const bool lo = k < G;
+        int i, e, in;
+        if (lo) {
+            if (T.x0 != 0) continue;
+            i = XO - G + k;
+            e = XO;
+            in = XO + 1;
+        } else {
+            i = ihi + 1 + (k - G);
+            if (i >= W) continue;
+            e = ihi;
+            in = ihi - 1;
+        }
+        const Face f = lo ? F.x_lo : F.x_hi;
+        const float s = __fdiv_rn(__fadd_rn((float)(T.y0 - G + j), 0.5f),
+                                  (float)ny);
+        const float p = parabola(fminf(fmaxf(s, 0.0f), 1.0f));
+        float wu, wv, gu, gv;
+        wall_velocity(f, p, wu, wv);
+        bc_ghost(f, 0, lo ? -1.0f : 1.0f, u[j * W + e], w[j * W + e],
+                 u[j * W + in], w[j * W + in], wu, wv, dt, h, gu, gv);
+        u[j * W + i] = gu;
+        w[j * W + i] = gv;
     }
     __syncthreads();
 }
@@ -450,14 +592,17 @@ __device__ __forceinline__ void compute_tile(
 }
 
 // Persistent CTAs over the tiles of all L members (v, vold, out
-// [L, 2, ny, nx]; facs [L, 2] = (afac, dfac); vold null: vold = v).
-// aux null: a whole field, walled on both x sides.
-template <int VEC>
+// [L, 2, ny, nx]; facs [L, 2] = (afac, dfac), with BC [L, 3] = (afac, dfac,
+// dt); vold null: vold = v). aux null: a whole field, walled on both x
+// sides. BC: the boundary table's ghosts (faces, h; aux null only).
+template <int VEC, bool BC>
 __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
 substage_kernel(const float* __restrict__ v, const float* __restrict__ vold,
                 const float* __restrict__ aux, float* __restrict__ out,
                 const float* __restrict__ facs, int L, int ny, int nx,
-                float cfac, float ih2, int is_lo, int is_hi) {
+                float cfac, float ih2, int is_lo, int is_hi, Faces faces,
+                float h) {
+    constexpr int FS = BC ? 3 : 2;       // facs per member
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
     const int tiles = L * ((ny + TY - 1) / TY) * ((nx + TX - 1) / TX);
@@ -480,10 +625,14 @@ substage_kernel(const float* __restrict__ v, const float* __restrict__ vold,
         cp_commit();
         cp_wait1();
         __syncthreads();
-        if (paints(T, ny, nx, wall_lo, wall_hi))
-            paint_ghosts(st, T, ny, nx, wall_lo, wall_hi);
+        if (paints(T, ny, nx, wall_lo, wall_hi)) {
+            if constexpr (BC)
+                paint_ghosts_bc(st, T, ny, nx, faces, facs[FS * T.l + 2], h);
+            else
+                paint_ghosts(st, T, ny, nx, wall_lo, wall_hi);
+        }
         compute_tile(st, smem + 2 * 2 * CELLS, T, ny, nx, vold, out,
-                     facs[2 * T.l], facs[2 * T.l + 1], cfac, ih2);
+                     facs[FS * T.l], facs[FS * T.l + 1], cfac, ih2);
         __syncthreads();   // this stage is refilled by the next iteration
         T = N;
     }
@@ -493,11 +642,11 @@ substage_kernel(const float* __restrict__ v, const float* __restrict__ vold,
 // Launch on a stream: vec 4 for 16-byte copies (nx a multiple of 4, v
 // 16-byte aligned), 1 for 4-byte ones; grid the persistent CTAs, 1 .. the
 // number of tiles. Returns the CUDA error code.
-template <int VEC>
+template <int VEC, bool BC>
 int launch_vec(const float* v, const float* vold, const float* aux,
                float* out, const float* facs, int L, int ny, int nx,
-               float cfac, float ih2, int is_lo, int is_hi, int grid,
-               cudaStream_t st) {
+               float cfac, float ih2, int is_lo, int is_hi, const Faces& fc,
+               float h, int grid, cudaStream_t st) {
     // above 48 KB of shared memory once per device (a bit per ordinal)
     static unsigned long long opted_in = 0;
     int dev = 0;
@@ -505,30 +654,41 @@ int launch_vec(const float* v, const float* vold, const float* aux,
     if (err != cudaSuccess) return (int)err;
     if (!(dev < 64 && (opted_in >> dev & 1))) {
         err = cudaFuncSetAttribute(
-            substage_kernel<VEC>,
+            substage_kernel<VEC, BC>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
         if (err != cudaSuccess) return (int)err;
         if (dev < 64) opted_in |= 1ull << dev;
     }
-    substage_kernel<VEC><<<grid, THREADS, SMEM, st>>>(
-        v, vold, aux, out, facs, L, ny, nx, cfac, ih2, is_lo, is_hi);
+    substage_kernel<VEC, BC><<<grid, THREADS, SMEM, st>>>(
+        v, vold, aux, out, facs, L, ny, nx, cfac, ih2, is_lo, is_hi, fc, h);
     return (int)cudaGetLastError();
 }
 
-int launch(const float* v, const float* vold, const float* aux,
-                  float* out, const float* facs, int L, int ny, int nx,
-                  float cfac, float ih2, int is_lo, int is_hi, int vec,
-                  int grid, void* stream) {
+template <bool BC>
+int launch_form(const float* v, const float* vold, const float* aux,
+                float* out, const float* facs, int L, int ny, int nx,
+                float cfac, float ih2, int is_lo, int is_hi, const Faces& fc,
+                float h, int vec, int grid, void* stream) {
     if (L < 1 || ny < 1 || nx < 1 || grid < 1 || (vec == 4 && nx % 4))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     if (vec == 4)
-        return launch_vec<4>(v, vold, aux, out, facs, L, ny, nx, cfac, ih2,
-                             is_lo, is_hi, grid, st);
+        return launch_vec<4, BC>(v, vold, aux, out, facs, L, ny, nx, cfac,
+                                 ih2, is_lo, is_hi, fc, h, grid, st);
     if (vec == 1)
-        return launch_vec<1>(v, vold, aux, out, facs, L, ny, nx, cfac, ih2,
-                             is_lo, is_hi, grid, st);
+        return launch_vec<1, BC>(v, vold, aux, out, facs, L, ny, nx, cfac,
+                                 ih2, is_lo, is_hi, fc, h, grid, st);
     return (int)cudaErrorInvalidValue;
+}
+
+// The free-slip substage, whole (aux null) or of a slab.
+int launch(const float* v, const float* vold, const float* aux,
+           float* out, const float* facs, int L, int ny, int nx,
+           float cfac, float ih2, int is_lo, int is_hi, int vec,
+           int grid, void* stream) {
+    return launch_form<false>(v, vold, aux, out, facs, L, ny, nx, cfac, ih2,
+                              is_lo, is_hi, Faces{}, 0.0f, vec, grid,
+                              stream);
 }
 
 }  // namespace

@@ -3,21 +3,23 @@ plain PyTorch twins and their launch counters.
 
 Eight CUDA C++ kernels (``csrc/*.cu``, built for ``sm_90a``) replace the
 eight Pallas kernels of ``cup2d_tpu/ops/pallas_kernels.py``: the
-obstacle-free uniform step runs the first three, the obstacle-free forest
-step the next two, the x-split sharded uniform step
-(``parallel.shard_halo``) the two halo kernels, and the single-op RHS
-lies on no step (the JAX package keeps it as a parity and history
-baseline):
+obstacle-free uniform step (free-slip or walled by a boundary table) runs
+the first three, the obstacle-free forest step the next two, the x-split
+sharded uniform step (``parallel.shard_halo``) the two halo kernels, and
+the single-op RHS lies on no step (the JAX package keeps it as a parity
+and history baseline):
 
 =============================  ===============================  ===================
 wrapper                        replaces                         source
 =============================  ===============================  ===================
 ``fused_advect_heun``          ``_substage_kernel`` (both Heun  ``advect_heun.cu``
-                               substages, free-slip, f32)
-``fused_correction``           ``_correct_kernel`` (Neumann,    ``correction.cu``
-                               f32)
+                               substages, free-slip or a
+                               table's ghosts, f32)
+``fused_correction``           ``_correct_kernel`` (Neumann or  ``correction.cu``
+                               a table's signs, f32)
 ``fused_jacobi_sweeps``        ``_jacobi_strips_kernel``        ``jacobi.cu``
-                               (Neumann, f32)
+                               (Neumann or a table's edge
+                               signs, f32)
 ``fused_lab_rhs``              ``_lab_kernel`` (forest labs,    ``lab_rhs.cu``
                                f32)
 ``fused_block_jacobi_update``  ``_block_jacobi_kernel`` (f32)   ``block_jacobi.cu``
@@ -34,6 +36,13 @@ The four WENO kernels share their per-cell arithmetic through
 ``csrc/weno.cuh``; the two substage kernels share their tiles, loader and
 face-sharing core through ``csrc/substage.cuh``.
 
+Three kernels also have a boundary-table form for the wall-bounded boxes
+of ``bc.py`` (a second C entry in the same source, a template instance of
+its own): ``fused_advect_heun(bc=...)`` paints the table's ghosts in the
+kernel (``_substage_kernel``'s BC branch), ``fused_correction(grad_signs=
+...)`` and ``fused_jacobi_sweeps(edge_signs=...)`` take the table's
+pressure signs. A periodic table has no kernel form and refuses.
+
 Dispatch is by the device of the tensors alone: CPU tensors run the plain
 twin (the same op sequence as the JAX package's XLA chain, which the CPU
 tests hold against JAX); CUDA tensors launch the kernel or raise. There is
@@ -49,7 +58,8 @@ the WENO ``den > 1e-35`` guard relies on.
 ``launches`` counts kernel launches per wrapper (one per substage for the
 advection kernels, one per chain of at most six sweeps for the smoother,
 one per sweep and slab for the halo smoother, one per call for the
-others); twin calls do not count. A launch runs on the current stream of
+others); a launch of a boundary-table form counts under its kernel's name
+and again under the name with ``+bc``. Twin calls do not count. A launch runs on the current stream of
 its tensors' device.
 """
 
@@ -67,10 +77,11 @@ from pathlib import Path
 import torch
 
 from . import stencil
+from ..bc import pad_vector_bc
 from .stencil import (_edge_ones, _zshift, advect_diffuse_core,
-                      heun_substage, inv_diag_neumann, inv_diag_slab,
-                      laplacian5_neumann, laplacian5_neumann_slab,
-                      pad_vector, pad_vector_slab)
+                      heun_substage, inv_diag_bc, inv_diag_neumann,
+                      inv_diag_slab, laplacian5_bc, laplacian5_neumann,
+                      laplacian5_neumann_slab, pad_vector, pad_vector_slab)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
@@ -97,12 +108,42 @@ _ENTRIES = {
     "advect_rhs": ("cup2d_advect_rhs", [_P, _P, _P, _I, _I, _I, _P]),
 }
 
+
+class _Face(ctypes.Structure):
+    """``substage::Face`` (csrc/substage.cuh)."""
+    _fields_ = [("kind", ctypes.c_int), ("parabolic", ctypes.c_int),
+                ("u", ctypes.c_float), ("v", ctypes.c_float)]
+
+
+class _Faces(ctypes.Structure):
+    """``substage::Faces``: x_lo, x_hi, y_lo, y_hi, passed by value."""
+    _fields_ = [(name, _Face) for name in ("x_lo", "x_hi", "y_lo", "y_hi")]
+
+
+_FACE_KINDS = {"free_slip": 0, "no_slip": 1, "inflow": 2, "outflow": 3}
+
+# the boundary-table forms: key -> (source stem, C entry point, argtypes)
+_BC_ENTRIES = {
+    "advect_heun+bc": ("advect_heun", "cup2d_advect_substage_bc",
+                       [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _Faces, _I,
+                        _I, _P]),
+    "correction+bc": ("correction", "cup2d_fused_correction_signed",
+                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+                       _F, _P]),
+    "jacobi+bc": ("jacobi", "cup2d_jacobi_sweeps_signed",
+                  [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _F, _F,
+                   _F, _F, _P]),
+}
+
 launches = {"fused_advect_heun": 0, "fused_correction": 0,
             "fused_jacobi_sweeps": 0, "fused_lab_rhs": 0,
             "fused_block_jacobi_update": 0, "advect_substage_halo": 0,
-            "jacobi_halo_sweep": 0, "advect_diffuse_rhs": 0}
+            "jacobi_halo_sweep": 0, "advect_diffuse_rhs": 0,
+            "fused_advect_heun+bc": 0, "fused_correction+bc": 0,
+            "fused_jacobi_sweeps+bc": 0}
 
-# the TPU kernel each wrapper replaces, for reports
+# the TPU kernel each wrapper replaces, for reports (a boundary-table form
+# is a form of its kernel: ``kernel_of``)
 REPLACES = {
     "fused_advect_heun": "cup2d_tpu/ops/pallas_kernels.py:329",
     "fused_correction": "cup2d_tpu/ops/pallas_kernels.py:804",
@@ -139,12 +180,24 @@ BLOCK_JACOBI_CTAS_PER_SM = 2
 SUBSTAGE_TILE = (32, 128)
 SUBSTAGE_CTAS_PER_SM = 2
 
-_fns: dict = {}          # source stem -> loaded C entry point
+_fns: dict = {}          # source stem (or _BC_ENTRIES key) -> C entry
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def kernel_of(name: str) -> str:
+    """The kernel a launch counter belongs to (``fused_correction+bc`` ->
+    ``fused_correction``), the key of ``REPLACES`` and ``SOURCES``."""
+    return name.split("+")[0]
+
+
+def _count(name: str, bc: bool) -> None:
+    launches[name] += 1
+    if bc:
+        launches[name + "+bc"] += 1
 
 
 def _nvcc() -> str:
@@ -199,17 +252,20 @@ def build() -> dict:
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    for stem, (name, argtypes) in _ENTRIES.items():
-        if stem not in _fns:
+    entries = {k: (k, *v) for k, v in _ENTRIES.items()}
+    entries.update(_BC_ENTRIES)
+    for key, (stem, name, argtypes) in entries.items():
+        if key not in _fns:
             fn = getattr(ctypes.CDLL(str(_lib_path(stem))), name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _fns[stem] = fn
+            _fns[key] = fn
     return logs
 
 
 def _launch(stem: str, device: torch.device, *args) -> None:
-    """Launch on ``device`` (made current for the call) and its current
+    """Launch the C entry ``stem`` (a source stem or a ``_BC_ENTRIES``
+    key) on ``device`` (made current for the call) and its current
     stream."""
     if stem not in _fns:
         build()
@@ -217,6 +273,31 @@ def _launch(stem: str, device: torch.device, *args) -> None:
         rc = _fns[stem](*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA launch of {stem} failed: error {rc}")
+
+
+def _signs(signs) -> tuple:
+    """A table's four pressure signs as floats; periodic (0) has no
+    kernel form."""
+    signs = tuple(float(x) for x in signs)
+    if len(signs) != 4 or any(x not in (1.0, -1.0) for x in signs):
+        raise ValueError(f"signs {signs}: expected four of +1 (Neumann) or "
+                         "-1 (Dirichlet); periodic faces have no kernel form")
+    return signs
+
+
+def _faces(bc) -> _Faces:
+    """The kernel's by-value face table of a non-periodic ``BCTable``."""
+    faces = _Faces()
+    for name, f in zip(("x_lo", "x_hi", "y_lo", "y_hi"), bc):
+        if f.kind not in _FACE_KINDS:
+            raise ValueError(f"boundary table {bc.token}: face {name} of kind "
+                             f"{f.kind!r} has no kernel form (periodic tables"
+                             " wait for ROADMAP queue 1 item 3)")
+        setattr(faces, name, _Face(_FACE_KINDS[f.kind],
+                                   int(f.kind == "inflow"
+                                       and f.profile == "parabolic"),
+                                   float(f.u_wall[0]), float(f.u_wall[1])))
+    return faces
 
 
 @functools.lru_cache(maxsize=None)
@@ -256,17 +337,24 @@ def _check_f32(name: str, **ts) -> None:
 
 
 # ---------------------------------------------------------------------------
-# K2: one Heun substage of WENO5 advection + diffusion (free-slip box)
+# K2: one Heun substage of WENO5 advection + diffusion (free-slip box, and
+# the boundary-table form)
 # ---------------------------------------------------------------------------
 
-def advect_substage_plain(v, vold, facs, cfac, ih2):
+def advect_substage_plain(v, vold, facs, cfac, ih2, bc=None, h=None):
     """Plain twin of one substage: v, vold [L, 2, Ny, Nx] (vold None on
     the first substage, where it is v); facs [L, 2] per-member
-    (afac, dfac). The JAX package's pad -> advect_diffuse_core ->
-    heun_substage chain."""
+    (afac, dfac), or with a boundary table ``bc`` (not free-slip) [L, 3]
+    with the raw dt, which feeds the outflow speed with the grid spacing
+    ``h``. The JAX package's pad (``pad_vector`` or ``bc.pad_vector_bc``)
+    -> advect_diffuse_core -> heun_substage chain."""
     afac = facs[:, 0].reshape(-1, 1, 1, 1)
     dfac = facs[:, 1].reshape(-1, 1, 1, 1)
-    rhs = advect_diffuse_core(pad_vector(v, 3), 3, afac, dfac)
+    if bc is None:
+        lab = pad_vector(v, 3)
+    else:
+        lab = pad_vector_bc(v, 3, bc, h, facs[:, 2].reshape(-1, 1, 1, 1))
+    rhs = advect_diffuse_core(lab, 3, afac, dfac)
     return heun_substage(v if vold is None else vold, cfac, rhs, ih2)
 
 
@@ -284,78 +372,101 @@ def substage_plan(L: int, ny: int, nx: int, sms: int,
     return vec, min(tiles, sms * SUBSTAGE_CTAS_PER_SM)
 
 
-def advect_substage(v, vold, facs, cfac, ih2):
-    """One substage: the kernel for CUDA tensors, the twin for CPU ones."""
+def advect_substage(v, vold, facs, cfac, ih2, bc=None, h=None):
+    """One substage: the kernel for CUDA tensors (its boundary-table form
+    where ``bc`` is given), the twin for CPU ones. Same arguments and
+    result as the twin."""
     if not _on_cuda(v, vold, facs):
-        return advect_substage_plain(v, vold, facs, cfac, ih2)
+        return advect_substage_plain(v, vold, facs, cfac, ih2, bc, h)
     L, two, ny, nx = v.shape
-    if two != 2 or facs.shape != (L, 2):
+    cols = 2 if bc is None else 3
+    if (two != 2 or facs.shape != (L, cols)
+            or (bc is not None and min(ny, nx) < 2)):
         raise ValueError(f"advect_substage: v {tuple(v.shape)} / facs "
-                         f"{tuple(facs.shape)}: expected [L,2,Ny,Nx]/[L,2]")
+                         f"{tuple(facs.shape)}: expected [L,2,Ny,Nx]/"
+                         f"[L,{cols}] (a table's ghosts need Ny, Nx >= 2)")
     if vold is not None and vold.shape != v.shape:
         raise ValueError("advect_substage: vold shape differs from v")
     _check_f32("advect_substage", v=v, vold=vold, facs=facs)
+    faces = None if bc is None else _faces(bc)
     out = torch.empty_like(v)
     vec, grid = substage_plan(L, ny, nx, _sm_count(v.device),
                               _aligned16(v))
-    _launch("advect_heun", v.device, v.data_ptr(),
-            None if vold is None else vold.data_ptr(), out.data_ptr(),
-            facs.data_ptr(), L, ny, nx, float(cfac), float(ih2), vec, grid)
-    launches["fused_advect_heun"] += 1
+    args = (v.data_ptr(), None if vold is None else vold.data_ptr(),
+            out.data_ptr(), facs.data_ptr(), L, ny, nx, float(cfac),
+            float(ih2))
+    if bc is None:
+        _launch("advect_heun", v.device, *args, vec, grid)
+    else:
+        _launch("advect_heun+bc", v.device, *args, float(h), faces, vec,
+                grid)
+    _count("fused_advect_heun", bc is not None)
     return out
 
 
-def _substage_facs(dt, h, nu, lead, L, dtype, device):
+def _substage_facs(dt, h, nu, lead, L, dtype, device, with_dt=False):
+    """Per-member [L, 2] (afac, dfac), or [L, 3] with the raw dt."""
     dtv = torch.as_tensor(dt, dtype=dtype, device=device)
     dtv = dtv.broadcast_to(lead).reshape(L)
-    return torch.stack([-dtv * h, nu * dtv], dim=-1)
+    cols = [-dtv * h, nu * dtv] + ([dtv] if with_dt else [])
+    return torch.stack(cols, dim=-1)
 
 
-def _advect_heun(vel, h, nu, dt, substage):
+def _advect_heun(vel, h, nu, dt, substage, bc):
+    if bc is not None and bc.is_free_slip:
+        bc = None
     lead = vel.shape[:-3]
     L = math.prod(lead)
     v = vel.reshape((L,) + vel.shape[-3:])
-    facs = _substage_facs(dt, float(h), nu, lead, L, vel.dtype, vel.device)
-    ih2 = 1.0 / (float(h) * float(h))
-    v1 = substage(v, None, facs, 0.5, ih2)
-    v2 = substage(v1, v, facs, 1.0, ih2)
+    h = float(h)
+    facs = _substage_facs(dt, h, nu, lead, L, vel.dtype, vel.device,
+                          with_dt=bc is not None)
+    ih2 = 1.0 / (h * h)
+    v1 = substage(v, None, facs, 0.5, ih2, bc, h)
+    v2 = substage(v1, v, facs, 1.0, ih2, bc, h)
     return v2.reshape(vel.shape)
 
 
-def fused_advect_heun(vel, h, nu, dt):
+def fused_advect_heun(vel, h, nu, dt, bc=None):
     """Both Heun substages (main.cpp:6607-6642). vel [..., 2, Ny, Nx]; dt a
-    scalar or shaped like the leading dims (per-member dt)."""
-    return _advect_heun(vel, h, nu, dt, advect_substage)
+    scalar or shaped like the leading dims (per-member dt); ``bc`` a
+    non-periodic ``BCTable`` (None or free-slip: the free-slip kernel)."""
+    return _advect_heun(vel, h, nu, dt, advect_substage, bc)
 
 
-def fused_advect_heun_plain(vel, h, nu, dt):
+def fused_advect_heun_plain(vel, h, nu, dt, bc=None):
     """Plain twin of ``fused_advect_heun`` on any device."""
-    return _advect_heun(vel, h, nu, dt, advect_substage_plain)
+    return _advect_heun(vel, h, nu, dt, advect_substage_plain, bc)
 
 
 # ---------------------------------------------------------------------------
-# K5: projection correction epilogue (Neumann box)
+# K5: projection correction epilogue (Neumann box, and a table's signs)
 # ---------------------------------------------------------------------------
 
-def fused_correction_plain(x, pres_old, vel, scal, ih2):
+def fused_correction_plain(x, pres_old, vel, scal, ih2, grad_signs=None):
     """Plain twin: x, pres_old [L, Ny, Nx]; vel [L, 2, Ny, Nx]; scal
-    [L, 3] = (mean x, mean pres_old, pfac). Returns (pres, vel)."""
+    [L, 3] = (mean x, mean pres_old, pfac); ``grad_signs`` the table's
+    (sx_lo, sx_hi, sy_lo, sy_hi) pressure signs (None: all Neumann), the
+    wall terms -s_lo and +s_hi. Returns (pres, vel)."""
     ny, nx = x.shape[-2:]
+    sx_lo, sx_hi, sy_lo, sy_hi = grad_signs or (1.0, 1.0, 1.0, 1.0)
     s = scal.reshape(-1, 3, 1, 1)
     pres = ((x - s[:, 0]) + pres_old) - s[:, 1]
-    gx = _edge_ones(nx, x.dtype, x.device, lo=-1.0, hi=1.0)
-    gy = _edge_ones(ny, x.dtype, x.device, lo=-1.0, hi=1.0)
+    gx = _edge_ones(nx, x.dtype, x.device, lo=-sx_lo, hi=sx_hi)
+    gy = _edge_ones(ny, x.dtype, x.device, lo=-sy_lo, hi=sy_hi)
     dpx = (_zshift(pres, 0, 1) - _zshift(pres, 0, -1)) + pres * gx[None, :]
     dpy = (_zshift(pres, 1, 0) - _zshift(pres, -1, 0)) + pres * gy[:, None]
     dv = s[:, 2:3] * torch.stack([dpx, dpy], dim=-3)
     return pres, vel + dv * ih2
 
 
-def fused_correction(x, pres_old, vel, scal, ih2):
-    """Correction epilogue: the kernel for CUDA tensors, the twin for CPU
-    ones. Same arguments and result as ``fused_correction_plain``."""
+def fused_correction(x, pres_old, vel, scal, ih2, grad_signs=None):
+    """Correction epilogue: the kernel for CUDA tensors (its signed form
+    where ``grad_signs`` is given), the twin for CPU ones. Same arguments
+    and result as ``fused_correction_plain``."""
     if not _on_cuda(x, pres_old, vel, scal):
-        return fused_correction_plain(x, pres_old, vel, scal, ih2)
+        return fused_correction_plain(x, pres_old, vel, scal, ih2,
+                                      grad_signs)
     L, ny, nx = x.shape
     if (pres_old.shape != x.shape or vel.shape != (L, 2, ny, nx)
             or scal.shape != (L, 3)):
@@ -367,28 +478,41 @@ def fused_correction(x, pres_old, vel, scal, ih2):
                scal=scal)
     pres = torch.empty_like(x)
     vout = torch.empty_like(vel)
-    _launch("correction", x.device, x.data_ptr(), pres_old.data_ptr(),
-            vel.data_ptr(), scal.data_ptr(), pres.data_ptr(),
-            vout.data_ptr(), L, ny, nx, float(ih2))
-    launches["fused_correction"] += 1
+    args = (x.data_ptr(), pres_old.data_ptr(), vel.data_ptr(),
+            scal.data_ptr(), pres.data_ptr(), vout.data_ptr(), L, ny, nx,
+            float(ih2))
+    if grad_signs is None:
+        _launch("correction", x.device, *args)
+    else:
+        _launch("correction+bc", x.device, *args, *_signs(grad_signs))
+    _count("fused_correction", grad_signs is not None)
     return pres, vout
 
 
 # ---------------------------------------------------------------------------
-# K6: chains of damped-Jacobi sweeps (Neumann walls)
+# K6: chains of damped-Jacobi sweeps (Neumann walls, and a table's signs)
 # ---------------------------------------------------------------------------
 
-def jacobi_sweeps_plain(e, r, omega, n, from_zero=False):
+def jacobi_sweeps_plain(e, r, omega, n, from_zero=False, edge_signs=None):
     """Plain twin: n sweeps e + omega*(r - lap(e))*inv_d of the zero-ghost
-    Neumann Laplacian on [..., Ny, Nx]; ``from_zero`` makes the first
+    Neumann Laplacian on [..., Ny, Nx] (``edge_signs``: a table's signed
+    ``laplacian5_bc`` and its diagonal); ``from_zero`` makes the first
     sweep omega*r*inv_d and ignores ``e``."""
     ny, nx = r.shape[-2:]
-    inv_d = inv_diag_neumann(ny, nx, r.dtype, r.device)
+    if edge_signs is None:
+        inv_d = inv_diag_neumann(ny, nx, r.dtype, r.device)
+        lap = laplacian5_neumann
+    else:
+        signs = tuple(float(x) for x in edge_signs)
+        inv_d = inv_diag_bc(ny, nx, r.dtype, r.device, signs)
+
+        def lap(p):
+            return laplacian5_bc(p, *signs)
     if from_zero and n > 0:
         e = omega * r * inv_d
         n -= 1
     for _ in range(n):
-        e = e + omega * (r - laplacian5_neumann(e)) * inv_d
+        e = e + omega * (r - lap(e)) * inv_d
     return e
 
 
@@ -426,28 +550,29 @@ def block_jacobi_grid(n: int, sms: int) -> int:
     return min(_cdiv(n, BLOCK_JACOBI_TILE), BLOCK_JACOBI_CTAS_PER_SM * sms)
 
 
-def fused_jacobi_sweeps(e, r, omega, n, from_zero=False):
+def fused_jacobi_sweeps(e, r, omega, n, from_zero=False, edge_signs=None):
     """n sweeps: on CUDA tensors as launches of at most six sweeps each
-    (``sweep_chain``; the first carries ``from_zero``), on CPU tensors the
-    twin."""
+    (``sweep_chain``; the first carries ``from_zero``; the signed form where
+    ``edge_signs`` is given), on CPU tensors the twin."""
     if not _on_cuda(None if from_zero else e, r):
-        return jacobi_sweeps_plain(e, r, omega, n, from_zero)
+        return jacobi_sweeps_plain(e, r, omega, n, from_zero, edge_signs)
     ny, nx = r.shape[-2:]
     L = math.prod(r.shape[:-2])
     if not from_zero and e.shape != r.shape:
         raise ValueError(f"fused_jacobi_sweeps: e {tuple(e.shape)} vs r "
                          f"{tuple(r.shape)}")
     _check_f32("fused_jacobi_sweeps", r=r, e=None if from_zero else e)
+    signs = () if edge_signs is None else _signs(edge_signs)
     cur = None if from_zero else e
     sms = _sm_count(r.device)
     for k in sweep_chain(n):
         out = torch.empty_like(r)
         big, vec, grid = jacobi_plan(L, ny, nx, k, sms, _aligned16(cur, r))
-        _launch("jacobi", r.device,
+        _launch("jacobi+bc" if signs else "jacobi", r.device,
                 None if cur is None else cur.data_ptr(), r.data_ptr(),
                 out.data_ptr(), L, ny, nx, k, float(omega), int(cur is None),
-                int(big), vec, grid)
-        launches["fused_jacobi_sweeps"] += 1
+                int(big), vec, grid, *signs)
+        _count("fused_jacobi_sweeps", bool(signs))
         cur = out
     return cur
 

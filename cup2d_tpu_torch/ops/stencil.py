@@ -387,6 +387,94 @@ def pressure_gradient_slab(p: torch.Tensor, aux: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Per-face forms of the fused-BC operators (bc.py): the same zero-ghost
+# shifts and rank-1 edge terms with the table's edge coefficients
+# (bc.pressure_signs, bc.divergence_coeffs). ``px``/``py`` (bc.periodic_axes)
+# make the shifts along a periodic axis wrap; their coefficients are 0.
+# All-Neumann coefficients give the free-slip forms above bit for bit.
+# ---------------------------------------------------------------------------
+
+def _shift_bc(p: torch.Tensor, dy: int, dx: int, px: bool,
+              py: bool) -> torch.Tensor:
+    """Unit shift, wrapped along a periodic axis, zero-ghost otherwise."""
+    if (dx != 0 and px) or (dy != 0 and py):
+        return torch.roll(p, shifts=(-dy, -dx), dims=(-2, -1))
+    return _zshift(p, dy, dx)
+
+
+def laplacian5_bc(p: torch.Tensor, sx_lo: float, sx_hi: float,
+                  sy_lo: float, sy_hi: float, px: bool = False,
+                  py: bool = False) -> torch.Tensor:
+    """Undivided 5-point Laplacian with per-face pressure-ghost signs
+    (+1 Neumann, -1 Dirichlet, 0 periodic with the wrap shift): the wall
+    diagonal is -4 plus the adjacent faces' signs."""
+    ny, nx = p.shape[-2], p.shape[-1]
+    ex = _edge_ones(nx, p.dtype, p.device, lo=sx_lo, hi=sx_hi)
+    ey = _edge_ones(ny, p.dtype, p.device, lo=sy_lo, hi=sy_hi)
+
+    def zs(dy, dx):
+        return _shift_bc(p, dy, dx, px, py)
+    return (
+        zs(0, 1) + zs(0, -1) + zs(1, 0) + zs(-1, 0)
+        + p * ((ey[:, None] + ex[None, :]) - 4.0)
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def inv_diag_bc(ny: int, nx: int, dtype, device, signs) -> torch.Tensor:
+    """1/(-4 + the adjacent faces' signs): the Jacobi diagonal of
+    ``laplacian5_bc`` with ``signs`` = (sx_lo, sx_hi, sy_lo, sy_hi);
+    all-(+1) gives ``inv_diag_neumann``'s values. Memoized like
+    ``_edge_ones``."""
+    sx_lo, sx_hi, sy_lo, sy_hi = signs
+    ex = _edge_ones(nx, dtype, device, lo=sx_lo, hi=sx_hi)
+    ey = _edge_ones(ny, dtype, device, lo=sy_lo, hi=sy_hi)
+    return 1.0 / (ey[:, None] + ex[None, :] - 4.0)
+
+
+def divergence_bc(v: torch.Tensor, cx_lo: float, cx_hi: float,
+                  cy_lo: float, cy_hi: float, px: bool = False,
+                  py: bool = False) -> torch.Tensor:
+    """Undivided central divergence with per-face edge coefficients on
+    the wall-normal component (bc.divergence_coeffs). The constant of
+    prescribed wall-normal velocities (bc.divergence_affine_bc) is the
+    caller's, so this stays linear in ``v``."""
+    u = v[..., 0, :, :]
+    w = v[..., 1, :, :]
+    ny, nx = u.shape[-2], u.shape[-1]
+    gx = _edge_ones(nx, v.dtype, v.device, lo=cx_lo, hi=cx_hi)
+    gy = _edge_ones(ny, v.dtype, v.device, lo=cy_lo, hi=cy_hi)
+
+    def su(dy, dx):
+        return _shift_bc(u, dy, dx, px, py)
+
+    def sw(dy, dx):
+        return _shift_bc(w, dy, dx, px, py)
+    return (
+        su(0, 1) - su(0, -1) + u * gx[None, :]
+        + sw(1, 0) - sw(-1, 0) + w * gy[:, None]
+    )
+
+
+def pressure_gradient_update_bc(p: torch.Tensor, h, dt, sx_lo: float,
+                                sx_hi: float, sy_lo: float, sy_hi: float,
+                                px: bool = False,
+                                py: bool = False) -> torch.Tensor:
+    """``pressure_gradient_update_fused`` with per-face signs: the edge
+    coefficient is -s at the low wall and +s at the high wall."""
+    ny, nx = p.shape[-2], p.shape[-1]
+    gx = _edge_ones(nx, p.dtype, p.device, lo=-sx_lo, hi=sx_hi)
+    gy = _edge_ones(ny, p.dtype, p.device, lo=-sy_lo, hi=sy_hi)
+    pfac = -0.5 * dt * h
+
+    def zs(dy, dx):
+        return _shift_bc(p, dy, dx, px, py)
+    dpx = (zs(0, 1) - zs(0, -1)) + p * gx[None, :]
+    dpy = (zs(1, 0) - zs(-1, 0)) + p * gy[:, None]
+    return pfac * torch.stack([dpx, dpy], dim=-3)
+
+
+# ---------------------------------------------------------------------------
 # Lab forms of the projection operators (the forest assembles ghost labs)
 # ---------------------------------------------------------------------------
 

@@ -323,7 +323,8 @@ def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None) -> Slabs:
     if token not in (None, _FREE_SLIP_TOKEN):
         raise NotImplementedError(
             f"fused_advect_heun_sharded: boundary table {token!r}: only "
-            f"the free-slip box ({_FREE_SLIP_TOKEN}) is ported")
+            f"the free-slip box ({_FREE_SLIP_TOKEN}) is ported (ROADMAP "
+            "queue 2 item 6)")
     if any(p.shape[-1] < WENO_HALO for p in vel.parts):
         raise ValueError(
             f"fused_advect_heun_sharded: slab width "

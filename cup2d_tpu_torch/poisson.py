@@ -1,5 +1,6 @@
 """Matrix-free pressure-Poisson solvers: the counterpart of
-``cup2d_tpu.poisson`` for the uniform Neumann box and the forest.
+``cup2d_tpu.poisson`` for the uniform box (Neumann, or a boundary table's
+per-face signs) and the forest.
 
 * ``block_precond_matrix`` / ``apply_block_precond``: the reference's
   block-Jacobi preconditioner (main.cpp:6451-6488) as a batched GEMM.
@@ -15,7 +16,8 @@
 * ``mg_solve``: repeated V-cycles (optionally opened by an F-cycle) with
   the true residual.
 * ``project_correct``: the projection epilogue, through
-  ``hopper_kernels.fused_correction``.
+  ``hopper_kernels.fused_correction`` (with a boundary table's pressure
+  signs and, for an outflow table, without the mean removal).
 * The forest's pieces: ``apply_block_precond_blocks``, the DCT-II exact
   Neumann base solve (``dct_neumann_operators``,
   ``coarse_neumann_solve_dct``), the image ladder steps and
@@ -37,7 +39,7 @@ import torch
 
 from .ops.hopper_kernels import (fused_correction, fused_jacobi_sweeps,
                                  jacobi_sweeps_plain)
-from .ops.stencil import laplacian5_neumann
+from .ops.stencil import laplacian5_bc, laplacian5_neumann
 from .parallel.shard_halo import (laplacian5_neumann_x, level_meshes,
                                   overlap_jacobi_sweeps, reshard)
 
@@ -81,7 +83,11 @@ def apply_block_precond_blocks(r: torch.Tensor,
 
 
 class MultigridPreconditioner:
-    """V(nu1, nu2)-cycle for lap(e) = r on a [Ny, Nx] all-Neumann grid.
+    """V(nu1, nu2)-cycle for lap(e) = r on a [Ny, Nx] all-Neumann grid, or
+with ``edge_signs`` a boundary table's (sx_lo, sx_hi, sy_lo, sy_hi)
+pressure signs (bc.pressure_signs): the signed Laplacian and Jacobi
+diagonal on every level (a face's kind survives coarsening), in the plain
+cycle and in the fused sweep chains alike.
 
     Undivided operators throughout; the restricted residual is the 2x2
     SUM (x4 of the mean) because the undivided coarse operator is 4x the
@@ -110,7 +116,14 @@ class MultigridPreconditioner:
     def __init__(self, ny: int, nx: int, dtype, nu1: int = 2,
                  nu2: int = 2, coarsest: int = 16, omega: float = 0.8,
                  cycle_dtype=None, fused_smoother: bool = False,
-                 mesh=None):
+                 mesh=None, edge_signs=None):
+        if mesh is not None and edge_signs is not None:
+            raise NotImplementedError(
+                "MultigridPreconditioner: a split (mesh) hierarchy with a "
+                "boundary table's edge signs is not ported (ROADMAP queue 2 "
+                "item 6, the split BC forms)")
+        self.edge_signs = (None if edge_signs is None
+                           else tuple(float(x) for x in edge_signs))
         self.nu1 = nu1
         self.nu2 = nu2
         self.omega = omega
@@ -131,15 +144,17 @@ class MultigridPreconditioner:
     def _lap(self, p):
         if self.meshes is not None:
             return laplacian5_neumann_x(p)
+        if self.edge_signs is not None:
+            return laplacian5_bc(p, *self.edge_signs)
         return laplacian5_neumann(p)
 
     def _smooth(self, e, r, lvl, n, from_zero=False):
         if self.meshes is not None:
             return overlap_jacobi_sweeps(e, r, self.omega, n, from_zero,
                                          fused=self.fused_smoother)
-        if self.fused_smoother:
-            return fused_jacobi_sweeps(e, r, self.omega, n, from_zero)
-        return jacobi_sweeps_plain(e, r, self.omega, n, from_zero)
+        sweeps = (fused_jacobi_sweeps if self.fused_smoother
+                  else jacobi_sweeps_plain)
+        return sweeps(e, r, self.omega, n, from_zero, self.edge_signs)
 
     def __call__(self, r):
         return self._cycle(r.to(self.dtype), 0).to(self.out_dtype)
@@ -559,23 +574,30 @@ class ForestFASCycle:
         return self._cycle(r, pre=False)
 
 
-def project_correct(x, pres_old, vel, h, dt):
+def project_correct(x, pres_old, vel, h, dt, remove_mean=True,
+                    grad_signs=None):
     """Projection epilogue: ``pres = (x - mean x) + pres_old - mean
     pres_old`` and ``vel += -dt/(2h) grad_neumann(pres) / h^2``, the means
     taken here (accumulated in f64, so that their f32 value does not hang
     on the summation order: the x-split step's per-shard partials give the
-    same) and the rest in ``fused_correction``. x, pres_old [..., Ny, Nx];
-    vel [..., 2, Ny, Nx]; dt a scalar. Returns (vel, pres)."""
+    same) and the rest in ``fused_correction``. ``remove_mean=False`` (a
+    table with an outflow face: its Dirichlet row fixes the level) passes
+    zero means; ``grad_signs`` is the table's pressure signs (None: the
+    Neumann gradient). x, pres_old [..., Ny, Nx]; vel [..., 2, Ny, Nx]; dt
+    a scalar. Returns (vel, pres)."""
     ny, nx = x.shape[-2:]
     L = math.prod(x.shape[:-2])
     dt = torch.as_tensor(dt, dtype=x.dtype, device=x.device)
 
     def mean(a):
+        if not remove_mean:
+            return torch.zeros((), dtype=a.dtype, device=a.device)
         return torch.mean(a, dtype=torch.float64).to(a.dtype)
 
     scal = torch.stack([mean(x), mean(pres_old),
                         -0.5 * dt * h]).reshape(1, 3).expand(L, 3)
     pres, velc = fused_correction(
         x.reshape(L, ny, nx), pres_old.reshape(L, ny, nx),
-        vel.reshape(L, 2, ny, nx), scal.contiguous(), 1.0 / (h * h))
+        vel.reshape(L, 2, ny, nx), scal.contiguous(), 1.0 / (h * h),
+        grad_signs)
     return velc.reshape(vel.shape), pres.reshape(x.shape)

@@ -1,5 +1,7 @@
 """Uniform-grid execution path on dense tensors: the counterpart of
-``cup2d_tpu.uniform`` for the obstacle-free free-slip box.
+``cup2d_tpu.uniform`` for the obstacle-free box, free-slip or walled by any
+non-periodic boundary table (``bc.py``: no-slip walls with a moving lid,
+Dirichlet inflow, convective outflow).
 
 One step (main.cpp:6576-7290): CFL dt control, two-stage Heun
 advection-diffusion (WENO5 + central diffusion, ``fused_advect_heun``),
@@ -11,6 +13,16 @@ the caller passes ``device="cpu"``; with no device given and no card they
 raise. The card runs f32 state only; the CPU runs f32 or f64. On the card
 the Hopper kernels always run (there is no kernel-tier switch), on the
 CPU their plain twins.
+
+Boundary tables (``bc=``, a ``bc.BCTable``): the free-slip table runs the
+free-slip code unchanged. Any other validated non-periodic table paints
+its ghosts in the substage kernel, carries its per-face pressure signs
+through the Poisson operator, the multigrid hierarchy and the correction
+kernel, and its divergence coefficients (plus the constant of prescribed
+wall-normal velocities) through the Poisson RHS; a table with an outflow
+face keeps the pressure mean. A periodic table refuses (ROADMAP queue 1
+item 3), and so does a table other than free-slip on a slab mesh (queue 2
+item 6).
 
 ``UniformGrid.attach_mesh`` splits the step along x over a slab mesh
 (``parallel.mesh.ShardedUniformSim`` drives it): the advection runs the
@@ -33,11 +45,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .bc import (FREE_SLIP, BCTable, divergence_affine_bc,
+                 divergence_coeffs, pad_vector_bc, periodic_axes,
+                 pressure_signs)
 from .config import SimConfig
 from .ops.hopper_kernels import fused_advect_heun
-from .ops.stencil import (divergence_freeslip, divergence_rhs_fused,
-                          dt_from_umax, laplacian5_neumann, pad_scalar,
-                          pad_vector, vorticity)
+from .ops.stencil import (divergence_bc, divergence_freeslip,
+                          divergence_rhs_fused, dt_from_umax, laplacian5_bc,
+                          laplacian5_neumann, pad_scalar, pad_vector,
+                          vorticity)
 from .parallel.shard_halo import (canonical_device, divergence_rhs_x,
                                   fused_advect_heun_sharded,
                                   laplacian5_neumann_x, project_correct_x,
@@ -51,7 +67,6 @@ __all__ = ["FlowState", "UniformGrid", "UniformSim", "bench_state",
            "pad_scalar", "pad_vector", "resolve_device",
            "taylor_green_state"]
 
-_FREE_SLIP_TOKEN = "fs,fs,fs,fs"
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
@@ -122,11 +137,17 @@ class UniformGrid:
             raise ValueError(
                 f"dtype {cfg.dtype} on {self.device}: the card runs f32 "
                 "state only (f64 runs on device='cpu')")
-        token = getattr(bc, "token", bc)
-        if token not in (None, _FREE_SLIP_TOKEN):
+        bc = FREE_SLIP if bc is None else bc
+        if not isinstance(bc, BCTable):
+            raise TypeError(
+                f"bc={bc!r}: expected a cup2d_tpu_torch.bc.BCTable "
+                "(convert.bc_from_fields carries a JAX table over)")
+        self.bc = bc.validate()
+        if any(periodic_axes(self.bc)):
             raise NotImplementedError(
-                f"boundary table {token!r}: only the free-slip box "
-                f"({_FREE_SLIP_TOKEN}) is ported so far")
+                f"boundary table {self.bc.token!r}: periodic faces are not "
+                "ported yet (ROADMAP queue 1 item 3: fftd, the periodic "
+                "cases and a decision on their card path)")
         prec = os.environ.get("CUP2D_PREC", "") or "f32"
         if prec == "bf16":
             raise NotImplementedError(
@@ -150,6 +171,15 @@ class UniformGrid:
         self.nx = cfg.bpdx * cfg.bs << lvl
         self.ny = cfg.bpdy * cfg.bs << lvl
         self.h = cfg.h_at(lvl)
+        # the table's per-face operator coefficients; None on the free-slip
+        # table, whose consumers take the free-slip code unchanged
+        if self.bc.is_free_slip:
+            self._psigns = self._dcoeffs = self._div_affine = None
+        else:
+            self._psigns = pressure_signs(self.bc)
+            self._dcoeffs = divergence_coeffs(self.bc)
+            self._div_affine = divergence_affine_bc(
+                self.bc, self.ny, self.nx, self.dtype, self.device)
         if self.device.type == "cuda":
             # the block preconditioner's GEMM stays in full f32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -166,7 +196,7 @@ class UniformGrid:
         return MultigridPreconditioner(
             self.ny, self.nx, self.dtype,
             cycle_dtype=self.dtype if fas else None, fused_smoother=fas,
-            mesh=self.mesh)
+            mesh=self.mesh, edge_signs=self._psigns)
 
     def attach_mesh(self, mesh) -> None:
         """Split the step along x over ``mesh`` (a ``SlabMesh`` whose first
@@ -177,7 +207,14 @@ class UniformGrid:
         epilogue is plain per-slab code (the correction kernel stays off,
         as in the JAX package), and every reduction combines per-shard
         partials. fftd and the bf16 storage tier refuse at construction
-        already; Nx must divide by the mesh size."""
+        already, a boundary table other than free-slip here; Nx must divide
+        by the mesh size."""
+        if not self.bc.is_free_slip:
+            raise NotImplementedError(
+                f"boundary table {self.bc.token!r} on a slab mesh: the split "
+                "step's boundary-table forms (the halo substage's ghosts and "
+                "the per-slab stencils) are not ported yet (ROADMAP queue 2 "
+                "item 6)")
         if self.nx % mesh.size:
             raise ValueError(f"Nx={self.nx} not divisible by mesh size "
                              f"{mesh.size}")
@@ -219,21 +256,55 @@ class UniformGrid:
         return self.dt_from_umax(self._linf(vel))
 
     def laplacian(self, p: torch.Tensor) -> torch.Tensor:
+        """The undivided Poisson operator with the table's pressure rows."""
         if self.mesh is not None:
             return laplacian5_neumann_x(p)
-        return laplacian5_neumann(p)
+        if self._psigns is None:
+            return laplacian5_neumann(p)
+        return laplacian5_bc(p, *self._psigns)
+
+    def pad_vector_field(self, v: torch.Tensor, g: int,
+                         dt=None) -> torch.Tensor:
+        """Velocity ghost paint per the table (``dt`` feeds the outflow
+        speed; None extrapolates at c = 0)."""
+        return pad_vector_bc(v, g, self.bc, self.h, dt)
 
     def poisson_rhs(self, vel, chi, udef, dt) -> torch.Tensor:
-        """(h/2dt)[div u* - chi div u_def]; ``chi=None`` drops the obstacle
-        term (the only form on a mesh)."""
+        """(h/2dt)[div u* - chi div u_def] with the table's edge
+        coefficients and the constant of prescribed wall-normal velocities;
+        ``chi=None`` drops the obstacle term (the only form on a mesh)."""
         if self.mesh is not None and chi is None:
             return divergence_rhs_x(vel, self.h, dt)
-        if chi is None:
-            return (0.5 * self.h / dt) * divergence_freeslip(vel)
-        return divergence_rhs_fused(vel, udef, chi, self.h, dt)
+        if self._dcoeffs is None:
+            if chi is None:
+                return (0.5 * self.h / dt) * divergence_freeslip(vel)
+            return divergence_rhs_fused(vel, udef, chi, self.h, dt)
+        fac = 0.5 * self.h / dt
+        b = fac * divergence_bc(vel, *self._dcoeffs)
+        if self._div_affine is not None:
+            b = b + fac * self._div_affine
+        if chi is not None:
+            b = b - (fac * chi) * divergence_bc(udef, *self._dcoeffs)
+        return b
 
     def precond(self, r: torch.Tensor) -> torch.Tensor:
         return apply_block_precond(r, self.p_inv, self.cfg.bs)
+
+    @property
+    def bc_table(self) -> str:
+        """The boundary table's token, e.g. ``ns,ns,ns,ns(1,0)``."""
+        return self.bc.token
+
+    @property
+    def kernel_tier(self) -> str:
+        """What runs the kernels' work: ``hopper`` (the CUDA kernels, on
+        the card) or ``plain`` (their twins, on the CPU), with the table's
+        token suffixed for a table other than free-slip, as the JAX
+        package stamps its fused tier: ``hopper+bc(ns,ns,ns,ns(1,0))``."""
+        tier = "hopper" if self.device.type == "cuda" else "plain"
+        if not self.bc.is_free_slip:
+            return f"{tier}+bc({self.bc.token})"
+        return tier
 
     @property
     def poisson_mode(self) -> str:
@@ -270,23 +341,30 @@ class UniformGrid:
 
     def advect_heun(self, vel: torch.Tensor, dt) -> torch.Tensor:
         """Two-stage Heun advection-diffusion (main.cpp:6607-6642), both
-        substages through the substage kernel (its twin on the CPU), or
-        through the halo-mode substage per shard on a mesh."""
+        substages through the substage kernel (its boundary-table form for
+        a table other than free-slip; its twin on the CPU), or through the
+        halo-mode substage per shard on a mesh."""
         if self.mesh is not None:
             return fused_advect_heun_sharded(vel, self.h, self.cfg.nu, dt)
-        return fused_advect_heun(vel, self.h, self.cfg.nu, dt)
+        return fused_advect_heun(vel, self.h, self.cfg.nu, dt, bc=self.bc)
 
     def project(self, vel, pres_old, chi, udef, dt, exact_poisson=False):
         """deltap solve and correction (main.cpp:7007-7187). Returns (vel,
         pres, solver_result, div_linf), div_linf the max |div| of the
-        pre-projection velocity in physical units."""
+        pre-projection velocity in physical units. A table with an outflow
+        face keeps the pressure mean (its Dirichlet row fixes the
+        level)."""
         h = self.h
         b = self.poisson_rhs(vel, chi, udef, dt)
         div_linf = self._linf(b) * (dt / (h * h))
         b = b - self.laplacian(pres_old)
         res = self.pressure_solve(b, exact=exact_poisson)
-        correct = project_correct if self.mesh is None else project_correct_x
-        vel, pres = correct(res.x, pres_old, vel, h, dt)
+        if self.mesh is not None:
+            vel, pres = project_correct_x(res.x, pres_old, vel, h, dt)
+        else:
+            vel, pres = project_correct(
+                res.x, pres_old, vel, h, dt,
+                remove_mean=self.bc.all_neumann, grad_signs=self._psigns)
         return vel, pres, res, div_linf
 
     def precond_cycles(self, res, exact) -> int:
@@ -347,7 +425,7 @@ class UniformGrid:
             self.step_diag(vel, pres, res, div_linf, exact=exact_poisson)
 
     def vorticity_field(self, vel: torch.Tensor) -> torch.Tensor:
-        return vorticity(pad_vector(vel, 1), 1, self.h)
+        return vorticity(self.pad_vector_field(vel, 1), 1, self.h)
 
 
 def _to_host(diag: dict) -> dict:
@@ -357,11 +435,13 @@ def _to_host(diag: dict) -> dict:
 
 class UniformSim:
     """Host-side driver of the obstacle-free step: time and step
-    counters, cached next dt."""
+    counters, cached next dt; ``case`` names the catalog entry that built
+    it (``cases.py``)."""
 
     def __init__(self, cfg: SimConfig, level: Optional[int] = None,
                  device=None, bc=None):
         self.grid = UniformGrid(cfg, level, device=device, bc=bc)
+        self.case: Optional[str] = None
         self.cfg = cfg
         self.state = self.grid.zero_state()
         self.time = 0.0
@@ -373,6 +453,14 @@ class UniformSim:
     @property
     def poisson_mode(self) -> str:
         return self.grid.poisson_mode
+
+    @property
+    def bc_table(self) -> str:
+        return self.grid.bc_table
+
+    @property
+    def kernel_tier(self) -> str:
+        return self.grid.kernel_tier
 
     def step_once(self, dt: Optional[float] = None):
         """One step with the reference's exact solves for the first 10

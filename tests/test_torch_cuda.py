@@ -17,13 +17,19 @@ relative. The halo kernels of the x-split step reproduce the solo kernels
 bit for bit once their slabs are assembled (the same per-cell code and
 the same ghost values), on smooth and on adversarial winds, and a split
 step on one card follows the solo step to 1e-5 relative (only the
-reductions' order differs)."""
+reductions' order differs). The boundary-table forms of the substage,
+the correction and the sweep chain hold their twins to the same bounds on
+the four tables of tests/test_megakernel.py, ragged shapes included, and
+a short cavity run on the card follows the CPU to 1e-4 relative with
+every ``+bc`` counter moving."""
 
 import numpy as np
 import pytest
 import torch
 
 from cup2d_tpu_torch import SimConfig, UniformSim
+from cup2d_tpu_torch import bc as tbc
+from cup2d_tpu_torch import cases as tcases
 from cup2d_tpu_torch.amr import multilevel_forest
 from cup2d_tpu_torch.convert import forest_from_numpy, forest_to_numpy
 from cup2d_tpu_torch.kernel_ab import WIND_PATTERNS, wind_field
@@ -362,3 +368,114 @@ def test_sharded_step_on_one_card_matches_solo(cuda, monkeypatch, pois):
     assert (hk.launches["jacobi_halo_sweep"] > 0) == (pois == "fas")
     a, b = unshard_state(sh.state).vel, solo.state.vel
     assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# boundary-table forms
+# ---------------------------------------------------------------------------
+
+BC_TABLES = {
+    "cavity": tcases.cavity_table(1.0),
+    "channel_uniform": tcases.channel_table(1.0),
+    "channel_parabolic": tcases.channel_table(1.0, profile="parabolic"),
+    "outflow_y": tbc.BCTable(tbc.no_slip(), tbc.no_slip(),
+                             tbc.dirichlet_inflow(0.0, 1.0,
+                                                  profile="parabolic"),
+                             tbc.convective_outflow()),
+}
+# one tile with all four walls, ragged tiles with 4-byte rows, a member
+# stack, and tiles that straddle a y wall and an x wall at once
+BC_SHAPES = [(1, 2, 24, 100), (1, 2, 64, 96), (3, 2, 40, 72),
+             (1, 2, 37, 150), (2, 2, 33, 70), (1, 2, 130, 260)]
+
+
+@pytest.mark.parametrize("name", sorted(BC_TABLES))
+@pytest.mark.parametrize("shape", BC_SHAPES)
+def test_advect_heun_bc_kernel_vs_twin(cuda, name, shape):
+    bc = BC_TABLES[name]
+    h = 1.0 / shape[-1]
+    v = _rand(shape, 31, cuda)
+    dt = torch.tensor([0.5 * h, 0.35 * h, 0.27 * h][:shape[0]],
+                      device=cuda)
+    hk.reset_launches()
+    got = hk.fused_advect_heun(v, h, 4e-5, dt, bc=bc)
+    ref = hk.fused_advect_heun_plain(v, h, 4e-5, dt, bc=bc)
+    torch.cuda.synchronize()
+    assert hk.launches["fused_advect_heun"] == 2
+    assert hk.launches["fused_advect_heun+bc"] == 2
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("signs", [(1.0, -1.0, 1.0, 1.0),
+                                   (-1.0, 1.0, 1.0, -1.0),
+                                   (1.0, 1.0, 1.0, 1.0)])
+def test_correction_signed_kernel_vs_twin(cuda, signs):
+    x, p, v = (_rand((2, 48, 80), 32, cuda), _rand((2, 48, 80), 33, cuda),
+               _rand((2, 2, 48, 80), 34, cuda))
+    scal = torch.stack([torch.zeros(2, device=cuda),
+                        torch.zeros(2, device=cuda),
+                        torch.tensor([-1e-4, -2e-4], device=cuda)], -1)
+    hk.reset_launches()
+    got = hk.fused_correction(x, p, v, scal.contiguous(), 6400.0,
+                              grad_signs=signs)
+    ref = hk.fused_correction_plain(x, p, v, scal, 6400.0, grad_signs=signs)
+    torch.cuda.synchronize()
+    assert hk.launches["fused_correction+bc"] == 1
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max()) <= 5e-6
+    if signs == (1.0, 1.0, 1.0, 1.0):
+        for a, b in zip(got, hk.fused_correction(x, p, v, scal.contiguous(),
+                                                 6400.0)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", JACOBI_SHAPES)
+@pytest.mark.parametrize("from_zero", [False, True])
+def test_jacobi_signed_kernel_shapes_vs_twin(cuda, shape, from_zero):
+    L, ny, nx, n = shape
+    signs = (1.0, -1.0, 1.0, 1.0)
+    e, r = _rand((L, ny, nx), 35, cuda), _rand((L, ny, nx), 36, cuda)
+    hk.reset_launches()
+    got = hk.fused_jacobi_sweeps(e, r, 0.8, n, from_zero, edge_signs=signs)
+    ref = hk.jacobi_sweeps_plain(e, r, 0.8, n, from_zero, edge_signs=signs)
+    torch.cuda.synchronize()
+    assert hk.launches["fused_jacobi_sweeps+bc"] == len(hk.sweep_chain(n))
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 2e-6
+    same = hk.fused_jacobi_sweeps(e, r, 0.8, n, from_zero,
+                                  edge_signs=(1.0, 1.0, 1.0, 1.0))
+    assert torch.equal(same, hk.fused_jacobi_sweeps(e, r, 0.8, n, from_zero))
+
+
+def test_bc_kernel_forms_refuse_periodic(cuda):
+    v = torch.zeros(1, 2, 16, 16, device=cuda)
+    facs = torch.zeros(1, 3, device=cuda)
+    with pytest.raises(ValueError, match="queue 1 item 3"):
+        hk.advect_substage(v, None, facs, 0.5, 1.0,
+                           tcases.periodic_channel_table(), 0.1)
+    e = torch.zeros(16, 16, device=cuda)
+    with pytest.raises(ValueError, match="periodic"):
+        hk.fused_jacobi_sweeps(e, e, 0.8, 2, edge_signs=(0, 0, 1, 1))
+
+
+@pytest.mark.parametrize("pois", ["", "fas"])
+def test_cavity_on_the_card_matches_cpu(cuda, monkeypatch, pois):
+    """Five step_once steps of the 64^2 f32 cavity from a seeded start on
+    the card and on the CPU: the BC forms launch (the sweep chain's under
+    fas only), and the states agree to 1e-4 relative."""
+    monkeypatch.setenv("CUP2D_POIS", pois)
+    sims = [tcases.make_sim("cavity", level=3, device=d)
+            for d in (cuda, "cpu")]
+    v0 = np.random.default_rng(37).standard_normal((2, 64, 64)) * 0.1
+    for s in sims:
+        s.state = s.state._replace(vel=s.grid.tensor(v0))
+    hk.reset_launches()
+    for _ in range(5):
+        for s in sims:
+            s.step_once()
+    torch.cuda.synchronize()
+    assert hk.launches["fused_advect_heun+bc"] == 10
+    assert hk.launches["fused_correction+bc"] == 5
+    assert (hk.launches["fused_jacobi_sweeps+bc"] > 0) == (pois == "fas")
+    assert sims[0].kernel_tier == "hopper+bc(ns,ns,ns,ns(1,0))"
+    a, b = sims[0].state.vel.cpu(), sims[1].state.vel
+    assert float((a - b).abs().max() / b.abs().max()) <= 1e-4

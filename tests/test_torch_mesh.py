@@ -172,9 +172,10 @@ def test_geometry_and_table_refusals(monkeypatch):
     monkeypatch.delenv("CUP2D_POIS", raising=False)
     with pytest.raises(ValueError, match="not divisible"):
         ShardedUniformSim(_tcfg(), _cpu_mesh(3), level=LEVEL)
+    from cup2d_tpu_torch.cases import cavity_table
     with pytest.raises(NotImplementedError, match="ns,ns,ns,ns"):
         ShardedUniformSim(_tcfg(), _cpu_mesh(2), level=LEVEL,
-                          bc="ns,ns,ns,ns")
+                          bc=cavity_table())
     v = split_x(torch.zeros(2, 16, 32, dtype=torch.float64), _cpu_mesh(2))
     with pytest.raises(NotImplementedError, match="pd,pd,fs,fs"):
         fused_advect_heun_sharded(v, 1 / 32, 1e-3, 1e-3, bc="pd,pd,fs,fs")

@@ -172,13 +172,23 @@ def test_forest_tokens_are_inert(monkeypatch, pois):
 
 
 def test_non_free_slip_table_refuses():
-    TGrid(TConfig(**_tg_kw()), device="cpu", bc="fs,fs,fs,fs")
-    with pytest.raises(NotImplementedError, match="ns,ns,ns,ns"):
+    """A boundary table is a ``bc.BCTable`` (a bare token refuses). Of the
+    tables other than free-slip the walled ones run
+    (tests/test_torch_cavity.py) and the periodic ones refuse, naming the
+    table."""
+    from cup2d_tpu_torch.cases import cavity_table, periodic_channel_table
+    with pytest.raises(TypeError, match="BCTable"):
         TGrid(TConfig(**_tg_kw()), device="cpu", bc="ns,ns,ns,ns")
+    with pytest.raises(NotImplementedError, match="pd,pd,ns,ns"):
+        TGrid(TConfig(**_tg_kw()), device="cpu",
+              bc=periodic_channel_table())
+    assert TGrid(TConfig(**_tg_kw()), device="cpu",
+                 bc=cavity_table()).bc_table == "ns,ns,ns,ns(1,0)"
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, cup2d_tpu_torch, cup2d_tpu_torch.convert, "
+            "cup2d_tpu_torch.bc, cup2d_tpu_torch.cases, "
             "cup2d_tpu_torch.amr, cup2d_tpu_torch.parallel.mesh, "
             "cup2d_tpu_torch.parallel.shard_halo, "
             "cup2d_tpu_torch.kernel_ab, cup2d_tpu_torch.ops.timing; "
