@@ -8,7 +8,8 @@ Phases, one output line or more each; any failure exits non-zero before
 the result lines:
 
 1. build the eight Hopper kernels from ``cup2d_tpu_torch/ops/csrc`` (one
-   ``nvcc`` per source, in parallel) and print the card;
+   ``nvcc`` per source, in parallel) and print the card and every
+   instance's registers and spills;
 2. each kernel against its plain PyTorch twin on the card, f32, with the
    bounds stated below (the forest lab RHS per h class, at the path's nu
    and at a diffusion-dominated nu = 1), plus kernel and twin times
@@ -35,7 +36,18 @@ the result lines:
    relative to max |ref|, each table's kernel_ms printed beside the
    free-slip kernel's; the correction with the channel's pressure signs
    (<= 5e-6) and the sweep chain with signs (1, -1, 1, 1) at n = 1..3 on
-   8192^2 (<= 2e-6 relative);
+   8192^2 (<= 2e-6 relative). The bf16 forms (``CUP2D_PREC=bf16``): the
+   substage pair on the 8192^2 benchmark velocity, free-slip and under the
+   cavity table, and on a ragged member stack (the first substage within
+   one bf16 ulp of its twin and at least 99% of its values bit-equal, the
+   second from the same bf16 inputs <= 2e-6 relative, the pair within the
+   2e-2 bf16 band), the halo pair on 4 slabs (assembled, bit for bit the
+   solo bf16 pair; per shard as the solo pair), the sweep chain at
+   n = 1..3 (Neumann and signed) and every chain of one V-cycle (within
+   n bf16 ulps), the bf16 V-cycle's levels timed, and the halo sweep (the
+   assembled split sweep bit for bit the bf16 chain's, per shard within
+   one bf16 ulp); each with kernel ms, twin ms and its bytes bound beside
+   the f32 form's ms;
 3. the uniform main path: ``UniformGrid.step(obstacle_terms=False)`` on
    the 8192^2 f32 benchmark state, under the default solver (BiCGSTAB +
    bf16 multigrid) and under CUP2D_POIS=fas, one warm-up and five timed
@@ -90,6 +102,16 @@ the result lines:
    steps (exact to 1e-6). The Ghia et al. (1982) Re 100 cavity (128^2 f32
    from rest to t = 30, ~23k steps, ~4 minutes on the H100) runs apart:
    ``python -m cup2d_tpu_torch.cases --ghia``.
+9. the bf16 main path (``CUP2D_PREC=bf16``): phase 3's 8192^2 step under
+   both solvers (every substage launch the bf16 form, and under fas
+   every sweep-chain launch), phase 7's split step on 4 slabs of the card
+   under both solvers (the bf16 halo forms; bit for bit the solo bf16
+   step, equal iterations), the 8192^2 cavity under fas for two timed
+   steps (the boundary-table bf16 forms), and 256^2 from the benchmark
+   velocity for 5 steps under both solvers on the card against the CPU's
+   twins (<= 2e-2 relative) and against the card's f32 run (in
+   (0, 2e-2]); launch counts from 0 before each run, every ``+bf16``
+   counter non-zero.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit
 as nvidia-smi prints them, and the result line
@@ -118,8 +140,10 @@ from cup2d_tpu_torch.convert import (forest_from_numpy,  # noqa: E402
                                      forest_to_numpy)
 from cup2d_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from cup2d_tpu_torch.ops.timing import (OPS_SWEEP_CELL, bound,  # noqa: E402
-                                        cuda_ms, graph_ms, substage_ops,
-                                        sweep_level_table, weno_faces)
+                                        cuda_ms, graph_ms,
+                                        substage_ops, substage_pair_bytes,
+                                        sweep_bytes, sweep_level_table,
+                                        vcycle_chains, weno_faces)
 from cup2d_tpu_torch.ops.stencil import inv_diag_bc, pad_vector  # noqa: E402
 from cup2d_tpu_torch.parallel.mesh import (ShardedUniformSim,  # noqa: E402
                                            make_mesh)
@@ -150,6 +174,20 @@ MESH_D = 4             # slabs of the split main path, all on one card
 PLUG_ABS = 1e-6        # plug flow on the card: f32 rounding of an exact
 #                        steady state (the JAX package pins 1e-10 at f64)
 EDGE_SIGNS = (1.0, -1.0, 1.0, 1.0)   # the channel's pressure signs
+# bf16 forms (the CUP2D_PREC=bf16 tier) against their twins: kernel and
+# twin each round one f32 value to bf16, the two f32 values a few f32 ulp
+# apart (FMA contraction), so a rounding across a bf16 midpoint moves one
+# bf16 ulp and nothing moves more; a chain of n sweeps rounds n times
+BF16_ULP = 2.0 ** -7   # one bf16 ulp, relative to max |ref|
+BF16_EQUAL = 0.99      # share of bf16 outputs bit-equal to the twin's
+F32_REL = 2e-6         # an f32 output (the second substage) from the same
+#                        bf16 inputs, relative to max |ref|
+BF16_BAND = 2e-2       # the bf16 pair against its twin, and the bf16 step
+#                        against the f32 step: the JAX package's bf16 band
+#                        (tests/test_megakernel.py)
+BF16_KEYS = ("fused_advect_heun+bf16", "fused_advect_heun+bc+bf16",
+             "advect_substage_halo+bf16", "fused_jacobi_sweeps+bf16",
+             "fused_jacobi_sweeps+bc+bf16", "jacobi_halo_sweep+bf16")
 
 # the four tables of tests/test_megakernel.py
 BC_TABLES = {
@@ -229,6 +267,62 @@ def bench_grid(ny: int, nx: int, device):
     return UniformGrid(cfg, level=level, device=device)
 
 
+_BENCH_VEL: dict = {}
+
+
+def bench_start(grid):
+    """``bench_state(grid)``: its velocity is computed once per grid
+    geometry (numpy takes seconds at 8192^2) and kept on the host, so the
+    device's peak memory does not see it; each call copies it to the
+    grid's device."""
+    key = (grid.ny, grid.nx, tuple(grid.cfg.extents), grid.dtype)
+    if key not in _BENCH_VEL:
+        _BENCH_VEL[key] = bench_state(grid).vel.cpu()
+    return grid.zero_state()._replace(
+        vel=_BENCH_VEL[key].to(grid.device, copy=True))
+
+
+class latched:
+    """The solver and storage latches (CUP2D_POIS, CUP2D_PREC) set while
+    the block builds grids and sims, unset after it."""
+
+    def __init__(self, pois: str, prec: str = "f32"):
+        self.env = {"CUP2D_POIS": pois, "CUP2D_PREC": prec}
+
+    def __enter__(self):
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k in self.env:
+            os.environ.pop(k, None)
+
+
+def bf16_close(label: str, got, ref, ulps: int = 1) -> float:
+    """Hold a bf16 output to its twin's: within ``ulps`` bf16 ulps of
+    max |ref| and at least BF16_EQUAL of the values bit-equal. Returns the
+    largest absolute difference."""
+    diff = (got.float() - ref.float()).abs()
+    err = float(diff.max())
+    rel = err / float(ref.float().abs().max())
+    share = float((got == ref).float().mean())
+    print(f"phase 2 {label}: max_abs_err {err} (rel {rel}, bf16 ulps "
+          f"{rel / BF16_ULP}; bit-equal {share})", flush=True)
+    check(rel <= ulps * BF16_ULP and share >= BF16_EQUAL,
+          f"{label}: rel {rel} > {ulps} bf16 ulp or bit-equal share {share}"
+          f" < {BF16_EQUAL}")
+    return err
+
+
+def rel_close(label: str, got, ref, bar: float) -> float:
+    """Hold an output to its twin's relative to max |ref|; returns the
+    largest absolute difference."""
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    print(f"phase 2 {label}: max_abs_err {err} (rel {rel})", flush=True)
+    check(rel <= bar, f"{label}: rel {rel} > {bar}")
+    return err
+
+
 def phase_kernels(dev):
     """Phase 2. Returns per-kernel dicts of the main-path-shape numbers."""
     res = {k: {"max_abs_err": 0.0} for k in hk.launches}
@@ -243,7 +337,7 @@ def phase_kernels(dev):
         L, _, ny, nx = shape
         g = bench_grid(ny, nx, dev)
         amp = torch.tensor([1.0, 0.7, 0.4][:L], device=dev)
-        v = (bench_state(g).vel[None] * amp[:, None, None, None]
+        v = (bench_start(g).vel[None] * amp[:, None, None, None]
              ).contiguous()
         dt = torch.tensor([0.5, 0.35, 0.27][:L], device=dev) * g.h
         got = hk.fused_advect_heun(v, g.h, 4e-5, dt)
@@ -345,7 +439,8 @@ def phase_kernels(dev):
                           f"{b[0]}", flush=True)
         del e, r
     torch.cuda.empty_cache()
-    phase_sweep_levels(dev)
+    res["fused_jacobi_sweeps"]["cycle_ms"] = sum(
+        r["ms"] for r in phase_sweep_levels(dev))
 
     # K4 on labs of unit-scale velocity with mixed per-block h: levels 6
     # and 7 of the canonical domain and the pad rows' h = 1, at dt = h7/2.
@@ -438,7 +533,7 @@ def phase_bc_kernels(dev, res, size: int = 8192) -> None:
     g = bench_grid(size, size, dev)
     cells = g.ny * g.nx
     base = res["fused_advect_heun"]["ms"]
-    v = bench_state(g).vel[None].contiguous()
+    v = bench_start(g).vel[None].contiguous()
     dt = torch.tensor([0.5], device=dev) * g.h
     err = 0.0
     for name, table in BC_TABLES.items():
@@ -560,26 +655,255 @@ def phase_bc_kernels(dev, res, size: int = 8192) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_sweep_levels(dev, size: int = 8192) -> list:
+def phase_sweep_levels(dev, size: int = 8192,
+                       dtype=torch.float32) -> list:
     """Phase 2, continued: the sweep chain at each level of the 8192^2
     V-cycle hierarchy with the chains one cycle launches there (n = 2 from
     zero and n = 2 from the corrected e down to 16^2, 24 from zero on
-    8^2), device time from graph replays; per level its ms, bound and
-    launches per cycle, then the sums over one cycle."""
-    rows = sweep_level_table(hk.fused_jacobi_sweeps, dev, size=size)
+    8^2), on ``dtype`` legs, device time from graph replays; per level its
+    ms, bound and launches per cycle, then the sums over one cycle."""
+    rows = sweep_level_table(hk.fused_jacobi_sweeps, dev, size=size,
+                             dtype=dtype)
+    tag = "" if dtype == torch.float32 else " bf16"
     for row in rows:
         chains = ", ".join(
             f"n={c['n']}{' from zero' if c['from_zero'] else ''} "
             f"{c['ms']} ms" for c in row["chains"])
-        print(f"phase 2 sweep level {row['level']}^2: kernel_ms {row['ms']} "
-              f"bound_ms {row['bound_ms']} launches/cycle {row['launches']}"
-              f" ({chains})", flush=True)
-    print(f"phase 2 sweep levels per V-cycle: kernel_ms "
+        print(f"phase 2 sweep level{tag} {row['level']}^2: kernel_ms "
+              f"{row['ms']} bound_ms {row['bound_ms']} launches/cycle "
+              f"{row['launches']} ({chains})", flush=True)
+    print(f"phase 2 sweep levels{tag} per V-cycle: kernel_ms "
           f"{sum(r['ms'] for r in rows)} bound_ms "
           f"{sum(r['bound_ms'] for r in rows)} launches "
           f"{sum(r['launches'] for r in rows)}", flush=True)
     torch.cuda.empty_cache()
     return rows
+
+
+def phase_bf16_kernels(dev, res, size: int = 8192) -> None:
+    """Phase 2, continued: the four bf16 forms against their twins at the
+    main paths' shapes, with kernel and twin ms and the bytes bound beside
+    the f32 form's ms from this call. Fills ``res`` for BF16_KEYS.
+
+    Substages: the first (bf16 in and out) to one bf16 ulp, the second
+    from the same bf16 inputs (f32 out) to F32_REL, the whole pair (its f32
+    state through the bf16 copy) to BF16_BAND; on the 8192^2 benchmark
+    velocity (free-slip and the cavity table) and on a ragged member stack
+    (2-byte loads). The kernel ms is the two launches on the bf16 copy; the
+    pair's bound counts their bytes (24 a cell) against the face-sharing
+    operation count. The halo pair on MESH_D slabs: the assembled split
+    pair equal to the solo bf16 pair bit for bit, each shard's substages
+    against their twins. Sweep chains: n = 1..3 (Neumann and the channel's
+    signs) on 8192^2 and every chain of one V-cycle, within n bf16 ulps;
+    the V-cycle's levels timed. The halo sweep: the assembled split sweep
+    equal to the bf16 chain's, each shard within one bf16 ulp."""
+    g = bench_grid(size, size, dev)
+    cells = g.ny * g.nx
+    ih2 = 1.0 / (g.h * g.h)
+    v = bench_start(g).vel[None].contiguous()
+    vb = v.to(torch.bfloat16)
+    dt = torch.tensor([0.5], device=dev) * g.h
+    bf = torch.bfloat16
+    f32 = torch.float32
+
+    # K2: free-slip and the cavity table
+    for key, table in (("fused_advect_heun+bf16", None),
+                       ("fused_advect_heun+bc+bf16", BC_TABLES["cavity"])):
+        facs = hk._substage_facs(dt, g.h, 4e-5, (1,), 1, f32, dev,
+                                 with_dt=table is not None)
+        s1 = hk.advect_substage(vb, None, facs, 0.5, ih2, table, g.h)
+        e1 = bf16_close(f"{key} substage 1 {list(v.shape)}", s1,
+                        hk.advect_substage_plain(vb, None, facs, 0.5, ih2,
+                                                 table, g.h))
+        e2 = rel_close(f"{key} substage 2 {list(v.shape)}",
+                       hk.advect_substage(s1, vb, facs, 1.0, ih2, table,
+                                          g.h, f32),
+                       hk.advect_substage_plain(s1, vb, facs, 1.0, ih2,
+                                                table, g.h, f32), F32_REL)
+        pair = hk.fused_advect_heun(v, g.h, 4e-5, dt, bc=table, bf16=True)
+        rel_close(f"{key} pair vs twin", pair, hk.fused_advect_heun_plain(
+            v, g.h, 4e-5, dt, bc=table, bf16=True), BF16_BAND)
+        full = hk.fused_advect_heun(v, g.h, 4e-5, dt, bc=table)
+        moved = float((pair - full).abs().max() / full.abs().max())
+        del pair, full
+
+        def launches2():
+            hk.advect_substage(hk.advect_substage(vb, None, facs, 0.5, ih2,
+                                                  table, g.h),
+                               vb, facs, 1.0, ih2, table, g.h, f32)
+        ms = cuda_ms(launches2, 10)
+        whole = cuda_ms(lambda: hk.fused_advect_heun(
+            v, g.h, 4e-5, dt, bc=table, bf16=True), 10)
+        pms = cuda_ms(lambda: hk.fused_advect_heun_plain(
+            v, g.h, 4e-5, dt, bc=table, bf16=True), 1)
+        b = bound(substage_pair_bytes(cells, True),
+                  substage_ops(vb.float()) + substage_ops(s1.float()))
+        bb = bound(substage_pair_bytes(cells, True), 0.0)[0]
+        del s1
+        base = res["fused_advect_heun" if table is None
+                   else "fused_advect_heun+bc"]["ms"]
+        res[key].update(max_abs_err=max(e1, e2), ms=ms, plain_ms=pms,
+                        bound_ms=b[0], bound_by=b[1], library_ms=None)
+        print(f"phase 2 {key} [1,2,{size},{size}] both substages: kernel_ms "
+              f"{ms} (with the f32->bf16 cast {whole}; f32 form {base}) "
+              f"twin_ms {pms} bound_ms {b[0]} ({b[1]}; bytes alone {bb}); "
+              f"the bf16 pair moves the state {moved} relative from the "
+              "f32 pair", flush=True)
+        torch.cuda.empty_cache()
+    # a ragged member stack: 2-byte loads, tiles across both walls
+    gen = torch.Generator(device=dev).manual_seed(5)
+    vr = torch.randn(2, 2, 1000, 1501, generator=gen, device=dev)
+    hr = 1.0 / 1501
+    dtr = torch.tensor([0.5, 0.3], device=dev) * hr
+    vrb = vr.to(bf)
+    for key, table in (("fused_advect_heun+bf16", None),
+                       ("fused_advect_heun+bc+bf16", BC_TABLES["cavity"])):
+        facs = hk._substage_facs(dtr, hr, 4e-5, (2,), 2, f32, dev,
+                                 with_dt=table is not None)
+        s1 = hk.advect_substage(vrb, None, facs, 0.5, 1 / hr ** 2, table, hr)
+        e1 = bf16_close(f"{key} substage 1 {list(vr.shape)}", s1,
+                        hk.advect_substage_plain(vrb, None, facs, 0.5,
+                                                 1 / hr ** 2, table, hr))
+        e2 = rel_close(f"{key} substage 2 {list(vr.shape)}",
+                       hk.advect_substage(s1, vrb, facs, 1.0, 1 / hr ** 2,
+                                          table, hr, f32),
+                       hk.advect_substage_plain(s1, vrb, facs, 1.0,
+                                                1 / hr ** 2, table, hr, f32),
+                       F32_REL)
+        res[key]["max_abs_err"] = max(res[key]["max_abs_err"], e1, e2)
+    del vr, vrb, s1
+
+    # K3 on MESH_D slabs of the benchmark velocity
+    key = "advect_substage_halo+bf16"
+    mesh = make_mesh(devices=[dev] * MESH_D)
+    walls = [(d == 0, d == MESH_D - 1) for d in range(MESH_D)]
+    solo = hk.fused_advect_heun(v, g.h, 4e-5, dt, bf16=True)
+    split = gather_x(fused_advect_heun_sharded(split_x(v, mesh), g.h, 4e-5,
+                                               dt, bf16=True))
+    u3 = ulps(split, solo)
+    del split, solo
+    print(f"phase 2 {key} {size}^2 on {MESH_D} slabs vs the solo bf16 pair:"
+          f" max {u3} ulp", flush=True)
+    check(u3 == 0, f"{key}: the split bf16 pair is {u3} ulp from the solo")
+    facs = hk._substage_facs(dt, g.h, 4e-5, (1,), 1, f32, dev)
+    s0 = split_x(vb, mesh)
+    aux0 = exchange_x(s0, 3)
+    s1 = Slabs([hk.advect_substage_halo(p, None, aux0[d], facs, 0.5, ih2,
+                                        *walls[d])
+                for d, p in enumerate(s0.parts)], mesh)
+    aux1 = exchange_x(s1, 3)
+    err = 0.0
+    for d in range(MESH_D):
+        a1 = (s0.parts[d], None, aux0[d], facs, 0.5, ih2, *walls[d])
+        a2 = (s1.parts[d], s0.parts[d], aux1[d], facs, 1.0, ih2, *walls[d],
+              f32)
+        err = max(err, bf16_close(
+            f"{key} shard {d} substage 1", hk.advect_substage_halo(*a1),
+            hk.advect_substage_halo_plain(*a1)))
+        err = max(err, rel_close(
+            f"{key} shard {d} substage 2", hk.advect_substage_halo(*a2),
+            hk.advect_substage_halo_plain(*a2), F32_REL))
+
+    def k3(sub):
+        for d in range(MESH_D):
+            sub(s0.parts[d], None, aux0[d], facs, 0.5, ih2, *walls[d])
+        for d in range(MESH_D):
+            sub(s1.parts[d], s0.parts[d], aux1[d], facs, 1.0, ih2, *walls[d],
+                f32)
+
+    ms = cuda_ms(lambda: k3(hk.advect_substage_halo), 10)
+    pms = cuda_ms(lambda: k3(hk.advect_substage_halo_plain), 1)
+    aux_bytes = 2 * sum(a.numel() for a in aux0) * 2
+    b = bound(substage_pair_bytes(cells, True) + aux_bytes,
+              sum(substage_ops(p.float()) for p in s0.parts + s1.parts))
+    res[key].update(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0],
+                    bound_by=b[1], library_ms=None)
+    print(f"phase 2 {key} [1,2,{size},{size // MESH_D}] x{MESH_D}, both "
+          f"substages: kernel_ms {ms} (f32 form "
+          f"{res['advect_substage_halo']['ms']}) twin_ms {pms} bound_ms "
+          f"{b[0]} ({b[1]}; bytes alone "
+          f"{bound(substage_pair_bytes(cells, True) + aux_bytes, 0)[0]})",
+          flush=True)
+    del v, vb, s0, s1, aux0, aux1
+    torch.cuda.empty_cache()
+
+    # K6: n = 1..3 on 8192^2, Neumann and signed, from e and from zero
+    gen = torch.Generator(device=dev).manual_seed(6)
+    e = torch.randn(size, size, generator=gen, device=dev).to(bf)
+    r = torch.randn(size, size, generator=gen, device=dev).to(bf)
+    for key, signs in (("fused_jacobi_sweeps+bf16", None),
+                       ("fused_jacobi_sweeps+bc+bf16", EDGE_SIGNS)):
+        err = 0.0
+        for n in (1, 2, 3):
+            for fz in (False, True):
+                err = max(err, bf16_close(
+                    f"{key} [{size},{size}] n={n} from_zero={fz}",
+                    hk.fused_jacobi_sweeps(e, r, 0.8, n, fz, signs),
+                    hk.jacobi_sweeps_bf16_plain(e, r, 0.8, n, fz, signs),
+                    ulps=n))
+        ms = cuda_ms(lambda: hk.fused_jacobi_sweeps(e, r, 0.8, 2, False,
+                                                    signs), 10)
+        pms = cuda_ms(lambda: hk.jacobi_sweeps_bf16_plain(e, r, 0.8, 2,
+                                                          False, signs), 2)
+        b = bound(sweep_bytes(cells, False, 2), OPS_SWEEP_CELL * 2 * cells)
+        base = res["fused_jacobi_sweeps" if signs is None
+                   else "fused_jacobi_sweeps+bc"]["ms"]
+        res[key].update(max_abs_err=err, ms=ms, plain_ms=pms,
+                        bound_ms=b[0], bound_by=b[1], library_ms=None)
+        print(f"phase 2 {key} [{size},{size}] n=2: kernel_ms {ms} (f32 form "
+              f"{base}) twin_ms {pms} bound_ms {b[0]} ({b[1]})", flush=True)
+    # every chain of one V-cycle (the 24-sweep coarsest one included)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for n_cells, chains in vcycle_chains(size):
+        ev = torch.randn(n_cells, n_cells, generator=gen, device=dev).to(bf)
+        rv = torch.randn(n_cells, n_cells, generator=gen, device=dev).to(bf)
+        for n, fz in chains:
+            got = hk.fused_jacobi_sweeps(ev, rv, 0.8, n, fz)
+            ref = hk.jacobi_sweeps_bf16_plain(ev, rv, 0.8, n, fz)
+            rel = float((got.float() - ref.float()).abs().max()
+                        / ref.float().abs().max())
+            check(rel <= n * BF16_ULP, f"fused_jacobi_sweeps+bf16 V-cycle "
+                  f"level {n_cells}^2 n={n}: rel {rel}")
+        del ev, rv, got, ref
+    print("phase 2 fused_jacobi_sweeps+bf16: every chain of the 8192^2 "
+          "V-cycle within n bf16 ulps of its twin", flush=True)
+    bf_cycle = sum(row["ms"] for row in phase_sweep_levels(dev, size, bf))
+    print(f"phase 2 sweep levels per V-cycle: bf16 legs {bf_cycle} ms, f32 "
+          f"legs {res['fused_jacobi_sweeps']['cycle_ms']} ms", flush=True)
+
+    # K7 on MESH_D slabs
+    key = "jacobi_halo_sweep+bf16"
+    es, rs = split_x(e, mesh), split_x(r, mesh)
+    for fz in (False, True):
+        split = gather_x(overlap_jacobi_sweeps(es, rs, 0.8, 1, fz))
+        same = bool(torch.equal(split, hk.fused_jacobi_sweeps(e, r, 0.8, 1,
+                                                              fz)))
+        print(f"phase 2 {key} {size}^2 on {MESH_D} slabs from_zero={fz} vs "
+              f"fused_jacobi_sweeps+bf16 (n=1): bit for bit {same}",
+              flush=True)
+        check(same, f"{key}: the split bf16 sweep differs from the chain's")
+    aux = exchange_x(es, 1)
+    err = 0.0
+    for d in range(MESH_D):
+        a = (es.parts[d], rs.parts[d], aux[d], 0.8, *walls[d])
+        err = max(err, bf16_close(f"{key} shard {d}",
+                                  hk.jacobi_halo_sweep(*a),
+                                  hk.jacobi_halo_sweep_bf16_plain(*a)))
+
+    def k7(sweep):
+        for d in range(MESH_D):
+            sweep(es.parts[d], rs.parts[d], aux[d], 0.8, *walls[d])
+    ms = cuda_ms(lambda: k7(hk.jacobi_halo_sweep), 20)
+    pms = cuda_ms(lambda: k7(hk.jacobi_halo_sweep_bf16_plain), 2)
+    b = bound(sweep_bytes(cells, False, 2) + 2.0 * 2 * size * MESH_D,
+              OPS_SWEEP_CELL * cells)
+    res[key].update(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0],
+                    bound_by=b[1], library_ms=None)
+    print(f"phase 2 {key} [{size},{size // MESH_D}] x{MESH_D}, one sweep: "
+          f"kernel_ms {ms} (f32 form {res['jacobi_halo_sweep']['ms']}) "
+          f"twin_ms {pms} bound_ms {b[0]} ({b[1]})", flush=True)
+    del e, r, es, rs, aux
+    torch.cuda.empty_cache()
 
 
 def phase_halo_kernels(dev, res, size: int = 8192) -> None:
@@ -591,7 +915,7 @@ def phase_halo_kernels(dev, res, size: int = 8192) -> None:
     walls = [(d == 0, d == MESH_D - 1) for d in range(MESH_D)]
     g = bench_grid(size, size, dev)
     cells = g.ny * g.nx
-    v = bench_state(g).vel[None].contiguous()
+    v = bench_start(g).vel[None].contiguous()
     dt = torch.tensor([0.5], device=dev) * g.h
     ih2 = 1.0 / (g.h * g.h)
 
@@ -733,14 +1057,14 @@ def phase_halo_kernels(dev, res, size: int = 8192) -> None:
     torch.cuda.empty_cache()
 
 
-def run_sharded(dev, pois: str, steps: int = 3, size: int = 8192) -> dict:
-    """Phase 7 under one solver: the split run (counts from 0), then the
-    solo run from the same state, ``steps`` timed production steps after
-    a warm-up. Checks the launches; returns both runs' numbers and their
-    velocity difference."""
+def run_sharded(dev, pois: str, steps: int = 3, size: int = 8192,
+                prec: str = "f32") -> dict:
+    """Phase 7 (phase 9 under ``prec`` bf16) under one solver: the split
+    run (counts from 0), then the solo run from the same state, ``steps``
+    timed production steps after a warm-up. Checks the launches; returns
+    both runs' numbers and their velocity difference."""
     cfg, level = bench_cfg(size, size)
-    os.environ["CUP2D_POIS"] = pois
-    try:
+    with latched(pois, prec):
         sims = {"sharded": lambda: ShardedUniformSim(
                     cfg, make_mesh(devices=[dev] * MESH_D), level=level),
                 "solo": lambda: UniformSim(cfg, level=level, device=dev)}
@@ -748,9 +1072,9 @@ def run_sharded(dev, pois: str, steps: int = 3, size: int = 8192) -> dict:
         for label, make in sims.items():
             sim = make()
             if label == "sharded":
-                sim.set_state(bench_state(sim.grid))
+                sim.set_state(bench_start(sim.grid))
             else:
-                sim.state = bench_state(sim.grid)
+                sim.state = bench_start(sim.grid)
             sim.step_count = 10          # production solves
             dt = 0.5 * sim.grid.h
             sync(dev)
@@ -772,14 +1096,15 @@ def run_sharded(dev, pois: str, steps: int = 3, size: int = 8192) -> dict:
                 "launches": dict(hk.launches)}
             v = sim.state.vel
             vel[label] = gather_x(v) if label == "sharded" else v
+            out[label]["tier"] = sim.kernel_tier
             del sim, v
             torch.cuda.empty_cache()
-    finally:
-        os.environ.pop("CUP2D_POIS", None)
     a, b = vel["sharded"], vel["solo"]
     rel = float((a - b).abs().max() / b.abs().max())
     out["vel_rel_linf"] = rel
-    print(f"phase 7 sharded main path {size}^2 D={MESH_D} "
+    out["bit_equal"] = bool(torch.equal(a, b))
+    phase = "phase 7" if prec == "f32" else f"phase 9 {prec}"
+    print(f"{phase} sharded main path {size}^2 D={MESH_D} "
           f"{json.dumps(out)}", flush=True)
     sh, so = out["sharded"], out["solo"]
     nsteps = steps + 1
@@ -792,6 +1117,12 @@ def run_sharded(dev, pois: str, steps: int = 3, size: int = 8192) -> dict:
     for k in ("fused_advect_heun", "fused_correction",
               "fused_jacobi_sweeps"):
         check(la[k] == 0, f"sharded: a solo kernel launched ({k}: {la})")
+    bf16 = prec == "bf16"
+    check(la["advect_substage_halo+bf16"]
+          == (la["advect_substage_halo"] if bf16 else 0)
+          and la["jacobi_halo_sweep+bf16"]
+          == (la["jacobi_halo_sweep"] if bf16 else 0),
+          f"sharded {prec}: bf16 form launches {la}")
     return out
 
 
@@ -812,13 +1143,13 @@ def phase_sharded(dev, size: int = 8192) -> list:
     return runs
 
 
-def run_main_path(dev, pois: str) -> dict:
-    os.environ["CUP2D_POIS"] = pois
-    try:
+def run_main_path(dev, pois: str, prec: str = "f32") -> dict:
+    """Phase 3 (phase 9 under ``prec`` bf16) under one solver: a warm-up
+    and five timed steps of the 8192^2 benchmark state, the launches
+    counted over the six."""
+    with latched(pois, prec):
         g = bench_grid(8192, 8192, dev)
-    finally:
-        os.environ.pop("CUP2D_POIS", None)
-    state = bench_state(g)
+    state = bench_start(g)
     dt = torch.tensor(0.5 * g.h, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -835,12 +1166,15 @@ def run_main_path(dev, pois: str) -> dict:
     delta = {k: hk.launches[k] - before[k] for k in hk.launches}
     finite = bool(torch.isfinite(state.vel).all()
                   and torch.isfinite(state.pres).all())
-    out = {"mode": g.poisson_mode, "ms_per_step": ms,
+    out = {"mode": g.poisson_mode, "tier": g.kernel_tier,
+           "prec": g.prec_mode, "smoother": g.smoother_tier,
+           "ms_per_step": ms,
            "iters_per_step": sum(iters) / len(iters), "iters": iters,
            "umax": float(diag["umax"]), "energy": float(diag["energy"]),
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "launches": delta}
-    print(f"phase 3 main path 8192^2 {json.dumps(out)}", flush=True)
+    phase = "phase 3" if prec == "f32" else f"phase 9 {prec}"
+    print(f"{phase} main path 8192^2 {json.dumps(out)}", flush=True)
     check(finite, f"{g.poisson_mode}: non-finite state")
     steps = 6
     check(delta["fused_advect_heun"] == 2 * steps,
@@ -852,8 +1186,14 @@ def run_main_path(dev, pois: str) -> dict:
               "fas: the smoother kernel never ran")
     else:
         check(delta["fused_jacobi_sweeps"] == 0,
-              "bicgstab: the bf16 preconditioner must not launch the f32 "
+              "bicgstab: the bf16 preconditioner must not launch the "
               "smoother kernel")
+    bf16 = prec == "bf16"
+    check(delta["fused_advect_heun+bf16"]
+          == (delta["fused_advect_heun"] if bf16 else 0)
+          and delta["fused_jacobi_sweeps+bf16"]
+          == (delta["fused_jacobi_sweeps"] if bf16 else 0),
+          f"{g.poisson_mode} {prec}: bf16 form launches {delta}")
     return out
 
 
@@ -863,7 +1203,7 @@ def phase_trajectory(dev):
     sims = {}
     for d in (dev, "cpu"):
         s = UniformSim(cfg, level=5, device=d)
-        s.state = bench_state(s.grid)
+        s.state = bench_start(s.grid)
         sims[str(d)] = (s, [s.step_once()["poisson_iters"]
                             for _ in range(5)])
     (sg, ig), (sc, ic) = sims[str(dev)], sims["cpu"]
@@ -1021,7 +1361,7 @@ def walled_sim(kind: str, dev, level: int):
     velocity, or the parabolic channel table from u = u_in."""
     if kind == "cavity":
         sim = cases.make_sim("cavity", level=level, device=dev)
-        sim.state = bench_state(sim.grid)
+        sim.state = bench_start(sim.grid)
         return sim
     sim = UniformSim(SimConfig(**CHANNEL_CFG), level=level, device=dev,
                      bc=cases.channel_table(0.2, profile="parabolic"))
@@ -1032,14 +1372,12 @@ def walled_sim(kind: str, dev, level: int):
 
 
 def run_walled(dev, kind: str, pois: str, level: int,
-               steps: int = 5) -> dict:
-    """Phase 8 under one solver: production steps at the CFL dt (a warm-up
-    and ``steps`` timed), the launch counts from 0."""
-    os.environ["CUP2D_POIS"] = pois
-    try:
+               steps: int = 5, prec: str = "f32") -> dict:
+    """Phase 8 (phase 9 under ``prec`` bf16) under one solver: production
+    steps at the CFL dt (a warm-up and ``steps`` timed), the launch counts
+    from 0."""
+    with latched(pois, prec):
         sim = walled_sim(kind, dev, level)
-    finally:
-        os.environ.pop("CUP2D_POIS", None)
     sim.step_count = 10              # production solves
     sync(dev)
     torch.cuda.reset_peak_memory_stats()
@@ -1060,7 +1398,8 @@ def run_walled(dev, kind: str, pois: str, level: int,
            "finite": bool(d["finite"]),
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "launches": la}
-    print(f"phase 8 {kind} {json.dumps(out)}", flush=True)
+    phase = "phase 8" if prec == "f32" else f"phase 9 {prec}"
+    print(f"{phase} {kind} {json.dumps(out)}", flush=True)
     n = steps + 1
     label = f"{kind} {pois or 'default'}"
     check(out["finite"], f"{label}: non-finite state")
@@ -1073,6 +1412,10 @@ def run_walled(dev, kind: str, pois: str, level: int,
           and la.get("fused_jacobi_sweeps", 0)
           == la.get("fused_jacobi_sweeps+bc", 0),
           f"{label}: sweep-chain launches {la}")
+    bf16 = prec == "bf16"
+    for k in ("fused_advect_heun+bc", "fused_jacobi_sweeps+bc"):
+        check(la.get(k + "+bf16", 0) == (la.get(k, 0) if bf16 else 0),
+              f"{label} {prec}: bf16 form launches {la}")
     del sim
     torch.cuda.empty_cache()
     return out
@@ -1123,6 +1466,69 @@ def phase_walled(dev) -> tuple[list, dict]:
     return runs, total
 
 
+def phase_bf16_trajectory(dev, pois: str, steps: int = 5) -> None:
+    """Phase 9, continued: 256^2 from the benchmark velocity under
+    CUP2D_PREC=bf16 on the card and on the CPU (the twins), ``steps``
+    ``step_once`` steps each, within BF16_BAND relative (a bf16 rounding
+    on the other side of a midpoint on one device moves an ulp of bf16);
+    and the card's bf16 run against its f32 run, in (0, BF16_BAND]."""
+    cfg = SimConfig(bpdx=1, bpdy=1, level_max=1, level_start=0,
+                    extent=1.0, nu=4e-5, cfl=0.5, dtype="float32")
+    vel, iters = {}, {}
+    for label, d, prec in (("card", dev, "bf16"), ("cpu", "cpu", "bf16"),
+                           ("card f32", dev, "f32")):
+        with latched(pois, prec):
+            sim = UniformSim(cfg, level=5, device=d)
+        sim.state = bench_start(sim.grid)
+        iters[label] = [sim.step_once()["poisson_iters"]
+                        for _ in range(steps)]
+        vel[label] = sim.state.vel.cpu()
+    a, b, c = vel["card"], vel["cpu"], vel["card f32"]
+    rel = float((a - b).abs().max() / b.abs().max())
+    moved = float((a - c).abs().max() / c.abs().max())
+    print(f"phase 9 bf16 trajectory 256^2 x{steps} {pois or 'default'}: "
+          f"card iters {iters['card']} cpu iters {iters['cpu']} card f32 "
+          f"iters {iters['card f32']}; card vs CPU rel {rel}; card bf16 vs "
+          f"card f32 rel {moved}", flush=True)
+    check(bool(torch.isfinite(a).all()), "bf16 trajectory: non-finite")
+    check(rel <= BF16_BAND, f"bf16 trajectory: card vs CPU {rel} > "
+          f"{BF16_BAND}")
+    check(0.0 < moved <= BF16_BAND, f"bf16 trajectory: bf16 vs f32 "
+          f"{moved} not in (0, {BF16_BAND}]")
+
+
+def phase_bf16(dev) -> tuple[dict, dict]:
+    """Phase 9: the bf16 main path. The 8192^2 step under both solvers
+    (phase 3's runs with CUP2D_PREC=bf16), the split step on MESH_D slabs
+    of the card under both (bit for bit the solo bf16 step, equal
+    iterations), the cavity under fas (the boundary-table bf16 forms), and
+    the 256^2 bf16 step on the card against the CPU and against f32.
+    Returns the runs and the bf16 forms' launches summed over the
+    main-path runs."""
+    runs = {"uniform": [run_main_path(dev, p, "bf16") for p in ("", "fas")]}
+    runs["sharded"] = [run_sharded(dev, p, prec="bf16")
+                       for p in ("", "fas")]
+    for r, p in zip(runs["sharded"], ("default", "fas")):
+        check(r["sharded"]["iters"] == r["solo"]["iters"] and r["bit_equal"],
+              f"phase 9 sharded {p}: split iters {r['sharded']['iters']} vs "
+              f"solo {r['solo']['iters']}, bit-equal {r['bit_equal']}")
+    runs["walled"] = [run_walled(dev, "cavity", "fas", 10, steps=2,
+                                 prec="bf16")]
+    for p in ("", "fas"):
+        phase_bf16_trajectory(dev, p)
+    total = {k: 0 for k in BF16_KEYS}
+    for r in runs["uniform"]:
+        for k in total:
+            total[k] += r["launches"][k]
+    for r in runs["sharded"]:
+        for k in total:
+            total[k] += r["sharded"]["launches"][k]
+    for r in runs["walled"]:
+        for k in total:
+            total[k] += r["launches"].get(k, 0)
+    return runs, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1136,13 +1542,21 @@ def main() -> int:
     print(f"phase 1 build {secs} s; card {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     for stem, log in logs.items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"phase 1 ptxas {stem}: {line.strip()}", flush=True)
+            if "Function properties for" in line:
+                fn = line.split("Function properties for", 1)[1].strip()
+            elif "registers" in line or "spill" in line:
+                print(f"phase 1 ptxas {stem} {fn}: {line.strip()}",
+                      flush=True)
 
     res = phase_kernels(dev)
     phase_halo_kernels(dev, res)
     phase_bc_kernels(dev, res)
+    t0 = time.perf_counter()
+    phase_bf16_kernels(dev, res)
+    print(f"phase 2 bf16 forms took {time.perf_counter() - t0} s",
+          flush=True)
 
     uniform = ("fused_advect_heun", "fused_correction",
                "fused_jacobi_sweeps")
@@ -1173,6 +1587,13 @@ def main() -> int:
     for k, n in walled_launches.items():
         check(n > 0, f"{k}: launched no time on the wall-bounded path")
     launches.update(walled_launches)
+
+    t0 = time.perf_counter()
+    bf16_runs, bf16_launches = phase_bf16(dev)
+    print(f"phase 9 took {time.perf_counter() - t0} s", flush=True)
+    for k, n in bf16_launches.items():
+        check(n > 0, f"{k}: launched no time on the bf16 main path")
+    launches.update(bf16_launches)
     check("jax" not in sys.modules, "the smoke imported jax")
 
     kernels = [dict(name=k, route="cuda", source=hk.SOURCES[hk.kernel_of(k)],
@@ -1188,6 +1609,7 @@ def main() -> int:
     print(f"forest main path summary: {json.dumps(forest_runs)}")
     print(f"sharded main path summary: {json.dumps(sharded)}")
     print(f"wall-bounded main path summary: {json.dumps(walled)}")
+    print(f"bf16 main path summary: {json.dumps(bf16_runs)}")
     print(f"total {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

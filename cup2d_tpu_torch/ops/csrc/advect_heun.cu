@@ -6,16 +6,21 @@
 // (the first substage).
 //
 // Replaces: cup2d_tpu/ops/pallas_kernels.py _substage_kernel (reached from
-// fused_advect_heun through _fused_substage), f32 storage: the free-slip
-// table (cup2d_advect_substage) and any other non-periodic boundary table
+// fused_advect_heun through _fused_substage): the free-slip table
+// (cup2d_advect_substage) and any other non-periodic boundary table
 // (cup2d_advect_substage_bc, the kernel's BC branch: _bc_ghost, _bc_uw_y,
-// _bc_uw_x).
+// _bc_uw_x), f32 storage; and both in bf16 storage, fused_advect_heun(
+// bf16=True) (cup2d_advect_substage_bf16, cup2d_advect_substage_bc_bf16):
+// v and vold bf16, f32 arithmetic, out bf16 (substage 1) or f32
+// (substage 2), facs f32.
 //
 // Bound on this card: the arithmetic of the WENO reconstructions, about
 // 2 per cell and component once each face is reconstructed once (193
 // operations per cell and component on the benchmark state) against 16
 // (first substage) or 24 (second) bytes per cell: about as long as the
-// bytes take at the H100's 67 TFLOP/s and 3.35 TB/s.
+// bytes take at the H100's 67 TFLOP/s and 3.35 TB/s. In bf16 storage the
+// bytes fall to 8 and 16 per cell and the arithmetic stays: operations
+// bound the pair.
 //
 // Design: the TPU kernel streams row strips through a 4-slot VMEM ring that
 // carries halo rows from one sequential grid step to the next. CUDA blocks
@@ -52,7 +57,34 @@ extern "C" int cup2d_advect_substage_bc(const float* v, const float* vold,
                                         substage::Faces faces, int vec,
                                         int grid, void* stream) {
     if (ny < 2 || nx < 2) return (int)cudaErrorInvalidValue;
-    return substage::launch_form<true>(v, vold, nullptr, out, facs, L, ny,
-                                       nx, cfac, ih2, 1, 1, faces, h, vec,
-                                       grid, stream);
+    return substage::launch_form<true, float, float>(
+        v, vold, nullptr, out, facs, L, ny, nx, cfac, ih2, 1, 1, faces, h,
+        vec, grid, stream);
+}
+
+// The bf16 forms: v, vold bf16 ([L, 2, ny, nx]), out bf16 where out_bf16
+// (the first substage) else f32, facs f32 as above; vec 4 for 8-byte
+// copies (nx a multiple of 4, v 8-byte aligned), 1 for 2-byte loads.
+extern "C" int cup2d_advect_substage_bf16(const void* v, const void* vold,
+                                          void* out, const float* facs,
+                                          int L, int ny, int nx, float cfac,
+                                          float ih2, int out_bf16, int vec,
+                                          int grid, void* stream) {
+    return substage::launch_bf16<false>(v, vold, nullptr, out, facs, L, ny,
+                                        nx, cfac, ih2, 1, 1,
+                                        substage::Faces{}, 0.0f, out_bf16,
+                                        vec, grid, stream);
+}
+
+extern "C" int cup2d_advect_substage_bc_bf16(const void* v, const void* vold,
+                                             void* out, const float* facs,
+                                             int L, int ny, int nx,
+                                             float cfac, float ih2, float h,
+                                             substage::Faces faces,
+                                             int out_bf16, int vec, int grid,
+                                             void* stream) {
+    if (ny < 2 || nx < 2) return (int)cudaErrorInvalidValue;
+    return substage::launch_bf16<true>(v, vold, nullptr, out, facs, L, ny,
+                                       nx, cfac, ih2, 1, 1, faces, h,
+                                       out_bf16, vec, grid, stream);
 }

@@ -11,7 +11,10 @@
 // nullptr means vold = v (the first substage).
 //
 // Replaces: cup2d_tpu/ops/pallas_kernels.py _sharded_substage_kernel
-// (reached from _fused_substage_sharded), free-slip table, f32 storage.
+// (reached from _fused_substage_sharded), free-slip table, f32 storage
+// (cup2d_advect_substage_halo) and bf16 storage (cup2d_advect_substage_
+// halo_bf16: v, vold and aux bf16, the halo exchanged in the storage
+// dtype; out bf16 on the first substage, f32 on the second).
 //
 // Bound on this card: as for advect_heun.cu, about 2 reconstructions per
 // cell and component against 16 or 24 bytes per cell (the 6-column aux
@@ -38,4 +41,17 @@ extern "C" int cup2d_advect_substage_halo(const float* v, const float* vold,
                                           int grid, void* stream) {
     return substage::launch(v, vold, aux, out, facs, L, ny, nxl, cfac, ih2,
                             is_lo, is_hi, vec, grid, stream);
+}
+
+// The bf16 form: v, vold, aux bf16; out bf16 where out_bf16, else f32; vec
+// as for cup2d_advect_substage_bf16, of the slab's shape
+extern "C" int cup2d_advect_substage_halo_bf16(
+        const void* v, const void* vold, const void* aux, void* out,
+        const float* facs, int L, int ny, int nxl, float cfac, float ih2,
+        int is_lo, int is_hi, int out_bf16, int vec, int grid,
+        void* stream) {
+    return substage::launch_bf16<false>(v, vold, aux, out, facs, L, ny, nxl,
+                                        cfac, ih2, is_lo, is_hi,
+                                        substage::Faces{}, 0.0f, out_bf16,
+                                        vec, grid, stream);
 }

@@ -5,16 +5,18 @@
 // boundary table's pressure sign of the face there, -1 at a Dirichlet
 // outflow face, also in lap's wall term). from_zero makes the first sweep
 // e = omega * r / d and ignores e (which may then be null).
-// e, r, out [L, ny, nx] f32.
+// e, r, out [L, ny, nx] f32, or all bf16 (the bf16 forms).
 //
 // Replaces: cup2d_tpu/ops/pallas_kernels.py _jacobi_strips_kernel (reached
 // from fused_jacobi_sweeps), f32 storage: all-Neumann edge signs
 // (cup2d_jacobi_sweeps) and a table's edge signs (cup2d_jacobi_sweeps_signed,
-// a template instance of its own, so the Neumann instances are unchanged).
+// a template instance of its own, so the Neumann instances are unchanged);
+// and bf16 storage, the FAS solver's bf16 legs (cup2d_jacobi_sweeps_bf16,
+// cup2d_jacobi_sweeps_signed_bf16).
 //
 // Bound on this card: memory. n sweeps read e and r once and write the
-// result once, 12 bytes per cell (8 from zero), for 9 operations per cell
-// and sweep.
+// result once, 12 bytes per cell (8 from zero; 6 and 4 in bf16), for 9
+// operations per cell and sweep.
 //
 // Design: the TPU kernel time-skews the sweeps over row strips that run in
 // sequence (sweep k trails sweep k-1 by one strip in a VMEM ring). CUDA
@@ -52,11 +54,29 @@
 // (MultigridPreconditioner._smooth) and jacobi_halo.cu's, operand for
 // operand: lap = xp + xm + yp + ym + cur * corr, then
 // cur + omega * (rv - lap) * inv_d with inv_d = 1 / corr.
+// bf16 storage (the storage type ST a template parameter; the f32
+// instances are the kernel above): the tile, the sweep buffer and the
+// output hold bf16, every sweep computes in f32 from widened operands and
+// rounds its result to bf16 where it stores it, in shared memory as in
+// device memory. So every sweep is rounded once, as the TPU kernel's bf16
+// rings round it, and a chain gives the same result however it is cut
+// into launches: the bf16 forms are built for 1, 2 and 6 sweeps only
+// (12 instances, not 48), and the wrapper cuts a chain into those. Copies
+// are 8-byte cp.async (four values) where rows are whole 8-byte words,
+// else 2-byte loads; the copy width is a launch argument of a bf16
+// instance, not a template parameter. Shared memory halves: 84-97 KB for
+// the big tile, 6-9 KB for the small one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "storage.cuh"
+
 namespace {
+
+using storage::bf16;
+using storage::narrow;
+using storage::widen;
 
 // per-face edge signs (x_lo, x_hi, y_lo, y_hi)
 struct Signs {
@@ -80,12 +100,10 @@ struct Geo {
     static constexpr int TY = TY_;
     static constexpr int GROUPS = GROUPS_;          // row groups
     static constexpr int THREADS = W * GROUPS;      // a thread per column
-    static constexpr int HX = (NSW + 3) / 4 * 4;    // x halo, 16-byte steps
+    static constexpr int HX = (NSW + 3) / 4 * 4;    // x halo, 4-cell steps
     static constexpr int TX = W - 2 * HX;           // columns out
     static constexpr int H = TY + 2 * NSW;
     static constexpr int CELLS = W * H;
-    // two stages of (e, r) and the sweep buffer
-    static constexpr size_t SMEM = sizeof(float) * 5 * CELLS;
 };
 
 template <int VEC>
@@ -135,21 +153,45 @@ __device__ __forceinline__ Tile tile_at(int t, int ny, int nx) {
     return T;
 }
 
-// Issue the copies of one tile's e (unless from_zero) and r into a stage.
-template <class G, int VEC>
-__device__ __forceinline__ void load_tile(float* es, float* rs,
-                                          const float* e, const float* r,
-                                          const Tile& T, int ny, int nx,
-                                          int from_zero) {
-    constexpr int CW = G::W / VEC;   // copies per shared row
-    for (int q = threadIdx.x; q < G::H * CW; q += G::THREADS) {
-        const int j = q / CW, i = (q % CW) * VEC;
-        const int gy = T.oy + j, gx = T.ox + i;
-        const bool in = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
-        const size_t g = T.base + (in ? (size_t)gy * nx + gx : 0);
-        const int k = j * G::W + i;
-        cp_zfill<VEC>(rs + k, r + g, in);
-        if (!from_zero) cp_zfill<VEC>(es + k, e + g, in);
+// Issue the copies of one tile's e (unless from_zero) and r into a stage:
+// f32 by VEC, bf16 (VEC 0) by vec (4: 8-byte cp.async, 1: 2-byte loads).
+template <class G, int VEC, class ST>
+__device__ __forceinline__ void load_tile(ST* es, ST* rs, const ST* e,
+                                          const ST* r, const Tile& T,
+                                          int ny, int nx, int from_zero,
+                                          int vec) {
+    if constexpr (storage::is_f32<ST>) {
+        constexpr int CW = G::W / VEC;   // copies per shared row
+        for (int q = threadIdx.x; q < G::H * CW; q += G::THREADS) {
+            const int j = q / CW, i = (q % CW) * VEC;
+            const int gy = T.oy + j, gx = T.ox + i;
+            const bool in = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
+            const size_t g = T.base + (in ? (size_t)gy * nx + gx : 0);
+            const int k = j * G::W + i;
+            cp_zfill<VEC>(rs + k, r + g, in);
+            if (!from_zero) cp_zfill<VEC>(es + k, e + g, in);
+        }
+    } else if (vec == 4) {
+        constexpr int CW = G::W / 4;
+        for (int q = threadIdx.x; q < G::H * CW; q += G::THREADS) {
+            const int j = q / CW, i = (q % CW) * 4;
+            const int gy = T.oy + j, gx = T.ox + i;
+            const bool in = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
+            const size_t g = T.base + (in ? (size_t)gy * nx + gx : 0);
+            const int k = j * G::W + i;
+            storage::cp_async8(rs + k, r + g, in);
+            if (!from_zero) storage::cp_async8(es + k, e + g, in);
+        }
+    } else {
+        const ST zero = narrow<ST>(0.0f);
+        for (int q = threadIdx.x; q < G::H * G::W; q += G::THREADS) {
+            const int j = q / G::W, i = q % G::W;
+            const int gy = T.oy + j, gx = T.ox + i;
+            const bool in = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
+            const size_t g = T.base + (in ? (size_t)gy * nx + gx : 0);
+            rs[q] = in ? r[g] : zero;
+            if (!from_zero) es[q] = in ? e[g] : zero;
+        }
     }
 }
 
@@ -158,10 +200,10 @@ __device__ __forceinline__ void load_tile(float* es, float* rs,
 // from the shared tile's edge in y, S + HX - N in x). Thread (g, i) owns
 // column i over row group g and rolls the column through registers.
 // EDGE: the tile reaches the domain's edge, so every cell is tested.
-template <class G, int S, bool EDGE, bool SIGNED>
-__device__ __forceinline__ void sweep(const float* __restrict__ src,
-                                      float* __restrict__ dst,
-                                      const float* __restrict__ rs,
+template <class G, int S, bool EDGE, bool SIGNED, class ST>
+__device__ __forceinline__ void sweep(const ST* __restrict__ src,
+                                      ST* __restrict__ dst,
+                                      const ST* __restrict__ rs,
                                       const Tile& T,
                                       int ny, int nx, float omega,
                                       int from_zero, const Signs& sg) {
@@ -176,36 +218,36 @@ __device__ __forceinline__ void sweep(const float* __restrict__ src,
     if (S == 1 && from_zero) {
         for (int j = j0; j < j1; ++j) {
             const int idx = j * G::W + i;
-            float rv = rs[idx];
+            float rv = widen(rs[idx]);
             if (!EDGE) {
-                dst[idx] = omega * rv * -0.25f;
+                dst[idx] = narrow<ST>(omega * rv * -0.25f);
                 continue;
             }
             const int gy = T.oy + j;
             if (!xin || gy < 0 || gy >= ny) {
-                dst[idx] = 0.0f;
+                dst[idx] = narrow<ST>(0.0f);
                 continue;
             }
             float eyv = edge<SIGNED>(gy, ny, sg.y_lo, sg.y_hi);
             float corr = (eyv + exv) - 4.0f;
             float inv_d = 1.0f / corr;
-            dst[idx] = omega * rv * inv_d;
+            dst[idx] = narrow<ST>(omega * rv * inv_d);
         }
         return;
     }
-    float ym = src[(j0 - 1) * G::W + i];
-    float cur = src[j0 * G::W + i];
+    float ym = widen(src[(j0 - 1) * G::W + i]);
+    float cur = widen(src[j0 * G::W + i]);
     for (int j = j0; j < j1; ++j) {
         const int idx = j * G::W + i;
-        const float yp = src[idx + G::W];
-        const float xp = src[idx + 1];
-        const float xm = src[idx - 1];
-        const float rv = rs[idx];
+        const float yp = widen(src[idx + G::W]);
+        const float xp = widen(src[idx + 1]);
+        const float xm = widen(src[idx - 1]);
+        const float rv = widen(rs[idx]);
         float corr = -4.0f, inv_d = -0.25f;     // 1 / -4, exact
         if (EDGE) {
             const int gy = T.oy + j;
             if (!xin || gy < 0 || gy >= ny) {
-                dst[idx] = 0.0f;
+                dst[idx] = narrow<ST>(0.0f);
                 ym = cur;
                 cur = yp;
                 continue;
@@ -215,15 +257,15 @@ __device__ __forceinline__ void sweep(const float* __restrict__ src,
             inv_d = 1.0f / corr;
         }
         float lap = xp + xm + yp + ym + cur * corr;
-        dst[idx] = cur + omega * (rv - lap) * inv_d;
+        dst[idx] = narrow<ST>(cur + omega * (rv - lap) * inv_d);
         ym = cur;
         cur = yp;
     }
 }
 
 // Sweeps S..N, alternating between the two buffers.
-template <class G, int S, bool EDGE, bool SIGNED>
-__device__ __forceinline__ void sweeps(float* a, float* b, const float* rs,
+template <class G, int S, bool EDGE, bool SIGNED, class ST>
+__device__ __forceinline__ void sweeps(ST* a, ST* b, const ST* rs,
                                        const Tile& T, int ny, int nx,
                                        float omega, int from_zero,
                                        const Signs& sg) {
@@ -235,29 +277,33 @@ __device__ __forceinline__ void sweeps(float* a, float* b, const float* rs,
     }
 }
 
-template <class G, int VEC, bool SIGNED>
+// ST: the storage type of e, r, out and the tile. An f32 instance copies
+// by VEC (4: 16 bytes, 1: 4 bytes); a bf16 one (VEC 0) by vec (4: 8 bytes,
+// 1: 2 bytes).
+template <class G, int VEC, bool SIGNED, class ST>
 __global__ void __launch_bounds__(G::THREADS)
-jacobi_kernel(const float* __restrict__ e, const float* __restrict__ r,
-              float* __restrict__ out, int L, int ny, int nx, float omega,
-              int from_zero, Signs sg) {
+jacobi_kernel(const ST* __restrict__ e, const ST* __restrict__ r,
+              ST* __restrict__ out, int L, int ny, int nx, float omega,
+              int from_zero, Signs sg, int vec) {
     extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-    float* buf = smem + 4 * G::CELLS;      // the sweep buffer
+    ST* smem = reinterpret_cast<ST*>(smem4);
+    ST* buf = smem + 4 * G::CELLS;         // the sweep buffer
     const int tiles = L * ((ny + G::TY - 1) / G::TY)
                         * ((nx + G::TX - 1) / G::TX);
     int t = blockIdx.x;
     if (t >= tiles) return;
     Tile T = tile_at<G>(t, ny, nx);
-    load_tile<G, VEC>(smem, smem + G::CELLS, e, r, T, ny, nx, from_zero);
+    load_tile<G, VEC>(smem, smem + G::CELLS, e, r, T, ny, nx, from_zero,
+                      vec);
     cp_commit();
     for (int s = 0; t < tiles; t += gridDim.x, s ^= 1) {
-        float* es = smem + s * 2 * G::CELLS;
-        const float* rs = es + G::CELLS;
+        ST* es = smem + s * 2 * G::CELLS;
+        const ST* rs = es + G::CELLS;
         const int nt = t + gridDim.x;
         if (nt < tiles) {
-            float* ns = smem + (s ^ 1) * 2 * G::CELLS;
+            ST* ns = smem + (s ^ 1) * 2 * G::CELLS;
             load_tile<G, VEC>(ns, ns + G::CELLS, e, r, tile_at<G>(nt, ny, nx),
-                              ny, nx, from_zero);
+                              ny, nx, from_zero, vec);
         }
         cp_commit();
         cp_wait1();
@@ -269,19 +315,36 @@ jacobi_kernel(const float* __restrict__ e, const float* __restrict__ r,
         else
             sweeps<G, 1, true, SIGNED>(es, buf, rs, T, ny, nx, omega,
                                        from_zero, sg);
-        const float* res = (G::N % 2) ? buf : es;
-        constexpr int CX = G::TX / VEC;
-        for (int q = threadIdx.x; q < G::TY * CX; q += G::THREADS) {
-            const int j = q / CX, i = (q % CX) * VEC;
-            const int gy = T.y0 + j, gx = T.x0 + i;
-            if (gy >= ny || gx >= nx) continue;
-            const int k = (j + G::N) * G::W + i + G::HX;
-            float* o = out + T.base + (size_t)gy * nx + gx;
-            if (VEC == 4)
-                *reinterpret_cast<float4*>(o) =
-                    *reinterpret_cast<const float4*>(res + k);
-            else
-                *o = res[k];
+        const ST* res = (G::N % 2) ? buf : es;
+        if constexpr (storage::is_f32<ST>) {
+            constexpr int CX = G::TX / VEC;
+            for (int q = threadIdx.x; q < G::TY * CX; q += G::THREADS) {
+                const int j = q / CX, i = (q % CX) * VEC;
+                const int gy = T.y0 + j, gx = T.x0 + i;
+                if (gy >= ny || gx >= nx) continue;
+                const int k = (j + G::N) * G::W + i + G::HX;
+                float* o = out + T.base + (size_t)gy * nx + gx;
+                if (VEC == 4)
+                    *reinterpret_cast<float4*>(o) =
+                        *reinterpret_cast<const float4*>(res + k);
+                else
+                    *o = res[k];
+            }
+        } else {
+            const int v4 = vec == 4 ? 4 : 1;
+            const int cx = G::TX / v4;
+            for (int q = threadIdx.x; q < G::TY * cx; q += G::THREADS) {
+                const int j = q / cx, i = (q % cx) * v4;
+                const int gy = T.y0 + j, gx = T.x0 + i;
+                if (gy >= ny || gx >= nx) continue;
+                const int k = (j + G::N) * G::W + i + G::HX;
+                ST* o = out + T.base + (size_t)gy * nx + gx;
+                if (v4 == 4)
+                    *reinterpret_cast<uint2*>(o) =
+                        *reinterpret_cast<const uint2*>(res + k);
+                else
+                    *o = res[k];
+            }
         }
         __syncthreads();   // this stage is refilled by the next iteration
         if (nt < tiles) T = tile_at<G>(nt, ny, nx);
@@ -289,46 +352,60 @@ jacobi_kernel(const float* __restrict__ e, const float* __restrict__ r,
     cp_wait0();
 }
 
-using Launch = int (*)(const float*, const float*, float*, int, int, int,
-                       float, int, Signs, int, cudaStream_t);
+template <class ST>
+using Launch = int (*)(const ST*, const ST*, ST*, int, int, int, float, int,
+                       Signs, int, int, cudaStream_t);
 
-template <class G, int VEC, bool SIGNED>
-int launch(const float* e, const float* r, float* out, int L, int ny,
-           int nx, float omega, int from_zero, Signs sg, int grid,
+template <class G, int VEC, bool SIGNED, class ST>
+int launch(const ST* e, const ST* r, ST* out, int L, int ny, int nx,
+           float omega, int from_zero, Signs sg, int vec, int grid,
            cudaStream_t st) {
+    // two stages of (e, r) and the sweep buffer
+    constexpr size_t smem = sizeof(ST) * 5 * G::CELLS;
     // above 48 KB of shared memory once per device (a bit per ordinal)
     static unsigned long long opted_in = 0;
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
-    if (G::SMEM > 48 * 1024 && !(dev < 64 && (opted_in >> dev & 1))) {
+    if (smem > 48 * 1024 && !(dev < 64 && (opted_in >> dev & 1))) {
         err = cudaFuncSetAttribute(
-            jacobi_kernel<G, VEC, SIGNED>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM);
+            jacobi_kernel<G, VEC, SIGNED, ST>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
         if (dev < 64) opted_in |= 1ull << dev;
     }
-    jacobi_kernel<G, VEC, SIGNED><<<grid, G::THREADS, G::SMEM, st>>>(
-        e, r, out, L, ny, nx, omega, from_zero, sg);
+    jacobi_kernel<G, VEC, SIGNED, ST><<<grid, G::THREADS, smem, st>>>(
+        e, r, out, L, ny, nx, omega, from_zero, sg, vec);
     return (int)cudaGetLastError();
 }
 
 // 128 x 64 tiles for the fine levels, 32 x 16 for the coarse ones
-template <int NSW, int VEC, bool SIGNED>
-Launch pick(int big) {
-    return big ? launch<Geo<NSW, 128, 64, 4>, VEC, SIGNED>
-               : launch<Geo<NSW, 32, 16, 8>, VEC, SIGNED>;
+template <int NSW, int VEC, bool SIGNED, class ST>
+Launch<ST> pick(int big) {
+    return big ? launch<Geo<NSW, 128, 64, 4>, VEC, SIGNED, ST>
+               : launch<Geo<NSW, 32, 16, 8>, VEC, SIGNED, ST>;
 }
 
 template <int VEC, bool SIGNED>
-Launch pick_n(int nsw, int big) {
+Launch<float> pick_n(int nsw, int big) {
     switch (nsw) {
-        case 1: return pick<1, VEC, SIGNED>(big);
-        case 2: return pick<2, VEC, SIGNED>(big);
-        case 3: return pick<3, VEC, SIGNED>(big);
-        case 4: return pick<4, VEC, SIGNED>(big);
-        case 5: return pick<5, VEC, SIGNED>(big);
-        case 6: return pick<6, VEC, SIGNED>(big);
+        case 1: return pick<1, VEC, SIGNED, float>(big);
+        case 2: return pick<2, VEC, SIGNED, float>(big);
+        case 3: return pick<3, VEC, SIGNED, float>(big);
+        case 4: return pick<4, VEC, SIGNED, float>(big);
+        case 5: return pick<5, VEC, SIGNED, float>(big);
+        case 6: return pick<6, VEC, SIGNED, float>(big);
+        default: return nullptr;
+    }
+}
+
+// the bf16 launch sizes (hopper_kernels.BF16_CHAIN)
+template <bool SIGNED>
+Launch<bf16> pick_bf16(int nsw, int big) {
+    switch (nsw) {
+        case 1: return pick<1, 0, SIGNED, bf16>(big);
+        case 2: return pick<2, 0, SIGNED, bf16>(big);
+        case 6: return pick<6, 0, SIGNED, bf16>(big);
         default: return nullptr;
     }
 }
@@ -339,11 +416,25 @@ int sweeps_entry(const float* e, const float* r, float* out, int L, int ny,
                  int vec, int grid, Signs sg, void* stream) {
     if (L < 1 || ny < 1 || nx < 1 || grid < 1 || (vec == 4 && nx % 4))
         return (int)cudaErrorInvalidValue;
-    Launch fn = vec == 4 ? pick_n<4, SIGNED>(nsw, big)
-              : (vec == 1 ? pick_n<1, SIGNED>(nsw, big) : nullptr);
+    Launch<float> fn = vec == 4 ? pick_n<4, SIGNED>(nsw, big)
+                     : (vec == 1 ? pick_n<1, SIGNED>(nsw, big) : nullptr);
     if (fn == nullptr) return (int)cudaErrorInvalidValue;
-    return fn(e, r, out, L, ny, nx, omega, from_zero, sg, grid,
+    return fn(e, r, out, L, ny, nx, omega, from_zero, sg, vec, grid,
               (cudaStream_t)stream);
+}
+
+template <bool SIGNED>
+int sweeps_entry_bf16(const void* e, const void* r, void* out, int L,
+                      int ny, int nx, int nsw, float omega, int from_zero,
+                      int big, int vec, int grid, Signs sg, void* stream) {
+    if (L < 1 || ny < 1 || nx < 1 || grid < 1 || (vec != 4 && vec != 1)
+            || (vec == 4 && nx % 4))
+        return (int)cudaErrorInvalidValue;
+    Launch<bf16> fn = pick_bf16<SIGNED>(nsw, big);
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    return fn(static_cast<const bf16*>(e), static_cast<const bf16*>(r),
+              static_cast<bf16*>(out), L, ny, nx, omega, from_zero, sg, vec,
+              grid, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -371,4 +462,27 @@ extern "C" int cup2d_jacobi_sweeps_signed(
                               big, vec, grid,
                               Signs{es_x_lo, es_x_hi, es_y_lo, es_y_hi},
                               stream);
+}
+
+// The bf16 forms: e, r, out bf16; nsw 1, 2 or 6; vec 4 for 8-byte copies
+// (nx a multiple of 4, 8-byte aligned pointers), 1 for 2-byte loads.
+extern "C" int cup2d_jacobi_sweeps_bf16(const void* e, const void* r,
+                                        void* out, int L, int ny, int nx,
+                                        int nsw, float omega, int from_zero,
+                                        int big, int vec, int grid,
+                                        void* stream) {
+    return sweeps_entry_bf16<false>(e, r, out, L, ny, nx, nsw, omega,
+                                    from_zero, big, vec, grid,
+                                    Signs{1.0f, 1.0f, 1.0f, 1.0f}, stream);
+}
+
+extern "C" int cup2d_jacobi_sweeps_signed_bf16(
+        const void* e, const void* r, void* out, int L, int ny, int nx,
+        int nsw, float omega, int from_zero, int big, int vec, int grid,
+        float es_x_lo, float es_x_hi, float es_y_lo, float es_y_hi,
+        void* stream) {
+    return sweeps_entry_bf16<true>(e, r, out, L, ny, nx, nsw, omega,
+                                   from_zero, big, vec, grid,
+                                   Signs{es_x_lo, es_x_hi, es_y_lo, es_y_hi},
+                                   stream);
 }

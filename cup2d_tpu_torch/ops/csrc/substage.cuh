@@ -71,12 +71,27 @@
 //   is one painted line. The free-slip instance (BC = false) is the
 //   kernel above unchanged: the form is a template parameter, not a
 //   branch in the loader or the walk.
+// - Storage types (the CUP2D_PREC=bf16 tier): v, vold and aux are of one
+//   type TI, out of another, TO (substage 1 reads and writes bf16,
+//   substage 2 reads bf16 and writes the f32 state). A bf16 tile is
+//   widened to f32 when it is staged, so the painting, the walk and
+//   weno.cuh run unchanged on the values the TPU kernel upcasts; vold is
+//   widened where it is read and each result rounded once, to nearest
+//   even, where it is stored. bf16 stages arrive by 8-byte cp.async (four
+//   values; rows of whole 8-byte words) into a two-stage raw ring, or by
+//   2-byte loads where rows are ragged (aux always: its columns start off
+//   the 8-byte grid), and one pass widens a stage into the single f32
+//   stage: the same 96 KB as the f32 kernel's two f32 stages. The copy
+//   width of a bf16 instance is a launch argument, not a template
+//   parameter (half the instances to build). The f32 instances (TI = TO =
+//   float) are the kernel above.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "storage.cuh"
 #include "weno.cuh"
 
 namespace substage {
@@ -206,6 +221,64 @@ __device__ __forceinline__ void load_tile(float* st, const float* v,
         cp_async<1>(st + c * CELLS + j * W + i,
                     a + ((size_t)c * ny + gy) * 2 * G + k);
     }
+}
+
+// The bf16 loader: the copies of one tile into a raw bf16 stage (u then v,
+// H rows of W), by 8-byte cp.async where vec4 (nx a multiple of 4, v 8-byte
+// aligned), else by 2-byte loads; the aux columns always by 2-byte loads.
+// Shared column i holds global x0 - XO + i, as in load_tile.
+__device__ __forceinline__ void load_tile_bf16(
+        storage::bf16* st, const storage::bf16* v, const storage::bf16* aux,
+        const Tile& T, int ny, int nx, int is_lo, int is_hi, bool vec4) {
+    const size_t plane = (size_t)ny * nx;
+    const storage::bf16* src = v + (size_t)T.l * 2 * plane;
+    if (vec4) {
+        constexpr int CW = W / 4;
+        for (int q = threadIdx.x; q < 2 * H * CW; q += THREADS) {
+            const int row = q / CW;
+            const int c = row >= H;
+            const int j = row - c * H;
+            const int i = (q - row * CW) * 4;
+            const int gy = T.y0 - G + j, gx = T.x0 - XO + i;
+            if (gy < 0 || gy >= ny || gx < 0 || gx >= nx) continue;
+            storage::cp_async8(st + c * CELLS + j * W + i,
+                               src + c * plane + (size_t)gy * nx + gx);
+        }
+    } else {
+        for (int q = threadIdx.x; q < 2 * H * W; q += THREADS) {
+            const int row = q / W;
+            const int c = row >= H;
+            const int j = row - c * H;
+            const int i = q - row * W;
+            const int gy = T.y0 - G + j, gx = T.x0 - XO + i;
+            if (gy < 0 || gy >= ny || gx < 0 || gx >= nx) continue;
+            st[c * CELLS + j * W + i] = src[c * plane + (size_t)gy * nx + gx];
+        }
+    }
+    if (aux == nullptr) return;
+    const bool lo = T.x0 == 0 && !is_lo;
+    const bool hi = T.x0 - XO + W > nx && !is_hi;
+    if (!lo && !hi) return;
+    const storage::bf16* a = aux + (size_t)T.l * 2 * ny * 2 * G;
+    for (int q = threadIdx.x; q < 2 * H * 2 * G; q += THREADS) {
+        const int row = q / (2 * G), k = q - row * (2 * G);
+        const int c = row >= H;
+        const int j = row - c * H;
+        const int gy = T.y0 - G + j;
+        const int gx = k < G ? k - G : nx + k - G;
+        const int i = gx - T.x0 + XO;
+        if (gy < 0 || gy >= ny || !(k < G ? lo : hi) || i >= W) continue;
+        st[c * CELLS + j * W + i] = a[((size_t)c * ny + gy) * 2 * G + k];
+    }
+}
+
+// Widen a raw bf16 stage (both components) into the f32 stage.
+__device__ __forceinline__ void widen_stage(float* st,
+                                            const storage::bf16* raw) {
+    const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(raw);
+    float2* s2 = reinterpret_cast<float2*>(st);
+    for (int q = threadIdx.x; q < CELLS; q += THREADS)
+        s2[q] = __bfloat1622float2(r2[q]);
 }
 
 // True where the cells a tile's outputs read (3 rows and columns around
@@ -388,9 +461,10 @@ struct Queue {
 // Finish the queued cells: each lane reconstructs queued faces (a cell's
 // left x or lower y face, with the cell's own sign), then finishes one
 // queued cell as the row walk finishes the others. Leaves it empty.
+template <class TI, class TO>
 __device__ __forceinline__ void flush_queue(
         Queue& Q, const float* U, const float* V, int k0,
-        const float* __restrict__ vold, float* __restrict__ out, size_t ob,
+        const TI* __restrict__ vold, TO* __restrict__ out, size_t ob,
         size_t plane, int nx, float afac, float dfac, float cfac,
         float ih2) {
     const int lane = threadIdx.x & 31;
@@ -413,8 +487,9 @@ __device__ __forceinline__ void flush_queue(
         const float* f = Q.val + lane;
         const size_t o = ob + (size_t)(cell >> 5) * nx + (cell & 31);
         const float wu = U[kk], wv = V[kk];
-        const float vo0 = vold != nullptr ? vold[o] : wu;
-        const float vo1 = vold != nullptr ? vold[o + plane] : wv;
+        const float vo0 = vold != nullptr ? storage::widen(vold[o]) : wu;
+        const float vo1 = vold != nullptr ? storage::widen(vold[o + plane])
+                                          : wv;
         const float rhs0 = cup2d::advect_diffuse_rhs(
             wu, U[kk - 1], U[kk + 1], U[kk - W], U[kk + W], wu, wv,
             f[0] - f[4 * QCELLS], f[2 * QCELLS] - f[6 * QCELLS], afac, dfac);
@@ -422,8 +497,9 @@ __device__ __forceinline__ void flush_queue(
             wv, V[kk - 1], V[kk + 1], V[kk - W], V[kk + W], wu, wv,
             f[QCELLS] - f[5 * QCELLS], f[3 * QCELLS] - f[7 * QCELLS], afac,
             dfac);
-        out[o] = __fmaf_rn(cfac * rhs0, ih2, vo0);
-        out[o + plane] = __fmaf_rn(cfac * rhs1, ih2, vo1);
+        out[o] = storage::narrow<TO>(__fmaf_rn(cfac * rhs0, ih2, vo0));
+        out[o + plane] = storage::narrow<TO>(__fmaf_rn(cfac * rhs1, ih2,
+                                                       vo1));
     }
     __syncwarp();
     Q.ncell = Q.nreq = 0;
@@ -435,9 +511,10 @@ __device__ __forceinline__ void flush_queue(
 // rolled down a row at a time) and loading the row's six other x values.
 // No barrier inside: warps return early where their columns or rows lie
 // past the field.
+template <class TI, class TO>
 __device__ __forceinline__ void compute_tile(
         const float* st, float* queues, const Tile& T, int ny, int nx,
-        const float* __restrict__ vold, float* __restrict__ out,
+        const TI* __restrict__ vold, TO* __restrict__ out,
         float afac, float dfac, float cfac, float ih2) {
     constexpr unsigned FULL = 0xffffffffu;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -504,8 +581,8 @@ __device__ __forceinline__ void compute_tile(
         const size_t o = ob + (size_t)j * nx + lane;
         float vo0 = yu[G], vo1 = yv[G];
         if (vold != nullptr && xin) {
-            vo0 = vold[o];
-            vo1 = vold[o + plane];
+            vo0 = storage::widen(vold[o]);
+            vo1 = storage::widen(vold[o + plane]);
         }
         const float wu = yu[G], wv = yv[G];
         const bool px = wu > 0.0f, pyj = wv > 0.0f;
@@ -579,8 +656,9 @@ __device__ __forceinline__ void compute_tile(
             const float rhs1 = cup2d::advect_diffuse_rhs(
                 yv[G], xv[G - 1], xv[G + 1], yv[G - 1], yv[G + 1], wu, wv,
                 r1 - l1, t1 - d1, afac, dfac);
-            out[o] = __fmaf_rn(cfac * rhs0, ih2, vo0);
-            out[o + plane] = __fmaf_rn(cfac * rhs1, ih2, vo1);
+            out[o] = storage::narrow<TO>(__fmaf_rn(cfac * rhs0, ih2, vo0));
+            out[o + plane] = storage::narrow<TO>(__fmaf_rn(cfac * rhs1, ih2,
+                                                           vo1));
         }
         py = pyj;
         d0 = t0;
@@ -594,14 +672,17 @@ __device__ __forceinline__ void compute_tile(
 // Persistent CTAs over the tiles of all L members (v, vold, out
 // [L, 2, ny, nx]; facs [L, 2] = (afac, dfac), with BC [L, 3] = (afac, dfac,
 // dt); vold null: vold = v). aux null: a whole field, walled on both x
-// sides. BC: the boundary table's ghosts (faces, h; aux null only).
-template <int VEC, bool BC>
+// sides. BC: the boundary table's ghosts (faces, h; aux null only). TI:
+// the storage type of v, vold and aux; TO: that of out. An f32 instance
+// copies by VEC (4: 16 bytes, 1: 4 bytes); a bf16 one (VEC 0) by its
+// launch argument vec (4: 8 bytes, 1: 2 bytes).
+template <int VEC, bool BC, class TI, class TO>
 __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
-substage_kernel(const float* __restrict__ v, const float* __restrict__ vold,
-                const float* __restrict__ aux, float* __restrict__ out,
+substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
+                const TI* __restrict__ aux, TO* __restrict__ out,
                 const float* __restrict__ facs, int L, int ny, int nx,
                 float cfac, float ih2, int is_lo, int is_hi, Faces faces,
-                float h) {
+                float h, int vec) {
     constexpr int FS = BC ? 3 : 2;       // facs per member
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
@@ -611,42 +692,78 @@ substage_kernel(const float* __restrict__ v, const float* __restrict__ vold,
     const bool wall_lo = aux == nullptr || is_lo;
     const bool wall_hi = aux == nullptr || is_hi;
     Tile T = tile_at(t, ny, nx);
-    load_tile<VEC>(smem, v, aux, T, ny, nx, is_lo, is_hi);
-    cp_commit();
-    for (int s = 0; t < tiles; t += gridDim.x, s ^= 1) {
-        float* st = smem + s * 2 * CELLS;
-        const int nt = t + gridDim.x;
-        Tile N = T;
-        if (nt < tiles) {
-            N = tile_at(nt, ny, nx);
-            load_tile<VEC>(smem + (s ^ 1) * 2 * CELLS, v, aux, N, ny, nx,
-                           is_lo, is_hi);
-        }
+    if constexpr (storage::is_f32<TI>) {
+        load_tile<VEC>(smem, v, aux, T, ny, nx, is_lo, is_hi);
         cp_commit();
-        cp_wait1();
-        __syncthreads();
-        if (paints(T, ny, nx, wall_lo, wall_hi)) {
-            if constexpr (BC)
-                paint_ghosts_bc(st, T, ny, nx, faces, facs[FS * T.l + 2], h);
-            else
-                paint_ghosts(st, T, ny, nx, wall_lo, wall_hi);
+        for (int s = 0; t < tiles; t += gridDim.x, s ^= 1) {
+            float* st = smem + s * 2 * CELLS;
+            const int nt = t + gridDim.x;
+            Tile N = T;
+            if (nt < tiles) {
+                N = tile_at(nt, ny, nx);
+                load_tile<VEC>(smem + (s ^ 1) * 2 * CELLS, v, aux, N, ny,
+                               nx, is_lo, is_hi);
+            }
+            cp_commit();
+            cp_wait1();
+            __syncthreads();
+            if (paints(T, ny, nx, wall_lo, wall_hi)) {
+                if constexpr (BC)
+                    paint_ghosts_bc(st, T, ny, nx, faces, facs[FS * T.l + 2],
+                                    h);
+                else
+                    paint_ghosts(st, T, ny, nx, wall_lo, wall_hi);
+            }
+            compute_tile(st, smem + 2 * 2 * CELLS, T, ny, nx, vold, out,
+                         facs[FS * T.l], facs[FS * T.l + 1], cfac, ih2);
+            __syncthreads();   // this stage is refilled by the next iteration
+            T = N;
         }
-        compute_tile(st, smem + 2 * 2 * CELLS, T, ny, nx, vold, out,
-                     facs[FS * T.l], facs[FS * T.l + 1], cfac, ih2);
-        __syncthreads();   // this stage is refilled by the next iteration
-        T = N;
+        cp_wait0();
+    } else {
+        // one f32 stage, then the raw bf16 ring (the same bytes as the two
+        // f32 stages), then the queues
+        storage::bf16* raw = reinterpret_cast<storage::bf16*>(
+            smem + 2 * CELLS);
+        const bool vec4 = vec == 4;
+        load_tile_bf16(raw, v, aux, T, ny, nx, is_lo, is_hi, vec4);
+        cp_commit();
+        for (int s = 0; t < tiles; t += gridDim.x, s ^= 1) {
+            const int nt = t + gridDim.x;
+            Tile N = T;
+            if (nt < tiles) {
+                N = tile_at(nt, ny, nx);
+                load_tile_bf16(raw + (s ^ 1) * 2 * CELLS, v, aux, N, ny, nx,
+                               is_lo, is_hi, vec4);
+            }
+            cp_commit();
+            cp_wait1();
+            __syncthreads();
+            widen_stage(smem, raw + s * 2 * CELLS);
+            __syncthreads();
+            if (paints(T, ny, nx, wall_lo, wall_hi)) {
+                if constexpr (BC)
+                    paint_ghosts_bc(smem, T, ny, nx, faces,
+                                    facs[FS * T.l + 2], h);
+                else
+                    paint_ghosts(smem, T, ny, nx, wall_lo, wall_hi);
+            }
+            compute_tile(smem, smem + 2 * 2 * CELLS, T, ny, nx, vold, out,
+                         facs[FS * T.l], facs[FS * T.l + 1], cfac, ih2);
+            __syncthreads();   // the f32 stage is refilled next iteration
+            T = N;
+        }
+        cp_wait0();
     }
-    cp_wait0();
 }
 
-// Launch on a stream: vec 4 for 16-byte copies (nx a multiple of 4, v
-// 16-byte aligned), 1 for 4-byte ones; grid the persistent CTAs, 1 .. the
-// number of tiles. Returns the CUDA error code.
-template <int VEC, bool BC>
-int launch_vec(const float* v, const float* vold, const float* aux,
-               float* out, const float* facs, int L, int ny, int nx,
-               float cfac, float ih2, int is_lo, int is_hi, const Faces& fc,
-               float h, int grid, cudaStream_t st) {
+// Launch on a stream: the grid's persistent CTAs, 1 .. the number of tiles.
+// Returns the CUDA error code.
+template <int VEC, bool BC, class TI, class TO>
+int launch_vec(const TI* v, const TI* vold, const TI* aux, TO* out,
+               const float* facs, int L, int ny, int nx, float cfac,
+               float ih2, int is_lo, int is_hi, const Faces& fc, float h,
+               int vec, int grid, cudaStream_t st) {
     // above 48 KB of shared memory once per device (a bit per ordinal)
     static unsigned long long opted_in = 0;
     int dev = 0;
@@ -654,34 +771,46 @@ int launch_vec(const float* v, const float* vold, const float* aux,
     if (err != cudaSuccess) return (int)err;
     if (!(dev < 64 && (opted_in >> dev & 1))) {
         err = cudaFuncSetAttribute(
-            substage_kernel<VEC, BC>,
+            substage_kernel<VEC, BC, TI, TO>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
         if (err != cudaSuccess) return (int)err;
         if (dev < 64) opted_in |= 1ull << dev;
     }
-    substage_kernel<VEC, BC><<<grid, THREADS, SMEM, st>>>(
-        v, vold, aux, out, facs, L, ny, nx, cfac, ih2, is_lo, is_hi, fc, h);
+    substage_kernel<VEC, BC, TI, TO><<<grid, THREADS, SMEM, st>>>(
+        v, vold, aux, out, facs, L, ny, nx, cfac, ih2, is_lo, is_hi, fc, h,
+        vec);
     return (int)cudaGetLastError();
 }
 
-template <bool BC>
-int launch_form(const float* v, const float* vold, const float* aux,
-                float* out, const float* facs, int L, int ny, int nx,
-                float cfac, float ih2, int is_lo, int is_hi, const Faces& fc,
-                float h, int vec, int grid, void* stream) {
+// vec 4: 16-byte copies for f32 (nx a multiple of 4, v 16-byte aligned),
+// 8-byte ones for bf16 (nx a multiple of 4, v 8-byte aligned); vec 1:
+// 4-byte copies for f32, 2-byte loads for bf16.
+template <bool BC, class TI, class TO>
+int launch_form(const TI* v, const TI* vold, const TI* aux, TO* out,
+                const float* facs, int L, int ny, int nx, float cfac,
+                float ih2, int is_lo, int is_hi, const Faces& fc, float h,
+                int vec, int grid, void* stream) {
     if (L < 1 || ny < 1 || nx < 1 || grid < 1 || (vec == 4 && nx % 4))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    if (vec == 4)
-        return launch_vec<4, BC>(v, vold, aux, out, facs, L, ny, nx, cfac,
-                                 ih2, is_lo, is_hi, fc, h, grid, st);
-    if (vec == 1)
-        return launch_vec<1, BC>(v, vold, aux, out, facs, L, ny, nx, cfac,
-                                 ih2, is_lo, is_hi, fc, h, grid, st);
-    return (int)cudaErrorInvalidValue;
+    if constexpr (storage::is_f32<TI>) {
+        if (vec == 4)
+            return launch_vec<4, BC>(v, vold, aux, out, facs, L, ny, nx,
+                                     cfac, ih2, is_lo, is_hi, fc, h, vec,
+                                     grid, st);
+        if (vec == 1)
+            return launch_vec<1, BC>(v, vold, aux, out, facs, L, ny, nx,
+                                     cfac, ih2, is_lo, is_hi, fc, h, vec,
+                                     grid, st);
+        return (int)cudaErrorInvalidValue;
+    } else {
+        if (vec != 4 && vec != 1) return (int)cudaErrorInvalidValue;
+        return launch_vec<0, BC>(v, vold, aux, out, facs, L, ny, nx, cfac,
+                                 ih2, is_lo, is_hi, fc, h, vec, grid, st);
+    }
 }
 
-// The free-slip substage, whole (aux null) or of a slab.
+// The free-slip substage, f32, whole (aux null) or of a slab.
 int launch(const float* v, const float* vold, const float* aux,
            float* out, const float* facs, int L, int ny, int nx,
            float cfac, float ih2, int is_lo, int is_hi, int vec,
@@ -689,6 +818,26 @@ int launch(const float* v, const float* vold, const float* aux,
     return launch_form<false>(v, vold, aux, out, facs, L, ny, nx, cfac, ih2,
                               is_lo, is_hi, Faces{}, 0.0f, vec, grid,
                               stream);
+}
+
+// A bf16 substage (either form): v, vold, aux bf16; out bf16 where out_bf16
+// (the first substage) else f32 (the second).
+template <bool BC>
+int launch_bf16(const void* v, const void* vold, const void* aux, void* out,
+                const float* facs, int L, int ny, int nx, float cfac,
+                float ih2, int is_lo, int is_hi, const Faces& fc, float h,
+                int out_bf16, int vec, int grid, void* stream) {
+    using storage::bf16;
+    const bf16* vb = static_cast<const bf16*>(v);
+    const bf16* ob = static_cast<const bf16*>(vold);
+    const bf16* ab = static_cast<const bf16*>(aux);
+    if (out_bf16)
+        return launch_form<BC>(vb, ob, ab, static_cast<bf16*>(out), facs, L,
+                               ny, nx, cfac, ih2, is_lo, is_hi, fc, h, vec,
+                               grid, stream);
+    return launch_form<BC>(vb, ob, ab, static_cast<float*>(out), facs, L, ny,
+                           nx, cfac, ih2, is_lo, is_hi, fc, h, vec, grid,
+                           stream);
 }
 
 }  // namespace

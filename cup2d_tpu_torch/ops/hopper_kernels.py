@@ -14,20 +14,21 @@ wrapper                        replaces                         source
 =============================  ===============================  ===================
 ``fused_advect_heun``          ``_substage_kernel`` (both Heun  ``advect_heun.cu``
                                substages, free-slip or a
-                               table's ghosts, f32)
+                               table's ghosts, f32 or bf16)
 ``fused_correction``           ``_correct_kernel`` (Neumann or  ``correction.cu``
                                a table's signs, f32)
 ``fused_jacobi_sweeps``        ``_jacobi_strips_kernel``        ``jacobi.cu``
                                (Neumann or a table's edge
-                               signs, f32)
+                               signs, f32 or bf16)
 ``fused_lab_rhs``              ``_lab_kernel`` (forest labs,    ``lab_rhs.cu``
                                f32)
 ``fused_block_jacobi_update``  ``_block_jacobi_kernel`` (f32)   ``block_jacobi.cu``
 ``advect_substage_halo``       ``_sharded_substage_kernel``     ``advect_heun_halo.cu``
                                (one substage on an x slab,
-                               free-slip, f32)
+                               free-slip, f32 or bf16)
 ``jacobi_halo_sweep``          ``_jacobi_halo_kernel`` (one     ``jacobi_halo.cu``
-                               sweep on an x slab, f32)
+                               sweep on an x slab, f32 or
+                               bf16)
 ``advect_diffuse_rhs``         ``_adv_kernel`` (RHS over a      ``advect_rhs.cu``
                                pre-padded lab, f32)
 =============================  ===============================  ===================
@@ -43,6 +44,16 @@ kernel (``_substage_kernel``'s BC branch), ``fused_correction(grad_signs=
 ...)`` and ``fused_jacobi_sweeps(edge_signs=...)`` take the table's
 pressure signs. A periodic table has no kernel form and refuses.
 
+Four kernels also have a bf16 storage form, the ``CUP2D_PREC=bf16`` tier
+(bf16 operands, f32 arithmetic; a C entry of its own in the same source):
+``fused_advect_heun(bf16=True)`` (substage 1 reads a bf16 copy of the
+state and writes bf16, substage 2 reads that and the copy as vold and
+writes the f32 state; free-slip or a table), ``advect_substage_halo`` on
+bf16 slabs (aux in bf16), and ``fused_jacobi_sweeps`` and
+``jacobi_halo_sweep`` on bf16 fields (every sweep rounded to bf16 once).
+The dtype of the operands selects the form. Their twins widen to f32, run
+the f32 twin and round where the kernel rounds.
+
 Dispatch is by the device of the tensors alone: CPU tensors run the plain
 twin (the same op sequence as the JAX package's XLA chain, which the CPU
 tests hold against JAX); CUDA tensors launch the kernel or raise. There is
@@ -56,10 +67,12 @@ without ``--use_fast_math``: IEEE divides and denormals are kept, which
 the WENO ``den > 1e-35`` guard relies on.
 
 ``launches`` counts kernel launches per wrapper (one per substage for the
-advection kernels, one per chain of at most six sweeps for the smoother,
-one per sweep and slab for the halo smoother, one per call for the
-others); a launch of a boundary-table form counts under its kernel's name
-and again under the name with ``+bc``. Twin calls do not count. A launch runs on the current stream of
+advection kernels, one per chain of at most six sweeps for the smoother
+(in bf16: of 6, 2 or 1, ``BF16_CHAIN``), one per sweep and slab for the
+halo smoother, one per call for the others); a launch counts under its
+kernel's name and again under the name with the suffix of each form it
+is: ``+bc`` (a boundary table), ``+bf16`` (bf16 storage) and ``+bc+bf16``
+(both). Twin calls do not count. A launch runs on the current stream of
 its tensors' device.
 """
 
@@ -122,8 +135,9 @@ class _Faces(ctypes.Structure):
 
 _FACE_KINDS = {"free_slip": 0, "no_slip": 1, "inflow": 2, "outflow": 3}
 
-# the boundary-table forms: key -> (source stem, C entry point, argtypes)
-_BC_ENTRIES = {
+# the boundary-table and bf16 forms: key -> (source stem, C entry point,
+# argtypes)
+_FORM_ENTRIES = {
     "advect_heun+bc": ("advect_heun", "cup2d_advect_substage_bc",
                        [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _Faces, _I,
                         _I, _P]),
@@ -133,6 +147,23 @@ _BC_ENTRIES = {
     "jacobi+bc": ("jacobi", "cup2d_jacobi_sweeps_signed",
                   [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _F, _F,
                    _F, _F, _P]),
+    "advect_heun+bf16": ("advect_heun", "cup2d_advect_substage_bf16",
+                         [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I,
+                          _P]),
+    "advect_heun+bc+bf16": ("advect_heun", "cup2d_advect_substage_bc_bf16",
+                            [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _Faces,
+                             _I, _I, _I, _P]),
+    "advect_heun_halo+bf16": ("advect_heun_halo",
+                              "cup2d_advect_substage_halo_bf16",
+                              [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
+                               _I, _I, _I, _I, _P]),
+    "jacobi+bf16": ("jacobi", "cup2d_jacobi_sweeps_bf16",
+                    [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P]),
+    "jacobi+bc+bf16": ("jacobi", "cup2d_jacobi_sweeps_signed_bf16",
+                       [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _F,
+                        _F, _F, _F, _P]),
+    "jacobi_halo+bf16": ("jacobi_halo", "cup2d_jacobi_halo_sweep_bf16",
+                         [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P]),
 }
 
 launches = {"fused_advect_heun": 0, "fused_correction": 0,
@@ -140,10 +171,13 @@ launches = {"fused_advect_heun": 0, "fused_correction": 0,
             "fused_block_jacobi_update": 0, "advect_substage_halo": 0,
             "jacobi_halo_sweep": 0, "advect_diffuse_rhs": 0,
             "fused_advect_heun+bc": 0, "fused_correction+bc": 0,
-            "fused_jacobi_sweeps+bc": 0}
+            "fused_jacobi_sweeps+bc": 0, "fused_advect_heun+bf16": 0,
+            "fused_advect_heun+bc+bf16": 0, "advect_substage_halo+bf16": 0,
+            "fused_jacobi_sweeps+bf16": 0, "fused_jacobi_sweeps+bc+bf16": 0,
+            "jacobi_halo_sweep+bf16": 0}
 
-# the TPU kernel each wrapper replaces, for reports (a boundary-table form
-# is a form of its kernel: ``kernel_of``)
+# the TPU kernel each wrapper replaces, for reports (a boundary-table or
+# bf16 form is a form of its kernel: ``kernel_of``)
 REPLACES = {
     "fused_advect_heun": "cup2d_tpu/ops/pallas_kernels.py:329",
     "fused_correction": "cup2d_tpu/ops/pallas_kernels.py:804",
@@ -166,6 +200,8 @@ SOURCES = {
 }
 
 JACOBI_MAX_SWEEPS = 6
+# the sweeps a bf16 chain launch may take (jacobi.cu builds those alone)
+BF16_CHAIN = (6, 2, 1)
 # jacobi.cu's two tiles, (rows out, shared columns), and the CTAs of each
 # that fit on an SM (shared memory for the big one, registers for the
 # small one)
@@ -180,7 +216,7 @@ BLOCK_JACOBI_CTAS_PER_SM = 2
 SUBSTAGE_TILE = (32, 128)
 SUBSTAGE_CTAS_PER_SM = 2
 
-_fns: dict = {}          # source stem (or _BC_ENTRIES key) -> C entry
+_fns: dict = {}          # source stem (or _FORM_ENTRIES key) -> C entry
 
 
 def reset_launches() -> None:
@@ -189,15 +225,20 @@ def reset_launches() -> None:
 
 
 def kernel_of(name: str) -> str:
-    """The kernel a launch counter belongs to (``fused_correction+bc`` ->
-    ``fused_correction``), the key of ``REPLACES`` and ``SOURCES``."""
+    """The kernel a launch counter belongs to (``fused_correction+bc``,
+    ``fused_advect_heun+bc+bf16`` -> ``fused_correction``,
+    ``fused_advect_heun``), the key of ``REPLACES`` and ``SOURCES``."""
     return name.split("+")[0]
 
 
-def _count(name: str, bc: bool) -> None:
+def _count(name: str, bc: bool = False, bf16: bool = False) -> None:
     launches[name] += 1
     if bc:
         launches[name + "+bc"] += 1
+    if bf16:
+        launches[name + "+bf16"] += 1
+    if bc and bf16:
+        launches[name + "+bc+bf16"] += 1
 
 
 def _nvcc() -> str:
@@ -253,7 +294,7 @@ def build() -> dict:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     entries = {k: (k, *v) for k, v in _ENTRIES.items()}
-    entries.update(_BC_ENTRIES)
+    entries.update(_FORM_ENTRIES)
     for key, (stem, name, argtypes) in entries.items():
         if key not in _fns:
             fn = getattr(ctypes.CDLL(str(_lib_path(stem))), name)
@@ -264,7 +305,7 @@ def build() -> dict:
 
 
 def _launch(stem: str, device: torch.device, *args) -> None:
-    """Launch the C entry ``stem`` (a source stem or a ``_BC_ENTRIES``
+    """Launch the C entry ``stem`` (a source stem or a ``_FORM_ENTRIES``
     key) on ``device`` (made current for the call) and its current
     stream."""
     if stem not in _fns:
@@ -305,8 +346,11 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _aligned16(*ts) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in ts if t is not None)
+def _aligned_copies(*ts) -> bool:
+    """True where the operands start on the boundary of the kernels' wide
+    copies: 16 bytes for f32 (four values), 8 for bf16 (four values)."""
+    return all(t.data_ptr() % (4 * t.element_size()) == 0
+               for t in ts if t is not None)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -325,15 +369,43 @@ def _on_cuda(*ts) -> bool:
                      "cpu (plain twin) or all on cuda (kernel)")
 
 
-def _check_f32(name: str, **ts) -> None:
+_F32 = (torch.float32,)
+_STORAGE = (torch.float32, torch.bfloat16)
+
+
+def _check(name: str, allowed=_F32, **ts) -> None:
+    """Each operand of a launch is of a dtype in ``allowed``, the same one
+    for all (the kernel's storage type), and contiguous."""
+    names = " or ".join(str(d).split(".")[-1] for d in allowed)
+    seen = {t.dtype for t in ts.values() if t is not None}
     for k, t in ts.items():
         if t is None:
             continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {k} must be float32 on the card, "
+        if t.dtype not in allowed:
+            raise TypeError(f"{name}: {k} must be {names} on the card, "
                             f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
+    if len(seen) > 1:
+        raise TypeError(f"{name}: operands of dtypes {sorted(map(str, seen))}"
+                        ": expected one storage dtype")
+
+
+def _out_dtype(name: str, v, out_dtype):
+    """A substage's output dtype: v's by default; a bf16 substage may
+    write f32 (the second Heun substage), an f32 one only f32."""
+    out_dtype = v.dtype if out_dtype is None else out_dtype
+    if out_dtype != v.dtype and not (v.dtype == torch.bfloat16
+                                     and out_dtype == torch.float32):
+        raise TypeError(f"{name}: {v.dtype} operands write {v.dtype} (or, "
+                        f"from bfloat16, float32), not {out_dtype}")
+    return out_dtype
+
+
+def _widen(*ts):
+    """bf16 operands as f32 (others as they are; None stays None)."""
+    return tuple(t.float() if t is not None and t.dtype == torch.bfloat16
+                 else t for t in ts)
 
 
 # ---------------------------------------------------------------------------
@@ -341,13 +413,18 @@ def _check_f32(name: str, **ts) -> None:
 # the boundary-table form)
 # ---------------------------------------------------------------------------
 
-def advect_substage_plain(v, vold, facs, cfac, ih2, bc=None, h=None):
+def advect_substage_plain(v, vold, facs, cfac, ih2, bc=None, h=None,
+                          out_dtype=None):
     """Plain twin of one substage: v, vold [L, 2, Ny, Nx] (vold None on
     the first substage, where it is v); facs [L, 2] per-member
     (afac, dfac), or with a boundary table ``bc`` (not free-slip) [L, 3]
     with the raw dt, which feeds the outflow speed with the grid spacing
     ``h``. The JAX package's pad (``pad_vector`` or ``bc.pad_vector_bc``)
-    -> advect_diffuse_core -> heun_substage chain."""
+    -> advect_diffuse_core -> heun_substage chain. bf16 v and vold (the
+    bf16 form) are widened to f32 first and the result rounded once to
+    ``out_dtype`` (default v's dtype)."""
+    out_dtype = _out_dtype("advect_substage", v, out_dtype)
+    v, vold = _widen(v, vold)
     afac = facs[:, 0].reshape(-1, 1, 1, 1)
     dfac = facs[:, 1].reshape(-1, 1, 1, 1)
     if bc is None:
@@ -355,7 +432,8 @@ def advect_substage_plain(v, vold, facs, cfac, ih2, bc=None, h=None):
     else:
         lab = pad_vector_bc(v, 3, bc, h, facs[:, 2].reshape(-1, 1, 1, 1))
     rhs = advect_diffuse_core(lab, 3, afac, dfac)
-    return heun_substage(v if vold is None else vold, cfac, rhs, ih2)
+    return heun_substage(v if vold is None else vold, cfac, rhs,
+                         ih2).to(out_dtype)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -363,21 +441,24 @@ def substage_plan(L: int, ny: int, nx: int, sms: int,
                   aligned: bool) -> tuple[int, int]:
     """Launch plan of the substage kernels (``advect_heun.cu``,
     ``advect_heun_halo.cu``) for L members of ny x nx (a slab's width for
-    the halo kernel) on a card of ``sms`` SMs: (vec, grid). 16-byte copies
-    where rows are whole 16-byte words and v is ``aligned``, else 4-byte
-    ones; persistent CTAs, as many as the tiles up to the SMs' room."""
+    the halo kernel) on a card of ``sms`` SMs: (vec, grid). Copies of four
+    values (16 bytes in f32, 8 in bf16) where rows are whole such words
+    and v is ``aligned`` to them, else of one; persistent CTAs, as many as
+    the tiles up to the SMs' room."""
     ty, tx = SUBSTAGE_TILE
     tiles = L * _cdiv(ny, ty) * _cdiv(nx, tx)
     vec = 4 if nx % 4 == 0 and aligned else 1
     return vec, min(tiles, sms * SUBSTAGE_CTAS_PER_SM)
 
 
-def advect_substage(v, vold, facs, cfac, ih2, bc=None, h=None):
+def advect_substage(v, vold, facs, cfac, ih2, bc=None, h=None,
+                    out_dtype=None):
     """One substage: the kernel for CUDA tensors (its boundary-table form
-    where ``bc`` is given), the twin for CPU ones. Same arguments and
-    result as the twin."""
+    where ``bc`` is given, its bf16 form for bf16 v and vold), the twin for
+    CPU ones. Same arguments and result as the twin."""
     if not _on_cuda(v, vold, facs):
-        return advect_substage_plain(v, vold, facs, cfac, ih2, bc, h)
+        return advect_substage_plain(v, vold, facs, cfac, ih2, bc, h,
+                                     out_dtype)
     L, two, ny, nx = v.shape
     cols = 2 if bc is None else 3
     if (two != 2 or facs.shape != (L, cols)
@@ -387,20 +468,25 @@ def advect_substage(v, vold, facs, cfac, ih2, bc=None, h=None):
                          f"[L,{cols}] (a table's ghosts need Ny, Nx >= 2)")
     if vold is not None and vold.shape != v.shape:
         raise ValueError("advect_substage: vold shape differs from v")
-    _check_f32("advect_substage", v=v, vold=vold, facs=facs)
+    _check("advect_substage", _STORAGE, v=v, vold=vold)
+    _check("advect_substage", facs=facs)
+    out_dtype = _out_dtype("advect_substage", v, out_dtype)
+    bf16 = v.dtype == torch.bfloat16
     faces = None if bc is None else _faces(bc)
-    out = torch.empty_like(v)
+    out = torch.empty(v.shape, dtype=out_dtype, device=v.device)
     vec, grid = substage_plan(L, ny, nx, _sm_count(v.device),
-                              _aligned16(v))
+                              _aligned_copies(v))
     args = (v.data_ptr(), None if vold is None else vold.data_ptr(),
             out.data_ptr(), facs.data_ptr(), L, ny, nx, float(cfac),
             float(ih2))
+    form = (int(out_dtype == torch.bfloat16),) if bf16 else ()
+    key = ("advect_heun" + ("" if bc is None else "+bc")
+           + ("+bf16" if bf16 else ""))
     if bc is None:
-        _launch("advect_heun", v.device, *args, vec, grid)
+        _launch(key, v.device, *args, *form, vec, grid)
     else:
-        _launch("advect_heun+bc", v.device, *args, float(h), faces, vec,
-                grid)
-    _count("fused_advect_heun", bc is not None)
+        _launch(key, v.device, *args, float(h), faces, *form, vec, grid)
+    _count("fused_advect_heun", bc is not None, bf16)
     return out
 
 
@@ -412,9 +498,12 @@ def _substage_facs(dt, h, nu, lead, L, dtype, device, with_dt=False):
     return torch.stack(cols, dim=-1)
 
 
-def _advect_heun(vel, h, nu, dt, substage, bc):
+def _advect_heun(vel, h, nu, dt, substage, bc, bf16=False):
     if bc is not None and bc.is_free_slip:
         bc = None
+    if bf16 and vel.dtype != torch.float32:
+        raise ValueError(f"fused_advect_heun(bf16=True): {vel.dtype} state;"
+                         " the bf16 tier needs f32 state")
     lead = vel.shape[:-3]
     L = math.prod(lead)
     v = vel.reshape((L,) + vel.shape[-3:])
@@ -422,21 +511,29 @@ def _advect_heun(vel, h, nu, dt, substage, bc):
     facs = _substage_facs(dt, h, nu, lead, L, vel.dtype, vel.device,
                           with_dt=bc is not None)
     ih2 = 1.0 / (h * h)
-    v1 = substage(v, None, facs, 0.5, ih2, bc, h)
-    v2 = substage(v1, v, facs, 1.0, ih2, bc, h)
+    if bf16:
+        vb = v.to(torch.bfloat16)
+        v1 = substage(vb, None, facs, 0.5, ih2, bc, h)
+        v2 = substage(v1, vb, facs, 1.0, ih2, bc, h, torch.float32)
+    else:
+        v1 = substage(v, None, facs, 0.5, ih2, bc, h)
+        v2 = substage(v1, v, facs, 1.0, ih2, bc, h)
     return v2.reshape(vel.shape)
 
 
-def fused_advect_heun(vel, h, nu, dt, bc=None):
+def fused_advect_heun(vel, h, nu, dt, bc=None, bf16=False):
     """Both Heun substages (main.cpp:6607-6642). vel [..., 2, Ny, Nx]; dt a
     scalar or shaped like the leading dims (per-member dt); ``bc`` a
-    non-periodic ``BCTable`` (None or free-slip: the free-slip kernel)."""
-    return _advect_heun(vel, h, nu, dt, advect_substage, bc)
+    non-periodic ``BCTable`` (None or free-slip: the free-slip kernel).
+    ``bf16`` (f32 state only): substage 1 reads a bf16 copy vb of the
+    state and writes bf16, substage 2 reads that and vb (as vold) and
+    writes the f32 state; facs stay f32."""
+    return _advect_heun(vel, h, nu, dt, advect_substage, bc, bf16)
 
 
-def fused_advect_heun_plain(vel, h, nu, dt, bc=None):
+def fused_advect_heun_plain(vel, h, nu, dt, bc=None, bf16=False):
     """Plain twin of ``fused_advect_heun`` on any device."""
-    return _advect_heun(vel, h, nu, dt, advect_substage_plain, bc)
+    return _advect_heun(vel, h, nu, dt, advect_substage_plain, bc, bf16)
 
 
 # ---------------------------------------------------------------------------
@@ -474,8 +571,7 @@ def fused_correction(x, pres_old, vel, scal, ih2, grad_signs=None):
             f"fused_correction: x {tuple(x.shape)}, pres_old "
             f"{tuple(pres_old.shape)}, vel {tuple(vel.shape)}, scal "
             f"{tuple(scal.shape)}: expected [L,Ny,Nx] x2, [L,2,Ny,Nx], [L,3]")
-    _check_f32("fused_correction", x=x, pres_old=pres_old, vel=vel,
-               scal=scal)
+    _check("fused_correction", x=x, pres_old=pres_old, vel=vel, scal=scal)
     pres = torch.empty_like(x)
     vout = torch.empty_like(vel)
     args = (x.data_ptr(), pres_old.data_ptr(), vel.data_ptr(),
@@ -516,10 +612,34 @@ def jacobi_sweeps_plain(e, r, omega, n, from_zero=False, edge_signs=None):
     return e
 
 
-def sweep_chain(n: int) -> list[int]:
+def jacobi_sweeps_bf16_plain(e, r, omega, n, from_zero=False,
+                             edge_signs=None):
+    """Plain twin of the bf16 form of the sweep chain: e, r bf16; each
+    sweep is ``jacobi_sweeps_plain``'s in f32 on the widened operands,
+    rounded to bf16 once, as the kernel stores it. (``jacobi_sweeps_plain``
+    on bf16 tensors is another function: bf16 arithmetic, every operation
+    rounded, the default solver's bf16 preconditioner cycle.)"""
+    (rf,) = _widen(r)
+    cur = None if from_zero else _widen(e)[0]
+    for k in range(int(n)):
+        cur = jacobi_sweeps_plain(cur, rf, omega, 1, from_zero and k == 0,
+                                  edge_signs).to(torch.bfloat16).float()
+    return e if cur is None else cur.to(torch.bfloat16)
+
+
+def sweep_chain(n: int, bf16: bool = False) -> list[int]:
     """The sweeps of each launch of an n-sweep chain: launches of
-    ``JACOBI_MAX_SWEEPS`` and one of the rest, in that order."""
-    full, rest = divmod(int(n), JACOBI_MAX_SWEEPS)
+    ``JACOBI_MAX_SWEEPS`` and one of the rest, in that order; in bf16 of
+    the sizes ``BF16_CHAIN``, largest first (a bf16 chain rounds every
+    sweep wherever it keeps it, so the cut does not change its result)."""
+    n = int(n)
+    if bf16:
+        out = []
+        for k in BF16_CHAIN:
+            out += [k] * (n // k)
+            n %= k
+        return out
+    full, rest = divmod(n, JACOBI_MAX_SWEEPS)
     return [JACOBI_MAX_SWEEPS] * full + ([rest] if rest else [])
 
 
@@ -531,9 +651,9 @@ def jacobi_plan(L: int, ny: int, nx: int, n: int, sms: int,
     tile where the level has at least ``JACOBI_BIG_ROUNDS`` per SM (fewer
     leave the last round's SMs idle for a whole tile), else the 32-column
     one (each puts out its width less twice the x halo, n rounded up to 4);
-    16-byte copies where rows are whole 16-byte words and the pointers
-    ``aligned``, else 4-byte ones; persistent CTAs, as many as the tiles
-    up to the SMs' room."""
+    copies of four values (16 bytes in f32, 8 in bf16) where rows are whole
+    such words and the pointers ``aligned`` to them, else of one;
+    persistent CTAs, as many as the tiles up to the SMs' room."""
     hx = 4 * _cdiv(n, 4)
 
     def tiles(big):
@@ -553,26 +673,31 @@ def block_jacobi_grid(n: int, sms: int) -> int:
 def fused_jacobi_sweeps(e, r, omega, n, from_zero=False, edge_signs=None):
     """n sweeps: on CUDA tensors as launches of at most six sweeps each
     (``sweep_chain``; the first carries ``from_zero``; the signed form where
-    ``edge_signs`` is given), on CPU tensors the twin."""
+    ``edge_signs`` is given; the bf16 form for bf16 e and r), on CPU
+    tensors the twin (``jacobi_sweeps_bf16_plain`` for bf16)."""
+    bf16 = r.dtype == torch.bfloat16
     if not _on_cuda(None if from_zero else e, r):
-        return jacobi_sweeps_plain(e, r, omega, n, from_zero, edge_signs)
+        twin = jacobi_sweeps_bf16_plain if bf16 else jacobi_sweeps_plain
+        return twin(e, r, omega, n, from_zero, edge_signs)
     ny, nx = r.shape[-2:]
     L = math.prod(r.shape[:-2])
     if not from_zero and e.shape != r.shape:
         raise ValueError(f"fused_jacobi_sweeps: e {tuple(e.shape)} vs r "
                          f"{tuple(r.shape)}")
-    _check_f32("fused_jacobi_sweeps", r=r, e=None if from_zero else e)
+    _check("fused_jacobi_sweeps", _STORAGE, r=r,
+           e=None if from_zero else e)
     signs = () if edge_signs is None else _signs(edge_signs)
+    key = ("jacobi+bc" if signs else "jacobi") + ("+bf16" if bf16 else "")
     cur = None if from_zero else e
     sms = _sm_count(r.device)
-    for k in sweep_chain(n):
+    for k in sweep_chain(n, bf16):
         out = torch.empty_like(r)
-        big, vec, grid = jacobi_plan(L, ny, nx, k, sms, _aligned16(cur, r))
-        _launch("jacobi+bc" if signs else "jacobi", r.device,
-                None if cur is None else cur.data_ptr(), r.data_ptr(),
-                out.data_ptr(), L, ny, nx, k, float(omega), int(cur is None),
-                int(big), vec, grid, *signs)
-        _count("fused_jacobi_sweeps", bool(signs))
+        big, vec, grid = jacobi_plan(L, ny, nx, k, sms,
+                                     _aligned_copies(cur, r))
+        _launch(key, r.device, None if cur is None else cur.data_ptr(),
+                r.data_ptr(), out.data_ptr(), L, ny, nx, k, float(omega),
+                int(cur is None), int(big), vec, grid, *signs)
+        _count("fused_jacobi_sweeps", bool(signs), bf16)
         cur = out
     return cur
 
@@ -608,7 +733,7 @@ def fused_lab_rhs(lab, h, nu, dt):
         raise ValueError(f"fused_lab_rhs: h {tuple(h.shape)} / dt "
                          f"{tuple(dt.shape)}: expected one h per block and "
                          "a scalar dt")
-    _check_f32("fused_lab_rhs", lab=lab, h=h, dt=dt)
+    _check("fused_lab_rhs", lab=lab, h=h, dt=dt)
     out = lab.new_empty((n, 2, 8, 8))
     _launch("lab_rhs", lab.device, lab.data_ptr(), h.data_ptr(),
             dt.data_ptr(), float(nu), out.data_ptr(), n)
@@ -641,8 +766,8 @@ def fused_block_jacobi_update(e, r, lap, p_inv):
             f"fused_block_jacobi_update: e {tuple(e.shape)}, r "
             f"{tuple(r.shape)}, lap {tuple(lap.shape)}, p_inv "
             f"{tuple(p_inv.shape)}: expected [N, 8, 8] x3 and [64, 64]")
-    _check_f32("fused_block_jacobi_update", e=e, r=r, lap=lap, p_inv=p_inv)
-    if not _aligned16(e, r, lap, p_inv):
+    _check("fused_block_jacobi_update", e=e, r=r, lap=lap, p_inv=p_inv)
+    if not _aligned_copies(e, r, lap, p_inv):
         raise ValueError("fused_block_jacobi_update: operands must start on "
                          "16-byte boundaries (the kernel copies 16 bytes at "
                          "a time)")
@@ -660,26 +785,34 @@ def fused_block_jacobi_update(e, r, lap, p_inv):
 # K3: one Heun substage on an x slab of a split field (free-slip box)
 # ---------------------------------------------------------------------------
 
-def advect_substage_halo_plain(v, vold, aux, facs, cfac, ih2, is_lo, is_hi):
+def advect_substage_halo_plain(v, vold, aux, facs, cfac, ih2, is_lo, is_hi,
+                               out_dtype=None):
     """Plain twin of one substage on an x slab: v, vold [L, 2, Ny, w]
     (vold None on the first substage); aux [L, 2, Ny, 6] the three columns
     either side of the slab (the neighbours' edge columns; ignored on a
     side whose wall the slab owns, ``is_lo``/``is_hi``); facs [L, 2]
     per-member (afac, dfac). The slabs of a split field give
-    ``advect_substage_plain`` of the whole field bit for bit."""
+    ``advect_substage_plain`` of the whole field bit for bit. bf16 v, vold
+    and aux are widened and the result rounded to ``out_dtype``, as in
+    ``advect_substage_plain``."""
+    out_dtype = _out_dtype("advect_substage_halo", v, out_dtype)
+    v, vold, aux = _widen(v, vold, aux)
     afac = facs[:, 0].reshape(-1, 1, 1, 1)
     dfac = facs[:, 1].reshape(-1, 1, 1, 1)
     lab = pad_vector_slab(v, aux, 3, is_lo, is_hi)
     rhs = advect_diffuse_core(lab, 3, afac, dfac)
-    return heun_substage(v if vold is None else vold, cfac, rhs, ih2)
+    return heun_substage(v if vold is None else vold, cfac, rhs,
+                         ih2).to(out_dtype)
 
 
-def advect_substage_halo(v, vold, aux, facs, cfac, ih2, is_lo, is_hi):
-    """One substage on an x slab: the kernel for CUDA tensors, the twin
-    for CPU ones. Same arguments and result as the twin."""
+def advect_substage_halo(v, vold, aux, facs, cfac, ih2, is_lo, is_hi,
+                         out_dtype=None):
+    """One substage on an x slab: the kernel for CUDA tensors (its bf16
+    form for bf16 v, vold and aux), the twin for CPU ones. Same arguments
+    and result as the twin."""
     if not _on_cuda(v, vold, aux, facs):
         return advect_substage_halo_plain(v, vold, aux, facs, cfac, ih2,
-                                          is_lo, is_hi)
+                                          is_lo, is_hi, out_dtype)
     L, two, ny, nxl = v.shape
     if (two != 2 or facs.shape != (L, 2)
             or aux.shape != (L, 2, ny, 6)):
@@ -689,15 +822,21 @@ def advect_substage_halo(v, vold, aux, facs, cfac, ih2, is_lo, is_hi):
             "[L,2,Ny,w], [L,2,Ny,6], [L,2]")
     if vold is not None and vold.shape != v.shape:
         raise ValueError("advect_substage_halo: vold shape differs from v")
-    _check_f32("advect_substage_halo", v=v, vold=vold, aux=aux, facs=facs)
-    out = torch.empty_like(v)
+    _check("advect_substage_halo", _STORAGE, v=v, vold=vold, aux=aux)
+    _check("advect_substage_halo", facs=facs)
+    out_dtype = _out_dtype("advect_substage_halo", v, out_dtype)
+    bf16 = v.dtype == torch.bfloat16
+    out = torch.empty(v.shape, dtype=out_dtype, device=v.device)
     vec, grid = substage_plan(L, ny, nxl, _sm_count(v.device),
-                              _aligned16(v))
-    _launch("advect_heun_halo", v.device, v.data_ptr(),
+                              _aligned_copies(v))
+    form = (int(out_dtype == torch.bfloat16),) if bf16 else ()
+    _launch("advect_heun_halo+bf16" if bf16 else "advect_heun_halo",
+            v.device, v.data_ptr(),
             None if vold is None else vold.data_ptr(), aux.data_ptr(),
             out.data_ptr(), facs.data_ptr(), L, ny, nxl, float(cfac),
-            float(ih2), int(bool(is_lo)), int(bool(is_hi)), vec, grid)
-    launches["advect_substage_halo"] += 1
+            float(ih2), int(bool(is_lo)), int(bool(is_hi)), *form, vec,
+            grid)
+    _count("advect_substage_halo", bf16=bf16)
     return out
 
 
@@ -722,14 +861,28 @@ def jacobi_halo_sweep_plain(e, r, aux, omega, is_lo, is_hi,
                         ) * inv_d
 
 
+def jacobi_halo_sweep_bf16_plain(e, r, aux, omega, is_lo, is_hi,
+                                 from_zero=False):
+    """Plain twin of the bf16 form of the halo sweep: e, r, aux bf16,
+    ``jacobi_halo_sweep_plain`` in f32 on the widened operands, rounded to
+    bf16 once."""
+    e, r, aux = _widen(e, r, aux)
+    return jacobi_halo_sweep_plain(e, r, aux, omega, is_lo, is_hi,
+                                   from_zero).to(torch.bfloat16)
+
+
 def jacobi_halo_sweep(e, r, aux, omega, is_lo, is_hi, from_zero=False):
-    """One sweep on an x slab: the kernel for CUDA tensors (one launch),
-    the twin for CPU ones. Same arguments and result as the twin."""
+    """One sweep on an x slab: the kernel for CUDA tensors (one launch;
+    its bf16 form for bf16 operands), the twin for CPU ones
+    (``jacobi_halo_sweep_bf16_plain`` for bf16). Same arguments and result
+    as the twin."""
     if from_zero:
         e = aux = None
+    bf16 = r.dtype == torch.bfloat16
     if not _on_cuda(e, r, aux):
-        return jacobi_halo_sweep_plain(e, r, aux, omega, is_lo, is_hi,
-                                       from_zero)
+        twin = (jacobi_halo_sweep_bf16_plain if bf16
+                else jacobi_halo_sweep_plain)
+        return twin(e, r, aux, omega, is_lo, is_hi, from_zero)
     ny, nxl = r.shape[-2:]
     L = math.prod(r.shape[:-2])
     if e is not None and (e.shape != r.shape
@@ -737,13 +890,14 @@ def jacobi_halo_sweep(e, r, aux, omega, is_lo, is_hi, from_zero=False):
         raise ValueError(
             f"jacobi_halo_sweep: e {tuple(e.shape)}, r {tuple(r.shape)}, "
             f"aux {tuple(aux.shape)}: expected [...,Ny,w] x2, [...,Ny,2]")
-    _check_f32("jacobi_halo_sweep", e=e, r=r, aux=aux)
+    _check("jacobi_halo_sweep", _STORAGE, e=e, r=r, aux=aux)
     out = torch.empty_like(r)
-    _launch("jacobi_halo", r.device, None if e is None else e.data_ptr(),
-            r.data_ptr(), None if aux is None else aux.data_ptr(),
-            out.data_ptr(), L, ny, nxl, float(omega), int(bool(is_lo)),
-            int(bool(is_hi)), int(e is None))
-    launches["jacobi_halo_sweep"] += 1
+    _launch("jacobi_halo+bf16" if bf16 else "jacobi_halo", r.device,
+            None if e is None else e.data_ptr(), r.data_ptr(),
+            None if aux is None else aux.data_ptr(), out.data_ptr(), L, ny,
+            nxl, float(omega), int(bool(is_lo)), int(bool(is_hi)),
+            int(e is None))
+    _count("jacobi_halo_sweep", bf16=bf16)
     return out
 
 
@@ -770,7 +924,7 @@ def advect_diffuse_rhs(vlab, h, nu, dt):
     L = math.prod(vlab.shape[:-3])
     facs = torch.tensor([-dt * h, nu * dt], dtype=torch.float32,
                         device=vlab.device)
-    _check_f32("advect_diffuse_rhs", vlab=vlab)
+    _check("advect_diffuse_rhs", vlab=vlab)
     out = vlab.new_empty(vlab.shape[:-2] + (ny, nx))
     _launch("advect_rhs", vlab.device, vlab.data_ptr(), out.data_ptr(),
             facs.data_ptr(), L, ny, nx)

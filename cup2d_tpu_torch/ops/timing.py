@@ -70,6 +70,23 @@ def graph_ms(fns, reps: int = 24) -> float:
     return t0.elapsed_time(t1) / (5 * reps)
 
 
+def substage_pair_bytes(cells: int, bf16: bool = False) -> float:
+    """Bytes the two substage launches move on one field of ``cells``
+    cells, each input read once and each output written once: in f32,
+    substage 1 reads v and writes v1 (8 + 8 a cell), substage 2 reads v1
+    and vold and writes the state (8 + 8 + 8); in bf16, 4 + 4 and
+    4 + 4 + 8 (the f32 state out). The bf16 copy of the state that feeds
+    them is a plain cast (12 bytes a cell more), not a kernel's work."""
+    return (24.0 if bf16 else 40.0) * cells
+
+
+def sweep_bytes(cells: int, from_zero: bool, itemsize: int = 4) -> float:
+    """Bytes of an n-sweep chain (or one sweep) on ``cells`` cells: e and r
+    read once and the result written once (r and the result from zero),
+    ``itemsize`` bytes a value (4 in f32, 2 in bf16)."""
+    return (2.0 if from_zero else 3.0) * itemsize * cells
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """Least time in ms for ``nbytes`` moved and ``ops`` f32 operations,
     and which of the two sets it."""
@@ -114,20 +131,24 @@ def vcycle_chains(size: int, coarsest: int = 16, nu: int = 2,
 
 
 def sweep_level_table(sweeps, device, size: int = 8192, sets: int = 3,
-                      seed: int = 0) -> list[dict]:
+                      seed: int = 0, dtype=torch.float32) -> list[dict]:
     """Device time of each chain of one V-cycle (``vcycle_chains``) on
-    the card, through ``sweeps(e, r, omega, n, from_zero)``: a graph
+    the card, through ``sweeps(e, r, omega, n, from_zero)``, on operands
+    of ``dtype`` (f32, or bf16 for the FAS solver's bf16 legs): a graph
     replay over ``sets`` operand sets per level (cold in L2 where the
-    sets exceed it; at 8192^2 one set is 537 MB). Per level: the chains'
-    ms, their bound (12 bytes a cell, 8 from zero; 9 operations a cell
-    and sweep) and the launches per cycle."""
+    sets exceed it; at 8192^2 one f32 set is 537 MB). Per level: the
+    chains' ms, their bound (``sweep_bytes``: 12 bytes a cell, 8 from
+    zero, in f32; 6 and 4 in bf16; 9 operations a cell and sweep) and the
+    launches per cycle."""
     gen = torch.Generator(device=device).manual_seed(seed)
+    bf16 = dtype == torch.bfloat16
+    itemsize = torch.empty((), dtype=dtype).element_size()
     rows = []
     for n_cells, chains in vcycle_chains(size):
         k = 1 if n_cells >= 4096 else sets
-        ops = [(torch.randn(n_cells, n_cells, generator=gen, device=device),
-                torch.randn(n_cells, n_cells, generator=gen, device=device))
-               for _ in range(k)]
+        ops = [tuple(torch.randn(n_cells, n_cells, generator=gen,
+                                 device=device).to(dtype)
+                     for _ in range(2)) for _ in range(k)]
         row = {"level": n_cells, "chains": [], "ms": 0.0, "bound_ms": 0.0,
                "launches": 0}
         for n, fz in chains:
@@ -135,9 +156,9 @@ def sweep_level_table(sweeps, device, size: int = 8192, sets: int = 3,
             ms = graph_ms([lambda o=o: sweeps(o[0], o[1], 0.8, n, fz)
                            for o in ops], reps=reps)
             cells = n_cells * n_cells
-            b = bound((8.0 if fz else 12.0) * cells,
+            b = bound(sweep_bytes(cells, fz, itemsize),
                       OPS_SWEEP_CELL * n * cells)[0]
-            launches = len(sweep_chain(n))
+            launches = len(sweep_chain(n, bf16))
             row["chains"].append({"n": n, "from_zero": fz, "ms": ms,
                                   "bound_ms": b, "launches": launches})
             row["ms"] += ms

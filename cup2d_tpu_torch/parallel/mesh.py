@@ -64,7 +64,11 @@ class ShardedUniformSim(UniformSim):
     step), the advection runs the halo-mode substage kernel per shard,
     the FAS solver smooths its split levels with the halo Jacobi kernel
     per sweep and shard, and the reductions combine per-shard partials.
-    The step's diagnostics carry the same keys as ``UniformSim``'s."""
+    Under ``CUP2D_PREC=bf16`` the grid's latch carries through
+    ``attach_mesh``: both substages run the halo kernel's bf16 form (halos
+    exchanged in bf16) and the FAS cycle its bf16 legs; the split step
+    equals the solo bf16 step bit for bit. The step's diagnostics carry
+    the same keys as ``UniformSim``'s."""
 
     def __init__(self, cfg: SimConfig, mesh: SlabMesh,
                  level: Optional[int] = None, bc=None):

@@ -311,14 +311,18 @@ def project_correct_x(x: Slabs, pres_old: Slabs, vel: Slabs, h, dt):
     return Slabs(out, vel.mesh), pres
 
 
-def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None) -> Slabs:
+def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None,
+                              bf16: bool = False) -> Slabs:
     """Both Heun substages on a split velocity [..., 2, Ny, w] per slab:
     each substage exchanges three edge columns (in the storage dtype),
     then runs the halo-mode substage (``advect_substage_halo``: the kernel
     on the card, its twin on the CPU) on every shard, wall shards painting
-    their x ghosts. dt is a scalar or shaped like the leading dims. Only
-    the free-slip box is ported: any other table (periodic included, whose
-    wrap would need a ring exchange) refuses."""
+    their x ghosts. dt is a scalar or shaped like the leading dims.
+    ``bf16`` (f32 state only), as ``hopper_kernels.fused_advect_heun``:
+    substage 1 reads a bf16 copy of every slab and writes bf16, substage 2
+    reads that and the copy and writes the f32 state; both exchange their
+    halos in bf16. Only the free-slip box is ported: any other table
+    (periodic included, whose wrap would need a ring exchange) refuses."""
     token = getattr(bc, "token", bc)
     if token not in (None, _FREE_SLIP_TOKEN):
         raise NotImplementedError(
@@ -330,6 +334,9 @@ def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None) -> Slabs:
             f"fused_advect_heun_sharded: slab width "
             f"{vel.parts[0].shape[-1]} < the WENO halo {WENO_HALO}")
     p0 = vel.parts[0]
+    if bf16 and p0.dtype != torch.float32:
+        raise ValueError(f"fused_advect_heun_sharded(bf16=True): {p0.dtype} "
+                         "state; the bf16 tier needs f32 state")
     lead = p0.shape[:-3]
     L = math.prod(lead)
     facs = _substage_facs(dt, float(h), nu, lead, L, p0.dtype, vel.device)
@@ -339,15 +346,19 @@ def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None) -> Slabs:
     v0 = Slabs([p.reshape((L,) + p.shape[-3:]) for p in vel.parts],
                vel.mesh)
 
-    def sub(stage, vold, cfac):
+    def sub(stage, vold, cfac, out_dtype=None):
         aux = exchange_x(stage, WENO_HALO)
         return Slabs([advect_substage_halo(
             p, None if vold is None else vold.parts[d], aux[d], facs[d],
-            cfac, ih2, lo, hi)
+            cfac, ih2, lo, hi, out_dtype)
             for d, (p, (lo, hi)) in enumerate(zip(stage.parts, walls))],
             stage.mesh)
 
-    v2 = sub(sub(v0, None, 0.5), v0, 1.0)
+    if bf16:
+        vb = v0.to(torch.bfloat16)
+        v2 = sub(sub(vb, None, 0.5), vb, 1.0, torch.float32)
+    else:
+        v2 = sub(sub(v0, None, 0.5), v0, 1.0)
     return Slabs([p.reshape(q.shape) for p, q in zip(v2.parts, vel.parts)],
                  vel.mesh)
 

@@ -7,9 +7,10 @@ per-face signs) and the forest.
 * ``MultigridPreconditioner``: the geometric V-cycle (damped-Jacobi
   smoothing, 2x2 sum restriction, nearest prolongation). Under an f32
   Krylov solve the cycle runs in bf16 (a preconditioner only shapes the
-  error); as the FAS solver it runs at solver precision and its sweep
-  chains go through ``hopper_kernels.fused_jacobi_sweeps``. With a slab
-  mesh it runs on x-split fields (``parallel.shard_halo``).
+  error); as the FAS solver it runs at solver precision, or with bf16
+  legs (``leg_dtype``, ``CUP2D_PREC=bf16``), and its sweep chains go
+  through ``hopper_kernels.fused_jacobi_sweeps``. With a slab mesh it runs
+  on x-split fields (``parallel.shard_halo``).
 * ``bicgstab``: flexible BiCGSTAB with the reference's Linf criterion,
   breakdown restarts, periodic true-residual refresh and the L2 stall
   exit.
@@ -93,6 +94,10 @@ cycle and in the fused sweep chains alike.
     SUM (x4 of the mean) because the undivided coarse operator is 4x the
     fine one. ``cycle_dtype=None`` under an f32 solver gives the bf16
     preconditioner cycle; the FAS solver passes its own dtype.
+    ``leg_dtype`` (bf16 under ``CUP2D_PREC=bf16`` with the FAS solver)
+    takes precedence: the cycle's storage (smoothing, residuals,
+    transfers) is bf16 and its output the solver's dtype, while
+    ``mg_solve``'s outer loop keeps the true residual at solver precision.
     ``fused_smoother`` sends every sweep chain through the
     ``fused_jacobi_sweeps`` wrapper (kernel on the card, twin on the
     CPU); otherwise the chains are plain tensor code, as the XLA chains
@@ -116,7 +121,7 @@ cycle and in the fused sweep chains alike.
     def __init__(self, ny: int, nx: int, dtype, nu1: int = 2,
                  nu2: int = 2, coarsest: int = 16, omega: float = 0.8,
                  cycle_dtype=None, fused_smoother: bool = False,
-                 mesh=None, edge_signs=None):
+                 mesh=None, edge_signs=None, leg_dtype=None):
         if mesh is not None and edge_signs is not None:
             raise NotImplementedError(
                 "MultigridPreconditioner: a split (mesh) hierarchy with a "
@@ -127,7 +132,8 @@ cycle and in the fused sweep chains alike.
         self.nu1 = nu1
         self.nu2 = nu2
         self.omega = omega
-        self.dtype = cycle_dtype or (
+        self.leg_dtype = leg_dtype
+        self.dtype = leg_dtype or cycle_dtype or (
             torch.bfloat16 if dtype == torch.float32 else dtype)
         self.out_dtype = dtype
         self.fused_smoother = fused_smoother
@@ -140,6 +146,20 @@ cycle and in the fused sweep chains alike.
         self.shapes.append((ny, nx))
         self.meshes = (None if mesh is None
                        else level_meshes(self.shapes, mesh))
+
+    @property
+    def smoother_tier(self) -> str:
+        """The JAX package's label of the sweep chains: ``strip`` where they
+        run through the fused smoother (its ``fused_jacobi_sweeps``; here
+        ``fused_smoother``), else ``xla`` (plain code), with ``+bf16``
+        where the legs are bf16 (``leg_dtype``, or a bf16 cycle on the
+        fused smoother). The default solver's bf16 preconditioner cycle
+        keeps the bare ``xla``."""
+        base = "strip" if self.fused_smoother else "xla"
+        if self.dtype == torch.bfloat16 and (self.leg_dtype is not None
+                                             or base == "strip"):
+            return base + "+bf16"
+        return base
 
     def _lap(self, p):
         if self.meshes is not None:

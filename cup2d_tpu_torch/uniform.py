@@ -33,8 +33,17 @@ partials (``parallel.shard_halo``).
 Environment, read once per ``UniformGrid``: ``CUP2D_POIS`` selects the
 solver (""/structured/tables/fft: bicgstab + MG, fas: MG cycles, fas-f:
 the same opened by an F-cycle; fftd is not ported yet and refuses);
-``CUP2D_PREC`` accepts f32 only (the bf16 storage tier is not ported yet
-and refuses).
+``CUP2D_PREC`` selects the storage of the kernels' operands: f32 (the
+default) or bf16, the JAX package's bf16 tier (there it also needs
+``CUP2D_PALLAS=1``; the port has no kernel-tier switch, so the latch alone
+selects it). Under bf16 both Heun substages run their bf16 kernel forms
+(solo, with any non-periodic table, or per slab on a mesh) and the FAS
+solver's cycle runs bf16 legs through the bf16 sweep-chain and halo-sweep
+forms, its outer loop keeping the f32 true residual; the default solver's
+bf16 preconditioner cycle and the f32 correction epilogue are as under
+f32. bf16 needs f32 state and ny a multiple of 16, as the JAX package's
+``fused_tier_supported(prec="bf16")`` (its TPU-only ``nx % 128`` rule does
+not apply), and refuses otherwise.
 """
 
 from __future__ import annotations
@@ -149,12 +158,9 @@ class UniformGrid:
                 "ported yet (ROADMAP queue 1 item 3: fftd, the periodic "
                 "cases and a decision on their card path)")
         prec = os.environ.get("CUP2D_PREC", "") or "f32"
-        if prec == "bf16":
-            raise NotImplementedError(
-                "CUP2D_PREC=bf16 (bf16 storage of the advection and "
-                "smoother operands) is not ported yet; unset it")
-        if prec != "f32":
+        if prec not in ("f32", "bf16"):
             raise ValueError(f"CUP2D_PREC={prec!r}: expected f32|bf16")
+        self.bf16 = prec == "bf16"
         pois = os.environ.get("CUP2D_POIS", "")
         if pois == "fftd":
             raise NotImplementedError(
@@ -171,6 +177,12 @@ class UniformGrid:
         self.nx = cfg.bpdx * cfg.bs << lvl
         self.ny = cfg.bpdy * cfg.bs << lvl
         self.h = cfg.h_at(lvl)
+        if self.bf16 and (self.dtype != torch.float32 or self.ny < 16
+                          or self.ny % 16):
+            raise ValueError(
+                f"CUP2D_PREC=bf16 unsupported for this grid ({cfg.dtype} "
+                f"{self.ny}x{self.nx}): the bf16 tier needs f32 state and "
+                "ny % 16 == 0")
         # the table's per-face operator coefficients; None on the free-slip
         # table, whose consumers take the free-slip code unchanged
         if self.bc.is_free_slip:
@@ -196,7 +208,8 @@ class UniformGrid:
         return MultigridPreconditioner(
             self.ny, self.nx, self.dtype,
             cycle_dtype=self.dtype if fas else None, fused_smoother=fas,
-            mesh=self.mesh, edge_signs=self._psigns)
+            mesh=self.mesh, edge_signs=self._psigns,
+            leg_dtype=torch.bfloat16 if fas and self.bf16 else None)
 
     def attach_mesh(self, mesh) -> None:
         """Split the step along x over ``mesh`` (a ``SlabMesh`` whose first
@@ -206,9 +219,10 @@ class UniformGrid:
         preconditioner's) is rebuilt on split fields, the projection
         epilogue is plain per-slab code (the correction kernel stays off,
         as in the JAX package), and every reduction combines per-shard
-        partials. fftd and the bf16 storage tier refuse at construction
-        already, a boundary table other than free-slip here; Nx must divide
-        by the mesh size."""
+        partials. The bf16 storage tier carries over: the halo substage
+        runs its bf16 form and the FAS hierarchy, rebuilt here, its bf16
+        legs. fftd refuses at construction already, a boundary table other
+        than free-slip here; Nx must divide by the mesh size."""
         if not self.bc.is_free_slip:
             raise NotImplementedError(
                 f"boundary table {self.bc.token!r} on a slab mesh: the split "
@@ -298,13 +312,32 @@ class UniformGrid:
     @property
     def kernel_tier(self) -> str:
         """What runs the kernels' work: ``hopper`` (the CUDA kernels, on
-        the card) or ``plain`` (their twins, on the CPU), with the table's
-        token suffixed for a table other than free-slip, as the JAX
-        package stamps its fused tier: ``hopper+bc(ns,ns,ns,ns(1,0))``."""
+        the card) or ``plain`` (their twins, on the CPU), ``-bf16`` under
+        the bf16 storage tier, with the table's token suffixed for a table
+        other than free-slip, as the JAX package stamps its fused tier
+        (``pallas-fused-bf16+bc(...)``):
+        ``hopper-bf16+bc(ns,ns,ns,ns(1,0))``."""
         tier = "hopper" if self.device.type == "cuda" else "plain"
+        if self.bf16:
+            tier += "-bf16"
         if not self.bc.is_free_slip:
             return f"{tier}+bc({self.bc.token})"
         return tier
+
+    @property
+    def prec_mode(self) -> str:
+        """Storage precision of the advection kernels' operands: ``bf16``
+        under the bf16 tier, else the state's (``f32``, ``f64``)."""
+        if self.bf16:
+            return "bf16"
+        return {torch.float32: "f32", torch.float64: "f64"}[self.dtype]
+
+    @property
+    def smoother_tier(self) -> str:
+        """The sweep chains' label (``MultigridPreconditioner.smoother_tier``):
+        ``strip`` (the fused smoother, fas) or ``xla`` (plain code, the
+        default solver's cycle), ``+bf16`` on bf16 legs."""
+        return self.mg.smoother_tier
 
     @property
     def poisson_mode(self) -> str:
@@ -343,10 +376,13 @@ class UniformGrid:
         """Two-stage Heun advection-diffusion (main.cpp:6607-6642), both
         substages through the substage kernel (its boundary-table form for
         a table other than free-slip; its twin on the CPU), or through the
-        halo-mode substage per shard on a mesh."""
+        halo-mode substage per shard on a mesh; their bf16 forms under the
+        bf16 tier."""
         if self.mesh is not None:
-            return fused_advect_heun_sharded(vel, self.h, self.cfg.nu, dt)
-        return fused_advect_heun(vel, self.h, self.cfg.nu, dt, bc=self.bc)
+            return fused_advect_heun_sharded(vel, self.h, self.cfg.nu, dt,
+                                             bf16=self.bf16)
+        return fused_advect_heun(vel, self.h, self.cfg.nu, dt, bc=self.bc,
+                                 bf16=self.bf16)
 
     def project(self, vel, pres_old, chi, udef, dt, exact_poisson=False):
         """deltap solve and correction (main.cpp:7007-7187). Returns (vel,
@@ -461,6 +497,14 @@ class UniformSim:
     @property
     def kernel_tier(self) -> str:
         return self.grid.kernel_tier
+
+    @property
+    def prec_mode(self) -> str:
+        return self.grid.prec_mode
+
+    @property
+    def smoother_tier(self) -> str:
+        return self.grid.smoother_tier
 
     def step_once(self, dt: Optional[float] = None):
         """One step with the reference's exact solves for the first 10

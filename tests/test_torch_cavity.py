@@ -438,11 +438,16 @@ def test_waiting_cases_refuse(name, item):
 
 
 def test_cavity_fleet_and_bf16_refuse(monkeypatch):
+    """Fleets refuse; bf16 runs the cavity on f32 state (the boundary
+    table's bf16 substage form) and refuses it on f64, as the JAX
+    package does."""
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         tcases.make_sim("cavity", level=2, device="cpu", members=2)
     monkeypatch.setenv("CUP2D_PREC", "bf16")
-    with pytest.raises(NotImplementedError, match="CUP2D_PREC"):
-        tcases.make_sim("cavity", level=2, device="cpu")
+    with pytest.raises(ValueError, match="CUP2D_PREC"):
+        tcases.make_sim("cavity", level=2, device="cpu", dtype="float64")
+    sim = tcases.make_sim("cavity", level=2, device="cpu")
+    assert sim.kernel_tier == "plain-bf16+bc(ns,ns,ns,ns(1,0))"
 
 
 def test_kernel_forms_refuse_periodic_signs_and_tables():

@@ -21,7 +21,13 @@ reductions' order differs). The boundary-table forms of the substage,
 the correction and the sweep chain hold their twins to the same bounds on
 the four tables of tests/test_megakernel.py, ragged shapes included, and
 a short cavity run on the card follows the CPU to 1e-4 relative with
-every ``+bc`` counter moving."""
+every ``+bc`` counter moving. The bf16 forms (``CUP2D_PREC=bf16``) hold
+their bf16 twins: a bf16 output within one bf16 ulp (2^-7 of max |ref|)
+and at least 99% of it bit-equal (kernel and twin each round one f32
+value, a few f32 ulp apart), n bf16 ulps after an n-sweep chain, an f32
+output from the same bf16 inputs (the second substage) within 2e-6
+relative; their split forms reproduce the solo ones bit for bit, and a
+split bf16 step the solo bf16 step."""
 
 import numpy as np
 import pytest
@@ -479,3 +485,158 @@ def test_cavity_on_the_card_matches_cpu(cuda, monkeypatch, pois):
     assert sims[0].kernel_tier == "hopper+bc(ns,ns,ns,ns(1,0))"
     a, b = sims[0].state.vel.cpu(), sims[1].state.vel
     assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# bf16 forms (CUP2D_PREC=bf16)
+# ---------------------------------------------------------------------------
+
+BF16_ULP = 2.0 ** -7
+
+
+def _bf16_close(got, ref, ulps=1):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    rel = float((got.float() - ref.float()).abs().max()
+                / ref.float().abs().max())
+    share = float((got == ref).float().mean())
+    assert rel <= ulps * BF16_ULP, rel
+    assert share >= 0.99, share
+
+
+# ragged shapes (2-byte loads where nx % 4), member stacks, tiles across
+# both walls
+BF16_SHAPES = [(1, 2, 64, 96), (3, 2, 48, 72), (2, 2, 33, 70),
+               (1, 2, 130, 260)]
+
+
+@pytest.mark.parametrize("table", [None, "cavity", "channel_parabolic"])
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_advect_heun_bf16_kernel_vs_twin(cuda, table, shape):
+    bc = None if table is None else BC_TABLES[table]
+    L, _, ny, nx = shape
+    h = 1.0 / nx
+    v = _rand(shape, 41, cuda)
+    dt = torch.tensor([0.5 * h, 0.35 * h, 0.27 * h][:L], device=cuda)
+    facs = hk._substage_facs(dt, h, 4e-5, (L,), L, torch.float32, cuda,
+                             with_dt=bc is not None)
+    vb = v.to(torch.bfloat16)
+    hk.reset_launches()
+    s1 = hk.advect_substage(vb, None, facs, 0.5, 1 / h ** 2, bc, h)
+    _bf16_close(s1, hk.advect_substage_plain(vb, None, facs, 0.5,
+                                             1 / h ** 2, bc, h))
+    s2 = hk.advect_substage(s1, vb, facs, 1.0, 1 / h ** 2, bc, h,
+                            torch.float32)
+    ref = hk.advect_substage_plain(s1, vb, facs, 1.0, 1 / h ** 2, bc, h,
+                                   torch.float32)
+    assert s2.dtype == torch.float32
+    assert float((s2 - ref).abs().max() / ref.abs().max()) <= 2e-6
+    pair = hk.fused_advect_heun(v, h, 4e-5, dt, bc=bc, bf16=True)
+    twin = hk.fused_advect_heun_plain(v, h, 4e-5, dt, bc=bc, bf16=True)
+    torch.cuda.synchronize()
+    assert float((pair - twin).abs().max() / twin.abs().max()) <= 2e-2
+    assert hk.launches["fused_advect_heun+bf16"] == 4
+    assert hk.launches["fused_advect_heun+bc+bf16"] == (0 if bc is None
+                                                        else 4)
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_halo_substage_bf16_kernel_vs_twin_and_solo_kernel(cuda, D):
+    h = 1.0 / 96
+    v = _rand((2, 2, 48, 96), 42, cuda)
+    dt = torch.tensor([0.5 * h, 0.3 * h], device=cuda)
+    mesh = make_mesh(devices=[cuda] * D)
+    hk.reset_launches()
+    split = gather_x(fused_advect_heun_sharded(split_x(v, mesh), h, 4e-5,
+                                               dt, bf16=True))
+    solo = hk.fused_advect_heun(v, h, 4e-5, dt, bf16=True)
+    torch.cuda.synchronize()
+    assert hk.launches["advect_substage_halo+bf16"] == 2 * D
+    assert torch.equal(split, solo)
+    s = split_x(v.to(torch.bfloat16), mesh)
+    aux = exchange_x(s, 3)
+    facs = hk._substage_facs(dt, h, 4e-5, (2,), 2, torch.float32, cuda)
+    for d in range(D):
+        args = (s.parts[d], None, aux[d], facs, 0.5, 1 / h ** 2, d == 0,
+                d == D - 1)
+        _bf16_close(hk.advect_substage_halo(*args),
+                    hk.advect_substage_halo_plain(*args))
+
+
+@pytest.mark.parametrize("shape", JACOBI_SHAPES)
+@pytest.mark.parametrize("signs", [None, (1.0, -1.0, 1.0, 1.0)])
+@pytest.mark.parametrize("from_zero", [False, True])
+def test_jacobi_bf16_kernel_vs_twin(cuda, shape, signs, from_zero):
+    L, ny, nx, n = shape
+    e = _rand((L, ny, nx), 43, cuda).to(torch.bfloat16)
+    r = _rand((L, ny, nx), 44, cuda).to(torch.bfloat16)
+    hk.reset_launches()
+    got = hk.fused_jacobi_sweeps(e, r, 0.8, n, from_zero, signs)
+    ref = hk.jacobi_sweeps_bf16_plain(e, r, 0.8, n, from_zero, signs)
+    torch.cuda.synchronize()
+    launches = len(hk.sweep_chain(n, bf16=True))
+    assert hk.launches["fused_jacobi_sweeps+bf16"] == launches
+    assert hk.launches["fused_jacobi_sweeps+bc+bf16"] == (
+        0 if signs is None else launches)
+    _bf16_close(got, ref, ulps=n)
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("from_zero", [False, True])
+def test_halo_jacobi_bf16_kernel_vs_twin_and_solo_kernel(cuda, D,
+                                                         from_zero):
+    e = _rand((72, 136), 45, cuda).to(torch.bfloat16)
+    r = _rand((72, 136), 46, cuda).to(torch.bfloat16)
+    mesh = make_mesh(devices=[cuda] * D)
+    hk.reset_launches()
+    split = gather_x(overlap_jacobi_sweeps(split_x(e, mesh), split_x(r, mesh),
+                                           0.8, 3, from_zero))
+    solo = hk.fused_jacobi_sweeps(e, r, 0.8, 3, from_zero)
+    torch.cuda.synchronize()
+    assert hk.launches["jacobi_halo_sweep+bf16"] == 3 * D
+    assert torch.equal(split, solo)
+    _bf16_close(split, hk.jacobi_sweeps_bf16_plain(e, r, 0.8, 3, from_zero),
+                ulps=3)
+
+
+def test_bf16_kernels_refuse_mixed_storage(cuda):
+    e = torch.zeros(16, 16, device=cuda)
+    with pytest.raises(TypeError, match="storage dtype"):
+        hk.fused_jacobi_sweeps(e, e.to(torch.bfloat16), 0.8, 2)
+    v = torch.zeros(1, 2, 16, 16, device=cuda)
+    facs = torch.zeros(1, 2, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        hk.advect_substage(v.to(torch.bfloat16), None,
+                           facs.to(torch.bfloat16), 0.5, 1.0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        hk.advect_substage(v, None, facs, 0.5, 1.0,
+                           out_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("pois", ["", "fas"])
+def test_sharded_bf16_step_on_one_card_equals_solo(cuda, monkeypatch,
+                                                   pois):
+    """Two exact and two production steps under CUP2D_PREC=bf16 of a
+    D = 2 split on cuda:0 against the solo bf16 step: equal iterations,
+    bit for bit; every substage launch a bf16 one, and under fas every
+    sweep."""
+    monkeypatch.setenv("CUP2D_POIS", pois)
+    monkeypatch.setenv("CUP2D_PREC", "bf16")
+    cfg = SimConfig(bpdx=2, bpdy=1, level_max=1, level_start=0,
+                    extent=2.0, nu=4e-5, cfl=0.5, dtype="float32")
+    solo = UniformSim(cfg, level=5, device=cuda)
+    solo.state = bench_state(solo.grid)
+    sh = ShardedUniformSim(cfg, make_mesh(devices=[cuda] * 2), level=5)
+    sh.set_state(bench_state(sh.grid))
+    solo.step_count = sh.step_count = 8
+    hk.reset_launches()
+    for _ in range(4):
+        ds, dh = solo.step_once(), sh.step_once()
+        assert ds["poisson_iters"] == dh["poisson_iters"]
+    torch.cuda.synchronize()
+    la = hk.launches
+    assert la["advect_substage_halo+bf16"] == la["advect_substage_halo"] > 0
+    assert la["fused_advect_heun+bf16"] == la["fused_advect_heun"] > 0
+    assert la["jacobi_halo_sweep+bf16"] == la["jacobi_halo_sweep"]
+    assert la["fused_jacobi_sweeps+bf16"] == la["fused_jacobi_sweeps"]
+    assert (la["fused_jacobi_sweeps"] > 0) == (pois == "fas")
+    assert torch.equal(unshard_state(sh.state).vel, solo.state.vel)

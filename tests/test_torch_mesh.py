@@ -160,7 +160,8 @@ def test_make_mesh(monkeypatch):
 
 @pytest.mark.parametrize("env,value,exc,match", [
     ("CUP2D_POIS", "fftd", NotImplementedError, "fftd"),
-    ("CUP2D_PREC", "bf16", NotImplementedError, "bf16"),
+    # bf16 runs on f32 state; this config is f64, which it refuses
+    ("CUP2D_PREC", "bf16", ValueError, "bf16"),
 ])
 def test_latches_refuse(monkeypatch, env, value, exc, match):
     monkeypatch.setenv(env, value)
