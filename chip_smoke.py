@@ -47,7 +47,15 @@ the result lines:
    n bf16 ulps), the bf16 V-cycle's levels timed, and the halo sweep (the
    assembled split sweep bit for bit the bf16 chain's, per shard within
    one bf16 ulp); each with kernel ms, twin ms and its bytes bound beside
-   the f32 form's ms;
+   the f32 form's ms. The split step's boundary-table forms at its main
+   path's shapes: the halo substage pair under the four tables on 4 slabs
+   of the 8192^2 benchmark velocity and of a ragged member stack, f32 and
+   bf16 (the assembled slabs bit for bit the solo BC pair, each shard
+   against its twin as the solo forms are), and the signed halo sweep with
+   the signs (1, 1, 1, 1) and (1, -1, 1, 1) on the finest split level and
+   two coarse ones, f32 and bf16 (the assembled sweep bit for bit one
+   signed sweep of the chain kernel, each shard against its twin); kernel
+   ms, twin ms and bound beside the free-slip or Neumann form's ms;
 3. the uniform main path: ``UniformGrid.step(obstacle_terms=False)`` on
    the 8192^2 f32 benchmark state, under the default solver (BiCGSTAB +
    bf16 multigrid) and under CUP2D_POIS=fas, one warm-up and five timed
@@ -111,7 +119,20 @@ the result lines:
    velocity for 5 steps under both solvers on the card against the CPU's
    twins (<= 2e-2 relative) and against the card's f32 run (in
    (0, 2e-2]); launch counts from 0 before each run, every ``+bf16``
-   counter non-zero.
+   counter non-zero; and the cavity split into 4 slabs under fas for two
+   timed steps (the split boundary-table bf16 forms), bit for bit the solo
+   bf16 cavity with equal iterations.
+10. the wall-bounded boxes on the x-split step: the 8192^2 cavity
+   (``cases.make_sim("cavity", level=10, mesh=make_mesh(devices=["cuda:0"]
+   * 4))``) from the benchmark velocity under the default solver and
+   CUP2D_POIS=fas, and the 8192 x 2048 parabolic channel on 4 slabs under
+   fas (the default solver does not converge there at f32): production
+   ``step_once`` steps at the CFL dt, one warm-up and three timed, the
+   launch counts from 0 (2 boundary-table halo substage launches per shard
+   and step, signed halo sweeps under fas only: every ``+bc`` halo counter
+   non-zero; no solo substage, correction or sweep-chain launch), then the
+   solo sim from the same state: equal iterations every step and velocity
+   within 1e-5 relative.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit
 as nvidia-smi prints them, and the result line
@@ -144,7 +165,8 @@ from cup2d_tpu_torch.ops.timing import (OPS_SWEEP_CELL, bound,  # noqa: E402
                                         substage_ops, substage_pair_bytes,
                                         sweep_bytes, sweep_level_table,
                                         vcycle_chains, weno_faces)
-from cup2d_tpu_torch.ops.stencil import inv_diag_bc, pad_vector  # noqa: E402
+from cup2d_tpu_torch.ops.stencil import (inv_diag_bc,  # noqa: E402
+                                         inv_diag_bc_slab, pad_vector)
 from cup2d_tpu_torch.parallel.mesh import (ShardedUniformSim,  # noqa: E402
                                            make_mesh)
 from cup2d_tpu_torch.parallel.shard_halo import (  # noqa: E402
@@ -187,7 +209,8 @@ BF16_BAND = 2e-2       # the bf16 pair against its twin, and the bf16 step
 #                        (tests/test_megakernel.py)
 BF16_KEYS = ("fused_advect_heun+bf16", "fused_advect_heun+bc+bf16",
              "advect_substage_halo+bf16", "fused_jacobi_sweeps+bf16",
-             "fused_jacobi_sweeps+bc+bf16", "jacobi_halo_sweep+bf16")
+             "fused_jacobi_sweeps+bc+bf16", "jacobi_halo_sweep+bf16",
+             "advect_substage_halo+bc+bf16", "jacobi_halo_sweep+bc+bf16")
 
 # the four tables of tests/test_megakernel.py
 BC_TABLES = {
@@ -1057,6 +1080,204 @@ def phase_halo_kernels(dev, res, size: int = 8192) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_split_bc_kernels(dev, res, size: int = 8192) -> None:
+    """Phase 2, continued: the boundary-table forms of the x-split step's
+    halo kernels at its main path's shapes (8192^2 on MESH_D slabs of one
+    card). The halo substage pair under the four tables on the benchmark
+    velocity and on a ragged member stack (per-member dt, slabs of 375
+    columns): the assembled slabs against the solo BC pair (<= 1 ulp, bit
+    for bit expected), each shard against its twin (<= 2e-6 relative);
+    the bf16 form likewise (assembled bit for bit the solo bf16 BC pair,
+    per shard within one bf16 ulp). The signed halo sweep with the
+    tables' two sign patterns, f32 and bf16, on the finest split level and
+    two coarse ones: the assembled sweep against one signed sweep of the
+    chain kernel (bit for bit), each shard against its twin. Kernel ms,
+    twin ms and bound beside the free-slip or Neumann form's ms. Fills
+    ``res`` for the four ``+bc`` halo entries."""
+    f32, bf = torch.float32, torch.bfloat16
+    mesh = make_mesh(devices=[dev] * MESH_D)
+    walls = [(d == 0, d == MESH_D - 1) for d in range(MESH_D)]
+    g = bench_grid(size, size, dev)
+    cells = g.ny * g.nx
+    v = bench_start(g).vel[None].contiguous()
+    dt = torch.tensor([0.5], device=dev) * g.h
+    ih2 = 1.0 / (g.h * g.h)
+
+    def shard_args(vel, h, dts, table, storage, w):
+        """Per shard, both substages' arguments on the split step's own
+        operands (substage 1 run by the kernel)."""
+        L = vel.shape[0]
+        facs = hk._substage_facs(dts, h, 4e-5, (L,), L, f32, dev,
+                                 with_dt=True)
+        s0 = split_x(vel.to(storage), mesh)
+        aux0 = exchange_x(s0, 3)
+        kw = [dict(bc=table, h=h, col0=d * w, nx_tot=w * MESH_D)
+              for d in range(MESH_D)]
+        s1 = Slabs([hk.advect_substage_halo(p, None, aux0[d], facs, 0.5,
+                                            1 / h ** 2, *walls[d], **kw[d])
+                    for d, p in enumerate(s0.parts)], mesh)
+        aux1 = exchange_x(s1, 3)
+        out2 = None if storage == f32 else f32
+        return [((s0.parts[d], None, aux0[d], facs, 0.5, 1 / h ** 2,
+                  *walls[d]), kw[d],
+                 (s1.parts[d], s0.parts[d], aux1[d], facs, 1.0, 1 / h ** 2,
+                  *walls[d], out2), kw[d]) for d in range(MESH_D)], aux0
+
+    for storage in (f32, bf):
+        key = ("advect_substage_halo+bc" if storage == f32
+               else "advect_substage_halo+bc+bf16")
+        base = res["advect_substage_halo" if storage == f32
+                   else "advect_substage_halo+bf16"]["ms"]
+        bf16 = storage == bf
+        err = 0.0
+        for name, table in BC_TABLES.items():
+            solo = hk.fused_advect_heun(v, g.h, 4e-5, dt, bc=table,
+                                        bf16=bf16)
+            split = gather_x(fused_advect_heun_sharded(
+                split_x(v, mesh), g.h, 4e-5, dt, bc=table, bf16=bf16))
+            u3 = ulps(split, solo)
+            del split, solo
+            check(u3 <= (0 if bf16 else SPLIT_ULPS), f"{key} {name}: the "
+                  f"split pair is {u3} ulp from the solo BC pair")
+            args, aux0 = shard_args(v, g.h, dt, table, storage,
+                                    size // MESH_D)
+            for d, (a1, k1, a2, k2) in enumerate(args):
+                s1 = hk.advect_substage_halo(*a1, **k1)
+                r1 = hk.advect_substage_halo_plain(*a1, **k1)
+                if bf16:
+                    e1 = bf16_close(f"{key} {name} shard {d} substage 1",
+                                    s1, r1)
+                else:
+                    e1 = rel_close(f"{key} {name} shard {d} substage 1", s1,
+                                   r1, HEUN_ABS)
+                e2 = rel_close(f"{key} {name} shard {d} substage 2",
+                               hk.advect_substage_halo(*a2, **k2),
+                               hk.advect_substage_halo_plain(*a2, **k2),
+                               F32_REL if bf16 else HEUN_ABS)
+                err = max(err, e1, e2)
+                del s1, r1
+
+            def k3(sub):
+                for a1, k1, _, _ in args:
+                    sub(*a1, **k1)
+                for _, _, a2, k2 in args:
+                    sub(*a2, **k2)
+            ms = cuda_ms(lambda: k3(hk.advect_substage_halo), 10)
+            print(f"phase 2 {key} {name} [1,2,{size},{size // MESH_D}] "
+                  f"x{MESH_D}, both substages: split vs solo BC pair {u3} "
+                  f"ulp; kernel_ms {ms} (free-slip form {base})",
+                  flush=True)
+            if name == "cavity":
+                pms = cuda_ms(lambda: k3(hk.advect_substage_halo_plain), 1)
+                item = 2 if bf16 else 4
+                aux_bytes = 2 * sum(a.numel() for a in aux0) * item
+                b = bound(substage_pair_bytes(cells, bf16) + aux_bytes,
+                          sum(substage_ops(a[0].float())
+                              for a1, _, a2, _ in args for a in (a1, a2)))
+                res[key].update(ms=ms, plain_ms=pms, bound_ms=b[0],
+                                bound_by=b[1], library_ms=None)
+                print(f"phase 2 {key} cavity twin_ms {pms} bound_ms {b[0]}"
+                      f" ({b[1]})", flush=True)
+            del args, aux0
+            torch.cuda.empty_cache()
+        # a ragged member stack: 4-byte (2-byte) copies, ragged tiles across
+        # the y walls and every slab edge, per-member dt
+        gen = torch.Generator(device=dev).manual_seed(9)
+        vr = torch.randn(2, 2, 1000, 1500, generator=gen, device=dev)
+        hr = 1.0 / 1500
+        dtr = torch.tensor([0.5, 0.3], device=dev) * hr
+        for name, table in BC_TABLES.items():
+            u3 = ulps(gather_x(fused_advect_heun_sharded(
+                split_x(vr, mesh), hr, 4e-5, dtr, bc=table, bf16=bf16)),
+                hk.fused_advect_heun(vr, hr, 4e-5, dtr, bc=table,
+                                     bf16=bf16))
+            check(u3 <= (0 if bf16 else SPLIT_ULPS), f"{key} {name} "
+                  f"{list(vr.shape)}: split {u3} ulp from the solo pair")
+            args, _ = shard_args(vr, hr, dtr, table, storage, 1500 // MESH_D)
+            for d, (a1, k1, a2, k2) in enumerate(args):
+                r1 = hk.advect_substage_halo_plain(*a1, **k1)
+                s1 = hk.advect_substage_halo(*a1, **k1)
+                lab = f"{key} {name} {list(vr.shape)} shard {d}"
+                e1 = (bf16_close(f"{lab} substage 1", s1, r1) if bf16 else
+                      rel_close(f"{lab} substage 1", s1, r1, HEUN_ABS))
+                e2 = rel_close(f"{lab} substage 2",
+                               hk.advect_substage_halo(*a2, **k2),
+                               hk.advect_substage_halo_plain(*a2, **k2),
+                               F32_REL if bf16 else HEUN_ABS)
+                err = max(err, e1, e2)
+            print(f"phase 2 {key} {name} {list(vr.shape)} on {MESH_D} "
+                  f"slabs: split vs solo BC pair {u3} ulp", flush=True)
+            del args
+        res[key]["max_abs_err"] = err
+        del vr
+    del v
+    torch.cuda.empty_cache()
+
+    # K7, signed: the finest split level and two coarse ones (a split 64^2
+    # level of 16-wide slabs, a gathered 16^2 level on one shard), both
+    # sign patterns of the tables (cavity: all Neumann, signed form all the
+    # same; channel: (1, -1, 1, 1))
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for storage in (f32, bf):
+        bf16 = storage == bf
+        key = ("jacobi_halo_sweep+bc" if not bf16
+               else "jacobi_halo_sweep+bc+bf16")
+        twin = (hk.jacobi_halo_sweep_bf16_plain if bf16
+                else hk.jacobi_halo_sweep_plain)
+        err = 0.0
+        for n, m in ((size, mesh), (64, mesh),
+                     (16, make_mesh(devices=[dev]))):
+            e = torch.randn(n, n, generator=gen, device=dev).to(storage)
+            r = torch.randn(n, n, generator=gen, device=dev).to(storage)
+            es, rs = split_x(e, m), split_x(r, m)
+            aux = exchange_x(es, 1)
+            mw = [(d == 0, d == m.size - 1) for d in range(m.size)]
+            for signs in ((1.0, 1.0, 1.0, 1.0), EDGE_SIGNS):
+                for fz in (False, True):
+                    split = gather_x(overlap_jacobi_sweeps(
+                        es, rs, 0.8, 1, fz, edge_signs=signs))
+                    u7 = ulps(split.float(), hk.fused_jacobi_sweeps(
+                        e, r, 0.8, 1, fz, signs).float())
+                    check(u7 == 0 if bf16 else u7 <= SPLIT_ULPS,
+                          f"{key} {n}^2 {signs} from_zero={fz}: {u7} ulp "
+                          "from the signed chain kernel")
+                    print(f"phase 2 {key} {n}^2 on {m.size} slabs signs "
+                          f"{list(signs)} from_zero={fz} vs "
+                          f"fused_jacobi_sweeps (n=1): max {u7} ulp",
+                          flush=True)
+                for d in range(m.size):
+                    a = (es.parts[d], rs.parts[d], aux[d], 0.8, *mw[d],
+                         False, signs)
+                    k, p = hk.jacobi_halo_sweep(*a), twin(*a)
+                    lab = f"{key} {n}^2 {list(signs)} shard {d}"
+                    err = max(err, bf16_close(lab, k, p) if bf16 else
+                              rel_close(lab, k, p, JACOBI_REL))
+            if n == size:
+                def k7(sweep):
+                    for d in range(MESH_D):
+                        sweep(es.parts[d], rs.parts[d], aux[d], 0.8, *mw[d],
+                              False, EDGE_SIGNS)
+                ms = cuda_ms(lambda: k7(hk.jacobi_halo_sweep), 20)
+                pms = cuda_ms(lambda: k7(twin), 2)
+                item = 2 if bf16 else 4
+                b = bound(sweep_bytes(cells, False, item)
+                          + 2.0 * item * n * MESH_D, OPS_SWEEP_CELL * n * n)
+                base = res["jacobi_halo_sweep+bf16" if bf16
+                           else "jacobi_halo_sweep"]["ms"]
+                res[key].update(ms=ms, plain_ms=pms, bound_ms=b[0],
+                                bound_by=b[1], library_ms=None)
+                print(f"phase 2 {key} {list(EDGE_SIGNS)} [{n},{n // MESH_D}]"
+                      f" x{MESH_D}, one sweep: kernel_ms {ms} (Neumann form "
+                      f"{base}) twin_ms {pms} bound_ms {b[0]} ({b[1]})",
+                      flush=True)
+            del e, r, es, rs, aux
+        res[key]["max_abs_err"] = err
+    # the twins' memoized 8192^2 signed slab diagonals would count in the
+    # later phases' peak memory
+    inv_diag_bc_slab.cache_clear()
+    torch.cuda.empty_cache()
+
+
 def run_sharded(dev, pois: str, steps: int = 3, size: int = 8192,
                 prec: str = "f32") -> dict:
     """Phase 7 (phase 9 under ``prec`` bf16) under one solver: the split
@@ -1356,18 +1577,28 @@ CHANNEL_CFG = dict(bpdx=4, bpdy=1, level_max=1, level_start=0, extent=4.0,
                    poisson_tol=1e-3, poisson_tol_rel=1e-2, dtype="float32")
 
 
-def walled_sim(kind: str, dev, level: int):
-    """Phase 8's drivers: the catalog's cavity from the benchmark's
-    velocity, or the parabolic channel table from u = u_in."""
+def walled_sim(kind: str, dev, level: int, mesh=None):
+    """Phase 8's and phase 10's drivers: the catalog's cavity from the
+    benchmark's velocity, or the parabolic channel table from u = u_in;
+    solo, or split over ``mesh``."""
     if kind == "cavity":
-        sim = cases.make_sim("cavity", level=level, device=dev)
-        sim.state = bench_start(sim.grid)
-        return sim
-    sim = UniformSim(SimConfig(**CHANNEL_CFG), level=level, device=dev,
-                     bc=cases.channel_table(0.2, profile="parabolic"))
-    st = sim.grid.zero_state()
-    st.vel[0] = 0.2
-    sim.state = st
+        if mesh is None:
+            sim = cases.make_sim("cavity", level=level, device=dev)
+        else:
+            sim = cases.make_sim("cavity", level=level, mesh=mesh)
+        st = bench_start(sim.grid)
+    else:
+        table = cases.channel_table(0.2, profile="parabolic")
+        cfg = SimConfig(**CHANNEL_CFG)
+        sim = (UniformSim(cfg, level=level, device=dev, bc=table)
+               if mesh is None else
+               ShardedUniformSim(cfg, mesh, level=level, bc=table))
+        st = sim.grid.zero_state()
+        st.vel[0] = 0.2
+    if mesh is None:
+        sim.state = st
+    else:
+        sim.set_state(st)
     return sim
 
 
@@ -1466,6 +1697,91 @@ def phase_walled(dev) -> tuple[list, dict]:
     return runs, total
 
 
+def run_split_walled(dev, kind: str, pois: str, level: int, steps: int = 3,
+                     prec: str = "f32") -> dict:
+    """Phase 10 (phase 9 under ``prec`` bf16) under one solver: a
+    wall-bounded box split into MESH_D slabs of the card, then the solo
+    sim from the same state, each a warm-up and ``steps`` timed production
+    steps at the CFL dt, the launch counts from 0. Checks the split run's
+    launches; returns both runs' numbers and their velocity
+    difference."""
+    mesh = make_mesh(devices=[dev] * MESH_D)
+    out, vel = {}, {}
+    for label, m in (("sharded", mesh), ("solo", None)):
+        with latched(pois, prec):
+            sim = walled_sim(kind, dev, level, m)
+        sim.step_count = 10          # production solves
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats()
+        hk.reset_launches()
+        iters = [sim.step_once()["poisson_iters"]]           # warm-up
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            d = sim.step_once()
+            iters.append(d["poisson_iters"])
+        sync(dev)
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        out[label] = {
+            "case": kind, "table": sim.bc_table, "tier": sim.kernel_tier,
+            "mode": sim.poisson_mode, "smoother": sim.smoother_tier,
+            "shape": [sim.grid.ny, sim.grid.nx], "ms_per_step": ms,
+            "iters_per_step": sum(iters[1:]) / steps, "iters": iters,
+            "umax": d["umax"], "finite": bool(d["finite"]),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": {k: n for k, n in hk.launches.items() if n}}
+        v = sim.state.vel
+        vel[label] = gather_x(v) if m is not None else v
+        del sim, v
+        torch.cuda.empty_cache()
+    a, b = vel["sharded"], vel["solo"]
+    out["vel_rel_linf"] = float((a - b).abs().max() / b.abs().max())
+    out["bit_equal"] = bool(torch.equal(a, b))
+    del a, b, vel
+    phase = "phase 10" if prec == "f32" else f"phase 9 {prec}"
+    print(f"{phase} sharded {kind} D={MESH_D} {json.dumps(out)}", flush=True)
+    sh, so = out["sharded"], out["solo"]
+    label = f"sharded {kind} {pois or 'default'} {prec}"
+    check(sh["finite"] and so["finite"], f"{label}: non-finite state")
+    la = sh["launches"]
+    n = steps + 1
+    check(la.get("advect_substage_halo+bc", 0) == 2 * MESH_D * n
+          and la.get("advect_substage_halo", 0) == 2 * MESH_D * n,
+          f"{label}: halo substage launches {la} != 2 D boundary-table "
+          "ones a step")
+    check((la.get("jacobi_halo_sweep+bc", 0) > 0) == (pois == "fas")
+          and la.get("jacobi_halo_sweep", 0)
+          == la.get("jacobi_halo_sweep+bc", 0),
+          f"{label}: halo sweep launches {la}")
+    for k in ("fused_advect_heun", "fused_correction",
+              "fused_jacobi_sweeps"):
+        check(la.get(k, 0) == 0, f"{label}: a solo kernel launched ({k}: "
+              f"{la})")
+    bf16 = prec == "bf16"
+    for k in ("advect_substage_halo+bc", "jacobi_halo_sweep+bc"):
+        check(la.get(k + "+bf16", 0) == (la.get(k, 0) if bf16 else 0),
+              f"{label}: bf16 form launches {la}")
+    check(sh["iters"] == so["iters"], f"{label}: iterations {sh['iters']} "
+          f"!= solo {so['iters']}")
+    check(out["vel_rel_linf"] <= SHARDED_REL, f"{label}: vel rel "
+          f"{out['vel_rel_linf']} > {SHARDED_REL} from the solo step")
+    return out
+
+
+def phase_split_walled(dev) -> tuple[list, dict]:
+    """Phase 10: the wall-bounded boxes on the x-split step, MESH_D slabs
+    of the card: the 8192^2 cavity from the benchmark velocity under the
+    default solver and fas, and the 8192 x 2048 parabolic channel under
+    fas (the default solver does not converge there at f32, ROADMAP queue
+    3), each against the solo run from the same state. Returns the runs
+    and the ``+bc`` halo launches summed over them."""
+    runs = [run_split_walled(dev, "cavity", p, 10) for p in ("", "fas")]
+    runs.append(run_split_walled(dev, "channel", "fas", 8))
+    total = {k: sum(r["sharded"]["launches"].get(k, 0) for r in runs)
+             for k in ("advect_substage_halo+bc", "jacobi_halo_sweep+bc")}
+    return runs, total
+
+
 def phase_bf16_trajectory(dev, pois: str, steps: int = 5) -> None:
     """Phase 9, continued: 256^2 from the benchmark velocity under
     CUP2D_PREC=bf16 on the card and on the CPU (the twins), ``steps``
@@ -1501,8 +1817,9 @@ def phase_bf16(dev) -> tuple[dict, dict]:
     """Phase 9: the bf16 main path. The 8192^2 step under both solvers
     (phase 3's runs with CUP2D_PREC=bf16), the split step on MESH_D slabs
     of the card under both (bit for bit the solo bf16 step, equal
-    iterations), the cavity under fas (the boundary-table bf16 forms), and
-    the 256^2 bf16 step on the card against the CPU and against f32.
+    iterations), the cavity under fas (the boundary-table bf16 forms),
+    solo and split (bit for bit the solo bf16 cavity), and the 256^2 bf16
+    step on the card against the CPU and against f32.
     Returns the runs and the bf16 forms' launches summed over the
     main-path runs."""
     runs = {"uniform": [run_main_path(dev, p, "bf16") for p in ("", "fas")]}
@@ -1514,6 +1831,10 @@ def phase_bf16(dev) -> tuple[dict, dict]:
               f"solo {r['solo']['iters']}, bit-equal {r['bit_equal']}")
     runs["walled"] = [run_walled(dev, "cavity", "fas", 10, steps=2,
                                  prec="bf16")]
+    runs["split_walled"] = [run_split_walled(dev, "cavity", "fas", 10,
+                                             steps=2, prec="bf16")]
+    check(runs["split_walled"][0]["bit_equal"], "phase 9 sharded cavity: "
+          "the split bf16 step differs from the solo bf16 step")
     for p in ("", "fas"):
         phase_bf16_trajectory(dev, p)
     total = {k: 0 for k in BF16_KEYS}
@@ -1526,6 +1847,9 @@ def phase_bf16(dev) -> tuple[dict, dict]:
     for r in runs["walled"]:
         for k in total:
             total[k] += r["launches"].get(k, 0)
+    for r in runs["split_walled"]:
+        for k in total:
+            total[k] += r["sharded"]["launches"].get(k, 0)
     return runs, total
 
 
@@ -1557,6 +1881,10 @@ def main() -> int:
     phase_bf16_kernels(dev, res)
     print(f"phase 2 bf16 forms took {time.perf_counter() - t0} s",
           flush=True)
+    t0 = time.perf_counter()
+    phase_split_bc_kernels(dev, res)
+    print(f"phase 2 split boundary-table forms took "
+          f"{time.perf_counter() - t0} s", flush=True)
 
     uniform = ("fused_advect_heun", "fused_correction",
                "fused_jacobi_sweeps")
@@ -1594,6 +1922,14 @@ def main() -> int:
     for k, n in bf16_launches.items():
         check(n > 0, f"{k}: launched no time on the bf16 main path")
     launches.update(bf16_launches)
+
+    t0 = time.perf_counter()
+    split_walled, split_walled_launches = phase_split_walled(dev)
+    print(f"phase 10 took {time.perf_counter() - t0} s", flush=True)
+    for k, n in split_walled_launches.items():
+        check(n > 0, f"{k}: launched no time on the split wall-bounded "
+              "path")
+    launches.update(split_walled_launches)
     check("jax" not in sys.modules, "the smoke imported jax")
 
     kernels = [dict(name=k, route="cuda", source=hk.SOURCES[hk.kernel_of(k)],
@@ -1610,6 +1946,8 @@ def main() -> int:
     print(f"sharded main path summary: {json.dumps(sharded)}")
     print(f"wall-bounded main path summary: {json.dumps(walled)}")
     print(f"bf16 main path summary: {json.dumps(bf16_runs)}")
+    print(f"split wall-bounded main path summary: "
+          f"{json.dumps(split_walled)}")
     print(f"total {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -20,6 +20,8 @@ velocity ghosts (``pad_vector_bc``)
     periodic    the opposite side's interior lines
     The y faces paint first over the interior columns, the x faces then
     over the y-completed columns, so corners compose y then x.
+    ``pad_vector_bc_slab`` paints one x slab of a split field to the same
+    values (its halo columns' y ghosts as their owner paints them).
 
 pressure (``pressure_signs``): +1 homogeneous Neumann on prescribed
 velocity faces, -1 homogeneous Dirichlet at the mid-face for outflow, 0
@@ -48,8 +50,8 @@ _FACES = ("x_lo", "x_hi", "y_lo", "y_hi")
 
 __all__ = ["BCTable", "FREE_SLIP", "FaceBC", "convective_outflow",
            "dirichlet_inflow", "divergence_affine_bc", "divergence_coeffs",
-           "free_slip", "no_slip", "pad_vector_bc", "periodic",
-           "periodic_axes", "pressure_signs"]
+           "free_slip", "no_slip", "pad_vector_bc", "pad_vector_bc_slab",
+           "periodic", "periodic_axes", "pressure_signs"]
 
 
 class FaceBC(NamedTuple):
@@ -180,12 +182,17 @@ def periodic_axes(bc: BCTable) -> Tuple[bool, bool]:
     return (bc.x_lo.kind == "periodic", bc.y_lo.kind == "periodic")
 
 
-def _profile_1d(face: FaceBC, n: int, dtype, device=None):
+def _profile_1d(face: FaceBC, n: int, dtype, device=None, start: int = 0,
+                n_tot: Optional[int] = None):
     """Inflow profile along the face tangent: None (uniform) or
-    4 s (1 - s) at cell centres, s = (i + 0.5)/n."""
+    4 s (1 - s) at cell centres, s = (i + 0.5)/n_tot over the ``n`` cells
+    from global index ``start`` (a slab's part of a face of ``n_tot``
+    cells; the whole face by default)."""
     if face.kind != "inflow" or face.profile == "uniform":
         return None
-    s = (torch.arange(n, dtype=dtype, device=device) + 0.5) / n
+    n_tot = n if n_tot is None else n_tot
+    s = (torch.arange(start, start + n, dtype=dtype, device=device)
+         + 0.5) / n_tot
     return 4.0 * s * (1.0 - s)
 
 
@@ -223,11 +230,13 @@ def divergence_affine_bc(bc: BCTable, ny: int, nx: int, dtype,
 # velocity ghost paint
 # ---------------------------------------------------------------------------
 
-def _face_wall(face: FaceBC, n_tan: int, dtype, device, along_rows: bool):
-    """Wall velocity (u, v) of a no_slip/inflow face over the face line:
+def _face_wall(face: FaceBC, n_tan: int, dtype, device, along_rows: bool,
+               start: int = 0, n_tot: Optional[int] = None):
+    """Wall velocity (u, v) of a no_slip/inflow face over the face line
+    (``n_tan`` cells from ``start`` of ``n_tot``, as ``_profile_1d``):
     numbers, or profiled lines broadcastable against it (``along_rows``:
     the tangent runs along rows, an x face)."""
-    prof = _profile_1d(face, n_tan, dtype, device)
+    prof = _profile_1d(face, n_tan, dtype, device, start, n_tot)
     uw = []
     for comp in range(2):
         val = face.u_wall[comp]
@@ -253,6 +262,71 @@ def _x_face_wall_padded(face: FaceBC, ny: int, g: int, dtype, device):
     return tuple(v * prof if v != 0.0 else 0.0 for v in face.u_wall)
 
 
+def _ghost(face, edge_u, edge_v, inner_u, inner_v, normal_comp,
+           outward_sign, uw, h, dt):
+    """One face's ghost line (gu, gv) from its edge and inner lines (module
+    docstring)."""
+    if face.kind == "free_slip":
+        return ((-edge_u, edge_v) if normal_comp == 0
+                else (edge_u, -edge_v))
+    if face.kind in ("no_slip", "inflow"):
+        return (2.0 * uw[0] - edge_u, 2.0 * uw[1] - edge_v)
+    edge_n = edge_u if normal_comp == 0 else edge_v
+    if dt is None:
+        c = 0.0
+    else:
+        c = torch.clamp(outward_sign * edge_n * dt / h, 0.0, 1.0)
+    return (edge_u + c * (edge_u - inner_u),
+            edge_v + c * (edge_v - inner_v))
+
+
+def _paint(out, sl_u, sl_v, gu, gv):
+    # clone: a ghost line may be a view of ``out`` itself
+    out[sl_u] = gu.clone().expand_as(out[sl_u])
+    out[sl_v] = gv.clone().expand_as(out[sl_v])
+
+
+def _paint_y_faces(out, src, g: int, bc: BCTable, h, dt, cols: slice,
+                   col0: int, nx_tot: int) -> None:
+    """Paint the y faces of ``out`` [..., 2, Ny+2g, C] (the ghost rows) over
+    its columns ``cols``, from ``src`` [..., 2, Ny, n] (those columns'
+    interior), whose first column is global column ``col0`` of ``nx_tot``
+    (the parabolic profile's coordinate)."""
+    e = Ellipsis
+    ny, n = src.shape[-2], src.shape[-1]
+    for f, er, ir, rows, sign in ((bc.y_lo, 0, 1, slice(0, g), -1.0),
+                                  (bc.y_hi, ny - 1, ny - 2,
+                                   slice(ny + g, ny + 2 * g), 1.0)):
+        uw = (_face_wall(f, n, src.dtype, src.device, False, col0, nx_tot)
+              if f.kind in ("no_slip", "inflow") else (0.0, 0.0))
+        gu, gv = _ghost(f, src[e, 0:1, er:er + 1, :], src[e, 1:2, er:er + 1, :],
+                        src[e, 0:1, ir:ir + 1, :], src[e, 1:2, ir:ir + 1, :],
+                        1, sign, uw, h, dt)
+        _paint(out, (e, slice(0, 1), rows, cols),
+               (e, slice(1, 2), rows, cols), gu, gv)
+
+
+def _paint_x_faces(out, g: int, bc: BCTable, h, dt, paint_lo: bool,
+                   paint_hi: bool) -> None:
+    """Paint the x faces of ``out`` [..., 2, Ny+2g, n+2g] over full rows
+    (the y faces painted first), reading the y-completed edge columns; a
+    side only where ``paint_lo`` / ``paint_hi``."""
+    e = Ellipsis
+    ny, nx = out.shape[-2] - 2 * g, out.shape[-1] - 2 * g
+    for f, ec, ic, cols, sign, on in (
+            (bc.x_lo, g, g + 1, slice(0, g), -1.0, paint_lo),
+            (bc.x_hi, nx + g - 1, nx + g - 2, slice(nx + g, nx + 2 * g), 1.0,
+             paint_hi)):
+        if not on:
+            continue
+        uw = _x_face_wall_padded(f, ny, g, out.dtype, out.device)
+        gu, gv = _ghost(f, out[e, 0:1, :, ec:ec + 1], out[e, 1:2, :, ec:ec + 1],
+                        out[e, 0:1, :, ic:ic + 1], out[e, 1:2, :, ic:ic + 1],
+                        0, sign, uw, h, dt)
+        _paint(out, (e, slice(0, 1), slice(None), cols),
+               (e, slice(1, 2), slice(None), cols), gu, gv)
+
+
 def pad_vector_bc(v: torch.Tensor, g: int, bc: BCTable, h: float,
                   dt=None) -> torch.Tensor:
     """[..., 2, Ny, Nx] -> [..., 2, Ny+2g, Nx+2g]: zero pad, then paint
@@ -264,57 +338,46 @@ def pad_vector_bc(v: torch.Tensor, g: int, bc: BCTable, h: float,
         return pad_vector(v, g)
     ny, nx = v.shape[-2], v.shape[-1]
     out = F.pad(v, (g, g, g, g))
-    dev = v.device
 
-    def ghost(face, edge_u, edge_v, inner_u, inner_v, normal_comp,
-              outward_sign, uw):
-        if face.kind == "free_slip":
-            return ((-edge_u, edge_v) if normal_comp == 0
-                    else (edge_u, -edge_v))
-        if face.kind in ("no_slip", "inflow"):
-            return (2.0 * uw[0] - edge_u, 2.0 * uw[1] - edge_v)
-        edge_n = edge_u if normal_comp == 0 else edge_v
-        if dt is None:
-            c = 0.0
-        else:
-            c = torch.clamp(outward_sign * edge_n * dt / h, 0.0, 1.0)
-        return (edge_u + c * (edge_u - inner_u),
-                edge_v + c * (edge_v - inner_v))
-
-    def paint(sl_u, sl_v, gu, gv):
-        # clone: a ghost line may be a view of ``out`` itself
-        out[sl_u] = gu.clone().expand_as(out[sl_u])
-        out[sl_v] = gv.clone().expand_as(out[sl_v])
-
-    e = Ellipsis
     # y faces, interior columns (normal component v)
     if bc.y_lo.kind == "periodic":
         out[..., :g, g:-g] = v[..., ny - g:, :]
         out[..., -g:, g:-g] = v[..., :g, :]
     else:
-        for f, er, ir, rows, sign in ((bc.y_lo, 0, 1, slice(0, g), -1.0),
-                                      (bc.y_hi, ny - 1, ny - 2,
-                                       slice(ny + g, ny + 2 * g), 1.0)):
-            uw = (_face_wall(f, nx, v.dtype, dev, along_rows=False)
-                  if f.kind in ("no_slip", "inflow") else (0.0, 0.0))
-            gu, gv = ghost(f, v[e, 0:1, er:er + 1, :], v[e, 1:2, er:er + 1, :],
-                           v[e, 0:1, ir:ir + 1, :], v[e, 1:2, ir:ir + 1, :],
-                           1, sign, uw)
-            paint((e, slice(0, 1), rows, slice(g, g + nx)),
-                  (e, slice(1, 2), rows, slice(g, g + nx)), gu, gv)
+        _paint_y_faces(out, v, g, bc, h, dt, slice(g, g + nx), 0, nx)
 
     # x faces over full rows, reading the y-painted columns
     if bc.x_lo.kind == "periodic":
         out[..., :, :g] = out[..., :, nx:nx + g].clone()
         out[..., :, -g:] = out[..., :, g:2 * g].clone()
         return out
-    for f, ec, ic, cols, sign in ((bc.x_lo, g, g + 1, slice(0, g), -1.0),
-                                  (bc.x_hi, nx + g - 1, nx + g - 2,
-                                   slice(nx + g, nx + 2 * g), 1.0)):
-        uw = _x_face_wall_padded(f, ny, g, v.dtype, dev)
-        gu, gv = ghost(f, out[e, 0:1, :, ec:ec + 1], out[e, 1:2, :, ec:ec + 1],
-                       out[e, 0:1, :, ic:ic + 1], out[e, 1:2, :, ic:ic + 1],
-                       0, sign, uw)
-        paint((e, slice(0, 1), slice(None), cols),
-              (e, slice(1, 2), slice(None), cols), gu, gv)
+    _paint_x_faces(out, g, bc, h, dt, True, True)
+    return out
+
+
+def pad_vector_bc_slab(v: torch.Tensor, aux: torch.Tensor, g: int,
+                       bc: BCTable, h: float, dt, col0: int, nx_tot: int,
+                       is_lo: bool, is_hi: bool) -> torch.Tensor:
+    """``pad_vector_bc`` on one x slab [..., 2, Ny, w] of a split field
+    whose first column is global column ``col0`` of ``nx_tot``: aux
+    [..., 2, Ny, 2g] holds the g columns left of the slab ([..., :g]) and
+    the g right of it ([..., g:]), ignored on a side whose wall the slab
+    owns (``is_lo`` / ``is_hi``). The y faces are painted first over the
+    extended width (halo + slab + halo), the parabolic profile at global
+    columns ``col0 - g`` on, so a halo column gets the paint its owner
+    gives it; then the x faces over the y-completed columns, only on the
+    sides the slab owns. Every value is the one ``pad_vector_bc`` of the
+    whole field puts at the same global place. A free-slip table is
+    ``ops.stencil.pad_vector_slab``; periodic faces have no slab form."""
+    if bc.is_free_slip:
+        from .ops.stencil import pad_vector_slab
+        return pad_vector_slab(v, aux, g, is_lo, is_hi)
+    if any(periodic_axes(bc)):
+        raise NotImplementedError(
+            f"boundary table {bc.token!r}: periodic faces have no slab "
+            "form (ROADMAP queue 1 item 3)")
+    ext = torch.cat([aux[..., :g], v, aux[..., g:]], dim=-1)
+    out = F.pad(ext, (0, 0, g, g))
+    _paint_y_faces(out, ext, g, bc, h, dt, slice(None), col0 - g, nx_tot)
+    _paint_x_faces(out, g, bc, h, dt, bool(is_lo), bool(is_hi))
     return out

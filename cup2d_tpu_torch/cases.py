@@ -5,8 +5,9 @@ initial state behind one name. The listing is the JAX package's:
 
 ``cavity``
     Lid-driven cavity: unit box, four no-slip walls, the y_hi lid moving
-    at ``lid_u``, Re = lid_u / nu. Obstacle-free (``UniformSim``), and the
-    one case the port runs so far. Validated against Ghia, Ghia & Shin
+    at ``lid_u``, Re = lid_u / nu. Obstacle-free (``UniformSim``, or
+    ``ShardedUniformSim`` with ``mesh=``), and the one case the port runs
+    so far. Validated against Ghia, Ghia & Shin
     (1982) at Re 100 (``ghia_errors``; ``python -m cup2d_tpu_torch.cases
     --ghia``).
 ``channel``, ``cylinder``
@@ -103,22 +104,28 @@ def build_cavity(level: Optional[int] = None, re: float = 100.0,
                  lid_u: float = 1.0, dtype: str = "float32", mesh=None,
                  members: int = 0, cfl: float = 0.4, device=None):
     """Lid-driven cavity at Re = lid_u * L / nu on the unit box, from rest:
-    a solo ``UniformSim`` (the JAX package's split and fleet drivers of it
-    are not ported)."""
+    a solo ``UniformSim``, or a ``ShardedUniformSim`` over ``mesh`` (a
+    ``parallel.mesh.SlabMesh``, whose first device is the sim's; ``device``
+    is then left unset). The JAX package's fleet driver of it is not
+    ported."""
     if members > 0:
         raise NotImplementedError(
             "cavity with members: the fleet driver is not ported yet "
             "(ROADMAP queue 1 item 6)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "cavity on a slab mesh: the split step's boundary-table forms "
-            "are not ported yet (ROADMAP queue 2 item 6)")
-    from .uniform import UniformSim
     lvl = 4 if level is None else level
     cfg = SimConfig(bpdx=1, bpdy=1, level_max=1, level_start=0,
                     extent=1.0, dtype=dtype, nu=lid_u / re, cfl=cfl,
                     poisson_tol=1e-4, poisson_tol_rel=1e-3)
-    sim = UniformSim(cfg, level=lvl, device=device, bc=cavity_table(lid_u))
+    bc = cavity_table(lid_u)
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("build_cavity: pass a mesh or a device, not "
+                             "both (the mesh's first device is the sim's)")
+        from .parallel.mesh import ShardedUniformSim
+        sim = ShardedUniformSim(cfg, mesh, level=lvl, bc=bc)
+    else:
+        from .uniform import UniformSim
+        sim = UniformSim(cfg, level=lvl, device=device, bc=bc)
     sim.case = "cavity"
     return sim
 

@@ -7,7 +7,8 @@ on the card: bit for bit, and in time.
 ``cup2d_tpu_torch/ops/csrc`` of ``git archive <commit>`` unpacked under
 ``build/``) that holds ``jacobi.cu``, ``block_jacobi.cu``,
 ``advect_heun.cu``, ``advect_heun_halo.cu``, ``lab_rhs.cu``,
-``advect_rhs.cu`` and ``correction.cu`` with their headers. Each earlier C entry point takes
+``advect_rhs.cu``, ``correction.cu`` and ``jacobi_halo.cu`` with their
+headers. Each earlier C entry point takes
 today's arguments (it then runs behind today's wrapper) or, for the two
 substage kernels, those of their per-cell design, without a launch plan
 (``_LEGACY``): ``cup2d_advect_substage(v, vold, out, facs, L, ny, nx,
@@ -22,17 +23,26 @@ the same operands:
    benchmark state, a member stack, ragged shapes and adversarial winds
    (``wind_field``), and of the halo kernel under the four wall
    combinations; the forest lab RHS and the single-op RHS on normal labs;
-   the projection correction on 8192^2, a member stack and ragged shapes.
-   The largest distance in ulp must be 0;
+   the projection correction on 8192^2, a member stack and ragged shapes;
+   the boundary-table and bf16 forms the earlier sources define, behind
+   today's wrappers: the solo BC pair under four tables and the solo bf16
+   pair (free-slip and cavity) on the 8192^2 benchmark state, a member
+   stack and ragged shapes, the bf16 halo pair under the four wall
+   combinations, the halo sweep (f32 and bf16) and the signed chain (f32
+   and bf16). The largest distance in ulp must be 0;
 2. time, in turns (earlier, this, this, earlier) within the one process:
    device time from graph replays of each V-cycle chain per level, of the
    block-Jacobi update at 16384 blocks over 6 operand sets, and of each
    substage at the main paths' shapes (8192^2 solo, and 4 slabs of
-   8192 x 2048 for the halo kernel), and of the correction on 8192^2;
+   8192 x 2048 for the halo kernel), of the correction on 8192^2, of the
+   solo BC pair (cavity) and bf16 pair on 8192^2, and of one halo sweep on
+   4 slabs of 8192^2 (f32 and bf16);
 3. this tree's boundary-table forms beside its free-slip forms, in turns
    (free-slip, table, table, free-slip), at 8192^2: the substage pair
    under the cavity and the parabolic channel tables, the correction and
-   the n = 2 sweep chain with the channel's signs (1, -1, 1, 1).
+   the n = 2 sweep chain with the channel's signs (1, -1, 1, 1); and on
+   4 slabs of one card the halo pair under the same tables and one halo
+   sweep with the channel's signs.
 
 Prints one JSON line per comparison and a summary line last; exits 1 if
 any output differs. Needs a card and nvcc.
@@ -55,6 +65,9 @@ import torch
 from .config import SimConfig
 from .ops import hopper_kernels as hk
 from .ops.timing import graph_ms, sweep_level_table, vcycle_chains
+from .parallel.mesh import make_mesh
+from .parallel.shard_halo import (fused_advect_heun_sharded,
+                                  overlap_jacobi_sweeps, split_x)
 from .poisson import block_precond_matrix
 from .uniform import UniformGrid, bench_state
 
@@ -68,7 +81,7 @@ _LEGACY = {"advect_heun": ("cup2d_advect_substage",
                                 [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                                  _I, _I, _P])}
 _STEMS = ("jacobi", "block_jacobi", "advect_heun", "advect_heun_halo",
-          "lab_rhs", "advect_rhs", "correction")
+          "lab_rhs", "advect_rhs", "correction", "jacobi_halo")
 
 WIND_PATTERNS = ("normal", "random_sign", "zeros", "positive", "negative",
                  "checker")
@@ -108,8 +121,10 @@ def _arity(src: str, name: str) -> int:
 
 def build_other(csrc: Path) -> tuple[dict, set]:
     """Compile the earlier sources (one nvcc each, together) and return
-    their loaded C entry points and the stems whose entry point takes
-    today's arguments (the others take ``_LEGACY``'s)."""
+    their loaded C entry points (and those of the boundary-table and bf16
+    forms they define, under their ``hopper_kernels._FORM_ENTRIES`` keys)
+    and the stems whose entry point takes today's arguments (the others
+    take ``_LEGACY``'s)."""
     hk.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for stem in _STEMS:
@@ -138,9 +153,17 @@ def build_other(csrc: Path) -> tuple[dict, set]:
             raise RuntimeError(f"the earlier {stem}.cu: {name} takes "
                                f"{_arity(src, name)} arguments, neither "
                                "today's nor the planless interface")
-        fn = getattr(ctypes.CDLL(str(so)), name)
+        lib = ctypes.CDLL(str(so))
+        fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[stem] = fn
+        if stem not in current:
+            continue
+        for key, (fstem, fname, fargs) in hk._FORM_ENTRIES.items():
+            if fstem == stem and f"{fname}(" in src:
+                f = getattr(lib, fname)
+                f.argtypes, f.restype = fargs, ctypes.c_int
+                fns[key] = f
     return fns, current
 
 
@@ -157,6 +180,19 @@ def earlier(fns, current, stem, wrapper, legacy=None):
 
     def call(*args, **kw):
         with earlier_entries(fns, (stem,)):
+            return wrapper(*args, **kw)
+    return call
+
+
+def routed(fns, current, wrapper):
+    """``wrapper`` with every C entry of the earlier builds that takes
+    today's arguments (its kernel's forms included) in place of this
+    tree's, for the duration of each call."""
+    keys = [k for k in fns
+            if hk._FORM_ENTRIES.get(k, (k,))[0] in current]
+
+    def call(*args, **kw):
+        with earlier_entries(fns, keys):
             return wrapper(*args, **kw)
     return call
 
@@ -308,6 +344,160 @@ def substage_bit_checks(sub_o, halo_o, dev, size: int = 8192) -> list[dict]:
     return rows
 
 
+def form_bit_checks(fns, current, dev, size: int = 8192) -> list[dict]:
+    """The boundary-table and bf16 forms of the substage kernels and the
+    halo sweep against the earlier builds (each kernel's earlier forms
+    behind today's wrappers): the solo BC pair under the four tables of
+    tests/test_torch_cavity.py on the 8192^2 benchmark velocity, a member
+    stack and ragged shapes; the solo bf16 pair (free-slip and cavity) and
+    the bf16 halo pair under the four wall combinations; the halo sweep,
+    Neumann in f32 and bf16, under the four wall combinations (and on a
+    slab of the 8192^2 split); the signed chain in f32 and bf16. One row
+    per operand set with the worst ulp (of the f32 values: 0 where
+    equal)."""
+    from .cases import cavity_table, channel_table
+    from .bc import BCTable, convective_outflow, dirichlet_inflow, no_slip
+    tables = {"cavity": cavity_table(1.0),
+              "channel_uniform": channel_table(1.0),
+              "channel_parabolic": channel_table(1.0, "parabolic"),
+              "outflow_y": BCTable(no_slip(), no_slip(),
+                                   dirichlet_inflow(0.0, 1.0, "parabolic"),
+                                   convective_outflow())}
+    bf = torch.bfloat16
+    sub_o = routed(fns, current, hk.advect_substage)
+    halo_o = routed(fns, current, hk.advect_substage_halo)
+    sweep_o = routed(fns, current, hk.jacobi_halo_sweep)
+    chain_o = routed(fns, current, hk.fused_jacobi_sweeps)
+    rows = []
+
+    def fulps(a, b):
+        return ulps(a.float(), b.float())
+
+    def pair(v, table, storage, label):
+        L, _, ny, nx = v.shape
+        h = 1.0 / nx
+        dt = torch.tensor([0.5, 0.35, 0.27][:L], device=dev) * h
+        facs = hk._substage_facs(dt, h, 4e-5, (L,), L, torch.float32, dev,
+                                 with_dt=table is not None)
+        vs = v.to(storage)
+        out2 = None if storage == torch.float32 else torch.float32
+        v1 = hk.advect_substage(vs, None, facs, 0.5, 1 / h ** 2, table, h)
+        u = max(fulps(v1, sub_o(vs, None, facs, 0.5, 1 / h ** 2, table, h)),
+                fulps(hk.advect_substage(v1, vs, facs, 1.0, 1 / h ** 2,
+                                         table, h, out2),
+                      sub_o(v1, vs, facs, 1.0, 1 / h ** 2, table, h, out2)))
+        rows.append({"kernel": "fused_advect_heun", "form": (
+            ("" if table is None else "+bc")
+            + ("+bf16" if storage == bf else "")), "table": (
+            None if table is None else table.token), "shape": list(v.shape),
+            "operands": label, "ulps": u})
+
+    v, _ = _bench_velocity(size, dev)
+    for name, table in tables.items():
+        pair(v, table, torch.float32, "bench_state")
+    for table in (None, tables["cavity"]):
+        pair(v, table, bf, "bench_state")
+    del v
+    torch.cuda.empty_cache()
+    for k, shape in enumerate([(3, 2, 256, 512), (1, 2, 37, 150),
+                               (2, 2, 33, 70), (1, 2, 1000, 1501)]):
+        v = wind_field(shape, "normal", 70 + k, dev)
+        for name, table in tables.items():
+            pair(v, table, torch.float32, "member stack" if k == 0
+                 else "ragged")
+        for table in (None, tables["cavity"]):
+            pair(v, table, bf, "member stack" if k == 0 else "ragged")
+    for k, pat in enumerate(("normal", "random_sign", "checker")):
+        v = wind_field((2, 2, 70, 264), pat, 80 + k, dev).to(bf)
+        aux = wind_field((2, 2, 70, 6), pat, 90 + k, dev).to(bf)
+        facs, h = _facs(2, 1 / 264, dev), 1 / 264
+        for lo in (False, True):
+            for hi in (False, True):
+                a1 = (v, None, aux, facs, 0.5, 1 / h ** 2, lo, hi)
+                v1 = hk.advect_substage_halo(*a1)
+                a2 = (v1, v, aux, facs, 1.0, 1 / h ** 2, lo, hi,
+                      torch.float32)
+                u = max(fulps(v1, halo_o(*a1)),
+                        fulps(hk.advect_substage_halo(*a2), halo_o(*a2)))
+                rows.append({"kernel": "advect_substage_halo",
+                             "form": "+bf16", "shape": list(v.shape),
+                             "operands": pat, "is_lo": lo, "is_hi": hi,
+                             "ulps": u})
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for storage in (torch.float32, bf):
+        for shape in ((72, 136), (3, 40, 75), (size, size // 4)):
+            e, r = (torch.randn(shape, generator=gen, device=dev).to(storage)
+                    for _ in range(2))
+            aux = torch.randn(shape[:-1] + (2,), generator=gen,
+                              device=dev).to(storage)
+            u = 0
+            for lo in (False, True):
+                for hi in (False, True):
+                    for fz in (False, True):
+                        a = (e, r, aux, 0.8, lo, hi, fz)
+                        u = max(u, fulps(hk.jacobi_halo_sweep(*a),
+                                         sweep_o(*a)))
+            rows.append({"kernel": "jacobi_halo_sweep", "form": (
+                "+bf16" if storage == bf else ""), "shape": list(shape),
+                "ulps": u})
+            del e, r, aux
+        signs = (1.0, -1.0, 1.0, 1.0)
+        for shape, n in (((1, 72, 136), 2), ((2, 33, 70), 6),
+                         ((1, size, size), 2)):
+            e, r = (torch.randn(shape, generator=gen, device=dev).to(storage)
+                    for _ in range(2))
+            u = max(fulps(hk.fused_jacobi_sweeps(e, r, 0.8, n, fz, signs),
+                          chain_o(e, r, 0.8, n, fz, signs))
+                    for fz in (False, True))
+            rows.append({"kernel": "fused_jacobi_sweeps", "form": (
+                "+bc+bf16" if storage == bf else "+bc"), "shape": list(shape),
+                "n": n, "ulps": u})
+            del e, r
+    torch.cuda.empty_cache()
+    return rows
+
+
+def form_times(fns, current, dev, size: int = 8192,
+               slabs: int = 4) -> dict:
+    """Device ms, in turns (earlier, this, this, earlier), of the forms
+    this tree's header changes run under: the solo BC pair (cavity) and
+    the solo bf16 pair on [1, 2, size, size], and one halo sweep on
+    ``slabs`` slabs of size^2 (one call = every slab), f32 and bf16."""
+    from .cases import cavity_table
+    v, h = _bench_velocity(size, dev)
+    dt = torch.tensor([0.5], device=dev) * h
+    gen = torch.Generator(device=dev).manual_seed(12)
+    w = size // slabs
+    fields = {}
+    for storage in (torch.float32, torch.bfloat16):
+        e, r = (torch.randn(size, w, generator=gen, device=dev).to(storage)
+                for _ in range(2))
+        aux = torch.zeros(size, 2, device=dev).to(storage)
+        fields[storage] = (e, r, aux)
+    walls = [(d == 0, d == slabs - 1) for d in range(slabs)]
+    table = cavity_table()
+
+    def arms(heun, sweep):
+        def sweeps(storage):
+            e, r, aux = fields[storage]
+            for lo, hi in walls:
+                sweep(e, r, aux, 0.8, lo, hi)
+        return {
+            "solo_bc_pair_cavity": lambda: heun(v, h, 4e-5, dt, bc=table),
+            "solo_bf16_pair": lambda: heun(v, h, 4e-5, dt, bf16=True),
+            "halo_sweep": lambda: sweeps(torch.float32),
+            "halo_sweep_bf16": lambda: sweeps(torch.bfloat16)}
+    this = arms(hk.fused_advect_heun, hk.jacobi_halo_sweep)
+    then = arms(routed(fns, current, hk.fused_advect_heun),
+                routed(fns, current, hk.jacobi_halo_sweep))
+    out = {k: {"earlier": [], "this": []} for k in this}
+    for who in ("earlier", "this", "this", "earlier"):
+        for k in out:
+            fn = then[k] if who == "earlier" else this[k]
+            out[k][who].append(graph_ms([fn], reps=4))
+    return out
+
+
 def rhs_bit_checks(fns, dev) -> list[dict]:
     """The forest lab RHS and the single-op RHS, which share weno.cuh,
     against their earlier builds."""
@@ -369,11 +559,14 @@ def correction_times(corr_o, dev, size: int = 8192) -> dict:
     return out
 
 
-def bc_form_times(dev, size: int = 8192) -> dict:
+def bc_form_times(dev, size: int = 8192, slabs: int = 4) -> dict:
     """This tree's boundary-table forms beside its free-slip forms, device
     ms in turns (free-slip, table, table, free-slip) at size^2: the
     substage pair (cavity and parabolic channel tables), the correction
-    and the n = 2 sweep chain (the channel's signs)."""
+    and the n = 2 sweep chain (the channel's signs); and the x-split
+    step's on ``slabs`` slabs of one card (one call = every slab and its
+    exchange): the halo pair (the same tables) and one halo sweep (the
+    channel's signs)."""
     from .cases import cavity_table, channel_table
     signs = (1.0, -1.0, 1.0, 1.0)
     v, h = _bench_velocity(size, dev)
@@ -384,6 +577,15 @@ def bc_form_times(dev, size: int = 8192) -> dict:
     scal = torch.tensor([[0.0, 0.0, -0.25 / size ** 2]], device=dev)
     e, r = x[0], p[0]
     ih2 = float(size) ** 2
+    mesh = make_mesh(devices=[dev] * slabs)
+    vs, es, rs = split_x(v, mesh), split_x(e, mesh), split_x(r, mesh)
+
+    def halo_pair(bc):
+        fused_advect_heun_sharded(vs, h, 4e-5, dt, bc=bc)
+
+    def halo_sweeps(signs):
+        overlap_jacobi_sweeps(es, rs, 0.8, 1, edge_signs=signs)
+
     arms = {
         "substage_pair_cavity": (
             lambda: hk.fused_advect_heun(v, h, 4e-5, dt),
@@ -399,6 +601,13 @@ def bc_form_times(dev, size: int = 8192) -> dict:
         "sweep_chain_n2": (
             lambda: hk.fused_jacobi_sweeps(e, r, 0.8, 2),
             lambda: hk.fused_jacobi_sweeps(e, r, 0.8, 2, edge_signs=signs)),
+        "halo_pair_cavity": (
+            lambda: halo_pair(None), lambda: halo_pair(cavity_table())),
+        "halo_pair_channel_parabolic": (
+            lambda: halo_pair(None),
+            lambda: halo_pair(channel_table(1.0, "parabolic"))),
+        "halo_sweep": (lambda: halo_sweeps(None),
+                       lambda: halo_sweeps(signs)),
     }
     out = {k: {"free_slip": [], "table": []} for k in arms}
     for who in ("free_slip", "table", "table", "free_slip"):
@@ -493,7 +702,8 @@ def main(argv=None) -> int:
 
     bits = (substage_bit_checks(sub_o, halo_o, dev) + rhs_bit_checks(fns, dev)
             + bit_checks(sweeps_o, bj_o, dev)
-            + correction_bit_checks(corr_o, dev))
+            + correction_bit_checks(corr_o, dev)
+            + form_bit_checks(fns, current, dev))
     for row in bits:
         emit({"bits": row})
     worst = max(row["ulps"] for row in bits)
@@ -519,6 +729,9 @@ def main(argv=None) -> int:
     forms = bc_form_times(dev)
     for k, row in forms.items():
         emit({"bc_form": k, **row})
+    earlier_forms = form_times(fns, current, dev)
+    for k, row in earlier_forms.items():
+        emit({"form": k, **row})
     emit({"summary": {
         "card": torch.cuda.get_device_name(0), "worst_ulps": worst,
         "substage_pair_ms": {
@@ -529,6 +742,7 @@ def main(argv=None) -> int:
                      for who in tables},
         "correction_ms": corr,
         "bc_form_ms": forms,
+        "form_ms": earlier_forms,
         "operand_sets": len(bits),
         "cycle_bound_ms": sum(r["bound_ms"] for r in tables["this"][0])}})
     if args.out:

@@ -58,8 +58,8 @@ extern "C" int cup2d_advect_substage_bc(const float* v, const float* vold,
                                         int grid, void* stream) {
     if (ny < 2 || nx < 2) return (int)cudaErrorInvalidValue;
     return substage::launch_form<true, float, float>(
-        v, vold, nullptr, out, facs, L, ny, nx, cfac, ih2, 1, 1, faces, h,
-        vec, grid, stream);
+        v, vold, nullptr, out, facs, L, ny, nx, cfac, ih2, 1, 1, faces, h, 0,
+        nx, vec, grid, stream);
 }
 
 // The bf16 forms: v, vold bf16 ([L, 2, ny, nx]), out bf16 where out_bf16
@@ -72,8 +72,8 @@ extern "C" int cup2d_advect_substage_bf16(const void* v, const void* vold,
                                           int grid, void* stream) {
     return substage::launch_bf16<false>(v, vold, nullptr, out, facs, L, ny,
                                         nx, cfac, ih2, 1, 1,
-                                        substage::Faces{}, 0.0f, out_bf16,
-                                        vec, grid, stream);
+                                        substage::Faces{}, 0.0f, 0, nx,
+                                        out_bf16, vec, grid, stream);
 }
 
 extern "C" int cup2d_advect_substage_bc_bf16(const void* v, const void* vold,
@@ -85,6 +85,6 @@ extern "C" int cup2d_advect_substage_bc_bf16(const void* v, const void* vold,
                                              void* stream) {
     if (ny < 2 || nx < 2) return (int)cudaErrorInvalidValue;
     return substage::launch_bf16<true>(v, vold, nullptr, out, facs, L, ny,
-                                       nx, cfac, ih2, 1, 1, faces, h,
+                                       nx, cfac, ih2, 1, 1, faces, h, 0, nx,
                                        out_bf16, vec, grid, stream);
 }

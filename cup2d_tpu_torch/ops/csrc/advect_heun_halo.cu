@@ -1,5 +1,5 @@
 // One Heun substage of WENO5 advection plus diffusion on one x slab of a
-// free-slip box split along x:
+// free-slip box, or of a boundary table's box, split along x:
 //   out = vold + cfac * rhs * ih2,
 //   rhs = afac * (u . grad) q + dfac * lap(q)   (undivided, per component q)
 // for a batch of L members, v/vold/out [L, 2, ny, nxl] f32, facs [L, 2] f32
@@ -14,7 +14,10 @@
 // (reached from _fused_substage_sharded), free-slip table, f32 storage
 // (cup2d_advect_substage_halo) and bf16 storage (cup2d_advect_substage_
 // halo_bf16: v, vold and aux bf16, the halo exchanged in the storage
-// dtype; out bf16 on the first substage, f32 on the second).
+// dtype; out bf16 on the first substage, f32 on the second); and any other
+// non-periodic boundary table, its BC branch (the info row's col0 and the
+// global width nx_tot place the parabolic profile), in both storages
+// (cup2d_advect_substage_halo_bc, cup2d_advect_substage_halo_bc_bf16).
 //
 // Bound on this card: as for advect_heun.cu, about 2 reconstructions per
 // cell and component against 16 or 24 bytes per cell (the 6-column aux
@@ -27,8 +30,15 @@
 // painted over the aux columns too (u copied, v negated), so every lab
 // value is the number the solo kernel holds at the same global position,
 // and the core is the solo kernel's: the slabs of a split step reproduce
-// the solo kernel's output bit for bit. The TPU kernel's 128-lane padding
-// of aux is a DMA artefact and is not kept.
+// the solo kernel's output bit for bit. The boundary-table form paints as
+// the solo BC form does (substage.cuh, paint_ghosts_bc) with three
+// differences: the y-face profile at the slab's global columns (col0 +
+// x, over nx_tot), the x faces only on the walls the slab owns, and the
+// received halo columns left as loaded apart from their y ghost rows,
+// which are painted from them as their owner paints its own. The solo
+// instances pass col0 = 0, nx_tot = nx and both walls, so their
+// arithmetic is unchanged. The TPU kernel's 128-lane padding of aux is a
+// DMA artefact and is not kept.
 
 #include "substage.cuh"
 
@@ -52,6 +62,36 @@ extern "C" int cup2d_advect_substage_halo_bf16(
         void* stream) {
     return substage::launch_bf16<false>(v, vold, aux, out, facs, L, ny, nxl,
                                         cfac, ih2, is_lo, is_hi,
-                                        substage::Faces{}, 0.0f, out_bf16,
-                                        vec, grid, stream);
+                                        substage::Faces{}, 0.0f, 0, nxl,
+                                        out_bf16, vec, grid, stream);
+}
+
+// The boundary-table forms: facs [L, 3] = (afac, dfac, dt) per member, h
+// the grid spacing (outflow speed), faces the table (the solo BC form's
+// struct), the slab's first column global column col0 of a field nx_tot
+// wide; ny, nxl >= 2, 0 <= col0 <= nx_tot - nxl.
+extern "C" int cup2d_advect_substage_halo_bc(
+        const float* v, const float* vold, const float* aux, float* out,
+        const float* facs, int L, int ny, int nxl, float cfac, float ih2,
+        float h, substage::Faces faces, int is_lo, int is_hi, int col0,
+        int nx_tot, int vec, int grid, void* stream) {
+    if (ny < 2 || nxl < 2 || col0 < 0 || col0 > nx_tot - nxl)
+        return (int)cudaErrorInvalidValue;
+    return substage::launch_form<true, float, float>(
+        v, vold, aux, out, facs, L, ny, nxl, cfac, ih2, is_lo, is_hi, faces,
+        h, col0, nx_tot, vec, grid, stream);
+}
+
+// bf16: v, vold, aux bf16; out bf16 where out_bf16, else f32
+extern "C" int cup2d_advect_substage_halo_bc_bf16(
+        const void* v, const void* vold, const void* aux, void* out,
+        const float* facs, int L, int ny, int nxl, float cfac, float ih2,
+        float h, substage::Faces faces, int is_lo, int is_hi, int col0,
+        int nx_tot, int out_bf16, int vec, int grid, void* stream) {
+    if (ny < 2 || nxl < 2 || col0 < 0 || col0 > nx_tot - nxl)
+        return (int)cudaErrorInvalidValue;
+    return substage::launch_bf16<true>(v, vold, aux, out, facs, L, ny, nxl,
+                                       cfac, ih2, is_lo, is_hi, faces, h,
+                                       col0, nx_tot, out_bf16, vec, grid,
+                                       stream);
 }

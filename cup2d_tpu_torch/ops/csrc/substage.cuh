@@ -1,6 +1,6 @@
 // One Heun substage of WENO5 advection plus diffusion on a free-slip box
-// or a boundary table's box, whole (advect_heun.cu) or, free-slip, as one
-// x slab of a split field (advect_heun_halo.cu): the tile geometry, the
+// or a boundary table's box, whole (advect_heun.cu) or as one x slab of a
+// split field (advect_heun_halo.cu): the tile geometry, the
 // loader with its ghost painting and the compute core the two kernels
 // share. They differ only in what the loader is given: the solo kernel no
 // aux and both x walls, the halo kernel its neighbours' edge columns and
@@ -62,12 +62,15 @@
 //   corner is (-u, -v) of the corner cell, as ops/stencil.py pads. Cells
 //   past the ghosts of a ragged tile are never copied and feed no output
 //   cell.
-// - The boundary-table form (BC = true, the solo kernel only) differs in
+// - The boundary-table form (BC = true, whole or of a slab) differs in
 //   the painting alone: paint_ghosts_bc paints each face by its kind
 //   (free-slip mirror, no-slip or inflow 2 uw - edge with the parabolic
 //   profile, convective outflow edge + c (edge - inner)), y faces over
 //   every column first, then x faces over the y-completed columns, so the
-//   corners compose y then x as bc.pad_vector_bc does. Each ghost layer
+//   corners compose y then x as bc.pad_vector_bc does. A slab paints the
+//   y ghosts of its received halo columns too (the profile at the global
+//   column col0 + x), as their owner paints them, and its x faces only on
+//   the walls it owns (bc.pad_vector_bc_slab). Each ghost layer
 //   is one painted line. The free-slip instance (BC = false) is the
 //   kernel above unchanged: the form is a template parameter, not a
 //   branch in the loader or the walk.
@@ -378,17 +381,24 @@ __device__ __forceinline__ void bc_ghost(const Face& f, int nc, float sign,
     }
 }
 
-// Paint the boundary table's ghosts of a stage whose copies have landed (a
-// whole field: both x sides walled): the y faces over every column, each
-// ghost row from the edge row (and the next one in, for outflow), the
-// parabolic profile at s = (gx + 0.5) / nx; then the x faces over the
-// y-completed columns, the profile at s = (gy + 0.5) / ny clamped to
-// [0, 1], so that it closes to 0 at the corners. dt is the member's raw
-// dt. Ends synchronised.
+// Paint the boundary table's ghosts of a stage whose copies have landed,
+// on a whole field (col0 = 0, nx_tot = nx, both x sides walled) or on one
+// x slab of a field nx_tot wide whose first column is global column col0:
+// the y faces over every column (a slab's received halo columns too, as
+// their owner paints them), each ghost row from the edge row (and the next
+// one in, for outflow), the parabolic profile at s = (col0 + gx + 0.5) /
+// nx_tot; then the x faces over the y-completed columns on the walled sides
+// only, the profile at s = (gy + 0.5) / ny clamped to [0, 1], so that it
+// closes to 0 at the corners. The received halo columns are otherwise left
+// as loaded. dt is the member's raw dt. The int -> float conversion of a
+// global column is exact below 2^24, so a slab's profile is the whole
+// field's at the same column. Ends synchronised.
 __device__ __forceinline__ void paint_ghosts_bc(float* st, const Tile& T,
                                                 int ny, int nx,
                                                 const Faces& F, float dt,
-                                                float h) {
+                                                float h, int col0,
+                                                int nx_tot, bool wall_lo,
+                                                bool wall_hi) {
     float* u = st;
     float* w = st + CELLS;
     const int jhi = ny - 1 - T.y0 + G;   // shared row of gy = ny - 1
@@ -409,7 +419,7 @@ __device__ __forceinline__ void paint_ghosts_bc(float* st, const Tile& T,
         }
         const Face f = lo ? F.y_lo : F.y_hi;
         const float p = parabola(__fdiv_rn(
-            __fadd_rn((float)(T.x0 - XO + i), 0.5f), (float)nx));
+            __fadd_rn((float)(col0 + T.x0 - XO + i), 0.5f), (float)nx_tot));
         float wu, wv, gu, gv;
         wall_velocity(f, p, wu, wv);
         bc_ghost(f, 1, lo ? -1.0f : 1.0f, u[e * W + i], w[e * W + i],
@@ -424,13 +434,13 @@ __device__ __forceinline__ void paint_ghosts_bc(float* st, const Tile& T,
         const bool lo = k < G;
         int i, e, in;
         if (lo) {
-            if (T.x0 != 0) continue;
+            if (T.x0 != 0 || !wall_lo) continue;
             i = XO - G + k;
             e = XO;
             in = XO + 1;
         } else {
             i = ihi + 1 + (k - G);
-            if (i >= W) continue;
+            if (!wall_hi || i >= W) continue;
             e = ihi;
             in = ihi - 1;
         }
@@ -672,7 +682,8 @@ __device__ __forceinline__ void compute_tile(
 // Persistent CTAs over the tiles of all L members (v, vold, out
 // [L, 2, ny, nx]; facs [L, 2] = (afac, dfac), with BC [L, 3] = (afac, dfac,
 // dt); vold null: vold = v). aux null: a whole field, walled on both x
-// sides. BC: the boundary table's ghosts (faces, h; aux null only). TI:
+// sides. BC: the boundary table's ghosts (faces, h; a slab's first column
+// is global column col0 of nx_tot, a whole field's 0 of nx). TI:
 // the storage type of v, vold and aux; TO: that of out. An f32 instance
 // copies by VEC (4: 16 bytes, 1: 4 bytes); a bf16 one (VEC 0) by its
 // launch argument vec (4: 8 bytes, 1: 2 bytes).
@@ -682,7 +693,7 @@ substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
                 const TI* __restrict__ aux, TO* __restrict__ out,
                 const float* __restrict__ facs, int L, int ny, int nx,
                 float cfac, float ih2, int is_lo, int is_hi, Faces faces,
-                float h, int vec) {
+                float h, int col0, int nx_tot, int vec) {
     constexpr int FS = BC ? 3 : 2;       // facs per member
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
@@ -710,7 +721,7 @@ substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
             if (paints(T, ny, nx, wall_lo, wall_hi)) {
                 if constexpr (BC)
                     paint_ghosts_bc(st, T, ny, nx, faces, facs[FS * T.l + 2],
-                                    h);
+                                    h, col0, nx_tot, wall_lo, wall_hi);
                 else
                     paint_ghosts(st, T, ny, nx, wall_lo, wall_hi);
             }
@@ -744,7 +755,8 @@ substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
             if (paints(T, ny, nx, wall_lo, wall_hi)) {
                 if constexpr (BC)
                     paint_ghosts_bc(smem, T, ny, nx, faces,
-                                    facs[FS * T.l + 2], h);
+                                    facs[FS * T.l + 2], h, col0, nx_tot,
+                                    wall_lo, wall_hi);
                 else
                     paint_ghosts(smem, T, ny, nx, wall_lo, wall_hi);
             }
@@ -763,7 +775,7 @@ template <int VEC, bool BC, class TI, class TO>
 int launch_vec(const TI* v, const TI* vold, const TI* aux, TO* out,
                const float* facs, int L, int ny, int nx, float cfac,
                float ih2, int is_lo, int is_hi, const Faces& fc, float h,
-               int vec, int grid, cudaStream_t st) {
+               int col0, int nx_tot, int vec, int grid, cudaStream_t st) {
     // above 48 KB of shared memory once per device (a bit per ordinal)
     static unsigned long long opted_in = 0;
     int dev = 0;
@@ -778,7 +790,7 @@ int launch_vec(const TI* v, const TI* vold, const TI* aux, TO* out,
     }
     substage_kernel<VEC, BC, TI, TO><<<grid, THREADS, SMEM, st>>>(
         v, vold, aux, out, facs, L, ny, nx, cfac, ih2, is_lo, is_hi, fc, h,
-        vec);
+        col0, nx_tot, vec);
     return (int)cudaGetLastError();
 }
 
@@ -789,24 +801,25 @@ template <bool BC, class TI, class TO>
 int launch_form(const TI* v, const TI* vold, const TI* aux, TO* out,
                 const float* facs, int L, int ny, int nx, float cfac,
                 float ih2, int is_lo, int is_hi, const Faces& fc, float h,
-                int vec, int grid, void* stream) {
+                int col0, int nx_tot, int vec, int grid, void* stream) {
     if (L < 1 || ny < 1 || nx < 1 || grid < 1 || (vec == 4 && nx % 4))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     if constexpr (storage::is_f32<TI>) {
         if (vec == 4)
             return launch_vec<4, BC>(v, vold, aux, out, facs, L, ny, nx,
-                                     cfac, ih2, is_lo, is_hi, fc, h, vec,
-                                     grid, st);
+                                     cfac, ih2, is_lo, is_hi, fc, h, col0,
+                                     nx_tot, vec, grid, st);
         if (vec == 1)
             return launch_vec<1, BC>(v, vold, aux, out, facs, L, ny, nx,
-                                     cfac, ih2, is_lo, is_hi, fc, h, vec,
-                                     grid, st);
+                                     cfac, ih2, is_lo, is_hi, fc, h, col0,
+                                     nx_tot, vec, grid, st);
         return (int)cudaErrorInvalidValue;
     } else {
         if (vec != 4 && vec != 1) return (int)cudaErrorInvalidValue;
         return launch_vec<0, BC>(v, vold, aux, out, facs, L, ny, nx, cfac,
-                                 ih2, is_lo, is_hi, fc, h, vec, grid, st);
+                                 ih2, is_lo, is_hi, fc, h, col0, nx_tot, vec,
+                                 grid, st);
     }
 }
 
@@ -816,7 +829,7 @@ int launch(const float* v, const float* vold, const float* aux,
            float cfac, float ih2, int is_lo, int is_hi, int vec,
            int grid, void* stream) {
     return launch_form<false>(v, vold, aux, out, facs, L, ny, nx, cfac, ih2,
-                              is_lo, is_hi, Faces{}, 0.0f, vec, grid,
+                              is_lo, is_hi, Faces{}, 0.0f, 0, nx, vec, grid,
                               stream);
 }
 
@@ -826,18 +839,19 @@ template <bool BC>
 int launch_bf16(const void* v, const void* vold, const void* aux, void* out,
                 const float* facs, int L, int ny, int nx, float cfac,
                 float ih2, int is_lo, int is_hi, const Faces& fc, float h,
-                int out_bf16, int vec, int grid, void* stream) {
+                int col0, int nx_tot, int out_bf16, int vec, int grid,
+                void* stream) {
     using storage::bf16;
     const bf16* vb = static_cast<const bf16*>(v);
     const bf16* ob = static_cast<const bf16*>(vold);
     const bf16* ab = static_cast<const bf16*>(aux);
     if (out_bf16)
         return launch_form<BC>(vb, ob, ab, static_cast<bf16*>(out), facs, L,
-                               ny, nx, cfac, ih2, is_lo, is_hi, fc, h, vec,
-                               grid, stream);
+                               ny, nx, cfac, ih2, is_lo, is_hi, fc, h, col0,
+                               nx_tot, vec, grid, stream);
     return launch_form<BC>(vb, ob, ab, static_cast<float*>(out), facs, L, ny,
-                           nx, cfac, ih2, is_lo, is_hi, fc, h, vec, grid,
-                           stream);
+                           nx, cfac, ih2, is_lo, is_hi, fc, h, col0, nx_tot,
+                           vec, grid, stream);
 }
 
 }  // namespace

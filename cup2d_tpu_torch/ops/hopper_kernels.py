@@ -25,9 +25,11 @@ wrapper                        replaces                         source
 ``fused_block_jacobi_update``  ``_block_jacobi_kernel`` (f32)   ``block_jacobi.cu``
 ``advect_substage_halo``       ``_sharded_substage_kernel``     ``advect_heun_halo.cu``
                                (one substage on an x slab,
-                               free-slip, f32 or bf16)
+                               free-slip or a table's ghosts,
+                               f32 or bf16)
 ``jacobi_halo_sweep``          ``_jacobi_halo_kernel`` (one     ``jacobi_halo.cu``
-                               sweep on an x slab, f32 or
+                               sweep on an x slab, Neumann or
+                               a table's edge signs, f32 or
                                bf16)
 ``advect_diffuse_rhs``         ``_adv_kernel`` (RHS over a      ``advect_rhs.cu``
                                pre-padded lab, f32)
@@ -37,19 +39,26 @@ The four WENO kernels share their per-cell arithmetic through
 ``csrc/weno.cuh``; the two substage kernels share their tiles, loader and
 face-sharing core through ``csrc/substage.cuh``.
 
-Three kernels also have a boundary-table form for the wall-bounded boxes
+Five kernels also have a boundary-table form for the wall-bounded boxes
 of ``bc.py`` (a second C entry in the same source, a template instance of
 its own): ``fused_advect_heun(bc=...)`` paints the table's ghosts in the
-kernel (``_substage_kernel``'s BC branch), ``fused_correction(grad_signs=
-...)`` and ``fused_jacobi_sweeps(edge_signs=...)`` take the table's
-pressure signs. A periodic table has no kernel form and refuses.
+kernel (``_substage_kernel``'s BC branch), ``advect_substage_halo(bc=...)``
+paints them on an x slab (``_sharded_substage_kernel``'s BC branch: the
+profile at the slab's global columns, the x faces on the walls it owns),
+``fused_correction(grad_signs=...)``, ``fused_jacobi_sweeps(edge_signs=
+...)`` and ``jacobi_halo_sweep(edge_signs=...)`` take the table's pressure
+signs. The reference's halo sweep is Neumann only: its signed split
+hierarchies sweep with the signed strip kernel on GSPMD-partitioned
+fields, which the port's split levels sweep slab by slab instead, so the
+signed halo sweep equals one signed sweep of ``fused_jacobi_sweeps`` bit
+for bit. A periodic table has no kernel form and refuses.
 
 Four kernels also have a bf16 storage form, the ``CUP2D_PREC=bf16`` tier
 (bf16 operands, f32 arithmetic; a C entry of its own in the same source):
 ``fused_advect_heun(bf16=True)`` (substage 1 reads a bf16 copy of the
 state and writes bf16, substage 2 reads that and the copy as vold and
 writes the f32 state; free-slip or a table), ``advect_substage_halo`` on
-bf16 slabs (aux in bf16), and ``fused_jacobi_sweeps`` and
+bf16 slabs (aux in bf16; free-slip or a table), and ``fused_jacobi_sweeps`` and
 ``jacobi_halo_sweep`` on bf16 fields (every sweep rounded to bf16 once).
 The dtype of the operands selects the form. Their twins widen to f32, run
 the f32 twin and round where the kernel rounds.
@@ -90,11 +99,12 @@ from pathlib import Path
 import torch
 
 from . import stencil
-from ..bc import pad_vector_bc
-from .stencil import (_edge_ones, _zshift, advect_diffuse_core,
-                      heun_substage, inv_diag_bc, inv_diag_neumann,
-                      inv_diag_slab, laplacian5_bc, laplacian5_neumann,
-                      laplacian5_neumann_slab, pad_vector, pad_vector_slab)
+from ..bc import pad_vector_bc, pad_vector_bc_slab
+from .stencil import (NEUMANN_SIGNS, _edge_ones, _zshift,
+                      advect_diffuse_core, heun_substage, inv_diag_bc,
+                      inv_diag_bc_slab, inv_diag_neumann, laplacian5_bc,
+                      laplacian5_bc_slab, laplacian5_neumann, pad_vector,
+                      pad_vector_slab)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
@@ -164,6 +174,22 @@ _FORM_ENTRIES = {
                         _F, _F, _F, _P]),
     "jacobi_halo+bf16": ("jacobi_halo", "cup2d_jacobi_halo_sweep_bf16",
                          [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P]),
+    "advect_heun_halo+bc": ("advect_heun_halo",
+                            "cup2d_advect_substage_halo_bc",
+                            [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                             _Faces, _I, _I, _I, _I, _I, _I, _P]),
+    "advect_heun_halo+bc+bf16": ("advect_heun_halo",
+                                 "cup2d_advect_substage_halo_bc_bf16",
+                                 [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                                  _F, _Faces, _I, _I, _I, _I, _I, _I, _I,
+                                  _P]),
+    "jacobi_halo+bc": ("jacobi_halo", "cup2d_jacobi_halo_sweep_signed",
+                       [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _F, _F,
+                        _F, _F, _P]),
+    "jacobi_halo+bc+bf16": ("jacobi_halo",
+                            "cup2d_jacobi_halo_sweep_signed_bf16",
+                            [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _F,
+                             _F, _F, _F, _P]),
 }
 
 launches = {"fused_advect_heun": 0, "fused_correction": 0,
@@ -174,7 +200,9 @@ launches = {"fused_advect_heun": 0, "fused_correction": 0,
             "fused_jacobi_sweeps+bc": 0, "fused_advect_heun+bf16": 0,
             "fused_advect_heun+bc+bf16": 0, "advect_substage_halo+bf16": 0,
             "fused_jacobi_sweeps+bf16": 0, "fused_jacobi_sweeps+bc+bf16": 0,
-            "jacobi_halo_sweep+bf16": 0}
+            "jacobi_halo_sweep+bf16": 0, "advect_substage_halo+bc": 0,
+            "advect_substage_halo+bc+bf16": 0, "jacobi_halo_sweep+bc": 0,
+            "jacobi_halo_sweep+bc+bf16": 0}
 
 # the TPU kernel each wrapper replaces, for reports (a boundary-table or
 # bf16 form is a form of its kernel: ``kernel_of``)
@@ -782,44 +810,64 @@ def fused_block_jacobi_update(e, r, lap, p_inv):
 
 
 # ---------------------------------------------------------------------------
-# K3: one Heun substage on an x slab of a split field (free-slip box)
+# K3: one Heun substage on an x slab of a split field (free-slip box, and
+# the boundary-table form)
 # ---------------------------------------------------------------------------
 
 def advect_substage_halo_plain(v, vold, aux, facs, cfac, ih2, is_lo, is_hi,
-                               out_dtype=None):
+                               out_dtype=None, bc=None, h=None, col0=0,
+                               nx_tot=None):
     """Plain twin of one substage on an x slab: v, vold [L, 2, Ny, w]
     (vold None on the first substage); aux [L, 2, Ny, 6] the three columns
     either side of the slab (the neighbours' edge columns; ignored on a
     side whose wall the slab owns, ``is_lo``/``is_hi``); facs [L, 2]
-    per-member (afac, dfac). The slabs of a split field give
-    ``advect_substage_plain`` of the whole field bit for bit. bf16 v, vold
-    and aux are widened and the result rounded to ``out_dtype``, as in
-    ``advect_substage_plain``."""
+    per-member (afac, dfac), or with a boundary table ``bc`` (not
+    free-slip) [L, 3] with the raw dt, the ghosts painted by
+    ``bc.pad_vector_bc_slab`` (grid spacing ``h``; the slab's first column
+    is global column ``col0`` of ``nx_tot``). The slabs of a split field
+    give ``advect_substage_plain`` of the whole field bit for bit. bf16 v,
+    vold and aux are widened and the result rounded to ``out_dtype``, as
+    in ``advect_substage_plain``."""
     out_dtype = _out_dtype("advect_substage_halo", v, out_dtype)
     v, vold, aux = _widen(v, vold, aux)
     afac = facs[:, 0].reshape(-1, 1, 1, 1)
     dfac = facs[:, 1].reshape(-1, 1, 1, 1)
-    lab = pad_vector_slab(v, aux, 3, is_lo, is_hi)
+    if bc is None:
+        lab = pad_vector_slab(v, aux, 3, is_lo, is_hi)
+    else:
+        lab = pad_vector_bc_slab(v, aux, 3, bc, h,
+                                 facs[:, 2].reshape(-1, 1, 1, 1), col0,
+                                 nx_tot, is_lo, is_hi)
     rhs = advect_diffuse_core(lab, 3, afac, dfac)
     return heun_substage(v if vold is None else vold, cfac, rhs,
                          ih2).to(out_dtype)
 
 
 def advect_substage_halo(v, vold, aux, facs, cfac, ih2, is_lo, is_hi,
-                         out_dtype=None):
-    """One substage on an x slab: the kernel for CUDA tensors (its bf16
-    form for bf16 v, vold and aux), the twin for CPU ones. Same arguments
-    and result as the twin."""
+                         out_dtype=None, bc=None, h=None, col0=0,
+                         nx_tot=None):
+    """One substage on an x slab: the kernel for CUDA tensors (its
+    boundary-table form where ``bc`` is given, its bf16 form for bf16 v,
+    vold and aux), the twin for CPU ones. Same arguments and result as the
+    twin."""
     if not _on_cuda(v, vold, aux, facs):
         return advect_substage_halo_plain(v, vold, aux, facs, cfac, ih2,
-                                          is_lo, is_hi, out_dtype)
+                                          is_lo, is_hi, out_dtype, bc, h,
+                                          col0, nx_tot)
     L, two, ny, nxl = v.shape
-    if (two != 2 or facs.shape != (L, 2)
+    cols = 2 if bc is None else 3
+    if (two != 2 or facs.shape != (L, cols)
             or aux.shape != (L, 2, ny, 6)):
         raise ValueError(
             f"advect_substage_halo: v {tuple(v.shape)}, aux "
             f"{tuple(aux.shape)}, facs {tuple(facs.shape)}: expected "
-            "[L,2,Ny,w], [L,2,Ny,6], [L,2]")
+            f"[L,2,Ny,w], [L,2,Ny,6], [L,{cols}]")
+    if bc is not None and (min(ny, nxl) < 2 or nx_tot is None
+                           or not 0 <= col0 <= nx_tot - nxl):
+        raise ValueError(
+            f"advect_substage_halo: a table's ghosts need Ny, w >= 2 and "
+            f"the slab inside the field (v {tuple(v.shape)}, col0 {col0}, "
+            f"nx_tot {nx_tot})")
     if vold is not None and vold.shape != v.shape:
         raise ValueError("advect_substage_halo: vold shape differs from v")
     _check("advect_substage_halo", _STORAGE, v=v, vold=vold, aux=aux)
@@ -829,60 +877,71 @@ def advect_substage_halo(v, vold, aux, facs, cfac, ih2, is_lo, is_hi,
     out = torch.empty(v.shape, dtype=out_dtype, device=v.device)
     vec, grid = substage_plan(L, ny, nxl, _sm_count(v.device),
                               _aligned_copies(v))
+    args = (v.data_ptr(), None if vold is None else vold.data_ptr(),
+            aux.data_ptr(), out.data_ptr(), facs.data_ptr(), L, ny, nxl,
+            float(cfac), float(ih2))
+    walls = (int(bool(is_lo)), int(bool(is_hi)))
     form = (int(out_dtype == torch.bfloat16),) if bf16 else ()
-    _launch("advect_heun_halo+bf16" if bf16 else "advect_heun_halo",
-            v.device, v.data_ptr(),
-            None if vold is None else vold.data_ptr(), aux.data_ptr(),
-            out.data_ptr(), facs.data_ptr(), L, ny, nxl, float(cfac),
-            float(ih2), int(bool(is_lo)), int(bool(is_hi)), *form, vec,
-            grid)
-    _count("advect_substage_halo", bf16=bf16)
+    key = ("advect_heun_halo" + ("" if bc is None else "+bc")
+           + ("+bf16" if bf16 else ""))
+    if bc is None:
+        _launch(key, v.device, *args, *walls, *form, vec, grid)
+    else:
+        _launch(key, v.device, *args, float(h), _faces(bc), *walls,
+                int(col0), int(nx_tot), *form, vec, grid)
+    _count("advect_substage_halo", bc is not None, bf16)
     return out
 
 
 # ---------------------------------------------------------------------------
-# K7: one damped-Jacobi sweep on an x slab of a split field
+# K7: one damped-Jacobi sweep on an x slab of a split field (Neumann walls,
+# and a table's signs)
 # ---------------------------------------------------------------------------
 
 def jacobi_halo_sweep_plain(e, r, aux, omega, is_lo, is_hi,
-                            from_zero=False):
+                            from_zero=False, edge_signs=None):
     """Plain twin of one sweep e + omega*(r - lap(e))*inv_d on an x slab
     [..., Ny, w]: aux [..., Ny, 2] the neighbours' edge columns (zeros at
-    a wall); the x-wall diagonal only on the sides the slab owns.
-    ``from_zero`` gives omega*r*inv_d and reads neither e nor aux. The
-    slabs of a split field give one sweep of ``jacobi_sweeps_plain`` bit
-    for bit, in any dtype."""
+    a wall); the x-wall diagonal only on the sides the slab owns;
+    ``edge_signs`` a table's (sx_lo, sx_hi, sy_lo, sy_hi) pressure signs
+    (``laplacian5_bc_slab``; None: all Neumann). ``from_zero`` gives
+    omega*r*inv_d and reads neither e nor aux. The slabs of a split field
+    give one sweep of ``jacobi_sweeps_plain`` bit for bit, in any
+    dtype."""
     ny, w = r.shape[-2:]
-    inv_d = inv_diag_slab(ny, w, r.dtype, r.device, bool(is_lo),
-                          bool(is_hi))
+    signs = (NEUMANN_SIGNS if edge_signs is None
+             else tuple(float(x) for x in edge_signs))
+    inv_d = inv_diag_bc_slab(ny, w, r.dtype, r.device, signs, bool(is_lo),
+                             bool(is_hi))
     if from_zero:
         return omega * r * inv_d
-    return e + omega * (r - laplacian5_neumann_slab(e, aux, is_lo, is_hi)
+    return e + omega * (r - laplacian5_bc_slab(e, aux, signs, is_lo, is_hi)
                         ) * inv_d
 
 
 def jacobi_halo_sweep_bf16_plain(e, r, aux, omega, is_lo, is_hi,
-                                 from_zero=False):
+                                 from_zero=False, edge_signs=None):
     """Plain twin of the bf16 form of the halo sweep: e, r, aux bf16,
     ``jacobi_halo_sweep_plain`` in f32 on the widened operands, rounded to
     bf16 once."""
     e, r, aux = _widen(e, r, aux)
     return jacobi_halo_sweep_plain(e, r, aux, omega, is_lo, is_hi,
-                                   from_zero).to(torch.bfloat16)
+                                   from_zero, edge_signs).to(torch.bfloat16)
 
 
-def jacobi_halo_sweep(e, r, aux, omega, is_lo, is_hi, from_zero=False):
+def jacobi_halo_sweep(e, r, aux, omega, is_lo, is_hi, from_zero=False,
+                      edge_signs=None):
     """One sweep on an x slab: the kernel for CUDA tensors (one launch;
-    its bf16 form for bf16 operands), the twin for CPU ones
-    (``jacobi_halo_sweep_bf16_plain`` for bf16). Same arguments and result
-    as the twin."""
+    its signed form where ``edge_signs`` is given, its bf16 form for bf16
+    operands), the twin for CPU ones (``jacobi_halo_sweep_bf16_plain`` for
+    bf16). Same arguments and result as the twin."""
     if from_zero:
         e = aux = None
     bf16 = r.dtype == torch.bfloat16
     if not _on_cuda(e, r, aux):
         twin = (jacobi_halo_sweep_bf16_plain if bf16
                 else jacobi_halo_sweep_plain)
-        return twin(e, r, aux, omega, is_lo, is_hi, from_zero)
+        return twin(e, r, aux, omega, is_lo, is_hi, from_zero, edge_signs)
     ny, nxl = r.shape[-2:]
     L = math.prod(r.shape[:-2])
     if e is not None and (e.shape != r.shape
@@ -891,13 +950,15 @@ def jacobi_halo_sweep(e, r, aux, omega, is_lo, is_hi, from_zero=False):
             f"jacobi_halo_sweep: e {tuple(e.shape)}, r {tuple(r.shape)}, "
             f"aux {tuple(aux.shape)}: expected [...,Ny,w] x2, [...,Ny,2]")
     _check("jacobi_halo_sweep", _STORAGE, e=e, r=r, aux=aux)
+    signs = () if edge_signs is None else _signs(edge_signs)
+    key = ("jacobi_halo" + ("+bc" if signs else "")
+           + ("+bf16" if bf16 else ""))
     out = torch.empty_like(r)
-    _launch("jacobi_halo+bf16" if bf16 else "jacobi_halo", r.device,
-            None if e is None else e.data_ptr(), r.data_ptr(),
-            None if aux is None else aux.data_ptr(), out.data_ptr(), L, ny,
-            nxl, float(omega), int(bool(is_lo)), int(bool(is_hi)),
-            int(e is None))
-    _count("jacobi_halo_sweep", bf16=bf16)
+    _launch(key, r.device, None if e is None else e.data_ptr(),
+            r.data_ptr(), None if aux is None else aux.data_ptr(),
+            out.data_ptr(), L, ny, nxl, float(omega), int(bool(is_lo)),
+            int(bool(is_hi)), int(e is None), *signs)
+    _count("jacobi_halo_sweep", bool(signs), bf16)
     return out
 
 

@@ -263,6 +263,12 @@ def _halo_x(p: torch.Tensor, aux: torch.Tensor):
     return xp, xm
 
 
+# the all-Neumann pressure signs and the free-slip divergence coefficients
+# (bc.pressure_signs, bc.divergence_coeffs of the free-slip table)
+NEUMANN_SIGNS = (1.0, 1.0, 1.0, 1.0)
+FREE_SLIP_COEFFS = (1.0, -1.0, 1.0, -1.0)
+
+
 def laplacian5_neumann(p: torch.Tensor) -> torch.Tensor:
     """Undivided 5-point Laplacian with zero-Neumann walls on an unpadded
     [..., Ny, Nx] field."""
@@ -281,19 +287,28 @@ def inv_diag_neumann(ny: int, nx: int, dtype, device) -> torch.Tensor:
     ``laplacian5_neumann`` as a [Ny, Nx] field (the slab that owns both
     walls), memoized like ``_edge_ones`` (one per multigrid level and
     dtype)."""
-    return inv_diag_slab(ny, nx, dtype, device, True, True)
+    return inv_diag_bc_slab(ny, nx, dtype, device, NEUMANN_SIGNS, True,
+                            True)
 
 
-def laplacian5_neumann_slab(p: torch.Tensor, aux: torch.Tensor,
-                            is_lo: bool, is_hi: bool) -> torch.Tensor:
-    """``laplacian5_neumann`` on one x slab [..., Ny, w] of a split field:
-    aux [..., Ny, 2] holds the neighbours' edge columns (zeros at a wall),
-    the x-wall diagonal applies only on the sides the slab owns. Terms in
-    the whole-field order, so a split field's slabs give its Laplacian bit
-    for bit."""
+def _slab_signs(signs, is_lo: bool, is_hi: bool):
+    """A table's per-face values (x_lo, x_hi, y_lo, y_hi) as one x slab
+    sees them: the x faces only on the sides the slab owns, 0 elsewhere."""
+    x_lo, x_hi, y_lo, y_hi = (float(s) for s in signs)
+    return (x_lo if is_lo else 0.0, x_hi if is_hi else 0.0, y_lo, y_hi)
+
+
+def laplacian5_bc_slab(p: torch.Tensor, aux: torch.Tensor, signs,
+                       is_lo: bool, is_hi: bool) -> torch.Tensor:
+    """``laplacian5_bc`` on one x slab [..., Ny, w] of a split field:
+    aux [..., Ny, 2] holds the neighbours' edge columns (zeros at a wall);
+    ``signs`` = (sx_lo, sx_hi, sy_lo, sy_hi), the y signs on every slab,
+    the x signs only on the sides the slab owns. Terms in the whole-field
+    order, so a split field's slabs give its Laplacian bit for bit."""
     ny, w = p.shape[-2], p.shape[-1]
-    ex = _slab_edge_ones(w, p.dtype, p.device, float(is_lo), float(is_hi))
-    ey = _edge_ones(ny, p.dtype, p.device)
+    sx_lo, sx_hi, sy_lo, sy_hi = _slab_signs(signs, is_lo, is_hi)
+    ex = _slab_edge_ones(w, p.dtype, p.device, sx_lo, sx_hi)
+    ey = _edge_ones(ny, p.dtype, p.device, lo=sy_lo, hi=sy_hi)
     xp, xm = _halo_x(p, aux)
     return (
         xp + xm
@@ -303,12 +318,13 @@ def laplacian5_neumann_slab(p: torch.Tensor, aux: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=256)
-def inv_diag_slab(ny: int, w: int, dtype, device, is_lo: bool,
-                  is_hi: bool) -> torch.Tensor:
-    """``inv_diag_neumann`` of one x slab: the x-wall rows only on the
-    sides the slab owns."""
-    ex = _slab_edge_ones(w, dtype, device, float(is_lo), float(is_hi))
-    ey = _edge_ones(ny, dtype, device)
+def inv_diag_bc_slab(ny: int, w: int, dtype, device, signs, is_lo: bool,
+                     is_hi: bool) -> torch.Tensor:
+    """``inv_diag_bc`` of one x slab: the x-wall signs only on the sides
+    the slab owns."""
+    sx_lo, sx_hi, sy_lo, sy_hi = _slab_signs(signs, is_lo, is_hi)
+    ex = _slab_edge_ones(w, dtype, device, sx_lo, sx_hi)
+    ey = _edge_ones(ny, dtype, device, lo=sy_lo, hi=sy_hi)
     return 1.0 / (ey[:, None] + ex[None, :] - 4.0)
 
 
@@ -329,18 +345,18 @@ def divergence_freeslip(v: torch.Tensor) -> torch.Tensor:
     )
 
 
-def divergence_freeslip_slab(v: torch.Tensor, aux: torch.Tensor,
-                             is_lo: bool, is_hi: bool) -> torch.Tensor:
-    """``divergence_freeslip`` on one x slab [..., 2, Ny, w]: aux
-    [..., 2, Ny, 2] holds the neighbours' edge columns (only u's are
-    read); the mirrored wall terms apply only on the sides the slab
-    owns. Terms in the whole-field order."""
+def divergence_bc_slab(v: torch.Tensor, aux: torch.Tensor, coeffs,
+                       is_lo: bool, is_hi: bool) -> torch.Tensor:
+    """``divergence_bc`` on one x slab [..., 2, Ny, w]: aux [..., 2, Ny, 2]
+    holds the neighbours' edge columns (only u's are read); ``coeffs`` =
+    (cx_lo, cx_hi, cy_lo, cy_hi) (bc.divergence_coeffs), the x ones only
+    on the sides the slab owns. Terms in the whole-field order."""
     u = v[..., 0, :, :]
     w = v[..., 1, :, :]
     ny, nxl = u.shape[-2], u.shape[-1]
-    gx = _slab_edge_ones(nxl, v.dtype, v.device, 1.0 if is_lo else 0.0,
-                         -1.0 if is_hi else 0.0)
-    gy = _edge_ones(ny, v.dtype, v.device, lo=1.0, hi=-1.0)
+    cx_lo, cx_hi, cy_lo, cy_hi = _slab_signs(coeffs, is_lo, is_hi)
+    gx = _slab_edge_ones(nxl, v.dtype, v.device, cx_lo, cx_hi)
+    gy = _edge_ones(ny, v.dtype, v.device, lo=cy_lo, hi=cy_hi)
     xp, xm = _halo_x(u, aux[..., 0, :, :])
     return (
         xp - xm
@@ -370,16 +386,21 @@ def pressure_gradient_update_fused(p: torch.Tensor, h, dt) -> torch.Tensor:
 
 
 def pressure_gradient_slab(p: torch.Tensor, aux: torch.Tensor,
-                           is_lo: bool, is_hi: bool) -> torch.Tensor:
-    """The undivided Neumann gradient (dpx, dpy) [..., 2, Ny, w] of one x
-    slab of the pressure, as ``pressure_gradient_update_fused`` and the
-    correction epilogue form it before scaling: aux [..., Ny, 2] holds the
-    neighbours' edge columns; the one-sided wall terms apply only on the
-    sides the slab owns."""
+                           is_lo: bool, is_hi: bool,
+                           grad_signs=None) -> torch.Tensor:
+    """The undivided gradient (dpx, dpy) [..., 2, Ny, w] of one x slab of
+    the pressure, as ``pressure_gradient_update_fused`` (Neumann) or, with
+    a table's ``grad_signs`` (sx_lo, sx_hi, sy_lo, sy_hi),
+    ``pressure_gradient_update_bc`` and the correction epilogue form it
+    before scaling: aux [..., Ny, 2] holds the neighbours' edge columns;
+    the one-sided wall terms (-s at a low wall, +s at a high one) apply in
+    x only on the sides the slab owns."""
     ny, w = p.shape[-2], p.shape[-1]
-    gx = _slab_edge_ones(w, p.dtype, p.device, -1.0 if is_lo else 0.0,
-                         1.0 if is_hi else 0.0)
-    gy = _edge_ones(ny, p.dtype, p.device, lo=-1.0, hi=1.0)
+    sx_lo, sx_hi, sy_lo, sy_hi = _slab_signs(grad_signs or NEUMANN_SIGNS,
+                                             is_lo, is_hi)
+    gx = _slab_edge_ones(w, p.dtype, p.device, -sx_lo if is_lo else 0.0,
+                         sx_hi)
+    gy = _edge_ones(ny, p.dtype, p.device, lo=-sy_lo, hi=sy_hi)
     xp, xm = _halo_x(p, aux)
     dpx = (xp - xm) + p * gx[None, :]
     dpy = (_zshift(p, 1, 0) - _zshift(p, -1, 0)) + p * gy[:, None]

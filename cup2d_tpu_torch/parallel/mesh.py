@@ -67,8 +67,12 @@ class ShardedUniformSim(UniformSim):
     Under ``CUP2D_PREC=bf16`` the grid's latch carries through
     ``attach_mesh``: both substages run the halo kernel's bf16 form (halos
     exchanged in bf16) and the FAS cycle its bf16 legs; the split step
-    equals the solo bf16 step bit for bit. The step's diagnostics carry
-    the same keys as ``UniformSim``'s."""
+    equals the solo bf16 step bit for bit. A boundary table (``bc``, any
+    that ``UniformSim`` takes) carries through too: the halo substage
+    paints its ghosts per shard, the split hierarchy sweeps with the signed
+    halo sweep, and the split step equals the solo step under the table as
+    it does free-slip. The step's diagnostics carry the same keys as
+    ``UniformSim``'s."""
 
     def __init__(self, cfg: SimConfig, mesh: SlabMesh,
                  level: Optional[int] = None, bc=None):

@@ -35,12 +35,13 @@ import math
 
 import torch
 
+from ..bc import periodic_axes
 from ..ops.hopper_kernels import (_substage_facs, advect_substage_halo,
                                   jacobi_halo_sweep, jacobi_halo_sweep_plain)
-from ..ops.stencil import (divergence_freeslip_slab, laplacian5_neumann_slab,
+from ..ops.stencil import (FREE_SLIP_COEFFS, NEUMANN_SIGNS,
+                           divergence_bc_slab, laplacian5_bc_slab,
                            pressure_gradient_slab)
 
-_FREE_SLIP_TOKEN = "fs,fs,fs,fs"
 WENO_HALO = 3
 # a multigrid level stays split while its slab is at least this wide;
 # narrower levels are gathered onto mesh.devices[0] (see level_meshes)
@@ -264,40 +265,59 @@ def slab_reducers(dt_, sum_dtype):
 # the split stencils of the step (what GSPMD partitioned in the reference)
 # ---------------------------------------------------------------------------
 
-def laplacian5_neumann_x(p: Slabs) -> Slabs:
-    """``ops.stencil.laplacian5_neumann`` of a split field: one edge
-    column exchanged, then the slab form on every shard (the x-wall
-    diagonal on the wall shards only). GSPMD partitioned the whole-field
-    form's shifted slices into the same exchange."""
+def laplacian5_bc_x(p: Slabs, signs=None) -> Slabs:
+    """``ops.stencil.laplacian5_bc`` of a split field (``signs`` a table's
+    (sx_lo, sx_hi, sy_lo, sy_hi) pressure signs; None: all Neumann, i.e.
+    ``laplacian5_neumann``): one edge column exchanged, then
+    ``laplacian5_bc_slab`` on every shard (the x-wall diagonal on the wall
+    shards only). GSPMD partitioned the whole-field form's shifted slices
+    into the same exchange."""
+    signs = NEUMANN_SIGNS if signs is None else signs
     aux = exchange_x(p, 1)
-    return Slabs([laplacian5_neumann_slab(part, aux[d], lo, hi)
+    return Slabs([laplacian5_bc_slab(part, aux[d], signs, lo, hi)
                   for d, (part, (lo, hi))
                   in enumerate(zip(p.parts, _walls(p)))], p.mesh)
 
 
-def divergence_rhs_x(v: Slabs, h, dt) -> Slabs:
-    """The obstacle-free pressure RHS (h/2dt) div(u*) of a split
-    velocity (``UniformGrid.poisson_rhs`` with chi None, the obstacle-free
-    form of ``divergence_rhs_fused``): one edge column of u exchanged,
-    then ``divergence_freeslip_slab`` on every shard, the mirrored wall
-    terms on the wall shards only."""
+def divergence_bc_x(v: Slabs, h, dt, coeffs=None,
+                    affine: Slabs = None) -> Slabs:
+    """The obstacle-free pressure RHS (h/2dt) [div(u*) + affine] of a split
+    velocity (``UniformGrid.poisson_rhs`` with chi None): one edge column
+    of u exchanged, then ``divergence_bc_slab`` with a table's
+    ``coeffs`` (bc.divergence_coeffs; None: free-slip) on every shard, the
+    x wall terms on the wall shards only; ``affine`` is the table's
+    constant term of prescribed wall-normal velocities
+    (bc.divergence_affine_bc, split like the field), added scaled as the
+    whole-field RHS adds it."""
+    coeffs = FREE_SLIP_COEFFS if coeffs is None else coeffs
     aux = exchange_x(v, 1)
-    div = Slabs([divergence_freeslip_slab(part, aux[d], lo, hi)
+    div = Slabs([divergence_bc_slab(part, aux[d], coeffs, lo, hi)
                  for d, (part, (lo, hi))
                  in enumerate(zip(v.parts, _walls(v)))], v.mesh)
-    return (0.5 * h / dt) * div
+    fac = 0.5 * h / dt
+    b = fac * div
+    if affine is not None:
+        b = b + fac * affine
+    return b
 
 
-def project_correct_x(x: Slabs, pres_old: Slabs, vel: Slabs, h, dt):
+def project_correct_x(x: Slabs, pres_old: Slabs, vel: Slabs, h, dt,
+                      remove_mean: bool = True, grad_signs=None):
     """The projection epilogue of ``poisson.project_correct`` on split
     fields, written out as plain per-slab code (the correction kernel has
     no split form, as in the JAX package, whose mesh keeps the XLA
-    epilogue): pres = ((x - mean x) + pres_old) - mean pres_old, then one
-    edge column of pres exchanged and vel += (pfac grad_neumann(pres)) /
-    h^2 with pfac = -dt h / 2, the one-sided wall terms on the wall shards
-    only (``pressure_gradient_update_fused``). Returns (vel, pres)."""
+    epilogue): pres = ((x - mean x) + pres_old) - mean pres_old (zero
+    means where not ``remove_mean``: a table with an outflow face keeps
+    the pressure level), then one edge column of pres exchanged and vel +=
+    (pfac grad(pres)) / h^2 with pfac = -dt h / 2, the one-sided wall terms
+    signed by the table's ``grad_signs`` (None: Neumann) and on the wall
+    shards only in x (``pressure_gradient_update_bc``). Returns (vel,
+    pres)."""
     dt = torch.as_tensor(dt, dtype=x.dtype, device=x.device)
-    mx, mp = slab_mean(x), slab_mean(pres_old)
+    if remove_mean:
+        mx, mp = slab_mean(x), slab_mean(pres_old)
+    else:
+        mx = mp = torch.zeros((), dtype=x.dtype, device=x.device)
     pfac = -0.5 * dt * h
     ih2 = 1.0 / (h * h)
     pres = Slabs([((xp - mx.to(xp.device)) + pp) - mp.to(xp.device)
@@ -306,7 +326,8 @@ def project_correct_x(x: Slabs, pres_old: Slabs, vel: Slabs, h, dt):
     out = []
     for d, (pp, vp, (lo, hi)) in enumerate(zip(pres.parts, vel.parts,
                                                _walls(pres))):
-        dv = pfac.to(pp.device) * pressure_gradient_slab(pp, aux[d], lo, hi)
+        dv = pfac.to(pp.device) * pressure_gradient_slab(pp, aux[d], lo, hi,
+                                                         grad_signs)
         out.append(vp + dv * ih2)
     return Slabs(out, vel.mesh), pres
 
@@ -317,18 +338,22 @@ def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None,
     each substage exchanges three edge columns (in the storage dtype),
     then runs the halo-mode substage (``advect_substage_halo``: the kernel
     on the card, its twin on the CPU) on every shard, wall shards painting
-    their x ghosts. dt is a scalar or shaped like the leading dims.
-    ``bf16`` (f32 state only), as ``hopper_kernels.fused_advect_heun``:
-    substage 1 reads a bf16 copy of every slab and writes bf16, substage 2
-    reads that and the copy and writes the f32 state; both exchange their
-    halos in bf16. Only the free-slip box is ported: any other table
-    (periodic included, whose wrap would need a ring exchange) refuses."""
-    token = getattr(bc, "token", bc)
-    if token not in (None, _FREE_SLIP_TOKEN):
+    their x ghosts. dt is a scalar or shaped like the leading dims. ``bc``
+    a non-periodic ``BCTable`` (None or free-slip: the free-slip form):
+    every shard paints the table's y ghosts over its halo columns too, the
+    parabolic profile at its global columns (col0 = d w of the whole
+    width), and its x ghosts on the walls it owns; the facs carry the raw
+    dt (the outflow speed). A periodic table refuses (its wrap would need a
+    ring exchange; ROADMAP queue 1 item 3). ``bf16`` (f32 state only), as
+    ``hopper_kernels.fused_advect_heun``: substage 1 reads a bf16 copy of
+    every slab and writes bf16, substage 2 reads that and the copy and
+    writes the f32 state; both exchange their halos in bf16."""
+    if bc is not None and bc.is_free_slip:
+        bc = None
+    if bc is not None and any(periodic_axes(bc)):
         raise NotImplementedError(
-            f"fused_advect_heun_sharded: boundary table {token!r}: only "
-            f"the free-slip box ({_FREE_SLIP_TOKEN}) is ported (ROADMAP "
-            "queue 2 item 6)")
+            f"fused_advect_heun_sharded: boundary table {bc.token!r}: "
+            "periodic faces have no split form (ROADMAP queue 1 item 3)")
     if any(p.shape[-1] < WENO_HALO for p in vel.parts):
         raise ValueError(
             f"fused_advect_heun_sharded: slab width "
@@ -339,10 +364,15 @@ def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None,
                          "state; the bf16 tier needs f32 state")
     lead = p0.shape[:-3]
     L = math.prod(lead)
-    facs = _substage_facs(dt, float(h), nu, lead, L, p0.dtype, vel.device)
+    facs = _substage_facs(dt, float(h), nu, lead, L, p0.dtype, vel.device,
+                          with_dt=bc is not None)
     facs = [facs.to(p.device) for p in vel.parts]
     ih2 = 1.0 / (float(h) * float(h))
     walls = _walls(vel)
+    nx_tot = vel.shape[-1]
+    col0 = [0]
+    for p in vel.parts[:-1]:
+        col0.append(col0[-1] + p.shape[-1])
     v0 = Slabs([p.reshape((L,) + p.shape[-3:]) for p in vel.parts],
                vel.mesh)
 
@@ -350,7 +380,7 @@ def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None,
         aux = exchange_x(stage, WENO_HALO)
         return Slabs([advect_substage_halo(
             p, None if vold is None else vold.parts[d], aux[d], facs[d],
-            cfac, ih2, lo, hi, out_dtype)
+            cfac, ih2, lo, hi, out_dtype, bc, float(h), col0[d], nx_tot)
             for d, (p, (lo, hi)) in enumerate(zip(stage.parts, walls))],
             stage.mesh)
 
@@ -364,24 +394,25 @@ def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None,
 
 
 def overlap_jacobi_sweeps(e, r: Slabs, omega: float, n: int,
-                          from_zero: bool = False,
-                          fused: bool = True) -> Slabs:
+                          from_zero: bool = False, fused: bool = True,
+                          edge_signs=None) -> Slabs:
     """n damped-Jacobi sweeps e + omega (r - lap e) inv_d on split fields
     [Ny, w] per slab: each sweep exchanges one edge column, then sweeps
     every slab (``jacobi_halo_sweep``, the halo kernel on the card, one
-    launch per sweep and shard; ``fused=False`` takes its plain twin, as
-    the bf16 preconditioner cycle takes plain sweeps). The chain cannot
-    block sweeps in time: each needs fresh neighbour columns.
-    ``from_zero`` makes the first sweep omega r inv_d (no exchange)."""
+    launch per sweep and shard, its signed form with a table's
+    ``edge_signs``; ``fused=False`` takes its plain twin, as the bf16
+    preconditioner cycle takes plain sweeps). The chain cannot block
+    sweeps in time: each needs fresh neighbour columns. ``from_zero``
+    makes the first sweep omega r inv_d (no exchange)."""
     sweep = jacobi_halo_sweep if fused else jacobi_halo_sweep_plain
     walls = _walls(r)
     if from_zero and n > 0:
-        e = Slabs([sweep(None, rp, None, omega, lo, hi, True)
+        e = Slabs([sweep(None, rp, None, omega, lo, hi, True, edge_signs)
                    for rp, (lo, hi) in zip(r.parts, walls)], r.mesh)
         n -= 1
     for _ in range(n):
         aux = exchange_x(e, 1)
-        e = Slabs([sweep(ep, rp, aux[d], omega, lo, hi)
+        e = Slabs([sweep(ep, rp, aux[d], omega, lo, hi, False, edge_signs)
                    for d, (ep, rp, (lo, hi))
                    in enumerate(zip(e.parts, r.parts, walls))], r.mesh)
     return e

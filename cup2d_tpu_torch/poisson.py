@@ -41,7 +41,7 @@ import torch
 from .ops.hopper_kernels import (fused_correction, fused_jacobi_sweeps,
                                  jacobi_sweeps_plain)
 from .ops.stencil import laplacian5_bc, laplacian5_neumann
-from .parallel.shard_halo import (laplacian5_neumann_x, level_meshes,
+from .parallel.shard_halo import (laplacian5_bc_x, level_meshes,
                                   overlap_jacobi_sweeps, reshard)
 
 
@@ -116,17 +116,15 @@ cycle and in the fused sweep chains alike.
     sweeps without an exchange), where D launches and an exchange per
     sweep of a few hundred cells cost more than the sweep. Sweeps,
     restriction and prolongation are pointwise, so the split cycle equals
-    the solo one bit for bit."""
+    the solo one bit for bit. A table's ``edge_signs`` carry through both
+    forms (the signed halo sweep on every split or gathered level; the
+    JAX package instead drops its split smoother for a signed hierarchy
+    and lets GSPMD partition the signed strip sweeps)."""
 
     def __init__(self, ny: int, nx: int, dtype, nu1: int = 2,
                  nu2: int = 2, coarsest: int = 16, omega: float = 0.8,
                  cycle_dtype=None, fused_smoother: bool = False,
                  mesh=None, edge_signs=None, leg_dtype=None):
-        if mesh is not None and edge_signs is not None:
-            raise NotImplementedError(
-                "MultigridPreconditioner: a split (mesh) hierarchy with a "
-                "boundary table's edge signs is not ported (ROADMAP queue 2 "
-                "item 6, the split BC forms)")
         self.edge_signs = (None if edge_signs is None
                            else tuple(float(x) for x in edge_signs))
         self.nu1 = nu1
@@ -163,7 +161,7 @@ cycle and in the fused sweep chains alike.
 
     def _lap(self, p):
         if self.meshes is not None:
-            return laplacian5_neumann_x(p)
+            return laplacian5_bc_x(p, self.edge_signs)
         if self.edge_signs is not None:
             return laplacian5_bc(p, *self.edge_signs)
         return laplacian5_neumann(p)
@@ -171,7 +169,8 @@ cycle and in the fused sweep chains alike.
     def _smooth(self, e, r, lvl, n, from_zero=False):
         if self.meshes is not None:
             return overlap_jacobi_sweeps(e, r, self.omega, n, from_zero,
-                                         fused=self.fused_smoother)
+                                         fused=self.fused_smoother,
+                                         edge_signs=self.edge_signs)
         sweeps = (fused_jacobi_sweeps if self.fused_smoother
                   else jacobi_sweeps_plain)
         return sweeps(e, r, self.omega, n, from_zero, self.edge_signs)

@@ -21,14 +21,15 @@ through the Poisson operator, the multigrid hierarchy and the correction
 kernel, and its divergence coefficients (plus the constant of prescribed
 wall-normal velocities) through the Poisson RHS; a table with an outflow
 face keeps the pressure mean. A periodic table refuses (ROADMAP queue 1
-item 3), and so does a table other than free-slip on a slab mesh (queue 2
-item 6).
+item 3).
 
 ``UniformGrid.attach_mesh`` splits the step along x over a slab mesh
-(``parallel.mesh.ShardedUniformSim`` drives it): the advection runs the
-halo-mode substage per shard, the multigrid cycles run on split fields,
-the epilogue is plain per-slab code and the reductions combine per-shard
-partials (``parallel.shard_halo``).
+(``parallel.mesh.ShardedUniformSim`` drives it), free-slip or under any
+table the grid takes: the advection runs the halo-mode substage per shard
+(its boundary-table form under a table), the multigrid cycles run on split
+fields (the signed halo sweep under a table), the epilogue is plain
+per-slab code and the reductions combine per-shard partials
+(``parallel.shard_halo``).
 
 Environment, read once per ``UniformGrid``: ``CUP2D_POIS`` selects the
 solver (""/structured/tables/fft: bicgstab + MG, fas: MG cycles, fas-f:
@@ -63,11 +64,11 @@ from .ops.stencil import (divergence_bc, divergence_freeslip,
                           divergence_rhs_fused, dt_from_umax, laplacian5_bc,
                           laplacian5_neumann, pad_scalar, pad_vector,
                           vorticity)
-from .parallel.shard_halo import (canonical_device, divergence_rhs_x,
-                                  fused_advect_heun_sharded,
-                                  laplacian5_neumann_x, project_correct_x,
-                                  slab_all_finite, slab_linf, slab_reducers,
-                                  slab_sum)
+from .parallel.shard_halo import (canonical_device, divergence_bc_x,
+                                  fused_advect_heun_sharded, laplacian5_bc_x,
+                                  project_correct_x, slab_all_finite,
+                                  slab_linf, slab_reducers, slab_sum,
+                                  split_x)
 from .poisson import (MultigridPreconditioner, _reducers,
                       apply_block_precond, bicgstab, block_precond_matrix,
                       mg_solve, project_correct)
@@ -197,6 +198,7 @@ class UniformGrid:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.p_inv = self.tensor(block_precond_matrix(cfg.bs))
         self.mesh = None
+        self._div_affine_x = None
         self.mg = self._multigrid()
         # f32 fields take their Krylov dot products in f64 (the JAX
         # package does so whenever x64 is on)
@@ -221,14 +223,12 @@ class UniformGrid:
         as in the JAX package), and every reduction combines per-shard
         partials. The bf16 storage tier carries over: the halo substage
         runs its bf16 form and the FAS hierarchy, rebuilt here, its bf16
-        legs. fftd refuses at construction already, a boundary table other
-        than free-slip here; Nx must divide by the mesh size."""
-        if not self.bc.is_free_slip:
-            raise NotImplementedError(
-                f"boundary table {self.bc.token!r} on a slab mesh: the split "
-                "step's boundary-table forms (the halo substage's ghosts and "
-                "the per-slab stencils) are not ported yet (ROADMAP queue 2 "
-                "item 6)")
+        legs. So does the boundary table: the halo substage paints its
+        ghosts, the hierarchy and the Laplacian carry its pressure signs,
+        the RHS its divergence coefficients and affine term (split here
+        once) and the epilogue its gradient signs and mean rule. fftd and
+        periodic tables refuse at construction already; Nx must divide by
+        the mesh size."""
         if self.nx % mesh.size:
             raise ValueError(f"Nx={self.nx} not divisible by mesh size "
                              f"{mesh.size}")
@@ -236,6 +236,8 @@ class UniformGrid:
             raise ValueError(f"mesh {mesh} does not start on the grid's "
                              f"device {self.device}")
         self.mesh = mesh
+        self._div_affine_x = (None if self._div_affine is None
+                              else split_x(self._div_affine, mesh))
         self.mg = self._multigrid()
 
     def tensor(self, a) -> torch.Tensor:
@@ -272,7 +274,7 @@ class UniformGrid:
     def laplacian(self, p: torch.Tensor) -> torch.Tensor:
         """The undivided Poisson operator with the table's pressure rows."""
         if self.mesh is not None:
-            return laplacian5_neumann_x(p)
+            return laplacian5_bc_x(p, self._psigns)
         if self._psigns is None:
             return laplacian5_neumann(p)
         return laplacian5_bc(p, *self._psigns)
@@ -288,7 +290,8 @@ class UniformGrid:
         coefficients and the constant of prescribed wall-normal velocities;
         ``chi=None`` drops the obstacle term (the only form on a mesh)."""
         if self.mesh is not None and chi is None:
-            return divergence_rhs_x(vel, self.h, dt)
+            return divergence_bc_x(vel, self.h, dt, self._dcoeffs,
+                                   self._div_affine_x)
         if self._dcoeffs is None:
             if chi is None:
                 return (0.5 * self.h / dt) * divergence_freeslip(vel)
@@ -380,7 +383,7 @@ class UniformGrid:
         bf16 tier."""
         if self.mesh is not None:
             return fused_advect_heun_sharded(vel, self.h, self.cfg.nu, dt,
-                                             bf16=self.bf16)
+                                             bc=self.bc, bf16=self.bf16)
         return fused_advect_heun(vel, self.h, self.cfg.nu, dt, bc=self.bc,
                                  bf16=self.bf16)
 
@@ -396,7 +399,9 @@ class UniformGrid:
         b = b - self.laplacian(pres_old)
         res = self.pressure_solve(b, exact=exact_poisson)
         if self.mesh is not None:
-            vel, pres = project_correct_x(res.x, pres_old, vel, h, dt)
+            vel, pres = project_correct_x(
+                res.x, pres_old, vel, h, dt,
+                remove_mean=self.bc.all_neumann, grad_signs=self._psigns)
         else:
             vel, pres = project_correct(
                 res.x, pres_old, vel, h, dt,

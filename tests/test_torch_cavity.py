@@ -24,7 +24,7 @@ and projection epilogue, the case catalog, and whole trajectories.
 * The cavity's Poisson RHS is mean-free to rounding, and the channel's
   operator has no constant nullspace.
 * The catalog, the Ghia data, the free-slip table's bit-identity and the
-  refusals."""
+  refusals (a periodic table on a mesh; the split cavity builds)."""
 
 import dataclasses
 
@@ -50,6 +50,8 @@ from cup2d_tpu_torch.convert import (bc_from_fields,  # noqa: E402
 from cup2d_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from cup2d_tpu_torch.parallel.mesh import (ShardedUniformSim,  # noqa: E402
                                            make_mesh)
+from cup2d_tpu_torch.parallel.shard_halo import (  # noqa: E402
+    fused_advect_heun_sharded, split_x)
 from cup2d_tpu_torch.poisson import MultigridPreconditioner  # noqa: E402
 from cup2d_tpu_torch.poisson import project_correct  # noqa: E402
 from cup2d_tpu_torch.uniform import UniformGrid, UniformSim  # noqa: E402
@@ -416,15 +418,27 @@ def test_periodic_tables_refuse(table):
 
 
 def test_split_step_with_a_table_refuses():
+    """Since the split BC forms were ported, only a periodic table refuses
+    on a mesh (at the grid, as it does solo, and at the split substage);
+    the cavity builds a split sim and the signed split hierarchy builds."""
     cfg = config_from_dict(dataclasses.asdict(_cfg()))
     mesh = make_mesh(devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="queue 2 item 6"):
-        ShardedUniformSim(cfg, mesh, level=2, bc=tcases.cavity_table())
-    with pytest.raises(NotImplementedError, match="queue 2 item 6"):
+    for table in (tcases.periodic_table(), tcases.periodic_channel_table()):
+        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+            ShardedUniformSim(cfg, mesh, level=2, bc=table)
+    v = split_x(torch.zeros(2, 16, 32, dtype=torch.float64), mesh)
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        fused_advect_heun_sharded(v, 1 / 32, 1e-3, 1e-3,
+                                  bc=tcases.periodic_channel_table())
+    sim = tcases.make_sim("cavity", level=2, mesh=mesh, dtype="float64")
+    assert isinstance(sim, ShardedUniformSim) and sim.case == "cavity"
+    assert sim.kernel_tier == "plain+bc(ns,ns,ns,ns(1,0))"
+    assert len(sim.state.vel.parts) == 2
+    with pytest.raises(ValueError, match="not both"):
         tcases.make_sim("cavity", level=2, device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="queue 2 item 6"):
-        MultigridPreconditioner(32, 32, torch.float64, mesh=mesh,
-                                edge_signs=(1.0, 1.0, 1.0, 1.0))
+    mg = MultigridPreconditioner(32, 32, torch.float64, mesh=mesh,
+                                 edge_signs=(1.0, 1.0, 1.0, 1.0))
+    assert mg.meshes[0] is mesh
 
 
 @pytest.mark.parametrize("name,item", [("channel", "queue 1 item 1"),

@@ -27,7 +27,11 @@ and at least 99% of it bit-equal (kernel and twin each round one f32
 value, a few f32 ulp apart), n bf16 ulps after an n-sweep chain, an f32
 output from the same bf16 inputs (the second substage) within 2e-6
 relative; their split forms reproduce the solo ones bit for bit, and a
-split bf16 step the solo bf16 step."""
+split bf16 step the solo bf16 step. The boundary-table forms of the halo
+kernels (the halo substage under a table, the signed halo sweep), f32 and
+bf16, hold their twins as the solo forms do and reproduce the solo BC
+pair and the signed chain kernel bit for bit once assembled; a split
+cavity on one card follows the solo cavity to 1e-5 relative."""
 
 import numpy as np
 import pytest
@@ -640,3 +644,113 @@ def test_sharded_bf16_step_on_one_card_equals_solo(cuda, monkeypatch,
     assert la["fused_jacobi_sweeps+bf16"] == la["fused_jacobi_sweeps"]
     assert (la["fused_jacobi_sweeps"] > 0) == (pois == "fas")
     assert torch.equal(unshard_state(sh.state).vel, solo.state.vel)
+
+
+# ---------------------------------------------------------------------------
+# boundary-table forms of the x-split step's halo kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(BC_TABLES))
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_halo_substage_bc_kernel_vs_twin_and_solo_kernel(cuda, name, D,
+                                                         bf16):
+    """The halo substage's boundary-table form: the assembled slabs equal
+    the solo BC pair bit for bit (f32 and bf16), each shard's substages
+    hold their twins as the solo forms do."""
+    bc = BC_TABLES[name]
+    L, ny, nx = 2, 48, 96
+    h = 1.0 / nx
+    v = _rand((L, 2, ny, nx), 51, cuda)
+    dt = torch.tensor([0.5 * h, 0.3 * h], device=cuda)
+    mesh = make_mesh(devices=[cuda] * D)
+    hk.reset_launches()
+    split = gather_x(fused_advect_heun_sharded(split_x(v, mesh), h, 4e-5,
+                                               dt, bc=bc, bf16=bf16))
+    solo = hk.fused_advect_heun(v, h, 4e-5, dt, bc=bc, bf16=bf16)
+    torch.cuda.synchronize()
+    suffix = "+bc+bf16" if bf16 else "+bc"
+    assert hk.launches["advect_substage_halo" + suffix] == 2 * D
+    assert torch.equal(split, solo)
+    storage = torch.bfloat16 if bf16 else torch.float32
+    s0 = split_x(v.to(storage), mesh)
+    aux0 = exchange_x(s0, 3)
+    facs = hk._substage_facs(dt, h, 4e-5, (L,), L, torch.float32, cuda,
+                             with_dt=True)
+    w = nx // D
+    for d in range(D):
+        kw = dict(bc=bc, h=h, col0=d * w, nx_tot=nx)
+        a1 = (s0.parts[d], None, aux0[d], facs, 0.5, 1 / h ** 2, d == 0,
+              d == D - 1)
+        s1, r1 = hk.advect_substage_halo(*a1, **kw), \
+            hk.advect_substage_halo_plain(*a1, **kw)
+        if bf16:
+            _bf16_close(s1, r1)
+        else:
+            assert float((s1 - r1).abs().max() / r1.abs().max()) <= 2e-6
+        a2 = (s1, s0.parts[d], aux0[d], facs, 1.0, 1 / h ** 2, d == 0,
+              d == D - 1, torch.float32)
+        s2 = hk.advect_substage_halo(*a2, **kw)
+        r2 = hk.advect_substage_halo_plain(*a2, **kw)
+        assert float((s2 - r2).abs().max() / r2.abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("signs", [(1.0, 1.0, 1.0, 1.0),
+                                   (1.0, -1.0, 1.0, 1.0)])
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("from_zero", [False, True])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_halo_jacobi_signed_kernel_vs_solo_kernel(cuda, signs, D, from_zero,
+                                                  bf16):
+    """The signed halo sweep: three split sweeps equal three sweeps of the
+    signed chain kernel bit for bit (f32 and bf16) and hold the chain's
+    twin; both sign patterns of the tables (the cavity's, the channel's)."""
+    storage = torch.bfloat16 if bf16 else torch.float32
+    e = _rand((72, 136), 52, cuda).to(storage)
+    r = _rand((72, 136), 53, cuda).to(storage)
+    mesh = make_mesh(devices=[cuda] * D)
+    hk.reset_launches()
+    split = gather_x(overlap_jacobi_sweeps(split_x(e, mesh), split_x(r, mesh),
+                                           0.8, 3, from_zero,
+                                           edge_signs=signs))
+    solo = hk.fused_jacobi_sweeps(e, r, 0.8, 3, from_zero, signs)
+    torch.cuda.synchronize()
+    suffix = "+bc+bf16" if bf16 else "+bc"
+    assert hk.launches["jacobi_halo_sweep" + suffix] == 3 * D
+    assert torch.equal(split, solo)
+    if bf16:
+        _bf16_close(split, hk.jacobi_sweeps_bf16_plain(e, r, 0.8, 3,
+                                                       from_zero, signs),
+                    ulps=3)
+    else:
+        twin = hk.jacobi_sweeps_plain(e, r, 0.8, 3, from_zero, signs)
+        assert float((split - twin).abs().max() / twin.abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("pois", ["", "fas"])
+def test_sharded_cavity_on_one_card_matches_solo(cuda, monkeypatch, pois):
+    """The 128^2 cavity split into 4 slabs of cuda:0, four production
+    steps from the benchmark velocity against the solo cavity: equal
+    iterations, velocity within 1e-5 relative; only the boundary-table
+    halo forms launch."""
+    monkeypatch.setenv("CUP2D_POIS", pois)
+    solo = tcases.make_sim("cavity", level=4, device=cuda)
+    sh = tcases.make_sim("cavity", level=4,
+                         mesh=make_mesh(devices=[cuda] * 4))
+    solo.state = bench_state(solo.grid)
+    sh.set_state(bench_state(sh.grid))
+    solo.step_count = sh.step_count = 10
+    for _ in range(4):
+        ds = solo.step_once()
+        hk.reset_launches()
+        dh = sh.step_once()
+        assert ds["poisson_iters"] == dh["poisson_iters"]
+        la = dict(hk.launches)
+        assert la["advect_substage_halo+bc"] == la["advect_substage_halo"] \
+            == 8
+        assert la["jacobi_halo_sweep+bc"] == la["jacobi_halo_sweep"]
+        assert (la["jacobi_halo_sweep"] > 0) == (pois == "fas"
+                                                 and dh["poisson_iters"] > 0)
+        assert la["fused_advect_heun"] == la["fused_correction"] == 0
+    a, b = unshard_state(sh.state).vel, solo.state.vel
+    assert float((a - b).abs().max() / b.abs().max()) <= 1e-5

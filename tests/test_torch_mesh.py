@@ -11,7 +11,8 @@
   startup solve (at the default 1e-3 they converge in 0 iterations).
 * The split V-cycle, F-cycle and FAS cycle equal the solo ones bit for
   bit (every level split, or the coarse ones gathered).
-* The state lives as slabs of width Nx/D; the refusals are loud."""
+* The state lives as slabs of width Nx/D; the refusals are loud (a
+  periodic table refuses on a mesh; a wall-bounded one runs)."""
 
 import dataclasses
 import functools
@@ -173,13 +174,20 @@ def test_geometry_and_table_refusals(monkeypatch):
     monkeypatch.delenv("CUP2D_POIS", raising=False)
     with pytest.raises(ValueError, match="not divisible"):
         ShardedUniformSim(_tcfg(), _cpu_mesh(3), level=LEVEL)
-    from cup2d_tpu_torch.cases import cavity_table
-    with pytest.raises(NotImplementedError, match="ns,ns,ns,ns"):
-        ShardedUniformSim(_tcfg(), _cpu_mesh(2), level=LEVEL,
-                          bc=cavity_table())
+    from cup2d_tpu_torch.bc import BCTable, periodic
+    from cup2d_tpu_torch.cases import cavity_table, make_sim
+    # a wall-bounded table runs split (tests/test_torch_split_bc.py); a
+    # periodic one still refuses, at the grid and at the split substage
+    sh = ShardedUniformSim(_tcfg(), _cpu_mesh(2), level=LEVEL,
+                           bc=cavity_table())
+    assert sh.bc_table == "ns,ns,ns,ns(1,0)"
+    assert make_sim("cavity", level=2, mesh=_cpu_mesh(2)).case == "cavity"
+    pd_fs = BCTable(periodic(), periodic())
+    with pytest.raises(NotImplementedError, match="pd,pd,fs,fs"):
+        ShardedUniformSim(_tcfg(), _cpu_mesh(2), level=LEVEL, bc=pd_fs)
     v = split_x(torch.zeros(2, 16, 32, dtype=torch.float64), _cpu_mesh(2))
     with pytest.raises(NotImplementedError, match="pd,pd,fs,fs"):
-        fused_advect_heun_sharded(v, 1 / 32, 1e-3, 1e-3, bc="pd,pd,fs,fs")
+        fused_advect_heun_sharded(v, 1 / 32, 1e-3, 1e-3, bc=pd_fs)
     sh = ShardedUniformSim(_tcfg(), _cpu_mesh(2), level=LEVEL)
     with pytest.raises(NotImplementedError, match="obstacle"):
         sh.grid.step(sh.state, 1e-3)
