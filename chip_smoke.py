@@ -12,9 +12,11 @@ the result lines:
    instance's registers and spills;
 2. each kernel against its plain PyTorch twin on the card, f32, with the
    bounds stated below (the forest lab RHS per h class, at the path's nu
-   and at a diffusion-dominated nu = 1), plus kernel and twin times
-   (CUDA events) and, for the block-Jacobi update (at 1, 1000 and 16384
-   blocks), the time of ``torch.addmm``; the sweep chain at every level of
+   and at a diffusion-dominated nu = 1; at 128, 10,529 (the forest main
+   path's count) and 16,384 blocks, its bound at the face-sharing
+   operation count of its inputs beside the per-cell count), plus kernel
+   and twin times (CUDA events) and, for the block-Jacobi update (at 1,
+   1000 and 16384 blocks), the time of ``torch.addmm``; the sweep chain at every level of
    the 8192^2 V-cycle hierarchy with the chains a cycle launches there
    (graph replays: ms, bound and launches per level and per cycle); the
    four redesigned kernels' times beside their earlier designs', and the
@@ -55,7 +57,16 @@ the result lines:
    the signs (1, 1, 1, 1) and (1, -1, 1, 1) on the finest split level and
    two coarse ones, f32 and bf16 (the assembled sweep bit for bit one
    signed sweep of the chain kernel, each shard against its twin); kernel
-   ms, twin ms and bound beside the free-slip or Neumann form's ms;
+   ms, twin ms and bound beside the free-slip or Neumann form's ms. The
+   halo sweep's slab list (one launch for every slab of the card) against
+   its twin wherever a sweep is checked, and level by level over the
+   4-slab split hierarchy of 8192^2 (slabs 2048 .. 8 wide, then the
+   gathered 16^2 and 8^2 levels) in its four forms (Neumann and signed,
+   f32 and bf16): one sweep as one slab-list launch, as the per-slab
+   sequence it replaces (an exchange, then a launch per slab) and as one
+   chain-kernel sweep of the whole field (``jacobi.cu``'s cp.async tiles),
+   device ms from graph replays, the launches of each, the bytes bound,
+   and the slab list bit for bit one sweep of the chain kernel;
 3. the uniform main path: ``UniformGrid.step(obstacle_terms=False)`` on
    the 8192^2 f32 benchmark state, under the default solver (BiCGSTAB +
    bf16 multigrid) and under CUP2D_POIS=fas, one warm-up and five timed
@@ -74,7 +85,9 @@ the result lines:
    each run and read after it (2 lab-RHS launches per step; one
    block-Jacobi launch per production FAS cycle, none under the default).
    The default run is made twice from the same state and must repeat
-   itself bit for bit;
+   itself bit for bit; the lab RHS is timed on the fas run's own labs
+   (its last call), with the reconstructions per cell and component the
+   face sharing needs there;
 6. a multilevel forest (``amr.multilevel_forest``, levelMax 5) on the
    card and on the CPU, f32, 5 steps with an ``adapt()`` after the
    second: equal block key sets and velocity relative Linf <= 1e-4, once
@@ -90,8 +103,10 @@ the result lines:
    startup), under the default solver and under CUP2D_POIS=fas: one
    warm-up and three timed steps, the launch counts set to 0 before the
    split run and read after it (2 halo-substage launches per shard and
-   step; halo sweeps under fas only; no solo substage, correction or
-   sweep-chain launch), then the solo ``UniformSim`` from the same state:
+   step; halo sweeps under fas only, one launch per sweep and level over
+   all 4 slabs, with no edge-column exchange for a sweep; no solo
+   substage, correction or sweep-chain launch), then the solo
+   ``UniformSim`` from the same state:
    equal iterations every step and velocity within 1e-5 relative (only
    the order of the reductions differs, and they accumulate in f64).
 8. the wall-bounded main path: the lid-driven cavity of the case catalog
@@ -129,8 +144,9 @@ the result lines:
    fas (the default solver does not converge there at f32): production
    ``step_once`` steps at the CFL dt, one warm-up and three timed, the
    launch counts from 0 (2 boundary-table halo substage launches per shard
-   and step, signed halo sweeps under fas only: every ``+bc`` halo counter
-   non-zero; no solo substage, correction or sweep-chain launch), then the
+   and step, signed halo sweeps under fas only, one launch per sweep and
+   level with no exchange for it: every ``+bc`` halo counter non-zero; no
+   solo substage, correction or sweep-chain launch), then the
    solo sim from the same state: equal iterations every step and velocity
    within 1e-5 relative.
 
@@ -155,6 +171,7 @@ import numpy as np  # noqa: E402
 from cup2d_tpu_torch import SimConfig, UniformGrid, UniformSim  # noqa: E402
 from cup2d_tpu_torch import bc as tbc  # noqa: E402
 from cup2d_tpu_torch import cases  # noqa: E402
+from cup2d_tpu_torch import amr as tamr  # noqa: E402
 from cup2d_tpu_torch.amr import (AMRSim, multilevel_forest,  # noqa: E402
                                  vortex_forest)
 from cup2d_tpu_torch.convert import (forest_from_numpy,  # noqa: E402
@@ -162,6 +179,8 @@ from cup2d_tpu_torch.convert import (forest_from_numpy,  # noqa: E402
 from cup2d_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from cup2d_tpu_torch.ops.timing import (OPS_SWEEP_CELL, bound,  # noqa: E402
                                         cuda_ms, graph_ms,
+                                        halo_sweep_level_table, lab_rhs_ops,
+                                        lab_weno_faces,
                                         substage_ops, substage_pair_bytes,
                                         sweep_bytes, sweep_level_table,
                                         vcycle_chains, weno_faces)
@@ -171,7 +190,7 @@ from cup2d_tpu_torch.parallel.mesh import (ShardedUniformSim,  # noqa: E402
                                            make_mesh)
 from cup2d_tpu_torch.parallel.shard_halo import (  # noqa: E402
     Slabs, exchange_x, fused_advect_heun_sharded, gather_x,
-    overlap_jacobi_sweeps, split_x)
+    overlap_jacobi_sweeps, split_x, sweep_stats)
 from cup2d_tpu_torch.poisson import block_precond_matrix  # noqa: E402
 from cup2d_tpu_torch.uniform import bench_state  # noqa: E402
 
@@ -223,15 +242,22 @@ BC_TABLES = {
                              tbc.convective_outflow()),
 }
 
-# the previous designs of the four redesigned kernels, at the shapes of
-# their JSON entries (n = 2 on 8192^2; [16384, 8, 8] in graph replay;
-# both substages on [1, 2, 8192, 8192], and on 4 slabs of it):
+# the previous designs of the redesigned kernels, at the shapes of their
+# JSON entries (n = 2 on 8192^2; [16384, 8, 8] and [16384, 2, 14, 14] in
+# graph replay; both substages on [1, 2, 8192, 8192], and on 4 slabs of
+# it; one halo sweep on 4 slabs of 8192^2, a launch per slab, its four
+# forms):
 # chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W before each redesign
 # (PERF.md section 6); cup2d_tpu_torch.kernel_ab times each pair in one run
 EARLIER_MS = {"fused_jacobi_sweeps": 0.681,
               "fused_block_jacobi_update": 0.0191,
               "fused_advect_heun": 3.973,
-              "advect_substage_halo": 4.320}
+              "advect_substage_halo": 4.320,
+              "jacobi_halo_sweep": 0.403,
+              "jacobi_halo_sweep+bf16": 0.359,
+              "jacobi_halo_sweep+bc": 0.410,
+              "jacobi_halo_sweep+bc+bf16": 0.366,
+              "fused_lab_rhs": 0.0457}
 
 # operations per cell, counting each add, multiply, compare, select, max,
 # integer op and reciprocal as one: one WENO5 reconstruction is 83 (33
@@ -343,6 +369,24 @@ def rel_close(label: str, got, ref, bar: float) -> float:
     rel = err / float(ref.abs().max())
     print(f"phase 2 {label}: max_abs_err {err} (rel {rel})", flush=True)
     check(rel <= bar, f"{label}: rel {rel} > {bar}")
+    return err
+
+
+def slab_list_close(key: str, es, rs, signs) -> float:
+    """The slab-list halo sweep (one launch for every slab) against its
+    twin, from e and from zero: f32 within JACOBI_REL of max |ref|, bf16
+    within one bf16 ulp. Returns the largest absolute difference."""
+    err = 0.0
+    for fz in (False, True):
+        got = torch.cat(hk.jacobi_halo_sweep_slabs(es.parts, rs.parts, 0.8,
+                                                   fz, signs), dim=-1)
+        ref = torch.cat(hk.jacobi_halo_sweep_slabs_plain(
+            es.parts, rs.parts, 0.8, fz, signs), dim=-1)
+        label = (f"{key} slab list {list(got.shape)} on {len(es.parts)} "
+                 f"slabs from_zero={fz}")
+        err = max(err, bf16_close(label, got, ref)
+                  if got.dtype == torch.bfloat16
+                  else rel_close(label, got, ref, JACOBI_REL))
     return err
 
 
@@ -476,7 +520,7 @@ def phase_kernels(dev):
     # operand sets (77 MB at 16384 labs)
     h6 = 4.0 / 2 / 8 / 64
     dt = torch.tensor(0.25 * h6, device=dev)
-    for n in (128, 16384):
+    for n in (128, 10529, 16384):
         labs = [rn(n, 2, 14, 14) for _ in range(3)]
         lab = labs[0]
         cls = torch.arange(n, device=dev) % 3
@@ -499,9 +543,14 @@ def phase_kernels(dev):
                        for x in labs])
         pms = graph_ms([lambda x=x: hk.fused_lab_rhs_plain(x, h, 4e-5, dt)
                         for x in labs], reps=6)
-        print(f"phase 2 fused_lab_rhs [{n},2,14,14]: kernel_ms {ms} (eager "
-              f"per call {eager}) twin_ms {pms}", flush=True)
-        b = bound(BYTES_LAB_RHS_BLOCK * n, OPS_LAB_RHS_CELL * 64 * n)
+        b = bound(BYTES_LAB_RHS_BLOCK * n, lab_rhs_ops(lab))
+        b_old = bound(BYTES_LAB_RHS_BLOCK * n, OPS_LAB_RHS_CELL * 64 * n)
+        earlier = (f" (earlier design {EARLIER_MS['fused_lab_rhs']})"
+                   if n == 16384 else "")
+        print(f"phase 2 fused_lab_rhs [{n},2,14,14]: kernel_ms {ms}{earlier} "
+              f"(eager per call {eager}) twin_ms {pms} bound_ms {b[0]} "
+              f"({b[1]}; face-sharing count) bound_ms at 365 operations a "
+              f"cell and component {b_old[0]} ({b_old[1]})", flush=True)
         res["fused_lab_rhs"].update(ms=ms, plain_ms=pms, bound_ms=b[0],
                                     bound_by=b[1], library_ms=None)
         del labs, lab, got, ref
@@ -913,18 +962,8 @@ def phase_bf16_kernels(dev, res, size: int = 8192) -> None:
                                   hk.jacobi_halo_sweep(*a),
                                   hk.jacobi_halo_sweep_bf16_plain(*a)))
 
-    def k7(sweep):
-        for d in range(MESH_D):
-            sweep(es.parts[d], rs.parts[d], aux[d], 0.8, *walls[d])
-    ms = cuda_ms(lambda: k7(hk.jacobi_halo_sweep), 20)
-    pms = cuda_ms(lambda: k7(hk.jacobi_halo_sweep_bf16_plain), 2)
-    b = bound(sweep_bytes(cells, False, 2) + 2.0 * 2 * size * MESH_D,
-              OPS_SWEEP_CELL * cells)
-    res[key].update(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0],
-                    bound_by=b[1], library_ms=None)
-    print(f"phase 2 {key} [{size},{size // MESH_D}] x{MESH_D}, one sweep: "
-          f"kernel_ms {ms} (f32 form {res['jacobi_halo_sweep']['ms']}) "
-          f"twin_ms {pms} bound_ms {b[0]} ({b[1]})", flush=True)
+    err = max(err, slab_list_close(key, es, rs, None))
+    res[key]["max_abs_err"] = err
     del e, r, es, rs, aux
     torch.cuda.empty_cache()
 
@@ -1062,19 +1101,7 @@ def phase_halo_kernels(dev, res, size: int = 8192) -> None:
             check(rel <= JACOBI_REL, f"jacobi_halo_sweep {n}^2 shard {d}: "
                   f"rel {rel} > {JACOBI_REL}")
             err = max(err, float((k - p).abs().max()))
-        if n == size:
-            def k7(sweep):
-                for d in range(MESH_D):
-                    sweep(es.parts[d], rs.parts[d], aux[d], 0.8, *mw[d])
-            ms = cuda_ms(lambda: k7(hk.jacobi_halo_sweep), 20)
-            pms = cuda_ms(lambda: k7(hk.jacobi_halo_sweep_plain), 2)
-            b = bound(12.0 * n * n + 8.0 * 2 * n * MESH_D,
-                      OPS_SWEEP_CELL * n * n)
-            res["jacobi_halo_sweep"].update(ms=ms, plain_ms=pms,
-                                            bound_ms=b[0], bound_by=b[1],
-                                            library_ms=None)
-            print(f"phase 2 jacobi_halo_sweep [{n},{n // MESH_D}] x{MESH_D}"
-                  f", one sweep: kernel_ms {ms} twin_ms {pms}", flush=True)
+        err = max(err, slab_list_close("jacobi_halo_sweep", es, rs, None))
         del e, r, es, rs, aux
     res["jacobi_halo_sweep"]["max_abs_err"] = err
     torch.cuda.empty_cache()
@@ -1252,30 +1279,74 @@ def phase_split_bc_kernels(dev, res, size: int = 8192) -> None:
                     lab = f"{key} {n}^2 {list(signs)} shard {d}"
                     err = max(err, bf16_close(lab, k, p) if bf16 else
                               rel_close(lab, k, p, JACOBI_REL))
-            if n == size:
-                def k7(sweep):
-                    for d in range(MESH_D):
-                        sweep(es.parts[d], rs.parts[d], aux[d], 0.8, *mw[d],
-                              False, EDGE_SIGNS)
-                ms = cuda_ms(lambda: k7(hk.jacobi_halo_sweep), 20)
-                pms = cuda_ms(lambda: k7(twin), 2)
-                item = 2 if bf16 else 4
-                b = bound(sweep_bytes(cells, False, item)
-                          + 2.0 * item * n * MESH_D, OPS_SWEEP_CELL * n * n)
-                base = res["jacobi_halo_sweep+bf16" if bf16
-                           else "jacobi_halo_sweep"]["ms"]
-                res[key].update(ms=ms, plain_ms=pms, bound_ms=b[0],
-                                bound_by=b[1], library_ms=None)
-                print(f"phase 2 {key} {list(EDGE_SIGNS)} [{n},{n // MESH_D}]"
-                      f" x{MESH_D}, one sweep: kernel_ms {ms} (Neumann form "
-                      f"{base}) twin_ms {pms} bound_ms {b[0]} ({b[1]})",
-                      flush=True)
+            err = max(err, slab_list_close(key, es, rs, EDGE_SIGNS))
             del e, r, es, rs, aux
         res[key]["max_abs_err"] = err
     # the twins' memoized 8192^2 signed slab diagonals would count in the
     # later phases' peak memory
     inv_diag_bc_slab.cache_clear()
     torch.cuda.empty_cache()
+
+
+def phase_halo_sweep_levels(dev, res, size: int = 8192) -> dict:
+    """Phase 2, continued: the halo sweep at every level of the MESH_D-way
+    split hierarchy of size^2 on one card (slabs 2048 .. 8 wide, then the
+    gathered levels on one slab), in its four forms (Neumann and the
+    channel's signs, f32 and bf16): one sweep as one slab-list launch and
+    as the per-slab sequence it replaces (an edge-column exchange, then a
+    launch per slab), device ms from graph replays, the launches of each,
+    the bytes bound, and the slab list bit for bit one sweep of the chain
+    kernel (from e and from zero). Fills ``res`` for the four halo sweep
+    entries from the finest level (the twin: the slab list's, timed
+    there), and returns the tables."""
+    mesh = make_mesh(devices=[dev] * MESH_D)
+    forms = {"jacobi_halo_sweep": (torch.float32, None),
+             "jacobi_halo_sweep+bf16": (torch.bfloat16, None),
+             "jacobi_halo_sweep+bc": (torch.float32, EDGE_SIGNS),
+             "jacobi_halo_sweep+bc+bf16": (torch.bfloat16, EDGE_SIGNS)}
+    tables = {}
+    for key, (dtype, signs) in forms.items():
+        rows = halo_sweep_level_table(dev, size=size, slabs=MESH_D,
+                                      dtype=dtype, edge_signs=signs)
+        tables[key] = rows
+        for row in rows:
+            print(f"phase 2 halo sweep level {key} {row['level']}^2 on "
+                  f"{row['slabs']} slabs of {row['width']}: kernel_ms "
+                  f"{row['ms']} (1 launch) per-slab sequence ms "
+                  f"{row['per_slab_ms']} ({row['per_slab_launches']} "
+                  f"launches) chain-kernel sweep of the whole field ms "
+                  f"{row['chain_ms']} bound_ms {row['bound_ms']} sweeps/cycle "
+                  f"{row['sweeps_per_cycle']} bit for bit the chain kernel "
+                  f"{row['bit_equal']}", flush=True)
+            check(row["bit_equal"], f"{key} level {row['level']}^2: the "
+                  "slab-list sweep differs from the chain kernel's")
+        cyc = {k: sum(r[k] * r["sweeps_per_cycle"] for r in rows)
+               for k in ("ms", "per_slab_ms", "launches",
+                         "per_slab_launches", "bound_ms")}
+        print(f"phase 2 halo sweep levels {key} per V-cycle: kernel_ms "
+              f"{cyc['ms']} ({cyc['launches']} launches) per-slab sequence "
+              f"ms {cyc['per_slab_ms']} ({cyc['per_slab_launches']} "
+              f"launches) bound_ms {cyc['bound_ms']}", flush=True)
+        gen = torch.Generator(device=dev).manual_seed(12)
+        e, r = (torch.randn(size, size, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        es, rs = split_x(e, mesh), split_x(r, mesh)
+        pms = cuda_ms(lambda: hk.jacobi_halo_sweep_slabs_plain(
+            es.parts, rs.parts, 0.8, False, signs), 2)
+        top = rows[0]
+        res[key].update(ms=top["ms"], plain_ms=pms, bound_ms=top["bound_ms"],
+                        bound_by="bytes", library_ms=None,
+                        per_slab_ms=top["per_slab_ms"],
+                        cycle_ms=cyc["ms"])
+        earlier = EARLIER_MS.get(key)
+        print(f"phase 2 {key} [{size},{size // MESH_D}] x{MESH_D}, one "
+              f"sweep: kernel_ms {top['ms']} (one launch; per-slab sequence "
+              f"{top['per_slab_ms']}; chain-kernel sweep {top['chain_ms']}"
+              + (f"; earlier design {earlier}" if earlier else "")
+              + f") twin_ms {pms} bound_ms {top['bound_ms']}", flush=True)
+        del e, r, es, rs
+        torch.cuda.empty_cache()
+    return tables
 
 
 def run_sharded(dev, pois: str, steps: int = 3, size: int = 8192,
@@ -1301,6 +1372,7 @@ def run_sharded(dev, pois: str, steps: int = 3, size: int = 8192,
             sync(dev)
             torch.cuda.reset_peak_memory_stats()
             hk.reset_launches()
+            sweep_stats.update(sweeps=0, exchanges=0)
             iters = [sim.step_once(dt)["poisson_iters"]]      # warm-up
             sync(dev)
             t0 = time.perf_counter()
@@ -1314,7 +1386,8 @@ def run_sharded(dev, pois: str, steps: int = 3, size: int = 8192,
                 "iters_per_step": sum(iters[1:]) / steps, "iters": iters,
                 "umax": d["umax"], "finite": bool(d["finite"]),
                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                "launches": dict(hk.launches)}
+                "launches": dict(hk.launches),
+                "halo_sweeps": dict(sweep_stats)}
             v = sim.state.vel
             vel[label] = gather_x(v) if label == "sharded" else v
             out[label]["tier"] = sim.kernel_tier
@@ -1335,6 +1408,12 @@ def run_sharded(dev, pois: str, steps: int = 3, size: int = 8192,
           f"sharded: halo substage launches {la} != 2 D per step")
     check((la["jacobi_halo_sweep"] > 0) == (pois == "fas"),
           f"sharded {pois or 'default'}: halo sweep launches {la}")
+    hs = sh["halo_sweeps"]
+    check(la["jacobi_halo_sweep"] == hs["sweeps"] and hs["exchanges"] == 0,
+          f"sharded {pois or 'default'}: {la['jacobi_halo_sweep']} halo "
+          f"sweep launches for {hs['sweeps']} sweeps over the levels, "
+          f"{hs['exchanges']} exchanges for them: expected one launch a "
+          "sweep and level and no exchange on a one-card mesh")
     for k in ("fused_advect_heun", "fused_correction",
               "fused_jacobi_sweeps"):
         check(la[k] == 0, f"sharded: a solo kernel launched ({k}: {la})")
@@ -1523,10 +1602,40 @@ def phase_forest(dev, target=FOREST_TARGET, **kw) -> tuple[list, dict]:
     print(f"phase 5 forest default repeated bit for bit: {same}", flush=True)
     check(same, "forest: two runs of the same state differ on the card")
     del sims
-    runs.append(run_forest(fresh("fas"), "fas"))
+    # the fas run's lab RHS operands, kept to time the kernel on the
+    # forest's own labs
+    seen = {}
+    lab_rhs = tamr.fused_lab_rhs
+
+    def keep(lab, h, nu, dt):
+        seen.update(lab=lab, h=h, nu=nu, dt=dt)
+        return lab_rhs(lab, h, nu, dt)
+    tamr.fused_lab_rhs = keep
+    try:
+        runs.append(run_forest(fresh("fas"), "fas"))
+    finally:
+        tamr.fused_lab_rhs = lab_rhs
+    if torch.device(dev).type == "cuda":
+        forest_labs_timing(**seen)
     total = {k: sum(r["launches"][k] for r in runs)
              for k in runs[0]["launches"]}
     return runs, total
+
+
+def forest_labs_timing(lab, h, nu, dt) -> None:
+    """The lab RHS on the forest main path's own labs (the last call of a
+    run): device ms from graph replays, its bound, and the reconstructions
+    per cell and component that the face sharing needs there."""
+    n = lab.shape[0]
+    h = torch.as_tensor(h, dtype=torch.float32, device=lab.device)
+    dt = torch.as_tensor(dt, dtype=torch.float32, device=lab.device)
+    ms = graph_ms([lambda: hk.fused_lab_rhs(lab, h, nu, dt)])
+    b = bound(BYTES_LAB_RHS_BLOCK * n, lab_rhs_ops(lab))
+    faces = lab_weno_faces(lab) / (2 * 64 * n)
+    print(f"phase 5 fused_lab_rhs on the forest's own labs {list(lab.shape)}"
+          f": kernel_ms {ms} bound_ms {b[0]} ({b[1]}); {faces} "
+          "reconstructions per cell and component (the per-cell design: "
+          "4)", flush=True)
 
 
 def _ordered_vel(sim) -> tuple[list, np.ndarray]:
@@ -1714,6 +1823,7 @@ def run_split_walled(dev, kind: str, pois: str, level: int, steps: int = 3,
         sync(dev)
         torch.cuda.reset_peak_memory_stats()
         hk.reset_launches()
+        sweep_stats.update(sweeps=0, exchanges=0)
         iters = [sim.step_once()["poisson_iters"]]           # warm-up
         sync(dev)
         t0 = time.perf_counter()
@@ -1729,7 +1839,8 @@ def run_split_walled(dev, kind: str, pois: str, level: int, steps: int = 3,
             "iters_per_step": sum(iters[1:]) / steps, "iters": iters,
             "umax": d["umax"], "finite": bool(d["finite"]),
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "launches": {k: n for k, n in hk.launches.items() if n}}
+            "launches": {k: n for k, n in hk.launches.items() if n},
+            "halo_sweeps": dict(sweep_stats)}
         v = sim.state.vel
         vel[label] = gather_x(v) if m is not None else v
         del sim, v
@@ -1753,6 +1864,13 @@ def run_split_walled(dev, kind: str, pois: str, level: int, steps: int = 3,
           and la.get("jacobi_halo_sweep", 0)
           == la.get("jacobi_halo_sweep+bc", 0),
           f"{label}: halo sweep launches {la}")
+    hs = sh["halo_sweeps"]
+    check(la.get("jacobi_halo_sweep", 0) == hs["sweeps"]
+          and hs["exchanges"] == 0,
+          f"{label}: {la.get('jacobi_halo_sweep', 0)} halo sweep launches "
+          f"for {hs['sweeps']} sweeps over the levels, {hs['exchanges']} "
+          "exchanges for them: expected one launch a sweep and level and no"
+          " exchange on a one-card mesh")
     for k in ("fused_advect_heun", "fused_correction",
               "fused_jacobi_sweeps"):
         check(la.get(k, 0) == 0, f"{label}: a solo kernel launched ({k}: "
@@ -1873,6 +1991,8 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"phase 1 ptxas {stem} {fn}: {line.strip()}",
                       flush=True)
+            elif line.startswith("nvcc "):
+                print(f"phase 1 {stem}.cu: {line}", flush=True)
 
     res = phase_kernels(dev)
     phase_halo_kernels(dev, res)
@@ -1885,6 +2005,10 @@ def main() -> int:
     phase_split_bc_kernels(dev, res)
     print(f"phase 2 split boundary-table forms took "
           f"{time.perf_counter() - t0} s", flush=True)
+    t0 = time.perf_counter()
+    phase_halo_sweep_levels(dev, res)
+    print(f"phase 2 halo sweep levels took {time.perf_counter() - t0} s",
+          flush=True)
 
     uniform = ("fused_advect_heun", "fused_correction",
                "fused_jacobi_sweeps")

@@ -22,21 +22,31 @@ the same operands:
    substages (vold absent and given) of the solo kernel on the 8192^2
    benchmark state, a member stack, ragged shapes and adversarial winds
    (``wind_field``), and of the halo kernel under the four wall
-   combinations; the forest lab RHS and the single-op RHS on normal labs;
+   combinations; the forest lab RHS at 1, 33, 10,529 and 16,384 blocks on
+   normal labs and on every adversarial wind pattern, and the single-op
+   RHS on a normal lab;
    the projection correction on 8192^2, a member stack and ragged shapes;
    the boundary-table and bf16 forms the earlier sources define, behind
    today's wrappers: the solo BC pair under four tables and the solo bf16
    pair (free-slip and cavity) on the 8192^2 benchmark state, a member
    stack and ragged shapes, the bf16 halo pair under the four wall
    combinations, the halo sweep (f32 and bf16) and the signed chain (f32
-   and bf16). The largest distance in ulp must be 0;
+   and bf16); and this tree's slab-list halo sweep (one launch for every
+   slab of the card) against the earlier per-slab sweep over an
+   edge-column exchange, in its four forms (Neumann and signed, f32 and
+   bf16), at every level of the 4-slab split hierarchy of 8192^2 and on
+   ragged slabs, from e and from zero. The largest distance in ulp must
+   be 0;
 2. time, in turns (earlier, this, this, earlier) within the one process:
    device time from graph replays of each V-cycle chain per level, of the
    block-Jacobi update at 16384 blocks over 6 operand sets, and of each
    substage at the main paths' shapes (8192^2 solo, and 4 slabs of
    8192 x 2048 for the halo kernel), of the correction on 8192^2, of the
-   solo BC pair (cavity) and bf16 pair on 8192^2, and of one halo sweep on
-   4 slabs of 8192^2 (f32 and bf16);
+   solo BC pair (cavity) and bf16 pair on 8192^2, of one halo sweep on
+   4 slabs of 8192^2 (f32 and bf16, a launch per slab), of one halo sweep
+   at every level of the split hierarchy in its four forms (the earlier
+   per-slab sequence against the slab list), and of the lab RHS at 10,529
+   and 16,384 blocks;
 3. this tree's boundary-table forms beside its free-slip forms, in turns
    (free-slip, table, table, free-slip), at 8192^2: the substage pair
    under the cavity and the parabolic channel tables, the correction and
@@ -66,8 +76,9 @@ from .config import SimConfig
 from .ops import hopper_kernels as hk
 from .ops.timing import graph_ms, sweep_level_table, vcycle_chains
 from .parallel.mesh import make_mesh
-from .parallel.shard_halo import (fused_advect_heun_sharded,
-                                  overlap_jacobi_sweeps, split_x)
+from .parallel.shard_halo import (fused_advect_heun_sharded, gather_x,
+                                  level_meshes, overlap_jacobi_sweeps,
+                                  split_x, sweep_exchanged, sweep_slabs)
 from .poisson import block_precond_matrix
 from .uniform import UniformGrid, bench_state
 
@@ -498,25 +509,131 @@ def form_times(fns, current, dev, size: int = 8192,
     return out
 
 
-def rhs_bit_checks(fns, dev) -> list[dict]:
-    """The forest lab RHS and the single-op RHS, which share weno.cuh,
-    against their earlier builds."""
-    gen = torch.Generator(device=dev).manual_seed(5)
-    n = 16384
-    lab = torch.randn(n, 2, 14, 14, generator=gen, device=dev)
+LAB_BLOCKS = (1, 33, 10529, 16384)
+
+
+def _lab_operands(n, pattern, seed, dev):
+    """Labs [n, 2, 14, 14] of a wind pattern (``wind_field``), the forest's
+    mixed per-block h (levels 6 and 7 of the canonical domain and the pad
+    rows' 1) and dt."""
+    lab = wind_field((n, 2, 14, 14), pattern, seed, dev)
     h = torch.tensor([1 / 64, 1 / 128, 1.0], device=dev)[
         torch.arange(n, device=dev) % 3]
-    dt = torch.tensor(0.5 / 128, device=dev)
+    return lab, h, torch.tensor(0.5 / 128, device=dev)
+
+
+def rhs_bit_checks(fns, dev) -> list[dict]:
+    """The forest lab RHS at 1, 33, 10,529 and 16,384 blocks on normal
+    labs and on every adversarial wind pattern, and the single-op RHS,
+    which share weno.cuh, against their earlier builds."""
+    rows = []
+    for k, n in enumerate(LAB_BLOCKS):
+        for j, pattern in enumerate(WIND_PATTERNS):
+            lab, h, dt = _lab_operands(n, pattern, 100 + 10 * k + j, dev)
+            this = hk.fused_lab_rhs(lab, h, 4e-5, dt)
+            with earlier_entries(fns, ("lab_rhs",)):
+                then = hk.fused_lab_rhs(lab, h, 4e-5, dt)
+            rows.append({"kernel": "fused_lab_rhs", "shape": list(lab.shape),
+                         "operands": pattern, "ulps": ulps(this, then)})
+    gen = torch.Generator(device=dev).manual_seed(5)
     vlab = torch.randn(2, 518, 1030, generator=gen, device=dev)
-    this = (hk.fused_lab_rhs(lab, h, 4e-5, dt),
-            hk.advect_diffuse_rhs(vlab, 1 / 1024, 4e-5, 0.5 / 1024))
-    with earlier_entries(fns, ("lab_rhs", "advect_rhs")):
-        then = (hk.fused_lab_rhs(lab, h, 4e-5, dt),
-                hk.advect_diffuse_rhs(vlab, 1 / 1024, 4e-5, 0.5 / 1024))
-    return [{"kernel": "fused_lab_rhs", "shape": list(lab.shape),
-             "ulps": ulps(this[0], then[0])},
-            {"kernel": "advect_diffuse_rhs", "shape": list(vlab.shape),
-             "ulps": ulps(this[1], then[1])}]
+    this = hk.advect_diffuse_rhs(vlab, 1 / 1024, 4e-5, 0.5 / 1024)
+    with earlier_entries(fns, ("advect_rhs",)):
+        then = hk.advect_diffuse_rhs(vlab, 1 / 1024, 4e-5, 0.5 / 1024)
+    rows.append({"kernel": "advect_diffuse_rhs", "shape": list(vlab.shape),
+                 "ulps": ulps(this, then)})
+    return rows
+
+
+def lab_rhs_times(fns, dev) -> dict:
+    """Device ms of the lab RHS at the forest's 10,529 blocks and at
+    16,384, in turns (earlier, this, this, earlier), graph replays over
+    3 operand sets: normal labs (half the interior faces' two cells differ
+    in wind sign) and all-positive ones (none do), keyed "<n> <pattern>"."""
+    out = {}
+    for n in LAB_BLOCKS[2:]:
+        for pattern in ("normal", "positive"):
+            sets = [_lab_operands(n, pattern, 200 + k, dev)
+                    for k in range(3)]
+            row = {"earlier": [], "this": []}
+            for who in ("earlier", "this", "this", "earlier"):
+                ctx = (earlier_entries(fns, ("lab_rhs",))
+                       if who == "earlier" else contextlib.nullcontext())
+                with ctx:
+                    row[who].append(graph_ms([
+                        lambda o=o: hk.fused_lab_rhs(o[0], o[1], 4e-5,
+                                                     o[2]) for o in sets]))
+            out[f"{n} {pattern}"] = row
+    return out
+
+
+HALO_FORMS = {"": (torch.float32, None), "+bf16": (torch.bfloat16, None),
+              "+bc": (torch.float32, (1.0, -1.0, 1.0, 1.0)),
+              "+bc+bf16": (torch.bfloat16, (1.0, -1.0, 1.0, 1.0))}
+
+
+def _halo_levels(dev, size: int, slabs: int):
+    """(level size, mesh) of every level of the ``slabs``-way split V-cycle
+    hierarchy of size^2 on one card (``shard_halo.level_meshes``)."""
+    levels = [n for n, _ in vcycle_chains(size)]
+    return list(zip(levels, level_meshes(
+        [(n, n) for n in levels], make_mesh(devices=[dev] * slabs))))
+
+
+def halo_slab_checks(fns, current, dev, size: int = 8192,
+                     slabs: int = 4) -> list[dict]:
+    """The slab-list halo sweep (one launch for every slab) against the
+    earlier build's per-slab sweep over an edge-column exchange, in its
+    four forms, at every level of the ``slabs``-way split hierarchy of
+    size^2 and on ragged slabs (34 columns: no whole 16-byte rows; two
+    members), from e and from zero; one row per form and operand set."""
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = [(n, (n, n), m) for n, m in _halo_levels(dev, size, slabs)]
+    cases.append((136, (2, 40, 136), make_mesh(devices=[dev] * slabs)))
+    for form, (dtype, signs) in HALO_FORMS.items():
+        per_slab = routed(fns, current, sweep_exchanged)
+        for n, shape, mesh in cases:
+            e, r = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            es, rs = split_x(e, mesh), split_x(r, mesh)
+            u = max(ulps(gather_x(sweep_slabs(es, rs, 0.8, fz,
+                                              signs)).float(),
+                         gather_x(per_slab(es, rs, 0.8, fz,
+                                           signs)).float())
+                    for fz in (False, True))
+            rows.append({"kernel": "jacobi_halo_sweep", "form": form,
+                         "slab_list": True, "shape": list(shape),
+                         "slabs": mesh.size, "ulps": u})
+            del e, r, es, rs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def halo_slab_times(fns, current, dev, size: int = 8192,
+                    slabs: int = 4) -> list[dict]:
+    """Device ms of one halo sweep at every level of the split hierarchy,
+    in its four forms, in turns: the earlier build's per-slab sequence
+    (an exchange, then a launch per slab) and this tree's slab list (one
+    launch): earlier, this, this, earlier."""
+    per_slab = routed(fns, current, sweep_exchanged)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for form, (dtype, signs) in HALO_FORMS.items():
+        for n, mesh in _halo_levels(dev, size, slabs):
+            es, rs = (split_x(torch.randn(n, n, generator=gen,
+                                          device=dev).to(dtype), mesh)
+                      for _ in range(2))
+            row = {"halo_sweep": form or "neumann", "level": n,
+                   "slabs": mesh.size, "earlier": [], "this": []}
+            for who in ("earlier", "this", "this", "earlier"):
+                fn = per_slab if who == "earlier" else sweep_slabs
+                row[who].append(graph_ms([lambda: fn(es, rs, 0.8, False,
+                                                     signs)], reps=8))
+            rows.append(row)
+            del es, rs
+    torch.cuda.empty_cache()
+    return rows
 
 
 def correction_bit_checks(corr_o, dev) -> list[dict]:
@@ -703,7 +820,8 @@ def main(argv=None) -> int:
     bits = (substage_bit_checks(sub_o, halo_o, dev) + rhs_bit_checks(fns, dev)
             + bit_checks(sweeps_o, bj_o, dev)
             + correction_bit_checks(corr_o, dev)
-            + form_bit_checks(fns, current, dev))
+            + form_bit_checks(fns, current, dev)
+            + halo_slab_checks(fns, current, dev))
     for row in bits:
         emit({"bits": row})
     worst = max(row["ulps"] for row in bits)
@@ -732,6 +850,12 @@ def main(argv=None) -> int:
     earlier_forms = form_times(fns, current, dev)
     for k, row in earlier_forms.items():
         emit({"form": k, **row})
+    halo = halo_slab_times(fns, current, dev)
+    for row in halo:
+        emit(row)
+    lab = lab_rhs_times(fns, dev)
+    for n, row in lab.items():
+        emit({"lab_rhs_blocks": n, **row})
     emit({"summary": {
         "card": torch.cuda.get_device_name(0), "worst_ulps": worst,
         "substage_pair_ms": {
@@ -743,6 +867,10 @@ def main(argv=None) -> int:
         "correction_ms": corr,
         "bc_form_ms": forms,
         "form_ms": earlier_forms,
+        "halo_sweep_finest_ms": {
+            row["halo_sweep"]: {who: row[who] for who in ("earlier", "this")}
+            for row in halo if row["level"] == 8192},
+        "lab_rhs_ms": lab,
         "operand_sets": len(bits),
         "cycle_bound_ms": sum(r["bound_ms"] for r in tables["this"][0])}})
     if args.out:

@@ -28,9 +28,10 @@ wrapper                        replaces                         source
                                free-slip or a table's ghosts,
                                f32 or bf16)
 ``jacobi_halo_sweep``          ``_jacobi_halo_kernel`` (one     ``jacobi_halo.cu``
-                               sweep on an x slab, Neumann or
-                               a table's edge signs, f32 or
-                               bf16)
+``jacobi_halo_sweep_slabs``    sweep on an x slab, or on every
+                               slab of a device in one launch,
+                               Neumann or a table's edge
+                               signs, f32 or bf16)
 ``advect_diffuse_rhs``         ``_adv_kernel`` (RHS over a      ``advect_rhs.cu``
                                pre-padded lab, f32)
 =============================  ===============================  ===================
@@ -77,12 +78,13 @@ the WENO ``den > 1e-35`` guard relies on.
 
 ``launches`` counts kernel launches per wrapper (one per substage for the
 advection kernels, one per chain of at most six sweeps for the smoother
-(in bf16: of 6, 2 or 1, ``BF16_CHAIN``), one per sweep and slab for the
-halo smoother, one per call for the others); a launch counts under its
-kernel's name and again under the name with the suffix of each form it
-is: ``+bc`` (a boundary table), ``+bf16`` (bf16 storage) and ``+bc+bf16``
-(both). Twin calls do not count. A launch runs on the current stream of
-its tensors' device.
+(in bf16: of 6, 2 or 1, ``BF16_CHAIN``), one per sweep for the halo
+smoother, over every slab of a device (``jacobi_halo_sweep_slabs``) or of
+one slab (``jacobi_halo_sweep``), one per call for the others); a launch
+counts under its kernel's name and again under the name with the suffix
+of each form it is: ``+bc`` (a boundary table), ``+bf16`` (bf16
+storage) and ``+bc+bf16`` (both). Twin calls do not count. A launch runs
+on the current stream of its tensors' device.
 """
 
 from __future__ import annotations
@@ -94,6 +96,8 @@ import math
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 import torch
@@ -145,6 +149,19 @@ class _Faces(ctypes.Structure):
 
 _FACE_KINDS = {"free_slip": 0, "no_slip": 1, "inflow": 2, "outflow": 3}
 
+
+class _Slab(ctypes.Structure):
+    """``halo::Slab`` (csrc/jacobi_halo.cu): one slab of a slab list."""
+    _fields_ = [("e", ctypes.c_void_p), ("r", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("left", ctypes.c_void_p),
+                ("right", ctypes.c_void_p), ("nxl", ctypes.c_int),
+                ("lstride", ctypes.c_int), ("rstride", ctypes.c_int),
+                ("is_lo", ctypes.c_int), ("is_hi", ctypes.c_int)]
+
+
+# the most slabs one slab-list launch takes (jacobi_halo.cu's MAX_SLABS)
+HALO_MAX_SLABS = 16
+
 # the boundary-table and bf16 forms: key -> (source stem, C entry point,
 # argtypes)
 _FORM_ENTRIES = {
@@ -190,6 +207,18 @@ _FORM_ENTRIES = {
                             "cup2d_jacobi_halo_sweep_signed_bf16",
                             [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _F,
                              _F, _F, _F, _P]),
+    "jacobi_halo+slabs": ("jacobi_halo", "cup2d_jacobi_halo_sweep_slabs",
+                          [_P, _I, _I, _I, _F, _I, _P]),
+    "jacobi_halo+slabs+bf16": ("jacobi_halo",
+                               "cup2d_jacobi_halo_sweep_slabs_bf16",
+                               [_P, _I, _I, _I, _F, _I, _P]),
+    "jacobi_halo+slabs+bc": ("jacobi_halo",
+                             "cup2d_jacobi_halo_sweep_slabs_signed",
+                             [_P, _I, _I, _I, _F, _I, _F, _F, _F, _F, _P]),
+    "jacobi_halo+slabs+bc+bf16": ("jacobi_halo",
+                                  "cup2d_jacobi_halo_sweep_slabs_signed_bf16",
+                                  [_P, _I, _I, _I, _F, _I, _F, _F, _F, _F,
+                                   _P]),
 }
 
 launches = {"fused_advect_heun": 0, "fused_correction": 0,
@@ -295,9 +324,11 @@ def _lib_path(stem: str) -> Path:
 def build() -> dict:
     """Compile every kernel source not yet built (one ``nvcc`` each, all
     started together), load them, and return ``{stem: log}`` with the
-    compiler's resource report for the sources built now."""
+    compiler's resource report for the sources built now and, last, the
+    seconds its ``nvcc`` ran (``nvcc ... s``)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for stem in _ENTRIES:
         if stem in _fns:
             continue
@@ -310,11 +341,26 @@ def build() -> dict:
         procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), tmp, so)
+    # the compiler's output, drained while it runs, and its wall time
+    outs = {stem: [] for stem in procs}
+    readers = [threading.Thread(target=lambda p=p, o=outs[stem]:
+                                o.append(p.stdout.read()))
+               for stem, (p, _, _) in procs.items()]
+    for t in readers:
+        t.start()
+    secs = {}
+    while len(secs) < len(procs):
+        for stem, (p, _, _) in procs.items():
+            if stem not in secs and p.poll() is not None:
+                secs[stem] = time.perf_counter() - t0
+        time.sleep(0.05)
+    for t in readers:
+        t.join()
     logs = {}
     failed = []
     for stem, (p, tmp, so) in procs.items():
-        out, _ = p.communicate()
-        logs[stem] = out
+        out = "".join(outs[stem])
+        logs[stem] = out + f"\nnvcc {secs[stem]:.1f} s\n"
         if p.returncode != 0:
             failed.append(f"{stem}.cu (rc {p.returncode}):\n{out}")
         else:
@@ -958,6 +1004,111 @@ def jacobi_halo_sweep(e, r, aux, omega, is_lo, is_hi, from_zero=False,
             r.data_ptr(), None if aux is None else aux.data_ptr(),
             out.data_ptr(), L, ny, nxl, float(omega), int(bool(is_lo)),
             int(bool(is_hi)), int(e is None), *signs)
+    _count("jacobi_halo_sweep", bool(signs), bf16)
+    return out
+
+
+def _edge_columns(es):
+    """Per slab of a field split along x (``es`` its slabs in order, on
+    one device) the aux [..., Ny, 2] of one sweep: the left neighbour's
+    last column and the right neighbour's first, zeros where the slab owns
+    a wall (``parallel.shard_halo.exchange_x(., 1)``)."""
+    out = []
+    for d, p in enumerate(es):
+        zero = p.new_zeros(p.shape[:-1] + (1,))
+        left = es[d - 1][..., -1:] if d > 0 else zero
+        right = es[d + 1][..., :1] if d < len(es) - 1 else zero
+        out.append(torch.cat([left, right], dim=-1))
+    return out
+
+
+def jacobi_halo_sweep_slabs_plain(es, rs, omega, from_zero=False,
+                                  edge_signs=None):
+    """Plain twin of the slab-list sweep: ``rs`` (and ``es``, ignored
+    ``from_zero``) the slabs [..., Ny, w_d] of a field split along x, in
+    order, slab 0 owning the low x wall and the last the high one; per
+    slab its neighbours' edge columns (``_edge_columns``) and
+    ``jacobi_halo_sweep_plain`` (``jacobi_halo_sweep_bf16_plain`` for
+    bf16). Returns the swept slabs."""
+    bf16 = rs[0].dtype == torch.bfloat16
+    twin = jacobi_halo_sweep_bf16_plain if bf16 else jacobi_halo_sweep_plain
+    D = len(rs)
+    aux = [None] * D if from_zero else _edge_columns(es)
+    return [twin(None if from_zero else es[d], rs[d], aux[d], omega, d == 0,
+                 d == D - 1, from_zero, edge_signs) for d in range(D)]
+
+
+def _overlaps(a, b) -> bool:
+    pa, pb = a.data_ptr(), b.data_ptr()
+    return (pa < pb + b.numel() * b.element_size()
+            and pb < pa + a.numel() * a.element_size())
+
+
+def jacobi_halo_sweep_slabs(es, rs, omega, from_zero=False, edge_signs=None,
+                            out=None):
+    """One sweep of every slab of a field split along x whose slabs lie on
+    one device, the same arguments and result as the twin: on CUDA
+    tensors one launch for all of them (at most ``HALO_MAX_SLABS``; its
+    signed form where ``edge_signs`` is given, its bf16 form for bf16
+    operands), each slab reading its neighbours' edge columns in place;
+    on CPU tensors the twin. ``out`` (default: fresh tensors) receives the
+    slabs; no out may overlap any slab of ``es``, which the launch reads
+    while it writes."""
+    D = len(rs)
+    es = [None] * D if from_zero else list(es)
+    bf16 = rs[0].dtype == torch.bfloat16
+    if not _on_cuda(*es, *rs):
+        return jacobi_halo_sweep_slabs_plain(es, rs, omega, from_zero,
+                                             edge_signs)
+    if len({t.device for t in es + rs if t is not None}) != 1:
+        raise ValueError("jacobi_halo_sweep_slabs: slabs on several "
+                         "devices (exchange their columns and sweep each "
+                         "with jacobi_halo_sweep)")
+    if not 1 <= D <= HALO_MAX_SLABS:
+        raise ValueError(f"jacobi_halo_sweep_slabs: {D} slabs: one launch "
+                         f"takes 1 to {HALO_MAX_SLABS}")
+    lead = rs[0].shape[:-1]
+    for d in range(D):
+        if rs[d].shape[:-1] != lead or (
+                es[d] is not None and es[d].shape != rs[d].shape):
+            raise ValueError(
+                f"jacobi_halo_sweep_slabs: slab {d}: r "
+                f"{tuple(rs[d].shape)}, e "
+                f"{None if es[d] is None else tuple(es[d].shape)}: "
+                f"expected [...,{lead[-1]},w] both")
+    _check("jacobi_halo_sweep", _STORAGE,
+           **{f"r{d}": t for d, t in enumerate(rs)},
+           **{f"e{d}": t for d, t in enumerate(es)})
+    out = [torch.empty_like(t) for t in rs] if out is None else list(out)
+    for d, o in enumerate(out):
+        if o.shape != rs[d].shape or o.dtype != rs[d].dtype or (
+                not o.is_contiguous()) or o.device != rs[d].device:
+            raise ValueError(f"jacobi_halo_sweep_slabs: out {d} "
+                             f"{tuple(o.shape)} {o.dtype}: expected r's "
+                             "shape, dtype and device, contiguous")
+        if any(e is not None and _overlaps(o, e) for e in es):
+            raise ValueError(f"jacobi_halo_sweep_slabs: out {d} overlaps a "
+                             "slab of e, which the launch reads while it "
+                             "writes out")
+    item = rs[0].element_size()
+    table = (_Slab * D)()
+    for d in range(D):
+        w = rs[d].shape[-1]
+        s = table[d]
+        s.e = None if es[d] is None else es[d].data_ptr()
+        s.r, s.out, s.nxl = rs[d].data_ptr(), out[d].data_ptr(), w
+        s.is_lo, s.is_hi = int(d == 0), int(d == D - 1)
+        if es[d] is not None and d > 0:
+            wl = es[d - 1].shape[-1]
+            s.left, s.lstride = es[d - 1].data_ptr() + (wl - 1) * item, wl
+        if es[d] is not None and d < D - 1:
+            s.right = es[d + 1].data_ptr()
+            s.rstride = es[d + 1].shape[-1]
+    signs = () if edge_signs is None else _signs(edge_signs)
+    key = ("jacobi_halo+slabs" + ("+bc" if signs else "")
+           + ("+bf16" if bf16 else ""))
+    _launch(key, rs[0].device, table, D, math.prod(lead[:-1]), lead[-1],
+            float(omega), int(bool(from_zero)), *signs)
     _count("jacobi_halo_sweep", bool(signs), bf16)
     return out
 

@@ -1,5 +1,5 @@
-"""Device timing of kernels on the card, and the per-level table of the
-Multigrid sweep chain.
+"""Device timing of kernels on the card, and the per-level tables of the
+Multigrid sweep chain and of the split hierarchy's halo sweep.
 
 ``cuda_ms`` times eager calls with CUDA events (host launch cost included
 once the calls are short); ``graph_ms`` captures the calls in one CUDA
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .hopper_kernels import sweep_chain
+from .hopper_kernels import fused_jacobi_sweeps, sweep_chain
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # f32 operations/s outside the tensor cores
@@ -24,6 +24,9 @@ OPS_SWEEP_CELL = 9           # 5 Laplacian, 4 update
 # differences, a 5-op Laplacian, a 6-op RHS and a 3-op update
 OPS_WENO_FACE = 88
 OPS_SUBSTAGE_REST = 16
+# the forest lab RHS per cell and component besides its faces: the
+# substage's rest less its 3-op update
+OPS_LAB_RHS_REST = 13
 
 
 def cuda_ms(fn, reps: int, warm: int = 1) -> float:
@@ -115,6 +118,24 @@ def substage_ops(v: torch.Tensor) -> float:
     return 2.0 * (OPS_WENO_FACE * weno_faces(v) + OPS_SUBSTAGE_REST * cells)
 
 
+def lab_weno_faces(lab: torch.Tensor) -> int:
+    """WENO reconstructions the forest lab RHS needs on labs [N, 2, 14,
+    14] (8 x 8 blocks, 3 ghost cells) when each face of a block is
+    reconstructed once where its two cells' winds agree in sign and twice
+    where they differ (``weno_faces`` of the blocks' own cells), summed
+    over both components."""
+    return 2 * weno_faces(lab[..., 3:-3, 3:-3])
+
+
+def lab_rhs_ops(lab: torch.Tensor) -> float:
+    """Operations of the forest lab RHS on labs [N, 2, 14, 14]: both
+    components' reconstructions (``lab_weno_faces``) and the rest of each
+    cell's arithmetic."""
+    cells = lab.shape[0] * 64
+    return 2.0 * (OPS_WENO_FACE * lab_weno_faces(lab) / 2
+                  + OPS_LAB_RHS_REST * cells)
+
+
 def vcycle_chains(size: int, coarsest: int = 16, nu: int = 2,
                   coarse_sweeps: int = 24) -> list[tuple[int, list]]:
     """The sweep chains one V-cycle of ``MultigridPreconditioner`` on a
@@ -166,4 +187,72 @@ def sweep_level_table(sweeps, device, size: int = 8192, sets: int = 3,
             row["launches"] += launches
         rows.append(row)
         del ops
+    return rows
+
+
+def exchange_launches(slabs: int) -> int:
+    """Kernel launches of ``shard_halo.exchange_x`` over ``slabs`` slabs of
+    one card: a copy or a zero fill for each side of each slab, or one
+    zero fill for a single slab."""
+    return 2 * slabs if slabs > 1 else 1
+
+
+def halo_sweep_level_table(device, size: int = 8192, slabs: int = 4,
+                           dtype=torch.float32, edge_signs=None,
+                           seed: int = 0, sets: int = 3) -> list[dict]:
+    """The halo sweep at each level of the ``slabs``-way split V-cycle
+    hierarchy of size^2 on one card (``shard_halo.level_meshes``: split
+    while a slab is at least ``MIN_SPLIT_WIDTH`` wide, gathered onto one
+    slab below), on operands of ``dtype`` (f32 or bf16), Neumann or with
+    a table's ``edge_signs``. Per level: the device ms of one sweep from e
+    as one slab-list launch (``shard_halo.sweep_slabs``) and as the
+    per-slab sequence (``shard_halo.sweep_exchanged``: one edge column
+    exchanged, then a launch per slab), from graph replays
+    over ``sets`` operand sets (one at the two finest levels); the launches
+    of each; the bytes bound of the sweep (``sweep_bytes``, 9 operations a
+    cell); the sweeps one V-cycle runs there; whether the slab list
+    equals one sweep of the chain kernel on the whole field bit for bit,
+    from e and from zero; and the device ms of that chain sweep, the same
+    work in ``jacobi.cu``'s design (tiles staged with their halo by
+    cp.async, the whole field, no slab edges)."""
+    from ..parallel.mesh import make_mesh
+    from ..parallel.shard_halo import (gather_x, level_meshes, split_x,
+                                       sweep_exchanged, sweep_slabs)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    levels = vcycle_chains(size)
+    meshes = level_meshes([(n, n) for n, _ in levels],
+                          make_mesh(devices=[device] * slabs))
+    rows = []
+    for (n_cells, chains), mesh in zip(levels, meshes):
+        k = 1 if n_cells >= 4096 else sets
+        ops = []
+        for _ in range(k):
+            e, r = (torch.randn(n_cells, n_cells, generator=gen,
+                                device=device).to(dtype) for _ in range(2))
+            ops.append((e, r, split_x(e, mesh), split_x(r, mesh)))
+        e, r, es, rs = ops[0]
+        equal = all(bool(torch.equal(
+            gather_x(sweep_slabs(es, rs, 0.8, fz, edge_signs)),
+            fused_jacobi_sweeps(e, r, 0.8, 1, fz, edge_signs)))
+            for fz in (False, True))
+        ms = graph_ms([lambda o=o: sweep_slabs(o[2], o[3], 0.8, False,
+                                               edge_signs) for o in ops])
+        pms = graph_ms([lambda o=o: sweep_exchanged(o[2], o[3], 0.8, False,
+                                                    edge_signs)
+                        for o in ops])
+        cms = graph_ms([lambda o=o: fused_jacobi_sweeps(o[0], o[1], 0.8, 1,
+                                                        False, edge_signs)
+                        for o in ops])
+        cells = n_cells * n_cells
+        D = mesh.size
+        rows.append({
+            "level": n_cells, "slabs": D, "width": n_cells // D, "ms": ms,
+            "per_slab_ms": pms, "chain_ms": cms,
+            "bound_ms": bound(sweep_bytes(cells, False, itemsize),
+                              OPS_SWEEP_CELL * cells)[0],
+            "launches": 1, "per_slab_launches": D + exchange_launches(D),
+            "sweeps_per_cycle": sum(n for n, _ in chains),
+            "bit_equal": equal})
+        del ops, e, r, es, rs
     return rows

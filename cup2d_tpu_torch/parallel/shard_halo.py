@@ -15,6 +15,9 @@ ways only:
    its right halo shard d+1's first g; wall shards receive zeros there.
    Copies are ``copy_`` without a host synchronization, so a peer copy
    follows the producer's stream. A multi-host backend plugs in here.
+   The halo sweep needs none where every slab lies on one device: one
+   launch sweeps them all, each slab reading its neighbours' edge
+   columns in place (``sweep_slabs``).
 2. The global reductions (``slab_reducers``, ``slab_sum``,
    ``slab_mean``, ``slab_linf``): per-shard partials in the dtype that
    ``poisson._reducers`` uses, combined in shard order on
@@ -36,8 +39,10 @@ import math
 import torch
 
 from ..bc import periodic_axes
-from ..ops.hopper_kernels import (_substage_facs, advect_substage_halo,
-                                  jacobi_halo_sweep, jacobi_halo_sweep_plain)
+from ..ops.hopper_kernels import (HALO_MAX_SLABS, _substage_facs,
+                                  advect_substage_halo, jacobi_halo_sweep,
+                                  jacobi_halo_sweep_plain,
+                                  jacobi_halo_sweep_slabs)
 from ..ops.stencil import (FREE_SLIP_COEFFS, NEUMANN_SIGNS,
                            divergence_bc_slab, laplacian5_bc_slab,
                            pressure_gradient_slab)
@@ -46,6 +51,11 @@ WENO_HALO = 3
 # a multigrid level stays split while its slab is at least this wide;
 # narrower levels are gathered onto mesh.devices[0] (see level_meshes)
 MIN_SPLIT_WIDTH = 8
+
+# the halo-kernel sweeps of overlap_jacobi_sweeps (one per sweep and
+# level) and the edge-column exchanges made for them; a run that sets
+# both to 0 reads them against the kernel's launch count
+sweep_stats = {"sweeps": 0, "exchanges": 0}
 
 
 def canonical_device(d) -> torch.device:
@@ -393,28 +403,58 @@ def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None,
                  vel.mesh)
 
 
+def sweep_slabs(e, r: Slabs, omega: float, from_zero: bool = False,
+                edge_signs=None) -> Slabs:
+    """One sweep of a split field whose slabs all lie on one device: one
+    ``jacobi_halo_sweep_slabs`` launch for every slab (its twin on the
+    CPU), each slab reading its neighbours' edge columns in place, so no
+    exchange runs."""
+    sweep_stats["sweeps"] += 1
+    return Slabs(jacobi_halo_sweep_slabs(None if from_zero else e.parts,
+                                         r.parts, omega, from_zero,
+                                         edge_signs), r.mesh)
+
+
+def sweep_exchanged(e, r: Slabs, omega: float, from_zero: bool = False,
+                    edge_signs=None, fused: bool = True) -> Slabs:
+    """One sweep as the JAX package runs it per shard: one edge column
+    exchanged (none from zero), then ``jacobi_halo_sweep`` on every slab,
+    one launch each (``fused=False``: its plain twin)."""
+    sweep = jacobi_halo_sweep if fused else jacobi_halo_sweep_plain
+    walls = _walls(r)
+    if from_zero:
+        aux, eparts = [None] * len(r.parts), [None] * len(r.parts)
+    else:
+        aux, eparts = exchange_x(e, 1), e.parts
+    if fused:
+        sweep_stats["sweeps"] += 1
+        sweep_stats["exchanges"] += not from_zero
+    return Slabs([sweep(ep, rp, aux[d], omega, lo, hi, from_zero,
+                        edge_signs)
+                  for d, (ep, rp, (lo, hi))
+                  in enumerate(zip(eparts, r.parts, walls))], r.mesh)
+
+
 def overlap_jacobi_sweeps(e, r: Slabs, omega: float, n: int,
                           from_zero: bool = False, fused: bool = True,
                           edge_signs=None) -> Slabs:
     """n damped-Jacobi sweeps e + omega (r - lap e) inv_d on split fields
-    [Ny, w] per slab: each sweep exchanges one edge column, then sweeps
-    every slab (``jacobi_halo_sweep``, the halo kernel on the card, one
-    launch per sweep and shard, its signed form with a table's
-    ``edge_signs``; ``fused=False`` takes its plain twin, as the bf16
-    preconditioner cycle takes plain sweeps). The chain cannot block
-    sweeps in time: each needs fresh neighbour columns. ``from_zero``
-    makes the first sweep omega r inv_d (no exchange)."""
-    sweep = jacobi_halo_sweep if fused else jacobi_halo_sweep_plain
-    walls = _walls(r)
-    if from_zero and n > 0:
-        e = Slabs([sweep(None, rp, None, omega, lo, hi, True, edge_signs)
-                   for rp, (lo, hi) in zip(r.parts, walls)], r.mesh)
-        n -= 1
-    for _ in range(n):
-        aux = exchange_x(e, 1)
-        e = Slabs([sweep(ep, rp, aux[d], omega, lo, hi, False, edge_signs)
-                   for d, (ep, rp, (lo, hi))
-                   in enumerate(zip(e.parts, r.parts, walls))], r.mesh)
+    [Ny, w] per slab, one sweep at a time (each needs fresh neighbour
+    columns, so the chain cannot block sweeps in time), the halo kernel's
+    signed form with a table's ``edge_signs``. The mesh chooses the form:
+    where every slab lies on one device (at most ``HALO_MAX_SLABS`` of
+    them), ``sweep_slabs``, one launch a sweep; on slabs of several
+    devices ``sweep_exchanged``, an exchange and a launch per slab.
+    ``fused=False`` takes the plain twin per slab, as the bf16
+    preconditioner cycle takes plain sweeps. ``from_zero`` makes the
+    first sweep omega r inv_d."""
+    one = len(set(r.mesh.devices)) == 1 and r.mesh.size <= HALO_MAX_SLABS
+    for k in range(n):
+        fz = from_zero and k == 0
+        if fused and one:
+            e = sweep_slabs(e, r, omega, fz, edge_signs)
+        else:
+            e = sweep_exchanged(e, r, omega, fz, edge_signs, fused)
     return e
 
 

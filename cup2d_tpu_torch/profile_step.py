@@ -5,6 +5,12 @@ benchmark state (``bench_state``, dt = h/2, f32) under each solver, one
 warm-up step and then ``--steps`` steps under ``torch.profiler``;
 ``--mesh D`` splits the grid along x into D slabs on the one card
 (``UniformGrid.attach_mesh``, the step of ``ShardedUniformSim``).
+Channel (``--channel``): the 8192 x 2048 parabolic channel table of
+chip_smoke phases 8 and 10 (``cases.channel_table(0.2, "parabolic")``,
+the JAX package's channel configuration without its disk) from the
+impulsive start u = u_in, ``--mesh D`` slabs or solo, under
+CUP2D_POIS=fas only (the default solver does not converge there at f32):
+one warm-up production ``step_once`` at the CFL dt, then ``--steps``.
 Forest (``--forest``): builds ``amr.vortex_forest`` (the ~1e4-block
 synthetic-vortex forest of the canonical domain), runs its 10 startup
 steps and one production step unprofiled, then ``--steps`` production
@@ -18,6 +24,7 @@ most device time. The Chrome trace of each window goes to
     python -m cup2d_tpu_torch.profile_step --size 8192 --steps 3
     python -m cup2d_tpu_torch.profile_step --size 8192 --mesh 4
     python -m cup2d_tpu_torch.profile_step --forest --steps 3
+    python -m cup2d_tpu_torch.profile_step --channel --mesh 4
 """
 
 from __future__ import annotations
@@ -85,6 +92,62 @@ def profile_forest(steps: int, pois: str, out_dir: str, top: int,
     return out, start
 
 
+CHANNEL_CFG = dict(bpdx=4, bpdy=1, level_max=1, level_start=0, extent=4.0,
+                   nu=1e-4, cfl=0.5, max_poisson_iterations=200,
+                   poisson_tol=1e-3, poisson_tol_rel=1e-2, dtype="float32")
+
+
+def profile_channel(steps: int, out_dir: str, top: int,
+                    mesh: int = 0) -> dict:
+    """Profile ``steps`` production steps of the parabolic channel at
+    level 8 (8192 x 2048) under fas, split into ``mesh`` slabs of the one
+    card or solo."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .cases import channel_table
+    from .config import SimConfig
+    from .parallel.mesh import ShardedUniformSim, make_mesh
+    from .uniform import UniformSim
+
+    table = channel_table(0.2, profile="parabolic")
+    os.environ["CUP2D_POIS"] = "fas"
+    try:
+        cfg = SimConfig(**CHANNEL_CFG)
+        if mesh:
+            sim = ShardedUniformSim(
+                cfg, make_mesh(devices=[torch.device("cuda")] * mesh),
+                level=8, bc=table)
+        else:
+            sim = UniformSim(cfg, level=8, bc=table)
+    finally:
+        os.environ.pop("CUP2D_POIS", None)
+    st = sim.grid.zero_state()
+    st.vel[0] = 0.2
+    if mesh:
+        sim.set_state(st)
+    else:
+        sim.state = st
+    sim.step_count = 10          # production solves
+    sim.step_once()
+    torch.cuda.synchronize()
+    iters = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            iters.append(sim.step_once()["poisson_iters"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        out_dir, f"trace_channel_fas_mesh{mesh}.json"))
+    out = {"mode": sim.poisson_mode, "case": "channel", "mesh": mesh,
+           "steps": steps, "iters": iters}
+    out.update(_summary(prof, steps, wall_ms, top))
+    return out
+
+
 def profile_solver(size: int, steps: int, pois: str, out_dir: str,
                    top: int, mesh: int = 0) -> dict:
     import torch
@@ -143,6 +206,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", type=int, default=0,
                     help="split the uniform step into this many slabs on "
                          "the one card")
+    ap.add_argument("--channel", action="store_true",
+                    help="profile the parabolic channel under fas instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
@@ -152,8 +217,10 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip()
     print(f"card: {card}")
     start = None
-    for pois in ("", "fas"):
-        if args.forest:
+    for pois in ("fas",) if args.channel else ("", "fas"):
+        if args.channel:
+            res = profile_channel(args.steps, args.out, args.top, args.mesh)
+        elif args.forest:
             res, start = profile_forest(args.steps, pois, args.out,
                                         args.top, start)
         else:

@@ -499,13 +499,18 @@ def test_default_cycle_does_not_run_the_bf16_chain(monkeypatch, pois):
     def counting(name, fn):
         def call(*a, **k):
             calls[name] += 1
-            assert a[1].dtype == torch.bfloat16
+            r = a[1][0] if isinstance(a[1], list) else a[1]
+            assert r.dtype == torch.bfloat16
             return fn(*a, **k)
         return call
     monkeypatch.setattr(tpoisson, "fused_jacobi_sweeps",
                         counting("chain", hk.fused_jacobi_sweeps))
+    # the split levels' halo sweeps: the slab list on a one-device mesh,
+    # the per-slab wrapper on slabs of several devices
     monkeypatch.setattr(shard_halo, "jacobi_halo_sweep",
                         counting("halo", hk.jacobi_halo_sweep))
+    monkeypatch.setattr(shard_halo, "jacobi_halo_sweep_slabs",
+                        counting("halo", hk.jacobi_halo_sweep_slabs))
     monkeypatch.setenv("CUP2D_PREC", "bf16")
     monkeypatch.setenv("CUP2D_POIS", pois)
     cfg = SimConfig(**_cfg32())

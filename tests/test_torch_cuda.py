@@ -31,7 +31,13 @@ split bf16 step the solo bf16 step. The boundary-table forms of the halo
 kernels (the halo substage under a table, the signed halo sweep), f32 and
 bf16, hold their twins as the solo forms do and reproduce the solo BC
 pair and the signed chain kernel bit for bit once assembled; a split
-cavity on one card follows the solo cavity to 1e-5 relative."""
+cavity on one card follows the solo cavity to 1e-5 relative. The halo
+sweep's slab list (one launch for every slab of the card) equals the
+per-slab kernel over an exchange and the chain kernel's single sweep bit
+for bit, whatever the slabs' widths and alignment, holds its twin to the
+chain's bars, and refuses an output that overlaps a slab it reads; the
+face-sharing lab RHS holds its twin on adversarial winds and gives the
+same bits from labs off the 16-byte grid."""
 
 import numpy as np
 import pytest
@@ -44,6 +50,7 @@ from cup2d_tpu_torch.amr import multilevel_forest
 from cup2d_tpu_torch.convert import forest_from_numpy, forest_to_numpy
 from cup2d_tpu_torch.kernel_ab import WIND_PATTERNS, wind_field
 from cup2d_tpu_torch.ops import hopper_kernels as hk
+from cup2d_tpu_torch.parallel import shard_halo
 from cup2d_tpu_torch.parallel.mesh import (ShardedUniformSim, make_mesh,
                                            unshard_state)
 from cup2d_tpu_torch.parallel.shard_halo import (exchange_x,
@@ -341,7 +348,7 @@ def test_halo_jacobi_kernel_vs_twin_and_solo_kernel(cuda, D, from_zero):
                                            0.8, 3, from_zero))
     solo = hk.fused_jacobi_sweeps(e, r, 0.8, 3, from_zero)
     torch.cuda.synchronize()
-    assert hk.launches["jacobi_halo_sweep"] == 3 * D
+    assert hk.launches["jacobi_halo_sweep"] == 3
     assert torch.equal(split, solo)
     twin = hk.jacobi_sweeps_plain(e, r, 0.8, 3, from_zero)
     assert float((split - twin).abs().max() / twin.abs().max()) <= 2e-6
@@ -596,7 +603,7 @@ def test_halo_jacobi_bf16_kernel_vs_twin_and_solo_kernel(cuda, D,
                                            0.8, 3, from_zero))
     solo = hk.fused_jacobi_sweeps(e, r, 0.8, 3, from_zero)
     torch.cuda.synchronize()
-    assert hk.launches["jacobi_halo_sweep+bf16"] == 3 * D
+    assert hk.launches["jacobi_halo_sweep+bf16"] == 3
     assert torch.equal(split, solo)
     _bf16_close(split, hk.jacobi_sweeps_bf16_plain(e, r, 0.8, 3, from_zero),
                 ulps=3)
@@ -716,7 +723,7 @@ def test_halo_jacobi_signed_kernel_vs_solo_kernel(cuda, signs, D, from_zero,
     solo = hk.fused_jacobi_sweeps(e, r, 0.8, 3, from_zero, signs)
     torch.cuda.synchronize()
     suffix = "+bc+bf16" if bf16 else "+bc"
-    assert hk.launches["jacobi_halo_sweep" + suffix] == 3 * D
+    assert hk.launches["jacobi_halo_sweep" + suffix] == 3
     assert torch.equal(split, solo)
     if bf16:
         _bf16_close(split, hk.jacobi_sweeps_bf16_plain(e, r, 0.8, 3,
@@ -754,3 +761,105 @@ def test_sharded_cavity_on_one_card_matches_solo(cuda, monkeypatch, pois):
         assert la["fused_advect_heun"] == la["fused_correction"] == 0
     a, b = unshard_state(sh.state).vel, solo.state.vel
     assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
+
+
+# the slab list: one launch sweeps every slab of the card; slabs of 34
+# (f32: no whole 16-byte rows, scalar runs), 68 and 136 columns, unequal
+# widths, and operands off the 16-byte grid
+HALO_SLAB_CUTS = {"1": [(0, 136)], "2": [(0, 68), (68, 136)],
+                  "4": [(34 * d, 34 * d + 34) for d in range(4)],
+                  "unequal": [(0, 8), (8, 40), (40, 53), (53, 136)]}
+
+
+def _halo_slabs(x, cuts, offset=False):
+    """The slabs of x [..., nx] at ``cuts``, each contiguous; ``offset``
+    puts each one element past a 16-byte boundary."""
+    out = []
+    for a, b in cuts:
+        part = x[..., a:b]
+        if offset:
+            flat = torch.empty(part.numel() + 1, dtype=x.dtype,
+                               device=x.device)
+            out.append(flat[1:].view(part.shape).copy_(part))
+        else:
+            out.append(part.contiguous())
+    return out
+
+
+@pytest.mark.parametrize("cuts", sorted(HALO_SLAB_CUTS))
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("signs", [None, (1.0, -1.0, 1.0, 1.0)])
+@pytest.mark.parametrize("from_zero", [False, True])
+def test_halo_slab_list_kernel_vs_twin(cuda, cuts, bf16, signs, from_zero):
+    """One launch for every slab: bit for bit the per-slab kernel over an
+    exchange (and, for a split of the field, the chain kernel's single
+    sweep), whether runs are 16-byte words or single cells; the twin within
+    the chain kernel's bars."""
+    storage = torch.bfloat16 if bf16 else torch.float32
+    e = _rand((2, 40, 136), 60, cuda).to(storage)
+    r = _rand((2, 40, 136), 61, cuda).to(storage)
+    c = HALO_SLAB_CUTS[cuts]
+    es, rs = _halo_slabs(e, c), _halo_slabs(r, c)
+    hk.reset_launches()
+    got = hk.jacobi_halo_sweep_slabs(es, rs, 0.8, from_zero, signs)
+    torch.cuda.synchronize()
+    assert hk.launches["jacobi_halo_sweep"] == 1
+    assert hk.launches["jacobi_halo_sweep+bc"] == (signs is not None)
+    assert hk.launches["jacobi_halo_sweep+bf16"] == bf16
+    mesh = make_mesh(devices=[cuda] * len(c))
+    aux = exchange_x(shard_halo.Slabs(es, mesh), 1)
+    for d, g in enumerate(got):
+        per = hk.jacobi_halo_sweep(es[d], rs[d], aux[d], 0.8, d == 0,
+                                   d == len(c) - 1, from_zero, signs)
+        assert torch.equal(g, per), d
+    odd = hk.jacobi_halo_sweep_slabs(_halo_slabs(e, c, True),
+                                     _halo_slabs(r, c, True), 0.8,
+                                     from_zero, signs)
+    assert all(torch.equal(a, b) for a, b in zip(got, odd))
+    whole = torch.cat(got, dim=-1)
+    assert torch.equal(whole, hk.fused_jacobi_sweeps(e, r, 0.8, 1,
+                                                     from_zero, signs))
+    ref = torch.cat(hk.jacobi_halo_sweep_slabs_plain(es, rs, 0.8, from_zero,
+                                                     signs), dim=-1)
+    if bf16:
+        _bf16_close(whole, ref)
+    else:
+        assert float((whole - ref).abs().max() / ref.abs().max()) <= 2e-6
+
+
+def test_halo_slab_list_refuses_an_out_over_e(cuda):
+    """A slab reads its neighbours' e while the launch writes out, so no
+    out may overlap any slab of e."""
+    e = _rand((16, 136), 62, cuda)
+    es = _halo_slabs(e, HALO_SLAB_CUTS["2"])
+    rs = _halo_slabs(_rand((16, 136), 63, cuda), HALO_SLAB_CUTS["2"])
+    with pytest.raises(ValueError, match="overlaps"):
+        hk.jacobi_halo_sweep_slabs(es, rs, 0.8, out=[es[0],
+                                                     torch.empty_like(rs[1])])
+    with pytest.raises(ValueError, match="overlaps"):
+        hk.jacobi_halo_sweep_slabs(es, rs, 0.8, out=[torch.empty_like(rs[0]),
+                                                     es[0]])
+    out = [torch.empty_like(p) for p in rs]
+    got = hk.jacobi_halo_sweep_slabs(es, rs, 0.8, out=out)
+    assert all(g is o for g, o in zip(got, out))
+
+
+@pytest.mark.parametrize("pattern", WIND_PATTERNS)
+@pytest.mark.parametrize("n", [1, 33, 1000])
+def test_lab_rhs_kernel_on_adversarial_winds(cuda, pattern, n):
+    """The face-sharing lab RHS on winds that stress it (every neighbour
+    of another sign, zeros, one sign): the twin per h class, and the same
+    bits from labs off the 16-byte grid (4-byte copies)."""
+    lab = wind_field((n, 2, 14, 14), pattern, 70, cuda)
+    cls = torch.arange(n, device=cuda) % 3
+    h = torch.tensor([1 / 64, 1 / 128, 1.0], device=cuda)[cls]
+    dt = torch.tensor(0.5 / 128, device=cuda)
+    got = hk.fused_lab_rhs(lab, h, 4e-5, dt)
+    ref = hk.fused_lab_rhs_plain(lab, h.reshape(n, 1, 1, 1), 4e-5, dt)
+    for c in range(min(n, 3)):
+        d, r = (got - ref)[cls == c], ref[cls == c]
+        assert float(d.abs().max()) <= 2e-6 * max(float(r.abs().max()),
+                                                  1e-30)
+    flat = torch.empty(lab.numel() + 1, device=cuda)
+    odd = flat[1:].view(lab.shape).copy_(lab)
+    assert torch.equal(hk.fused_lab_rhs(odd, h, 4e-5, dt), got)
