@@ -30,7 +30,9 @@ the result lines:
    values: bit for bit is expected); the single-op RHS, which lies on no
    path, runs on an 8192^2 normal lab (<= 2e-6 relative) and on the
    benchmark's padded lab (<= 2e-6 once scaled by 1/h^2, as a Heun stage
-   adds it: its smooth differences cancel to ~1e-4 of an ulp's weight).
+   adds it: its smooth differences cancel to ~1e-4 of an ulp's weight),
+   each lab timed by graph replay, with its bound at the face-sharing
+   count of its own winds beside the per-cell count.
    The boundary-table forms: the substage pair under the four tables of
    tests/test_megakernel.py (the cavity, the uniform and the parabolic
    channel, parabolic inflow through a y face with outflow opposite) on
@@ -177,9 +179,10 @@ from cup2d_tpu_torch.amr import (AMRSim, multilevel_forest,  # noqa: E402
 from cup2d_tpu_torch.convert import (forest_from_numpy,  # noqa: E402
                                      forest_to_numpy)
 from cup2d_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
-from cup2d_tpu_torch.ops.timing import (OPS_SWEEP_CELL, bound,  # noqa: E402
+from cup2d_tpu_torch.ops.timing import (OPS_SWEEP_CELL,  # noqa: E402
+                                        advect_rhs_ops, bound,
                                         cuda_ms, graph_ms,
-                                        halo_sweep_level_table, lab_rhs_ops,
+                                        halo_sweep_level_table,
                                         lab_weno_faces,
                                         substage_ops, substage_pair_bytes,
                                         sweep_bytes, sweep_level_table,
@@ -257,7 +260,8 @@ EARLIER_MS = {"fused_jacobi_sweeps": 0.681,
               "jacobi_halo_sweep+bf16": 0.359,
               "jacobi_halo_sweep+bc": 0.410,
               "jacobi_halo_sweep+bc+bf16": 0.366,
-              "fused_lab_rhs": 0.0457}
+              "fused_lab_rhs": 0.0457,
+              "advect_diffuse_rhs": 1.940}
 
 # operations per cell, counting each add, multiply, compare, select, max,
 # integer op and reciprocal as one: one WENO5 reconstruction is 83 (33
@@ -269,7 +273,10 @@ EARLIER_MS = {"fused_jacobi_sweeps": 0.681,
 # instead (ops.timing.substage_ops); this count is printed beside it
 OPS_SUBSTAGE_CELL = 2 * 368
 OPS_CORRECTION_CELL = 15     # 3 pressure, 2 x 3 gradient, 2 x 3 update
-# forest lab RHS: the substage cell less its 3-op update, per component
+# forest lab RHS and single-op RHS: the substage cell less its 3-op
+# update, per component, in the per-cell design (the bounds count the
+# face-sharing design's operations on their inputs instead,
+# ops.timing.advect_rhs_ops; this count is printed beside them)
 OPS_LAB_RHS_CELL = 2 * 365
 BYTES_LAB_RHS_BLOCK = 4 * (2 * 14 * 14 + 2 * 8 * 8 + 1)
 # block-Jacobi update: 64-term FMA chain (2 ops a term), subtract, add
@@ -543,7 +550,7 @@ def phase_kernels(dev):
                        for x in labs])
         pms = graph_ms([lambda x=x: hk.fused_lab_rhs_plain(x, h, 4e-5, dt)
                         for x in labs], reps=6)
-        b = bound(BYTES_LAB_RHS_BLOCK * n, lab_rhs_ops(lab))
+        b = bound(BYTES_LAB_RHS_BLOCK * n, advect_rhs_ops(lab))
         b_old = bound(BYTES_LAB_RHS_BLOCK * n, OPS_LAB_RHS_CELL * 64 * n)
         earlier = (f" (earlier design {EARLIER_MS['fused_lab_rhs']})"
                    if n == 16384 else "")
@@ -1038,13 +1045,17 @@ def phase_halo_kernels(dev, res, size: int = 8192) -> None:
     # smooth field is a difference of two O(1) reconstructions ~1e-3
     # apart, so one ulp of a reconstruction is ~1e-4 of the RHS in either
     # implementation; it is held at the scale a Heun stage adds it to the
-    # velocity (x ih2), the substage's own absolute bar
+    # velocity (x ih2), the substage's own absolute bar. Device times from
+    # graph replays of each lab, its bound at the face-sharing count of
+    # its own winds beside the per-cell count
     before = hk.launches["advect_diffuse_rhs"]
     gen = torch.Generator(device=dev).manual_seed(2)
+    labs = {"normal": torch.randn(2, g.ny + 6, g.nx + 6, generator=gen,
+                                  device=dev),
+            "benchmark": pad_vector(v, 3)[0].contiguous()}
+    del v
     err = 0.0
-    for name, lab in (("normal", torch.randn(2, g.ny + 6, g.nx + 6,
-                                             generator=gen, device=dev)),
-                      ("benchmark", pad_vector(v, 3)[0].contiguous())):
+    for name, lab in labs.items():
         got = hk.advect_diffuse_rhs(lab, g.h, 4e-5, 0.5 * g.h)
         ref = hk.advect_diffuse_rhs_plain(lab, g.h, 4e-5, 0.5 * g.h)
         e = float((got - ref).abs().max())
@@ -1059,19 +1070,31 @@ def phase_halo_kernels(dev, res, size: int = 8192) -> None:
             check(e * ih2 <= HEUN_ABS, f"advect_diffuse_rhs {name}: "
                   f"{e} x ih2 > {HEUN_ABS}")
         err = max(err, e)
-    del v
-    ms = cuda_ms(lambda: hk.advect_diffuse_rhs(lab, g.h, 4e-5, 0.5 * g.h),
-                 10)
+    launches = hk.launches["advect_diffuse_rhs"] - before
+    nbytes = 4.0 * labs["benchmark"].numel() + 8.0 * cells
+    b_old = bound(nbytes, OPS_LAB_RHS_CELL * cells)
+    for name, lab in labs.items():
+        ms = graph_ms([lambda: hk.advect_diffuse_rhs(lab, g.h, 4e-5,
+                                                     0.5 * g.h)], reps=8)
+        b = bound(nbytes, advect_rhs_ops(lab))
+        faces = weno_faces(lab[:, 3:-3, 3:-3]) / cells
+        print(f"phase 2 advect_diffuse_rhs {name} lab {list(lab.shape)}: "
+              f"kernel_ms {ms} (earlier design, eager, benchmark lab "
+              f"{EARLIER_MS['advect_diffuse_rhs']}) bound_ms {b[0]} ({b[1]}"
+              f"; {faces} reconstructions per cell and component) bound_ms "
+              f"at 365 operations a cell and component {b_old[0]} "
+              f"({b_old[1]})", flush=True)
+        if name == "benchmark":
+            res["advect_diffuse_rhs"].update(ms=ms, bound_ms=b[0],
+                                             bound_by=b[1])
+    lab = labs["benchmark"]
     pms = cuda_ms(lambda: hk.advect_diffuse_rhs_plain(lab, g.h, 4e-5,
                                                       0.5 * g.h), 1)
-    b = bound(4.0 * lab.numel() + 8.0 * cells, OPS_LAB_RHS_CELL * cells)
-    res["advect_diffuse_rhs"].update(
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
-        library_ms=None,
-        launches=hk.launches["advect_diffuse_rhs"] - before)
-    print(f"phase 2 advect_diffuse_rhs {list(lab.shape)}: kernel_ms {ms} "
-          f"twin_ms {pms}", flush=True)
-    del lab
+    res["advect_diffuse_rhs"].update(max_abs_err=err, plain_ms=pms,
+                                     library_ms=None, launches=launches)
+    print(f"phase 2 advect_diffuse_rhs {list(lab.shape)}: twin_ms {pms}",
+          flush=True)
+    del labs, lab
     torch.cuda.empty_cache()
 
     # K7: the finest split level and two coarse ones (a split 64^2 level
@@ -1630,7 +1653,7 @@ def forest_labs_timing(lab, h, nu, dt) -> None:
     h = torch.as_tensor(h, dtype=torch.float32, device=lab.device)
     dt = torch.as_tensor(dt, dtype=torch.float32, device=lab.device)
     ms = graph_ms([lambda: hk.fused_lab_rhs(lab, h, nu, dt)])
-    b = bound(BYTES_LAB_RHS_BLOCK * n, lab_rhs_ops(lab))
+    b = bound(BYTES_LAB_RHS_BLOCK * n, advect_rhs_ops(lab))
     faces = lab_weno_faces(lab) / (2 * 64 * n)
     print(f"phase 5 fused_lab_rhs on the forest's own labs {list(lab.shape)}"
           f": kernel_ms {ms} bound_ms {b[0]} ({b[1]}); {faces} "

@@ -10,11 +10,12 @@ on the card: bit for bit, and in time.
 ``advect_rhs.cu``, ``correction.cu`` and ``jacobi_halo.cu`` with their
 headers. Each earlier C entry point takes
 today's arguments (it then runs behind today's wrapper) or, for the two
-substage kernels, those of their per-cell design, without a launch plan
-(``_LEGACY``): ``cup2d_advect_substage(v, vold, out, facs, L, ny, nx,
-cfac, ih2, stream)`` and ``cup2d_advect_substage_halo(v, vold, aux, out,
-facs, L, ny, nxl, cfac, ih2, is_lo, is_hi, stream)``. Both builds run on
-the same operands:
+substage kernels and the single-op RHS, those of their per-cell design,
+without a launch plan (``_LEGACY``): ``cup2d_advect_substage(v, vold,
+out, facs, L, ny, nx, cfac, ih2, stream)``,
+``cup2d_advect_substage_halo(v, vold, aux, out, facs, L, ny, nxl, cfac,
+ih2, is_lo, is_hi, stream)`` and ``cup2d_advect_rhs(lab, out, facs, L,
+ny, nx, stream)``. Both builds run on the same operands:
 
 1. bit for bit: every chain of the 8192^2 V-cycle hierarchy, the test
    shapes (ragged tiles, member stacks, rows that are not whole 16-byte
@@ -23,8 +24,10 @@ the same operands:
    benchmark state, a member stack, ragged shapes and adversarial winds
    (``wind_field``), and of the halo kernel under the four wall
    combinations; the forest lab RHS at 1, 33, 10,529 and 16,384 blocks on
-   normal labs and on every adversarial wind pattern, and the single-op
-   RHS on a normal lab;
+   normal labs and on every adversarial wind pattern; the single-op RHS
+   on the 8192^2 benchmark lab, a normal lab, every wind pattern at an
+   even and an odd pitch (8- and 4-byte copies), a member stack, ragged
+   shapes at odd and even pitches and a lab off the 8-byte grid;
    the projection correction on 8192^2, a member stack and ragged shapes;
    the boundary-table and bf16 forms the earlier sources define, behind
    today's wrappers: the solo BC pair under four tables and the solo bf16
@@ -45,8 +48,10 @@ the same operands:
    solo BC pair (cavity) and bf16 pair on 8192^2, of one halo sweep on
    4 slabs of 8192^2 (f32 and bf16, a launch per slab), of one halo sweep
    at every level of the split hierarchy in its four forms (the earlier
-   per-slab sequence against the slab list), and of the lab RHS at 10,529
-   and 16,384 blocks;
+   per-slab sequence against the slab list), of the lab RHS at 10,529
+   and 16,384 blocks, and of the single-op RHS on the 8192^2 benchmark
+   lab (also one float off the 8-byte grid: 4-byte copies) and on a
+   normal lab of its shape;
 3. this tree's boundary-table forms beside its free-slip forms, in turns
    (free-slip, table, table, free-slip), at 8192^2: the substage pair
    under the cavity and the parabolic channel tables, the correction and
@@ -74,6 +79,7 @@ import torch
 
 from .config import SimConfig
 from .ops import hopper_kernels as hk
+from .ops.stencil import pad_vector
 from .ops.timing import graph_ms, sweep_level_table, vcycle_chains
 from .parallel.mesh import make_mesh
 from .parallel.shard_halo import (fused_advect_heun_sharded, gather_x,
@@ -83,14 +89,15 @@ from .poisson import block_precond_matrix
 from .uniform import UniformGrid, bench_state
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the C interfaces of the per-cell substage kernels, without launch
-# plans; an earlier source with today's interface runs behind today's
-# wrapper
+# the C interfaces of the per-cell substage and single-op RHS kernels,
+# without launch plans; an earlier source with today's interface runs
+# behind today's wrapper
 _LEGACY = {"advect_heun": ("cup2d_advect_substage",
                            [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P]),
            "advect_heun_halo": ("cup2d_advect_substage_halo",
                                 [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-                                 _I, _I, _P])}
+                                 _I, _I, _P]),
+           "advect_rhs": ("cup2d_advect_rhs", [_P, _P, _P, _I, _I, _I, _P])}
 _STEMS = ("jacobi", "block_jacobi", "advect_heun", "advect_heun_halo",
           "lab_rhs", "advect_rhs", "correction", "jacobi_halo")
 
@@ -239,6 +246,22 @@ def other_substage_halo(fns):
                                f"{rc}")
         return out
     return substage
+
+
+def other_advect_rhs(fns):
+    """The earlier single-op RHS behind ``advect_diffuse_rhs``'s
+    interface."""
+    def rhs(vlab, h, nu, dt):
+        ny, nx = vlab.shape[-2] - 6, vlab.shape[-1] - 6
+        out = vlab.new_empty(vlab.shape[:-2] + (ny, nx))
+        facs = hk._rhs_facs(vlab.device, float(-dt * h), float(nu * dt))
+        rc = fns["advect_rhs"](vlab.data_ptr(), out.data_ptr(),
+                               facs.data_ptr(), vlab[..., 0, 0, 0].numel(),
+                               ny, nx, _stream())
+        if rc:
+            raise RuntimeError(f"earlier advect_rhs launch failed: {rc}")
+        return out
+    return rhs
 
 
 @contextlib.contextmanager
@@ -522,10 +545,19 @@ def _lab_operands(n, pattern, seed, dev):
     return lab, h, torch.tensor(0.5 / 128, device=dev)
 
 
-def rhs_bit_checks(fns, dev) -> list[dict]:
+def _bench_lab(dev, size: int = 8192) -> torch.Tensor:
+    """The benchmark velocity's free-slip lab [2, size + 6, size + 6]."""
+    return pad_vector(_bench_velocity(size, dev)[0], 3)[0].contiguous()
+
+
+def rhs_bit_checks(fns, rhs_o, dev) -> list[dict]:
     """The forest lab RHS at 1, 33, 10,529 and 16,384 blocks on normal
-    labs and on every adversarial wind pattern, and the single-op RHS,
-    which share weno.cuh, against their earlier builds."""
+    labs and on every adversarial wind pattern, and the single-op RHS
+    (``rhs_o``: its earlier build behind today's interface) on the 8192^2
+    benchmark lab, a normal lab, every wind pattern at an even pitch
+    (8-byte copies) and an odd one (4-byte), a member stack, ragged
+    shapes at odd and even pitches and a lab off the 8-byte grid, against
+    their earlier builds."""
     rows = []
     for k, n in enumerate(LAB_BLOCKS):
         for j, pattern in enumerate(WIND_PATTERNS):
@@ -535,14 +567,61 @@ def rhs_bit_checks(fns, dev) -> list[dict]:
                 then = hk.fused_lab_rhs(lab, h, 4e-5, dt)
             rows.append({"kernel": "fused_lab_rhs", "shape": list(lab.shape),
                          "operands": pattern, "ulps": ulps(this, then)})
+
+    def single(vlab, label):
+        ny, nx = vlab.shape[-2] - 6, vlab.shape[-1] - 6
+        h = 1.0 / nx
+        vec = hk.advect_rhs_plan(vlab[..., 0, 0, 0].numel(), ny, nx, 1,
+                                 vlab.data_ptr() % 8 == 0)[0]
+        u = ulps(hk.advect_diffuse_rhs(vlab, h, 4e-5, 0.5 * h),
+                 rhs_o(vlab, h, 4e-5, 0.5 * h))
+        rows.append({"kernel": "advect_diffuse_rhs", "shape": list(
+            vlab.shape), "operands": label, "copy_bytes": 4 * vec,
+            "ulps": u})
+
+    single(_bench_lab(dev), "bench_state lab")
+    torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(5)
-    vlab = torch.randn(2, 518, 1030, generator=gen, device=dev)
-    this = hk.advect_diffuse_rhs(vlab, 1 / 1024, 4e-5, 0.5 / 1024)
-    with earlier_entries(fns, ("advect_rhs",)):
-        then = hk.advect_diffuse_rhs(vlab, 1 / 1024, 4e-5, 0.5 / 1024)
-    rows.append({"kernel": "advect_diffuse_rhs", "shape": list(vlab.shape),
-                 "ulps": ulps(this, then)})
+    single(torch.randn(2, 518, 1030, generator=gen, device=dev), "normal")
+    for k, pat in enumerate(WIND_PATTERNS):
+        for shape in ((2, 2, 76, 270), (1, 2, 76, 271)):
+            single(wind_field(shape, pat, 110 + k, dev), pat)
+    single(wind_field((3, 2, 262, 518), "normal", 120, dev), "member stack")
+    for k, shape in enumerate([(1, 2, 43, 157), (2, 2, 39, 77),
+                               (1, 2, 1006, 1507), (1, 2, 43, 156),
+                               (2, 2, 39, 76), (1, 2, 136, 266)]):
+        single(wind_field(shape, "normal", 130 + k, dev), "ragged")
+    buf = wind_field((2 * 43 * 156 + 1,), "normal", 140, dev)
+    single(buf[1:].view(1, 2, 43, 156), "off the 8-byte grid")
     return rows
+
+
+def advect_rhs_times(rhs_o, dev, size: int = 8192) -> dict:
+    """Device ms of the single-op RHS on the benchmark's [2, size + 6,
+    size + 6] lab (smooth winds: 0.4% of the faces' cells differ in sign),
+    on the same lab one float off the 8-byte grid (this tree copies it 4
+    bytes at a time) and on a normal lab of its shape (about half the
+    faces' cells differ), in turns (earlier, this, this, earlier), graph
+    replays."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bench = _bench_lab(dev, size)
+    off = torch.empty(bench.numel() + 1, device=dev)[1:].view(bench.shape)
+    off.copy_(bench)
+    labs = {"bench_state": bench, "bench_state, 4-byte copies": off,
+            "normal": torch.randn(2, size + 6, size + 6, generator=gen,
+                                  device=dev)}
+    h = 1.0 / size
+    out = {}
+    for name, lab in labs.items():
+        row = {"earlier": [], "this": []}
+        for who in ("earlier", "this", "this", "earlier"):
+            fn = rhs_o if who == "earlier" else hk.advect_diffuse_rhs
+            row[who].append(graph_ms([lambda: fn(lab, h, 4e-5, 0.5 * h)],
+                                     reps=8))
+        out[name] = row
+    del labs, bench, off
+    torch.cuda.empty_cache()
+    return out
 
 
 def lab_rhs_times(fns, dev) -> dict:
@@ -810,6 +889,8 @@ def main(argv=None) -> int:
     halo_o = earlier(fns, current, "advect_heun_halo",
                      hk.advect_substage_halo, other_substage_halo)
     corr_o = earlier(fns, current, "correction", hk.fused_correction)
+    rhs_o = earlier(fns, current, "advect_rhs", hk.advect_diffuse_rhs,
+                    other_advect_rhs)
     lines = []
 
     def emit(obj):
@@ -817,7 +898,8 @@ def main(argv=None) -> int:
         lines.append(line)
         print(line, flush=True)
 
-    bits = (substage_bit_checks(sub_o, halo_o, dev) + rhs_bit_checks(fns, dev)
+    bits = (substage_bit_checks(sub_o, halo_o, dev)
+            + rhs_bit_checks(fns, rhs_o, dev)
             + bit_checks(sweeps_o, bj_o, dev)
             + correction_bit_checks(corr_o, dev)
             + form_bit_checks(fns, current, dev)
@@ -856,6 +938,9 @@ def main(argv=None) -> int:
     lab = lab_rhs_times(fns, dev)
     for n, row in lab.items():
         emit({"lab_rhs_blocks": n, **row})
+    rhs = advect_rhs_times(rhs_o, dev)
+    for k, row in rhs.items():
+        emit({"advect_rhs_lab": k, **row})
     emit({"summary": {
         "card": torch.cuda.get_device_name(0), "worst_ulps": worst,
         "substage_pair_ms": {
@@ -871,6 +956,7 @@ def main(argv=None) -> int:
             row["halo_sweep"]: {who: row[who] for who in ("earlier", "this")}
             for row in halo if row["level"] == 8192},
         "lab_rhs_ms": lab,
+        "advect_rhs_ms": rhs,
         "operand_sets": len(bits),
         "cycle_bound_ms": sum(r["bound_ms"] for r in tables["this"][0])}})
     if args.out:

@@ -42,8 +42,9 @@ extern "C" int cup2d_advect_substage(const float* v, const float* vold,
                                      float* out, const float* facs, int L,
                                      int ny, int nx, float cfac, float ih2,
                                      int vec, int grid, void* stream) {
-    return substage::launch(v, vold, nullptr, out, facs, L, ny, nx, cfac,
-                            ih2, 1, 1, vec, grid, stream);
+    return substage::launch_form<false, float, float>(
+        v, vold, nullptr, out, facs, L, ny, nx, cfac, ih2, 1, 1,
+        substage::Faces{}, 0.0f, 0, nx, vec, grid, stream);
 }
 
 // The boundary-table form: facs [L, 3] = (afac, dfac, dt) per member, h the

@@ -49,8 +49,9 @@ extern "C" int cup2d_advect_substage_halo(const float* v, const float* vold,
                                           int nxl, float cfac, float ih2,
                                           int is_lo, int is_hi, int vec,
                                           int grid, void* stream) {
-    return substage::launch(v, vold, aux, out, facs, L, ny, nxl, cfac, ih2,
-                            is_lo, is_hi, vec, grid, stream);
+    return substage::launch_form<false, float, float>(
+        v, vold, aux, out, facs, L, ny, nxl, cfac, ih2, is_lo, is_hi,
+        substage::Faces{}, 0.0f, 0, nxl, vec, grid, stream);
 }
 
 // The bf16 form: v, vold, aux bf16; out bf16 where out_bf16, else f32; vec

@@ -47,9 +47,10 @@
 // the walk's gain is rows that carry faces down a 32-row column, and a
 // block has 8 rows and 8 columns, so the walk would spend most of its
 // lanes on the halo; here every lane of the face pass reconstructs.
-// Each face is cup2d::weno_face_part / weno5_blend on the operands
-// weno_derivative gives it, and the RHS is cup2d::advect_diffuse_rhs, so
-// the result is the per-cell design's (advect_diffuse_cell) bit for bit.
+// Each face is cup2d::weno_face_part / weno5_blend on the operands of the
+// cell's right or left face in ops/stencil.py's order (weno.cuh), and the
+// RHS is cup2d::advect_diffuse_rhs, so the result is the per-cell design's
+// (every face reconstructed by both its cells) bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

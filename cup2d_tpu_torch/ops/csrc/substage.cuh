@@ -1,12 +1,13 @@
 // One Heun substage of WENO5 advection plus diffusion on a free-slip box
 // or a boundary table's box, whole (advect_heun.cu) or as one x slab of a
-// split field (advect_heun_halo.cu): the tile geometry, the
-// loader with its ghost painting and the compute core the two kernels
-// share. They differ only in what the loader is given: the solo kernel no
-// aux and both x walls, the halo kernel its neighbours' edge columns and
-// the walls it owns.
+// split field (advect_heun_halo.cu), and the single-op RHS over a
+// pre-padded lab (advect_rhs.cu): the tile geometry, the
+// loaders with their ghost painting and the compute core the three kernels
+// share. The substages differ only in what the loader is given: the solo
+// kernel no aux and both x walls, the halo kernel its neighbours' edge
+// columns and the walls it owns.
 //
-//   out = vold + cfac * rhs * ih2,
+//   out = vold + cfac * rhs * ih2   (the substages; the single-op RHS: rhs),
 //   rhs = afac * (u . grad) q + dfac * lap(q)   (undivided, per component q)
 //
 // Bound on this card: the WENO reconstructions, the arithmetic of which
@@ -39,14 +40,14 @@
 // - The four faces of a row are computed as four Weno5Parts, then four
 //   blends (weno.cuh), so that the compiler can interleave their
 //   arithmetic ahead of the reciprocals' branches.
-// - Each face is cup2d::weno_face on the operands weno_derivative gives
-//   it, and t1 - t2, the Laplacian, the RHS and the update keep their
-//   expression order and fused multiply-adds (the update is vold +
-//   cfac * rhs * ih2 as one fma of cfac * rhs), so the result is the
-//   per-cell kernel's bit for bit. A lane holds its column's seven values
-//   per component in registers, rolled down a row at a time, and loads
-//   the row's six other x values: seven shared loads per cell and
-//   component.
+// - Each face is cup2d::weno_face on the operands of the cell's right
+//   face t1 (or left face t2) in ops/stencil.py (weno.cuh), and t1 - t2,
+//   the Laplacian, the RHS and the update keep their expression order and
+//   fused multiply-adds (the update is vold + cfac * rhs * ih2 as one fma
+//   of cfac * rhs), so the result is the per-cell kernel's bit for bit.
+//   A lane holds its column's seven values per component in registers,
+//   rolled down a row at a time, and loads the row's six other x values:
+//   seven shared loads per cell and component.
 // - Tiles of TY x TX = 32 x 128 cells (8 warps, 4 across and 2 down) of
 //   one member, with a 3-row and 4-column halo of both components in
 //   shared memory (1.26x the tile's cells). Persistent CTAs, two per SM
@@ -88,6 +89,17 @@
 //   width of a bf16 instance is a launch argument, not a template
 //   parameter (half the instances to build). The f32 instances (TI = TO =
 //   float) are the kernel above.
+// - The single-op RHS form (LAB = true, f32) changes the two ends alone:
+//   load_lab stages a tile from a lab [L, 2, ny + 6, nx + 6] whose ghosts
+//   already hold their values (nothing is painted, no wall logic), and
+//   each cell writes rhs itself (no vold, no update). A lab row at
+//   nx = 8192 is 8198 floats, a multiple of 8 bytes but not of 16, so the
+//   stage starts one column further left than load_tile's, on an even lab
+//   column: 8-byte cp.async where the pitch nx + 6 is even, 4-byte copies
+//   where it is odd (a launch argument, as the bf16 copy width is). The
+//   walk reads the faces where the per-cell kernel read them, and the
+//   result is its bits. The form is a template parameter of the kernel,
+//   the walk and the queue, so the substage instances compile as before.
 
 #pragma once
 
@@ -145,6 +157,8 @@ static_assert(2 * RW <= 32, "the boundary pass puts both components of a "
                             "warp's rows on its 32 lanes");
 static_assert(TX % 32 == 0 && W % 4 == 0 && CELLS % 4 == 0,
               "16-byte copies need whole 16-byte rows and stages");
+static_assert(TX + 2 * G <= W && (TX + 2 * G) % 2 == 0,
+              "a lab tile's columns fit a stage row in 8-byte copies");
 
 struct Tile {
     int l;         // member
@@ -272,6 +286,48 @@ __device__ __forceinline__ void load_tile_bf16(
         const int i = gx - T.x0 + XO;
         if (gy < 0 || gy >= ny || !(k < G ? lo : hi) || i >= W) continue;
         st[c * CELLS + j * W + i] = a[((size_t)c * ny + gy) * 2 * G + k];
+    }
+}
+
+// The single-op RHS's loader: the copies of one tile from a lab [L, 2,
+// ny + 6, nx + 6] into a stage (u then v, H rows), only cells inside the
+// lab. Shared row j holds lab row y0 + j (global y0 - G + j, as in
+// load_tile), shared column i lab column x0 + i (global x0 - G + i, one
+// column left of load_tile's, so that a stage row starts on an even lab
+// column); the walk reads stage columns 0 .. TX + 2G - 1. By 8-byte
+// cp.async where vec2 (the pitch nx + 6 even, the lab 8-byte aligned),
+// else by 4-byte ones.
+__device__ __forceinline__ void load_lab(float* st, const float* lab,
+                                         const Tile& T, int ny, int nx,
+                                         bool vec2) {
+    constexpr int LW = TX + 2 * G;       // lab columns a tile reads
+    const int pitch = nx + 2 * G;
+    const size_t pplane = (size_t)(ny + 2 * G) * pitch;
+    const float* src = lab + (size_t)T.l * 2 * pplane
+                       + (size_t)T.y0 * pitch + T.x0;
+    const int rows = min(H, ny + 2 * G - T.y0);
+    const int cols = min(LW, pitch - T.x0);
+    if (vec2) {
+        constexpr int CW = LW / 2;
+        for (int q = threadIdx.x; q < 2 * H * CW; q += THREADS) {
+            const int row = q / CW;
+            const int c = row >= H;
+            const int j = row - c * H;
+            const int i = (q - row * CW) * 2;
+            if (j >= rows || i >= cols) continue;
+            storage::cp_async8(st + c * CELLS + j * W + i,
+                               src + c * pplane + (size_t)j * pitch + i);
+        }
+    } else {
+        for (int q = threadIdx.x; q < 2 * H * LW; q += THREADS) {
+            const int row = q / LW;
+            const int c = row >= H;
+            const int j = row - c * H;
+            const int i = q - row * LW;
+            if (j >= rows || i >= cols) continue;
+            cp_async<1>(st + c * CELLS + j * W + i,
+                        src + c * pplane + (size_t)j * pitch + i);
+        }
     }
 }
 
@@ -468,10 +524,28 @@ struct Queue {
     int ncell, nreq;
 };
 
+// A cell's two results at o and o + plane: the update vold + cfac * rhs *
+// ih2 (one fma of cfac * rhs, rounded once to TO) or, in the single-op RHS
+// form (LAB), rhs itself.
+template <bool LAB, class TO>
+__device__ __forceinline__ void store(TO* __restrict__ out, size_t o,
+                                      size_t plane, float rhs0, float rhs1,
+                                      float vo0, float vo1, float cfac,
+                                      float ih2) {
+    if constexpr (LAB) {
+        out[o] = rhs0;
+        out[o + plane] = rhs1;
+    } else {
+        out[o] = storage::narrow<TO>(__fmaf_rn(cfac * rhs0, ih2, vo0));
+        out[o + plane] = storage::narrow<TO>(__fmaf_rn(cfac * rhs1, ih2,
+                                                       vo1));
+    }
+}
+
 // Finish the queued cells: each lane reconstructs queued faces (a cell's
 // left x or lower y face, with the cell's own sign), then finishes one
 // queued cell as the row walk finishes the others. Leaves it empty.
-template <class TI, class TO>
+template <bool LAB, class TI, class TO>
 __device__ __forceinline__ void flush_queue(
         Queue& Q, const float* U, const float* V, int k0,
         const TI* __restrict__ vold, TO* __restrict__ out, size_t ob,
@@ -497,9 +571,11 @@ __device__ __forceinline__ void flush_queue(
         const float* f = Q.val + lane;
         const size_t o = ob + (size_t)(cell >> 5) * nx + (cell & 31);
         const float wu = U[kk], wv = V[kk];
-        const float vo0 = vold != nullptr ? storage::widen(vold[o]) : wu;
-        const float vo1 = vold != nullptr ? storage::widen(vold[o + plane])
-                                          : wv;
+        float vo0 = wu, vo1 = wv;
+        if constexpr (!LAB) {
+            vo0 = vold != nullptr ? storage::widen(vold[o]) : wu;
+            vo1 = vold != nullptr ? storage::widen(vold[o + plane]) : wv;
+        }
         const float rhs0 = cup2d::advect_diffuse_rhs(
             wu, U[kk - 1], U[kk + 1], U[kk - W], U[kk + W], wu, wv,
             f[0] - f[4 * QCELLS], f[2 * QCELLS] - f[6 * QCELLS], afac, dfac);
@@ -507,9 +583,7 @@ __device__ __forceinline__ void flush_queue(
             wv, V[kk - 1], V[kk + 1], V[kk - W], V[kk + W], wu, wv,
             f[QCELLS] - f[5 * QCELLS], f[3 * QCELLS] - f[7 * QCELLS], afac,
             dfac);
-        out[o] = storage::narrow<TO>(__fmaf_rn(cfac * rhs0, ih2, vo0));
-        out[o + plane] = storage::narrow<TO>(__fmaf_rn(cfac * rhs1, ih2,
-                                                       vo1));
+        store<LAB>(out, o, plane, rhs0, rhs1, vo0, vo1, cfac, ih2);
     }
     __syncwarp();
     Q.ncell = Q.nreq = 0;
@@ -520,8 +594,8 @@ __device__ __forceinline__ void flush_queue(
 // around the row in registers for each component (rows j-3 .. j+3,
 // rolled down a row at a time) and loading the row's six other x values.
 // No barrier inside: warps return early where their columns or rows lie
-// past the field.
-template <class TI, class TO>
+// past the field. LAB: the single-op RHS's stage (load_lab) and results.
+template <bool LAB, class TI, class TO>
 __device__ __forceinline__ void compute_tile(
         const float* st, float* queues, const Tile& T, int ny, int nx,
         const TI* __restrict__ vold, TO* __restrict__ out,
@@ -535,7 +609,8 @@ __device__ __forceinline__ void compute_tile(
     const int rows = min(RW, ny - y);
     const float* U = st;
     const float* V = st + CELLS;
-    const int k0 = (wy * RW + G) * W + wx * 32 + XO;   // lane 0, row 0
+    constexpr int X0 = LAB ? G : XO;     // the stage column of global x0
+    const int k0 = (wy * RW + G) * W + wx * 32 + X0;   // lane 0, row 0
     Queue Q;
     Q.cell = reinterpret_cast<int*>(queues + warp * QWORDS);
     Q.req = Q.cell + QCELLS;
@@ -590,9 +665,11 @@ __device__ __forceinline__ void compute_tile(
         }
         const size_t o = ob + (size_t)j * nx + lane;
         float vo0 = yu[G], vo1 = yv[G];
-        if (vold != nullptr && xin) {
-            vo0 = storage::widen(vold[o]);
-            vo1 = storage::widen(vold[o + plane]);
+        if constexpr (!LAB) {
+            if (vold != nullptr && xin) {
+                vo0 = storage::widen(vold[o]);
+                vo1 = storage::widen(vold[o + plane]);
+            }
         }
         const float wu = yu[G], wv = yv[G];
         const bool px = wu > 0.0f, pyj = wv > 0.0f;
@@ -632,8 +709,8 @@ __device__ __forceinline__ void compute_tile(
             const int nc = __popc(bc);
             const int nr = 2 * (__popc(bx) + __popc(by));
             if (Q.ncell + nc > QCELLS || Q.nreq + nr > QREQ)
-                flush_queue(Q, U, V, k0, vold, out, ob, plane, nx, afac,
-                            dfac, cfac, ih2);
+                flush_queue<LAB>(Q, U, V, k0, vold, out, ob, plane, nx, afac,
+                                 dfac, cfac, ih2);
             if (xm || ym) {
                 const int slot = Q.ncell + __popc(bc & below);
                 Q.cell[slot] = (j << 5) | lane;
@@ -666,17 +743,15 @@ __device__ __forceinline__ void compute_tile(
             const float rhs1 = cup2d::advect_diffuse_rhs(
                 yv[G], xv[G - 1], xv[G + 1], yv[G - 1], yv[G + 1], wu, wv,
                 r1 - l1, t1 - d1, afac, dfac);
-            out[o] = storage::narrow<TO>(__fmaf_rn(cfac * rhs0, ih2, vo0));
-            out[o + plane] = storage::narrow<TO>(__fmaf_rn(cfac * rhs1, ih2,
-                                                           vo1));
+            store<LAB>(out, o, plane, rhs0, rhs1, vo0, vo1, cfac, ih2);
         }
         py = pyj;
         d0 = t0;
         d1 = t1;
     }
     if (Q.ncell > 0)
-        flush_queue(Q, U, V, k0, vold, out, ob, plane, nx, afac, dfac, cfac,
-                    ih2);
+        flush_queue<LAB>(Q, U, V, k0, vold, out, ob, plane, nx, afac, dfac,
+                         cfac, ih2);
 }
 
 // Persistent CTAs over the tiles of all L members (v, vold, out
@@ -686,15 +761,17 @@ __device__ __forceinline__ void compute_tile(
 // is global column col0 of nx_tot, a whole field's 0 of nx). TI:
 // the storage type of v, vold and aux; TO: that of out. An f32 instance
 // copies by VEC (4: 16 bytes, 1: 4 bytes); a bf16 one (VEC 0) by its
-// launch argument vec (4: 8 bytes, 1: 2 bytes).
-template <int VEC, bool BC, class TI, class TO>
+// launch argument vec (4: 8 bytes, 1: 2 bytes). LAB (f32, VEC 0, not BC):
+// the single-op RHS, v a lab [L, 2, ny + 6, nx + 6] copied by vec (2: 8
+// bytes, 1: 4 bytes), facs [2] shared by the members, out = rhs.
+template <int VEC, bool BC, class TI, class TO, bool LAB = false>
 __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
 substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
                 const TI* __restrict__ aux, TO* __restrict__ out,
                 const float* __restrict__ facs, int L, int ny, int nx,
                 float cfac, float ih2, int is_lo, int is_hi, Faces faces,
                 float h, int col0, int nx_tot, int vec) {
-    constexpr int FS = BC ? 3 : 2;       // facs per member
+    constexpr int FS = LAB ? 0 : BC ? 3 : 2;   // facs per member
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
     const int tiles = L * ((ny + TY - 1) / TY) * ((nx + TX - 1) / TX);
@@ -704,7 +781,10 @@ substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
     const bool wall_hi = aux == nullptr || is_hi;
     Tile T = tile_at(t, ny, nx);
     if constexpr (storage::is_f32<TI>) {
-        load_tile<VEC>(smem, v, aux, T, ny, nx, is_lo, is_hi);
+        if constexpr (LAB)
+            load_lab(smem, v, T, ny, nx, vec == 2);
+        else
+            load_tile<VEC>(smem, v, aux, T, ny, nx, is_lo, is_hi);
         cp_commit();
         for (int s = 0; t < tiles; t += gridDim.x, s ^= 1) {
             float* st = smem + s * 2 * CELLS;
@@ -712,21 +792,25 @@ substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
             Tile N = T;
             if (nt < tiles) {
                 N = tile_at(nt, ny, nx);
-                load_tile<VEC>(smem + (s ^ 1) * 2 * CELLS, v, aux, N, ny,
-                               nx, is_lo, is_hi);
+                if constexpr (LAB)
+                    load_lab(smem + (s ^ 1) * 2 * CELLS, v, N, ny, nx,
+                             vec == 2);
+                else
+                    load_tile<VEC>(smem + (s ^ 1) * 2 * CELLS, v, aux, N, ny,
+                                   nx, is_lo, is_hi);
             }
             cp_commit();
             cp_wait1();
             __syncthreads();
-            if (paints(T, ny, nx, wall_lo, wall_hi)) {
+            if (!LAB && paints(T, ny, nx, wall_lo, wall_hi)) {
                 if constexpr (BC)
                     paint_ghosts_bc(st, T, ny, nx, faces, facs[FS * T.l + 2],
                                     h, col0, nx_tot, wall_lo, wall_hi);
                 else
                     paint_ghosts(st, T, ny, nx, wall_lo, wall_hi);
             }
-            compute_tile(st, smem + 2 * 2 * CELLS, T, ny, nx, vold, out,
-                         facs[FS * T.l], facs[FS * T.l + 1], cfac, ih2);
+            compute_tile<LAB>(st, smem + 2 * 2 * CELLS, T, ny, nx, vold, out,
+                              facs[FS * T.l], facs[FS * T.l + 1], cfac, ih2);
             __syncthreads();   // this stage is refilled by the next iteration
             T = N;
         }
@@ -760,8 +844,9 @@ substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
                 else
                     paint_ghosts(smem, T, ny, nx, wall_lo, wall_hi);
             }
-            compute_tile(smem, smem + 2 * 2 * CELLS, T, ny, nx, vold, out,
-                         facs[FS * T.l], facs[FS * T.l + 1], cfac, ih2);
+            compute_tile<false>(smem, smem + 2 * 2 * CELLS, T, ny, nx, vold,
+                                out, facs[FS * T.l], facs[FS * T.l + 1],
+                                cfac, ih2);
             __syncthreads();   // the f32 stage is refilled next iteration
             T = N;
         }
@@ -771,7 +856,7 @@ substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
 
 // Launch on a stream: the grid's persistent CTAs, 1 .. the number of tiles.
 // Returns the CUDA error code.
-template <int VEC, bool BC, class TI, class TO>
+template <int VEC, bool BC, class TI, class TO, bool LAB = false>
 int launch_vec(const TI* v, const TI* vold, const TI* aux, TO* out,
                const float* facs, int L, int ny, int nx, float cfac,
                float ih2, int is_lo, int is_hi, const Faces& fc, float h,
@@ -783,12 +868,12 @@ int launch_vec(const TI* v, const TI* vold, const TI* aux, TO* out,
     if (err != cudaSuccess) return (int)err;
     if (!(dev < 64 && (opted_in >> dev & 1))) {
         err = cudaFuncSetAttribute(
-            substage_kernel<VEC, BC, TI, TO>,
+            substage_kernel<VEC, BC, TI, TO, LAB>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
         if (err != cudaSuccess) return (int)err;
         if (dev < 64) opted_in |= 1ull << dev;
     }
-    substage_kernel<VEC, BC, TI, TO><<<grid, THREADS, SMEM, st>>>(
+    substage_kernel<VEC, BC, TI, TO, LAB><<<grid, THREADS, SMEM, st>>>(
         v, vold, aux, out, facs, L, ny, nx, cfac, ih2, is_lo, is_hi, fc, h,
         col0, nx_tot, vec);
     return (int)cudaGetLastError();
@@ -821,16 +906,6 @@ int launch_form(const TI* v, const TI* vold, const TI* aux, TO* out,
                                  ih2, is_lo, is_hi, fc, h, col0, nx_tot, vec,
                                  grid, st);
     }
-}
-
-// The free-slip substage, f32, whole (aux null) or of a slab.
-int launch(const float* v, const float* vold, const float* aux,
-           float* out, const float* facs, int L, int ny, int nx,
-           float cfac, float ih2, int is_lo, int is_hi, int vec,
-           int grid, void* stream) {
-    return launch_form<false>(v, vold, aux, out, facs, L, ny, nx, cfac, ih2,
-                              is_lo, is_hi, Faces{}, 0.0f, 0, nx, vec, grid,
-                              stream);
 }
 
 // A bf16 substage (either form): v, vold, aux bf16; out bf16 where out_bf16

@@ -1,6 +1,6 @@
-// Per-cell WENO5 advection plus diffusion, shared by the two substage
-// kernels (substage.cuh), lab_rhs.cu (the forest lab RHS) and
-// advect_rhs.cu (the single-op RHS), so that the f32 arithmetic is one
+// WENO5 advection plus diffusion, shared by the kernels that walk a field
+// (substage.cuh: the two substages and advect_rhs.cu, the single-op RHS)
+// and lab_rhs.cu (the forest lab RHS), so that the f32 arithmetic is one
 // definition: the bit-trick reciprocal 0x7EF311C3 of the weight
 // normalizer, the den > 1e-35 guard with its correctly rounded
 // reciprocal, the operand order of each face and the expression order of
@@ -85,17 +85,6 @@ __device__ __forceinline__ float weno_face(bool pos, float m2, float m1,
     return weno5_blend(weno_face_part(pos, m2, m1, c, p1, p2, p3));
 }
 
-// the undivided derivative t1 - t2 of the cell at q along stride s, the
-// stencil selected by wind sign (strict: wind == 0 -> minus)
-__device__ __forceinline__ float weno_derivative(float wind, const float* q,
-                                                 int s) {
-    bool pos = wind > 0.0f;
-    float m3 = q[-3 * s], m2 = q[-2 * s], m1 = q[-s], c = q[0];
-    float p1 = q[s], p2 = q[2 * s], p3 = q[3 * s];
-    return weno_face(pos, m2, m1, c, p1, p2, p3)
-           - weno_face(pos, m3, m2, m1, c, p1, p2);
-}
-
 // rhs = afac * (wu dq/dx + wv dq/dy) + dfac * lap(q) at a cell of value c
 // with neighbours xm, xp (x) and ym, yp (y), given its two derivatives.
 // The three fused multiply-adds are written out: which product the
@@ -110,18 +99,6 @@ __device__ __forceinline__ float advect_diffuse_rhs(float c, float xm,
                                                     float dfac) {
     float lap = __fmaf_rn(-4.0f, c, ((xp + xm) + yp) + ym);
     return __fmaf_rn(dfac, lap, afac * __fmaf_rn(wu, dx, wv * dy));
-}
-
-// the same with both derivatives computed here, at the cell q points to in
-// a lab with row stride ys and at least 3 ghost cells around the cell
-__device__ __forceinline__ float advect_diffuse_cell(const float* q, int ys,
-                                                     float wu, float wv,
-                                                     float afac,
-                                                     float dfac) {
-    float dx = weno_derivative(wu, q, 1);
-    float dy = weno_derivative(wv, q, ys);
-    return advect_diffuse_rhs(q[0], q[-1], q[1], q[-ys], q[ys], wu, wv, dx,
-                              dy, afac, dfac);
 }
 
 }  // namespace cup2d

@@ -36,9 +36,10 @@ wrapper                        replaces                         source
                                pre-padded lab, f32)
 =============================  ===============================  ===================
 
-The four WENO kernels share their per-cell arithmetic through
-``csrc/weno.cuh``; the two substage kernels share their tiles, loader and
-face-sharing core through ``csrc/substage.cuh``.
+The four WENO kernels share their arithmetic through ``csrc/weno.cuh``;
+the two substage kernels and the single-op RHS share their tiles, cp.async
+ring and face-sharing walk through ``csrc/substage.cuh`` (the RHS in its
+own form: a lab loader that paints nothing, and rhs as the result).
 
 Five kernels also have a boundary-table form for the wall-bounded boxes
 of ``bc.py`` (a second C entry in the same source, a template instance of
@@ -132,7 +133,8 @@ _ENTRIES = {
                           _I, _I, _P]),
     "jacobi_halo": ("cup2d_jacobi_halo_sweep",
                     [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P]),
-    "advect_rhs": ("cup2d_advect_rhs", [_P, _P, _P, _I, _I, _I, _P]),
+    "advect_rhs": ("cup2d_advect_rhs", [_P, _P, _P, _I, _I, _I, _I, _I,
+                                        _P]),
 }
 
 
@@ -1123,6 +1125,27 @@ def advect_diffuse_rhs_plain(vlab, h, nu, dt):
     return stencil.advect_diffuse_rhs(vlab, 3, h, nu, dt)
 
 
+@functools.lru_cache(maxsize=4096)
+def advect_rhs_plan(L: int, ny: int, nx: int, sms: int,
+                    aligned: bool) -> tuple[int, int]:
+    """Launch plan of the single-op RHS (``advect_rhs.cu``) over L labs
+    [2, ny+6, nx+6] on a card of ``sms`` SMs: (vec, grid). 8-byte copies
+    where the lab's pitch nx + 6 is even and the lab ``aligned`` to 8
+    bytes, else 4-byte ones (a pitch of 8198 floats is no whole number of
+    16-byte words, so the substages' 16-byte copies cannot read a lab);
+    the substages' persistent grid (``substage_plan``)."""
+    vec = 2 if nx % 2 == 0 and aligned else 1
+    return vec, substage_plan(L, ny, nx, sms, False)[1]
+
+
+@functools.lru_cache(maxsize=64)
+def _rhs_facs(device: torch.device, afac: float, dfac: float):
+    """The kernel's facs [2] = (afac, dfac) on ``device``, made once per
+    value (a copy to the card per call could not be captured in a CUDA
+    graph)."""
+    return torch.tensor([afac, dfac], dtype=torch.float32, device=device)
+
+
 def advect_diffuse_rhs(vlab, h, nu, dt):
     """WENO5 advect-diffuse RHS over a ghost-padded lab (ghosts read, not
     painted), afac = -dt h, dfac = nu dt with numbers h, nu and dt: the
@@ -1134,11 +1157,12 @@ def advect_diffuse_rhs(vlab, h, nu, dt):
                          "expected [..., 2, Ny+6, Nx+6]")
     ny, nx = vlab.shape[-2] - 6, vlab.shape[-1] - 6
     L = math.prod(vlab.shape[:-3])
-    facs = torch.tensor([-dt * h, nu * dt], dtype=torch.float32,
-                        device=vlab.device)
     _check("advect_diffuse_rhs", vlab=vlab)
+    facs = _rhs_facs(vlab.device, float(-dt * h), float(nu * dt))
     out = vlab.new_empty(vlab.shape[:-2] + (ny, nx))
+    vec, grid = advect_rhs_plan(L, ny, nx, _sm_count(vlab.device),
+                                vlab.data_ptr() % 8 == 0)
     _launch("advect_rhs", vlab.device, vlab.data_ptr(), out.data_ptr(),
-            facs.data_ptr(), L, ny, nx)
+            facs.data_ptr(), L, ny, nx, vec, grid)
     launches["advect_diffuse_rhs"] += 1
     return out

@@ -24,8 +24,8 @@ OPS_SWEEP_CELL = 9           # 5 Laplacian, 4 update
 # differences, a 5-op Laplacian, a 6-op RHS and a 3-op update
 OPS_WENO_FACE = 88
 OPS_SUBSTAGE_REST = 16
-# the forest lab RHS per cell and component besides its faces: the
-# substage's rest less its 3-op update
+# a WENO RHS (the forest lab RHS, the single-op RHS) per cell and
+# component besides its faces: the substage's rest less its 3-op update
 OPS_LAB_RHS_REST = 13
 
 
@@ -127,12 +127,15 @@ def lab_weno_faces(lab: torch.Tensor) -> int:
     return 2 * weno_faces(lab[..., 3:-3, 3:-3])
 
 
-def lab_rhs_ops(lab: torch.Tensor) -> float:
-    """Operations of the forest lab RHS on labs [N, 2, 14, 14]: both
-    components' reconstructions (``lab_weno_faces``) and the rest of each
-    cell's arithmetic."""
-    cells = lab.shape[0] * 64
-    return 2.0 * (OPS_WENO_FACE * lab_weno_faces(lab) / 2
+def advect_rhs_ops(lab: torch.Tensor) -> float:
+    """Operations of a WENO RHS over labs [..., 2, ny+6, nx+6] (3 ghost
+    cells read as they are): both components' reconstructions
+    (``weno_faces`` of the labs' interior) and the rest of each cell's
+    arithmetic, ``OPS_LAB_RHS_REST`` (the RHS has no update). The
+    single-op RHS and, on [N, 2, 14, 14], the forest lab RHS."""
+    inner = lab[..., 3:-3, 3:-3]
+    cells = inner[..., 0, :, :].numel()
+    return 2.0 * (OPS_WENO_FACE * weno_faces(inner)
                   + OPS_LAB_RHS_REST * cells)
 
 

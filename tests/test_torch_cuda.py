@@ -13,7 +13,9 @@ absolute 2e-6 would be ~4 ulp. The correction
 <= 5e-6, the sweep chains <= 2e-6 relative, the forest lab RHS <= 2e-6
 relative per block-size class, the block-Jacobi update <= 2e-6 relative
 (summation order of its 64-term products), the single-op RHS <= 2e-6
-relative. The halo kernels of the x-split step reproduce the solo kernels
+relative on ragged shapes, odd and even pitches and adversarial winds,
+from the same bits whatever its copy width. The halo kernels of the x-split
+step reproduce the solo kernels
 bit for bit once their slabs are assembled (the same per-cell code and
 the same ghost values), on smooth and on adversarial winds, and a split
 step on one card follows the solo step to 1e-5 relative (only the
@@ -354,15 +356,45 @@ def test_halo_jacobi_kernel_vs_twin_and_solo_kernel(cuda, D, from_zero):
     assert float((split - twin).abs().max() / twin.abs().max()) <= 2e-6
 
 
-def test_advect_rhs_kernel_vs_twin(cuda):
-    lab = _rand((2, 70, 134), 14, cuda)
+@pytest.mark.parametrize("shape", [
+    (2, 70, 134), (1, 2, 43, 157), (1, 2, 43, 156), (2, 2, 39, 77),
+    (3, 2, 70, 262), (1, 2, 1006, 1507)])
+@pytest.mark.parametrize("pattern", ["normal", "checker", "zeros"])
+def test_advect_rhs_kernel_vs_twin(cuda, shape, pattern):
+    """Ragged tiles (ny % 32, nx % 128), odd pitches (4-byte copies) and
+    even ones (8-byte), a member stack; checker winds split every face and
+    overflow each warp's queue every row, zeros take the minus stencil."""
+    lab = wind_field(shape, pattern, 14, cuda)
     hk.reset_launches()
     got = hk.advect_diffuse_rhs(lab, 1 / 128, 4e-5, 0.5 / 128)
     ref = hk.advect_diffuse_rhs_plain(lab, 1 / 128, 4e-5, 0.5 / 128)
     torch.cuda.synchronize()
     assert hk.launches["advect_diffuse_rhs"] == 1
-    assert got.shape == (2, 64, 128)
+    assert got.shape == shape[:-2] + (shape[-2] - 6, shape[-1] - 6)
     assert float((got - ref).abs().max() / ref.abs().max()) <= 2e-6
+
+
+def test_advect_rhs_kernel_copies_4_bytes_where_8_cannot(cuda):
+    """An odd pitch (nx + 6) and a lab off the 8-byte grid run the 4-byte
+    copies rather than being refused, and give the bits the 8-byte copies
+    give from an aligned copy of the same lab."""
+    odd = wind_field((2, 2, 40, 77), "normal", 16, cuda)
+    assert hk.advect_rhs_plan(2, 34, 71, 132, True)[0] == 1
+    got = hk.advect_diffuse_rhs(odd, 1 / 71, 4e-5, 0.5 / 71)
+    ref = hk.advect_diffuse_rhs_plain(odd, 1 / 71, 4e-5, 0.5 / 71)
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 2e-6
+    buf = wind_field((2 * 40 * 76 + 1,), "normal", 17, cuda)
+    off = buf[1:].view(1, 2, 40, 76)
+    assert off.data_ptr() % 8 != 0
+    assert hk.advect_rhs_plan(1, 34, 70, 132, False)[0] == 1
+    aligned = off.clone()
+    assert aligned.data_ptr() % 8 == 0
+    hk.reset_launches()
+    a = hk.advect_diffuse_rhs(off, 1 / 70, 4e-5, 0.5 / 70)
+    b = hk.advect_diffuse_rhs(aligned, 1 / 70, 4e-5, 0.5 / 70)
+    torch.cuda.synchronize()
+    assert hk.launches["advect_diffuse_rhs"] == 2
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("pois", ["", "fas"])

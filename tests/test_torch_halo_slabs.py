@@ -32,7 +32,7 @@ from cup2d_tpu.ops import pallas_kernels as jpk  # noqa: E402
 from cup2d_tpu_torch.kernel_ab import _arity, wind_field  # noqa: E402
 from cup2d_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from cup2d_tpu_torch.ops.timing import (OPS_LAB_RHS_REST,  # noqa: E402
-                                        OPS_WENO_FACE, lab_rhs_ops,
+                                        OPS_WENO_FACE, advect_rhs_ops,
                                         lab_weno_faces)
 from cup2d_tpu_torch.parallel import shard_halo as sh  # noqa: E402
 from cup2d_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
@@ -229,5 +229,5 @@ def test_lab_weno_faces_counts_each_face_once_where_its_winds_agree(
         assert brute == 5 * 2 * 8 * 9
     if pattern == "checker":
         assert brute == 5 * 2 * 8 * 16
-    assert lab_rhs_ops(lab) == 2 * (OPS_WENO_FACE * brute
-                                    + OPS_LAB_RHS_REST * 5 * 64)
+    assert advect_rhs_ops(lab) == 2 * (OPS_WENO_FACE * brute
+                                       + OPS_LAB_RHS_REST * 5 * 64)

@@ -1,8 +1,9 @@
-"""Host-side launch plans of the sweep-chain, block-Jacobi and substage
-kernels, the V-cycle chain table that chip_smoke.py and kernel_ab time per
-level, the substage's reconstruction count behind its bound, kernel_ab's
-adversarial wind fields, and the C entry points' argument counts. Pure functions of shapes, data and
-the card's SM count: no card, no JAX."""
+"""Host-side launch plans of the sweep-chain, block-Jacobi, substage and
+single-op RHS kernels, the V-cycle chain table that chip_smoke.py and
+kernel_ab time per level, the substage's and the single-op RHS's
+reconstruction counts behind their bounds, kernel_ab's adversarial wind
+fields, and the C entry points' argument counts. Pure functions of
+shapes, data and the card's SM count: no card, no JAX."""
 
 import numpy as np
 import pytest
@@ -10,9 +11,10 @@ import torch
 
 from cup2d_tpu_torch.kernel_ab import WIND_PATTERNS, _arity, wind_field
 from cup2d_tpu_torch.ops import hopper_kernels as hk
-from cup2d_tpu_torch.ops.timing import (OPS_SUBSTAGE_REST, OPS_WENO_FACE,
-                                        bound, substage_ops, vcycle_chains,
-                                        weno_faces)
+from cup2d_tpu_torch.ops.timing import (OPS_LAB_RHS_REST,
+                                        OPS_SUBSTAGE_REST, OPS_WENO_FACE,
+                                        advect_rhs_ops, bound, substage_ops,
+                                        vcycle_chains, weno_faces)
 
 SMS = 132     # an H100 SXM
 
@@ -143,6 +145,52 @@ def test_substage_ops_on_the_benchmark_pattern():
     assert 2.0 < per < 2.1
     assert substage_ops(v) == pytest.approx(
         2 * (OPS_WENO_FACE * per + OPS_SUBSTAGE_REST) * n * n)
+
+
+@pytest.mark.parametrize("shape, aligned, vec", [
+    ((1, 8192, 8192), True, 2), ((3, 256, 512), True, 2),
+    ((1, 37, 150), True, 2), ((1, 37, 151), True, 1),
+    ((2, 33, 71), True, 1), ((1, 1000, 1501), True, 1),
+    ((1, 8192, 8192), False, 1)])
+def test_advect_rhs_plan_copies_8_bytes_on_even_pitches_else_4(shape,
+                                                                aligned,
+                                                                vec):
+    """A lab row at nx = 8192 is 8198 floats: a whole number of 8-byte
+    words, not of 16-byte ones. 8-byte copies need an even pitch nx + 6
+    and an 8-byte aligned lab; otherwise the kernel copies 4 bytes at a
+    time (it runs, it does not refuse). The grid is the substages'."""
+    L, ny, nx = shape
+    got_vec, grid = hk.advect_rhs_plan(L, ny, nx, SMS, aligned)
+    assert got_vec == vec
+    assert grid == hk.substage_plan(L, ny, nx, SMS, True)[1]
+
+
+@pytest.mark.parametrize("pattern", ["normal", "checker", "positive",
+                                     "zeros"])
+def test_advect_rhs_ops_counts_each_face_once_where_its_winds_agree(
+        pattern):
+    """Over labs [L, 2, ny+6, nx+6] the interior's faces: nx + 1 a row and
+    ny + 1 a column per component, an inner face twice where its two
+    cells' winds differ in sign (strict: 0 counts as negative), and 13
+    operations a cell and component besides them."""
+    L, ny, nx = 2, 5, 9
+    lab = wind_field((L, 2, ny + 6, nx + 6), pattern, 4, "cpu")
+    u = lab[:, 0, 3:-3, 3:-3] > 0
+    v = lab[:, 1, 3:-3, 3:-3] > 0
+    brute = 0
+    for m in range(L):
+        for y in range(ny):
+            for f in range(nx + 1):
+                brute += 1 + (0 < f < nx
+                              and bool(u[m, y, f - 1] != u[m, y, f]))
+        for x in range(nx):
+            for f in range(ny + 1):
+                brute += 1 + (0 < f < ny
+                              and bool(v[m, f - 1, x] != v[m, f, x]))
+    assert advect_rhs_ops(lab) == 2 * (OPS_WENO_FACE * brute
+                                       + OPS_LAB_RHS_REST * L * ny * nx)
+    if pattern == "positive":
+        assert brute == L * (ny * (nx + 1) + nx * (ny + 1))
 
 
 @pytest.mark.parametrize("pattern", WIND_PATTERNS)
