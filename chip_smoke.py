@@ -151,8 +151,30 @@ the result lines:
    solo substage, correction or sweep-chain launch), then the
    solo sim from the same state: equal iterations every step and velocity
    within 1e-5 relative.
+11. the flagship step (``__graft_entry__.entry()``'s configuration: two
+   fish, bpdx 2, bpdy 1, extent 4, nu 4e-5, lambda 1e7, f32) through the
+   port's ``sim.Simulation`` at 1024 x 512 (level 6): ``initialize()``, the
+   10 exact startup steps and 5 production ``step_once`` steps under the
+   default solver and under CUP2D_POIS=fas, each step timed on the host
+   clock (its phases' host ms, its iterations, the peak memory), the
+   launch counts from 0 over each run (2 substage launches and 1
+   correction a step, sweep chains under fas only, no other form); the
+   three kernels against their twins on that run's own operands at
+   1024 x 512 (<= 2e-6 relative; device ms by graph replay, bound at
+   these shapes); ``entry()``'s own call, ``_flow_step_impl`` on the
+   Taylor-Green state with the fishes' chi, prescribed zeros and
+   dt = 2e-4, a warm-up and 5 calls ("flagship step ms"); the two fish at
+   512 x 256 on the card and on the CPU from the card's state after its
+   startup steps, 5 production steps each with equal iterations: under
+   fas velocity and each fish's (u, v, omega) within 1e-4 relative, under
+   the default solver within its 1e-2 relative tolerance (its bf16
+   preconditioner cycle carries a one-ulp difference to ~1e-3 of a
+   1-iteration solve); and the catalog's channel at 512 x 128 under fas
+   for 3 steps (finite, every ``+bc`` counter of the three kernels moving).
 
-Then one JSON line of per-kernel numbers, the card's name and power limit
+Then one JSON line of per-kernel numbers (with, per kernel, its launches
+on the two flagship runs and, for the flagship's three kernels, their
+numbers at its shapes), the card's name and power limit
 as nvidia-smi prints them, and the result line
 ``{"ok": true, "device": {...}}`` last. Needs no network; imports no JAX.
 """
@@ -170,14 +192,15 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 
-from cup2d_tpu_torch import SimConfig, UniformGrid, UniformSim  # noqa: E402
+from cup2d_tpu_torch import (SimConfig, Simulation, UniformGrid,  # noqa
+                             UniformSim)
 from cup2d_tpu_torch import bc as tbc  # noqa: E402
 from cup2d_tpu_torch import cases  # noqa: E402
 from cup2d_tpu_torch import amr as tamr  # noqa: E402
 from cup2d_tpu_torch.amr import (AMRSim, multilevel_forest,  # noqa: E402
                                  vortex_forest)
-from cup2d_tpu_torch.convert import (forest_from_numpy,  # noqa: E402
-                                     forest_to_numpy)
+from cup2d_tpu_torch.convert import (copy_simulation_state,  # noqa
+                                     forest_from_numpy, forest_to_numpy)
 from cup2d_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from cup2d_tpu_torch.ops.timing import (OPS_SWEEP_CELL,  # noqa: E402
                                         advect_rhs_ops, bound,
@@ -195,7 +218,8 @@ from cup2d_tpu_torch.parallel.shard_halo import (  # noqa: E402
     Slabs, exchange_x, fused_advect_heun_sharded, gather_x,
     overlap_jacobi_sweeps, split_x, sweep_stats)
 from cup2d_tpu_torch.poisson import block_precond_matrix  # noqa: E402
-from cup2d_tpu_torch.uniform import bench_state  # noqa: E402
+from cup2d_tpu_torch.uniform import (bench_state,  # noqa: E402
+                                     taylor_green_state)
 
 # bounds (f32, kernel vs plain twin on the same inputs)
 HEUN_ABS = 2e-6        # unit-scale operands at dt = h/2; FMA contraction
@@ -1994,6 +2018,276 @@ def phase_bf16(dev) -> tuple[dict, dict]:
     return runs, total
 
 
+# phase 11: the flagship step, __graft_entry__.entry()'s configuration
+ENTRY_SHAPES = ("angle=0 L=0.2 xpos=1.8 ypos=0.8\n"
+                "angle=180 L=0.2 xpos=1.6 ypos=0.8")
+ENTRY_LEVEL = 6        # 1024 x 512 cells
+SHAPED_CPU_LEVEL = 5   # 512 x 256: each fish has several penalized cells
+#                        (at level 4 one, a singular momentum system)
+FLAGSHIP_REL = 2e-6    # the three kernels against their twins on the
+#                        flagship's own operands, relative to max |ref|
+SHAPED_KEYS = ("fused_advect_heun", "fused_correction", "fused_jacobi_sweeps")
+
+
+def entry_cfg(**kw) -> SimConfig:
+    """``entry()``'s configuration (f32, the two fish)."""
+    base = dict(bpdx=2, bpdy=1, level_max=1, level_start=0, extent=4.0,
+                dtype="float32", nu=4e-5, lam=1e7, cfl=0.5,
+                shapes=ENTRY_SHAPES)
+    base.update(kw)
+    return SimConfig(**base)
+
+
+def run_flagship(dev, pois: str) -> tuple[dict, Simulation]:
+    """Phase 11 under one solver: ``initialize()``, the 10 exact startup
+    steps and 5 production ``step_once`` steps of the two fish at 1024 x
+    512 f32, each step timed on the host clock to its end (a step ends in
+    its own reads of the device, then a synchronize), the launches counted
+    from 0 over the 15 steps."""
+    with latched(pois):
+        sim = Simulation(entry_cfg(), level=ENTRY_LEVEL, device=dev)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    sim.initialize()
+    sync(dev)
+    out = {"mode": sim.poisson_mode, "tier": sim.kernel_tier,
+           "shape": [sim.grid.ny, sim.grid.nx],
+           "initialize_ms": (time.perf_counter() - t0) * 1e3}
+    finite = True
+    for label, n in (("startup", 10), ("production", 5)):
+        ms, iters, phase_ms = [], [], {}
+        for _ in range(n):
+            t0 = time.perf_counter()
+            d = sim.step_once()
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            iters.append(d["poisson_iters"])
+            finite = finite and d["finite"]
+            for k, v in sim.phase_seconds.items():
+                phase_ms[k] = phase_ms.get(k, 0.0) + v * 1e3 / n
+        out[label] = {"ms_per_step": sum(ms) / n, "ms": ms,
+                      "iters_per_step": sum(iters) / n, "iters": iters,
+                      "phase_ms_per_step": phase_ms}
+    la = {k: n for k, n in hk.launches.items() if n}
+    uvw = [[s.u, s.v, s.omega] for s in sim.shapes]
+    out.update(umax=d["umax"], dt=d["dt"], uvw=uvw,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=la)
+    print(f"phase 11 flagship {pois or 'default'} {json.dumps(out)}",
+          flush=True)
+    label = f"flagship {pois or 'default'}"
+    steps = 15
+    check(finite and np.isfinite(uvw).all(), f"{label}: non-finite state")
+    check(la.get("fused_advect_heun", 0) == 2 * steps,
+          f"{label}: substage launches {la} != 2 a step")
+    check(la.get("fused_correction", 0) == steps,
+          f"{label}: correction launches {la} != 1 a step")
+    check((la.get("fused_jacobi_sweeps", 0) > 0) == (pois == "fas"),
+          f"{label}: sweep-chain launches {la} (fas only)")
+    check(not any("+bc" in k or "+bf16" in k or "halo" in k for k in la),
+          f"{label}: launches of another form {la}")
+    return out, sim
+
+
+def flagship_kernels(sim) -> dict:
+    """Phase 11, continued: the three kernels of the flagship step against
+    their twins on its own operands at 1024 x 512 (the substage pair on
+    the run's velocity at its dt, the correction on its pressure, the
+    sweep chain n = 2 on the finest level), device ms by graph replay,
+    and each bound at these shapes."""
+    g = sim.grid
+    dev = g.device
+    v = sim.state.vel[None].contiguous()
+    dt = torch.tensor([sim._next_dt], device=dev)
+    cells = g.ny * g.nx
+    out = {}
+    got = hk.fused_advect_heun(v, g.h, g.cfg.nu, dt)
+    ref = hk.fused_advect_heun_plain(v, g.h, g.cfg.nu, dt)
+    facs = hk._substage_facs(dt, g.h, g.cfg.nu, (1,), 1, torch.float32, dev)
+    v1 = hk.advect_substage(v, None, facs, 0.5, 1.0 / (g.h * g.h))
+    b = bound(substage_pair_bytes(cells), substage_ops(v) + substage_ops(v1))
+    out["fused_advect_heun"] = dict(
+        max_abs_err=float((got - ref).abs().max()),
+        rel=float((got - ref).abs().max() / ref.abs().max()),
+        ms=graph_ms([lambda: hk.fused_advect_heun(v, g.h, g.cfg.nu, dt)]),
+        plain_ms=graph_ms([lambda: hk.fused_advect_heun_plain(
+            v, g.h, g.cfg.nu, dt)], reps=6),
+        bound_ms=b[0], bound_by=b[1])
+    x = sim.state.pres[None].contiguous()
+    p = torch.roll(x, 1, dims=-1).contiguous()
+    scal = torch.stack([x.mean(), p.mean(),
+                        -0.5 * dt[0] * g.h]).reshape(1, 3).contiguous()
+    ih2 = 1.0 / (g.h * g.h)
+    got = hk.fused_correction(x, p, v, scal, ih2)
+    ref = hk.fused_correction_plain(x, p, v, scal, ih2)
+    b = bound(28.0 * cells, OPS_CORRECTION_CELL * cells)
+    out["fused_correction"] = dict(
+        max_abs_err=max(float((a - c).abs().max()) for a, c in zip(got, ref)),
+        rel=max(float((a - c).abs().max() / c.abs().max())
+                for a, c in zip(got, ref)),
+        ms=graph_ms([lambda: hk.fused_correction(x, p, v, scal, ih2)]),
+        plain_ms=graph_ms([lambda: hk.fused_correction_plain(
+            x, p, v, scal, ih2)], reps=6),
+        bound_ms=b[0], bound_by=b[1])
+    gen = torch.Generator(device=dev).manual_seed(11)
+    e = torch.randn(g.ny, g.nx, generator=gen, device=dev)
+    r = torch.randn(g.ny, g.nx, generator=gen, device=dev)
+    got = hk.fused_jacobi_sweeps(e, r, 0.8, 2, False)
+    ref = hk.jacobi_sweeps_plain(e, r, 0.8, 2, False)
+    b = bound(sweep_bytes(cells, False), OPS_SWEEP_CELL * 2 * cells)
+    out["fused_jacobi_sweeps"] = dict(
+        max_abs_err=float((got - ref).abs().max()),
+        rel=float((got - ref).abs().max() / ref.abs().max()),
+        ms=graph_ms([lambda: hk.fused_jacobi_sweeps(e, r, 0.8, 2, False)]),
+        plain_ms=graph_ms([lambda: hk.jacobi_sweeps_plain(
+            e, r, 0.8, 2, False)], reps=6),
+        bound_ms=b[0], bound_by=b[1])
+    for k, o in out.items():
+        o["shape"] = [g.ny, g.nx]
+        print(f"phase 11 kernel {k} at {g.ny}x{g.nx}: {json.dumps(o)}",
+              flush=True)
+        check(o["rel"] <= FLAGSHIP_REL, f"{k} at the flagship's shapes: "
+              f"rel {o['rel']} > {FLAGSHIP_REL}")
+    return out
+
+
+def phase_entry_call(dev) -> dict:
+    """Phase 11, continued: ``entry()``'s own call on the port,
+    ``_flow_step_impl(taylor_green_state(grid)._replace(chi=obs.chi),
+    obs, zeros((2, 3)), 2e-4)`` after ``advect(0)``/``midline(0)``: a
+    warm-up and 5 eager calls from the same arguments, host clock to a
+    synchronize ("flagship step ms"), launches from 0 over the 5."""
+    sim = Simulation(entry_cfg(), level=ENTRY_LEVEL, device=dev)
+    for s in sim.shapes:
+        s.advect(0.0, sim.cfg.extents)
+        s.midline(0.0)
+    obs = sim._rasterize_impl(sim._shape_inputs())
+    state = taylor_green_state(sim.grid)._replace(chi=obs.chi)
+    prescribed = torch.zeros((len(sim.shapes), 3), device=dev)
+    dt = torch.tensor(2e-4, device=dev)
+    sim._flow_step_impl(state, obs, prescribed, dt)        # warm-up
+    sync(dev)
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        new, uvw, diag = sim._flow_step_impl(state, obs, prescribed, dt)
+    sync(dev)
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    la = {k: n for k, n in hk.launches.items() if n}
+    out = {"flagship_step_ms": ms, "iters": diag["poisson_iters"],
+           "uvw": uvw.cpu().tolist(), "umax": float(diag["umax"]),
+           "launches": la}
+    print(f"phase 11 entry() call {json.dumps(out)}", flush=True)
+    check(bool(torch.isfinite(new.vel).all() and torch.isfinite(uvw).all())
+          and tuple(uvw.shape) == (2, 3), "entry() call: bad outputs")
+    check(la.get("fused_advect_heun", 0) == 10
+          and la.get("fused_correction", 0) == 5,
+          f"entry() call: launches {la}")
+    return out
+
+
+def phase_shaped_cpu(dev, pois: str) -> dict:
+    """Phase 11, continued: the two fish at 512 x 256 f32 on the card and
+    on the CPU from the same state (the card's after its 10 exact startup
+    steps, carried over with ``convert.copy_simulation_state``), 5
+    production
+    ``step_once`` steps each, equal iterations; beside them the card from
+    the same state one ulp away (how far rounding alone carries). Under
+    fas: velocity within
+    TRAJ_REL relative and each fish's (u, v, omega) within TRAJ_REL of its
+    largest component. Under the default solver within the solver's
+    relative tolerance (1e-2): its bf16 preconditioner cycle carries a
+    one-ulp difference of its input to ~1e-3 of the 1-iteration production
+    solve (ROADMAP queue 3), so the two devices agree to the tolerance,
+    not to rounding."""
+    with latched(pois):
+        card = Simulation(entry_cfg(), level=SHAPED_CPU_LEVEL, device=dev)
+        cpu = Simulation(entry_cfg(), level=SHAPED_CPU_LEVEL, device="cpu")
+    card.initialize()
+    for _ in range(10):
+        card.step_once()
+    copy_simulation_state(card, cpu)
+    # the card again from the same state with its velocity one ulp away
+    # in every cell: how far rounding alone carries in 5 steps
+    with latched(pois):
+        ulp = Simulation(entry_cfg(), level=SHAPED_CPU_LEVEL, device=dev)
+    copy_simulation_state(card, ulp)
+    sign = torch.where(torch.rand(card.state.vel.shape, device=dev,
+                                  generator=torch.Generator(device=dev)
+                                  .manual_seed(5)) < 0.5, -1, 1)
+    ulp.state = ulp.state._replace(vel=torch.nextafter(
+        ulp.state.vel, ulp.state.vel + sign * torch.inf))
+    iters = {"card": [], "cpu": [], "card_1ulp": []}
+    for _ in range(5):
+        for label, s in (("card", card), ("cpu", cpu), ("card_1ulp", ulp)):
+            iters[label].append(s.step_once()["poisson_iters"])
+    a, b = card.state.vel.cpu(), cpu.state.vel
+    rel = float((a - b).abs().max() / b.abs().max())
+    rel_ulp = float((ulp.state.vel.cpu() - a).abs().max() / a.abs().max())
+    uvw_rel = []
+    for p, q in zip(card.shapes, cpu.shapes):
+        up, uq = np.array([p.u, p.v, p.omega]), np.array([q.u, q.v, q.omega])
+        uvw_rel.append(float(np.abs(up - uq).max() / np.abs(uq).max()))
+    bar = TRAJ_REL if pois == "fas" else cpu.cfg.poisson_tol_rel
+    out = {"mode": cpu.poisson_mode, "shape": [card.grid.ny, card.grid.nx],
+           "iters": iters, "vel_rel_linf": rel,
+           "card_vs_card_1ulp_rel_linf": rel_ulp, "uvw_rel": uvw_rel,
+           "bar": bar, "uvw_cpu": [[q.u, q.v, q.omega] for q in cpu.shapes]}
+    print(f"phase 11 card vs CPU {json.dumps(out)}", flush=True)
+    label = f"shaped card vs CPU {pois or 'default'}"
+    check(bool(torch.isfinite(a).all()), f"{label}: non-finite")
+    check(iters["card"] == iters["cpu"], f"{label}: iterations {iters}")
+    check(rel <= bar, f"{label}: vel {rel} > {bar}")
+    check(max(uvw_rel) <= bar, f"{label}: uvw {uvw_rel} > {bar}")
+    return out
+
+
+def phase_shaped_channel(dev) -> dict:
+    """Phase 11, continued: the catalog's channel (a fixed disk between an
+    inflow and an outflow face) at 512 x 128 under fas for 3 steps on the
+    card: finite, the boundary-table substage and the signed correction
+    launched every step, signed sweep chains launched."""
+    with latched("fas"):
+        sim = cases.make_sim("channel", level=4, device=dev)
+    hk.reset_launches()
+    ds = [sim.step_once() for _ in range(3)]
+    la = {k: n for k, n in hk.launches.items() if n}
+    out = {"table": sim.bc_table, "shape": [sim.grid.ny, sim.grid.nx],
+           "iters": [d["poisson_iters"] for d in ds],
+           "umax": ds[-1]["umax"],
+           "forcex": sim.shapes[0].forces["forcex"],
+           "launches": la}
+    print(f"phase 11 channel fas {json.dumps(out)}", flush=True)
+    check(all(d["finite"] for d in ds), "shaped channel: non-finite")
+    check(la.get("fused_advect_heun+bc", 0) == 6
+          and la.get("fused_correction+bc", 0) == 3
+          and la.get("fused_jacobi_sweeps+bc", 0) > 0,
+          f"shaped channel: launches {la}")
+    return out
+
+
+def phase_shaped(dev) -> tuple[dict, dict]:
+    """Phase 11: the flagship step. Returns the runs and the launches of
+    the two flagship runs per kernel."""
+    runs = {}
+    flagship = []
+    for p in ("", "fas"):
+        out, sim = run_flagship(dev, p)
+        flagship.append(out)
+        if p == "fas":
+            launches = {k: sum(r["launches"].get(k, 0) for r in flagship)
+                        for k in SHAPED_KEYS}
+            runs["kernels"] = flagship_kernels(sim)
+        del sim
+    runs["flagship"] = flagship
+    runs["entry_call"] = phase_entry_call(dev)
+    runs["card_vs_cpu"] = [phase_shaped_cpu(dev, p) for p in ("fas", "")]
+    runs["channel"] = phase_shaped_channel(dev)
+    return runs, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2077,6 +2371,12 @@ def main() -> int:
         check(n > 0, f"{k}: launched no time on the split wall-bounded "
               "path")
     launches.update(split_walled_launches)
+
+    t0 = time.perf_counter()
+    shaped, shaped_launches = phase_shaped(dev)
+    print(f"phase 11 took {time.perf_counter() - t0} s", flush=True)
+    for k, n in shaped_launches.items():
+        check(n > 0, f"{k}: launched no time on the flagship step")
     check("jax" not in sys.modules, "the smoke imported jax")
 
     kernels = [dict(name=k, route="cuda", source=hk.SOURCES[hk.kernel_of(k)],
@@ -2086,7 +2386,9 @@ def main() -> int:
                     plain_ms=res[k]["plain_ms"], bound_ms=res[k]["bound_ms"],
                     bound_by=res[k]["bound_by"],
                     library_ms=res[k].get("library_ms"),
-                    on_main_path=k != "advect_diffuse_rhs")
+                    on_main_path=k != "advect_diffuse_rhs",
+                    flagship_launches=shaped_launches.get(k, 0),
+                    flagship=shaped["kernels"].get(k))
                for k in hk.launches]
     print(f"main path summary: {json.dumps(runs)}")
     print(f"forest main path summary: {json.dumps(forest_runs)}")
@@ -2095,6 +2397,7 @@ def main() -> int:
     print(f"bf16 main path summary: {json.dumps(bf16_runs)}")
     print(f"split wall-bounded main path summary: "
           f"{json.dumps(split_walled)}")
+    print(f"flagship step summary: {json.dumps(shaped)}")
     print(f"total {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,8 +1,10 @@
-"""PyTorch/CUDA port of ``cup2d_tpu``: the obstacle-free uniform-grid
-projection step (``UniformGrid``, ``UniformSim``) in the free-slip box or
-walled by a boundary table (``bc.py``; the case catalog ``cases.py`` and
-its lid-driven cavity), the obstacle-free adaptive forest step
-(``amr.AMRSim``) and the x-split sharded uniform step
+"""PyTorch/CUDA port of ``cup2d_tpu``: the uniform-grid projection step
+(``UniformGrid``, ``UniformSim``) in the free-slip box or walled by a
+boundary table (``bc.py``; the case catalog ``cases.py``), the shaped
+uniform step with fish and disks, collisions and surface forces
+(``sim.Simulation``, the two-fish flagship step; the catalog's channel and
+towed cylinder), the obstacle-free adaptive forest step (``amr.AMRSim``)
+and the x-split sharded uniform step
 (``parallel.mesh.ShardedUniformSim``), with hand-written Hopper kernels
 for the Heun substage, the projection correction, the Jacobi smoother
 chains (the three with boundary-table forms), the forest lab RHS, the
@@ -17,6 +19,8 @@ The port imports torch and numpy only, never jax and nothing of
 
 from .amr import AMRSim
 from .config import SimConfig
+from .sim import Simulation
 from .uniform import FlowState, UniformGrid, UniformSim
 
-__all__ = ["AMRSim", "FlowState", "SimConfig", "UniformGrid", "UniformSim"]
+__all__ = ["AMRSim", "FlowState", "SimConfig", "Simulation", "UniformGrid",
+           "UniformSim"]

@@ -6,15 +6,15 @@ initial state behind one name. The listing is the JAX package's:
 ``cavity``
     Lid-driven cavity: unit box, four no-slip walls, the y_hi lid moving
     at ``lid_u``, Re = lid_u / nu. Obstacle-free (``UniformSim``, or
-    ``ShardedUniformSim`` with ``mesh=``), and the one case the port runs
-    so far. Validated against Ghia, Ghia & Shin
-    (1982) at Re 100 (``ghia_errors``; ``python -m cup2d_tpu_torch.cases
-    --ghia``).
+    ``ShardedUniformSim`` with ``mesh=``). Validated against Ghia, Ghia &
+    Shin (1982) at Re 100 (``ghia_errors``; ``python -m
+    cup2d_tpu_torch.cases --ghia``).
 ``channel``, ``cylinder``
-    Flow past a fixed disk between an inflow and an outflow face, and the
-    towed cylinder in the free-slip box: shaped cases, which wait for the
-    shaped steps (ROADMAP queue 1 item 1). Their tables (``channel_table``)
-    run on the obstacle-free step already.
+    Flow past a fixed disk between an inflow and an outflow face (Re 200,
+    the impulsive start u = u_in), and the towed cylinder in the free-slip
+    box: shaped cases, a ``sim.Simulation`` with one prescribed disk. Run
+    ``sim.initialize()`` before stepping, or let the first ``step_once``
+    run it.
 ``tgv_periodic``, ``shear_layer``, ``turb2d``
     Doubly-periodic cases, which wait for the periodic tables and fftd
     (ROADMAP queue 1 item 3).
@@ -39,9 +39,11 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 
-from .bc import (BCTable, convective_outflow, dirichlet_inflow, free_slip,
-                 no_slip, periodic)
+from .bc import (FREE_SLIP, BCTable, convective_outflow, dirichlet_inflow,
+                 free_slip, no_slip, periodic)
 from .config import SimConfig
+from .models import DiskShape
+from .sim import Simulation
 
 # Ghia, Ghia & Shin (1982), Re 100: u along the vertical centreline x = 0.5
 # (Table I) and v along the horizontal centreline y = 0.5 (Table II), on
@@ -130,14 +132,56 @@ def build_cavity(level: Optional[int] = None, re: float = 100.0,
     return sim
 
 
+def build_channel(level: Optional[int] = None, re: float = 200.0,
+                  u_in: float = 0.2, diameter: float = 0.1,
+                  dtype: str = "float32", profile: str = "uniform",
+                  xpos: float = 1.0, device=None):
+    """Channel past a fixed cylinder: the 4 x 1 domain, the impulsive start
+    at the inflow velocity, Re = u_in * diameter / nu. Returns a
+    ``sim.Simulation``."""
+    lvl = 5 if level is None else level
+    cfg = SimConfig(bpdx=4, bpdy=1, level_max=1, level_start=0,
+                    extent=4.0, dtype=dtype, nu=u_in * diameter / re,
+                    lam=1e6, cfl=0.5, max_poisson_iterations=200,
+                    poisson_tol=1e-3, poisson_tol_rel=1e-2)
+    sim = Simulation(
+        cfg, shapes=[DiskShape(diameter / 2, xpos, 0.5,
+                               prescribed=(0.0, 0.0))],
+        level=lvl, bc=channel_table(u_in, profile), device=device)
+    # impulsive start: the stream fills the domain at t = 0 (the standard
+    # setup for the literature Strouhal band)
+    vel = sim.state.vel.clone()
+    vel[0] = u_in
+    sim.state = sim.state._replace(vel=vel)
+    sim.case = "channel"
+    return sim
+
+
+def build_cylinder(level: Optional[int] = None, D: float = 0.1,
+                   U: float = 0.2, nu: float = 5e-4, xpos: float = 3.2,
+                   bpdy: int = 1, dtype: str = "float32", device=None):
+    """The towed cylinder: the free-slip box and a prescribed (-U, 0) disk
+    towed through still fluid, the Galilean twin of ``channel`` in the
+    closed box. Returns a ``sim.Simulation``."""
+    lvl = 5 if level is None else level
+    cfg = SimConfig(bpdx=4, bpdy=bpdy, level_max=1, level_start=0,
+                    extent=4.0, dtype=dtype, nu=nu, lam=1e6, cfl=0.5,
+                    max_poisson_iterations=200, poisson_tol=1e-3,
+                    poisson_tol_rel=1e-2)
+    sim = Simulation(
+        cfg, shapes=[DiskShape(D / 2, xpos, 0.5 * bpdy,
+                               prescribed=(-U, 0.0))],
+        level=lvl, bc=FREE_SLIP, device=device)
+    sim.case = "cylinder"
+    return sim
+
+
 def _waits(name: str, what: str):
     def build(**_):
         raise NotImplementedError(f"case {name!r}: {what}")
     return build
 
 
-_SHAPED = ("a shaped case; the port's shaped steps are not ported yet "
-           "(ROADMAP queue 1 item 1)")
 _PERIODIC = ("a periodic case; periodic tables and fftd are not ported yet "
              "(ROADMAP queue 1 item 3)")
 
@@ -147,10 +191,10 @@ CASES: Tuple[CaseSpec, ...] = (
              build_cavity, default_level=4, fleet_ok=True),
     CaseSpec("channel",
              "channel past a fixed cylinder (inflow/outflow), Re=200",
-             _waits("channel", _SHAPED), default_level=5),
+             build_channel, default_level=5),
     CaseSpec("cylinder",
              "towed cylinder in the free-slip box (legacy validation)",
-             _waits("cylinder", _SHAPED), default_level=5),
+             build_cylinder, default_level=5),
     CaseSpec("tgv_periodic",
              "doubly-periodic Taylor-Green vortex (analytic KE decay)",
              _waits("tgv_periodic", _PERIODIC), default_level=4,

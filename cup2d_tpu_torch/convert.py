@@ -9,11 +9,17 @@ JAX ``SimConfig``; ``state_from_numpy`` takes the fields of a JAX
 ``Forest.blocks`` and ``Forest.fields`` of either package hold them) into
 a port ``AMRSim`` with the same topology; ``bc_from_fields`` takes a
 boundary table of either package (read by its fields, no import) into the
-port's ``bc.BCTable``.
+port's ``bc.BCTable``; ``obstacle_from_numpy``/``obstacle_to_numpy`` carry
+the obstacle fields of a shaped step (``sim.ObstacleFields``),
+``copy_shape_state`` the host state of shape objects (the fish's midline
+and schedulers included) and ``copy_simulation_state`` all of a shaped
+Simulation's state, so that both packages' ``Simulation`` (or the port's on
+two devices) can go on from one state.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -21,6 +27,7 @@ import torch
 
 from .bc import BCTable, FaceBC
 from .config import SimConfig
+from .sim import ObstacleFields
 from .uniform import FlowState
 
 
@@ -80,3 +87,74 @@ def forest_to_numpy(sim) -> tuple[dict, dict]:
     fields = sim.fields()
     return (dict(sim.forest.blocks),
             {k: v.detach().cpu().numpy() for k, v in fields.items()})
+
+
+def obstacle_from_numpy(fields, device, dtype):
+    """The port's ``sim.ObstacleFields`` from numpy arrays of every field
+    (a mapping or a named tuple, e.g. a JAX ``ObstacleFields`` pulled to
+    the host)."""
+    if hasattr(fields, "_asdict"):
+        fields = fields._asdict()
+    missing = set(ObstacleFields._fields) - set(fields)
+    if missing:
+        raise ValueError(f"missing ObstacleFields fields: {sorted(missing)}")
+    return ObstacleFields(**{
+        k: torch.tensor(np.asarray(fields[k]), dtype=dtype, device=device)
+        for k in ObstacleFields._fields})
+
+
+def obstacle_to_numpy(obs) -> dict:
+    """The fields of a port ``ObstacleFields`` as numpy arrays."""
+    return {k: getattr(obs, k).detach().cpu().numpy()
+            for k in obs._fields}
+
+
+# the state a shape's advect()/midline() and the drivers change: rigid
+# motion, CoM bookkeeping and, for the fish, the gait clock, the
+# schedulers and the last midline
+SHAPE_STATE = ("com", "center", "orientation", "u", "v", "omega", "M", "J",
+               "d_gm")
+
+
+def copy_shape_state(src, dst) -> None:
+    """Give the shape ``dst`` the host state of ``src``, a shape of either
+    package of the same kind (read by its attributes, no import): every
+    attribute of ``src`` that ``dst`` has, ``SHAPE_STATE`` among them,
+    numpy arrays and the fish's schedulers copied deeply."""
+    if type(src).__name__ != type(dst).__name__:
+        raise TypeError(f"cannot copy a {type(src).__name__} into a "
+                        f"{type(dst).__name__}")
+    missing = [k for k in SHAPE_STATE if not hasattr(src, k)]
+    if missing:
+        raise ValueError(f"shape without {missing}")
+    for key, val in vars(src).items():
+        if not hasattr(dst, key):
+            continue
+        if isinstance(val, np.ndarray):
+            setattr(dst, key, val.copy())
+        elif hasattr(val, "__dict__"):
+            # a scheduler: its numpy arrays and scalars, into the port's
+            # own scheduler object
+            getattr(dst, key).__dict__.update(copy.deepcopy(vars(val)))
+        else:
+            setattr(dst, key, copy.copy(val))
+
+
+def copy_simulation_state(src, dst) -> None:
+    """Give the port ``Simulation`` ``dst`` the state of ``src``, a
+    ``Simulation`` of either package with the same shapes: the flow state
+    (on ``dst``'s device, in its dtype), every shape's host state and the
+    clocks (time, step count, the cached next dt), as if ``dst`` had made
+    ``src``'s steps."""
+    fields = {k: (v.detach().cpu().numpy() if torch.is_tensor(v)
+                  else np.asarray(v))
+              for k, v in src.state._asdict().items()}
+    dst.state = state_from_numpy(fields, dst.grid.device, dst.grid.dtype)
+    if len(src.shapes) != len(dst.shapes):
+        raise ValueError(f"{len(src.shapes)} shapes into "
+                         f"{len(dst.shapes)}")
+    for a, b in zip(src.shapes, dst.shapes):
+        copy_shape_state(a, b)
+    dst.time, dst.step_count = src.time, src.step_count
+    dst._next_dt = src._next_dt
+    dst._initialized = getattr(src, "_initialized", False)

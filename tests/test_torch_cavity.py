@@ -441,14 +441,28 @@ def test_split_step_with_a_table_refuses():
     assert mg.meshes[0] is mesh
 
 
-@pytest.mark.parametrize("name,item", [("channel", "queue 1 item 1"),
-                                       ("cylinder", "queue 1 item 1"),
-                                       ("tgv_periodic", "queue 1 item 3"),
+@pytest.mark.parametrize("name,item", [("tgv_periodic", "queue 1 item 3"),
                                        ("shear_layer", "queue 1 item 3"),
                                        ("turb2d", "queue 1 item 3")])
 def test_waiting_cases_refuse(name, item):
     with pytest.raises(NotImplementedError, match=item):
         tcases.make_sim(name, device="cpu")
+
+
+@pytest.mark.parametrize("name,table", [
+    ("channel", "in(0.2,0),out,fs,fs"), ("cylinder", "fs,fs,fs,fs")])
+def test_shaped_cases_build_and_step(name, table):
+    """The shaped cases build a port ``sim.Simulation`` (one prescribed
+    disk) and step; their parity with JAX is in
+    tests/test_torch_shaped_cases.py."""
+    from cup2d_tpu_torch.sim import Simulation
+    sim = tcases.make_sim(name, level=2, device="cpu", dtype="float64")
+    assert isinstance(sim, Simulation) and sim.case == name
+    assert sim.bc_table == table
+    assert len(sim.shapes) == 1 and not sim.shapes[0].free
+    d = sim.step_once()
+    assert d["finite"] and sim.step_count == 1
+    assert np.isfinite(sim.shapes[0].forces["drag"])
 
 
 def test_cavity_fleet_and_bf16_refuse(monkeypatch):

@@ -1,0 +1,213 @@
+"""Port parity for the shaped uniform step: the two fish of
+``__graft_entry__.entry()`` through ``sim.Simulation`` in both packages,
+f64 on the CPU.
+
+* ``_rasterize_impl`` at levels 3 and 4: every obstacle field <= 1e-12.
+* ``_flow_step_impl`` from ``entry()``'s arguments (Taylor-Green velocity
+  with the fishes' chi, prescribed zeros, dt 2e-4) at level 5: state and
+  uvw <= 1e-10, equal iterations.
+* ``step_once`` production trajectories from one state (the JAX run's
+  state after its 10 exact startup steps, carried over with convert.py)
+  under the default solver at ``entry()``'s tolerances and under
+  CUP2D_POIS=fas at tol 1e-9: velocity, uvw, the shapes' host state and
+  the forces <= 1e-10, the demeaned pressure <= 1e-10, equal iterations.
+* The exact startup solves part, as ROADMAP queue 3 predicts for a Poisson
+  RHS that is not mean-free: shown and bounded, not held to 1e-10.
+
+The fish are held at level 5 (512 x 256), where each has several
+penalized cells. At levels 3 and 4 a fish has at most one cell with
+chi >= 0.5: its 3x3 momentum system is singular (Schur complement 0 to
+rounding) and uvw is rounding noise divided by EPS, which even the JAX
+package's jitted and eager solves disagree on (ROADMAP queue 3)."""
+
+import copy
+import dataclasses
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from cup2d_tpu.config import SimConfig  # noqa: E402
+from cup2d_tpu.sim import Simulation as JSim  # noqa: E402
+from cup2d_tpu.uniform import FlowState as JState  # noqa: E402
+from cup2d_tpu.uniform import taylor_green_state as jtg  # noqa: E402
+from cup2d_tpu_torch import Simulation  # noqa: E402
+from cup2d_tpu_torch.convert import (config_from_dict,  # noqa: E402
+                                     copy_simulation_state, state_from_numpy)
+from cup2d_tpu_torch.sim import ObstacleFields  # noqa: E402
+
+F64_BAR = 1e-12
+TRAJ_BAR = 1e-10
+LEVEL = 5
+ENTRY_SHAPES = ("angle=0 L=0.2 xpos=1.8 ypos=0.8\n"
+                "angle=180 L=0.2 xpos=1.6 ypos=0.8")
+
+
+def _cfg(**kw):
+    """``entry()``'s configuration at f64."""
+    base = dict(bpdx=2, bpdy=1, level_max=1, level_start=0, extent=4.0,
+                dtype="float64", nu=4e-5, lam=1e7, cfl=0.5,
+                shapes=ENTRY_SHAPES)
+    base.update(kw)
+    return SimConfig(**base)
+
+
+def _port(cfg, level):
+    return Simulation(config_from_dict(dataclasses.asdict(cfg)),
+                      level=level, device="cpu")
+
+
+def _np(a):
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def _err(a, b):
+    return float(np.max(np.abs(_np(a) - _np(b))))
+
+
+def _demeaned_err(a, b):
+    a, b = _np(a), _np(b)
+    return float(np.max(np.abs((a - a.mean()) - (b - b.mean()))))
+
+
+def _entry_obs(js, ts):
+    for sim in (js, ts):
+        for s in sim.shapes:
+            s.advect(0.0, sim.cfg.extents)
+            s.midline(0.0)
+    return (js._rasterize(js._shape_inputs()),
+            ts._rasterize_impl(ts._shape_inputs()))
+
+
+@pytest.mark.parametrize("level", [3, 4])
+def test_rasterize_matches_jax(level):
+    cfg = _cfg()
+    js, ts = JSim(cfg, level=level), _port(cfg, level)
+    jobs, tobs = _entry_obs(js, ts)
+    assert isinstance(tobs, ObstacleFields)
+    for k in ObstacleFields._fields:
+        assert _np(getattr(tobs, k)).shape == np.shape(getattr(jobs, k)), k
+        assert _err(getattr(jobs, k), getattr(tobs, k)) <= F64_BAR, k
+    assert float(tobs.chi.max()) > 0.1         # a body on the grid
+    # no fish has more than one penalized cell here: its momentum system
+    # is singular, so the trajectories are held at LEVEL instead
+    assert int((tobs.chi_s >= 0.5).sum(dim=(1, 2)).max()) <= 1
+    # the one stacked read of (com, mass, inertia) gives the same host
+    # state as the JAX package's device_get
+    js._sync_shape_scalars(jobs)
+    ts._sync_shape_scalars(tobs)
+    for a, b in zip(js.shapes, ts.shapes):
+        for key in ("com", "d_gm", "M", "J"):
+            assert np.max(np.abs(np.subtract(getattr(a, key),
+                                             getattr(b, key)))) <= F64_BAR
+
+
+def test_entry_flow_step_matches_jax():
+    """``entry()``'s call, ``_flow_step_impl(taylor_green_state(grid)
+    ._replace(chi=obs.chi), obs, zeros((2, 3)), 2e-4)``, on both."""
+    cfg = _cfg()
+    js, ts = JSim(cfg, level=LEVEL), _port(cfg, LEVEL)
+    jobs, tobs = _entry_obs(js, ts)
+    assert int((tobs.chi_s >= 0.5).sum(dim=(1, 2)).min()) >= 2
+    jstate = jtg(js.grid)._replace(chi=jobs.chi)
+    tstate = state_from_numpy({k: np.asarray(v) for k, v in
+                               jstate._asdict().items()}, "cpu",
+                              torch.float64)
+    # the JAX flow step donates its state: read it out first
+    jnew, juvw, jdiag = js._flow_step(
+        jstate, jobs, jnp.zeros((2, 3)), jnp.asarray(2e-4))
+    tnew, tuvw, tdiag = ts._flow_step_impl(
+        tstate, tobs, torch.zeros(2, 3, dtype=torch.float64), 2e-4)
+    assert tdiag["poisson_iters"] == int(jdiag["poisson_iters"]) > 0
+    assert _err(juvw, tuvw) <= TRAJ_BAR
+    assert float(tuvw.abs().max()) > 0        # the fish are penalized
+    for k in ("vel", "chi", "us", "udef"):
+        assert _err(getattr(jnew, k), getattr(tnew, k)) <= TRAJ_BAR, k
+    assert _demeaned_err(jnew.pres, tnew.pres) <= TRAJ_BAR
+    for k in ("umax", "energy", "div_linf", "dt_next"):
+        assert abs(float(tdiag[k]) - float(jdiag[k])) <= TRAJ_BAR, k
+
+
+@pytest.fixture(scope="module")
+def startup():
+    """The JAX Simulation from ``initialize()`` through its 10 exact
+    startup steps (the default solver), and the port's first step from
+    the same initialized state."""
+    cfg = _cfg()
+    js, ts = JSim(cfg, level=LEVEL), _port(cfg, LEVEL)
+    js.initialize()
+    ts.initialize()
+    init_err = _err(js.state.vel, ts.state.vel)
+    first = {"jax": js.step_once(), "port": ts.step_once(),
+             "vel_err": _err(js.state.vel, ts.state.vel),
+             "umax": float(np.max(np.abs(np.asarray(js.state.vel)))),
+             "init_err": init_err}
+    for _ in range(9):
+        js.step_once()
+    snap = {"state": {k: np.asarray(v)
+                      for k, v in js.state._asdict().items()},
+            "shapes": copy.deepcopy(js.shapes), "time": js.time,
+            "step_count": js.step_count, "next_dt": js._next_dt}
+    return snap, first
+
+
+def _load(js, snap):
+    js.state = JState(**{k: jnp.asarray(v)
+                         for k, v in snap["state"].items()})
+    js.shapes = copy.deepcopy(snap["shapes"])
+    js.time = snap["time"]
+    js.step_count = snap["step_count"]
+    js._next_dt = snap["next_dt"]
+    js._initialized = True
+
+
+@pytest.mark.parametrize("pois,tol", [("", {}),
+                                      ("fas", dict(poisson_tol=1e-9,
+                                                   poisson_tol_rel=0.0))])
+def test_production_trajectory_matches_jax(startup, monkeypatch, pois, tol):
+    monkeypatch.setenv("CUP2D_POIS", pois)
+    snap, _ = startup
+    cfg = _cfg(**tol)
+    js, ts = JSim(cfg, level=LEVEL), _port(cfg, LEVEL)
+    assert ts.poisson_mode == js.poisson_mode
+    _load(js, snap)
+    copy_simulation_state(js, ts)
+    moved = 0.0
+    for _ in range(4):
+        jd = js.step_once()
+        td = ts.step_once()
+        assert td["poisson_iters"] == int(jd["poisson_iters"]) > 0
+        assert td["poisson_converged"] == bool(jd["poisson_converged"])
+        assert abs(td["dt"] - jd["dt"]) <= 1e-15
+        assert _err(js.state.vel, ts.state.vel) <= TRAJ_BAR
+        assert _demeaned_err(js.state.pres, ts.state.pres) <= TRAJ_BAR
+        for a, b in zip(js.shapes, ts.shapes):
+            for key in ("u", "v", "omega", "com", "center", "orientation",
+                        "d_gm", "M", "J"):
+                d = np.max(np.abs(np.subtract(getattr(a, key),
+                                              getattr(b, key))))
+                assert d <= TRAJ_BAR, key
+            for key, v in a.forces.items():
+                assert abs(b.forces[key] - v) <= TRAJ_BAR, key
+            moved = max(moved, abs(b.omega))
+    assert moved > 0.01                           # the momentum solve ran
+    assert set(ts.phase_seconds) == {"kinematics", "rasterize", "flow",
+                                     "forces"}
+
+
+def test_exact_startup_solves_part(startup):
+    """The first exact (tol-0) solve from ``initialize()``: both packages
+    stall at the precision floor, but the shaped RHS is not mean-free, so
+    the iterates drift along the constant nullspace mode and part at the
+    true-residual refresh (iteration 10 of an exact solve). The velocities
+    then differ by far more than rounding, yet stay within 1e-2 of umax
+    (ROADMAP queue 3)."""
+    _, first = startup
+    jd, td = first["jax"], first["port"]
+    assert first["init_err"] <= F64_BAR          # the same start
+    assert bool(jd["poisson_stalled"]) and td["poisson_stalled"]
+    assert first["vel_err"] > TRAJ_BAR, first    # parted
+    assert first["vel_err"] <= 1e-2 * first["umax"], first

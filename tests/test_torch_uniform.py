@@ -192,7 +192,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "cup2d_tpu_torch.bc, cup2d_tpu_torch.cases, "
             "cup2d_tpu_torch.amr, cup2d_tpu_torch.parallel.mesh, "
             "cup2d_tpu_torch.parallel.shard_halo, "
-            "cup2d_tpu_torch.kernel_ab, cup2d_tpu_torch.ops.timing; "
+            "cup2d_tpu_torch.kernel_ab, cup2d_tpu_torch.ops.timing, "
+            "cup2d_tpu_torch.sim, cup2d_tpu_torch.models, "
+            "cup2d_tpu_torch.ops.obstacle, cup2d_tpu_torch.ops.collision, "
+            "cup2d_tpu_torch.ops.forces, cup2d_tpu_torch.shapes_host; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'cup2d_tpu' "
             "or m.startswith('cup2d_tpu.')]; print(bad)")
