@@ -171,10 +171,36 @@ the result lines:
    preconditioner cycle carries a one-ulp difference to ~1e-3 of a
    1-iteration solve); and the catalog's channel at 512 x 128 under fas
    for 3 steps (finite, every ``+bc`` counter of the three kernels moving).
+12. the canonical shaped forest: run.sh's flags (validation/canonical.py,
+   written out here: bpdx 2, bpdy 1, extent 4, levelStart 5, levelMax 8,
+   CFL 0.5, lambda 1e7, nu 4e-5, Rtol 2, Ctol 1, AdaptSteps 20, tolerances
+   1e-3/1e-2, f32, the two fish) through ``SimConfig.from_argv`` and the
+   port's ``AMRSim`` under the default solver and CUP2D_POIS=fas, nothing
+   cut: ``initialize()`` (host seconds, blocks, levels, pad bucket; every
+   block with chi > 0.2 at level 7), then ``run()``'s schedule (an
+   ``adapt()`` before each of steps 0-10) for 10 exact startup and 10
+   production steps, each timed on the host clock to a synchronize with
+   its phases' host ms (kinematics, megastep, forces) and each adapt's,
+   the peak memory, the launch counts from 0 over each run (2 lab-RHS
+   launches a step, block-Jacobi updates under fas only, one per
+   production cycle; no launch of kernels 2, 3, 5, 6, 7); the two forest
+   kernels on the fas run's last operands against their twins (phase 2's
+   bars; device ms by graph replay, bounds at these N); the canonical
+   case at levelMax 6 on the card and on the CPU from the card's state
+   after its startup (``convert.copy_amr_state``), 5 production steps
+   with an adapt after the second, equal keys and iterations, velocity
+   and each fish's (u, v, omega) within 1e-4 relative, under fas and
+   under the default solver at its production tolerances (printed beside
+   it, not held: the default solver at 1e-6/1e-5, which does not converge
+   on the shaped RHS); and the two-disk collision of
+   validation/golden_collision.py at f32 (body 0's u flips from > 0.1 to
+   < -0.01 across steps 0 -> 1; the largest difference from
+   tests/golden_collision.json printed).
 
 Then one JSON line of per-kernel numbers (with, per kernel, its launches
-on the two flagship runs and, for the flagship's three kernels, their
-numbers at its shapes), the card's name and power limit
+on the two flagship runs and the two canonical runs and, for the
+flagship's and the canonical run's kernels, their numbers at those
+shapes), the card's name and power limit
 as nvidia-smi prints them, and the result line
 ``{"ok": true, "device": {...}}`` last. Needs no network; imports no JAX.
 """
@@ -199,7 +225,8 @@ from cup2d_tpu_torch import cases  # noqa: E402
 from cup2d_tpu_torch import amr as tamr  # noqa: E402
 from cup2d_tpu_torch.amr import (AMRSim, multilevel_forest,  # noqa: E402
                                  vortex_forest)
-from cup2d_tpu_torch.convert import (copy_simulation_state,  # noqa
+from cup2d_tpu_torch.convert import (copy_amr_state,  # noqa: E402
+                                     copy_simulation_state,
                                      forest_from_numpy, forest_to_numpy)
 from cup2d_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from cup2d_tpu_torch.ops.timing import (OPS_SWEEP_CELL,  # noqa: E402
@@ -2288,6 +2315,338 @@ def phase_shaped(dev) -> tuple[dict, dict]:
     return runs, launches
 
 
+# phase 12: the canonical shaped forest, validation/canonical.py's run.sh
+# flags (written out here: the smoke imports nothing of validation)
+CANON_FLAGS = ("-AdaptSteps 20 -bpdx 2 -bpdy 1 -CFL 0.5 -Ctol 1 -extent 4 "
+               "-lambda 1e7 -levelMax {lm} -levelStart {ls} "
+               "-maxPoissonIterations 1000 -maxPoissonRestarts 0 "
+               "-nu 0.00004 -poissonTol {tol} -poissonTolRel {rel} -Rtol 2 "
+               "-tdump 0 -tend 10.0 -dtype float32")
+CANON_LEVEL_MAX = 8
+CANON_LEVEL_START = 5
+CANON_CPU_LEVELS = (6, 3)    # levelMax, levelStart of the card-vs-CPU run
+CANON_KEYS = ("fused_lab_rhs", "fused_block_jacobi_update")
+# kernels 2, 3, 5, 6 and 7: no launch of any of their forms on the forest
+NOT_FOREST = ("fused_advect_heun", "advect_substage_halo",
+              "fused_correction", "fused_jacobi_sweeps", "jacobi_halo_sweep")
+
+
+def canonical_cfg(level_max=CANON_LEVEL_MAX, level_start=CANON_LEVEL_START,
+                  tol=1e-3, rel=1e-2) -> SimConfig:
+    argv = CANON_FLAGS.format(lm=level_max, ls=level_start, tol=tol,
+                              rel=rel).split()
+    return SimConfig.from_argv(argv + ["-shapes", ENTRY_SHAPES])
+
+
+def canonical_sim(dev, pois=None, **kw) -> AMRSim:
+    """The canonical two-fish forest through the port's entry points;
+    ``pois`` None runs the default solver (CUP2D_POIS unset)."""
+    if pois:
+        os.environ["CUP2D_POIS"] = pois
+    try:
+        return AMRSim(canonical_cfg(**kw), device=dev)
+    finally:
+        os.environ.pop("CUP2D_POIS", None)
+
+
+def run_canonical(dev, pois=None, keep=None) -> dict:
+    """Phase 12 under one solver: ``initialize()`` (host seconds), then
+    ``run()``'s schedule (an ``adapt()`` before each of steps 0-10, then
+    every 20) for 10 exact startup steps and 10 production steps, each
+    step timed on the host clock to a synchronize, with its phases' host
+    ms; launch counts from 0 over the 20 steps and their adapts."""
+    label = f"canonical {pois or 'default'}"
+    sim = canonical_sim(dev, pois)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.initialize()
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    f = sim.forest
+    levels = sorted({k[0] for k in f.blocks})
+    chi = sim.fields()["chi"]
+    order = f.order()
+    cmax = chi[torch.as_tensor(order, dtype=torch.long, device=dev)].amax(
+        dim=(1, 2, 3)).cpu()
+    lv = f.level[order]
+    body = lv[cmax.numpy() > 0.2]
+    out = {"mode": sim.poisson_mode, "initialize_s": init_s,
+           "blocks": len(f.blocks), "levels": levels,
+           "n_pad": sim._npad_hwm, "wcap": list(sim._wcap),
+           "body_blocks": int(len(body)),
+           "init_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"phase 12 {label} initialized {json.dumps(out)}", flush=True)
+    check(len(body) > 0 and bool((body == sim.cfg.level_max - 1).all()),
+          f"{label}: a block with chi > 0.2 is not at level "
+          f"{sim.cfg.level_max - 1}: levels {sorted(set(body.tolist()))}")
+    torch.cuda.reset_peak_memory_stats()
+    hk.reset_launches()
+    seen = {}
+    lab_rhs, block_upd = tamr.fused_lab_rhs, tamr.fused_block_jacobi_update
+
+    def keep_lab(lab, h, nu, dt):
+        seen["lab"] = (lab, h, nu, dt)
+        return lab_rhs(lab, h, nu, dt)
+
+    def keep_upd(e, r, lap, p_inv):
+        seen["upd"] = (e, r, lap, p_inv)
+        return block_upd(e, r, lap, p_inv)
+    tamr.fused_lab_rhs, tamr.fused_block_jacobi_update = keep_lab, keep_upd
+    rows = []
+    try:
+        for k in range(20):
+            row = {"step": k}
+            if sim.step_count <= 10 or \
+                    sim.step_count % sim.cfg.adapt_steps == 0:
+                sync(dev)
+                t0 = time.perf_counter()
+                row["adapt_changed"] = sim.adapt()
+                sim._refresh()
+                sync(dev)
+                row["adapt_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            d = sim.step_once()
+            sync(dev)
+            row.update(ms=(time.perf_counter() - t0) * 1e3,
+                       iters=d["poisson_iters"], blocks=len(f.blocks),
+                       finite=d["finite"], dt=d["dt"],
+                       **{f"{p}_ms": v * 1e3
+                          for p, v in sim.phase_seconds.items()})
+            rows.append(row)
+    finally:
+        tamr.fused_lab_rhs = lab_rhs
+        tamr.fused_block_jacobi_update = block_upd
+    la = {k: n for k, n in hk.launches.items() if n}
+    for name, part in (("startup", rows[:10]), ("production", rows[10:])):
+        n = len(part)
+        out[name] = {
+            "ms_per_step": sum(r["ms"] for r in part) / n,
+            "iters": [r["iters"] for r in part],
+            "blocks": [r["blocks"] for r in part],
+            "phase_ms_per_step": {
+                p: sum(r[f"{p}_ms"] for r in part) / n
+                for p in ("kinematics", "megastep", "forces")},
+            "adapt_ms": [round(r["adapt_ms"], 3) for r in part
+                         if "adapt_ms" in r]}
+    uvw = [[s.u, s.v, s.omega] for s in sim.shapes]
+    out.update(uvw=uvw, umax=d["umax"], dt=d["dt"], time=sim.time,
+               forcex=[s.forces["forcex"] for s in sim.shapes],
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=la)
+    print(f"phase 12 {label} {json.dumps(out)}", flush=True)
+    check(all(r["finite"] for r in rows) and np.isfinite(uvw).all(),
+          f"{label}: non-finite state")
+    check(la.get("fused_lab_rhs", 0) == 2 * len(rows),
+          f"{label}: lab-RHS launches {la} != 2 a step")
+    fas_cycles = sum(r["iters"] for r in rows[10:]) if pois == "fas" else 0
+    check(la.get("fused_block_jacobi_update", 0) == fas_cycles,
+          f"{label}: block-Jacobi launches {la} != {fas_cycles} (one per "
+          "production FAS cycle)")
+    check(not any(hk.kernel_of(k) in NOT_FOREST for k in la),
+          f"{label}: launches of a uniform or split kernel {la}")
+    if keep is not None:
+        keep.update(seen)
+    return out
+
+
+def canonical_kernels(seen: dict) -> dict:
+    """Phase 12, continued: the two forest kernels on the canonical run's
+    own last operands against their twins (phase 2's bars: the lab RHS per
+    h class relative to its max |ref|, the block-Jacobi update relative to
+    max |ref|), device ms by graph replay, bounds at these N."""
+    out = {}
+    lab, h, nu, dt = seen["lab"]
+    n = lab.shape[0]
+    got = hk.fused_lab_rhs(lab, h, nu, dt)
+    ref = hk.fused_lab_rhs_plain(lab, h, nu, dt)
+    diff = (got - ref).abs()
+    hv = h.reshape(-1)
+    rel = max(float(diff[hv == c].max()
+                    / ref[hv == c].abs().max().clamp_min(1e-30))
+              for c in torch.unique(hv))
+    b = bound(BYTES_LAB_RHS_BLOCK * n, advect_rhs_ops(lab))
+    out["fused_lab_rhs"] = dict(
+        shape=list(lab.shape), max_abs_err=float(diff.max()), rel=rel,
+        ms=graph_ms([lambda: hk.fused_lab_rhs(lab, h, nu, dt)]),
+        plain_ms=graph_ms([lambda: hk.fused_lab_rhs_plain(lab, h, nu, dt)],
+                          reps=6),
+        bound_ms=b[0], bound_by=b[1])
+    check(rel <= LAB_RHS_REL, f"fused_lab_rhs on the canonical labs: rel "
+          f"{rel} > {LAB_RHS_REL}")
+    if "upd" in seen:
+        e, r, lap, p_inv = seen["upd"]
+        n = e.shape[0]
+        got = hk.fused_block_jacobi_update(e, r, lap, p_inv)
+        ref = hk.block_jacobi_plain(e, r, lap, p_inv)
+        err = float((got - ref).abs().max())
+        rel = err / max(float(ref.abs().max()), 1e-30)
+        b = bound(BYTES_BLOCK_JACOBI_BLOCK * n + 4 * 64 * 64,
+                  OPS_BLOCK_JACOBI_ELEM * 64 * n)
+        pt = p_inv.T
+        out["fused_block_jacobi_update"] = dict(
+            shape=list(e.shape), max_abs_err=err, rel=rel,
+            ms=graph_ms([lambda: hk.fused_block_jacobi_update(
+                e, r, lap, p_inv)]),
+            plain_ms=graph_ms([lambda: hk.block_jacobi_plain(
+                e, r, lap, p_inv)]),
+            library_ms=graph_ms([lambda: torch.addmm(
+                e.reshape(n, 64), r.reshape(n, 64) - lap.reshape(n, 64),
+                pt)]),
+            bound_ms=b[0], bound_by=b[1])
+        check(rel <= BLOCK_JACOBI_REL, f"fused_block_jacobi_update on the "
+              f"canonical operands: rel {rel} > {BLOCK_JACOBI_REL}")
+    for k, o in out.items():
+        print(f"phase 12 kernel {k} on the canonical run's operands: "
+              f"{json.dumps(o)}", flush=True)
+    return out
+
+
+def _ordered_fields(sim) -> tuple[list, dict]:
+    fields = sim.fields()
+    f = sim.forest
+    order = f.order()
+    keys = [(int(f.level[s]), int(f.bi[s]), int(f.bj[s])) for s in order]
+    idx = torch.as_tensor(order, dtype=torch.long, device=sim.device)
+    return keys, {k: v[idx].cpu() for k, v in fields.items()}
+
+
+def phase_canonical_cpu(dev, pois=None, tol=1e-3, rel=1e-2,
+                        hold=True) -> dict:
+    """Phase 12, continued: the canonical case at levelMax 6, levelStart 3,
+    f32, on the card and on the CPU from the card's state after its
+    ``initialize()`` and 10 startup steps (``convert.copy_amr_state``),
+    5 production steps each with an ``adapt()`` after the second: equal
+    block key sets and, with ``hold``, equal iterations, velocity within
+    TRAJ_REL relative and each fish's (u, v, omega) within TRAJ_REL of
+    its largest component. (At levelMax 5 no cell of either fish reaches
+    chi 0.5 and uvw is 0 on both devices.) Without ``hold`` the numbers
+    are printed and only finiteness is checked: under the default solver
+    at tolerances 1e-6/1e-5 BiCGSTAB does not converge on the shaped RHS,
+    which is not mean-free (121-321 iterations a step), and the devices
+    part as the packages do (ROADMAP queue 3)."""
+    lm, ls = CANON_CPU_LEVELS
+    label = f"canonical card vs CPU {pois or 'default'} {tol}/{rel}"
+    card = canonical_sim(dev, pois, level_max=lm, level_start=ls, tol=tol,
+                         rel=rel)
+    cpu = canonical_sim("cpu", pois, level_max=lm, level_start=ls, tol=tol,
+                        rel=rel)
+    card.initialize()
+    for _ in range(10):
+        if card.step_count <= 10:
+            card.adapt()
+        card.step_once()
+    copy_amr_state(card, cpu)
+    iters = {"card": [], "cpu": []}
+    for k in range(5):
+        if k == 2:
+            a, b = card.adapt(), cpu.adapt()
+            check(a == b, f"{label}: adapt changed card {a} cpu {b}")
+            check(set(card.forest.blocks) == set(cpu.forest.blocks),
+                  f"{label}: the card and the CPU adapted to different "
+                  "block sets")
+        iters["card"].append(card.step_once()["poisson_iters"])
+        iters["cpu"].append(cpu.step_once()["poisson_iters"])
+    (kc, fc), (kp, fp) = _ordered_fields(card), _ordered_fields(cpu)
+    check(kc == kp, f"{label}: ordered block keys differ")
+    a, b = fc["vel"], fp["vel"]
+    vrel = float((a - b).abs().max() / b.abs().max())
+    uvw_rel = []
+    for p, q in zip(card.shapes, cpu.shapes):
+        up, uq = np.array([p.u, p.v, p.omega]), np.array([q.u, q.v, q.omega])
+        uvw_rel.append(float(np.abs(up - uq).max() / np.abs(uq).max()))
+    out = {"mode": cpu.poisson_mode, "tol": [tol, rel], "blocks": len(kp),
+           "iters": iters, "vel_rel_linf": vrel, "uvw_rel": uvw_rel,
+           "bar": TRAJ_REL if hold else None}
+    print(f"phase 12 {label} {json.dumps(out)}", flush=True)
+    check(bool(torch.isfinite(a).all()), f"{label}: non-finite")
+    if hold:
+        check(iters["card"] == iters["cpu"], f"{label}: iterations {iters}")
+        check(vrel <= TRAJ_REL, f"{label}: vel {vrel} > {TRAJ_REL}")
+        check(max(uvw_rel) <= TRAJ_REL,
+              f"{label}: uvw {uvw_rel} > {TRAJ_REL}")
+    return out
+
+
+def phase_collision(dev, golden=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests",
+        "golden_collision.json")) -> dict:
+    """Phase 12, continued: the two-disk collision of
+    validation/golden_collision.py's ``build_sim`` (copied here) at f32 on
+    the card, 6 steps at dt 0.008: body 0's u must flip from > 0.1 to
+    < -0.01 across steps 0 -> 1 (the e = 1 impulse); the largest
+    difference from tests/golden_collision.json's com and (u, v, omega),
+    f64 CPU numbers, is printed."""
+    from cup2d_tpu_torch.models import DiskShape
+    cfg = SimConfig(bpdx=1, bpdy=1, level_max=3, level_start=2,
+                    extent=1.0, dtype="float32", nu=2e-4, lam=1e6,
+                    cfl=0.4, rtol=1e9, ctol=-1.0,
+                    max_poisson_iterations=60, poisson_tol=1e-6,
+                    poisson_tol_rel=1e-4)
+    r = 0.06
+    sim = AMRSim(cfg, shapes=[DiskShape(r, 0.42, 0.5),
+                              DiskShape(r, 0.58, 0.5)], device=dev)
+    sim.compute_forces_every = 0
+    sim.initialize()
+    f = sim.forest
+    vel = sim.fields()["vel"].cpu().numpy().copy()
+    order = f.order()
+    bs = cfg.bs
+    h = f.h_per_block(order)
+    ar = np.arange(bs) + 0.5
+    xc = (f.bi[order].astype(np.float64) * bs * h)[:, None, None] \
+        + ar[None, None, :] * h[:, None, None]
+    yc = (f.bj[order].astype(np.float64) * bs * h)[:, None, None] \
+        + ar[None, :, None] * h[:, None, None]
+    blob = np.zeros((len(order), bs, bs))
+    for (cx, cy, uu) in ((0.42, 0.5, 0.6), (0.58, 0.5, -0.6)):
+        blob += uu * np.exp(-((xc - cx) ** 2 + (yc - cy) ** 2)
+                            / (2.0 * r ** 2))
+    vel[order, 0] = blob
+    vel[order, 1] = 0.0
+    f.fields["vel"] = torch.tensor(vel, dtype=torch.float32, device=dev)
+    with open(golden) as fh:
+        want = json.load(fh)["steps"]
+    steps, dcom, duvw = [], 0.0, 0.0
+    for i in range(6):
+        sim.step_once(dt=0.008)
+        bodies = [[s.com[0], s.com[1], s.u, s.v, s.omega]
+                  for s in sim.shapes]
+        steps.append(bodies)
+        for b, w in zip(bodies, want[i]["bodies"]):
+            dcom = max(dcom, abs(b[0] - w["com"][0]), abs(b[1] - w["com"][1]))
+            duvw = max(duvw, abs(b[2] - w["u"]), abs(b[3] - w["v"]),
+                       abs(b[4] - w["omega"]))
+    u0 = [s[0][2] for s in steps]
+    out = {"body0_u": u0, "max_com_diff_from_golden": dcom,
+           "max_uvw_diff_from_golden": duvw, "dtype": "float32"}
+    print(f"phase 12 collision {json.dumps(out)}", flush=True)
+    check(np.isfinite(steps).all(), "collision: non-finite")
+    check(u0[0] > 0.1 and u0[1] < -0.01,
+          f"collision: body 0 u {u0[:2]} did not flip (> 0.1 to < -0.01)")
+    return out
+
+
+def phase_canonical(dev) -> tuple[dict, dict]:
+    """Phase 12: the canonical shaped forest. Returns the runs and the
+    launches of the two canonical runs per forest kernel."""
+    runs = {"canonical": []}
+    seen = {}
+    for p in (None, "fas"):
+        runs["canonical"].append(run_canonical(
+            dev, p, keep=seen if p == "fas" else None))
+    launches = {k: sum(r["launches"].get(k, 0) for r in runs["canonical"])
+                for k in CANON_KEYS}
+    runs["kernels"] = canonical_kernels(seen)
+    del seen
+    runs["card_vs_cpu"] = [phase_canonical_cpu(dev, "fas"),
+                           phase_canonical_cpu(dev, None),
+                           phase_canonical_cpu(dev, None, 1e-6, 1e-5,
+                                               hold=False)]
+    runs["collision"] = phase_collision(dev)
+    return runs, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2377,7 +2736,14 @@ def main() -> int:
     print(f"phase 11 took {time.perf_counter() - t0} s", flush=True)
     for k, n in shaped_launches.items():
         check(n > 0, f"{k}: launched no time on the flagship step")
+
+    t0 = time.perf_counter()
+    canon, canon_launches = phase_canonical(dev)
+    print(f"phase 12 took {time.perf_counter() - t0} s", flush=True)
+    for k, n in canon_launches.items():
+        check(n > 0, f"{k}: launched no time on the canonical forest")
     check("jax" not in sys.modules, "the smoke imported jax")
+    check("validation" not in sys.modules, "the smoke imported validation")
 
     kernels = [dict(name=k, route="cuda", source=hk.SOURCES[hk.kernel_of(k)],
                     replaces=hk.REPLACES[hk.kernel_of(k)],
@@ -2388,7 +2754,9 @@ def main() -> int:
                     library_ms=res[k].get("library_ms"),
                     on_main_path=k != "advect_diffuse_rhs",
                     flagship_launches=shaped_launches.get(k, 0),
-                    flagship=shaped["kernels"].get(k))
+                    flagship=shaped["kernels"].get(k),
+                    canonical_launches=canon_launches.get(k, 0),
+                    canonical=canon["kernels"].get(k))
                for k in hk.launches]
     print(f"main path summary: {json.dumps(runs)}")
     print(f"forest main path summary: {json.dumps(forest_runs)}")
@@ -2398,6 +2766,7 @@ def main() -> int:
     print(f"split wall-bounded main path summary: "
           f"{json.dumps(split_walled)}")
     print(f"flagship step summary: {json.dumps(shaped)}")
+    print(f"canonical shaped forest summary: {json.dumps(canon)}")
     print(f"total {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,8 +3,9 @@
 boundary table (``bc.py``; the case catalog ``cases.py``), the shaped
 uniform step with fish and disks, collisions and surface forces
 (``sim.Simulation``, the two-fish flagship step; the catalog's channel and
-towed cylinder), the obstacle-free adaptive forest step (``amr.AMRSim``)
-and the x-split sharded uniform step
+towed cylinder), the adaptive forest step with or without shapes
+(``amr.AMRSim``; with them the canonical two-fish run) and the x-split
+sharded uniform step
 (``parallel.mesh.ShardedUniformSim``), with hand-written Hopper kernels
 for the Heun substage, the projection correction, the Jacobi smoother
 chains (the three with boundary-table forms), the forest lab RHS, the

@@ -1,24 +1,41 @@
-"""Adaptive simulation on the block forest, obstacle-free: the counterpart
-of ``cup2d_tpu.amr.AMRSim`` (the reference's adapt(), main.cpp:4657-5440,
-and its hot loop, 6576-7290).
+"""Adaptive simulation on the block forest, with or without immersed
+obstacles: the counterpart of ``cup2d_tpu.amr.AMRSim`` (the reference's
+adapt(), main.cpp:4657-5440, and its hot loop, 6576-7290).
 
 host (numpy, per regrid)          device (torch, per step)
 -------------------------------   ---------------------------------------
-tagging decisions + 2:1 sweeps    vorticity tags (lab + reduction)
-slot alloc/release, SFC order     WENO5 Heun advection-diffusion over all
-halo gather-table rebuild           blocks (``fused_lab_rhs``), diffusive
-flux-correction rows                fluxes corrected at level interfaces
-two-level / FAS transfer maps     makeFlux variable-resolution pressure
+tagging decisions + 2:1 sweeps    vorticity + chi tags (lab + reduction)
+slot alloc/release, SFC order     SDF/udef rasterization of each shape's
+halo gather-table rebuild           window blocks, chi from the combined
+window block selection              sdf lab, integrals, udef de-meaning
+shape kinematics (models/)        WENO5 Heun advection-diffusion over all
+flux-correction rows                blocks (``fused_lab_rhs``), diffusive
+two-level / FAS transfer maps       fluxes corrected at level interfaces
+                                  rigid momentum solve, collisions,
+                                    implicit penalization (ops/obstacle,
+                                    ops/collision)
+                                  makeFlux variable-resolution pressure
                                     solve (BiCGSTAB with block-Jacobi and
                                     the two-level coarse correction, or
                                     the forest FAS hierarchy with
                                     ``fused_block_jacobi_update``)
+                                  surface forces per block (G = 4 labs)
                                   prolongation / restriction of regrids
 
 Tables and maps are built on the host once per regrid and moved to the
 device then, not once per step. The solvers are host loops reading one or
 two device flags per iteration (``poisson.bicgstab``/``mg_solve``), so
 they take the JAX loop's branches and match its iteration counts.
+
+With shapes (``make_shapes(cfg)`` when none are given), a step is the
+JAX package's megastep: rasterize, flow, the next dt from this step's
+umax and, every ``compute_forces_every`` steps, the force pass; then ONE
+stacked copy to the host (uvw, CoM, mass, inertia, the next dt, the
+diagnostics and the forces). An ``adapt()`` reads the fused tags once and
+``initialize()`` reads its all-zero check once. ``initialize()`` climbs
+from the coarsest grid toward the bodies, rasterizes and adapts up to
+levelMax rounds, then blends the initial velocity with the deformation
+velocity by chi.
 
 Device policy: ``AMRSim`` runs on ``cuda`` unless given ``device="cpu"``;
 without a card and without a device it raises. The card runs f32 state
@@ -32,17 +49,18 @@ Environment, latched once per sim as the reference does: ``CUP2D_POIS``
 trigger; fft: the two-level correction always on in its mg2 form;
 fas/fas-f: the forest FAS hierarchy as the production solver) and
 ``CUP2D_TWOLEVEL`` (additive|mult|mg2, forcing one two-level form). Not
-ported yet, and refused with a ValueError: ``CUP2D_POIS=tables``,
-``CUP2D_PREC=bf16`` (the bf16 FAS ladder legs) and shapes (the shaped
-step). ``fftd`` and non-free-slip boundary tables refuse as in the
-reference.
+ported yet, and refused with a ValueError: ``CUP2D_POIS=tables`` and
+``CUP2D_PREC=bf16`` (the bf16 FAS ladder legs; ROADMAP queue 1 item 7).
+``async_diag`` (item 5) and ``timers`` (item 9) refuse when set.
+``fftd`` and non-free-slip boundary tables refuse as in the reference.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Optional, Sequence
+import time
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -53,22 +71,48 @@ from .flux import (apply_flux_corr, build_flux_corr,
                    divergence_deposits, flux_corr, gradient_deposits,
                    poisson_apply_structured, poisson_op)
 from .forest import Forest
-from .halo import (_TopoIndex, assemble_labs, assemble_labs_ordered,
-                   build_face_copy, build_tables, lab_tables,
-                   make_fast_tables, pad_tables)
+from .halo import (_TopoIndex, _bucket, assemble_labs,
+                   assemble_labs_ordered, build_face_copy, build_tables,
+                   lab_tables, make_fast_tables, pad_tables)
+from .ops.collision import merged_overlap_integrals, \
+    pairwise_collision_update
+from .ops.forces import surface_forces_blocks
 from .ops.hopper_kernels import fused_block_jacobi_update, fused_lab_rhs
+from .ops.obstacle import (chi_from_sdf, midline_udef_packed, pack_midline,
+                           pack_polygon_segments, penalization_integrals,
+                           polygon_sdf_seg, shape_integrals,
+                           solve_rigid_momentum)
 from .ops.stencil import (divergence, dt_from_umax, heun_substage,
                           pressure_gradient_update, vorticity)
 from .poisson import (ForestFASCycle, _down2_mean, _up2_bilinear,
                       apply_block_precond_blocks, bicgstab,
                       block_precond_matrix, coarse_neumann_solve_dct,
                       dct_neumann_operators, mg_solve)
+from .shapes_host import ShapeHostMixin, pull
+from .sim import _pull_diag, make_shapes
 from .uniform import resolve_device
 
-__all__ = ["AMRSim", "multilevel_forest", "vortex_forest"]
+__all__ = ["AMRSim", "ObstacleForestFields", "multilevel_forest",
+           "vortex_forest"]
 
 _FREE_SLIP_TOKEN = "fs,fs,fs,fs"
 _QUAD = ((0, 0), (1, 0), (0, 1), (1, 1))   # child (I, J) order
+
+
+class ObstacleForestFields(NamedTuple):
+    """Per-step obstacle state on the forest, in the SFC-ordered block
+    layout (the reference's per-shape Obstacle blocks and global chi/tmp
+    grids, main.cpp:3283-3342). Vector fields are component-first, as the
+    penalization and collision operators index [0]/[1]."""
+
+    chi: torch.Tensor      # [N, BS, BS] combined (max over shapes)
+    sdf: torch.Tensor      # [N, BS, BS] combined signed distance
+    chi_s: torch.Tensor    # [S, N, BS, BS]
+    sdf_s: torch.Tensor    # [S, N, BS, BS]
+    udef_s: torch.Tensor   # [S, 2, N, BS, BS] de-meaned deformation vel
+    com: torch.Tensor      # [S, 2] chi-corrected centres of mass
+    mass: torch.Tensor     # [S]
+    inertia: torch.Tensor  # [S]
 
 
 def _tiles_img(entry, rp, bs: int):
@@ -92,8 +136,37 @@ def _extract_tiles(a, entry, e, bs: int):
     return e + tiles[tid] * selp[:, None, None]
 
 
-class AMRSim:
-    """Adaptive flow solver on the block forest, obstacle-free."""
+def _raster_neg(cfg) -> float:
+    """The "far outside" SDF sentinel of the window raster: -extent, which
+    fails the forces' surface-band gate own_sdf > -4h at every h."""
+    return -float(cfg.extent)
+
+
+def _window_sdf_udef(inp, bs: int, dtype):
+    """One shape's SDF and deformation velocity over its window blocks
+    ([P, BS, BS] and [2, P, BS, BS]) from the window-block origins and
+    spacings in ``inp`` and the packed body-frame tables (``seg``,
+    ``mid``; the CoM already subtracted on the host in f64)
+    (PutFishOnBlocks, main.cpp:3774-3990)."""
+    ar = torch.arange(bs, dtype=dtype, device=inp["wh"].device) + 0.5
+    wh = inp["wh"][:, None, None]
+    xw = inp["wx0"][:, None, None] + ar[None, None, :] * wh
+    yw = inp["wy0"][:, None, None] + ar[None, :, None] * wh
+    com = inp["com"]
+    px = xw - com[0]
+    py = yw - com[1]
+    d = polygon_sdf_seg(px, py, inp["seg"])
+    ud = midline_udef_packed(px, py, inp["mid"])
+    return d, ud
+
+
+# the float operands of one shape's window raster, in buffer order
+_RASTER_KEYS = ("wx0", "wy0", "wh", "seg", "mid", "com")
+
+
+class AMRSim(ShapeHostMixin):
+    """Adaptive flow solver on the block forest, with or without immersed
+    obstacles (the reference's only mode is with)."""
 
     def __init__(self, cfg: SimConfig, shapes: Optional[Sequence] = None,
                  bc=None, device=None):
@@ -129,17 +202,12 @@ class AMRSim:
                 "legs) is not ported yet; unset it")
         if prec != "f32":
             raise ValueError(f"CUP2D_PREC={prec!r}: expected f32|bf16")
-        if shapes is None:
-            shapes = cfg.parse_shapes()
-        if len(shapes):
-            raise ValueError(
-                f"shapes ({len(shapes)} given): the shaped forest step "
-                "(rasterization, penalization, collisions, forces) is not "
-                "ported yet; pass shapes=[]")
         self._pois_mode = pois
         self._twolevel_form = twolevel
-        self.shapes = []
         self.device = resolve_device(device)
+        if shapes is None:
+            shapes = make_shapes(cfg)
+        self.shapes = list(shapes)
         self.forest = Forest(cfg, self.device)
         self.dtype = self.forest.dtype
         if self.device.type == "cuda":
@@ -152,6 +220,8 @@ class AMRSim:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.forest.add_field("vel", 2)
         self.forest.add_field("pres", 1)
+        if self.shapes:
+            self.forest.add_field("chi", 1)
         self.time = 0.0
         self.step_count = 0
         self.p_inv = self._tensor(block_precond_matrix(cfg.bs))
@@ -173,13 +243,47 @@ class AMRSim:
         self._npad_floor = 128
         self._npad_quiet = 0
         self._coarse_cw = None
-        self._next_umax = None      # device scalar; survives regrids
+        # raster window capacity per shape (blocks), grown in powers of two
+        self._wcap = [16] * len(self.shapes)
+        self.compute_forces_every = 1   # 0 disables the diagnostics pass
+        self.force_log: Optional[object] = None  # file-like, CSV rows
+        # host seconds of each phase of the last shaped step
+        self.phase_seconds: dict = {}
+        # the shaped step's next dt (host float, from the previous step's
+        # umax on the device) and its topology version
+        self._next_dt = None
+        self._next_dt_version = -1
+        # end-state umax: a device scalar after an obstacle-free step, a
+        # host float after a shaped one; survives regrids
+        self._next_umax = None
         self._next_umax_version = -1
         # production two-level trigger: engaged when the last production
         # solve took > 15 iterations, kept until the next topology change
         self._last_iters = 0
         self._coarse_on = False
         self._force_exact = False
+
+    @property
+    def async_diag(self) -> bool:
+        return False
+
+    @async_diag.setter
+    def async_diag(self, on: bool) -> None:
+        if on:
+            raise NotImplementedError(
+                "async_diag (the lagged verdict) is not ported yet "
+                "(ROADMAP queue 1 item 5)")
+
+    @property
+    def timers(self):
+        return None
+
+    @timers.setter
+    def timers(self, value) -> None:
+        if value is not None:
+            raise NotImplementedError(
+                "timers (profiling.PhaseTimers) are not ported yet "
+                "(ROADMAP queue 1 item 9); read phase_seconds instead")
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).to(
@@ -242,6 +346,12 @@ class AMRSim:
             "vec1t": build_tables(f, self._order, 1, True, 2, topo=topo),
             "sca1t": build_tables(f, self._order, 1, True, 1, topo=topo),
         }
+        if self.shapes:
+            # chi tags (g = 4 scalar) and forces (g = 4 vector)
+            raw["sca4t"] = build_tables(f, self._order, 4, True, 1,
+                                        topo=topo)
+            raw["vec4t"] = build_tables(f, self._order, 4, True, 2,
+                                        topo=topo)
         fc = build_face_copy(f, self._order, n_pad, topo)
         self._tables = self._finalize_tables(raw, n_pad, fc)
         self._tables["pois"] = poisson_op(
@@ -265,9 +375,23 @@ class AMRSim:
         hp = np.concatenate([h, np.ones(n_pad - n_real)])
         hsqp = np.concatenate([h * h, np.zeros(n_pad - n_real)])
         self._h = self._tensor(hp.reshape(-1, 1, 1, 1))
+        self._h3 = self._tensor(hp.reshape(-1, 1, 1))
+        self._hflat = self._tensor(hp)
         self._hsq_flat = self._tensor(hsqp.reshape(-1, 1, 1))
         self._maskv = self._tensor(self._mask.reshape(-1, 1, 1, 1))
         self._order_j = self._index(order_p)
+        # cell centres per active block (f64 on the host, then the field
+        # dtype), for the obstacle operators
+        bs = f.bs
+        ar = np.arange(bs) + 0.5
+        x0 = f.bi[self._order].astype(np.float64) * bs * h
+        y0 = f.bj[self._order].astype(np.float64) * bs * h
+        xc = np.zeros((n_pad, bs, bs))
+        yc = np.zeros((n_pad, bs, bs))
+        xc[:n_real] = x0[:, None, None] + ar[None, None, :] * h[:, None, None]
+        yc[:n_real] = y0[:, None, None] + ar[None, :, None] * h[:, None, None]
+        self._xc = self._tensor(xc)
+        self._yc = self._tensor(yc)
         self._tables_version = f.version
 
     def _build_coarse_maps(self, n_pad: int, n_real: int):
@@ -350,10 +474,12 @@ class AMRSim:
             cw["crop"] = (crop[0], crop[2])   # window origin, coarse cells
         self._coarse_cw = cw
 
-    # the hot-loop table sets that take the same-level face-copy path;
+    # the hot-loop table sets that take the same-level face-copy path
+    # (the g = 4 tensorial sets of the chi tags and the force pass too);
     # vec1t/sca1t are regrid-only and stay plain. Non-tensorial g=1 sets
     # never fill lab corners, so their paint is face-only.
-    _FAST_SETS = {"vec3": True, "vec1": False, "sca1": False}
+    _FAST_SETS = {"vec3": True, "vec1": False, "sca1": False,
+                  "sca4t": True, "vec4t": True}
 
     def _finalize_tables(self, raw: dict, n_pad: int, fc) -> dict:
         out = {}
@@ -383,7 +509,8 @@ class AMRSim:
         if self._ord_key is not None and self._ord_key[0] == f.version \
                 and self._ord_key != key:
             # same topology, fields rewritten externally: the cached
-            # end-state umax describes the overwritten field
+            # end-state umax and next dt describe the overwritten field
+            self._next_dt = None
             self._next_umax = None
         self._ord = {name: fld[self._order_j]
                      for name, fld in f.fields.items()}
@@ -433,6 +560,7 @@ class AMRSim:
             f.fields[name] = out
         self._ord = None
         self._ord_key = None
+        self._next_dt = None
         self._next_umax = None
 
     # ------------------------------------------------------------------
@@ -455,9 +583,12 @@ class AMRSim:
         return v
 
     def _pressure_project(self, v, pres, dt, h, hsq, t1v, t1s, tpois,
-                          corr, tcoarse, exact_poisson, maskv):
+                          corr, tcoarse, exact_poisson, maskv,
+                          chi=None, udef_b=None):
         """deltap Poisson solve and projection (main.cpp:7007-7187) with
-        the flux-corrected divergence RHS and the makeFlux operator.
+        the flux-corrected divergence RHS and the makeFlux operator;
+        ``chi``/``udef_b`` ([N, BS, BS], [N, 2, BS, BS]) add the
+        -chi div(u_def) obstacle term and its flux deposits.
         Returns (v_new, p_new, res, div_linf)."""
         cfg = self.cfg
         ih2 = 1.0 / (h * h)
@@ -465,8 +596,12 @@ class AMRSim:
         vlab = assemble_labs_ordered(v, t1v)
         fac = 0.5 * h[:, 0] / dt
         b = fac * divergence(vlab, 1)
+        ulab = None
+        if udef_b is not None:
+            ulab = assemble_labs_ordered(udef_b, t1v)
+            b = b - fac * chi * divergence(ulab, 1)
         b = apply_flux_corr(
-            b, divergence_deposits(vlab, None, None, fac[:, 0, 0]), corr)
+            b, divergence_deposits(vlab, ulab, chi, fac[:, 0, 0]), corr)
         # max |div u| of the pre-projection velocity, from the RHS
         div_linf = torch.amax(
             torch.abs(b) * maskv[:, 0] * (dt / (h[:, 0] * h[:, 0])))
@@ -774,6 +909,236 @@ class AMRSim:
         w = vorticity(lab, 1, h[:, 0])             # [N, BS, BS]
         return torch.amax(torch.abs(w), dim=(-1, -2))
 
+    # ------------------------------------------------------------------
+    # device step with obstacles (the reference hot loop 6607-7187)
+    # ------------------------------------------------------------------
+    def _flow_impl(self, vel, pres, obs, prescribed, dt, h, hsq, maskv,
+                   xc, yc, t3, t1v, t1s, tpois, corr, tcoarse,
+                   exact_poisson=False):
+        """Advection, the rigid momentum solve per free shape, the
+        collision impulses, the implicit penalization and the projection
+        with the obstacle term. Returns (v, p_new, uvw [S, 3], diag); the
+        diagnostics stay on the device."""
+        cfg = self.cfg
+        S = len(self.shapes)
+        v = self._advect_rk2(vel, h, dt, t3, corr, maskv)
+        v_cf = v.transpose(0, 1)   # component-first [2, N, BS, BS]
+
+        # rigid momentum solve per shape (main.cpp:6643-6704)
+        uvw = []
+        for k in range(S):
+            if self.shapes[k].free:
+                xr = xc - obs.com[k, 0]
+                yr = yc - obs.com[k, 1]
+                sums = penalization_integrals(
+                    v_cf, obs.chi_s[k], obs.udef_s[k], xr, yr,
+                    cfg.lam * dt, hsq)
+                uvw.append(solve_rigid_momentum(*sums))
+            else:
+                uvw.append(prescribed[k])
+        uvw = torch.stack(uvw)
+
+        # shape-shape collisions (main.cpp:6705-6943): opponent-merged
+        # overlap integrals, then the pairwise impulses on the device
+        if S > 1:
+            colls = merged_overlap_integrals(
+                obs.chi_s, obs.sdf_s, obs.udef_s, uvw, obs.com, xc, yc)
+            lengths = self._tensor([s.length for s in self.shapes])
+            uvw = pairwise_collision_update(
+                colls, uvw, obs.mass, obs.inertia, obs.com, lengths)
+            # prescribed-motion shapes are immovable: restore them
+            for k in range(S):
+                if not self.shapes[k].free:
+                    uvw[k] = prescribed[k]
+
+        # implicit penalization update, the winner shape per cell (the
+        # first on a tie) (main.cpp:6944-6979)
+        win = torch.argmax(obs.chi_s, dim=0)
+        us = torch.zeros_like(v_cf)
+        for k in range(S):
+            xr = xc - obs.com[k, 0]
+            yr = yc - obs.com[k, 1]
+            usk = torch.stack([
+                uvw[k, 0] - uvw[k, 2] * yr + obs.udef_s[k, 0],
+                uvw[k, 1] + uvw[k, 2] * xr + obs.udef_s[k, 1],
+            ])
+            us = torch.where(win == k, usk, us)
+        alpha = torch.where(obs.chi > 0.5, 1.0 / (1.0 + cfg.lam * dt), 1.0)
+        v_cf = alpha * v_cf + (1.0 - alpha) * us
+        v = v_cf.transpose(0, 1)
+
+        udef = self._combined_udef(obs)  # [2, N, BS, BS]
+        v, p_new, res, div_linf = self._pressure_project(
+            v, pres, dt, h, hsq, t1v, t1s, tpois, corr, tcoarse,
+            exact_poisson, maskv, chi=obs.chi, udef_b=udef.transpose(0, 1))
+        diag = {
+            "poisson_iters": res.iters,
+            "poisson_residual": res.residual,
+            "poisson_stalled": res.stalled,
+            "poisson_converged": res.converged,
+            "finite": self._finite_flag(v, p_new, maskv),
+            "umax": torch.amax(torch.abs(v)),
+            "energy": self._energy(v, hsq),
+            "div_linf": div_linf,
+            "precond_cycles": self._precond_cycles(
+                res, tcoarse, exact_poisson),
+        }
+        return v, p_new, uvw, diag
+
+    def _megastep_impl(self, vel, pres, inputs, prescribed, dt, hmin, h,
+                       hsq, maskv, xc, yc, t3, t1v, t1s, tpois, t4v, t4s,
+                       corr, tcoarse, exact_poisson=False,
+                       with_forces=False):
+        """Rasterize, flow, the next dt from this step's end-state umax
+        (the arithmetic of ``compute_dt``) and, with ``with_forces``, the
+        force pass. Returns (vel, pres, chi [N, 1, BS, BS], scalars,
+        forces); scalars = (uvw, com, mass, inertia, dt_next, diag)."""
+        obs = self._rasterize_impl(inputs, xc, yc, h[:, 0], hsq, t1s)
+        vel, pres, uvw, diag = self._flow_impl(
+            vel, pres, obs, prescribed, dt, h, hsq, maskv, xc, yc, t3,
+            t1v, t1s, tpois, corr, tcoarse, exact_poisson=exact_poisson)
+        dt_next = self._dt_from_umax(diag["umax"], hmin)
+        forces = None
+        self._t_forces = time.perf_counter()   # phase_seconds' boundary
+        if with_forces:
+            forces = self._forces_impl(vel, pres, obs, uvw, t4v, t4s,
+                                       h[:, 0, 0, 0], xc, yc)
+        scalars = (uvw, obs.com, obs.mass, obs.inertia, dt_next, diag)
+        return vel, pres, obs.chi[:, None], scalars, forces
+
+    @staticmethod
+    def _combined_udef(obs: ObstacleForestFields) -> torch.Tensor:
+        """The deformation velocity of the pressure RHS and the initial
+        blend: the sum over shapes at cells where that shape's chi ties or
+        wins the combined chi (main.cpp:6980-7006; ties sum)."""
+        return torch.sum(
+            torch.where((obs.chi_s >= obs.chi)[:, None], obs.udef_s, 0.0),
+            dim=0)
+
+    # ------------------------------------------------------------------
+    # device: rasterization, chi, integrals (ongrid, main.cpp:4208-4630)
+    # ------------------------------------------------------------------
+    def _rasterize_impl(self, inputs, xc, yc, h3, hsq, t1s):
+        bs = self.cfg.bs
+        dtype = self.dtype
+        N = xc.shape[0]
+        S = len(self.shapes)
+
+        # per-shape window rasterization, scattered into block layout
+        sdf = torch.full((N, bs, bs), _raster_neg(self.cfg), dtype=dtype,
+                         device=xc.device)
+        per = []
+        for k in range(S):
+            inp = inputs[k]
+            sdf_k, udef_k, wm_k = self._window_raster(inp, N)
+            sdf = torch.maximum(sdf, sdf_k)
+            per.append((sdf_k, udef_k, wm_k, inp["com"]))
+
+        # chi from the COMBINED sdf lab at each block's own h
+        # (PutChiOnGrid, main.cpp:3911-3969)
+        slab = assemble_labs_ordered(sdf[:, None], t1s)[:, 0]
+        chi = torch.zeros((N, bs, bs), dtype=dtype, device=xc.device)
+        chi_s, sdf_s, udef_s = [], [], []
+        coms, masses, inertias = [], [], []
+        for k in range(S):
+            sdf_k, udef_k, wm_k, com = per[k]
+            chi_k = chi_from_sdf(slab, sdf_k, h3)
+
+            # CoM correction (main.cpp:4468-4487); zero-mass guard
+            m0 = torch.sum(chi_k * hsq)
+            dcx = torch.sum(chi_k * hsq * (xc - com[0]))
+            dcy = torch.sum(chi_k * hsq * (yc - com[1]))
+            safe = torch.where(m0 > 0, m0, 1.0)
+            com_n = com + torch.where(
+                m0 > 0, torch.stack([dcx, dcy]) / safe, 0.0)
+
+            # integrals and udef de-meaning (main.cpp:4488-4560), masked
+            # to the window blocks
+            xr = xc - com_n[0]
+            yr = yc - com_n[1]
+            _, _, m, j, iu, iv, ia = shape_integrals(
+                chi_k, udef_k, xr, yr, hsq)
+            corr = torch.stack([iu - ia * yr, iv + ia * xr])
+            ud = wm_k[None, :, None, None] * (udef_k - corr)
+
+            chi = torch.maximum(chi, chi_k)
+            chi_s.append(chi_k)
+            sdf_s.append(sdf_k)
+            udef_s.append(ud)
+            coms.append(com_n)
+            masses.append(m)
+            inertias.append(j)
+
+        return ObstacleForestFields(
+            chi=chi, sdf=sdf,
+            chi_s=torch.stack(chi_s), sdf_s=torch.stack(sdf_s),
+            udef_s=torch.stack(udef_s),
+            com=torch.stack(coms), mass=torch.stack(masses),
+            inertia=torch.stack(inertias))
+
+    def _window_raster(self, inp, N: int):
+        """SDF and deformation velocity of one shape over its window
+        blocks, written into the ordered block layout (the PutFishOnBlocks
+        gather form, main.cpp:3774-3990). Padding windows (pos = -1) all
+        go to row N of an [N + 1, ...] buffer, which is then dropped: row
+        N is written once per padding window, every time with the same
+        value (the sentinel, or 0), so the repeated destination is
+        deterministic on the card too; real windows are distinct blocks.
+        Returns (sdf [N, BS, BS], udef [2, N, BS, BS], window mask [N])."""
+        bs = self.cfg.bs
+        dtype = self.dtype
+        dev = inp["pos"].device
+        neg = _raster_neg(self.cfg)
+        pos = inp["pos"]                 # [P], -1 = padding
+        wmask = pos >= 0
+        d, ud = _window_sdf_udef(inp, bs, dtype)
+        spos = torch.where(wmask, pos, N)
+        wm3 = wmask[:, None, None]
+        sdf_k = torch.full((N + 1, bs, bs), neg, dtype=dtype, device=dev)
+        sdf_k.index_copy_(0, spos, torch.where(wm3, d, neg))
+        udef_k = torch.zeros((2, N + 1, bs, bs), dtype=dtype, device=dev)
+        udef_k.index_copy_(1, spos, torch.where(wm3[None], ud, 0.0))
+        wm_k = torch.zeros((N + 1,), dtype=dtype, device=dev)
+        wm_k.index_copy_(0, spos, wmask.to(dtype))
+        return sdf_k[:N], udef_k[:, :N], wm_k[:N]
+
+    # ------------------------------------------------------------------
+    # device: tags
+    # ------------------------------------------------------------------
+    def _chi_tag_impl(self, chi_o, t4s, finest):
+        """GradChiOnTmp (main.cpp:4631-4656): any positive chi in the
+        block's padded window forces refinement (offset 4 at the finest
+        level, where it only blocks compression, else 2). chi_o
+        [N, 1, BS, BS] ordered; finest [N] bool; returns [N] bool."""
+        lab = assemble_labs_ordered(chi_o, t4s)[:, 0]      # [N, L, L]
+        c = torch.clamp(lab, 0.0, 1.0)
+        has4 = torch.amax(c, dim=(-1, -2)) > 0.0
+        has2 = torch.amax(c[:, 2:-2, 2:-2], dim=(-1, -2)) > 0.0
+        return torch.where(finest, has4, has2)
+
+    def _tags_impl(self, vel, chi_o, h, t1v, t4s, finest):
+        """The refinement tags: the max of the vorticity Linf and the
+        GradChiOnTmp marker (2 Rtol where chi is present), the two
+        computeA passes of adapt() (main.cpp:4659-4661) in one."""
+        w = self._vorticity_impl(vel, h, t1v)
+        has = self._chi_tag_impl(chi_o, t4s, finest)
+        return torch.maximum(w, torch.where(has, 2.0 * self.cfg.rtol, 0.0))
+
+    # ------------------------------------------------------------------
+    # device: surface force diagnostics (main.cpp:7188-7284)
+    # ------------------------------------------------------------------
+    def _forces_impl(self, vel, pres, obs, uvw, t4v, t4s, hflat, xc, yc):
+        """The 19 force diagnostics per shape, each a batched pass over
+        every block's G = 4 labs (``surface_forces_blocks``)."""
+        velp = assemble_labs_ordered(vel, t4v)                 # [N,2,L,L]
+        chip = assemble_labs_ordered(obs.chi[:, None], t4s)[:, 0]
+        sdfp = assemble_labs_ordered(obs.sdf[:, None], t4s)[:, 0]
+        pord = pres[:, 0]
+        return [surface_forces_blocks(
+            velp, pord, chip, sdfp, obs.udef_s[k].transpose(0, 1),
+            obs.sdf_s[k], xc, yc, obs.com[k], uvw[k], self.cfg.nu, hflat,
+            G=4) for k in range(len(self.shapes))]
+
     def _prolong_impl(self, field, parents, order, t):
         """Parent blocks -> [R, 4, dim, BS, BS] children by the
         reference's 2nd-order Taylor prolongation (main.cpp:5002-5028),
@@ -802,6 +1167,205 @@ class AMRSim:
         return torch.stack([fine[..., :bs, :bs], fine[..., :bs, bs:],
                             fine[..., bs:, :bs], fine[..., bs:, bs:]],
                            dim=1)
+
+    # ------------------------------------------------------------------
+    # host: obstacle bookkeeping
+    # ------------------------------------------------------------------
+    def _shape_inputs(self) -> list:
+        """Per shape, the blocks intersecting its padded bounding box (the
+        reference's AreaSegment-AABB block intersection,
+        main.cpp:4208-4269) as window positions ``pos`` padded with -1 to
+        the shape's capacity, the window blocks' origins and spacings,
+        the packed body-frame segment and midline tables and the CoM. The
+        capacity grows in powers of two; every shape's float operands go
+        to the device in one copy, and the positions in another."""
+        cfg = self.cfg
+        f = self.forest
+        order = self._order
+        bs = cfg.bs
+        h = cfg.h0 / (1 << f.level[order]).astype(np.float64)
+        x0 = f.bi[order] * bs * h
+        y0 = f.bj[order] * bs * h
+        x1 = x0 + bs * h
+        y1 = y0 + bs * h
+        host, poss = [], []
+        for k, s in enumerate(self.shapes):
+            r = self._raster_radius(s)
+            cx, cy = s.com
+            hit = (x1 > cx - r) & (x0 < cx + r) \
+                & (y1 > cy - r) & (y0 < cy + r)
+            idx = np.nonzero(hit)[0]
+            if len(idx) > self._wcap[k]:
+                self._wcap[k] = max(
+                    16, 1 << int(np.ceil(np.log2(len(idx) * 1.3))))
+            pos = np.full(self._wcap[k], -1, np.int64)
+            pos[:len(idx)] = idx
+            wx0 = np.zeros(self._wcap[k])
+            wy0 = np.zeros(self._wcap[k])
+            wh = np.ones(self._wcap[k])
+            wx0[:len(idx)] = x0[idx]
+            wy0[:len(idx)] = y0[idx]
+            wh[:len(idx)] = h[idx]
+            mid_r, mid_v, mid_nor, mid_vnor = s.midline_comp_frame()
+            com = np.asarray(s.com, np.float64)
+            # the body-frame tables: the CoM subtracted here, in f64
+            seg = pack_polygon_segments(s.surface_polygon() - com)
+            mid = pack_midline(mid_r - com, mid_v, mid_nor, mid_vnor,
+                               s.width)
+            host.append(dict(zip(_RASTER_KEYS, (wx0, wy0, wh, seg, mid,
+                                                com))))
+            poss.append(pos)
+        if not host:
+            return []
+        buf = self._tensor(np.concatenate(
+            [np.asarray(a, np.float64).ravel() for arrays in host
+             for a in arrays.values()]))
+        pbuf = self._index(np.concatenate(poss))
+        out, at, pat = [], 0, 0
+        for arrays, pos in zip(host, poss):
+            inp = {}
+            for key, a in arrays.items():
+                a = np.asarray(a)
+                inp[key] = buf[at:at + a.size].view(a.shape)
+                at += a.size
+            inp["pos"] = pbuf[pat:pat + len(pos)]
+            pat += len(pos)
+            out.append(inp)
+        return out
+
+    def _rasterize(self) -> ObstacleForestFields:
+        self._refresh()
+        return self._rasterize_impl(
+            self._shape_inputs(), self._xc, self._yc, self._h3,
+            self._hsq_flat, self._tables["sca1"])
+
+    def _write_chi(self, obs: ObstacleForestFields):
+        """The real blocks' chi into the slot-layout field."""
+        f = self.forest
+        fld = f.fields["chi"].clone()
+        fld[self._index(self._order)] = obs.chi[:self._n_real, None]
+        f.fields["chi"] = fld
+
+    def _raster_radius(self, s) -> float:
+        """Half-extent of a shape's raster window (the AreaSegment AABB
+        padding, main.cpp:4237), for window selection and capacity."""
+        return 0.625 * s.length + 12.0 * self.cfg.min_h
+
+    @staticmethod
+    def _shape_bbox(s):
+        """Axis-aligned bbox of the shape's surface polygon (valid after
+        advect/midline)."""
+        poly = s.surface_polygon()
+        return poly.min(axis=0), poly.max(axis=0)
+
+    def _window_blocks_estimate(self, s) -> int:
+        """Finest-level blocks covering shape ``s``'s raster window."""
+        cfg = self.cfg
+        h_fin = cfg.h_at(cfg.level_max - 1)
+        r = self._raster_radius(s)
+        return int(np.ceil(2.0 * r / (cfg.bs * h_fin))) ** 2
+
+    def _body_blocks_estimate(self, s) -> int:
+        """Finest-level blocks of the chi-tag region around shape ``s``:
+        the bbox of its surface polygon padded by the tag's 4-cell ghost
+        window."""
+        cfg = self.cfg
+        bh = cfg.bs * cfg.h_at(cfg.level_max - 1)
+        pad = 8.0 * cfg.min_h
+        lo, hi = self._shape_bbox(s)
+        lb = int(np.ceil((float(hi[0] - lo[0]) + pad) / bh)) + 1
+        wb = int(np.ceil((float(hi[1] - lo[1]) + pad) / bh)) + 1
+        return lb * wb
+
+    def _estimate_blocks(self, coarse_start: bool) -> int:
+        """Estimate of the init climb's peak block count: from the
+        coarsest grid, background plus 2.5x each shape's body blocks;
+        from levelStart, the uniform levelStart grid on top."""
+        cfg = self.cfg
+        est = cfg.bpdx * cfg.bpdy
+        if not coarse_start:
+            est += cfg.bpdx * cfg.bpdy << (2 * cfg.level_start)
+        for s in self.shapes:
+            est += int(2.5 * self._body_blocks_estimate(s))
+        return est
+
+    def _refine_toward_shapes(self) -> bool:
+        """The init climb's bootstrap: refine every block below
+        level_max - 1 whose footprint, padded by the chi tag's 4-cell
+        window, meets a shape's bounding box (host geometry; works where
+        the body is thinner than a cell and chi is empty)."""
+        f = self.forest
+        cfg = self.cfg
+        self._refresh()
+        order = self._order
+        lv = f.level[order].astype(np.int64)
+        biv = f.bi[order].astype(np.int64)
+        bjv = f.bj[order].astype(np.int64)
+        h = cfg.h0 / (1 << lv).astype(np.float64)
+        bs = cfg.bs
+        pad = 8.0 * h   # 4 ghost cells x one-level-finer margin
+        x0 = biv * bs * h - pad
+        x1 = (biv + 1) * bs * h + pad
+        y0 = bjv * bs * h - pad
+        y1 = (bjv + 1) * bs * h + pad
+        hit = np.zeros(len(order), bool)
+        for s in self.shapes:
+            (bx0, by0), (bx1, by1) = self._shape_bbox(s)
+            hit |= (x1 > bx0) & (x0 < bx1) & (y1 > by0) & (y0 < by1)
+        st = np.where(hit & (lv < cfg.level_max - 1), 1, 0).astype(np.int8)
+        return self._commit_states(lv, biv, bjv, st)
+
+    def initialize(self):
+        """The reference's startup (main.cpp:6542-6575): when the fields
+        are all zero, climb from the coarsest grid toward the bodies;
+        then up to levelMax rounds of {rasterize; adapt}; then the
+        initial velocity u (1 - chi) + udef chi. The window capacities
+        and the padded block axis are sized from block estimates
+        first."""
+        if not self.shapes:
+            self._initialized = True
+            return
+        cfg = self.cfg
+        f = self.forest
+        for s in self.shapes:
+            s.advect(0.0, cfg.extents)
+            s.midline(0.0)
+        # one stacked read for every field
+        (nonzero,) = pull(torch.stack([torch.any(v != 0)
+                                       for v in f.fields.values()]))
+        allzero = not nonzero.any()
+        # ctol <= 0 disables compression: a climb from above would keep
+        # the levelStart background, so only then is the grid different
+        coarse = allzero and cfg.level_start > 0 and cfg.ctol > 0
+        self.reserve_blocks(self._estimate_blocks(coarse))
+        for k, s in enumerate(self.shapes):
+            want = int(2.6 * self._window_blocks_estimate(s)) + 16
+            self._wcap[k] = max(self._wcap[k], _bucket(want, lo=16))
+        if coarse:
+            for key in list(f.blocks):
+                f.release(*key)
+            for j in range(cfg.bpdy):
+                for i in range(cfg.bpdx):
+                    f.allocate(0, i, j)
+            for _ in range(cfg.level_max + 2):
+                if not self._refine_toward_shapes():
+                    break
+        for _ in range(cfg.level_max):
+            obs = self._rasterize()
+            self._write_chi(obs)
+            if not self.adapt():
+                break
+        obs = self._rasterize()
+        self._write_chi(obs)
+        self._sync_shape_scalars(obs)
+        vel = f.fields["vel"][self._order_j]
+        udef = self._combined_udef(obs).transpose(0, 1)
+        chi_b = obs.chi[:, None]
+        fld = f.fields["vel"].clone()
+        fld[self._index(self._order)] = \
+            (vel * (1.0 - chi_b) + udef * chi_b)[:self._n_real]
+        f.fields["vel"] = fld
+        self._initialized = True
 
     # ------------------------------------------------------------------
     # host driver
@@ -841,8 +1405,11 @@ class AMRSim:
         """One step: dt from the cached end-state umax of the previous
         step (x1.05 after a regrid, the prolongation-overshoot guard) or
         a fresh reduction; the reference's exact solves for the first 10
-        steps. Returns the step diagnostics as host values."""
+        steps. Returns the step diagnostics as host values, read in one
+        copy."""
         self._refresh()
+        if self.shapes:
+            return self._step_shaped(dt)
         f = self.forest
         ordf = self._ordered_state()
         if dt is None:
@@ -867,9 +1434,89 @@ class AMRSim:
             # exact-startup counts converge deeper with another M and
             # must not trip the production trigger
             self._last_iters = diag["poisson_iters"]
-        diag = {k: (v.item() if torch.is_tensor(v) else v)
-                for k, v in diag.items()}
+        diag, _ = _pull_diag(diag)
         diag["dt"] = float(dt)
+        self.time += dt
+        self.step_count += 1
+        return diag
+
+    def _step_shaped(self, dt: Optional[float]) -> dict:
+        """The shaped step (main.cpp:6576-7290): dt from the previous
+        step's device dt (capped by the gait), host kinematics, then the
+        megastep and the step's one read of the device. phase_seconds
+        holds its host seconds: "kinematics"; "megastep" (rasterize and
+        flow, ending at the solver's last flag read); "forces" (the force
+        pass, the step's one read, which waits for it, and the log)."""
+        f = self.forest
+        cfg = self.cfg
+        if not getattr(self, "_initialized", False):
+            self.initialize()
+            self._refresh()
+        # an external slot write drops the cached dt before it is used
+        self._ordered_state()
+        if dt is None:
+            if self._next_dt is not None \
+                    and self._next_dt_version == f.version:
+                dt = min(self._next_dt, self._kinematic_dt_cap())
+            elif self._next_umax is not None:
+                # after a regrid: the same water on a new grid; the 1.05
+                # factor bounds the prolongation's overshoot of umax
+                dt = min(float(self._dt_from_umax(
+                    torch.tensor(1.05 * float(self._next_umax),
+                                 dtype=self.dtype, device=self.device),
+                    self._hmin())), self._kinematic_dt_cap())
+            else:
+                dt = min(self.compute_dt(), self._kinematic_dt_cap())
+        t0 = time.perf_counter()
+
+        # ongrid host part (main.cpp:3992-4207)
+        for s in self.shapes:
+            s.advect(dt, cfg.extents)
+            s.midline(self.time)
+        t1 = time.perf_counter()
+        inputs = self._shape_inputs()
+        prescribed = self._tensor([[s.u, s.v, s.omega]
+                                   for s in self.shapes])
+        exact = self.step_count < 10 or self._force_exact
+        with_forces = bool(self.compute_forces_every
+                           and self.step_count % self.compute_forces_every
+                           == 0)
+        hmin = self._hmin()
+        ordf = self._ordered_state()
+        dt_dev = torch.tensor(dt, dtype=self.dtype, device=self.device)
+        tb = self._tables
+        vel, pres, chi_new, scalars, forces = self._megastep_impl(
+            ordf["vel"], ordf["pres"], inputs, prescribed, dt_dev, hmin,
+            self._h, self._hsq_flat, self._maskv, self._xc, self._yc,
+            tb["vec3"], tb["vec1"], tb["sca1"], tb["pois"], tb["vec4t"],
+            tb["sca4t"], self._corr, self._use_coarse(exact),
+            exact_poisson=exact, with_forces=with_forces)
+        t2 = self._t_forces
+        self._set_ordered(vel=vel, pres=pres, chi=chi_new)
+        uvw, com, mass, inertia, dt_next, diag = scalars
+        extra = [uvw, com, mass, inertia, dt_next]
+        if with_forces:
+            extra.append(self.stack_forces(forces))
+        # the one read of the step
+        diag, vals = _pull_diag(diag, *extra)
+        diag["dt"] = float(dt)
+        uvw_np, com_np, mass_np, inertia_np, dt_next_np = vals[:5]
+        self._sync_shape_scalars_np(com_np, mass_np, inertia_np)
+        for k, s in enumerate(self.shapes):
+            if s.free:
+                s.u, s.v, s.omega = (float(c) for c in uvw_np[k])
+        self._next_dt = float(dt_next_np)
+        self._next_dt_version = f.version
+        self._next_umax = float(diag["umax"])
+        self._next_umax_version = f.version
+        if not exact:
+            # the production two-level trigger, fed from this read
+            self._last_iters = int(diag["poisson_iters"])
+        if with_forces:
+            self._record_forces_np(vals[5])
+        t3 = time.perf_counter()
+        self.phase_seconds = {"kinematics": t1 - t0, "megastep": t2 - t1,
+                              "forces": t3 - t2}
         self.time += dt
         self.step_count += 1
         return diag
@@ -882,9 +1529,19 @@ class AMRSim:
         f = self.forest
         cfg = self.cfg
         ordf = self._ordered_state()
-        tags = self._vorticity_impl(
-            ordf["vel"], self._h, self._tables["vec1"]).cpu().numpy()
-        tags = tags[:self._n_real]
+        if self.shapes and "chi" in f.fields:
+            # the fused vorticity and chi tags, one read
+            finest = np.zeros(len(self._mask), bool)
+            finest[:self._n_real] = \
+                f.level[self._order] == cfg.level_max - 1
+            tags = self._tags_impl(
+                ordf["vel"], ordf["chi"], self._h, self._tables["vec1"],
+                self._tables["sca4t"],
+                torch.as_tensor(finest, device=self.device))
+        else:
+            tags = self._vorticity_impl(
+                ordf["vel"], self._h, self._tables["vec1"])
+        tags = tags.cpu().numpy()[:self._n_real]
         order = self._order
         # 1 = refine, -1 = compress, 0 = leave
         lv = f.level[order].astype(np.int64)

@@ -14,7 +14,9 @@ the obstacle fields of a shaped step (``sim.ObstacleFields``),
 ``copy_shape_state`` the host state of shape objects (the fish's midline
 and schedulers included) and ``copy_simulation_state`` all of a shaped
 Simulation's state, so that both packages' ``Simulation`` (or the port's on
-two devices) can go on from one state.
+two devices) can go on from one state; ``copy_amr_state`` does the same
+for an ``AMRSim`` (the forest, every field, chi included, the shapes, the
+clocks, the cached dt and the two-level trigger).
 """
 
 from __future__ import annotations
@@ -158,3 +160,57 @@ def copy_simulation_state(src, dst) -> None:
     dst.time, dst.step_count = src.time, src.step_count
     dst._next_dt = src._next_dt
     dst._initialized = getattr(src, "_initialized", False)
+
+
+def _host(v):
+    """A field or scalar of either package as numpy."""
+    if torch.is_tensor(v):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def copy_amr_state(src, dst) -> None:
+    """Give the port ``AMRSim`` ``dst`` the state of ``src``, an
+    ``AMRSim`` of either package with the same configuration and shapes:
+    the block keys and every slot-layout field (chi included), every
+    shape's host state, the clocks (time, step count), the cached next dt
+    and end-state umax (current for ``dst``'s topology exactly when they
+    were for ``src``'s), the initialized flag, the padding and raster
+    window capacities and the production two-level trigger, as if ``dst``
+    had made ``src``'s steps."""
+    if len(src.shapes) != len(dst.shapes):
+        raise ValueError(f"{len(src.shapes)} shapes into "
+                         f"{len(dst.shapes)}")
+    src.sync_fields()
+    sf = src.forest
+    dst.load_forest(dict(sf.blocks),
+                    {k: _host(v) for k, v in sf.fields.items()})
+    for a, b in zip(src.shapes, dst.shapes):
+        copy_shape_state(a, b)
+    dst.time, dst.step_count = src.time, src.step_count
+    dst._initialized = getattr(src, "_initialized", False)
+    dst._npad_hwm = src._npad_hwm
+    dst._npad_floor = src._npad_floor
+    dst._npad_quiet = src._npad_quiet
+    dst._wcap = list(src._wcap)
+    # the tables of the new topology first: their rebuild re-arms the
+    # trigger, which then takes src's state
+    dst._refresh()
+    current = src._tables_version == sf.version
+    dst._last_iters = int(src._last_iters) if current else 0
+    dst._coarse_on = bool(src._coarse_on) if current else False
+    df = dst.forest
+    nd = getattr(src, "_next_dt", None)
+    dst._next_dt = None if nd is None else float(nd)
+    dst._next_dt_version = (df.version if src._next_dt_version
+                            == sf.version else -1)
+    nu = src._next_umax
+    if nu is None:
+        dst._next_umax = None
+    elif dst.shapes:
+        dst._next_umax = float(_host(nu))
+    else:
+        dst._next_umax = torch.tensor(float(_host(nu)), dtype=dst.dtype,
+                                      device=dst.device)
+    dst._next_umax_version = (df.version if src._next_umax_version
+                              == sf.version else -1)

@@ -16,8 +16,12 @@ drops the ones past the lab edge with ``torch.where``, as the JAX package
 does with ``jnp.where``. JAX clamps an out-of-range gather index (after
 wrapping a negative one); torch would raise, and on the card assert, so
 every lab index goes through ``_jax_index`` first: the dropped values are
-the JAX package's, and nothing reads outside the lab. The forest's
-``surface_forces_blocks`` is not ported yet (ROADMAP queue 1 item 1(b)).
+the JAX package's, and nothing reads outside the lab.
+
+The forest's ``surface_forces_blocks`` runs the same core batched over a
+leading block axis (JAX ``vmap``s it): each block's indices are clamped
+inside its own lab, each block's partial sums are taken over its cells,
+then summed over the blocks.
 """
 
 from __future__ import annotations
@@ -47,25 +51,40 @@ def _jax_index(idx, n: int):
 
 def surface_forces_block(velp, pres, chip, sdfp, udef, own_sdf, xc, yc,
                          com, uvw, nu, h, G):
-    """Force reduction over ONE ghost-padded tile.
+    """Force reduction over ONE ghost-padded tile, or over a batch of
+    tiles with a leading axis [N, ...] (the forest's blocks).
 
-    velp: [2, L, L'] velocity lab; chip/sdfp: [L, L'] combined chi/sdf
-    labs; pres/own_sdf: [ny, nx] interiors; udef: [2, ny, nx] the shape's
-    own deformation velocity; xc/yc: [ny, nx] cell centres; h this tile's
-    spacing (a float). Returns the 18 sums (0-dim tensors); ``_finish``
-    adds PoutNew.
+    velp: [(N,) 2, L, L'] velocity lab; chip/sdfp: [(N,) L, L'] combined
+    chi/sdf labs; pres/own_sdf: [(N,) ny, nx] interiors; udef: [(N,) 2,
+    ny, nx] the shape's own deformation velocity; xc/yc: [(N,) ny, nx]
+    cell centres; h the tile's spacing (a float), or [N] per block.
+    Returns the 18 sums (0-dim tensors, or [N] per-block partial sums);
+    ``_finish`` adds PoutNew.
     """
-    ny, nx = pres.shape
+    ny, nx = pres.shape[-2:]
     ly, lx = chip.shape[-2:]
     dev = pres.device
     iy, ix = torch.meshgrid(torch.arange(ny, device=dev),
                             torch.arange(nx, device=dev), indexing="ij")
+    batched = pres.dim() == 3
+    if batched:
+        # each block gathers from its own lab: the block index leads
+        # every gather; component-first vectors as in the tile form
+        blk = (torch.arange(pres.shape[0], device=dev)[:, None, None],)
+        velp = velp.transpose(0, 1)
+        udef = udef.transpose(0, 1)
+        h = h[:, None, None]
+        cells = (-2, -1)
+    else:
+        blk = ()
+        cells = None
 
     def at_s(lab, yy, xx):
-        return lab[_jax_index(yy + G, ly), _jax_index(xx + G, lx)]
+        return lab[blk + (_jax_index(yy + G, ly), _jax_index(xx + G, lx))]
 
     def at_v(yy, xx):
-        return velp[:, _jax_index(yy + G, ly), _jax_index(xx + G, lx)]
+        return velp[(slice(None),) + blk
+                    + (_jax_index(yy + G, ly), _jax_index(xx + G, lx))]
 
     # --- surface detection (ComputeSurfaceNormals, main.cpp:3786-3810) ---
     grad_hx = at_s(chip, iy, ix + 1) - at_s(chip, iy, ix - 1)
@@ -169,7 +188,8 @@ def surface_forces_block(velp, pres, chip, sdfp, udef, own_sdf, xc, yc,
     pow_def = fxt * udef[0] + fyt * udef[1]
 
     def red(q):
-        return torch.sum(torch.where(mask, q, 0.0))
+        q = torch.where(mask, q, 0.0)
+        return torch.sum(q) if cells is None else torch.sum(q, dim=cells)
 
     return {
         "perimeter": red(nmag - _EPS),
@@ -197,6 +217,17 @@ def _finish(sums, uvw):
     out = dict(sums)
     out["PoutNew"] = out["forcex"] * uvw[0] + out["forcey"] * uvw[1]
     return out
+
+
+def surface_forces_blocks(velp, pres, chip, sdfp, udef, own_sdf, xc, yc,
+                          com, uvw, nu, h, G=4):
+    """Forest path: the core over [N] blocks at once (velp [N, 2, L, L],
+    labs [N, L, L], interiors [N, ...], udef [N, 2, BS, BS], h [N]; com,
+    uvw and nu shared), each block's partial sums then summed over the
+    blocks. Returns the 19 ``FORCE_KEYS`` as 0-dim tensors."""
+    per_block = surface_forces_block(velp, pres, chip, sdfp, udef, own_sdf,
+                                     xc, yc, com, uvw, nu, h, G)
+    return _finish({k: torch.sum(v) for k, v in per_block.items()}, uvw)
 
 
 def surface_forces(vel, pres, chi, sdf, udef, own_sdf, com, uvw, nu, h):

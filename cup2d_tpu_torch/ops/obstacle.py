@@ -14,14 +14,18 @@ kernels, so the port writes it as plain PyTorch: the same expressions in
 the same order, reduced in the field dtype. Window origins are host ints
 (``Simulation._shape_inputs`` clips them into the grid), so the window
 scatters are slices; like ``lax.dynamic_slice`` they clamp an origin that
-would put the window past the edge (after wrapping a negative one). The
-forest's packed forms (``pack_polygon_segments``, ``polygon_sdf_seg``,
-``pack_midline``, ``midline_udef_packed``) are not ported yet (ROADMAP
-queue 1 item 1(b)).
+would put the window past the edge (after wrapping a negative one).
+
+The forest evaluates the same geometry on host-packed tables
+(``pack_polygon_segments``: one [E, 6] row per polygon edge;
+``pack_midline``: one [Nm, 9] row per midline node), built in f64 numpy
+with the CoM already subtracted, then cast to the field dtype:
+``polygon_sdf_seg`` and ``midline_udef_packed`` read them on the device.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .stencil import shift
@@ -53,6 +57,67 @@ def polygon_sdf(px, py, poly):
     inside = (crossings % 2) == 1
     d = torch.sqrt(d2)
     return torch.where(inside, d, -d)
+
+
+def pack_polygon_segments(poly: np.ndarray) -> np.ndarray:
+    """polygon_sdf's per-edge quantities of the closed polygon ``poly``
+    [E, 2] as one [E, 6] table (ax, ay, ex, ey, 1/(|e|^2 + eps),
+    1/ey with ey = 0 read as 1). numpy f64 in and out; the caller casts
+    to the field dtype."""
+    ax, ay = poly[:, 0], poly[:, 1]
+    bx = np.roll(poly[:, 0], -1)
+    by = np.roll(poly[:, 1], -1)
+    ex, ey = bx - ax, by - ay
+    elen2 = ex * ex + ey * ey
+    inv_l2 = 1.0 / (elen2 + _EPS)
+    inv_ey = 1.0 / np.where(ey == 0, 1.0, ey)
+    return np.stack([ax, ay, ex, ey, inv_l2, inv_ey], axis=1)
+
+
+def polygon_sdf_seg(px, py, seg):
+    """polygon_sdf on a packed segment table (``pack_polygon_segments``):
+    the same geometry and sign, the divisions replaced by the packed
+    reciprocals. px, py [...]; seg [E, 6]; returns [...]."""
+    ax, ay = seg[:, 0], seg[:, 1]
+    ex, ey = seg[:, 2], seg[:, 3]
+    inv_l2, inv_ey = seg[:, 4], seg[:, 5]
+    pax = px[..., None] - ax
+    pay = py[..., None] - ay
+    t = torch.clamp((pax * ex + pay * ey) * inv_l2, 0.0, 1.0)
+    dx = pax - t * ex
+    dy = pay - t * ey
+    d2 = torch.amin(dx * dx + dy * dy, dim=-1)
+    cond = (ay > py[..., None]) != ((ay + ey) > py[..., None])
+    xint = ax + (py[..., None] - ay) * ex * inv_ey
+    crossings = torch.sum(cond & (px[..., None] < xint), dim=-1)
+    inside = (crossings % 2) == 1
+    d = torch.sqrt(d2)
+    return torch.where(inside, d, -d)
+
+
+def pack_midline(mid_r, mid_v, mid_nor, mid_vnor, width) -> np.ndarray:
+    """The midline's per-node fields as one [Nm, 9] table (rx, ry, vx, vy,
+    nx, ny, vnx, vny, width), so that the nearest-node lookup is one
+    gather. numpy in and out."""
+    return np.concatenate([
+        np.asarray(mid_r), np.asarray(mid_v), np.asarray(mid_nor),
+        np.asarray(mid_vnor), np.asarray(width)[:, None]], axis=1)
+
+
+def midline_udef_packed(px, py, mid):
+    """midline_udef on a packed [Nm, 9] node table (``pack_midline``): the
+    nearest node (the first on a tie, as ``jnp.argmin``), then one
+    gather. Returns [2, ...]."""
+    dx = px[..., None] - mid[:, 0]
+    dy = py[..., None] - mid[:, 1]
+    i = torch.argmin(dx * dx + dy * dy, dim=-1)
+    m = mid[i]                                   # [..., 9]
+    w = torch.minimum(torch.maximum((px - m[..., 0]) * m[..., 4]
+                                    + (py - m[..., 1]) * m[..., 5],
+                                    -m[..., 8]), m[..., 8])
+    ux = m[..., 2] + w * m[..., 6]
+    uy = m[..., 3] + w * m[..., 7]
+    return torch.stack([ux, uy], dim=0)
 
 
 def midline_udef(px, py, mid_r, mid_v, mid_nor, mid_vnor, width):

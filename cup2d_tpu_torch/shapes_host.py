@@ -62,12 +62,20 @@ class ShapeHostMixin:
     def force_log_header() -> str:
         return ",".join(["time", "shape"] + list(FORCE_KEYS))
 
+    @staticmethod
+    def stack_forces(results) -> torch.Tensor:
+        """The per-shape force dicts as one [S, 19] tensor, ``FORCE_KEYS``
+        order."""
+        return torch.stack([torch.stack([r[key] for key in FORCE_KEYS])
+                            for r in results])
+
     def _record_forces(self, results):
         """Store the 19 diagnostics on each shape and append the CSV rows;
         the S x 19 device scalars come over in one copy."""
-        (vals,) = pull(torch.stack([torch.stack([r[key] for key in
-                                                 FORCE_KEYS])
-                                    for r in results]))
+        self._record_forces_np(pull(self.stack_forces(results))[0])
+
+    def _record_forces_np(self, vals):
+        """Same, from the [S, 19] host array."""
         for k, s in enumerate(self.shapes):
             s.forces = {key: float(vals[k, i])
                         for i, key in enumerate(FORCE_KEYS)}

@@ -9,8 +9,8 @@
   equal block key sets after every adapt.
 * The production two-level trigger (iters > 15) on the multilevel forest
   engages at the same step as in JAX, with equal iteration counts.
-* The device policy, and a ValueError for every latch value and for
-  shapes that the port does not take."""
+* The device policy, and a ValueError for every latch value that the port
+  does not take; a shaped sim builds and steps."""
 
 import dataclasses
 
@@ -219,11 +219,25 @@ def test_latches_accepted(monkeypatch, pois, twolevel, mode):
 
 
 def test_shapes_refuse():
-    with pytest.raises(ValueError, match="shaped forest step"):
-        TSim(_vortex_cfg(), shapes=[object()], device="cpu")
-    cfg = _vortex_cfg(shapes="angle=0 L=0.2 xpos=0.5 ypos=0.5")
-    with pytest.raises(ValueError, match="shaped forest step"):
-        TSim(cfg, device="cpu")
+    """Shapes no longer refuse: a shaped ``AMRSim`` (from the shapes given,
+    or from the config's -shapes string) builds on the CPU and steps, its
+    forces logged. What stays unported with it refuses: the lagged
+    verdict (``async_diag``, queue 1 item 5) and the phase timers
+    (``timers``, item 9)."""
+    from cup2d_tpu_torch.models import DiskShape
+    cfg = _vortex_cfg(shapes="angle=0 L=0.2 xpos=0.5 ypos=0.5",
+                      level_max=3, lam=1e6)
+    ts = TSim(cfg, device="cpu")
+    assert len(ts.shapes) == 1 and "chi" in ts.forest.fields
+    ts = TSim(_vortex_cfg(level_max=3, lam=1e6),
+              shapes=[DiskShape(0.1, 0.5, 0.5)], device="cpu")
+    d = ts.step_once()
+    assert d["finite"] and ts.step_count == 1 and ts._initialized
+    assert set(ts.shapes[0].forces) >= {"forcex", "perimeter"}
+    with pytest.raises(NotImplementedError, match="item 5"):
+        ts.async_diag = True
+    with pytest.raises(NotImplementedError, match="item 9"):
+        ts.timers = object()
     assert TSim(_vortex_cfg(), device="cpu").shapes == []
 
 

@@ -39,7 +39,10 @@ per-slab kernel over an exchange and the chain kernel's single sweep bit
 for bit, whatever the slabs' widths and alignment, holds its twin to the
 chain's bars, and refuses an output that overlaps a slab it reads; the
 face-sharing lab RHS holds its twin on adversarial winds and gives the
-same bits from labs off the 16-byte grid."""
+same bits from labs off the 16-byte grid. The shaped forest: a disk forest
+on the card follows the CPU to 1e-4 relative from one carried state; the
+window raster's dropped padding row repeats bit for bit; the batched force
+pass indexes past every block's lab without a device-side assert."""
 
 import numpy as np
 import pytest
@@ -961,6 +964,135 @@ def test_force_gathers_past_the_lab_on_the_card(cuda):
     for dev in (cuda, "cpu"):
         t = [torch.tensor(a, dtype=torch.float32, device=dev) for a in args]
         outs.append(tf.surface_forces_block(*t, 1e-3, h, G))
+    torch.cuda.synchronize()
+    for k, v in outs[1].items():
+        assert abs(float(outs[0][k]) - float(v)) <= 1e-4 * max(
+            abs(float(v)), 1.0), k
+
+
+@pytest.mark.parametrize("pois", ["", "fas"])
+def test_disk_forest_on_the_card_matches_cpu(cuda, monkeypatch, pois):
+    """A free disk in a Taylor-Green forest at levelMax 3, f32: the card's
+    state after ``initialize()`` and its 10 exact startup steps carried to
+    the CPU (``convert.copy_amr_state``), then 5 production steps on both
+    with an ``adapt()`` after the second: equal block keys and
+    iterations, velocity and the disk's (u, v, omega) within 1e-4
+    relative, forces on. Two lab-RHS launches a step on the card,
+    block-Jacobi updates under fas only, no uniform kernel."""
+    from cup2d_tpu_torch.amr import AMRSim
+    from cup2d_tpu_torch.convert import copy_amr_state
+    from cup2d_tpu_torch.models import DiskShape
+    if pois:
+        monkeypatch.setenv("CUP2D_POIS", pois)
+    cfg = SimConfig(bpdx=2, bpdy=1, level_max=3, level_start=1, extent=1.0,
+                    dtype="float32", nu=1e-3, lam=1e6, rtol=2.0, ctol=1.0)
+    card, cpu = (AMRSim(cfg, shapes=[DiskShape(0.08, 0.55, 0.25)],
+                        device=d) for d in (cuda, "cpu"))
+    card.initialize()
+    f = card.forest
+    vel = card.fields()["vel"].cpu().numpy().copy()
+    bs = cfg.bs
+    for s in f.order():
+        h = cfg.h_at(int(f.level[s]))
+        x = (int(f.bi[s]) * bs + np.arange(bs) + 0.5) * h
+        y = (int(f.bj[s]) * bs + np.arange(bs) + 0.5) * h
+        X, Y = np.meshgrid(x, y, indexing="xy")
+        vel[s, 0] = 0.2 * np.sin(np.pi * X) * np.cos(np.pi * Y)
+        vel[s, 1] = -0.2 * np.cos(np.pi * X) * np.sin(np.pi * Y)
+    f.fields["vel"] = torch.tensor(vel, device=cuda)
+    hk.reset_launches()
+    for _ in range(10):
+        card.step_once()
+    copy_amr_state(card, cpu)
+    for k in range(5):
+        if k == 2:
+            assert card.adapt() == cpu.adapt()
+            assert set(card.forest.blocks) == set(cpu.forest.blocks)
+        assert card.step_once()["poisson_iters"] == \
+            cpu.step_once()["poisson_iters"]
+    idx = [torch.as_tensor(s.forest.order(), dtype=torch.long,
+                           device=s.device) for s in (card, cpu)]
+    a = card.fields()["vel"][idx[0]].cpu()
+    b = cpu.fields()["vel"][idx[1]]
+    assert bool(torch.isfinite(a).all())
+    assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+    p, q = card.shapes[0], cpu.shapes[0]
+    up, uq = np.array([p.u, p.v, p.omega]), np.array([q.u, q.v, q.omega])
+    assert np.abs(up - uq).max() <= 1e-4 * max(np.abs(uq).max(), 1e-3)
+    assert abs(p.forces["forcex"] - q.forces["forcex"]) <= 1e-3 * max(
+        abs(q.forces["forcex"]), 1e-3)
+    assert hk.launches["fused_lab_rhs"] == 2 * 15
+    assert (hk.launches["fused_block_jacobi_update"] > 0) == (pois == "fas")
+    for k in ("fused_advect_heun", "fused_correction", "fused_jacobi_sweeps",
+              "advect_substage_halo", "jacobi_halo_sweep"):
+        assert hk.launches[k] == 0, k
+
+
+def test_window_raster_padding_row_is_repeatable_on_the_card(cuda):
+    """The window raster writes every padding window to the same dropped
+    row N (an index copy with a repeated destination, each time the same
+    value): two runs give the same bits, and the CPU's values."""
+    from cup2d_tpu_torch.amr import AMRSim
+    from cup2d_tpu_torch.models import DiskShape
+    cfg = SimConfig(bpdx=2, bpdy=1, level_max=3, level_start=1, extent=1.0,
+                    dtype="float32", nu=4e-5, lam=1e6, rtol=2.0, ctol=1.0)
+    outs = []
+    for dev in (cuda, cuda, "cpu"):
+        sim = AMRSim(cfg, shapes=[DiskShape(0.08, 0.55, 0.25)], device=dev)
+        sim.initialize()
+        sim._wcap = [256]                      # >= 200 padding windows
+        inp = sim._shape_inputs()[0]
+        assert int((inp["pos"] < 0).sum()) > 200
+        outs.append([x.cpu() for x in sim._window_raster(inp,
+                                                          sim._npad_hwm)])
+    for x, y in zip(outs[0], outs[1]):
+        assert torch.equal(x, y)
+    for x, y in zip(outs[0], outs[2]):
+        assert float((x - y).abs().max()) <= 1e-6 * max(
+            float(y.abs().max()), 1.0)
+
+
+def test_surface_forces_blocks_past_the_lab_on_the_card(cuda):
+    """The forest's batched force pass over [N] G = 4 labs whose body
+    crosses block edges and runs off the field's corner: probes and
+    stencils index past each block's lab. The indices clamp per block, so
+    the card raises no device-side assert, and it agrees with the CPU."""
+    from cup2d_tpu_torch.ops import forces as tf
+    G, bs, ny, nx = 4, 8, 16, 24
+    h = 1.0 / ny
+    X, Y = np.meshgrid((np.arange(nx) + 0.5) * h, (np.arange(ny) + 0.5) * h)
+    own = 0.45 - np.hypot(X - 0.05, Y - 0.95)
+    chi = np.clip(0.5 + own / (2 * h), 0.0, 1.0)
+    rng = np.random.default_rng(72)
+    vel = rng.standard_normal((2, ny, nx))
+    pad = ((G, G), (G, G))
+    velp = np.stack([np.pad(vel[c], pad, mode="edge") for c in range(2)])
+    chip, sdfp = np.pad(chi, pad, mode="edge"), np.pad(own, pad, mode="edge")
+    pres = rng.standard_normal((ny, nx))
+    udef = 0.1 * rng.standard_normal((2, ny, nx))
+    blocks = [(j, i) for j in range(ny // bs) for i in range(nx // bs)]
+
+    def lab(a, j, i):
+        return a[..., j * bs:j * bs + bs + 2 * G, i * bs:i * bs + bs + 2 * G]
+
+    def tile(a, j, i):
+        return a[..., j * bs:(j + 1) * bs, i * bs:(i + 1) * bs]
+    args = [np.stack([lab(velp, *b) for b in blocks]),
+            np.stack([tile(pres, *b) for b in blocks]),
+            np.stack([lab(chip, *b) for b in blocks]),
+            np.stack([lab(sdfp, *b) for b in blocks]),
+            np.stack([tile(udef, *b) for b in blocks]),
+            np.stack([tile(own, *b) for b in blocks]),
+            np.stack([tile(X, *b) for b in blocks]),
+            np.stack([tile(Y, *b) for b in blocks]),
+            np.array([0.05, 0.95]), np.array([0.3, -0.1, 0.7])]
+    hb = h * (1.0 + (np.arange(len(blocks)) % 2))
+    outs = []
+    for dev in (cuda, "cpu"):
+        t = [torch.tensor(a, dtype=torch.float32, device=dev) for a in args]
+        outs.append(tf.surface_forces_blocks(
+            *t[:8], t[8], t[9], 1e-3,
+            torch.tensor(hb, dtype=torch.float32, device=dev), G=G))
     torch.cuda.synchronize()
     for k, v in outs[1].items():
         assert abs(float(outs[0][k]) - float(v)) <= 1e-4 * max(

@@ -7,7 +7,10 @@ expressions; only the order of the reductions can differ). The models'
 host state is held bit for bit after 20 advect/midline calls. Also: the
 window scatters' clamp, the first-index rule of argmin/argmax on a tie,
 the sum on ties of the combined udef, and the force pass's clamped
-gathers where the probe walk and its stencils reach past the lab."""
+gathers where the probe walk and its stencils reach past the lab. The
+forest's packed forms (the segment and midline tables, their SDF and
+udef, a midline tie) and its batched force pass (``surface_forces_blocks``
+at G = 4 with a per-block h), at the same bar."""
 
 import numpy as np
 import pytest
@@ -181,6 +184,60 @@ def test_midline_udef_tie_takes_the_first_node():
                           _t(vnor), _t(width))
     ref = jo.midline_udef(*map(jnp.asarray, (px, py, mid_r, mid_v, nor,
                                              vnor, width)))
+    _close(ref, got, bar=0.0)
+    w = np.clip(py, -0.3, 0.3)
+    assert np.array_equal(got.numpy(), np.stack([1.0 + 0.5 * w,
+                                                 2.0 + 0.0 * w]))
+
+
+@pytest.mark.parametrize("kind", ["fish", "disk"])
+def test_packed_polygon_sdf(kind):
+    """The forest's packed form: the [E, 6] table equal to JAX's (both f64
+    numpy), the SDF from it <= 1e-12, in a body frame (CoM subtracted)."""
+    s = _fish(JFish) if kind == "fish" else JDisk(0.1, 1.0, 0.9)
+    com = np.asarray(s.com, np.float64)
+    poly = s.surface_polygon() - com
+    seg = to.pack_polygon_segments(poly)
+    assert np.array_equal(seg, jo.pack_polygon_segments(poly))
+    rng = _rng(11)
+    px = 0.15 * rng.standard_normal((6, 8, 8))
+    py = 0.15 * rng.standard_normal((6, 8, 8))
+    _close(jo.polygon_sdf_seg(jnp.asarray(px), jnp.asarray(py),
+                              jnp.asarray(seg)),
+           to.polygon_sdf_seg(_t(px), _t(py), _t(seg)))
+    # on vertices and at a horizontal edge's height
+    _close(jo.polygon_sdf_seg(jnp.asarray(poly[:, 0]),
+                              jnp.asarray(poly[:, 1]), jnp.asarray(seg)),
+           to.polygon_sdf_seg(_t(poly[:, 0]), _t(poly[:, 1]), _t(seg)))
+
+
+def test_packed_midline_udef():
+    f = _fish(JFish)
+    mid_r, mid_v, mid_nor, mid_vnor = f.midline_comp_frame()
+    com = np.asarray(f.com, np.float64)
+    mid = to.pack_midline(mid_r - com, mid_v, mid_nor, mid_vnor, f.width)
+    assert np.array_equal(mid, jo.pack_midline(mid_r - com, mid_v, mid_nor,
+                                               mid_vnor, f.width))
+    rng = _rng(12)
+    px = 0.1 * rng.standard_normal((5, 8, 8))
+    py = 0.1 * rng.standard_normal((5, 8, 8))
+    _close(jo.midline_udef_packed(jnp.asarray(px), jnp.asarray(py),
+                                  jnp.asarray(mid)),
+           to.midline_udef_packed(_t(px), _t(py), _t(mid)))
+
+
+def test_packed_midline_udef_tie_takes_the_first_node():
+    mid = to.pack_midline(
+        np.array([[-1.0, 0.0], [1.0, 0.0], [5.0, 5.0]]),
+        np.array([[1.0, 2.0], [3.0, 4.0], [9.0, 9.0]]),
+        np.array([[0.0, 1.0], [0.0, 1.0], [1.0, 0.0]]),
+        np.array([[0.5, 0.0], [0.0, 0.5], [0.0, 0.0]]),
+        np.array([0.3, 0.3, 0.3]))
+    px = np.zeros(5)
+    py = np.array([-1.0, -0.1, 0.0, 0.2, 2.0])
+    got = to.midline_udef_packed(_t(px), _t(py), _t(mid))
+    ref = jo.midline_udef_packed(jnp.asarray(px), jnp.asarray(py),
+                                 jnp.asarray(mid))
     _close(ref, got, bar=0.0)
     w = np.clip(py, -0.3, 0.3)
     assert np.array_equal(got.numpy(), np.stack([1.0 + 0.5 * w,
@@ -403,6 +460,57 @@ def test_surface_forces_block_clamps_out_of_range_gathers(G):
     got = tf.surface_forces_block(*map(_t, args), 1e-3, h, G)
     for k in ref:
         _close(ref[k], got[k], rel=True)
+
+
+def test_surface_forces_blocks_g4():
+    """The forest form: [N] blocks with G = 4 labs cut from one field, a
+    per-block h (alternate blocks twice as coarse) and a body across
+    several blocks, so that probes reach the lab edge and stencils index
+    past it; summed over the blocks <= 1e-12 relative to JAX's vmap."""
+    G, bs = 4, 8
+    vel, pres, chi, sdf, udef, own, com, h = _force_fields(
+        ny=24, nx=32, cx=0.45, cy=0.55, r=0.3)
+    pad = ((G, G), (G, G))
+    velp = np.stack([np.pad(vel[c], pad, mode="edge") for c in range(2)])
+    chip = np.pad(chi, pad, mode="edge")
+    sdfp = np.pad(sdf, pad, mode="edge")
+    ny, nx = pres.shape
+    iy, ix = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    xg, yg = (ix + 0.5) * h, (iy + 0.5) * h
+    blocks = [(j, i) for j in range(ny // bs) for i in range(nx // bs)]
+
+    def lab(a, j, i):
+        return a[..., j * bs:j * bs + bs + 2 * G, i * bs:i * bs + bs + 2 * G]
+
+    def tile(a, j, i):
+        return a[..., j * bs:(j + 1) * bs, i * bs:(i + 1) * bs]
+
+    args = (np.stack([lab(velp, j, i) for j, i in blocks]),
+            np.stack([tile(pres, j, i) for j, i in blocks]),
+            np.stack([lab(chip, j, i) for j, i in blocks]),
+            np.stack([lab(sdfp, j, i) for j, i in blocks]),
+            np.stack([tile(udef, j, i) for j, i in blocks]),
+            np.stack([tile(own, j, i) for j, i in blocks]),
+            np.stack([tile(xg, j, i) for j, i in blocks]),
+            np.stack([tile(yg, j, i) for j, i in blocks]))
+    hb = h * (1.0 + (np.arange(len(blocks)) % 2))
+    uvw = np.array([0.3, -0.1, 0.7])
+    ref = jf.surface_forces_blocks(*map(jnp.asarray, args),
+                                   jnp.asarray(com), jnp.asarray(uvw), 1e-3,
+                                   jnp.asarray(hb), G=G)
+    got = tf.surface_forces_blocks(*map(_t, args), _t(com), _t(uvw), 1e-3,
+                                   _t(hb), G=G)
+    assert set(got) == set(ref) == set(tf.FORCE_KEYS)
+    for k in tf.FORCE_KEYS:
+        assert got[k].dim() == 0
+        _close(ref[k], got[k], rel=True)
+    assert float(got["perimeter"]) > 0
+    # the surface crosses block edges: probes walk to the lab edge
+    surf = (np.abs(own) < 2 * h)
+    edge = np.zeros_like(surf)
+    edge[:, ::bs] = edge[:, bs - 1::bs] = True
+    edge[::bs, :] = edge[bs - 1::bs, :] = True
+    assert (surf & edge).sum() > 10
 
 
 # ---------------------------------------------------------------------------

@@ -195,17 +195,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "cup2d_tpu_torch.kernel_ab, cup2d_tpu_torch.ops.timing, "
             "cup2d_tpu_torch.sim, cup2d_tpu_torch.models, "
             "cup2d_tpu_torch.ops.obstacle, cup2d_tpu_torch.ops.collision, "
-            "cup2d_tpu_torch.ops.forces, cup2d_tpu_torch.shapes_host; "
+            "cup2d_tpu_torch.ops.forces, cup2d_tpu_torch.shapes_host, "
+            "cup2d_tpu_torch.halo, cup2d_tpu_torch.flux, "
+            "cup2d_tpu_torch.forest, cup2d_tpu_torch.poisson, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'cup2d_tpu' "
-            "or m.startswith('cup2d_tpu.')]; print(bad)")
+            "or m.startswith('cup2d_tpu.') or m == 'validation' "
+            "or m.startswith('validation.')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
     pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
                      r"import\s+cup2d_tpu(?!_torch)\b|"
-                     r"from\s+cup2d_tpu(?!_torch)\b)", re.M)
+                     r"from\s+cup2d_tpu(?!_torch)\b|"
+                     r"import\s+validation\b|from\s+validation\b)", re.M)
     files = [os.path.join(d, f)
              for d, _, fs in os.walk(os.path.join(REPO, "cup2d_tpu_torch"))
              for f in fs if f.endswith(".py")]
