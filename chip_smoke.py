@@ -7,9 +7,9 @@ NVIDIA card. Run from the repository root with no arguments:
 Phases, one output line or more each; any failure exits non-zero before
 the result lines:
 
-1. build the eight Hopper kernels from ``cup2d_tpu_torch/ops/csrc`` (one
-   ``nvcc`` per source, in parallel) and print the card and every
-   instance's registers and spills;
+1. build the nine Hopper kernel sources from ``cup2d_tpu_torch/ops/csrc``
+   (one ``nvcc`` per source, in parallel; ``tridiag.cu`` among them) and
+   print the card and every instance's registers and spills;
 2. each kernel against its plain PyTorch twin on the card, f32, with the
    bounds stated below (the forest lab RHS per h class, at the path's nu
    and at a diffusion-dominated nu = 1; at 128, 10,529 (the forest main
@@ -196,6 +196,30 @@ the result lines:
    validation/golden_collision.py at f32 (body 0's u flips from > 0.1 to
    < -0.01 across steps 0 -> 1; the largest difference from
    tests/golden_collision.json printed).
+13. the periodic tables and the FFT direct solve: the wrap forms of
+   kernels 2, 5 and 6 against their twins at 8192^2 on the doubly-periodic
+   box and the periodic channel (pd,pd,ns,ns): the substage pair on the
+   benchmark velocity <= 2e-6 relative, the correction <= 5e-6, the chain
+   at n = 2 and the 24-sweep chain on an 8^2 level <= 2e-6 relative; the
+   batched Thomas scans (``tridiag.cu``) at [1, 8192, 4097] on the
+   channel's plan and its own cold right-hand side, <= 2e-6 relative (its
+   ulps printed), beside the rfft + irfft pair around it; each with kernel
+   and twin ms and its bound. Then the main path: ``cases.make_sim(
+   "tgv_periodic")`` at level 10 (8192^2, f32) under the default solver,
+   fas and fftd, 3 startup and 5 production steps each, and the periodic
+   channel at 8192^2 from the benchmark velocity (dt = h/2, production)
+   under fftd and fas, a warm-up and 3 timed steps: ms per step,
+   iterations, launches per form from 0, every launch of kernels 2, 5 and
+   6 a wrap form (``+pd``), the Thomas scans on the channel under fftd
+   only, ``kernel_tier`` ``hopper+bc(pd,pd,pd,pd)``, and no plain twin
+   called on the card's f32 operands; bench.py's fftd_periodic and
+   fftd_channel arms (one cold mean-free RHS at 8192^2, converged at the
+   production criterion, 1e-3 and 1e-2 relative) under fftd (one
+   iteration) and the FAS V and F cycles, ms per solve and fftd's over
+   the best FAS arm's; tgv_periodic at 128^2 on the
+   card and on the CPU, 10 production steps under fftd and fas (equal
+   iterations, velocity within 1e-4 relative); and its KE decay at 128^2
+   f32 under fftd to t = 0.1, within 1% of exp(-4 nu k^2 t).
 
 Then one JSON line of per-kernel numbers (with, per kernel, its launches
 on the two flagship runs and the two canonical runs and, for the
@@ -244,6 +268,7 @@ from cup2d_tpu_torch.parallel.mesh import (ShardedUniformSim,  # noqa: E402
 from cup2d_tpu_torch.parallel.shard_halo import (  # noqa: E402
     Slabs, exchange_x, fused_advect_heun_sharded, gather_x,
     overlap_jacobi_sweeps, split_x, sweep_stats)
+from cup2d_tpu_torch import poisson as tpoisson  # noqa: E402
 from cup2d_tpu_torch.poisson import block_precond_matrix  # noqa: E402
 from cup2d_tpu_torch.uniform import (bench_state,  # noqa: E402
                                      taylor_green_state)
@@ -2647,6 +2672,444 @@ def phase_canonical(dev) -> tuple[dict, dict]:
     return runs, launches
 
 
+# phase 13: the periodic tables and the FFT direct solve
+PERIODIC_TABLES = {"doubly": cases.periodic_table(),
+                   "channel": cases.periodic_channel_table()}
+PERIODIC_LEVEL = 10        # tgv_periodic at 8192^2
+PERIODIC_CPU_LEVEL = 4     # 128^2: card against CPU, the KE decay
+KE_BAR = 0.01              # the JAX package's tgv_periodic decay bar
+TRIDIAG_REL = 2e-6         # the Thomas scans, relative to max |ref|
+PERIODIC_KEYS = ("fused_advect_heun+pd", "fused_correction+pd",
+                 "fused_jacobi_sweeps+pd", "tridiag_scan")
+# the twins a periodic step on the card must not call on f32 or complex64
+# operands (the default solver's bf16 preconditioner cycle runs
+# jacobi_sweeps_plain on bf16 legs by design: that is plain code, not a
+# twin standing in for a kernel)
+TWINS = ("advect_substage_plain", "fused_correction_plain",
+         "jacobi_sweeps_plain", "tridiag_scan_plain")
+
+
+class twin_watch:
+    """Count calls of the kernels' plain twins on CUDA f32 / complex64
+    operands while the block runs (``hk`` and ``poisson`` hold them)."""
+
+    def __init__(self):
+        self.calls = {k: 0 for k in TWINS}
+
+    def __enter__(self):
+        import cup2d_tpu_torch.poisson as tpois
+        self.saved = []
+        for mod in (hk, tpois):
+            for name in TWINS:
+                if hasattr(mod, name):
+                    fn = getattr(mod, name)
+                    self.saved.append((mod, name, fn))
+                    setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def call(*args, **kw):
+            t = next((a for a in args if torch.is_tensor(a)), None)
+            if (t is not None and t.device.type == "cuda"
+                    and t.dtype in (torch.float32, torch.complex64)):
+                self.calls[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def phase_periodic_kernels(dev, res, size: int = 8192) -> None:
+    """Phase 13: the wrap forms of kernels 2, 5 and 6 and the Thomas scans
+    against their twins at size^2 on the doubly-periodic box and the
+    periodic channel (the substage pair on the benchmark velocity; the
+    correction and the chains on unit-scale operands; the 24-sweep chain
+    on the 8^2 level too), kernel and twin ms, bounds; ``res`` gets the
+    four entries (the doubly-periodic box's numbers for the forms, the
+    channel's plan for the scans)."""
+    cells = size * size
+    g = bench_grid(size, size, dev)
+    h = g.h
+    v = bench_start(g).vel[None].contiguous()
+    dt = torch.tensor([0.5], device=dev) * h
+    err = 0.0
+    for name, table in PERIODIC_TABLES.items():
+        got = hk.fused_advect_heun(v, h, 4e-5, dt, bc=table)
+        ref = hk.fused_advect_heun_plain(v, h, 4e-5, dt, bc=table)
+        e = float((got - ref).abs().max())
+        rel = e / float(ref.abs().max())
+        del got, ref
+        print(f"phase 13 fused_advect_heun+pd {name} [1,2,{size},{size}] "
+              f"both substages: max_abs_err {e} (rel {rel})", flush=True)
+        check(rel <= HEUN_ABS, f"fused_advect_heun+pd {name}: rel {rel} > "
+              f"{HEUN_ABS}")
+        err = max(err, e)
+        ms = cuda_ms(lambda: hk.fused_advect_heun(v, h, 4e-5, dt,
+                                                  bc=table), 10)
+        pms = cuda_ms(lambda: hk.fused_advect_heun_plain(v, h, 4e-5, dt,
+                                                         bc=table), 2)
+        facs = hk._substage_facs(dt, h, 4e-5, (1,), 1, torch.float32, dev,
+                                 with_dt=True)
+        v1 = hk.advect_substage(v, None, facs, 0.5, 1.0 / h ** 2, table, h)
+        b = bound(40.0 * cells, substage_ops(v) + substage_ops(v1))
+        del v1
+        print(f"phase 13 fused_advect_heun+pd {name}: kernel_ms {ms} "
+              f"(free-slip {res['fused_advect_heun']['ms']}, BC form "
+              f"{res['fused_advect_heun+bc']['ms']}) twin_ms {pms} bound_ms "
+              f"{b[0]} ({b[1]})", flush=True)
+        if name == "doubly":
+            res["fused_advect_heun+pd"].update(
+                ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                library_ms=None)
+    res["fused_advect_heun+pd"]["max_abs_err"] = err
+    del v
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    x, p, vel = rn(1, size, size), rn(1, size, size), rn(1, 2, size, size)
+    scal = torch.stack([x.mean(), p.mean(),
+                        torch.tensor(-0.25 * h * h, device=dev)]
+                       ).reshape(1, 3).contiguous()
+    err = 0.0
+    for name, table in PERIODIC_TABLES.items():
+        sg, pa = tbc.pressure_signs(table), tbc.periodic_axes(table)
+        got = hk.fused_correction(x, p, vel, scal, 1.0 / (h * h), sg)
+        ref = hk.fused_correction_plain(x, p, vel, scal, 1.0 / (h * h), sg,
+                                        pa)
+        e = max(float((a - c).abs().max()) for a, c in zip(got, ref))
+        del got, ref
+        check(e <= CORRECTION_ABS, f"fused_correction+pd {name}: {e} > "
+              f"{CORRECTION_ABS}")
+        err = max(err, e)
+        ms = cuda_ms(lambda: hk.fused_correction(
+            x, p, vel, scal, 1.0 / (h * h), sg), 10)
+        pms = cuda_ms(lambda: hk.fused_correction_plain(
+            x, p, vel, scal, 1.0 / (h * h), sg, pa), 3)
+        b = bound(28.0 * cells, OPS_CORRECTION_CELL * cells)
+        print(f"phase 13 fused_correction+pd {name} [1,{size},{size}]: "
+              f"max_abs_err {e} kernel_ms {ms} (Neumann "
+              f"{res['fused_correction']['ms']}) twin_ms {pms} bound_ms "
+              f"{b[0]} ({b[1]})", flush=True)
+        if name == "doubly":
+            res["fused_correction+pd"].update(
+                ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                library_ms=None)
+    res["fused_correction+pd"]["max_abs_err"] = err
+    del x, p, vel
+
+    err = 0.0
+    for ny, n, reps in ((size, 2, 10), (8, 24, 10)):
+        e, r = rn(ny, ny), rn(ny, ny)
+        for name, table in PERIODIC_TABLES.items():
+            sg, pa = tbc.pressure_signs(table), tbc.periodic_axes(table)
+            for fz in (False, True):
+                got = hk.fused_jacobi_sweeps(e, r, 0.8, n, fz, sg)
+                ref = hk.jacobi_sweeps_plain(e, r, 0.8, n, fz, sg, pa)
+                d = float((got - ref).abs().max())
+                rel = d / float(ref.abs().max())
+                del got, ref
+                check(rel <= JACOBI_REL, f"fused_jacobi_sweeps+pd {name} "
+                      f"{ny}^2 n={n} from_zero={fz}: rel {rel} > "
+                      f"{JACOBI_REL}")
+                err = max(err, d)
+                ms = cuda_ms(lambda: hk.fused_jacobi_sweeps(
+                    e, r, 0.8, n, fz, sg), reps)
+                print(f"phase 13 fused_jacobi_sweeps+pd {name} [{ny},{ny}] "
+                      f"n={n} from_zero={fz}: max_abs_err {d} (rel {rel}) "
+                      f"kernel_ms {ms}", flush=True)
+                if ny == size and not fz and name == "doubly":
+                    pms = cuda_ms(lambda: hk.jacobi_sweeps_plain(
+                        e, r, 0.8, n, fz, sg, pa), 2)
+                    b = bound(12.0 * cells, OPS_SWEEP_CELL * n * cells)
+                    res["fused_jacobi_sweeps+pd"].update(
+                        ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                        library_ms=None)
+                    print(f"phase 13 fused_jacobi_sweeps+pd n=2: kernel_ms "
+                          f"{ms} (Neumann {res['fused_jacobi_sweeps']['ms']}"
+                          f") twin_ms {pms} bound_ms {b[0]} ({b[1]})",
+                          flush=True)
+        del e, r
+    res["fused_jacobi_sweeps+pd"]["max_abs_err"] = err
+    inv_diag_bc.cache_clear()
+
+    # the Thomas scans on the periodic channel's plan and its own rfft'd
+    # cold right-hand side
+    table = PERIODIC_TABLES["channel"]
+    plan = tpoisson.FFTDiagPlan(size, size, torch.float32,
+                                *tbc.periodic_axes(table),
+                                tbc.pressure_signs(table), device=dev)
+    gc = UniformGrid(bench_cfg(size, size)[0], level=g.level, device=dev,
+                     bc=table)
+    st = bench_start(gc)
+    rhs = gc.poisson_rhs(st.vel, None, None, dt[0])
+    rhs = rhs - rhs.mean()
+    bh = torch.fft.rfft(rhs, dim=-1)[None].contiguous()
+    del st, rhs
+    got = hk.tridiag_scan(bh, plan.inv_denom, plan.cp)
+    ref = hk.tridiag_scan_plain(bh, plan.inv_denom, plan.cp)
+    gr, rr = torch.view_as_real(got), torch.view_as_real(ref)
+    e = float((gr - rr).abs().max())
+    rel = e / float(rr.abs().max())
+    u = ulps(gr.contiguous(), rr.contiguous())
+    del got, ref, gr, rr
+    print(f"phase 13 tridiag_scan {list(bh.shape)}: max_abs_err {e} (rel "
+          f"{rel}; {u} ulp)", flush=True)
+    check(rel <= TRIDIAG_REL, f"tridiag_scan: rel {rel} > {TRIDIAG_REL}")
+    ms = cuda_ms(lambda: hk.tridiag_scan(bh, plan.inv_denom, plan.cp), 10)
+    pms = cuda_ms(lambda: hk.tridiag_scan_plain(bh, plan.inv_denom,
+                                                plan.cp), 1)
+    # the function's bytes: b read and x written (8 each per member, row
+    # and mode), the two f32 coefficients read once; the Thomas design's
+    # own adds dp's write and read-back (16 more per member, row and mode)
+    L, n_s, nk = bh.shape
+    b = bound(16.0 * L * n_s * nk + 8.0 * n_s * nk, 8.0 * L * n_s * nk)
+    b_thomas = bound(32.0 * L * n_s * nk + 8.0 * n_s * nk,
+                     8.0 * L * n_s * nk)
+    xr = torch.randn(size, size, generator=gen, device=dev)
+    fft_ms = cuda_ms(lambda: torch.fft.irfft(torch.fft.rfft(xr, dim=-1),
+                                             n=size, dim=-1), 10)
+    print(f"phase 13 tridiag_scan {list(bh.shape)}: kernel_ms {ms} twin_ms "
+          f"{pms} bound_ms {b[0]} ({b[1]}; the Thomas design's own bytes, "
+          f"dp written and read back: {b_thomas[0]}); library: none (no "
+          f"PyTorch call "
+          f"solves batched tridiagonal systems); the rfft + irfft pair "
+          f"around it {fft_ms} ms", flush=True)
+    res["tridiag_scan"].update(max_abs_err=e, ulps=u, ms=ms, plain_ms=pms,
+                               bound_ms=b[0], bound_by=b[1],
+                               library_ms=None, fft_ms=fft_ms)
+    del bh, xr, plan, gc
+    torch.cuda.empty_cache()
+
+
+def run_periodic(dev, pois: str, level: int = PERIODIC_LEVEL) -> dict:
+    """Phase 13's main path under one solver: ``cases.make_sim(
+    "tgv_periodic")`` at level 10 (8192^2, f32), 3 startup steps (exact
+    solves) and 5 production ones, each group timed; the launch counts
+    from 0 and the twins watched over the 8 steps."""
+    with latched(pois):
+        sim = cases.make_sim("tgv_periodic", level=level, device=dev)
+    check(sim.kernel_tier == "hopper+bc(pd,pd,pd,pd)",
+          f"tgv_periodic: kernel_tier {sim.kernel_tier}")
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    hk.reset_launches()
+    out = {"case": "tgv_periodic", "mode": sim.poisson_mode,
+           "tier": sim.kernel_tier, "shape": [sim.grid.ny, sim.grid.nx]}
+    with twin_watch() as tw:
+        for label, n in (("startup", 3), ("production", 5)):
+            if label == "production":
+                sim.step_count = 10
+            iters = []
+            t0 = time.perf_counter()
+            for _ in range(n):
+                d = sim.step_once()
+                iters.append(d["poisson_iters"])
+            sync(dev)
+            out[f"{label}_ms_per_step"] = (time.perf_counter() - t0) / n * 1e3
+            out[f"{label}_iters"] = iters
+    la = {k: c for k, c in hk.launches.items() if c}
+    out.update(umax=d["umax"], finite=bool(d["finite"]),
+               converged=bool(d["poisson_converged"]),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=la, twin_calls=tw.calls)
+    print(f"phase 13 tgv_periodic {json.dumps(out)}", flush=True)
+    label = f"tgv_periodic {pois or 'default'}"
+    check(out["finite"] and out["converged"], f"{label}: {out}")
+    check(not any(tw.calls.values()), f"{label}: a twin ran on the card: "
+          f"{tw.calls}")
+    check(la.get("fused_advect_heun+pd", 0) == la.get("fused_advect_heun")
+          == 16 and la.get("fused_correction+pd", 0)
+          == la.get("fused_correction") == 8,
+          f"{label}: substage / correction launches {la}")
+    check(la.get("fused_jacobi_sweeps+pd", 0)
+          == la.get("fused_jacobi_sweeps", 0)
+          and (la.get("fused_jacobi_sweeps", 0) > 0) == (pois == "fas"),
+          f"{label}: sweep-chain launches {la}")
+    check("tridiag_scan" not in la, f"{label}: the doubly-periodic box "
+          f"launched the Thomas scans: {la}")
+    if pois == "fftd":
+        check(out["production_iters"] == [1] * 5, f"{label}: {out}")
+    del sim
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_periodic_channel(dev, pois: str, size: int = 8192,
+                         steps: int = 3) -> dict:
+    """Phase 13: the periodic channel (pd,pd,ns,ns) at size^2 from the
+    benchmark velocity, production steps at dt = h/2 (a warm-up and
+    ``steps`` timed), the launch counts from 0 and the twins watched."""
+    cfg, level = bench_cfg(size, size)
+    with latched(pois):
+        sim = UniformSim(cfg, level=level, device=dev,
+                         bc=PERIODIC_TABLES["channel"])
+    sim.state = bench_start(sim.grid)
+    sim.step_count = 10
+    dt = 0.5 * sim.grid.h
+    sync(dev)
+    hk.reset_launches()
+    with twin_watch() as tw:
+        iters = [sim.step_once(dt)["poisson_iters"]]
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            d = sim.step_once(dt)
+            iters.append(d["poisson_iters"])
+        sync(dev)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    la = {k: c for k, c in hk.launches.items() if c}
+    out = {"case": "periodic channel", "table": sim.bc_table,
+           "mode": sim.poisson_mode, "tier": sim.kernel_tier,
+           "ms_per_step": ms, "iters": iters, "finite": bool(d["finite"]),
+           "converged": bool(d["poisson_converged"]), "launches": la,
+           "twin_calls": tw.calls}
+    print(f"phase 13 periodic channel {json.dumps(out)}", flush=True)
+    label = f"periodic channel {pois}"
+    n = steps + 1
+    check(out["finite"] and out["converged"], f"{label}: {out}")
+    check(not any(tw.calls.values()), f"{label}: a twin ran: {tw.calls}")
+    check(la.get("fused_advect_heun+pd", 0) == 2 * n
+          and la.get("fused_correction+pd", 0) == n
+          and la.get("fused_jacobi_sweeps+pd", 0)
+          == la.get("fused_jacobi_sweeps", 0)
+          and (la.get("tridiag_scan", 0) == n) == (pois == "fftd"),
+          f"{label}: launches {la}")
+    del sim
+    torch.cuda.empty_cache()
+    return out
+
+
+def periodic_solves(dev, size: int = 8192, reps: int = 3) -> dict:
+    """Phase 13: bench.py's fftd_periodic and fftd_channel arms at size^2:
+    one cold mean-free RHS of the benchmark velocity per table
+    (``poisson_rhs`` at dt = h/2, its mean removed), solved at the
+    production criterion (the configuration's tolerances, 1e-3 and 1e-2
+    relative; bench.py's arms use 0 and 1e-3 relative at 1024^2, which an
+    f32 direct solve at 8192^2 does not reach: its true residual floors at
+    a few 1e-3 of the RHS) by fftd (one direct solve) and by the FAS
+    cycles (V, and F-opened) on the periodic hierarchy; ms per solve
+    (host clock to a synchronize, mean of ``reps``), iterations, relative
+    residual."""
+    out = {}
+    cfg, level = bench_cfg(size, size)
+    for name, table in PERIODIC_TABLES.items():
+        with latched("fftd"):
+            g = UniformGrid(cfg, level=level, device=dev, bc=table)
+        st = bench_start(g)
+        b = g.poisson_rhs(st.vel, None, None,
+                          torch.tensor(0.5 * g.h, device=dev))
+        b = b - b.mean()
+        del st
+        norm0 = float(b.abs().max())
+        mg = tpoisson.MultigridPreconditioner(
+            g.ny, g.nx, g.dtype, cycle_dtype=g.dtype, fused_smoother=True,
+            edge_signs=g._psigns, periodic=g._paxes)
+        tol = dict(tol=cfg.poisson_tol, tol_rel=cfg.poisson_tol_rel)
+        arms = {
+            "fftd": lambda: tpoisson.fft_diag_solve(
+                g.laplacian, b, g._fft_plan, **tol),
+            "fas_v": lambda: tpoisson.mg_solve(
+                g.laplacian, b, mg, max_cycles=200, **tol),
+            "fas_f": lambda: tpoisson.mg_solve(
+                g.laplacian, b, mg, max_cycles=200, fmg=True, **tol)}
+        rows = {}
+        for arm, solve in arms.items():
+            r = solve()
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                r = solve()
+            sync(dev)
+            rows[arm] = {"ms_per_solve": (time.perf_counter() - t0) / reps
+                         * 1e3, "iters": r.iters,
+                         "residual_rel": r.residual / norm0,
+                         "converged": r.converged}
+            check(r.converged, f"{name} {arm}: not converged: {rows[arm]}")
+        check(rows["fftd"]["iters"] == 1, f"{name} fftd: {rows['fftd']}")
+        best = min(rows["fas_v"]["ms_per_solve"],
+                   rows["fas_f"]["ms_per_solve"])
+        out[name] = {"table": table.token, "mode": g.poisson_mode,
+                     "arms": rows, "fftd_over_best_fas":
+                     rows["fftd"]["ms_per_solve"] / best}
+        print(f"phase 13 solve {name} {size}^2 {json.dumps(out[name])}",
+              flush=True)
+        del g, b, mg, arms
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_periodic_cpu(dev, pois: str, steps: int = 10) -> dict:
+    """Phase 13: tgv_periodic at 128^2 f32 on the card and on the CPU,
+    ``steps`` production steps from the same start, equal iterations and
+    velocity within 1e-4 relative."""
+    sims = []
+    for d in (dev, "cpu"):
+        with latched(pois):
+            s = cases.make_sim("tgv_periodic", level=PERIODIC_CPU_LEVEL,
+                               device=d)
+        s.step_count = 10
+        sims.append(s)
+    iters = [[s.step_once()["poisson_iters"] for _ in range(steps)]
+             for s in sims]
+    a, b = sims[0].state.vel.cpu(), sims[1].state.vel
+    rel = float((a - b).abs().max() / b.abs().max())
+    out = {"mode": sims[0].poisson_mode, "card_iters": iters[0],
+           "cpu_iters": iters[1], "vel_rel": rel}
+    print(f"phase 13 tgv_periodic 128^2 x{steps} card vs CPU "
+          f"{json.dumps(out)}", flush=True)
+    check(bool(torch.isfinite(a).all()), "tgv 128^2: non-finite state")
+    check(iters[0] == iters[1], f"tgv 128^2 {pois}: iterations {iters}")
+    check(rel <= TRAJ_REL, f"tgv 128^2 {pois}: card vs CPU {rel} > "
+          f"{TRAJ_REL}")
+    return out
+
+
+def phase_ke_decay(dev, nu: float = 1e-3, t_end: float = 0.1) -> dict:
+    """Phase 13: tgv_periodic at 128^2 f32 under fftd on the card to
+    t = 0.1: KE within 1% of exp(-4 nu k^2 t), k = 2 pi."""
+    with latched("fftd"):
+        sim = cases.make_sim("tgv_periodic", level=PERIODIC_CPU_LEVEL,
+                             nu=nu, device=dev)
+    ke0 = float(torch.mean(sim.state.vel.double() ** 2))
+    sim.advance(n_steps=10_000, tend=t_end)
+    ke = float(torch.mean(sim.state.vel.double() ** 2))
+    expected = float(np.exp(-4.0 * nu * (2.0 * np.pi) ** 2 * sim.time))
+    err = abs(ke / ke0 - expected) / expected
+    out = {"t": sim.time, "steps": sim.step_count, "ke_ratio": ke / ke0,
+           "expected": expected, "rel_err": err}
+    print(f"phase 13 KE decay 128^2 fftd f32 {json.dumps(out)}", flush=True)
+    check(sim.time >= t_end and err < KE_BAR, f"KE decay: {out}")
+    return out
+
+
+def phase_periodic(dev, res) -> tuple[dict, dict]:
+    """Phase 13: the wrap forms and the Thomas scans against their twins;
+    tgv_periodic at 8192^2 under the three solvers and the periodic
+    channel under fftd and fas (the main path: every launch a wrap form,
+    no twin on the card); the solves of bench.py's fftd arms; card against
+    CPU at 128^2; the KE decay. Returns the runs and the launches of the
+    four new counters over the main-path runs."""
+    phase_periodic_kernels(dev, res)
+    runs = {"tgv_periodic": [run_periodic(dev, p)
+                             for p in ("", "fas", "fftd")],
+            "channel": [run_periodic_channel(dev, p)
+                        for p in ("fftd", "fas")]}
+    every = runs["tgv_periodic"] + runs["channel"]
+    launches = {k: sum(r["launches"].get(k, 0) for r in every)
+                for k in PERIODIC_KEYS}
+    runs["solves"] = periodic_solves(dev)
+    runs["card_vs_cpu"] = [phase_periodic_cpu(dev, p)
+                           for p in ("fftd", "fas")]
+    runs["ke_decay"] = phase_ke_decay(dev)
+    return runs, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2742,6 +3205,12 @@ def main() -> int:
     print(f"phase 12 took {time.perf_counter() - t0} s", flush=True)
     for k, n in canon_launches.items():
         check(n > 0, f"{k}: launched no time on the canonical forest")
+    t0 = time.perf_counter()
+    periodic, periodic_launches = phase_periodic(dev, res)
+    print(f"phase 13 took {time.perf_counter() - t0} s", flush=True)
+    for k, n in periodic_launches.items():
+        check(n > 0, f"{k}: launched no time on the periodic main path")
+    launches.update(periodic_launches)
     check("jax" not in sys.modules, "the smoke imported jax")
     check("validation" not in sys.modules, "the smoke imported validation")
 
@@ -2756,7 +3225,10 @@ def main() -> int:
                     flagship_launches=shaped_launches.get(k, 0),
                     flagship=shaped["kernels"].get(k),
                     canonical_launches=canon_launches.get(k, 0),
-                    canonical=canon["kernels"].get(k))
+                    canonical=canon["kernels"].get(k),
+                    periodic_launches=periodic_launches.get(k, 0),
+                    **({k2: res[k][k2] for k2 in ("ulps", "fft_ms")
+                        if k2 in res[k]}))
                for k in hk.launches]
     print(f"main path summary: {json.dumps(runs)}")
     print(f"forest main path summary: {json.dumps(forest_runs)}")
@@ -2767,6 +3239,7 @@ def main() -> int:
           f"{json.dumps(split_walled)}")
     print(f"flagship step summary: {json.dumps(shaped)}")
     print(f"canonical shaped forest summary: {json.dumps(canon)}")
+    print(f"periodic main path summary: {json.dumps(periodic)}")
     print(f"total {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -368,14 +368,15 @@ def pad_vector_bc_slab(v: torch.Tensor, aux: torch.Tensor, g: int,
     gives it; then the x faces over the y-completed columns, only on the
     sides the slab owns. Every value is the one ``pad_vector_bc`` of the
     whole field puts at the same global place. A free-slip table is
-    ``ops.stencil.pad_vector_slab``; periodic faces have no slab form."""
+    ``ops.stencil.pad_vector_slab``; periodic faces have no slab form (the
+    split periodic step, ROADMAP queue 1 item 8)."""
     if bc.is_free_slip:
         from .ops.stencil import pad_vector_slab
         return pad_vector_slab(v, aux, g, is_lo, is_hi)
     if any(periodic_axes(bc)):
         raise NotImplementedError(
             f"boundary table {bc.token!r}: periodic faces have no slab "
-            "form (ROADMAP queue 1 item 3)")
+            "form (ROADMAP queue 1 item 8)")
     ext = torch.cat([aux[..., :g], v, aux[..., g:]], dim=-1)
     out = F.pad(ext, (0, 0, g, g))
     _paint_y_faces(out, ext, g, bc, h, dt, slice(None), col0 - g, nx_tot)

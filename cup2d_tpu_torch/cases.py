@@ -16,8 +16,12 @@ initial state behind one name. The listing is the JAX package's:
     ``sim.initialize()`` before stepping, or let the first ``step_once``
     run it.
 ``tgv_periodic``, ``shear_layer``, ``turb2d``
-    Doubly-periodic cases, which wait for the periodic tables and fftd
-    (ROADMAP queue 1 item 3).
+    Doubly-periodic obstacle-free cases on the unit box (``UniformSim``):
+    the Taylor-Green vortex, whose kinetic energy decays as
+    exp(-4 nu k^2 t), the double shear layer of Bell, Colella & Glaz
+    (1989), and seeded decaying turbulence. They run under any solver,
+    ``CUP2D_POIS=fftd`` included; their fleets (``members``) are ROADMAP
+    queue 1 item 6, their split step (``mesh``) item 8.
 
 The catalog's drivers run on ``cuda`` unless given ``device="cpu"``. Run
 the Ghia comparison with
@@ -176,14 +180,114 @@ def build_cylinder(level: Optional[int] = None, D: float = 0.1,
     return sim
 
 
-def _waits(name: str, what: str):
-    def build(**_):
-        raise NotImplementedError(f"case {name!r}: {what}")
-    return build
+def _periodic_sim(cfg: SimConfig, lvl: int, mesh, members: int, device):
+    """The obstacle-free periodic cases' driver: a solo ``UniformSim`` on
+    the doubly-periodic table. The JAX package's fleet and split drivers
+    of them are not ported."""
+    if members > 0:
+        raise NotImplementedError(
+            "periodic case with members: the fleet driver is not ported "
+            "yet (ROADMAP queue 1 item 6)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "periodic case on a mesh: the split periodic step is not "
+            "ported yet (ROADMAP queue 1 item 8)")
+    from .uniform import UniformSim
+    return UniformSim(cfg, level=lvl, device=device, bc=periodic_table())
 
 
-_PERIODIC = ("a periodic case; periodic tables and fftd are not ported yet "
-             "(ROADMAP queue 1 item 3)")
+def _install_vel(sim, vel):
+    """Overwrite the zero state's velocity with ``vel`` [2, Ny, Nx]
+    (numpy)."""
+    sim.state = sim.state._replace(vel=sim.grid.tensor(vel))
+
+
+def _periodic_cfg(nu: float, dtype: str, cfl: float) -> SimConfig:
+    return SimConfig(bpdx=1, bpdy=1, level_max=1, level_start=0,
+                     extent=1.0, dtype=dtype, nu=nu, cfl=cfl,
+                     poisson_tol=1e-4, poisson_tol_rel=1e-3)
+
+
+def build_tgv_periodic(level: Optional[int] = None, nu: float = 1e-3,
+                       u0: float = 1.0, dtype: str = "float32", mesh=None,
+                       members: int = 0, cfl: float = 0.4, device=None):
+    """Doubly-periodic Taylor-Green vortex on the unit box:
+    u = u0 sin(kx) cos(ky), v = -u0 cos(kx) sin(ky), k = 2 pi. Its
+    nonlinear term is a pure gradient, so the flow decays self-similarly,
+    KE(t) = KE(0) exp(-4 nu k^2 t), and the cell-centre samples are
+    divergence-free under the central divergence."""
+    lvl = 4 if level is None else level
+    cfg = _periodic_cfg(nu, dtype, cfl)
+    sim = _periodic_sim(cfg, lvl, mesh, members, device)
+    x, y = sim.grid.cell_centers()
+    k = 2.0 * np.pi / cfg.extent
+    u = u0 * np.sin(k * x) * np.cos(k * y)
+    v = -u0 * np.cos(k * x) * np.sin(k * y)
+    _install_vel(sim, np.stack([u, v]))
+    sim.case = "tgv_periodic"
+    return sim
+
+
+def build_shear_layer(level: Optional[int] = None, nu: float = 2e-4,
+                      rho: float = 30.0, delta: float = 0.05,
+                      u0: float = 1.0, dtype: str = "float32", mesh=None,
+                      members: int = 0, cfl: float = 0.4, device=None):
+    """Doubly-periodic double shear layer (Bell, Colella & Glaz 1989): two
+    tanh layers of width ~1/rho at y = 1/4 and 3/4, kicked by a
+    delta sin(2 pi x) vertical velocity that rolls each up into a
+    vortex."""
+    lvl = 4 if level is None else level
+    cfg = _periodic_cfg(nu, dtype, cfl)
+    sim = _periodic_sim(cfg, lvl, mesh, members, device)
+    x, y = sim.grid.cell_centers()
+    L = cfg.extent
+    u = u0 * np.where(y <= 0.5 * L, np.tanh(rho * (y / L - 0.25)),
+                      np.tanh(rho * (0.75 - y / L)))
+    v = delta * u0 * np.sin(2.0 * np.pi * x / L)
+    _install_vel(sim, np.stack([u, v]))
+    sim.case = "shear_layer"
+    return sim
+
+
+def turb2d_velocity(ny: int, nx: int, h: float, seed: int, k0: float,
+                    urms: float) -> np.ndarray:
+    """The seeded turbulence's initial velocity [2, ny, nx] (host numpy,
+    the JAX package's synthesis): a random-phase streamfunction with the
+    energy spectrum E(k) ~ k / (1 + (k/k0)^4), differenced centrally on
+    the wrap (u = D_y psi, v = -D_x psi, so the central divergence
+    vanishes) and scaled to rms speed ``urms``."""
+    rng = np.random.default_rng(seed)
+    kx = np.fft.fftfreq(nx, d=1.0 / nx)
+    ky = np.fft.fftfreq(ny, d=1.0 / ny)
+    KX, KY = np.meshgrid(kx, ky, indexing="xy")
+    kk = np.sqrt(KX ** 2 + KY ** 2)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        # psi-hat amplitude sqrt(E(k)/k)/k
+        amp = np.where(kk > 0,
+                       np.sqrt(kk / (1.0 + (kk / k0) ** 4)) / (kk ** 1.5),
+                       0.0)
+    phase = np.exp(2j * np.pi * rng.random((ny, nx)))
+    psi = np.fft.ifft2(amp * phase).real
+    u = (np.roll(psi, -1, axis=0) - np.roll(psi, 1, axis=0)) / (2.0 * h)
+    v = -(np.roll(psi, -1, axis=1) - np.roll(psi, 1, axis=1)) / (2.0 * h)
+    rms = np.sqrt(np.mean(u ** 2 + v ** 2))
+    s = urms / rms if rms > 0 else 1.0
+    return np.stack([u * s, v * s])
+
+
+def build_turb2d(level: Optional[int] = None, nu: float = 1e-4,
+                 seed: int = 0, k0: float = 6.0, urms: float = 1.0,
+                 dtype: str = "float32", mesh=None, members: int = 0,
+                 cfl: float = 0.4, device=None):
+    """Seeded decaying 2D turbulence on the doubly-periodic unit box
+    (``turb2d_velocity``, deterministic per seed)."""
+    lvl = 4 if level is None else level
+    cfg = _periodic_cfg(nu, dtype, cfl)
+    sim = _periodic_sim(cfg, lvl, mesh, members, device)
+    g = sim.grid
+    _install_vel(sim, turb2d_velocity(g.ny, g.nx, g.h, seed, k0, urms))
+    sim.case = "turb2d"
+    return sim
 
 CASES: Tuple[CaseSpec, ...] = (
     CaseSpec("cavity",
@@ -197,15 +301,13 @@ CASES: Tuple[CaseSpec, ...] = (
              build_cylinder, default_level=5),
     CaseSpec("tgv_periodic",
              "doubly-periodic Taylor-Green vortex (analytic KE decay)",
-             _waits("tgv_periodic", _PERIODIC), default_level=4,
-             fleet_ok=True),
+             build_tgv_periodic, default_level=4, fleet_ok=True),
     CaseSpec("shear_layer",
              "doubly-periodic double shear layer roll-up (BCG 1989)",
-             _waits("shear_layer", _PERIODIC), default_level=4,
-             fleet_ok=True),
+             build_shear_layer, default_level=4, fleet_ok=True),
     CaseSpec("turb2d",
              "seeded decaying 2D turbulence, doubly-periodic",
-             _waits("turb2d", _PERIODIC), default_level=4, fleet_ok=True),
+             build_turb2d, default_level=4, fleet_ok=True),
 )
 
 REGISTRY = {c.name: c for c in CASES}
@@ -217,7 +319,7 @@ def case_names() -> Tuple[str, ...]:
 
 def make_sim(name: str, **kw):
     """Build a named case's driver; an unknown name raises with the
-    listing, a case that waits for an unported part names it."""
+    listing, an option that waits for an unported part names it."""
     spec = REGISTRY.get(name)
     if spec is None:
         listing = ", ".join(f"{c.name} ({c.describe})" for c in CASES)

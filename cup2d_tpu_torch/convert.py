@@ -46,7 +46,9 @@ def config_from_dict(d: dict) -> SimConfig:
 def bc_from_fields(obj) -> BCTable:
     """The port's ``BCTable`` with the faces of ``obj``, a boundary table
     of either package: each of ``x_lo``, ``x_hi``, ``y_lo`` and ``y_hi``
-    is read for its ``kind``, ``u_wall`` and ``profile``. Validated."""
+    is read for its ``kind`` (periodic included), ``u_wall`` and
+    ``profile``. Validated. A periodic table carries nothing else over:
+    the fftd plan is a function of the grid and the table alone."""
     faces = []
     for name in ("x_lo", "x_hi", "y_lo", "y_hi"):
         f = getattr(obj, name)

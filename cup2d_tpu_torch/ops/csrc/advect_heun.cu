@@ -12,7 +12,10 @@
 // _bc_uw_x), f32 storage; and both in bf16 storage, fused_advect_heun(
 // bf16=True) (cup2d_advect_substage_bf16, cup2d_advect_substage_bc_bf16):
 // v and vold bf16, f32 arithmetic, out bf16 (substage 1) or f32
-// (substage 2), facs f32.
+// (substage 2), facs f32. The periodic tables (cup2d_advect_substage_wrap,
+// f32) have no Pallas form: the JAX package runs them as its XLA chain
+// (uniform.py's pad_vector_field -> advect_diffuse_rhs -> heun_substage,
+// bc.pad_vector_bc's wrap), whose function this form computes.
 //
 // Bound on this card: the arithmetic of the WENO reconstructions, about
 // 2 per cell and component once each face is reconstructed once (193
@@ -88,4 +91,25 @@ extern "C" int cup2d_advect_substage_bc_bf16(const void* v, const void* vold,
     return substage::launch_bf16<true>(v, vold, nullptr, out, facs, L, ny,
                                        nx, cfac, ih2, 1, 1, faces, h, 0, nx,
                                        out_bf16, vec, grid, stream);
+}
+
+// The wrap form: a table with a periodic axis (a face pair of kind
+// substage::PERIODIC), f32; the arguments of the boundary-table form, and
+// nx a multiple of 4 where vec is 4 (a wrapped run of four columns is then
+// one 16-byte copy).
+extern "C" int cup2d_advect_substage_wrap(const float* v, const float* vold,
+                                          float* out, const float* facs,
+                                          int L, int ny, int nx, float cfac,
+                                          float ih2, float h,
+                                          substage::Faces faces, int vec,
+                                          int grid, void* stream) {
+    const bool wx = faces.x_lo.kind == substage::PERIODIC;
+    const bool wy = faces.y_lo.kind == substage::PERIODIC;
+    if (ny < 2 || nx < 2 || !(wx || wy)
+            || wx != (faces.x_hi.kind == substage::PERIODIC)
+            || wy != (faces.y_hi.kind == substage::PERIODIC))
+        return (int)cudaErrorInvalidValue;
+    return substage::launch_form<true, float, float, true>(
+        v, vold, nullptr, out, facs, L, ny, nx, cfac, ih2, 1, 1, faces, h, 0,
+        nx, vec, grid, stream);
 }

@@ -11,7 +11,11 @@
 // (cup2d_fused_correction) and a boundary table's per-face pressure signs
 // (cup2d_fused_correction_signed: the wall terms -s_lo and +s_hi, s = -1
 // at a Dirichlet outflow face; the table's means come in as 0 where it
-// has one).
+// has one). The wrap form (cup2d_fused_correction_wrap) computes the JAX
+// package's XLA epilogue of a periodic table (poisson.project_correct's
+// periodic= branch, which the Pallas kernel never takes): along a periodic
+// axis the neighbour is read at the wrapped index and the sign there is 0,
+// so the wall term vanishes.
 //
 // Bound on this card: memory. It reads x, pold and vel and writes pres and
 // vel, 28 bytes per cell, for about 15 operations per cell.
@@ -36,24 +40,32 @@ struct Signs {
     float x_lo, x_hi, y_lo, y_hi;
 };
 
+// WRAP: wrap bit 0 wraps x, bit 1 wraps y (a neighbour one cell past the
+// edge)
+template <bool WRAP>
 __device__ __forceinline__ float mean_free(const float* __restrict__ x,
                                            const float* __restrict__ pold,
                                            int j, int i, int ny, int nx,
-                                           float mx, float mp) {
+                                           float mx, float mp, int wrap) {
+    if constexpr (WRAP) {
+        if (wrap & 1) i = i < 0 ? i + nx : (i >= nx ? i - nx : i);
+        if (wrap & 2) j = j < 0 ? j + ny : (j >= ny ? j - ny : j);
+    }
     if (j < 0 || j >= ny || i < 0 || i >= nx) return 0.0f;
     size_t k = (size_t)j * nx + i;
     return ((x[k] - mx) + pold[k]) - mp;
 }
 
-// SIGNED: the wall terms from gs; else the Neumann constants.
-template <bool SIGNED>
+// SIGNED: the wall terms from gs; else the Neumann constants. WRAP: wrap
+// holds the periodic axes (mean_free), their signs 0.
+template <bool SIGNED, bool WRAP = false>
 __global__ void correction_kernel(const float* __restrict__ x,
                                   const float* __restrict__ pold,
                                   const float* __restrict__ vel,
                                   const float* __restrict__ scal,
                                   float* __restrict__ pres,
                                   float* __restrict__ vout, int ny, int nx,
-                                  float ih2, Signs gs) {
+                                  float ih2, Signs gs, int wrap) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     const int j = blockIdx.y * blockDim.y + threadIdx.y;
     const int l = blockIdx.z;
@@ -65,7 +77,7 @@ __global__ void correction_kernel(const float* __restrict__ x,
     const float mp = scal[3 * l + 1];
     const float pfac = scal[3 * l + 2];
 
-    const float cur = mean_free(xl, pl, j, i, ny, nx, mx, mp);
+    const float cur = mean_free<WRAP>(xl, pl, j, i, ny, nx, mx, mp, wrap);
     float gx, gy;
     if constexpr (SIGNED) {
         gx = i == 0 ? -gs.x_lo : (i == nx - 1 ? gs.x_hi : 0.0f);
@@ -74,12 +86,14 @@ __global__ void correction_kernel(const float* __restrict__ x,
         gx = i == 0 ? -1.0f : (i == nx - 1 ? 1.0f : 0.0f);
         gy = j == 0 ? -1.0f : (j == ny - 1 ? 1.0f : 0.0f);
     }
-    const float dpx = (mean_free(xl, pl, j, i + 1, ny, nx, mx, mp)
-                       - mean_free(xl, pl, j, i - 1, ny, nx, mx, mp))
-                      + cur * gx;
-    const float dpy = (mean_free(xl, pl, j + 1, i, ny, nx, mx, mp)
-                       - mean_free(xl, pl, j - 1, i, ny, nx, mx, mp))
-                      + cur * gy;
+    const float dpx =
+        (mean_free<WRAP>(xl, pl, j, i + 1, ny, nx, mx, mp, wrap)
+         - mean_free<WRAP>(xl, pl, j, i - 1, ny, nx, mx, mp, wrap))
+        + cur * gx;
+    const float dpy =
+        (mean_free<WRAP>(xl, pl, j + 1, i, ny, nx, mx, mp, wrap)
+         - mean_free<WRAP>(xl, pl, j - 1, i, ny, nx, mx, mp, wrap))
+        + cur * gy;
     const size_t cell = (size_t)j * nx + i;
     pres[(size_t)l * plane + cell] = cur;
     const size_t u = (size_t)l * 2 * plane + cell;
@@ -87,14 +101,14 @@ __global__ void correction_kernel(const float* __restrict__ x,
     vout[u + plane] = __fadd_rn(vel[u + plane], __fmul_rn(pfac * dpy, ih2));
 }
 
-template <bool SIGNED>
+template <bool SIGNED, bool WRAP = false>
 int launch(const float* x, const float* pold, const float* vel,
            const float* scal, float* pres, float* vout, int L, int ny,
-           int nx, float ih2, Signs gs, cudaStream_t st) {
+           int nx, float ih2, Signs gs, cudaStream_t st, int wrap = 0) {
     dim3 block(64, 4);
     dim3 grid((nx + 63) / 64, (ny + 3) / 4, L);
-    correction_kernel<SIGNED><<<grid, block, 0, st>>>(
-        x, pold, vel, scal, pres, vout, ny, nx, ih2, gs);
+    correction_kernel<SIGNED, WRAP><<<grid, block, 0, st>>>(
+        x, pold, vel, scal, pres, vout, ny, nx, ih2, gs, wrap);
     return (int)cudaGetLastError();
 }
 
@@ -119,4 +133,19 @@ extern "C" int cup2d_fused_correction_signed(
     return launch<true>(x, pold, vel, scal, pres, vout, L, ny, nx, ih2,
                         Signs{gs_x_lo, gs_x_hi, gs_y_lo, gs_y_hi},
                         (cudaStream_t)stream);
+}
+
+// The wrap form: the table's signs, whose (0, 0) pairs are its periodic
+// axes, at least one.
+extern "C" int cup2d_fused_correction_wrap(
+        const float* x, const float* pold, const float* vel,
+        const float* scal, float* pres, float* vout, int L, int ny, int nx,
+        float ih2, float gs_x_lo, float gs_x_hi, float gs_y_lo,
+        float gs_y_hi, void* stream) {
+    const int wrap = (gs_x_lo == 0.0f && gs_x_hi == 0.0f ? 1 : 0)
+                     | (gs_y_lo == 0.0f && gs_y_hi == 0.0f ? 2 : 0);
+    if (wrap == 0) return (int)cudaErrorInvalidValue;
+    return launch<true, true>(x, pold, vel, scal, pres, vout, L, ny, nx, ih2,
+                              Signs{gs_x_lo, gs_x_hi, gs_y_lo, gs_y_hi},
+                              (cudaStream_t)stream, wrap);
 }

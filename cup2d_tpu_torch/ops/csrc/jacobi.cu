@@ -66,6 +66,22 @@
 // else 2-byte loads; the copy width is a launch argument of a bf16
 // instance, not a template parameter. Shared memory halves: 84-97 KB for
 // the big tile, 6-9 KB for the small one.
+// The wrap form (cup2d_jacobi_sweeps_wrap, f32, a template instance of its
+// own: WRAP) runs the periodic tables, which the TPU kernel refuses: the
+// JAX package sweeps them with its XLA chain (MultigridPreconditioner.
+// _smooth with periodic=, the wrap Laplacian laplacian5_bc(px, py) and the
+// signed diagonal, 0 on the periodic faces), whose function it computes.
+// Along a periodic axis (wrap: bit 0 x, bit 1 y) an edge tile copies its
+// halo from the wrapped rows and columns instead of zero-filling them and
+// sweeps those cells as the interior ones (the periodic extension of the
+// field, swept, is the extension of the swept field); the signs there are
+// 0, so the diagonal is the interior -4. The wrap is a true modulo: the 8^2
+// coarsest level swept in chains of 6 has a 6-row and 8-column halo. HX
+// and x0 are multiples of 4, so where nx is too the wrapped runs stay
+// 16-byte copies. Built for 1, 2 and 6 sweeps (the wrapper cuts a chain
+// into those, as the bf16 chains: an f32 sweep stores in shared memory
+// what it would store in device memory, so the cut does not change the
+// result).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -153,18 +169,29 @@ __device__ __forceinline__ Tile tile_at(int t, int ny, int nx) {
     return T;
 }
 
+// k mod n in [0, n), for any k
+__device__ __forceinline__ int wrap_index(int k, int n) {
+    const int m = k % n;
+    return m < 0 ? m + n : m;
+}
+
 // Issue the copies of one tile's e (unless from_zero) and r into a stage:
 // f32 by VEC, bf16 (VEC 0) by vec (4: 8-byte cp.async, 1: 2-byte loads).
-template <class G, int VEC, class ST>
+// WRAP (f32): the periodic axes' outside cells from the wrapped index.
+template <class G, int VEC, class ST, bool WRAP = false>
 __device__ __forceinline__ void load_tile(ST* es, ST* rs, const ST* e,
                                           const ST* r, const Tile& T,
                                           int ny, int nx, int from_zero,
-                                          int vec) {
+                                          int vec, int wrap = 0) {
     if constexpr (storage::is_f32<ST>) {
         constexpr int CW = G::W / VEC;   // copies per shared row
         for (int q = threadIdx.x; q < G::H * CW; q += G::THREADS) {
             const int j = q / CW, i = (q % CW) * VEC;
-            const int gy = T.oy + j, gx = T.ox + i;
+            int gy = T.oy + j, gx = T.ox + i;
+            if constexpr (WRAP) {
+                if (wrap & 2) gy = wrap_index(gy, ny);
+                if (wrap & 1) gx = wrap_index(gx, nx);
+            }
             const bool in = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
             const size_t g = T.base + (in ? (size_t)gy * nx + gx : 0);
             const int k = j * G::W + i;
@@ -200,13 +227,15 @@ __device__ __forceinline__ void load_tile(ST* es, ST* rs, const ST* e,
 // from the shared tile's edge in y, S + HX - N in x). Thread (g, i) owns
 // column i over row group g and rolls the column through registers.
 // EDGE: the tile reaches the domain's edge, so every cell is tested.
-template <class G, int S, bool EDGE, bool SIGNED, class ST>
+// WRAP: no cell is outside along a periodic axis (wrap).
+template <class G, int S, bool EDGE, bool SIGNED, class ST, bool WRAP = false>
 __device__ __forceinline__ void sweep(const ST* __restrict__ src,
                                       ST* __restrict__ dst,
                                       const ST* __restrict__ rs,
                                       const Tile& T,
                                       int ny, int nx, float omega,
-                                      int from_zero, const Signs& sg) {
+                                      int from_zero, const Signs& sg,
+                                      int wrap = 0) {
     constexpr int R = (G::H - 2 * S + G::GROUPS - 1) / G::GROUPS;
     const int i = threadIdx.x % G::W;
     const int j0 = S + (threadIdx.x / G::W) * R;
@@ -214,7 +243,8 @@ __device__ __forceinline__ void sweep(const ST* __restrict__ src,
     if (i == 0 || i == G::W - 1 || j0 >= j1) return;
     const int gx = T.ox + i;
     float exv = edge<SIGNED>(gx, nx, sg.x_lo, sg.x_hi);
-    const bool xin = gx >= 0 && gx < nx;
+    const bool xin = (WRAP && (wrap & 1)) || (gx >= 0 && gx < nx);
+    const bool wy = WRAP && (wrap & 2);
     if (S == 1 && from_zero) {
         for (int j = j0; j < j1; ++j) {
             const int idx = j * G::W + i;
@@ -224,7 +254,7 @@ __device__ __forceinline__ void sweep(const ST* __restrict__ src,
                 continue;
             }
             const int gy = T.oy + j;
-            if (!xin || gy < 0 || gy >= ny) {
+            if (!xin || (!wy && (gy < 0 || gy >= ny))) {
                 dst[idx] = narrow<ST>(0.0f);
                 continue;
             }
@@ -246,7 +276,7 @@ __device__ __forceinline__ void sweep(const ST* __restrict__ src,
         float corr = -4.0f, inv_d = -0.25f;     // 1 / -4, exact
         if (EDGE) {
             const int gy = T.oy + j;
-            if (!xin || gy < 0 || gy >= ny) {
+            if (!xin || (!wy && (gy < 0 || gy >= ny))) {
                 dst[idx] = narrow<ST>(0.0f);
                 ym = cur;
                 cur = yp;
@@ -264,27 +294,28 @@ __device__ __forceinline__ void sweep(const ST* __restrict__ src,
 }
 
 // Sweeps S..N, alternating between the two buffers.
-template <class G, int S, bool EDGE, bool SIGNED, class ST>
+template <class G, int S, bool EDGE, bool SIGNED, class ST, bool WRAP = false>
 __device__ __forceinline__ void sweeps(ST* a, ST* b, const ST* rs,
                                        const Tile& T, int ny, int nx,
                                        float omega, int from_zero,
-                                       const Signs& sg) {
+                                       const Signs& sg, int wrap = 0) {
     if constexpr (S <= G::N) {
-        sweep<G, S, EDGE, SIGNED>(a, b, rs, T, ny, nx, omega, from_zero, sg);
+        sweep<G, S, EDGE, SIGNED, ST, WRAP>(a, b, rs, T, ny, nx, omega,
+                                            from_zero, sg, wrap);
         __syncthreads();
-        sweeps<G, S + 1, EDGE, SIGNED>(b, a, rs, T, ny, nx, omega,
-                                       from_zero, sg);
+        sweeps<G, S + 1, EDGE, SIGNED, ST, WRAP>(b, a, rs, T, ny, nx, omega,
+                                                 from_zero, sg, wrap);
     }
 }
 
 // ST: the storage type of e, r, out and the tile. An f32 instance copies
 // by VEC (4: 16 bytes, 1: 4 bytes); a bf16 one (VEC 0) by vec (4: 8 bytes,
-// 1: 2 bytes).
-template <class G, int VEC, bool SIGNED, class ST>
+// 1: 2 bytes). WRAP (f32, SIGNED): the wrap form, wrap its periodic axes.
+template <class G, int VEC, bool SIGNED, class ST, bool WRAP = false>
 __global__ void __launch_bounds__(G::THREADS)
 jacobi_kernel(const ST* __restrict__ e, const ST* __restrict__ r,
               ST* __restrict__ out, int L, int ny, int nx, float omega,
-              int from_zero, Signs sg, int vec) {
+              int from_zero, Signs sg, int vec, int wrap) {
     extern __shared__ float4 smem4[];
     ST* smem = reinterpret_cast<ST*>(smem4);
     ST* buf = smem + 4 * G::CELLS;         // the sweep buffer
@@ -293,8 +324,8 @@ jacobi_kernel(const ST* __restrict__ e, const ST* __restrict__ r,
     int t = blockIdx.x;
     if (t >= tiles) return;
     Tile T = tile_at<G>(t, ny, nx);
-    load_tile<G, VEC>(smem, smem + G::CELLS, e, r, T, ny, nx, from_zero,
-                      vec);
+    load_tile<G, VEC, ST, WRAP>(smem, smem + G::CELLS, e, r, T, ny, nx,
+                                from_zero, vec, wrap);
     cp_commit();
     for (int s = 0; t < tiles; t += gridDim.x, s ^= 1) {
         ST* es = smem + s * 2 * G::CELLS;
@@ -302,19 +333,21 @@ jacobi_kernel(const ST* __restrict__ e, const ST* __restrict__ r,
         const int nt = t + gridDim.x;
         if (nt < tiles) {
             ST* ns = smem + (s ^ 1) * 2 * G::CELLS;
-            load_tile<G, VEC>(ns, ns + G::CELLS, e, r, tile_at<G>(nt, ny, nx),
-                              ny, nx, from_zero, vec);
+            load_tile<G, VEC, ST, WRAP>(ns, ns + G::CELLS, e, r,
+                                        tile_at<G>(nt, ny, nx), ny, nx,
+                                        from_zero, vec, wrap);
         }
         cp_commit();
         cp_wait1();
         __syncthreads();
         if (T.oy >= 0 && T.oy + G::H <= ny && T.ox >= 0
                 && T.ox + G::W <= nx)
-            sweeps<G, 1, false, SIGNED>(es, buf, rs, T, ny, nx, omega,
-                                        from_zero, sg);
+            sweeps<G, 1, false, SIGNED, ST, WRAP>(es, buf, rs, T, ny, nx,
+                                                  omega, from_zero, sg,
+                                                  wrap);
         else
-            sweeps<G, 1, true, SIGNED>(es, buf, rs, T, ny, nx, omega,
-                                       from_zero, sg);
+            sweeps<G, 1, true, SIGNED, ST, WRAP>(es, buf, rs, T, ny, nx,
+                                                 omega, from_zero, sg, wrap);
         const ST* res = (G::N % 2) ? buf : es;
         if constexpr (storage::is_f32<ST>) {
             constexpr int CX = G::TX / VEC;
@@ -354,11 +387,11 @@ jacobi_kernel(const ST* __restrict__ e, const ST* __restrict__ r,
 
 template <class ST>
 using Launch = int (*)(const ST*, const ST*, ST*, int, int, int, float, int,
-                       Signs, int, int, cudaStream_t);
+                       Signs, int, int, int, cudaStream_t);
 
-template <class G, int VEC, bool SIGNED, class ST>
+template <class G, int VEC, bool SIGNED, class ST, bool WRAP = false>
 int launch(const ST* e, const ST* r, ST* out, int L, int ny, int nx,
-           float omega, int from_zero, Signs sg, int vec, int grid,
+           float omega, int from_zero, Signs sg, int vec, int grid, int wrap,
            cudaStream_t st) {
     // two stages of (e, r) and the sweep buffer
     constexpr size_t smem = sizeof(ST) * 5 * G::CELLS;
@@ -369,21 +402,21 @@ int launch(const ST* e, const ST* r, ST* out, int L, int ny, int nx,
     if (err != cudaSuccess) return (int)err;
     if (smem > 48 * 1024 && !(dev < 64 && (opted_in >> dev & 1))) {
         err = cudaFuncSetAttribute(
-            jacobi_kernel<G, VEC, SIGNED, ST>,
+            jacobi_kernel<G, VEC, SIGNED, ST, WRAP>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
         if (dev < 64) opted_in |= 1ull << dev;
     }
-    jacobi_kernel<G, VEC, SIGNED, ST><<<grid, G::THREADS, smem, st>>>(
-        e, r, out, L, ny, nx, omega, from_zero, sg, vec);
+    jacobi_kernel<G, VEC, SIGNED, ST, WRAP><<<grid, G::THREADS, smem, st>>>(
+        e, r, out, L, ny, nx, omega, from_zero, sg, vec, wrap);
     return (int)cudaGetLastError();
 }
 
 // 128 x 64 tiles for the fine levels, 32 x 16 for the coarse ones
-template <int NSW, int VEC, bool SIGNED, class ST>
+template <int NSW, int VEC, bool SIGNED, class ST, bool WRAP = false>
 Launch<ST> pick(int big) {
-    return big ? launch<Geo<NSW, 128, 64, 4>, VEC, SIGNED, ST>
-               : launch<Geo<NSW, 32, 16, 8>, VEC, SIGNED, ST>;
+    return big ? launch<Geo<NSW, 128, 64, 4>, VEC, SIGNED, ST, WRAP>
+               : launch<Geo<NSW, 32, 16, 8>, VEC, SIGNED, ST, WRAP>;
 }
 
 template <int VEC, bool SIGNED>
@@ -410,6 +443,17 @@ Launch<bf16> pick_bf16(int nsw, int big) {
     }
 }
 
+// the wrap form's launch sizes (hopper_kernels.BF16_CHAIN, as bf16's)
+template <int VEC>
+Launch<float> pick_wrap(int nsw, int big) {
+    switch (nsw) {
+        case 1: return pick<1, VEC, true, float, true>(big);
+        case 2: return pick<2, VEC, true, float, true>(big);
+        case 6: return pick<6, VEC, true, float, true>(big);
+        default: return nullptr;
+    }
+}
+
 template <bool SIGNED>
 int sweeps_entry(const float* e, const float* r, float* out, int L, int ny,
                  int nx, int nsw, float omega, int from_zero, int big,
@@ -419,7 +463,7 @@ int sweeps_entry(const float* e, const float* r, float* out, int L, int ny,
     Launch<float> fn = vec == 4 ? pick_n<4, SIGNED>(nsw, big)
                      : (vec == 1 ? pick_n<1, SIGNED>(nsw, big) : nullptr);
     if (fn == nullptr) return (int)cudaErrorInvalidValue;
-    return fn(e, r, out, L, ny, nx, omega, from_zero, sg, vec, grid,
+    return fn(e, r, out, L, ny, nx, omega, from_zero, sg, vec, grid, 0,
               (cudaStream_t)stream);
 }
 
@@ -434,7 +478,7 @@ int sweeps_entry_bf16(const void* e, const void* r, void* out, int L,
     if (fn == nullptr) return (int)cudaErrorInvalidValue;
     return fn(static_cast<const bf16*>(e), static_cast<const bf16*>(r),
               static_cast<bf16*>(out), L, ny, nx, omega, from_zero, sg, vec,
-              grid, (cudaStream_t)stream);
+              grid, 0, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -462,6 +506,26 @@ extern "C" int cup2d_jacobi_sweeps_signed(
                               big, vec, grid,
                               Signs{es_x_lo, es_x_hi, es_y_lo, es_y_hi},
                               stream);
+}
+
+// The wrap form: nsw 1, 2 or 6; the table's signs, whose (0, 0) pairs
+// are its periodic axes, at least one (the interior diagonal there).
+extern "C" int cup2d_jacobi_sweeps_wrap(
+        const float* e, const float* r, float* out, int L, int ny, int nx,
+        int nsw, float omega, int from_zero, int big, int vec, int grid,
+        float es_x_lo, float es_x_hi, float es_y_lo, float es_y_hi,
+        void* stream) {
+    const int wrap = (es_x_lo == 0.0f && es_x_hi == 0.0f ? 1 : 0)
+                     | (es_y_lo == 0.0f && es_y_hi == 0.0f ? 2 : 0);
+    if (L < 1 || ny < 1 || nx < 1 || grid < 1 || wrap == 0
+            || (vec == 4 && nx % 4))
+        return (int)cudaErrorInvalidValue;
+    Launch<float> fn = vec == 4 ? pick_wrap<4>(nsw, big)
+                     : (vec == 1 ? pick_wrap<1>(nsw, big) : nullptr);
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    return fn(e, r, out, L, ny, nx, omega, from_zero,
+              Signs{es_x_lo, es_x_hi, es_y_lo, es_y_hi}, vec, grid, wrap,
+              (cudaStream_t)stream);
 }
 
 // The bf16 forms: e, r, out bf16; nsw 1, 2 or 6; vec 4 for 8-byte copies

@@ -100,6 +100,18 @@
 //   walk reads the faces where the per-cell kernel read them, and the
 //   result is its bits. The form is a template parameter of the kernel,
 //   the walk and the queue, so the substage instances compile as before.
+// - The wrap form (WRAP = true, a boundary-table form of the whole field,
+//   f32) runs the periodic tables: a face of kind PERIODIC (paired, as
+//   bc.py validates) makes its axis wrap. Along a periodic axis a tile
+//   copies its out-of-field halo rows or columns from (gy mod ny, gx mod
+//   nx), as bc.pad_vector_bc's wrap puts them, and paints nothing there;
+//   the other axis's faces paint as in the BC form, over every stage
+//   column, the wrapped columns included (the y faces of the periodic
+//   channel; an inflow profile at the wrapped column's own coordinate), so
+//   the corners are pad_vector_bc's too. nx % 4 == 0 keeps a wrapped run
+//   of four columns one 16-byte copy (x0 - XO is a multiple of 4). The
+//   compute core is the BC form's; the instance is a template parameter
+//   of the loader and the painting, so the other instances are unchanged.
 
 #pragma once
 
@@ -116,7 +128,8 @@ namespace substage {
 // (4 s (1 - s) along the face). Passed to the kernel by value. Outside the
 // unnamed namespace below: a C entry point that takes it by value must
 // keep external linkage.
-enum FaceKind { FREE_SLIP = 0, NO_SLIP = 1, INFLOW = 2, OUTFLOW = 3 };
+enum FaceKind { FREE_SLIP = 0, NO_SLIP = 1, INFLOW = 2, OUTFLOW = 3,
+                PERIODIC = 4 };
 
 struct Face {
     int kind;
@@ -177,6 +190,13 @@ __device__ __forceinline__ Tile tile_at(int t, int ny, int nx) {
     return T;
 }
 
+// k mod n in [0, n), for any k (a halo may span several periods of a
+// field narrower than the tile)
+__device__ __forceinline__ int wrap(int k, int n) {
+    const int m = k % n;
+    return m < 0 ? m + n : m;
+}
+
 template <int VEC>
 __device__ __forceinline__ void cp_async(float* dst, const float* src) {
     uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
@@ -203,12 +223,15 @@ __device__ __forceinline__ void cp_wait0() {
 // Issue the copies of one tile into a stage (u then v, H rows of W): the
 // cells inside the field, and where aux is given, the slab's outside
 // columns on the sides it does not own (aux [L, 2, ny, 6]: columns -3..-1,
-// then nx..nx+2). Shared column i holds global x0 - XO + i.
-template <int VEC>
+// then nx..nx+2). Shared column i holds global x0 - XO + i. WRAP: along a
+// periodic axis (wx, wy) the cells outside the field too, from the
+// wrapped index.
+template <int VEC, bool WRAP = false>
 __device__ __forceinline__ void load_tile(float* st, const float* v,
                                           const float* aux, const Tile& T,
                                           int ny, int nx, int is_lo,
-                                          int is_hi) {
+                                          int is_hi, bool wx = false,
+                                          bool wy = false) {
     const size_t plane = (size_t)ny * nx;
     const float* src = v + (size_t)T.l * 2 * plane;
     constexpr int CW = W / VEC;          // copies per shared row
@@ -217,8 +240,19 @@ __device__ __forceinline__ void load_tile(float* st, const float* v,
         const int c = row >= H;
         const int j = row - c * H;
         const int i = (q - row * CW) * VEC;
-        const int gy = T.y0 - G + j, gx = T.x0 - XO + i;
-        if (gy < 0 || gy >= ny || gx < 0 || gx >= nx) continue;
+        int gy = T.y0 - G + j, gx = T.x0 - XO + i;
+        if constexpr (WRAP) {
+            if (gy < 0 || gy >= ny) {
+                if (!wy) continue;
+                gy = wrap(gy, ny);
+            }
+            if (gx < 0 || gx >= nx) {
+                if (!wx) continue;
+                gx = wrap(gx, nx);
+            }
+        } else {
+            if (gy < 0 || gy >= ny || gx < 0 || gx >= nx) continue;
+        }
         cp_async<VEC>(st + c * CELLS + j * W + i,
                       src + c * plane + (size_t)gy * nx + gx);
     }
@@ -342,11 +376,13 @@ __device__ __forceinline__ void widen_stage(float* st,
 
 // True where the cells a tile's outputs read (3 rows and columns around
 // it) leave the field across a y wall or a walled x side: the tile then
-// paints ghosts (a slab's other x sides come from aux).
+// paints ghosts (a slab's other x sides come from aux, a periodic axis's
+// from the wrap: wy, and wall_lo = wall_hi = false along a periodic x).
 __device__ __forceinline__ bool paints(const Tile& T, int ny, int nx,
-                                       bool wall_lo, bool wall_hi) {
-    return T.y0 < G || T.y0 + TY + G > ny || (wall_lo && T.x0 < G)
-           || (wall_hi && T.x0 + TX + G > nx);
+                                       bool wall_lo, bool wall_hi,
+                                       bool wy = false) {
+    return (!wy && (T.y0 < G || T.y0 + TY + G > ny))
+           || (wall_lo && T.x0 < G) || (wall_hi && T.x0 + TX + G > nx);
 }
 
 // Paint the free-slip ghosts of a stage whose copies have landed: the y
@@ -448,17 +484,24 @@ __device__ __forceinline__ void bc_ghost(const Face& f, int nc, float sign,
 // closes to 0 at the corners. The received halo columns are otherwise left
 // as loaded. dt is the member's raw dt. The int -> float conversion of a
 // global column is exact below 2^24, so a slab's profile is the whole
-// field's at the same column. Ends synchronised.
+// field's at the same column. WRAP: no y faces where y is periodic (wy);
+// where x is (wx) the x faces are off (wall_lo = wall_hi = false) and a
+// wrapped column's profile is its source column's. Ends synchronised.
+template <bool WRAP = false>
 __device__ __forceinline__ void paint_ghosts_bc(float* st, const Tile& T,
                                                 int ny, int nx,
                                                 const Faces& F, float dt,
                                                 float h, int col0,
                                                 int nx_tot, bool wall_lo,
-                                                bool wall_hi) {
+                                                bool wall_hi, bool wx = false,
+                                                bool wy = false) {
     float* u = st;
     float* w = st + CELLS;
     const int jhi = ny - 1 - T.y0 + G;   // shared row of gy = ny - 1
     for (int q = threadIdx.x; q < 2 * G * W; q += THREADS) {
+        if constexpr (WRAP) {
+            if (wy) break;
+        }
         const int r = q / W, i = q - r * W;
         const bool lo = r < G;
         int j, e, in;
@@ -474,8 +517,12 @@ __device__ __forceinline__ void paint_ghosts_bc(float* st, const Tile& T,
             in = jhi - 1;
         }
         const Face f = lo ? F.y_lo : F.y_hi;
+        int gx = T.x0 - XO + i;
+        if constexpr (WRAP) {
+            if (wx) gx = wrap(gx, nx);
+        }
         const float p = parabola(__fdiv_rn(
-            __fadd_rn((float)(col0 + T.x0 - XO + i), 0.5f), (float)nx_tot));
+            __fadd_rn((float)(col0 + gx), 0.5f), (float)nx_tot));
         float wu, wv, gu, gv;
         wall_velocity(f, p, wu, wv);
         bc_ghost(f, 1, lo ? -1.0f : 1.0f, u[e * W + i], w[e * W + i],
@@ -763,28 +810,36 @@ __device__ __forceinline__ void compute_tile(
 // copies by VEC (4: 16 bytes, 1: 4 bytes); a bf16 one (VEC 0) by its
 // launch argument vec (4: 8 bytes, 1: 2 bytes). LAB (f32, VEC 0, not BC):
 // the single-op RHS, v a lab [L, 2, ny + 6, nx + 6] copied by vec (2: 8
-// bytes, 1: 4 bytes), facs [2] shared by the members, out = rhs.
-template <int VEC, bool BC, class TI, class TO, bool LAB = false>
+// bytes, 1: 4 bytes), facs [2] shared by the members, out = rhs. WRAP
+// (f32, BC, a whole field): the wrap form, the faces of kind PERIODIC
+// making their axes wrap.
+template <int VEC, bool BC, class TI, class TO, bool LAB = false,
+          bool WRAP = false>
 __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
 substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
                 const TI* __restrict__ aux, TO* __restrict__ out,
                 const float* __restrict__ facs, int L, int ny, int nx,
                 float cfac, float ih2, int is_lo, int is_hi, Faces faces,
                 float h, int col0, int nx_tot, int vec) {
+    static_assert(!WRAP || (BC && !LAB && storage::is_f32<TI>),
+                  "the wrap form is an f32 boundary-table substage");
     constexpr int FS = LAB ? 0 : BC ? 3 : 2;   // facs per member
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
     const int tiles = L * ((ny + TY - 1) / TY) * ((nx + TX - 1) / TX);
     int t = blockIdx.x;
     if (t >= tiles) return;
-    const bool wall_lo = aux == nullptr || is_lo;
-    const bool wall_hi = aux == nullptr || is_hi;
+    const bool wx = WRAP && faces.x_lo.kind == PERIODIC;
+    const bool wy = WRAP && faces.y_lo.kind == PERIODIC;
+    const bool wall_lo = (aux == nullptr || is_lo) && !wx;
+    const bool wall_hi = (aux == nullptr || is_hi) && !wx;
     Tile T = tile_at(t, ny, nx);
     if constexpr (storage::is_f32<TI>) {
         if constexpr (LAB)
             load_lab(smem, v, T, ny, nx, vec == 2);
         else
-            load_tile<VEC>(smem, v, aux, T, ny, nx, is_lo, is_hi);
+            load_tile<VEC, WRAP>(smem, v, aux, T, ny, nx, is_lo, is_hi, wx,
+                                 wy);
         cp_commit();
         for (int s = 0; t < tiles; t += gridDim.x, s ^= 1) {
             float* st = smem + s * 2 * CELLS;
@@ -796,16 +851,17 @@ substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
                     load_lab(smem + (s ^ 1) * 2 * CELLS, v, N, ny, nx,
                              vec == 2);
                 else
-                    load_tile<VEC>(smem + (s ^ 1) * 2 * CELLS, v, aux, N, ny,
-                                   nx, is_lo, is_hi);
+                    load_tile<VEC, WRAP>(smem + (s ^ 1) * 2 * CELLS, v, aux,
+                                         N, ny, nx, is_lo, is_hi, wx, wy);
             }
             cp_commit();
             cp_wait1();
             __syncthreads();
-            if (!LAB && paints(T, ny, nx, wall_lo, wall_hi)) {
+            if (!LAB && paints(T, ny, nx, wall_lo, wall_hi, wy)) {
                 if constexpr (BC)
-                    paint_ghosts_bc(st, T, ny, nx, faces, facs[FS * T.l + 2],
-                                    h, col0, nx_tot, wall_lo, wall_hi);
+                    paint_ghosts_bc<WRAP>(st, T, ny, nx, faces,
+                                          facs[FS * T.l + 2], h, col0,
+                                          nx_tot, wall_lo, wall_hi, wx, wy);
                 else
                     paint_ghosts(st, T, ny, nx, wall_lo, wall_hi);
             }
@@ -856,7 +912,8 @@ substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
 
 // Launch on a stream: the grid's persistent CTAs, 1 .. the number of tiles.
 // Returns the CUDA error code.
-template <int VEC, bool BC, class TI, class TO, bool LAB = false>
+template <int VEC, bool BC, class TI, class TO, bool LAB = false,
+          bool WRAP = false>
 int launch_vec(const TI* v, const TI* vold, const TI* aux, TO* out,
                const float* facs, int L, int ny, int nx, float cfac,
                float ih2, int is_lo, int is_hi, const Faces& fc, float h,
@@ -868,12 +925,13 @@ int launch_vec(const TI* v, const TI* vold, const TI* aux, TO* out,
     if (err != cudaSuccess) return (int)err;
     if (!(dev < 64 && (opted_in >> dev & 1))) {
         err = cudaFuncSetAttribute(
-            substage_kernel<VEC, BC, TI, TO, LAB>,
+            substage_kernel<VEC, BC, TI, TO, LAB, WRAP>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
         if (err != cudaSuccess) return (int)err;
         if (dev < 64) opted_in |= 1ull << dev;
     }
-    substage_kernel<VEC, BC, TI, TO, LAB><<<grid, THREADS, SMEM, st>>>(
+    substage_kernel<VEC, BC, TI, TO, LAB, WRAP>
+        <<<grid, THREADS, SMEM, st>>>(
         v, vold, aux, out, facs, L, ny, nx, cfac, ih2, is_lo, is_hi, fc, h,
         col0, nx_tot, vec);
     return (int)cudaGetLastError();
@@ -881,8 +939,8 @@ int launch_vec(const TI* v, const TI* vold, const TI* aux, TO* out,
 
 // vec 4: 16-byte copies for f32 (nx a multiple of 4, v 16-byte aligned),
 // 8-byte ones for bf16 (nx a multiple of 4, v 8-byte aligned); vec 1:
-// 4-byte copies for f32, 2-byte loads for bf16.
-template <bool BC, class TI, class TO>
+// 4-byte copies for f32, 2-byte loads for bf16. WRAP: the wrap form (f32).
+template <bool BC, class TI, class TO, bool WRAP = false>
 int launch_form(const TI* v, const TI* vold, const TI* aux, TO* out,
                 const float* facs, int L, int ny, int nx, float cfac,
                 float ih2, int is_lo, int is_hi, const Faces& fc, float h,
@@ -892,13 +950,13 @@ int launch_form(const TI* v, const TI* vold, const TI* aux, TO* out,
     cudaStream_t st = (cudaStream_t)stream;
     if constexpr (storage::is_f32<TI>) {
         if (vec == 4)
-            return launch_vec<4, BC>(v, vold, aux, out, facs, L, ny, nx,
-                                     cfac, ih2, is_lo, is_hi, fc, h, col0,
-                                     nx_tot, vec, grid, st);
+            return launch_vec<4, BC, TI, TO, false, WRAP>(
+                v, vold, aux, out, facs, L, ny, nx, cfac, ih2, is_lo, is_hi,
+                fc, h, col0, nx_tot, vec, grid, st);
         if (vec == 1)
-            return launch_vec<1, BC>(v, vold, aux, out, facs, L, ny, nx,
-                                     cfac, ih2, is_lo, is_hi, fc, h, col0,
-                                     nx_tot, vec, grid, st);
+            return launch_vec<1, BC, TI, TO, false, WRAP>(
+                v, vold, aux, out, facs, L, ny, nx, cfac, ih2, is_lo, is_hi,
+                fc, h, col0, nx_tot, vec, grid, st);
         return (int)cudaErrorInvalidValue;
     } else {
         if (vec != 4 && vec != 1) return (int)cudaErrorInvalidValue;

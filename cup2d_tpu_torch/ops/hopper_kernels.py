@@ -34,6 +34,9 @@ wrapper                        replaces                         source
                                signs, f32 or bf16)
 ``advect_diffuse_rhs``         ``_adv_kernel`` (RHS over a      ``advect_rhs.cu``
                                pre-padded lab, f32)
+``tridiag_scan``               no Pallas kernel: the fftd       ``tridiag.cu``
+                               solve's two ``lax.scan``s
+                               (batched Thomas, complex64)
 =============================  ===============================  ===================
 
 The four WENO kernels share their arithmetic through ``csrc/weno.cuh``;
@@ -53,7 +56,20 @@ signs. The reference's halo sweep is Neumann only: its signed split
 hierarchies sweep with the signed strip kernel on GSPMD-partitioned
 fields, which the port's split levels sweep slab by slab instead, so the
 signed halo sweep equals one signed sweep of ``fused_jacobi_sweeps`` bit
-for bit. A periodic table has no kernel form and refuses.
+for bit.
+
+Three kernels also have a wrap form for the periodic tables (f32, a C
+entry and template instance of its own; the JAX package runs these tables
+on its XLA chains only, whose function the forms compute):
+``fused_advect_heun(bc=<periodic table>)`` copies the halo along a
+periodic axis from the wrapped rows and columns and paints the other
+axis's faces; ``fused_correction`` reads the gradient's neighbours at the
+wrapped index; ``fused_jacobi_sweeps`` sweeps the wrapped halo with the
+interior diagonal along a periodic axis. A periodic axis's pressure signs
+are 0 (``bc.pressure_signs``), both of them (a lone 0 refuses), and the
+two wrappers read the periodic axes from those pairs (``_wrap_axes``). The FFT direct solve's batched Thomas scans
+(``tridiag_scan``, ``tridiag.cu``) replace no TPU kernel: the JAX package
+runs them as ``lax.scan`` (``FFTDiagPlan.solve``), which PyTorch lacks.
 
 Four kernels also have a bf16 storage form, the ``CUP2D_PREC=bf16`` tier
 (bf16 operands, f32 arithmetic; a C entry of its own in the same source):
@@ -84,7 +100,8 @@ smoother, over every slab of a device (``jacobi_halo_sweep_slabs``) or of
 one slab (``jacobi_halo_sweep``), one per call for the others); a launch
 counts under its kernel's name and again under the name with the suffix
 of each form it is: ``+bc`` (a boundary table), ``+bf16`` (bf16
-storage) and ``+bc+bf16`` (both). Twin calls do not count. A launch runs
+storage), ``+bc+bf16`` (both) and ``+pd`` (the wrap form of a periodic
+table, which counts under ``+bc`` too). Twin calls do not count. A launch runs
 on the current stream of its tensors' device.
 """
 
@@ -104,8 +121,8 @@ from pathlib import Path
 import torch
 
 from . import stencil
-from ..bc import pad_vector_bc, pad_vector_bc_slab
-from .stencil import (NEUMANN_SIGNS, _edge_ones, _zshift,
+from ..bc import pad_vector_bc, pad_vector_bc_slab, periodic_axes
+from .stencil import (NEUMANN_SIGNS, _edge_ones, _shift_bc, _zshift,
                       advect_diffuse_core, heun_substage, inv_diag_bc,
                       inv_diag_bc_slab, inv_diag_neumann, laplacian5_bc,
                       laplacian5_bc_slab, laplacian5_neumann, pad_vector,
@@ -135,6 +152,7 @@ _ENTRIES = {
                     [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P]),
     "advect_rhs": ("cup2d_advect_rhs", [_P, _P, _P, _I, _I, _I, _I, _I,
                                         _P]),
+    "tridiag": ("cup2d_tridiag_scan", [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 
@@ -149,7 +167,8 @@ class _Faces(ctypes.Structure):
     _fields_ = [(name, _Face) for name in ("x_lo", "x_hi", "y_lo", "y_hi")]
 
 
-_FACE_KINDS = {"free_slip": 0, "no_slip": 1, "inflow": 2, "outflow": 3}
+_FACE_KINDS = {"free_slip": 0, "no_slip": 1, "inflow": 2, "outflow": 3,
+               "periodic": 4}
 
 
 class _Slab(ctypes.Structure):
@@ -221,6 +240,15 @@ _FORM_ENTRIES = {
                                   "cup2d_jacobi_halo_sweep_slabs_signed_bf16",
                                   [_P, _I, _I, _I, _F, _I, _F, _F, _F, _F,
                                    _P]),
+    "advect_heun+wrap": ("advect_heun", "cup2d_advect_substage_wrap",
+                         [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _Faces,
+                          _I, _I, _P]),
+    "correction+wrap": ("correction", "cup2d_fused_correction_wrap",
+                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+                         _F, _P]),
+    "jacobi+wrap": ("jacobi", "cup2d_jacobi_sweeps_wrap",
+                    [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _F, _F,
+                     _F, _F, _P]),
 }
 
 launches = {"fused_advect_heun": 0, "fused_correction": 0,
@@ -233,7 +261,9 @@ launches = {"fused_advect_heun": 0, "fused_correction": 0,
             "fused_jacobi_sweeps+bf16": 0, "fused_jacobi_sweeps+bc+bf16": 0,
             "jacobi_halo_sweep+bf16": 0, "advect_substage_halo+bc": 0,
             "advect_substage_halo+bc+bf16": 0, "jacobi_halo_sweep+bc": 0,
-            "jacobi_halo_sweep+bc+bf16": 0}
+            "jacobi_halo_sweep+bc+bf16": 0, "fused_advect_heun+pd": 0,
+            "fused_correction+pd": 0, "fused_jacobi_sweeps+pd": 0,
+            "tridiag_scan": 0}
 
 # the TPU kernel each wrapper replaces, for reports (a boundary-table or
 # bf16 form is a form of its kernel: ``kernel_of``)
@@ -246,6 +276,8 @@ REPLACES = {
     "advect_substage_halo": "cup2d_tpu/ops/pallas_kernels.py:576",
     "jacobi_halo_sweep": "cup2d_tpu/ops/pallas_kernels.py:1202",
     "advect_diffuse_rhs": "cup2d_tpu/ops/pallas_kernels.py:130",
+    # no Pallas kernel: the two lax.scan's of FFTDiagPlan.solve
+    "tridiag_scan": "cup2d_tpu/poisson.py:1028",
 }
 SOURCES = {
     "fused_advect_heun": "cup2d_tpu_torch/ops/csrc/advect_heun.cu",
@@ -256,10 +288,12 @@ SOURCES = {
     "advect_substage_halo": "cup2d_tpu_torch/ops/csrc/advect_heun_halo.cu",
     "jacobi_halo_sweep": "cup2d_tpu_torch/ops/csrc/jacobi_halo.cu",
     "advect_diffuse_rhs": "cup2d_tpu_torch/ops/csrc/advect_rhs.cu",
+    "tridiag_scan": "cup2d_tpu_torch/ops/csrc/tridiag.cu",
 }
 
 JACOBI_MAX_SWEEPS = 6
-# the sweeps a bf16 chain launch may take (jacobi.cu builds those alone)
+# the sweeps a bf16 or a wrap chain launch may take (jacobi.cu builds
+# those alone for these forms)
 BF16_CHAIN = (6, 2, 1)
 # jacobi.cu's two tiles, (rows out, shared columns), and the CTAs of each
 # that fit on an SM (shared memory for the big one, registers for the
@@ -290,8 +324,11 @@ def kernel_of(name: str) -> str:
     return name.split("+")[0]
 
 
-def _count(name: str, bc: bool = False, bf16: bool = False) -> None:
+def _count(name: str, bc: bool = False, bf16: bool = False,
+           pd: bool = False) -> None:
     launches[name] += 1
+    if pd:
+        launches[name + "+pd"] += 1
     if bc:
         launches[name + "+bc"] += 1
     if bf16:
@@ -393,28 +430,49 @@ def _launch(stem: str, device: torch.device, *args) -> None:
 
 
 def _signs(signs) -> tuple:
-    """A table's four pressure signs as floats; periodic (0) has no
-    kernel form."""
+    """A table's four pressure signs (x_lo, x_hi, y_lo, y_hi) as floats:
+    +1 (Neumann) or -1 (Dirichlet) on a wall face, 0 on both faces of a
+    periodic axis (a lone 0 refuses: tables pair periodic faces)."""
     signs = tuple(float(x) for x in signs)
-    if len(signs) != 4 or any(x not in (1.0, -1.0) for x in signs):
-        raise ValueError(f"signs {signs}: expected four of +1 (Neumann) or "
-                         "-1 (Dirichlet); periodic faces have no kernel form")
+    pairs = (signs[:2], signs[2:])
+    if len(signs) != 4 or any(
+            p != (0.0, 0.0) and any(x not in (1.0, -1.0) for x in p)
+            for p in pairs):
+        raise ValueError(f"signs {signs}: expected +1 (Neumann) or -1 "
+                         "(Dirichlet) on a wall face, 0 on both faces of a "
+                         "periodic axis")
     return signs
 
 
+def _wrap_axes(signs) -> tuple:
+    """(px, py): the periodic axes of ``_signs``' checked signs, those
+    whose pair is (0, 0)."""
+    return tuple(signs[k:k + 2] == (0.0, 0.0) for k in (0, 2))
+
+
 def _faces(bc) -> _Faces:
-    """The kernel's by-value face table of a non-periodic ``BCTable``."""
+    """The kernel's by-value face table of a ``BCTable`` (a periodic face
+    is kind 4: the wrap form)."""
     faces = _Faces()
     for name, f in zip(("x_lo", "x_hi", "y_lo", "y_hi"), bc):
         if f.kind not in _FACE_KINDS:
             raise ValueError(f"boundary table {bc.token}: face {name} of kind "
-                             f"{f.kind!r} has no kernel form (periodic tables"
-                             " wait for ROADMAP queue 1 item 3)")
+                             f"{f.kind!r} has no kernel form")
         setattr(faces, name, _Face(_FACE_KINDS[f.kind],
                                    int(f.kind == "inflow"
                                        and f.profile == "parabolic"),
                                    float(f.u_wall[0]), float(f.u_wall[1])))
     return faces
+
+
+def _split_signs(signs) -> tuple:
+    """``_signs`` of a split field's halo sweep: walls only (a periodic
+    table has no split form: ROADMAP queue 1 item 8)."""
+    signs = _signs(signs)
+    if (0.0, 0.0) in (signs[:2], signs[2:]):
+        raise ValueError(f"signs {signs}: a periodic axis has no split form "
+                         "(ROADMAP queue 1 item 8)")
+    return signs
 
 
 @functools.lru_cache(maxsize=None)
@@ -495,8 +553,9 @@ def advect_substage_plain(v, vold, facs, cfac, ih2, bc=None, h=None,
     the first substage, where it is v); facs [L, 2] per-member
     (afac, dfac), or with a boundary table ``bc`` (not free-slip) [L, 3]
     with the raw dt, which feeds the outflow speed with the grid spacing
-    ``h``. The JAX package's pad (``pad_vector`` or ``bc.pad_vector_bc``)
-    -> advect_diffuse_core -> heun_substage chain. bf16 v and vold (the
+    ``h``. The JAX package's pad (``pad_vector`` or ``bc.pad_vector_bc``,
+    whose wrap serves a periodic table's axes) -> advect_diffuse_core ->
+    heun_substage chain. bf16 v and vold (the
     bf16 form) are widened to f32 first and the result rounded once to
     ``out_dtype`` (default v's dtype)."""
     out_dtype = _out_dtype("advect_substage", v, out_dtype)
@@ -530,8 +589,10 @@ def substage_plan(L: int, ny: int, nx: int, sms: int,
 def advect_substage(v, vold, facs, cfac, ih2, bc=None, h=None,
                     out_dtype=None):
     """One substage: the kernel for CUDA tensors (its boundary-table form
-    where ``bc`` is given, its bf16 form for bf16 v and vold), the twin for
-    CPU ones. Same arguments and result as the twin."""
+    where ``bc`` is given, its wrap form where the table has a periodic
+    axis, its bf16 form for bf16 v and vold), the twin for CPU ones. Same
+    arguments and result as the twin; a periodic table has no bf16
+    form."""
     if not _on_cuda(v, vold, facs):
         return advect_substage_plain(v, vold, facs, cfac, ih2, bc, h,
                                      out_dtype)
@@ -548,6 +609,10 @@ def advect_substage(v, vold, facs, cfac, ih2, bc=None, h=None,
     _check("advect_substage", facs=facs)
     out_dtype = _out_dtype("advect_substage", v, out_dtype)
     bf16 = v.dtype == torch.bfloat16
+    wrap = bc is not None and any(periodic_axes(bc))
+    if wrap and bf16:
+        raise ValueError(f"advect_substage: boundary table {bc.token}: a "
+                         "periodic table has no bf16 form")
     faces = None if bc is None else _faces(bc)
     out = torch.empty(v.shape, dtype=out_dtype, device=v.device)
     vec, grid = substage_plan(L, ny, nx, _sm_count(v.device),
@@ -556,13 +621,13 @@ def advect_substage(v, vold, facs, cfac, ih2, bc=None, h=None,
             out.data_ptr(), facs.data_ptr(), L, ny, nx, float(cfac),
             float(ih2))
     form = (int(out_dtype == torch.bfloat16),) if bf16 else ()
-    key = ("advect_heun" + ("" if bc is None else "+bc")
+    key = ("advect_heun" + ("" if bc is None else "+wrap" if wrap else "+bc")
            + ("+bf16" if bf16 else ""))
     if bc is None:
         _launch(key, v.device, *args, *form, vec, grid)
     else:
         _launch(key, v.device, *args, float(h), faces, *form, vec, grid)
-    _count("fused_advect_heun", bc is not None, bf16)
+    _count("fused_advect_heun", bc is not None, bf16, wrap)
     return out
 
 
@@ -600,7 +665,8 @@ def _advect_heun(vel, h, nu, dt, substage, bc, bf16=False):
 def fused_advect_heun(vel, h, nu, dt, bc=None, bf16=False):
     """Both Heun substages (main.cpp:6607-6642). vel [..., 2, Ny, Nx]; dt a
     scalar or shaped like the leading dims (per-member dt); ``bc`` a
-    non-periodic ``BCTable`` (None or free-slip: the free-slip kernel).
+    ``BCTable`` (None or free-slip: the free-slip kernel; a periodic table:
+    the wrap form, f32 only).
     ``bf16`` (f32 state only): substage 1 reads a bf16 copy vb of the
     state and writes bf16, substage 2 reads that and vb (as vold) and
     writes the f32 state; facs stay f32."""
@@ -616,30 +682,41 @@ def fused_advect_heun_plain(vel, h, nu, dt, bc=None, bf16=False):
 # K5: projection correction epilogue (Neumann box, and a table's signs)
 # ---------------------------------------------------------------------------
 
-def fused_correction_plain(x, pres_old, vel, scal, ih2, grad_signs=None):
+def fused_correction_plain(x, pres_old, vel, scal, ih2, grad_signs=None,
+                           periodic=(False, False)):
     """Plain twin: x, pres_old [L, Ny, Nx]; vel [L, 2, Ny, Nx]; scal
     [L, 3] = (mean x, mean pres_old, pfac); ``grad_signs`` the table's
     (sx_lo, sx_hi, sy_lo, sy_hi) pressure signs (None: all Neumann), the
-    wall terms -s_lo and +s_hi. Returns (pres, vel)."""
+    wall terms -s_lo and +s_hi; ``periodic`` the table's (px, py): the
+    gradient's shifts wrap there (``stencil._shift_bc``, as the JAX
+    package's ``pressure_gradient_update_bc``), where the signs are 0.
+    Returns (pres, vel)."""
     ny, nx = x.shape[-2:]
+    px, py = periodic
     sx_lo, sx_hi, sy_lo, sy_hi = grad_signs or (1.0, 1.0, 1.0, 1.0)
     s = scal.reshape(-1, 3, 1, 1)
     pres = ((x - s[:, 0]) + pres_old) - s[:, 1]
     gx = _edge_ones(nx, x.dtype, x.device, lo=-sx_lo, hi=sx_hi)
     gy = _edge_ones(ny, x.dtype, x.device, lo=-sy_lo, hi=sy_hi)
-    dpx = (_zshift(pres, 0, 1) - _zshift(pres, 0, -1)) + pres * gx[None, :]
-    dpy = (_zshift(pres, 1, 0) - _zshift(pres, -1, 0)) + pres * gy[:, None]
+
+    def zs(dy, dx):
+        return _shift_bc(pres, dy, dx, px, py)
+    dpx = (zs(0, 1) - zs(0, -1)) + pres * gx[None, :]
+    dpy = (zs(1, 0) - zs(-1, 0)) + pres * gy[:, None]
     dv = s[:, 2:3] * torch.stack([dpx, dpy], dim=-3)
     return pres, vel + dv * ih2
 
 
 def fused_correction(x, pres_old, vel, scal, ih2, grad_signs=None):
     """Correction epilogue: the kernel for CUDA tensors (its signed form
-    where ``grad_signs`` is given), the twin for CPU ones. Same arguments
-    and result as ``fused_correction_plain``."""
+    where ``grad_signs`` is given, its wrap form where they have a periodic
+    axis's (0, 0) pair), the twin for CPU ones (with those axes). Same
+    arguments and result as ``fused_correction_plain``."""
+    signs = None if grad_signs is None else _signs(grad_signs)
+    px, py = (False, False) if signs is None else _wrap_axes(signs)
     if not _on_cuda(x, pres_old, vel, scal):
-        return fused_correction_plain(x, pres_old, vel, scal, ih2,
-                                      grad_signs)
+        return fused_correction_plain(x, pres_old, vel, scal, ih2, signs,
+                                      (px, py))
     L, ny, nx = x.shape
     if (pres_old.shape != x.shape or vel.shape != (L, 2, ny, nx)
             or scal.shape != (L, 3)):
@@ -653,11 +730,13 @@ def fused_correction(x, pres_old, vel, scal, ih2, grad_signs=None):
     args = (x.data_ptr(), pres_old.data_ptr(), vel.data_ptr(),
             scal.data_ptr(), pres.data_ptr(), vout.data_ptr(), L, ny, nx,
             float(ih2))
-    if grad_signs is None:
+    if signs is None:
         _launch("correction", x.device, *args)
-    else:
-        _launch("correction+bc", x.device, *args, *_signs(grad_signs))
-    _count("fused_correction", grad_signs is not None)
+        _count("fused_correction")
+        return pres, vout
+    _launch("correction+wrap" if px or py else "correction+bc", x.device,
+            *args, *signs)
+    _count("fused_correction", True, pd=px or py)
     return pres, vout
 
 
@@ -665,10 +744,13 @@ def fused_correction(x, pres_old, vel, scal, ih2, grad_signs=None):
 # K6: chains of damped-Jacobi sweeps (Neumann walls, and a table's signs)
 # ---------------------------------------------------------------------------
 
-def jacobi_sweeps_plain(e, r, omega, n, from_zero=False, edge_signs=None):
+def jacobi_sweeps_plain(e, r, omega, n, from_zero=False, edge_signs=None,
+                        periodic=(False, False)):
     """Plain twin: n sweeps e + omega*(r - lap(e))*inv_d of the zero-ghost
     Neumann Laplacian on [..., Ny, Nx] (``edge_signs``: a table's signed
-    ``laplacian5_bc`` and its diagonal); ``from_zero`` makes the first
+    ``laplacian5_bc`` and its diagonal; ``periodic`` its (px, py), whose
+    shifts wrap, the signs 0 there, as the JAX package's periodic
+    ``MultigridPreconditioner._smooth``); ``from_zero`` makes the first
     sweep omega*r*inv_d and ignores ``e``."""
     ny, nx = r.shape[-2:]
     if edge_signs is None:
@@ -677,9 +759,10 @@ def jacobi_sweeps_plain(e, r, omega, n, from_zero=False, edge_signs=None):
     else:
         signs = tuple(float(x) for x in edge_signs)
         inv_d = inv_diag_bc(ny, nx, r.dtype, r.device, signs)
+        px, py = periodic
 
         def lap(p):
-            return laplacian5_bc(p, *signs)
+            return laplacian5_bc(p, *signs, px, py)
     if from_zero and n > 0:
         e = omega * r * inv_d
         n -= 1
@@ -689,7 +772,7 @@ def jacobi_sweeps_plain(e, r, omega, n, from_zero=False, edge_signs=None):
 
 
 def jacobi_sweeps_bf16_plain(e, r, omega, n, from_zero=False,
-                             edge_signs=None):
+                             edge_signs=None, periodic=(False, False)):
     """Plain twin of the bf16 form of the sweep chain: e, r bf16; each
     sweep is ``jacobi_sweeps_plain``'s in f32 on the widened operands,
     rounded to bf16 once, as the kernel stores it. (``jacobi_sweeps_plain``
@@ -699,17 +782,20 @@ def jacobi_sweeps_bf16_plain(e, r, omega, n, from_zero=False,
     cur = None if from_zero else _widen(e)[0]
     for k in range(int(n)):
         cur = jacobi_sweeps_plain(cur, rf, omega, 1, from_zero and k == 0,
-                                  edge_signs).to(torch.bfloat16).float()
+                                  edge_signs, periodic
+                                  ).to(torch.bfloat16).float()
     return e if cur is None else cur.to(torch.bfloat16)
 
 
-def sweep_chain(n: int, bf16: bool = False) -> list[int]:
+def sweep_chain(n: int, bf16: bool = False, wrap: bool = False) -> list[int]:
     """The sweeps of each launch of an n-sweep chain: launches of
     ``JACOBI_MAX_SWEEPS`` and one of the rest, in that order; in bf16 of
     the sizes ``BF16_CHAIN``, largest first (a bf16 chain rounds every
-    sweep wherever it keeps it, so the cut does not change its result)."""
+    sweep wherever it keeps it, so the cut does not change its result),
+    and so in the wrap form (an f32 sweep keeps in shared memory what it
+    would store in device memory: the same holds)."""
     n = int(n)
-    if bf16:
+    if bf16 or wrap:
         out = []
         for k in BF16_CHAIN:
             out += [k] * (n // k)
@@ -749,12 +835,16 @@ def block_jacobi_grid(n: int, sms: int) -> int:
 def fused_jacobi_sweeps(e, r, omega, n, from_zero=False, edge_signs=None):
     """n sweeps: on CUDA tensors as launches of at most six sweeps each
     (``sweep_chain``; the first carries ``from_zero``; the signed form where
-    ``edge_signs`` is given; the bf16 form for bf16 e and r), on CPU
-    tensors the twin (``jacobi_sweeps_bf16_plain`` for bf16)."""
+    ``edge_signs`` is given; the wrap form, f32, where they have a periodic
+    axis's (0, 0) pair; the bf16 form for bf16 e and r), on CPU tensors the
+    twin (``jacobi_sweeps_bf16_plain`` for bf16) with those axes."""
     bf16 = r.dtype == torch.bfloat16
+    signs = () if edge_signs is None else _signs(edge_signs)
+    px, py = _wrap_axes(signs) if signs else (False, False)
+    wrap = px or py
     if not _on_cuda(None if from_zero else e, r):
         twin = jacobi_sweeps_bf16_plain if bf16 else jacobi_sweeps_plain
-        return twin(e, r, omega, n, from_zero, edge_signs)
+        return twin(e, r, omega, n, from_zero, signs or None, (px, py))
     ny, nx = r.shape[-2:]
     L = math.prod(r.shape[:-2])
     if not from_zero and e.shape != r.shape:
@@ -762,18 +852,20 @@ def fused_jacobi_sweeps(e, r, omega, n, from_zero=False, edge_signs=None):
                          f"{tuple(r.shape)}")
     _check("fused_jacobi_sweeps", _STORAGE, r=r,
            e=None if from_zero else e)
-    signs = () if edge_signs is None else _signs(edge_signs)
-    key = ("jacobi+bc" if signs else "jacobi") + ("+bf16" if bf16 else "")
+    if wrap and bf16:
+        raise ValueError("fused_jacobi_sweeps: the wrap form is f32 only")
+    key = (("jacobi+wrap" if wrap else "jacobi+bc") if signs else "jacobi"
+           ) + ("+bf16" if bf16 else "")
     cur = None if from_zero else e
     sms = _sm_count(r.device)
-    for k in sweep_chain(n, bf16):
+    for k in sweep_chain(n, bf16, wrap):
         out = torch.empty_like(r)
         big, vec, grid = jacobi_plan(L, ny, nx, k, sms,
                                      _aligned_copies(cur, r))
         _launch(key, r.device, None if cur is None else cur.data_ptr(),
                 r.data_ptr(), out.data_ptr(), L, ny, nx, k, float(omega),
                 int(cur is None), int(big), vec, grid, *signs)
-        _count("fused_jacobi_sweeps", bool(signs), bf16)
+        _count("fused_jacobi_sweeps", bool(signs), bf16, wrap)
         cur = out
     return cur
 
@@ -998,7 +1090,7 @@ def jacobi_halo_sweep(e, r, aux, omega, is_lo, is_hi, from_zero=False,
             f"jacobi_halo_sweep: e {tuple(e.shape)}, r {tuple(r.shape)}, "
             f"aux {tuple(aux.shape)}: expected [...,Ny,w] x2, [...,Ny,2]")
     _check("jacobi_halo_sweep", _STORAGE, e=e, r=r, aux=aux)
-    signs = () if edge_signs is None else _signs(edge_signs)
+    signs = () if edge_signs is None else _split_signs(edge_signs)
     key = ("jacobi_halo" + ("+bc" if signs else "")
            + ("+bf16" if bf16 else ""))
     out = torch.empty_like(r)
@@ -1106,7 +1198,7 @@ def jacobi_halo_sweep_slabs(es, rs, omega, from_zero=False, edge_signs=None,
         if es[d] is not None and d < D - 1:
             s.right = es[d + 1].data_ptr()
             s.rstride = es[d + 1].shape[-1]
-    signs = () if edge_signs is None else _signs(edge_signs)
+    signs = () if edge_signs is None else _split_signs(edge_signs)
     key = ("jacobi_halo+slabs" + ("+bc" if signs else "")
            + ("+bf16" if bf16 else ""))
     _launch(key, rs[0].device, table, D, math.prod(lead[:-1]), lead[-1],
@@ -1166,3 +1258,52 @@ def advect_diffuse_rhs(vlab, h, nu, dt):
             facs.data_ptr(), L, ny, nx, vec, grid)
     launches["advect_diffuse_rhs"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The FFT direct solve's batched Thomas scans (no TPU kernel: lax.scan in
+# the JAX package's FFTDiagPlan.solve)
+# ---------------------------------------------------------------------------
+
+def tridiag_scan_plain(b, inv_denom, cp):
+    """Plain twin: per member and mode of b [L, n_s, nk] (complex), the
+    forward recurrence dp_j = (b_j - dp_{j-1}) * inv_denom_j and the
+    backward x_j = dp_j - cp_j * x_{j+1} along j (coefficients
+    [n_s, nk], real, of b's precision): the two ``lax.scan``s of the JAX
+    package's ``FFTDiagPlan.solve``, as a loop over rows, the real and
+    imaginary parts each scaled by the real coefficient. Returns x."""
+    br = torch.view_as_real(b)
+    out = torch.empty_like(br)
+    dp = torch.zeros_like(br[:, 0])
+    for j in range(b.shape[1]):
+        dp = (br[:, j] - dp) * inv_denom[j, :, None]
+        out[:, j] = dp
+    xn = torch.zeros_like(dp)
+    for j in range(b.shape[1] - 1, -1, -1):
+        xn = out[:, j] - cp[j, :, None] * xn
+        out[:, j] = xn
+    return torch.view_as_complex(out)
+
+
+def tridiag_scan(b, inv_denom, cp):
+    """The batched Thomas scans: ``tridiag.cu`` for CUDA tensors (b
+    complex64 [L, n_s, nk], inv_denom and cp f32 [n_s, nk], all
+    contiguous; one launch), the twin for CPU ones. Same arguments and
+    result as ``tridiag_scan_plain``."""
+    if not _on_cuda(b, inv_denom, cp):
+        return tridiag_scan_plain(b, inv_denom, cp)
+    if b.dim() != 3 or b.shape[1:] != inv_denom.shape or (
+            cp.shape != inv_denom.shape):
+        raise ValueError(f"tridiag_scan: b {tuple(b.shape)}, inv_denom "
+                         f"{tuple(inv_denom.shape)}, cp {tuple(cp.shape)}: "
+                         "expected [L, n_s, nk] and [n_s, nk] twice")
+    if b.dtype != torch.complex64 or not b.is_contiguous():
+        raise TypeError(f"tridiag_scan: b must be contiguous complex64 on "
+                        f"the card, got {b.dtype}")
+    _check("tridiag_scan", inv_denom=inv_denom, cp=cp)
+    L, n_s, nk = b.shape
+    x = torch.empty_like(b)
+    _launch("tridiag", b.device, b.data_ptr(), inv_denom.data_ptr(),
+            cp.data_ptr(), x.data_ptr(), L, n_s, nk)
+    launches["tridiag_scan"] += 1
+    return x

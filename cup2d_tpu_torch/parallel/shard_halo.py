@@ -354,7 +354,7 @@ def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None,
     parabolic profile at its global columns (col0 = d w of the whole
     width), and its x ghosts on the walls it owns; the facs carry the raw
     dt (the outflow speed). A periodic table refuses (its wrap would need a
-    ring exchange; ROADMAP queue 1 item 3). ``bf16`` (f32 state only), as
+    ring exchange; ROADMAP queue 1 item 8). ``bf16`` (f32 state only), as
     ``hopper_kernels.fused_advect_heun``: substage 1 reads a bf16 copy of
     every slab and writes bf16, substage 2 reads that and the copy and
     writes the f32 state; both exchange their halos in bf16."""
@@ -363,7 +363,7 @@ def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None,
     if bc is not None and any(periodic_axes(bc)):
         raise NotImplementedError(
             f"fused_advect_heun_sharded: boundary table {bc.token!r}: "
-            "periodic faces have no split form (ROADMAP queue 1 item 3)")
+            "periodic faces have no split form (ROADMAP queue 1 item 8)")
     if any(p.shape[-1] < WENO_HALO for p in vel.parts):
         raise ValueError(
             f"fused_advect_heun_sharded: slab width "

@@ -18,7 +18,13 @@ per-face signs) and the forest.
   the true residual.
 * ``project_correct``: the projection epilogue, through
   ``hopper_kernels.fused_correction`` (with a boundary table's pressure
-  signs and, for an outflow table, without the mean removal).
+  signs, its periodic axes, and, for an outflow table, without the mean
+  removal).
+* ``FFTDiagPlan`` / ``fft_diag_solve``: the FFT-diagonalized direct solve
+  of a table with a periodic axis (``CUP2D_POIS=fftd``): a spectral divide
+  on the doubly-periodic box, per-mode tridiagonal systems along the wall
+  axis otherwise (``hopper_kernels.tridiag_scan``). The transforms are
+  ``torch.fft``, as the JAX package's are ``jnp.fft`` outside any kernel.
 * The forest's pieces: ``apply_block_precond_blocks``, the DCT-II exact
   Neumann base solve (``dct_neumann_operators``,
   ``coarse_neumann_solve_dct``), the image ladder steps and
@@ -38,8 +44,9 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .ops.hopper_kernels import (fused_correction, fused_jacobi_sweeps,
-                                 jacobi_sweeps_plain)
+from .ops.hopper_kernels import (_signs, _wrap_axes, fused_correction,
+                                 fused_jacobi_sweeps, jacobi_sweeps_plain,
+                                 tridiag_scan)
 from .ops.stencil import laplacian5_bc, laplacian5_neumann
 from .parallel.shard_halo import (laplacian5_bc_x, level_meshes,
                                   overlap_jacobi_sweeps, reshard)
@@ -119,12 +126,33 @@ cycle and in the fused sweep chains alike.
     the solo one bit for bit. A table's ``edge_signs`` carry through both
     forms (the signed halo sweep on every split or gathered level; the
     JAX package instead drops its split smoother for a signed hierarchy
-    and lets GSPMD partition the signed strip sweeps)."""
+    and lets GSPMD partition the signed strip sweeps).
+
+    ``periodic`` (bc.periodic_axes) makes the operator's shifts wrap along
+    a periodic axis at every level (periodicity survives 2x coarsening),
+    whose ``edge_signs`` are 0, so the Jacobi diagonal keeps the interior
+    -4 there; the fused chains run the sweep kernel's wrap form. It needs
+    the table's ``edge_signs`` and no mesh (the split periodic cycle is
+    ROADMAP queue 1 item 8)."""
 
     def __init__(self, ny: int, nx: int, dtype, nu1: int = 2,
                  nu2: int = 2, coarsest: int = 16, omega: float = 0.8,
                  cycle_dtype=None, fused_smoother: bool = False,
-                 mesh=None, edge_signs=None, leg_dtype=None):
+                 mesh=None, edge_signs=None, leg_dtype=None,
+                 periodic=(False, False)):
+        self.periodic = (bool(periodic[0]), bool(periodic[1]))
+        if any(self.periodic):
+            if edge_signs is None:
+                raise ValueError(
+                    "MultigridPreconditioner: periodic axes need the "
+                    "boundary table's edge_signs (bc.pressure_signs, 0 on "
+                    "the periodic faces); the all-Neumann default would "
+                    "paint wall corrections over the wrap rows")
+            if mesh is not None:
+                raise NotImplementedError(
+                    "MultigridPreconditioner: a periodic hierarchy on a "
+                    "slab mesh needs a ring exchange (ROADMAP queue 1 item "
+                    "8)")
         self.edge_signs = (None if edge_signs is None
                            else tuple(float(x) for x in edge_signs))
         self.nu1 = nu1
@@ -163,7 +191,7 @@ cycle and in the fused sweep chains alike.
         if self.meshes is not None:
             return laplacian5_bc_x(p, self.edge_signs)
         if self.edge_signs is not None:
-            return laplacian5_bc(p, *self.edge_signs)
+            return laplacian5_bc(p, *self.edge_signs, *self.periodic)
         return laplacian5_neumann(p)
 
     def _smooth(self, e, r, lvl, n, from_zero=False):
@@ -171,9 +199,11 @@ cycle and in the fused sweep chains alike.
             return overlap_jacobi_sweeps(e, r, self.omega, n, from_zero,
                                          fused=self.fused_smoother,
                                          edge_signs=self.edge_signs)
-        sweeps = (fused_jacobi_sweeps if self.fused_smoother
-                  else jacobi_sweeps_plain)
-        return sweeps(e, r, self.omega, n, from_zero, self.edge_signs)
+        if self.fused_smoother:
+            return fused_jacobi_sweeps(e, r, self.omega, n, from_zero,
+                                       self.edge_signs)
+        return jacobi_sweeps_plain(e, r, self.omega, n, from_zero,
+                                   self.edge_signs, self.periodic)
 
     def __call__(self, r):
         return self._cycle(r.to(self.dtype), 0).to(self.out_dtype)
@@ -433,6 +463,149 @@ def mg_solve(
 
 
 # ---------------------------------------------------------------------------
+# The FFT-diagonalized direct solve (CUP2D_POIS=fftd)
+# ---------------------------------------------------------------------------
+
+class FFTDiagPlan:
+    """Host-precomputed plan of the FFT-diagonalized direct solve of the
+    undivided per-face Laplacian of a table with a periodic axis (the JAX
+    package's ``FFTDiagPlan``): the real FFT along a periodic axis turns
+    its wrap second difference into the per-mode eigenvalues
+    lam(k) = 2 cos(2 pi k / n) - 2.
+
+    * ``px and py`` (the doubly-periodic box): 2-D real FFT, pointwise
+      divide by lam_y(m) + lam_x(k), inverse FFT; the (0, 0) mode is pinned
+      to 0, so the solution is exactly mean-free.
+    * one periodic axis: the real FFT along it, then per mode a
+      tridiagonal system along the wall axis (unit off-diagonals, diagonal
+      lam(k) - 2 plus the wall sign on the edge rows), solved by the
+      Thomas algorithm as two first-order scans batched over modes and
+      members (``hopper_kernels.tridiag_scan``). The elimination
+      coefficients depend on the fixed diagonal alone and are computed
+      here in f64 numpy. A table periodic in y only runs as the transposed
+      x-periodic problem. With Neumann walls on both sides the k = 0 mode
+      is singular: its right-hand side is made mean-free and row 0 pinned
+      to x = 0, which solves the original system exactly for a mean-free
+      right-hand side; a Dirichlet wall needs no pin.
+
+    The transforms are whole-array along their axes, so there is no split
+    form (``UniformGrid.attach_mesh`` refuses fftd)."""
+
+    def __init__(self, ny: int, nx: int, dtype, px: bool, py: bool,
+                 edge_signs, device=None):
+        if not (px or py):
+            raise ValueError(
+                "FFTDiagPlan needs at least one periodic direction (got "
+                "px=False, py=False): with walls on all four faces there "
+                "is nothing to diagonalize; use bicgstab/mg_solve")
+        self.ny, self.nx = ny, nx
+        self.px, self.py = bool(px), bool(py)
+        self.dtype = dtype
+
+        def dev(a):
+            return torch.as_tensor(a, dtype=dtype, device=device)
+        sx_lo, sx_hi, sy_lo, sy_hi = edge_signs
+        if px and py:
+            lx = 2.0 * np.cos(2.0 * np.pi * np.arange(nx // 2 + 1) / nx) - 2.0
+            ly = 2.0 * np.cos(2.0 * np.pi * np.arange(ny) / ny) - 2.0
+            lam = ly[:, None] + lx[None, :]
+            mask = lam < -1e-12
+            self.ilam = dev(np.where(mask, 1.0 / np.where(mask, lam, 1.0),
+                                     0.0))
+            self.pin = True     # the zeroed (0, 0) mode is the pin
+            return
+        if px:
+            n_t, n_s, s_lo, s_hi = nx, ny, sy_lo, sy_hi
+        else:
+            n_t, n_s, s_lo, s_hi = ny, nx, sx_lo, sx_hi
+        nk = n_t // 2 + 1
+        lam = 2.0 * np.cos(2.0 * np.pi * np.arange(nk) / n_t) - 2.0
+        d = np.tile(lam[None, :], (n_s, 1)) - 2.0
+        d[0, :] += s_lo
+        d[-1, :] += s_hi
+        c = np.ones((n_s, nk))
+        c[-1, :] = 0.0
+        self.pin = s_lo == 1.0 and s_hi == 1.0
+        if self.pin:
+            # the singular k = 0 all-Neumann mode: row 0 -> identity
+            d[0, 0] = 1.0
+            c[0, 0] = 0.0
+        # forward elimination on the fixed matrix (unit subdiagonal):
+        # denom_j = d_j - cp_{j-1}, cp_j = c_j / denom_j
+        denom = np.empty((n_s, nk))
+        cp = np.empty((n_s, nk))
+        denom[0] = d[0]
+        cp[0] = c[0] / denom[0]
+        for j in range(1, n_s):
+            denom[j] = d[j] - cp[j - 1]
+            cp[j] = c[j] / denom[j]
+        self.cp = dev(cp)
+        self.inv_denom = dev(1.0 / denom)
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        """Direct solve of lap(x) = b (the undivided per-face operator);
+        leading axes (members) ride the same transforms."""
+        if self.px and self.py:
+            F = torch.fft.rfft2(b)
+            x = torch.fft.irfft2(F * self.ilam, s=(self.ny, self.nx))
+            return x.to(b.dtype)
+        swap = not self.px       # py only: the transposed px-only problem
+        if swap:
+            b = b.transpose(-1, -2)
+        n_t = b.shape[-1]
+        bh = torch.fft.rfft(b, dim=-1)           # [..., n_s, nk]
+        if self.pin:
+            # mean-free k = 0 column, then pin its row 0
+            col0 = bh[..., :, 0]
+            bh[..., :, 0] = col0 - torch.mean(col0, dim=-1, keepdim=True)
+            bh[..., 0, 0] = 0.0
+        lead, (n_s, nk) = bh.shape[:-2], bh.shape[-2:]
+        xt = tridiag_scan(bh.reshape(-1, n_s, nk).contiguous(),
+                          self.inv_denom, self.cp)
+        x = torch.fft.irfft(xt.reshape(*lead, n_s, nk), n=n_t, dim=-1)
+        if swap:
+            x = x.transpose(-1, -2).contiguous()
+        return x.to(b.dtype)
+
+
+def fft_diag_solve(
+    A: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    plan: FFTDiagPlan,
+    tol: float = 1e-3,
+    tol_rel: float = 1e-2,
+    member_axis: bool = False,
+) -> BiCGSTABResult:
+    """One direct solve with the iterative solvers' result contract:
+    ``x`` from ``plan.solve``, ``residual`` the true Linf residual of that
+    x, ``converged`` against their criterion Linf(r) <= max(tol, tol_rel *
+    Linf(b)), ``iters`` 1, ``stalled`` = not converged (a tol-0 exact
+    request reports the direct solve's precision floor there, as
+    ``bicgstab``'s stall exit does). ``member_axis``: b [B, Ny, Nx] holds
+    B independent systems solved through one transform; iters, residual,
+    converged and stalled are then [B] tensors."""
+    x = plan.solve(b)
+    r = b - A(x)
+    if member_axis:
+        dims = tuple(range(1, b.ndim))
+        residual = torch.amax(torch.abs(r), dim=dims)
+        bnorm = torch.amax(torch.abs(b), dim=dims)
+    else:
+        residual = torch.amax(torch.abs(r))
+        bnorm = torch.amax(torch.abs(b))
+    target = torch.maximum(torch.tensor(tol, dtype=b.dtype, device=b.device),
+                           tol_rel * bnorm)
+    converged = residual <= target
+    if member_axis:
+        return BiCGSTABResult(
+            x=x, iters=torch.ones_like(converged, dtype=torch.int32),
+            residual=residual, converged=converged, stalled=~converged)
+    ok = bool(converged)
+    return BiCGSTABResult(x=x, iters=1, residual=float(residual),
+                          converged=ok, stalled=not ok)
+
+
+# ---------------------------------------------------------------------------
 # The spectral base solve and the forest-native FAS hierarchy
 # ---------------------------------------------------------------------------
 
@@ -594,7 +767,7 @@ class ForestFASCycle:
 
 
 def project_correct(x, pres_old, vel, h, dt, remove_mean=True,
-                    grad_signs=None):
+                    grad_signs=None, periodic=None):
     """Projection epilogue: ``pres = (x - mean x) + pres_old - mean
     pres_old`` and ``vel += -dt/(2h) grad_neumann(pres) / h^2``, the means
     taken here (accumulated in f64, so that their f32 value does not hang
@@ -602,8 +775,17 @@ def project_correct(x, pres_old, vel, h, dt, remove_mean=True,
     same) and the rest in ``fused_correction``. ``remove_mean=False`` (a
     table with an outflow face: its Dirichlet row fixes the level) passes
     zero means; ``grad_signs`` is the table's pressure signs (None: the
-    Neumann gradient). x, pres_old [..., Ny, Nx]; vel [..., 2, Ny, Nx]; dt
-    a scalar. Returns (vel, pres)."""
+    Neumann gradient); ``periodic`` its (px, py) (bc.periodic_axes; None:
+    no periodic axis), along which the gradient wraps (the correction
+    kernel's wrap form, which reads those axes from the signs' (0, 0)
+    pairs: a ``periodic`` that disagrees with them refuses). x, pres_old
+    [..., Ny, Nx]; vel [..., 2, Ny, Nx]; dt a scalar. Returns (vel, pres)."""
+    paxes = (False, False) if grad_signs is None else _wrap_axes(
+        _signs(grad_signs))
+    if tuple(map(bool, periodic or (False, False))) != paxes:
+        raise ValueError(f"project_correct: periodic {periodic} with signs "
+                         f"{grad_signs}: a periodic axis has the signs "
+                         "(0, 0), a wall axis +1 or -1")
     ny, nx = x.shape[-2:]
     L = math.prod(x.shape[:-2])
     dt = torch.as_tensor(dt, dtype=x.dtype, device=x.device)

@@ -1,7 +1,7 @@
 """Uniform-grid execution path on dense tensors: the counterpart of
-``cup2d_tpu.uniform`` for the obstacle-free box, free-slip or walled by any
-non-periodic boundary table (``bc.py``: no-slip walls with a moving lid,
-Dirichlet inflow, convective outflow).
+``cup2d_tpu.uniform`` for the obstacle-free box, free-slip or under any
+boundary table (``bc.py``: no-slip walls with a moving lid, Dirichlet
+inflow, convective outflow, periodic axes).
 
 One step (main.cpp:6576-7290): CFL dt control, two-stage Heun
 advection-diffusion (WENO5 + central diffusion, ``fused_advect_heun``),
@@ -15,17 +15,20 @@ the Hopper kernels always run (there is no kernel-tier switch), on the
 CPU their plain twins.
 
 Boundary tables (``bc=``, a ``bc.BCTable``): the free-slip table runs the
-free-slip code unchanged. Any other validated non-periodic table paints
-its ghosts in the substage kernel, carries its per-face pressure signs
-through the Poisson operator, the multigrid hierarchy and the correction
-kernel, and its divergence coefficients (plus the constant of prescribed
-wall-normal velocities) through the Poisson RHS; a table with an outflow
-face keeps the pressure mean. A periodic table refuses (ROADMAP queue 1
-item 3).
+free-slip code unchanged. Any other validated table paints its ghosts in
+the substage kernel, carries its per-face pressure signs through the
+Poisson operator, the multigrid hierarchy and the correction kernel, and
+its divergence coefficients (plus the constant of prescribed wall-normal
+velocities) through the Poisson RHS; a table with an outflow face keeps
+the pressure mean. A periodic axis (the doubly-periodic box, the periodic
+channel) wraps every shift of those operators, and the three kernels run
+their wrap forms (the JAX package runs such tables on its XLA chains
+only); a periodic table takes no bf16 tier and no mesh (ROADMAP queue 1
+item 8).
 
 ``UniformGrid.attach_mesh`` splits the step along x over a slab mesh
 (``parallel.mesh.ShardedUniformSim`` drives it), free-slip or under any
-table the grid takes: the advection runs the halo-mode substage per shard
+wall-bounded table: the advection runs the halo-mode substage per shard
 (its boundary-table form under a table), the multigrid cycles run on split
 fields (the signed halo sweep under a table), the epilogue is plain
 per-slab code and the reductions combine per-shard partials
@@ -33,7 +36,8 @@ per-slab code and the reductions combine per-shard partials
 
 Environment, read once per ``UniformGrid``: ``CUP2D_POIS`` selects the
 solver (""/structured/tables/fft: bicgstab + MG, fas: MG cycles, fas-f:
-the same opened by an F-cycle; fftd is not ported yet and refuses);
+the same opened by an F-cycle, fftd: the FFT-diagonalized direct solve of
+a table with a periodic axis, ``poisson.fft_diag_solve``);
 ``CUP2D_PREC`` selects the storage of the kernels' operands: f32 (the
 default) or bf16, the JAX package's bf16 tier (there it also needs
 ``CUP2D_PALLAS=1``; the port has no kernel-tier switch, so the latch alone
@@ -69,9 +73,9 @@ from .parallel.shard_halo import (canonical_device, divergence_bc_x,
                                   project_correct_x, slab_all_finite,
                                   slab_linf, slab_reducers, slab_sum,
                                   split_x)
-from .poisson import (MultigridPreconditioner, _reducers,
+from .poisson import (FFTDiagPlan, MultigridPreconditioner, _reducers,
                       apply_block_precond, bicgstab, block_precond_matrix,
-                      mg_solve, project_correct)
+                      fft_diag_solve, mg_solve, project_correct)
 
 __all__ = ["FlowState", "UniformGrid", "UniformSim", "bench_state",
            "pad_scalar", "pad_vector", "resolve_device",
@@ -153,25 +157,28 @@ class UniformGrid:
                 f"bc={bc!r}: expected a cup2d_tpu_torch.bc.BCTable "
                 "(convert.bc_from_fields carries a JAX table over)")
         self.bc = bc.validate()
-        if any(periodic_axes(self.bc)):
-            raise NotImplementedError(
-                f"boundary table {self.bc.token!r}: periodic faces are not "
-                "ported yet (ROADMAP queue 1 item 3: fftd, the periodic "
-                "cases and a decision on their card path)")
         prec = os.environ.get("CUP2D_PREC", "") or "f32"
         if prec not in ("f32", "bf16"):
             raise ValueError(f"CUP2D_PREC={prec!r}: expected f32|bf16")
         self.bf16 = prec == "bf16"
+        if self.bf16 and any(periodic_axes(self.bc)):
+            faces = [n for n, f in zip(("x_lo", "x_hi", "y_lo", "y_hi"),
+                                       self.bc) if f.kind == "periodic"]
+            raise ValueError(
+                f"CUP2D_PREC=bf16: BCTable ({self.bc.token}) faces "
+                f"{', '.join(faces)} have kind 'periodic', which the bf16 "
+                "tier has no form of (the JAX package's bf16 tier needs "
+                "CUP2D_PALLAS=1, which refuses periodic tables); drop "
+                "CUP2D_PREC for this table")
         pois = os.environ.get("CUP2D_POIS", "")
-        if pois == "fftd":
-            raise NotImplementedError(
-                "CUP2D_POIS=fftd (FFT-diagonalized direct solve) is not "
-                "ported yet; it also needs a periodic table")
-        if pois not in ("", "structured", "tables", "fft", "fas", "fas-f"):
+        if pois not in ("", "structured", "tables", "fft", "fas", "fas-f",
+                        "fftd"):
             raise ValueError(
                 f"CUP2D_POIS={pois!r}: expected "
                 "structured|tables|fft|fas|fas-f|fftd")
-        self.solver_mode = "fas" if pois in ("fas", "fas-f") else "bicgstab"
+        self.solver_mode = ("fftd" if pois == "fftd"
+                            else "fas" if pois in ("fas", "fas-f")
+                            else "bicgstab")
         self.fas_fmg = pois == "fas-f"
         lvl = cfg.level_start if level is None else level
         self.level = lvl
@@ -193,6 +200,21 @@ class UniformGrid:
             self._dcoeffs = divergence_coeffs(self.bc)
             self._div_affine = divergence_affine_bc(
                 self.bc, self.ny, self.nx, self.dtype, self.device)
+        # the periodic axes (px, py): wrap shifts in the operator, the
+        # divergence, the gradient and the hierarchy
+        self._paxes = periodic_axes(self.bc)
+        if self.solver_mode == "fftd":
+            if not any(self._paxes):
+                raise ValueError(
+                    f"CUP2D_POIS=fftd needs at least one periodic "
+                    f"direction, got BCTable ({self.bc.token}): the FFT "
+                    "diagonalizes a periodic axis's second difference; run "
+                    "wall-only boxes under bicgstab/fas")
+            self._fft_plan = FFTDiagPlan(self.ny, self.nx, self.dtype,
+                                         *self._paxes, self._psigns,
+                                         device=self.device)
+        else:
+            self._fft_plan = None
         if self.device.type == "cuda":
             # the block preconditioner's GEMM stays in full f32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -211,7 +233,8 @@ class UniformGrid:
             self.ny, self.nx, self.dtype,
             cycle_dtype=self.dtype if fas else None, fused_smoother=fas,
             mesh=self.mesh, edge_signs=self._psigns,
-            leg_dtype=torch.bfloat16 if fas and self.bf16 else None)
+            leg_dtype=torch.bfloat16 if fas and self.bf16 else None,
+            periodic=self._paxes)
 
     def attach_mesh(self, mesh) -> None:
         """Split the step along x over ``mesh`` (a ``SlabMesh`` whose first
@@ -226,9 +249,23 @@ class UniformGrid:
         legs. So does the boundary table: the halo substage paints its
         ghosts, the hierarchy and the Laplacian carry its pressure signs,
         the RHS its divergence coefficients and affine term (split here
-        once) and the epilogue its gradient signs and mean rule. fftd and
-        periodic tables refuse at construction already; Nx must divide by
-        the mesh size."""
+        once) and the epilogue its gradient signs and mean rule. fftd
+        refuses (its transforms and scans are whole-array), as in the JAX
+        package, and so does a periodic table (ROADMAP queue 1 item 8: a
+        ring exchange and y-wrap forms of the halo kernels); Nx must divide
+        by the mesh size."""
+        if self.solver_mode == "fftd":
+            raise ValueError(
+                "CUP2D_POIS=fftd cannot attach a device mesh: the x-split "
+                "shards the FFT transform axis (periodic x) or the "
+                "tridiagonal scan axis (periodic y); run sharded periodic "
+                "cases under bicgstab/fas")
+        if any(self._paxes):
+            raise NotImplementedError(
+                f"boundary table {self.bc.token!r}: the split periodic step "
+                "is not ported (ROADMAP queue 1 item 8: a ring exchange in "
+                "shard_halo.exchange_x and y-wrap forms of the halo "
+                "kernels)")
         if self.nx % mesh.size:
             raise ValueError(f"Nx={self.nx} not divisible by mesh size "
                              f"{mesh.size}")
@@ -277,7 +314,7 @@ class UniformGrid:
             return laplacian5_bc_x(p, self._psigns)
         if self._psigns is None:
             return laplacian5_neumann(p)
-        return laplacian5_bc(p, *self._psigns)
+        return laplacian5_bc(p, *self._psigns, *self._paxes)
 
     def pad_vector_field(self, v: torch.Tensor, g: int,
                          dt=None) -> torch.Tensor:
@@ -297,11 +334,12 @@ class UniformGrid:
                 return (0.5 * self.h / dt) * divergence_freeslip(vel)
             return divergence_rhs_fused(vel, udef, chi, self.h, dt)
         fac = 0.5 * self.h / dt
-        b = fac * divergence_bc(vel, *self._dcoeffs)
+        b = fac * divergence_bc(vel, *self._dcoeffs, *self._paxes)
         if self._div_affine is not None:
             b = b + fac * self._div_affine
         if chi is not None:
-            b = b - (fac * chi) * divergence_bc(udef, *self._dcoeffs)
+            b = b - (fac * chi) * divergence_bc(udef, *self._dcoeffs,
+                                                *self._paxes)
         return b
 
     def precond(self, r: torch.Tensor) -> torch.Tensor:
@@ -319,7 +357,8 @@ class UniformGrid:
         the bf16 storage tier, with the table's token suffixed for a table
         other than free-slip, as the JAX package stamps its fused tier
         (``pallas-fused-bf16+bc(...)``):
-        ``hopper-bf16+bc(ns,ns,ns,ns(1,0))``."""
+        ``hopper-bf16+bc(ns,ns,ns,ns(1,0))``, ``hopper+bc(pd,pd,pd,pd)``
+        (the wrap forms; the JAX package stamps ``xla`` there)."""
         tier = "hopper" if self.device.type == "cuda" else "plain"
         if self.bf16:
             tier += "-bf16"
@@ -344,6 +383,11 @@ class UniformGrid:
 
     @property
     def poisson_mode(self) -> str:
+        """``fftd`` (the doubly-periodic spectral divide), ``fftd+tridiag``
+        (one periodic axis: per-mode Thomas systems), ``fas``/``fas-f``,
+        or ``bicgstab+mg``/``bicgstab``."""
+        if self.solver_mode == "fftd":
+            return "fftd" if all(self._paxes) else "fftd+tridiag"
         if self.solver_mode == "fas":
             return "fas-f" if self.fas_fmg else "fas"
         return "bicgstab+mg" if self.cfg.precond else "bicgstab"
@@ -352,8 +396,14 @@ class UniformGrid:
         """Solve lap(dp) = rhs (undivided). ``exact`` is the reference's
         first-10-steps override (main.cpp:7028-7030): tol 0 with 100
         restarts, exiting through the stall detector at the precision
-        floor; it always runs Krylov, also under fas."""
+        floor; it always runs Krylov under fas. fftd is one direct solve
+        either way (an exact request reports its floor as ``stalled``)."""
         cfg = self.cfg
+        if self.solver_mode == "fftd":
+            return fft_diag_solve(
+                self.laplacian, rhs, self._fft_plan,
+                tol=0.0 if exact else cfg.poisson_tol,
+                tol_rel=0.0 if exact else cfg.poisson_tol_rel)
         reducers = _reducers if self.mesh is None else slab_reducers
         if self.solver_mode == "fas" and not exact:
             return mg_solve(
@@ -405,12 +455,16 @@ class UniformGrid:
         else:
             vel, pres = project_correct(
                 res.x, pres_old, vel, h, dt,
-                remove_mean=self.bc.all_neumann, grad_signs=self._psigns)
+                remove_mean=self.bc.all_neumann, grad_signs=self._psigns,
+                periodic=self._paxes)
         return vel, pres, res, div_linf
 
     def precond_cycles(self, res, exact) -> int:
         """Hierarchy cycles of one solve: FAS iterations are cycles,
-        flexible BiCGSTAB applies M twice per iteration."""
+        flexible BiCGSTAB applies M twice per iteration, the direct solve
+        none."""
+        if self.solver_mode == "fftd":
+            return 0
         if self.solver_mode == "fas" and not exact:
             return res.iters
         if self.cfg.precond:

@@ -410,24 +410,36 @@ def test_free_slip_table_is_bit_identical_to_no_table():
 
 
 @pytest.mark.parametrize("table", ["periodic", "periodic_channel"])
-def test_periodic_tables_refuse(table):
+def test_periodic_tables_refuse(table, monkeypatch):
+    """The periodic tables run (their parity with JAX is in
+    tests/test_torch_periodic.py) and refuse only the bf16 tier, which
+    has no periodic form, as in the JAX package."""
     bc = getattr(tcases, f"{table}_table")()
     cfg = config_from_dict(dataclasses.asdict(_cfg()))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        UniformGrid(cfg, level=2, device="cpu", bc=bc)
+    g = UniformGrid(cfg, level=2, device="cpu", bc=bc)
+    assert g.bc_table == bc.token and g.kernel_tier == f"plain+bc({bc.token})"
+    st = g.zero_state()
+    st.vel[0] = 0.3
+    st, d = g.step(st, 0.5 * g.h, obstacle_terms=False)
+    assert bool(d["finite"]) and d["poisson_converged"]
+    monkeypatch.setenv("CUP2D_PREC", "bf16")
+    with pytest.raises(ValueError, match="CUP2D_PREC=bf16"):
+        UniformGrid(config_from_dict(dataclasses.asdict(_cfg(
+            dtype="float32"))), level=2, device="cpu", bc=bc)
 
 
 def test_split_step_with_a_table_refuses():
     """Since the split BC forms were ported, only a periodic table refuses
-    on a mesh (at the grid, as it does solo, and at the split substage);
-    the cavity builds a split sim and the signed split hierarchy builds."""
+    on a mesh (at the mesh, naming the split periodic step's ROADMAP item,
+    and at the split substage); the cavity builds a split sim and the
+    signed split hierarchy builds."""
     cfg = config_from_dict(dataclasses.asdict(_cfg()))
     mesh = make_mesh(devices=["cpu"] * 2)
     for table in (tcases.periodic_table(), tcases.periodic_channel_table()):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             ShardedUniformSim(cfg, mesh, level=2, bc=table)
     v = split_x(torch.zeros(2, 16, 32, dtype=torch.float64), mesh)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         fused_advect_heun_sharded(v, 1 / 32, 1e-3, 1e-3,
                                   bc=tcases.periodic_channel_table())
     sim = tcases.make_sim("cavity", level=2, mesh=mesh, dtype="float64")
@@ -441,12 +453,20 @@ def test_split_step_with_a_table_refuses():
     assert mg.meshes[0] is mesh
 
 
-@pytest.mark.parametrize("name,item", [("tgv_periodic", "queue 1 item 3"),
-                                       ("shear_layer", "queue 1 item 3"),
-                                       ("turb2d", "queue 1 item 3")])
+@pytest.mark.parametrize("name,item", [("tgv_periodic", "queue 1 item 6"),
+                                       ("shear_layer", "queue 1 item 6"),
+                                       ("turb2d", "queue 1 item 6")])
 def test_waiting_cases_refuse(name, item):
+    """The periodic cases build and step solo; their fleets wait for the
+    fleet driver (item 6), their split step for item 8."""
     with pytest.raises(NotImplementedError, match=item):
-        tcases.make_sim(name, device="cpu")
+        tcases.make_sim(name, device="cpu", members=2)
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        tcases.make_sim(name, level=2, mesh=make_mesh(devices=["cpu"] * 2))
+    sim = tcases.make_sim(name, level=2, device="cpu", dtype="float64")
+    assert sim.case == name and sim.bc_table == "pd,pd,pd,pd"
+    d = sim.step_once()
+    assert d["finite"] and sim.step_count == 1
 
 
 @pytest.mark.parametrize("name,table", [
@@ -479,10 +499,19 @@ def test_cavity_fleet_and_bf16_refuse(monkeypatch):
 
 
 def test_kernel_forms_refuse_periodic_signs_and_tables():
+    """A periodic axis's sign pair (0, 0) and the periodic face kind have
+    the wrap forms, whose periodic axes are those pairs; a lone 0 sign and
+    a periodic sign pair on the split sweep refuse."""
+    assert hk._signs((0.0, 0.0, 1.0, 1.0)) == (0.0, 0.0, 1.0, 1.0)
     with pytest.raises(ValueError, match="periodic"):
-        hk._signs((0.0, 0.0, 1.0, 1.0))
-    with pytest.raises(ValueError, match="queue 1 item 3"):
-        hk._faces(tcases.periodic_channel_table())
+        hk._signs((0.0, 1.0, 1.0, 1.0))
+    assert hk._wrap_axes((0.0, 0.0, 1.0, 1.0)) == (True, False)
+    assert hk._wrap_axes((1.0, -1.0, 0.0, 0.0)) == (False, True)
+    with pytest.raises(ValueError, match="queue 1 item 8"):
+        hk._split_signs((1.0, 1.0, 0.0, 0.0))
+    f = hk._faces(tcases.periodic_channel_table())
+    assert (f.x_lo.kind, f.x_hi.kind, f.y_lo.kind, f.y_hi.kind) == (4, 4, 1,
+                                                                    1)
     f = hk._faces(tcases.channel_table(0.5, profile="parabolic"))
     assert (f.x_lo.kind, f.x_lo.parabolic, f.x_lo.u) == (2, 1, 0.5)
     assert (f.x_hi.kind, f.y_lo.kind, f.y_hi.kind) == (3, 0, 0)

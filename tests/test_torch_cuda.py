@@ -499,14 +499,149 @@ def test_jacobi_signed_kernel_shapes_vs_twin(cuda, shape, from_zero):
 
 
 def test_bc_kernel_forms_refuse_periodic(cuda):
-    v = torch.zeros(1, 2, 16, 16, device=cuda)
+    """The periodic tables run the wrap forms (below); what refuses is a
+    bf16 periodic substage, a lone periodic sign and a bf16 wrap chain."""
+    v = torch.zeros(1, 2, 16, 16, device=cuda, dtype=torch.bfloat16)
     facs = torch.zeros(1, 3, device=cuda)
-    with pytest.raises(ValueError, match="queue 1 item 3"):
+    with pytest.raises(ValueError, match="periodic"):
         hk.advect_substage(v, None, facs, 0.5, 1.0,
                            tcases.periodic_channel_table(), 0.1)
     e = torch.zeros(16, 16, device=cuda)
     with pytest.raises(ValueError, match="periodic"):
-        hk.fused_jacobi_sweeps(e, e, 0.8, 2, edge_signs=(0, 0, 1, 1))
+        hk.fused_jacobi_sweeps(e, e, 0.8, 2, edge_signs=(0, 1, 1, 1))
+    with pytest.raises(ValueError, match="f32 only"):
+        hk.fused_jacobi_sweeps(e.bfloat16(), e.bfloat16(), 0.8, 2,
+                               edge_signs=(0, 0, 1, 1))
+
+
+# ---------------------------------------------------------------------------
+# wrap forms (periodic tables) and the batched Thomas scans
+# ---------------------------------------------------------------------------
+
+WRAP_TABLES = {
+    "doubly": tcases.periodic_table(),
+    "periodic_x": tcases.periodic_channel_table(),
+    "periodic_y": tbc.BCTable(tbc.no_slip(), tbc.no_slip(), tbc.periodic(),
+                              tbc.periodic()),
+    "periodic_x_inflow": tbc.BCTable(
+        tbc.periodic(), tbc.periodic(),
+        tbc.dirichlet_inflow(0.0, 1.0, profile="parabolic"),
+        tbc.convective_outflow()),
+}
+# a field narrower than the halo (the wrap spans several periods), one
+# tile, ragged tiles with 4-byte rows, a member stack, several tiles
+WRAP_SHAPES = [(1, 2, 8, 8), (1, 2, 24, 100), (1, 2, 37, 150),
+               (3, 2, 40, 72), (1, 2, 130, 260)]
+
+
+def _wrap_signs(bc):
+    return tbc.pressure_signs(bc), tbc.periodic_axes(bc)
+
+
+@pytest.mark.parametrize("name", sorted(WRAP_TABLES))
+@pytest.mark.parametrize("shape", WRAP_SHAPES)
+def test_advect_heun_wrap_kernel_vs_twin(cuda, name, shape):
+    bc = WRAP_TABLES[name]
+    h = 1.0 / shape[-1]
+    v = _rand(shape, 41, cuda)
+    dt = torch.tensor([0.5 * h, 0.35 * h, 0.27 * h][:shape[0]],
+                      device=cuda)
+    hk.reset_launches()
+    got = hk.fused_advect_heun(v, h, 4e-5, dt, bc=bc)
+    ref = hk.fused_advect_heun_plain(v, h, 4e-5, dt, bc=bc)
+    torch.cuda.synchronize()
+    assert hk.launches["fused_advect_heun+pd"] == 2
+    assert hk.launches["fused_advect_heun+bc"] == 2
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("name", sorted(WRAP_TABLES))
+@pytest.mark.parametrize("shape", [(2, 48, 80), (1, 8, 8), (1, 37, 150)])
+def test_correction_wrap_kernel_vs_twin(cuda, name, shape):
+    signs, paxes = _wrap_signs(WRAP_TABLES[name])
+    L = shape[0]
+    x, p = _rand(shape, 42, cuda), _rand(shape, 43, cuda)
+    v = _rand((L, 2) + shape[1:], 44, cuda)
+    scal = torch.stack([x.mean((1, 2)), p.mean((1, 2)),
+                        torch.full((L,), -1e-4, device=cuda)], -1)
+    hk.reset_launches()
+    got = hk.fused_correction(x, p, v, scal.contiguous(), 6400.0, signs)
+    ref = hk.fused_correction_plain(x, p, v, scal, 6400.0, signs, paxes)
+    torch.cuda.synchronize()
+    assert hk.launches["fused_correction+pd"] == 1
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max()) <= 5e-6
+
+
+@pytest.mark.parametrize("name", ["doubly", "periodic_x", "periodic_y"])
+@pytest.mark.parametrize("shape", JACOBI_SHAPES)
+@pytest.mark.parametrize("from_zero", [False, True])
+def test_jacobi_wrap_kernel_shapes_vs_twin(cuda, name, shape, from_zero):
+    signs, paxes = _wrap_signs(WRAP_TABLES[name])
+    L, ny, nx, n = shape
+    e, r = _rand((L, ny, nx), 45, cuda), _rand((L, ny, nx), 46, cuda)
+    hk.reset_launches()
+    got = hk.fused_jacobi_sweeps(e, r, 0.8, n, from_zero, signs)
+    ref = hk.jacobi_sweeps_plain(e, r, 0.8, n, from_zero, signs, paxes)
+    torch.cuda.synchronize()
+    assert hk.launches["fused_jacobi_sweeps+pd"] == len(
+        hk.sweep_chain(n, wrap=True))
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 33), (3, 37, 20), (2, 9, 1),
+                                   (1, 1024, 513)])
+def test_tridiag_scan_kernel_vs_twin(cuda, shape):
+    L, n_s, nk = shape
+    rng = np.random.default_rng(47)
+    b = torch.tensor(rng.standard_normal(shape)
+                     + 1j * rng.standard_normal(shape),
+                     dtype=torch.complex64, device=cuda)
+    # a diagonally dominant system's coefficients: |cp| < 1
+    d = -2.0 - 2.0 * rng.random((n_s, nk))
+    cp, idn = np.empty((n_s, nk)), np.empty((n_s, nk))
+    idn[0], cp[0] = 1.0 / d[0], 1.0 / d[0]
+    for j in range(1, n_s):
+        idn[j] = 1.0 / (d[j] - cp[j - 1])
+        cp[j] = idn[j]
+    cp[-1] = 0.0
+    idn = torch.tensor(idn, dtype=torch.float32, device=cuda)
+    cp = torch.tensor(cp, dtype=torch.float32, device=cuda)
+    hk.reset_launches()
+    got = hk.tridiag_scan(b, idn, cp)
+    ref = hk.tridiag_scan_plain(b, idn, cp)
+    torch.cuda.synchronize()
+    assert hk.launches["tridiag_scan"] == 1
+    # the kernel rounds each product and difference as the twin does
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("pois", ["", "fas", "fftd"])
+@pytest.mark.parametrize("table", ["periodic", "periodic_channel"])
+def test_periodic_step_on_the_card_matches_cpu(cuda, monkeypatch, pois,
+                                               table):
+    monkeypatch.setenv("CUP2D_POIS", pois)
+    cfg = SimConfig(bpdx=1, bpdy=1, level_max=1, level_start=0,
+                    extent=1.0, nu=1e-3, cfl=0.4, dtype="float32",
+                    poisson_tol=1e-4, poisson_tol_rel=1e-3)
+    bc = getattr(tcases, f"{table}_table")()
+    sims = [UniformSim(cfg, level=3, device=d, bc=bc) for d in (cuda, "cpu")]
+    for s in sims:
+        s.state = bench_state(s.grid)._replace(pres=s.grid.zero_state().pres)
+        s.step_count = 10
+    hk.reset_launches()
+    iters = [[s.step_once()["poisson_iters"] for _ in range(5)]
+             for s in sims]
+    la = dict(hk.launches)
+    assert iters[0] == iters[1]
+    a, b = sims[0].state.vel.cpu(), sims[1].state.vel
+    assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+    assert la["fused_advect_heun+pd"] == la["fused_advect_heun"] == 10
+    assert la["fused_correction+pd"] == la["fused_correction"] == 5
+    assert la["fused_jacobi_sweeps+pd"] == la["fused_jacobi_sweeps"]
+    assert (la["fused_jacobi_sweeps"] > 0) == (pois == "fas")
+    assert (la["tridiag_scan"] > 0) == (pois == "fftd"
+                                        and table == "periodic_channel")
 
 
 @pytest.mark.parametrize("pois", ["", "fas"])

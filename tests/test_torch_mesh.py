@@ -160,7 +160,9 @@ def test_make_mesh(monkeypatch):
 
 
 @pytest.mark.parametrize("env,value,exc,match", [
-    ("CUP2D_POIS", "fftd", NotImplementedError, "fftd"),
+    # fftd needs a periodic axis (the default box has none); with one it
+    # refuses the mesh (test_geometry_and_table_refusals)
+    ("CUP2D_POIS", "fftd", ValueError, "fftd"),
     # bf16 runs on f32 state; this config is f64, which it refuses
     ("CUP2D_PREC", "bf16", ValueError, "bf16"),
 ])
@@ -177,7 +179,8 @@ def test_geometry_and_table_refusals(monkeypatch):
     from cup2d_tpu_torch.bc import BCTable, periodic
     from cup2d_tpu_torch.cases import cavity_table, make_sim
     # a wall-bounded table runs split (tests/test_torch_split_bc.py); a
-    # periodic one still refuses, at the grid and at the split substage
+    # periodic one still refuses (ROADMAP queue 1 item 8), at the mesh and
+    # at the split substage, and fftd refuses any mesh
     sh = ShardedUniformSim(_tcfg(), _cpu_mesh(2), level=LEVEL,
                            bc=cavity_table())
     assert sh.bc_table == "ns,ns,ns,ns(1,0)"
@@ -188,6 +191,10 @@ def test_geometry_and_table_refusals(monkeypatch):
     v = split_x(torch.zeros(2, 16, 32, dtype=torch.float64), _cpu_mesh(2))
     with pytest.raises(NotImplementedError, match="pd,pd,fs,fs"):
         fused_advect_heun_sharded(v, 1 / 32, 1e-3, 1e-3, bc=pd_fs)
+    monkeypatch.setenv("CUP2D_POIS", "fftd")
+    with pytest.raises(ValueError, match="cannot attach a device mesh"):
+        ShardedUniformSim(_tcfg(), _cpu_mesh(2), level=LEVEL, bc=pd_fs)
+    monkeypatch.delenv("CUP2D_POIS")
     sh = ShardedUniformSim(_tcfg(), _cpu_mesh(2), level=LEVEL)
     with pytest.raises(NotImplementedError, match="obstacle"):
         sh.grid.step(sh.state, 1e-3)

@@ -153,7 +153,8 @@ def test_f64_on_the_card_refuses():
 
 
 @pytest.mark.parametrize("env,value,exc", [
-    ("CUP2D_POIS", "fftd", NotImplementedError),
+    # fftd needs a periodic axis, which the free-slip box has not
+    ("CUP2D_POIS", "fftd", ValueError),
     ("CUP2D_POIS", "typo", ValueError),
     # bf16 runs on f32 state; this config is f64, which it refuses
     ("CUP2D_PREC", "bf16", ValueError),
@@ -172,19 +173,22 @@ def test_forest_tokens_are_inert(monkeypatch, pois):
         "bicgstab+mg"
 
 
-def test_non_free_slip_table_refuses():
-    """A boundary table is a ``bc.BCTable`` (a bare token refuses). Of the
-    tables other than free-slip the walled ones run
-    (tests/test_torch_cavity.py) and the periodic ones refuse, naming the
-    table."""
+def test_non_free_slip_table_refuses(monkeypatch):
+    """A boundary table is a ``bc.BCTable`` (a bare token refuses). The
+    other tables run: the walled ones (tests/test_torch_cavity.py) and the
+    periodic ones (tests/test_torch_periodic.py), which refuse the bf16
+    tier, naming the table."""
     from cup2d_tpu_torch.cases import cavity_table, periodic_channel_table
     with pytest.raises(TypeError, match="BCTable"):
         TGrid(TConfig(**_tg_kw()), device="cpu", bc="ns,ns,ns,ns")
-    with pytest.raises(NotImplementedError, match="pd,pd,ns,ns"):
-        TGrid(TConfig(**_tg_kw()), device="cpu",
-              bc=periodic_channel_table())
+    g = TGrid(TConfig(**_tg_kw()), device="cpu", bc=periodic_channel_table())
+    assert g.bc_table == "pd,pd,ns,ns" and g._paxes == (True, False)
     assert TGrid(TConfig(**_tg_kw()), device="cpu",
                  bc=cavity_table()).bc_table == "ns,ns,ns,ns(1,0)"
+    monkeypatch.setenv("CUP2D_PREC", "bf16")
+    with pytest.raises(ValueError, match="pd,pd,ns,ns"):
+        TGrid(TConfig(**_tg_kw(dtype="float32")), device="cpu",
+              bc=periodic_channel_table())
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -198,6 +202,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "cup2d_tpu_torch.ops.forces, cup2d_tpu_torch.shapes_host, "
             "cup2d_tpu_torch.halo, cup2d_tpu_torch.flux, "
             "cup2d_tpu_torch.forest, cup2d_tpu_torch.poisson, chip_smoke; "
+            "from cup2d_tpu_torch.poisson import FFTDiagPlan, "
+            "fft_diag_solve; "
+            "from cup2d_tpu_torch.ops.hopper_kernels import tridiag_scan; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'cup2d_tpu' "
             "or m.startswith('cup2d_tpu.') or m == 'validation' "
