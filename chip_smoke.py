@@ -220,19 +220,47 @@ the result lines:
    card and on the CPU, 10 production steps under fftd and fas (equal
    iterations, velocity within 1e-4 relative); and its KE decay at 128^2
    f32 under fftd to t = 0.1, within 1% of exp(-4 nu k^2 t).
+14. the run driver: ``cup2d_tpu_torch.__main__.main`` in process, on the
+   card by default. The canonical run (phase 12's run.sh flags, f32,
+   levelStart 5, levelMax 8, nothing cut, ``-noSupervise -maxSteps 22
+   -checkpointEvery 10`` and a ``-tdump`` under every step's dt, so each
+   step dumps the forest), then ``-restart`` from its step-10 checkpoint
+   into a second directory: the two held equal bit for bit (every common
+   dump's bytes, the ``forces.csv`` rows of steps 11-22 across the step-20
+   adapt, each step's ``poisson_iters``, the step-20 checkpoints' fields
+   and meta); then the flagship (``entry()``'s two fish at 1024 x 512,
+   f32, 45 steps, ``CUP2D_TRACE`` over three production steps) beside its
+   library loop in the same phase (45 ``step_once`` steps, each to a
+   synchronize), and the catalog's ``-case tgv_periodic`` at 1024^2 for
+   4 steps (the uniform driver and its dumps; every substage and
+   correction launch a wrap form). Printed: production ms/step (the
+   median of ``metrics.jsonl``'s ``wall_ms``, traced steps left out)
+   beside phases 11 and 12's library-loop ms/step and the flagship's
+   in-phase loop, each with the median host ms of the step's phases and
+   the collector's ms a production step; the traced window's span, card
+   busy time, idle share and host time blocked on the card a step; dump
+   ms and bytes, checkpoint save and load seconds, ``jit_compiles`` after
+   step 1 (must be 0), ``device_gets`` per production step,
+   ``hbm_peak_bytes`` (the process's peak since the run began, as the
+   records read it) beside the run's own peak over what was resident
+   when it began, and the launches, from 0 over each CLI run, of kernels
+   4 (canonical), 2 and 5 (flagship), each > 0. Its files live under
+   build/phase14 and are removed at the end.
 
 Then one JSON line of per-kernel numbers (with, per kernel, its launches
-on the two flagship runs and the two canonical runs and, for the
-flagship's and the canonical run's kernels, their numbers at those
-shapes), the card's name and power limit
+on the two flagship runs, the two canonical runs and phase 13's runs
+and, for the flagship's and the canonical run's kernels, their
+numbers at those shapes), the card's name and power limit
 as nvidia-smi prints them, and the result line
 ``{"ok": true, "device": {...}}`` last. Needs no network; imports no JAX.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -3110,6 +3138,394 @@ def phase_periodic(dev, res) -> tuple[dict, dict]:
     return runs, launches
 
 
+
+# phase 14: the run driver on the card, python -m cup2d_tpu_torch in process
+PHASE14_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase14")
+CANON_TDUMP = 1e-4       # under every step's dt: each run dumps every step
+CANON_CLI_STEPS = 22     # 10 startup, 12 production, the step-20 regrid
+CANON_CKPT_EVERY = 10
+FLAGSHIP_CLI_STEPS = 45  # 10 startup, 35 production
+FLAGSHIP_TRACE = (36, 39)  # CUP2D_TRACE wraps the steps of records 37-39
+FLAGSHIP_FLAGS = ("-bpdx 2 -bpdy 1 -levelMax 1 -levelStart 0 -Rtol 2 "
+                  "-Ctol 1 -extent 4 -CFL 0.5 -tend 10 -lambda 1e7 "
+                  "-nu 0.00004 -poissonTol 0.001 -poissonTolRel 0.01 "
+                  "-maxPoissonRestarts 0 -maxPoissonIterations 1000 "
+                  f"-AdaptSteps 20 -tdump 0.2 -dtype float32 "
+                  f"-level {ENTRY_LEVEL}")
+
+
+def canon_cli_argv() -> list:
+    """run.sh's flags as phase 12 writes them, f32, nothing cut, with
+    ``-tdump`` at ``CANON_TDUMP``."""
+    argv = CANON_FLAGS.format(lm=CANON_LEVEL_MAX, ls=CANON_LEVEL_START,
+                              tol=1e-3, rel=1e-2).split()
+    argv[argv.index("-tdump") + 1] = str(CANON_TDUMP)
+    return argv + ["-shapes", ENTRY_SHAPES, "-noSupervise"]
+
+
+class GcClock:
+    """The collector's passes while entered: (wall start, seconds,
+    generation) each, from ``gc.callbacks``."""
+
+    def __init__(self):
+        self.passes = []
+        self._t0 = None
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = (time.time(), time.perf_counter())
+        elif self._t0 is not None:
+            self.passes.append((self._t0[0],
+                                time.perf_counter() - self._t0[1],
+                                info["generation"]))
+            self._t0 = None
+
+    def __enter__(self):
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self)
+
+    def between(self, a: float, b: float, n: int) -> dict:
+        """The collector's ms a step and its full (generation 2) passes
+        over ``n`` steps that ran between the wall times ``a`` and ``b``."""
+        inside = [(s, g) for t, s, g in self.passes if a <= t <= b]
+        return {"gc_ms_per_step": 1e3 * sum(s for s, _ in inside) / n,
+                "gc_full_passes": sum(g == 2 for _, g in inside)}
+
+
+def fresh_peak() -> int:
+    """Collect, empty the allocator's cache, reset the peak: returns the
+    bytes still allocated, which the next peak counts too."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return int(torch.cuda.memory_allocated())
+
+
+def median_phases(phases: list) -> dict:
+    """Each phase's median host ms over a list of ``phase_seconds``."""
+    return {k: float(np.median([1e3 * p.get(k, 0.0) for p in phases]))
+            for k in (phases[0] if phases else {})}
+
+
+def cli_run(argv: list, out: str, keep: bool = False,
+            trace: tuple | None = None) -> dict:
+    """``cup2d_tpu_torch.__main__.main(argv)`` into ``out``, with the
+    checkpoint saves and loads and the dumps it makes timed to a
+    synchronize (the names ``__main__`` calls, wrapped for the run), each
+    uniform ``Simulation.step_once`` timed with its phases' host seconds,
+    and the collector's passes clocked; ``keep`` copies each checkpoint
+    to ``checkpoint.<step>``; ``trace`` = (start, stop) sets
+    ``CUP2D_TRACE=start:stop:<out>/trace`` for the run. Returns rc, wall
+    seconds, the timings, the metrics records, the forces rows, the
+    bytes allocated when the run began and the run's peak."""
+    from cup2d_tpu_torch import __main__ as tmain
+    from cup2d_tpu_torch.profiling import load_metrics
+    calls = {"save": [], "load": [], "dump": []}
+    names = {"save_checkpoint": "save", "load_checkpoint": "load",
+             "dump_forest": "dump", "dump_uniform": "dump"}
+    orig = {n: getattr(tmain, n) for n in names}
+
+    def timed(name):
+        fn = orig[name]
+
+        def run(path, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(path, *a, **kw)
+            torch.cuda.synchronize()
+            calls[names[name]].append((time.perf_counter() - t0, path))
+            if name == "save_checkpoint" and keep:
+                with open(os.path.join(path, "meta.json")) as f:
+                    step = json.load(f)["step_count"]
+                shutil.copytree(path, f"{path}.{step}")
+        return run
+    for n in names:
+        setattr(tmain, n, timed(n))
+    steps = []
+    step_once = Simulation.step_once
+
+    def timed_step(sim, *a, **kw):
+        t0 = time.perf_counter()
+        d = step_once(sim, *a, **kw)
+        steps.append((1e3 * (time.perf_counter() - t0),
+                      dict(sim.phase_seconds)))
+        return d
+    Simulation.step_once = timed_step
+    if trace is not None:
+        os.environ["CUP2D_TRACE"] = (f"{trace[0]}:{trace[1]}:"
+                                     f"{os.path.join(out, 'trace')}")
+    # the records' hbm_peak_bytes is the process's peak since this reset,
+    # which counts the base still allocated from earlier phases too
+    base = fresh_peak()
+    t0 = time.perf_counter()
+    try:
+        with GcClock() as gcc:
+            rc = tmain.main(argv + ["-output", out])
+    finally:
+        for n, fn in orig.items():
+            setattr(tmain, n, fn)
+        Simulation.step_once = step_once
+        os.environ.pop("CUP2D_TRACE", None)
+    secs = time.perf_counter() - t0
+    peak = int(torch.cuda.max_memory_allocated())
+    recs = [r for r in load_metrics(os.path.join(out, "metrics.jsonl"))
+            if r.get("event") == "metrics"]
+    fpath = os.path.join(out, "forces.csv")
+    rows = open(fpath).read().splitlines() if os.path.exists(fpath) else []
+    return {"rc": rc, "seconds": secs, "calls": calls, "records": recs,
+            "forces": rows, "steps": steps, "gc": gcc, "hbm_base": base,
+            "hbm_run_peak": peak - base, "trace": trace,
+            "trace_dir": os.path.join(out, "trace")}
+
+
+def trace_summary(path: str, steps: int) -> dict:
+    """A ``torch.profiler`` Chrome trace of ``steps`` steps, per step: the
+    span of its events, the card's busy time (the union of its kernel,
+    copy and set intervals), the host's time blocked in synchronizing
+    runtime calls, the host ops and the device activities; and the idle
+    share, 1 - busy / span."""
+    with open(path) as f:
+        ev = [e for e in json.load(f)["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    cat = [str(e.get("cat", "")).lower() for e in ev]
+    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e, c in zip(ev, cat)
+                 if c in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for a, b in dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = (max(e["ts"] + e["dur"] for e in ev)
+            - min(e["ts"] for e in ev))
+    blocked = sum(e["dur"] for e, c in zip(ev, cat)
+                  if c == "cuda_runtime" and ("Synchronize" in e["name"]
+                                              or e["name"] == "cudaMemcpy"))
+    return {"span_ms_per_step": span / 1e3 / steps,
+            "busy_ms_per_step": busy / 1e3 / steps,
+            "idle_share": 1.0 - busy / span,
+            "blocked_ms_per_step": blocked / 1e3 / steps,
+            "host_ops_per_step": sum(c == "cpu_op" for c in cat) / steps,
+            "device_activities_per_step": len(dev) / steps}
+
+
+def _dump_bytes(path: str) -> int:
+    return sum(os.path.getsize(path + suf)
+               for suf in (".xyz.raw", ".attr.raw", ".xdmf2"))
+
+
+def cli_summary(label: str, run: dict, lib_ms: float) -> dict:
+    """The numbers phase 14 prints of one CLI run, and its checks: rc 0,
+    schema 12 with the JAX package's key set, no kernel build after step
+    1, finite records."""
+    from cup2d_tpu_torch.profiling import (METRICS_KEYS,
+                                           METRICS_SCHEMA_VERSION)
+    recs = run["records"]
+    check(run["rc"] == 0, f"{label}: rc {run['rc']}")
+    check(all(set(r) - {"event", "wall"} == set(METRICS_KEYS)
+              and r["schema"] == METRICS_SCHEMA_VERSION == 12
+              for r in recs), f"{label}: metrics records off the schema")
+    tr = run["trace"]
+    traced = set(range(tr[0] + 1, tr[1] + 1)) if tr else set()
+    prod = [r for r in recs if r["step"] > 10]
+    timed = [r for r in prod if r["step"] not in traced]
+    dumps = run["calls"]["dump"]
+    out = {
+        "steps": [r["step"] for r in recs][-1],
+        "seconds": run["seconds"],
+        "production_ms_per_step": float(np.median(
+            [r["wall_ms"] for r in timed])),
+        "production_steps_timed": len(timed),
+        "startup_ms_per_step": float(np.median(
+            [r["wall_ms"] for r in recs if r["step"] <= 10] or [np.nan])),
+        "library_loop_ms_per_step": lib_ms,
+        "iters": [r["poisson_iters"] for r in recs],
+        "dumps": len(dumps),
+        "dump_ms": float(np.median([t for t, _ in dumps]) * 1e3)
+        if dumps else None,
+        "dump_bytes": _dump_bytes(dumps[-1][1]) if dumps else None,
+        "checkpoint_save_s": [t for t, _ in run["calls"]["save"]],
+        "checkpoint_load_s": [t for t, _ in run["calls"]["load"]],
+        "jit_compiles_after_step_1": sum(r["jit_compiles"]
+                                         for r in recs[1:]),
+        "jit_compiles_step_1": recs[0]["jit_compiles"],
+        "device_gets_per_production_step": [r["device_gets"]
+                                            for r in prod],
+        "hbm_peak_bytes": max(r["hbm_peak_bytes"] or 0 for r in recs),
+        "hbm_base_bytes": run["hbm_base"],
+        "hbm_run_peak_bytes": run["hbm_run_peak"],
+        "blocks": [r["n_blocks"] for r in recs],
+        "regrid_after_step_20": [(r["refines"], r["coarsens"])
+                                 for r in recs if r["step"] == 21],
+    }
+    if prod:
+        out.update(run["gc"].between(recs[9]["wall"], recs[-1]["wall"],
+                                     len(prod)))
+    if run["steps"]:
+        # the step_once calls are the steps of the records, in order
+        check(len(run["steps"]) == len(recs),
+              f"{label}: {len(run['steps'])} step_once calls, "
+              f"{len(recs)} records")
+        st = [run["steps"][r["step"] - recs[0]["step"]] for r in timed]
+        out["step_once_ms_per_step"] = float(np.median([m for m, _ in st]))
+        out["phase_ms_per_step"] = median_phases([p for _, p in st])
+        out["driver_ms_per_step"] = float(np.median(
+            [r["wall_ms"] - m for r, (m, _) in zip(timed, st)]))
+    if tr:
+        path = os.path.join(run["trace_dir"],
+                            f"trace_{tr[0]}_{tr[1]}.json")
+        out["trace"] = trace_summary(path, tr[1] - tr[0])
+        out["trace"]["wall_ms"] = [r["wall_ms"] for r in recs
+                                   if r["step"] in traced]
+    check(out["jit_compiles_after_step_1"] == 0,
+          f"{label}: a kernel build after step 1")
+    check(all(r["poisson_residual"] is not None
+              and np.isfinite(r["umax"]) for r in recs),
+          f"{label}: non-finite records")
+    return out
+
+
+def flagship_loop(dev, steps: int) -> dict:
+    """The flagship's library loop beside its CLI run: ``entry()``'s two
+    fish at 1024 x 512 f32 under the default solver, ``initialize()`` and
+    ``steps`` ``step_once`` steps, each timed on the host clock to a
+    synchronize, as phase 11 does; the median production ms, its phases'
+    host ms, and the collector's ms a production step."""
+    sim = Simulation(entry_cfg(), level=ENTRY_LEVEL, device=dev)
+    sim.initialize()
+    sync(dev)
+    ms, phases = [], []
+    with GcClock() as gcc:
+        for i in range(steps):
+            if i == 10:
+                t_prod = time.time()
+            t0 = time.perf_counter()
+            sim.step_once()
+            sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            phases.append(dict(sim.phase_seconds))
+        t_end = time.time()
+    out = {"production_ms_per_step": float(np.median(ms[10:])),
+           "production_ms": ms[10:],
+           "phase_ms_per_step": median_phases(phases[10:]),
+           **gcc.between(t_prod, t_end, steps - 10)}
+    del sim
+    return out
+
+
+def phase_cli(dev, canon_lib_ms: float, flagship_lib_ms: float
+              ) -> tuple[dict, dict]:
+    """Phase 14: ``python -m cup2d_tpu_torch`` on the card, in process.
+    The canonical run (run.sh's flags, f32, levelStart 5, levelMax 8,
+    ``-noSupervise -maxSteps 22 -checkpointEvery 10``, a dump every step),
+    its ``-restart`` from the step-10 checkpoint into a second directory,
+    held to it bit for bit (every common dump, the forces rows of steps
+    11-22, the iterations of every step, the step-20 checkpoints' fields
+    and meta), and the flagship (``entry()``'s two fish at 1024 x 512,
+    f32, 45 steps, three production steps traced) after its library loop
+    in this phase. Launch counts from 0 over each CLI run. Returns the
+    runs and the launches of kernels 4 (the canonical run), 2 and 5 (the
+    flagship)."""
+    shutil.rmtree(PHASE14_DIR, ignore_errors=True)
+    dir_a = os.path.join(PHASE14_DIR, "canonical")
+    dir_b = os.path.join(PHASE14_DIR, "restart")
+    dir_c = os.path.join(PHASE14_DIR, "flagship")
+    hk.reset_launches()
+    a = cli_run(canon_cli_argv() + [
+        "-maxSteps", str(CANON_CLI_STEPS), "-checkpointEvery",
+        str(CANON_CKPT_EVERY)], dir_a, keep=True)
+    la = {k: n for k, n in hk.launches.items() if n}
+    runs = {"canonical": cli_summary("canonical cli", a, canon_lib_ms)}
+    runs["canonical"]["launches"] = la
+    print(f"phase 14 canonical cli {json.dumps(runs['canonical'])}",
+          flush=True)
+    step10 = os.path.join(dir_a, f"checkpoint.{CANON_CKPT_EVERY}")
+    b = cli_run(canon_cli_argv() + [
+        "-maxSteps", str(CANON_CLI_STEPS), "-checkpointEvery",
+        str(CANON_CKPT_EVERY), "-restart", step10], dir_b)
+    check(b["rc"] == 0, f"canonical restart: rc {b['rc']}")
+    dumps_a = {os.path.basename(p) for _, p in a["calls"]["dump"]}
+    dumps_b = {os.path.basename(p) for _, p in b["calls"]["dump"]}
+    common = sorted(dumps_a & dumps_b)
+    check(len(dumps_a) >= 2 and len(common) >= 2,
+          f"canonical cli: dumps {sorted(dumps_a)}, common {common}")
+    for n in common:
+        for suf in (".xyz.raw", ".attr.raw"):
+            with open(os.path.join(dir_a, n + suf), "rb") as fa, \
+                    open(os.path.join(dir_b, n + suf), "rb") as fb:
+                check(fa.read() == fb.read(),
+                      f"canonical restart: {n}{suf} differs")
+    rows = 2 * CANON_CKPT_EVERY      # two fish a step
+    check(a["forces"][1 + rows:] == b["forces"][1:]
+          and len(b["forces"]) == 1 + 2 * (CANON_CLI_STEPS
+                                           - CANON_CKPT_EVERY),
+          "canonical restart: forces rows of steps 11-22 differ")
+    iters_a = [(r["step"], r["poisson_iters"]) for r in a["records"]
+               if r["step"] > CANON_CKPT_EVERY]
+    iters_b = [(r["step"], r["poisson_iters"]) for r in b["records"]]
+    check(iters_a == iters_b,
+          f"canonical restart: iterations {iters_a} != {iters_b}")
+    ck_a, ck_b = (os.path.join(d, "checkpoint") for d in (dir_a, dir_b))
+    with np.load(os.path.join(ck_a, "fields.npz")) as fa, \
+            np.load(os.path.join(ck_b, "fields.npz")) as fb:
+        check(sorted(fa.files) == sorted(fb.files)
+              and all(np.array_equal(fa[k], fb[k]) for k in fa.files),
+              "canonical restart: the step-20 checkpoints' fields differ")
+    meta = [json.load(open(os.path.join(c, "meta.json")))
+            for c in (ck_a, ck_b)]
+    check(meta[0]["step_count"] == 20 and meta[0] == meta[1],
+          "canonical restart: the step-20 checkpoints' meta differ")
+    runs["restart"] = {
+        "common_dumps": len(common), "seconds": b["seconds"],
+        "checkpoint_load_s": [t for t, _ in b["calls"]["load"]],
+        "production_ms_per_step": float(np.median(
+            [r["wall_ms"] for r in b["records"]])),
+        "forces_rows": len(b["forces"]) - 1, "bit_for_bit": True}
+    print(f"phase 14 canonical restart {json.dumps(runs['restart'])}",
+          flush=True)
+    loop = flagship_loop(dev, FLAGSHIP_CLI_STEPS)
+    print(f"phase 14 flagship library loop {json.dumps(loop)}", flush=True)
+    hk.reset_launches()
+    c = cli_run(FLAGSHIP_FLAGS.split() + [
+        "-shapes", ENTRY_SHAPES, "-noSupervise", "-maxSteps",
+        str(FLAGSHIP_CLI_STEPS)], dir_c, trace=FLAGSHIP_TRACE)
+    lf = {k: n for k, n in hk.launches.items() if n}
+    runs["flagship"] = cli_summary("flagship cli", c, flagship_lib_ms)
+    runs["flagship"]["launches"] = lf
+    runs["flagship"]["in_phase_library_loop"] = loop
+    print(f"phase 14 flagship cli {json.dumps(runs['flagship'])}",
+          flush=True)
+    # a catalog case through -case: the uniform driver and dump on the card
+    hk.reset_launches()
+    e = cli_run(["-case", "tgv_periodic", "-level", "7", "-noSupervise",
+                 "-maxSteps", "4", "-tdump", "1e-3"],
+                os.path.join(PHASE14_DIR, "case"))
+    lc = {k: n for k, n in hk.launches.items() if n}
+    check(e["rc"] == 0 and [r["step"] for r in e["records"]] == [1, 2, 3, 4]
+          and e["calls"]["dump"]
+          and lc.get("fused_advect_heun+pd", 0) == 8
+          and lc.get("fused_correction+pd", 0) == 4,
+          f"-case tgv_periodic: rc {e['rc']}, launches {lc}")
+    runs["case"] = {"seconds": e["seconds"], "dumps": len(e["calls"]["dump"]),
+                    "ms_per_step": [r["wall_ms"] for r in e["records"]],
+                    "iters": [r["poisson_iters"] for r in e["records"]],
+                    "kernel_tier": e["records"][-1]["kernel_tier"],
+                    "launches": lc}
+    print(f"phase 14 case cli {json.dumps(runs['case'])}", flush=True)
+    launches = {"fused_lab_rhs": la.get("fused_lab_rhs", 0),
+                "fused_advect_heun": lf.get("fused_advect_heun", 0),
+                "fused_correction": lf.get("fused_correction", 0)}
+    for k, n in launches.items():
+        check(n > 0, f"{k}: launched no time on the CLI runs")
+    print(f"phase 14 launches {json.dumps(launches)}", flush=True)
+    shutil.rmtree(PHASE14_DIR)
+    return runs, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3211,6 +3627,11 @@ def main() -> int:
     for k, n in periodic_launches.items():
         check(n > 0, f"{k}: launched no time on the periodic main path")
     launches.update(periodic_launches)
+    t0 = time.perf_counter()
+    cli, _ = phase_cli(
+        dev, canon["canonical"][0]["production"]["ms_per_step"],
+        shaped["flagship"][0]["production"]["ms_per_step"])
+    print(f"phase 14 took {time.perf_counter() - t0} s", flush=True)
     check("jax" not in sys.modules, "the smoke imported jax")
     check("validation" not in sys.modules, "the smoke imported validation")
 
@@ -3240,6 +3661,7 @@ def main() -> int:
     print(f"flagship step summary: {json.dumps(shaped)}")
     print(f"canonical shaped forest summary: {json.dumps(canon)}")
     print(f"periodic main path summary: {json.dumps(periodic)}")
+    print(f"run driver summary: {json.dumps(cli)}")
     print(f"total {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -11,7 +11,11 @@ for the Heun substage, the projection correction, the Jacobi smoother
 chains (the three with boundary-table forms), the forest lab RHS, the
 forest block-Jacobi update, the halo-mode substage and Jacobi sweep of
 the split step, and the single-op advection RHS
-(``ops/hopper_kernels.py``).
+(``ops/hopper_kernels.py``); and the run driver, ``python -m
+cup2d_tpu_torch <reference flags>`` (``__main__.py``), with its
+reference-format dumps and checkpoints (``io.py``), metrics stream
+(``profiling.py``), verdict-only supervision (``resilience.py``) and
+``post.py``.
 
 The port imports torch and numpy only, never jax and nothing of
 ``cup2d_tpu``. Entry points run on ``cuda`` unless given

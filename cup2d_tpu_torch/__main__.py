@@ -1,0 +1,293 @@
+"""Run driver: ``python -m cup2d_tpu_torch <reference flags>``, the
+counterpart of ``python -m cup2d_tpu``.
+
+Runs the case the reference's ``main()`` runs, with its flag names
+(run.sh:1-22), e.g. the canonical two-fish adaptive run:
+
+    python -m cup2d_tpu_torch -bpdx 2 -bpdy 1 -levelMax 8 -levelStart 5 \
+        -Rtol 2 -Ctol 1 -extent 4 -CFL 0.5 -tend 10 -lambda 1e7 \
+        -nu 0.00004 -poissonTol 1e-3 -poissonTolRel 0.01 \
+        -maxPoissonRestarts 0 -maxPoissonIterations 1000 -AdaptSteps 20 \
+        -tdump 0.5 -noSupervise -shapes 'angle=0 L=0.2 xpos=1.8 ypos=0.8
+                                         angle=180 L=0.2 xpos=1.6 ypos=0.8'
+
+The adaptive forest by default (``amr.AMRSim``); ``-level N`` a uniform
+run at level N (``sim.Simulation``); ``-case NAME`` a catalog case
+(``cases.REGISTRY``; ``-level`` overrides its resolution, ``-tend`` and
+``-tdump`` its schedule). Extra flags as in the JAX package: ``-dtype``,
+``-output DIR``, ``-checkpointEvery N``, ``-restart DIR`` (a checkpoint of
+either package), ``-maxSteps N``, ``-metricsLog PATH``, ``-noMetrics``,
+``-eventLog PATH``, ``-logRotateMB N``, ``-noWatchdog``; and one of the
+port's own, ``-device cpu|cuda[:i]`` (default ``cuda``: without a card
+and without ``-device cpu`` the run raises).
+
+The loop is the JAX package's verdict-only eager loop (``-noSupervise
+-noLag``): each step's verdict and watchdog, the first bad step aborting
+with a post-mortem checkpoint and rc 1; dumps on the catch-up ``-tdump``
+schedule; the adapt schedule (steps <= 10, then every ``AdaptSteps``);
+``forces.csv`` (appended on a restart); one ``metrics.jsonl`` record a
+step (schema 12, flight-recorder fields null, no ``spans.jsonl``);
+SIGTERM writes ``<output>/checkpoint`` and exits 0.
+``CUP2D_TRACE=start:stop[:logdir]`` wraps steps [start, stop) in
+``torch.profiler``.
+
+What the port cannot do yet is refused with rc 2 before any work, naming
+its ROADMAP queue 1 item: the supervised loop (a run without
+``-noSupervise``, ``-guardRing``, ``-snapEvery``, ``CUP2D_FAULTS``:
+item 5); ``-fleet``/``-serve`` (item 6); ``-mesh`` and the multi-process
+and elastic flags (item 8); ``-profile``, ``-spansLog`` and span ring
+capacities in ``CUP2D_SPANS`` (item 9). Flags that only turn off what
+the port lacks (``-noLag``, ``-noSpans``, ``-noMemLedger``,
+``-noMirror``) are accepted.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+from .config import CommandlineParser, SimConfig
+from .io import dump_forest, dump_uniform, load_checkpoint, save_checkpoint
+
+_PREFIX = "cup2d_tpu_torch"
+
+# flag -> (ROADMAP queue 1 item, what it asks for)
+_REFUSED = {
+    "guardRing": (5, "the supervised loop's snapshot ring"),
+    "snapEvery": (5, "the supervised loop's snapshot cadence"),
+    "fleet": (6, "fleet batching"),
+    "serve": (6, "fleet serving"),
+    "mesh": (8, "the mesh launcher"),
+    "coordinator": (8, "multi-process bring-up"),
+    "meshHosts": (8, "multi-process bring-up"),
+    "processId": (8, "multi-process bring-up"),
+    "connectAttempts": (8, "multi-process bring-up"),
+    "connectBackoff": (8, "multi-process bring-up"),
+    "elastic": (8, "the elastic topology guard"),
+    "simHosts": (8, "the elastic topology guard"),
+    "heartbeatMissK": (8, "the elastic topology guard"),
+    "heartbeatTimeout": (8, "the elastic topology guard"),
+    "mirror": (8, "the host-redundant mirror tier"),
+    "mirrorEvery": (8, "the host-redundant mirror tier"),
+    "profile": (9, "per-phase timers"),
+    "spansLog": (9, "the flight recorder's span timeline"),
+}
+
+
+def _not_ported(what: str, item: int) -> str:
+    return f"{what} is not ported yet (ROADMAP queue 1 item {item})"
+
+
+def _refusal(p) -> str | None:
+    """The usage error of this command line, or None. The reference's own
+    usage errors first (naming the item where their flag waits for one),
+    then every flag and variable whose effect the port cannot give."""
+    if p.has("serve") and not p.has("fleet"):
+        return ("-serve N needs -fleet B (the slot pool it serves "
+                "through); " + _not_ported("fleet serving", 6))
+    if p.has("elastic") and not p.has("mesh"):
+        return ("-elastic needs -mesh with at least 2 devices; "
+                + _not_ported("the elastic topology guard", 8))
+    for flag, (item, what) in _REFUSED.items():
+        if p.has(flag):
+            return f"-{flag}: " + _not_ported(what, item)
+    if not p.has("noSupervise"):
+        return ("the supervised loop (the StepGuard recovery ladder and "
+                "the lagged verdict) runs without -noSupervise; "
+                + _not_ported("it", 5) + ": pass -noSupervise for the "
+                "verdict-only loop")
+    if os.environ.get("CUP2D_FAULTS"):
+        return "CUP2D_FAULTS: " + _not_ported("fault injection", 5)
+    if os.environ.get("CUP2D_SPANS", "0") != "0":
+        return "CUP2D_SPANS: " + _not_ported("the span ring", 9)
+    return None
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    p = CommandlineParser(argv)
+    msg = _refusal(p)
+    if msg is not None:
+        print(f"{_PREFIX}: {msg}", file=sys.stderr)
+        return 2
+    case_name = p("case").asString() if p.has("case") else None
+    if case_name is not None:
+        from .cases import REGISTRY
+        if case_name not in REGISTRY:
+            names = ", ".join(c for c in REGISTRY)
+            print(f"{_PREFIX}: unknown -case {case_name!r} "
+                  f"(catalog: {names})", file=sys.stderr)
+            return 2
+    # a -case run takes its SimConfig from the catalog
+    cfg = None if case_name is not None else SimConfig.from_argv(argv)
+    uniform = (p.has("level") or case_name is not None
+               or cfg.level_max <= 1)
+    outdir = p("output").asString() if p.has("output") else "."
+    ckpt_every = p("checkpointEvery").asInt() if p.has("checkpointEvery") \
+        else 0
+    max_steps = p("maxSteps").asInt() if p.has("maxSteps") else 10**9
+    rotate_mb = p("logRotateMB").asInt() if p.has("logRotateMB") else None
+
+    from .uniform import resolve_device
+    device = resolve_device(p("device").asString() if p.has("device")
+                            else None)
+    os.makedirs(outdir, exist_ok=True)
+
+    from .profiling import HostCounters, MetricsRecorder, TraceWindow
+    from .resilience import (EventLog, PhysicsWatchdog, PreemptionGuard,
+                             ResilienceAbort, StepGuard, set_event_log)
+
+    events_path = p("eventLog").asString() if p.has("eventLog") \
+        else os.path.join(outdir, "events.jsonl")
+    log = EventLog(events_path)
+    set_event_log(log)                   # io's fallback event
+    tracer = TraceWindow.from_env()      # CUP2D_TRACE, latched once
+
+    if case_name is not None:
+        from .cases import make_sim
+        kw = {"device": device}
+        if p.has("level"):
+            kw["level"] = p("level").asInt()
+        sim = make_sim(case_name, **kw)
+        cfg = sim.cfg
+        # -tend/-tdump override the case's schedule (the grid and
+        # operators are built already)
+        if p.has("tend"):
+            cfg.end_time = p("tend").asDouble()
+        if p.has("tdump"):
+            cfg.dump_time = p("tdump").asDouble()
+    elif uniform:
+        from .sim import Simulation
+        level = p("level").asInt() if p.has("level") else cfg.level_start
+        sim = Simulation(cfg, level=level, device=device)
+    else:
+        from .amr import AMRSim
+        sim = AMRSim(cfg, device=device)
+    if p.has("restart"):
+        load_checkpoint(p("restart").asString(), sim)
+
+    if hasattr(type(sim), "force_log_header"):
+        force_path = os.path.join(outdir, "forces.csv")
+        resuming = p.has("restart") and os.path.exists(force_path)
+        sim.force_log = open(force_path, "a" if resuming else "w")
+        if not resuming:
+            sim.force_log.write(type(sim).force_log_header() + "\n")
+
+    if sim.shapes and not p.has("restart"):
+        # t = 0 only: the chi blend would discard the rigid-motion part of
+        # a restored body-interior velocity (load_checkpoint marks the sim
+        # initialized)
+        sim.initialize()   # so the t = 0 dump sees the blended velocity
+
+    def dump(path):
+        if uniform:
+            dump_uniform(path, sim.time, sim.state.vel, sim.grid.h)
+        else:
+            sim.sync_fields()
+            dump_forest(path, sim.time, sim.forest)
+
+    ckpt_path = os.path.join(outdir, "checkpoint")
+    guard = StepGuard(
+        sim, ckpt_dir=ckpt_path,
+        postmortem_dir=os.path.join(outdir, "postmortem"),
+        event_log=log, recover=False, lag=False,
+        watchdog=None if p.has("noWatchdog") else PhysicsWatchdog())
+
+    metrics_log = None
+    recorder = None
+    counters = None
+    if not p.has("noMetrics"):
+        metrics_path = p("metricsLog").asString() if p.has("metricsLog") \
+            else os.path.join(outdir, "metrics.jsonl")
+        metrics_log = EventLog(metrics_path, rotate_mb=rotate_mb)
+        counters = HostCounters().install()
+        recorder = MetricsRecorder(sink=metrics_log, counters=counters,
+                                   timers=sim.timers, guard=guard)
+        recorder.prime(sim)
+
+    def record(rec, wall_ms=None):
+        if rec is not None and recorder is not None:
+            recorder.record_step(step=rec["step"], t=rec["t"],
+                                 dt=rec["dt"], diag=rec, sim=sim,
+                                 wall_ms=wall_ms)
+
+    def drain():
+        # the eager guard has nothing in flight (the lagged verdict of
+        # item 5 settles here before dumps, regrids and checkpoints)
+        for rec in guard.drain():
+            record(rec)
+
+    # SIGTERM = preemption notice: finish the step in flight, write the
+    # restart point, exit 0. Installed around the loop only.
+    stop = PreemptionGuard().install()
+
+    rc = 0
+    try:
+        next_dump = sim.time if cfg.dump_time > 0 else float("inf")
+        while sim.time < cfg.end_time and sim.step_count < max_steps:
+            if stop.agree():
+                drain()
+                save_checkpoint(ckpt_path, sim)
+                log.emit(event="sigterm_checkpoint", step=sim.step_count,
+                         sim_time=sim.time, path=ckpt_path,
+                         signum=stop.signum)
+                print(f"{_PREFIX}: SIGTERM at step {sim.step_count} — "
+                      f"checkpoint written to {ckpt_path}, exiting "
+                      "cleanly", file=sys.stderr)
+                return 0
+            if sim.step_count % 5 == 0:
+                print(f"{_PREFIX}: {sim.step_count:08d} t={sim.time:.6f}",
+                      file=sys.stderr)
+            if cfg.dump_time > 0 and sim.time >= next_dump:
+                # catch the schedule up even when dt > tdump (the
+                # reference falls permanently behind there,
+                # main.cpp:6597-6602)
+                drain()
+                while next_dump <= sim.time:
+                    next_dump += cfg.dump_time
+                dump(os.path.join(outdir, f"vel.{sim.step_count:08d}"))
+            if not uniform and (sim.step_count <= 10
+                                or sim.step_count % cfg.adapt_steps == 0):
+                drain()
+                sim.adapt()
+            if tracer is not None:
+                tracer.maybe_start(sim.step_count)
+            t_step = time.perf_counter()
+            rec = guard.step()
+            if tracer is not None:
+                tracer.maybe_stop(sim.step_count)
+            record(rec, wall_ms=1e3 * (time.perf_counter() - t_step))
+            if ckpt_every and sim.step_count % ckpt_every == 0:
+                drain()
+                save_checkpoint(ckpt_path, sim)
+    except ResilienceAbort as e:
+        # the guard wrote the post-mortem checkpoint, emitted the abort
+        # event and closed the force log
+        print(f"{_PREFIX}: unrecoverable step failure — {e}",
+              file=sys.stderr)
+        rc = 1
+    finally:
+        stop.uninstall()
+        if tracer is not None:
+            tracer.close()   # a window past tend must not leak a trace
+        if sim.force_log is not None and not sim.force_log.closed:
+            sim.force_log.close()
+        if counters is not None:
+            counters.uninstall()
+        if metrics_log is not None:
+            metrics_log.close()
+        set_event_log(None)
+        log.close()
+    if rc:
+        return rc
+
+    if not uniform:
+        sim.sync_fields()   # leave the slot fields current
+    print(f"{_PREFIX}: done at t={sim.time:.6f} "
+          f"after {sim.step_count} steps", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

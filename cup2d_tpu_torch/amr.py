@@ -88,8 +88,8 @@ from .poisson import (ForestFASCycle, _down2_mean, _up2_bilinear,
                       apply_block_precond_blocks, bicgstab,
                       block_precond_matrix, coarse_neumann_solve_dct,
                       dct_neumann_operators, mg_solve)
-from .shapes_host import ShapeHostMixin, pull
-from .sim import _pull_diag, make_shapes
+from .shapes_host import ShapeHostMixin, pull, pull_diag
+from .sim import make_shapes
 from .uniform import resolve_device
 
 __all__ = ["AMRSim", "ObstacleForestFields", "multilevel_forest",
@@ -249,6 +249,9 @@ class AMRSim(ShapeHostMixin):
         self.force_log: Optional[object] = None  # file-like, CSV rows
         # host seconds of each phase of the last shaped step
         self.phase_seconds: dict = {}
+        # cumulative regrid activity (the metrics stream reports deltas)
+        self._n_refined = 0
+        self._n_coarsened = 0
         # the shaped step's next dt (host float, from the previous step's
         # umax on the device) and its topology version
         self._next_dt = None
@@ -873,6 +876,22 @@ class AMRSim(ShapeHostMixin):
             return "strip"
         return "xla"
 
+    @property
+    def kernel_tier(self) -> str:
+        """What runs the lab RHS: ``hopper`` (the CUDA kernel, on the
+        card) or ``plain`` (its twin, on the CPU)."""
+        return "hopper" if self.device.type == "cuda" else "plain"
+
+    @property
+    def prec_mode(self) -> str:
+        """The field dtype (the forest has no bf16 storage tier)."""
+        return {torch.float32: "f32", torch.float64: "f64"}[self.dtype]
+
+    @property
+    def bc_table(self) -> str:
+        """The free-slip token: the forest takes no other table."""
+        return _FREE_SLIP_TOKEN
+
     def _energy(self, v, hsq):
         vv = v.to(self.sum_dtype) if self.sum_dtype is not None else v
         return 0.5 * torch.sum(vv * vv * hsq[:, None].to(vv.dtype))
@@ -1383,7 +1402,7 @@ class AMRSim(ShapeHostMixin):
         # masked: ordered pad rows carry stale (finite) data
         umax = torch.amax(
             torch.abs(self._ordered_state()["vel"]) * self._maskv)
-        return float(self._dt_from_umax(umax, self._hmin()))
+        return float(pull(self._dt_from_umax(umax, self._hmin()))[0])
 
     def _use_coarse(self, exact: bool):
         """Coarse-correction maps for the next solve: always for the
@@ -1416,8 +1435,8 @@ class AMRSim(ShapeHostMixin):
             if self._next_umax is not None:
                 fac = (1.0 if self._next_umax_version == f.version
                        else 1.05)
-                dt = float(self._dt_from_umax(fac * self._next_umax,
-                                              self._hmin()))
+                dt = float(pull(self._dt_from_umax(fac * self._next_umax,
+                                                   self._hmin()))[0])
             else:
                 dt = self.compute_dt()
         exact = self.step_count < 10 or self._force_exact
@@ -1434,7 +1453,7 @@ class AMRSim(ShapeHostMixin):
             # exact-startup counts converge deeper with another M and
             # must not trip the production trigger
             self._last_iters = diag["poisson_iters"]
-        diag, _ = _pull_diag(diag)
+        diag, _ = pull_diag(diag)
         diag["dt"] = float(dt)
         self.time += dt
         self.step_count += 1
@@ -1461,10 +1480,10 @@ class AMRSim(ShapeHostMixin):
             elif self._next_umax is not None:
                 # after a regrid: the same water on a new grid; the 1.05
                 # factor bounds the prolongation's overshoot of umax
-                dt = min(float(self._dt_from_umax(
+                dt = min(float(pull(self._dt_from_umax(
                     torch.tensor(1.05 * float(self._next_umax),
                                  dtype=self.dtype, device=self.device),
-                    self._hmin())), self._kinematic_dt_cap())
+                    self._hmin()))[0]), self._kinematic_dt_cap())
             else:
                 dt = min(self.compute_dt(), self._kinematic_dt_cap())
         t0 = time.perf_counter()
@@ -1498,7 +1517,7 @@ class AMRSim(ShapeHostMixin):
         if with_forces:
             extra.append(self.stack_forces(forces))
         # the one read of the step
-        diag, vals = _pull_diag(diag, *extra)
+        diag, vals = pull_diag(diag, *extra)
         diag["dt"] = float(dt)
         uvw_np, com_np, mass_np, inertia_np, dt_next_np = vals[:5]
         self._sync_shape_scalars_np(com_np, mass_np, inertia_np)
@@ -1541,7 +1560,9 @@ class AMRSim(ShapeHostMixin):
         else:
             tags = self._vorticity_impl(
                 ordf["vel"], self._h, self._tables["vec1"])
-        tags = tags.cpu().numpy()[:self._n_real]
+        # back in the field dtype: the thresholds compare as before
+        (tags_np,) = pull(tags)
+        tags = tags_np.astype(self.forest.np_dtype)[:self._n_real]
         order = self._order
         # 1 = refine, -1 = compress, 0 = leave
         lv = f.level[order].astype(np.int64)
@@ -1669,6 +1690,8 @@ class AMRSim(ShapeHostMixin):
             self._index(child_slots), self._index(sib_slots),
             self._index(parent_slots), self._tables["vec1t"],
             self._tables["sca1t"]))
+        self._n_refined += len(refine_keys)
+        self._n_coarsened += len(groups)
 
     def _regrid_apply_impl(self, fields, order, parents, child_slots,
                            sib_slots, parent_slots, tv, ts):

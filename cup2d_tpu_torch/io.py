@@ -1,0 +1,374 @@
+"""Field dumps in the reference format and checkpoint/restart, the
+counterpart of ``cup2d_tpu.io`` (single process).
+
+A dump is the exact on-disk triplet of the reference's ``dump()``
+(main.cpp:3367-3467): per-cell quads as float32 ``.xyz.raw`` (4 corners x
+2 coords, (x0,y0),(x0,y1),(x1,y1),(x1,y0)), float32 ``.attr.raw`` (u, v, 0
+triplets) and the ``.xdmf2`` index; the JAX package writes the same
+bytes for the same state.
+
+A checkpoint is ``fields.npz`` + ``shapes.pkl`` + ``meta.json`` in the
+JAX package's layout, written to a sibling temp dir and installed by
+park -> replace -> delete, so at every instant ``dirpath`` or
+``dirpath.old`` holds a complete checkpoint; the loader falls back to
+``.old`` with a ``checkpoint_fallback_old`` event. ``load_checkpoint``
+also reads a checkpoint the JAX package wrote: its fish and disk pickles
+load into the port's ``models`` (the attribute names of both packages'
+shapes are the same) through an unpickler that refuses every other
+``cup2d_tpu`` name, so no JAX import can happen. The port adds one meta
+key the JAX package ignores, the forest's ``padding`` (block-axis bucket
+and raster window capacities), without which a restarted card run
+pads, and so sums, differently from the run it resumes.
+
+Every device read goes through ``shapes_host.pull``; ``state_gathers``
+counts ``_gather_state`` calls (``profiling.HostCounters``). Not ported:
+member checkpoints (ROADMAP queue 1 item 6), device snapshots and the
+fault hook inside ``save_checkpoint`` (item 5), the mirror tier (item
+8).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import shutil
+import sys
+
+import numpy as np
+import torch
+
+from .shapes_host import pull
+
+# full state gathers made since import (profiling.HostCounters)
+state_gathers = 0
+
+_XDMF_TEMPLATE = """<Xdmf
+    Version="2.0">
+  <Domain>
+    <Grid>
+      <Time Value="{time:.16e}"/>
+      <Topology
+          Dimensions="{ncell}"
+          TopologyType="Quadrilateral"/>
+     <Geometry
+         GeometryType="XY">
+       <DataItem
+           Dimensions="{npoint} 2"
+           Format="Binary">
+         {xyz_base}
+       </DataItem>
+     </Geometry>
+       <Attribute
+           AttributeType="Vector"
+           Name="vort"
+           Center="Cell">
+         <DataItem
+             Dimensions="3 {ncell}"
+             Format="Binary">
+           {attr_base}
+         </DataItem>
+       </Attribute>
+    </Grid>
+  </Domain>
+</Xdmf>
+"""
+
+
+def _write_quads(path: str, time: float, xg, yg, x1, y1, u, v) -> None:
+    """Emit the reference dump triplet from per-cell corner/value arrays
+    (any shape; raveled in C order)."""
+    ncell = int(np.prod(np.shape(u)))
+    xyz = np.empty((ncell, 4, 2), dtype=np.float32)
+    xyz[:, 0, 0] = np.ravel(xg); xyz[:, 0, 1] = np.ravel(yg)
+    xyz[:, 1, 0] = np.ravel(xg); xyz[:, 1, 1] = np.ravel(y1)
+    xyz[:, 2, 0] = np.ravel(x1); xyz[:, 2, 1] = np.ravel(y1)
+    xyz[:, 3, 0] = np.ravel(x1); xyz[:, 3, 1] = np.ravel(yg)
+
+    attr = np.zeros((ncell, 3), dtype=np.float32)
+    attr[:, 0] = np.ravel(u)
+    attr[:, 1] = np.ravel(v)
+
+    xyz.tofile(path + ".xyz.raw")
+    attr.tofile(path + ".attr.raw")
+    with open(path + ".xdmf2", "w") as f:
+        f.write(_XDMF_TEMPLATE.format(
+            time=time, ncell=ncell, npoint=4 * ncell,
+            xyz_base=os.path.basename(path) + ".xyz.raw",
+            attr_base=os.path.basename(path) + ".attr.raw",
+        ))
+
+
+def dump_uniform(path: str, time: float, vel, h: float,
+                 origin=(0.0, 0.0)) -> None:
+    """Write a uniform-grid velocity field [2, Ny, Nx] (a tensor or numpy)
+    in the reference dump format, cells in row-major (y-outer) order."""
+    if torch.is_tensor(vel):
+        (vel,) = pull(vel)
+    vel = np.asarray(vel, dtype=np.float64)
+    _, ny, nx = vel.shape
+    x0 = origin[0] + np.arange(nx) * h
+    y0 = origin[1] + np.arange(ny) * h
+    xg, yg = np.meshgrid(x0, y0, indexing="xy")   # [ny, nx]
+    _write_quads(path, time, xg, yg, xg + h, yg + h, vel[0], vel[1])
+
+
+def dump_forest(path: str, time: float, forest, order=None) -> None:
+    """Write an adaptive forest's velocity in the reference dump format:
+    blocks in SFC order, cells y-outer/x-inner within each block. The
+    ``[order]`` gather runs on the device before the one host copy."""
+    order = forest.order() if order is None else order
+    bs = forest.bs
+    n = len(order)
+    fld = forest.fields["vel"]
+    (vel,) = pull(fld[torch.as_tensor(np.asarray(order, np.int64),
+                                      device=fld.device)])
+
+    h = forest.cfg.h0 / (1 << forest.level[order]).astype(np.float64)
+    ar = np.arange(bs, dtype=np.float64)
+    x0b = forest.bi[order].astype(np.float64) * bs * h
+    y0b = forest.bj[order].astype(np.float64) * bs * h
+    shape = (n, bs, bs)
+    xg = np.broadcast_to(
+        x0b[:, None, None] + ar[None, None, :] * h[:, None, None], shape)
+    yg = np.broadcast_to(
+        y0b[:, None, None] + ar[None, :, None] * h[:, None, None], shape)
+    x1 = xg + h[:, None, None]
+    y1 = yg + h[:, None, None]
+    _write_quads(path, time, xg, yg, x1, y1, vel[:, 0], vel[:, 1])
+
+
+def read_dump(path: str):
+    """Read back a dump triplet -> (time, xyz [ncell,4,2], attr [ncell,3])."""
+    import xml.etree.ElementTree as ET
+
+    time = float(ET.parse(path + ".xdmf2").find("Domain/Grid/Time")
+                 .get("Value"))
+    xyz = np.fromfile(path + ".xyz.raw", dtype=np.float32).reshape(-1, 4, 2)
+    attr = np.fromfile(path + ".attr.raw", dtype=np.float32).reshape(-1, 3)
+    return time, xyz, attr
+
+
+# ---------------------------------------------------------------------------
+# checkpoint / restore
+# ---------------------------------------------------------------------------
+
+def _gather_state(sim):
+    """The checkpoint payload (host numpy fields, one read) and meta dict.
+    Forest: topology as (level, i, j) keys and the fields in SFC order
+    (slot numbers need not survive); uniform: the ``FlowState`` fields."""
+    global state_gathers
+    state_gathers += 1
+    if hasattr(sim, "sync_fields"):
+        # the forest's per-step truth is its ordered working state
+        sim.sync_fields()
+    if hasattr(sim, "forest"):
+        f = sim.forest
+        order = f.order()
+        keys = np.stack([f.level[order], f.bi[order], f.bj[order]],
+                        axis=1).astype(np.int32)
+        names = sorted(f.fields)
+        idx = torch.as_tensor(np.asarray(order, np.int64),
+                              device=f.fields[names[0]].device)
+        vals = pull(*(f.fields[k][idx] for k in names), keep_dtype=True)
+        payload = {"__forest_keys": keys, **dict(zip(names, vals))}
+    else:
+        names = list(sim.state._fields)
+        vals = pull(*(getattr(sim.state, k) for k in names),
+                    keep_dtype=True)
+        payload = dict(zip(names, vals))
+    meta = {
+        "time": sim.time,
+        "step_count": sim.step_count,
+        "config": {k: v for k, v in vars(sim.cfg).items()
+                   if not k.startswith("_")},
+    }
+    if hasattr(sim, "forest") and hasattr(sim, "_next_dt"):
+        # the cached next-dt state must survive, or a restart right after
+        # a regrid takes a different dt branch than the uninterrupted run;
+        # 'current' records whether each cache matched the topology
+        fver = sim.forest.version
+        umax = sim._next_umax
+        if torch.is_tensor(umax):
+            umax = pull(umax)[0]
+        meta["dt_cache"] = {
+            "next_dt": sim._next_dt,
+            "next_dt_current": bool(
+                sim._next_dt is not None
+                and sim._next_dt_version == fver),
+            "next_umax": float(umax) if umax is not None else None,
+            "next_umax_current": bool(
+                umax is not None
+                and getattr(sim, "_next_umax_version", -1) == fver),
+        }
+    if hasattr(sim, "_coarse_on"):
+        # the production two-level trigger, for the same same-branch
+        # contract
+        meta["poisson_trigger"] = {
+            "coarse_on": bool(sim._coarse_on),
+            "last_iters": int(sim._last_iters),
+        }
+    if hasattr(sim, "_npad_hwm"):
+        meta["padding"] = {"npad_hwm": int(sim._npad_hwm),
+                           "npad_floor": int(sim._npad_floor),
+                           "npad_quiet": int(sim._npad_quiet),
+                           "wcap": [int(w) for w in sim._wcap]}
+    return payload, meta
+
+
+def save_checkpoint(dirpath: str, sim) -> None:
+    """Serialize a driver (``Simulation``, ``UniformSim`` or ``AMRSim``)
+    to ``dirpath``: written to a sibling temp dir, then installed so that a
+    crash mid-save cannot destroy the previous restart point."""
+    payload, meta = _gather_state(sim)
+    tmp = dirpath.rstrip("/") + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    np.savez(os.path.join(tmp, "fields.npz"), **payload)
+    shapes = getattr(sim, "shapes", [])
+    with open(os.path.join(tmp, "shapes.pkl"), "wb") as f:
+        pickle.dump(shapes, f)
+    with open(os.path.join(tmp, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=1)
+    # park the old checkpoint, move the new one in, THEN delete the old:
+    # at every instant dirpath or dirpath.old is complete. (The JAX
+    # package's fault hook between the two renames waits for item 5.)
+    old = dirpath.rstrip("/") + ".old"
+    if os.path.exists(old):
+        shutil.rmtree(old)
+    if os.path.exists(dirpath):
+        os.replace(dirpath, old)
+    os.replace(tmp, dirpath)
+    if os.path.exists(old):
+        shutil.rmtree(old)
+
+
+# the JAX package's shape modules and the port's counterparts
+_SHAPE_MODULES = {"cup2d_tpu.models.fish": "fish",
+                  "cup2d_tpu.models.disk": "disk"}
+
+
+class _ShapesUnpickler(pickle.Unpickler):
+    """Loads shape pickles of either package: a JAX fish or disk (and the
+    fish's schedulers) becomes the port's class of the same name; any
+    other ``cup2d_tpu`` name and every ``jax`` or ``jaxlib`` name is
+    refused, so loading never imports JAX or the JAX package."""
+
+    def find_class(self, module, name):
+        if module.split(".", 1)[0] in ("jax", "jaxlib"):
+            raise pickle.UnpicklingError(
+                f"refusing {module}.{name} in a checkpoint's shapes (a JAX "
+                "array or type; the port loads no JAX)")
+        if module == "cup2d_tpu" or module.startswith("cup2d_tpu."):
+            sub = _SHAPE_MODULES.get(module)
+            if sub is None:
+                raise pickle.UnpicklingError(
+                    f"refusing {module}.{name} in a checkpoint's shapes "
+                    "(only the JAX package's fish and disk models map "
+                    "onto the port)")
+            from .models import disk, fish
+            return getattr({"fish": fish, "disk": disk}[sub], name)
+        return super().find_class(module, name)
+
+
+def load_checkpoint(dirpath: str, sim) -> None:
+    """Restore a checkpoint (the port's or the JAX package's) into ``sim``
+    (built with a matching config/grid). Falls back to ``dirpath.old``,
+    loudly, when a save crashed between parking the previous checkpoint
+    and installing the new one."""
+    if not os.path.exists(os.path.join(dirpath, "meta.json")):
+        old = dirpath.rstrip("/") + ".old"
+        if os.path.exists(os.path.join(old, "meta.json")):
+            print(f"cup2d_tpu_torch: checkpoint {dirpath!r} is missing or "
+                  f"incomplete; falling back to parked copy {old!r} "
+                  "(a save crashed between park and install)",
+                  file=sys.stderr)
+            from .resilience import record_event
+            record_event(event="checkpoint_fallback_old",
+                         requested=dirpath, used=old)
+            dirpath = old
+    with open(os.path.join(dirpath, "meta.json")) as f:
+        meta = json.load(f)
+    shapes = None
+    shapes_path = os.path.join(dirpath, "shapes.pkl")
+    if os.path.exists(shapes_path):
+        with open(shapes_path, "rb") as f:
+            shapes = _ShapesUnpickler(f).load()
+    with np.load(os.path.join(dirpath, "fields.npz")) as data:
+        _install_state(sim, data, meta, shapes)
+
+
+def _install_state(sim, data, meta: dict, shapes) -> None:
+    """Install a gathered payload (name -> array) + meta + shapes into
+    ``sim``, in the JAX package's order."""
+    # counters BEFORE the field restore: _refresh() branches on
+    # step_count (a production restore builds no startup coarse maps)
+    sim.time = float(meta["time"])
+    sim.step_count = int(meta["step_count"])
+    if "__forest_keys" in data:
+        f = sim.forest
+        for key in list(f.blocks):
+            f.release(*key)
+        keys = data["__forest_keys"]
+        slots = [f.allocate(int(l), int(i), int(j)) for (l, i, j) in keys]
+        for name in list(f.fields):
+            old = f.fields[name]
+            vals = torch.as_tensor(np.asarray(data[name])).to(
+                device=old.device, dtype=old.dtype)
+            new = torch.zeros((f.capacity,) + tuple(vals.shape[1:]),
+                              dtype=old.dtype, device=old.device)
+            new[torch.as_tensor(slots, dtype=torch.long,
+                                device=old.device)] = vals
+            f.fields[name] = new
+        pad = meta.get("padding")
+        if pad and hasattr(sim, "_npad_hwm"):
+            sim._npad_hwm = int(pad["npad_hwm"])
+            sim._npad_floor = int(pad["npad_floor"])
+            sim._npad_quiet = int(pad["npad_quiet"])
+            sim._wcap = [int(w) for w in pad["wcap"]]
+        if hasattr(sim, "_ord"):
+            # the restored slot fields are the truth: drop the ordered
+            # cache outright, refresh the tables (which may grow the
+            # forest and move wver), THEN re-anchor the key so a field
+            # write before the first step still drops the dt cache
+            sim._ord = None
+            sim._ord_dirty = False
+            if hasattr(sim, "_refresh"):
+                sim._refresh()
+            sim._ord_key = (f.version, f.fields.wver)
+    else:
+        sim.state = type(sim.state)(**{
+            k: torch.tensor(np.asarray(data[k]), dtype=sim.grid.dtype,
+                            device=sim.grid.device)
+            for k in sim.state._fields})
+    # the cached next-dt state, cleared (the uniform checkpoint carries
+    # none, as in the JAX package) or restored (the forest's dt_cache)
+    for attr, cleared in (("_next_dt", None), ("_next_umax", None),
+                          ("_next_dt_version", -1),
+                          ("_next_umax_version", -1)):
+        if hasattr(sim, attr):
+            setattr(sim, attr, cleared)
+    dtc = meta.get("dt_cache")
+    if dtc and hasattr(sim, "forest") and hasattr(sim, "_next_dt"):
+        fver = sim.forest.version
+        if dtc.get("next_dt") is not None:
+            sim._next_dt = float(dtc["next_dt"])
+            sim._next_dt_version = fver if dtc["next_dt_current"] else -1
+        if dtc.get("next_umax") is not None:
+            umax = float(dtc["next_umax"])
+            if not sim.shapes:
+                # the obstacle-free forest step keeps it on the device
+                umax = torch.tensor(umax, dtype=sim.dtype,
+                                    device=sim.device)
+            sim._next_umax = umax
+            sim._next_umax_version = (
+                fver if dtc["next_umax_current"] else -1)
+    # after the _refresh() above, which re-arms the trigger
+    trig = meta.get("poisson_trigger")
+    if trig and hasattr(sim, "_coarse_on"):
+        sim._coarse_on = bool(trig["coarse_on"])
+        sim._last_iters = int(trig["last_iters"])
+    if hasattr(sim, "shapes") and shapes is not None:
+        sim.shapes[:] = shapes
+        sim._initialized = True  # fields already hold the blended state

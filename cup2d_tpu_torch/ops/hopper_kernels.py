@@ -310,6 +310,10 @@ SUBSTAGE_TILE = (32, 128)
 SUBSTAGE_CTAS_PER_SM = 2
 
 _fns: dict = {}          # source stem (or _FORM_ENTRIES key) -> C entry
+# kernel-library builds and loads since import: one per nvcc run and one
+# per C entry resolved (profiling.HostCounters' jit_compiles); a steady
+# state makes none, and the CPU never any
+build_events = 0
 
 
 def reset_launches() -> None:
@@ -365,6 +369,7 @@ def build() -> dict:
     started together), load them, and return ``{stem: log}`` with the
     compiler's resource report for the sources built now and, last, the
     seconds its ``nvcc`` ran (``nvcc ... s``)."""
+    global build_events
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -380,6 +385,7 @@ def build() -> dict:
         procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), tmp, so)
+        build_events += 1
     # the compiler's output, drained while it runs, and its wall time
     outs = {stem: [] for stem in procs}
     readers = [threading.Thread(target=lambda p=p, o=outs[stem]:
@@ -414,6 +420,7 @@ def build() -> dict:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _fns[key] = fn
+            build_events += 1
     return logs
 
 

@@ -50,6 +50,7 @@ from .ops.hopper_kernels import (_signs, _wrap_axes, fused_correction,
 from .ops.stencil import laplacian5_bc, laplacian5_neumann
 from .parallel.shard_halo import (laplacian5_bc_x, level_meshes,
                                   overlap_jacobi_sweeps, reshard)
+from .shapes_host import pull
 
 
 def block_precond_matrix(bs: int, dtype=np.float64) -> np.ndarray:
@@ -334,7 +335,7 @@ def bicgstab(
     x_opt, norm_opt = x, norm0
     best_l2 = torch.sqrt(dot(r, r))
     it = restarts = best_it = impr_it = 0
-    done = bool(norm0 <= target)
+    done = bool(pull(norm0 <= target)[0])
     eps = torch.tensor(1e-21 if dt_ == torch.float64 else 1e-30, dtype=dt_,
                        device=b.device)
 
@@ -346,8 +347,8 @@ def bicgstab(
         refresh = (it - best_it) >= refresh_every
         # a serious breakdown restarts with rhat = r (cuda.cu:457-477);
         # it matters only where it can restart or give up
-        breakdown = (can_restart or not refresh) and bool(
-            torch.abs(rho_probe) < (1e-16 * norm_r * norm_rhat + eps))
+        breakdown = (can_restart or not refresh) and bool(pull(
+            torch.abs(rho_probe) < (1e-16 * norm_r * norm_rhat + eps))[0])
         do_restart = (breakdown and can_restart) or refresh
         give_up = breakdown and not can_restart and not refresh
 
@@ -355,7 +356,7 @@ def bicgstab(
             r = b - A(x)
             n_true = linf(r)
             n_opt_true = linf(b - A(x_opt))
-            if bool(n_true <= n_opt_true):
+            if bool(pull(n_true <= n_opt_true)[0]):
                 x_opt, norm_opt = x, n_true
             else:
                 norm_opt = n_opt_true
@@ -381,9 +382,9 @@ def bicgstab(
 
         norm = linf(r)
         l2_now = torch.sqrt(dot(r, r))
-        flags = torch.stack([norm < norm_opt, norm <= target,
-                             l2_now < stall_rtol * best_l2]).tolist()
-        better, reached, gain = flags
+        (flags,) = pull(torch.stack([norm < norm_opt, norm <= target,
+                                     l2_now < stall_rtol * best_l2]))
+        better, reached, gain = (bool(f) for f in flags)
         if better:
             x_opt, norm_opt = x, norm
         if refresh:
@@ -398,13 +399,16 @@ def bicgstab(
         done = reached or give_up or stalled
         it += 1
 
-    final_norm = linf(r)
-    use_x = bool(final_norm <= norm_opt)
+    # one read: the comparisons of the f32/f64 scalars are exact on the
+    # host in float64
+    final_norm, norm_opt, target = (float(v) for v in pull(
+        linf(r), norm_opt, target))
+    use_x = final_norm <= norm_opt
     residual = final_norm if use_x else norm_opt
-    converged = bool(residual <= target)
+    converged = residual <= target
     stalled = not converged and (it - impr_it) >= stall_iters
     return BiCGSTABResult(x=x if use_x else x_opt, iters=it,
-                          residual=float(residual), converged=converged,
+                          residual=residual, converged=converged,
                           stalled=stalled)
 
 
@@ -445,19 +449,21 @@ def mg_solve(
     norm = linf(r)
     best = norm
     no_impr = 0
-    done = bool(norm <= target)
+    done = bool(pull(norm <= target)[0])
     while not done and it < max_cycles:
         x = x + mg(r)
         r = b - A(x)
         norm = linf(r)
-        improved, reached = torch.stack(
-            [norm < stall_rtol * best, norm <= target]).tolist()
+        (flags,) = pull(torch.stack([norm < stall_rtol * best,
+                                     norm <= target]))
+        improved, reached = (bool(f) for f in flags)
         best = torch.minimum(best, norm)
         no_impr = 0 if improved else no_impr + 1
         done = reached or no_impr >= stall_cycles
         it += 1
-    converged = bool(norm <= target)
-    return BiCGSTABResult(x=x, iters=it, residual=float(norm),
+    norm, target = (float(v) for v in pull(norm, target))
+    converged = norm <= target
+    return BiCGSTABResult(x=x, iters=it, residual=norm,
                           converged=converged,
                           stalled=not converged and no_impr >= stall_cycles)
 
@@ -600,8 +606,9 @@ def fft_diag_solve(
         return BiCGSTABResult(
             x=x, iters=torch.ones_like(converged, dtype=torch.int32),
             residual=residual, converged=converged, stalled=~converged)
-    ok = bool(converged)
-    return BiCGSTABResult(x=x, iters=1, residual=float(residual),
+    residual, target = (float(v) for v in pull(residual, target))
+    ok = residual <= target
+    return BiCGSTABResult(x=x, iters=1, residual=residual,
                           converged=ok, stalled=not ok)
 
 

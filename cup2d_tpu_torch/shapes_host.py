@@ -1,7 +1,8 @@
 """Host-side shape bookkeeping of the shaped drivers, the counterpart of
 ``cup2d_tpu.shapes_host``: the CoM/inertia sync after rasterization, the
 deforming-body dt cap and the force-diagnostic log. Each device read is
-one stacked copy to the host."""
+one stacked copy to the host, and every read of a step, the solvers'
+flag reads included, goes through ``pull``."""
 
 from __future__ import annotations
 
@@ -11,18 +12,48 @@ import torch
 from .ops.forces import FORCE_KEYS
 
 
-def pull(*tensors) -> list:
+# device-to-host reads made through ``pull`` since import: every read of
+# a step goes through it (profiling.HostCounters reads the deltas)
+pulls = 0
+
+
+def pull(*tensors, keep_dtype: bool = False) -> list:
     """The tensors as float64 numpy arrays of their own shapes, read from
-    the device in ONE copy (each is cast to float64 and flattened into a
-    single buffer first)."""
-    flat = torch.cat([torch.as_tensor(t).reshape(-1).to(torch.float64)
-                      for t in tensors]).cpu().numpy()
+    the device in ONE copy (flattened into a single buffer first, cast to
+    float64 on the device only where their dtypes differ) and counted in
+    ``pulls``. ``keep_dtype``: arrays in the tensors' one common dtype
+    instead (the checkpoint's fields)."""
+    global pulls
+    pulls += 1
+    flat = [torch.as_tensor(t).reshape(-1) for t in tensors]
+    dtypes = {t.dtype for t in flat}
+    if keep_dtype and (len(dtypes) > 1 or torch.bfloat16 in dtypes):
+        raise ValueError(f"pull(keep_dtype=True) of dtypes {dtypes}")
+    if len(dtypes) > 1 or torch.bfloat16 in dtypes:
+        flat = [t.to(torch.float64) for t in flat]
+    buf = flat[0] if len(flat) == 1 else torch.cat(flat)
+    flat = buf.cpu().numpy()
+    flat = flat.copy() if keep_dtype else flat.astype(np.float64)
     out, at = [], 0
     for t in tensors:
         n = t.numel()
         out.append(flat[at:at + n].reshape(tuple(t.shape)))
         at += n
     return out
+
+
+def pull_diag(diag: dict, *extra) -> tuple[dict, list]:
+    """The step diagnostics with every tensor value read to the host (bool
+    tensors as bool, integer ones as int, the rest as float), and
+    ``extra`` tensors as numpy arrays, in one ``pull``."""
+    keys = [k for k, v in diag.items() if torch.is_tensor(v)]
+    vals = pull(*(diag[k] for k in keys), *extra)
+    out = dict(diag)
+    for k, v in zip(keys, vals):
+        dt = diag[k].dtype
+        out[k] = (bool(v) if dt == torch.bool else float(v)
+                  if dt.is_floating_point else int(v))
+    return out, vals[len(keys):]
 
 
 class ShapeHostMixin:

@@ -55,7 +55,7 @@ from .ops.obstacle import (chi_from_sdf, midline_udef,
                            shape_integrals, solve_rigid_momentum,
                            window_coords, window_of)
 from .ops.stencil import pad_scalar
-from .shapes_host import ShapeHostMixin, pull
+from .shapes_host import ShapeHostMixin, pull, pull_diag
 from .uniform import FlowState, UniformGrid
 
 __all__ = ["ObstacleFields", "Simulation", "make_shapes"]
@@ -91,17 +91,6 @@ def make_shapes(cfg: SimConfig) -> list:
                 cfg.min_h, period=d["T"],
             ))
     return out
-
-
-def _pull_diag(diag: dict, *extra) -> tuple[dict, list]:
-    """The step diagnostics with every tensor value read to the host, and
-    ``extra`` tensors as numpy arrays, in one copy."""
-    keys = [k for k, v in diag.items() if torch.is_tensor(v)]
-    vals = pull(*(diag[k] for k in keys), *extra)
-    out = dict(diag)
-    for k, v in zip(keys, vals):
-        out[k] = bool(v) if diag[k].dtype == torch.bool else float(v)
-    return out, vals[len(keys):]
 
 
 class Simulation(ShapeHostMixin):
@@ -417,13 +406,13 @@ class Simulation(ShapeHostMixin):
             # obstacle-free: the plain uniform step, no rasterization
             if dt is None:
                 dt = (self._next_dt if self._next_dt is not None
-                      else float(g.compute_dt(self.state.vel)))
+                      else float(pull(g.compute_dt(self.state.vel))[0]))
             exact = self.step_count < 10 or self._force_exact
             dt_dev = torch.as_tensor(dt, dtype=g.dtype, device=g.device)
             self.state, diag = g.step(self.state, dt_dev,
                                       exact_poisson=exact,
                                       obstacle_terms=False)
-            diag, _ = _pull_diag(diag)
+            diag, _ = pull_diag(diag)
             diag["dt"] = float(dt)
             self._next_dt = float(diag["dt_next"])
             self.time += dt
@@ -435,7 +424,7 @@ class Simulation(ShapeHostMixin):
             if self._next_dt is not None:
                 dt = min(self._next_dt, self._kinematic_dt_cap())
             else:
-                dt = min(float(g.compute_dt(self.state.vel)),
+                dt = min(float(pull(g.compute_dt(self.state.vel))[0]),
                          self._kinematic_dt_cap())
         t0 = time.perf_counter()
 
@@ -455,7 +444,7 @@ class Simulation(ShapeHostMixin):
             self.state, obs, prescribed,
             torch.as_tensor(dt, dtype=g.dtype, device=g.device),
             exact_poisson=exact)
-        diag, (uvw_np,) = _pull_diag(diag, uvw)
+        diag, (uvw_np,) = pull_diag(diag, uvw)
         diag["dt"] = float(dt)
         self._next_dt = float(diag["dt_next"])
         for k, s in enumerate(self.shapes):

@@ -76,6 +76,7 @@ from .parallel.shard_halo import (canonical_device, divergence_bc_x,
 from .poisson import (FFTDiagPlan, MultigridPreconditioner, _reducers,
                       apply_block_precond, bicgstab, block_precond_matrix,
                       fft_diag_solve, mg_solve, project_correct)
+from .shapes_host import pull, pull_diag
 
 __all__ = ["FlowState", "UniformGrid", "UniformSim", "bench_state",
            "pad_scalar", "pad_vector", "resolve_device",
@@ -523,11 +524,6 @@ class UniformGrid:
         return vorticity(self.pad_vector_field(vel, 1), 1, self.h)
 
 
-def _to_host(diag: dict) -> dict:
-    return {k: (v.item() if torch.is_tensor(v) else v)
-            for k, v in diag.items()}
-
-
 class UniformSim:
     """Host-side driver of the obstacle-free step: time and step
     counters, cached next dt; ``case`` names the catalog entry that built
@@ -541,9 +537,22 @@ class UniformSim:
         self.state = self.grid.zero_state()
         self.time = 0.0
         self.step_count = 0
+        self.shapes: list = []          # obstacle-free by construction
+        self.force_log = None
         self._next_dt = None
         self._force_exact = False
         self.async_diag = False
+
+    @property
+    def timers(self):
+        return None
+
+    @timers.setter
+    def timers(self, value) -> None:
+        if value is not None:
+            raise NotImplementedError(
+                "timers (profiling.PhaseTimers) are not ported into the "
+                "drivers yet (ROADMAP queue 1 item 9)")
 
     @property
     def poisson_mode(self) -> str:
@@ -576,7 +585,7 @@ class UniformSim:
             if self._next_dt is not None:
                 dt = self._next_dt
             else:
-                dt = float(g.compute_dt(self.state.vel))
+                dt = float(pull(g.compute_dt(self.state.vel))[0])
         exact = self.step_count < 10 or self._force_exact
         dt_dev = torch.as_tensor(dt, dtype=g.dtype, device=g.device)
         self.state, diag = g.step(self.state, dt_dev, exact_poisson=exact,
@@ -586,7 +595,7 @@ class UniformSim:
             self._next_dt = diag["dt_next"]
             self.step_count += 1
             return diag
-        diag = _to_host(diag)
+        diag, _ = pull_diag(diag)
         diag["dt"] = float(dt)
         self._next_dt = float(diag["dt_next"])
         self.time += float(dt)
@@ -602,7 +611,7 @@ class UniformSim:
         for _ in range(n_steps):
             if tend is not None and self.time >= tend:
                 break
-            dt = float(self.grid.compute_dt(self.state.vel))
+            dt = float(pull(self.grid.compute_dt(self.state.vel))[0])
             if tend is not None:
                 dt = min(dt, tend - self.time + 1e-15)
             exact = exact_first_steps and self.step_count < 10

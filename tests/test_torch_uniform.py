@@ -191,7 +191,23 @@ def test_non_free_slip_table_refuses(monkeypatch):
               bc=periodic_channel_table())
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+def _fish_kw():
+    """``entry()``'s two fish, f64."""
+    return dict(bpdx=2, bpdy=1, level_max=1, level_start=0, extent=4.0,
+                dtype="float64", nu=4e-5, lam=1e7, cfl=0.5,
+                shapes="angle=0 L=0.2 xpos=1.8 ypos=0.8\n"
+                       "angle=180 L=0.2 xpos=1.6 ypos=0.8")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
+    # a checkpoint of the JAX package's fish after a step (its shapes
+    # then hold stepped state), loaded below into the port
+    from cup2d_tpu.io import save_checkpoint as jsave
+    from cup2d_tpu.sim import Simulation as JSim
+    jsim = JSim(SimConfig(**_fish_kw()), level=3)
+    jsim.step_once()
+    assert jsim.step_count == 1
+    jsave(str(tmp_path / "ck"), jsim)
     code = ("import sys, cup2d_tpu_torch, cup2d_tpu_torch.convert, "
             "cup2d_tpu_torch.bc, cup2d_tpu_torch.cases, "
             "cup2d_tpu_torch.amr, cup2d_tpu_torch.parallel.mesh, "
@@ -205,6 +221,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "from cup2d_tpu_torch.poisson import FFTDiagPlan, "
             "fft_diag_solve; "
             "from cup2d_tpu_torch.ops.hopper_kernels import tridiag_scan; "
+            "import cup2d_tpu_torch.io, cup2d_tpu_torch.profiling, "
+            "cup2d_tpu_torch.post, cup2d_tpu_torch.resilience, "
+            "cup2d_tpu_torch.__main__; "
+            "from cup2d_tpu_torch.sim import Simulation; "
+            f"cfg = cup2d_tpu_torch.SimConfig(**{_fish_kw()!r}); "
+            "sim = Simulation(cfg, level=3, device='cpu'); "
+            f"cup2d_tpu_torch.io.load_checkpoint({str(tmp_path / 'ck')!r}, "
+            "sim); assert type(sim.shapes[0]).__module__ == "
+            "'cup2d_tpu_torch.models.fish', sim.shapes; "
+            "assert sim.step_count == 1, sim.step_count; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'cup2d_tpu' "
             "or m.startswith('cup2d_tpu.') or m == 'validation' "
