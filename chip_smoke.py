@@ -245,11 +245,41 @@ the result lines:
    records read it) beside the run's own peak over what was resident
    when it began, and the launches, from 0 over each CLI run, of kernels
    4 (canonical), 2 and 5 (flagship), each > 0. Its files live under
-   build/phase14 and are removed at the end.
+   build/phase14 and stay for phase 15, which removes them.
+15. supervised runs: the canonical CLI of phase 14 without
+   ``-noSupervise`` (the StepGuard ring, a device snapshot a step), bit
+   for bit phase 14's run (every dump's bytes, the ``forces.csv`` rows,
+   each step's iterations), its median production ``wall_ms`` beside
+   phase 14's and its ``snap_ring_bytes``; ``CUP2D_FAULTS`` drills on it,
+   each restarted from phase 14's step-10 checkpoint: ``nan_vel@12``
+   (retry, rc 0), ``poisson_giveup@12*2`` (retry, escalate),
+   ``nan_vel@12*3`` with a step-11 checkpoint of the run's own (retry,
+   escalate, disk restore; then phase 14's last dump, forces rows and
+   iterations bit for bit) and with the step-10 checkpoint as the run's
+   own (the same events; whether it ends as phase 14's is printed, not
+   held: the ladder retries right after the restore, as the reference's
+   does, so the run skips the loop's step-10 adapt), ``nan_vel@12*4``
+   without one (retry, escalate, abort, rc 1, a post-mortem that loads),
+   and ``crash_in_save`` (the
+   save dies between its renames; the load from ``.old`` is the step-10
+   checkpoint bit for bit); then the lagged verdict where it engages:
+   phase 5's forest and the 8192^2 ``UniformSim`` (``bench_state``),
+   under both solvers, 11 production steps eager and under
+   ``StepGuard(snap_every=4)``, four runs in turns (eager, lagged, lagged,
+   eager): bit for bit (fields, clock, step count), the reads of each
+   step (the lagged runs no more in all), host ms a step, ms a step over
+   steps 3-8 between two synchronizes, the card's idle share over a
+   ``torch.profiler`` window of the last 3 steps, the ring's bytes, then
+   the first lagged run's anchor restored and 3 steps replayed, bit for
+   bit again. The canonical CLI's production medians also come in turns
+   (phase 14's, supervised, ``-noSupervise``, supervised). Launches of kernels 2, 4, 5,
+   6 and 8 from 0 over the phase, each > 0; no twin called on the card's
+   f32 operands. Files under build/phase15, removed at the end.
 
 Then one JSON line of per-kernel numbers (with, per kernel, its launches
-on the two flagship runs, the two canonical runs and phase 13's runs
-and, for the flagship's and the canonical run's kernels, their
+on the two flagship runs, the two canonical runs, phase 13's runs and
+phase 15's supervised runs and, for the flagship's and the canonical
+run's kernels, their
 numbers at those shapes), the card's name and power limit
 as nvidia-smi prints them, and the result line
 ``{"ok": true, "device": {...}}`` last. Needs no network; imports no JAX.
@@ -1691,9 +1721,11 @@ def run_forest(sim, label: str) -> dict:
     return out
 
 
-def phase_forest(dev, target=FOREST_TARGET, **kw) -> tuple[list, dict]:
-    """Phase 5: the forest main path under both solvers. Returns the runs
-    and the forest kernels' launch counts summed over them."""
+def phase_forest(dev, target=FOREST_TARGET, **kw
+                 ) -> tuple[list, dict, tuple]:
+    """Phase 5: the forest main path under both solvers. Returns the runs,
+    the forest kernels' launch counts summed over them and the adapted
+    forest's (config, (blocks, fields)) on the host, phase 15's start."""
     os.environ.pop("CUP2D_POIS", None)
     t0 = time.perf_counter()
     sim = vortex_forest(target=target, device=dev, **kw)
@@ -1746,7 +1778,7 @@ def phase_forest(dev, target=FOREST_TARGET, **kw) -> tuple[list, dict]:
         forest_labs_timing(**seen)
     total = {k: sum(r["launches"][k] for r in runs)
              for k in runs[0]["launches"]}
-    return runs, total
+    return runs, total, (cfg, snap)
 
 
 def forest_labs_timing(lab, h, nu, dt) -> None:
@@ -2721,14 +2753,15 @@ class twin_watch:
     """Count calls of the kernels' plain twins on CUDA f32 / complex64
     operands while the block runs (``hk`` and ``poisson`` hold them)."""
 
-    def __init__(self):
-        self.calls = {k: 0 for k in TWINS}
+    def __init__(self, names=TWINS):
+        self.names = names
+        self.calls = {k: 0 for k in names}
 
     def __enter__(self):
         import cup2d_tpu_torch.poisson as tpois
         self.saved = []
         for mod in (hk, tpois):
-            for name in TWINS:
+            for name in self.names:
                 if hasattr(mod, name):
                     fn = getattr(mod, name)
                     self.saved.append((mod, name, fn))
@@ -3155,13 +3188,15 @@ FLAGSHIP_FLAGS = ("-bpdx 2 -bpdy 1 -levelMax 1 -levelStart 0 -Rtol 2 "
                   f"-level {ENTRY_LEVEL}")
 
 
-def canon_cli_argv() -> list:
+def canon_cli_argv(supervised: bool = False) -> list:
     """run.sh's flags as phase 12 writes them, f32, nothing cut, with
-    ``-tdump`` at ``CANON_TDUMP``."""
+    ``-tdump`` at ``CANON_TDUMP``; the verdict-only loop unless
+    ``supervised`` (the CLI's default loop)."""
     argv = CANON_FLAGS.format(lm=CANON_LEVEL_MAX, ls=CANON_LEVEL_START,
                               tol=1e-3, rel=1e-2).split()
     argv[argv.index("-tdump") + 1] = str(CANON_TDUMP)
-    return argv + ["-shapes", ENTRY_SHAPES, "-noSupervise"]
+    return argv + ["-shapes", ENTRY_SHAPES] + (
+        [] if supervised else ["-noSupervise"])
 
 
 class GcClock:
@@ -3429,7 +3464,8 @@ def phase_cli(dev, canon_lib_ms: float, flagship_lib_ms: float
     f32, 45 steps, three production steps traced) after its library loop
     in this phase. Launch counts from 0 over each CLI run. Returns the
     runs and the launches of kernels 4 (the canonical run), 2 and 5 (the
-    flagship)."""
+    flagship). The canonical run's directory stays for phase 15, which
+    removes ``PHASE14_DIR``."""
     shutil.rmtree(PHASE14_DIR, ignore_errors=True)
     dir_a = os.path.join(PHASE14_DIR, "canonical")
     dir_b = os.path.join(PHASE14_DIR, "restart")
@@ -3522,8 +3558,429 @@ def phase_cli(dev, canon_lib_ms: float, flagship_lib_ms: float
     for k, n in launches.items():
         check(n > 0, f"{k}: launched no time on the CLI runs")
     print(f"phase 14 launches {json.dumps(launches)}", flush=True)
-    shutil.rmtree(PHASE14_DIR)
     return runs, launches
+
+
+# phase 15: supervised runs on the card
+PHASE15_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase15")
+DRILL_STEP = 12          # a production step after the step-10 adapt
+DRILL_STEPS = 15
+# (name, CUP2D_FAULTS, the step of the run's own checkpoint on disk or
+# None, actions, rc). The ladder retries right after a disk restore, as
+# the reference's does, so a run restored to step 10 makes step 11
+# without the adapt the loop makes at step 10 (on the card it coarsens
+# 3 blocks): "disk_restore" keeps a step-11 checkpoint and must end bit
+# for bit the unfaulted run; "disk_restore_step10" restores the step-10
+# one and reports whether it does.
+DRILLS = (("retry", f"nan_vel@{DRILL_STEP}", None, ["retry"], 0),
+          ("escalate", f"poisson_giveup@{DRILL_STEP}*2", None,
+           ["retry", "escalate"], 0),
+          ("disk_restore", f"nan_vel@{DRILL_STEP}*3", CANON_CKPT_EVERY + 1,
+           ["retry", "escalate", "disk_restore"], 0),
+          ("disk_restore_step10", f"nan_vel@{DRILL_STEP}*3",
+           CANON_CKPT_EVERY, ["retry", "escalate", "disk_restore"], 0),
+          ("abort", f"nan_vel@{DRILL_STEP}*4", None,
+           ["retry", "escalate", "abort"], 1))
+LAG_STEPS = 11           # with snap_every 4: the anchor after 8, 3 replayed
+LAG_WARM = 2             # the first production steps: dt and trigger settle
+LAG_TRACE = (8, 11)      # the torch.profiler window: the last 3 steps
+SUPERVISED_KEYS = ("fused_advect_heun", "fused_lab_rhs", "fused_correction",
+                   "fused_jacobi_sweeps", "fused_block_jacobi_update")
+FOREST_TWINS = TWINS + ("fused_lab_rhs_plain", "block_jacobi_plain")
+
+
+def _events(out: str) -> list:
+    with open(os.path.join(out, "events.jsonl")) as f:
+        return [json.loads(x) for x in f if x.strip()]
+
+
+def _last_by_step(records: list) -> dict:
+    """The newest record of each step (a rewind repeats steps)."""
+    return {r["step"]: r for r in records}
+
+
+def _canonical_loaded(dev, path: str) -> AMRSim:
+    from cup2d_tpu_torch.io import load_checkpoint
+    sim = AMRSim(canonical_cfg(), device=dev)
+    load_checkpoint(path, sim)
+    return sim
+
+
+def supervised_canonical(dev, dir_a: str, eager_ms: float) -> dict:
+    """The canonical CLI of phase 14 without ``-noSupervise``: the
+    StepGuard ring, one snapshot a step, the eager verdict of the shaped
+    forest; held bit for bit to phase 14's run (every dump's bytes, the
+    forces rows, each step's iterations). Then a ``-noSupervise`` run and
+    a supervised one more, so the production medians come in turns
+    (phase 14's, supervised, verdict-only, supervised), each run's
+    iterations phase 14's."""
+    out = os.path.join(PHASE15_DIR, "canonical")
+    run = cli_run(canon_cli_argv(supervised=True) + [
+        "-maxSteps", str(CANON_CLI_STEPS), "-checkpointEvery",
+        str(CANON_CKPT_EVERY)], out)
+    check(run["rc"] == 0, f"supervised canonical: rc {run['rc']}")
+    dumps_a = sorted(f[:-len(".xdmf2")] for f in os.listdir(dir_a)
+                     if f.endswith(".xdmf2"))
+    dumps_s = sorted(os.path.basename(p) for _, p in run["calls"]["dump"])
+    check(dumps_a == dumps_s and len(dumps_s) >= 20,
+          f"supervised canonical: dumps {dumps_s} != {dumps_a}")
+    for n in dumps_s:
+        for suf in (".xyz.raw", ".attr.raw"):
+            with open(os.path.join(dir_a, n + suf), "rb") as fa, \
+                    open(os.path.join(out, n + suf), "rb") as fb:
+                check(fa.read() == fb.read(),
+                      f"supervised canonical: {n}{suf} differs")
+    rows_a = open(os.path.join(dir_a, "forces.csv")).read().splitlines()
+    check(run["forces"] == rows_a,
+          "supervised canonical: forces.csv differs from phase 14's")
+    from cup2d_tpu_torch.profiling import load_metrics
+    recs_a = [r for r in load_metrics(os.path.join(dir_a, "metrics.jsonl"))
+              if r.get("event") == "metrics"]
+    iters = [(r["step"], r["poisson_iters"]) for r in run["records"]]
+    check(iters == [(r["step"], r["poisson_iters"]) for r in recs_a],
+          f"supervised canonical: iterations {iters} differ")
+    check(not [e for e in _events(out) if e.get("event") == "recovery"],
+          "supervised canonical: a recovery in an unfaulted run")
+    def median_prod(records):
+        return float(np.median([r["wall_ms"] for r in records
+                                if r["step"] > 10]))
+    turns = {"noSupervise": [eager_ms], "supervised": [
+        median_prod(run["records"])]}
+    for k, sup in enumerate((False, True)):
+        out_k = os.path.join(PHASE15_DIR, f"canonical_turn{k}")
+        r = cli_run(canon_cli_argv(supervised=sup) + [
+            "-maxSteps", str(CANON_CLI_STEPS), "-checkpointEvery",
+            str(CANON_CKPT_EVERY)], out_k)
+        check(r["rc"] == 0 and [(x["step"], x["poisson_iters"])
+                                for x in r["records"]] == iters,
+              f"canonical in turns ({'supervised' if sup else 'verdict'}"
+              f"): rc {r['rc']}")
+        turns["supervised" if sup else "noSupervise"].append(
+            median_prod(r["records"]))
+        shutil.rmtree(out_k)
+    return {"production_ms_per_step": turns["supervised"][0],
+            "eager_production_ms_per_step": eager_ms,
+            "production_ms_in_turns": turns,
+            "startup_ms_per_step": float(np.median(
+                [r["wall_ms"] for r in run["records"] if r["step"] <= 10])),
+            "snap_ring_bytes": max(r["snap_ring_bytes"]
+                                   for r in run["records"]),
+            "device_gets_per_production_step": [
+                r["device_gets"] for r in run["records"] if r["step"] > 10],
+            "state_gathers": sum(r["state_gathers"] for r in run["records"]),
+            "dumps": len(dumps_s), "seconds": run["seconds"],
+            "bit_for_bit": True}
+
+
+def ladder_drill(dev, dir_a: str, name: str, spec: str, disk,
+                 actions: list, rc: int) -> dict:
+    """One ``CUP2D_FAULTS`` drill on the canonical CLI, restarted from
+    phase 14's step-10 checkpoint. ``disk``: the step of the run's own
+    checkpoint, the disk rung's restore point (10: that checkpoint copied
+    in as the run's own; 11: saved by the run), or None."""
+    out = os.path.join(PHASE15_DIR, name)
+    os.makedirs(out)
+    start = os.path.join(dir_a, f"checkpoint.{CANON_CKPT_EVERY}")
+    ck = os.path.join(out, "checkpoint" if disk == CANON_CKPT_EVERY
+                      else "start")
+    shutil.copytree(start, ck)
+    extra = (["-checkpointEvery", str(disk)]
+             if disk and disk != CANON_CKPT_EVERY else [])
+    os.environ["CUP2D_FAULTS"] = spec
+    try:
+        run = cli_run(canon_cli_argv(supervised=True) + [
+            "-maxSteps", str(DRILL_STEPS), "-restart", ck] + extra, out)
+    finally:
+        os.environ.pop("CUP2D_FAULTS", None)
+    evs = [e for e in _events(out) if e.get("event") == "recovery"]
+    got = [e["action"] for e in evs]
+    check(run["rc"] == rc and got == actions
+          and all(e["step"] == DRILL_STEP for e in evs),
+          f"drill {name} ({spec}): rc {run['rc']}, events "
+          f"{[(e['step'], e['action'], e['verdict']) for e in evs]}")
+    res = {"spec": spec, "rc": run["rc"], "actions": got,
+           "verdicts": [e["verdict"] for e in evs],
+           "replayed": [e.get("replayed") for e in evs],
+           "seconds": run["seconds"]}
+    last = _last_by_step(run["records"])
+    if rc == 0:
+        check(max(last) == DRILL_STEPS and all(
+            np.isfinite(r["umax"]) for r in last.values()),
+            f"drill {name}: records {sorted(last)}")
+    if disk:
+        # after the restore, is the run phase 14's again? Its last dump
+        # (the clock rewound below the dump schedule, which resumes past
+        # the failed step), the last step's forces rows and the
+        # iterations since the restore, bit for bit
+        n = os.path.basename(run["calls"]["dump"][-1][1])
+        check(int(n.split(".")[1]) > DRILL_STEP,
+              f"drill {name}: last dump {n}")
+        same = {}
+        for suf in (".xyz.raw", ".attr.raw"):
+            with open(os.path.join(dir_a, n + suf), "rb") as fa, \
+                    open(os.path.join(out, n + suf), "rb") as fb:
+                same[n + suf] = fa.read() == fb.read()
+        rows_a = open(os.path.join(dir_a, "forces.csv")).read().splitlines()
+        same["forces"] = run["forces"][-2:] == rows_a[
+            1 + 2 * (DRILL_STEPS - 1):1 + 2 * DRILL_STEPS]
+        from cup2d_tpu_torch.profiling import load_metrics
+        ref = _last_by_step(
+            [r for r in load_metrics(os.path.join(dir_a, "metrics.jsonl"))
+             if r.get("event") == "metrics"])
+        steps = range(disk + 1, DRILL_STEPS + 1)
+        same["iterations"] = ([last[s]["poisson_iters"] for s in steps]
+                              == [ref[s]["poisson_iters"] for s in steps])
+        res["compared_dump"] = n
+        res["same_as_unfaulted"] = same
+        res["bit_for_bit"] = all(same.values())
+        if disk != CANON_CKPT_EVERY:
+            check(res["bit_for_bit"],
+                  f"drill {name}: differs from the unfaulted run {same}")
+    if name == "abort":
+        pm = _canonical_loaded(dev, os.path.join(out, "postmortem"))
+        res["postmortem_step"] = pm.step_count
+        check(pm.step_count > CANON_CKPT_EVERY,
+              f"drill abort: post-mortem at step {pm.step_count}")
+        del pm
+    return res
+
+
+def crash_drill(dev, dir_a: str) -> dict:
+    """``crash_in_save``: a restart from phase 14's step-10 checkpoint
+    (copied in as the run's own) dies in the step-11 save between the park
+    and the install; the load falls back to the parked step-10 checkpoint,
+    bit for bit."""
+    from cup2d_tpu_torch.faults import InjectedCrash
+    out = os.path.join(PHASE15_DIR, "crash")
+    os.makedirs(out)
+    start = os.path.join(dir_a, f"checkpoint.{CANON_CKPT_EVERY}")
+    ck = os.path.join(out, "checkpoint")
+    shutil.copytree(start, ck)
+    os.environ["CUP2D_FAULTS"] = "crash_in_save"
+    crashed = False
+    try:
+        cli_run(canon_cli_argv(supervised=True) + [
+            "-maxSteps", str(CANON_CKPT_EVERY + 2), "-checkpointEvery",
+            str(CANON_CKPT_EVERY + 1), "-restart", ck], out)
+    except InjectedCrash:
+        crashed = True
+    finally:
+        os.environ.pop("CUP2D_FAULTS", None)
+    check(crashed and not os.path.exists(os.path.join(ck, "meta.json"))
+          and os.path.exists(os.path.join(ck + ".old", "meta.json")),
+          "crash_in_save: no crash between the park and the install")
+    a = _canonical_loaded(dev, ck)          # falls back to .old
+    b = _canonical_loaded(dev, start)
+    ka, fa = _ordered_fields(a)
+    kb, fb = _ordered_fields(b)
+    same = (a.step_count == b.step_count == CANON_CKPT_EVERY
+            and a.time == b.time and ka == kb
+            and all(np.array_equal(fa[k], fb[k]) for k in fb))
+    check(same, "crash_in_save: the .old load differs from the step-10 "
+          "checkpoint")
+    return {"crashed": crashed, "loaded_step": a.step_count,
+            "bit_for_bit": same}
+
+
+def _profiled(path: str):
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA],
+        on_trace_ready=lambda p: p.export_chrome_trace(path))
+
+
+def _state_of(sim) -> dict:
+    if hasattr(sim, "forest"):
+        return {k: v.clone() for k, v in sim._ordered_state().items()}
+    return {k: v.clone() for k, v in sim.state._asdict().items()}
+
+
+def lag_run(sim, guarded: bool, trace: str) -> dict:
+    """``LAG_STEPS`` production steps, eager or under
+    ``StepGuard(snap_every=4)`` (the lagged verdict): each step's reads
+    and host ms (no synchronize between steps, so the lag's overlap
+    shows), the ms a step from a synchronize before step ``LAG_WARM`` to
+    one after the step before ``LAG_TRACE``, the ring's bytes, and
+    ``LAG_TRACE`` under ``torch.profiler``."""
+    from cup2d_tpu_torch.profiling import HostCounters
+    from cup2d_tpu_torch.resilience import StepGuard
+    guard = StepGuard(sim, snap_every=4) if guarded else None
+    c = HostCounters().install()
+    gets, ms, ring = [], [], 0
+    prof = None
+    torch.cuda.synchronize()
+    t_prev = time.perf_counter()
+    last = 0
+    for k in range(LAG_STEPS):
+        if k == LAG_WARM:
+            torch.cuda.synchronize()
+            t_timed = time.perf_counter()
+        if k == LAG_TRACE[0]:
+            torch.cuda.synchronize()
+            timed = time.perf_counter() - t_timed
+            prof = _profiled(trace)
+            prof.__enter__()
+        guard.step() if guarded else sim.step_once()
+        if k == LAG_TRACE[1] - 1:
+            prof.__exit__(None, None, None)
+        now = c.snapshot()["device_gets"]
+        gets.append(now - last)
+        last = now
+        t = time.perf_counter()
+        ms.append(1e3 * (t - t_prev))
+        t_prev = t
+        if guarded:
+            ring = max(ring, guard.ring_nbytes())
+    drain_gets = 0
+    if guarded:
+        guard.drain()
+        drain_gets = c.snapshot()["device_gets"] - last
+    torch.cuda.synchronize()
+    c.uninstall()
+    n_timed = LAG_TRACE[0] - LAG_WARM
+    return {"device_gets": gets, "drain_gets": drain_gets, "ms": ms,
+            "timed_ms_per_step": 1e3 * timed / n_timed,
+            "timed_steps": n_timed,
+            "state_gathers": c.snapshot()["state_gathers"],
+            "ring_bytes_max": ring,
+            "trace": trace_summary(trace, LAG_TRACE[1] - LAG_TRACE[0]),
+            "guard": guard}
+
+
+def lag_pair(dev, label: str, mk, card: str) -> dict:
+    """Four runs of one obstacle-free driver from the same state, in
+    turns: eager, lagged, lagged, eager. Each bit for bit the first (the
+    fields, the clock, the step count), the lagged ones with no more reads
+    than the eager and no gather; then the first lagged run's anchor
+    restored and its 3 steps replayed: bit for bit again."""
+    base = os.path.join(PHASE15_DIR, label.replace(" ", "_"))
+    runs, ref, first_lagged = [], None, None
+    for k, guarded in enumerate((False, True, True, False)):
+        sim = mk()
+        r = lag_run(sim, guarded, f"{base}_{k}.json")
+        guard = r.pop("guard")
+        st = _state_of(sim)
+        if ref is None:
+            ref = (st, sim.time, sim.step_count)
+        same = (sim.async_diag == guarded and sim.time == ref[1]
+                and sim.step_count == ref[2]
+                and all(torch.equal(ref[0][n], st[n]) for n in st))
+        check(same, f"{label}: run {k} ({'lagged' if guarded else 'eager'}"
+              ") differs from the first eager run")
+        if guarded:
+            check(r["state_gathers"] == 0
+                  and sum(r["device_gets"]) + r["drain_gets"]
+                  <= sum(runs[0]["device_gets"]),
+                  f"{label}: lagged reads {r['device_gets']} + "
+                  f"{r['drain_gets']} vs eager {runs[0]['device_gets']}, "
+                  f"gathers {r['state_gathers']}")
+        if guarded and first_lagged is None:
+            n = guard._rewind_replay()
+            torch.cuda.synchronize()
+            sr = _state_of(sim)
+            replay = (n == LAG_STEPS % 4 and sim.time == ref[1]
+                      and all(torch.equal(ref[0][m], sr[m]) for m in sr))
+            check(replay, f"{label}: restore + {n} replayed steps differ "
+                  "from the uninterrupted run")
+            first_lagged = {"replayed": n, "ring_bytes": guard.ring_nbytes(),
+                            "mode": sim.poisson_mode}
+            del sr
+        runs.append(r)
+        del sim, guard, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"eager": runs[0], "lagged": runs[1], "bit_for_bit": True,
+           "replay_bit_for_bit": True, **first_lagged,
+           "timed_ms_in_turns": {
+               "eager": [runs[0]["timed_ms_per_step"],
+                         runs[3]["timed_ms_per_step"]],
+               "lagged": [runs[1]["timed_ms_per_step"],
+                          runs[2]["timed_ms_per_step"]]},
+           "idle_in_turns": {
+               "eager": [runs[0]["trace"]["idle_share"],
+                         runs[3]["trace"]["idle_share"]],
+               "lagged": [runs[1]["trace"]["idle_share"],
+                          runs[2]["trace"]["idle_share"]]},
+           "card": card}
+    del ref
+    print(f"phase 15 lag {label} {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_supervised(dev, forest_start: tuple, canon_eager_ms: float,
+                     card: str) -> tuple[dict, dict]:
+    """Phase 15: supervision on the card. The canonical CLI without
+    ``-noSupervise`` bit for bit phase 14's run; the ladder drills on it
+    from phase 14's step-10 checkpoint (retry; retry, escalate; retry,
+    escalate, disk restore to a step-11 checkpoint, then phase 14's run
+    bit for bit, and to the step-10 one, reported; retry, escalate, abort
+    with rc 1 and a post-mortem that loads) and the crash
+    in a save (the ``.old`` load bit for bit); the lagged verdict on the
+    obstacle-free drivers (phase 5's forest and the 8192^2
+    ``UniformSim``, both solvers): bit for bit the eager run with no more
+    reads, and restore + replay bit for bit. Launches of kernels 2, 4, 5,
+    6 and 8 from 0 over the phase; no twin called on the card's f32
+    operands. Removes phase 14's and its own files."""
+    shutil.rmtree(PHASE15_DIR, ignore_errors=True)
+    os.makedirs(PHASE15_DIR)
+    dir_a = os.path.join(PHASE14_DIR, "canonical")
+    hk.reset_launches()
+    out = {}
+    with twin_watch(FOREST_TWINS) as tw:
+        out["canonical"] = supervised_canonical(dev, dir_a, canon_eager_ms)
+        print(f"phase 15 supervised canonical cli "
+              f"{json.dumps(out['canonical'])}", flush=True)
+        out["drills"] = {}
+        for name, spec, disk, actions, rc in DRILLS:
+            out["drills"][name] = ladder_drill(dev, dir_a, name, spec,
+                                               disk, actions, rc)
+            print(f"phase 15 drill {name} "
+                  f"{json.dumps(out['drills'][name])}", flush=True)
+        out["drills"]["crash_in_save"] = crash_drill(dev, dir_a)
+        print(f"phase 15 drill crash_in_save "
+              f"{json.dumps(out['drills']['crash_in_save'])}", flush=True)
+        cfg_f, snap = forest_start
+
+        def forest(pois):
+            def mk():
+                if pois:
+                    os.environ["CUP2D_POIS"] = pois
+                try:
+                    s = AMRSim(cfg_f, shapes=[], device=dev)
+                finally:
+                    os.environ.pop("CUP2D_POIS", None)
+                forest_from_numpy(s, *snap)
+                s.step_count = 10            # production steps
+                return s
+            return mk
+
+        def uniform(pois):
+            def mk():
+                cfg, level = bench_cfg(8192, 8192)
+                with latched(pois):
+                    s = UniformSim(cfg, level=level, device=dev)
+                s.state = bench_start(s.grid)
+                s.step_count = 10
+                return s
+            return mk
+        out["lag"] = {}
+        for pois in ("", "fas"):
+            name = pois or "default"
+            out["lag"][f"forest {name}"] = lag_pair(
+                dev, f"forest {name}", forest(pois), card)
+            out["lag"][f"uniform 8192^2 {name}"] = lag_pair(
+                dev, f"uniform 8192^2 {name}", uniform(pois), card)
+    check(not any(tw.calls.values()),
+          f"phase 15: twins called on the card's f32 operands {tw.calls}")
+    launches = {k: hk.launches[k] for k in SUPERVISED_KEYS}
+    for k, n in launches.items():
+        check(n > 0, f"{k}: launched no time in the supervised runs")
+    print(f"phase 15 launches {json.dumps(launches)}; card {card}",
+          flush=True)
+    shutil.rmtree(PHASE14_DIR)
+    shutil.rmtree(PHASE15_DIR)
+    return out, launches
 
 
 def main() -> int:
@@ -3575,7 +4032,7 @@ def main() -> int:
 
     phase_trajectory(dev)
 
-    forest_runs, forest_launches = phase_forest(dev)
+    forest_runs, forest_launches, forest_start = phase_forest(dev)
     for k, n in forest_launches.items():
         check(n > 0, f"{k}: launched no time on the forest main path")
     launches.update(forest_launches)
@@ -3632,6 +4089,10 @@ def main() -> int:
         dev, canon["canonical"][0]["production"]["ms_per_step"],
         shaped["flagship"][0]["production"]["ms_per_step"])
     print(f"phase 14 took {time.perf_counter() - t0} s", flush=True)
+    t0 = time.perf_counter()
+    supervised, sup_launches = phase_supervised(
+        dev, forest_start, cli["canonical"]["production_ms_per_step"], card)
+    print(f"phase 15 took {time.perf_counter() - t0} s", flush=True)
     check("jax" not in sys.modules, "the smoke imported jax")
     check("validation" not in sys.modules, "the smoke imported validation")
 
@@ -3648,6 +4109,7 @@ def main() -> int:
                     canonical_launches=canon_launches.get(k, 0),
                     canonical=canon["kernels"].get(k),
                     periodic_launches=periodic_launches.get(k, 0),
+                    supervised_launches=sup_launches.get(k, 0),
                     **({k2: res[k][k2] for k2 in ("ulps", "fft_ms")
                         if k2 in res[k]}))
                for k in hk.launches]
@@ -3662,6 +4124,7 @@ def main() -> int:
     print(f"canonical shaped forest summary: {json.dumps(canon)}")
     print(f"periodic main path summary: {json.dumps(periodic)}")
     print(f"run driver summary: {json.dumps(cli)}")
+    print(f"supervised runs summary: {json.dumps(supervised)}")
     print(f"total {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,9 +13,10 @@ forest block-Jacobi update, the halo-mode substage and Jacobi sweep of
 the split step, and the single-op advection RHS
 (``ops/hopper_kernels.py``); and the run driver, ``python -m
 cup2d_tpu_torch <reference flags>`` (``__main__.py``), with its
-reference-format dumps and checkpoints (``io.py``), metrics stream
-(``profiling.py``), verdict-only supervision (``resilience.py``) and
-``post.py``.
+reference-format dumps and checkpoints (``io.py``, with the device
+snapshot ring), metrics stream (``profiling.py``), supervised stepping
+(``resilience.py``: the recovery ladder and the lagged verdict; fault
+injection in ``faults.py``) and ``post.py``.
 
 The port imports torch and numpy only, never jax and nothing of
 ``cup2d_tpu``. Entry points run on ``cuda`` unless given

@@ -51,7 +51,10 @@ fas/fas-f: the forest FAS hierarchy as the production solver) and
 ``CUP2D_TWOLEVEL`` (additive|mult|mg2, forcing one two-level form). Not
 ported yet, and refused with a ValueError: ``CUP2D_POIS=tables`` and
 ``CUP2D_PREC=bf16`` (the bf16 FAS ladder legs; ROADMAP queue 1 item 7).
-``async_diag`` (item 5) and ``timers`` (item 9) refuse when set.
+``async_diag`` (set by ``resilience.StepGuard(lag=True)``) makes the
+obstacle-free step read nothing: dt stays a device scalar and the guard's
+lagged verdict settles the clock; the shaped step verdicts eagerly.
+``timers`` (item 9) refuses when set.
 ``fftd`` and non-free-slip boundary tables refuse as in the reference.
 """
 
@@ -265,17 +268,10 @@ class AMRSim(ShapeHostMixin):
         self._last_iters = 0
         self._coarse_on = False
         self._force_exact = False
-
-    @property
-    def async_diag(self) -> bool:
-        return False
-
-    @async_diag.setter
-    def async_diag(self, on: bool) -> None:
-        if on:
-            raise NotImplementedError(
-                "async_diag (the lagged verdict) is not ported yet "
-                "(ROADMAP queue 1 item 5)")
+        # the lagged verdict (resilience.StepGuard, lag=True): the
+        # obstacle-free step keeps dt and its diagnostics on the device
+        # and leaves the clock to the guard; the shaped step ignores it
+        self.async_diag = False
 
     @property
     def timers(self):
@@ -1425,7 +1421,8 @@ class AMRSim(ShapeHostMixin):
         step (x1.05 after a regrid, the prolongation-overshoot guard) or
         a fresh reduction; the reference's exact solves for the first 10
         steps. Returns the step diagnostics as host values, read in one
-        copy."""
+        copy; without shapes under ``async_diag``, unread (dt stays the
+        device scalar it was computed as) and the clock left alone."""
         self._refresh()
         if self.shapes:
             return self._step_shaped(dt)
@@ -1435,12 +1432,14 @@ class AMRSim(ShapeHostMixin):
             if self._next_umax is not None:
                 fac = (1.0 if self._next_umax_version == f.version
                        else 1.05)
-                dt = float(pull(self._dt_from_umax(fac * self._next_umax,
-                                                   self._hmin()))[0])
+                dt = self._dt_from_umax(fac * self._next_umax,
+                                        self._hmin())
+                if not self.async_diag:
+                    dt = float(pull(dt)[0])
             else:
                 dt = self.compute_dt()
         exact = self.step_count < 10 or self._force_exact
-        dt_dev = torch.tensor(dt, dtype=self.dtype, device=self.device)
+        dt_dev = torch.as_tensor(dt, dtype=self.dtype, device=self.device)
         vel, pres, diag = self._step_impl(
             ordf["vel"], ordf["pres"], dt_dev, self._h, self._hsq_flat,
             self._maskv, self._tables["vec3"], self._tables["vec1"],
@@ -1450,9 +1449,17 @@ class AMRSim(ShapeHostMixin):
         self._next_umax = diag["umax"]
         self._next_umax_version = f.version
         if not exact:
-            # exact-startup counts converge deeper with another M and
-            # must not trip the production trigger
-            self._last_iters = diag["poisson_iters"]
+            # the production two-level trigger, from the solver's count (a
+            # host int: the solvers read their flags on the host).
+            # Exact-startup counts converge deeper with another M and must
+            # not trip it.
+            self._last_iters = int(diag["poisson_iters"])
+        if self.async_diag:
+            # no read: the guard's lagged verdict pulls the diagnostics
+            # and settles the clock from the dt used
+            diag["dt"] = dt_dev
+            self.step_count += 1
+            return diag
         diag, _ = pull_diag(diag)
         diag["dt"] = float(dt)
         self.time += dt

@@ -20,11 +20,19 @@ key the JAX package ignores, the forest's ``padding`` (block-axis bucket
 and raster window capacities), without which a restarted card run
 pads, and so sums, differently from the run it resumes.
 
+``save_checkpoint`` calls ``faults.crash_point("checkpoint_install")``
+between its two renames (the ``crash_in_save`` drill).
+
+The device snapshot tier of the supervised loop (``resilience.StepGuard``'s
+ring): ``snapshot_state_device`` clones every field and every device
+dt-cache scalar on the device, ``restore_snapshot_device`` installs fresh
+clones of an entry (so one entry restores twice); neither reads the
+device from the host. A snapshot of another topology restores through
+``_install_state``.
+
 Every device read goes through ``shapes_host.pull``; ``state_gathers``
 counts ``_gather_state`` calls (``profiling.HostCounters``). Not ported:
-member checkpoints (ROADMAP queue 1 item 6), device snapshots and the
-fault hook inside ``save_checkpoint`` (item 5), the mirror tier (item
-8).
+member checkpoints (ROADMAP queue 1 item 6) and the mirror tier (item 8).
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import os
 import pickle
 import shutil
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -232,13 +241,16 @@ def save_checkpoint(dirpath: str, sim) -> None:
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(meta, f, indent=1)
     # park the old checkpoint, move the new one in, THEN delete the old:
-    # at every instant dirpath or dirpath.old is complete. (The JAX
-    # package's fault hook between the two renames waits for item 5.)
+    # at every instant dirpath or dirpath.old is complete
     old = dirpath.rstrip("/") + ".old"
     if os.path.exists(old):
         shutil.rmtree(old)
     if os.path.exists(dirpath):
         os.replace(dirpath, old)
+    # the crash window (a no-op unless a FaultPlan armed crash_in_save):
+    # dirpath absent, dirpath.old complete
+    from . import faults
+    faults.crash_point("checkpoint_install")
     os.replace(tmp, dirpath)
     if os.path.exists(old):
         shutil.rmtree(old)
@@ -314,8 +326,10 @@ def _install_state(sim, data, meta: dict, shapes) -> None:
         slots = [f.allocate(int(l), int(i), int(j)) for (l, i, j) in keys]
         for name in list(f.fields):
             old = f.fields[name]
-            vals = torch.as_tensor(np.asarray(data[name])).to(
-                device=old.device, dtype=old.dtype)
+            vals = data[name]
+            if not torch.is_tensor(vals):    # a snapshot holds tensors
+                vals = torch.as_tensor(np.asarray(vals))
+            vals = vals.to(device=old.device, dtype=old.dtype)
             new = torch.zeros((f.capacity,) + tuple(vals.shape[1:]),
                               dtype=old.dtype, device=old.device)
             new[torch.as_tensor(slots, dtype=torch.long,
@@ -372,3 +386,154 @@ def _install_state(sim, data, meta: dict, shapes) -> None:
     if hasattr(sim, "shapes") and shapes is not None:
         sim.shapes[:] = shapes
         sim._initialized = True  # fields already hold the blended state
+
+
+# ---------------------------------------------------------------------------
+# device snapshots (the StepGuard's ring)
+# ---------------------------------------------------------------------------
+# The stepping code may write into the tensors it was given, and torch has
+# no buffer donation to guard against that, so a snapshot holds clones
+# and a restore installs fresh clones of them (``Tensor.clone``, the JAX
+# package's ``device_copy``): the ring entry itself is never handed to a
+# step.
+
+class DeviceSnapshot(NamedTuple):
+    """One state on the device: clones of the fields plus host meta.
+
+    ``dev`` holds the dt-cache entries that are device scalars at capture
+    (the lagged drivers keep ``_next_dt`` / ``_next_umax`` on the device);
+    ``meta['time']`` is settled by the StepGuard at verdict time on the
+    lagged paths. The JAX package's ``mirror`` slot belongs to the
+    host-redundant mirror tier, ROADMAP queue 1 item 8."""
+
+    payload: dict        # field name -> device clone
+    meta: dict           # host scalars (+ forest keys for a topology restore)
+    dev: dict            # dt-cache entries still on the device
+    shapes_pkl: object   # bytes | None
+
+
+def _split_cache(meta: dict, dev: dict, name: str, val) -> None:
+    """File a dt-cache value under meta (host) or dev (device clone)."""
+    if torch.is_tensor(val):
+        dev[name] = val.clone()
+    elif val is not None:
+        meta[name] = float(val)
+
+
+def snapshot_state_device(sim) -> DeviceSnapshot:
+    """Capture ``sim`` on the device: no host read, no state gather. The
+    forest's topology keys are host numpy already; its ordered working
+    state is cloned."""
+    meta = {"time": sim.time, "step_count": sim.step_count}
+    dev: dict = {}
+    if hasattr(sim, "forest"):
+        f = sim.forest
+        ordf = sim._ordered_state()
+        payload = {k: v.clone() for k, v in ordf.items()}
+        order = sim._order
+        meta.update(
+            kind="forest",
+            forest_version=f.version,
+            n_real=int(sim._n_real),
+            keys=np.stack([f.level[order], f.bi[order], f.bj[order]],
+                          axis=1).astype(np.int32),
+            next_dt_current=bool(sim._next_dt is not None
+                                 and sim._next_dt_version == f.version),
+            next_umax_current=bool(sim._next_umax is not None
+                                   and sim._next_umax_version == f.version),
+            last_iters=int(sim._last_iters),
+            coarse_on=bool(sim._coarse_on),
+        )
+        _split_cache(meta, dev, "next_dt", sim._next_dt)
+        _split_cache(meta, dev, "next_umax", sim._next_umax)
+    else:
+        payload = {k: v.clone() for k, v in sim.state._asdict().items()}
+        meta["kind"] = "uniform"
+        _split_cache(meta, dev, "next_dt", getattr(sim, "_next_dt", None))
+    shapes = getattr(sim, "shapes", None)
+    return DeviceSnapshot(
+        payload=payload, meta=meta, dev=dev,
+        shapes_pkl=pickle.dumps(list(shapes)) if shapes else None)
+
+
+def snapshot_nbytes(snap: DeviceSnapshot) -> int:
+    """Device bytes of one snapshot's fields (tensor metadata, no read)."""
+    return int(sum(v.numel() * v.element_size()
+                   for v in snap.payload.values()))
+
+
+def _restore_cache(sim, snap: DeviceSnapshot, fver=None) -> None:
+    meta, dev = snap.meta, snap.dev
+    if hasattr(sim, "_next_dt"):
+        nd = dev.get("next_dt")
+        sim._next_dt = nd.clone() if nd is not None else meta.get("next_dt")
+        if hasattr(sim, "_next_dt_version"):
+            sim._next_dt_version = (
+                fver if meta.get("next_dt_current") else -1)
+    if hasattr(sim, "_next_umax"):
+        nu = dev.get("next_umax")
+        sim._next_umax = (nu.clone() if nu is not None
+                          else meta.get("next_umax"))
+        sim._next_umax_version = (
+            fver if meta.get("next_umax_current") else -1)
+    if hasattr(sim, "_last_iters"):
+        sim._last_iters = int(meta.get("last_iters", 0))
+    if hasattr(sim, "_coarse_on"):
+        sim._coarse_on = bool(meta.get("coarse_on", False))
+
+
+def restore_snapshot_device(sim, snap: DeviceSnapshot) -> None:
+    """Install fresh clones of a device snapshot into ``sim``.
+
+    A snapshot of the current topology (the only kind the StepGuard's
+    ladder restores: it re-anchors its ring after every regrid) installs
+    clones of the ordered working state. One of another topology goes
+    through ``_install_state`` with the cloned fields (device to device;
+    only the dt-cache scalars are read to the host there, in one pull)."""
+    meta = snap.meta
+    if meta["kind"] == "forest":
+        f = sim.forest
+        if meta["forest_version"] == f.version and sim._ord is not None \
+                and next(iter(snap.payload.values())).shape[0] \
+                == next(iter(sim._ord.values())).shape[0]:
+            sim.time = float(meta["time"])
+            sim.step_count = int(meta["step_count"])
+            sim._ord = {k: v.clone() for k, v in snap.payload.items()}
+            # the restored ordered state is the truth; the slot fields
+            # are stale until the next sync_fields()
+            sim._ord_key = (f.version, f.fields.wver)
+            sim._ord_dirty = True
+            _restore_cache(sim, snap, fver=f.version)
+        else:
+            names = list(snap.dev)
+            dev = dict(zip(names, (float(v) for v in
+                                   pull(*snap.dev.values())))) \
+                if names else {}
+            m2 = {
+                "time": meta["time"], "step_count": meta["step_count"],
+                "dt_cache": {
+                    "next_dt": dev.get("next_dt", meta.get("next_dt")),
+                    "next_dt_current": meta["next_dt_current"],
+                    "next_umax": dev.get("next_umax",
+                                         meta.get("next_umax")),
+                    "next_umax_current": meta["next_umax_current"],
+                },
+                "poisson_trigger": {"coarse_on": meta["coarse_on"],
+                                    "last_iters": meta["last_iters"]},
+            }
+            n_real = meta["n_real"]
+            data = {"__forest_keys": meta["keys"],
+                    **{k: v[:n_real] for k, v in snap.payload.items()}}
+            shapes = (pickle.loads(snap.shapes_pkl)
+                      if snap.shapes_pkl is not None else None)
+            _install_state(sim, data, m2, shapes)
+            return
+    else:
+        sim.time = float(meta["time"])
+        sim.step_count = int(meta["step_count"])
+        sim.state = type(sim.state)(
+            **{k: v.clone() for k, v in snap.payload.items()})
+        _restore_cache(sim, snap)
+    if getattr(sim, "shapes", None) and snap.shapes_pkl is not None:
+        sim.shapes[:] = pickle.loads(snap.shapes_pkl)
+        sim._initialized = True

@@ -479,10 +479,11 @@ class MetricsRecorder:
         }
 
     def _guard_fields(self) -> dict:
-        """Supervision telemetry, host state on the guard: snapshot bytes
-        and the replayed-step delta. The elastic group (item 8) and the
-        mirror group (item 8) hold what the reference's guard reports
-        without a mesh or a mirror: epoch 0, no re-mesh, no mirror."""
+        """Supervision telemetry, host state on the guard: the live
+        snapshot ring's device bytes and the replayed-step delta. The
+        elastic group and the mirror group (item 8) hold what the
+        reference's guard reports without a mesh or a mirror: epoch 0, no
+        re-mesh, no mirror, no restore source."""
         if self.guard is None:
             return {"snap_ring_bytes": None, "replayed_steps": None,
                     "topology_epoch": None, "remesh_count": None,

@@ -1,5 +1,4 @@
-"""Verdict-only supervision, the part of ``cup2d_tpu.resilience`` the run
-driver's eager loop needs.
+"""Supervised stepping, the counterpart of ``cup2d_tpu.resilience``.
 
 - ``EventLog``: append-only JSONL (events and the metrics stream), flushed
   per line, with size-capped rotation; ``set_event_log``/``record_event``
@@ -11,20 +10,36 @@ driver's eager loop needs.
   passes 100 x the case's ``poisson_tol``).
 - ``PhysicsWatchdog``: windowed drift bounds on umax, kinetic energy and
   max |div u|, which catch wrong-but-finite corruption.
-- ``StepGuard``: each step, the verdict, then the watchdog; a bad step is
-  the abort rung: a post-mortem checkpoint, the force log closed, one
-  ``recovery`` event with action ``abort``, then ``ResilienceAbort``.
+- ``StepGuard``: a ring of device snapshots (``io.snapshot_state_device``:
+  clones on the device, no host read) and, on a bad verdict, the bounded
+  recovery ladder: rewind to the newest snapshot, replay the recorded good
+  steps since it bit for bit (``snap_every`` cadence) and retry the failed
+  step at dt/2; rewind again and retry with the exact Poisson solve;
+  restore the checkpoint on disk; abort with a post-mortem checkpoint.
+  Each rung emits one ``recovery`` event (step, verdict, action, rung,
+  replayed). The verdict lags one step on the obstacle-free drivers
+  (``async_diag``: ``UniformSim`` and the obstacle-free ``Simulation``
+  and ``AMRSim``): step N's diagnostics and dt stay on the device, step
+  N+1 is dispatched, then N's are read in one pull and N's clock is
+  settled. The shaped drivers read their diagnostics at dispatch (the
+  host kinematics need them) and verdict eagerly. Faults
+  (``faults.FaultPlan``) fire through the guard's hooks and are suspended
+  during a replay.
 - ``PreemptionGuard``: SIGTERM latches a flag the loop polls at step
   boundaries; single process, so ``agree()`` is the local flag.
 
-Not ported (ROADMAP queue 1 item 5): the recovery ladder (rewind/replay,
-retry, escalate, disk restore), the device snapshot ring, the lagged
-verdict and fault injection; ``StepGuard`` refuses every argument that
-asks for them. The elastic topology guard waits for item 8.
+The port's solvers read their flags on the host, so a step's iteration
+count is a host int when the step returns, lagged or not: the production
+two-level trigger of the forest sees it at the next dispatch in both
+modes, and the JAX guard's trigger-freshness drain and ``_last_iters_dev``
+have nothing to settle here. The guard opens no tracing spans (the span
+recorder is ROADMAP queue 1 item 9). Not ported: the mirror tier and the
+elastic topology guard (item 8), ``FleetStepGuard`` (item 6).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
@@ -35,11 +50,6 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-
-_ITEM5 = ("the StepGuard recovery ladder, the snapshot ring, the lagged "
-          "verdict and fault injection are not ported yet (ROADMAP queue "
-          "1 item 5)")
-
 
 # ---------------------------------------------------------------------------
 # JSONL event log
@@ -258,25 +268,56 @@ class PhysicsWatchdog:
 
 
 # ---------------------------------------------------------------------------
-# the verdict-only stepper
+# the supervised stepper
 # ---------------------------------------------------------------------------
 
 class ResilienceAbort(RuntimeError):
-    """A step failed its verdict and nothing recovers it; the post-mortem
-    checkpoint (if configured) was written before raising."""
+    """The recovery ladder is exhausted (or the guard verdicts only); the
+    post-mortem checkpoint (if configured) was written before raising."""
+
+
+class _Pending:
+    """One dispatched step whose verdict is not in yet."""
+
+    __slots__ = ("step0", "t0", "diag", "exact", "dt_host", "advanced",
+                 "snap", "trig", "fired", "mode", "tier")
+
+    def __init__(self, step0, t0, diag, exact, dt_host, advanced,
+                 snap=None, trig=None, fired=(), mode=None, tier=None):
+        self.step0 = step0
+        self.t0 = t0
+        self.diag = diag
+        self.exact = exact
+        self.dt_host = dt_host       # None on the lagged (device-dt) paths
+        self.advanced = advanced     # the driver advanced sim.time itself
+        self.snap = snap             # optimistic post-step device snapshot
+        self.trig = trig             # (coarse_on, last_iters) at dispatch
+        self.fired = fired           # fault entries this dispatch consumed
+        self.mode = mode             # poisson_mode and kernel_tier at
+        self.tier = tier             # dispatch: the path the step took
 
 
 class StepGuard:
-    """Wraps ``sim.step_once`` with the verdict, the watchdog and the
-    abort rung: the JAX package's ``StepGuard(recover=False, lag=False)``.
+    """Wraps ``sim.step_once`` with the verdict and the recovery ladder,
+    the JAX package's ``StepGuard`` without its mirror tier.
 
-    ``ckpt_dir`` is the run's checkpoint (kept for the disk rung of item
-    5; unused here), ``postmortem_dir`` where the abort rung writes its
-    checkpoint, ``event_log`` the JSONL sink, ``watchdog`` a
-    ``PhysicsWatchdog`` (None skips it). ``recover``, ``lag``, ``ring``,
-    ``snap_every``, ``faults`` and the mirror tier keep the JAX
-    signature and defaults and raise unless off: the ladder, the lagged
-    verdict and the snapshot ring wait for item 5."""
+    ``sim``: ``Simulation``, ``AMRSim`` or ``UniformSim``. ``ring``: the
+    confirmed device snapshots kept (the ladder restores the newest; under
+    the lag an unconfirmed post-step snapshot also waits in the pending
+    slot). ``ckpt_dir``: the run's checkpoint, the disk rung (None or
+    absent disables it). ``postmortem_dir``: where the abort rung writes.
+    ``event_log``: the JSONL sink of ``recovery`` events. ``faults``: a
+    ``faults.FaultPlan`` whose hooks the guard drives (suspended during a
+    replay). ``recover=False``: verdict only, the first bad step aborts.
+    ``watchdog``: a ``PhysicsWatchdog`` consulted after the health
+    verdict. ``snap_every``: the snapshot cadence in good steps; between
+    snapshots the (dt, exact, trigger) of each good step is recorded and a
+    rewind replays them to the failed step. ``lag``: the one-step-lagged
+    verdict on the drivers that have ``async_diag``; the obstacle-free
+    steps then keep their diagnostics on the device and the guard reads
+    step N's after dispatching N+1 (the shaped steps verdict eagerly).
+    ``mirror_hosts``/``mirror_every``: the host-redundant mirror tier,
+    ROADMAP queue 1 item 8; anything but off raises."""
 
     def __init__(self, sim, *, ring: int = 1, ckpt_dir: Optional[str] = None,
                  postmortem_dir: Optional[str] = None,
@@ -285,71 +326,182 @@ class StepGuard:
                  snap_every: int = 1, lag: bool = True,
                  mirror_hosts: Optional[int] = None,
                  mirror_every: int = 1):
-        asked = [name for name, on in (
-            ("recover=True", recover), ("lag=True", lag),
-            (f"ring={ring}", int(ring) != 1),
-            (f"snap_every={snap_every}", int(snap_every) != 1),
-            ("faults", faults is not None),
-            ("mirror_hosts", bool(mirror_hosts)),
-            (f"mirror_every={mirror_every}", int(mirror_every) != 1))
-            if on]
-        if asked:
+        if (mirror_hosts and int(mirror_hosts) >= 2) \
+                or int(mirror_every) != 1:
             raise NotImplementedError(
-                f"StepGuard({', '.join(asked)}): {_ITEM5}; pass "
-                "recover=False, lag=False")
+                f"StepGuard(mirror_hosts={mirror_hosts}, mirror_every="
+                f"{mirror_every}): the host-redundant mirror tier is not "
+                "ported yet (ROADMAP queue 1 item 8)")
         self.sim = sim
+        self.ring: deque = deque(maxlen=max(1, int(ring)))
         self.ckpt_dir = ckpt_dir
         self.postmortem_dir = postmortem_dir
         self.event_log = event_log
+        self.faults = faults
+        self.recover = recover
         self.watchdog = watchdog
-        self.recover = False
-        self.lag = False
-        # steps a recovery replayed: 0 until item 5 brings the ladder
-        self.replayed_steps = 0
+        self.snap_every = max(1, int(snap_every))
+        self.lag = bool(lag)
+        self.recoveries = 0       # completed recovery actions (telemetry)
+        self.replayed_steps = 0   # cumulative replayed steps (telemetry)
+        self._pendings: list = []
+        self._replay: list = []   # (dt, exact, trig) good steps since anchor
+        self._since_snap = 0
+        self._last_fired = ()     # fault entries the last _attempt consumed
+        if self.lag and hasattr(sim, "async_diag"):
+            sim.async_diag = True
+
+    # -- snapshots (device-resident, io.py) ----------------------------
+    def _snapshot(self):
+        from .io import snapshot_state_device
+        return snapshot_state_device(self.sim)
+
+    def ring_nbytes(self) -> int:
+        """Device bytes of every live snapshot (anchors + pending)."""
+        from .io import snapshot_nbytes
+        n = sum(snapshot_nbytes(s) for s in self.ring)
+        return n + sum(snapshot_nbytes(p.snap) for p in self._pendings
+                       if p.snap is not None)
 
     @property
     def pending(self) -> bool:
-        """Always False: the verdict is eager."""
-        return False
+        """True while a dispatched step awaits its lagged verdict."""
+        return bool(self._pendings)
+
+    def _disk_available(self) -> bool:
+        return bool(self.ckpt_dir) and (
+            os.path.exists(os.path.join(self.ckpt_dir, "meta.json"))
+            or os.path.exists(os.path.join(
+                self.ckpt_dir.rstrip("/") + ".old", "meta.json")))
+
+    # -- one supervised step -------------------------------------------
+    def step(self, dt: Optional[float] = None) -> Optional[dict]:
+        """Dispatch one step; return the newest verdicted step's record
+        (host scalars + ``step``/``t``/``dt`` and the dispatch-time
+        ``poisson_mode``/``kernel_tier``), or None while the first lagged
+        dispatch is still in flight."""
+        self._seed()
+        out = None
+        self._dispatch(dt)
+        while self._pendings:
+            if self.lag and len(self._pendings) == 1 \
+                    and _on_device(self._pendings[-1].diag):
+                break   # leave the newest device-diag step in flight
+            out = self._resolve_oldest()
+        return out
 
     def drain(self) -> list:
-        """Nothing is ever in flight: ``[]``."""
-        return []
+        """Resolve every pending verdict (at loop exit and before dumps,
+        checkpoints and regrids); recovery runs as usual. Returns the
+        records in step order."""
+        out = []
+        while self._pendings:
+            out.append(self._resolve_oldest())
+        return out
 
-    def ring_nbytes(self) -> int:
-        """The guard holds no snapshot: 0 bytes."""
-        return 0
-
-    def step(self, dt: Optional[float] = None) -> dict:
-        """One step, its verdict and the watchdog; returns the step's
-        record (host scalars + ``step``/``t``/``dt`` and the dispatch-time
-        ``poisson_mode``/``kernel_tier``), or raises ``ResilienceAbort``
-        after the abort rung."""
+    def _seed(self) -> None:
         sim = self.sim
+        if self.ring:
+            if hasattr(sim, "forest") and \
+                    self.ring[-1].meta.get("forest_version") \
+                    != sim.forest.version:
+                # a regrid between guarded steps: replay cannot reproduce
+                # it, so the ring never spans one. Settle the verdicts in
+                # flight against the old anchor, then re-anchor.
+                self.drain()
+                self._reanchor()
+            return
+        # the lazy chi blend first: a snapshot of the unblended state
+        # restores as initialized, and a rewind after a failed first step
+        # would skip the blend
         if getattr(sim, "shapes", None) \
                 and not getattr(sim, "_initialized", False):
             sim.initialize()
+        self._reanchor()   # the state before the first step is good
+
+    def _reanchor(self) -> None:
+        self.ring.append(self._snapshot())
+        self._replay.clear()
+        self._since_snap = 0
+
+    def _trigger_state(self):
+        """The two-level-trigger inputs the next dispatch consults,
+        recorded per step so a replay takes the branch the original
+        step took."""
+        sim = self.sim
+        if hasattr(sim, "_coarse_on"):
+            return (bool(sim._coarse_on), int(sim._last_iters))
+        return None
+
+    def _dispatch(self, dt) -> None:
+        sim = self.sim
         step0, t0 = sim.step_count, sim.time
-        mode = getattr(sim, "poisson_mode", None)
-        tier = getattr(sim, "kernel_tier", None)
-        diag = sim.step_once(dt=dt)
-        vals = _host_scalars(diag, _PULL_KEYS)
+        trig = self._trigger_state()
+        diag = self._attempt(dt, exact=False)
+        pend = _Pending(
+            step0=step0, t0=t0, diag=diag,
+            exact=bool(step0 < 10 or getattr(sim, "_force_exact", False)),
+            dt_host=(sim.time - t0 if sim.time != t0 else None),
+            advanced=(sim.time != t0), trig=trig,
+            fired=self._last_fired,
+            mode=getattr(sim, "poisson_mode", None),
+            tier=getattr(sim, "kernel_tier", None))
+        # optimistic cadence snapshot of the post-step state; if this
+        # step's lagged verdict comes back bad it is dropped and the
+        # rewind target stays the previous confirmed anchor
+        self._since_snap += 1
+        if self._since_snap >= self.snap_every:
+            pend.snap = self._snapshot()
+            self._since_snap = 0
+        self._pendings.append(pend)
+
+    def _resolve_oldest(self) -> dict:
+        pend = self._pendings.pop(0)
+        # the step's one read (host values already on the eager paths)
+        vals = _host_scalars(pend.diag, _PULL_KEYS)
+        v = self._verdict_from(vals, pend.step0)
+        if v.ok:
+            return self._commit(pend, vals)
+        return self._recover(pend, vals, v)
+
+    @staticmethod
+    def _dt_of(pend: _Pending, vals: dict) -> float:
+        # the dt the driver used, from the diag: a difference of clocks
+        # rounds differently by an ulp, and the replay must be exact
         dtv = vals.get("dt")
-        dt_used = float(dtv) if dtv is not None else sim.time - t0
-        v = self._verdict_from(vals)
-        if not v.ok:
-            self._abort(step0, v, vals, dt_used)
+        if dtv is not None:
+            return float(dtv)
+        return pend.dt_host if pend.dt_host is not None else float("nan")
+
+    def _commit(self, pend: _Pending, vals: dict) -> dict:
+        sim = self.sim
+        dt_used = self._dt_of(pend, vals)
+        if not pend.advanced:
+            # lagged path: the driver left the clock to the verdict, and
+            # commits run in step order
+            sim.time = sim.time + dt_used
         if self.watchdog is not None:
             self.watchdog.observe(vals)
-        rec = {**diag, **vals, "step": step0 + 1, "t": sim.time,
-               "dt": dt_used}
-        if mode is not None:
-            rec["poisson_mode"] = mode
-        if tier is not None:
-            rec["kernel_tier"] = tier
+        if pend.snap is not None:
+            # promote to the confirmed anchor, its lagged clock settled
+            pend.snap.meta["time"] = sim.time
+            self.ring.append(pend.snap)
+            self._replay.clear()
+        else:
+            self._replay.append((dt_used, pend.exact, pend.trig))
+        if self.faults is not None:
+            self.faults.fire_post_step(pend.step0 + 1)
+        # host scalars replace the device originals: a metrics consumer
+        # must not read the device a second time
+        rec = {**pend.diag, **vals, "step": pend.step0 + 1,
+               "t": sim.time, "dt": dt_used}
+        if pend.mode is not None:
+            rec["poisson_mode"] = pend.mode
+        if pend.tier is not None:
+            rec["kernel_tier"] = pend.tier
         return rec
 
-    def _verdict_from(self, vals: dict) -> StepVerdict:
+    def _verdict_from(self, vals: dict, step: int) -> StepVerdict:
         tol = float(getattr(self.sim.cfg, "poisson_tol", 0.0))
         v = health_verdict(vals,
                            residual_ok=(100.0 * tol if tol > 0 else None))
@@ -357,7 +509,147 @@ class StepGuard:
             reason = self.watchdog.check(vals)
             if reason is not None:
                 v = StepVerdict(False, reason)
+        if v.ok and self.faults is not None \
+                and self.faults.poisson_giveup_at(step):
+            v = StepVerdict(False, "poisson_giveup(injected)")
         return v
+
+    def _discard_pendings(self) -> None:
+        """Drop every dispatch in flight (and its optimistic snapshot) and
+        refund the fault counts each one consumed, so a fault armed for a
+        discarded step fires at its real re-dispatch."""
+        for p in self._pendings:
+            for ent in p.fired:
+                ent[1] += 1
+        self._pendings.clear()
+
+    # -- the recovery ladder -------------------------------------------
+    def _recover(self, pend: _Pending, vals: dict,
+                 v: StepVerdict) -> dict:
+        sim = self.sim
+        # a step dispatched on top of the bad one is garbage (the bad
+        # step's own fault genuinely fired and is not refunded)
+        self._discard_pendings()
+        step0 = pend.step0
+        dt_used = self._dt_of(pend, vals)
+        rung = 0
+        retry_dt: Optional[float] = None
+        while True:
+            action = self._next_action(rung)
+            if action == "abort":
+                self._abort(step0, v, vals, dt_used)
+            replayed = 0
+            if action in ("retry", "escalate"):
+                replayed = self._rewind_replay()
+                if pend.trig is not None:
+                    # the retry consults the trigger with the inputs the
+                    # failed step's dispatch saw
+                    sim._coarse_on, sim._last_iters = pend.trig
+                if action == "retry":
+                    # half the failed dt; a nonfinite one (a fault at a
+                    # cold cache) falls back to a fresh CFL dt
+                    retry_dt = (0.5 * dt_used
+                                if np.isfinite(dt_used) and dt_used > 0
+                                else None)
+            else:   # disk_restore: rewind possibly many steps
+                from .io import load_checkpoint
+                load_checkpoint(self.ckpt_dir, sim)
+                self.ring.clear()
+                self._reanchor()
+                if self.watchdog is not None:
+                    # the window describes steps past the restored point
+                    self.watchdog.reset()
+                retry_dt = None
+            self._emit(step=step0, verdict=v.reason, action=action,
+                       dt=dt_used, rung=rung, replayed=replayed)
+            self.recoveries += 1
+            # the retry verdicts at once: recovery is the cold path
+            t0, s0 = sim.time, sim.step_count
+            exact_retry = action == "escalate"
+            trig = self._trigger_state()
+            diag = self._attempt(retry_dt, exact=exact_retry)
+            advanced = sim.time != t0
+            vals = _host_scalars(diag, _PULL_KEYS)
+            v2 = self._verdict_from(vals, s0)
+            p2 = _Pending(
+                step0=s0, t0=t0, diag=diag,
+                exact=bool(s0 < 10 or exact_retry),
+                dt_host=(sim.time - t0 if advanced else None),
+                advanced=advanced, trig=trig)
+            if v2.ok:
+                # recovered: a fresh anchor, so the replay list restarts
+                # from a clean base
+                p2.snap = self._snapshot()
+                self._since_snap = 0
+                return self._commit(p2, vals)
+            v = v2
+            dt_used = self._dt_of(p2, vals)
+            rung += 1
+
+    def _rewind_replay(self) -> int:
+        """Restore the newest anchor, then replay the recorded good steps
+        to the failed one bit for bit: the same dts, exact-solve and
+        trigger branches, faults suspended, no verdict reads."""
+        from .io import restore_snapshot_device
+        restore_snapshot_device(self.sim, self.ring[-1])
+        return self._replay_recorded()
+
+    def _replay_recorded(self) -> int:
+        sim = self.sim
+        n = len(self._replay)
+        if not n:
+            return 0
+        ctx = (self.faults.suspend() if self.faults is not None
+               else contextlib.nullcontext())
+        # the replayed steps were force-logged when they first ran
+        cfe = getattr(sim, "compute_forces_every", None)
+        if cfe is not None:
+            sim.compute_forces_every = 0
+        try:
+            with ctx:
+                for rdt, rexact, rtrig in self._replay:
+                    t0 = sim.time
+                    if rtrig is not None:
+                        sim._coarse_on, sim._last_iters = rtrig
+                    if rexact:
+                        sim._force_exact = True
+                    try:
+                        sim.step_once(dt=rdt)
+                    finally:
+                        if rexact:
+                            sim._force_exact = False
+                    if sim.time == t0:
+                        # lagged driver: settle the clock from the
+                        # recorded dt (the float the original commit read)
+                        sim.time = t0 + rdt
+        finally:
+            if cfe is not None:
+                sim.compute_forces_every = cfe
+        self.replayed_steps += n
+        return n
+
+    def _attempt(self, dt, exact: bool = False) -> dict:
+        sim = self.sim
+        self._last_fired = (self.faults.apply_pre_step(sim)
+                            if self.faults is not None else ())
+        if exact:
+            sim._force_exact = True
+        try:
+            return sim.step_once(dt=dt)
+        finally:
+            if exact:
+                sim._force_exact = False
+
+    def _next_action(self, rung: int) -> str:
+        if not self.recover:
+            return "abort"
+        if rung == 0:
+            return "retry"
+        if rung == 1:
+            return "escalate"
+        if rung == 2 and self._disk_available():
+            return "disk_restore"
+        return "abort"
 
     def _emit(self, event: str = "recovery", **fields) -> None:
         if self.event_log is not None:
@@ -366,8 +658,10 @@ class StepGuard:
 
     def _abort(self, step: int, v: StepVerdict, vals: dict,
                dt_used: float) -> None:
-        """The abort rung: post-mortem checkpoint of the dead state, force
-        log closed, one event, then raise."""
+        """The last rung: a post-mortem checkpoint of the dead state, the
+        force log closed, one event, then raise. A dead run leaves enough
+        on disk to be diagnosed and, where the fault was environmental,
+        resumed."""
         sim = self.sim
         pm = None
         if self.postmortem_dir:
@@ -387,8 +681,12 @@ class StepGuard:
         self._emit(step=step, verdict=v.reason, action="abort",
                    dt=dt_used, postmortem=pm, diag=summary)
         raise ResilienceAbort(
-            f"step {step}: {v.reason}; no recovery (verdict-only guard)"
+            f"step {step}: {v.reason}; recovery ladder exhausted"
             + (f" (post-mortem checkpoint: {pm})" if pm else ""))
+
+
+def _on_device(diag: dict) -> bool:
+    return any(torch.is_tensor(v) for v in diag.values())
 
 
 def _as_float(x) -> float:

@@ -29,11 +29,15 @@ A step reads the device three times, each read one stacked copy:
 step, and the S x 19 forces when they are logged. The shapes' arrays go
 to the device in one copy a step, and ``prescribed`` and dt in one each.
 
+Under ``async_diag`` (set by ``resilience.StepGuard(lag=True)``) the
+obstacle-free branch reads nothing: its diagnostics, the dt it used and
+dt_next stay on the device and the guard's lagged verdict settles the
+clock. The shaped branch verdicts eagerly whatever the flag. The guard's
+escalation rung sets ``_force_exact`` (an exact solve for one attempt).
+
 Device policy as ``UniformGrid``: ``cuda`` unless ``device="cpu"`` is
-given; no card and no device raises. Not ported: ``async_diag`` (the
-lagged verdict, ROADMAP queue 1 item 5) and ``timers`` (item 9) refuse
-when set; ``_force_exact`` is read, but nothing sets it until the
-StepGuard ladder is ported (item 5).
+given; no card and no device raises. ``timers`` (ROADMAP queue 1 item 9)
+refuses when set.
 """
 
 from __future__ import annotations
@@ -127,17 +131,12 @@ class Simulation(ShapeHostMixin):
         # ends at its own read of the device, so the device time it
         # queued is inside it
         self.phase_seconds: dict = {}
-
-    @property
-    def async_diag(self) -> bool:
-        return False
-
-    @async_diag.setter
-    def async_diag(self, on: bool) -> None:
-        if on:
-            raise NotImplementedError(
-                "async_diag (the lagged verdict) is not ported yet "
-                "(ROADMAP queue 1 item 5)")
+        # the lagged verdict (resilience.StepGuard, lag=True): the
+        # obstacle-free branch keeps its diagnostics, the dt it used and
+        # dt_next on the device and leaves the clock to the guard; the
+        # shaped branch ignores it (its uvw/CoM read feeds the next step's
+        # host kinematics)
+        self.async_diag = False
 
     @property
     def timers(self):
@@ -399,7 +398,8 @@ class Simulation(ShapeHostMixin):
     def step_once(self, dt: Optional[float] = None) -> dict:
         """One step: the reference's exact solves for the first 10 steps,
         the cached dt_next of the previous step (capped by the gait), and
-        the diagnostics as host values."""
+        the diagnostics as host values (device values, the clock left
+        alone, on the obstacle-free branch under ``async_diag``)."""
         g = self.grid
         cfg = self.cfg
         if not self.shapes:
@@ -412,6 +412,13 @@ class Simulation(ShapeHostMixin):
             self.state, diag = g.step(self.state, dt_dev,
                                       exact_poisson=exact,
                                       obstacle_terms=False)
+            if self.async_diag:
+                # no read: dt_next stays a device scalar fed to the next
+                # dispatch, and the guard's verdict settles the clock
+                diag["dt"] = dt_dev
+                self._next_dt = diag["dt_next"]
+                self.step_count += 1
+                return diag
             diag, _ = pull_diag(diag)
             diag["dt"] = float(dt)
             self._next_dt = float(diag["dt_next"])

@@ -221,9 +221,9 @@ def test_latches_accepted(monkeypatch, pois, twolevel, mode):
 def test_shapes_refuse():
     """Shapes no longer refuse: a shaped ``AMRSim`` (from the shapes given,
     or from the config's -shapes string) builds on the CPU and steps, its
-    forces logged. What stays unported with it refuses: the lagged
-    verdict (``async_diag``, queue 1 item 5) and the phase timers
-    (``timers``, item 9)."""
+    forces logged. ``async_diag`` is accepted and the shaped step still
+    returns host diagnostics (it verdicts eagerly, as the reference's
+    does); the phase timers (``timers``, item 9) refuse."""
     from cup2d_tpu_torch.models import DiskShape
     cfg = _vortex_cfg(shapes="angle=0 L=0.2 xpos=0.5 ypos=0.5",
                       level_max=3, lam=1e6)
@@ -234,8 +234,10 @@ def test_shapes_refuse():
     d = ts.step_once()
     assert d["finite"] and ts.step_count == 1 and ts._initialized
     assert set(ts.shapes[0].forces) >= {"forcex", "perimeter"}
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ts.async_diag = True
+    ts.async_diag = True
+    d = ts.step_once()
+    assert ts.step_count == 2 and ts.time > 0
+    assert not any(torch.is_tensor(v) for v in d.values())
     with pytest.raises(NotImplementedError, match="item 9"):
         ts.timers = object()
     assert TSim(_vortex_cfg(), device="cpu").shapes == []

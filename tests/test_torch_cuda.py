@@ -42,7 +42,10 @@ face-sharing lab RHS holds its twin on adversarial winds and gives the
 same bits from labs off the 16-byte grid. The shaped forest: a disk forest
 on the card follows the CPU to 1e-4 relative from one carried state; the
 window raster's dropped padding row repeats bit for bit; the batched force
-pass indexes past every block's lab without a device-side assert."""
+pass indexes past every block's lab without a device-side assert. The
+device snapshot ring: a snapshot clones every field and reads nothing,
+the lagged guard is bit for bit the eager run, and one entry restores
+twice, each restore and replay bit for bit the uninterrupted steps."""
 
 import numpy as np
 import pytest
@@ -1232,3 +1235,61 @@ def test_surface_forces_blocks_past_the_lab_on_the_card(cuda):
     for k, v in outs[1].items():
         assert abs(float(outs[0][k]) - float(v)) <= 1e-4 * max(
             abs(float(v)), 1.0), k
+
+
+@pytest.mark.parametrize("kind", ["uniform", "forest"])
+def test_snapshot_clones_and_restores_twice_on_the_card(cuda, kind):
+    """The device snapshot ring on the card: a snapshot clones every field
+    (no storage shared with the live state) and reads nothing from the
+    device; the lagged guard is bit for bit the unguarded run; one entry
+    restores twice and each restore plus replay repeats the uninterrupted
+    steps bit for bit."""
+    from cup2d_tpu_torch import io as tio
+    from cup2d_tpu_torch import shapes_host
+    from cup2d_tpu_torch.resilience import StepGuard
+    from cup2d_tpu_torch.uniform import taylor_green_state
+
+    def mk():
+        if kind == "uniform":
+            cfg = SimConfig(bpdx=1, bpdy=1, level_max=1, level_start=0,
+                            extent=1.0, nu=1e-3, cfl=0.4, dtype="float32")
+            sim = UniformSim(cfg, level=4, device=cuda)
+            sim.state = taylor_green_state(sim.grid)
+            sim.step_count = 20
+            return sim
+        cpu = multilevel_forest(dtype="float32", device="cpu")
+        from cup2d_tpu_torch.amr import AMRSim
+        sim = AMRSim(cpu.cfg, shapes=[], device=cuda)
+        forest_from_numpy(sim, *forest_to_numpy(cpu))
+        sim.step_count = 20
+        return sim
+
+    def vel(sim):
+        if kind == "forest":
+            return sim._ordered_state()["vel"].clone()
+        return sim.state.vel.clone()
+
+    a, b = mk(), mk()
+    for _ in range(6):
+        a.step_once()
+    guard = StepGuard(b, snap_every=4)
+    for _ in range(6):
+        guard.step()
+    guard.drain()
+    assert b.async_diag and torch.equal(vel(a), vel(b)) and a.time == b.time
+    live = (b._ordered_state() if kind == "forest"
+            else b.state._asdict())
+    pulls = shapes_host.pulls
+    snap = tio.snapshot_state_device(b)
+    assert shapes_host.pulls == pulls
+    assert all(s.device == v.device and s.data_ptr() != v.data_ptr()
+               for s, v in zip(snap.payload.values(), live.values()))
+    ref, t_ref = vel(b), b.time
+    for _ in range(2):
+        assert guard._rewind_replay() == 2
+        assert torch.equal(vel(b), ref) and b.time == t_ref
+    pulls = shapes_host.pulls
+    tio.restore_snapshot_device(b, snap)
+    tio.restore_snapshot_device(b, snap)
+    assert shapes_host.pulls == pulls
+    assert torch.equal(vel(b), ref)

@@ -430,8 +430,10 @@ def test_shaped_run_logs_forces():
     assert abs(per - 2 * np.pi * 0.08) < 0.15 * 2 * np.pi * 0.08, per
     assert abs(sim.shapes[0].u) < 1e-12
     assert set(sim.phase_seconds) == {"kinematics", "megastep", "forces"}
-    with pytest.raises(NotImplementedError, match="item 5"):
-        sim.async_diag = True
+    sim.async_diag = True
+    d = sim.step_once()
+    assert sim.step_count == 4 and d["finite"]
+    assert not any(torch.is_tensor(v) for v in d.values())
     with pytest.raises(NotImplementedError, match="item 9"):
         sim.timers = object()
 
