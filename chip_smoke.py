@@ -275,11 +275,33 @@ the result lines:
    (phase 14's, supervised, ``-noSupervise``, supervised). Launches of kernels 2, 4, 5,
    6 and 8 from 0 over the phase, each > 0; no twin called on the card's
    f32 operands. Files under build/phase15, removed at the end.
+16. fleets and the serving pool (``fleet.FleetSim``, ``FleetServer``):
+   bench.run_fleet's arm (the amplitude-laddered Taylor-Green fleet,
+   production steps, 3 warm-up steps, one synchronized window of 20, f32)
+   at 256^2 with B = 1, 8, 64 and at 1024^2 with B = 1, 8, 32, under the
+   default solver and fas: ms a step, member-steps/s and the idle share
+   of one ``torch.profiler`` step at each B (no bar). The card bars: B = 1
+   bit for bit ``UniformSim`` at 256^2 through 12 steps from t = 0, with
+   no more reads; each member of a B = 8 fleet at 1024^2 (the benchmark
+   velocity at amplitudes 0.8**m, 5 production steps) within 1e-5
+   relative of its solo run with equal iterations, both solvers; a B = 4
+   fleet at 64^2, 12 steps, card against CPU within 1e-4. Serving:
+   ``main()`` in process, ``-fleet 8 -serve 24`` at 1024^2 (the README's
+   fleet flags at ``-level 7``, ``-tend 0.006``: every session admitted
+   and retired, three a slot), once unfaulted and once under
+   ``CUP2D_FAULTS=nan_vel@15*3`` (one eviction): every healthy session's
+   checkpoint bit for bit the unfaulted run's, no kernel build from the
+   first retirement on, occupancy, admissions, retirements, evictions
+   and the pool's ``serving_latency`` percentiles printed; a session
+   parked at half its horizon and admitted again from its checkpoint
+   bit for bit the straight run (1024^2). Launches of kernels 2, 5 and 6
+   from 0 over the phase, each > 0; no twin called on the card's f32
+   operands. Files under build/phase16, removed at the end.
 
 Then one JSON line of per-kernel numbers (with, per kernel, its launches
-on the two flagship runs, the two canonical runs, phase 13's runs and
-phase 15's supervised runs and, for the flagship's and the canonical
-run's kernels, their
+on the two flagship runs, the two canonical runs, phase 13's runs,
+phase 15's supervised runs and phase 16's fleet runs and, for the
+flagship's and the canonical run's kernels, their
 numbers at those shapes), the card's name and power limit
 as nvidia-smi prints them, and the result line
 ``{"ok": true, "device": {...}}`` last. Needs no network; imports no JAX.
@@ -3983,6 +4005,371 @@ def phase_supervised(dev, forest_start: tuple, canon_eager_ms: float,
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: fleets and the serving pool
+# ---------------------------------------------------------------------------
+
+PHASE16_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase16")
+# bench.run_fleet's curve: the README's -level 5 fleet (256^2) and 1024^2,
+# whose Taylor-Green mode needs no solve (its warm-started residual lies
+# under the absolute tolerance: 0 iterations); then the turb2d ensemble
+# at 1024^2 (-case turb2d -level 7, member m seeded m), whose solve
+# iterates every step
+FLEET_CURVES = (("tg", 256, (1, 8, 64)), ("tg", 1024, (1, 8, 32)),
+                ("turb2d", 1024, (1, 8, 32)))
+FLEET_WARM, FLEET_STEPS = 3, 20
+FLEET_KEYS = ("fused_advect_heun", "fused_correction", "fused_jacobi_sweeps")
+FLEET_SOLO_REL = 1e-5      # a member against its solo run (PERF.md §2)
+# the README's fleet flags at 1024^2 (-level 7), f32, 24 staggered
+# sessions through 8 slots: horizons 0.003..0.006 at dt ~2.4e-4 (the
+# diffusive limit), 13-25 steps a session, three sessions a slot
+SERVE_FLAGS = ("-bpdx 1 -bpdy 1 -levelMax 1 -levelStart 0 -extent 1 "
+               "-CFL 0.4 -tend 0.006 -lambda 1e6 -nu 0.001 -poissonTol 1e-3 "
+               "-poissonTolRel 1e-2 -maxPoissonRestarts 0 "
+               "-maxPoissonIterations 100 -AdaptSteps 20 -Rtol 2 -Ctol 1 "
+               "-tdump 0 -dtype float32 -level 7 -fleet 8 -serve 24")
+SERVE_FAULT = "nan_vel@15*3"   # member 0's ladder runs out: one eviction
+
+
+def fleet_sim(dev, size: int, members: int, pois: str = "", **kw):
+    """A ``FleetSim`` of bench.run_fleet's configuration (f32, nu 4e-5,
+    CFL 0.5) at size^2 with the amplitude-laddered Taylor-Green state."""
+    from cup2d_tpu_torch.fleet import FleetSim, taylor_green_fleet
+    base = dict(bpdx=1, bpdy=1, level_max=1, level_start=0, extent=1.0,
+                nu=4e-5, cfl=0.5, dtype="float32")
+    base.update(kw)
+    with latched(pois):
+        sim = FleetSim(SimConfig(**base), level=(size // 8).bit_length() - 1,
+                       members=members, device=dev)
+    sim.state = taylor_green_fleet(sim.grid, members)
+    return sim
+
+
+def fleet_point(sim, tag: str) -> dict:
+    """bench.run_fleet's arm at one B: production steps (step_count 20),
+    ``FLEET_WARM`` warm-up steps, one synchronized window of
+    ``FLEET_STEPS``, then one step under ``torch.profiler``."""
+    b = sim.members
+    sim.step_count = 20
+    for _ in range(FLEET_WARM):
+        sim.step_once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iters = 0
+    for _ in range(FLEET_STEPS):
+        d = sim.step_once()
+        iters = max(iters, int(d["poisson_iters"].max()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trace = os.path.join(PHASE16_DIR, f"trace_{tag}_{b}".replace(" ", "_"))
+    with _profiled(trace):
+        sim.step_once()
+        torch.cuda.synchronize()
+    tr = trace_summary(trace, 1)
+    check(bool(torch.isfinite(sim.state.vel).all()),
+          f"phase 16 fleet {tag} B={b}: nonfinite")
+    return {"members": b, "step_ms": 1e3 * wall / FLEET_STEPS,
+            "member_steps_per_s": b * FLEET_STEPS / wall,
+            "idle_share": tr["idle_share"],
+            "device_activities": tr["device_activities_per_step"],
+            "busy_ms": tr["busy_ms_per_step"], "poisson_iters_max": iters}
+
+
+def fleet_curves(dev, card: str) -> dict:
+    out = {}
+    for kind, size, bs in FLEET_CURVES:
+        for pois in ("", "fas"):
+            key = (f"{size}^2 {pois or 'default'}" if kind == "tg"
+                   else f"{kind} {size}^2 {pois or 'default'}")
+            pts = []
+            for b in bs:
+                if kind == "tg":
+                    sim = fleet_sim(dev, size, b, pois)
+                else:
+                    with latched(pois):
+                        sim = cases.make_sim(
+                            kind, level=(size // 8).bit_length() - 1,
+                            members=b, device=dev)
+                pts.append(fleet_point(sim, key))
+                del sim
+            if kind == "turb2d":
+                check(min(p["poisson_iters_max"] for p in pts) > 0,
+                      f"phase 16 fleet {key}: the solve did not iterate")
+            out[key] = {"points": pts, "speedup_vs_b1": (
+                pts[-1]["member_steps_per_s"] / pts[0]["member_steps_per_s"])}
+            print(f"phase 16 fleet curve {key} {json.dumps(out[key])}; "
+                  f"card {card}", flush=True)
+    return out
+
+
+def fleet_card_bars(dev) -> dict:
+    """B = 1 against ``UniformSim`` at 256^2 from t = 0 (the exact startup
+    solves among 12 steps): bit for bit, clocks equal, no more reads; each
+    member of a B = 8 fleet at 1024^2 (the benchmark velocity at
+    amplitudes 0.8**m, 5 production steps) against its solo run:
+    <= FLEET_SOLO_REL relative with equal iterations; a B = 4 fleet at
+    64^2, 12 steps from t = 0, card against CPU <= TRAJ_REL."""
+    from cup2d_tpu_torch import shapes_host
+    from cup2d_tpu_torch.fleet import FleetSim, stack_states
+    cfg = SimConfig(bpdx=1, bpdy=1, level_max=1, level_start=0,
+                    extent=1.0, nu=4e-5, cfl=0.5, dtype="float32")
+    out = {}
+    for pois in ("", "fas"):
+        name = pois or "default"
+        with latched(pois):
+            f = FleetSim(cfg, level=5, members=1, device=dev)
+            u = UniformSim(cfg, level=5, device=dev)
+        f.state = stack_states([taylor_green_state(f.grid)])
+        u.state = taylor_green_state(u.grid)
+        reads = [0, 0]
+        for _ in range(12):
+            p0 = shapes_host.pulls
+            u.step_once()
+            p1 = shapes_host.pulls
+            f.step_once()
+            reads[0] += p1 - p0
+            reads[1] += shapes_host.pulls - p1
+        same = (torch.equal(u.state.vel, f.state.vel[0])
+                and torch.equal(u.state.pres, f.state.pres[0])
+                and u.time == f.time)
+        check(same, f"phase 16 B=1 {name}: not bit for bit UniformSim")
+        check(reads[1] <= reads[0], f"phase 16 B=1 {name}: reads {reads}")
+        out[f"b1 {name}"] = {"bit_for_bit": same, "reads_solo_fleet": reads}
+
+        cfg8, level8 = bench_cfg(1024, 1024)
+        with latched(pois):
+            f = FleetSim(cfg8, level=level8, members=8, device=dev)
+        base = bench_start(f.grid)
+        f.state = stack_states([base._replace(vel=base.vel * 0.8 ** m)
+                                for m in range(8)])
+        f.step_count = 20
+        solos = []
+        for m in range(8):
+            with latched(pois):
+                s = UniformSim(cfg8, level=level8, device=dev)
+            s.state = base._replace(vel=base.vel * 0.8 ** m)
+            s.step_count = 20
+            solos.append(s)
+        worst, iters_equal, iters = 0.0, True, []
+        for _ in range(5):
+            d = f.step_once()
+            ds = [s.step_once() for s in solos]
+            iters.append(d["poisson_iters"].tolist())
+            iters_equal &= d["poisson_iters"].tolist() == [
+                x["poisson_iters"] for x in ds]
+        for m, s in enumerate(solos):
+            rel = float((f.state.vel[m] - s.state.vel).abs().max()
+                        / s.state.vel.abs().max())
+            worst = max(worst, rel)
+            check(abs(f.times[m] - s.time) <= 1e-5 * s.time,
+                  f"phase 16 B=8 {name} member {m}: clock")
+        check(worst <= FLEET_SOLO_REL and iters_equal,
+              f"phase 16 B=8 {name}: rel {worst}, iterations equal "
+              f"{iters_equal}")
+        out[f"b8 vs solo {name}"] = {"rel": worst, "iters": iters}
+
+    card, cpu = (fleet_sim(d, 64, 4) for d in (dev, "cpu"))
+    for _ in range(12):
+        card.step_once()
+        cpu.step_once()
+    rel = float((card.state.vel.cpu() - cpu.state.vel).abs().max()
+                / cpu.state.vel.abs().max())
+    check(rel <= TRAJ_REL, f"phase 16 B=4 64^2 card vs CPU: rel {rel}")
+    out["b4 64^2 card vs cpu"] = {"rel": rel,
+                                  "times_rel": float(np.max(np.abs(
+                                      card.times - cpu.times) / cpu.times))}
+    return out
+
+
+def serve_run(out: str, faults: str | None = None) -> dict:
+    """``main()`` in process with ``SERVE_FLAGS`` into ``out`` (and
+    ``CUP2D_FAULTS=faults``): rc, seconds, metrics records, events and the
+    ``serving_latency`` record."""
+    from cup2d_tpu_torch import __main__ as tmain
+    from cup2d_tpu_torch.profiling import load_metrics
+    if faults:
+        os.environ["CUP2D_FAULTS"] = faults
+    t0 = time.perf_counter()
+    try:
+        rc = tmain.main(SERVE_FLAGS.split() + ["-output", out])
+    finally:
+        os.environ.pop("CUP2D_FAULTS", None)
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"phase 16 serve {out}: rc {rc}")
+    rows = load_metrics(os.path.join(out, "metrics.jsonl"))
+    recs = [r for r in rows if r.get("event") == "metrics"]
+    lat = [r for r in rows if r.get("event") == "serving_latency"]
+    check(len(lat) == 1, "phase 16 serve: no serving_latency record")
+    return {"seconds": secs, "records": recs, "events": _events(out),
+            "latency": lat[0], "out": out}
+
+
+def serve_summary(run: dict) -> dict:
+    recs, evs = run["records"], run["events"]
+    members = recs[0]["fleet_members"]
+    first = next(k for k, r in enumerate(recs)
+                 if r["active_members"] < members or r["admitted"] > members)
+    # the production steps (the first 10 run the exact solves)
+    prod = [r for r in recs if r["step"] > 10]
+    wall = [r["wall_ms"] for r in prod]
+    pct = {kind: {q: run["latency"]["pool"][kind].get(q)
+                  for q in ("count", "p50_ms", "p90_ms", "p99_ms")}
+           for kind in ("queue_wait", "admit_to_first_step", "step")}
+    return {"seconds": run["seconds"], "steps": len(recs),
+            "admitted": recs[-1]["admitted"],
+            "retired": sum(e["event"] == "member_retire" for e in evs),
+            "evicted": recs[-1]["evicted"],
+            "occupancy_mean": float(np.mean([r["occupancy"] for r in recs])),
+            "startup_ms": float(sum(r["wall_ms"] for r in recs
+                                    if r["step"] <= 10)),
+            "production_median_wall_ms": float(np.median(wall)),
+            "production_member_steps_per_s": float(
+                sum(r["active_members"] for r in prod) / (1e-3 * sum(wall))),
+            "jit_compiles_from_first_retirement": sum(
+                r["jit_compiles"] for r in recs[first:]),
+            "jit_compiles_total": sum(r["jit_compiles"] for r in recs),
+            "latency": pct}
+
+
+def _sessions(out: str) -> dict:
+    root = os.path.join(out, "sessions")
+    res = {}
+    for cid in sorted(os.listdir(root)):
+        with np.load(os.path.join(root, cid, "fields.npz")) as d:
+            fields = {k: d[k] for k in d.files}
+        with open(os.path.join(root, cid, "meta.json")) as f:
+            res[cid] = (fields, json.load(f))
+    return res
+
+
+def serve_resume(dev) -> dict:
+    """A session parked at about half its horizon and admitted again from
+    its checkpoint against the one served straight through, at 1024^2:
+    state, clock and chained dt bit for bit."""
+    from cup2d_tpu_torch.fleet import FleetRequest, FleetServer
+    from cup2d_tpu_torch.io import load_member_checkpoint
+
+    def serve(sdir, horizons):
+        sim = fleet_sim(dev, 1024, 2, nu=1e-3, cfl=0.4)
+        sim.step_count = 20
+        st0 = type(sim.state)(*(a[0].clone() for a in sim.state))
+        server = FleetServer(sim, session_dir=sdir)
+        ckpt = None
+        for t_end in horizons:
+            server.submit(FleetRequest(client_id="X", checkpoint=ckpt,
+                                       state=None if ckpt else st0,
+                                       t_end=t_end))
+            check(server.drain() > 0, "phase 16 resume: no step")
+            ckpt = os.path.join(sdir, "X")
+        return load_member_checkpoint(ckpt, sim.grid)
+
+    probe = fleet_sim(dev, 1024, 1, nu=1e-3, cfl=0.4)
+    dt0 = float(probe.grid.compute_dt(probe.state.vel[0]))
+    (st_r, m_r) = serve(os.path.join(PHASE16_DIR, "ref"), [8.6 * dt0])
+    (st_s, m_s) = serve(os.path.join(PHASE16_DIR, "split"),
+                        [4.6 * dt0, 8.6 * dt0])
+    same = (all(torch.equal(a, b) for a, b in zip(st_r, st_s))
+            and m_r["time"] == m_s["time"]
+            and m_r["next_dt"] == m_s["next_dt"])
+    check(same, "phase 16: a parked session did not resume bit for bit")
+    return {"bit_for_bit": same, "t": m_r["time"]}
+
+
+class solo_steps:
+    """Counts ``FleetSim.member_step_once`` calls (the guard's solo
+    replays and retries, L = 1 launches) while the block runs."""
+
+    def __enter__(self):
+        from cup2d_tpu_torch.fleet import FleetSim
+        self.cls, self.orig, self.n = FleetSim, FleetSim.member_step_once, 0
+
+        def counted(sim, *a, **kw):
+            self.n += 1
+            return self.orig(sim, *a, **kw)
+        FleetSim.member_step_once = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.member_step_once = self.orig
+
+
+def phase_fleet(dev, card: str) -> tuple[dict, dict]:
+    """Phase 16: fleets and the serving pool on the card. Launches of
+    kernels 2, 5 and 6 from 0 over the fleet steps alone, each > 0 and
+    each with L = B (no solo member step among them): the dispatch
+    amortization curves, the unfaulted serving run and the parked-session
+    resume. Outside that count: the card bars (solo runs beside the
+    fleets) and the serving run with one eviction, whose launches include
+    the ladder's solo member steps and are printed on their own line. No
+    twin called on the card's f32 operands. Files under build/phase16,
+    removed at the end."""
+    shutil.rmtree(PHASE16_DIR, ignore_errors=True)
+    os.makedirs(PHASE16_DIR)
+    out = {}
+    with twin_watch(TWINS) as tw:
+        hk.reset_launches()
+        with solo_steps() as solo:
+            out["curves"] = fleet_curves(dev, card)
+            runs = {"unfaulted": serve_run(os.path.join(PHASE16_DIR,
+                                                        "serve"))}
+            out["resume"] = serve_resume(dev)
+        launches = {k: hk.launches[k] for k in FLEET_KEYS}
+        check(solo.n == 0, f"phase 16: {solo.n} solo member steps among "
+              "the fleet steps' launches")
+        out["bars"] = fleet_card_bars(dev)
+        print(f"phase 16 card bars {json.dumps(out['bars'])}", flush=True)
+        hk.reset_launches()
+        with solo_steps() as solo:
+            runs["faulted"] = serve_run(os.path.join(PHASE16_DIR, "serve_f"),
+                                        SERVE_FAULT)
+        faulted = {k: hk.launches[k] for k in FLEET_KEYS}
+        faulted["solo_member_steps"] = solo.n
+    check(not any(tw.calls.values()),
+          f"phase 16: twins called on the card's f32 operands {tw.calls}")
+    summ = {k: serve_summary(r) for k, r in runs.items()}
+    u, f = summ["unfaulted"], summ["faulted"]
+    flags = SERVE_FLAGS.split()
+    n_serve = int(flags[flags.index("-serve") + 1])
+    check(u["admitted"] == u["retired"] == n_serve and u["evicted"] == 0,
+          f"phase 16 serve: {u['admitted']} admitted, {u['retired']} "
+          f"retired, {u['evicted']} evicted")
+    evicted = [e["client"] for e in runs["faulted"]["events"]
+               if e["event"] == "member_evict"]
+    check(len(evicted) == 1 and f["evicted"] == 1
+          and f["retired"] == n_serve - 1,
+          f"phase 16 faulted serve: evicted {evicted}, {f['retired']} "
+          "retired")
+    su, sf = (_sessions(r["out"]) for r in (runs["unfaulted"],
+                                            runs["faulted"]))
+    check(sorted(sf) == sorted(c for c in su if c not in evicted),
+          "phase 16: the faulted run's sessions")
+    same = all(all(np.array_equal(su[c][0][k], sf[c][0][k])
+                   for k in su[c][0])
+               and su[c][1]["time"] == sf[c][1]["time"]
+               and su[c][1]["next_dt"] == sf[c][1]["next_dt"] for c in sf)
+    check(same, "phase 16: a healthy session differs under the eviction")
+    for k, v in summ.items():
+        check(v["jit_compiles_from_first_retirement"] == 0,
+              f"phase 16 serve {k}: kernel builds after the first "
+              "retirement")
+    summ["healthy_sessions_bit_for_bit"] = same
+    summ["evicted_client"] = evicted[0]
+    out["serve"] = summ
+    print(f"phase 16 serving {json.dumps(summ)}; card {card}", flush=True)
+    print(f"phase 16 resume {json.dumps(out['resume'])}", flush=True)
+    for k, n in launches.items():
+        check(n > 0, f"{k}: launched no time in the fleet runs")
+    print(f"phase 16 launches, fleet steps only (L = B) "
+          f"{json.dumps(launches)}; card {card}", flush=True)
+    print(f"phase 16 launches, faulted serving run (with the ladder's "
+          f"solo member steps, L = 1) {json.dumps(faulted)}; card {card}",
+          flush=True)
+    out["faulted_serve_launches"] = faulted
+    shutil.rmtree(PHASE16_DIR)
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4093,6 +4480,9 @@ def main() -> int:
     supervised, sup_launches = phase_supervised(
         dev, forest_start, cli["canonical"]["production_ms_per_step"], card)
     print(f"phase 15 took {time.perf_counter() - t0} s", flush=True)
+    t0 = time.perf_counter()
+    fleet, fleet_launches = phase_fleet(dev, card)
+    print(f"phase 16 took {time.perf_counter() - t0} s", flush=True)
     check("jax" not in sys.modules, "the smoke imported jax")
     check("validation" not in sys.modules, "the smoke imported validation")
 
@@ -4110,6 +4500,7 @@ def main() -> int:
                     canonical=canon["kernels"].get(k),
                     periodic_launches=periodic_launches.get(k, 0),
                     supervised_launches=sup_launches.get(k, 0),
+                    fleet_launches=fleet_launches.get(k, 0),
                     **({k2: res[k][k2] for k2 in ("ulps", "fft_ms")
                         if k2 in res[k]}))
                for k in hk.launches]
@@ -4125,6 +4516,7 @@ def main() -> int:
     print(f"periodic main path summary: {json.dumps(periodic)}")
     print(f"run driver summary: {json.dumps(cli)}")
     print(f"supervised runs summary: {json.dumps(supervised)}")
+    print(f"fleet summary: {json.dumps(fleet)}")
     print(f"total {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -16,7 +16,9 @@ cup2d_tpu_torch <reference flags>`` (``__main__.py``), with its
 reference-format dumps and checkpoints (``io.py``, with the device
 snapshot ring), metrics stream (``profiling.py``), supervised stepping
 (``resilience.py``: the recovery ladder and the lagged verdict; fault
-injection in ``faults.py``) and ``post.py``.
+injection in ``faults.py``) and ``post.py``; and fleets and the serving
+pool (``fleet.py``: ``FleetSim``, ``FleetServer``; per-member supervision
+in ``resilience.FleetStepGuard``; ``-fleet B [-serve N]``).
 
 The port imports torch and numpy only, never jax and nothing of
 ``cup2d_tpu``. Entry points run on ``cuda`` unless given

@@ -14,7 +14,19 @@ Runs the case the reference's ``main()`` runs, with its flag names
 The adaptive forest by default (``amr.AMRSim``); ``-level N`` a uniform
 run at level N (``sim.Simulation``); ``-case NAME`` a catalog case
 (``cases.REGISTRY``; ``-level`` overrides its resolution, ``-tend`` and
-``-tdump`` its schedule). Extra flags as in the JAX package: ``-dtype``,
+``-tdump`` its schedule); ``-fleet B`` B obstacle-free uniform members in
+one batched step (``fleet.FleetSim``: a dt and a clock each, the
+amplitude-laddered Taylor-Green ensemble at t = 0, or a fleet-capable
+catalog case with ``-case``; per-member supervision by
+``resilience.FleetStepGuard``; per-member dumps ``vel.NNNNNNNN.mK`` at
+each member's own clock; ``-shapes`` refuses). ``-serve N`` with ``-fleet
+B`` serves N Taylor-Green sessions with horizons staggered over [tend/2,
+tend] through the B-slot pool (``fleet.FleetServer``): each admitted into
+a free slot, retired at its horizon with a session checkpoint under
+``<output>/sessions/<client>``, evicted if its recovery ladder runs out;
+per-client streams under ``<output>/clients/``, a ``serving_latency``
+record at exit unless ``-noMetrics``; SIGTERM parks every live session and
+exits 0. Extra flags as in the JAX package: ``-dtype``,
 ``-output DIR``, ``-checkpointEvery N``, ``-restart DIR`` (a checkpoint of
 either package), ``-maxSteps N``, ``-metricsLog PATH``, ``-noMetrics``,
 ``-eventLog PATH``, ``-logRotateMB N``, ``-noWatchdog``; and one of the
@@ -40,9 +52,10 @@ no ``spans.jsonl``); SIGTERM writes ``<output>/checkpoint`` and exits 0.
 ``torch.profiler``.
 
 What the port cannot do yet is refused with rc 2 before any work, naming
-its ROADMAP queue 1 item: ``-fleet``/``-serve`` (item 6); ``-mesh`` and
-the multi-process, elastic and mirror flags (item 8); ``-profile``,
-``-spansLog`` and span ring capacities in ``CUP2D_SPANS`` (item 9).
+its ROADMAP queue 1 item: ``-mesh`` (with or without ``-fleet``) and the
+multi-process, elastic and mirror flags (item 8); ``-profile``,
+``-spansLog`` and span ring capacities in ``CUP2D_SPANS`` (item 9). The
+JAX CLI's usage errors exit 2 with its messages.
 Flags that only turn off what the port lacks (``-noSpans``,
 ``-noMemLedger``, ``-noMirror``) are accepted.
 """
@@ -60,8 +73,6 @@ _PREFIX = "cup2d_tpu_torch"
 
 # flag -> (ROADMAP queue 1 item, what it asks for)
 _REFUSED = {
-    "fleet": (6, "fleet batching"),
-    "serve": (6, "fleet serving"),
     "mesh": (8, "the mesh launcher"),
     "coordinator": (8, "multi-process bring-up"),
     "meshHosts": (8, "multi-process bring-up"),
@@ -88,8 +99,11 @@ def _refusal(p) -> str | None:
     usage errors first (naming the item where their flag waits for one),
     then every flag and variable whose effect the port cannot give."""
     if p.has("serve") and not p.has("fleet"):
-        return ("-serve N needs -fleet B (the slot pool it serves "
-                "through); " + _not_ported("fleet serving", 6))
+        return "-serve N needs -fleet B (the slot pool it serves through)"
+    if p.has("serve") and p.has("restart"):
+        return ("-serve resumes per-session (admit from "
+                "<output>/sessions/<client>), not from a whole-fleet "
+                "-restart")
     if p.has("elastic") and not p.has("mesh"):
         return ("-elastic needs -mesh with at least 2 devices; "
                 + _not_ported("the elastic topology guard", 8))
@@ -118,7 +132,9 @@ def main(argv=None) -> int:
             return 2
     # a -case run takes its SimConfig from the catalog
     cfg = None if case_name is not None else SimConfig.from_argv(argv)
-    uniform = (p.has("level") or case_name is not None
+    fleet_n = p("fleet").asInt() if p.has("fleet") else 0
+    serve_n = p("serve").asInt() if p.has("serve") else 0
+    uniform = (fleet_n > 0 or p.has("level") or case_name is not None
                or cfg.level_max <= 1)
     outdir = p("output").asString() if p.has("output") else "."
     ckpt_every = p("checkpointEvery").asInt() if p.has("checkpointEvery") \
@@ -133,8 +149,9 @@ def main(argv=None) -> int:
 
     from . import faults
     from .profiling import HostCounters, MetricsRecorder, TraceWindow
-    from .resilience import (EventLog, PhysicsWatchdog, PreemptionGuard,
-                             ResilienceAbort, StepGuard, set_event_log)
+    from .resilience import (EventLog, FleetStepGuard, PhysicsWatchdog,
+                             PreemptionGuard, ResilienceAbort, StepGuard,
+                             set_event_log)
 
     plan = faults.FaultPlan.from_env()   # CUP2D_FAULTS, latched once
     events_path = p("eventLog").asString() if p.has("eventLog") \
@@ -144,10 +161,17 @@ def main(argv=None) -> int:
     tracer = TraceWindow.from_env()      # CUP2D_TRACE, latched once
 
     if case_name is not None:
-        from .cases import make_sim
+        from .cases import REGISTRY, make_sim
         kw = {"device": device}
         if p.has("level"):
             kw["level"] = p("level").asInt()
+        if fleet_n:
+            if not REGISTRY[case_name].fleet_ok:
+                print(f"{_PREFIX}: -case {case_name} does not ride the "
+                      "fleet slot pool (obstacle cases are solo-driver "
+                      "only)", file=sys.stderr)
+                return 2
+            kw["members"] = fleet_n
         sim = make_sim(case_name, **kw)
         cfg = sim.cfg
         # -tend/-tdump override the case's schedule (the grid and
@@ -156,6 +180,19 @@ def main(argv=None) -> int:
             cfg.end_time = p("tend").asDouble()
         if p.has("tdump"):
             cfg.dump_time = p("tdump").asDouble()
+    elif fleet_n:
+        if cfg.shapes:
+            print(f"{_PREFIX}: -fleet supports obstacle-free uniform runs "
+                  "only (shapes given)", file=sys.stderr)
+            return 2
+        from .fleet import FleetSim
+        level = p("level").asInt() if p.has("level") else cfg.level_start
+        sim = FleetSim(cfg, level=level, members=fleet_n, device=device)
+        if not p.has("restart") and not serve_n:
+            # a zero state would be a trivial run: the amplitude-laddered
+            # Taylor-Green ensemble (a serving pool starts empty; its
+            # sessions arrive through the queue)
+            sim.seed_taylor_green()
     elif uniform:
         from .sim import Simulation
         level = p("level").asInt() if p.has("level") else cfg.level_start
@@ -166,7 +203,7 @@ def main(argv=None) -> int:
     if p.has("restart"):
         load_checkpoint(p("restart").asString(), sim)
 
-    if hasattr(type(sim), "force_log_header"):
+    if not fleet_n and hasattr(type(sim), "force_log_header"):
         force_path = os.path.join(outdir, "forces.csv")
         resuming = p.has("restart") and os.path.exists(force_path)
         sim.force_log = open(force_path, "a" if resuming else "w")
@@ -180,14 +217,21 @@ def main(argv=None) -> int:
         sim.initialize()   # so the t = 0 dump sees the blended velocity
 
     def dump(path):
-        if uniform:
+        if fleet_n:
+            # one triplet a member, at the member's own clock (sim.time is
+            # the fleet's min)
+            for m in range(sim.members):
+                dump_uniform(f"{path}.m{m}", float(sim.times[m]),
+                             sim.state.vel[m], sim.grid.h)
+        elif uniform:
             dump_uniform(path, sim.time, sim.state.vel, sim.grid.h)
         else:
             sim.sync_fields()
             dump_forest(path, sim.time, sim.forest)
 
     ckpt_path = os.path.join(outdir, "checkpoint")
-    guard = StepGuard(
+    guard_cls = FleetStepGuard if fleet_n else StepGuard
+    guard = guard_cls(
         sim,
         ring=p("guardRing").asInt() if p.has("guardRing") else 1,
         ckpt_dir=ckpt_path,
@@ -199,6 +243,32 @@ def main(argv=None) -> int:
         snap_every=p("snapEvery").asInt() if p.has("snapEvery") else 1,
         lag=not p.has("noLag"))
 
+    # -serve N: N staggered-horizon sessions through the B-slot pool (the
+    # server wires the guard's eviction rung)
+    server = None
+    if serve_n:
+        from .fleet import (FleetRequest, FleetServer, FlowState,
+                            taylor_green_fleet)
+        serving_lat = None
+        if not p.has("noMetrics"):
+            from .tracing import ServingLatency
+            serving_lat = ServingLatency()
+        server = FleetServer(
+            sim, guard=guard,
+            session_dir=os.path.join(outdir, "sessions"),
+            event_log=log,
+            clients_dir=os.path.join(outdir, "clients"),
+            clients_rotate_mb=rotate_mb, latency=serving_lat)
+        # the session ladder: Taylor-Green at decaying amplitudes, the
+        # horizons staggered over [tend/2, tend] so that retirements
+        # interleave with admissions
+        ens = taylor_green_fleet(sim.grid, serve_n)
+        for i in range(serve_n):
+            t_end = cfg.end_time * (0.5 + 0.5 * (i + 1) / serve_n)
+            server.submit(FleetRequest(
+                client_id=f"s{i:04d}",
+                state=FlowState(*(a[i] for a in ens)), t_end=t_end))
+
     metrics_log = None
     recorder = None
     counters = None
@@ -208,7 +278,8 @@ def main(argv=None) -> int:
         metrics_log = EventLog(metrics_path, rotate_mb=rotate_mb)
         counters = HostCounters().install()
         recorder = MetricsRecorder(sink=metrics_log, counters=counters,
-                                   timers=sim.timers, guard=guard)
+                                   timers=sim.timers, guard=guard,
+                                   server=server)
         recorder.prime(sim)
 
     def record(rec, wall_ms=None):
@@ -232,8 +303,40 @@ def main(argv=None) -> int:
 
     rc = 0
     try:
+        if server is not None:
+            # the serving loop: refill, step, retire a cycle. No dump
+            # schedule: a session's artifacts are its checkpoint and its
+            # client stream. The fleet guard's verdict is eager, so
+            # admissions and retirements see settled state.
+            while ((server.queue or server.active.any())
+                   and sim.step_count < max_steps):
+                if stop.agree():
+                    n_parked = server.park_all()
+                    log.emit(event="sigterm_park", step=sim.step_count,
+                             parked=n_parked, queued=len(server.queue),
+                             signum=stop.signum)
+                    print(f"{_PREFIX}: SIGTERM at step {sim.step_count} — "
+                          f"{n_parked} live session(s) parked under "
+                          f"{os.path.join(outdir, 'sessions')}, "
+                          f"{len(server.queue)} still queued, exiting "
+                          "cleanly", file=sys.stderr)
+                    return 0
+                if sim.step_count % 5 == 0:
+                    print(f"{_PREFIX}: {sim.step_count:08d} serving "
+                          f"{int(server.active.sum())}/{sim.members} "
+                          f"slots, queue={len(server.queue)}, "
+                          f"retired={server.retired}, "
+                          f"evicted={server.evicted}", file=sys.stderr)
+                t_step = time.perf_counter()
+                rec = server.step()
+                if rec is None:
+                    break
+                record(rec, wall_ms=1e3 * (time.perf_counter() - t_step))
+            print(f"{_PREFIX}: served {server.admitted} session(s): "
+                  f"{server.retired} retired, {server.evicted} evicted, "
+                  f"{len(server.queue)} unserved", file=sys.stderr)
         next_dump = sim.time if cfg.dump_time > 0 else float("inf")
-        while True:
+        while server is None:
             if not (sim.time < cfg.end_time
                     and sim.step_count < max_steps):
                 # the end, or a lagged clock: settle the verdicts in
@@ -293,6 +396,8 @@ def main(argv=None) -> int:
     finally:
         stop.uninstall()
         faults.install(None)
+        if server is not None:
+            server.close()   # the per-client streams
         if tracer is not None:
             tracer.close()   # a window past tend must not leak a trace
         if sim.force_log is not None and not sim.force_log.closed:
@@ -300,6 +405,10 @@ def main(argv=None) -> int:
         if counters is not None:
             counters.uninstall()
         if metrics_log is not None:
+            if server is not None and server.latency is not None:
+                # the serving latency distributions, for post --metrics
+                metrics_log.emit(event="serving_latency",
+                                 **server.latency.report())
             metrics_log.close()
         set_event_log(None)
         log.close()

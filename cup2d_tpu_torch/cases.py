@@ -5,9 +5,10 @@ initial state behind one name. The listing is the JAX package's:
 
 ``cavity``
     Lid-driven cavity: unit box, four no-slip walls, the y_hi lid moving
-    at ``lid_u``, Re = lid_u / nu. Obstacle-free (``UniformSim``, or
-    ``ShardedUniformSim`` with ``mesh=``). Validated against Ghia, Ghia &
-    Shin (1982) at Re 100 (``ghia_errors``; ``python -m
+    at ``lid_u``, Re = lid_u / nu. Obstacle-free (``UniformSim``,
+    ``ShardedUniformSim`` with ``mesh=``, or a ``fleet.FleetSim`` of
+    ``members`` slots, every member on the one table). Validated against
+    Ghia, Ghia & Shin (1982) at Re 100 (``ghia_errors``; ``python -m
     cup2d_tpu_torch.cases --ghia``).
 ``channel``, ``cylinder``
     Flow past a fixed disk between an inflow and an outflow face (Re 200,
@@ -20,8 +21,9 @@ initial state behind one name. The listing is the JAX package's:
     the Taylor-Green vortex, whose kinetic energy decays as
     exp(-4 nu k^2 t), the double shear layer of Bell, Colella & Glaz
     (1989), and seeded decaying turbulence. They run under any solver,
-    ``CUP2D_POIS=fftd`` included; their fleets (``members``) are ROADMAP
-    queue 1 item 6, their split step (``mesh``) item 8.
+    ``CUP2D_POIS=fftd`` included, solo or as a ``FleetSim`` of ``members``
+    slots (turb2d's member m draws seed + m); their split step (``mesh``)
+    is ROADMAP queue 1 item 8.
 
 The catalog's drivers run on ``cuda`` unless given ``device="cpu"``. Run
 the Ghia comparison with
@@ -110,20 +112,20 @@ def build_cavity(level: Optional[int] = None, re: float = 100.0,
                  lid_u: float = 1.0, dtype: str = "float32", mesh=None,
                  members: int = 0, cfl: float = 0.4, device=None):
     """Lid-driven cavity at Re = lid_u * L / nu on the unit box, from rest:
-    a solo ``UniformSim``, or a ``ShardedUniformSim`` over ``mesh`` (a
+    a solo ``UniformSim``, a ``members``-slot ``fleet.FleetSim`` (every
+    member on the one table), or a ``ShardedUniformSim`` over ``mesh`` (a
     ``parallel.mesh.SlabMesh``, whose first device is the sim's; ``device``
-    is then left unset). The JAX package's fleet driver of it is not
-    ported."""
-    if members > 0:
-        raise NotImplementedError(
-            "cavity with members: the fleet driver is not ported yet "
-            "(ROADMAP queue 1 item 6)")
+    is then left unset)."""
     lvl = 4 if level is None else level
     cfg = SimConfig(bpdx=1, bpdy=1, level_max=1, level_start=0,
                     extent=1.0, dtype=dtype, nu=lid_u / re, cfl=cfl,
                     poisson_tol=1e-4, poisson_tol_rel=1e-3)
     bc = cavity_table(lid_u)
-    if mesh is not None:
+    if members > 0:
+        from .fleet import FleetSim
+        sim = FleetSim(cfg, level=lvl, members=members, bc=bc,
+                       device=device, mesh=mesh)
+    elif mesh is not None:
         if device is not None:
             raise ValueError("build_cavity: pass a mesh or a device, not "
                              "both (the mesh's first device is the sim's)")
@@ -181,13 +183,14 @@ def build_cylinder(level: Optional[int] = None, D: float = 0.1,
 
 
 def _periodic_sim(cfg: SimConfig, lvl: int, mesh, members: int, device):
-    """The obstacle-free periodic cases' driver: a solo ``UniformSim`` on
-    the doubly-periodic table. The JAX package's fleet and split drivers
-    of them are not ported."""
+    """The obstacle-free periodic cases' driver on the doubly-periodic
+    table: a ``members``-slot ``fleet.FleetSim``, else a solo
+    ``UniformSim``. The JAX package's split driver of them is not
+    ported."""
     if members > 0:
-        raise NotImplementedError(
-            "periodic case with members: the fleet driver is not ported "
-            "yet (ROADMAP queue 1 item 6)")
+        from .fleet import FleetSim
+        return FleetSim(cfg, level=lvl, members=members, mesh=mesh,
+                        bc=periodic_table(), device=device)
     if mesh is not None:
         raise NotImplementedError(
             "periodic case on a mesh: the split periodic step is not "
@@ -196,9 +199,11 @@ def _periodic_sim(cfg: SimConfig, lvl: int, mesh, members: int, device):
     return UniformSim(cfg, level=lvl, device=device, bc=periodic_table())
 
 
-def _install_vel(sim, vel):
-    """Overwrite the zero state's velocity with ``vel`` [2, Ny, Nx]
-    (numpy)."""
+def _install_vel(sim, members: int, vel_fn):
+    """Overwrite the zero state's velocity with ``vel_fn(m)`` [2, Ny, Nx]
+    (numpy), stacked over a fleet's slots."""
+    vel = (np.stack([vel_fn(m) for m in range(members)]) if members > 0
+           else vel_fn(0))
     sim.state = sim.state._replace(vel=sim.grid.tensor(vel))
 
 
@@ -223,7 +228,7 @@ def build_tgv_periodic(level: Optional[int] = None, nu: float = 1e-3,
     k = 2.0 * np.pi / cfg.extent
     u = u0 * np.sin(k * x) * np.cos(k * y)
     v = -u0 * np.cos(k * x) * np.sin(k * y)
-    _install_vel(sim, np.stack([u, v]))
+    _install_vel(sim, members, lambda m: np.stack([u, v]))
     sim.case = "tgv_periodic"
     return sim
 
@@ -244,7 +249,7 @@ def build_shear_layer(level: Optional[int] = None, nu: float = 2e-4,
     u = u0 * np.where(y <= 0.5 * L, np.tanh(rho * (y / L - 0.25)),
                       np.tanh(rho * (0.75 - y / L)))
     v = delta * u0 * np.sin(2.0 * np.pi * x / L)
-    _install_vel(sim, np.stack([u, v]))
+    _install_vel(sim, members, lambda m: np.stack([u, v]))
     sim.case = "shear_layer"
     return sim
 
@@ -280,12 +285,14 @@ def build_turb2d(level: Optional[int] = None, nu: float = 1e-4,
                  dtype: str = "float32", mesh=None, members: int = 0,
                  cfl: float = 0.4, device=None):
     """Seeded decaying 2D turbulence on the doubly-periodic unit box
-    (``turb2d_velocity``, deterministic per seed)."""
+    (``turb2d_velocity``, deterministic per seed; a fleet's member m draws
+    seed + m, an ensemble)."""
     lvl = 4 if level is None else level
     cfg = _periodic_cfg(nu, dtype, cfl)
     sim = _periodic_sim(cfg, lvl, mesh, members, device)
     g = sim.grid
-    _install_vel(sim, turb2d_velocity(g.ny, g.nx, g.h, seed, k0, urms))
+    _install_vel(sim, members, lambda m: turb2d_velocity(
+        g.ny, g.nx, g.h, seed + m, k0, urms))
     sim.case = "turb2d"
     return sim
 
@@ -319,7 +326,8 @@ def case_names() -> Tuple[str, ...]:
 
 def make_sim(name: str, **kw):
     """Build a named case's driver; an unknown name raises with the
-    listing, an option that waits for an unported part names it."""
+    listing, an option that waits for an unported part names its ROADMAP
+    item."""
     spec = REGISTRY.get(name)
     if spec is None:
         listing = ", ".join(f"{c.name} ({c.describe})" for c in CASES)

@@ -16,7 +16,9 @@ and schedulers included) and ``copy_simulation_state`` all of a shaped
 Simulation's state, so that both packages' ``Simulation`` (or the port's on
 two devices) can go on from one state; ``copy_amr_state`` does the same
 for an ``AMRSim`` (the forest, every field, chi included, the shapes, the
-clocks, the cached dt and the two-level trigger).
+clocks, the cached dt and the two-level trigger), and ``copy_fleet_state``
+for a ``FleetSim`` (the member-stacked state, the per-member clocks, the
+step count and the [B] chained dt).
 """
 
 from __future__ import annotations
@@ -216,3 +218,21 @@ def copy_amr_state(src, dst) -> None:
                                       device=dst.device)
     dst._next_umax_version = (df.version if src._next_umax_version
                               == sf.version else -1)
+
+
+def copy_fleet_state(src, dst) -> None:
+    """Give the port ``FleetSim`` ``dst`` the state of ``src``, a
+    ``FleetSim`` of either package with the same members and grid: the
+    member-stacked flow state (on ``dst``'s device, in its dtype), the
+    per-member clocks, the step count and the [B] chained dt, as if
+    ``dst`` had made ``src``'s steps."""
+    if int(src.members) != int(dst.members):
+        raise ValueError(f"{src.members} members into {dst.members}")
+    fields = {k: _host(v) for k, v in src.state._asdict().items()}
+    dst.state = state_from_numpy(fields, dst.grid.device, dst.grid.dtype)
+    dst.times = np.array(np.asarray(src.times), dtype=np.float64)
+    dst.time = float(src.time)
+    dst.step_count = int(src.step_count)
+    nd = src._next_dt
+    dst._next_dt = (None if nd is None else torch.tensor(
+        np.array(_host(nd)), dtype=dst.grid.dtype, device=dst.grid.device))

@@ -33,7 +33,9 @@ at the exact-Poisson escalation, ``*3`` at the disk restore, ``*4`` (or
 
 The velocity faults write a new tensor (``_set_ordered`` on the forest, a
 new ``FlowState`` on the uniform drivers), never into a tensor that a
-device snapshot might share.
+device snapshot might share. On a fleet (``fleet.FleetSim``, velocity
+[B, 2, Ny, Nx]) they hit member 0 only, the per-member recovery drill; the
+fleet guard reports ``poisson_giveup`` on member 0 too.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ import contextlib
 import os
 import signal
 from typing import Optional
+
+import torch
 
 
 class InjectedCrash(RuntimeError):
@@ -198,17 +202,26 @@ def poison_velocity(sim, value: float) -> None:
         sim._set_ordered(vel=vel)
     else:
         vel = sim.state.vel.clone()
-        vel[0, 0, 0] = value
+        if vel.ndim == 4:    # a fleet: member 0 only
+            vel[0, 0, 0, 0] = value
+        else:
+            vel[0, 0, 0] = value
         sim.state = sim.state._replace(vel=vel)
 
 
 def scale_velocity(sim, factor: float) -> None:
     """Multiply the whole velocity by ``factor``: every value stays
-    finite (the corruption the isfinite verdict cannot see)."""
+    finite (the corruption the isfinite verdict cannot see); member 0's
+    only on a fleet."""
     if hasattr(sim, "forest"):
         sim._set_ordered(vel=sim._ordered_state()["vel"] * factor)
     else:
-        sim.state = sim.state._replace(vel=sim.state.vel * factor)
+        vel = sim.state.vel
+        if vel.ndim == 4:    # a fleet: member 0 only
+            vel = torch.cat([vel[:1] * factor, vel[1:]])
+        else:
+            vel = vel * factor
+        sim.state = sim.state._replace(vel=vel)
 
 
 # -- process-wide plan (the CLI arms it; io's crash window asks) --------

@@ -1,0 +1,647 @@
+"""Fleets and the serving pool, the counterpart of ``cup2d_tpu.fleet``.
+
+``FleetSim`` advances B independent obstacle-free uniform cases in one
+member-batched step:
+
+- the state is one ``FlowState`` with a leading member axis [B, ...];
+  the substage pair (``hopper_kernels.fused_advect_heun``), the
+  correction epilogue (``poisson.project_correct(mean_axes=(-2, -1))``)
+  and, under fas, the sweep chains (``fused_jacobi_sweeps``) launch once
+  for all members, each with a dt per member;
+- each member runs at its own dt: a [B] device row chained from each
+  member's end-state umax, the clocks in ``times`` (host, float64),
+  settled through the step's one stacked diagnostic read;
+- the members' pressure solves run in one loop
+  (``poisson.bicgstab``/``mg_solve(member_axis=True)``, or one batched
+  ``fft_diag_solve``), a converged member frozen while the others go on;
+- supervision is per member (``resilience.FleetStepGuard``): a bad member
+  restores only its slice of the snapshot ring and replays solo through
+  ``member_step_once``; the healthy members never rewind.
+
+With B = 1 a ``FleetSim`` is a ``UniformSim`` bit for bit (the solvers'
+whole-field reductions run as one member's, ``poisson._reducers``), with
+no more device reads a step. With B > 1 each member follows its solo run
+to rounding: the per-member reductions may sum in another order than the
+whole-field ones on a many-threaded CPU or on the card.
+
+``FleetServer`` serves client sessions (``FleetRequest``) through the
+fixed-B pool: a per-slot active mask (``FleetSim.set_active``: dead slots
+ride the step select-frozen), admission from a state or a session
+checkpoint (``io.save_member_checkpoint``), retirement at each session's
+horizon with its checkpoint, eviction by the guard's per-member ladder,
+and the schema-v7 gauges. Slot writes build new fleet tensors
+(``index_copy``), so no snapshot or caller ever sees a slot change under
+it, and build no kernel: churn costs no kernel build.
+
+The JAX package's member and spatial placement on a device mesh
+(``mesh=``, ``placement=``, ``member_cells_cap=``) are ROADMAP queue 1
+item 8 and refuse.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import tracing
+from .config import SimConfig
+from .ops.hopper_kernels import fused_advect_heun
+from .poisson import bicgstab, fft_diag_solve, mg_solve, project_correct
+from .shapes_host import pull
+from .uniform import FlowState, UniformGrid, taylor_green_state
+
+__all__ = ["FleetRequest", "FleetServer", "FleetSim", "FlowState",
+           "stack_states", "taylor_green_fleet"]
+
+
+def stack_states(states) -> FlowState:
+    """Stack per-member FlowStates into one fleet state [B, ...]."""
+    return FlowState(*(torch.stack(list(leaves))
+                       for leaves in zip(*states)))
+
+
+def taylor_green_fleet(grid, members: int, amp0: float = 1.0,
+                       decay: float = 0.8) -> FlowState:
+    """B Taylor-Green vortices at geometrically decaying amplitudes
+    (member m scaled by ``amp0 * decay**m``): each member has its own umax
+    and so its own CFL dt."""
+    base = taylor_green_state(grid)
+    return stack_states([
+        base._replace(vel=base.vel * (amp0 * decay ** m))
+        for m in range(members)])
+
+
+def _host_diag(diag: dict) -> dict:
+    """The step's [B] diagnostics in one ``pull``: numpy arrays, bool and
+    integer rows in their kinds, the rest float64."""
+    keys = [k for k, v in diag.items() if torch.is_tensor(v)]
+    vals = pull(*(diag[k] for k in keys))
+    out = dict(diag)
+    for k, v in zip(keys, vals):
+        dt = diag[k].dtype
+        out[k] = (v.astype(bool) if dt == torch.bool
+                  else v.astype(np.int64) if not dt.is_floating_point
+                  else v)
+    return out
+
+
+class FleetSim:
+    """Host driver of a B-member fleet: the shared step counter, the
+    per-member clocks and the member-batched step. Its driver contract is
+    ``UniformSim``'s (``step_once``, ``async_diag``, ``_force_exact``,
+    ``_next_dt``), with [B] diagnostics; ``resilience.FleetStepGuard``
+    supervises it per member.
+
+    ``shaped``: per-member obstacle fields (chi, us, udef) ride the member
+    axis as frozen solids, penalized as ``UniformGrid.step`` does. ``bc``:
+    the one boundary table of every member. ``device``: ``cuda`` unless
+    ``cpu`` is given (no card and no device raises)."""
+
+    def __init__(self, cfg: SimConfig, level: Optional[int] = None,
+                 members: int = 1, shaped: bool = False, bc=None,
+                 device=None, mesh=None, placement=None,
+                 member_cells_cap=None):
+        for name, val in (("mesh", mesh), ("placement", placement),
+                          ("member_cells_cap", member_cells_cap)):
+            if val is not None:
+                raise NotImplementedError(
+                    f"FleetSim({name}=...): placing a fleet on a device "
+                    "mesh is not ported yet (ROADMAP queue 1 item 8)")
+        if members < 1:
+            raise ValueError(f"need members >= 1, got {members}")
+        self.cfg = cfg
+        self.members = int(members)
+        self.shaped = bool(shaped)
+        self.grid = UniformGrid(cfg, level, device=device, bc=bc)
+        g = self.grid
+        self.state = stack_states([g.zero_state()
+                                   for _ in range(self.members)])
+        self.times = np.zeros(self.members, dtype=np.float64)
+        self.time = 0.0           # min over live members (loop condition)
+        self.step_count = 0       # shared: one step for every member
+        # the slot-pool mask (FleetServer): host truth and its device
+        # copy, pushed only when it changes; None steps unmasked
+        self.active_mask = np.ones(self.members, dtype=bool)
+        self._active: Optional[torch.Tensor] = None
+        self.shapes: list = []
+        self.case: Optional[str] = None
+        self.force_log = None
+        self._next_dt: Optional[torch.Tensor] = None   # [B], device
+        self._force_exact = False
+        self.async_diag = False
+        # one index tensor a slot, made once: slot gathers and scatters
+        # take it as an operand
+        self._idx = [torch.tensor([m], dtype=torch.long, device=g.device)
+                     for m in range(self.members)]
+
+    # -- telemetry latches (the grid's) ---------------------------------
+    @property
+    def timers(self):
+        return None
+
+    @timers.setter
+    def timers(self, value) -> None:
+        if value is not None:
+            raise NotImplementedError(
+                "timers (profiling.PhaseTimers) are not ported into the "
+                "drivers yet (ROADMAP queue 1 item 9)")
+
+    @property
+    def poisson_mode(self) -> str:
+        return self.grid.poisson_mode
+
+    @property
+    def kernel_tier(self) -> str:
+        return self.grid.kernel_tier
+
+    @property
+    def prec_mode(self) -> str:
+        return self.grid.prec_mode
+
+    @property
+    def smoother_tier(self) -> str:
+        return self.grid.smoother_tier
+
+    @property
+    def bc_table(self) -> str:
+        return self.grid.bc_table
+
+    # -- the member-batched step ----------------------------------------
+    def _dt(self, vel: torch.Tensor) -> torch.Tensor:
+        """Per-member CFL dt [B] of the fleet velocity [B, 2, Ny, Nx]."""
+        return self.grid.compute_dt(vel, members=True)
+
+    def _pressure_solve(self, rhs: torch.Tensor, exact: bool):
+        """``UniformGrid.pressure_solve`` with the member axis: the same
+        tolerances, refresh and stall policy and solver path."""
+        g = self.grid
+        cfg = self.cfg
+        if g.solver_mode == "fftd":
+            return fft_diag_solve(
+                g.laplacian, rhs, g._fft_plan,
+                tol=0.0 if exact else cfg.poisson_tol,
+                tol_rel=0.0 if exact else cfg.poisson_tol_rel,
+                member_axis=True)
+        if g.solver_mode == "fas" and not exact:
+            return mg_solve(
+                g.laplacian, rhs, g.mg,
+                tol=cfg.poisson_tol, tol_rel=cfg.poisson_tol_rel,
+                max_cycles=cfg.max_poisson_iterations, fmg=g.fas_fmg,
+                member_axis=True)
+        return bicgstab(
+            g.laplacian, rhs,
+            M=g.mg if cfg.precond else None,
+            tol=0.0 if exact else cfg.poisson_tol,
+            tol_rel=0.0 if exact else cfg.poisson_tol_rel,
+            max_iter=cfg.max_poisson_iterations,
+            max_restarts=100 if exact else cfg.max_poisson_restarts,
+            sum_dtype=g.sum_dtype,
+            refresh_every=10 if exact else 50,
+            stall_iters=20 if exact else 120,
+            stall_rtol=0.99 if exact else 0.999,
+            member_axis=True)
+
+    def _step_impl(self, state: FlowState, dt: torch.Tensor, active=None,
+                   exact_poisson: bool = False):
+        """One step of every member: Heun advection-diffusion and the
+        deltap projection, obstacle-free unless ``shaped``. ``dt`` is [B].
+
+        ``active`` (None or a [B] bool tensor, the slot-pool mask): dead
+        slots ride the step, their dt set to 1 so their lanes stay finite,
+        their rows of the Poisson RHS zeroed (so the member solvers mark
+        them done at iteration 0) and every output select-frozen to the
+        input; their clock increment is 0. An all-True mask is the
+        unmasked step bit for bit."""
+        g = self.grid
+        h = g.h
+        dt_req = dt
+        if active is not None:
+            dt = torch.where(active, dt, torch.ones_like(dt))
+        dt3 = dt[:, None, None]
+        vel = fused_advect_heun(state.vel, h, g.cfg.nu, dt, bc=g.bc,
+                                bf16=g.bf16)
+        if self.shaped:
+            # Brinkman penalization on the member axis, the scalar chain
+            # of UniformGrid.step's obstacle terms
+            alpha = torch.where(state.chi > 0.5,
+                                1.0 / (1.0 + g.cfg.lam * dt3),
+                                torch.ones_like(state.chi))
+            vel = alpha[:, None] * vel + (1.0 - alpha)[:, None] * state.us
+            b = g.poisson_rhs(vel, state.chi, state.udef, dt3)
+        else:
+            b = g.poisson_rhs(vel, None, None, dt3)
+        div_linf = torch.amax(torch.abs(b), dim=(-2, -1)) * (dt / (h * h))
+        b = b - g.laplacian(state.pres)
+        if active is not None:
+            b = torch.where(active[:, None, None], b, torch.zeros_like(b))
+        res = self._pressure_solve(b, exact_poisson)
+        vel, pres = project_correct(
+            res.x, state.pres, vel, h, dt, mean_axes=(-2, -1),
+            remove_mean=g.bc.all_neumann, grad_signs=g._psigns,
+            periodic=g._paxes)
+        if active is not None:
+            vel = torch.where(active[:, None, None, None], vel, state.vel)
+            pres = torch.where(active[:, None, None], pres, state.pres)
+            div_linf = torch.where(active, div_linf,
+                                   torch.zeros_like(div_linf))
+        umax = g._linf(vel, members=True)
+        vv = vel.to(g.sum_dtype) if g.sum_dtype is not None else vel
+        energy = 0.5 * h * h * torch.sum(vv * vv, dim=(-3, -2, -1))
+        finite = (torch.isfinite(vel).flatten(1).all(1)
+                  & torch.isfinite(pres).flatten(1).all(1))
+        diag = {
+            "poisson_iters": res.iters,
+            "poisson_residual": res.residual,
+            "poisson_stalled": res.stalled,
+            "poisson_converged": res.converged,
+            "finite": finite,
+            "umax": umax,
+            "energy": energy,
+            "div_linf": div_linf,
+            "precond_cycles": g.precond_cycles(res, exact_poisson),
+            "dt_next": g.dt_from_umax(umax),
+        }
+        if active is not None:
+            # a dead slot advances by exactly 0.0
+            diag["dt"] = torch.where(active, dt_req,
+                                     torch.zeros_like(dt_req))
+        return state._replace(vel=vel, pres=pres), diag
+
+    # -- the driver contract (StepGuard's) ------------------------------
+    def step_once(self, dt=None):
+        """One step of the fleet. ``dt``: None (the chained per-member
+        device dt), a scalar (every member) or a [B] row. One stacked
+        diagnostic read for the whole fleet, or none under
+        ``async_diag`` (the diagnostics and the dt used stay on the
+        device, the clocks are the caller's)."""
+        g = self.grid
+        if dt is None:
+            dt = (self._next_dt if self._next_dt is not None
+                  else self._dt(self.state.vel))
+        dt_dev = torch.as_tensor(dt, dtype=g.dtype, device=g.device)
+        if dt_dev.ndim == 0:
+            dt_dev = dt_dev.expand(self.members).contiguous()
+        exact = self.step_count < 10 or self._force_exact
+        self.state, diag = self._step_impl(self.state, dt_dev, self._active,
+                                           exact_poisson=exact)
+        if "dt" not in diag:
+            diag["dt"] = dt_dev   # every slot advanced by the dt it ran
+        self._next_dt = diag["dt_next"]
+        if self.async_diag:
+            self.step_count += 1
+            return diag
+        diag = _host_diag(diag)
+        self.times = self.times + np.asarray(diag["dt"], np.float64)
+        self.time = self._fleet_time()
+        self.step_count += 1
+        return diag
+
+    def _fleet_time(self) -> float:
+        """The loop-condition clock: the min over live slots (a retired
+        slot's frozen clock must not hold the fleet back); an empty pool
+        takes the min over all."""
+        act = self.active_mask
+        if act.all() or not act.any():
+            return float(self.times.min())
+        return float(self.times[act].min())
+
+    def set_active(self, mask) -> None:
+        """Install the per-slot active mask (the server's). From the first
+        call on the step runs masked, full occupancy included, where the
+        all-True selects are identity. The device copy is pushed only
+        when the pattern changes."""
+        m = np.asarray(mask, dtype=bool)
+        if m.shape != (self.members,):
+            raise ValueError(
+                f"active mask shape {m.shape} != ({self.members},)")
+        if self._active is not None and np.array_equal(m, self.active_mask):
+            return
+        self.active_mask = m.copy()
+        self._active = torch.as_tensor(self.active_mask,
+                                       device=self.grid.device)
+
+    # -- per-member access (guard rewind, server admit and retire) ------
+    # Every write builds new fleet tensors (index_copy out of place): the
+    # tensors a snapshot, a caller or a diag holds never change.
+    def member_state(self, m: int) -> FlowState:
+        """Member ``m``'s slice as a solo FlowState (new tensors)."""
+        idx = self._idx[m]
+        return FlowState(*(a.index_select(0, idx)[0] for a in self.state))
+
+    def set_member_state(self, m: int, st: FlowState) -> None:
+        """Install a solo FlowState into member ``m``'s slice; every other
+        member's values pass through unchanged."""
+        idx = self._idx[m]
+        self.state = FlowState(*(
+            a.index_copy(0, idx, torch.as_tensor(v, dtype=a.dtype,
+                                                 device=a.device)[None])
+            for a, v in zip(self.state, st)))
+
+    def _ensure_next_dt(self) -> torch.Tensor:
+        if self._next_dt is None:
+            # the other lanes get the dt step_once would compute from the
+            # current velocities
+            self._next_dt = self._dt(self.state.vel)
+        return self._next_dt
+
+    def set_member_next_dt(self, m: int, dt_next) -> None:
+        """Member ``m``'s chained dt, the others' unchanged."""
+        nd = self._ensure_next_dt()
+        v = torch.as_tensor(dt_next, dtype=nd.dtype, device=nd.device)
+        self._next_dt = nd.index_copy(0, self._idx[m], v.reshape(1))
+
+    def admit_member(self, m: int, st: FlowState, next_dt=None) -> None:
+        """Install ``st`` into slot ``m`` with its chained dt. ``next_dt``
+        None or <= 0 (the JAX package's "fresh dt" sentinel) takes the CFL
+        dt of the admitted velocity, ``grid.compute_dt`` of the solo
+        slice, computed on the device."""
+        nd = self._ensure_next_dt()
+        self.set_member_state(m, st)
+        if next_dt is None or not float(next_dt) > 0:
+            v = self.grid.compute_dt(self.state.vel[m])
+        else:
+            v = torch.as_tensor(float(next_dt), dtype=nd.dtype,
+                                device=nd.device)
+        self._next_dt = nd.index_copy(0, self._idx[m], v.reshape(1))
+
+    def member_step_once(self, m: int, dt=None, exact: bool = False):
+        """Advance only member ``m`` one step through the solo step
+        (``UniformGrid.step``), the guard's replay and retry path. The
+        shared counter, the fleet dt cache and the clocks are the
+        caller's. Returns the solo diagnostics (device tensors), with
+        ``dt``."""
+        g = self.grid
+        st = self.member_state(m)
+        if dt is None:
+            dt = float(pull(g.compute_dt(st.vel))[0])
+        st, diag = g.step(st, torch.as_tensor(dt, dtype=g.dtype,
+                                              device=g.device),
+                          exact_poisson=bool(exact),
+                          obstacle_terms=self.shaped)
+        self.set_member_state(m, st)
+        diag = dict(diag)
+        diag["dt"] = float(dt)
+        return diag
+
+    def seed_taylor_green(self, amp0: float = 1.0,
+                          decay: float = 0.8) -> None:
+        """The CLI fleet's t = 0 state: the amplitude-laddered
+        Taylor-Green ensemble (each member its own umax and dt)."""
+        self.state = taylor_green_fleet(self.grid, self.members, amp0,
+                                        decay)
+
+
+# ---------------------------------------------------------------------------
+# the serving pool
+# ---------------------------------------------------------------------------
+
+@dataclass
+class FleetRequest:
+    """One client session waiting for a slot. ``state`` (a solo
+    FlowState at clock ``t0``) or ``checkpoint`` (a session directory of
+    ``io.save_member_checkpoint``, which resumes the session bit-exact:
+    state, clock and chained dt) gives the admitted state. The session
+    retires once its clock reaches ``t_end``; ``next_dt`` overrides its
+    first dt (else the checkpoint's, else a fresh CFL dt). ``bc``: the
+    session's expected boundary table; admission refuses a pool built
+    with another (None: whatever the pool runs)."""
+    client_id: str
+    state: Optional[FlowState] = None
+    checkpoint: Optional[str] = None
+    t0: float = 0.0
+    t_end: float = float("inf")
+    next_dt: Optional[float] = None
+    bc: Optional[object] = None
+
+
+class FleetServer:
+    """Continuous batching over a ``FleetSim`` slot pool: a fixed-B pool
+    stepped under the per-slot active mask. Finished members retire (their
+    session checkpoint lands in ``session_dir``), members whose recovery
+    ladder is exhausted are evicted (the guard's ``on_member_abort``), and
+    free slots refill from the queue. A live member's trajectory does not
+    depend on its co-members' churn: its lane is elementwise independent,
+    and dead lanes change only values no live lane reads.
+
+    ``member_admit``/``member_retire``/``member_evict`` events go to
+    ``event_log``; the schema-v7 gauges come from ``telemetry_fields``;
+    with ``clients_dir`` the metrics recorder writes one JSONL stream a
+    client (``profiling.ClientStreams``); ``latency`` is a
+    ``tracing.ServingLatency`` or None."""
+
+    def __init__(self, sim: FleetSim, *, guard=None,
+                 session_dir: Optional[str] = None, event_log=None,
+                 clients_dir: Optional[str] = None,
+                 clients_rotate_mb=None, latency=None):
+        self.sim = sim
+        self.guard = guard
+        if guard is not None:
+            # the eviction rung: an exhausted per-member ladder frees the
+            # slot instead of raising
+            guard.on_member_abort = self._on_member_abort
+        self.session_dir = session_dir
+        self.event_log = event_log
+        self.latency = latency
+        self.queue: deque = deque()
+        self.active = np.zeros(sim.members, dtype=bool)
+        self.t_end = np.full(sim.members, np.inf)
+        self.client: list = [None] * sim.members
+        self.admitted = 0
+        self.retired = 0
+        self.evicted = 0
+        self.step_clients: list = [None] * sim.members
+        self.clients = None
+        if clients_dir is not None:
+            from .profiling import ClientStreams
+            self.clients = ClientStreams(clients_dir,
+                                         rotate_mb=clients_rotate_mb)
+        # eviction re-zeroes its slot (an aborted member's NaNs must not
+        # reach the masked step's diagnostic rows); a retirement leaves
+        # its final, finite state parked under the mask
+        self._zero = sim.grid.zero_state()
+        # slot changes mark the mask dirty; step() pushes it once a cycle
+        self._mask_dirty = False
+        sim.set_active(self.active)
+
+    # -- client API ------------------------------------------------------
+    def submit(self, req: FleetRequest) -> None:
+        """Enqueue a session; it is admitted at the next free slot."""
+        if self.latency is not None:
+            self.latency.on_submit(req.client_id)
+        self.queue.append(req)
+
+    def client_of(self, m: int):
+        """The client in slot ``m`` (None when free)."""
+        return self.client[m]
+
+    @property
+    def occupancy(self) -> float:
+        return float(self.active.sum()) / self.sim.members
+
+    def telemetry_fields(self) -> dict:
+        """The schema-v7 serving gauges (host state only)."""
+        return {
+            "active_members": int(self.active.sum()),
+            "occupancy": round(self.occupancy, 6),
+            "admitted": int(self.admitted),
+            "evicted": int(self.evicted),
+            "queue_depth": len(self.queue),
+        }
+
+    def close(self) -> None:
+        if self.clients is not None:
+            self.clients.close()
+
+    # -- slot lifecycle ---------------------------------------------------
+    def _emit(self, **fields) -> None:
+        if self.event_log is not None:
+            self.event_log.emit(**fields)
+
+    def _fill_slots(self) -> int:
+        n = 0
+        for m in range(self.sim.members):
+            if not self.queue:
+                break
+            if not self.active[m]:
+                self._admit(m, self.queue.popleft())
+                n += 1
+        return n
+
+    def _admit(self, slot: int, req: FleetRequest) -> None:
+        with tracing.span("admit", member=slot, client=str(req.client_id)):
+            self._admit_inner(slot, req)
+        if self.latency is not None:
+            self.latency.on_admit(req.client_id)
+
+    def _admit_inner(self, slot: int, req: FleetRequest) -> None:
+        sim = self.sim
+        if req.bc is not None and req.bc != sim.grid.bc:
+            raise ValueError(
+                f"request {req.client_id!r}: session BCTable "
+                f"({req.bc.token}) does not match the pool's "
+                f"({sim.grid.bc.token}); submit it to a pool built "
+                "with that table")
+        meta: dict = {}
+        if req.checkpoint is not None:
+            from .io import load_member_checkpoint
+            st, meta = load_member_checkpoint(req.checkpoint, sim.grid)
+        else:
+            st = req.state
+        if st is None:
+            raise ValueError(
+                f"request {req.client_id!r}: neither state nor "
+                "checkpoint provided")
+        t0 = float(meta.get("time", req.t0))
+        sim.times[slot] = t0
+        nd = req.next_dt if req.next_dt is not None \
+            else meta.get("next_dt")
+        sim.admit_member(slot, st, nd)
+        self.active[slot] = True
+        self._mask_dirty = True
+        self.client[slot] = req.client_id
+        self.t_end[slot] = float(req.t_end)
+        self.admitted += 1
+        if self.guard is not None:
+            # the slot's watchdog history was the previous occupant's
+            self.guard.reset_member_watchdog(slot)
+        self._emit(event="member_admit", member=slot,
+                   client=req.client_id, t0=t0, t_end=float(req.t_end))
+
+    def _free_slot(self, slot: int, zero: bool = False) -> None:
+        if zero:
+            self.sim.set_member_state(slot, self._zero)
+        self.active[slot] = False
+        self._mask_dirty = True
+        self.client[slot] = None
+        self.t_end[slot] = np.inf
+
+    def _retire(self, slot: int) -> None:
+        cid = self.client[slot]
+        with tracing.span("retire", member=slot, client=str(cid)):
+            ckpt = None
+            if self.session_dir is not None:
+                from .io import save_member_checkpoint
+                ckpt = os.path.join(self.session_dir, str(cid))
+                save_member_checkpoint(ckpt, self.sim, slot)
+            t_done = float(self.sim.times[slot])
+            self._free_slot(slot)
+            self.retired += 1
+            if self.clients is not None:
+                self.clients.close(cid)
+            self._emit(event="member_retire", member=slot, client=cid,
+                       t=t_done, checkpoint=ckpt)
+
+    def _on_member_abort(self, m: int, reason: str, step: int) -> None:
+        """The guard's eviction hook: free and zero the slot and count
+        it. The guard re-anchors its ring right after, on the zeroed slot
+        and the healthy members' live states."""
+        cid = self.client[m]
+        with tracing.span("evict", member=m, client=str(cid),
+                          reason=reason):
+            self._free_slot(m, zero=True)
+            self.evicted += 1
+            # now, not at the next cycle: the guard is mid-step
+            self.sim.set_active(self.active)
+            self._mask_dirty = False
+            if self.clients is not None:
+                self.clients.close(cid)
+            self._emit(event="member_evict", member=m, client=cid,
+                       reason=reason, step=step)
+
+    # -- the serving loop ---------------------------------------------
+    def step(self) -> Optional[dict]:
+        """One serving cycle: refill free slots, step the pool, retire the
+        members whose clocks reached their horizon. Returns the step
+        record (None when the pool is empty and nothing is queued)."""
+        if self._fill_slots() and self.guard is not None:
+            # a fresh anchor after admissions: a rewind must restore the
+            # admitted state, never the slot's previous contents
+            self.guard.reanchor()
+        if not self.active.any():
+            return None
+        if self._mask_dirty:
+            # one mask push a cycle, however many slots flipped
+            self.sim.set_active(self.active)
+            self._mask_dirty = False
+        lat = self.latency
+        t0 = time.perf_counter() if lat is not None else 0.0
+        rec = (self.guard.step() if self.guard is not None
+               else self.sim.step_once())
+        # the slots' occupants during this step: a retiree's last row
+        # must still reach its client stream
+        self.step_clients = list(self.client)
+        if lat is not None:
+            lat.on_step(self.step_clients, time.perf_counter() - t0)
+        done = np.flatnonzero(self.active & (self.sim.times >= self.t_end))
+        for m in done:
+            self._retire(int(m))   # the mask push waits for the next cycle
+        return rec
+
+    def park_all(self) -> int:
+        """Retire every live member now (the CLI's preemption path), each
+        with its session checkpoint; the queue is left to the caller.
+        Returns the number parked."""
+        live = np.flatnonzero(self.active)
+        for m in live:
+            self._retire(int(m))
+        if live.size:
+            self.sim.set_active(self.active)
+        return int(live.size)
+
+    def drain(self, *, max_steps: Optional[int] = None) -> int:
+        """Serve until the queue is empty and every slot has retired (or
+        ``max_steps`` cycles). Returns the number of steps taken."""
+        n = 0
+        while self.queue or self.active.any():
+            if max_steps is not None and n >= max_steps:
+                break
+            if self.step() is None:
+                break
+            n += 1
+        return n

@@ -30,9 +30,17 @@ clones of an entry (so one entry restores twice); neither reads the
 device from the host. A snapshot of another topology restores through
 ``_install_state``.
 
+A fleet (``fleet.FleetSim``) checkpoints its per-member clocks in a
+``fleet`` meta entry, as the JAX package does; a checkpoint without one
+restores every member at the shared clock. A serving session saves and
+resumes one member alone (``save_member_checkpoint``,
+``load_member_checkpoint``: the member's solo-shaped fields, its own clock
+and its chained dt, in the same tmp -> park -> replace order). The device
+snapshot tier carries a fleet's clocks and its [B] dt row.
+
 Every device read goes through ``shapes_host.pull``; ``state_gathers``
 counts ``_gather_state`` calls (``profiling.HostCounters``). Not ported:
-member checkpoints (ROADMAP queue 1 item 6) and the mirror tier (item 8).
+the mirror tier (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -192,6 +200,10 @@ def _gather_state(sim):
         "config": {k: v for k, v in vars(sim.cfg).items()
                    if not k.startswith("_")},
     }
+    if hasattr(sim, "times"):
+        # a fleet: the per-member clocks (sim.time is only their min)
+        meta["fleet"] = {"members": int(sim.members),
+                         "times": [float(t) for t in sim.times]}
     if hasattr(sim, "forest") and hasattr(sim, "_next_dt"):
         # the cached next-dt state must survive, or a restart right after
         # a regrid takes a different dt branch than the uninterrupted run;
@@ -226,31 +238,41 @@ def _gather_state(sim):
 
 
 def save_checkpoint(dirpath: str, sim) -> None:
-    """Serialize a driver (``Simulation``, ``UniformSim`` or ``AMRSim``)
-    to ``dirpath``: written to a sibling temp dir, then installed so that a
-    crash mid-save cannot destroy the previous restart point."""
+    """Serialize a driver (``Simulation``, ``UniformSim``, ``FleetSim`` or
+    ``AMRSim``) to ``dirpath``: written to a sibling temp dir, then
+    installed so that a crash mid-save cannot destroy the previous restart
+    point."""
     payload, meta = _gather_state(sim)
+    shapes = getattr(sim, "shapes", [])
+    _write_installed(dirpath, payload, meta, shapes, crash_window=True)
+
+
+def _write_installed(dirpath: str, payload: dict, meta: dict, shapes,
+                     crash_window: bool = False) -> None:
+    """Write fields.npz, meta.json (and shapes.pkl unless ``shapes`` is
+    None) into a sibling temp dir, then park the old ``dirpath``, move the
+    new one in, THEN delete the old: at every instant dirpath or
+    dirpath.old is complete."""
     tmp = dirpath.rstrip("/") + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     np.savez(os.path.join(tmp, "fields.npz"), **payload)
-    shapes = getattr(sim, "shapes", [])
-    with open(os.path.join(tmp, "shapes.pkl"), "wb") as f:
-        pickle.dump(shapes, f)
+    if shapes is not None:
+        with open(os.path.join(tmp, "shapes.pkl"), "wb") as f:
+            pickle.dump(shapes, f)
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(meta, f, indent=1)
-    # park the old checkpoint, move the new one in, THEN delete the old:
-    # at every instant dirpath or dirpath.old is complete
     old = dirpath.rstrip("/") + ".old"
     if os.path.exists(old):
         shutil.rmtree(old)
     if os.path.exists(dirpath):
         os.replace(dirpath, old)
-    # the crash window (a no-op unless a FaultPlan armed crash_in_save):
-    # dirpath absent, dirpath.old complete
-    from . import faults
-    faults.crash_point("checkpoint_install")
+    if crash_window:
+        # a no-op unless a FaultPlan armed crash_in_save: dirpath absent,
+        # dirpath.old complete
+        from . import faults
+        faults.crash_point("checkpoint_install")
     os.replace(tmp, dirpath)
     if os.path.exists(old):
         shutil.rmtree(old)
@@ -284,22 +306,30 @@ class _ShapesUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
-def load_checkpoint(dirpath: str, sim) -> None:
-    """Restore a checkpoint (the port's or the JAX package's) into ``sim``
-    (built with a matching config/grid). Falls back to ``dirpath.old``,
-    loudly, when a save crashed between parking the previous checkpoint
-    and installing the new one."""
+def _fallback_old(dirpath: str, what: str) -> str:
+    """``dirpath``, or its parked ``.old`` copy (loudly, with a
+    ``checkpoint_fallback_old`` event) when a save crashed between parking
+    the previous one and installing the new one."""
     if not os.path.exists(os.path.join(dirpath, "meta.json")):
         old = dirpath.rstrip("/") + ".old"
         if os.path.exists(os.path.join(old, "meta.json")):
-            print(f"cup2d_tpu_torch: checkpoint {dirpath!r} is missing or "
+            print(f"cup2d_tpu_torch: {what} {dirpath!r} is missing or "
                   f"incomplete; falling back to parked copy {old!r} "
                   "(a save crashed between park and install)",
                   file=sys.stderr)
             from .resilience import record_event
             record_event(event="checkpoint_fallback_old",
                          requested=dirpath, used=old)
-            dirpath = old
+            return old
+    return dirpath
+
+
+def load_checkpoint(dirpath: str, sim) -> None:
+    """Restore a checkpoint (the port's or the JAX package's) into ``sim``
+    (built with a matching config/grid). Falls back to ``dirpath.old``,
+    loudly, when a save crashed between parking the previous checkpoint
+    and installing the new one."""
+    dirpath = _fallback_old(dirpath, "checkpoint")
     with open(os.path.join(dirpath, "meta.json")) as f:
         meta = json.load(f)
     shapes = None
@@ -383,9 +413,75 @@ def _install_state(sim, data, meta: dict, shapes) -> None:
     if trig and hasattr(sim, "_coarse_on"):
         sim._coarse_on = bool(trig["coarse_on"])
         sim._last_iters = int(trig["last_iters"])
+    if hasattr(sim, "times"):
+        fl = meta.get("fleet")
+        if fl is not None:
+            if int(fl["members"]) != int(sim.members):
+                raise ValueError(
+                    f"checkpoint holds {fl['members']} fleet members, "
+                    f"sim has {sim.members}")
+            sim.times = np.asarray(fl["times"], np.float64)
+        else:
+            # a checkpoint of one run into a fleet: every member takes
+            # the shared clock
+            sim.times = np.full(sim.members, float(meta["time"]))
+        sim.time = float(sim.times.min())
     if hasattr(sim, "shapes") and shapes is not None:
         sim.shapes[:] = shapes
         sim._initialized = True  # fields already hold the blended state
+
+
+# ---------------------------------------------------------------------------
+# per-member session checkpoints (fleet serving)
+# ---------------------------------------------------------------------------
+# A serving session outlives its slot: the FleetServer saves one of these
+# when it retires a member and admits from it into any slot of any pool
+# with the same grid, bit-exact (the fields in their dtype, the member's
+# own clock, and its chained dt, whose JSON float64 round-trips an f32
+# value exactly). The fields are the member's solo-shaped slice, so the
+# session can also be resumed alone.
+
+def save_member_checkpoint(dirpath: str, sim, m: int) -> None:
+    """Serialize fleet member ``m``'s session to ``dirpath`` (one read)."""
+    st = sim.member_state(m)
+    names = list(st._fields)
+    nd = sim._next_dt
+    extra = [nd[m].reshape(1)] if torch.is_tensor(nd) else []
+    vals = pull(*(getattr(st, k) for k in names), *extra, keep_dtype=True)
+    next_dt = None
+    if extra:
+        next_dt = float(vals.pop()[0])
+    elif nd is not None:
+        next_dt = float(np.asarray(nd)[m])
+    meta = {
+        "kind": "member",
+        "time": float(sim.times[m]),
+        "step_count": int(sim.step_count),
+        "config": {k: v for k, v in vars(sim.cfg).items()
+                   if not k.startswith("_")},
+        "next_dt": next_dt,
+    }
+    _write_installed(dirpath, dict(zip(names, vals)), meta, None)
+
+
+def load_member_checkpoint(dirpath: str, grid):
+    """Read a member session: (solo FlowState, meta). ``grid`` gives the
+    device and dtype (the state cast as an admission installs it); falls
+    back to ``dirpath.old`` as ``load_checkpoint`` does."""
+    dirpath = _fallback_old(dirpath, "member checkpoint")
+    with open(os.path.join(dirpath, "meta.json")) as f:
+        meta = json.load(f)
+    if meta.get("kind") != "member":
+        raise ValueError(
+            f"{dirpath!r} is not a member session checkpoint "
+            f"(kind={meta.get('kind')!r})")
+    from .uniform import FlowState
+    with np.load(os.path.join(dirpath, "fields.npz")) as data:
+        st = FlowState(**{k: torch.tensor(np.asarray(data[k]),
+                                          dtype=grid.dtype,
+                                          device=grid.device)
+                          for k in FlowState._fields})
+    return st, meta
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +545,10 @@ def snapshot_state_device(sim) -> DeviceSnapshot:
     else:
         payload = {k: v.clone() for k, v in sim.state._asdict().items()}
         meta["kind"] = "uniform"
+        if hasattr(sim, "times"):
+            # a fleet's clocks (host numpy; the guard settles them at
+            # verdict time as it does the scalar clock)
+            meta["times"] = np.array(sim.times)
         _split_cache(meta, dev, "next_dt", getattr(sim, "_next_dt", None))
     shapes = getattr(sim, "shapes", None)
     return DeviceSnapshot(
@@ -531,6 +631,9 @@ def restore_snapshot_device(sim, snap: DeviceSnapshot) -> None:
     else:
         sim.time = float(meta["time"])
         sim.step_count = int(meta["step_count"])
+        if hasattr(sim, "times") and "times" in meta:
+            sim.times = np.array(meta["times"])
+            sim.time = float(sim.times.min())
         sim.state = type(sim.state)(
             **{k: v.clone() for k, v in snap.payload.items()})
         _restore_cache(sim, snap)

@@ -268,19 +268,38 @@ class BiCGSTABResult(NamedTuple):
     stalled: bool        # exited via the stall detector
 
 
-def _reducers(dt_, sum_dtype):
-    """(dot, linf, zeros_like) of whole fields; dot products accumulate in
-    ``sum_dtype`` (default the field dtype). The split-field counterpart
-    is ``parallel.shard_halo.slab_reducers``."""
+def _member_reducers(dt_, sum_dtype):
+    """(dot, linf) of member stacks [B, ...]: one value per member over
+    axes 1.., kept as [B, 1, ..., 1]; dot products accumulate in
+    ``sum_dtype`` (default the field dtype)."""
     sd = sum_dtype or dt_
 
     def dot(a, c):
+        dims = tuple(range(1, a.ndim))
         if sd == dt_:
-            return torch.sum(a * c)
-        return torch.sum(a * c, dtype=sd).to(dt_)
+            return torch.sum(a * c, dim=dims, keepdim=True)
+        return torch.sum(a * c, dim=dims, keepdim=True, dtype=sd).to(dt_)
 
     def linf(a):
-        return torch.amax(torch.abs(a))
+        return torch.amax(torch.abs(a), dim=tuple(range(1, a.ndim)),
+                          keepdim=True)
+
+    return dot, linf
+
+
+def _reducers(dt_, sum_dtype):
+    """(dot, linf, zeros_like) of whole fields; dot products accumulate in
+    ``sum_dtype`` (default the field dtype). They run as the member form
+    on a one-member view, so that a one-member fleet sums in the order of
+    the solo solve on every device. The split-field counterpart is
+    ``parallel.shard_halo.slab_reducers``."""
+    mdot, mlinf = _member_reducers(dt_, sum_dtype)
+
+    def dot(a, c):
+        return mdot(a.unsqueeze(0), c.unsqueeze(0)).reshape(())
+
+    def linf(a):
+        return mlinf(a.unsqueeze(0)).reshape(())
 
     return dot, linf, torch.zeros_like
 
@@ -299,6 +318,7 @@ def bicgstab(
     stall_iters: int = 120,
     stall_rtol: float = 0.999,
     reducers=_reducers,
+    member_axis: bool = False,
 ) -> BiCGSTABResult:
     """Preconditioned flexible BiCGSTAB (reference cuda.cu:403-548).
 
@@ -311,9 +331,24 @@ def bicgstab(
     at those refreshes drives the stall exit: no ``stall_rtol`` gain for
     ``stall_iters`` iterations ends the solve with the best iterate.
     ``reducers(dtype, sum_dtype)`` gives (dot, linf, zeros_like): the
-    whole-field ones, or ``shard_halo.slab_reducers`` for split fields."""
+    whole-field ones, or ``shard_halo.slab_reducers`` for split fields.
+
+    ``member_axis`` (the fleet, ``fleet.FleetSim``): b [B, Ny, Nx] holds B
+    independent systems solved in one loop. Every reduction is per member,
+    each decision a [B] mask on the device, and the loop runs while any
+    member is unconverged; a converged member's whole iteration state is
+    frozen (``torch.where``), so the sweeps run for the slowest member are
+    bit-exact identity for it. One stacked flag read an iteration; the
+    true-residual refresh's operator applications run only when a member
+    asks for one. ``iters``, ``residual``, ``converged`` and ``stalled``
+    come back as [B] device tensors. One member gives the solo solve's
+    iterate bit for bit."""
     if M is None:
         M = lambda v: v  # noqa: E731
+    if member_axis:
+        return _bicgstab_members(A, b, M, x0, tol, tol_rel, max_iter,
+                                 max_restarts, sum_dtype, refresh_every,
+                                 stall_iters, stall_rtol)
     dt_ = b.dtype
     dot, linf, zeros_like = reducers(dt_, sum_dtype)
 
@@ -412,6 +447,127 @@ def bicgstab(
                           stalled=stalled)
 
 
+def _bicgstab_members(A, b, M, x0, tol, tol_rel, max_iter, max_restarts,
+                      sum_dtype, refresh_every, stall_iters, stall_rtol):
+    """``bicgstab(member_axis=True)``: the JAX package's member-masked
+    loop body, with its ``lax.cond`` on "any member refreshes" as the one
+    host branch. The counters are per-member device tensors; the host
+    keeps the loop counter and reads, once an iteration, whether any
+    member is still running and whether any refreshes next."""
+    dt_ = b.dtype
+    dot, linf = _member_reducers(dt_, sum_dtype)
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b
+    else:
+        x = x0
+        r = b - A(x0)
+    norm0 = linf(r)
+    target = torch.maximum(torch.tensor(tol, dtype=dt_, device=b.device),
+                           tol_rel * norm0)
+    one = torch.ones_like(norm0)
+    zi = torch.zeros(norm0.shape, dtype=torch.int64, device=b.device)
+    eps = torch.tensor(1e-21 if dt_ == torch.float64 else 1e-30, dtype=dt_,
+                       device=b.device)
+    rhat = r
+    p = torch.zeros_like(b)
+    v = torch.zeros_like(b)
+    rho = alpha = omega = one
+    x_opt, norm_opt = x, norm0
+    best_l2 = torch.sqrt(dot(r, r))
+    restarts = best_it = impr_it = it_m = zi
+    done = norm0 <= target
+    it = 0
+    running = bool(pull((~done).any())[0])
+    any_refresh = False      # it - best_it = 0 < refresh_every at it = 0
+
+    def keep(frozen, old, new):
+        return torch.where(frozen, old, new)
+
+    while running and it < max_iter:
+        frozen = done
+        rho_probe = dot(rhat, r)
+        norm_r = torch.sqrt(dot(r, r))
+        norm_rhat = torch.sqrt(dot(rhat, rhat))
+        breakdown = torch.abs(rho_probe) < (1e-16 * norm_r * norm_rhat + eps)
+        can_restart = restarts < max_restarts
+        # a frozen member's refresh is masked: its state is discarded
+        refresh = ((it - best_it) >= refresh_every) & ~frozen
+        do_restart = (breakdown & can_restart) | refresh
+        give_up = breakdown & ~can_restart & ~refresh
+        r0, x_opt0, norm_opt0 = r, x_opt, norm_opt
+        if any_refresh:
+            r_t = b - A(x)
+            n_true = linf(r_t)
+            n_opt_true = linf(b - A(x_opt))
+            take_x = n_true <= n_opt_true
+            r0 = torch.where(refresh, r_t, r)
+            x_opt0 = torch.where(refresh, torch.where(take_x, x, x_opt),
+                                 x_opt)
+            norm_opt0 = torch.where(
+                refresh, torch.where(take_x, n_true, n_opt_true), norm_opt)
+        rhat_n = torch.where(do_restart, r0, rhat)
+        rho_n = torch.where(do_restart, dot(rhat_n, r0), rho_probe)
+        beta = torch.where(do_restart, torch.zeros_like(rho_n),
+                           (rho_n / (rho + eps)) * (alpha / (omega + eps)))
+        p_n = r0 + beta * (p - omega * v)
+        z = M(p_n)
+        v_n = A(z)
+        alpha_n = rho_n / (dot(rhat_n, v_n) + eps)
+        hh = x + alpha_n * z
+        sres = r0 - alpha_n * v_n
+        zs = M(sres)
+        t = A(zs)
+        omega_n = dot(t, sres) / (dot(t, t) + eps)
+        x_n = hh + omega_n * zs
+        r_n = sres - omega_n * t
+        norm = linf(r_n)
+        better = norm < norm_opt0
+        x_opt_n = torch.where(better, x_n, x_opt0)
+        norm_opt_n = torch.where(better, norm, norm_opt0)
+        l2_now = torch.sqrt(dot(r_n, r_n))
+        improved = refresh & (l2_now < stall_rtol * best_l2)
+        best_l2_n = torch.where(refresh, torch.minimum(best_l2, l2_now),
+                                best_l2)
+        impr_it_n = torch.where(improved, it, impr_it)
+        stalled = (it - impr_it_n) >= stall_iters
+        done_n = (norm <= target) | give_up | stalled
+        restarts_n = restarts + (breakdown & can_restart).to(torch.int64)
+        best_it_n = torch.where(do_restart, it, best_it)
+        # a member converged at loop entry keeps its whole state
+        x, r = keep(frozen, x, x_n), keep(frozen, r, r_n)
+        rhat, p, v = (keep(frozen, rhat, rhat_n), keep(frozen, p, p_n),
+                      keep(frozen, v, v_n))
+        rho, alpha, omega = (keep(frozen, rho, rho_n),
+                             keep(frozen, alpha, alpha_n),
+                             keep(frozen, omega, omega_n))
+        restarts = keep(frozen, restarts, restarts_n)
+        x_opt = keep(frozen, x_opt, x_opt_n)
+        norm_opt = keep(frozen, norm_opt, norm_opt_n)
+        best_it = keep(frozen, best_it, best_it_n)
+        best_l2 = keep(frozen, best_l2, best_l2_n)
+        impr_it = keep(frozen, impr_it, impr_it_n)
+        it_m = keep(frozen, it_m, it_m + 1)
+        done = frozen | done_n
+        it += 1
+        (flags,) = pull(torch.stack([
+            (~done).any(),
+            (((it - best_it) >= refresh_every) & ~done).any()]))
+        running, any_refresh = bool(flags[0]), bool(flags[1])
+
+    final_norm = linf(r)
+    use_x = final_norm <= norm_opt
+    converged = torch.minimum(final_norm, norm_opt) <= target
+    # stall classification against the member's own counter: the loop
+    # counter runs on after a member froze
+    stalled = ~converged & ((it_m - impr_it) >= stall_iters)
+    return BiCGSTABResult(
+        x=torch.where(use_x, x, x_opt),
+        iters=it_m.reshape(-1).to(torch.int32),
+        residual=torch.where(use_x, final_norm, norm_opt).reshape(-1),
+        converged=converged.reshape(-1), stalled=stalled.reshape(-1))
+
+
 def mg_solve(
     A: Callable[[torch.Tensor], torch.Tensor],
     b: torch.Tensor,
@@ -424,13 +580,21 @@ def mg_solve(
     stall_rtol: float = 0.999,
     fmg: bool = False,
     reducers=_reducers,
+    member_axis: bool = False,
 ) -> BiCGSTABResult:
     """Solve A x = b by repeated multigrid cycles x += mg(b - A x) with the
     true residual each cycle; same result contract and criterion as
     ``bicgstab``, ``iters`` counting cycles. ``fmg`` opens with one
     F-cycle (counted). ``stall_cycles`` consecutive cycles without a
     ``stall_rtol`` gain over the running best end the solve ``stalled``.
-    ``reducers`` as in ``bicgstab``."""
+    ``reducers`` as in ``bicgstab``. ``member_axis``: b [B, Ny, Nx], B
+    systems in one cycle loop (the cycle takes the leading axis), a
+    converged member frozen by ``torch.where`` while the loop runs for the
+    others, one flag read a cycle, and [B] device results, as in
+    ``bicgstab``."""
+    if member_axis:
+        return _mg_solve_members(A, b, mg, x0, tol, tol_rel, max_cycles,
+                                 stall_cycles, stall_rtol, fmg)
     _, linf, zeros_like = reducers(b.dtype, None)
     if x0 is None:
         x = zeros_like(b)
@@ -466,6 +630,58 @@ def mg_solve(
     return BiCGSTABResult(x=x, iters=it, residual=norm,
                           converged=converged,
                           stalled=not converged and no_impr >= stall_cycles)
+
+
+def _mg_solve_members(A, b, mg, x0, tol, tol_rel, max_cycles, stall_cycles,
+                      stall_rtol, fmg):
+    """``mg_solve(member_axis=True)``, the JAX package's member-masked
+    cycle loop."""
+    _, linf = _member_reducers(b.dtype, None)
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b
+    else:
+        x = x0
+        r = b - A(x0)
+    norm0 = linf(r)
+    target = torch.maximum(
+        torch.tensor(tol, dtype=b.dtype, device=b.device), tol_rel * norm0)
+    it_m = torch.zeros(norm0.shape, dtype=torch.int64, device=b.device)
+    it = 0
+    if fmg:
+        x = x + mg.fcycle(r)
+        r = b - A(x)
+        it, it_m = 1, it_m + 1
+    norm = linf(r)
+    best = norm
+    no_impr = torch.zeros_like(it_m)
+    done = norm <= target
+    running = bool(pull((~done).any())[0])
+    while running and it < max_cycles:
+        frozen = done
+        x_n = x + mg(r)
+        r_n = b - A(x_n)
+        norm_n = linf(r_n)
+        improved = norm_n < stall_rtol * best
+        best_n = torch.minimum(best, norm_n)
+        no_impr_n = torch.where(improved, torch.zeros_like(no_impr),
+                                no_impr + 1)
+        done_n = (norm_n <= target) | (no_impr_n >= stall_cycles)
+        x = torch.where(frozen, x, x_n)
+        r = torch.where(frozen, r, r_n)
+        norm = torch.where(frozen, norm, norm_n)
+        best = torch.where(frozen, best, best_n)
+        no_impr = torch.where(frozen, no_impr, no_impr_n)
+        it_m = torch.where(frozen, it_m, it_m + 1)
+        done = frozen | done_n
+        it += 1
+        running = bool(pull((~done).any())[0])
+    converged = norm <= target
+    stalled = ~converged & (no_impr >= stall_cycles)
+    return BiCGSTABResult(x=x, iters=it_m.reshape(-1).to(torch.int32),
+                          residual=norm.reshape(-1),
+                          converged=converged.reshape(-1),
+                          stalled=stalled.reshape(-1))
 
 
 # ---------------------------------------------------------------------------
@@ -774,7 +990,7 @@ class ForestFASCycle:
 
 
 def project_correct(x, pres_old, vel, h, dt, remove_mean=True,
-                    grad_signs=None, periodic=None):
+                    grad_signs=None, periodic=None, mean_axes=None):
     """Projection epilogue: ``pres = (x - mean x) + pres_old - mean
     pres_old`` and ``vel += -dt/(2h) grad_neumann(pres) / h^2``, the means
     taken here (accumulated in f64, so that their f32 value does not hang
@@ -786,26 +1002,35 @@ def project_correct(x, pres_old, vel, h, dt, remove_mean=True,
     no periodic axis), along which the gradient wraps (the correction
     kernel's wrap form, which reads those axes from the signs' (0, 0)
     pairs: a ``periodic`` that disagrees with them refuses). x, pres_old
-    [..., Ny, Nx]; vel [..., 2, Ny, Nx]; dt a scalar. Returns (vel, pres)."""
+    [..., Ny, Nx]; vel [..., 2, Ny, Nx]; dt a scalar. ``mean_axes=(-2,
+    -1)`` (the fleet): x, pres_old [B, Ny, Nx], the means per member and
+    dt a scalar or a [B] row, so the kernel takes one ``scal`` row a
+    member. The whole-field means run as one member's, so a one-member
+    fleet takes the solo epilogue's means. Returns (vel, pres)."""
     paxes = (False, False) if grad_signs is None else _wrap_axes(
         _signs(grad_signs))
     if tuple(map(bool, periodic or (False, False))) != paxes:
         raise ValueError(f"project_correct: periodic {periodic} with signs "
                          f"{grad_signs}: a periodic axis has the signs "
                          "(0, 0), a wall axis +1 or -1")
+    if mean_axes is not None and tuple(mean_axes) != (-2, -1):
+        raise ValueError(f"project_correct: mean_axes {mean_axes}: expected "
+                         "None (whole field) or (-2, -1) (per member)")
     ny, nx = x.shape[-2:]
     L = math.prod(x.shape[:-2])
+    rows = L if mean_axes is not None else 1
     dt = torch.as_tensor(dt, dtype=x.dtype, device=x.device)
 
     def mean(a):
         if not remove_mean:
-            return torch.zeros((), dtype=a.dtype, device=a.device)
-        return torch.mean(a, dtype=torch.float64).to(a.dtype)
+            return torch.zeros(rows, dtype=a.dtype, device=a.device)
+        return torch.mean(a.reshape(rows, -1, nx), dim=(-2, -1),
+                          dtype=torch.float64).to(a.dtype)
 
-    scal = torch.stack([mean(x), mean(pres_old),
-                        -0.5 * dt * h]).reshape(1, 3).expand(L, 3)
+    pfac = (-0.5 * dt * h).broadcast_to((rows,))
+    scal = torch.stack([mean(x), mean(pres_old), pfac], dim=-1)
+    scal = scal.expand(L, 3).contiguous()
     pres, velc = fused_correction(
         x.reshape(L, ny, nx), pres_old.reshape(L, ny, nx),
-        vel.reshape(L, 2, ny, nx), scal.contiguous(), 1.0 / (h * h),
-        grad_signs)
+        vel.reshape(L, 2, ny, nx), scal, 1.0 / (h * h), grad_signs)
     return velc.reshape(vel.shape), pres.reshape(x.shape)

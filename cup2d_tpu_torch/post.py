@@ -6,8 +6,10 @@ PNG, or summarize a run's metrics stream.
 card's machine has no matplotlib, so nothing there calls it.
 ``--metrics`` prints one JSON line per stream, ``profiling``'s summary
 plus the torn-line count and the source path, the keys of the JAX
-package's summary. ``--trace`` (the span timeline's Perfetto export)
-waits for the flight recorder (ROADMAP queue 1 item 9) and exits 2.
+package's summary; a serving run's per-client streams (``clients/`` beside
+the metrics file) are summarized per client under ``clients``.
+``--trace`` (the span timeline's Perfetto export) waits for the flight
+recorder (ROADMAP queue 1 item 9) and exits 2.
 
 Usage:  python -m cup2d_tpu_torch.post out/vel.00000012.xdmf2 [...]
         python -m cup2d_tpu_torch.post --metrics out/metrics.jsonl [...]
@@ -53,14 +55,26 @@ def render(path: str, png_path: str | None = None,
 
 def metrics_summary(path: str) -> dict:
     """Aggregate one metrics.jsonl stream (``summarize_metrics`` + the
-    torn-line count + the source path). Per-client serving streams wait
-    for the fleet server (item 6)."""
-    from .profiling import load_metrics_report, summarize_metrics
+    torn-line count + the source path); a serving run's ``clients/``
+    directory next to it (``profiling.ClientStreams``, one
+    ``<client>.jsonl`` each) is summarized per client under
+    ``clients``."""
+    import os
+
+    from .profiling import (load_metrics, load_metrics_report,
+                            summarize_client, summarize_metrics)
 
     records, torn = load_metrics_report(path)
     out = summarize_metrics(records)
     out["truncated_records"] = torn
     out["source"] = path
+    cdir = os.path.join(os.path.dirname(os.path.abspath(path)), "clients")
+    if os.path.isdir(cdir):
+        out["clients"] = {
+            fn[:-len(".jsonl")]: summarize_client(
+                load_metrics(os.path.join(cdir, fn)))
+            for fn in sorted(os.listdir(cdir))
+            if fn.endswith(".jsonl")}
     return out
 
 

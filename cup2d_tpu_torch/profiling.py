@@ -10,7 +10,10 @@ run does not.
   host counters, HBM peak, phase times), streamed as JSONL through a
   ``resilience.EventLog``. The key set and schema version are the JAX
   package's, letter for letter; what does not apply to the port (comm
-  volume, fleets, serving, the flight recorder) is null.
+  volume, the flight recorder) is null. A fleet's [B] diagnostics fold
+  into the scalar slots as the JAX package's aggregates, with the rows in
+  ``member_health``; a serving pool adds its gauges, and with per-client
+  streams (``ClientStreams``) the rows go to one JSONL file a client.
 - ``HostCounters``: per-run deltas of the port's process-wide counters:
   ``jit_compiles`` counts kernel-library builds and loads
   (``ops.hopper_kernels.build_events``: 0 in steady state, always 0 on
@@ -24,8 +27,8 @@ run does not.
 - ``PhaseTimers``: per-phase wall time; ``fence`` synchronizes the card so
   a phase is charged its own device time. ``throughput(sim)``: cells x
   steps per second.
-- ``load_metrics``, ``load_metrics_report``, ``summarize_metrics``: the
-  stream's readers (``post --metrics``).
+- ``load_metrics``, ``load_metrics_report``, ``summarize_metrics``,
+  ``summarize_client``: the streams' readers (``post --metrics``).
 """
 
 from __future__ import annotations
@@ -91,7 +94,8 @@ def throughput(sim) -> dict:
     if hasattr(sim, "forest"):
         cells = len(sim.forest.blocks) * sim.forest.bs ** 2
     else:
-        cells = sim.grid.nx * sim.grid.ny
+        # a fleet steps B member grids a step
+        cells = sim.grid.nx * sim.grid.ny * getattr(sim, "members", 1)
     wall = getattr(sim, "timers", None)
     # "a/b"-named sub-phases break a parent down: not in the wall total
     total = (sum(v for k, v in wall.acc.items() if "/" not in k)
@@ -332,6 +336,20 @@ _DIAG_KEYS = ("umax", "dt_next", "poisson_iters", "poisson_residual",
 _INT_KEYS = {"poisson_iters", "precond_cycles"}
 _BOOL_KEYS = {"poisson_converged", "poisson_stalled", "finite"}
 
+# a fleet's [B] rows fold into the record's scalar slots as these
+# conservative aggregates; the rows themselves go to member_health
+_FLEET_AGG = {
+    "umax": np.max, "dt_next": np.min,
+    "poisson_iters": np.max, "poisson_residual": np.max,
+    "poisson_converged": np.all, "poisson_stalled": np.any,
+    "energy": np.sum, "div_linf": np.max,
+    "precond_cycles": np.max,
+}
+
+# the per-member rows of member_health: the diag keys plus the health and
+# clock entries of the guard's read
+_MEMBER_KEYS = _DIAG_KEYS + ("finite", "dt")
+
 
 def _jsonable(key: str, v):
     if v is None:
@@ -341,6 +359,10 @@ def _jsonable(key: str, v):
     if key in _BOOL_KEYS:
         return bool(v)
     return float(v)
+
+
+def _member_list(key: str, v):
+    return [_jsonable(key, x) for x in np.asarray(v).ravel()]
 
 
 def _device_of(sim):
@@ -357,10 +379,11 @@ class MetricsRecorder:
     diagnostics arrive as host values from the step's own read (a diag
     still holding tensors costs ONE counted ``pull``), the forest
     histogram is host numpy cached per topology version, and counters and
-    timers are host state. ``guard`` (``resilience.StepGuard``),
-    ``server`` (a fleet server, ROADMAP item 6) and ``flight`` (a flight
-    recorder, item 9) are the slots those items plug into: the port has
-    neither yet, so passing one raises and their groups stay null."""
+    timers are host state. ``guard``: a ``resilience.StepGuard`` (its
+    ring and replays); ``server``: a ``fleet.FleetServer`` (the schema-v7
+    gauges and, with its ``clients`` streams, one row a client a step);
+    ``flight``: the flight recorder's slot, ROADMAP queue 1 item 9, which
+    raises when given."""
 
     def __init__(self, sink=None, counters: Optional[HostCounters] = None,
                  timers: Optional[PhaseTimers] = None, guard=None,
@@ -368,10 +391,7 @@ class MetricsRecorder:
         self.sink = sink
         self.counters = counters
         self.timers = timers
-        if server is not None:
-            raise NotImplementedError(
-                "MetricsRecorder(server=...): fleet serving is ROADMAP "
-                "item 6")
+        self.server = server
         if flight is not None:
             raise NotImplementedError(
                 "MetricsRecorder(flight=...): the flight recorder is "
@@ -401,12 +421,27 @@ class MetricsRecorder:
     def record_step(self, *, step: int, t: float, diag: dict,
                     wall_ms: Optional[float] = None, sim=None,
                     dt: Optional[float] = None) -> dict:
-        vals = {k: diag[k] for k in _DIAG_KEYS if k in diag}
+        vals = {k: diag[k] for k in _MEMBER_KEYS if k in diag}
         dev = [k for k, v in vals.items() if torch.is_tensor(v)]
         if dev:
             from .shapes_host import pull
-            vals.update(zip(dev, (v.item() for v in
+            vals.update(zip(dev, (v.item() if v.ndim == 0 else v for v in
                                   pull(*(vals[k] for k in dev)))))
+        # a fleet's [B] rows: the detail in member_health, the
+        # conservative aggregates in the scalar slots
+        vecs = [np.asarray(v) for v in vals.values() if np.ndim(v) >= 1]
+        fleet_b = int(vecs[0].shape[0]) if vecs else 0
+        member_health = None
+        if fleet_b:
+            member_health = {k: _member_list(k, v)
+                             for k, v in vals.items() if np.ndim(v) >= 1}
+            vals = {k: (_FLEET_AGG[k](np.asarray(v))
+                        if np.ndim(v) >= 1 and k in _FLEET_AGG else v)
+                    for k, v in vals.items()}
+        if dt is not None and np.ndim(dt) >= 1:
+            if member_health is not None:
+                member_health["dt"] = _member_list("dt", dt)
+            dt = float(np.min(dt))    # the pacing (slowest-dt) member
         if dt is None:
             dt = (t - self._last_time) if self._last_time is not None \
                 else None
@@ -432,16 +467,45 @@ class MetricsRecorder:
         rec.update(halo_real_bytes=None, halo_padded_bytes=None)
         rec.update(self._counter_fields(sim))
         rec.update(self._guard_fields())
-        # fleets and serving (item 6) and the flight recorder (item 9)
-        rec.update(fleet_members=None, member_steps_per_s=None)
-        rec.update(dict.fromkeys(_SERVE_KEYS))
-        rec["member_health"] = None
+        rec["fleet_members"] = fleet_b or None
+        rec["member_steps_per_s"] = (
+            round(fleet_b * 1e3 / wall_ms, 3)
+            if fleet_b and wall_ms else None)
+        serve = (self.server.telemetry_fields()
+                 if self.server is not None else {})
+        for k in _SERVE_KEYS:
+            rec[k] = serve.get(k)
+        if (self.server is not None and self.server.clients is not None
+                and member_health is not None):
+            # the per-client split: the rows go to their clients' streams,
+            # the record keeps the folds
+            self._emit_client_rows(rec, member_health)
+            member_health = None
+        rec["member_health"] = member_health
+        # the flight recorder (item 9)
         rec.update(span_count=None, compile_ms_total=None,
                    hbm_exec_bytes=None)
         rec["phase_ms"] = self._phase_fields()
         if self.sink is not None:
             self.sink.emit(event="metrics", **rec)
         return rec
+
+    def _emit_client_rows(self, rec: dict, member_health: dict) -> None:
+        """One row for each slot occupied during the recorded step
+        (``server.step_clients``: a member that retired at the end of that
+        step still gets its last row): its slice of the diagnostics and
+        its own clock (the record's ``t`` is the pool's min)."""
+        srv = self.server
+        sim = srv.sim
+        nm = len(next(iter(member_health.values())))
+        for m in range(nm):
+            cid = srv.step_clients[m]
+            if cid is None:
+                continue
+            row = {k: v[m] for k, v in member_health.items()}
+            srv.clients.emit(cid, {
+                "event": "metrics", "client": str(cid), "member": m,
+                "step": rec["step"], "t": float(sim.times[m]), **row})
 
     def _amr_fields(self, sim) -> dict:
         f = getattr(sim, "forest", None)
@@ -512,6 +576,87 @@ class MetricsRecorder:
 # ---------------------------------------------------------------------------
 # the stream's readers
 # ---------------------------------------------------------------------------
+
+class ClientStreams:
+    """Per-client JSONL telemetry (schema v7): one append-only stream a
+    serving client id under ``dirpath``, written by the recorder's
+    per-client split, so a session's rows survive slot reuse.
+    ``rotate_mb`` caps each file: crossing it renames the stream to
+    ``<name>.jsonl.N`` and reopens it, as ``EventLog`` does."""
+
+    def __init__(self, dirpath: str, rotate_mb: Optional[float] = None):
+        self.dir = dirpath
+        os.makedirs(dirpath, exist_ok=True)
+        self._files: dict = {}
+        self.rotate_bytes = (int(rotate_mb * 2 ** 20)
+                             if rotate_mb else None)
+        self._seq: dict = {}
+
+    @staticmethod
+    def _fname(cid) -> str:
+        # a flat file name from the client id
+        s = "".join(c if c.isalnum() or c in "-_." else "_"
+                    for c in str(cid))
+        return (s or "client").lstrip(".") + ".jsonl"
+
+    def path_of(self, cid) -> str:
+        return os.path.join(self.dir, self._fname(cid))
+
+    def emit(self, cid, rec: dict) -> None:
+        f = self._files.get(cid)
+        if f is None:
+            f = open(self.path_of(cid), "a")
+            self._files[cid] = f
+        f.write(json.dumps(rec, sort_keys=True, default=float) + "\n")
+        f.flush()
+        if self.rotate_bytes and f.tell() >= self.rotate_bytes:
+            path = self.path_of(cid)
+            f.close()
+            seq = self._seq.get(cid, _next_segment_seq(path))
+            os.replace(path, f"{path}.{seq}")
+            self._seq[cid] = seq + 1
+            self._files[cid] = open(path, "a")
+
+    def close(self, cid=None) -> None:
+        """Close one client's stream (retire, evict) or all of them."""
+        files = ([self._files.pop(cid)] if cid in self._files
+                 else list(self._files.values()) if cid is None else [])
+        if cid is None:
+            self._files.clear()
+        for f in files:
+            if not f.closed:
+                f.close()
+
+
+def summarize_client(records: list) -> dict:
+    """One client stream's summary for ``post --metrics``: the session's
+    extent, clock, dt and solver-health statistics."""
+    recs = [r for r in records if r.get("event", "metrics") == "metrics"]
+
+    def col(key):
+        return [r[key] for r in recs if r.get(key) is not None]
+
+    def stats(xs):
+        if not xs:
+            return None
+        return {"mean": round(float(np.mean(xs)), 6),
+                "max": round(float(np.max(xs)), 6)}
+
+    return {
+        "steps": len(recs),
+        "t_first": recs[0]["t"] if recs else None,
+        "t_final": recs[-1]["t"] if recs else None,
+        "dt": stats(col("dt")),
+        "umax_max": (max(col("umax")) if col("umax") else None),
+        "energy_last": (col("energy")[-1] if col("energy") else None),
+        "poisson_iters": stats(col("poisson_iters")),
+        "poisson_residual_max": (max(col("poisson_residual"))
+                                 if col("poisson_residual") else None),
+        "div_linf_max": (max(col("div_linf"))
+                         if col("div_linf") else None),
+        "finite_all": (all(col("finite")) if col("finite") else None),
+    }
+
 
 def _next_segment_seq(path: str) -> int:
     """1 + the highest existing numeric rotation suffix of ``path``."""

@@ -25,6 +25,12 @@
   host kinematics need them) and verdict eagerly. Faults
   (``faults.FaultPlan``) fire through the guard's hooks and are suspended
   during a replay.
+- ``FleetStepGuard``: the verdict of a ``fleet.FleetSim`` per member,
+  eager, from the fleet step's one stacked read, with per-member watchdog
+  clones; a bad member alone restores its slice of the ring, replays
+  solo and walks retry, escalate, then abort or, in a serving pool,
+  eviction (no disk rung: a disk restore would rewind the healthy
+  members).
 - ``PreemptionGuard``: SIGTERM latches a flag the loop polls at step
   boundaries; single process, so ``agree()`` is the local flag.
 
@@ -34,7 +40,7 @@ two-level trigger of the forest sees it at the next dispatch in both
 modes, and the JAX guard's trigger-freshness drain and ``_last_iters_dev``
 have nothing to settle here. The guard opens no tracing spans (the span
 recorder is ROADMAP queue 1 item 9). Not ported: the mirror tier and the
-elastic topology guard (item 8), ``FleetStepGuard`` (item 6).
+elastic topology guard (item 8).
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from . import tracing
 
 # ---------------------------------------------------------------------------
 # JSONL event log
@@ -140,13 +148,14 @@ _PULL_KEYS = _HEALTH_KEYS + _INVARIANT_KEYS + (
 
 
 def _host_scalars(diag: dict, keys) -> dict:
-    """The named diag entries as host scalars. The drivers' diagnostics
-    are host values already; tensors still in it cost ONE ``pull``."""
+    """The named diag entries as host values: scalars, or numpy rows for
+    a fleet's [B] entries. The drivers' diagnostics are host values
+    already; tensors still in it cost ONE ``pull``."""
     vals = {k: diag[k] for k in keys if k in diag}
     dev = [k for k, v in vals.items() if torch.is_tensor(v)]
     if dev:
         from .shapes_host import pull
-        vals.update(zip(dev, (v.item() for v in
+        vals.update(zip(dev, (v.item() if v.ndim == 0 else v for v in
                               pull(*(vals[k] for k in dev)))))
     return vals
 
@@ -682,6 +691,279 @@ class StepGuard:
                    dt=dt_used, postmortem=pm, diag=summary)
         raise ResilienceAbort(
             f"step {step}: {v.reason}; recovery ladder exhausted"
+            + (f" (post-mortem checkpoint: {pm})" if pm else ""))
+
+
+# ---------------------------------------------------------------------------
+# per-member supervision of a fleet
+# ---------------------------------------------------------------------------
+
+class FleetStepGuard(StepGuard):
+    """Per-member verdicts and recovery for ``fleet.FleetSim``, the JAX
+    package's ``FleetStepGuard``.
+
+    The fleet step's one stacked read carries [B] diagnostics; each member
+    is classified by ``health_verdict`` and by its own ``PhysicsWatchdog``
+    (``watchdog=`` is a prototype, copied once a member). Recovery is per
+    member: a bad member restores only its slice of the newest snapshot
+    (``FleetSim.set_member_state``), replays its recorded dts solo
+    (``member_step_once``, faults suspended, exact-solve branches kept),
+    retries the failed step at dt/2 and then with the exact solve; the
+    healthy members commit their step and never rewind. No disk rung: it
+    would rewind every member. The verdict is eager (``lag`` is forced
+    off): under the lag a step stacked on a bad one would be garbage in
+    one member only, and discarding it would rewind the healthy ones.
+
+    Injected ``poisson_giveup`` faults flag member 0, the member the
+    velocity faults hit on a fleet. Serving (``on_member_abort``, wired by
+    ``fleet.FleetServer``): an exhausted ladder evicts the one member (a
+    ``member_aborted`` event, the callback frees the slot) instead of
+    raising ``ResilienceAbort``. Slots the server masked inactive are
+    neither classified nor watched."""
+
+    def __init__(self, sim, *, watchdog=None, on_member_abort=None, **kw):
+        kw["lag"] = False     # eager by design, see the docstring
+        super().__init__(sim, watchdog=None, **kw)
+        import copy
+        self._watchdog_proto = watchdog
+        self.member_watchdogs = (
+            [copy.deepcopy(watchdog) for _ in range(sim.members)]
+            if watchdog is not None else None)
+        self.on_member_abort = on_member_abort
+        self.evictions = 0
+
+    def _member_active(self, m: int) -> bool:
+        act = getattr(self.sim, "active_mask", None)
+        return True if act is None else bool(act[m])
+
+    def reset_member_watchdog(self, m: int) -> None:
+        """A fresh watchdog clone for slot ``m`` (admission: the slot's
+        history was the previous occupant's)."""
+        if self.member_watchdogs is not None:
+            import copy
+            self.member_watchdogs[m] = copy.deepcopy(self._watchdog_proto)
+
+    def reanchor(self) -> None:
+        """A fresh anchor and a clean replay base (the server's, after an
+        admission batch, so a rewind never restores a slot's previous
+        contents; the eager verdict leaves no step in flight)."""
+        self._reanchor()
+
+    # -- the per-member verdict ------------------------------------------
+    def _resolve_oldest(self) -> dict:
+        pend = self._pendings.pop(0)
+        with tracing.span("verdict", step=int(pend.step0)):
+            vals = _host_scalars(pend.diag, _PULL_KEYS)   # [B] rows
+            verdicts = self._member_verdicts(vals, pend.step0)
+            bad = [m for m, v in enumerate(verdicts) if not v.ok]
+        if not bad:
+            return self._commit(pend, vals)
+        return self._recover_members(pend, vals, verdicts, bad)
+
+    def _one_member_verdict(self, m: int, mv: dict,
+                            step: int) -> StepVerdict:
+        """The one per-member policy, of the fleet step's rows and of the
+        solo retry alike: health, the member's watchdog, then the
+        injected give-up of member 0."""
+        tol = float(getattr(self.sim.cfg, "poisson_tol", 0.0))
+        v = health_verdict(mv,
+                           residual_ok=(100.0 * tol if tol > 0 else None))
+        if v.ok and self.member_watchdogs is not None:
+            reason = self.member_watchdogs[m].check(mv)
+            if reason is not None:
+                v = StepVerdict(False, reason)
+        if v.ok and m == 0 and self.faults is not None \
+                and self.faults.poisson_giveup_at(step):
+            v = StepVerdict(False, "poisson_giveup(injected)")
+        return v
+
+    def _member_verdicts(self, vals: dict, step: int) -> list:
+        return [
+            self._one_member_verdict(
+                m, {k: v[m] for k, v in vals.items() if np.ndim(v) >= 1},
+                step)
+            if self._member_active(m)
+            # a parked slot's lane is select-frozen identity
+            else StepVerdict(True, "inactive")
+            for m in range(self.sim.members)]
+
+    def _commit(self, pend: _Pending, vals: dict) -> dict:
+        sim = self.sim
+        dts = np.asarray(vals["dt"], np.float64)
+        if not pend.advanced:
+            sim.times = sim.times + dts
+            sim.time = sim._fleet_time()
+        if self.member_watchdogs is not None:
+            for m in range(sim.members):
+                if self._member_active(m):
+                    self.member_watchdogs[m].observe(
+                        {k: v[m] for k, v in vals.items()})
+        if pend.snap is not None:
+            pend.snap.meta["time"] = sim.time
+            pend.snap.meta["times"] = np.array(sim.times)
+            self.ring.append(pend.snap)
+            self._replay.clear()
+        else:
+            self._replay.append((dts, pend.exact, None))
+        if self.faults is not None:
+            self.faults.fire_post_step(pend.step0 + 1)
+        rec = {**pend.diag, **vals, "step": pend.step0 + 1,
+               "t": sim.time, "dt": dts}
+        if pend.mode is not None:
+            rec["poisson_mode"] = pend.mode
+        if pend.tier is not None:
+            rec["kernel_tier"] = pend.tier
+        return rec
+
+    # -- per-member recovery ---------------------------------------------
+    def _recover_members(self, pend: _Pending, vals: dict,
+                         verdicts: list, bad: list) -> dict:
+        sim = self.sim
+        self._discard_pendings()
+        # the optimistic post-step snapshot holds the bad slices
+        pend.snap = None
+        vals = {k: np.array(v) for k, v in vals.items()}   # writable
+        dts = np.asarray(vals["dt"], np.float64)
+        if not pend.advanced:
+            for m in range(sim.members):
+                if verdicts[m].ok:
+                    sim.times[m] += dts[m]
+        # every member's chained dt from step N's read: the floats the
+        # unfaulted run keeps on the device
+        sim._next_dt = torch.as_tensor(np.asarray(vals["dt_next"]),
+                                       dtype=sim.grid.dtype,
+                                       device=sim.grid.device)
+        anchor = self.ring[-1]
+        for m in bad:
+            mv = self._recover_member(m, anchor, pend.step0, vals,
+                                      verdicts[m])
+            # the record shows what m committed
+            for k, val in mv.items():
+                if k in vals and np.ndim(vals[k]) >= 1:
+                    vals[k][m] = val
+        if self.member_watchdogs is not None:
+            for m in range(sim.members):
+                if verdicts[m].ok and self._member_active(m):
+                    self.member_watchdogs[m].observe(
+                        {k: v[m] for k, v in vals.items()})
+        sim.time = sim._fleet_time()
+        # every member healthy again: a fresh anchor, a clean replay base
+        self._reanchor()
+        if self.faults is not None:
+            self.faults.fire_post_step(pend.step0 + 1)
+        return {**pend.diag, **vals, "step": pend.step0 + 1,
+                "t": sim.time, "dt": np.asarray(vals["dt"])}
+
+    def _recover_member(self, m: int, anchor, step0: int, vals: dict,
+                        v: StepVerdict) -> dict:
+        sim = self.sim
+        dt_used = float(np.asarray(vals["dt"])[m])
+        rung = 0
+        with tracing.span("recover", step=int(step0), member=m,
+                          verdict=v.reason):
+            while True:
+                if not self.recover or rung >= 2:
+                    self._abort_member(m, step0, v, vals, dt_used)
+                    # evicted (serving): an inert lane, so that the
+                    # record's folds carry none of the dead member's NaNs
+                    return {"dt": 0.0, "dt_next": 1.0, "finite": True,
+                            "umax": 0.0, "energy": 0.0,
+                            "div_linf": 0.0, "poisson_iters": 0,
+                            "poisson_residual": 0.0,
+                            "poisson_stalled": False,
+                            "poisson_converged": True,
+                            "precond_cycles": 0}
+                action = "retry" if rung == 0 else "escalate"
+                with tracing.span(action, step=int(step0), member=m,
+                                  rung=rung):
+                    replayed = self._rewind_member(m, anchor)
+                    exact = rung == 1
+                    retry_dt = (0.5 * dt_used
+                                if rung == 0 and np.isfinite(dt_used)
+                                and dt_used > 0 else None)
+                    self._emit(step=step0, member=m, verdict=v.reason,
+                               action=action, dt=dt_used, rung=rung,
+                               replayed=replayed)
+                    self.recoveries += 1
+                    # a fresh attempt of step0: armed *K faults fire again
+                    # (looked up by the retried step; the shared counter
+                    # has moved past it)
+                    self._last_fired = (
+                        self.faults.apply_pre_step(sim, step=step0)
+                        if self.faults is not None else ())
+                    diag = sim.member_step_once(
+                        m, dt=retry_dt, exact=(exact or step0 < 10))
+                    mv = _host_scalars(diag, _PULL_KEYS)
+                    v2 = self._one_member_verdict(m, mv, step0)
+                    if v2.ok:
+                        sim.times[m] += float(mv["dt"])
+                        sim.time = float(sim.times.min())
+                        sim.set_member_next_dt(m, mv["dt_next"])
+                        if self.member_watchdogs is not None:
+                            self.member_watchdogs[m].observe(mv)
+                        return mv
+                    v = v2
+                    dt_used = float(mv["dt"])
+                    rung += 1
+
+    def _rewind_member(self, m: int, anchor) -> int:
+        """Restore member ``m``'s slice of the anchor, then replay its
+        recorded dts solo (faults suspended, no verdict reads) up to the
+        failed step."""
+        sim = self.sim
+        sim.set_member_state(m, type(sim.state)(
+            *(anchor.payload[k][m] for k in sim.state._fields)))
+        sim.times[m] = float(np.asarray(anchor.meta["times"])[m])
+        n = 0
+        ctx = (self.faults.suspend() if self.faults is not None
+               else contextlib.nullcontext())
+        with ctx:
+            for rdts, rexact, _ in self._replay:
+                rdt = float(np.asarray(rdts)[m])
+                if rdt == 0.0:
+                    # the member sat parked for this step (its lane was
+                    # frozen identity): nothing to replay
+                    continue
+                sim.member_step_once(m, dt=rdt, exact=rexact)
+                sim.times[m] += rdt
+                n += 1
+        self.replayed_steps += n
+        return n
+
+    def _abort_member(self, m: int, step: int, v: StepVerdict,
+                      vals: dict, dt_used: float) -> None:
+        sim = self.sim
+        summary = {k: _as_float(np.asarray(vals[k])[m])
+                   for k in ("umax", "poisson_residual", "poisson_iters")
+                   if k in vals}
+        if self.on_member_abort is not None:
+            # serving: evict the one member; the callback zeroes and
+            # masks its slot, and the dt cache drops its NaN lane
+            self._emit(event="member_aborted", step=step, member=m,
+                       verdict=v.reason, action="evict", dt=dt_used,
+                       diag=summary)
+            self.evictions += 1
+            self.on_member_abort(m, v.reason, step)
+            sim.set_member_next_dt(m, 1.0)
+            return
+        pm = None
+        if self.postmortem_dir:
+            try:
+                from .io import save_checkpoint
+                save_checkpoint(self.postmortem_dir, sim)
+                pm = self.postmortem_dir
+            except Exception as e:   # the abort must not be masked
+                print(f"cup2d_tpu_torch: post-mortem checkpoint failed: "
+                      f"{e}", file=sys.stderr)
+        flog = getattr(sim, "force_log", None)
+        if flog is not None and not flog.closed:
+            flog.close()
+        self._emit(step=step, member=m, verdict=v.reason,
+                   action="abort", dt=dt_used, postmortem=pm,
+                   diag=summary)
+        raise ResilienceAbort(
+            f"step {step}, member {m}: {v.reason}; per-member ladder "
+            "exhausted"
             + (f" (post-mortem checkpoint: {pm})" if pm else ""))
 
 

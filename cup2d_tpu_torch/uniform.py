@@ -301,13 +301,20 @@ class UniformGrid:
             torch.tensor(self.h, dtype=self.dtype, device=self.device),
             self.cfg.nu, self.cfg.cfl)
 
-    def _linf(self, a) -> torch.Tensor:
+    def _linf(self, a, members: bool = False) -> torch.Tensor:
+        """max |a|; ``members``: one per member of a fleet's velocity
+        [B, 2, Ny, Nx] (over its last three axes)."""
+        if members:
+            return torch.amax(torch.abs(a), dim=(-3, -2, -1))
         if self.mesh is not None:
             return slab_linf(a)
         return torch.amax(torch.abs(a))
 
-    def compute_dt(self, vel: torch.Tensor) -> torch.Tensor:
-        return self.dt_from_umax(self._linf(vel))
+    def compute_dt(self, vel: torch.Tensor,
+                   members: bool = False) -> torch.Tensor:
+        """The CFL dt of ``vel``; ``members``: a [B] row of a fleet's
+        velocity [B, 2, Ny, Nx], each the solo dt of its member."""
+        return self.dt_from_umax(self._linf(vel, members))
 
     def laplacian(self, p: torch.Tensor) -> torch.Tensor:
         """The undivided Poisson operator with the table's pressure rows."""
@@ -326,7 +333,8 @@ class UniformGrid:
     def poisson_rhs(self, vel, chi, udef, dt) -> torch.Tensor:
         """(h/2dt)[div u* - chi div u_def] with the table's edge
         coefficients and the constant of prescribed wall-normal velocities;
-        ``chi=None`` drops the obstacle term (the only form on a mesh)."""
+        ``chi=None`` drops the obstacle term (the only form on a mesh). A
+        fleet passes member stacks and dt as [B, 1, 1]."""
         if self.mesh is not None and chi is None:
             return divergence_bc_x(vel, self.h, dt, self._dcoeffs,
                                    self._div_affine_x)
@@ -460,17 +468,20 @@ class UniformGrid:
                 periodic=self._paxes)
         return vel, pres, res, div_linf
 
-    def precond_cycles(self, res, exact) -> int:
+    def precond_cycles(self, res, exact):
         """Hierarchy cycles of one solve: FAS iterations are cycles,
         flexible BiCGSTAB applies M twice per iteration, the direct solve
-        none."""
+        none; per member (a [B] tensor) for a member-axis solve's
+        ``res``."""
+        none = (torch.zeros_like(res.iters) if torch.is_tensor(res.iters)
+                else 0)
         if self.solver_mode == "fftd":
-            return 0
+            return none
         if self.solver_mode == "fas" and not exact:
             return res.iters
         if self.cfg.precond:
             return 2 * res.iters
-        return 0
+        return none
 
     def step_diag(self, vel, pres, res, div_linf=None,
                   exact=False) -> dict:

@@ -28,6 +28,17 @@ from cup2d_tpu_torch import cases as tcases  # noqa: E402
 from cup2d_tpu_torch.convert import bc_from_fields  # noqa: E402
 from cup2d_tpu_torch.ops import stencil as tst  # noqa: E402
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more,
+    and under the suite's parallel workers extra threads only contend
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F64_BAR = 1e-12
 
 

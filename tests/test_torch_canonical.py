@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+import torch  # noqa: E402
 
 from cup2d_tpu.io import load_checkpoint, save_checkpoint  # noqa: E402
 from cup2d_tpu_torch.amr import AMRSim as TSim  # noqa: E402
@@ -33,6 +34,17 @@ from cup2d_tpu_torch.convert import (config_from_dict,  # noqa: E402
                                      copy_amr_state)
 from cup2d_tpu_torch.ops.forces import FORCE_KEYS  # noqa: E402
 from validation.canonical import build_canonical_sim  # noqa: E402
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more,
+    and under the suite's parallel workers extra threads only contend
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 F64_BAR = 1e-12
 TRAJ_BAR = 1e-10

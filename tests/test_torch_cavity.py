@@ -57,6 +57,17 @@ from cup2d_tpu_torch.poisson import project_correct  # noqa: E402
 from cup2d_tpu_torch.uniform import UniformGrid, UniformSim  # noqa: E402
 from cup2d_tpu_torch.uniform import taylor_green_state  # noqa: E402
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more,
+    and under the suite's parallel workers extra threads only contend
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NY, NX = 32, 64
 H = 1.0 / NX
 NU = 4e-5
@@ -453,16 +464,25 @@ def test_split_step_with_a_table_refuses():
     assert mg.meshes[0] is mesh
 
 
-@pytest.mark.parametrize("name,item", [("tgv_periodic", "queue 1 item 6"),
-                                       ("shear_layer", "queue 1 item 6"),
-                                       ("turb2d", "queue 1 item 6")])
+@pytest.mark.parametrize("name,item", [("tgv_periodic", "queue 1 item 8"),
+                                       ("shear_layer", "queue 1 item 8"),
+                                       ("turb2d", "queue 1 item 8")])
 def test_waiting_cases_refuse(name, item):
-    """The periodic cases build and step solo; their fleets wait for the
-    fleet driver (item 6), their split step for item 8."""
+    """The periodic cases build and step solo and as a fleet; their split
+    step waits for item 8 (tests/test_torch_fleet.py holds their fleets
+    against JAX's)."""
+    from cup2d_tpu_torch.fleet import FleetSim
+    fleet = tcases.make_sim(name, level=2, device="cpu", dtype="float64",
+                            members=2)
+    assert isinstance(fleet, FleetSim) and fleet.case == name
+    d = fleet.step_once()
+    assert d["finite"].all() and fleet.step_count == 1
+    assert (fleet.times > 0).all()
     with pytest.raises(NotImplementedError, match=item):
-        tcases.make_sim(name, device="cpu", members=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         tcases.make_sim(name, level=2, mesh=make_mesh(devices=["cpu"] * 2))
+    with pytest.raises(NotImplementedError, match=item):
+        tcases.make_sim(name, level=2, members=2,
+                        mesh=make_mesh(devices=["cpu"] * 2))
     sim = tcases.make_sim(name, level=2, device="cpu", dtype="float64")
     assert sim.case == name and sim.bc_table == "pd,pd,pd,pd"
     d = sim.step_once()
@@ -486,11 +506,19 @@ def test_shaped_cases_build_and_step(name, table):
 
 
 def test_cavity_fleet_and_bf16_refuse(monkeypatch):
-    """Fleets refuse; bf16 runs the cavity on f32 state (the boundary
-    table's bf16 substage form) and refuses it on f64, as the JAX
-    package does."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tcases.make_sim("cavity", level=2, device="cpu", members=2)
+    """The cavity runs as a fleet (every member on its table; a fleet on a
+    mesh refuses, item 8); bf16 runs the cavity on f32 state (the boundary
+    table's bf16 substage form) and refuses it on f64, as the JAX package
+    does."""
+    from cup2d_tpu_torch.fleet import FleetSim
+    fleet = tcases.make_sim("cavity", level=2, device="cpu", members=2)
+    assert isinstance(fleet, FleetSim) and fleet.case == "cavity"
+    assert fleet.bc_table == "ns,ns,ns,ns(1,0)"
+    d = fleet.step_once()
+    assert d["finite"].all() and (d["umax"] > 0).all()
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        tcases.make_sim("cavity", level=2, members=2,
+                        mesh=make_mesh(devices=["cpu"] * 2))
     monkeypatch.setenv("CUP2D_PREC", "bf16")
     with pytest.raises(ValueError, match="CUP2D_PREC"):
         tcases.make_sim("cavity", level=2, device="cpu", dtype="float64")

@@ -297,9 +297,10 @@ def test_nan_restart_aborts_with_postmortem(tmp_path):
 
 
 REFUSALS = [
-    (["-fleet", "4"], 6), (["-serve", "6"], 6),
-    (["-serve", "6", "-fleet", "2"], 6),
-    (["-mesh", "4"], 8), (["-coordinator", "h:1"], 8),
+    (["-serve", "6"], "-serve N needs -fleet B (the slot pool it serves "
+                      "through)"),
+    (["-mesh", "4"], 8), (["-mesh", "4", "-fleet", "2"], 8),
+    (["-coordinator", "h:1"], 8),
     (["-meshHosts", "2"], 8), (["-processId", "0"], 8),
     (["-connectAttempts", "3"], 8), (["-connectBackoff", "1"], 8),
     (["-elastic"], 8), (["-elastic", "-mesh", "4"], 8),
@@ -314,8 +315,11 @@ REFUSALS = [
                          ids=[" ".join(f) for f, _ in REFUSALS])
 def test_refused_flag_exits_2_naming_its_item(flags, item, tmp_path,
                                               capsys):
+    """A flag the port cannot give names its ROADMAP item; a usage error of
+    the JAX CLI gives its message."""
     assert tmain.main(CAVITY + flags + ["-output", str(tmp_path)]) == 2
-    assert f"item {item}" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert (f"item {item}" if isinstance(item, int) else item) in err
     assert not os.listdir(tmp_path)                 # before any work
 
 
@@ -447,15 +451,143 @@ def test_streams_rotate_and_read_back(tmp_path):
     assert os.path.exists(tmp_path / "tr" / "trace.json")
 
 
-@pytest.mark.parametrize("kw,item", [("server", 6), ("flight", 9)])
+@pytest.mark.parametrize("kw,item", [("flight", 9)])
 def test_recorder_slots_of_later_items_refuse(kw, item):
-    """``MetricsRecorder``'s fleet-server and flight-recorder slots: a
-    value raises, naming its ROADMAP item; without one the groups are
-    null."""
+    """``MetricsRecorder``'s flight-recorder slot: a value raises, naming
+    its ROADMAP item; without one the group is null."""
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tprof.MetricsRecorder(**{kw: object()})
     rec = tprof.MetricsRecorder().record_step(step=1, t=0.1, diag={})
-    group = (tprof._SERVE_KEYS + ("fleet_members", "member_health")
-             if kw == "server" else
-             ("span_count", "compile_ms_total", "hbm_exec_bytes"))
-    assert all(rec[k] is None for k in group)
+    assert all(rec[k] is None for k in
+               ("span_count", "compile_ms_total", "hbm_exec_bytes"))
+
+
+def test_recorder_server_slot_takes_the_gauges():
+    """``MetricsRecorder(server=...)``: the serving gauges of the server's
+    ``telemetry_fields``; without a server, and on a solo record, the
+    fleet and serving groups are null."""
+    gauges = {"active_members": 2, "occupancy": 0.5, "admitted": 3,
+              "evicted": 1, "queue_depth": 4}
+
+    class Server:
+        clients = None
+
+        def telemetry_fields(self):
+            return gauges
+    rec = tprof.MetricsRecorder(server=Server()).record_step(
+        step=1, t=0.1, diag={"umax": 1.0})
+    assert {k: rec[k] for k in tprof._SERVE_KEYS} == gauges
+    assert rec["fleet_members"] is None and rec["member_health"] is None
+    rec = tprof.MetricsRecorder().record_step(step=1, t=0.1, diag={})
+    assert all(rec[k] is None for k in
+               tprof._SERVE_KEYS + ("fleet_members", "member_health"))
+
+
+# the JAX package's fleet CLI drill at 32^2, f64
+FLEET_FLAGS = ("-bpdx 1 -bpdy 1 -levelMax 1 -levelStart 0 -AdaptSteps 20 "
+               "-Rtol 2 -Ctol 1 -extent 1 -CFL 0.4 -nu 0.001 -lambda 1e6 "
+               "-poissonTol 1e-9 -poissonTolRel 1e-7 -maxPoissonRestarts 0 "
+               "-maxPoissonIterations 100 -dtype float64 -level 2").split()
+
+
+def _both_clis(flags, root):
+    """Run the JAX CLI and the port's with ``flags`` into root/jax and
+    root/port."""
+    from cup2d_tpu import __main__ as jmain
+    jdir, tdir = str(root / "jax"), str(root / "port")
+    cache = jmain.enable_compilation_cache
+    jmain.enable_compilation_cache = lambda: None   # no persistent cache
+    try:
+        assert jmain.main(flags + ["-output", jdir]) == 0
+    finally:
+        jmain.enable_compilation_cache = cache
+    assert tmain.main(flags + ["-output", tdir, "-device", "cpu"]) == 0
+    return jdir, tdir
+
+
+def _metric_keys(path):
+    return {frozenset(r) for r in tprof.load_metrics(path)
+            if r.get("event") == "metrics"}
+
+
+def test_cli_fleet_matches_jax(tmp_path):
+    """``-fleet 4 -level 2``: 12 steps (the 10 exact startup solves among
+    them) through both CLIs. Per-member dumps ``vel.NNNNNNNN.mK`` in the JAX
+    layout (the same names and quads, attr within one f32 rounding), the
+    last checkpoint's fields and per-member clocks <= 1e-10, equal
+    iterations a step, the metrics records of the JAX key set."""
+    flags = FLEET_FLAGS + ["-fleet", "4", "-tend", "10", "-tdump", "0.05",
+                           "-maxSteps", "12", "-checkpointEvery", "12"]
+    jdir, tdir = _both_clis(flags, tmp_path)
+    dumps = sorted(f for f in os.listdir(jdir) if f.endswith(".xdmf2"))
+    assert dumps and dumps == sorted(f for f in os.listdir(tdir)
+                                     if f.endswith(".xdmf2"))
+    assert {d.split(".")[2] for d in dumps} == {"m0", "m1", "m2", "m3"}
+    for d in dumps:
+        base = d[:-len(".xdmf2")]
+        jt, jxyz, jattr = jio.read_dump(os.path.join(jdir, base))
+        tt, txyz, tattr = tio.read_dump(os.path.join(tdir, base))
+        assert abs(jt - tt) <= 1e-12 and np.array_equal(jxyz, txyz)
+        assert np.allclose(jattr, tattr, rtol=2 ** -23, atol=1e-30), d
+    jm = json.load(open(os.path.join(jdir, "checkpoint", "meta.json")))
+    tm = json.load(open(os.path.join(tdir, "checkpoint", "meta.json")))
+    assert jm["step_count"] == tm["step_count"] == 12
+    assert tm["fleet"]["members"] == 4
+    assert np.allclose(tm["fleet"]["times"], jm["fleet"]["times"],
+                       rtol=1e-10, atol=0)
+    with np.load(os.path.join(jdir, "checkpoint", "fields.npz")) as j, \
+            np.load(os.path.join(tdir, "checkpoint", "fields.npz")) as t:
+        assert j["vel"].shape == t["vel"].shape == (4, 2, 32, 32)
+        assert _err(j["vel"], t["vel"]) <= TRAJ_BAR
+        assert _err(j["pres"], t["pres"]) <= TRAJ_BAR
+    jr, tr = (_records(os.path.join(d, "metrics.jsonl"))
+              for d in (jdir, tdir))
+    assert [r["member_health"]["poisson_iters"] for r in jr] == \
+        [r["member_health"]["poisson_iters"] for r in tr]
+    assert len(tr) == 12 and tr[-1]["fleet_members"] == 4
+    assert _metric_keys(os.path.join(tdir, "metrics.jsonl")) == \
+        _metric_keys(os.path.join(jdir, "metrics.jsonl"))
+
+
+def test_cli_serve_matches_jax(tmp_path):
+    """``-fleet 2 -serve 6``: the same admissions and retirements (slot,
+    client, clock) as the JAX CLI, one client stream a session with the
+    JAX stream's rows, session checkpoints, the ``serving_latency`` record
+    and ``post``'s per-client summaries."""
+    flags = FLEET_FLAGS + ["-fleet", "2", "-serve", "6", "-tend", "0.06",
+                           "-tdump", "0"]
+    jdir, tdir = _both_clis(flags, tmp_path)
+
+    def lifecycle(d):
+        return [(e["event"], e["member"], e["client"],
+                 e.get("t0", e.get("t")))
+                for e in map(json.loads, open(os.path.join(
+                    d, "events.jsonl")))
+                if e["event"] in ("member_admit", "member_retire")]
+    jl, tl = lifecycle(jdir), lifecycle(tdir)
+    assert [e[:3] for e in jl] == [e[:3] for e in tl]
+    assert np.allclose([e[3] for e in jl], [e[3] for e in tl], rtol=1e-10,
+                       atol=0)
+    assert sum(e[0] == "member_retire" for e in tl) == 6
+    names = sorted(os.listdir(os.path.join(jdir, "clients")))
+    assert names == sorted(os.listdir(os.path.join(tdir, "clients")))
+    assert len(names) == 6
+    for n in names:
+        jrows, trows = (tprof.load_metrics(os.path.join(d, "clients", n))
+                        for d in (jdir, tdir))
+        assert [r["step"] for r in jrows] == [r["step"] for r in trows]
+        assert [r["poisson_iters"] for r in jrows] == \
+            [r["poisson_iters"] for r in trows]
+        assert np.allclose([r["umax"] for r in jrows],
+                           [r["umax"] for r in trows], rtol=1e-10, atol=0)
+        assert set(jrows[0]) == set(trows[0])
+    assert sorted(os.listdir(os.path.join(tdir, "sessions"))) == \
+        [n[:-len(".jsonl")] for n in names]
+    lat = [r for r in tprof.load_metrics(os.path.join(tdir, "metrics.jsonl"))
+           if r.get("event") == "serving_latency"]
+    assert len(lat) == 1 and lat[0]["pool"]["step"]["count"] > 0
+    assert _metric_keys(os.path.join(tdir, "metrics.jsonl")) == \
+        _metric_keys(os.path.join(jdir, "metrics.jsonl"))
+    summ = tpost.metrics_summary(os.path.join(tdir, "metrics.jsonl"))
+    assert sorted(summ["clients"]) == [n[:-len(".jsonl")] for n in names]
+    assert summ["admitted_total"] == 6 and summ["evicted_total"] == 0

@@ -39,6 +39,17 @@ from cup2d_tpu_torch.convert import (config_from_dict,  # noqa: E402
 from cup2d_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from validation.poisson_ab import build_multilevel_sim  # noqa: E402
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more,
+    and under the suite's parallel workers extra threads only contend
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LAB_BAR = 1e-12
 OP_BAR = 1e-10
 TWIN_F32_REL = 1e-6

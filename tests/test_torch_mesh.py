@@ -35,6 +35,17 @@ from cup2d_tpu_torch.parallel.shard_halo import (  # noqa: E402
 from cup2d_tpu_torch.poisson import MultigridPreconditioner  # noqa: E402
 from cup2d_tpu_torch.uniform import taylor_green_state  # noqa: E402
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more,
+    and under the suite's parallel workers extra threads only contend
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LEVEL = 3          # 128 x 64 cells
 SOLO_BAR = 1e-12
 JAX_BAR = 1e-10

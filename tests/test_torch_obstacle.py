@@ -34,6 +34,17 @@ from cup2d_tpu_torch.ops import forces as tf  # noqa: E402
 from cup2d_tpu_torch.ops import obstacle as to  # noqa: E402
 from cup2d_tpu_torch.sim import ObstacleFields, Simulation  # noqa: E402
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more,
+    and under the suite's parallel workers extra threads only contend
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F64_BAR = 1e-12
 EXTENTS = (4.0, 2.0)
 

@@ -22,6 +22,17 @@ from cup2d_tpu_torch import Simulation, cases  # noqa: E402
 from cup2d_tpu_torch.convert import config_from_dict  # noqa: E402
 from cup2d_tpu_torch.models import DiskShape  # noqa: E402
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more,
+    and under the suite's parallel workers extra threads only contend
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TRAJ_BAR = 1e-10
 
 

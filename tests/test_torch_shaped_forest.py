@@ -46,6 +46,17 @@ from cup2d_tpu_torch.models import DiskShape, FishShape  # noqa: E402
 from cup2d_tpu_torch.sim import Simulation  # noqa: E402
 from validation import golden_collision  # noqa: E402
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more,
+    and under the suite's parallel workers extra threads only contend
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F64_BAR = 1e-12
 TRAJ_BAR = 1e-10
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_collision.json")

@@ -39,6 +39,17 @@ from cup2d_tpu_torch.convert import (config_from_dict,  # noqa: E402
                                      copy_simulation_state, state_from_numpy)
 from cup2d_tpu_torch.sim import ObstacleFields  # noqa: E402
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more,
+    and under the suite's parallel workers extra threads only contend
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F64_BAR = 1e-12
 TRAJ_BAR = 1e-10
 LEVEL = 5

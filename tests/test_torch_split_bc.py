@@ -58,6 +58,17 @@ from cup2d_tpu_torch.poisson import (MultigridPreconditioner,  # noqa: E402
                                      project_correct)
 from cup2d_tpu_torch.uniform import UniformGrid, UniformSim  # noqa: E402
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more,
+    and under the suite's parallel workers extra threads only contend
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 pytestmark = pytest.mark.skipif(not jpk.HAVE_PALLAS,
                                 reason="needs jax.experimental.pallas")
 

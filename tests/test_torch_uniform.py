@@ -31,6 +31,17 @@ from cup2d_tpu_torch.convert import (config_from_dict,  # noqa: E402
                                      state_from_numpy, state_to_numpy)
 from cup2d_tpu_torch.uniform import taylor_green_state  # noqa: E402
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more,
+    and under the suite's parallel workers extra threads only contend
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAJ_BAR = 1e-10
 
@@ -223,7 +234,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
             "from cup2d_tpu_torch.ops.hopper_kernels import tridiag_scan; "
             "import cup2d_tpu_torch.io, cup2d_tpu_torch.profiling, "
             "cup2d_tpu_torch.post, cup2d_tpu_torch.resilience, "
-            "cup2d_tpu_torch.faults, cup2d_tpu_torch.__main__; "
+            "cup2d_tpu_torch.faults, cup2d_tpu_torch.__main__, "
+            "cup2d_tpu_torch.fleet, cup2d_tpu_torch.tracing; "
             "from cup2d_tpu_torch.sim import Simulation; "
             f"cfg = cup2d_tpu_torch.SimConfig(**{_fish_kw()!r}); "
             "sim = Simulation(cfg, level=3, device='cpu'); "
