@@ -118,7 +118,9 @@ the result lines:
    package's channel configuration without its disk) from the impulsive
    start u = u_in, each under the default solver and under CUP2D_POIS=fas:
    production ``step_once`` steps at the CFL dt, one warm-up and five
-   timed, the launch counts set to 0 before each run and read after it
+   timed (two under the default solver, whose channel solve never
+   converges at f32: ~4.7 s a step), the launch counts set to 0 before
+   each run and read after it
    (2 boundary-table substage launches and 1 signed correction a step,
    signed sweep chains under fas only: every ``+bc`` counter non-zero);
    then the cavity at 256^2 on the card and on the CPU, 5 ``step_once``
@@ -155,7 +157,10 @@ the result lines:
    fish, bpdx 2, bpdy 1, extent 4, nu 4e-5, lambda 1e7, f32) through the
    port's ``sim.Simulation`` at 1024 x 512 (level 6): ``initialize()``, the
    10 exact startup steps and 5 production ``step_once`` steps under the
-   default solver and under CUP2D_POIS=fas, each step timed on the host
+   default solver and under CUP2D_POIS=fas (each run makes its own
+   startup: the exact solves' preconditioner follows the latch, the bf16
+   cycle under the default solver and the f32 cycle with the fused
+   smoother under fas), each step timed on the host
    clock (its phases' host ms, its iterations, the peak memory), the
    launch counts from 0 over each run (2 substage launches and 1
    correction a step, sweep chains under fas only, no other form); the
@@ -179,7 +184,10 @@ the result lines:
    cut: ``initialize()`` (host seconds, blocks, levels, pad bucket; every
    block with chi > 0.2 at level 7), then ``run()``'s schedule (an
    ``adapt()`` before each of steps 0-10) for 10 exact startup and 10
-   production steps, each timed on the host clock to a synchronize with
+   production steps (fas from a copy of the default run at step 10: the
+   startup solves are the same exact Krylov solves under either latch;
+   the card-vs-CPU runs below share one startup the same way), each
+   timed on the host clock to a synchronize with
    its phases' host ms (kinematics, megastep, forces) and each adapt's,
    the peak memory, the launch counts from 0 over each run (2 lab-RHS
    launches a step, block-Jacobi updates under fas only, one per
@@ -206,7 +214,7 @@ the result lines:
    ulps printed), beside the rfft + irfft pair around it; each with kernel
    and twin ms and its bound. Then the main path: ``cases.make_sim(
    "tgv_periodic")`` at level 10 (8192^2, f32) under the default solver,
-   fas and fftd, 3 startup and 5 production steps each, and the periodic
+   fas and fftd, 1 startup and 5 production steps each, and the periodic
    channel at 8192^2 from the benchmark velocity (dt = h/2, production)
    under fftd and fas, a warm-up and 3 timed steps: ms per step,
    iterations, launches per form from 0, every launch of kernels 2, 5 and
@@ -229,9 +237,10 @@ the result lines:
    dump's bytes, the ``forces.csv`` rows of steps 11-22 across the step-20
    adapt, each step's ``poisson_iters``, the step-20 checkpoints' fields
    and meta); then the flagship (``entry()``'s two fish at 1024 x 512,
-   f32, 45 steps, ``CUP2D_TRACE`` over three production steps) beside its
-   library loop in the same phase (45 ``step_once`` steps, each to a
-   synchronize), and the catalog's ``-case tgv_periodic`` at 1024^2 for
+   f32) through its library loop in the same phase (25 ``step_once``
+   steps, each to a synchronize) and through the CLI restarted from the
+   loop's step-10 checkpoint (steps 11-25, ``CUP2D_TRACE`` over three
+   production steps; its startup steps are the loop's), and the catalog's ``-case tgv_periodic`` at 1024^2 for
    4 steps (the uniform driver and its dumps; every substage and
    correction launch a wrap form). Printed: production ms/step (the
    median of ``metrics.jsonl``'s ``wall_ms``, traced steps left out)
@@ -245,7 +254,7 @@ the result lines:
    records read it) beside the run's own peak over what was resident
    when it began, and the launches, from 0 over each CLI run, of kernels
    4 (canonical), 2 and 5 (flagship), each > 0. Its files live under
-   build/phase14 and stay for phase 15, which removes them.
+   build/phase14 and stay for phases 15 and 17; phase 17 removes them.
 15. supervised runs: the canonical CLI of phase 14 without
    ``-noSupervise`` (the StepGuard ring, a device snapshot a step), bit
    for bit phase 14's run (every dump's bytes, the ``forces.csv`` rows,
@@ -263,25 +272,27 @@ the result lines:
    and ``crash_in_save`` (the
    save dies between its renames; the load from ``.old`` is the step-10
    checkpoint bit for bit); then the lagged verdict where it engages:
-   phase 5's forest and the 8192^2 ``UniformSim`` (``bench_state``),
-   under both solvers, 11 production steps eager and under
+   phase 5's forest (after one production step: its cold solve paid
+   once) and the 8192^2 ``UniformSim`` (``bench_state``),
+   under both solvers, 7 production steps eager and under
    ``StepGuard(snap_every=4)``, four runs in turns (eager, lagged, lagged,
    eager): bit for bit (fields, clock, step count), the reads of each
    step (the lagged runs no more in all), host ms a step, ms a step over
-   steps 3-8 between two synchronizes, the card's idle share over a
-   ``torch.profiler`` window of the last 3 steps, the ring's bytes, then
+   steps 3-6 between two synchronizes, the card's idle share over a
+   ``torch.profiler`` window of the last step, the ring's bytes, then
    the first lagged run's anchor restored and 3 steps replayed, bit for
    bit again. The canonical CLI's production medians also come in turns
-   (phase 14's, supervised, ``-noSupervise``, supervised). Launches of kernels 2, 4, 5,
+   (phase 14's, supervised, ``-noSupervise``, supervised; the last two
+   restarted from phase 14's step-10 checkpoint). Launches of kernels 2, 4, 5,
    6 and 8 from 0 over the phase, each > 0; no twin called on the card's
    f32 operands. Files under build/phase15, removed at the end.
 16. fleets and the serving pool (``fleet.FleetSim``, ``FleetServer``):
    bench.run_fleet's arm (the amplitude-laddered Taylor-Green fleet,
-   production steps, 3 warm-up steps, one synchronized window of 20, f32)
+   production steps, 3 warm-up steps, one synchronized window of 10, f32)
    at 256^2 with B = 1, 8, 64 and at 1024^2 with B = 1, 8, 32, under the
    default solver and fas: ms a step, member-steps/s and the idle share
    of one ``torch.profiler`` step at each B (no bar). The card bars: B = 1
-   bit for bit ``UniformSim`` at 256^2 through 12 steps from t = 0, with
+   bit for bit ``UniformSim`` at 256^2 through 6 steps from t = 0, with
    no more reads; each member of a B = 8 fleet at 1024^2 (the benchmark
    velocity at amplitudes 0.8**m, 5 production steps) within 1e-5
    relative of its solo run with equal iterations, both solvers; a B = 4
@@ -297,10 +308,35 @@ the result lines:
    bit for bit the straight run (1024^2). Launches of kernels 2, 5 and 6
    from 0 over the phase, each > 0; no twin called on the card's f32
    operands. Files under build/phase16, removed at the end.
+17. the forest on a mesh and the forest's left-overs, on ``MESH_D`` = 4
+   shards of the card (four cards cut to one, as phase 7): (a) phase 5's
+   10,529-block forest, after one production step (its cold solve paid
+   once), as a ``ShardedAMRSim`` against the same forest
+   solo, under the default solver and fas, one adapt and 6 production
+   steps each: equal topologies and iterations, velocity and pressure
+   within ``SHARDED_REL`` of max |solo|, the lab RHS launched 2 x 4 a
+   step and the block-Jacobi update 4 a FAS cycle (from 0 each step),
+   both held against their twins on one shard's last operands and timed
+   there; ms a step split and solo, the idle share of a traced step, the
+   halo bytes of one exchange; (b) ``main(["-device", "cuda:<i>",
+   "-mesh", "4", <run.sh flags>])`` supervised, 12 steps with a dump each
+   and a step-10 checkpoint: every dump within ``SHARDED_REL`` of phase
+   14's unsharded run, the ``-mesh 4`` restart from step 10 bit for bit
+   its own run, the restart without ``-mesh`` within ``SHARDED_REL``;
+   (c) ``CUP2D_POIS=tables`` on phase 6's forest (card against CPU, ms a
+   step against ``structured``), ``CUP2D_PREC=bf16`` with fas on phase
+   5's forest (iterations and ms a step against f32 fas) and on phase
+   6's (card against CPU within ``BF16_BAND``), ``adapt()`` at phase 5's
+   blocks with the C regrid helper against ``_fix_states_py`` (equal
+   topologies) and the uniform ``-mesh 4`` CLI path at 1024^2 (4
+   production steps restarted from a Taylor-Green step-10 checkpoint).
+   No twin called on the card's f32 operands in (a) and (b). Removes
+   phase 14's files and its own (build/phase17).
 
 Then one JSON line of per-kernel numbers (with, per kernel, its launches
 on the two flagship runs, the two canonical runs, phase 13's runs,
-phase 15's supervised runs and phase 16's fleet runs and, for the
+phase 15's supervised runs, phase 16's fleet runs and phase 17's split
+forest runs and, for the
 flagship's and the canonical run's kernels, their
 numbers at those shapes), the card's name and power limit
 as nvidia-smi prints them, and the result line
@@ -343,6 +379,8 @@ from cup2d_tpu_torch.ops.timing import (OPS_SWEEP_CELL,  # noqa: E402
                                         vcycle_chains, weno_faces)
 from cup2d_tpu_torch.ops.stencil import (inv_diag_bc,  # noqa: E402
                                          inv_diag_bc_slab, pad_vector)
+from cup2d_tpu_torch.parallel import shard_halo as tsh  # noqa: E402
+from cup2d_tpu_torch.parallel.forest_mesh import ShardedAMRSim  # noqa: E402
 from cup2d_tpu_torch.parallel.mesh import (ShardedUniformSim,  # noqa: E402
                                            make_mesh)
 from cup2d_tpu_torch.parallel.shard_halo import (  # noqa: E402
@@ -1803,6 +1841,18 @@ def phase_forest(dev, target=FOREST_TARGET, **kw
     return runs, total, (cfg, snap)
 
 
+def warm_forest(dev, forest_start: tuple) -> tuple:
+    """Phase 5's forest after one production step of the default solver,
+    its cold solve from zero pressure paid once: the start of the
+    production runs of phases 15 and 17."""
+    cfg, snap = forest_start
+    sim = AMRSim(cfg, shapes=[], device=dev)
+    forest_from_numpy(sim, *snap)
+    sim.step_count = 10
+    sim.step_once()
+    return cfg, forest_to_numpy(sim)
+
+
 def forest_labs_timing(lab, h, nu, dt) -> None:
     """The lab RHS on the forest main path's own labs (the last call of a
     run): device ms from graph replays, its bound, and the reconstructions
@@ -1828,7 +1878,7 @@ def _ordered_vel(sim) -> tuple[list, np.ndarray]:
                                                device=sim.device)].cpu()
 
 
-def phase_forest_cpu(dev, pois=None, **kw):
+def phase_forest_cpu(dev, pois=None, bar=TRAJ_REL, **kw):
     """Phase 6: the same small multilevel forest on the card and on the
     CPU under one solver (None: the default), 5 steps with an adapt()
     after the second."""
@@ -1854,12 +1904,13 @@ def phase_forest_cpu(dev, pois=None, **kw):
     (kc, a), (kp, b) = _ordered_vel(card), _ordered_vel(cpu)
     check(kc == kp, "multilevel: ordered block keys differ")
     rel = float((a - b).abs().max() / b.abs().max())
-    print(f"phase 6 multilevel forest {card.poisson_mode} tol "
+    print(f"phase 6 multilevel forest {card.poisson_mode} "
+          f"({card._pois_mode}, {card.smoother_tier}) tol "
           f"{card.cfg.poisson_tol}/{card.cfg.poisson_tol_rel} {len(kp)} "
           f"blocks x5 steps: card iters {iters['card']} cpu iters "
           f"{iters['cpu']} vel rel Linf {rel}", flush=True)
     check(bool(torch.isfinite(a).all()), "multilevel: non-finite state")
-    check(rel <= TRAJ_REL, f"multilevel: card vs CPU {rel} > {TRAJ_REL}")
+    check(rel <= bar, f"multilevel: card vs CPU {rel} > {bar}")
 
 
 CHANNEL_CFG = dict(bpdx=4, bpdy=1, level_max=1, level_start=0, extent=4.0,
@@ -1947,7 +1998,9 @@ def phase_walled(dev) -> tuple[list, dict]:
     2048) under both solvers; the card against the CPU; the plug flow.
     Returns the runs and the +bc launch counts summed over the four
     main-path runs."""
-    runs = [run_walled(dev, kind, pois, level)
+    # the default solver's steps are long (the channel's f32 solve never
+    # converges: 121-200 iterations, ~4.7 s a step): a warm-up and 2 timed
+    runs = [run_walled(dev, kind, pois, level, steps=5 if pois else 2)
             for kind, level in (("cavity", 10), ("channel", 8))
             for pois in ("", "fas")]
     total = {k: sum(r["launches"].get(k, 0) for r in runs)
@@ -2456,18 +2509,25 @@ def canonical_sim(dev, pois=None, **kw) -> AMRSim:
         os.environ.pop("CUP2D_POIS", None)
 
 
-def run_canonical(dev, pois=None, keep=None) -> dict:
+def run_canonical(dev, pois=None, keep=None, start=None) -> tuple:
     """Phase 12 under one solver: ``initialize()`` (host seconds), then
     ``run()``'s schedule (an ``adapt()`` before each of steps 0-10, then
     every 20) for 10 exact startup steps and 10 production steps, each
     step timed on the host clock to a synchronize, with its phases' host
-    ms; launch counts from 0 over the 20 steps and their adapts."""
+    ms; launch counts from 0 over the steps and their adapts. ``start``:
+    a sim at step 10 (the startup solves are the same exact Krylov solves
+    under every latch), whose state is taken instead
+    (``convert.copy_amr_state``), so only the production steps run.
+    Returns the figures and (without ``start``) a copy at step 10."""
     label = f"canonical {pois or 'default'}"
     sim = canonical_sim(dev, pois)
     sync(dev)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sim.initialize()
+    if start is None:
+        sim.initialize()
+    else:
+        copy_amr_state(start, sim)
     sync(dev)
     init_s = time.perf_counter() - t0
     f = sim.forest
@@ -2479,6 +2539,7 @@ def run_canonical(dev, pois=None, keep=None) -> dict:
     lv = f.level[order]
     body = lv[cmax.numpy() > 0.2]
     out = {"mode": sim.poisson_mode, "initialize_s": init_s,
+           "startup_shared": start is not None,
            "blocks": len(f.blocks), "levels": levels,
            "n_pad": sim._npad_hwm, "wcap": list(sim._wcap),
            "body_blocks": int(len(body)),
@@ -2501,9 +2562,13 @@ def run_canonical(dev, pois=None, keep=None) -> dict:
         return block_upd(e, r, lap, p_inv)
     tamr.fused_lab_rhs, tamr.fused_block_jacobi_update = keep_lab, keep_upd
     rows = []
+    at10 = None
     try:
-        for k in range(20):
-            row = {"step": k}
+        for k in range(20 if start is None else 10):
+            row = {"step": sim.step_count}
+            if sim.step_count == 10 and start is None:
+                at10 = canonical_sim(dev, None)
+                copy_amr_state(sim, at10)
             if sim.step_count <= 10 or \
                     sim.step_count % sim.cfg.adapt_steps == 0:
                 sync(dev)
@@ -2525,8 +2590,11 @@ def run_canonical(dev, pois=None, keep=None) -> dict:
         tamr.fused_lab_rhs = lab_rhs
         tamr.fused_block_jacobi_update = block_upd
     la = {k: n for k, n in hk.launches.items() if n}
-    for name, part in (("startup", rows[:10]), ("production", rows[10:])):
+    prod = [r for r in rows if r["step"] >= 10]
+    for name, part in (("startup", rows[:-len(prod)]), ("production", prod)):
         n = len(part)
+        if not n:
+            continue
         out[name] = {
             "ms_per_step": sum(r["ms"] for r in part) / n,
             "iters": [r["iters"] for r in part],
@@ -2546,7 +2614,7 @@ def run_canonical(dev, pois=None, keep=None) -> dict:
           f"{label}: non-finite state")
     check(la.get("fused_lab_rhs", 0) == 2 * len(rows),
           f"{label}: lab-RHS launches {la} != 2 a step")
-    fas_cycles = sum(r["iters"] for r in rows[10:]) if pois == "fas" else 0
+    fas_cycles = sum(r["iters"] for r in prod) if pois == "fas" else 0
     check(la.get("fused_block_jacobi_update", 0) == fas_cycles,
           f"{label}: block-Jacobi launches {la} != {fas_cycles} (one per "
           "production FAS cycle)")
@@ -2554,10 +2622,10 @@ def run_canonical(dev, pois=None, keep=None) -> dict:
           f"{label}: launches of a uniform or split kernel {la}")
     if keep is not None:
         keep.update(seen)
-    return out
+    return out, at10
 
 
-def canonical_kernels(seen: dict) -> dict:
+def canonical_kernels(seen: dict, label: str = "phase 12") -> dict:
     """Phase 12, continued: the two forest kernels on the canonical run's
     own last operands against their twins (phase 2's bars: the lab RHS per
     h class relative to its max |ref|, the block-Jacobi update relative to
@@ -2604,7 +2672,7 @@ def canonical_kernels(seen: dict) -> dict:
         check(rel <= BLOCK_JACOBI_REL, f"fused_block_jacobi_update on the "
               f"canonical operands: rel {rel} > {BLOCK_JACOBI_REL}")
     for k, o in out.items():
-        print(f"phase 12 kernel {k} on the canonical run's operands: "
+        print(f"{label} kernel {k} on the run's operands: "
               f"{json.dumps(o)}", flush=True)
     return out
 
@@ -2618,12 +2686,28 @@ def _ordered_fields(sim) -> tuple[list, dict]:
     return keys, {k: v[idx].cpu() for k, v in fields.items()}
 
 
+def canonical_startup(dev, tol=1e-3, rel=1e-2) -> AMRSim:
+    """Phase 12's card-vs-CPU start: the canonical case at
+    ``CANON_CPU_LEVELS`` on the card after ``initialize()`` and its 10
+    startup steps (exact solves, the same under every solver latch)."""
+    lm, ls = CANON_CPU_LEVELS
+    card = canonical_sim(dev, None, level_max=lm, level_start=ls, tol=tol,
+                         rel=rel)
+    card.initialize()
+    for _ in range(10):
+        if card.step_count <= 10:
+            card.adapt()
+        card.step_once()
+    return card
+
+
 def phase_canonical_cpu(dev, pois=None, tol=1e-3, rel=1e-2,
-                        hold=True) -> dict:
+                        hold=True, start=None, steps=5) -> dict:
     """Phase 12, continued: the canonical case at levelMax 6, levelStart 3,
     f32, on the card and on the CPU from the card's state after its
     ``initialize()`` and 10 startup steps (``convert.copy_amr_state``),
-    5 production steps each with an ``adapt()`` after the second: equal
+    ``steps`` (5) production steps each with an ``adapt()`` after the
+    second: equal
     block key sets and, with ``hold``, equal iterations, velocity within
     TRAJ_REL relative and each fish's (u, v, omega) within TRAJ_REL of
     its largest component. (At levelMax 5 no cell of either fish reaches
@@ -2631,21 +2715,21 @@ def phase_canonical_cpu(dev, pois=None, tol=1e-3, rel=1e-2,
     are printed and only finiteness is checked: under the default solver
     at tolerances 1e-6/1e-5 BiCGSTAB does not converge on the shaped RHS,
     which is not mean-free (121-321 iterations a step), and the devices
-    part as the packages do (ROADMAP queue 3)."""
+    part as the packages do (ROADMAP queue 3). ``start``: a
+    ``canonical_startup`` sim at the same tolerances, shared by the
+    solvers (its startup steps are theirs)."""
     lm, ls = CANON_CPU_LEVELS
     label = f"canonical card vs CPU {pois or 'default'} {tol}/{rel}"
+    if start is None:
+        start = canonical_startup(dev, tol, rel)
     card = canonical_sim(dev, pois, level_max=lm, level_start=ls, tol=tol,
                          rel=rel)
     cpu = canonical_sim("cpu", pois, level_max=lm, level_start=ls, tol=tol,
                         rel=rel)
-    card.initialize()
-    for _ in range(10):
-        if card.step_count <= 10:
-            card.adapt()
-        card.step_once()
+    copy_amr_state(start, card)
     copy_amr_state(card, cpu)
     iters = {"card": [], "cpu": []}
-    for k in range(5):
+    for k in range(steps):
         if k == 2:
             a, b = card.adapt(), cpu.adapt()
             check(a == b, f"{label}: adapt changed card {a} cpu {b}")
@@ -2739,17 +2823,26 @@ def phase_canonical(dev) -> tuple[dict, dict]:
     launches of the two canonical runs per forest kernel."""
     runs = {"canonical": []}
     seen = {}
+    start = None
     for p in (None, "fas"):
-        runs["canonical"].append(run_canonical(
-            dev, p, keep=seen if p == "fas" else None))
+        # fas starts from the default run's copy at step 10
+        out, start = run_canonical(dev, p, keep=seen if p == "fas" else None,
+                                   start=start)
+        runs["canonical"].append(out)
+    del start
     launches = {k: sum(r["launches"].get(k, 0) for r in runs["canonical"])
                 for k in CANON_KEYS}
     runs["kernels"] = canonical_kernels(seen)
     del seen
-    runs["card_vs_cpu"] = [phase_canonical_cpu(dev, "fas"),
-                           phase_canonical_cpu(dev, None),
+    t0 = time.perf_counter()
+    start = canonical_startup(dev)
+    runs["card_vs_cpu"] = [phase_canonical_cpu(dev, "fas", start=start),
+                           phase_canonical_cpu(dev, None, start=start),
                            phase_canonical_cpu(dev, None, 1e-6, 1e-5,
-                                               hold=False)]
+                                               hold=False, steps=3)]
+    del start
+    print(f"phase 12 card vs CPU took {time.perf_counter() - t0} s",
+          flush=True)
     runs["collision"] = phase_collision(dev)
     return runs, launches
 
@@ -2972,9 +3065,9 @@ def phase_periodic_kernels(dev, res, size: int = 8192) -> None:
 
 def run_periodic(dev, pois: str, level: int = PERIODIC_LEVEL) -> dict:
     """Phase 13's main path under one solver: ``cases.make_sim(
-    "tgv_periodic")`` at level 10 (8192^2, f32), 3 startup steps (exact
-    solves) and 5 production ones, each group timed; the launch counts
-    from 0 and the twins watched over the 8 steps."""
+    "tgv_periodic")`` at level 10 (8192^2, f32), 1 startup step (an exact
+    solve) and 5 production ones, each group timed; the launch counts
+    from 0 and the twins watched over the 6 steps."""
     with latched(pois):
         sim = cases.make_sim("tgv_periodic", level=level, device=dev)
     check(sim.kernel_tier == "hopper+bc(pd,pd,pd,pd)",
@@ -2985,7 +3078,7 @@ def run_periodic(dev, pois: str, level: int = PERIODIC_LEVEL) -> dict:
     out = {"case": "tgv_periodic", "mode": sim.poisson_mode,
            "tier": sim.kernel_tier, "shape": [sim.grid.ny, sim.grid.nx]}
     with twin_watch() as tw:
-        for label, n in (("startup", 3), ("production", 5)):
+        for label, n in (("startup", 1), ("production", 5)):
             if label == "production":
                 sim.step_count = 10
             iters = []
@@ -3007,8 +3100,8 @@ def run_periodic(dev, pois: str, level: int = PERIODIC_LEVEL) -> dict:
     check(not any(tw.calls.values()), f"{label}: a twin ran on the card: "
           f"{tw.calls}")
     check(la.get("fused_advect_heun+pd", 0) == la.get("fused_advect_heun")
-          == 16 and la.get("fused_correction+pd", 0)
-          == la.get("fused_correction") == 8,
+          == 12 and la.get("fused_correction+pd", 0)
+          == la.get("fused_correction") == 6,
           f"{label}: substage / correction launches {la}")
     check(la.get("fused_jacobi_sweeps+pd", 0)
           == la.get("fused_jacobi_sweeps", 0)
@@ -3178,18 +3271,26 @@ def phase_periodic(dev, res) -> tuple[dict, dict]:
     no twin on the card); the solves of bench.py's fftd arms; card against
     CPU at 128^2; the KE decay. Returns the runs and the launches of the
     four new counters over the main-path runs."""
+    t = [time.perf_counter()]
     phase_periodic_kernels(dev, res)
+    t.append(time.perf_counter())
     runs = {"tgv_periodic": [run_periodic(dev, p)
                              for p in ("", "fas", "fftd")],
             "channel": [run_periodic_channel(dev, p)
                         for p in ("fftd", "fas")]}
+    t.append(time.perf_counter())
     every = runs["tgv_periodic"] + runs["channel"]
     launches = {k: sum(r["launches"].get(k, 0) for r in every)
                 for k in PERIODIC_KEYS}
     runs["solves"] = periodic_solves(dev)
+    t.append(time.perf_counter())
     runs["card_vs_cpu"] = [phase_periodic_cpu(dev, p)
                            for p in ("fftd", "fas")]
     runs["ke_decay"] = phase_ke_decay(dev)
+    t.append(time.perf_counter())
+    print(f"phase 13 seconds: kernels {t[1] - t[0]}, runs {t[2] - t[1]}, "
+          f"solves {t[3] - t[2]}, card vs CPU and KE {t[4] - t[3]}",
+          flush=True)
     return runs, launches
 
 
@@ -3200,8 +3301,8 @@ PHASE14_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 CANON_TDUMP = 1e-4       # under every step's dt: each run dumps every step
 CANON_CLI_STEPS = 22     # 10 startup, 12 production, the step-20 regrid
 CANON_CKPT_EVERY = 10
-FLAGSHIP_CLI_STEPS = 45  # 10 startup, 35 production
-FLAGSHIP_TRACE = (36, 39)  # CUP2D_TRACE wraps the steps of records 37-39
+FLAGSHIP_CLI_STEPS = 25  # 10 startup (the library loop's), 15 production
+FLAGSHIP_TRACE = (16, 19)  # CUP2D_TRACE wraps the steps of records 17-19
 FLAGSHIP_FLAGS = ("-bpdx 2 -bpdy 1 -levelMax 1 -levelStart 0 -Rtol 2 "
                   "-Ctol 1 -extent 4 -CFL 0.5 -tend 10 -lambda 1e7 "
                   "-nu 0.00004 -poissonTol 0.001 -poissonTolRel 0.01 "
@@ -3397,8 +3498,9 @@ def cli_summary(label: str, run: dict, lib_ms: float) -> dict:
         "production_ms_per_step": float(np.median(
             [r["wall_ms"] for r in timed])),
         "production_steps_timed": len(timed),
-        "startup_ms_per_step": float(np.median(
-            [r["wall_ms"] for r in recs if r["step"] <= 10] or [np.nan])),
+        "startup_ms_per_step": (float(np.median(
+            [r["wall_ms"] for r in recs if r["step"] <= 10]))
+            if recs[0]["step"] <= 10 else None),
         "library_loop_ms_per_step": lib_ms,
         "iters": [r["poisson_iters"] for r in recs],
         "dumps": len(dumps),
@@ -3420,8 +3522,11 @@ def cli_summary(label: str, run: dict, lib_ms: float) -> dict:
                                  for r in recs if r["step"] == 21],
     }
     if prod:
-        out.update(run["gc"].between(recs[9]["wall"], recs[-1]["wall"],
-                                     len(prod)))
+        # the production steps after the first record's wall time
+        first = recs.index(prod[0])
+        a = recs[first - 1] if first else prod[0]
+        out.update(run["gc"].between(a["wall"], recs[-1]["wall"],
+                                     recs[-1]["step"] - a["step"]))
     if run["steps"]:
         # the step_once calls are the steps of the records, in order
         check(len(run["steps"]) == len(recs),
@@ -3446,12 +3551,14 @@ def cli_summary(label: str, run: dict, lib_ms: float) -> dict:
     return out
 
 
-def flagship_loop(dev, steps: int) -> dict:
+def flagship_loop(dev, steps: int, ckpt: str) -> dict:
     """The flagship's library loop beside its CLI run: ``entry()``'s two
     fish at 1024 x 512 f32 under the default solver, ``initialize()`` and
     ``steps`` ``step_once`` steps, each timed on the host clock to a
     synchronize, as phase 11 does; the median production ms, its phases'
-    host ms, and the collector's ms a production step."""
+    host ms, and the collector's ms a production step. Its state after
+    the 10 startup steps is saved to ``ckpt``, where the CLI run starts."""
+    from cup2d_tpu_torch.io import save_checkpoint
     sim = Simulation(entry_cfg(), level=ENTRY_LEVEL, device=dev)
     sim.initialize()
     sync(dev)
@@ -3459,6 +3566,8 @@ def flagship_loop(dev, steps: int) -> dict:
     with GcClock() as gcc:
         for i in range(steps):
             if i == 10:
+                save_checkpoint(ckpt, sim)
+                sync(dev)
                 t_prod = time.time()
             t0 = time.perf_counter()
             sim.step_once()
@@ -3483,11 +3592,12 @@ def phase_cli(dev, canon_lib_ms: float, flagship_lib_ms: float
     held to it bit for bit (every common dump, the forces rows of steps
     11-22, the iterations of every step, the step-20 checkpoints' fields
     and meta), and the flagship (``entry()``'s two fish at 1024 x 512,
-    f32, 45 steps, three production steps traced) after its library loop
-    in this phase. Launch counts from 0 over each CLI run. Returns the
+    f32) through its library loop in this phase (25 steps) and through
+    the CLI from the loop's step-10 checkpoint (three production steps
+    traced). Launch counts from 0 over each CLI run. Returns the
     runs and the launches of kernels 4 (the canonical run), 2 and 5 (the
-    flagship). The canonical run's directory stays for phase 15, which
-    removes ``PHASE14_DIR``."""
+    flagship). The canonical run's directory stays for phases 15 and 17;
+    phase 17 removes ``PHASE14_DIR``."""
     shutil.rmtree(PHASE14_DIR, ignore_errors=True)
     dir_a = os.path.join(PHASE14_DIR, "canonical")
     dir_b = os.path.join(PHASE14_DIR, "restart")
@@ -3545,12 +3655,14 @@ def phase_cli(dev, canon_lib_ms: float, flagship_lib_ms: float
         "forces_rows": len(b["forces"]) - 1, "bit_for_bit": True}
     print(f"phase 14 canonical restart {json.dumps(runs['restart'])}",
           flush=True)
-    loop = flagship_loop(dev, FLAGSHIP_CLI_STEPS)
+    step10 = os.path.join(PHASE14_DIR, "flagship_step10")
+    loop = flagship_loop(dev, FLAGSHIP_CLI_STEPS, step10)
     print(f"phase 14 flagship library loop {json.dumps(loop)}", flush=True)
     hk.reset_launches()
     c = cli_run(FLAGSHIP_FLAGS.split() + [
         "-shapes", ENTRY_SHAPES, "-noSupervise", "-maxSteps",
-        str(FLAGSHIP_CLI_STEPS)], dir_c, trace=FLAGSHIP_TRACE)
+        str(FLAGSHIP_CLI_STEPS), "-restart", step10], dir_c,
+        trace=FLAGSHIP_TRACE)
     lf = {k: n for k, n in hk.launches.items() if n}
     runs["flagship"] = cli_summary("flagship cli", c, flagship_lib_ms)
     runs["flagship"]["launches"] = lf
@@ -3604,9 +3716,9 @@ DRILLS = (("retry", f"nan_vel@{DRILL_STEP}", None, ["retry"], 0),
            CANON_CKPT_EVERY, ["retry", "escalate", "disk_restore"], 0),
           ("abort", f"nan_vel@{DRILL_STEP}*4", None,
            ["retry", "escalate", "abort"], 1))
-LAG_STEPS = 11           # with snap_every 4: the anchor after 8, 3 replayed
+LAG_STEPS = 7            # with snap_every 4: the anchor after 4, 3 replayed
 LAG_WARM = 2             # the first production steps: dt and trigger settle
-LAG_TRACE = (8, 11)      # the torch.profiler window: the last 3 steps
+LAG_TRACE = (6, 7)       # the torch.profiler window: the last step
 SUPERVISED_KEYS = ("fused_advect_heun", "fused_lab_rhs", "fused_correction",
                    "fused_jacobi_sweeps", "fused_block_jacobi_update")
 FOREST_TWINS = TWINS + ("fused_lab_rhs_plain", "block_jacobi_plain")
@@ -3634,9 +3746,10 @@ def supervised_canonical(dev, dir_a: str, eager_ms: float) -> dict:
     StepGuard ring, one snapshot a step, the eager verdict of the shaped
     forest; held bit for bit to phase 14's run (every dump's bytes, the
     forces rows, each step's iterations). Then a ``-noSupervise`` run and
-    a supervised one more, so the production medians come in turns
-    (phase 14's, supervised, verdict-only, supervised), each run's
-    iterations phase 14's."""
+    a supervised one more, each restarted from phase 14's step-10
+    checkpoint (production steps only), so the production medians come
+    in turns (phase 14's, supervised, verdict-only, supervised), each
+    run's iterations phase 14's."""
     out = os.path.join(PHASE15_DIR, "canonical")
     run = cli_run(canon_cli_argv(supervised=True) + [
         "-maxSteps", str(CANON_CLI_STEPS), "-checkpointEvery",
@@ -3669,13 +3782,15 @@ def supervised_canonical(dev, dir_a: str, eager_ms: float) -> dict:
                                 if r["step"] > 10]))
     turns = {"noSupervise": [eager_ms], "supervised": [
         median_prod(run["records"])]}
+    step10 = os.path.join(dir_a, f"checkpoint.{CANON_CKPT_EVERY}")
     for k, sup in enumerate((False, True)):
         out_k = os.path.join(PHASE15_DIR, f"canonical_turn{k}")
         r = cli_run(canon_cli_argv(supervised=sup) + [
             "-maxSteps", str(CANON_CLI_STEPS), "-checkpointEvery",
-            str(CANON_CKPT_EVERY)], out_k)
+            str(CANON_CKPT_EVERY), "-restart", step10], out_k)
         check(r["rc"] == 0 and [(x["step"], x["poisson_iters"])
-                                for x in r["records"]] == iters,
+                                for x in r["records"]]
+              == [x for x in iters if x[0] > CANON_CKPT_EVERY],
               f"canonical in turns ({'supervised' if sup else 'verdict'}"
               f"): rc {r['rc']}")
         turns["supervised" if sup else "noSupervise"].append(
@@ -3943,14 +4058,16 @@ def phase_supervised(dev, forest_start: tuple, canon_eager_ms: float,
     ``UniformSim``, both solvers): bit for bit the eager run with no more
     reads, and restore + replay bit for bit. Launches of kernels 2, 4, 5,
     6 and 8 from 0 over the phase; no twin called on the card's f32
-    operands. Removes phase 14's and its own files."""
+    operands. Removes its own files (phase 17 removes phase 14's)."""
     shutil.rmtree(PHASE15_DIR, ignore_errors=True)
     os.makedirs(PHASE15_DIR)
     dir_a = os.path.join(PHASE14_DIR, "canonical")
     hk.reset_launches()
     out = {}
     with twin_watch(FOREST_TWINS) as tw:
+        t0 = time.perf_counter()
         out["canonical"] = supervised_canonical(dev, dir_a, canon_eager_ms)
+        t1 = time.perf_counter()
         print(f"phase 15 supervised canonical cli "
               f"{json.dumps(out['canonical'])}", flush=True)
         out["drills"] = {}
@@ -3986,6 +4103,7 @@ def phase_supervised(dev, forest_start: tuple, canon_eager_ms: float,
                 s.step_count = 10
                 return s
             return mk
+        t2 = time.perf_counter()
         out["lag"] = {}
         for pois in ("", "fas"):
             name = pois or "default"
@@ -3993,6 +4111,8 @@ def phase_supervised(dev, forest_start: tuple, canon_eager_ms: float,
                 dev, f"forest {name}", forest(pois), card)
             out["lag"][f"uniform 8192^2 {name}"] = lag_pair(
                 dev, f"uniform 8192^2 {name}", uniform(pois), card)
+    print(f"phase 15 seconds: canonical {t1 - t0}, drills {t2 - t1}, lag "
+          f"{time.perf_counter() - t2}", flush=True)
     check(not any(tw.calls.values()),
           f"phase 15: twins called on the card's f32 operands {tw.calls}")
     launches = {k: hk.launches[k] for k in SUPERVISED_KEYS}
@@ -4000,7 +4120,6 @@ def phase_supervised(dev, forest_start: tuple, canon_eager_ms: float,
         check(n > 0, f"{k}: launched no time in the supervised runs")
     print(f"phase 15 launches {json.dumps(launches)}; card {card}",
           flush=True)
-    shutil.rmtree(PHASE14_DIR)
     shutil.rmtree(PHASE15_DIR)
     return out, launches
 
@@ -4018,7 +4137,7 @@ PHASE16_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # iterates every step
 FLEET_CURVES = (("tg", 256, (1, 8, 64)), ("tg", 1024, (1, 8, 32)),
                 ("turb2d", 1024, (1, 8, 32)))
-FLEET_WARM, FLEET_STEPS = 3, 20
+FLEET_WARM, FLEET_STEPS = 3, 10
 FLEET_KEYS = ("fused_advect_heun", "fused_correction", "fused_jacobi_sweeps")
 FLEET_SOLO_REL = 1e-5      # a member against its solo run (PERF.md §2)
 # the README's fleet flags at 1024^2 (-level 7), f32, 24 staggered
@@ -4104,8 +4223,8 @@ def fleet_curves(dev, card: str) -> dict:
 
 
 def fleet_card_bars(dev) -> dict:
-    """B = 1 against ``UniformSim`` at 256^2 from t = 0 (the exact startup
-    solves among 12 steps): bit for bit, clocks equal, no more reads; each
+    """B = 1 against ``UniformSim`` at 256^2 from t = 0 (6 of the exact
+    startup solves): bit for bit, clocks equal, no more reads; each
     member of a B = 8 fleet at 1024^2 (the benchmark velocity at
     amplitudes 0.8**m, 5 production steps) against its solo run:
     <= FLEET_SOLO_REL relative with equal iterations; a B = 4 fleet at
@@ -4123,7 +4242,7 @@ def fleet_card_bars(dev) -> dict:
         f.state = stack_states([taylor_green_state(f.grid)])
         u.state = taylor_green_state(u.grid)
         reads = [0, 0]
-        for _ in range(12):
+        for _ in range(6):
             p0 = shapes_host.pulls
             u.step_once()
             p1 = shapes_host.pulls
@@ -4310,19 +4429,28 @@ def phase_fleet(dev, card: str) -> tuple[dict, dict]:
     with twin_watch(TWINS) as tw:
         hk.reset_launches()
         with solo_steps() as solo:
+            t0 = time.perf_counter()
             out["curves"] = fleet_curves(dev, card)
+            t1 = time.perf_counter()
             runs = {"unfaulted": serve_run(os.path.join(PHASE16_DIR,
                                                         "serve"))}
+            t2 = time.perf_counter()
             out["resume"] = serve_resume(dev)
+            print(f"phase 16 seconds: curves {t1 - t0}, serving {t2 - t1}, "
+                  f"resume {time.perf_counter() - t2}", flush=True)
         launches = {k: hk.launches[k] for k in FLEET_KEYS}
         check(solo.n == 0, f"phase 16: {solo.n} solo member steps among "
               "the fleet steps' launches")
+        t0 = time.perf_counter()
         out["bars"] = fleet_card_bars(dev)
+        t1 = time.perf_counter()
         print(f"phase 16 card bars {json.dumps(out['bars'])}", flush=True)
         hk.reset_launches()
         with solo_steps() as solo:
             runs["faulted"] = serve_run(os.path.join(PHASE16_DIR, "serve_f"),
                                         SERVE_FAULT)
+        print(f"phase 16 seconds: card bars {t1 - t0}, faulted serving "
+              f"{time.perf_counter() - t1}", flush=True)
         faulted = {k: hk.launches[k] for k in FLEET_KEYS}
         faulted["solo_member_steps"] = solo.n
     check(not any(tw.calls.values()),
@@ -4370,6 +4498,382 @@ def phase_fleet(dev, card: str) -> tuple[dict, dict]:
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the forest on a mesh and the forest's left-overs
+# ---------------------------------------------------------------------------
+
+PHASE17_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase17")
+MESH_STEPS = 6           # production steps after the adapt: 2 warm, 3
+MESH_TIMED = (2, 5)      # timed to a synchronize, the last traced
+MESH_CLI_STEPS = 12      # the canonical CLI on the mesh: 10 startup, 2
+#                          production (phase 14 runs 22)
+FOREST_MESH_KEYS = ("fused_lab_rhs", "fused_block_jacobi_update")
+
+
+def _gathered(sim) -> dict:
+    return {k: sim._gather(v) for k, v in sim._ordered_state().items()}
+
+
+def mesh_forest_run(sim, label: str, seen: dict | None = None) -> dict:
+    """One adapt, then ``MESH_STEPS`` production steps of ``sim``: each
+    step's iterations and lab-RHS / block-Jacobi launches, ms a step over
+    ``MESH_TIMED`` to a synchronize, and the last step traced
+    (``torch.profiler``: idle share). ``seen`` collects the last per-shard
+    operands of kernels 4 and 8."""
+    dev = sim.device
+    sync(dev)
+    t0 = time.perf_counter()
+    changed = sim.adapt()
+    sim._refresh()
+    sync(dev)
+    adapt_s = time.perf_counter() - t0
+    iters, launches = [], []
+    trace = os.path.join(PHASE17_DIR, f"{label.replace(' ', '_')}.json")
+    lab_rhs, upd = tamr.fused_lab_rhs, tsh.fused_block_jacobi_update
+    if seen is not None:
+        def keep_lab(lab, h, nu, dt):
+            seen["lab"] = (lab, h, nu, dt)
+            return lab_rhs(lab, h, nu, dt)
+
+        def keep_upd(e, r, lap, p_inv):
+            seen["upd"] = (e, r, lap, p_inv)
+            return upd(e, r, lap, p_inv)
+        tamr.fused_lab_rhs, tsh.fused_block_jacobi_update = keep_lab, keep_upd
+    try:
+        for k in range(MESH_STEPS):
+            if k == MESH_TIMED[0]:
+                sync(dev)
+                t_timed = time.perf_counter()
+            if k == MESH_TIMED[1]:
+                sync(dev)
+                timed = time.perf_counter() - t_timed
+                prof = _profiled(trace)
+                prof.__enter__()
+            hk.reset_launches()
+            d = sim.step_once()
+            launches.append({k2: hk.launches[k2] for k2 in FOREST_MESH_KEYS})
+            iters.append(d["poisson_iters"])
+            check(d["finite"], f"{label}: non-finite state at step {k}")
+        sync(dev)
+        prof.__exit__(None, None, None)
+    finally:
+        tamr.fused_lab_rhs, tsh.fused_block_jacobi_update = lab_rhs, upd
+    n = MESH_TIMED[1] - MESH_TIMED[0]
+    return {"mode": sim.poisson_mode, "blocks": len(sim.forest.blocks),
+            "n_pad": sim._npad_hwm, "adapt_changed": changed,
+            "adapt_s": adapt_s, "iters": iters,
+            "ms_per_step": 1e3 * timed / n, "launches": launches,
+            "trace": trace_summary(trace, 1)}
+
+
+def phase_mesh_forest(dev, forest_start: tuple, card: str
+                      ) -> tuple[dict, dict]:
+    """Phase 17 (a): phase 5's forest as a ``ShardedAMRSim`` on
+    ``MESH_D`` shards of the card against the same forest solo, under the
+    default solver and fas: one adapt and ``MESH_STEPS`` production steps
+    each; equal iterations and topologies, velocity and pressure within
+    ``SHARDED_REL`` of max |solo|; kernels 4 (and 8 under fas) launched
+    once per shard (lab RHS 2 x MESH_D a step); both held against their
+    twins on the last shard operands and timed at those shapes (by the
+    caller, outside its twin watch); halo bytes of one exchange. Returns
+    the runs, the split runs' launches and those operands."""
+    cfg, snap = forest_start
+    mesh = make_mesh(devices=[dev] * MESH_D)
+    out, total, seen = {}, {k: 0 for k in FOREST_MESH_KEYS}, {}
+    for pois in ("", "fas"):
+        name = pois or "default"
+        runs = {}
+        for label in ("solo", "split"):
+            with latched(pois or "structured"):
+                sim = (ShardedAMRSim(cfg, mesh, shapes=[]) if label == "split"
+                       else AMRSim(cfg, shapes=[], device=dev))
+            forest_from_numpy(sim, *snap)
+            sim.step_count = 10
+            runs[label] = mesh_forest_run(
+                sim, f"mesh forest {name} {label}",
+                seen if label == "split" else None)
+            runs[label]["keys"] = set(sim.forest.blocks)
+            runs[label]["state"] = _gathered(sim)
+            if label == "split":
+                runs[label]["comm"] = dict(sim._comm_stats)
+            del sim
+        solo, split = runs["solo"], runs["split"]
+        rel = max(float((split["state"][k] - solo["state"][k]).abs().max()
+                        / solo["state"][k].abs().max().clamp_min(1e-30))
+                  for k in ("vel", "pres"))
+        row = {"mode": split["mode"], "blocks": split["blocks"],
+               "n_pad": split["n_pad"], "shards": MESH_D,
+               "iters": split["iters"], "solo_iters": solo["iters"],
+               "rel": rel, "bit_for_bit": rel == 0.0,
+               "split_ms_per_step": split["ms_per_step"],
+               "solo_ms_per_step": solo["ms_per_step"],
+               "split_adapt_s": split["adapt_s"],
+               "solo_adapt_s": solo["adapt_s"],
+               "split_idle_share": split["trace"]["idle_share"],
+               "solo_idle_share": solo["trace"]["idle_share"],
+               "split_trace": split["trace"], "comm": split["comm"],
+               "launches_per_step": split["launches"][-1],
+               "solo_launches_per_step": solo["launches"][-1]}
+        print(f"phase 17 mesh forest {name} {json.dumps(row)}; card {card}",
+              flush=True)
+        check(split["keys"] == solo["keys"],
+              f"mesh forest {name}: the split adapt's topology differs")
+        check(split["iters"] == solo["iters"],
+              f"mesh forest {name}: iterations {split['iters']} != solo "
+              f"{solo['iters']}")
+        check(rel <= SHARDED_REL, f"mesh forest {name}: split vs solo "
+              f"{rel} > {SHARDED_REL}")
+        for k, (ls, lo, it) in enumerate(zip(split["launches"],
+                                             solo["launches"],
+                                             split["iters"])):
+            check(ls["fused_lab_rhs"] == MESH_D * lo["fused_lab_rhs"] == 2 *
+                  MESH_D, f"mesh forest {name} step {k}: lab-RHS launches "
+                  f"{ls} (solo {lo}) != 2 x {MESH_D}")
+            want = MESH_D * lo["fused_block_jacobi_update"]
+            check(ls["fused_block_jacobi_update"] == want
+                  and (want > 0) == (pois == "fas" and it > 0),
+                  f"mesh forest {name} step {k}: block-Jacobi launches {ls}"
+                  f" (solo {lo})")
+        for k in FOREST_MESH_KEYS:
+            total[k] += sum(ls[k] for ls in split["launches"])
+        out[name] = row
+    check(split["comm"]["halo_real_bytes"] > 0,
+          f"mesh forest: no halo bytes {split['comm']}")
+    return out, total, seen
+
+
+def _dump_attrs(d: str) -> dict:
+    from cup2d_tpu_torch.io import read_dump
+    names = sorted(n[:-len(".xdmf2")] for n in os.listdir(d)
+                   if n.startswith("vel.") and n.endswith(".xdmf2"))
+    return {n: read_dump(os.path.join(d, n)) for n in names}
+
+
+def _dumps_close(label: str, a: dict, b: dict, bar: float) -> tuple:
+    """Every common dump of two runs: the same time and geometry, the
+    velocities within ``bar`` of max |a|. Prints each dump's figures."""
+    common = sorted(set(a) & set(b))
+    check(len(common) >= 2, f"{label}: common dumps {common}")
+    rows = []
+    for n in common:
+        (ta, xa, va), (tb, xb, vb) = a[n], b[n]
+        same = ta == tb and xa.shape == xb.shape and np.array_equal(xa, xb)
+        rel = (float(np.abs(va - vb).max() / max(np.abs(va).max(), 1e-30))
+               if va.shape == vb.shape else float("inf"))
+        rows.append((n, ta, tb, same, rel))
+    print(f"phase 17 {label}: {json.dumps(rows)}", flush=True)
+    for n, ta, tb, same, rel in rows:
+        check(same, f"{label}: {n} time {ta} / {tb} or geometry differs")
+    worst = max(r[4] for r in rows)
+    check(worst <= bar, f"{label}: dumps {worst} > {bar}")
+    return len(common), worst
+
+
+def phase_mesh_cli(dev, card: str) -> dict:
+    """Phase 17 (b): ``main(["-device", "cuda:<i>", "-mesh", "4", <run.sh
+    flags>])``, supervised, ``MESH_CLI_STEPS`` steps with a dump each and
+    a step-10 checkpoint: every dump within ``SHARDED_REL`` of phase 14's
+    unsharded run; its ``-mesh 4`` restart from that checkpoint bit for
+    bit its own run (dumps, iterations), and the restart without
+    ``-mesh`` within ``SHARDED_REL``. Kernel 4 launched 2 x MESH_D a
+    step."""
+    dev_s = f"cuda:{torch.device(dev).index or torch.cuda.current_device()}"
+    dir_a = os.path.join(PHASE14_DIR, "canonical")
+    dir_m, dir_r, dir_s = (os.path.join(PHASE17_DIR, n)
+                           for n in ("mesh", "restart", "solo"))
+    argv = canon_cli_argv(supervised=True) + [
+        "-device", dev_s, "-maxSteps", str(MESH_CLI_STEPS),
+        "-checkpointEvery", str(CANON_CKPT_EVERY)]
+    mesh = ["-mesh", str(MESH_D)]
+    hk.reset_launches()
+    m = cli_run(argv + mesh, dir_m, keep=True)
+    lm = {k: n for k, n in hk.launches.items() if n}
+    check(m["rc"] == 0, f"mesh canonical cli: rc {m['rc']}")
+    check(lm.get("fused_lab_rhs", 0) == 2 * MESH_D * MESH_CLI_STEPS,
+          f"mesh canonical cli: launches {lm}")
+    dumps_m = _dumps_close("mesh canonical cli vs phase 14",
+                           _dump_attrs(dir_m), _dump_attrs(dir_a),
+                           SHARDED_REL)
+    step10 = os.path.join(dir_m, f"checkpoint.{CANON_CKPT_EVERY}")
+    r = cli_run(argv + mesh + ["-restart", step10], dir_r)
+    s_ = cli_run(argv + ["-restart", step10], dir_s)
+    check(r["rc"] == 0 and s_["rc"] == 0,
+          f"mesh restarts: rc {r['rc']}, {s_['rc']}")
+    am, ar = _dump_attrs(dir_m), _dump_attrs(dir_r)
+    common = sorted(set(am) & set(ar))
+    check(len(common) >= 2 and all(
+        np.array_equal(am[n][2], ar[n][2]) for n in common),
+        f"mesh restart: dumps {common} not bit for bit")
+    it_m = [(x["step"], x["poisson_iters"]) for x in m["records"]
+            if x["step"] > CANON_CKPT_EVERY]
+    it_r = [(x["step"], x["poisson_iters"]) for x in r["records"]]
+    check(it_m == it_r, f"mesh restart: iterations {it_m} != {it_r}")
+    dumps_s = _dumps_close("restart without -mesh", am, _dump_attrs(dir_s),
+                           SHARDED_REL)
+    rec = m["records"][-1]
+    out = {"seconds": m["seconds"], "steps": len(m["records"]),
+           "production_ms_per_step": float(np.median(
+               [x["wall_ms"] for x in m["records"]
+                if x["step"] > CANON_CKPT_EVERY])),
+           "startup_ms_per_step": float(np.median(
+               [x["wall_ms"] for x in m["records"]
+                if x["step"] <= CANON_CKPT_EVERY])),
+           "dumps_vs_phase14": dumps_m, "restart_bit_for_bit": True,
+           "restart_dumps": len(common), "solo_restart_vs_mesh": dumps_s,
+           "halo_real_bytes": rec["halo_real_bytes"],
+           "halo_padded_bytes": rec["halo_padded_bytes"],
+           "n_blocks": rec["n_blocks"], "launches": lm,
+           "restart_seconds": r["seconds"], "solo_seconds": s_["seconds"]}
+    check(rec["halo_real_bytes"] is not None,
+          "mesh canonical cli: no halo bytes in the metrics")
+    print(f"phase 17 mesh canonical cli {json.dumps(out)}; card {card}",
+          flush=True)
+    return out
+
+
+def forest_ms(sim, steps: int = 4) -> tuple[float, list]:
+    """ms a production step of ``sim`` over ``steps`` steps after one warm
+    step, to a synchronize, and the iterations."""
+    dev = sim.device
+    iters = [sim.step_once()["poisson_iters"]]
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        iters.append(sim.step_once()["poisson_iters"])
+    sync(dev)
+    return 1e3 * (time.perf_counter() - t0) / steps, iters
+
+
+def phase_leftovers(dev, forest_start: tuple, card: str) -> dict:
+    """Phase 17 (c): ``CUP2D_POIS=tables`` on phase 6's 355-block forest
+    (card against CPU at phase 6's default tolerances; ms a step against
+    ``structured``); ``CUP2D_PREC=bf16`` with fas on phase 5's forest
+    (iterations and ms a step against f32 fas) and on phase 6's forest
+    card against CPU within ``BF16_BAND``; ``adapt()`` at phase 5's 10,529
+    blocks with the C regrid helper against ``_fix_states_py`` (equal
+    topologies); ``-mesh 4`` on the uniform CLI path, 4 production steps
+    at 1024^2 from a Taylor-Green checkpoint at step 10."""
+    out = {}
+    phase_forest_cpu(dev, "tables", tol=1e-6, tol_rel=1e-5)
+    for pois in ("structured", "tables"):
+        with latched(pois):
+            sim = multilevel_forest(dtype="float32", device=dev)
+        ms, it = forest_ms(sim)
+        out[f"multilevel {pois}"] = {
+            "ms_per_step": ms, "iters": it, "blocks": len(sim.forest.blocks)}
+    os.environ["CUP2D_PREC"] = "bf16"
+    try:
+        phase_forest_cpu(dev, "fas", bar=BF16_BAND)
+    finally:
+        os.environ.pop("CUP2D_PREC", None)
+    cfg, snap = forest_start
+    for prec in ("f32", "bf16"):
+        with latched("fas", prec):
+            sim = AMRSim(cfg, shapes=[], device=dev)
+        forest_from_numpy(sim, *snap)
+        sim.step_count = 10
+        ms, it = forest_ms(sim)
+        out[f"vortex fas {prec}"] = {"ms_per_step": ms, "iters": it,
+                                     "smoother_tier": sim.smoother_tier}
+    check(out["vortex fas bf16"]["smoother_tier"] == "strip+bf16",
+          f"bf16 forest: tier {out['vortex fas bf16']['smoother_tier']}")
+    # the regrid's 2:1 sweeps: the C helper against its Python twin
+    adapted = {}
+    for helper in ("native", "python"):
+        sim = AMRSim(cfg, shapes=[], device=dev)
+        forest_from_numpy(sim, *snap)
+        sim._refresh()
+        fix = sim._fix_states
+        secs = []
+        if helper == "python":
+            def fix_py(lv, biv, bjv, st, sim=sim):
+                state = {(int(lv[k]), int(biv[k]), int(bjv[k])): int(st[k])
+                         for k in range(len(st))}
+                sim._fix_states_py(state)
+                for k in range(len(st)):
+                    st[k] = state[(int(lv[k]), int(biv[k]), int(bjv[k]))]
+            fix = fix_py
+
+        def timed_fix(*a, fix=fix):
+            t0 = time.perf_counter()
+            fix(*a)
+            secs.append(time.perf_counter() - t0)
+        sim._fix_states = timed_fix
+        sync(dev)
+        t0 = time.perf_counter()
+        changed = sim.adapt()
+        sim._refresh()
+        sync(dev)
+        adapted[helper] = set(sim.forest.blocks)
+        out[f"adapt {helper}"] = {"adapt_s": time.perf_counter() - t0,
+                                  "fix_states_s": sum(secs),
+                                  "changed": changed,
+                                  "blocks": len(sim.forest.blocks)}
+        del sim
+    check(adapted["native"] == adapted["python"],
+          "adapt: the C helper's topology differs from the Python sweep's")
+    # the uniform path on -mesh 4: production steps 11-14, restarted from
+    # a Taylor-Green checkpoint at step 10 (the split default solver's
+    # exact startup solves take seconds a step)
+    from cup2d_tpu_torch.io import save_checkpoint
+    argv = ["-bpdx", "1", "-bpdy", "1", "-levelMax", "1", "-levelStart",
+            "0", "-AdaptSteps", "20", "-Rtol", "2", "-Ctol", "1", "-extent",
+            "1", "-CFL", "0.4", "-nu", "4e-5", "-lambda", "1e6",
+            "-poissonTol", "1e-3", "-poissonTolRel", "1e-2",
+            "-maxPoissonRestarts", "0", "-maxPoissonIterations", "100",
+            "-tend", "1", "-tdump", "0", "-level", "7", "-dtype", "float32"]
+    tg = UniformSim(SimConfig.from_argv(argv), level=7, device=dev)
+    tg.state = taylor_green_state(tg.grid)
+    tg.step_count = 10
+    ck = os.path.join(PHASE17_DIR, "uniform_step10")
+    save_checkpoint(ck, tg)
+    del tg
+    hk.reset_launches()
+    u = cli_run(argv + ["-maxSteps", "14", "-restart", ck, "-device",
+                        f"cuda:{torch.cuda.current_device()}", "-mesh",
+                        str(MESH_D)], os.path.join(PHASE17_DIR, "uniform"))
+    lu = {k: n for k, n in hk.launches.items() if n}
+    check(u["rc"] == 0 and lu.get("advect_substage_halo", 0)
+          == 2 * MESH_D * 4, f"uniform -mesh {MESH_D}: rc {u['rc']}, "
+          f"launches {lu}")
+    out["uniform mesh cli"] = {"seconds": u["seconds"], "launches": lu,
+                               "ms_per_step": [x["wall_ms"]
+                                               for x in u["records"]]}
+    print(f"phase 17 left-overs {json.dumps(out)}; card {card}", flush=True)
+    return out
+
+
+def phase_mesh(dev, forest_start: tuple, forest_warm: tuple, card: str
+               ) -> tuple[dict, dict]:
+    """Phase 17: (a) the sharded forest (from ``forest_warm``), (b) the
+    canonical CLI on a mesh, (c) the forest's left-overs (from
+    ``forest_start``). Removes phase 14's and its own files."""
+    shutil.rmtree(PHASE17_DIR, ignore_errors=True)
+    os.makedirs(PHASE17_DIR)
+    out = {}
+    with twin_watch(FOREST_TWINS) as tw:
+        t0 = time.perf_counter()
+        out["forest"], launches, seen = phase_mesh_forest(dev, forest_warm,
+                                                          card)
+        out["forest_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["cli"] = phase_mesh_cli(dev, card)
+        out["cli_s"] = time.perf_counter() - t0
+    check(not any(tw.calls.values()),
+          f"phase 17: twins called on the card's f32 operands {tw.calls}")
+    out["forest"]["kernels"] = canonical_kernels(seen, "phase 17 per shard")
+    del seen
+    t0 = time.perf_counter()
+    out["leftovers"] = phase_leftovers(dev, forest_start, card)
+    out["leftovers_s"] = time.perf_counter() - t0
+    print(f"phase 17 took (a) {out['forest_s']} s (b) {out['cli_s']} s "
+          f"(c) {out['leftovers_s']} s", flush=True)
+    shutil.rmtree(PHASE14_DIR)
+    shutil.rmtree(PHASE17_DIR)
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4393,6 +4897,7 @@ def main() -> int:
             elif line.startswith("nvcc "):
                 print(f"phase 1 {stem}.cu: {line}", flush=True)
 
+    t2 = time.perf_counter()
     res = phase_kernels(dev)
     phase_halo_kernels(dev, res)
     phase_bc_kernels(dev, res)
@@ -4408,6 +4913,8 @@ def main() -> int:
     phase_halo_sweep_levels(dev, res)
     print(f"phase 2 halo sweep levels took {time.perf_counter() - t0} s",
           flush=True)
+    print(f"phase 2 took {time.perf_counter() - t2} s", flush=True)
+    t0 = time.perf_counter()
 
     uniform = ("fused_advect_heun", "fused_correction",
                "fused_jacobi_sweeps")
@@ -4418,6 +4925,8 @@ def main() -> int:
         check(n > 0, f"{k}: launched no time on the uniform main path")
 
     phase_trajectory(dev)
+    print(f"phases 3-4 took {time.perf_counter() - t0} s", flush=True)
+    t0 = time.perf_counter()
 
     forest_runs, forest_launches, forest_start = phase_forest(dev)
     for k, n in forest_launches.items():
@@ -4426,6 +4935,8 @@ def main() -> int:
 
     phase_forest_cpu(dev, "fas")
     phase_forest_cpu(dev, tol=1e-6, tol_rel=1e-5)
+    print(f"phases 5-6 took {time.perf_counter() - t0} s", flush=True)
+    t0 = time.perf_counter()
 
     sharded = phase_sharded(dev)
     for k in ("advect_substage_halo", "jacobi_halo_sweep"):
@@ -4434,7 +4945,10 @@ def main() -> int:
     # the single-op RHS lies on no path: its launches are phase 2's
     launches["advect_diffuse_rhs"] = res["advect_diffuse_rhs"]["launches"]
 
+    print(f"phase 7 took {time.perf_counter() - t0} s", flush=True)
+    t0 = time.perf_counter()
     walled, walled_launches = phase_walled(dev)
+    print(f"phase 8 took {time.perf_counter() - t0} s", flush=True)
     for k, n in walled_launches.items():
         check(n > 0, f"{k}: launched no time on the wall-bounded path")
     launches.update(walled_launches)
@@ -4477,12 +4991,20 @@ def main() -> int:
         shaped["flagship"][0]["production"]["ms_per_step"])
     print(f"phase 14 took {time.perf_counter() - t0} s", flush=True)
     t0 = time.perf_counter()
+    forest_warm = warm_forest(dev, forest_start)
     supervised, sup_launches = phase_supervised(
-        dev, forest_start, cli["canonical"]["production_ms_per_step"], card)
+        dev, forest_warm, cli["canonical"]["production_ms_per_step"], card)
     print(f"phase 15 took {time.perf_counter() - t0} s", flush=True)
     t0 = time.perf_counter()
     fleet, fleet_launches = phase_fleet(dev, card)
     print(f"phase 16 took {time.perf_counter() - t0} s", flush=True)
+    t0 = time.perf_counter()
+    mesh_runs, mesh_launches = phase_mesh(dev, forest_start, forest_warm,
+                                          card)
+    print(f"phase 17 took {time.perf_counter() - t0} s", flush=True)
+    for k in FOREST_MESH_KEYS:
+        check(mesh_launches[k] > 0, f"{k}: launched no time on the forest "
+              "mesh path")
     check("jax" not in sys.modules, "the smoke imported jax")
     check("validation" not in sys.modules, "the smoke imported validation")
 
@@ -4501,6 +5023,8 @@ def main() -> int:
                     periodic_launches=periodic_launches.get(k, 0),
                     supervised_launches=sup_launches.get(k, 0),
                     fleet_launches=fleet_launches.get(k, 0),
+                    forest_mesh_launches=mesh_launches.get(k, 0),
+                    forest_mesh=mesh_runs["forest"]["kernels"].get(k),
                     **({k2: res[k][k2] for k2 in ("ulps", "fft_ms")
                         if k2 in res[k]}))
                for k in hk.launches]
@@ -4517,6 +5041,7 @@ def main() -> int:
     print(f"run driver summary: {json.dumps(cli)}")
     print(f"supervised runs summary: {json.dumps(supervised)}")
     print(f"fleet summary: {json.dumps(fleet)}")
+    print(f"forest mesh summary: {json.dumps(mesh_runs)}")
     print(f"total {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

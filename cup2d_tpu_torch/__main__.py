@@ -51,11 +51,21 @@ no ``spans.jsonl``); SIGTERM writes ``<output>/checkpoint`` and exits 0.
 ``CUP2D_TRACE=start:stop[:logdir]`` wraps steps [start, stop) in
 ``torch.profiler``.
 
+``-mesh N|all`` splits the run over a device mesh (the JAX CLI's
+branches, ``cup2d_tpu/__main__.py:182-289``): the forest path builds
+``parallel.forest_mesh.ShardedAMRSim`` (the canonical run, shapes and
+all), the uniform path a Taylor-Green-seeded
+``parallel.mesh.ShardedUniformSim`` (obstacle-free only), and ``-case
+cavity`` its split form; dumps and checkpoints keep the global layout, so
+a checkpoint restarts on any mesh or on none. ``all`` takes every visible
+card, ``N`` the first N cards; with ``-device`` naming one device, ``-mesh
+N`` puts N shards on it (four shards on one card, or on the CPU).
+
 What the port cannot do yet is refused with rc 2 before any work, naming
-its ROADMAP queue 1 item: ``-mesh`` (with or without ``-fleet``) and the
-multi-process, elastic and mirror flags (item 8); ``-profile``,
-``-spansLog`` and span ring capacities in ``CUP2D_SPANS`` (item 9). The
-JAX CLI's usage errors exit 2 with its messages.
+its ROADMAP queue 1 item: ``-fleet`` with ``-mesh`` (the fleet's placement
+on a mesh) and the multi-process, elastic and mirror flags (item 8);
+``-profile``, ``-spansLog`` and span ring capacities in ``CUP2D_SPANS``
+(item 9). The JAX CLI's usage errors exit 2 with its messages.
 Flags that only turn off what the port lacks (``-noSpans``,
 ``-noMemLedger``, ``-noMirror``) are accepted.
 """
@@ -73,7 +83,6 @@ _PREFIX = "cup2d_tpu_torch"
 
 # flag -> (ROADMAP queue 1 item, what it asks for)
 _REFUSED = {
-    "mesh": (8, "the mesh launcher"),
     "coordinator": (8, "multi-process bring-up"),
     "meshHosts": (8, "multi-process bring-up"),
     "processId": (8, "multi-process bring-up"),
@@ -107,6 +116,14 @@ def _refusal(p) -> str | None:
     if p.has("elastic") and not p.has("mesh"):
         return ("-elastic needs -mesh with at least 2 devices; "
                 + _not_ported("the elastic topology guard", 8))
+    if p.has("fleet") and p.has("mesh"):
+        return ("-fleet has its own placement policy (fleet.py) and does "
+                "not combine with -mesh; "
+                + _not_ported("the fleet's placement on a mesh", 8))
+    if p.has("mesh") and p.has("device") \
+            and p("mesh").asString() == "all":
+        return ("-mesh all takes every visible card; with -device, give "
+                "the shard count (-mesh N puts N shards on that device)")
     for flag, (item, what) in _REFUSED.items():
         if p.has(flag):
             return f"-{flag}: " + _not_ported(what, item)
@@ -145,6 +162,16 @@ def main(argv=None) -> int:
     from .uniform import resolve_device
     device = resolve_device(p("device").asString() if p.has("device")
                             else None)
+    # -mesh: every visible card (all), the first N cards, or N shards on
+    # the one device -device names
+    mesh = None
+    if p.has("mesh"):
+        from .parallel.mesh import make_mesh
+        spec = p("mesh").asString()
+        if p.has("device"):
+            mesh = make_mesh(devices=[device] * int(spec))
+        else:
+            mesh = make_mesh(None if spec == "all" else int(spec))
     os.makedirs(outdir, exist_ok=True)
 
     from . import faults
@@ -172,6 +199,14 @@ def main(argv=None) -> int:
                       "only)", file=sys.stderr)
                 return 2
             kw["members"] = fleet_n
+        if mesh is not None:
+            if case_name != "cavity":
+                print(f"{_PREFIX}: -case {case_name} does not combine with "
+                      "-mesh (the sharded path is obstacle-free only)",
+                      file=sys.stderr)
+                return 2
+            del kw["device"]
+            kw["mesh"] = mesh
         sim = make_sim(case_name, **kw)
         cfg = sim.cfg
         # -tend/-tdump override the case's schedule (the grid and
@@ -194,9 +229,25 @@ def main(argv=None) -> int:
             # sessions arrive through the queue)
             sim.seed_taylor_green()
     elif uniform:
-        from .sim import Simulation
         level = p("level").asInt() if p.has("level") else cfg.level_start
-        sim = Simulation(cfg, level=level, device=device)
+        if mesh is not None:
+            if cfg.shapes:
+                print(f"{_PREFIX}: -mesh on the uniform path is "
+                      "obstacle-free only (ShardedUniformSim)",
+                      file=sys.stderr)
+                return 2
+            from .parallel.mesh import ShardedUniformSim
+            from .uniform import taylor_green_state
+            sim = ShardedUniformSim(cfg, mesh, level=level)
+            if not p.has("restart"):
+                # an obstacle-free zero state would be a trivial run
+                sim.set_state(taylor_green_state(sim.grid))
+        else:
+            from .sim import Simulation
+            sim = Simulation(cfg, level=level, device=device)
+    elif mesh is not None:
+        from .parallel.forest_mesh import ShardedAMRSim
+        sim = ShardedAMRSim(cfg, mesh)
     else:
         from .amr import AMRSim
         sim = AMRSim(cfg, device=device)

@@ -46,11 +46,13 @@ block-Jacobi GEMM are full-f32 products in the reference.
 
 Environment, latched once per sim as the reference does: ``CUP2D_POIS``
 (unset/structured: BiCGSTAB + block-Jacobi with the iters>15 two-level
-trigger; fft: the two-level correction always on in its mg2 form;
-fas/fas-f: the forest FAS hierarchy as the production solver) and
-``CUP2D_TWOLEVEL`` (additive|mult|mg2, forcing one two-level form). Not
-ported yet, and refused with a ValueError: ``CUP2D_POIS=tables`` and
-``CUP2D_PREC=bf16`` (the bf16 FAS ladder legs; ROADMAP queue 1 item 7).
+trigger, on the structured per-face operator; tables: the same solver on
+the lab-table form of the operator, ``flux.build_poisson_tables``; fft:
+the two-level correction always on in its mg2 form; fas/fas-f: the forest
+FAS hierarchy as the production solver), ``CUP2D_TWOLEVEL``
+(additive|mult|mg2, forcing one two-level form) and ``CUP2D_PREC`` (bf16,
+with fas|fas-f and f32 state only: the FAS cycle's window-image ladder
+legs in bf16, ``poisson.ForestFASCycle(leg_dtype=)``).
 ``async_diag`` (set by ``resilience.StepGuard(lag=True)``) makes the
 obstacle-free step read nothing: dt stays a device scalar and the guard's
 lagged verdict settles the clock; the shaped step verdicts eagerly.
@@ -68,11 +70,12 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from . import native
 from .config import SimConfig
 from .flux import (apply_flux_corr, build_flux_corr,
-                   build_poisson_structured, diffusive_deposits,
-                   divergence_deposits, flux_corr, gradient_deposits,
-                   poisson_apply_structured, poisson_op)
+                   build_poisson_structured, build_poisson_tables,
+                   diffusive_deposits, divergence_deposits, flux_corr,
+                   gradient_deposits, poisson_apply_structured, poisson_op)
 from .forest import Forest
 from .halo import (_TopoIndex, _bucket, assemble_labs,
                    assemble_labs_ordered, build_face_copy, build_tables,
@@ -86,8 +89,9 @@ from .ops.obstacle import (chi_from_sdf, midline_udef_packed, pack_midline,
                            polygon_sdf_seg, shape_integrals,
                            solve_rigid_momentum)
 from .ops.stencil import (divergence, dt_from_umax, heun_substage,
-                          pressure_gradient_update, vorticity)
-from .poisson import (ForestFASCycle, _down2_mean, _up2_bilinear,
+                          laplacian5, pressure_gradient_update, vorticity)
+from .parallel.shard_halo import per_shard
+from .poisson import (ForestFASCycle, _down2_mean, _reducers, _up2_bilinear,
                       apply_block_precond_blocks, bicgstab,
                       block_precond_matrix, coarse_neumann_solve_dct,
                       dct_neumann_operators, mg_solve)
@@ -186,25 +190,33 @@ class AMRSim(ShapeHostMixin):
                 "CUP2D_POIS=fftd is a uniform-family solve (FFT "
                 "diagonalization over a periodic single-level box); the "
                 "forest has no periodic gather-table ghosts")
-        if pois == "tables":
-            raise ValueError(
-                "CUP2D_POIS=tables (the lab-table form of the forest "
-                "Poisson operator) is not ported yet: use "
-                "structured|fft|fas|fas-f")
-        if pois not in ("structured", "fft", "fas", "fas-f"):
+        if pois not in ("structured", "tables", "fft", "fas", "fas-f"):
             raise ValueError(f"CUP2D_POIS={pois!r}: expected "
                              "structured|tables|fft|fas|fas-f")
         twolevel = os.environ.get("CUP2D_TWOLEVEL")
         if twolevel not in (None, "additive", "mult", "mg2"):
             raise ValueError(f"CUP2D_TWOLEVEL={twolevel!r}: "
                              "expected additive|mult|mg2")
+        # the forest's one CUP2D_PREC reading: bf16 storage of the FAS
+        # cycle's window-image ladder legs only (cup2d_tpu/amr.py:224-252)
         prec = os.environ.get("CUP2D_PREC", "") or "f32"
-        if prec == "bf16":
-            raise ValueError(
-                "CUP2D_PREC=bf16 (bf16 storage of the forest FAS ladder "
-                "legs) is not ported yet; unset it")
-        if prec != "f32":
+        if prec not in ("f32", "bf16"):
             raise ValueError(f"CUP2D_PREC={prec!r}: expected f32|bf16")
+        self._fas_leg_dtype = None
+        if prec == "bf16":
+            if pois not in ("fas", "fas-f"):
+                raise ValueError(
+                    "CUP2D_PREC=bf16 on the forest selects the bf16-leg FAS "
+                    "tier and requires CUP2D_POIS=fas|fas-f (got "
+                    f"CUP2D_POIS={pois!r}): the forest has no bf16 "
+                    "advection tier, so the latch would otherwise relabel "
+                    "an f32 run.")
+            if cfg.dtype != "float32":
+                raise ValueError(
+                    f"CUP2D_PREC=bf16 needs f32 solver state (got "
+                    f"{cfg.dtype}): the bf16 legs accumulate in f32; an "
+                    "f64 outer loop would cast through f32 silently.")
+            self._fas_leg_dtype = torch.bfloat16
         self._pois_mode = pois
         self._twolevel_form = twolevel
         self.device = resolve_device(device)
@@ -353,12 +365,8 @@ class AMRSim(ShapeHostMixin):
                                         topo=topo)
         fc = build_face_copy(f, self._order, n_pad, topo)
         self._tables = self._finalize_tables(raw, n_pad, fc)
-        self._tables["pois"] = poisson_op(
-            build_poisson_structured(f, self._order, n_pad, topo=topo),
-            self.device, self.dtype)
-        self._corr = flux_corr(
-            build_flux_corr(f, self._order, n_pad=n_pad, topo=topo),
-            self.device, self.dtype)
+        self._tables["pois"] = self._build_pois(topo, n_pad)
+        self._corr = self._finalize_corr(topo, n_pad)
         # topology changed: the two-level trigger re-arms from scratch,
         # iteration evidence included (it described the old forest).
         # Startup (steps < 10) always uses the coarse maps; production
@@ -480,16 +488,35 @@ class AMRSim(ShapeHostMixin):
     _FAST_SETS = {"vec3": True, "vec1": False, "sca1": False,
                   "sca4t": True, "vec4t": True}
 
+    # table placement hooks (parallel.forest_mesh.ShardedAMRSim splits the
+    # hot-loop sets into per-device rows behind a surface exchange plan)
     def _finalize_tables(self, raw: dict, n_pad: int, fc) -> dict:
         out = {}
         for k, t in raw.items():
-            if k in self._FAST_SETS:
+            if fc is not None and k in self._FAST_SETS:
                 host = make_fast_tables(t, fc[0], fc[1], n_pad,
                                         corners=self._FAST_SETS[k])
             else:
                 host = pad_tables(t, n_pad)
             out[k] = lab_tables(host, self.device, self.dtype)
         return out
+
+    def _build_pois(self, topo, n_pad: int):
+        """The Poisson operator (``cup2d_tpu/amr.py:671-683``): the
+        structured per-face form, or under ``CUP2D_POIS=tables`` the
+        lab-table form (padded plain tables, no face-copy path)."""
+        if self._pois_mode == "tables":
+            t = build_poisson_tables(self.forest, self._order, topo=topo)
+            return lab_tables(pad_tables(t, n_pad), self.device, self.dtype)
+        return poisson_op(
+            build_poisson_structured(self.forest, self._order, n_pad,
+                                     topo=topo), self.device, self.dtype)
+
+    def _finalize_corr(self, topo, n_pad: int):
+        """The flux-correction rows (``cup2d_tpu/amr.py:685-687``)."""
+        return flux_corr(
+            build_flux_corr(self.forest, self._order, n_pad=n_pad,
+                            topo=topo), self.device, self.dtype)
 
     # ------------------------------------------------------------------
     # ordered working state
@@ -511,10 +538,21 @@ class AMRSim(ShapeHostMixin):
             # end-state umax and next dt describe the overwritten field
             self._next_dt = None
             self._next_umax = None
-        self._ord = {name: fld[self._order_j]
+        self._ord = {name: self._put_ordered(fld[self._order_j])
                      for name, fld in f.fields.items()}
         self._ord_key = key
         return self._ord
+
+    def _put_ordered(self, x):
+        """Placement hook of an ordered [n_pad, ...] tensor
+        (``parallel.forest_mesh.ShardedAMRSim`` splits it over its
+        mesh)."""
+        return x
+
+    @staticmethod
+    def _gather(x):
+        """The whole ordered tensor of a placed one (identity here)."""
+        return x
 
     def sync_fields(self):
         """Write the ordered working state back into the slot-layout
@@ -526,7 +564,7 @@ class AMRSim(ShapeHostMixin):
         order = self._index(self._order)
         for name, x in self._ord.items():
             fld = f.fields[name]
-            fld[order] = x[:self._n_real]
+            fld[order] = self._gather(x)[:self._n_real]
             f.fields[name] = fld
         self._ord_key = (f.version, f.fields.wver)
         self._ord_dirty = False
@@ -575,7 +613,7 @@ class AMRSim(ShapeHostMixin):
         v = vold
         for c in (0.5, 1.0):
             lab = assemble_labs_ordered(v if c == 1.0 else vel, t3)
-            rhs = fused_lab_rhs(lab, h, nu, dt)
+            rhs = per_shard(fused_lab_rhs, lab, h, nu, dt)
             rhs = apply_flux_corr(
                 rhs, diffusive_deposits(lab, 3, nu * dt), corr)
             v = heun_substage(vold, c, rhs, ih2) * maskv
@@ -600,19 +638,26 @@ class AMRSim(ShapeHostMixin):
             ulab = assemble_labs_ordered(udef_b, t1v)
             b = b - fac * chi * divergence(ulab, 1)
         b = apply_flux_corr(
-            b, divergence_deposits(vlab, ulab, chi, fac[:, 0, 0]), corr)
+            b, per_shard(divergence_deposits, vlab, ulab, chi,
+                         fac[:, 0, 0]), corr)
         # max |div u| of the pre-projection velocity, from the RHS
         div_linf = torch.amax(
             torch.abs(b) * maskv[:, 0] * (dt / (h[:, 0] * h[:, 0])))
 
-        def A(x):
-            return poisson_apply_structured(x, tpois)
+        if hasattr(tpois, "nba"):
+            # the structured per-face operator (one device or per device)
+            def A(x):
+                return poisson_apply_structured(x, tpois)
+        else:
+            # CUP2D_POIS=tables: laplacian5 of the makeFlux-ghost lab
+            def A(x):
+                return laplacian5(assemble_labs_ordered(x[:, None], tpois),
+                                  1)[:, 0]
 
         # initial-guess subtraction through A itself
         b = b - A(pord)
-
-        def M(r):
-            return apply_block_precond_blocks(r, self.p_inv)
+        reducers = self._reducers()
+        M = self._precond
 
         if tcoarse is not None:
             dctops = tcoarse["dct"]
@@ -630,26 +675,23 @@ class AMRSim(ShapeHostMixin):
                     rc = _deposit(r * cih2)
                     ec = coarse_neumann_solve_dct(
                         rc, dctops, self._coarse_h2)
-                    return _interp(ec, r) + apply_block_precond_blocks(
-                        r, self.p_inv)
+                    return _interp(ec, r) + self._precond(r)
             elif form == "mg2":
                 def M(r):
-                    e = apply_block_precond_blocks(r, self.p_inv)
+                    e = self._precond(r)
                     r1 = r - A(e)
                     rc = _deposit(r1 * cih2)
                     ec = coarse_neumann_solve_dct(
                         rc, dctops, self._coarse_h2)
                     e = e + _interp(ec, r)
-                    return e + apply_block_precond_blocks(
-                        r - A(e), self.p_inv)
+                    return e + self._precond(r - A(e))
             else:
                 def M(r):
                     rc = _deposit(r * cih2)
                     ec = coarse_neumann_solve_dct(
                         rc, dctops, self._coarse_h2)
                     e = _interp(ec, r)
-                    return e + apply_block_precond_blocks(
-                        r - A(e), self.p_inv)
+                    return e + self._precond(r - A(e))
 
         if self._pois_mode in ("fas", "fas-f") and not exact_poisson:
             # the forest FAS hierarchy as the production solver;
@@ -657,13 +699,14 @@ class AMRSim(ShapeHostMixin):
             paint_fine, base_solve, extract_all = \
                 self._fas_transfers(tcoarse)
             mgc = ForestFASCycle(
-                A, self._fas_block_smoother(A), paint_fine, base_solve,
-                extract_all, cih2)
+                A, self._fas_block_smoother(A, tpois), paint_fine,
+                base_solve, extract_all, cih2,
+                leg_dtype=self._fas_leg_dtype)
             res = mg_solve(
                 A, b, mgc,
                 tol=cfg.poisson_tol, tol_rel=cfg.poisson_tol_rel,
                 max_cycles=cfg.max_poisson_iterations,
-                fmg=self._pois_mode == "fas-f")
+                fmg=self._pois_mode == "fas-f", reducers=reducers)
         else:
             # cold startup solves start from x0 = M(b), which removes the
             # global pressure modes before the Krylov iteration; exact
@@ -684,6 +727,7 @@ class AMRSim(ShapeHostMixin):
                 refresh_every=10 if exact_poisson else 50,
                 stall_iters=15 if exact_poisson else 120,
                 stall_rtol=0.99 if exact_poisson else 0.999,
+                reducers=reducers,
             )
 
         # volume-weighted mean removal (main.cpp:7120-7173)
@@ -696,7 +740,8 @@ class AMRSim(ShapeHostMixin):
         plab = assemble_labs_ordered(p_new[:, None], t1s)
         dv = pressure_gradient_update(plab[:, 0], 1, h, dt)
         pfac = -0.5 * dt * h[:, 0, 0, 0]
-        dv = apply_flux_corr(dv, gradient_deposits(plab[:, 0], pfac), corr)
+        dv = apply_flux_corr(
+            dv, per_shard(gradient_deposits, plab[:, 0], pfac), corr)
         v = (v + dv * ih2) * maskv
         return v, p_new[:, None], res, div_linf
 
@@ -824,7 +869,18 @@ class AMRSim(ShapeHostMixin):
 
         return paint_fine, base_solve, extract_all
 
-    def _fas_block_smoother(self, A):
+    @staticmethod
+    def _reducers():
+        """The solves' (dot, linf, zeros_like) factory
+        (``poisson._reducers``)."""
+        return _reducers
+
+    def _precond(self, r):
+        """z = P_inv r per block: the block-Jacobi preconditioner's GEMM
+        (``poisson.apply_block_precond_blocks``)."""
+        return apply_block_precond_blocks(r, self.p_inv)
+
+    def _fas_block_smoother(self, A, tpois=None):
         """Composite-level smoother of the forest FAS cycle: damped
         block-Jacobi sweeps e += P_inv (r - A e). Each sweep's update is
         ``fused_block_jacobi_update`` (the kernel on the card); the
@@ -833,10 +889,10 @@ class AMRSim(ShapeHostMixin):
 
         def smooth(e, r, n, from_zero=False):
             if from_zero and n > 0:
-                e = apply_block_precond_blocks(r, p_inv)
+                e = self._precond(r)
                 n -= 1
             for _ in range(n):
-                e = fused_block_jacobi_update(e, r, A(e), p_inv)
+                e = per_shard(fused_block_jacobi_update, e, r, A(e), p_inv)
             return e
 
         return smooth
@@ -866,11 +922,16 @@ class AMRSim(ShapeHostMixin):
     def smoother_tier(self) -> str:
         """"strip" when the FAS composite smoother runs the block-Jacobi
         kernel (fas modes on the card), else "xla" (the plain
-        composition, as in the reference's XLA tier)."""
+        composition, as in the reference's XLA tier); a "+bf16" suffix
+        when the window-image ladder legs store bf16
+        (``cup2d_tpu/amr.py:1265-1277``)."""
+        base = "xla"
         if self._pois_mode in ("fas", "fas-f") \
                 and self.device.type == "cuda":
-            return "strip"
-        return "xla"
+            base = "strip"
+        if self._fas_leg_dtype is not None:
+            return base + "+bf16"
+        return base
 
     @property
     def kernel_tier(self) -> str:
@@ -1034,14 +1095,11 @@ class AMRSim(ShapeHostMixin):
     # device: rasterization, chi, integrals (ongrid, main.cpp:4208-4630)
     # ------------------------------------------------------------------
     def _rasterize_impl(self, inputs, xc, yc, h3, hsq, t1s):
-        bs = self.cfg.bs
-        dtype = self.dtype
         N = xc.shape[0]
         S = len(self.shapes)
 
         # per-shape window rasterization, scattered into block layout
-        sdf = torch.full((N, bs, bs), _raster_neg(self.cfg), dtype=dtype,
-                         device=xc.device)
+        sdf = torch.full_like(xc, _raster_neg(self.cfg))
         per = []
         for k in range(S):
             inp = inputs[k]
@@ -1052,7 +1110,7 @@ class AMRSim(ShapeHostMixin):
         # chi from the COMBINED sdf lab at each block's own h
         # (PutChiOnGrid, main.cpp:3911-3969)
         slab = assemble_labs_ordered(sdf[:, None], t1s)[:, 0]
-        chi = torch.zeros((N, bs, bs), dtype=dtype, device=xc.device)
+        chi = torch.zeros_like(xc)
         chi_s, sdf_s, udef_s = [], [], []
         coms, masses, inertias = [], [], []
         for k in range(S):
@@ -1152,7 +1210,7 @@ class AMRSim(ShapeHostMixin):
         return [surface_forces_blocks(
             velp, pord, chip, sdfp, obs.udef_s[k].transpose(0, 1),
             obs.sdf_s[k], xc, yc, obs.com[k], uvw[k], self.cfg.nu, hflat,
-            G=4) for k in range(len(self.shapes))]
+            G=4, apply=per_shard) for k in range(len(self.shapes))]
 
     def _prolong_impl(self, field, parents, order, t):
         """Parent blocks -> [R, 4, dim, BS, BS] children by the
@@ -1258,7 +1316,8 @@ class AMRSim(ShapeHostMixin):
         """The real blocks' chi into the slot-layout field."""
         f = self.forest
         fld = f.fields["chi"].clone()
-        fld[self._index(self._order)] = obs.chi[:self._n_real, None]
+        fld[self._index(self._order)] = \
+            self._gather(obs.chi)[:self._n_real, None]
         f.fields["chi"] = fld
 
     def _raster_radius(self, s) -> float:
@@ -1374,8 +1433,8 @@ class AMRSim(ShapeHostMixin):
         self._write_chi(obs)
         self._sync_shape_scalars(obs)
         vel = f.fields["vel"][self._order_j]
-        udef = self._combined_udef(obs).transpose(0, 1)
-        chi_b = obs.chi[:, None]
+        udef = self._gather(self._combined_udef(obs).transpose(0, 1))
+        chi_b = self._gather(obs.chi[:, None])
         fld = f.fields["vel"].clone()
         fld[self._index(self._order)] = \
             (vel * (1.0 - chi_b) + udef * chi_b)[:self._n_real]
@@ -1563,12 +1622,13 @@ class AMRSim(ShapeHostMixin):
             tags = self._tags_impl(
                 ordf["vel"], ordf["chi"], self._h, self._tables["vec1"],
                 self._tables["sca4t"],
-                torch.as_tensor(finest, device=self.device))
+                self._put_ordered(torch.as_tensor(finest,
+                                                  device=self.device)))
         else:
             tags = self._vorticity_impl(
                 ordf["vel"], self._h, self._tables["vec1"])
         # back in the field dtype: the thresholds compare as before
-        (tags_np,) = pull(tags)
+        (tags_np,) = pull(self._gather(tags))
         tags = tags_np.astype(self.forest.np_dtype)[:self._n_real]
         order = self._order
         # 1 = refine, -1 = compress, 0 = leave
@@ -1595,18 +1655,19 @@ class AMRSim(ShapeHostMixin):
         return True
 
     def _fix_states(self, lv, biv, bjv, st):
-        """2:1 balance sweeps on ``st`` in place (the pure-Python body;
-        the JAX package's native C helper is not ported)."""
-        state = {(int(lv[k]), int(biv[k]), int(bjv[k])): int(st[k])
-                 for k in range(len(st))}
-        self._fix_states_py(state)
-        for k in range(len(st)):
-            st[k] = state[(int(lv[k]), int(biv[k]), int(bjv[k]))]
+        """2:1 balance sweeps on ``st`` (int8) in place: the native C
+        helper (``native.fix_states``, the JAX package's
+        ``cup2d_tpu/native/amr_host.c``)."""
+        cfg = self.cfg
+        native.fix_states(lv, biv, bjv, st, cfg.level_max, cfg.bpdx,
+                          cfg.bpdy)
 
     def _fix_states_py(self, state):
-        """Finest level first (main.cpp:4734-4861): a block with a
-        refining finer neighbour must refine; compressing next to a finer
-        or refining neighbour must stay."""
+        """The native helper's Python twin, on a {(l, i, j): state} dict
+        (the tests hold the helper to it). Finest level first
+        (main.cpp:4734-4861): a block with a refining finer neighbour must
+        refine; compressing next to a finer or refining neighbour must
+        stay."""
         f = self.forest
         cfg = self.cfg
         for m in range(cfg.level_max - 1, -1, -1):

@@ -7,8 +7,10 @@ correction, the counterpart of ``cup2d_tpu.flux``.
    the operator needs two block-row gathers per face plus fixed [BS, BS]
    tangential maps built once from the D1/D2 tables
    (``build_poisson_structured`` on the host, ``poisson_apply_structured``
-   on the device). The lab-table form of the JAX package
-   (``CUP2D_POIS=tables``) is not ported.
+   on the device). ``CUP2D_POIS=tables`` takes the lab-table form
+   instead: ghost expressions that make ``laplacian5`` of an assembled
+   lab the same matrix (``_PoissonLabBuilder``, ``build_poisson_tables``,
+   built by ``halo.build_tables``; ``cup2d_tpu/flux.py:79-243``).
 
 2. **Flux correction for stencil kernels** (main.cpp:513-517 BlockCase,
    1392-1849 prepare0/fillcases). Every block computes its 4 face-deposit
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from .forest import Forest
-from .halo import _TopoIndex
+from .halo import Expr, HaloTables, _TopoIndex, build_tables
 
 # face order = the reference's BlockCase d[0..3] (main.cpp:513-517)
 _FACES = ((-1, 0), (1, 0), (0, -1), (0, 1))  # Xm, Xp, Ym, Yp
@@ -60,6 +62,153 @@ def _dkind(t: int, bs: int) -> str:
     if t == 0 or t == bs // 2:
         return "fd"
     return "ct"
+
+
+# ---------------------------------------------------------------------------
+# 1a. The Poisson operator as a lab-ghost builder (CUP2D_POIS=tables)
+# ---------------------------------------------------------------------------
+
+def _fine_subface(cx: int, cy: int, l: int, bi: int, bj: int, t: int,
+                  bs: int):
+    """For coarse block (l, bi, bj), face (cx, cy), face cell t: the
+    finer neighbor block key covering that cell and the tangential index
+    of the first of its two subface cells (the reference's Zchild +
+    neiFine1/neiFine2 addressing, main.cpp:5825-5914). Shared by the
+    Poisson closure and the flux-correction table so the two stay
+    index-consistent by construction."""
+    half = 1 if t >= bs // 2 else 0
+    if cx != 0:
+        a = 1 if cx < 0 else 0
+        fb = (l + 1, 2 * (bi + cx) + a, 2 * bj + half)
+    else:
+        b_ = 1 if cy < 0 else 0
+        fb = (l + 1, 2 * bi + half, 2 * (bj + cy) + b_)
+    return fb, 2 * (t % (bs // 2))
+
+
+class _PoissonLabBuilder:
+    """Ghost expressions making `laplacian5(lab)` the reference's
+    variable-resolution Poisson operator. Same constructor/`block_ghosts`
+    contract as `halo._LabBuilder` so `build_tables` grouping reuses it.
+    """
+
+    def __init__(self, forest, g: int, tensorial: bool, dim: int):
+        assert g == 1 and dim == 1
+        self.f = forest
+        self.bs = forest.bs
+        self.g = 1
+        self.dim = 1
+
+    def _cell(self, slot, cy, cx, w=1.0):
+        return Expr({(slot, cy, cx): np.full(1, w)})
+
+    def _tang(self, slot, edge_n, tc, table, xface: bool) -> Expr:
+        """D1/D2 expression at coarse cell (normal index edge_n,
+        tangential index tc), tangential steps within block `slot`."""
+        e = Expr()
+        for d, w in table[_dkind(tc, self.bs)]:
+            cy, cx = (tc + d, edge_n) if xface else (edge_n, tc + d)
+            e.add(self._cell(slot, cy, cx), w)
+        return e
+
+    def block_ghosts(self, slot: int):
+        f = self.f
+        bs = self.bs
+        l = int(f.level[slot])
+        bi = int(f.bi[slot])
+        bj = int(f.bj[slot])
+        nbx, nby = f.nblocks_at(l)
+        out: dict[tuple[int, int], Expr] = {}
+
+        for face, (cx, cy) in enumerate(_FACES):
+            xface = cx != 0
+            ni, nj = bi + cx, bj + cy
+            wall = not (0 <= ni < nbx and 0 <= nj < nby)
+            # own edge coords along the face, as (cy, cx) builders
+            edge_n = (0 if cx < 0 else bs - 1) if xface else \
+                     (0 if cy < 0 else bs - 1)
+
+            def own(t, depth=0):
+                n = edge_n + (1 if (cx < 0 or cy < 0) else -1) * depth
+                return (t, n) if xface else (n, t)
+
+            def lab_of(t):
+                if xface:
+                    lx = 0 if cx < 0 else bs + 1
+                    return (t + 1, lx)
+                ly = 0 if cy < 0 else bs + 1
+                return (ly, t + 1)
+
+            if wall:
+                # zero-Neumann wall: ghost = edge cell, flux = 0
+                # (the reference skips boundary faces entirely,
+                # main.cpp:7104 isBoundary)
+                for t in range(bs):
+                    oy, ox = own(t)
+                    out[lab_of(t)] = self._cell(slot, oy, ox)
+                continue
+
+            rel = f.owner_relation(l, ni, nj)
+            if rel == 0:
+                ns = f.slot(l, ni, nj)
+                n_edge = (bs - 1 if cx < 0 else 0) if xface else \
+                         (bs - 1 if cy < 0 else 0)
+                for t in range(bs):
+                    cyx = (t, n_edge) if xface else (n_edge, t)
+                    out[lab_of(t)] = self._cell(ns, *cyx)
+            elif rel == -2:
+                # fine side of a fine-coarse interface: interpolated
+                # ghost (interpolate(), signInt=+1, main.cpp:5943-5960)
+                cs = f.slot(l - 1, ni // 2, nj // 2)
+                assert cs >= 0
+                c_edge = (bs - 1 if cx < 0 else 0) if xface else \
+                         (bs - 1 if cy < 0 else 0)
+                par = (bj & 1) if xface else (bi & 1)
+                for t in range(bs):
+                    tc = t // 2 + par * (bs // 2)
+                    ccyx = (tc, c_edge) if xface else (c_edge, tc)
+                    st = -1.0 if t % 2 == 0 else 1.0
+                    e = Expr()
+                    e.add(self._cell(slot, *own(t)), 2.0 / 3.0)
+                    e.add(self._cell(slot, *own(t, 1)), -1.0 / 5.0)
+                    e.add(self._cell(cs, *ccyx), 8.0 / 15.0)
+                    e.add(self._tang(cs, c_edge, tc, _D1, xface),
+                          st * 8.0 / 15.0)
+                    e.add(self._tang(cs, c_edge, tc, _D2, xface),
+                          8.0 / 15.0)
+                    out[lab_of(t)] = e
+            elif rel == -1:
+                # coarse side: flux replacement by the two fine subfaces
+                # (makeFlux -1 branch; the paired D1 terms cancel,
+                # leaving -16/15 D2, main.cpp:5997-6013)
+                fe_close = bs - 1 if (cx < 0 or cy < 0) else 0
+                fe_far = fe_close + (-1 if fe_close == bs - 1 else 1)
+                for t in range(bs):
+                    fb, tf0 = _fine_subface(cx, cy, l, bi, bj, t, bs)
+                    fs = f.slot(*fb)
+                    assert fs >= 0
+                    e = Expr()
+                    e.add(self._cell(slot, *own(t)), 1.0 - 16.0 / 15.0)
+                    for tf in (tf0, tf0 + 1):
+                        ccyx = (tf, fe_close) if xface else (fe_close, tf)
+                        fcyx = (tf, fe_far) if xface else (fe_far, tf)
+                        e.add(self._cell(fs, *ccyx), 1.0 / 3.0)
+                        e.add(self._cell(fs, *fcyx), 1.0 / 5.0)
+                    e.add(self._tang(slot, edge_n, t, _D2, xface),
+                          -16.0 / 15.0)
+                    out[lab_of(t)] = e
+            else:  # pragma: no cover - 2:1 balance guarantees a neighbor
+                raise AssertionError("missing neighbor on balanced forest")
+        return out
+
+
+def build_poisson_tables(forest: Forest, order: np.ndarray,
+                         topo=None) -> HaloTables:
+    """g=1 scalar tables: `laplacian5(assemble_labs_ordered(x, t), 1)`
+    is the reference's variable-resolution Poisson matrix A."""
+    return build_tables(forest, order, 1, False, 1, topo=topo,
+                        builder_cls=_PoissonLabBuilder)
+
 
 
 class PoissonOp(NamedTuple):
@@ -196,7 +345,10 @@ def poisson_op(op: PoissonOp, device, dtype) -> PoissonOp:
 def poisson_apply_structured(x: torch.Tensor, op: PoissonOp) -> torch.Tensor:
     """A(x) for [n_pad, BS, BS] ordered x: within-block 5-point part
     plus the four per-face ghost strips (case-selected linear maps of
-    gathered neighbour strips)."""
+    gathered neighbour strips). Per-device rows
+    (``parallel.shard_halo.ShardPoissonOp``) apply themselves."""
+    if hasattr(op, "apply"):
+        return op.apply(x)
     return _structured_lap(
         x, x, op.nba, op.nbb, op.m_same, op.m_coarse, op.m_fine,
         op.m_wall, op.par, (op.wc0, op.wc1, op.mcl, op.mfr, op.d2own))
@@ -384,7 +536,10 @@ def apply_flux_corr(values: torch.Tensor, deposits: torch.Tensor,
     destination repeats, and the pad rows add exact zeros to one dead
     cell, so the card's atomics give the same bits on every run and a
     corner cell sums its two faces in row order, as the reference's
-    scatter does."""
+    scatter does. Per-device rows (``parallel.shard_halo.ShardFluxCorr``)
+    apply themselves."""
+    if hasattr(t, "apply"):
+        return t.apply(values, deposits)
     k = t.n_first
     if values.dim() == 3:
         flat = values.reshape(-1)

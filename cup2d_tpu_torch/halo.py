@@ -762,7 +762,10 @@ def assemble_labs(field: torch.Tensor, order: torch.Tensor,
 
 def assemble_labs_ordered(x: torch.Tensor, t: LabTables) -> torch.Tensor:
     """Same, for an operand already in SFC-ordered compact layout
-    [n_active, dim, BS, BS]."""
+    [n_active, dim, BS, BS]. Per-device tables
+    (``parallel.shard_halo.ShardTables``) assemble themselves."""
+    if hasattr(t, "assemble"):
+        return t.assemble(x)
     n, dim, bs, _ = x.shape
     flat = x.transpose(0, 1).reshape(dim, n * bs * bs)
     simple = flat[:, t.src_ord].T * t.sign

@@ -118,8 +118,10 @@ def _write_quads(path: str, time: float, xg, yg, x1, y1, u, v) -> None:
 
 def dump_uniform(path: str, time: float, vel, h: float,
                  origin=(0.0, 0.0)) -> None:
-    """Write a uniform-grid velocity field [2, Ny, Nx] (a tensor or numpy)
-    in the reference dump format, cells in row-major (y-outer) order."""
+    """Write a uniform-grid velocity field [2, Ny, Nx] (a tensor, a split
+    field or numpy) in the reference dump format, cells in row-major
+    (y-outer) order."""
+    vel = whole(vel)
     if torch.is_tensor(vel):
         (vel,) = pull(vel)
     vel = np.asarray(vel, dtype=np.float64)
@@ -170,6 +172,20 @@ def read_dump(path: str):
 # checkpoint / restore
 # ---------------------------------------------------------------------------
 
+def whole(v):
+    """A field of a sim on a mesh in the global layout (x-split ``Slabs``
+    gathered along x, split forest ``Blocks`` along the block axis, on
+    their mesh's first device); anything else as it is. Dumps,
+    checkpoints and snapshot restores across topologies write and read
+    this layout, so they restart on any mesh or on none."""
+    from .parallel.shard_halo import Blocks, Slabs, gather_blocks, gather_x
+    if isinstance(v, Slabs):
+        return gather_x(v)
+    if isinstance(v, Blocks):
+        return gather_blocks(v)
+    return v
+
+
 def _gather_state(sim):
     """The checkpoint payload (host numpy fields, one read) and meta dict.
     Forest: topology as (level, i, j) keys and the fields in SFC order
@@ -191,7 +207,7 @@ def _gather_state(sim):
         payload = {"__forest_keys": keys, **dict(zip(names, vals))}
     else:
         names = list(sim.state._fields)
-        vals = pull(*(getattr(sim.state, k) for k in names),
+        vals = pull(*(whole(getattr(sim.state, k)) for k in names),
                     keep_dtype=True)
         payload = dict(zip(names, vals))
     meta = {
@@ -382,10 +398,14 @@ def _install_state(sim, data, meta: dict, shapes) -> None:
                 sim._refresh()
             sim._ord_key = (f.version, f.fields.wver)
     else:
-        sim.state = type(sim.state)(**{
+        st = type(sim.state)(**{
             k: torch.tensor(np.asarray(data[k]), dtype=sim.grid.dtype,
                             device=sim.grid.device)
             for k in sim.state._fields})
+        if hasattr(sim, "mesh"):
+            sim.set_state(st)       # split over the sim's mesh
+        else:
+            sim.state = st
     # the cached next-dt state, cleared (the uniform checkpoint carries
     # none, as in the JAX package) or restored (the forest's dt_cache)
     for attr, cleared in (("_next_dt", None), ("_next_umax", None),
@@ -557,9 +577,13 @@ def snapshot_state_device(sim) -> DeviceSnapshot:
 
 
 def snapshot_nbytes(snap: DeviceSnapshot) -> int:
-    """Device bytes of one snapshot's fields (tensor metadata, no read)."""
-    return int(sum(v.numel() * v.element_size()
-                   for v in snap.payload.values()))
+    """Device bytes of one snapshot's fields (tensor metadata, no read;
+    every part of a split field)."""
+    def nbytes(v):
+        if hasattr(v, "parts"):
+            return sum(p.numel() * p.element_size() for p in v.parts)
+        return v.numel() * v.element_size()
+    return int(sum(nbytes(v) for v in snap.payload.values()))
 
 
 def _restore_cache(sim, snap: DeviceSnapshot, fver=None) -> None:
@@ -623,7 +647,8 @@ def restore_snapshot_device(sim, snap: DeviceSnapshot) -> None:
             }
             n_real = meta["n_real"]
             data = {"__forest_keys": meta["keys"],
-                    **{k: v[:n_real] for k, v in snap.payload.items()}}
+                    **{k: whole(v)[:n_real]
+                       for k, v in snap.payload.items()}}
             shapes = (pickle.loads(snap.shapes_pkl)
                       if snap.shapes_pkl is not None else None)
             _install_state(sim, data, m2, shapes)

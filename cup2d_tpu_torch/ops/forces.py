@@ -219,15 +219,39 @@ def _finish(sums, uvw):
     return out
 
 
+# the per-block sums of ``surface_forces_block``, in its order
+BLOCK_SUM_KEYS = (
+    "perimeter", "circulation", "forcex", "forcey", "forcex_P", "forcey_P",
+    "forcex_V", "forcey_V", "torque", "torque_P", "torque_V",
+    "thrust", "drag", "lift", "Pout", "PoutBnd", "defPower", "defPowerBnd",
+)
+
+
+def surface_forces_block_sums(*args, **kw) -> tuple:
+    """``surface_forces_block``'s per-block sums as a tuple in
+    ``BLOCK_SUM_KEYS`` order."""
+    out = surface_forces_block(*args, **kw)
+    return tuple(out[k] for k in BLOCK_SUM_KEYS)
+
+
 def surface_forces_blocks(velp, pres, chip, sdfp, udef, own_sdf, xc, yc,
-                          com, uvw, nu, h, G=4):
+                          com, uvw, nu, h, G=4, apply=None):
     """Forest path: the core over [N] blocks at once (velp [N, 2, L, L],
     labs [N, L, L], interiors [N, ...], udef [N, 2, BS, BS], h [N]; com,
     uvw and nu shared), each block's partial sums then summed over the
-    blocks. Returns the 19 ``FORCE_KEYS`` as 0-dim tensors."""
-    per_block = surface_forces_block(velp, pres, chip, sdfp, udef, own_sdf,
-                                     xc, yc, com, uvw, nu, h, G)
-    return _finish({k: torch.sum(v) for k, v in per_block.items()}, uvw)
+    blocks. ``apply(fn, *args, **kw)`` runs the per-block core (each
+    block reads its own lab only: ``parallel.shard_halo.per_shard`` runs
+    it once per shard of split blocks). Returns the 19 ``FORCE_KEYS`` as
+    0-dim tensors."""
+    sums = (apply or _call)(surface_forces_block_sums, velp, pres, chip,
+                            sdfp, udef, own_sdf, xc, yc, com, uvw, nu, h,
+                            G)
+    return _finish({k: torch.sum(v) for k, v in zip(BLOCK_SUM_KEYS, sums)},
+                   uvw)
+
+
+def _call(fn, *args, **kw):
+    return fn(*args, **kw)
 
 
 def surface_forces(vel, pres, chi, sdf, udef, own_sdf, com, uvw, nu, h):

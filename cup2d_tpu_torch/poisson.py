@@ -919,12 +919,22 @@ class ForestFASCycle:
     exactly by the DCT-II solve (``base_solve``). The transfer closures
     come from ``AMRSim._fas_transfers``. ``__call__`` runs a V-cycle
     (block pre-smooth first); ``fcycle`` opens base level first (no
-    pre-smooth) for cold right-hand sides. Every leg runs at solver
-    precision (the JAX package's bf16 leg tier is not ported)."""
+    pre-smooth) for cold right-hand sides.
+
+    ``leg_dtype`` (bf16 under ``CUP2D_PREC=bf16``; the JAX package's
+    ``ForestFASCycle``, ``cup2d_tpu/poisson.py:1153-1230``) is the storage
+    dtype of the window-image ladder legs only: one downcast per painted
+    level, the V-down and V-up smooths, restrictions and prolongations in
+    it, the restricted RHS cast back up at the door of the base solve
+    (which stays at solver precision), and the level errors cast back up
+    before ``extract_all``. The composite block smooth and ``mg_solve``'s
+    true residual stay at solver precision. None: every leg at solver
+    precision."""
 
     def __init__(self, A, smooth_blocks, paint_fine, base_solve,
                  extract_all, cih2, nu_img: int = 2,
-                 omega: float = 0.8, nu_pre: int = 1, nu_post: int = 1):
+                 omega: float = 0.8, nu_pre: int = 1, nu_post: int = 1,
+                 leg_dtype=None):
         self.A = A
         self.smooth_blocks = smooth_blocks
         self.paint_fine = paint_fine
@@ -935,6 +945,7 @@ class ForestFASCycle:
         self.omega = omega
         self.nu_pre = nu_pre
         self.nu_post = nu_post
+        self.leg_dtype = leg_dtype
 
     def _img_smooth(self, e, r, n: int, from_zero: bool = False):
         # damped Jacobi on the Neumann-ghost window image; interior
@@ -955,6 +966,9 @@ class ForestFASCycle:
             r1 = r
         rdiv = r1 * self.cih2            # divided residual per block
         rimgs = self.paint_fine(rdiv)    # finest -> c+1, undivided
+        legs = self.leg_dtype
+        if legs is not None:
+            rimgs = [R.to(legs) for R in rimgs]
         # V-down over the window-image levels: smooth, restrict the
         # smoothed residual one ladder step, fold in the next level's
         # own deposit (undivided restriction = sum of 4)
@@ -970,13 +984,19 @@ class ForestFASCycle:
             racc = rows[:, 0::2] + rows[:, 1::2]
         # exact spectral base solve (folds the <= c deposits of rdiv in);
         # awin = the window slice of the base correction
+        if legs is not None and racc is not None:
+            racc = racc.to(rdiv.dtype)
         ec, awin = self.base_solve(rdiv, racc)
         # V-up: prolongate, add the stored level error, post-smooth
         # against the stored accumulated RHS
+        if legs is not None and rimgs:
+            awin = awin.to(legs)
         for i in range(len(rimgs) - 1, -1, -1):
             a = _up2_bilinear(awin) + es[i]
             awin = self._img_smooth(a, accs[i], self.nu_img)
             es[i] = awin
+        if legs is not None:
+            es = [el.to(rdiv.dtype) for el in es]
         corr = self.extract_all(ec, es)
         e = corr if e is None else e + corr
         return self.smooth_blocks(e, r, self.nu_post)

@@ -464,7 +464,7 @@ class MetricsRecorder:
                 kv = getattr(sim, key, None)
             rec[key] = str(kv) if kv is not None else None
         rec.update(self._amr_fields(sim))
-        rec.update(halo_real_bytes=None, halo_padded_bytes=None)
+        rec.update(self._comm_fields(sim))
         rec.update(self._counter_fields(sim))
         rec.update(self._guard_fields())
         rec["fleet_members"] = fleet_b or None
@@ -527,6 +527,17 @@ class MetricsRecorder:
         return {"n_blocks": self._lvl_cache[2],
                 "blocks_per_level": self._lvl_cache[1],
                 "refines": ref_d, "coarsens": coa_d}
+
+    @staticmethod
+    def _comm_fields(sim) -> dict:
+        """The halo bytes of one hot-loop vector exchange on a mesh
+        (``ShardedAMRSim._comm_stats``: real and on the wire), null
+        without one (``cup2d_tpu/profiling.py:676-681``)."""
+        st = getattr(sim, "_comm_stats", None)
+        if not st:
+            return {"halo_real_bytes": None, "halo_padded_bytes": None}
+        return {"halo_real_bytes": int(st["halo_real_bytes"]),
+                "halo_padded_bytes": int(st["halo_padded_bytes"])}
 
     def _counter_fields(self, sim) -> dict:
         if self.counters is None:

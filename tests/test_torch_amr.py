@@ -10,7 +10,8 @@
 * The production two-level trigger (iters > 15) on the multilevel forest
   engages at the same step as in JAX, with equal iteration counts.
 * The device policy, and a ValueError for every latch value that the port
-  does not take; a shaped sim builds and steps."""
+  (or the JAX package) refuses: ``CUP2D_PREC=bf16`` needs fas|fas-f; a
+  shaped sim builds and steps."""
 
 import dataclasses
 
@@ -204,12 +205,11 @@ def test_f64_on_the_card_refuses():
 
 
 @pytest.mark.parametrize("env,value,match", [
-    ("CUP2D_POIS", "tables", "not ported yet"),
     ("CUP2D_POIS", "fftd", "uniform-family"),
     ("CUP2D_POIS", "", "expected structured"),
     ("CUP2D_POIS", "typo", "expected structured"),
     ("CUP2D_TWOLEVEL", "typo", "expected additive"),
-    ("CUP2D_PREC", "bf16", "not ported yet"),
+    ("CUP2D_PREC", "bf16", "requires CUP2D_POIS=fas"),
     ("CUP2D_PREC", "f16", "expected f32"),
 ])
 def test_latches_refuse_loudly(monkeypatch, env, value, match):
@@ -221,7 +221,8 @@ def test_latches_refuse_loudly(monkeypatch, env, value, match):
 
 @pytest.mark.parametrize("pois,twolevel,mode", [
     ("structured", None, "bicgstab+jacobi"), ("fft", "mg2", "bicgstab+fft"),
-    ("fas", "mult", "fas+forest"), ("fas-f", None, "fas-f+forest")])
+    ("fas", "mult", "fas+forest"), ("fas-f", None, "fas-f+forest"),
+    ("tables", None, "bicgstab+jacobi")])
 def test_latches_accepted(monkeypatch, pois, twolevel, mode):
     monkeypatch.setenv("CUP2D_POIS", pois)
     if twolevel:

@@ -468,8 +468,10 @@ def test_bf16_latch_refusals(monkeypatch):
         UniformGrid(SimConfig(**_cfg32(dtype="float64")), level=2,
                     device="cpu")
     monkeypatch.setenv("CUP2D_POIS", "fas")
-    with pytest.raises(ValueError, match="CUP2D_PREC"):
-        AMRSim(SimConfig(**_cfg32(level_max=3, level_start=1)), shapes=[],
+    # the forest's bf16 FAS legs need f32 state (and fas, as here)
+    with pytest.raises(ValueError, match="CUP2D_PREC=bf16 needs f32"):
+        AMRSim(SimConfig(**_cfg32(level_max=3, level_start=1,
+                                  dtype="float64")), shapes=[],
                device="cpu")
     monkeypatch.setenv("CUP2D_PREC", "bf8")
     with pytest.raises(ValueError, match="f32|bf16"):

@@ -299,7 +299,7 @@ def test_nan_restart_aborts_with_postmortem(tmp_path):
 REFUSALS = [
     (["-serve", "6"], "-serve N needs -fleet B (the slot pool it serves "
                       "through)"),
-    (["-mesh", "4"], 8), (["-mesh", "4", "-fleet", "2"], 8),
+    (["-mesh", "4", "-fleet", "2"], 8),
     (["-coordinator", "h:1"], 8),
     (["-meshHosts", "2"], 8), (["-processId", "0"], 8),
     (["-connectAttempts", "3"], 8), (["-connectBackoff", "1"], 8),
@@ -591,3 +591,116 @@ def test_cli_serve_matches_jax(tmp_path):
     summ = tpost.metrics_summary(os.path.join(tdir, "metrics.jsonl"))
     assert sorted(summ["clients"]) == [n[:-len(".jsonl")] for n in names]
     assert summ["admitted_total"] == 6 and summ["evicted_total"] == 0
+
+
+# ---------------------------------------------------------------------------
+# -mesh: the forest and the uniform path split over CPU shards
+# ---------------------------------------------------------------------------
+
+# one fish on a 2x1 root grid at level 3 with compression off, levelMax 5:
+# more than 128 blocks, so a 2-shard mesh splits them (n_pad 256)
+MESH_FOREST = ("-bpdx 2 -bpdy 1 -levelMax 5 -levelStart 3 -extent 2 "
+               "-dtype float64 -CFL 0.4 -nu 0.0004 -lambda 1e6 -Rtol 2 "
+               "-Ctol 0 -tdump 0.05 -tend 10 -AdaptSteps 5 "
+               "-maxPoissonIterations 100 -maxPoissonRestarts 0 "
+               "-poissonTol 1e-4 -poissonTolRel 1e-3 -device cpu").split() \
+    + ["-shapes", "angle=0 L=0.4 xpos=1.0 ypos=0.5"]
+
+
+@pytest.fixture(scope="module")
+def mesh_cli(tmp_path_factory):
+    """The forest CLI on ``-device cpu -mesh 2``, supervised: 6 steps with
+    a checkpoint every 3, then 3 steps to a step-3 checkpoint and a
+    ``-mesh 2`` restart from it to step 6."""
+    root = tmp_path_factory.mktemp("mesh_cli")
+    full, head, tail = (str(root / n) for n in ("full", "head", "tail"))
+    ck = ["-checkpointEvery", "3"]
+    rcs = (tmain.main(MESH_FOREST + ["-mesh", "2", "-maxSteps", "6",
+                                     "-output", full] + ck),
+           tmain.main(MESH_FOREST + ["-mesh", "2", "-maxSteps", "3",
+                                     "-output", head] + ck),
+           tmain.main(MESH_FOREST + ["-mesh", "2", "-maxSteps", "6",
+                                     "-restart",
+                                     os.path.join(head, "checkpoint"),
+                                     "-output", tail] + ck))
+    return rcs, full, head, tail
+
+
+def test_cli_mesh_forest_reports_jax_halo_bytes(mesh_cli):
+    """rc 0, the forest split over both shards, and every record's halo
+    bytes non-null: the last equal to the JAX package's
+    ``ShardedAMRSim._comm_stats`` on the same forest (the port's step-6
+    checkpoint loaded into a JAX 2-device ``ShardedAMRSim``)."""
+    from cup2d_tpu.parallel.forest_mesh import ShardedAMRSim as JShard
+    from cup2d_tpu.parallel.mesh import make_mesh as jmake_mesh
+    rcs, full, _, _ = mesh_cli
+    assert rcs[0] == 0
+    recs = _records(os.path.join(full, "metrics.jsonl"))
+    assert [r["step"] for r in recs] == [1, 2, 3, 4, 5, 6]
+    assert all(r["halo_real_bytes"] is not None for r in recs)
+    last = recs[-1]
+    assert 0 < last["halo_real_bytes"] <= last["halo_padded_bytes"]
+    argv = [a for a in MESH_FOREST if a not in ("-device", "cpu")]
+    jsim = JShard(JConfig.from_argv(argv), jmake_mesh(2))
+    jio.load_checkpoint(os.path.join(full, "checkpoint"), jsim)
+    jsim._refresh()
+    assert len(jsim.forest.blocks) == last["n_blocks"] > 128
+    assert jsim._comm_stats == {
+        "halo_real_bytes": last["halo_real_bytes"],
+        "halo_padded_bytes": last["halo_padded_bytes"]}
+
+
+def test_cli_mesh_forest_restart_bit_for_bit(mesh_cli):
+    """The ``-mesh 2`` restart from its own step-3 checkpoint ends on the
+    uninterrupted run bit for bit: the step-6 checkpoints' fields and
+    meta, the common dumps' bytes, the forces rows of steps 4-6."""
+    rcs, full, head, tail = mesh_cli
+    assert rcs == (0, 0, 0)
+    ca, cb = (os.path.join(d, "checkpoint") for d in (full, tail))
+    with np.load(os.path.join(ca, "fields.npz")) as fa, \
+            np.load(os.path.join(cb, "fields.npz")) as fb:
+        assert sorted(fa.files) == sorted(fb.files)
+        assert all(np.array_equal(fa[k], fb[k]) for k in fa.files)
+    ma, mb = (json.load(open(os.path.join(c, "meta.json")))
+              for c in (ca, cb))
+    assert ma["step_count"] == 6 and ma == mb
+    dumps = sorted({n for n in os.listdir(tail) if n.endswith(".attr.raw")}
+                   & set(os.listdir(full)))
+    assert dumps
+    for n in dumps:
+        with open(os.path.join(full, n), "rb") as fa, \
+                open(os.path.join(tail, n), "rb") as fb:
+            assert fa.read() == fb.read(), n
+    rows = open(os.path.join(full, "forces.csv")).read().splitlines()
+    assert open(os.path.join(tail, "forces.csv")).read().splitlines() \
+        == rows[:1] + rows[1 + 3:]
+
+
+def test_cli_mesh_uniform_path_runs(tmp_path):
+    """``-device cpu -mesh 2 -level 5`` runs the Taylor-Green-seeded
+    ``ShardedUniformSim`` (256^2 on 2 shards), supervised, with rc 0; its
+    checkpoint restarts on no mesh."""
+    flags = FLEET_FLAGS[:-2] + ["-level", "5", "-tend", "1", "-tdump", "0",
+                                "-device", "cpu"]
+    out = str(tmp_path / "u")
+    assert tmain.main(flags + ["-mesh", "2", "-maxSteps", "3",
+                               "-checkpointEvery", "3", "-output", out]) == 0
+    recs = _records(os.path.join(out, "metrics.jsonl"))
+    assert [r["step"] for r in recs] == [1, 2, 3]
+    assert recs[-1]["energy"] > 0 and recs[-1]["halo_real_bytes"] is None
+    assert tmain.main(flags + ["-maxSteps", "4", "-restart",
+                               os.path.join(out, "checkpoint"), "-output",
+                               str(tmp_path / "solo")]) == 0
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (["-mesh", "2", "-case", "turb2d"], "does not combine with -mesh"),
+    (["-mesh", "all", "-device", "cpu"], "with -device, give the shard"),
+])
+def test_cli_mesh_usage_errors(flags, msg, tmp_path, capsys):
+    """The JAX CLI's -mesh usage errors (a catalog case other than the
+    cavity), and ``all`` beside ``-device``."""
+    argv = FLEET_FLAGS[:-2] + ["-tend", "1", "-device", "cpu",
+                               "-output", str(tmp_path)]
+    assert tmain.main(argv + flags) == 2
+    assert msg in capsys.readouterr().err

@@ -45,7 +45,14 @@ window raster's dropped padding row repeats bit for bit; the batched force
 pass indexes past every block's lab without a device-side assert. The
 device snapshot ring: a snapshot clones every field and reads nothing,
 the lagged guard is bit for bit the eager run, and one entry restores
-twice, each restore and replay bit for bit the uninterrupted steps."""
+twice, each restore and replay bit for bit the uninterrupted steps. The
+forest on four shards of the card follows the solo forest (equal
+topologies and iterations, 1e-5 relative; bit for bit in practice) with
+the lab RHS launched once a shard and stage and the block-Jacobi update
+once a shard and sweep; both kernels hold their twins on one shard's
+operands; the C regrid helper builds on the card's host and adapts as
+the Python sweep; ``CUP2D_POIS=tables`` and the bf16 FAS legs follow the
+CPU (1e-4, and the 2e-2 bf16 band)."""
 
 import numpy as np
 import pytest
@@ -1293,3 +1300,135 @@ def test_snapshot_clones_and_restores_twice_on_the_card(cuda, kind):
     tio.restore_snapshot_device(b, snap)
     assert shapes_host.pulls == pulls
     assert torch.equal(vel(b), ref)
+
+
+# ---------------------------------------------------------------------------
+# the forest on a mesh (four shards of one card) and the forest's left-overs
+# ---------------------------------------------------------------------------
+
+def _vortex_start(cuda):
+    """A ~400-block vortex forest (f32), its config and host state."""
+    from cup2d_tpu_torch.amr import vortex_forest
+    sim = vortex_forest(target=300, level_start=3, level_max=5, device=cuda)
+    return sim.cfg, forest_to_numpy(sim)
+
+
+@pytest.mark.parametrize("pois", ["structured", "fas"])
+def test_sharded_forest_on_one_card_matches_solo(cuda, monkeypatch, pois):
+    """A ShardedAMRSim on four shards of the card follows the solo AMRSim
+    through an adapt and six production steps: equal topologies and
+    iterations, state within 1e-5 relative (bit for bit where the card's
+    GEMMs and reductions repeat their order at the shard's block count),
+    the lab RHS launched once a shard and stage, the block-Jacobi update
+    once a shard and sweep under fas."""
+    from cup2d_tpu_torch.amr import AMRSim
+    from cup2d_tpu_torch.parallel.forest_mesh import ShardedAMRSim
+    cfg, snap = _vortex_start(cuda)
+    monkeypatch.setenv("CUP2D_POIS", pois)
+    solo = AMRSim(cfg, shapes=[], device=cuda)
+    split = ShardedAMRSim(cfg, make_mesh(devices=[cuda] * 4), shapes=[])
+    out = {}
+    for name, sim in (("solo", solo), ("split", split)):
+        forest_from_numpy(sim, *snap)
+        sim.step_count = 10
+        sim.adapt()
+        hk.reset_launches()
+        iters = [sim.step_once()["poisson_iters"] for _ in range(6)]
+        out[name] = (iters, dict(hk.launches), set(sim.forest.blocks),
+                     {k: sim._gather(v)
+                      for k, v in sim._ordered_state().items()})
+    (it_a, la, ka, sa), (it_b, lb, kb, sb) = out["solo"], out["split"]
+    assert ka == kb and it_a == it_b
+    for k in ("vel", "pres"):
+        rel = float((sb[k] - sa[k]).abs().max() / sa[k].abs().max())
+        assert rel <= 1e-5, (k, rel)
+    assert lb["fused_lab_rhs"] == 4 * la["fused_lab_rhs"] == 4 * 12
+    assert lb["fused_block_jacobi_update"] \
+        == 4 * la["fused_block_jacobi_update"]
+    assert (lb["fused_block_jacobi_update"] > 0) == (pois == "fas")
+
+
+def test_per_shard_kernels_match_twins(cuda):
+    """Kernels 4 and 8 on one shard's [B, ...] operands of a split step
+    (views of the [B + 1] lab buffer and of split blocks) against their
+    twins at phase 2's bars."""
+    from cup2d_tpu_torch.halo import assemble_labs_ordered
+    from cup2d_tpu_torch.parallel.forest_mesh import ShardedAMRSim
+    from cup2d_tpu_torch.parallel.shard_halo import (_structured_lap,
+                                                     split_blocks)
+    cfg, snap = _vortex_start(cuda)
+    sim = ShardedAMRSim(cfg, make_mesh(devices=[cuda] * 4), shapes=[])
+    forest_from_numpy(sim, *snap)
+    sim._refresh()
+    vel = sim._ordered_state()["vel"]
+    labs = assemble_labs_ordered(vel, sim._tables["vec3"])
+    dt = torch.tensor(1e-3, device=cuda)
+    p_inv = torch.tensor(block_precond_matrix(8), dtype=torch.float32,
+                         device=cuda)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    n = sim._npad_hwm
+    e = split_blocks(torch.randn(n, 8, 8, generator=g).to(cuda), sim.mesh)
+    r = split_blocks(torch.randn(n, 8, 8, generator=g).to(cuda), sim.mesh)
+    op = sim._tables["pois"]
+    recvs = shard_halo._exchange_surface(e.parts, op)
+    for d in range(4):
+        lab, h = labs.parts[d], sim._h.parts[d]
+        got = hk.fused_lab_rhs(lab, h, cfg.nu, dt)
+        ref = hk.fused_lab_rhs_plain(lab, h, cfg.nu, dt)
+        assert float((got - ref).abs().max()) \
+            <= 2e-6 * max(float(ref.abs().max()), 1e-30)
+        rows, mats = op.dev[d]
+        lap = _structured_lap(e.parts[d],
+                              torch.cat([e.parts[d], recvs[d]]), *rows, mats)
+        got = hk.fused_block_jacobi_update(e.parts[d], r.parts[d], lap, p_inv)
+        ref = hk.block_jacobi_plain(e.parts[d], r.parts[d], lap, p_inv)
+        assert float((got - ref).abs().max()) \
+            <= 2e-6 * float(ref.abs().max())
+
+
+def test_native_regrid_helper_on_the_card_host(cuda):
+    """The C regrid helper builds on the card's host and an adapt of a
+    card forest gives the topology of the Python sweep."""
+    from cup2d_tpu_torch.amr import AMRSim
+    cfg, snap = _vortex_start(cuda)
+    keys = []
+    for twin in (False, True):
+        sim = AMRSim(cfg, shapes=[], device=cuda)
+        forest_from_numpy(sim, *snap)
+        if twin:
+            def fix(lv, bi, bj, st, sim=sim):
+                state = {(int(lv[k]), int(bi[k]), int(bj[k])): int(st[k])
+                         for k in range(len(st))}
+                sim._fix_states_py(state)
+                for k in range(len(st)):
+                    st[k] = state[(int(lv[k]), int(bi[k]), int(bj[k]))]
+            sim._fix_states = fix
+        sim.adapt()
+        keys.append(set(sim.forest.blocks))
+    assert keys[0] == keys[1]
+
+
+def test_tables_and_bf16_forest_on_the_card_match_cpu(cuda, monkeypatch):
+    """CUP2D_POIS=tables (default tolerances 1e-6/1e-5) and CUP2D_PREC=bf16
+    with fas on the 355-block forest: card against CPU over five steps
+    with an adapt, 1e-4 and the bf16 band 2e-2 relative."""
+    from cup2d_tpu_torch.amr import AMRSim
+    for pois, prec, bar, kw in (("tables", "f32", 1e-4,
+                                 dict(tol=1e-6, tol_rel=1e-5)),
+                                ("fas", "bf16", 2e-2, {})):
+        monkeypatch.setenv("CUP2D_POIS", pois)
+        monkeypatch.setenv("CUP2D_PREC", prec)
+        cpu = multilevel_forest(dtype="float32", device="cpu", **kw)
+        card = AMRSim(cpu.cfg, shapes=[], device=cuda)
+        forest_from_numpy(card, *forest_to_numpy(cpu))
+        card.step_count = cpu.step_count
+        for k in range(5):
+            if k == 2:
+                assert card.adapt() == cpu.adapt()
+            card.step_once()
+            cpu.step_once()
+        a = card.fields()["vel"].cpu()
+        b = cpu.fields()["vel"]
+        rel = float((a[card.forest.order()] - b[cpu.forest.order()])
+                    .abs().max() / b.abs().max())
+        assert rel <= bar, (pois, prec, rel)

@@ -235,7 +235,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
             "import cup2d_tpu_torch.io, cup2d_tpu_torch.profiling, "
             "cup2d_tpu_torch.post, cup2d_tpu_torch.resilience, "
             "cup2d_tpu_torch.faults, cup2d_tpu_torch.__main__, "
-            "cup2d_tpu_torch.fleet, cup2d_tpu_torch.tracing; "
+            "cup2d_tpu_torch.fleet, cup2d_tpu_torch.tracing, "
+            "cup2d_tpu_torch.parallel.forest_mesh, "
+            "cup2d_tpu_torch.native; "
             "from cup2d_tpu_torch.sim import Simulation; "
             f"cfg = cup2d_tpu_torch.SimConfig(**{_fish_kw()!r}); "
             "sim = Simulation(cfg, level=3, device='cpu'); "
