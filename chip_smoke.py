@@ -118,7 +118,7 @@ the result lines:
    package's channel configuration without its disk) from the impulsive
    start u = u_in, each under the default solver and under CUP2D_POIS=fas:
    production ``step_once`` steps at the CFL dt, one warm-up and five
-   timed (two under the default solver, whose channel solve never
+   timed (one under the default solver, whose channel solve never
    converges at f32: ~4.7 s a step), the launch counts set to 0 before
    each run and read after it
    (2 boundary-table substage launches and 1 signed correction a step,
@@ -135,7 +135,7 @@ the result lines:
    under both solvers (the bf16 halo forms; bit for bit the solo bf16
    step, equal iterations), the 8192^2 cavity under fas for two timed
    steps (the boundary-table bf16 forms), and 256^2 from the benchmark
-   velocity for 5 steps under both solvers on the card against the CPU's
+   velocity for 3 steps under both solvers on the card against the CPU's
    twins (<= 2e-2 relative) and against the card's f32 run (in
    (0, 2e-2]); launch counts from 0 before each run, every ``+bf16``
    counter non-zero; and the cavity split into 4 slabs under fas for two
@@ -146,7 +146,7 @@ the result lines:
    * 4))``) from the benchmark velocity under the default solver and
    CUP2D_POIS=fas, and the 8192 x 2048 parabolic channel on 4 slabs under
    fas (the default solver does not converge there at f32): production
-   ``step_once`` steps at the CFL dt, one warm-up and three timed, the
+   ``step_once`` steps at the CFL dt, one warm-up and two timed, the
    launch counts from 0 (2 boundary-table halo substage launches per shard
    and step, signed halo sweeps under fas only, one launch per sweep and
    level with no exchange for it: every ``+bc`` halo counter non-zero; no
@@ -199,8 +199,9 @@ the result lines:
    with an adapt after the second, equal keys and iterations, velocity
    and each fish's (u, v, omega) within 1e-4 relative, under fas and
    under the default solver at its production tolerances (printed beside
-   it, not held: the default solver at 1e-6/1e-5, which does not converge
-   on the shaped RHS); and the two-disk collision of
+   it, not held: the default solver at 1e-6/1e-5, 2 production steps,
+   which does not converge on the shaped RHS); and the two-disk collision
+   of
    validation/golden_collision.py at f32 (body 0's u flips from > 0.1 to
    < -0.01 across steps 0 -> 1; the largest difference from
    tests/golden_collision.json printed).
@@ -288,13 +289,13 @@ the result lines:
    f32 operands. Files under build/phase15, removed at the end.
 16. fleets and the serving pool (``fleet.FleetSim``, ``FleetServer``):
    bench.run_fleet's arm (the amplitude-laddered Taylor-Green fleet,
-   production steps, 3 warm-up steps, one synchronized window of 10, f32)
+   production steps, 2 warm-up steps, one synchronized window of 5, f32)
    at 256^2 with B = 1, 8, 64 and at 1024^2 with B = 1, 8, 32, under the
    default solver and fas: ms a step, member-steps/s and the idle share
    of one ``torch.profiler`` step at each B (no bar). The card bars: B = 1
-   bit for bit ``UniformSim`` at 256^2 through 6 steps from t = 0, with
+   bit for bit ``UniformSim`` at 256^2 through 4 steps from t = 0, with
    no more reads; each member of a B = 8 fleet at 1024^2 (the benchmark
-   velocity at amplitudes 0.8**m, 5 production steps) within 1e-5
+   velocity at amplitudes 0.8**m, 3 production steps) within 1e-5
    relative of its solo run with equal iterations, both solvers; a B = 4
    fleet at 64^2, 12 steps, card against CPU within 1e-4. Serving:
    ``main()`` in process, ``-fleet 8 -serve 24`` at 1024^2 (the README's
@@ -332,11 +333,41 @@ the result lines:
    production steps restarted from a Taylor-Green step-10 checkpoint).
    No twin called on the card's f32 operands in (a) and (b). Removes
    phase 14's files and its own (build/phase17).
+18. periodic tables and fleets on the slab mesh, ``MESH_D`` = 4 slabs of
+   the card (four cards cut to one): (a) the y-wrap forms of kernels 3
+   and 7 on ``tgv_periodic``'s 8192^2 state and the periodic channel's
+   8192 x 2048 (a wall-bounded shear): the split wrap pair over a ring
+   exchange against kernel 2's solo wrap pair (<= 1 ulp), each shard's
+   substages against their twin (<= 2e-6 relative); the halo sweep's
+   y-wrap forms (per shard after a ring exchange, and the slab list with
+   ring sources) and, on the channel, the signed forms on the ring,
+   against their twins (<= 2e-6 relative) and the split sweep against
+   one wrap sweep of the chain kernel (<= 1 ulp), on the finest level, a
+   split 64^2 and a gathered 16^2 level (one slab, its own neighbour);
+   kernel ms, twin ms and bounds beside the boundary-table forms'; (b)
+   ``ShardedUniformSim`` of ``tgv_periodic`` at 8192^2 under the default
+   solver and fas and of the periodic channel at 8192 x 2048 under fas,
+   each against the solo sim from the same state (a first step, the
+   exact startup solve on ``tgv_periodic``, and 3 timed production
+   steps): equal iterations, velocity within ``SHARDED_REL``,
+   ms a step split and solo, the wrap halo substage launched 2 x 4 a
+   step, the y-wrap sweep one launch a sweep and level (fas, doubly
+   periodic), no solo kernel; (c) a ``turb2d`` fleet at 1024^2, B = 8,
+   unplaced, on member placement (2 a shard) and on spatial placement
+   (``member_cells_cap=0``), default and fas: every member within
+   ``SHARDED_REL`` of the unplaced fleet with equal per-member
+   iterations, member-steps/s beside phase 16's, kernels 2 and 5 once a
+   shard (member) or the wrap halo forms (spatial); then ``main(["-case",
+   "cavity", "-level", "4", "-fleet", "4", "-mesh", "4", ...])`` against
+   the unplaced CLI's dumps (within ``SHARDED_REL``). No twin called on
+   the card's f32 operands in (b) and (c). Files under build/phase18,
+   removed at the end.
 
 Then one JSON line of per-kernel numbers (with, per kernel, its launches
 on the two flagship runs, the two canonical runs, phase 13's runs,
-phase 15's supervised runs, phase 16's fleet runs and phase 17's split
-forest runs and, for the
+phase 15's supervised runs, phase 16's fleet runs, phase 17's split
+forest runs and phase 18's split periodic and placed fleet runs and, for
+the
 flagship's and the canonical run's kernels, their
 numbers at those shapes), the card's name and power limit
 as nvidia-smi prints them, and the result line
@@ -368,6 +399,7 @@ from cup2d_tpu_torch.amr import (AMRSim, multilevel_forest,  # noqa: E402
 from cup2d_tpu_torch.convert import (copy_amr_state,  # noqa: E402
                                      copy_simulation_state,
                                      forest_from_numpy, forest_to_numpy)
+from cup2d_tpu_torch.io import whole  # noqa: E402
 from cup2d_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from cup2d_tpu_torch.ops.timing import (OPS_SWEEP_CELL,  # noqa: E402
                                         advect_rhs_ops, bound,
@@ -1999,8 +2031,8 @@ def phase_walled(dev) -> tuple[list, dict]:
     Returns the runs and the +bc launch counts summed over the four
     main-path runs."""
     # the default solver's steps are long (the channel's f32 solve never
-    # converges: 121-200 iterations, ~4.7 s a step): a warm-up and 2 timed
-    runs = [run_walled(dev, kind, pois, level, steps=5 if pois else 2)
+    # converges: 121-200 iterations, ~4.7 s a step): a warm-up and 1 timed
+    runs = [run_walled(dev, kind, pois, level, steps=5 if pois else 1)
             for kind, level in (("cavity", 10), ("channel", 8))
             for pois in ("", "fas")]
     total = {k: sum(r["launches"].get(k, 0) for r in runs)
@@ -2127,14 +2159,15 @@ def phase_split_walled(dev) -> tuple[list, dict]:
     fas (the default solver does not converge there at f32, ROADMAP queue
     3), each against the solo run from the same state. Returns the runs
     and the ``+bc`` halo launches summed over them."""
-    runs = [run_split_walled(dev, "cavity", p, 10) for p in ("", "fas")]
-    runs.append(run_split_walled(dev, "channel", "fas", 8))
+    runs = [run_split_walled(dev, "cavity", p, 10, steps=2)
+            for p in ("", "fas")]
+    runs.append(run_split_walled(dev, "channel", "fas", 8, steps=2))
     total = {k: sum(r["sharded"]["launches"].get(k, 0) for r in runs)
              for k in ("advect_substage_halo+bc", "jacobi_halo_sweep+bc")}
     return runs, total
 
 
-def phase_bf16_trajectory(dev, pois: str, steps: int = 5) -> None:
+def phase_bf16_trajectory(dev, pois: str, steps: int = 3) -> None:
     """Phase 9, continued: 256^2 from the benchmark velocity under
     CUP2D_PREC=bf16 on the card and on the CPU (the twins), ``steps``
     ``step_once`` steps each, within BF16_BAND relative (a bf16 rounding
@@ -2839,7 +2872,7 @@ def phase_canonical(dev) -> tuple[dict, dict]:
     runs["card_vs_cpu"] = [phase_canonical_cpu(dev, "fas", start=start),
                            phase_canonical_cpu(dev, None, start=start),
                            phase_canonical_cpu(dev, None, 1e-6, 1e-5,
-                                               hold=False, steps=3)]
+                                               hold=False, steps=2)]
     del start
     print(f"phase 12 card vs CPU took {time.perf_counter() - t0} s",
           flush=True)
@@ -2866,7 +2899,8 @@ TWINS = ("advect_substage_plain", "fused_correction_plain",
 
 class twin_watch:
     """Count calls of the kernels' plain twins on CUDA f32 / complex64
-    operands while the block runs (``hk`` and ``poisson`` hold them)."""
+    operands while the block runs (``hk``, ``poisson`` and ``shard_halo``
+    hold them)."""
 
     def __init__(self, names=TWINS):
         self.names = names
@@ -2875,7 +2909,7 @@ class twin_watch:
     def __enter__(self):
         import cup2d_tpu_torch.poisson as tpois
         self.saved = []
-        for mod in (hk, tpois):
+        for mod in (hk, tpois, tsh):
             for name in self.names:
                 if hasattr(mod, name):
                     fn = getattr(mod, name)
@@ -4137,7 +4171,7 @@ PHASE16_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # iterates every step
 FLEET_CURVES = (("tg", 256, (1, 8, 64)), ("tg", 1024, (1, 8, 32)),
                 ("turb2d", 1024, (1, 8, 32)))
-FLEET_WARM, FLEET_STEPS = 3, 10
+FLEET_WARM, FLEET_STEPS = 2, 5
 FLEET_KEYS = ("fused_advect_heun", "fused_correction", "fused_jacobi_sweeps")
 FLEET_SOLO_REL = 1e-5      # a member against its solo run (PERF.md §2)
 # the README's fleet flags at 1024^2 (-level 7), f32, 24 staggered
@@ -4223,10 +4257,10 @@ def fleet_curves(dev, card: str) -> dict:
 
 
 def fleet_card_bars(dev) -> dict:
-    """B = 1 against ``UniformSim`` at 256^2 from t = 0 (6 of the exact
+    """B = 1 against ``UniformSim`` at 256^2 from t = 0 (4 of the exact
     startup solves): bit for bit, clocks equal, no more reads; each
     member of a B = 8 fleet at 1024^2 (the benchmark velocity at
-    amplitudes 0.8**m, 5 production steps) against its solo run:
+    amplitudes 0.8**m, 3 production steps) against its solo run:
     <= FLEET_SOLO_REL relative with equal iterations; a B = 4 fleet at
     64^2, 12 steps from t = 0, card against CPU <= TRAJ_REL."""
     from cup2d_tpu_torch import shapes_host
@@ -4242,7 +4276,7 @@ def fleet_card_bars(dev) -> dict:
         f.state = stack_states([taylor_green_state(f.grid)])
         u.state = taylor_green_state(u.grid)
         reads = [0, 0]
-        for _ in range(6):
+        for _ in range(4):
             p0 = shapes_host.pulls
             u.step_once()
             p1 = shapes_host.pulls
@@ -4271,7 +4305,7 @@ def fleet_card_bars(dev) -> dict:
             s.step_count = 20
             solos.append(s)
         worst, iters_equal, iters = 0.0, True, []
-        for _ in range(5):
+        for _ in range(3):
             d = f.step_once()
             ds = [s.step_once() for s in solos]
             iters.append(d["poisson_iters"].tolist())
@@ -4650,7 +4684,8 @@ def _dump_attrs(d: str) -> dict:
     return {n: read_dump(os.path.join(d, n)) for n in names}
 
 
-def _dumps_close(label: str, a: dict, b: dict, bar: float) -> tuple:
+def _dumps_close(label: str, a: dict, b: dict, bar: float,
+                 phase: str = "phase 17") -> tuple:
     """Every common dump of two runs: the same time and geometry, the
     velocities within ``bar`` of max |a|. Prints each dump's figures."""
     common = sorted(set(a) & set(b))
@@ -4662,7 +4697,7 @@ def _dumps_close(label: str, a: dict, b: dict, bar: float) -> tuple:
         rel = (float(np.abs(va - vb).max() / max(np.abs(va).max(), 1e-30))
                if va.shape == vb.shape else float("inf"))
         rows.append((n, ta, tb, same, rel))
-    print(f"phase 17 {label}: {json.dumps(rows)}", flush=True)
+    print(f"{phase} {label}: {json.dumps(rows)}", flush=True)
     for n, ta, tb, same, rel in rows:
         check(same, f"{label}: {n} time {ta} / {tb} or geometry differs")
     worst = max(r[4] for r in rows)
@@ -4874,6 +4909,440 @@ def phase_mesh(dev, forest_start: tuple, forest_warm: tuple, card: str
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: periodic tables and fleets on the slab mesh
+# ---------------------------------------------------------------------------
+
+PHASE18_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase18")
+SPLIT_PD_KEYS = ("advect_substage_halo+pd", "jacobi_halo_sweep+pd")
+# the halo kernels' twins too: the split steps must run no twin of any
+# kernel on the card's f32 operands
+SPLIT_TWINS = TWINS + ("advect_substage_halo_plain",
+                       "jacobi_halo_sweep_plain",
+                       "jacobi_halo_sweep_slabs_plain")
+PD_STEPS = 3              # timed production steps of (b), after a warm-up
+FLEET18 = ("turb2d", 1024, 8)   # (c): the case, size, members
+FLEET18_STEPS = 3         # timed fleet steps of (c), after a warm-up
+CLI18_FLAGS = ["-case", "cavity", "-level", "4", "-fleet", "4",
+               "-maxSteps", "2", "-tdump", "1e-6", "-noWatchdog"]
+
+
+def periodic_start(grid, kind: str):
+    """A periodic grid's start, computed on its device in f64 and rounded:
+    the catalog's ``tgv_periodic`` velocity (u0 sin(kx) cos(ky), k = 2 pi)
+    or, on the channel, tests/test_torch_periodic.py's channel velocity
+    (a wall-bounded shear with x modes; not solenoidal, so its production
+    solves iterate)."""
+    lx, ly = grid.cfg.extents
+    x = ((torch.arange(grid.nx, device=grid.device, dtype=torch.float64)
+          + 0.5) * grid.h)[None, :]
+    y = ((torch.arange(grid.ny, device=grid.device, dtype=torch.float64)
+          + 0.5) * grid.h)[:, None]
+    if kind == "channel":
+        px, py = 2 * np.pi * x / lx, np.pi * y / ly
+        u = (torch.sin(py) * (1.0 + 0.3 * torch.cos(px))
+             + 0.2 * torch.sin(2 * px) * torch.cos(3 * py))
+        v = 0.25 * torch.sin(px) * torch.sin(py)
+    else:
+        k = 2.0 * np.pi / grid.cfg.extent
+        u = torch.sin(k * x) * torch.cos(k * y)
+        v = -(torch.cos(k * x) * torch.sin(k * y))
+    vel = torch.stack([u, v]).to(grid.dtype)
+    return grid.zero_state()._replace(vel=vel)
+
+
+def periodic_cfg(kind: str, size: int = 8192):
+    """(cfg, level, table): ``tgv_periodic``'s configuration at size^2 on
+    the doubly-periodic table, or the benchmark's at size x size/4 on the
+    periodic channel."""
+    if kind == "tgv":
+        return (cases._periodic_cfg(1e-3, "float32", 0.4),
+                (size // 8).bit_length() - 1, PERIODIC_TABLES["doubly"])
+    cfg, level = bench_cfg(size // 4, size)
+    return cfg, level, PERIODIC_TABLES["channel"]
+
+
+def periodic_grid(kind: str, dev, pois: str = "", mesh=None,
+                  size: int = 8192):
+    """(b)'s sims of ``periodic_cfg(kind, size)``, split over ``mesh``
+    where given."""
+    cfg, level, table = periodic_cfg(kind, size)
+    with latched(pois):
+        if mesh is None:
+            return UniformSim(cfg, level=level, device=dev, bc=table)
+        return ShardedUniformSim(cfg, mesh, level=level, bc=table)
+
+
+def phase_split_periodic_kernels(dev, res, size: int = 8192) -> None:
+    """Phase 18 (a): the y-wrap forms of kernels 3 and 7 at the split
+    periodic step's shapes, MESH_D slabs of one card (4 cards cut to 1),
+    on ``tgv_periodic``'s 8192^2 state and on the periodic channel's
+    8192 x 2048 (``periodic_start``). Kernel 3's wrap form: the split
+    pair (ring exchange) against kernel 2's solo wrap pair, <= 1 ulp;
+    each shard's substages against their twin, <= 2e-6 relative. Kernel
+    7's y-wrap forms (doubly periodic) and the ring of its signed forms
+    (the channel): the split sweep against one wrap sweep of the chain
+    kernel, <= 1 ulp; per shard (aux form) and as the slab list against
+    the twins, <= 2e-6 relative; on the finest level, a split 64^2 level
+    and a 16^2 level gathered onto one slab (its own neighbour). Kernel
+    ms, twin ms, bound, beside the boundary-table forms' ms. Fills
+    ``res`` for the two ``+pd`` halo entries."""
+    mesh = make_mesh(devices=[dev] * MESH_D)
+    one = make_mesh(devices=[dev])
+    nu = 4e-5
+    err3 = 0.0
+    for kind, name in (("tgv", "doubly"), ("channel", "channel")):
+        cfg, level, table = periodic_cfg(kind, size)
+        g = UniformGrid(cfg, level=level, device=dev, bc=table)
+        h, ih2 = g.h, 1.0 / (g.h * g.h)
+        cells = g.ny * g.nx
+        v = periodic_start(g, kind).vel[None].contiguous()
+        dt = torch.tensor([0.5], device=dev) * h
+        solo = hk.fused_advect_heun(v, h, nu, dt, bc=table)
+        split = gather_x(fused_advect_heun_sharded(split_x(v, mesh), h, nu,
+                                                   dt, bc=table))
+        u3 = ulps(split, solo)
+        del split, solo
+        check(u3 <= SPLIT_ULPS, f"advect_substage_halo+pd {name}: the split "
+              f"pair is {u3} ulp from kernel 2's solo wrap pair")
+        facs = hk._substage_facs(dt, h, nu, (1,), 1, torch.float32, dev,
+                                 with_dt=True)
+        w = g.nx // MESH_D
+        s0 = split_x(v, mesh)
+        aux0 = exchange_x(s0, 3, ring=True)
+        kw = [dict(bc=table, h=h, col0=d * w, nx_tot=g.nx)
+              for d in range(MESH_D)]
+        s1 = Slabs([hk.advect_substage_halo(p, None, aux0[d], facs, 0.5, ih2,
+                                            False, False, **kw[d])
+                    for d, p in enumerate(s0.parts)], mesh)
+        aux1 = exchange_x(s1, 3, ring=True)
+        args = [((s0.parts[d], None, aux0[d], facs, 0.5, ih2, False, False),
+                 (s1.parts[d], s0.parts[d], aux1[d], facs, 1.0, ih2, False,
+                  False)) for d in range(MESH_D)]
+        for d, (a1, a2) in enumerate(args):
+            for k, a in ((1, a1), (2, a2)):
+                err3 = max(err3, rel_close(
+                    f"phase 18 advect_substage_halo+pd {name} shard {d} "
+                    f"substage {k}", hk.advect_substage_halo(*a, **kw[d]),
+                    hk.advect_substage_halo_plain(*a, **kw[d]), HEUN_ABS))
+
+        def k3(sub):
+            for d, (a1, _) in enumerate(args):
+                sub(*a1, **kw[d])
+            for d, (_, a2) in enumerate(args):
+                sub(*a2, **kw[d])
+        ms = cuda_ms(lambda: k3(hk.advect_substage_halo), 10)
+        pms = cuda_ms(lambda: k3(hk.advect_substage_halo_plain), 1)
+        aux_bytes = 2 * sum(a.numel() for a in aux0) * 4
+        b = bound(substage_pair_bytes(cells, False) + aux_bytes,
+                  sum(substage_ops(a[0]) for a1, a2 in args
+                      for a in (a1, a2)))
+        print(f"phase 18 advect_substage_halo+pd {name} [1,2,{g.ny},{w}] "
+              f"x{MESH_D}, both substages: split vs solo wrap pair {u3} ulp;"
+              f" kernel_ms {ms} (BC form "
+              f"{res['advect_substage_halo+bc']['ms']}, free-slip "
+              f"{res['advect_substage_halo']['ms']}) twin_ms {pms} bound_ms "
+              f"{b[0]} ({b[1]})", flush=True)
+        if name == "doubly":
+            res["advect_substage_halo+pd"].update(
+                ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                library_ms=None)
+        del v, s0, s1, aux0, aux1, args, g
+        torch.cuda.empty_cache()
+    res["advect_substage_halo+pd"]["max_abs_err"] = err3
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    err7 = 0.0
+    key = "jacobi_halo_sweep+pd"
+    for name, table in PERIODIC_TABLES.items():
+        sg, (px, _) = tbc.pressure_signs(table), tbc.periodic_axes(table)
+        big = (size, size) if name == "doubly" else (size // 4, size)
+        for (ny, nx), m in ((big, mesh), ((64, 64), mesh), ((16, 16), one)):
+            e = torch.randn(ny, nx, generator=gen, device=dev)
+            r = torch.randn(ny, nx, generator=gen, device=dev)
+            es, rs = split_x(e, m), split_x(r, m)
+            aux = exchange_x(es, 1, ring=px)
+            for fz in (False, True):
+                split = gather_x(overlap_jacobi_sweeps(es, rs, 0.8, 1, fz,
+                                                       edge_signs=sg))
+                u7 = ulps(split, hk.fused_jacobi_sweeps(e, r, 0.8, 1, fz,
+                                                        sg))
+                check(u7 <= SPLIT_ULPS, f"{key} {name} {ny}x{nx} "
+                      f"from_zero={fz}: {u7} ulp from the chain kernel's "
+                      "wrap sweep")
+                print(f"phase 18 {key} {name} {ny}x{nx} on {m.size} slabs "
+                      f"from_zero={fz} vs fused_jacobi_sweeps+pd (n=1): "
+                      f"{u7} ulp", flush=True)
+            for d in range(m.size):
+                a = (es.parts[d], rs.parts[d], aux[d], 0.8, False, False,
+                     False, sg)
+                err7 = max(err7, rel_close(
+                    f"phase 18 {key} {name} {ny}x{nx} shard {d}",
+                    hk.jacobi_halo_sweep(*a), hk.jacobi_halo_sweep_plain(*a),
+                    JACOBI_REL))
+            err7 = max(err7, slab_list_close(f"phase 18 {key} {name}", es,
+                                             rs, sg))
+            if nx == size:
+                cells = ny * nx
+                ms = cuda_ms(lambda: overlap_jacobi_sweeps(
+                    es, rs, 0.8, 1, edge_signs=sg), 10)
+                aux_ms = cuda_ms(lambda: [hk.jacobi_halo_sweep(
+                    es.parts[d], rs.parts[d], aux[d], 0.8, False, False,
+                    False, sg) for d in range(m.size)], 10)
+                pms = cuda_ms(lambda: hk.jacobi_halo_sweep_slabs_plain(
+                    es.parts, rs.parts, 0.8, False, sg), 2)
+                b = bound(12.0 * cells, OPS_SWEEP_CELL * cells)
+                print(f"phase 18 {key} {name} {ny}x{nx} on {m.size} slabs: "
+                      f"slab list kernel_ms {ms}, per-shard aux form "
+                      f"{aux_ms} (signed form "
+                      f"{res['jacobi_halo_sweep+bc']['ms']}, Neumann "
+                      f"{res['jacobi_halo_sweep']['ms']}) twin_ms {pms} "
+                      f"bound_ms {b[0]} ({b[1]})", flush=True)
+                if name == "doubly":
+                    res[key].update(ms=ms, aux_ms=aux_ms, plain_ms=pms,
+                                    bound_ms=b[0], bound_by=b[1],
+                                    library_ms=None)
+            del e, r, es, rs, aux
+    res[key]["max_abs_err"] = err7
+    inv_diag_bc_slab.cache_clear()
+    inv_diag_bc.cache_clear()
+    torch.cuda.empty_cache()
+
+
+def run_split_periodic(dev, kind: str, pois: str, size: int = 8192
+                       ) -> dict:
+    """Phase 18 (b) under one solver: the periodic box split into MESH_D
+    slabs of the card, then the solo sim from the same state, a first
+    step and ``PD_STEPS`` timed production steps at the CFL dt each, the
+    launch counts from 0 and the twins watched. ``tgv``'s first step is
+    its exact startup solve (from the Taylor-Green state the production
+    solves meet their tolerance at iteration 0), the channel's a
+    production warm-up."""
+    mesh = make_mesh(devices=[dev] * MESH_D)
+    out, vel = {}, {}
+    for label, m in (("sharded", mesh), ("solo", None)):
+        sim = periodic_grid(kind, dev, pois, m, size)
+        st = periodic_start(sim.grid, kind)
+        if m is None:
+            sim.state = st
+        else:
+            sim.set_state(st)
+        del st
+        sim.step_count = 9 if kind == "tgv" else 10
+        sync(dev)
+        hk.reset_launches()
+        sweep_stats.update(sweeps=0, exchanges=0)
+        with twin_watch(SPLIT_TWINS) as tw:
+            iters = [sim.step_once()["poisson_iters"]]
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(PD_STEPS):
+                d = sim.step_once()
+                iters.append(d["poisson_iters"])
+            sync(dev)
+        ms = (time.perf_counter() - t0) / PD_STEPS * 1e3
+        out[label] = {
+            "case": kind, "table": sim.bc_table, "tier": sim.kernel_tier,
+            "mode": sim.poisson_mode, "shape": [sim.grid.ny, sim.grid.nx],
+            "ms_per_step": ms, "iters": iters, "finite": bool(d["finite"]),
+            "converged": bool(d["poisson_converged"]),
+            "launches": {k: n for k, n in hk.launches.items() if n},
+            "halo_sweeps": dict(sweep_stats), "twin_calls": tw.calls}
+        v = sim.state.vel
+        vel[label] = gather_x(v) if m is not None else v
+        del sim, v
+        torch.cuda.empty_cache()
+    a, b = vel["sharded"], vel["solo"]
+    out["vel_rel_linf"] = float((a - b).abs().max() / b.abs().max())
+    out["bit_equal"] = bool(torch.equal(a, b))
+    del a, b, vel
+    print(f"phase 18 split periodic {kind} D={MESH_D} {json.dumps(out)}",
+          flush=True)
+    sh, so = out["sharded"], out["solo"]
+    label = f"split periodic {kind} {pois or 'default'}"
+    check(sh["finite"] and so["finite"] and sh["converged"],
+          f"{label}: {out}")
+    check(not any(sh["twin_calls"].values())
+          and not any(so["twin_calls"].values()),
+          f"{label}: a twin ran on the card")
+    la = sh["launches"]
+    n = PD_STEPS + 1
+    check(la.get("advect_substage_halo+pd", 0) == 2 * MESH_D * n
+          == la.get("advect_substage_halo", 0),
+          f"{label}: halo substage launches {la} != 2 D wrap ones a step")
+    sweeps = la.get("jacobi_halo_sweep", 0)
+    wrapped = la.get("jacobi_halo_sweep+pd", 0)
+    check((sweeps > 0) == (pois == "fas")
+          and wrapped == (sweeps if kind == "tgv" else 0)
+          and la.get("jacobi_halo_sweep+bc", 0) == sweeps,
+          f"{label}: halo sweep launches {la}")
+    hs = sh["halo_sweeps"]
+    check(sweeps == hs["sweeps"] and hs["exchanges"] == 0,
+          f"{label}: {sweeps} halo sweep launches for {hs}")
+    for k in ("fused_advect_heun", "fused_correction",
+              "fused_jacobi_sweeps"):
+        check(la.get(k, 0) == 0, f"{label}: a solo kernel launched ({k}: "
+              f"{la})")
+    check(sh["iters"] == so["iters"], f"{label}: iterations {sh['iters']} "
+          f"!= solo {so['iters']}")
+    check(out["vel_rel_linf"] <= SHARDED_REL, f"{label}: vel rel "
+          f"{out['vel_rel_linf']} > {SHARDED_REL} from the solo step")
+    return out
+
+
+def fleet18(dev, pois: str, state, mesh=None, cap: int = 1 << 22):
+    """(c)'s fleet: ``FLEET18``'s catalog case, unplaced or placed on
+    ``mesh`` (``member_cells_cap`` 0: spatial), from ``state``."""
+    from cup2d_tpu_torch.fleet import FleetSim
+    case, size, b = FLEET18
+    level = (size // 8).bit_length() - 1
+    with latched(pois):
+        if mesh is None:
+            sim = FleetSim(cases._periodic_cfg(1e-4, "float32", 0.4),
+                           level=level, members=b, device=dev,
+                           bc=cases.periodic_table())
+        else:
+            sim = FleetSim(cases._periodic_cfg(1e-4, "float32", 0.4),
+                           level=level, members=b, mesh=mesh,
+                           member_cells_cap=cap, bc=cases.periodic_table())
+    sim.set_state(state)
+    sim.step_count = 20
+    return sim
+
+
+def phase_placed_fleets(dev, card: str, fleet16: dict) -> tuple[dict, dict]:
+    """Phase 18 (c): ``FLEET18`` (turb2d 1024^2, B = 8) unplaced and on
+    MESH_D shards of one card, member placement (2 a shard) and spatial
+    (``member_cells_cap=0``), under the default solver and fas: a warm-up
+    and ``FLEET18_STEPS`` timed production steps each from the same
+    state, every member within ``SHARDED_REL`` of the unplaced fleet with
+    equal per-member iterations; member-steps/s beside phase 16's; the
+    launches from 0 per run (member: kernels 2 and 5 once a shard, fas 6;
+    spatial: the wrap forms of 3 and, fas, 7); no twin on the card. Then
+    the ``-case cavity -fleet 4 -mesh 4`` CLI against the unplaced CLI's
+    dumps (within ``SHARDED_REL``)."""
+    case, size, b = FLEET18
+    start = cases.make_sim(case, level=(size // 8).bit_length() - 1,
+                           members=b, device=dev).state
+    mesh = make_mesh(devices=[dev] * MESH_D)
+    out, launches = {}, {}
+    for pois in ("", "fas"):
+        rows, states = {}, {}
+        for label, kw in (("unplaced", {}),
+                          ("member", {"mesh": mesh}),
+                          ("spatial", {"mesh": mesh, "cap": 0})):
+            sim = fleet18(dev, pois, start, **kw)
+            hk.reset_launches()
+            with twin_watch(SPLIT_TWINS) as tw:
+                iters = [sim.step_once()["poisson_iters"].tolist()]
+                sync(dev)
+                t0 = time.perf_counter()
+                for _ in range(FLEET18_STEPS):
+                    d = sim.step_once()
+                    iters.append(d["poisson_iters"].tolist())
+                sync(dev)
+            wall = time.perf_counter() - t0
+            la = {k: n for k, n in hk.launches.items() if n}
+            rows[label] = {"placement": sim.placement,
+                           "step_ms": 1e3 * wall / FLEET18_STEPS,
+                           "member_steps_per_s": b * FLEET18_STEPS / wall,
+                           "iters": iters, "finite": bool(d["finite"].all()),
+                           "launches": la, "twin_calls": tw.calls}
+            check(rows[label]["finite"] and not any(tw.calls.values()),
+                  f"phase 18 fleet {label} {pois}: {rows[label]}")
+            n = FLEET18_STEPS + 1
+            if label == "member":
+                check(la.get("fused_advect_heun", 0) == 2 * MESH_D * n
+                      and la.get("fused_correction", 0) == MESH_D * n
+                      and (la.get("fused_jacobi_sweeps", 0) > 0)
+                      == (pois == "fas")
+                      and "advect_substage_halo" not in la,
+                      f"phase 18 member fleet {pois}: launches {la}")
+            if label == "spatial":
+                check(la.get("advect_substage_halo+pd", 0) == 2 * MESH_D * n
+                      and (la.get("jacobi_halo_sweep+pd", 0) > 0)
+                      == (pois == "fas")
+                      and "fused_advect_heun" not in la
+                      and "fused_correction" not in la,
+                      f"phase 18 spatial fleet {pois}: launches {la}")
+            if label != "unplaced":
+                for k, c in la.items():
+                    launches[k] = launches.get(k, 0) + c
+            states[label] = [whole(f) for f in (sim.state.vel,
+                                                sim.state.pres)]
+            del sim
+        for label in ("member", "spatial"):
+            rel = max(float((a - u).abs().max() / u.abs().max())
+                      for a, u in zip(states[label], states["unplaced"]))
+            rows[label]["rel_to_unplaced"] = rel
+            check(rel <= SHARDED_REL
+                  and rows[label]["iters"] == rows["unplaced"]["iters"],
+                  f"phase 18 {label} fleet {pois or 'default'}: rel {rel}, "
+                  f"iterations {rows[label]['iters']} vs "
+                  f"{rows['unplaced']['iters']}")
+        ref = fleet16.get(f"{case} {size}^2 {pois or 'default'}")
+        p16 = None if ref is None else next(
+            (p["member_steps_per_s"] for p in ref["points"]
+             if p["members"] == b), None)
+        out[pois or "default"] = {"runs": rows, "phase16_member_steps_per_s":
+                                  p16}
+        print(f"phase 18 placed fleets {case} {size}^2 B={b} on {MESH_D} "
+              f"shards {pois or 'default'} {json.dumps(out[pois or 'default'])}"
+              f"; card {card}", flush=True)
+        del states
+        torch.cuda.empty_cache()
+    del start
+
+    # the CLI: -case cavity -fleet 4 -mesh 4 against the unplaced CLI
+    dev_s = (str(dev) if torch.device(dev).type == "cpu" else
+             f"cuda:{torch.device(dev).index or torch.cuda.current_device()}")
+    argv = CLI18_FLAGS + ["-device", dev_s]
+    shutil.rmtree(PHASE18_DIR, ignore_errors=True)
+    os.makedirs(PHASE18_DIR)
+    runs = {}
+    for label, extra in (("unplaced", []), ("mesh", ["-mesh",
+                                                      str(MESH_D)])):
+        runs[label] = cli_run(argv + extra, os.path.join(PHASE18_DIR, label))
+        check(runs[label]["rc"] == 0, f"phase 18 cli {label}: rc "
+              f"{runs[label]['rc']}")
+    dumps = _dumps_close("cli -case cavity -fleet 4 -mesh 4 vs unplaced",
+                         _dump_attrs(os.path.join(PHASE18_DIR, "mesh")),
+                         _dump_attrs(os.path.join(PHASE18_DIR, "unplaced")),
+                         SHARDED_REL, "phase 18")
+    out["cli"] = {"dumps": dumps, "seconds": {k: r["seconds"]
+                                              for k, r in runs.items()}}
+    print(f"phase 18 cli {json.dumps(out['cli'])}", flush=True)
+    shutil.rmtree(PHASE18_DIR)
+    return out, launches
+
+
+def phase_periodic_mesh(dev, res, card: str, fleet16: dict
+                        ) -> tuple[dict, dict]:
+    """Phase 18: (a) the y-wrap halo forms against their twins and the
+    solo wrap forms, (b) the split periodic step against solo, (c) placed
+    fleets against the unplaced fleet and the placed CLI. Returns the
+    runs and the launches of every kernel over (b)'s split runs and (c)'s
+    placed fleet runs."""
+    t = [time.perf_counter()]
+    phase_split_periodic_kernels(dev, res)
+    t.append(time.perf_counter())
+    runs = {"split": [run_split_periodic(dev, "tgv", p) for p in ("", "fas")]
+            + [run_split_periodic(dev, "channel", "fas")]}
+    t.append(time.perf_counter())
+    launches = {}
+    for r in runs["split"]:
+        for k, n in r["sharded"]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    runs["fleets"], fl = phase_placed_fleets(dev, card, fleet16)
+    for k, n in fl.items():
+        launches[k] = launches.get(k, 0) + n
+    t.append(time.perf_counter())
+    print(f"phase 18 seconds: (a) {t[1] - t[0]} (b) {t[2] - t[1]} (c) "
+          f"{t[3] - t[2]}; card {card}", flush=True)
+    return runs, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5005,6 +5474,14 @@ def main() -> int:
     for k in FOREST_MESH_KEYS:
         check(mesh_launches[k] > 0, f"{k}: launched no time on the forest "
               "mesh path")
+    t0 = time.perf_counter()
+    pd_mesh, pd_launches = phase_periodic_mesh(dev, res, card,
+                                               fleet["curves"])
+    print(f"phase 18 took {time.perf_counter() - t0} s", flush=True)
+    for k in SPLIT_PD_KEYS:
+        check(pd_launches.get(k, 0) > 0, f"{k}: launched no time on the "
+              "split periodic path")
+    launches.update({k: pd_launches[k] for k in SPLIT_PD_KEYS})
     check("jax" not in sys.modules, "the smoke imported jax")
     check("validation" not in sys.modules, "the smoke imported validation")
 
@@ -5025,7 +5502,9 @@ def main() -> int:
                     fleet_launches=fleet_launches.get(k, 0),
                     forest_mesh_launches=mesh_launches.get(k, 0),
                     forest_mesh=mesh_runs["forest"]["kernels"].get(k),
-                    **({k2: res[k][k2] for k2 in ("ulps", "fft_ms")
+                    periodic_mesh_launches=pd_launches.get(k, 0),
+                    **({k2: res[k][k2] for k2 in ("ulps", "fft_ms",
+                                                  "aux_ms")
                         if k2 in res[k]}))
                for k in hk.launches]
     print(f"main path summary: {json.dumps(runs)}")
@@ -5042,6 +5521,7 @@ def main() -> int:
     print(f"supervised runs summary: {json.dumps(supervised)}")
     print(f"fleet summary: {json.dumps(fleet)}")
     print(f"forest mesh summary: {json.dumps(mesh_runs)}")
+    print(f"periodic mesh and placed fleets summary: {json.dumps(pd_mesh)}")
     print(f"total {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -55,15 +55,20 @@ no ``spans.jsonl``); SIGTERM writes ``<output>/checkpoint`` and exits 0.
 branches, ``cup2d_tpu/__main__.py:182-289``): the forest path builds
 ``parallel.forest_mesh.ShardedAMRSim`` (the canonical run, shapes and
 all), the uniform path a Taylor-Green-seeded
-``parallel.mesh.ShardedUniformSim`` (obstacle-free only), and ``-case
-cavity`` its split form; dumps and checkpoints keep the global layout, so
-a checkpoint restarts on any mesh or on none. ``all`` takes every visible
+``parallel.mesh.ShardedUniformSim`` (obstacle-free only), ``-case
+cavity`` its split form, and ``-case cavity -fleet B [-serve S]`` a fleet
+placed on the mesh by the fleet's own policy (``FleetSim(mesh=,
+placement="auto")``: whole members along the mesh where B divides by it,
+else split along x); dumps and checkpoints keep the global layout, so a
+checkpoint restarts on any mesh or on none. ``all`` takes every visible
 card, ``N`` the first N cards; with ``-device`` naming one device, ``-mesh
 N`` puts N shards on it (four shards on one card, or on the CPU).
+``-fleet`` with ``-mesh`` and no ``-case``, and ``-case X -mesh N`` for
+any X but cavity, exit 2 with the JAX CLI's messages.
 
 What the port cannot do yet is refused with rc 2 before any work, naming
-its ROADMAP queue 1 item: ``-fleet`` with ``-mesh`` (the fleet's placement
-on a mesh) and the multi-process, elastic and mirror flags (item 8);
+its ROADMAP queue 1 item: the multi-process, elastic and mirror flags
+(item 8);
 ``-profile``, ``-spansLog`` and span ring capacities in ``CUP2D_SPANS``
 (item 9). The JAX CLI's usage errors exit 2 with its messages.
 Flags that only turn off what the port lacks (``-noSpans``,
@@ -116,10 +121,9 @@ def _refusal(p) -> str | None:
     if p.has("elastic") and not p.has("mesh"):
         return ("-elastic needs -mesh with at least 2 devices; "
                 + _not_ported("the elastic topology guard", 8))
-    if p.has("fleet") and p.has("mesh"):
+    if p.has("fleet") and p.has("mesh") and not p.has("case"):
         return ("-fleet has its own placement policy (fleet.py) and does "
-                "not combine with -mesh; "
-                + _not_ported("the fleet's placement on a mesh", 8))
+                "not combine with -mesh")
     if p.has("mesh") and p.has("device") \
             and p("mesh").asString() == "all":
         return ("-mesh all takes every visible card; with -device, give "
@@ -273,7 +277,7 @@ def main(argv=None) -> int:
             # the fleet's min)
             for m in range(sim.members):
                 dump_uniform(f"{path}.m{m}", float(sim.times[m]),
-                             sim.state.vel[m], sim.grid.h)
+                             sim.member_state(m).vel, sim.grid.h)
         elif uniform:
             dump_uniform(path, sim.time, sim.state.vel, sim.grid.h)
         else:

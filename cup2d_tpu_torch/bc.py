@@ -368,17 +368,33 @@ def pad_vector_bc_slab(v: torch.Tensor, aux: torch.Tensor, g: int,
     gives it; then the x faces over the y-completed columns, only on the
     sides the slab owns. Every value is the one ``pad_vector_bc`` of the
     whole field puts at the same global place. A free-slip table is
-    ``ops.stencil.pad_vector_slab``; periodic faces have no slab form (the
-    split periodic step, ROADMAP queue 1 item 8)."""
+    ``ops.stencil.pad_vector_slab``. A periodic y wraps the rows of the
+    extended width inside the slab; along a periodic x aux holds the
+    ring's columns (the slab owns no wall) and the y faces paint each
+    halo column at its source column's profile (global columns mod
+    ``nx_tot``), as ``pad_vector_bc`` copies its painted columns across
+    the wrap."""
     if bc.is_free_slip:
         from .ops.stencil import pad_vector_slab
         return pad_vector_slab(v, aux, g, is_lo, is_hi)
-    if any(periodic_axes(bc)):
-        raise NotImplementedError(
-            f"boundary table {bc.token!r}: periodic faces have no slab "
-            "form (ROADMAP queue 1 item 8)")
+    px, py = periodic_axes(bc)
     ext = torch.cat([aux[..., :g], v, aux[..., g:]], dim=-1)
     out = F.pad(ext, (0, 0, g, g))
-    _paint_y_faces(out, ext, g, bc, h, dt, slice(None), col0 - g, nx_tot)
-    _paint_x_faces(out, g, bc, h, dt, bool(is_lo), bool(is_hi))
+    ny, w = v.shape[-2], v.shape[-1]
+    if py:
+        out[..., :g, :] = ext[..., ny - g:, :]
+        out[..., -g:, :] = ext[..., :g, :]
+    elif px:
+        # three runs of consecutive global columns: the left halo, the
+        # slab, the right halo
+        for cols, start in ((slice(0, g), (col0 - g) % nx_tot),
+                            (slice(g, g + w), col0),
+                            (slice(g + w, None), (col0 + w) % nx_tot)):
+            _paint_y_faces(out, ext[..., cols], g, bc, h, dt, cols, start,
+                           nx_tot)
+    else:
+        _paint_y_faces(out, ext, g, bc, h, dt, slice(None), col0 - g,
+                       nx_tot)
+    if not px:
+        _paint_x_faces(out, g, bc, h, dt, bool(is_lo), bool(is_hi))
     return out

@@ -22,8 +22,8 @@ initial state behind one name. The listing is the JAX package's:
     exp(-4 nu k^2 t), the double shear layer of Bell, Colella & Glaz
     (1989), and seeded decaying turbulence. They run under any solver,
     ``CUP2D_POIS=fftd`` included, solo or as a ``FleetSim`` of ``members``
-    slots (turb2d's member m draws seed + m); their split step (``mesh``)
-    is ROADMAP queue 1 item 8.
+    slots (turb2d's member m draws seed + m), and on a slab mesh (``mesh``:
+    a ``ShardedUniformSim``, or a fleet placed on it).
 
 The catalog's drivers run on ``cuda`` unless given ``device="cpu"``. Run
 the Ghia comparison with
@@ -121,14 +121,12 @@ def build_cavity(level: Optional[int] = None, re: float = 100.0,
                     extent=1.0, dtype=dtype, nu=lid_u / re, cfl=cfl,
                     poisson_tol=1e-4, poisson_tol_rel=1e-3)
     bc = cavity_table(lid_u)
+    _mesh_or_device(mesh, device, "build_cavity")
     if members > 0:
         from .fleet import FleetSim
         sim = FleetSim(cfg, level=lvl, members=members, bc=bc,
                        device=device, mesh=mesh)
     elif mesh is not None:
-        if device is not None:
-            raise ValueError("build_cavity: pass a mesh or a device, not "
-                             "both (the mesh's first device is the sim's)")
         from .parallel.mesh import ShardedUniformSim
         sim = ShardedUniformSim(cfg, mesh, level=lvl, bc=bc)
     else:
@@ -182,29 +180,42 @@ def build_cylinder(level: Optional[int] = None, D: float = 0.1,
     return sim
 
 
+def _mesh_or_device(mesh, device, who: str) -> None:
+    if mesh is not None and device is not None:
+        raise ValueError(f"{who}: pass a mesh or a device, not both (the "
+                         "mesh's first device is the sim's)")
+
+
 def _periodic_sim(cfg: SimConfig, lvl: int, mesh, members: int, device):
     """The obstacle-free periodic cases' driver on the doubly-periodic
-    table: a ``members``-slot ``fleet.FleetSim``, else a solo
-    ``UniformSim``. The JAX package's split driver of them is not
-    ported."""
+    table, the JAX package's dispatch (fleet > split > solo): a
+    ``members``-slot ``fleet.FleetSim`` (placed on ``mesh`` where given),
+    a ``ShardedUniformSim`` over ``mesh``, or a solo ``UniformSim``."""
+    _mesh_or_device(mesh, device, "periodic case")
     if members > 0:
         from .fleet import FleetSim
         return FleetSim(cfg, level=lvl, members=members, mesh=mesh,
                         bc=periodic_table(), device=device)
     if mesh is not None:
-        raise NotImplementedError(
-            "periodic case on a mesh: the split periodic step is not "
-            "ported yet (ROADMAP queue 1 item 8)")
+        from .parallel.mesh import ShardedUniformSim
+        return ShardedUniformSim(cfg, mesh, level=lvl, bc=periodic_table())
     from .uniform import UniformSim
     return UniformSim(cfg, level=lvl, device=device, bc=periodic_table())
 
 
 def _install_vel(sim, members: int, vel_fn):
     """Overwrite the zero state's velocity with ``vel_fn(m)`` [2, Ny, Nx]
-    (numpy), stacked over a fleet's slots."""
+    (numpy), stacked over a fleet's slots; a sim on a mesh takes it whole
+    and places it (``set_state``)."""
     vel = (np.stack([vel_fn(m) for m in range(members)]) if members > 0
            else vel_fn(0))
-    sim.state = sim.state._replace(vel=sim.grid.tensor(vel))
+    vel = sim.grid.tensor(vel)
+    if getattr(sim, "mesh", None) is not None:
+        from .io import whole
+        sim.set_state(type(sim.state)(*(whole(f) for f in sim.state))
+                      ._replace(vel=vel))
+    else:
+        sim.state = sim.state._replace(vel=vel)
 
 
 def _periodic_cfg(nu: float, dtype: str, cfl: float) -> SimConfig:

@@ -223,13 +223,16 @@ def copy_amr_state(src, dst) -> None:
 def copy_fleet_state(src, dst) -> None:
     """Give the port ``FleetSim`` ``dst`` the state of ``src``, a
     ``FleetSim`` of either package with the same members and grid: the
-    member-stacked flow state (on ``dst``'s device, in its dtype), the
+    member-stacked flow state (on ``dst``'s device, in its dtype, placed
+    on ``dst``'s mesh where it has one), the
     per-member clocks, the step count and the [B] chained dt, as if
     ``dst`` had made ``src``'s steps."""
     if int(src.members) != int(dst.members):
         raise ValueError(f"{src.members} members into {dst.members}")
-    fields = {k: _host(v) for k, v in src.state._asdict().items()}
-    dst.state = state_from_numpy(fields, dst.grid.device, dst.grid.dtype)
+    from .io import whole
+    fields = {k: _host(whole(v)) for k, v in src.state._asdict().items()}
+    dst.set_state(state_from_numpy(fields, dst.grid.device,
+                                   dst.grid.dtype))
     dst.times = np.array(np.asarray(src.times), dtype=np.float64)
     dst.time = float(src.time)
     dst.step_count = int(src.step_count)

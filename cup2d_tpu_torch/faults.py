@@ -45,8 +45,6 @@ import os
 import signal
 from typing import Optional
 
-import torch
-
 
 class InjectedCrash(RuntimeError):
     """Raised at an armed crash point (stands in for a hard kill)."""
@@ -200,12 +198,17 @@ def poison_velocity(sim, value: float) -> None:
         vel = sim._ordered_state()["vel"].clone()
         vel[0, 0, 0, 0] = value
         sim._set_ordered(vel=vel)
+    elif hasattr(sim, "members"):
+        # a fleet: member 0 only, through its slot write path (whatever
+        # the fleet's placement)
+        from .io import whole
+        st = sim.member_state(0)
+        vel = whole(st.vel).clone()
+        vel[0, 0, 0] = value
+        sim.set_member_state(0, st._replace(vel=vel))
     else:
         vel = sim.state.vel.clone()
-        if vel.ndim == 4:    # a fleet: member 0 only
-            vel[0, 0, 0, 0] = value
-        else:
-            vel[0, 0, 0] = value
+        vel[0, 0, 0] = value
         sim.state = sim.state._replace(vel=vel)
 
 
@@ -215,13 +218,11 @@ def scale_velocity(sim, factor: float) -> None:
     only on a fleet."""
     if hasattr(sim, "forest"):
         sim._set_ordered(vel=sim._ordered_state()["vel"] * factor)
+    elif hasattr(sim, "members"):
+        st = sim.member_state(0)
+        sim.set_member_state(0, st._replace(vel=st.vel * factor))
     else:
-        vel = sim.state.vel
-        if vel.ndim == 4:    # a fleet: member 0 only
-            vel = torch.cat([vel[:1] * factor, vel[1:]])
-        else:
-            vel = vel * factor
-        sim.state = sim.state._replace(vel=vel)
+        sim.state = sim.state._replace(vel=sim.state.vel * factor)
 
 
 # -- process-wide plan (the CLI arms it; io's crash window asks) --------

@@ -33,9 +33,16 @@ and the schema-v7 gauges. Slot writes build new fleet tensors
 (``index_copy``), so no snapshot or caller ever sees a slot change under
 it, and build no kernel: churn costs no kernel build.
 
-The JAX package's member and spatial placement on a device mesh
-(``mesh=``, ``placement=``, ``member_cells_cap=``) are ROADMAP queue 1
-item 8 and refuse.
+A fleet places itself on a slab mesh (``mesh=``, ``placement=``,
+``member_cells_cap=``) by the JAX package's policy: whole members along
+the mesh (``"member"``: ``shard_halo.Blocks`` along the member axis, the
+kernels launched once a device for its B/D members) or every member split
+along x (``"spatial"``: ``shard_halo.Slabs``, the x-split step with the
+member axis riding the halo kernels). Checkpoints, dumps and session
+checkpoints keep the global layout, so a placed fleet restarts unplaced
+and the other way round; the guard and the server drive a placed fleet
+through its member accessors, its solo member steps on the member's own
+device (or split, on spatial placement).
 """
 
 from __future__ import annotations
@@ -52,7 +59,13 @@ import torch
 from . import tracing
 from .config import SimConfig
 from .ops.hopper_kernels import fused_advect_heun
-from .poisson import bicgstab, fft_diag_solve, mg_solve, project_correct
+from .parallel.shard_halo import (Blocks, Slabs, _part_of, _wrap,
+                                  canonical_device, gather_blocks,
+                                  project_correct_x, slab_member_finite,
+                                  slab_member_reducers, slab_member_sum,
+                                  split_blocks, split_x)
+from .poisson import (BiCGSTABResult, bicgstab, fft_diag_solve, mg_solve,
+                      project_correct)
 from .shapes_host import pull
 from .uniform import FlowState, UniformGrid, taylor_green_state
 
@@ -91,6 +104,37 @@ def _host_diag(diag: dict) -> dict:
     return out
 
 
+class _PerDevice:
+    """A member-placed fleet's view of a per-device operator: ``fn(grid,
+    *parts)`` once per shard of its ``Blocks`` arguments (every plain
+    tensor moved to the shard's device), with the grid of that shard's
+    device (``FleetSim._grid_on``); the results are ``Blocks`` along the
+    member axis."""
+
+    def __init__(self, sim, fn):
+        self.sim = sim
+        self.fn = fn
+
+    def __call__(self, *args):
+        mesh = self.sim.mesh
+        outs = [self.fn(self.sim._grid_on(dev), *_part_of(args, d, dev))
+                for d, dev in enumerate(mesh.devices)]
+        return _wrap(outs, mesh, 0)
+
+
+class _PerDeviceMG:
+    """The multigrid cycle of a member-placed fleet: each shard's members
+    through its device's hierarchy (``__call__`` and ``fcycle``, what the
+    member-axis solvers call)."""
+
+    def __init__(self, sim):
+        self._cycle = _PerDevice(sim, lambda g, r: g.mg(r))
+        self.fcycle = _PerDevice(sim, lambda g, r: g.mg.fcycle(r))
+
+    def __call__(self, r):
+        return self._cycle(r)
+
+
 class FleetSim:
     """Host driver of a B-member fleet: the shared step counter, the
     per-member clocks and the member-batched step. Its driver contract is
@@ -101,27 +145,86 @@ class FleetSim:
     ``shaped``: per-member obstacle fields (chi, us, udef) ride the member
     axis as frozen solids, penalized as ``UniformGrid.step`` does. ``bc``:
     the one boundary table of every member. ``device``: ``cuda`` unless
-    ``cpu`` is given (no card and no device raises)."""
+    ``cpu`` is given (no card and no device raises).
+
+    Placement (``mesh``, a ``parallel.mesh.SlabMesh``, whose first device
+    is the fleet's; ``device`` may then only name that one), the JAX
+    package's policy and errors: ``"member"`` puts whole members along the
+    mesh, B/D a device (the state's fields are ``shard_halo.Blocks`` along
+    the member axis; every kernel launches once a device at L = B/D, each
+    member's reductions stay on its device, the member solvers' loop flags
+    are one read an iteration and the diagnostics one stacked read a
+    step); ``"spatial"`` splits every member along x as
+    ``ShardedUniformSim`` does (the fields are ``shard_halo.Slabs`` of
+    [B, ..., Nx/D]; the halo kernels run at L = B, the epilogue is the
+    plain split one, as the JAX package keeps its XLA epilogue there);
+    ``"auto"`` takes member placement where B divides by the mesh size
+    and one member has at most ``member_cells_cap`` cells, else spatial.
+    Without a mesh ``placement`` is ``"single"``. The dt row, the clocks,
+    the active mask and the diagnostics stay whole on the first device;
+    ``set_state`` takes a whole fleet state (the global layout of
+    checkpoints and dumps) and places it. Shaped fleets take no spatial
+    placement (the split step has no obstacle terms)."""
 
     def __init__(self, cfg: SimConfig, level: Optional[int] = None,
                  members: int = 1, shaped: bool = False, bc=None,
-                 device=None, mesh=None, placement=None,
-                 member_cells_cap=None):
-        for name, val in (("mesh", mesh), ("placement", placement),
-                          ("member_cells_cap", member_cells_cap)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"FleetSim({name}=...): placing a fleet on a device "
-                    "mesh is not ported yet (ROADMAP queue 1 item 8)")
+                 device=None, mesh=None, placement: str = "auto",
+                 member_cells_cap: int = 1 << 22):
         if members < 1:
             raise ValueError(f"need members >= 1, got {members}")
         self.cfg = cfg
         self.members = int(members)
         self.shaped = bool(shaped)
+        self.mesh = mesh
+        lvl = cfg.level_start if level is None else level
+        nx = cfg.bpdx * cfg.bs << lvl
+        ny = cfg.bpdy * cfg.bs << lvl
+        if mesh is not None:
+            if device is not None and \
+                    canonical_device(device) != mesh.devices[0]:
+                raise ValueError(
+                    f"FleetSim: device {device} and mesh {mesh}: pass a "
+                    "mesh or a device, not both (the mesh's first device "
+                    "is the fleet's)")
+            device = mesh.devices[0]
+            ndev = mesh.size
+            if placement == "auto":
+                placement = ("member"
+                             if members % ndev == 0
+                             and nx * ny <= member_cells_cap
+                             else "spatial")
+            if placement == "member" and members % ndev != 0:
+                raise ValueError(
+                    f"member placement needs members ({members}) "
+                    f"divisible by mesh size {ndev}")
+            if placement == "spatial" and nx % ndev != 0:
+                raise ValueError(
+                    f"spatial placement needs Nx={nx} divisible by "
+                    f"mesh size {ndev}")
+            if placement not in ("member", "spatial"):
+                raise ValueError(f"placement {placement!r}: expected "
+                                 "auto|member|spatial")
+            if placement == "spatial" and self.shaped:
+                raise NotImplementedError(
+                    "a shaped fleet on spatial placement: the split step "
+                    "has no obstacle terms (use member placement)")
+        else:
+            placement = "single"
+        self.placement = placement
         self.grid = UniformGrid(cfg, level, device=device, bc=bc)
         g = self.grid
-        self.state = stack_states([g.zero_state()
-                                   for _ in range(self.members)])
+        if placement == "spatial":
+            g.attach_mesh(mesh)
+        # one grid a device of a member-placed fleet (its operators'
+        # tensors live there), the fleet's own on the first
+        self._grids = {g.device: g}
+        self._per = self.members
+        if placement == "member":
+            self._per //= mesh.size
+            for d in mesh.devices:
+                self._grid_on(d)
+        self.state = self._place(stack_states(
+            [g.zero_state() for _ in range(self.members)]))
         self.times = np.zeros(self.members, dtype=np.float64)
         self.time = 0.0           # min over live members (loop condition)
         self.step_count = 0       # shared: one step for every member
@@ -136,9 +239,15 @@ class FleetSim:
         self._force_exact = False
         self.async_diag = False
         # one index tensor a slot, made once: slot gathers and scatters
-        # take it as an operand
-        self._idx = [torch.tensor([m], dtype=torch.long, device=g.device)
-                     for m in range(self.members)]
+        # take it as an operand; ``_rows`` index the whole [B] rows on the
+        # first device, ``_idx`` the fields (a member-placed slot's index
+        # on its own device)
+        self._rows = [torch.tensor([m], dtype=torch.long, device=g.device)
+                      for m in range(self.members)]
+        self._idx = self._rows if placement != "member" else [
+            torch.tensor([m % self._per], dtype=torch.long,
+                         device=self._member_device(m))
+            for m in range(self.members)]
 
     # -- telemetry latches (the grid's) ---------------------------------
     @property
@@ -172,31 +281,85 @@ class FleetSim:
     def bc_table(self) -> str:
         return self.grid.bc_table
 
+    # -- placement --------------------------------------------------------
+    def _member_device(self, m: int) -> torch.device:
+        if self.placement == "member":
+            return self.mesh.devices[m // self._per]
+        return self.grid.device
+
+    def _grid_on(self, device) -> UniformGrid:
+        """The fleet's grid on ``device`` (one a device of the mesh, built
+        with the fleet's: the same configuration, table and latches)."""
+        device = canonical_device(device)
+        g = self._grids.get(device)
+        if g is None:
+            g0 = self.grid
+            g = UniformGrid(self.cfg, g0.level, device=device, bc=g0.bc)
+            self._grids[device] = g
+        return g
+
+    def _place(self, state: FlowState) -> FlowState:
+        """A whole fleet state [B, ...] in this fleet's layout."""
+        if self.placement == "member":
+            return FlowState(*(split_blocks(f, self.mesh) for f in state))
+        if self.placement == "spatial":
+            return FlowState(*(split_x(f, self.mesh) for f in state))
+        return state
+
+    def set_state(self, state: FlowState) -> None:
+        """Take a whole fleet state [B, ...] (on the fleet's first device,
+        in its dtype) and place it."""
+        self.state = self._place(state)
+
+    def _member_linf(self, a) -> torch.Tensor:
+        """max |a| per member of a fleet field in this layout: [B] on the
+        first device."""
+        if isinstance(a, Slabs):
+            _, linf, _, _ = slab_member_reducers(a.dtype, None)
+            return linf(a).reshape(-1)
+        m = torch.amax(torch.abs(a), dim=tuple(range(1, a.dim())))
+        return gather_blocks(m) if isinstance(m, Blocks) else m
+
     # -- the member-batched step ----------------------------------------
-    def _dt(self, vel: torch.Tensor) -> torch.Tensor:
+    def _dt(self, vel) -> torch.Tensor:
         """Per-member CFL dt [B] of the fleet velocity [B, 2, Ny, Nx]."""
-        return self.grid.compute_dt(vel, members=True)
+        if self.placement == "single":
+            return self.grid.compute_dt(vel, members=True)
+        return self.grid.dt_from_umax(self._member_linf(vel))
 
     def _pressure_solve(self, rhs: torch.Tensor, exact: bool):
         """``UniformGrid.pressure_solve`` with the member axis: the same
-        tolerances, refresh and stall policy and solver path."""
+        tolerances, refresh and stall policy and solver path. A
+        member-placed fleet applies the operator and the cycle per device
+        (``_PerDevice``), a spatial one reduces across its slabs
+        (``shard_halo.slab_member_reducers``)."""
         g = self.grid
         cfg = self.cfg
+        A, M, red = g.laplacian, g.mg, {}
+        if self.placement == "member":
+            A = _PerDevice(self, lambda gd, x: gd.laplacian(x))
+            M = _PerDeviceMG(self)
+        elif self.placement == "spatial":
+            red = {"reducers": slab_member_reducers}
         if g.solver_mode == "fftd":
-            return fft_diag_solve(
-                g.laplacian, rhs, g._fft_plan,
-                tol=0.0 if exact else cfg.poisson_tol,
-                tol_rel=0.0 if exact else cfg.poisson_tol_rel,
-                member_axis=True)
+            def fftd(gd, b):
+                return tuple(fft_diag_solve(
+                    gd.laplacian, b, gd._fft_plan,
+                    tol=0.0 if exact else cfg.poisson_tol,
+                    tol_rel=0.0 if exact else cfg.poisson_tol_rel,
+                    member_axis=True))
+            if self.placement == "member":
+                return BiCGSTABResult(*_PerDevice(self, fftd)(rhs))
+            return BiCGSTABResult(*fftd(g, rhs))
         if g.solver_mode == "fas" and not exact:
             return mg_solve(
-                g.laplacian, rhs, g.mg,
+                A, rhs, M,
                 tol=cfg.poisson_tol, tol_rel=cfg.poisson_tol_rel,
                 max_cycles=cfg.max_poisson_iterations, fmg=g.fas_fmg,
-                member_axis=True)
+                member_axis=True, **red)
         return bicgstab(
-            g.laplacian, rhs,
-            M=g.mg if cfg.precond else None,
+            A, rhs,
+            M=M if cfg.precond else None,
             tol=0.0 if exact else cfg.poisson_tol,
             tol_rel=0.0 if exact else cfg.poisson_tol_rel,
             max_iter=cfg.max_poisson_iterations,
@@ -205,7 +368,7 @@ class FleetSim:
             refresh_every=10 if exact else 50,
             stall_iters=20 if exact else 120,
             stall_rtol=0.99 if exact else 0.999,
-            member_axis=True)
+            member_axis=True, **red)
 
     def _step_impl(self, state: FlowState, dt: torch.Tensor, active=None,
                    exact_poisson: bool = False):
@@ -217,15 +380,32 @@ class FleetSim:
         their rows of the Poisson RHS zeroed (so the member solvers mark
         them done at iteration 0) and every output select-frozen to the
         input; their clock increment is 0. An all-True mask is the
-        unmasked step bit for bit."""
+        unmasked step bit for bit.
+
+        Member placement runs this code on ``Blocks``: dt and the mask
+        split along the members, the grid's operators and the kernels per
+        device, the diagnostics gathered onto the first device. Spatial
+        placement runs ``_step_spatial``."""
+        if self.placement == "spatial":
+            return self._step_spatial(state, dt, active, exact_poisson)
         g = self.grid
         h = g.h
+        placed = self.placement == "member"
+        if placed:
+            dt = split_blocks(dt, self.mesh)
+            if active is not None:
+                active = split_blocks(active, self.mesh)
         dt_req = dt
+
+        def on(fn):
+            # a grid operation, per device where the members are placed
+            return _PerDevice(self, fn) if placed else \
+                (lambda *a: fn(g, *a))
         if active is not None:
             dt = torch.where(active, dt, torch.ones_like(dt))
         dt3 = dt[:, None, None]
-        vel = fused_advect_heun(state.vel, h, g.cfg.nu, dt, bc=g.bc,
-                                bf16=g.bf16)
+        vel = on(lambda gd, v, d: fused_advect_heun(
+            v, h, gd.cfg.nu, d, bc=gd.bc, bf16=gd.bf16))(state.vel, dt)
         if self.shaped:
             # Brinkman penalization on the member axis, the scalar chain
             # of UniformGrid.step's obstacle terms
@@ -233,28 +413,47 @@ class FleetSim:
                                 1.0 / (1.0 + g.cfg.lam * dt3),
                                 torch.ones_like(state.chi))
             vel = alpha[:, None] * vel + (1.0 - alpha)[:, None] * state.us
-            b = g.poisson_rhs(vel, state.chi, state.udef, dt3)
+            b = on(lambda gd, *a: gd.poisson_rhs(*a))(
+                vel, state.chi, state.udef, dt3)
         else:
-            b = g.poisson_rhs(vel, None, None, dt3)
+            b = on(lambda gd, v, d: gd.poisson_rhs(v, None, None, d))(
+                vel, dt3)
         div_linf = torch.amax(torch.abs(b), dim=(-2, -1)) * (dt / (h * h))
-        b = b - g.laplacian(state.pres)
+        b = b - on(lambda gd, p: gd.laplacian(p))(state.pres)
         if active is not None:
             b = torch.where(active[:, None, None], b, torch.zeros_like(b))
         res = self._pressure_solve(b, exact_poisson)
-        vel, pres = project_correct(
-            res.x, state.pres, vel, h, dt, mean_axes=(-2, -1),
-            remove_mean=g.bc.all_neumann, grad_signs=g._psigns,
-            periodic=g._paxes)
+        vel, pres = on(lambda gd, x, p, v, d: project_correct(
+            x, p, v, h, d, mean_axes=(-2, -1),
+            remove_mean=gd.bc.all_neumann, grad_signs=gd._psigns,
+            periodic=gd._paxes))(res.x, state.pres, vel, dt)
         if active is not None:
             vel = torch.where(active[:, None, None, None], vel, state.vel)
             pres = torch.where(active[:, None, None], pres, state.pres)
             div_linf = torch.where(active, div_linf,
                                    torch.zeros_like(div_linf))
-        umax = g._linf(vel, members=True)
+        umax = torch.amax(torch.abs(vel), dim=(-3, -2, -1))
         vv = vel.to(g.sum_dtype) if g.sum_dtype is not None else vel
         energy = 0.5 * h * h * torch.sum(vv * vv, dim=(-3, -2, -1))
         finite = (torch.isfinite(vel).flatten(1).all(1)
                   & torch.isfinite(pres).flatten(1).all(1))
+        if placed:
+            res = res._replace(x=None, **{
+                k: gather_blocks(getattr(res, k))
+                for k in ("iters", "residual", "converged", "stalled")})
+            umax, energy, finite, div_linf, dt_req = (
+                gather_blocks(t) for t in (umax, energy, finite, div_linf,
+                                           dt_req))
+            if active is not None:
+                active = gather_blocks(active)
+        return state._replace(vel=vel, pres=pres), self._diag(
+            res, exact_poisson, umax, energy, finite, div_linf, dt_req,
+            active)
+
+    def _diag(self, res, exact, umax, energy, finite, div_linf, dt_req,
+              active):
+        """The step's [B] diagnostics, whole on the first device."""
+        g = self.grid
         diag = {
             "poisson_iters": res.iters,
             "poisson_residual": res.residual,
@@ -264,14 +463,53 @@ class FleetSim:
             "umax": umax,
             "energy": energy,
             "div_linf": div_linf,
-            "precond_cycles": g.precond_cycles(res, exact_poisson),
+            "precond_cycles": g.precond_cycles(res, exact),
             "dt_next": g.dt_from_umax(umax),
         }
         if active is not None:
             # a dead slot advances by exactly 0.0
             diag["dt"] = torch.where(active, dt_req,
                                      torch.zeros_like(dt_req))
-        return state._replace(vel=vel, pres=pres), diag
+        return diag
+
+    def _step_spatial(self, state: FlowState, dt: torch.Tensor, active,
+                      exact_poisson: bool):
+        """``_step_impl`` on fields split along x (``Slabs`` of
+        [B, ..., Nx/D]): the split step of ``ShardedUniformSim`` with the
+        member axis riding along (the halo kernels at L = B, a dt per
+        member in their facs), the member solvers on
+        ``slab_member_reducers``, the split epilogue's means per member,
+        and every per-member reduction combined across the slabs onto the
+        first device."""
+        g = self.grid
+        h = g.h
+        _, _, _, where = slab_member_reducers(g.dtype, None)
+        dt_req = dt
+        if active is not None:
+            dt = torch.where(active, dt, torch.ones_like(dt))
+        vel = g.advect_heun(state.vel, dt)
+        b = g.poisson_rhs(vel, None, None, dt[:, None, None])
+        div_linf = self._member_linf(b) * (dt / (h * h))
+        b = b - g.laplacian(state.pres)
+        if active is not None:
+            b = where(active[:, None, None], b, b.zeros_like())
+        res = self._pressure_solve(b, exact_poisson)
+        vel, pres = project_correct_x(
+            res.x, state.pres, vel, h, dt, remove_mean=g.bc.all_neumann,
+            grad_signs=g._psigns, periodic=g._paxes, members=True)
+        if active is not None:
+            vel = where(active[:, None, None, None], vel, state.vel)
+            pres = where(active[:, None, None], pres, state.pres)
+            div_linf = torch.where(active, div_linf,
+                                   torch.zeros_like(div_linf))
+        umax = self._member_linf(vel)
+        vv = vel.to(g.sum_dtype) if g.sum_dtype is not None else vel
+        energy = 0.5 * h * h * slab_member_sum(vv * vv)
+        finite = slab_member_finite(vel, pres)
+        res = res._replace(x=None)
+        return state._replace(vel=vel, pres=pres), self._diag(
+            res, exact_poisson, umax, energy, finite, div_linf, dt_req,
+            active)
 
     # -- the driver contract (StepGuard's) ------------------------------
     def step_once(self, dt=None):
@@ -329,19 +567,57 @@ class FleetSim:
     # -- per-member access (guard rewind, server admit and retire) ------
     # Every write builds new fleet tensors (index_copy out of place): the
     # tensors a snapshot, a caller or a diag holds never change.
-    def member_state(self, m: int) -> FlowState:
-        """Member ``m``'s slice as a solo FlowState (new tensors)."""
+    def _member_of(self, a, m: int):
+        """Member ``m``'s slice of a fleet field in this layout (new
+        tensors): on its device (member placement), split along x
+        (spatial), or whole."""
         idx = self._idx[m]
-        return FlowState(*(a.index_select(0, idx)[0] for a in self.state))
+        if isinstance(a, Blocks):
+            return a.parts[m // self._per].index_select(0, idx)[0]
+        if isinstance(a, Slabs):
+            return Slabs([p.index_select(0, idx.to(p.device))[0]
+                          for p in a.parts], a.mesh)
+        return a.index_select(0, idx)[0]
+
+    def _with_member(self, a, m: int, v):
+        """The fleet field ``a`` with member ``m``'s slice replaced by
+        ``v`` (a solo field, whole or in this layout's form)."""
+        idx = self._idx[m]
+        if isinstance(a, Slabs):
+            if not isinstance(v, Slabs):
+                v = split_x(torch.as_tensor(v, dtype=a.dtype,
+                                            device=a.device), a.mesh)
+            return Slabs([p.index_copy(0, idx.to(p.device),
+                                       q.to(p.dtype)[None])
+                          for p, q in zip(a.parts, v.parts)], a.mesh)
+        if isinstance(a, Blocks):
+            d = m // self._per
+            parts = list(a.parts)
+            p = parts[d]
+            parts[d] = p.index_copy(0, idx, torch.as_tensor(
+                v, dtype=p.dtype, device=p.device)[None])
+            return Blocks(parts, a.mesh, a.axis)
+        return a.index_copy(0, idx, torch.as_tensor(v, dtype=a.dtype,
+                                                    device=a.device)[None])
+
+    def member_state(self, m: int, state=None) -> FlowState:
+        """Member ``m``'s slice of ``state`` (default the fleet's; a
+        snapshot payload dict too) as a solo FlowState of new tensors: on
+        the member's device, split along x on spatial placement."""
+        state = self.state if state is None else state
+        if isinstance(state, dict):
+            state = FlowState(**state)
+        return FlowState(*(self._member_of(a, m) for a in state))
 
     def set_member_state(self, m: int, st: FlowState) -> None:
-        """Install a solo FlowState into member ``m``'s slice; every other
+        """Install a solo FlowState (whole, or in the layout
+        ``member_state`` gives) into member ``m``'s slice; every other
         member's values pass through unchanged."""
-        idx = self._idx[m]
-        self.state = FlowState(*(
-            a.index_copy(0, idx, torch.as_tensor(v, dtype=a.dtype,
-                                                 device=a.device)[None])
-            for a, v in zip(self.state, st)))
+        self.state = FlowState(*(self._with_member(a, m, v)
+                                 for a, v in zip(self.state, st)))
+
+    def _member_grid(self, m: int) -> UniformGrid:
+        return self._grid_on(self._member_device(m))
 
     def _ensure_next_dt(self) -> torch.Tensor:
         if self._next_dt is None:
@@ -354,7 +630,7 @@ class FleetSim:
         """Member ``m``'s chained dt, the others' unchanged."""
         nd = self._ensure_next_dt()
         v = torch.as_tensor(dt_next, dtype=nd.dtype, device=nd.device)
-        self._next_dt = nd.index_copy(0, self._idx[m], v.reshape(1))
+        self._next_dt = nd.index_copy(0, self._rows[m], v.reshape(1))
 
     def admit_member(self, m: int, st: FlowState, next_dt=None) -> None:
         """Install ``st`` into slot ``m`` with its chained dt. ``next_dt``
@@ -364,19 +640,21 @@ class FleetSim:
         nd = self._ensure_next_dt()
         self.set_member_state(m, st)
         if next_dt is None or not float(next_dt) > 0:
-            v = self.grid.compute_dt(self.state.vel[m])
+            v = self._member_grid(m).compute_dt(
+                self.member_state(m).vel).to(nd.device)
         else:
             v = torch.as_tensor(float(next_dt), dtype=nd.dtype,
                                 device=nd.device)
-        self._next_dt = nd.index_copy(0, self._idx[m], v.reshape(1))
+        self._next_dt = nd.index_copy(0, self._rows[m], v.reshape(1))
 
     def member_step_once(self, m: int, dt=None, exact: bool = False):
         """Advance only member ``m`` one step through the solo step
-        (``UniformGrid.step``), the guard's replay and retry path. The
+        (``UniformGrid.step``: on the member's own device, or split along
+        x on spatial placement), the guard's replay and retry path. The
         shared counter, the fleet dt cache and the clocks are the
         caller's. Returns the solo diagnostics (device tensors), with
         ``dt``."""
-        g = self.grid
+        g = self._member_grid(m)
         st = self.member_state(m)
         if dt is None:
             dt = float(pull(g.compute_dt(st.vel))[0])
@@ -393,8 +671,8 @@ class FleetSim:
                           decay: float = 0.8) -> None:
         """The CLI fleet's t = 0 state: the amplitude-laddered
         Taylor-Green ensemble (each member its own umax and dt)."""
-        self.state = taylor_green_fleet(self.grid, self.members, amp0,
-                                        decay)
+        self.set_state(taylor_green_fleet(self.grid, self.members, amp0,
+                                          decay))
 
 
 # ---------------------------------------------------------------------------

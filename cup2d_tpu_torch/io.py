@@ -32,7 +32,10 @@ device from the host. A snapshot of another topology restores through
 
 A fleet (``fleet.FleetSim``) checkpoints its per-member clocks in a
 ``fleet`` meta entry, as the JAX package does; a checkpoint without one
-restores every member at the shared clock. A serving session saves and
+restores every member at the shared clock. A fleet placed on a mesh
+writes its fields in the global layout [B, ...] and places what it
+loads, so a placed fleet's checkpoint loads unplaced and the other way
+round. A serving session saves and
 resumes one member alone (``save_member_checkpoint``,
 ``load_member_checkpoint``: the member's solo-shaped fields, its own clock
 and its chained dt, in the same tmp -> park -> replace order). The device
@@ -467,7 +470,10 @@ def save_member_checkpoint(dirpath: str, sim, m: int) -> None:
     names = list(st._fields)
     nd = sim._next_dt
     extra = [nd[m].reshape(1)] if torch.is_tensor(nd) else []
-    vals = pull(*(getattr(st, k) for k in names), *extra, keep_dtype=True)
+    # a placed fleet's member in the global layout, on the fleet's device
+    dev = sim.grid.device
+    vals = pull(*(whole(getattr(st, k)).to(dev) for k in names), *extra,
+                keep_dtype=True)
     next_dt = None
     if extra:
         next_dt = float(vals.pop()[0])

@@ -57,7 +57,11 @@ ny, nx, stream)``. Both builds run on the same operands:
    under the cavity and the parabolic channel tables, the correction and
    the n = 2 sweep chain with the channel's signs (1, -1, 1, 1); and on
    4 slabs of one card the halo pair under the same tables and one halo
-   sweep with the channel's signs.
+   sweep with the channel's signs; and the periodic tables' halo forms
+   (no earlier design: their twins hold them in ``chip_smoke.py``), the
+   wrap pair on the doubly-periodic box and the periodic channel over a
+   ring exchange and the y-wrap sweep, beside the free-slip and Neumann
+   forms.
 
 Prints one JSON line per comparison and a summary line last; exits 1 if
 any output differs. Needs a card and nvcc.
@@ -389,7 +393,8 @@ def form_bit_checks(fns, current, dev, size: int = 8192) -> list[dict]:
     slab of the 8192^2 split); the signed chain in f32 and bf16. One row
     per operand set with the worst ulp (of the f32 values: 0 where
     equal)."""
-    from .cases import cavity_table, channel_table
+    from .cases import (cavity_table, channel_table,
+                        periodic_channel_table, periodic_table)
     from .bc import BCTable, convective_outflow, dirichlet_inflow, no_slip
     tables = {"cavity": cavity_table(1.0),
               "channel_uniform": channel_table(1.0),
@@ -761,9 +766,11 @@ def bc_form_times(dev, size: int = 8192, slabs: int = 4) -> dict:
     substage pair (cavity and parabolic channel tables), the correction
     and the n = 2 sweep chain (the channel's signs); and the x-split
     step's on ``slabs`` slabs of one card (one call = every slab and its
-    exchange): the halo pair (the same tables) and one halo sweep (the
-    channel's signs)."""
-    from .cases import cavity_table, channel_table
+    exchange): the halo pair (the same tables, and the periodic box and
+    channel: the wrap form over a ring exchange) and one halo sweep (the
+    channel's signs, and the doubly-periodic ones: the y-wrap form)."""
+    from .cases import (cavity_table, channel_table,
+                        periodic_channel_table, periodic_table)
     signs = (1.0, -1.0, 1.0, 1.0)
     v, h = _bench_velocity(size, dev)
     dt = torch.tensor([0.5], device=dev) * h
@@ -804,6 +811,15 @@ def bc_form_times(dev, size: int = 8192, slabs: int = 4) -> dict:
             lambda: halo_pair(channel_table(1.0, "parabolic"))),
         "halo_sweep": (lambda: halo_sweeps(None),
                        lambda: halo_sweeps(signs)),
+        # the periodic tables' halo forms: the wrap pair over a ring
+        # exchange, the sweep's y-wrap form (doubly periodic signs)
+        "halo_pair_periodic": (
+            lambda: halo_pair(None), lambda: halo_pair(periodic_table())),
+        "halo_pair_periodic_channel": (
+            lambda: halo_pair(None),
+            lambda: halo_pair(periodic_channel_table())),
+        "halo_sweep_periodic": (lambda: halo_sweeps(None),
+                                lambda: halo_sweeps((0.0, 0.0, 0.0, 0.0))),
     }
     out = {k: {"free_slip": [], "table": []} for k in arms}
     for who in ("free_slip", "table", "table", "free_slip"):

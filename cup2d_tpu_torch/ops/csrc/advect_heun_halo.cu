@@ -18,6 +18,10 @@
 // non-periodic boundary table, its BC branch (the info row's col0 and the
 // global width nx_tot place the parabolic profile), in both storages
 // (cup2d_advect_substage_halo_bc, cup2d_advect_substage_halo_bc_bf16).
+// The periodic tables have no Pallas form (the JAX package runs them on its
+// XLA chain, bc.pad_vector_bc's wrap under GSPMD); their slabs run the wrap
+// form (cup2d_advect_substage_halo_wrap, f32): the ring's halo along a
+// periodic x, the rows wrapped inside the slab along a periodic y.
 //
 // Bound on this card: as for advect_heun.cu, about 2 reconstructions per
 // cell and component against 16 or 24 bytes per cell (the 6-column aux
@@ -95,4 +99,28 @@ extern "C" int cup2d_advect_substage_halo_bc_bf16(
                                        cfac, ih2, is_lo, is_hi, faces, h,
                                        col0, nx_tot, out_bf16, vec, grid,
                                        stream);
+}
+
+// The wrap form of a periodic table (f32, a face pair of kind
+// substage::PERIODIC): the boundary-table form's arguments. A periodic y
+// wraps the slab's rows and aux's inside the slab; along a periodic x the
+// caller passes is_lo = is_hi = 0 with aux holding the ring's columns (the
+// first slab's left halo the last slab's last three columns, and so on),
+// and the y faces of the other axis paint every column at its source
+// column's profile (col0 + x mod nx_tot). vec as for the BC form.
+extern "C" int cup2d_advect_substage_halo_wrap(
+        const float* v, const float* vold, const float* aux, float* out,
+        const float* facs, int L, int ny, int nxl, float cfac, float ih2,
+        float h, substage::Faces faces, int is_lo, int is_hi, int col0,
+        int nx_tot, int vec, int grid, void* stream) {
+    const bool wx = faces.x_lo.kind == substage::PERIODIC;
+    const bool wy = faces.y_lo.kind == substage::PERIODIC;
+    if (ny < 2 || nxl < 2 || col0 < 0 || col0 > nx_tot - nxl || aux == nullptr
+            || !(wx || wy) || wx != (faces.x_hi.kind == substage::PERIODIC)
+            || wy != (faces.y_hi.kind == substage::PERIODIC)
+            || (wx && (is_lo || is_hi)))
+        return (int)cudaErrorInvalidValue;
+    return substage::launch_form<true, float, float, true>(
+        v, vold, aux, out, facs, L, ny, nxl, cfac, ih2, is_lo, is_hi, faces,
+        h, col0, nx_tot, vec, grid, stream);
 }

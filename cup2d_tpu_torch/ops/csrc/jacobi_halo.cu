@@ -28,7 +28,13 @@
 // its neighbours' edge columns in place) and one slab with its aux
 // (cup2d_jacobi_halo_sweep{,_bf16,_signed,_signed_bf16}: the per-slab
 // sweep after an exchange, for slabs on different devices); both run the
-// same kernel.
+// same kernel. The periodic tables (no Pallas form: the JAX package sweeps
+// them on its XLA chain) run a y-wrap form of each (..._wrap, f32, signed:
+// the y rows wrap inside the slab) where y is periodic, and the signed
+// forms where only x is; along a periodic x the host passes no wall slab
+// and closes the edge-column sources into a ring (slab 0's left source is
+// the last slab's last column, the last slab's right source slab 0's
+// first; one slab reads its own), so every slab sweeps as an interior one.
 //
 // Bound on this card: memory. A sweep reads e and r and writes the result,
 // 12 bytes per cell (8 from zero; 6 and 4 in bf16), for 9 operations per
@@ -220,8 +226,11 @@ __device__ __forceinline__ void store_run(ST* p, const float (&v)[R]) {
 }
 
 // One slab's share of the launch: thread t of the slab owns run k of the
-// rows y0 .. y1 - 1 of member l, with runs of R cells.
-template <bool SIGNED, class ST, int R>
+// rows y0 .. y1 - 1 of member l, with runs of R cells. WRAPY: a periodic y,
+// row 0's lower neighbour row ny - 1 and row ny - 1's upper neighbour row
+// 0, and no y wall (the rows take the interior diagonal, as the y signs
+// of a periodic axis are 0).
+template <bool SIGNED, class ST, int R, bool WRAPY = false>
 __device__ __forceinline__ void walk(const halo::Slab& S, int l, int ny,
                                      int ry, float omega, int from_zero,
                                      const Signs& sg) {
@@ -247,7 +256,7 @@ __device__ __forceinline__ void walk(const halo::Slab& S, int l, int ny,
             const size_t row = (plane + y) * nxl + c0;
             float rv[R], o[R];
             load_run<R>(r + row, rv);
-            const bool wall = xedge || y == 0 || y == ny - 1;
+            const bool wall = xedge || (!WRAPY && (y == 0 || y == ny - 1));
 #pragma unroll
             for (int j = 0; j < R; ++j) {
                 float inv_d = -0.25f;             // 1 / -4, exact
@@ -279,21 +288,30 @@ __device__ __forceinline__ void walk(const halo::Slab& S, int l, int ny,
     W wm = zero, wc = zero, wn = zero, wr = zero;
     if (act) {
         const size_t row = (plane + y0) * nxl + c0;
-        if (y0 > 0) wm = load_word<R>(e + row - nxl);
+        if (y0 > 0)
+            wm = load_word<R>(e + row - nxl);
+        else if (WRAPY)
+            wm = load_word<R>(e + (plane + ny - 1) * nxl + c0);
         wc = load_word<R>(e + row);
         wr = load_word<R>(r + row);
-        if (y0 + 1 < ny) wn = load_word<R>(e + row + nxl);
+        if (y0 + 1 < ny)
+            wn = load_word<R>(e + row + nxl);
+        else if (WRAPY)
+            wn = load_word<R>(e + plane * nxl + c0);
     }
     // every lane walks ry rows, so the shuffles stay convergent
     for (int i = 0; i < ry; ++i) {
         const int y = y0 + i;
         const bool on = act && y < y1;
         const size_t row = (plane + y) * nxl + c0;
-        const W wp = on && y + 1 < ny ? wn : zero;
+        const W wp = on && (WRAPY || y + 1 < ny) ? wn : zero;
         const W wrow = wr;
         if (act && y + 1 < y1) {
             wr = load_word<R>(r + row + nxl);
-            if (y + 2 < ny) wn = load_word<R>(e + row + 2 * nxl);
+            if (y + 2 < ny)
+                wn = load_word<R>(e + row + 2 * nxl);
+            else if (WRAPY)
+                wn = load_word<R>(e + plane * nxl + c0);   // row 0
         }
         float xl = __shfl_up_sync(0xffffffffu, last_of<R, ST>(wc), 1);
         float xr = __shfl_down_sync(0xffffffffu, first_of<R, ST>(wc), 1);
@@ -313,7 +331,7 @@ __device__ __forceinline__ void walk(const halo::Slab& S, int l, int ny,
             unpack<R, ST>(wc, cur);
             unpack<R, ST>(wp, yp);
             unpack<R, ST>(wrow, rv);
-            const bool wall = xedge || y == 0 || y == ny - 1;
+            const bool wall = xedge || (!WRAPY && (y == 0 || y == ny - 1));
             float o[R];
 #pragma unroll
             for (int j = 0; j < R; ++j) {
@@ -340,7 +358,7 @@ __device__ __forceinline__ void walk(const halo::Slab& S, int l, int ny,
     }
 }
 
-template <bool SIGNED, class ST>
+template <bool SIGNED, class ST, bool WRAPY>
 __global__ void __launch_bounds__(THREADS)
 jacobi_halo_kernel(const Table tab, int D, int ny, int ry, float omega,
                    int from_zero, Signs sg) {
@@ -348,9 +366,9 @@ jacobi_halo_kernel(const Table tab, int D, int ny, int ry, float omega,
     const int l = blockIdx.z / D;
     const halo::Slab S = tab.s[d];
     if (tab.run[d] == V<ST>)
-        walk<SIGNED, ST, V<ST>>(S, l, ny, ry, omega, from_zero, sg);
+        walk<SIGNED, ST, V<ST>, WRAPY>(S, l, ny, ry, omega, from_zero, sg);
     else
-        walk<SIGNED, ST, 1>(S, l, ny, ry, omega, from_zero, sg);
+        walk<SIGNED, ST, 1, WRAPY>(S, l, ny, ry, omega, from_zero, sg);
 }
 
 int sm_count() {
@@ -373,7 +391,7 @@ bool aligned16(const void* p) {
 // The launch plan: each slab's run length (V where its rows are whole
 // 16-byte words and its operands start on 16-byte boundaries, else 1),
 // the strip length ry and the grid, then the launch.
-template <bool SIGNED, class ST>
+template <bool SIGNED, class ST, bool WRAPY = false>
 int launch(const halo::Slab* slabs, int D, int L, int ny, float omega,
            int from_zero, Signs sg, void* stream) {
     if (D < 1 || D > MAX_SLABS || L < 1 || ny < 1 || (long)L * D > 65535)
@@ -403,21 +421,22 @@ int launch(const halo::Slab* slabs, int D, int L, int ny, float omega,
         (widest * ((ny + ry - 1) / ry) + THREADS - 1) / THREADS;
     if (blocks > 0x7fffffffLL / THREADS) return (int)cudaErrorInvalidValue;
     dim3 grid((unsigned)blocks, 1, (unsigned)(L * D));
-    jacobi_halo_kernel<SIGNED, ST><<<grid, THREADS, 0,
-                                     (cudaStream_t)stream>>>(
+    jacobi_halo_kernel<SIGNED, ST, WRAPY><<<grid, THREADS, 0,
+                                            (cudaStream_t)stream>>>(
         tab, D, ny, ry, omega, from_zero, sg);
     return (int)cudaGetLastError();
 }
 
 // one slab with its aux [L, ny, 2] as the edge-column sources (stride 2)
-template <bool SIGNED, class ST>
+template <bool SIGNED, class ST, bool WRAPY = false>
 int launch_aux(const void* e, const void* r, const void* aux, void* out,
                int L, int ny, int nxl, float omega, int is_lo, int is_hi,
                int from_zero, Signs sg, void* stream) {
     const ST* a = static_cast<const ST*>(aux);
     halo::Slab S{e, r, out, a, a ? a + 1 : nullptr, nxl, 2, 2, is_lo,
                  is_hi};
-    return launch<SIGNED, ST>(&S, 1, L, ny, omega, from_zero, sg, stream);
+    return launch<SIGNED, ST, WRAPY>(&S, 1, L, ny, omega, from_zero, sg,
+                                     stream);
 }
 
 constexpr Signs NEUMANN{1.0f, 1.0f, 1.0f, 1.0f};
@@ -504,4 +523,30 @@ extern "C" int cup2d_jacobi_halo_sweep_signed_bf16(
                                   is_hi, from_zero,
                                   Signs{es_x_lo, es_x_hi, es_y_lo, es_y_hi},
                                   stream);
+}
+
+// The y-wrap forms of a periodic table (f32; y periodic: es_y_lo = es_y_hi
+// = 0): the slab list, whose edge-column sources close into a ring where x
+// is periodic too, and one slab with its aux (the ring's exchange).
+extern "C" int cup2d_jacobi_halo_sweep_slabs_wrap(
+        const halo::Slab* slabs, int D, int L, int ny, float omega,
+        int from_zero, float es_x_lo, float es_x_hi, float es_y_lo,
+        float es_y_hi, void* stream) {
+    if (es_y_lo != 0.0f || es_y_hi != 0.0f)
+        return (int)cudaErrorInvalidValue;
+    return launch<true, float, true>(
+        slabs, D, L, ny, omega, from_zero,
+        Signs{es_x_lo, es_x_hi, es_y_lo, es_y_hi}, stream);
+}
+
+extern "C" int cup2d_jacobi_halo_sweep_wrap(
+        const float* e, const float* r, const float* aux, float* out, int L,
+        int ny, int nxl, float omega, int is_lo, int is_hi, int from_zero,
+        float es_x_lo, float es_x_hi, float es_y_lo, float es_y_hi,
+        void* stream) {
+    if (es_y_lo != 0.0f || es_y_hi != 0.0f)
+        return (int)cudaErrorInvalidValue;
+    return launch_aux<true, float, true>(
+        e, r, aux, out, L, ny, nxl, omega, is_lo, is_hi, from_zero,
+        Signs{es_x_lo, es_x_hi, es_y_lo, es_y_hi}, stream);
 }

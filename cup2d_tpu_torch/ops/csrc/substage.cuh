@@ -100,8 +100,8 @@
 //   walk reads the faces where the per-cell kernel read them, and the
 //   result is its bits. The form is a template parameter of the kernel,
 //   the walk and the queue, so the substage instances compile as before.
-// - The wrap form (WRAP = true, a boundary-table form of the whole field,
-//   f32) runs the periodic tables: a face of kind PERIODIC (paired, as
+// - The wrap form (WRAP = true, a boundary-table form, f32) runs the
+//   periodic tables: a face of kind PERIODIC (paired, as
 //   bc.py validates) makes its axis wrap. Along a periodic axis a tile
 //   copies its out-of-field halo rows or columns from (gy mod ny, gx mod
 //   nx), as bc.pad_vector_bc's wrap puts them, and paints nothing there;
@@ -112,6 +112,10 @@
 //   of four columns one 16-byte copy (x0 - XO is a multiple of 4). The
 //   compute core is the BC form's; the instance is a template parameter
 //   of the loader and the painting, so the other instances are unchanged.
+//   On an x slab (advect_heun_halo.cu's wrap form) x never wraps inside the
+//   slab: along a periodic x the host passes no wall and aux holds the
+//   ring's columns, whose y rows wrap (a periodic y) or are painted at
+//   their source column's profile (the periodic channel).
 
 #pragma once
 
@@ -225,7 +229,8 @@ __device__ __forceinline__ void cp_wait0() {
 // columns on the sides it does not own (aux [L, 2, ny, 6]: columns -3..-1,
 // then nx..nx+2). Shared column i holds global x0 - XO + i. WRAP: along a
 // periodic axis (wx, wy) the cells outside the field too, from the
-// wrapped index.
+// wrapped index (a slab's aux columns wrap their rows along y; a slab
+// passes wx false, its x halo being aux's).
 template <int VEC, bool WRAP = false>
 __device__ __forceinline__ void load_tile(float* st, const float* v,
                                           const float* aux, const Tile& T,
@@ -265,10 +270,14 @@ __device__ __forceinline__ void load_tile(float* st, const float* v,
         const int row = q / (2 * G), k = q - row * (2 * G);
         const int c = row >= H;
         const int j = row - c * H;
-        const int gy = T.y0 - G + j;
+        int gy = T.y0 - G + j;
         const int gx = k < G ? k - G : nx + k - G;
         const int i = gx - T.x0 + XO;
-        if (gy < 0 || gy >= ny || !(k < G ? lo : hi) || i >= W) continue;
+        if (!(k < G ? lo : hi) || i >= W) continue;
+        if (gy < 0 || gy >= ny) {
+            if (!(WRAP && wy)) continue;
+            gy = wrap(gy, ny);
+        }
         cp_async<1>(st + c * CELLS + j * W + i,
                     a + ((size_t)c * ny + gy) * 2 * G + k);
     }
@@ -486,7 +495,8 @@ __device__ __forceinline__ void bc_ghost(const Face& f, int nc, float sign,
 // global column is exact below 2^24, so a slab's profile is the whole
 // field's at the same column. WRAP: no y faces where y is periodic (wy);
 // where x is (wx) the x faces are off (wall_lo = wall_hi = false) and a
-// wrapped column's profile is its source column's. Ends synchronised.
+// wrapped column's profile is its source column's (global column col0 + gx
+// mod nx_tot: a slab's ring halo columns too). Ends synchronised.
 template <bool WRAP = false>
 __device__ __forceinline__ void paint_ghosts_bc(float* st, const Tile& T,
                                                 int ny, int nx,
@@ -517,12 +527,12 @@ __device__ __forceinline__ void paint_ghosts_bc(float* st, const Tile& T,
             in = jhi - 1;
         }
         const Face f = lo ? F.y_lo : F.y_hi;
-        int gx = T.x0 - XO + i;
+        int gx = col0 + T.x0 - XO + i;       // the global column
         if constexpr (WRAP) {
-            if (wx) gx = wrap(gx, nx);
+            if (wx) gx = wrap(gx, nx_tot);
         }
         const float p = parabola(__fdiv_rn(
-            __fadd_rn((float)(col0 + gx), 0.5f), (float)nx_tot));
+            __fadd_rn((float)gx, 0.5f), (float)nx_tot));
         float wu, wv, gu, gv;
         wall_velocity(f, p, wu, wv);
         bc_ghost(f, 1, lo ? -1.0f : 1.0f, u[e * W + i], w[e * W + i],
@@ -811,8 +821,8 @@ __device__ __forceinline__ void compute_tile(
 // launch argument vec (4: 8 bytes, 1: 2 bytes). LAB (f32, VEC 0, not BC):
 // the single-op RHS, v a lab [L, 2, ny + 6, nx + 6] copied by vec (2: 8
 // bytes, 1: 4 bytes), facs [2] shared by the members, out = rhs. WRAP
-// (f32, BC, a whole field): the wrap form, the faces of kind PERIODIC
-// making their axes wrap.
+// (f32, BC): the wrap form, the faces of kind PERIODIC making their axes
+// wrap; of a slab (aux given), x comes from aux and only y wraps.
 template <int VEC, bool BC, class TI, class TO, bool LAB = false,
           bool WRAP = false>
 __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
@@ -833,12 +843,15 @@ substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
     const bool wy = WRAP && faces.y_lo.kind == PERIODIC;
     const bool wall_lo = (aux == nullptr || is_lo) && !wx;
     const bool wall_hi = (aux == nullptr || is_hi) && !wx;
+    // a slab takes its x halo from aux (the ring's, along a periodic x):
+    // only a whole field wraps x inside its own columns
+    const bool lwx = wx && aux == nullptr;
     Tile T = tile_at(t, ny, nx);
     if constexpr (storage::is_f32<TI>) {
         if constexpr (LAB)
             load_lab(smem, v, T, ny, nx, vec == 2);
         else
-            load_tile<VEC, WRAP>(smem, v, aux, T, ny, nx, is_lo, is_hi, wx,
+            load_tile<VEC, WRAP>(smem, v, aux, T, ny, nx, is_lo, is_hi, lwx,
                                  wy);
         cp_commit();
         for (int s = 0; t < tiles; t += gridDim.x, s ^= 1) {
@@ -852,7 +865,7 @@ substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
                              vec == 2);
                 else
                     load_tile<VEC, WRAP>(smem + (s ^ 1) * 2 * CELLS, v, aux,
-                                         N, ny, nx, is_lo, is_hi, wx, wy);
+                                         N, ny, nx, is_lo, is_hi, lwx, wy);
             }
             cp_commit();
             cp_wait1();

@@ -25,13 +25,15 @@ wrapper                        replaces                         source
 ``fused_block_jacobi_update``  ``_block_jacobi_kernel`` (f32)   ``block_jacobi.cu``
 ``advect_substage_halo``       ``_sharded_substage_kernel``     ``advect_heun_halo.cu``
                                (one substage on an x slab,
-                               free-slip or a table's ghosts,
-                               f32 or bf16)
+                               free-slip, a table's ghosts or a
+                               periodic table's wrap, f32 or
+                               bf16)
 ``jacobi_halo_sweep``          ``_jacobi_halo_kernel`` (one     ``jacobi_halo.cu``
 ``jacobi_halo_sweep_slabs``    sweep on an x slab, or on every
                                slab of a device in one launch,
                                Neumann or a table's edge
-                               signs, f32 or bf16)
+                               signs, a periodic y wrapped,
+                               f32 or bf16)
 ``advect_diffuse_rhs``         ``_adv_kernel`` (RHS over a      ``advect_rhs.cu``
                                pre-padded lab, f32)
 ``tridiag_scan``               no Pallas kernel: the fftd       ``tridiag.cu``
@@ -67,7 +69,15 @@ axis's faces; ``fused_correction`` reads the gradient's neighbours at the
 wrapped index; ``fused_jacobi_sweeps`` sweeps the wrapped halo with the
 interior diagonal along a periodic axis. A periodic axis's pressure signs
 are 0 (``bc.pressure_signs``), both of them (a lone 0 refuses), and the
-two wrappers read the periodic axes from those pairs (``_wrap_axes``). The FFT direct solve's batched Thomas scans
+two wrappers read the periodic axes from those pairs (``_wrap_axes``).
+The two halo kernels of the x-split step have wrap forms too (f32): on a
+periodic table ``advect_substage_halo`` runs the substage's wrap form on
+an x slab (the rows wrapped inside the slab along a periodic y; along a
+periodic x the halo columns come from a ring exchange and no slab owns a
+wall), and ``jacobi_halo_sweep`` / ``jacobi_halo_sweep_slabs`` their
+y-wrap forms where the signs make y periodic (a periodic x needs no form:
+the slab list's edge-column sources close into a ring). The FFT direct
+solve's batched Thomas scans
 (``tridiag_scan``, ``tridiag.cu``) replace no TPU kernel: the JAX package
 runs them as ``lax.scan`` (``FFTDiagPlan.solve``), which PyTorch lacks.
 
@@ -249,6 +259,16 @@ _FORM_ENTRIES = {
     "jacobi+wrap": ("jacobi", "cup2d_jacobi_sweeps_wrap",
                     [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _F, _F,
                      _F, _F, _P]),
+    "advect_heun_halo+wrap": ("advect_heun_halo",
+                              "cup2d_advect_substage_halo_wrap",
+                              [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                               _Faces, _I, _I, _I, _I, _I, _I, _P]),
+    "jacobi_halo+wrap": ("jacobi_halo", "cup2d_jacobi_halo_sweep_wrap",
+                         [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _F, _F,
+                          _F, _F, _P]),
+    "jacobi_halo+slabs+wrap": ("jacobi_halo",
+                               "cup2d_jacobi_halo_sweep_slabs_wrap",
+                               [_P, _I, _I, _I, _F, _I, _F, _F, _F, _F, _P]),
 }
 
 launches = {"fused_advect_heun": 0, "fused_correction": 0,
@@ -263,6 +283,7 @@ launches = {"fused_advect_heun": 0, "fused_correction": 0,
             "advect_substage_halo+bc+bf16": 0, "jacobi_halo_sweep+bc": 0,
             "jacobi_halo_sweep+bc+bf16": 0, "fused_advect_heun+pd": 0,
             "fused_correction+pd": 0, "fused_jacobi_sweeps+pd": 0,
+            "advect_substage_halo+pd": 0, "jacobi_halo_sweep+pd": 0,
             "tridiag_scan": 0}
 
 # the TPU kernel each wrapper replaces, for reports (a boundary-table or
@@ -473,13 +494,12 @@ def _faces(bc) -> _Faces:
 
 
 def _split_signs(signs) -> tuple:
-    """``_signs`` of a split field's halo sweep: walls only (a periodic
-    table has no split form: ROADMAP queue 1 item 8)."""
+    """``_signs`` of a split field's halo sweep and its y-wrap flag: a
+    periodic y (the pair (0, 0)) takes the y-wrap form; a periodic x needs
+    no form of its own (its slabs close into a ring, none a wall slab, so
+    the x signs are never read)."""
     signs = _signs(signs)
-    if (0.0, 0.0) in (signs[:2], signs[2:]):
-        raise ValueError(f"signs {signs}: a periodic axis has no split form "
-                         "(ROADMAP queue 1 item 8)")
-    return signs
+    return signs, _wrap_axes(signs)[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -971,8 +991,10 @@ def advect_substage_halo_plain(v, vold, aux, facs, cfac, ih2, is_lo, is_hi,
     per-member (afac, dfac), or with a boundary table ``bc`` (not
     free-slip) [L, 3] with the raw dt, the ghosts painted by
     ``bc.pad_vector_bc_slab`` (grid spacing ``h``; the slab's first column
-    is global column ``col0`` of ``nx_tot``). The slabs of a split field
-    give ``advect_substage_plain`` of the whole field bit for bit. bf16 v,
+    is global column ``col0`` of ``nx_tot``; a periodic table's wrap, with
+    the ring's columns in aux along a periodic x). The slabs of a split
+    field give ``advect_substage_plain`` of the whole field bit for bit.
+    bf16 v,
     vold and aux are widened and the result rounded to ``out_dtype``, as
     in ``advect_substage_plain``."""
     out_dtype = _out_dtype("advect_substage_halo", v, out_dtype)
@@ -994,9 +1016,11 @@ def advect_substage_halo(v, vold, aux, facs, cfac, ih2, is_lo, is_hi,
                          out_dtype=None, bc=None, h=None, col0=0,
                          nx_tot=None):
     """One substage on an x slab: the kernel for CUDA tensors (its
-    boundary-table form where ``bc`` is given, its bf16 form for bf16 v,
-    vold and aux), the twin for CPU ones. Same arguments and result as the
-    twin."""
+    boundary-table form where ``bc`` is given, its wrap form, f32, where
+    the table has a periodic axis, its bf16 form for bf16 v, vold and
+    aux), the twin for CPU ones. Same arguments and result as the twin;
+    along a periodic x aux holds the ring's columns and neither wall is
+    the slab's."""
     if not _on_cuda(v, vold, aux, facs):
         return advect_substage_halo_plain(v, vold, aux, facs, cfac, ih2,
                                           is_lo, is_hi, out_dtype, bc, h,
@@ -1021,6 +1045,13 @@ def advect_substage_halo(v, vold, aux, facs, cfac, ih2, is_lo, is_hi,
     _check("advect_substage_halo", facs=facs)
     out_dtype = _out_dtype("advect_substage_halo", v, out_dtype)
     bf16 = v.dtype == torch.bfloat16
+    wrap = bc is not None and any(periodic_axes(bc))
+    if wrap and bf16:
+        raise ValueError(f"advect_substage_halo: boundary table {bc.token}: "
+                         "a periodic table has no bf16 form")
+    if wrap and periodic_axes(bc)[0] and (is_lo or is_hi):
+        raise ValueError("advect_substage_halo: a periodic x has no wall "
+                         "slab (its halo is the ring's)")
     out = torch.empty(v.shape, dtype=out_dtype, device=v.device)
     vec, grid = substage_plan(L, ny, nxl, _sm_count(v.device),
                               _aligned_copies(v))
@@ -1029,14 +1060,15 @@ def advect_substage_halo(v, vold, aux, facs, cfac, ih2, is_lo, is_hi,
             float(cfac), float(ih2))
     walls = (int(bool(is_lo)), int(bool(is_hi)))
     form = (int(out_dtype == torch.bfloat16),) if bf16 else ()
-    key = ("advect_heun_halo" + ("" if bc is None else "+bc")
+    key = ("advect_heun_halo"
+           + ("" if bc is None else "+wrap" if wrap else "+bc")
            + ("+bf16" if bf16 else ""))
     if bc is None:
         _launch(key, v.device, *args, *walls, *form, vec, grid)
     else:
         _launch(key, v.device, *args, float(h), _faces(bc), *walls,
                 int(col0), int(nx_tot), *form, vec, grid)
-    _count("advect_substage_halo", bc is not None, bf16)
+    _count("advect_substage_halo", bc is not None, bf16, wrap)
     return out
 
 
@@ -1054,16 +1086,19 @@ def jacobi_halo_sweep_plain(e, r, aux, omega, is_lo, is_hi,
     (``laplacian5_bc_slab``; None: all Neumann). ``from_zero`` gives
     omega*r*inv_d and reads neither e nor aux. The slabs of a split field
     give one sweep of ``jacobi_sweeps_plain`` bit for bit, in any
-    dtype."""
+    dtype. A periodic table's signs (a (0, 0) pair) wrap the y shifts
+    inside the slab where y is periodic; along a periodic x aux holds the
+    ring's columns and the slab owns no wall."""
     ny, w = r.shape[-2:]
     signs = (NEUMANN_SIGNS if edge_signs is None
              else tuple(float(x) for x in edge_signs))
+    py = edge_signs is not None and _wrap_axes(_signs(signs))[1]
     inv_d = inv_diag_bc_slab(ny, w, r.dtype, r.device, signs, bool(is_lo),
                              bool(is_hi))
     if from_zero:
         return omega * r * inv_d
-    return e + omega * (r - laplacian5_bc_slab(e, aux, signs, is_lo, is_hi)
-                        ) * inv_d
+    return e + omega * (r - laplacian5_bc_slab(e, aux, signs, is_lo, is_hi,
+                                               py)) * inv_d
 
 
 def jacobi_halo_sweep_bf16_plain(e, r, aux, omega, is_lo, is_hi,
@@ -1079,9 +1114,10 @@ def jacobi_halo_sweep_bf16_plain(e, r, aux, omega, is_lo, is_hi,
 def jacobi_halo_sweep(e, r, aux, omega, is_lo, is_hi, from_zero=False,
                       edge_signs=None):
     """One sweep on an x slab: the kernel for CUDA tensors (one launch;
-    its signed form where ``edge_signs`` is given, its bf16 form for bf16
-    operands), the twin for CPU ones (``jacobi_halo_sweep_bf16_plain`` for
-    bf16). Same arguments and result as the twin."""
+    its signed form where ``edge_signs`` is given, its y-wrap form, f32,
+    where they make y periodic, its bf16 form for bf16 operands), the twin
+    for CPU ones (``jacobi_halo_sweep_bf16_plain`` for bf16). Same
+    arguments and result as the twin."""
     if from_zero:
         e = aux = None
     bf16 = r.dtype == torch.bfloat16
@@ -1097,28 +1133,34 @@ def jacobi_halo_sweep(e, r, aux, omega, is_lo, is_hi, from_zero=False,
             f"jacobi_halo_sweep: e {tuple(e.shape)}, r {tuple(r.shape)}, "
             f"aux {tuple(aux.shape)}: expected [...,Ny,w] x2, [...,Ny,2]")
     _check("jacobi_halo_sweep", _STORAGE, e=e, r=r, aux=aux)
-    signs = () if edge_signs is None else _split_signs(edge_signs)
-    key = ("jacobi_halo" + ("+bc" if signs else "")
+    signs, wrap = ((), False) if edge_signs is None else _split_signs(
+        edge_signs)
+    if wrap and bf16:
+        raise ValueError("jacobi_halo_sweep: the y-wrap form is f32 only")
+    key = ("jacobi_halo" + ("+wrap" if wrap else "+bc" if signs else "")
            + ("+bf16" if bf16 else ""))
     out = torch.empty_like(r)
     _launch(key, r.device, None if e is None else e.data_ptr(),
             r.data_ptr(), None if aux is None else aux.data_ptr(),
             out.data_ptr(), L, ny, nxl, float(omega), int(bool(is_lo)),
             int(bool(is_hi)), int(e is None), *signs)
-    _count("jacobi_halo_sweep", bool(signs), bf16)
+    _count("jacobi_halo_sweep", bool(signs), bf16, wrap)
     return out
 
 
-def _edge_columns(es):
+def _edge_columns(es, ring: bool = False):
     """Per slab of a field split along x (``es`` its slabs in order, on
     one device) the aux [..., Ny, 2] of one sweep: the left neighbour's
     last column and the right neighbour's first, zeros where the slab owns
-    a wall (``parallel.shard_halo.exchange_x(., 1)``)."""
+    a wall, or on the ``ring`` of a periodic x the last slab's last column
+    left of slab 0 and slab 0's first right of the last
+    (``parallel.shard_halo.exchange_x(., 1, ring)``)."""
+    D = len(es)
     out = []
     for d, p in enumerate(es):
         zero = p.new_zeros(p.shape[:-1] + (1,))
-        left = es[d - 1][..., -1:] if d > 0 else zero
-        right = es[d + 1][..., :1] if d < len(es) - 1 else zero
+        left = es[d - 1][..., -1:] if d > 0 or ring else zero
+        right = es[(d + 1) % D][..., :1] if d < D - 1 or ring else zero
         out.append(torch.cat([left, right], dim=-1))
     return out
 
@@ -1127,16 +1169,19 @@ def jacobi_halo_sweep_slabs_plain(es, rs, omega, from_zero=False,
                                   edge_signs=None):
     """Plain twin of the slab-list sweep: ``rs`` (and ``es``, ignored
     ``from_zero``) the slabs [..., Ny, w_d] of a field split along x, in
-    order, slab 0 owning the low x wall and the last the high one; per
+    order, slab 0 owning the low x wall and the last the high one (no
+    wall, the slabs a ring, where ``edge_signs`` make x periodic); per
     slab its neighbours' edge columns (``_edge_columns``) and
     ``jacobi_halo_sweep_plain`` (``jacobi_halo_sweep_bf16_plain`` for
     bf16). Returns the swept slabs."""
     bf16 = rs[0].dtype == torch.bfloat16
     twin = jacobi_halo_sweep_bf16_plain if bf16 else jacobi_halo_sweep_plain
     D = len(rs)
-    aux = [None] * D if from_zero else _edge_columns(es)
-    return [twin(None if from_zero else es[d], rs[d], aux[d], omega, d == 0,
-                 d == D - 1, from_zero, edge_signs) for d in range(D)]
+    ring = edge_signs is not None and _wrap_axes(_signs(edge_signs))[0]
+    aux = [None] * D if from_zero else _edge_columns(es, ring)
+    return [twin(None if from_zero else es[d], rs[d], aux[d], omega,
+                 d == 0 and not ring, d == D - 1 and not ring, from_zero,
+                 edge_signs) for d in range(D)]
 
 
 def _overlaps(a, b) -> bool:
@@ -1152,9 +1197,12 @@ def jacobi_halo_sweep_slabs(es, rs, omega, from_zero=False, edge_signs=None,
     tensors one launch for all of them (at most ``HALO_MAX_SLABS``; its
     signed form where ``edge_signs`` is given, its bf16 form for bf16
     operands), each slab reading its neighbours' edge columns in place;
-    on CPU tensors the twin. ``out`` (default: fresh tensors) receives the
-    slabs; no out may overlap any slab of ``es``, which the launch reads
-    while it writes."""
+    on CPU tensors the twin. Where ``edge_signs`` make y periodic the
+    y-wrap form (f32) runs; where they make x periodic no slab is a wall
+    and the edge-column sources close into a ring (slab 0 reads the last
+    slab's last column, the last slab slab 0's first; one slab its own).
+    ``out`` (default: fresh tensors) receives the slabs; no out may
+    overlap any slab of ``es``, which the launch reads while it writes."""
     D = len(rs)
     es = [None] * D if from_zero else list(es)
     bf16 = rs[0].dtype == torch.bfloat16
@@ -1191,6 +1239,12 @@ def jacobi_halo_sweep_slabs(es, rs, omega, from_zero=False, edge_signs=None,
             raise ValueError(f"jacobi_halo_sweep_slabs: out {d} overlaps a "
                              "slab of e, which the launch reads while it "
                              "writes out")
+    signs, wrap = ((), False) if edge_signs is None else _split_signs(
+        edge_signs)
+    ring = bool(signs) and _wrap_axes(signs)[0]
+    if wrap and bf16:
+        raise ValueError("jacobi_halo_sweep_slabs: the y-wrap form is f32 "
+                         "only")
     item = rs[0].element_size()
     table = (_Slab * D)()
     for d in range(D):
@@ -1198,19 +1252,20 @@ def jacobi_halo_sweep_slabs(es, rs, omega, from_zero=False, edge_signs=None,
         s = table[d]
         s.e = None if es[d] is None else es[d].data_ptr()
         s.r, s.out, s.nxl = rs[d].data_ptr(), out[d].data_ptr(), w
-        s.is_lo, s.is_hi = int(d == 0), int(d == D - 1)
-        if es[d] is not None and d > 0:
-            wl = es[d - 1].shape[-1]
-            s.left, s.lstride = es[d - 1].data_ptr() + (wl - 1) * item, wl
-        if es[d] is not None and d < D - 1:
-            s.right = es[d + 1].data_ptr()
-            s.rstride = es[d + 1].shape[-1]
-    signs = () if edge_signs is None else _split_signs(edge_signs)
-    key = ("jacobi_halo+slabs" + ("+bc" if signs else "")
-           + ("+bf16" if bf16 else ""))
+        s.is_lo = int(d == 0 and not ring)
+        s.is_hi = int(d == D - 1 and not ring)
+        if es[d] is not None and (d > 0 or ring):
+            left = es[d - 1]
+            wl = left.shape[-1]
+            s.left, s.lstride = left.data_ptr() + (wl - 1) * item, wl
+        if es[d] is not None and (d < D - 1 or ring):
+            right = es[(d + 1) % D]
+            s.right, s.rstride = right.data_ptr(), right.shape[-1]
+    key = ("jacobi_halo+slabs" + ("+wrap" if wrap else "+bc" if signs
+                                  else "") + ("+bf16" if bf16 else ""))
     _launch(key, rs[0].device, table, D, math.prod(lead[:-1]), lead[-1],
             float(omega), int(bool(from_zero)), *signs)
-    _count("jacobi_halo_sweep", bool(signs), bf16)
+    _count("jacobi_halo_sweep", bool(signs), bf16, wrap)
     return out
 
 

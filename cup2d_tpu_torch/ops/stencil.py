@@ -299,12 +299,15 @@ def _slab_signs(signs, is_lo: bool, is_hi: bool):
 
 
 def laplacian5_bc_slab(p: torch.Tensor, aux: torch.Tensor, signs,
-                       is_lo: bool, is_hi: bool) -> torch.Tensor:
+                       is_lo: bool, is_hi: bool,
+                       py: bool = False) -> torch.Tensor:
     """``laplacian5_bc`` on one x slab [..., Ny, w] of a split field:
-    aux [..., Ny, 2] holds the neighbours' edge columns (zeros at a wall);
-    ``signs`` = (sx_lo, sx_hi, sy_lo, sy_hi), the y signs on every slab,
-    the x signs only on the sides the slab owns. Terms in the whole-field
-    order, so a split field's slabs give its Laplacian bit for bit."""
+    aux [..., Ny, 2] holds the neighbours' edge columns (zeros at a wall;
+    along a periodic x the ring's, and the slab owns no wall); ``signs`` =
+    (sx_lo, sx_hi, sy_lo, sy_hi), the y signs on every slab, the x signs
+    only on the sides the slab owns; ``py`` (a periodic y, signs 0 there)
+    wraps the y shifts inside the slab. Terms in the whole-field order, so
+    a split field's slabs give its Laplacian bit for bit."""
     ny, w = p.shape[-2], p.shape[-1]
     sx_lo, sx_hi, sy_lo, sy_hi = _slab_signs(signs, is_lo, is_hi)
     ex = _slab_edge_ones(w, p.dtype, p.device, sx_lo, sx_hi)
@@ -312,7 +315,7 @@ def laplacian5_bc_slab(p: torch.Tensor, aux: torch.Tensor, signs,
     xp, xm = _halo_x(p, aux)
     return (
         xp + xm
-        + _zshift(p, 1, 0) + _zshift(p, -1, 0)
+        + _shift_bc(p, 1, 0, False, py) + _shift_bc(p, -1, 0, False, py)
         + p * ((ey[:, None] + ex[None, :]) - 4.0)
     )
 
@@ -346,11 +349,13 @@ def divergence_freeslip(v: torch.Tensor) -> torch.Tensor:
 
 
 def divergence_bc_slab(v: torch.Tensor, aux: torch.Tensor, coeffs,
-                       is_lo: bool, is_hi: bool) -> torch.Tensor:
+                       is_lo: bool, is_hi: bool,
+                       py: bool = False) -> torch.Tensor:
     """``divergence_bc`` on one x slab [..., 2, Ny, w]: aux [..., 2, Ny, 2]
     holds the neighbours' edge columns (only u's are read); ``coeffs`` =
     (cx_lo, cx_hi, cy_lo, cy_hi) (bc.divergence_coeffs), the x ones only
-    on the sides the slab owns. Terms in the whole-field order."""
+    on the sides the slab owns; ``py`` wraps the y shifts. Terms in the
+    whole-field order."""
     u = v[..., 0, :, :]
     w = v[..., 1, :, :]
     ny, nxl = u.shape[-2], u.shape[-1]
@@ -361,7 +366,7 @@ def divergence_bc_slab(v: torch.Tensor, aux: torch.Tensor, coeffs,
     return (
         xp - xm
         + u * gx[None, :]
-        + _zshift(w, 1, 0) - _zshift(w, -1, 0)
+        + _shift_bc(w, 1, 0, False, py) - _shift_bc(w, -1, 0, False, py)
         + w * gy[:, None]
     )
 
@@ -387,14 +392,14 @@ def pressure_gradient_update_fused(p: torch.Tensor, h, dt) -> torch.Tensor:
 
 def pressure_gradient_slab(p: torch.Tensor, aux: torch.Tensor,
                            is_lo: bool, is_hi: bool,
-                           grad_signs=None) -> torch.Tensor:
+                           grad_signs=None, py: bool = False) -> torch.Tensor:
     """The undivided gradient (dpx, dpy) [..., 2, Ny, w] of one x slab of
     the pressure, as ``pressure_gradient_update_fused`` (Neumann) or, with
     a table's ``grad_signs`` (sx_lo, sx_hi, sy_lo, sy_hi),
     ``pressure_gradient_update_bc`` and the correction epilogue form it
     before scaling: aux [..., Ny, 2] holds the neighbours' edge columns;
     the one-sided wall terms (-s at a low wall, +s at a high one) apply in
-    x only on the sides the slab owns."""
+    x only on the sides the slab owns; ``py`` wraps the y shifts."""
     ny, w = p.shape[-2], p.shape[-1]
     sx_lo, sx_hi, sy_lo, sy_hi = _slab_signs(grad_signs or NEUMANN_SIGNS,
                                              is_lo, is_hi)
@@ -403,7 +408,8 @@ def pressure_gradient_slab(p: torch.Tensor, aux: torch.Tensor,
     gy = _edge_ones(ny, p.dtype, p.device, lo=-sy_lo, hi=sy_hi)
     xp, xm = _halo_x(p, aux)
     dpx = (xp - xm) + p * gx[None, :]
-    dpy = (_zshift(p, 1, 0) - _zshift(p, -1, 0)) + p * gy[:, None]
+    dpy = ((_shift_bc(p, 1, 0, False, py) - _shift_bc(p, -1, 0, False, py))
+           + p * gy[:, None])
     return torch.stack([dpx, dpy], dim=-3)
 
 

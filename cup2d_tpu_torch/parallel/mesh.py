@@ -8,8 +8,10 @@ on its own ``torch.device`` (devices may repeat: four shards on one card,
 eight on the CPU; several cards in one process get peer copies), and
 ``parallel.shard_halo`` writes every exchange and reduction out.
 ``ShardedUniformSim`` runs the same numerics and host loop as
-``UniformSim`` on that layout; the elastic re-mesh and multi-host launch
-of the JAX package are not ported.
+``UniformSim`` on that layout, under any boundary table (a periodic x
+closes the slabs into a ring); ``fleet.FleetSim(mesh=)`` places a fleet
+on the same mesh. The multi-process backend, the elastic re-mesh and the
+mirror tier of the JAX package are not ported (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -71,8 +73,12 @@ class ShardedUniformSim(UniformSim):
     that ``UniformSim`` takes) carries through too: the halo substage
     paints its ghosts per shard, the split hierarchy sweeps with the signed
     halo sweep, and the split step equals the solo step under the table as
-    it does free-slip. The step's diagnostics carry the same keys as
-    ``UniformSim``'s."""
+    it does free-slip. So does a periodic table (``cases.periodic_table``,
+    ``periodic_channel_table``): a periodic x exchanges on a ring of slabs,
+    a periodic y wraps inside every slab (the halo kernels' wrap forms),
+    and the doubly-periodic mean removal combines per-shard partials in
+    f64; fftd refuses, as in the JAX package. The step's diagnostics carry
+    the same keys as ``UniformSim``'s."""
 
     def __init__(self, cfg: SimConfig, mesh: SlabMesh,
                  level: Optional[int] = None, bc=None):

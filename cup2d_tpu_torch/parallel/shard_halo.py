@@ -14,7 +14,9 @@ ways only:
 
 1. ``exchange_x``, the edge-column exchange (the reference's pair of
    ``lax.ppermute``s): shard d's left halo is shard d-1's last g columns,
-   its right halo shard d+1's first g; wall shards receive zeros there.
+   its right halo shard d+1's first g; wall shards receive zeros there,
+   and along a periodic x the shards close into a ring (shard 0's left
+   neighbour is the last shard; one shard is its own neighbour).
    Copies are ``copy_`` without a host synchronization, so a peer copy
    follows the producer's stream. A multi-host backend plugs in here.
    The halo sweep needs none where every slab lies on one device: one
@@ -45,7 +47,8 @@ import torch
 from ..bc import periodic_axes
 from ..flux import _structured_lap
 from ..halo import _paint_regions, _weighted, filter_face_rows
-from ..ops.hopper_kernels import (HALO_MAX_SLABS, _substage_facs,
+from ..ops.hopper_kernels import (HALO_MAX_SLABS, _signs, _substage_facs,
+                                  _wrap_axes,
                                   advect_substage_halo,
                                   fused_block_jacobi_update,
                                   jacobi_halo_sweep,
@@ -192,11 +195,13 @@ def reshard(s: Slabs, mesh: SlabMesh) -> Slabs:
     return split_x(gather_x(s), mesh)
 
 
-def exchange_x(s: Slabs, g: int) -> list:
+def exchange_x(s: Slabs, g: int, ring: bool = False) -> list:
     """The edge-column exchange: per shard an aux tensor [..., 2g] whose
     first g columns are the left neighbour's last g (zeros on shard 0)
     and whose last g are the right neighbour's first g (zeros on the last
-    shard)."""
+    shard). ``ring`` (a periodic x): the first and the last shard are
+    neighbours, so shard 0 receives the last shard's last g columns and
+    the last shard shard 0's first g; one shard receives its own."""
     parts = s.parts
     D = len(parts)
     if any(p.shape[-1] < g for p in parts):
@@ -205,25 +210,29 @@ def exchange_x(s: Slabs, g: int) -> list:
     out = []
     for d, p in enumerate(parts):
         shape = p.shape[:-1] + (2 * g,)
-        if D == 1:
+        if D == 1 and not ring:
             out.append(p.new_zeros(shape))
             continue
         aux = p.new_empty(shape)
-        if d > 0:
+        if d > 0 or ring:
             aux[..., :g].copy_(parts[d - 1][..., -g:], non_blocking=True)
         else:
             aux[..., :g].zero_()
-        if d < D - 1:
-            aux[..., g:].copy_(parts[d + 1][..., :g], non_blocking=True)
+        if d < D - 1 or ring:
+            aux[..., g:].copy_(parts[(d + 1) % D][..., :g],
+                               non_blocking=True)
         else:
             aux[..., g:].zero_()
         out.append(aux)
     return out
 
 
-def _walls(s: Slabs):
+def _walls(s: Slabs, ring: bool = False):
+    """Per shard (owns the low x wall, owns the high x wall): the first
+    and the last shard, or none along a periodic x (``ring``)."""
     D = len(s.parts)
-    return [(d == 0, d == D - 1) for d in range(D)]
+    return [(d == 0 and not ring, d == D - 1 and not ring)
+            for d in range(D)]
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +275,17 @@ def slab_all_finite(*fields: Slabs) -> torch.Tensor:
     return acc
 
 
+def slab_member_finite(*fields: Slabs) -> torch.Tensor:
+    """Per member of split member stacks [B, ..., w]: every value of every
+    field finite ([B] on ``mesh.devices[0]``)."""
+    flags = [torch.isfinite(p).flatten(1).all(1).to(f.device)
+             for f in fields for p in f.parts]
+    acc = flags[0]
+    for x in flags[1:]:
+        acc = acc & x
+    return acc
+
+
 def slab_reducers(dt_, sum_dtype):
     """``poisson._reducers`` for split fields: (dot, linf, zeros_like),
     dot products accumulated per shard in ``sum_dtype`` (default the
@@ -287,22 +307,26 @@ def slab_reducers(dt_, sum_dtype):
 # the split stencils of the step (what GSPMD partitioned in the reference)
 # ---------------------------------------------------------------------------
 
-def laplacian5_bc_x(p: Slabs, signs=None) -> Slabs:
+def laplacian5_bc_x(p: Slabs, signs=None,
+                    periodic=(False, False)) -> Slabs:
     """``ops.stencil.laplacian5_bc`` of a split field (``signs`` a table's
     (sx_lo, sx_hi, sy_lo, sy_hi) pressure signs; None: all Neumann, i.e.
     ``laplacian5_neumann``): one edge column exchanged, then
     ``laplacian5_bc_slab`` on every shard (the x-wall diagonal on the wall
-    shards only). GSPMD partitioned the whole-field form's shifted slices
+    shards only). ``periodic`` the table's (px, py): a periodic x
+    exchanges on the ring and owns no wall, a periodic y wraps inside
+    every slab. GSPMD partitioned the whole-field form's shifted slices
     into the same exchange."""
     signs = NEUMANN_SIGNS if signs is None else signs
-    aux = exchange_x(p, 1)
-    return Slabs([laplacian5_bc_slab(part, aux[d], signs, lo, hi)
+    px, py = periodic
+    aux = exchange_x(p, 1, px)
+    return Slabs([laplacian5_bc_slab(part, aux[d], signs, lo, hi, py)
                   for d, (part, (lo, hi))
-                  in enumerate(zip(p.parts, _walls(p)))], p.mesh)
+                  in enumerate(zip(p.parts, _walls(p, px)))], p.mesh)
 
 
 def divergence_bc_x(v: Slabs, h, dt, coeffs=None,
-                    affine: Slabs = None) -> Slabs:
+                    affine: Slabs = None, periodic=(False, False)) -> Slabs:
     """The obstacle-free pressure RHS (h/2dt) [div(u*) + affine] of a split
     velocity (``UniformGrid.poisson_rhs`` with chi None): one edge column
     of u exchanged, then ``divergence_bc_slab`` with a table's
@@ -310,12 +334,14 @@ def divergence_bc_x(v: Slabs, h, dt, coeffs=None,
     x wall terms on the wall shards only; ``affine`` is the table's
     constant term of prescribed wall-normal velocities
     (bc.divergence_affine_bc, split like the field), added scaled as the
-    whole-field RHS adds it."""
+    whole-field RHS adds it. ``periodic`` as in ``laplacian5_bc_x``. dt
+    is a scalar, or [B, 1, 1] for a member stack [B, 2, Ny, w]."""
     coeffs = FREE_SLIP_COEFFS if coeffs is None else coeffs
-    aux = exchange_x(v, 1)
-    div = Slabs([divergence_bc_slab(part, aux[d], coeffs, lo, hi)
+    px, py = periodic
+    aux = exchange_x(v, 1, px)
+    div = Slabs([divergence_bc_slab(part, aux[d], coeffs, lo, hi, py)
                  for d, (part, (lo, hi))
-                 in enumerate(zip(v.parts, _walls(v)))], v.mesh)
+                 in enumerate(zip(v.parts, _walls(v, px)))], v.mesh)
     fac = 0.5 * h / dt
     b = fac * div
     if affine is not None:
@@ -323,8 +349,59 @@ def divergence_bc_x(v: Slabs, h, dt, coeffs=None,
     return b
 
 
+def slab_member_sum(a: Slabs, dtype=None) -> torch.Tensor:
+    """Per member of a split member stack [B, ..., w]: the sum over every
+    axis but the first ([B] on ``mesh.devices[0]``), accumulated per shard
+    in ``dtype`` (default its own) and combined in shard order."""
+    return _combine([torch.sum(p, dim=tuple(range(1, p.dim())),
+                               dtype=dtype) for p in a.parts], a.device)
+
+
+def slab_member_reducers(dt_, sum_dtype):
+    """``poisson._member_reducers`` for split member stacks [B, ..., w] (a
+    fleet on slabs): (dot, linf, zeros_like, where), dot and linf per
+    member as [B, 1, ..., 1] on ``mesh.devices[0]`` (dots accumulated per
+    shard in ``sum_dtype``, default the field dtype, and combined in
+    shard order; maxima exact in any order), ``where`` slab by slab where
+    a branch is split (a [B, 1, ...] condition moved to each slab's
+    device), else ``torch.where``."""
+    sd = sum_dtype or dt_
+
+    def keep(p, a):
+        return p.reshape(p.shape[:1] + (1,) * (a.dim() - 1))
+
+    def dot(a, c):
+        acc = slab_member_sum(a * c, None if sd == dt_ else sd)
+        return keep(acc if sd == dt_ else acc.to(dt_), a.parts[0])
+
+    def linf(a):
+        m = [torch.amax(torch.abs(p), dim=tuple(range(1, p.dim())))
+             .to(a.device) for p in a.parts]
+        acc = m[0]
+        for x in m[1:]:
+            acc = torch.maximum(acc, x)
+        return keep(acc, a.parts[0])
+
+    def zeros_like(a):
+        return a.zeros_like() if isinstance(a, Slabs) else torch.zeros_like(a)
+
+    def where(c, a, b):
+        ref = a if isinstance(a, Slabs) else b
+        if not isinstance(ref, Slabs):
+            return torch.where(c, a, b)
+
+        def part(x, d, dev):
+            return x.parts[d] if isinstance(x, Slabs) else _scalar_on(x, dev)
+        return Slabs([torch.where(_scalar_on(c, p.device),
+                                  part(a, d, p.device), part(b, d, p.device))
+                      for d, p in enumerate(ref.parts)], ref.mesh)
+
+    return dot, linf, zeros_like, where
+
+
 def project_correct_x(x: Slabs, pres_old: Slabs, vel: Slabs, h, dt,
-                      remove_mean: bool = True, grad_signs=None):
+                      remove_mean: bool = True, grad_signs=None,
+                      periodic=(False, False), members: bool = False):
     """The projection epilogue of ``poisson.project_correct`` on split
     fields, written out as plain per-slab code (the correction kernel has
     no split form, as in the JAX package, whose mesh keeps the XLA
@@ -333,23 +410,33 @@ def project_correct_x(x: Slabs, pres_old: Slabs, vel: Slabs, h, dt,
     the pressure level), then one edge column of pres exchanged and vel +=
     (pfac grad(pres)) / h^2 with pfac = -dt h / 2, the one-sided wall terms
     signed by the table's ``grad_signs`` (None: Neumann) and on the wall
-    shards only in x (``pressure_gradient_update_bc``). Returns (vel,
+    shards only in x (``pressure_gradient_update_bc``); ``periodic`` as in
+    ``laplacian5_bc_x``. ``members`` (a fleet on slabs: x, pres_old
+    [B, Ny, w], vel [B, 2, Ny, w], dt a scalar or [B]): the means per
+    member, as ``project_correct(mean_axes=(-2, -1))``. Returns (vel,
     pres)."""
+    px, py = periodic
     dt = torch.as_tensor(dt, dtype=x.dtype, device=x.device)
-    if remove_mean:
-        mx, mp = slab_mean(x), slab_mean(pres_old)
-    else:
+    n = math.prod(x.shape[-2:])
+    if not remove_mean:
         mx = mp = torch.zeros((), dtype=x.dtype, device=x.device)
+    elif members:
+        mx, mp = ((slab_member_sum(a, torch.float64) / n).to(a.dtype)
+                  .reshape(-1, 1, 1) for a in (x, pres_old))
+    else:
+        mx, mp = slab_mean(x), slab_mean(pres_old)
     pfac = -0.5 * dt * h
+    if members:
+        pfac = pfac.reshape(-1, 1, 1, 1)
     ih2 = 1.0 / (h * h)
     pres = Slabs([((xp - mx.to(xp.device)) + pp) - mp.to(xp.device)
                   for xp, pp in zip(x.parts, pres_old.parts)], x.mesh)
-    aux = exchange_x(pres, 1)
+    aux = exchange_x(pres, 1, px)
     out = []
     for d, (pp, vp, (lo, hi)) in enumerate(zip(pres.parts, vel.parts,
-                                               _walls(pres))):
+                                               _walls(pres, px))):
         dv = pfac.to(pp.device) * pressure_gradient_slab(pp, aux[d], lo, hi,
-                                                         grad_signs)
+                                                         grad_signs, py)
         out.append(vp + dv * ih2)
     return Slabs(out, vel.mesh), pres
 
@@ -361,21 +448,19 @@ def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None,
     then runs the halo-mode substage (``advect_substage_halo``: the kernel
     on the card, its twin on the CPU) on every shard, wall shards painting
     their x ghosts. dt is a scalar or shaped like the leading dims. ``bc``
-    a non-periodic ``BCTable`` (None or free-slip: the free-slip form):
-    every shard paints the table's y ghosts over its halo columns too, the
-    parabolic profile at its global columns (col0 = d w of the whole
-    width), and its x ghosts on the walls it owns; the facs carry the raw
-    dt (the outflow speed). A periodic table refuses (its wrap would need a
-    ring exchange; ROADMAP queue 1 item 8). ``bf16`` (f32 state only), as
-    ``hopper_kernels.fused_advect_heun``: substage 1 reads a bf16 copy of
-    every slab and writes bf16, substage 2 reads that and the copy and
+    a ``BCTable`` (None or free-slip: the free-slip form): every shard
+    paints the table's y ghosts over its halo columns too, the parabolic
+    profile at its global columns (col0 = d w of the whole width), and its
+    x ghosts on the walls it owns; the facs carry the raw dt (the outflow
+    speed). A periodic table runs the substage's wrap form: a periodic x
+    exchanges on the ring (every shard interior), a periodic y wraps the
+    rows inside every slab. ``bf16`` (f32 state only, no periodic table),
+    as ``hopper_kernels.fused_advect_heun``: substage 1 reads a bf16 copy
+    of every slab and writes bf16, substage 2 reads that and the copy and
     writes the f32 state; both exchange their halos in bf16."""
     if bc is not None and bc.is_free_slip:
         bc = None
-    if bc is not None and any(periodic_axes(bc)):
-        raise NotImplementedError(
-            f"fused_advect_heun_sharded: boundary table {bc.token!r}: "
-            "periodic faces have no split form (ROADMAP queue 1 item 8)")
+    px = bc is not None and periodic_axes(bc)[0]
     if any(p.shape[-1] < WENO_HALO for p in vel.parts):
         raise ValueError(
             f"fused_advect_heun_sharded: slab width "
@@ -390,7 +475,7 @@ def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None,
                           with_dt=bc is not None)
     facs = [facs.to(p.device) for p in vel.parts]
     ih2 = 1.0 / (float(h) * float(h))
-    walls = _walls(vel)
+    walls = _walls(vel, px)
     nx_tot = vel.shape[-1]
     col0 = [0]
     for p in vel.parts[:-1]:
@@ -399,7 +484,7 @@ def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None,
                vel.mesh)
 
     def sub(stage, vold, cfac, out_dtype=None):
-        aux = exchange_x(stage, WENO_HALO)
+        aux = exchange_x(stage, WENO_HALO, px)
         return Slabs([advect_substage_halo(
             p, None if vold is None else vold.parts[d], aux[d], facs[d],
             cfac, ih2, lo, hi, out_dtype, bc, float(h), col0[d], nx_tot)
@@ -415,12 +500,19 @@ def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None,
                  vel.mesh)
 
 
+def _ring(edge_signs) -> bool:
+    """A periodic x: the sweep's x sign pair is a periodic axis's (0, 0)
+    (``bc.pressure_signs``), so the slabs close into a ring."""
+    return edge_signs is not None and _wrap_axes(_signs(edge_signs))[0]
+
+
 def sweep_slabs(e, r: Slabs, omega: float, from_zero: bool = False,
                 edge_signs=None) -> Slabs:
     """One sweep of a split field whose slabs all lie on one device: one
     ``jacobi_halo_sweep_slabs`` launch for every slab (its twin on the
     CPU), each slab reading its neighbours' edge columns in place, so no
-    exchange runs."""
+    exchange runs (on the ring where ``edge_signs`` make x periodic, y
+    wrapped where they make y periodic)."""
     sweep_stats["sweeps"] += 1
     return Slabs(jacobi_halo_sweep_slabs(None if from_zero else e.parts,
                                          r.parts, omega, from_zero,
@@ -431,13 +523,15 @@ def sweep_exchanged(e, r: Slabs, omega: float, from_zero: bool = False,
                     edge_signs=None, fused: bool = True) -> Slabs:
     """One sweep as the JAX package runs it per shard: one edge column
     exchanged (none from zero), then ``jacobi_halo_sweep`` on every slab,
-    one launch each (``fused=False``: its plain twin)."""
+    one launch each (``fused=False``: its plain twin); on the ring, with no
+    wall shard, where ``edge_signs`` make x periodic."""
     sweep = jacobi_halo_sweep if fused else jacobi_halo_sweep_plain
-    walls = _walls(r)
+    ring = _ring(edge_signs)
+    walls = _walls(r, ring)
     if from_zero:
         aux, eparts = [None] * len(r.parts), [None] * len(r.parts)
     else:
-        aux, eparts = exchange_x(e, 1), e.parts
+        aux, eparts = exchange_x(e, 1, ring), e.parts
     if fused:
         sweep_stats["sweeps"] += 1
         sweep_stats["exchanges"] += not from_zero
@@ -459,7 +553,9 @@ def overlap_jacobi_sweeps(e, r: Slabs, omega: float, n: int,
     devices ``sweep_exchanged``, an exchange and a launch per slab.
     ``fused=False`` takes the plain twin per slab, as the bf16
     preconditioner cycle takes plain sweeps. ``from_zero`` makes the
-    first sweep omega r inv_d."""
+    first sweep omega r inv_d. A periodic table's ``edge_signs`` (a (0, 0)
+    pair on a periodic axis) close the slabs into a ring along x and wrap
+    the rows along y, in both forms."""
     one = len(set(r.mesh.devices)) == 1 and r.mesh.size <= HALO_MAX_SLABS
     for k in range(n):
         fz = from_zero and k == 0
@@ -480,7 +576,9 @@ def level_meshes(shapes, mesh: SlabMesh) -> list:
     sweep is a few hundred cells per slab, and D launches plus an
     exchange per sweep cost more than the sweep. Every transfer is
     pointwise, so either form gives the solo cycle's values bit for
-    bit."""
+    bit. Along a periodic x the ring holds on every level: a gathered
+    level is one slab whose neighbour on either side is itself, and 2x
+    coarsening keeps a slab edge on a slab edge."""
     D = mesh.size
     ny0, nx0 = shapes[0]
     if nx0 % D:

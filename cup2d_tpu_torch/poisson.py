@@ -133,8 +133,10 @@ cycle and in the fused sweep chains alike.
     a periodic axis at every level (periodicity survives 2x coarsening),
     whose ``edge_signs`` are 0, so the Jacobi diagonal keeps the interior
     -4 there; the fused chains run the sweep kernel's wrap form. It needs
-    the table's ``edge_signs`` and no mesh (the split periodic cycle is
-    ROADMAP queue 1 item 8)."""
+    the table's ``edge_signs``. On a mesh the split levels exchange on a
+    ring of slabs along a periodic x (a level gathered onto one device is
+    its own neighbour) and wrap the rows inside every slab along a
+    periodic y (the halo sweep's y-wrap form under ``fused_smoother``)."""
 
     def __init__(self, ny: int, nx: int, dtype, nu1: int = 2,
                  nu2: int = 2, coarsest: int = 16, omega: float = 0.8,
@@ -149,11 +151,6 @@ cycle and in the fused sweep chains alike.
                     "boundary table's edge_signs (bc.pressure_signs, 0 on "
                     "the periodic faces); the all-Neumann default would "
                     "paint wall corrections over the wrap rows")
-            if mesh is not None:
-                raise NotImplementedError(
-                    "MultigridPreconditioner: a periodic hierarchy on a "
-                    "slab mesh needs a ring exchange (ROADMAP queue 1 item "
-                    "8)")
         self.edge_signs = (None if edge_signs is None
                            else tuple(float(x) for x in edge_signs))
         self.nu1 = nu1
@@ -190,7 +187,7 @@ cycle and in the fused sweep chains alike.
 
     def _lap(self, p):
         if self.meshes is not None:
-            return laplacian5_bc_x(p, self.edge_signs)
+            return laplacian5_bc_x(p, self.edge_signs, self.periodic)
         if self.edge_signs is not None:
             return laplacian5_bc(p, *self.edge_signs, *self.periodic)
         return laplacian5_neumann(p)
@@ -269,9 +266,10 @@ class BiCGSTABResult(NamedTuple):
 
 
 def _member_reducers(dt_, sum_dtype):
-    """(dot, linf) of member stacks [B, ...]: one value per member over
-    axes 1.., kept as [B, 1, ..., 1]; dot products accumulate in
-    ``sum_dtype`` (default the field dtype)."""
+    """(dot, linf, zeros_like, where) of member stacks [B, ...]: one value
+    per member over axes 1.., kept as [B, 1, ..., 1]; dot products
+    accumulate in ``sum_dtype`` (default the field dtype). The split-field
+    counterpart is ``parallel.shard_halo.slab_member_reducers``."""
     sd = sum_dtype or dt_
 
     def dot(a, c):
@@ -284,7 +282,7 @@ def _member_reducers(dt_, sum_dtype):
         return torch.amax(torch.abs(a), dim=tuple(range(1, a.ndim)),
                           keepdim=True)
 
-    return dot, linf
+    return dot, linf, torch.zeros_like, torch.where
 
 
 def _reducers(dt_, sum_dtype):
@@ -293,7 +291,7 @@ def _reducers(dt_, sum_dtype):
     on a one-member view, so that a one-member fleet sums in the order of
     the solo solve on every device. The split-field counterpart is
     ``parallel.shard_halo.slab_reducers``."""
-    mdot, mlinf = _member_reducers(dt_, sum_dtype)
+    mdot, mlinf, _, _ = _member_reducers(dt_, sum_dtype)
 
     def dot(a, c):
         return mdot(a.unsqueeze(0), c.unsqueeze(0)).reshape(())
@@ -331,7 +329,10 @@ def bicgstab(
     at those refreshes drives the stall exit: no ``stall_rtol`` gain for
     ``stall_iters`` iterations ends the solve with the best iterate.
     ``reducers(dtype, sum_dtype)`` gives (dot, linf, zeros_like): the
-    whole-field ones, or ``shard_halo.slab_reducers`` for split fields.
+    whole-field ones, or ``shard_halo.slab_reducers`` for split fields;
+    with ``member_axis`` it gives the member forms (dot, linf, zeros_like,
+    where): ``_member_reducers`` by default, or
+    ``shard_halo.slab_member_reducers`` for split member stacks.
 
     ``member_axis`` (the fleet, ``fleet.FleetSim``): b [B, Ny, Nx] holds B
     independent systems solved in one loop. Every reduction is per member,
@@ -346,9 +347,10 @@ def bicgstab(
     if M is None:
         M = lambda v: v  # noqa: E731
     if member_axis:
-        return _bicgstab_members(A, b, M, x0, tol, tol_rel, max_iter,
-                                 max_restarts, sum_dtype, refresh_every,
-                                 stall_iters, stall_rtol)
+        return _bicgstab_members(
+            A, b, M, x0, tol, tol_rel, max_iter, max_restarts, sum_dtype,
+            refresh_every, stall_iters, stall_rtol,
+            _member_reducers if reducers is _reducers else reducers)
     dt_ = b.dtype
     dot, linf, zeros_like = reducers(dt_, sum_dtype)
 
@@ -448,16 +450,17 @@ def bicgstab(
 
 
 def _bicgstab_members(A, b, M, x0, tol, tol_rel, max_iter, max_restarts,
-                      sum_dtype, refresh_every, stall_iters, stall_rtol):
+                      sum_dtype, refresh_every, stall_iters, stall_rtol,
+                      reducers=_member_reducers):
     """``bicgstab(member_axis=True)``: the JAX package's member-masked
     loop body, with its ``lax.cond`` on "any member refreshes" as the one
     host branch. The counters are per-member device tensors; the host
     keeps the loop counter and reads, once an iteration, whether any
     member is still running and whether any refreshes next."""
     dt_ = b.dtype
-    dot, linf = _member_reducers(dt_, sum_dtype)
+    dot, linf, zeros_like, where = reducers(dt_, sum_dtype)
     if x0 is None:
-        x = torch.zeros_like(b)
+        x = zeros_like(b)
         r = b
     else:
         x = x0
@@ -470,8 +473,8 @@ def _bicgstab_members(A, b, M, x0, tol, tol_rel, max_iter, max_restarts,
     eps = torch.tensor(1e-21 if dt_ == torch.float64 else 1e-30, dtype=dt_,
                        device=b.device)
     rhat = r
-    p = torch.zeros_like(b)
-    v = torch.zeros_like(b)
+    p = zeros_like(b)
+    v = zeros_like(b)
     rho = alpha = omega = one
     x_opt, norm_opt = x, norm0
     best_l2 = torch.sqrt(dot(r, r))
@@ -482,7 +485,7 @@ def _bicgstab_members(A, b, M, x0, tol, tol_rel, max_iter, max_restarts,
     any_refresh = False      # it - best_it = 0 < refresh_every at it = 0
 
     def keep(frozen, old, new):
-        return torch.where(frozen, old, new)
+        return where(frozen, old, new)
 
     while running and it < max_iter:
         frozen = done
@@ -501,12 +504,11 @@ def _bicgstab_members(A, b, M, x0, tol, tol_rel, max_iter, max_restarts,
             n_true = linf(r_t)
             n_opt_true = linf(b - A(x_opt))
             take_x = n_true <= n_opt_true
-            r0 = torch.where(refresh, r_t, r)
-            x_opt0 = torch.where(refresh, torch.where(take_x, x, x_opt),
-                                 x_opt)
+            r0 = where(refresh, r_t, r)
+            x_opt0 = where(refresh, where(take_x, x, x_opt), x_opt)
             norm_opt0 = torch.where(
                 refresh, torch.where(take_x, n_true, n_opt_true), norm_opt)
-        rhat_n = torch.where(do_restart, r0, rhat)
+        rhat_n = where(do_restart, r0, rhat)
         rho_n = torch.where(do_restart, dot(rhat_n, r0), rho_probe)
         beta = torch.where(do_restart, torch.zeros_like(rho_n),
                            (rho_n / (rho + eps)) * (alpha / (omega + eps)))
@@ -523,7 +525,7 @@ def _bicgstab_members(A, b, M, x0, tol, tol_rel, max_iter, max_restarts,
         r_n = sres - omega_n * t
         norm = linf(r_n)
         better = norm < norm_opt0
-        x_opt_n = torch.where(better, x_n, x_opt0)
+        x_opt_n = where(better, x_n, x_opt0)
         norm_opt_n = torch.where(better, norm, norm_opt0)
         l2_now = torch.sqrt(dot(r_n, r_n))
         improved = refresh & (l2_now < stall_rtol * best_l2)
@@ -562,7 +564,7 @@ def _bicgstab_members(A, b, M, x0, tol, tol_rel, max_iter, max_restarts,
     # counter runs on after a member froze
     stalled = ~converged & ((it_m - impr_it) >= stall_iters)
     return BiCGSTABResult(
-        x=torch.where(use_x, x, x_opt),
+        x=where(use_x, x, x_opt),
         iters=it_m.reshape(-1).to(torch.int32),
         residual=torch.where(use_x, final_norm, norm_opt).reshape(-1),
         converged=converged.reshape(-1), stalled=stalled.reshape(-1))
@@ -587,14 +589,16 @@ def mg_solve(
     ``bicgstab``, ``iters`` counting cycles. ``fmg`` opens with one
     F-cycle (counted). ``stall_cycles`` consecutive cycles without a
     ``stall_rtol`` gain over the running best end the solve ``stalled``.
-    ``reducers`` as in ``bicgstab``. ``member_axis``: b [B, Ny, Nx], B
+    ``reducers`` as in ``bicgstab`` (the member forms with
+    ``member_axis``). ``member_axis``: b [B, Ny, Nx], B
     systems in one cycle loop (the cycle takes the leading axis), a
     converged member frozen by ``torch.where`` while the loop runs for the
     others, one flag read a cycle, and [B] device results, as in
     ``bicgstab``."""
     if member_axis:
-        return _mg_solve_members(A, b, mg, x0, tol, tol_rel, max_cycles,
-                                 stall_cycles, stall_rtol, fmg)
+        return _mg_solve_members(
+            A, b, mg, x0, tol, tol_rel, max_cycles, stall_cycles, stall_rtol,
+            fmg, _member_reducers if reducers is _reducers else reducers)
     _, linf, zeros_like = reducers(b.dtype, None)
     if x0 is None:
         x = zeros_like(b)
@@ -633,12 +637,12 @@ def mg_solve(
 
 
 def _mg_solve_members(A, b, mg, x0, tol, tol_rel, max_cycles, stall_cycles,
-                      stall_rtol, fmg):
+                      stall_rtol, fmg, reducers=_member_reducers):
     """``mg_solve(member_axis=True)``, the JAX package's member-masked
     cycle loop."""
-    _, linf = _member_reducers(b.dtype, None)
+    _, linf, zeros_like, where = reducers(b.dtype, None)
     if x0 is None:
-        x = torch.zeros_like(b)
+        x = zeros_like(b)
         r = b
     else:
         x = x0
@@ -667,8 +671,8 @@ def _mg_solve_members(A, b, mg, x0, tol, tol_rel, max_cycles, stall_cycles,
         no_impr_n = torch.where(improved, torch.zeros_like(no_impr),
                                 no_impr + 1)
         done_n = (norm_n <= target) | (no_impr_n >= stall_cycles)
-        x = torch.where(frozen, x, x_n)
-        r = torch.where(frozen, r, r_n)
+        x = where(frozen, x, x_n)
+        r = where(frozen, r, r_n)
         norm = torch.where(frozen, norm, norm_n)
         best = torch.where(frozen, best, best_n)
         no_impr = torch.where(frozen, no_impr, no_impr_n)

@@ -911,8 +911,7 @@ class FleetStepGuard(StepGuard):
         recorded dts solo (faults suspended, no verdict reads) up to the
         failed step."""
         sim = self.sim
-        sim.set_member_state(m, type(sim.state)(
-            *(anchor.payload[k][m] for k in sim.state._fields)))
+        sim.set_member_state(m, sim.member_state(m, anchor.payload))
         sim.times[m] = float(np.asarray(anchor.meta["times"])[m])
         n = 0
         ctx = (self.faults.suspend() if self.faults is not None

@@ -23,16 +23,16 @@ velocities) through the Poisson RHS; a table with an outflow face keeps
 the pressure mean. A periodic axis (the doubly-periodic box, the periodic
 channel) wraps every shift of those operators, and the three kernels run
 their wrap forms (the JAX package runs such tables on its XLA chains
-only); a periodic table takes no bf16 tier and no mesh (ROADMAP queue 1
-item 8).
+only); a periodic table takes no bf16 tier.
 
 ``UniformGrid.attach_mesh`` splits the step along x over a slab mesh
 (``parallel.mesh.ShardedUniformSim`` drives it), free-slip or under any
-wall-bounded table: the advection runs the halo-mode substage per shard
-(its boundary-table form under a table), the multigrid cycles run on split
-fields (the signed halo sweep under a table), the epilogue is plain
-per-slab code and the reductions combine per-shard partials
-(``parallel.shard_halo``).
+table: the advection runs the halo-mode substage per shard (its
+boundary-table form under a table, its wrap form under a periodic one),
+the multigrid cycles run on split fields (the signed halo sweep under a
+table, its y-wrap form where y is periodic), a periodic x exchanges on a
+ring of slabs, the epilogue is plain per-slab code and the reductions
+combine per-shard partials (``parallel.shard_halo``).
 
 Environment, read once per ``UniformGrid``: ``CUP2D_POIS`` selects the
 solver (""/structured/tables/fft: bicgstab + MG, fas: MG cycles, fas-f:
@@ -250,23 +250,20 @@ class UniformGrid:
         legs. So does the boundary table: the halo substage paints its
         ghosts, the hierarchy and the Laplacian carry its pressure signs,
         the RHS its divergence coefficients and affine term (split here
-        once) and the epilogue its gradient signs and mean rule. fftd
-        refuses (its transforms and scans are whole-array), as in the JAX
-        package, and so does a periodic table (ROADMAP queue 1 item 8: a
-        ring exchange and y-wrap forms of the halo kernels); Nx must divide
-        by the mesh size."""
+        once) and the epilogue its gradient signs and mean rule. A periodic
+        table carries over too: a periodic x closes the slabs into a ring
+        (``shard_halo.exchange_x(ring=True)``, no wall shard), a periodic y
+        wraps the rows inside every slab (the y-wrap forms of the halo
+        kernels), and the doubly-periodic mean removal combines per-shard
+        partials in f64. fftd refuses (its transforms and scans are
+        whole-array), as in the JAX package; Nx must divide by the mesh
+        size."""
         if self.solver_mode == "fftd":
             raise ValueError(
                 "CUP2D_POIS=fftd cannot attach a device mesh: the x-split "
                 "shards the FFT transform axis (periodic x) or the "
                 "tridiagonal scan axis (periodic y); run sharded periodic "
                 "cases under bicgstab/fas")
-        if any(self._paxes):
-            raise NotImplementedError(
-                f"boundary table {self.bc.token!r}: the split periodic step "
-                "is not ported (ROADMAP queue 1 item 8: a ring exchange in "
-                "shard_halo.exchange_x and y-wrap forms of the halo "
-                "kernels)")
         if self.nx % mesh.size:
             raise ValueError(f"Nx={self.nx} not divisible by mesh size "
                              f"{mesh.size}")
@@ -319,7 +316,7 @@ class UniformGrid:
     def laplacian(self, p: torch.Tensor) -> torch.Tensor:
         """The undivided Poisson operator with the table's pressure rows."""
         if self.mesh is not None:
-            return laplacian5_bc_x(p, self._psigns)
+            return laplacian5_bc_x(p, self._psigns, self._paxes)
         if self._psigns is None:
             return laplacian5_neumann(p)
         return laplacian5_bc(p, *self._psigns, *self._paxes)
@@ -337,7 +334,7 @@ class UniformGrid:
         fleet passes member stacks and dt as [B, 1, 1]."""
         if self.mesh is not None and chi is None:
             return divergence_bc_x(vel, self.h, dt, self._dcoeffs,
-                                   self._div_affine_x)
+                                   self._div_affine_x, self._paxes)
         if self._dcoeffs is None:
             if chi is None:
                 return (0.5 * self.h / dt) * divergence_freeslip(vel)
@@ -460,7 +457,8 @@ class UniformGrid:
         if self.mesh is not None:
             vel, pres = project_correct_x(
                 res.x, pres_old, vel, h, dt,
-                remove_mean=self.bc.all_neumann, grad_signs=self._psigns)
+                remove_mean=self.bc.all_neumann, grad_signs=self._psigns,
+                periodic=self._paxes)
         else:
             vel, pres = project_correct(
                 res.x, pres_old, vel, h, dt,

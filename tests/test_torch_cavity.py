@@ -440,19 +440,23 @@ def test_periodic_tables_refuse(table, monkeypatch):
 
 
 def test_split_step_with_a_table_refuses():
-    """Since the split BC forms were ported, only a periodic table refuses
-    on a mesh (at the mesh, naming the split periodic step's ROADMAP item,
-    and at the split substage); the cavity builds a split sim and the
-    signed split hierarchy builds."""
+    """Since the split BC and periodic forms were ported, every table runs
+    on a mesh (the periodic ones held in tests/test_torch_mesh_periodic.py):
+    a periodic table builds a split sim and the split substage runs it;
+    the cavity builds a split sim and the signed split hierarchy
+    builds."""
     cfg = config_from_dict(dataclasses.asdict(_cfg()))
     mesh = make_mesh(devices=["cpu"] * 2)
     for table in (tcases.periodic_table(), tcases.periodic_channel_table()):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            ShardedUniformSim(cfg, mesh, level=2, bc=table)
-    v = split_x(torch.zeros(2, 16, 32, dtype=torch.float64), mesh)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        fused_advect_heun_sharded(v, 1 / 32, 1e-3, 1e-3,
-                                  bc=tcases.periodic_channel_table())
+        sh = ShardedUniformSim(cfg, mesh, level=2, bc=table)
+        assert sh.bc_table == table.token and len(sh.state.vel.parts) == 2
+    whole = torch.tensor(np.random.default_rng(1).standard_normal(
+        (2, 16, 32)))
+    v = split_x(whole, mesh)
+    out = fused_advect_heun_sharded(v, 1 / 32, 1e-3, 1e-3,
+                                    bc=tcases.periodic_channel_table())
+    assert torch.equal(torch.cat(out.parts, dim=-1), hk.fused_advect_heun(
+        whole, 1 / 32, 1e-3, 1e-3, bc=tcases.periodic_channel_table()))
     sim = tcases.make_sim("cavity", level=2, mesh=mesh, dtype="float64")
     assert isinstance(sim, ShardedUniformSim) and sim.case == "cavity"
     assert sim.kernel_tier == "plain+bc(ns,ns,ns,ns(1,0))"
@@ -468,9 +472,11 @@ def test_split_step_with_a_table_refuses():
                                        ("shear_layer", "queue 1 item 8"),
                                        ("turb2d", "queue 1 item 8")])
 def test_waiting_cases_refuse(name, item):
-    """The periodic cases build and step solo and as a fleet; their split
-    step waits for item 8 (tests/test_torch_fleet.py holds their fleets
-    against JAX's)."""
+    """The periodic cases build and step solo, as a fleet, on a mesh and as
+    a fleet on a mesh (tests/test_torch_fleet.py holds their fleets
+    against JAX's, tests/test_torch_mesh_periodic.py and
+    tests/test_torch_fleet_mesh.py their split runs); ``item`` names the
+    ROADMAP item their split step and placed fleets once waited for."""
     from cup2d_tpu_torch.fleet import FleetSim
     fleet = tcases.make_sim(name, level=2, device="cpu", dtype="float64",
                             members=2)
@@ -478,11 +484,15 @@ def test_waiting_cases_refuse(name, item):
     d = fleet.step_once()
     assert d["finite"].all() and fleet.step_count == 1
     assert (fleet.times > 0).all()
-    with pytest.raises(NotImplementedError, match=item):
-        tcases.make_sim(name, level=2, mesh=make_mesh(devices=["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match=item):
-        tcases.make_sim(name, level=2, members=2,
-                        mesh=make_mesh(devices=["cpu"] * 2))
+    split = tcases.make_sim(name, level=2, dtype="float64",
+                            mesh=make_mesh(devices=["cpu"] * 2))
+    assert isinstance(split, ShardedUniformSim) and split.case == name
+    assert split.step_once()["finite"]
+    placed = tcases.make_sim(name, level=2, members=2, dtype="float64",
+                             mesh=make_mesh(devices=["cpu"] * 2))
+    assert placed.placement == "member" and placed.case == name
+    assert placed.step_once()["finite"].all()
+    assert item == "queue 1 item 8"
     sim = tcases.make_sim(name, level=2, device="cpu", dtype="float64")
     assert sim.case == name and sim.bc_table == "pd,pd,pd,pd"
     d = sim.step_once()
@@ -506,19 +516,20 @@ def test_shaped_cases_build_and_step(name, table):
 
 
 def test_cavity_fleet_and_bf16_refuse(monkeypatch):
-    """The cavity runs as a fleet (every member on its table; a fleet on a
-    mesh refuses, item 8); bf16 runs the cavity on f32 state (the boundary
-    table's bf16 substage form) and refuses it on f64, as the JAX package
-    does."""
+    """The cavity runs as a fleet (every member on its table), on a mesh
+    too (member placement); bf16 runs the cavity on f32 state (the
+    boundary table's bf16 substage form) and refuses it on f64, as the JAX
+    package does."""
     from cup2d_tpu_torch.fleet import FleetSim
     fleet = tcases.make_sim("cavity", level=2, device="cpu", members=2)
     assert isinstance(fleet, FleetSim) and fleet.case == "cavity"
     assert fleet.bc_table == "ns,ns,ns,ns(1,0)"
     d = fleet.step_once()
     assert d["finite"].all() and (d["umax"] > 0).all()
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tcases.make_sim("cavity", level=2, members=2,
-                        mesh=make_mesh(devices=["cpu"] * 2))
+    placed = tcases.make_sim("cavity", level=2, members=2,
+                             mesh=make_mesh(devices=["cpu"] * 2))
+    assert placed.placement == "member"
+    assert placed.step_once()["finite"].all()
     monkeypatch.setenv("CUP2D_PREC", "bf16")
     with pytest.raises(ValueError, match="CUP2D_PREC"):
         tcases.make_sim("cavity", level=2, device="cpu", dtype="float64")
@@ -528,15 +539,16 @@ def test_cavity_fleet_and_bf16_refuse(monkeypatch):
 
 def test_kernel_forms_refuse_periodic_signs_and_tables():
     """A periodic axis's sign pair (0, 0) and the periodic face kind have
-    the wrap forms, whose periodic axes are those pairs; a lone 0 sign and
-    a periodic sign pair on the split sweep refuse."""
+    the wrap forms, whose periodic axes are those pairs; a lone 0 sign
+    refuses, and a periodic y pair on the split sweep takes its y-wrap
+    form."""
     assert hk._signs((0.0, 0.0, 1.0, 1.0)) == (0.0, 0.0, 1.0, 1.0)
     with pytest.raises(ValueError, match="periodic"):
         hk._signs((0.0, 1.0, 1.0, 1.0))
     assert hk._wrap_axes((0.0, 0.0, 1.0, 1.0)) == (True, False)
     assert hk._wrap_axes((1.0, -1.0, 0.0, 0.0)) == (False, True)
-    with pytest.raises(ValueError, match="queue 1 item 8"):
-        hk._split_signs((1.0, 1.0, 0.0, 0.0))
+    assert hk._split_signs((1.0, 1.0, 0.0, 0.0)) == ((1.0, 1.0, 0.0, 0.0),
+                                                      True)
     f = hk._faces(tcases.periodic_channel_table())
     assert (f.x_lo.kind, f.x_hi.kind, f.y_lo.kind, f.y_hi.kind) == (4, 4, 1,
                                                                     1)

@@ -299,7 +299,9 @@ def test_nan_restart_aborts_with_postmortem(tmp_path):
 REFUSALS = [
     (["-serve", "6"], "-serve N needs -fleet B (the slot pool it serves "
                       "through)"),
-    (["-mesh", "4", "-fleet", "2"], 8),
+    (["-mesh", "4", "-fleet", "2"], "-fleet has its own placement policy "
+                                    "(fleet.py) and does not combine with "
+                                    "-mesh"),
     (["-coordinator", "h:1"], 8),
     (["-meshHosts", "2"], 8), (["-processId", "0"], 8),
     (["-connectAttempts", "3"], 8), (["-connectBackoff", "1"], 8),
@@ -316,8 +318,13 @@ REFUSALS = [
 def test_refused_flag_exits_2_naming_its_item(flags, item, tmp_path,
                                               capsys):
     """A flag the port cannot give names its ROADMAP item; a usage error of
-    the JAX CLI gives its message."""
-    assert tmain.main(CAVITY + flags + ["-output", str(tmp_path)]) == 2
+    the JAX CLI gives its message. ``-fleet`` with ``-mesh`` is one only
+    without ``-case`` (``-case cavity`` places its fleet on the mesh:
+    tests/test_torch_fleet_mesh.py)."""
+    base = CAVITY
+    if "-fleet" in flags and "-mesh" in flags:
+        base = [a for a in CAVITY if a not in ("-case", "cavity")]
+    assert tmain.main(base + flags + ["-output", str(tmp_path)]) == 2
     err = capsys.readouterr().err
     assert (f"item {item}" if isinstance(item, int) else item) in err
     assert not os.listdir(tmp_path)                 # before any work

@@ -52,7 +52,13 @@ the lab RHS launched once a shard and stage and the block-Jacobi update
 once a shard and sweep; both kernels hold their twins on one shard's
 operands; the C regrid helper builds on the card's host and adapts as
 the Python sweep; ``CUP2D_POIS=tables`` and the bf16 FAS legs follow the
-CPU (1e-4, and the 2e-2 bf16 band)."""
+CPU (1e-4, and the 2e-2 bf16 band). The periodic tables on the split
+step: the halo substage's wrap form over a ring exchange and the halo
+sweep's y-wrap forms (per slab and as the slab list) reproduce the solo
+wrap forms bit for bit once assembled and hold their twins (2e-6
+relative); a split periodic step on one card follows the solo step and a
+fleet placed on two shards of the card (member or spatial) the unplaced
+fleet, to 1e-5 relative with equal iterations."""
 
 import numpy as np
 import pytest
@@ -941,6 +947,163 @@ def test_sharded_cavity_on_one_card_matches_solo(cuda, monkeypatch, pois):
         assert la["fused_advect_heun"] == la["fused_correction"] == 0
     a, b = unshard_state(sh.state).vel, solo.state.vel
     assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the periodic tables on the x-split step: the ring exchange and the y-wrap
+# forms of the halo kernels
+# ---------------------------------------------------------------------------
+
+PD_TABLES = {"doubly": tcases.periodic_table(),
+             "channel": tcases.periodic_channel_table(),
+             "periodic_y": tbc.BCTable(tbc.no_slip(), tbc.no_slip(),
+                                       tbc.periodic(), tbc.periodic())}
+
+
+@pytest.mark.parametrize("name", sorted(PD_TABLES))
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_halo_substage_wrap_kernel_vs_twin_and_solo_kernel(cuda, name, D):
+    """The halo substage's wrap form over a ring exchange: the assembled
+    slabs equal kernel 2's solo wrap pair bit for bit, each shard's
+    substages hold their twins (2e-6 relative)."""
+    bc = PD_TABLES[name]
+    px = tbc.periodic_axes(bc)[0]
+    L, ny, nx = 2, 48, 96
+    h = 1.0 / nx
+    v = _rand((L, 2, ny, nx), 61, cuda)
+    dt = torch.tensor([0.5 * h, 0.3 * h], device=cuda)
+    mesh = make_mesh(devices=[cuda] * D)
+    hk.reset_launches()
+    split = gather_x(fused_advect_heun_sharded(split_x(v, mesh), h, 4e-5,
+                                               dt, bc=bc))
+    solo = hk.fused_advect_heun(v, h, 4e-5, dt, bc=bc)
+    torch.cuda.synchronize()
+    assert hk.launches["advect_substage_halo+pd"] == 2 * D
+    assert torch.equal(split, solo)
+    s0 = split_x(v, mesh)
+    aux0 = exchange_x(s0, 3, ring=px)
+    facs = hk._substage_facs(dt, h, 4e-5, (L,), L, torch.float32, cuda,
+                             with_dt=True)
+    w = nx // D
+    walls = shard_halo._walls(s0, px)
+    for d in range(D):
+        kw = dict(bc=bc, h=h, col0=d * w, nx_tot=nx)
+        a1 = (s0.parts[d], None, aux0[d], facs, 0.5, 1 / h ** 2, *walls[d])
+        s1 = hk.advect_substage_halo(*a1, **kw)
+        r1 = hk.advect_substage_halo_plain(*a1, **kw)
+        assert float((s1 - r1).abs().max() / r1.abs().max()) <= 2e-6
+        a2 = (s1, s0.parts[d], aux0[d], facs, 1.0, 1 / h ** 2, *walls[d])
+        s2 = hk.advect_substage_halo(*a2, **kw)
+        r2 = hk.advect_substage_halo_plain(*a2, **kw)
+        assert float((s2 - r2).abs().max() / r2.abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("name", sorted(PD_TABLES))
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("from_zero", [False, True])
+@pytest.mark.parametrize("fused", [True, False])
+def test_halo_jacobi_wrap_kernel_vs_twin_and_solo_kernel(cuda, name, D,
+                                                         from_zero, fused):
+    """The halo sweep on a periodic table (its y-wrap form where y is
+    periodic, the signed form on a ring where only x is): three split
+    sweeps, as the slab list (``fused``) and per slab over a ring
+    exchange, equal three sweeps of the chain kernel's wrap form bit for
+    bit and hold its twin; each form holds its own twin."""
+    signs = tbc.pressure_signs(PD_TABLES[name])
+    px, py = tbc.periodic_axes(PD_TABLES[name])
+    e, r = _rand((2, 72, 136), 62, cuda), _rand((2, 72, 136), 63, cuda)
+    mesh = make_mesh(devices=[cuda] * D)
+    es, rs = split_x(e, mesh), split_x(r, mesh)
+    hk.reset_launches()
+    if fused:
+        split = overlap_jacobi_sweeps(es, rs, 0.8, 3, from_zero,
+                                      edge_signs=signs)
+    else:
+        split = es
+        for k in range(3):
+            split = shard_halo.sweep_exchanged(split, rs, 0.8,
+                                               from_zero and k == 0, signs)
+    split = gather_x(split)
+    solo = hk.fused_jacobi_sweeps(e, r, 0.8, 3, from_zero, signs)
+    torch.cuda.synchronize()
+    launched = 3 if fused else 3 * D
+    assert hk.launches["jacobi_halo_sweep"] == launched
+    assert hk.launches["jacobi_halo_sweep+pd"] == (launched if py else 0)
+    assert torch.equal(split, solo)
+    twin = hk.jacobi_sweeps_plain(e, r, 0.8, 3, from_zero, signs, (px, py))
+    assert float((split - twin).abs().max() / twin.abs().max()) <= 2e-6
+    aux = exchange_x(es, 1, ring=px)
+    lst = hk.jacobi_halo_sweep_slabs(es.parts, rs.parts, 0.8, from_zero,
+                                     signs)
+    lst_twin = hk.jacobi_halo_sweep_slabs_plain(es.parts, rs.parts, 0.8,
+                                                from_zero, signs)
+    for d, (lo, hi) in enumerate(shard_halo._walls(rs, px)):
+        a = (es.parts[d], rs.parts[d], aux[d], 0.8, lo, hi, from_zero,
+             signs)
+        k, p = hk.jacobi_halo_sweep(*a), hk.jacobi_halo_sweep_plain(*a)
+        assert torch.equal(k, lst[d])
+        for got, ref in ((k, p), (lst[d], lst_twin[d])):
+            assert float((got - ref).abs().max() / ref.abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("case", ["tgv_periodic", "turb2d"])
+@pytest.mark.parametrize("pois", ["", "fas"])
+def test_split_periodic_step_on_one_card_matches_solo(cuda, monkeypatch,
+                                                      case, pois):
+    """A periodic case split into 4 slabs of cuda:0, four production steps
+    against the solo case: equal iterations, velocity within 1e-5
+    relative; the wrap forms of the halo kernels launch, no solo kernel."""
+    monkeypatch.setenv("CUP2D_POIS", pois)
+    solo = tcases.make_sim(case, level=4, device=cuda)
+    sh = tcases.make_sim(case, level=4, mesh=make_mesh(devices=[cuda] * 4))
+    solo.step_count = sh.step_count = 10
+    for _ in range(4):
+        ds = solo.step_once()
+        hk.reset_launches()
+        dh = sh.step_once()
+        assert ds["poisson_iters"] == dh["poisson_iters"]
+        la = dict(hk.launches)
+        assert la["advect_substage_halo+pd"] == la["advect_substage_halo"] \
+            == 8
+        assert la["jacobi_halo_sweep+pd"] == la["jacobi_halo_sweep"]
+        assert la["fused_advect_heun"] == la["fused_correction"] == 0
+    a, b = unshard_state(sh.state).vel, solo.state.vel
+    assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("placement", ["member", "spatial"])
+@pytest.mark.parametrize("pois", ["", "fas"])
+def test_placed_fleet_on_one_card_matches_unplaced(cuda, monkeypatch,
+                                                   placement, pois):
+    """A turb2d fleet of 4 members placed on 2 shards of cuda:0 against the
+    unplaced fleet: equal per-member iterations, every field within 1e-5
+    relative; member placement launches kernel 2 once a shard, spatial
+    placement the halo substage's wrap form."""
+    from cup2d_tpu_torch.fleet import FleetSim
+    from cup2d_tpu_torch.io import whole
+    monkeypatch.setenv("CUP2D_POIS", pois)
+    ref = tcases.make_sim("turb2d", level=4, members=4, device=cuda)
+    sim = FleetSim(ref.cfg, level=4, members=4,
+                   mesh=make_mesh(devices=[cuda] * 2), placement=placement,
+                   bc=ref.grid.bc)
+    sim.set_state(ref.state)
+    ref.step_count = sim.step_count = 10
+    for _ in range(3):
+        dr = ref.step_once()
+        hk.reset_launches()
+        ds = sim.step_once()
+        assert np.array_equal(dr["poisson_iters"], ds["poisson_iters"])
+        la = dict(hk.launches)
+        if placement == "member":
+            assert la["fused_advect_heun"] == 4
+            assert la["fused_correction"] == 2
+        else:
+            assert la["advect_substage_halo+pd"] == 4
+            assert la["fused_advect_heun"] == 0
+    for a, b in ((sim.state.vel, ref.state.vel),
+                 (sim.state.pres, ref.state.pres)):
+        a = whole(a)
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
 
 
 # the slab list: one launch sweeps every slab of the card; slabs of 34

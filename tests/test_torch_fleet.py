@@ -18,7 +18,8 @@ solvers against the JAX package's, f64 on the CPU at 32^2, B <= 3.
   against the solo obstacle step.
 * The fleet checkpoint carries the per-member clocks; a JAX fleet
   checkpoint loads into the port and steps on <= 1e-10 of JAX.
-* ``mesh=``/``placement=``/``member_cells_cap=`` refuse naming item 8.
+* ``mesh=`` places the fleet (tests/test_torch_fleet_mesh.py); without a
+  mesh ``placement`` is ``"single"``, whatever is asked.
 """
 
 import dataclasses
@@ -437,10 +438,13 @@ def test_jax_fleet_checkpoint_steps_on_in_the_port(tmp_path, tg_runs):
 
 def test_fleet_refusals():
     cfg = _tcfg(_cfg())
-    for kw in ({"mesh": object()}, {"placement": "member"},
-               {"member_cells_cap": 1 << 20}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            FleetSim(cfg, level=LVL, members=2, device="cpu", **kw)
+    from cup2d_tpu_torch.parallel.mesh import make_mesh
+    placed = FleetSim(cfg, level=LVL, members=2,
+                      mesh=make_mesh(devices=["cpu"] * 2))
+    assert placed.placement == "member"
+    for kw in ({"placement": "member"}, {"member_cells_cap": 1 << 20}):
+        sim = FleetSim(cfg, level=LVL, members=2, device="cpu", **kw)
+        assert sim.placement == "single" and sim.mesh is None
     with pytest.raises(ValueError, match="members >= 1"):
         FleetSim(cfg, level=LVL, members=0, device="cpu")
     sim = FleetSim(cfg, level=LVL, members=2, device="cpu")

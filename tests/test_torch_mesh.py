@@ -189,19 +189,24 @@ def test_geometry_and_table_refusals(monkeypatch):
         ShardedUniformSim(_tcfg(), _cpu_mesh(3), level=LEVEL)
     from cup2d_tpu_torch.bc import BCTable, periodic
     from cup2d_tpu_torch.cases import cavity_table, make_sim
-    # a wall-bounded table runs split (tests/test_torch_split_bc.py); a
-    # periodic one still refuses (ROADMAP queue 1 item 8), at the mesh and
-    # at the split substage, and fftd refuses any mesh
+    # a wall-bounded table runs split (tests/test_torch_split_bc.py), and
+    # so does a periodic one (tests/test_torch_mesh_periodic.py), at the
+    # mesh and at the split substage; fftd refuses any mesh
     sh = ShardedUniformSim(_tcfg(), _cpu_mesh(2), level=LEVEL,
                            bc=cavity_table())
     assert sh.bc_table == "ns,ns,ns,ns(1,0)"
     assert make_sim("cavity", level=2, mesh=_cpu_mesh(2)).case == "cavity"
     pd_fs = BCTable(periodic(), periodic())
-    with pytest.raises(NotImplementedError, match="pd,pd,fs,fs"):
-        ShardedUniformSim(_tcfg(), _cpu_mesh(2), level=LEVEL, bc=pd_fs)
-    v = split_x(torch.zeros(2, 16, 32, dtype=torch.float64), _cpu_mesh(2))
-    with pytest.raises(NotImplementedError, match="pd,pd,fs,fs"):
-        fused_advect_heun_sharded(v, 1 / 32, 1e-3, 1e-3, bc=pd_fs)
+    sh = ShardedUniformSim(_tcfg(), _cpu_mesh(2), level=LEVEL, bc=pd_fs)
+    assert sh.bc_table == "pd,pd,fs,fs"
+    whole = torch.tensor(np.random.default_rng(2).standard_normal(
+        (2, 16, 32)))
+    v = split_x(whole, _cpu_mesh(2))
+    from cup2d_tpu_torch.ops.hopper_kernels import fused_advect_heun_plain
+    assert torch.equal(
+        gather_x(fused_advect_heun_sharded(v, 1 / 32, 1e-3, 1e-3,
+                                           bc=pd_fs)),
+        fused_advect_heun_plain(whole, 1 / 32, 1e-3, 1e-3, bc=pd_fs))
     monkeypatch.setenv("CUP2D_POIS", "fftd")
     with pytest.raises(ValueError, match="cannot attach a device mesh"):
         ShardedUniformSim(_tcfg(), _cpu_mesh(2), level=LEVEL, bc=pd_fs)

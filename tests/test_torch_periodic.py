@@ -327,11 +327,12 @@ def test_refusals(monkeypatch):
     with pytest.raises(ValueError, match="CUP2D_POIS"):
         AMRSim(cfg, shapes=[], device="cpu")
     monkeypatch.setenv("CUP2D_POIS", "fas")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ShardedUniformSim(cfg, mesh, level=2,
-                          bc=tcases.periodic_channel_table())
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tcases.make_sim("tgv_periodic", level=2, mesh=mesh)
+    # the split periodic step runs (tests/test_torch_mesh_periodic.py)
+    sh = ShardedUniformSim(cfg, mesh, level=2,
+                           bc=tcases.periodic_channel_table())
+    assert sh.bc_table == "pd,pd,ns,ns" and len(sh.state.vel.parts) == 2
+    sh = tcases.make_sim("tgv_periodic", level=2, mesh=mesh)
+    assert isinstance(sh, ShardedUniformSim) and sh.case == "tgv_periodic"
     fleet = tcases.make_sim("turb2d", level=2, members=2, device="cpu")
     assert fleet.members == 2 and fleet.poisson_mode == "fas"
     monkeypatch.setenv("CUP2D_PREC", "bf16")
