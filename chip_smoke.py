@@ -300,7 +300,8 @@ the result lines:
    fleet at 64^2, 12 steps, card against CPU within 1e-4. Serving:
    ``main()`` in process, ``-fleet 8 -serve 24`` at 1024^2 (the README's
    fleet flags at ``-level 7``, ``-tend 0.006``: every session admitted
-   and retired, three a slot), once unfaulted and once under
+   and retired, three a slot; the pool starts at step ``SERVE_FIRST_STEP``
+   = 10, past the exact startup solves), once unfaulted and once under
    ``CUP2D_FAULTS=nan_vel@15*3`` (one eviction): every healthy session's
    checkpoint bit for bit the unfaulted run's, no kernel build from the
    first retirement on, occupancy, admissions, retirements, evictions
@@ -362,12 +363,30 @@ the result lines:
    the unplaced CLI's dumps (within ``SHARDED_REL``). No twin called on
    the card's f32 operands in (b) and (c). Files under build/phase18,
    removed at the end.
+19. multi-process runs on ``torch.distributed`` (``parallel.launch``):
+   a one-rank NCCL world in this process (NCCL takes no two ranks on one
+   card) and its 4-shard world mesh on the card, whose reductions and
+   gathers all go through NCCL all-gathers: (a) ``tgv_periodic`` at
+   8192^2, default and fas, the exact startup step and 3 production
+   steps, bit for bit (state and iterations) the same run on a
+   single-controller 4-slab mesh (phase 18 (b)'s run); (b) phase 5's
+   forest after its warm-up step (phase 15's start) on 4 shards, an
+   adapt and 4 production steps under each solver, bit for bit
+   (topology, state, iterations) the
+   single-controller run (phase 17's), with the bytes its replicated
+   whole work all-gathers a step; (c) a collective ``save_checkpoint`` /
+   ``load_checkpoint`` round trip of (b)'s fas run, its arrays, meta and
+   shapes bytes equal to the single-controller save and the restore bit
+   for bit. ms a step of each beside the single-controller run's;
+   launches of kernels 3, 4, 7 and 8 from 0 over the world runs alone,
+   each > 0; no twin called on the card's operands; the group torn down
+   at the end (files under build/phase19, removed).
 
 Then one JSON line of per-kernel numbers (with, per kernel, its launches
 on the two flagship runs, the two canonical runs, phase 13's runs,
 phase 15's supervised runs, phase 16's fleet runs, phase 17's split
-forest runs and phase 18's split periodic and placed fleet runs and, for
-the
+forest runs, phase 18's split periodic and placed fleet runs and phase
+19's world runs and, for the
 flagship's and the canonical run's kernels, their
 numbers at those shapes), the card's name and power limit
 as nvidia-smi prints them, and the result line
@@ -4183,6 +4202,10 @@ SERVE_FLAGS = ("-bpdx 1 -bpdy 1 -levelMax 1 -levelStart 0 -extent 1 "
                "-maxPoissonIterations 100 -AdaptSteps 20 -Rtol 2 -Ctol 1 "
                "-tdump 0 -dtype float32 -level 7 -fleet 8 -serve 24")
 SERVE_FAULT = "nan_vel@15*3"   # member 0's ladder runs out: one eviction
+# the serving runs' pool starts at this step, past the 10 exact startup
+# solves (tol 0, ~20 s a run at 1024^2): its sessions are production
+# traffic, and the exact solves are held by the curves and the card bars
+SERVE_FIRST_STEP = 10
 
 
 def fleet_sim(dev, size: int, members: int, pois: str = "", **kw):
@@ -4337,16 +4360,26 @@ def fleet_card_bars(dev) -> dict:
 
 def serve_run(out: str, faults: str | None = None) -> dict:
     """``main()`` in process with ``SERVE_FLAGS`` into ``out`` (and
-    ``CUP2D_FAULTS=faults``): rc, seconds, metrics records, events and the
-    ``serving_latency`` record."""
+    ``CUP2D_FAULTS=faults``), its pool starting at ``SERVE_FIRST_STEP``:
+    rc, seconds, metrics records, events and the ``serving_latency``
+    record."""
     from cup2d_tpu_torch import __main__ as tmain
+    from cup2d_tpu_torch.fleet import FleetSim
     from cup2d_tpu_torch.profiling import load_metrics
     if faults:
         os.environ["CUP2D_FAULTS"] = faults
+    init = FleetSim.__init__
+
+    def production_pool(sim, *a, **k):
+        init(sim, *a, **k)
+        sim.step_count = SERVE_FIRST_STEP
+
+    FleetSim.__init__ = production_pool
     t0 = time.perf_counter()
     try:
         rc = tmain.main(SERVE_FLAGS.split() + ["-output", out])
     finally:
+        FleetSim.__init__ = init
         os.environ.pop("CUP2D_FAULTS", None)
     secs = time.perf_counter() - t0
     check(rc == 0, f"phase 16 serve {out}: rc {rc}")
@@ -5343,6 +5376,232 @@ def phase_periodic_mesh(dev, res, card: str, fleet16: dict
     return runs, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: multi-process runs on torch.distributed, through a one-rank
+# NCCL world on the card
+# ---------------------------------------------------------------------------
+
+PHASE19_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase19")
+DIST_STEPS = 3            # (a): production steps after the startup step
+DIST_FOREST_STEPS = 4     # (b): production steps after the adapt
+DIST_KEYS = ("advect_substage_halo", "jacobi_halo_sweep", "fused_lab_rhs",
+             "fused_block_jacobi_update")
+# the split uniform step's twins and the forest's, each once
+DIST_TWINS = tuple(dict.fromkeys(SPLIT_TWINS + FOREST_TWINS))
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_tgv(dev, pois: str, mesh, size: int = 8192) -> tuple:
+    """(a) on ``mesh``: ``tgv_periodic`` at size^2 on 4 slabs of the card,
+    its exact startup step and ``DIST_STEPS`` timed production steps.
+    Returns the sim and its row (the whole vel and pres on the card)."""
+    sim = periodic_grid("tgv", dev, pois, mesh, size)
+    sim.set_state(periodic_start(sim.grid, "tgv"))
+    sim.step_count = 9
+    iters = [sim.step_once()["poisson_iters"]]
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(DIST_STEPS):
+        d = sim.step_once()
+        iters.append(d["poisson_iters"])
+    sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0) / DIST_STEPS
+    check(bool(d["finite"]), f"phase 19 tgv {pois or 'default'}: nonfinite")
+    return sim, {"iters": iters, "ms_per_step": ms,
+                 "vel": gather_x(sim.state.vel),
+                 "pres": gather_x(sim.state.pres)}
+
+
+def dist_forest(dev, forest_start: tuple, pois: str, mesh) -> tuple:
+    """(b) on ``mesh``: phase 5's forest as a 4-shard ``ShardedAMRSim``,
+    one adapt and ``DIST_FOREST_STEPS`` production steps (the first
+    untimed). Returns the sim and its row."""
+    cfg, snap = forest_start
+    with latched(pois or "structured"):
+        sim = ShardedAMRSim(cfg, mesh, shapes=[])
+    forest_from_numpy(sim, *snap)
+    sim.step_count = 10
+    sim.adapt()
+    iters = [sim.step_once()["poisson_iters"]]
+    sync(dev)
+    tsh.comm_stats.update(allgathers=0, allgather_bytes=0, p2p_messages=0,
+                          p2p_bytes=0)
+    t0 = time.perf_counter()
+    for _ in range(DIST_FOREST_STEPS - 1):
+        d = sim.step_once()
+        iters.append(d["poisson_iters"])
+    sync(dev)
+    n = DIST_FOREST_STEPS - 1
+    comm = {k: v / n for k, v in tsh.comm_stats.items()}
+    check(bool(d["finite"]), f"phase 19 forest {pois or 'default'}: "
+          "nonfinite")
+    return sim, {"iters": iters, "blocks": len(sim.forest.blocks),
+                  "keys": set(sim.forest.blocks),
+                  "ms_per_step": 1e3 * (time.perf_counter() - t0) / n,
+                  "comm_per_step": comm, "state": _gathered(sim)}
+
+
+def _same(a: dict, b: dict, keys) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in keys)
+
+
+def _checkpoint_bytes(d: str) -> dict:
+    """Every array's bytes, meta.json and shapes.pkl of a checkpoint (the
+    zip members' timestamps aside)."""
+    out = {}
+    with np.load(os.path.join(d, "fields.npz")) as z:
+        for k in z.files:
+            out[k] = z[k].tobytes()
+    for n in ("meta.json", "shapes.pkl"):
+        with open(os.path.join(d, n), "rb") as f:
+            out[n] = f.read()
+    return out
+
+
+def dist_checkpoint(sim, solo_sim, before: dict) -> dict:
+    """(c): the world sim's collective save beside the single-controller
+    sim's, then a restore into the world sim (its fields zeroed first)
+    against the state it saved."""
+    from cup2d_tpu_torch.io import load_checkpoint, save_checkpoint
+    t0 = time.perf_counter()
+    wd, sd = (os.path.join(PHASE19_DIR, n) for n in ("world", "solo"))
+    save_checkpoint(wd, sim)
+    save_checkpoint(sd, solo_sim)
+    wb, sb = _checkpoint_bytes(wd), _checkpoint_bytes(sd)
+    sim._set_ordered(**{k: v * 0.0 for k, v in
+                        sim._ordered_state().items()})
+    load_checkpoint(wd, sim)
+    after = _gathered(sim)
+    # the real blocks (a restore pads with zeros, a solve leaves its own
+    # values in the pad rows)
+    n = sim._n_real
+    row = {"bytes_equal": wb == sb,
+           "restore_bit_for_bit": all(torch.equal(after[k][:n],
+                                                  before[k][:n])
+                                      for k in before),
+           "bytes": sum(len(v) for v in wb.values()),
+           "seconds": time.perf_counter() - t0}
+    print(f"phase 19 (c) {json.dumps(row)}", flush=True)
+    check(row["bytes_equal"] and row["restore_bit_for_bit"],
+          "phase 19 (c): the collective checkpoint differs")
+    return row
+
+
+def phase_dist(dev, forest_start: tuple, card: str, size: int = 8192
+               ) -> tuple[dict, dict]:
+    """Phase 19: the multi-process code paths through a one-rank NCCL
+    world in this process (``parallel.launch.init_distributed``; NCCL
+    takes no two ranks on one card), whose 4-shard world mesh sends every
+    reduction and gather through NCCL collectives. (a) ``tgv_periodic`` at
+    8192^2 on 4 slabs, default and fas: the startup step and
+    ``DIST_STEPS`` production steps bit for bit the same run on a
+    single-controller mesh (phase 18 (b)'s run); (b) phase 5's forest
+    after its warm-up step (``forest_start``: phase 15's start) on 4
+    shards, an adapt and ``DIST_FOREST_STEPS`` production steps under each
+    solver bit for bit the single-controller run (phase 17's), with the
+    bytes its replicated whole work all-gathers a step; (c) a collective
+    ``save_checkpoint`` / ``load_checkpoint`` round trip of (b)'s fas run
+    whose arrays, meta and shapes bytes equal the no-world save. Launches
+    of kernels 3, 4, 7 and 8 from 0 over the world runs alone; no twin on
+    the card's operands. The group is torn down before the smoke goes
+    on."""
+    from cup2d_tpu_torch.parallel.launch import (init_distributed,
+                                                 shutdown_distributed,
+                                                 world_mesh)
+    shutil.rmtree(PHASE19_DIR, ignore_errors=True)
+    os.makedirs(PHASE19_DIR)
+    t0 = time.perf_counter()
+    check(init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                           expected_processes=1, device=dev,
+                           timeout=120.0) == 0, "phase 19: rank")
+    try:
+        check(torch.distributed.get_backend() == "nccl",
+              "phase 19: the world's backend is not NCCL")
+        wmesh = world_mesh(MESH_D, dev)
+        smesh = make_mesh(devices=[dev] * MESH_D)
+        check(wmesh.distributed and not smesh.distributed,
+              "phase 19: mesh kinds")
+        out, launches = {"uniform": {}, "forest": {}}, {k: 0 for k in
+                                                        DIST_KEYS}
+        t_up = time.perf_counter() - t0
+        with twin_watch(DIST_TWINS) as tw:
+            t1 = time.perf_counter()
+            for pois in ("", "fas"):
+                name = pois or "default"
+                solo_sim, solo = dist_tgv(dev, pois, smesh, size)
+                hk.reset_launches()
+                tsh.comm_stats.update(allgathers=0, allgather_bytes=0,
+                                      p2p_messages=0, p2p_bytes=0)
+                sim, row = dist_tgv(dev, pois, wmesh, size)
+                for k in DIST_KEYS:
+                    launches[k] += hk.launches[k]
+                gathers = tsh.comm_stats["allgathers"]
+                same = _same(row, solo, ("vel", "pres"))
+                out["uniform"][name] = {
+                    "iters": row["iters"], "solo_iters": solo["iters"],
+                    "bit_for_bit": same, "ms_per_step": row["ms_per_step"],
+                    "solo_ms_per_step": solo["ms_per_step"],
+                    "allgathers": gathers}
+                print(f"phase 19 (a) tgv {size}^2 {name} "
+                      f"{json.dumps(out['uniform'][name])}; card {card}",
+                      flush=True)
+                check(same and row["iters"] == solo["iters"],
+                      f"phase 19 (a) {name}: the world run differs from "
+                      "the single-controller run")
+                check(gathers > 0, f"phase 19 (a) {name}: no collective")
+                del row, solo, sim, solo_sim
+                torch.cuda.empty_cache()
+            t3 = time.perf_counter()
+            for pois in ("", "fas"):
+                name = pois or "default"
+                solo_sim, solo = dist_forest(dev, forest_start, pois, smesh)
+                hk.reset_launches()
+                sim, row = dist_forest(dev, forest_start, pois, wmesh)
+                for k in DIST_KEYS:
+                    launches[k] += hk.launches[k]
+                same = (row["keys"] == solo["keys"]
+                        and _same(row["state"], solo["state"],
+                                  row["state"].keys()))
+                out["forest"][name] = {
+                    "blocks": row["blocks"], "iters": row["iters"],
+                    "solo_iters": solo["iters"], "bit_for_bit": same,
+                    "ms_per_step": row["ms_per_step"],
+                    "solo_ms_per_step": solo["ms_per_step"],
+                    "comm_per_step": row["comm_per_step"]}
+                print(f"phase 19 (b) forest {name} "
+                      f"{json.dumps(out['forest'][name])}; card {card}",
+                      flush=True)
+                check(same and row["iters"] == solo["iters"],
+                      f"phase 19 (b) {name}: the world run differs from "
+                      "the single-controller run")
+                if pois == "fas":
+                    out["checkpoint"] = dist_checkpoint(sim, solo_sim,
+                                                        row["state"])
+                del row, solo, sim, solo_sim
+            t4 = time.perf_counter()
+        check(not any(tw.calls.values()),
+              f"phase 19: twins called on the card's operands {tw.calls}")
+    finally:
+        shutdown_distributed()
+        shutil.rmtree(PHASE19_DIR, ignore_errors=True)
+    check(not torch.distributed.is_initialized(), "phase 19: the world "
+          "outlived the phase")
+    for k in DIST_KEYS:
+        check(launches[k] > 0, f"{k}: launched no time on the world runs")
+    out["seconds"] = {"bring_up": t_up, "uniform": t3 - t1,
+                      "forest": t4 - t3}
+    print(f"phase 19 seconds {json.dumps(out['seconds'])}; launches "
+          f"{json.dumps(launches)}; card {card}", flush=True)
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5482,6 +5741,9 @@ def main() -> int:
         check(pd_launches.get(k, 0) > 0, f"{k}: launched no time on the "
               "split periodic path")
     launches.update({k: pd_launches[k] for k in SPLIT_PD_KEYS})
+    t0 = time.perf_counter()
+    dist_runs, dist_launches = phase_dist(dev, forest_warm, card)
+    print(f"phase 19 took {time.perf_counter() - t0} s", flush=True)
     check("jax" not in sys.modules, "the smoke imported jax")
     check("validation" not in sys.modules, "the smoke imported validation")
 
@@ -5503,6 +5765,7 @@ def main() -> int:
                     forest_mesh_launches=mesh_launches.get(k, 0),
                     forest_mesh=mesh_runs["forest"]["kernels"].get(k),
                     periodic_mesh_launches=pd_launches.get(k, 0),
+                    dist_launches=dist_launches.get(k, 0),
                     **({k2: res[k][k2] for k2 in ("ulps", "fft_ms",
                                                   "aux_ms")
                         if k2 in res[k]}))
@@ -5522,6 +5785,7 @@ def main() -> int:
     print(f"fleet summary: {json.dumps(fleet)}")
     print(f"forest mesh summary: {json.dumps(mesh_runs)}")
     print(f"periodic mesh and placed fleets summary: {json.dumps(pd_mesh)}")
+    print(f"multi-process summary: {json.dumps(dist_runs)}")
     print(f"total {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

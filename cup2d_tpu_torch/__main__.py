@@ -66,9 +66,25 @@ N`` puts N shards on it (four shards on one card, or on the CPU).
 ``-fleet`` with ``-mesh`` and no ``-case``, and ``-case X -mesh N`` for
 any X but cavity, exit 2 with the JAX CLI's messages.
 
+Several processes run one simulation (``parallel.launch``, the JAX
+CLI's ``cup2d_tpu/__main__.py:186-204``): with ``-mesh``, ``-coordinator
+HOST:PORT -meshHosts N -processId R`` (or torchrun's environment, e.g.
+``python -m torch.distributed.run --standalone --nproc_per_node 4 -m
+cup2d_tpu_torch ... -mesh all``) brings up a ``torch.distributed`` world
+(NCCL on cards, gloo with ``-device cpu``; ``-connectAttempts`` and
+``-connectBackoff`` bound the connect) before any sim is built. ``-mesh
+all`` is then one shard per rank (``global_mesh``), ``-mesh N`` N shards
+over the ranks (N divisible by the world size), each rank's on its device:
+``-device cpu``'s CPU, or its card (``cuda:LOCAL_RANK``, else
+``processId`` modulo the card count). The progress lines, the metrics,
+the event log, ``forces.csv``, the dumps and the checkpoints come from
+rank 0; every rank takes the same steps and regrids, and a SIGTERM stops
+every rank at the same step once every rank has it. A world that does
+not form fails the run (rc 1), never a silent single-process run.
+
 What the port cannot do yet is refused with rc 2 before any work, naming
-its ROADMAP queue 1 item: the multi-process, elastic and mirror flags
-(item 8);
+its ROADMAP queue 1 item: the elastic and mirror flags and a fleet across
+processes (item 8);
 ``-profile``, ``-spansLog`` and span ring capacities in ``CUP2D_SPANS``
 (item 9). The JAX CLI's usage errors exit 2 with its messages.
 Flags that only turn off what the port lacks (``-noSpans``,
@@ -81,6 +97,8 @@ import os
 import sys
 import time
 
+import torch
+
 from .config import CommandlineParser, SimConfig
 from .io import dump_forest, dump_uniform, load_checkpoint, save_checkpoint
 
@@ -88,11 +106,6 @@ _PREFIX = "cup2d_tpu_torch"
 
 # flag -> (ROADMAP queue 1 item, what it asks for)
 _REFUSED = {
-    "coordinator": (8, "multi-process bring-up"),
-    "meshHosts": (8, "multi-process bring-up"),
-    "processId": (8, "multi-process bring-up"),
-    "connectAttempts": (8, "multi-process bring-up"),
-    "connectBackoff": (8, "multi-process bring-up"),
     "elastic": (8, "the elastic topology guard"),
     "simHosts": (8, "the elastic topology guard"),
     "heartbeatMissK": (8, "the elastic topology guard"),
@@ -104,8 +117,17 @@ _REFUSED = {
 }
 
 
+# the flags of a multi-process world
+_WORLD_FLAGS = ("coordinator", "meshHosts", "processId", "connectAttempts",
+                "connectBackoff")
+
+
 def _not_ported(what: str, item: int) -> str:
     return f"{what} is not ported yet (ROADMAP queue 1 item {item})"
+
+
+_FLEET_ACROSS = "-fleet across processes: " + _not_ported(
+    "a fleet whose mesh spans processes", 8)
 
 
 def _refusal(p) -> str | None:
@@ -124,6 +146,12 @@ def _refusal(p) -> str | None:
     if p.has("fleet") and p.has("mesh") and not p.has("case"):
         return ("-fleet has its own placement policy (fleet.py) and does "
                 "not combine with -mesh")
+    if p.has("fleet") and any(p.has(f) for f in _WORLD_FLAGS):
+        return _FLEET_ACROSS
+    if not p.has("mesh") and any(p.has(f) for f in _WORLD_FLAGS):
+        return ("-coordinator/-meshHosts/-processId/-connectAttempts/"
+                "-connectBackoff bring up a world for -mesh; give -mesh "
+                "N|all")
     if p.has("mesh") and p.has("device") \
             and p("mesh").asString() == "all":
         return ("-mesh all takes every visible card; with -device, give "
@@ -136,7 +164,27 @@ def _refusal(p) -> str | None:
     return None
 
 
+def _say(msg: str) -> None:
+    """A progress line on stderr, from rank 0 under a world."""
+    from .resilience import is_writer
+    if is_writer():
+        print(f"{_PREFIX}: {msg}", file=sys.stderr)
+
+
 def main(argv=None) -> int:
+    """Run the command line; a world this run brought up is torn down at
+    its end."""
+    from .resilience import dist_initialized
+    had_world = dist_initialized()
+    try:
+        return _main(argv)
+    finally:
+        if not had_world and dist_initialized():
+            from .parallel.launch import shutdown_distributed
+            shutdown_distributed()
+
+
+def _main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     p = CommandlineParser(argv)
     msg = _refusal(p)
@@ -167,15 +215,46 @@ def main(argv=None) -> int:
     device = resolve_device(p("device").asString() if p.has("device")
                             else None)
     # -mesh: every visible card (all), the first N cards, or N shards on
-    # the one device -device names
+    # the one device -device names; under a world (-coordinator ... or
+    # torchrun's environment) one shard a rank (all) or N over the ranks
     mesh = None
     if p.has("mesh"):
+        from .parallel.launch import (global_mesh, init_distributed,
+                                      world_mesh)
         from .parallel.mesh import make_mesh
+        try:
+            init_distributed(
+                coordinator_address=(p("coordinator").asString()
+                                     if p.has("coordinator") else None),
+                num_processes=(p("meshHosts").asInt()
+                               if p.has("meshHosts") else None),
+                process_id=(p("processId").asInt()
+                            if p.has("processId") else None),
+                expected_processes=(p("meshHosts").asInt()
+                                    if p.has("meshHosts") else None),
+                connect_attempts=(p("connectAttempts").asInt()
+                                  if p.has("connectAttempts") else 5),
+                connect_backoff=(p("connectBackoff").asDouble()
+                                 if p.has("connectBackoff") else 1.0),
+                device=device)
+        except (RuntimeError, ValueError) as e:
+            print(f"{_PREFIX}: {e}", file=sys.stderr)
+            return 1
+        from .resilience import dist_initialized
         spec = p("mesh").asString()
-        if p.has("device"):
+        if dist_initialized():
+            if fleet_n:      # a torchrun world
+                print(f"{_PREFIX}: {_FLEET_ACROSS}", file=sys.stderr)
+                return 2
+            if device.type == "cuda":
+                device = torch.device("cuda", torch.cuda.current_device())
+            mesh = (global_mesh(device) if spec == "all"
+                    else world_mesh(int(spec), device))
+        elif p.has("device"):
             mesh = make_mesh(devices=[device] * int(spec))
         else:
             mesh = make_mesh(None if spec == "all" else int(spec))
+    from .resilience import is_writer
     os.makedirs(outdir, exist_ok=True)
 
     from . import faults
@@ -258,7 +337,8 @@ def main(argv=None) -> int:
     if p.has("restart"):
         load_checkpoint(p("restart").asString(), sim)
 
-    if not fleet_n and hasattr(type(sim), "force_log_header"):
+    if not fleet_n and hasattr(type(sim), "force_log_header") \
+            and is_writer():
         force_path = os.path.join(outdir, "forces.csv")
         resuming = p.has("restart") and os.path.exists(force_path)
         sim.force_log = open(force_path, "a" if resuming else "w")
@@ -370,26 +450,26 @@ def main(argv=None) -> int:
                     log.emit(event="sigterm_park", step=sim.step_count,
                              parked=n_parked, queued=len(server.queue),
                              signum=stop.signum)
-                    print(f"{_PREFIX}: SIGTERM at step {sim.step_count} — "
-                          f"{n_parked} live session(s) parked under "
-                          f"{os.path.join(outdir, 'sessions')}, "
-                          f"{len(server.queue)} still queued, exiting "
-                          "cleanly", file=sys.stderr)
+                    _say(f"SIGTERM at step {sim.step_count} — "
+                         f"{n_parked} live session(s) parked under "
+                         f"{os.path.join(outdir, 'sessions')}, "
+                         f"{len(server.queue)} still queued, exiting "
+                         "cleanly")
                     return 0
                 if sim.step_count % 5 == 0:
-                    print(f"{_PREFIX}: {sim.step_count:08d} serving "
-                          f"{int(server.active.sum())}/{sim.members} "
-                          f"slots, queue={len(server.queue)}, "
-                          f"retired={server.retired}, "
-                          f"evicted={server.evicted}", file=sys.stderr)
+                    _say(f"{sim.step_count:08d} serving "
+                         f"{int(server.active.sum())}/{sim.members} "
+                         f"slots, queue={len(server.queue)}, "
+                         f"retired={server.retired}, "
+                         f"evicted={server.evicted}")
                 t_step = time.perf_counter()
                 rec = server.step()
                 if rec is None:
                     break
                 record(rec, wall_ms=1e3 * (time.perf_counter() - t_step))
-            print(f"{_PREFIX}: served {server.admitted} session(s): "
-                  f"{server.retired} retired, {server.evicted} evicted, "
-                  f"{len(server.queue)} unserved", file=sys.stderr)
+            _say(f"served {server.admitted} session(s): "
+                 f"{server.retired} retired, {server.evicted} evicted, "
+                 f"{len(server.queue)} unserved")
         next_dump = sim.time if cfg.dump_time > 0 else float("inf")
         while server is None:
             if not (sim.time < cfg.end_time
@@ -410,13 +490,12 @@ def main(argv=None) -> int:
                 log.emit(event="sigterm_checkpoint", step=sim.step_count,
                          sim_time=sim.time, path=ckpt_path,
                          signum=stop.signum)
-                print(f"{_PREFIX}: SIGTERM at step {sim.step_count} — "
-                      f"checkpoint written to {ckpt_path}, exiting "
-                      "cleanly", file=sys.stderr)
+                _say(f"SIGTERM at step {sim.step_count} — "
+                     f"checkpoint written to {ckpt_path}, exiting "
+                     "cleanly")
                 return 0
             if sim.step_count % 5 == 0:
-                print(f"{_PREFIX}: {sim.step_count:08d} t={sim.time:.6f}",
-                      file=sys.stderr)
+                _say(f"{sim.step_count:08d} t={sim.time:.6f}")
             if cfg.dump_time > 0 and sim.time >= next_dump:
                 # catch the schedule up even when dt > tdump (the
                 # reference falls permanently behind there,
@@ -445,8 +524,7 @@ def main(argv=None) -> int:
     except ResilienceAbort as e:
         # the guard wrote the post-mortem checkpoint, emitted the abort
         # event and closed the force log
-        print(f"{_PREFIX}: unrecoverable step failure — {e}",
-              file=sys.stderr)
+        _say(f"unrecoverable step failure — {e}")
         rc = 1
     finally:
         stop.uninstall()
@@ -472,8 +550,8 @@ def main(argv=None) -> int:
 
     if not uniform:
         sim.sync_fields()   # leave the slot fields current
-    print(f"{_PREFIX}: done at t={sim.time:.6f} "
-          f"after {sim.step_count} steps", file=sys.stderr)
+    _say(f"done at t={sim.time:.6f} "
+         f"after {sim.step_count} steps")
     return 0
 
 

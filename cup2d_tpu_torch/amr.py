@@ -551,7 +551,9 @@ class AMRSim(ShapeHostMixin):
 
     @staticmethod
     def _gather(x):
-        """The whole ordered tensor of a placed one (identity here)."""
+        """The whole ordered tensor of a placed one (identity here; on a
+        world mesh an all-gather, so the regrid tags, the migration and
+        the slot fields are the same on every rank)."""
         return x
 
     def sync_fields(self):

@@ -42,7 +42,8 @@ member axis riding the halo kernels). Checkpoints, dumps and session
 checkpoints keep the global layout, so a placed fleet restarts unplaced
 and the other way round; the guard and the server drive a placed fleet
 through its member accessors, its solo member steps on the member's own
-device (or split, on spatial placement).
+device (or split, on spatial placement). A mesh over a multi-process world
+refuses (fleets across processes: ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -180,6 +181,11 @@ class FleetSim:
         nx = cfg.bpdx * cfg.bs << lvl
         ny = cfg.bpdy * cfg.bs << lvl
         if mesh is not None:
+            if mesh.distributed:
+                raise NotImplementedError(
+                    "FleetSim(mesh=) over a multi-process world: fleets "
+                    "across processes are not ported yet (ROADMAP queue 1 "
+                    "item 8)")
             if device is not None and \
                     canonical_device(device) != mesh.devices[0]:
                 raise ValueError(

@@ -1,5 +1,5 @@
 """Field dumps in the reference format and checkpoint/restart, the
-counterpart of ``cup2d_tpu.io`` (single process).
+counterpart of ``cup2d_tpu.io``.
 
 A dump is the exact on-disk triplet of the reference's ``dump()``
 (main.cpp:3367-3467): per-cell quads as float32 ``.xyz.raw`` (4 corners x
@@ -40,6 +40,14 @@ resumes one member alone (``save_member_checkpoint``,
 ``load_member_checkpoint``: the member's solo-shaped fields, its own clock
 and its chained dt, in the same tmp -> park -> replace order). The device
 snapshot tier carries a fleet's clocks and its [B] dt row.
+
+Under a ``torch.distributed`` world (``parallel.launch``) dumps and
+checkpoints are collective, as the reference's MPI-IO dump
+(main.cpp:3367-3467) and ``cup2d_tpu/io.py:36-67``: every rank joins the
+gather (``whole``: an all-gather of the split fields; the forest's slot
+fields are whole on every rank already), rank 0 alone writes, and a
+barrier keeps the others from racing past an incomplete file. Every rank
+loads the same bytes.
 
 Every device read goes through ``shapes_host.pull``; ``state_gathers``
 counts ``_gather_state`` calls (``profiling.HostCounters``). Not ported:
@@ -119,12 +127,32 @@ def _write_quads(path: str, time: float, xg, yg, x1, y1, u, v) -> None:
         ))
 
 
+def _sync_processes() -> None:
+    """Barrier of the world, so that no rank runs past a file rank 0 is
+    still writing (a no-op without a world)."""
+    from .resilience import dist_initialized
+    if not dist_initialized():
+        return
+    import torch.distributed as dist
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
 def dump_uniform(path: str, time: float, vel, h: float,
                  origin=(0.0, 0.0)) -> None:
     """Write a uniform-grid velocity field [2, Ny, Nx] (a tensor, a split
     field or numpy) in the reference dump format, cells in row-major
-    (y-outer) order."""
+    (y-outer) order. Collective under a world."""
+    from .resilience import is_writer
     vel = whole(vel)
+    if is_writer():
+        _dump_uniform(path, time, vel, h, origin)
+    _sync_processes()
+
+
+def _dump_uniform(path, time, vel, h, origin) -> None:
     if torch.is_tensor(vel):
         (vel,) = pull(vel)
     vel = np.asarray(vel, dtype=np.float64)
@@ -138,7 +166,16 @@ def dump_uniform(path: str, time: float, vel, h: float,
 def dump_forest(path: str, time: float, forest, order=None) -> None:
     """Write an adaptive forest's velocity in the reference dump format:
     blocks in SFC order, cells y-outer/x-inner within each block. The
-    ``[order]`` gather runs on the device before the one host copy."""
+    ``[order]`` gather runs on the device before the one host copy. Under
+    a world every rank holds the slot fields whole: rank 0 writes, the
+    others wait at the barrier."""
+    from .resilience import is_writer
+    if is_writer():
+        _dump_forest(path, time, forest, order)
+    _sync_processes()
+
+
+def _dump_forest(path: str, time: float, forest, order) -> None:
     order = forest.order() if order is None else order
     bs = forest.bs
     n = len(order)
@@ -178,7 +215,8 @@ def read_dump(path: str):
 def whole(v):
     """A field of a sim on a mesh in the global layout (x-split ``Slabs``
     gathered along x, split forest ``Blocks`` along the block axis, on
-    their mesh's first device); anything else as it is. Dumps,
+    their mesh's home device; all-gathers under a world); anything else
+    as it is. Dumps,
     checkpoints and snapshot restores across topologies write and read
     this layout, so they restart on any mesh or on none."""
     from .parallel.shard_halo import Blocks, Slabs, gather_blocks, gather_x
@@ -260,10 +298,14 @@ def save_checkpoint(dirpath: str, sim) -> None:
     """Serialize a driver (``Simulation``, ``UniformSim``, ``FleetSim`` or
     ``AMRSim``) to ``dirpath``: written to a sibling temp dir, then
     installed so that a crash mid-save cannot destroy the previous restart
-    point."""
+    point. Collective under a world: every rank gathers, rank 0 writes,
+    all meet at a barrier."""
+    from .resilience import is_writer
     payload, meta = _gather_state(sim)
     shapes = getattr(sim, "shapes", [])
-    _write_installed(dirpath, payload, meta, shapes, crash_window=True)
+    if is_writer():
+        _write_installed(dirpath, payload, meta, shapes, crash_window=True)
+    _sync_processes()
 
 
 def _write_installed(dirpath: str, payload: dict, meta: dict, shapes,
@@ -347,7 +389,8 @@ def load_checkpoint(dirpath: str, sim) -> None:
     """Restore a checkpoint (the port's or the JAX package's) into ``sim``
     (built with a matching config/grid). Falls back to ``dirpath.old``,
     loudly, when a save crashed between parking the previous checkpoint
-    and installing the new one."""
+    and installing the new one. Under a world every rank reads the same
+    bytes and installs them alike."""
     dirpath = _fallback_old(dirpath, "checkpoint")
     with open(os.path.join(dirpath, "meta.json")) as f:
         meta = json.load(f)

@@ -6,8 +6,10 @@ ranges and plans the halo messages by hand (main.cpp:5205-5424 load
 balance, 909-2142 communication). The JAX package keeps that policy and
 leaves the mechanism to GSPMD; here every cross-device read is written
 out (``parallel.shard_halo``). One process drives a ``SlabMesh`` of D
-devices (devices may repeat: four shards on one card, or on the CPU).
-Device d owns the ordered blocks [dB, (d+1)B) of the padded block axis,
+devices (devices may repeat: four shards on one card, or on the CPU), or
+the ranks of a ``torch.distributed`` world drive one each
+(``SlabMesh.over_world``: every rank's shards on its one device). Shard d
+owns the ordered blocks [dB, (d+1)B) of the padded block axis,
 B = n_pad / D.
 
 Split per device (``shard_halo.Blocks``): the ordered working state
@@ -21,7 +23,9 @@ correction (``ShardFluxCorr``). The lab RHS runs kernel 4 once per shard
 on that shard's labs, and under fas the composite smoother runs kernel 8
 once per shard and sweep (``overlap_block_jacobi_sweeps``).
 
-Whole on ``devices[0]``: the slot-layout fields (the regrid's truth, read
+Whole on ``mesh.home`` (under a world: on every rank, computed there
+replicated from all-gathered operands, so every rank holds the same
+bits): the slot-layout fields (the regrid's truth, read
 by the prolongation and restriction through the replicated ``vec1t`` /
 ``sca1t`` sets), the two-level and FAS transfer images and the DCT base
 solve (each transfer gathers its ordered operand there and splits its
@@ -34,9 +38,11 @@ full ``sum`` gathers its whole operand there and reduces it in the
 unsplit step's order, so the split step is the solo step bit for bit.
 Per-shard partial sums would part the forest's stalled startup solves
 from the solo run's (``shard_halo.Blocks``). The price: each dot and
-each preconditioner application ships whole vectors to ``devices[0]``,
-so on cards of their own the split solve cannot scale; only four shards
-on one card have been measured (ROADMAP queue 1 item 8).
+each preconditioner application ships whole vectors to every rank's
+home (``shard_halo.comm_stats`` counts the bytes), so across cards the
+split solve cannot scale (ROADMAP queue 1 item 8, per-shard partials).
+The regrid's tags are one all-gathered vector (``AMRSim.adapt`` through
+``_gather``), so every rank commits the same topology.
 
 Regrid-time migration is re-placement: after a topology change the
 ordered state is gathered from the slot fields and split anew. Where
@@ -92,7 +98,7 @@ class ShardedAMRSim(AMRSim):
         self._split = False
         # halo bytes of one hot-loop vector exchange (the metrics stream)
         self._comm_stats = None
-        super().__init__(cfg, shapes=shapes, device=mesh.devices[0])
+        super().__init__(cfg, shapes=shapes, device=mesh.home)
 
     # -- placement -------------------------------------------------------
     def _refresh_impl(self):
@@ -111,7 +117,7 @@ class ShardedAMRSim(AMRSim):
 
     def _reducers(self):
         """Split blocks take ``block_reducers``: a dot gathers its operands
-        onto ``devices[0]`` (see the module docstring)."""
+        onto ``mesh.home`` (see the module docstring)."""
         return block_reducers if self._split else super()._reducers()
 
     # -- tables ----------------------------------------------------------
@@ -200,7 +206,7 @@ class ShardedAMRSim(AMRSim):
         return _paint, _base, _extract
 
     def _precond(self, r):
-        """P_inv r on the whole operand on ``devices[0]``, split back:
+        """P_inv r on the whole operand on ``mesh.home``, split back:
         cuBLAS may pick a split-K GEMM for a shard's few rows (a
         canonical-run shard holds 256), which reorders the 64-term sums;
         whole, the GEMM repeats the unsplit step's bits."""
@@ -232,7 +238,7 @@ class ShardedAMRSim(AMRSim):
     # -- the shaped step -------------------------------------------------
     def _window_raster(self, inp, N: int):
         """A shape's window SDF and deformation velocity, evaluated once
-        on ``devices[0]``; each shard keeps the window rows in its own
+        on ``mesh.home``; each local shard keeps the window rows in its own
         block range (a shard-local scatter, no exchange;
         ``cup2d_tpu/parallel/forest_mesh.py:199-241``). Rows outside a
         shard's range go to its scratch row B with the sentinel (or 0),
@@ -246,7 +252,7 @@ class ShardedAMRSim(AMRSim):
         d, ud = _window_sdf_udef(inp, bs, dtype)
         pos = inp["pos"]
         sdf_p, ud_p, wm_p = [], [], []
-        for k, dev in enumerate(self.mesh.devices):
+        for k, dev in zip(self.mesh.local, self.mesh.local_devices):
             mine = (pos >= k * B) & (pos < (k + 1) * B)
             lpos = torch.where(mine, pos - k * B, B).to(dev)
             wm3 = mine[:, None, None]

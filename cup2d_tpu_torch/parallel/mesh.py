@@ -3,15 +3,17 @@
 
 The JAX package splits the x axis of every field over a device mesh with
 a ``NamedSharding`` and lets XLA's SPMD partitioner insert the halo
-exchanges and all-reduces. Here one process drives D slabs, each a tensor
-on its own ``torch.device`` (devices may repeat: four shards on one card,
-eight on the CPU; several cards in one process get peer copies), and
-``parallel.shard_halo`` writes every exchange and reduction out.
+exchanges and all-reduces. Here D slabs, each a tensor on its own
+``torch.device``, are driven by one process (devices may repeat: four
+shards on one card, eight on the CPU; several cards in one process get
+peer copies) or by the ranks of a ``torch.distributed`` world
+(``parallel.launch``; each rank owns D / world_size slabs on its device),
+and ``parallel.shard_halo`` writes every exchange and reduction out.
 ``ShardedUniformSim`` runs the same numerics and host loop as
 ``UniformSim`` on that layout, under any boundary table (a periodic x
 closes the slabs into a ring); ``fleet.FleetSim(mesh=)`` places a fleet
-on the same mesh. The multi-process backend, the elastic re-mesh and the
-mirror tier of the JAX package are not ported (ROADMAP queue 1 item 8).
+on a single-controller mesh. The elastic re-mesh, the mirror tier and
+fleets across processes are not ported (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -32,7 +34,9 @@ def make_mesh(n_devices: Optional[int] = None, devices=None) -> SlabMesh:
     """A 1-D mesh along x. ``devices`` defaults to every visible CUDA
     device and must be given without a card; it may repeat a device, e.g.
     ``make_mesh(devices=["cuda:0"] * 4)``. ``n_devices`` takes the first
-    n and raises when there are fewer."""
+    n and raises when there are fewer. This is a single-controller mesh
+    even under a ``torch.distributed`` world; the mesh over a world's
+    ranks is ``parallel.launch.world_mesh``."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -56,7 +60,8 @@ def shard_state(state: FlowState, mesh: SlabMesh) -> FlowState:
 
 def unshard_state(state: FlowState, device=None) -> FlowState:
     """The whole fields of a split FlowState on one device (for tests and
-    dumps; the step never gathers a fine-level field)."""
+    dumps; the step never gathers a fine-level field); all-gathers under
+    a world."""
     return FlowState(*(gather_x(f, device) for f in state))
 
 
@@ -82,7 +87,7 @@ class ShardedUniformSim(UniformSim):
 
     def __init__(self, cfg: SimConfig, mesh: SlabMesh,
                  level: Optional[int] = None, bc=None):
-        super().__init__(cfg, level, device=mesh.devices[0], bc=bc)
+        super().__init__(cfg, level, device=mesh.home, bc=bc)
         self.mesh = mesh
         self.grid.attach_mesh(mesh)
         self.state = shard_state(self.state, mesh)

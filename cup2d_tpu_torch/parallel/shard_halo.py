@@ -5,27 +5,36 @@ package leaves to GSPMD. The forest half (``Blocks``, ``ShardTables``,
 ``ShardPoissonOp``, ``ShardFluxCorr``, the surface exchange plan) is
 described where it begins, below.
 
-A field split over a ``SlabMesh`` of D shards is a ``Slabs``: D
-contiguous tensors ``[..., Ny, Nx/D]``, slab d on ``mesh.devices[d]``
-holding the global columns ``[d*Nx/D, (d+1)*Nx/D)``. One process drives
-every shard (a single-controller mesh); devices may repeat, so four
-shards can share one card or eight the CPU. Data crosses shards in two
-ways only:
+A field split over a ``SlabMesh`` of D shards is a ``Slabs``: contiguous
+tensors ``[..., Ny, Nx/D]``, slab d holding the global columns
+``[d*Nx/D, (d+1)*Nx/D)``. A mesh is driven by one process (a
+single-controller mesh: every shard local, devices may repeat, so four
+shards can share one card or eight the CPU) or by every rank of a
+``torch.distributed`` world (``SlabMesh.over_world``, brought up by
+``parallel.launch``): rank r owns a contiguous range of shards, all on its
+one device (its card, or the CPU), and a split field holds its local parts
+only, in ``mesh.local`` order; another rank's part is absent. Data crosses
+shards in two ways only:
 
 1. ``exchange_x``, the edge-column exchange (the reference's pair of
    ``lax.ppermute``s): shard d's left halo is shard d-1's last g columns,
    its right halo shard d+1's first g; wall shards receive zeros there,
    and along a periodic x the shards close into a ring (shard 0's left
    neighbour is the last shard; one shard is its own neighbour).
-   Copies are ``copy_`` without a host synchronization, so a peer copy
-   follows the producer's stream. A multi-host backend plugs in here.
-   The halo sweep needs none where every slab lies on one device: one
-   launch sweeps them all, each slab reading its neighbours' edge
-   columns in place (``sweep_slabs``).
+   Between local shards a halo is a ``copy_`` without a host
+   synchronization, so a peer copy follows the producer's stream; between
+   ranks the edge columns go through one ``batch_isend_irecv`` a call
+   (NCCL on cards, gloo on the CPU). The halo sweep needs none where every
+   slab lies on one device of one process: one launch sweeps them all,
+   each slab reading its neighbours' edge columns in place
+   (``sweep_slabs``).
 2. The global reductions (``slab_reducers``, ``slab_sum``,
    ``slab_mean``, ``slab_linf``): per-shard partials in the dtype that
-   ``poisson._reducers`` uses, combined in shard order on
-   ``mesh.devices[0]``, where every scalar of a step lives.
+   ``poisson._reducers`` uses, combined in shard order on ``mesh.home``
+   (the first local shard's device), where every scalar of a step lives.
+   Under a world the partials are all-gathered first (``all_shards``), so
+   every rank adds the same terms in the same order and holds the same
+   bits: the same dt, residuals and verdicts, so every host branch agrees.
 
 Every stencil the step applies to a split field is written out here: the
 JAX package's GSPMD partitioner inserted the halo exchanges of its
@@ -43,6 +52,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..bc import periodic_axes
 from ..flux import _structured_lap
@@ -60,13 +70,20 @@ from ..ops.stencil import (FREE_SLIP_COEFFS, NEUMANN_SIGNS,
 
 WENO_HALO = 3
 # a multigrid level stays split while its slab is at least this wide;
-# narrower levels are gathered onto mesh.devices[0] (see level_meshes)
+# narrower levels are gathered onto mesh.home (see level_meshes)
 MIN_SPLIT_WIDTH = 8
 
 # the halo-kernel sweeps of overlap_jacobi_sweeps (one per sweep and
 # level) and the edge-column exchanges made for them; a run that sets
 # both to 0 reads them against the kernel's launch count
 sweep_stats = {"sweeps": 0, "exchanges": 0}
+
+# the traffic between ranks since the counts were last zeroed: all-gathers
+# (reductions, whole operands, gathered levels; the bytes every rank
+# receives, its own part included) and point-to-point messages (edge
+# columns, surface blocks; the bytes this rank sends)
+comm_stats = {"allgathers": 0, "allgather_bytes": 0,
+              "p2p_messages": 0, "p2p_bytes": 0}
 
 
 def canonical_device(d) -> torch.device:
@@ -78,20 +95,113 @@ def canonical_device(d) -> torch.device:
 
 
 class SlabMesh:
-    """D shards along x: shard d lives on ``devices[d]``. Devices may
-    repeat (several shards on one card, or on the CPU)."""
+    """D shards along x (the forest: D block ranges). Built from devices,
+    one process drives every shard: shard d lives on ``devices[d]``, and
+    devices may repeat (several shards on one card, or on the CPU).
+    ``SlabMesh.over_world`` builds the mesh of a ``torch.distributed``
+    world instead: shard d belongs to rank ``owners[d]`` (contiguous
+    ranges in rank order), every shard of a rank lies on that rank's one
+    device, and ``devices[d]`` is None for a shard of another rank, so
+    nothing is ever placed there. ``local`` lists this process's shards
+    (every shard on a single-controller mesh) and ``home`` is the device
+    of the first of them, where reductions and scalars land."""
 
     def __init__(self, devices):
         self.devices = tuple(canonical_device(d) for d in devices)
         if not self.devices:
             raise ValueError("SlabMesh: no devices")
+        self.owners = (0,) * len(self.devices)
+        self.rank = 0
+        self.world = 1
+        self.distributed = False
+        self.local = tuple(range(len(self.devices)))
+
+    @classmethod
+    def over_world(cls, n_shards: int, device) -> "SlabMesh":
+        """``n_shards`` shards over the ranks of the default process group,
+        ``n_shards / world_size`` of them on each rank's ``device``."""
+        ws, r = dist.get_world_size(), dist.get_rank()
+        if n_shards < 1 or n_shards % ws:
+            raise ValueError(f"a mesh of {n_shards} shards over {ws} ranks: "
+                             "the shard count must be a positive multiple "
+                             "of the world size")
+        per = n_shards // ws
+        dev = canonical_device(device)
+        mesh = cls.__new__(cls)
+        mesh.owners = tuple(d // per for d in range(n_shards))
+        mesh.devices = tuple(dev if o == r else None for o in mesh.owners)
+        mesh.rank = r
+        mesh.world = ws
+        mesh.distributed = True
+        mesh.local = tuple(range(r * per, (r + 1) * per))
+        return mesh
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def home(self) -> torch.device:
+        return self.devices[self.local[0]]
+
+    @property
+    def local_devices(self) -> tuple:
+        return tuple(self.devices[d] for d in self.local)
+
+    @property
+    def all_local(self) -> bool:
+        """Every shard belongs to this process."""
+        return len(self.local) == self.size
+
     def __repr__(self) -> str:
+        if self.distributed:
+            return (f"SlabMesh({self.size} shards over {self.world} ranks, "
+                    f"rank {self.rank}: {list(self.local)} on {self.home})")
         return f"SlabMesh({[str(d) for d in self.devices]})"
+
+
+def all_shards(parts, mesh: SlabMesh, device=None) -> list:
+    """Every shard's tensor, in shard order, on ``device`` (default
+    ``mesh.home``), from this process's ``parts`` (one per local shard,
+    or one per local shard and field; under a world as many on every rank,
+    each of one shape and dtype): the parts moved there
+    on a single-controller mesh, else one all-gather of every rank's
+    stacked parts (gathered on ``home``, the rank's own device, so NCCL
+    sees its card). A collective under a world: every rank calls it in
+    the same order."""
+    dev = mesh.home if device is None else torch.device(device)
+    if not mesh.distributed:
+        return [p.to(dev) for p in parts]
+    x = torch.stack([p.to(mesh.home) for p in parts])
+    flag = x.dtype == torch.bool
+    if flag:
+        x = x.to(torch.uint8)
+    bufs = [torch.empty_like(x) for _ in range(mesh.world)]
+    dist.all_gather(bufs, x)
+    comm_stats["allgathers"] += 1
+    comm_stats["allgather_bytes"] += mesh.world * x.numel() * x.element_size()
+    out = torch.cat(bufs)
+    if flag:
+        out = out.to(torch.bool)
+    return list(out.to(dev).unbind(0))
+
+
+def _send_recv(msgs) -> None:
+    """One ``batch_isend_irecv`` over ``msgs`` ((send, peer, tensor, tag),
+    contiguous tensors), waited on. Every rank lists its messages in one
+    global order, so the sends and receives of each pair of ranks match
+    in order (NCCL ignores the tags; gloo matches them)."""
+    if not msgs:
+        return
+    ops = []
+    for send, peer, t, tag in msgs:
+        ops.append(dist.P2POp(dist.isend if send else dist.irecv, t, peer,
+                              tag=tag))
+        if send:
+            comm_stats["p2p_messages"] += 1
+            comm_stats["p2p_bytes"] += t.numel() * t.element_size()
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
 
 
 def _scalar_on(s, device):
@@ -101,11 +211,13 @@ def _scalar_on(s, device):
 
 
 class Slabs:
-    """A field split along x over ``mesh``: ``parts[d]`` on
-    ``mesh.devices[d]``. Arithmetic with another ``Slabs`` of the same
-    mesh, a number or a 0-d tensor is slab by slab (a 0-d tensor is moved
-    to each slab's device), so the solvers' vector updates run unchanged.
-    ``device`` is ``mesh.devices[0]``, where reductions land."""
+    """A field split along x over ``mesh``: ``parts[i]`` is the slab of
+    shard ``mesh.local[i]``, on that shard's device (every slab on a
+    single-controller mesh; a rank's own under a world). Arithmetic with
+    another ``Slabs`` of the same mesh, a number or a 0-d tensor is slab by
+    slab (a 0-d tensor is moved to each slab's device), so the solvers'
+    vector updates run unchanged. ``device`` is ``mesh.home``, where
+    reductions land; ``shape`` is the whole field's."""
 
     __slots__ = ("parts", "mesh")
 
@@ -119,18 +231,20 @@ class Slabs:
 
     @property
     def device(self) -> torch.device:
-        return self.mesh.devices[0]
+        return self.mesh.home
 
     @property
     def shape(self) -> torch.Size:
         s = self.parts[0].shape
+        if self.mesh.distributed:
+            return s[:-1] + (s[-1] * self.mesh.size,)
         return s[:-1] + (sum(p.shape[-1] for p in self.parts),)
 
     def map(self, fn, *others) -> "Slabs":
         """``fn`` slab by slab, over this field and ``others`` (Slabs of
         the same mesh)."""
-        return Slabs([fn(p, *(o.parts[d] for o in others))
-                      for d, p in enumerate(self.parts)], self.mesh)
+        return Slabs([fn(p, *(o.parts[i] for o in others))
+                      for i, p in enumerate(self.parts)], self.mesh)
 
     def _bin(self, other, op) -> "Slabs":
         if isinstance(other, Slabs):
@@ -163,16 +277,17 @@ class Slabs:
 
 
 def split_x(t: torch.Tensor, mesh: SlabMesh) -> Slabs:
-    """Split a whole field [..., Nx] into ``mesh.size`` contiguous slabs,
-    each copied to its device."""
+    """Split a whole field [..., Nx] into ``mesh.size`` contiguous slabs
+    and keep this process's, each copied to its device."""
     nx = t.shape[-1]
     D = mesh.size
     if nx % D:
         raise ValueError(f"Nx={nx} not divisible by the mesh size {D}")
     w = nx // D
     parts = []
-    for d, dev in enumerate(mesh.devices):
-        p = torch.empty(t.shape[:-1] + (w,), dtype=t.dtype, device=dev)
+    for d in mesh.local:
+        p = torch.empty(t.shape[:-1] + (w,), dtype=t.dtype,
+                        device=mesh.devices[d])
         p.copy_(t[..., d * w:(d + 1) * w])
         parts.append(p)
     return Slabs(parts, mesh)
@@ -180,9 +295,8 @@ def split_x(t: torch.Tensor, mesh: SlabMesh) -> Slabs:
 
 def gather_x(s: Slabs, device=None) -> torch.Tensor:
     """The whole field of a split one, on ``device`` (default
-    ``mesh.devices[0]``)."""
-    dev = s.device if device is None else torch.device(device)
-    return torch.cat([p.to(dev) for p in s.parts], dim=-1)
+    ``mesh.home``); an all-gather under a world."""
+    return torch.cat(all_shards(s.parts, s.mesh, device), dim=-1)
 
 
 def reshard(s: Slabs, mesh: SlabMesh) -> Slabs:
@@ -195,60 +309,99 @@ def reshard(s: Slabs, mesh: SlabMesh) -> Slabs:
     return split_x(gather_x(s), mesh)
 
 
+def _neighbours(d: int, D: int, ring: bool):
+    """Shard d's (left, right) neighbours, None at a wall."""
+    left = d - 1 if d > 0 else (D - 1 if ring else None)
+    right = d + 1 if d < D - 1 else (0 if ring else None)
+    return left, right
+
+
 def exchange_x(s: Slabs, g: int, ring: bool = False) -> list:
-    """The edge-column exchange: per shard an aux tensor [..., 2g] whose
-    first g columns are the left neighbour's last g (zeros on shard 0)
-    and whose last g are the right neighbour's first g (zeros on the last
-    shard). ``ring`` (a periodic x): the first and the last shard are
+    """The edge-column exchange: per local shard an aux tensor [..., 2g]
+    whose first g columns are the left neighbour's last g (zeros on shard
+    0) and whose last g are the right neighbour's first g (zeros on the
+    last shard). ``ring`` (a periodic x): the first and the last shard are
     neighbours, so shard 0 receives the last shard's last g columns and
-    the last shard shard 0's first g; one shard receives its own."""
+    the last shard shard 0's first g; one shard receives its own. A
+    neighbour of another rank sends its columns through ``_send_recv``:
+    per slab boundary in global order, each side sends its edge and
+    receives the other's."""
+    mesh = s.mesh
     parts = s.parts
-    D = len(parts)
+    D = mesh.size
     if any(p.shape[-1] < g for p in parts):
         raise ValueError(f"exchange_x: slab widths "
                          f"{[p.shape[-1] for p in parts]} < halo {g}")
+    pos = {d: i for i, d in enumerate(mesh.local)}
     out = []
-    for d, p in enumerate(parts):
+    for i, d in enumerate(mesh.local):
+        p = parts[i]
         shape = p.shape[:-1] + (2 * g,)
         if D == 1 and not ring:
             out.append(p.new_zeros(shape))
             continue
         aux = p.new_empty(shape)
-        if d > 0 or ring:
-            aux[..., :g].copy_(parts[d - 1][..., -g:], non_blocking=True)
-        else:
+        left, right = _neighbours(d, D, ring)
+        if left is None:
             aux[..., :g].zero_()
-        if d < D - 1 or ring:
-            aux[..., g:].copy_(parts[(d + 1) % D][..., :g],
-                               non_blocking=True)
-        else:
+        elif left in pos:
+            aux[..., :g].copy_(parts[pos[left]][..., -g:], non_blocking=True)
+        if right is None:
             aux[..., g:].zero_()
+        elif right in pos:
+            aux[..., g:].copy_(parts[pos[right]][..., :g], non_blocking=True)
         out.append(aux)
+    if mesh.all_local:
+        return out
+    msgs, landing = [], []
+    for b in range(D if ring else D - 1):
+        lo, hi = b, (b + 1) % D
+        if mesh.owners[lo] == mesh.owners[hi]:
+            continue
+        if lo in pos:      # my right halo is hi's first g columns
+            i = pos[lo]
+            buf = parts[i].new_empty(out[i].shape[:-1] + (g,))
+            msgs += [(True, mesh.owners[hi],
+                      parts[i][..., -g:].contiguous(), 2 * b),
+                     (False, mesh.owners[hi], buf, 2 * b + 1)]
+            landing.append((out[i][..., g:], buf))
+        if hi in pos:      # my left halo is lo's last g columns
+            i = pos[hi]
+            buf = parts[i].new_empty(out[i].shape[:-1] + (g,))
+            msgs += [(True, mesh.owners[lo],
+                      parts[i][..., :g].contiguous(), 2 * b + 1),
+                     (False, mesh.owners[lo], buf, 2 * b)]
+            landing.append((out[i][..., :g], buf))
+    _send_recv(msgs)
+    for dst, buf in landing:
+        dst.copy_(buf)
     return out
 
 
 def _walls(s: Slabs, ring: bool = False):
-    """Per shard (owns the low x wall, owns the high x wall): the first
-    and the last shard, or none along a periodic x (``ring``)."""
-    D = len(s.parts)
+    """Per local shard (owns the low x wall, owns the high x wall): the
+    first and the last shard, or none along a periodic x (``ring``)."""
+    D = s.mesh.size
     return [(d == 0 and not ring, d == D - 1 and not ring)
-            for d in range(D)]
+            for d in s.mesh.local]
 
 
 # ---------------------------------------------------------------------------
 # global reductions: per-shard partials, combined in shard order
 # ---------------------------------------------------------------------------
 
-def _combine(partials, device):
-    acc = partials[0].to(device)
-    for p in partials[1:]:
-        acc = acc + p.to(device)
+def _combine(partials, mesh: SlabMesh, op=torch.add):
+    """The partials of every shard folded by ``op`` in shard order: sums
+    in that order on every rank; max, min, and, or exact in any."""
+    acc, *rest = all_shards(partials, mesh)
+    for p in rest:
+        acc = op(acc, p)
     return acc
 
 
 def slab_sum(a: Slabs, dtype=None) -> torch.Tensor:
     """Sum of a split field (accumulated in ``dtype``, default its own)."""
-    return _combine([torch.sum(p, dtype=dtype) for p in a.parts], a.device)
+    return _combine([torch.sum(p, dtype=dtype) for p in a.parts], a.mesh)
 
 
 def slab_mean(a: Slabs) -> torch.Tensor:
@@ -259,31 +412,22 @@ def slab_mean(a: Slabs) -> torch.Tensor:
 
 def slab_linf(a: Slabs) -> torch.Tensor:
     """max |a|: exact in any order."""
-    m = [torch.amax(torch.abs(p)).to(a.device) for p in a.parts]
-    acc = m[0]
-    for x in m[1:]:
-        acc = torch.maximum(acc, x)
-    return acc
+    return _combine([torch.amax(torch.abs(p)) for p in a.parts],
+                         a.mesh, torch.maximum)
 
 
 def slab_all_finite(*fields: Slabs) -> torch.Tensor:
-    flags = [torch.isfinite(p).all().to(f.device)
-             for f in fields for p in f.parts]
-    acc = flags[0]
-    for x in flags[1:]:
-        acc = acc & x
-    return acc
+    mesh = fields[0].mesh
+    return _combine([torch.isfinite(p).all() for f in fields
+                     for p in f.parts], mesh, torch.logical_and)
 
 
 def slab_member_finite(*fields: Slabs) -> torch.Tensor:
     """Per member of split member stacks [B, ..., w]: every value of every
-    field finite ([B] on ``mesh.devices[0]``)."""
-    flags = [torch.isfinite(p).flatten(1).all(1).to(f.device)
-             for f in fields for p in f.parts]
-    acc = flags[0]
-    for x in flags[1:]:
-        acc = acc & x
-    return acc
+    field finite ([B] on ``mesh.home``)."""
+    return _combine([torch.isfinite(p).flatten(1).all(1)
+                     for f in fields for p in f.parts], fields[0].mesh,
+                    torch.logical_and)
 
 
 def slab_reducers(dt_, sum_dtype):
@@ -295,10 +439,10 @@ def slab_reducers(dt_, sum_dtype):
     def dot(a, c):
         if sd == dt_:
             return _combine([torch.sum(x * y)
-                             for x, y in zip(a.parts, c.parts)], a.device)
+                             for x, y in zip(a.parts, c.parts)], a.mesh)
         return _combine([torch.sum(x * y, dtype=sd)
                          for x, y in zip(a.parts, c.parts)],
-                        a.device).to(dt_)
+                        a.mesh).to(dt_)
 
     return dot, slab_linf, Slabs.zeros_like
 
@@ -351,16 +495,16 @@ def divergence_bc_x(v: Slabs, h, dt, coeffs=None,
 
 def slab_member_sum(a: Slabs, dtype=None) -> torch.Tensor:
     """Per member of a split member stack [B, ..., w]: the sum over every
-    axis but the first ([B] on ``mesh.devices[0]``), accumulated per shard
+    axis but the first ([B] on ``mesh.home``), accumulated per shard
     in ``dtype`` (default its own) and combined in shard order."""
     return _combine([torch.sum(p, dim=tuple(range(1, p.dim())),
-                               dtype=dtype) for p in a.parts], a.device)
+                               dtype=dtype) for p in a.parts], a.mesh)
 
 
 def slab_member_reducers(dt_, sum_dtype):
     """``poisson._member_reducers`` for split member stacks [B, ..., w] (a
     fleet on slabs): (dot, linf, zeros_like, where), dot and linf per
-    member as [B, 1, ..., 1] on ``mesh.devices[0]`` (dots accumulated per
+    member as [B, 1, ..., 1] on ``mesh.home`` (dots accumulated per
     shard in ``sum_dtype``, default the field dtype, and combined in
     shard order; maxima exact in any order), ``where`` slab by slab where
     a branch is split (a [B, 1, ...] condition moved to each slab's
@@ -375,12 +519,9 @@ def slab_member_reducers(dt_, sum_dtype):
         return keep(acc if sd == dt_ else acc.to(dt_), a.parts[0])
 
     def linf(a):
-        m = [torch.amax(torch.abs(p), dim=tuple(range(1, p.dim())))
-             .to(a.device) for p in a.parts]
-        acc = m[0]
-        for x in m[1:]:
-            acc = torch.maximum(acc, x)
-        return keep(acc, a.parts[0])
+        return keep(_combine(
+            [torch.amax(torch.abs(p), dim=tuple(range(1, p.dim())))
+             for p in a.parts], a.mesh, torch.maximum), a.parts[0])
 
     def zeros_like(a):
         return a.zeros_like() if isinstance(a, Slabs) else torch.zeros_like(a)
@@ -477,9 +618,7 @@ def fused_advect_heun_sharded(vel: Slabs, h, nu, dt, bc=None,
     ih2 = 1.0 / (float(h) * float(h))
     walls = _walls(vel, px)
     nx_tot = vel.shape[-1]
-    col0 = [0]
-    for p in vel.parts[:-1]:
-        col0.append(col0[-1] + p.shape[-1])
+    col0 = [d * p0.shape[-1] for d in vel.mesh.local]
     v0 = Slabs([p.reshape((L,) + p.shape[-3:]) for p in vel.parts],
                vel.mesh)
 
@@ -548,15 +687,18 @@ def overlap_jacobi_sweeps(e, r: Slabs, omega: float, n: int,
     [Ny, w] per slab, one sweep at a time (each needs fresh neighbour
     columns, so the chain cannot block sweeps in time), the halo kernel's
     signed form with a table's ``edge_signs``. The mesh chooses the form:
-    where every slab lies on one device (at most ``HALO_MAX_SLABS`` of
-    them), ``sweep_slabs``, one launch a sweep; on slabs of several
-    devices ``sweep_exchanged``, an exchange and a launch per slab.
+    where every slab lies on one device of this process (at most
+    ``HALO_MAX_SLABS`` of them), ``sweep_slabs``, one launch a sweep; on
+    slabs of several devices or ranks ``sweep_exchanged``, an exchange and
+    a launch per local slab.
     ``fused=False`` takes the plain twin per slab, as the bf16
     preconditioner cycle takes plain sweeps. ``from_zero`` makes the
     first sweep omega r inv_d. A periodic table's ``edge_signs`` (a (0, 0)
     pair on a periodic axis) close the slabs into a ring along x and wrap
     the rows along y, in both forms."""
-    one = len(set(r.mesh.devices)) == 1 and r.mesh.size <= HALO_MAX_SLABS
+    mesh = r.mesh
+    one = (mesh.all_local and len(set(mesh.devices)) == 1
+           and mesh.size <= HALO_MAX_SLABS)
     for k in range(n):
         fz = from_zero and k == 0
         if fused and one:
@@ -568,8 +710,9 @@ def overlap_jacobi_sweeps(e, r: Slabs, omega: float, n: int,
 
 def level_meshes(shapes, mesh: SlabMesh) -> list:
     """The mesh of every multigrid level (finest first): ``mesh`` while
-    the level stays split, else the one-device mesh of
-    ``mesh.devices[0]``. A level stays split while the finer level's slab
+    the level stays split, else the one-device mesh of ``mesh.home``
+    (under a world every rank gathers the level and sweeps it whole,
+    the same bits on every rank). A level stays split while the finer level's slab
     width is even (so the 2x2 restriction and the repeat prolongation
     stay local to a slab) and its own slab is at least
     ``MIN_SPLIT_WIDTH`` columns wide. Narrower levels gather: there a
@@ -583,7 +726,7 @@ def level_meshes(shapes, mesh: SlabMesh) -> list:
     ny0, nx0 = shapes[0]
     if nx0 % D:
         raise ValueError(f"Nx={nx0} not divisible by the mesh size {D}")
-    one = SlabMesh(mesh.devices[:1]) if D > 1 else mesh
+    one = SlabMesh([mesh.home]) if D > 1 else mesh
     out = [mesh]
     split = True
     for lvl in range(1, len(shapes)):
@@ -606,9 +749,11 @@ def level_meshes(shapes, mesh: SlabMesh) -> list:
 # package's: per nonzero shard offset, each sender packs the own blocks
 # that offset's consumer reads, and the receiver appends them in offset
 # order ("ppermute", one copy per sending pair), or every device receives
-# every owner's surface set ("allgather"). Here one process drives every
-# shard, so a "send" is an index_select on the sender's device and a copy
-# to the receiver's (none where the shards share a device).
+# every owner's surface set ("allgather"). Between shards of one process a
+# "send" is an index_select on the sender's device and a copy to the
+# receiver's (none where the shards share a device); between ranks the
+# packed sets travel by point-to-point messages, one batch a call
+# ("ppermute"), or by one all-gather ("allgather").
 
 _FULL_SUM = {torch.sum, torch.Tensor.sum}
 _FULL_MAX = {torch.amax, torch.Tensor.amax, torch.max, torch.Tensor.max}
@@ -654,15 +799,16 @@ _SWAPS = {torch.transpose, torch.Tensor.transpose, torch.swapaxes,
 _PERMUTES = {torch.permute, torch.Tensor.permute}
 
 
-def _part_of(obj, d: int, dev: torch.device):
-    """Argument ``obj`` as shard d sees it: its part for ``Blocks``, a plain
-    tensor on shard d's device, sequences element by element."""
+def _part_of(obj, i: int, dev: torch.device):
+    """Argument ``obj`` as local shard i sees it: its part for ``Blocks``,
+    a plain tensor on that shard's device, sequences element by
+    element."""
     if isinstance(obj, Blocks):
-        return obj.parts[d]
+        return obj.parts[i]
     if isinstance(obj, torch.Tensor):
         return obj if obj.device == dev else obj.to(dev, non_blocking=True)
     if type(obj) in (list, tuple):
-        return type(obj)(_part_of(o, d, dev) for o in obj)
+        return type(obj)(_part_of(o, i, dev) for o in obj)
     return obj
 
 
@@ -678,15 +824,16 @@ def _wrap(outs, mesh, axis=0):
 
 
 def _per_part(fn, args, kwargs, mesh) -> list:
-    """``fn`` once per shard, on each shard's view of the arguments."""
-    return [fn(*_part_of(args, d, dev),
-               **{k: _part_of(v, d, dev) for k, v in kwargs.items()})
-            for d, dev in enumerate(mesh.devices)]
+    """``fn`` once per local shard, on each shard's view of the
+    arguments."""
+    return [fn(*_part_of(args, i, dev),
+               **{k: _part_of(v, i, dev) for k, v in kwargs.items()})
+            for i, dev in enumerate(mesh.local_devices)]
 
 
 def per_shard(fn, *args, **kwargs):
-    """``fn`` once per shard when an argument is ``Blocks`` (each call
-    sees its shard's part and every plain tensor on that shard's device),
+    """``fn`` once per local shard when an argument is ``Blocks`` (each
+    call sees its shard's part and every plain tensor on that shard's device),
     else once. The form for the hand kernels' wrappers, which launch once
     a call."""
     first = _first_blocks((args, tuple(kwargs.values())))
@@ -842,13 +989,15 @@ def _axis_after(func, args, kwargs, first, out):
 
 class Blocks:
     """A tensor of the forest's ordered block layout split over a mesh:
-    ``parts[d]``, on ``mesh.devices[d]``, holds the ordered blocks
-    [dB, (d+1)B) (every part the same shape). Any torch function or tensor
+    ``parts[i]``, on the device of shard d = ``mesh.local[i]``, holds the
+    ordered blocks [dB, (d+1)B) (every part the same shape; under a world
+    only this rank's shards have parts). Any torch function or tensor
     method applied to it runs once per shard (``__torch_function__``),
     with plain tensors moved to each shard's device, so the forest's
     block-local step code runs unchanged on split operands; ``shape`` is
-    the per-shard shape. A full reduction lands on ``mesh.devices[0]``,
-    where every scalar of a step lives: ``amax``/``max``, ``amin``/``min``,
+    the per-shard shape. A full reduction lands on ``mesh.home``, where
+    every scalar of a step lives (on every rank, from an all-gather of
+    the partials or of the operand under a world): ``amax``/``max``, ``amin``/``min``,
     ``all`` and ``any`` without ``dim`` combine the shards' partials (exact
     in any order); ``sum`` without ``dim`` gathers its operand there and
     sums it whole, in the unsplit step's order. Per-shard partial sums would
@@ -889,18 +1038,10 @@ class Blocks:
             return _wrap(outs, mesh,
                          _axis_after(func, args, kwargs, first, outs[0]))
         # max, min, all, any: exact in any order
-        parts = [o.to(mesh.devices[0], non_blocking=True) for o in outs]
-        acc = parts[0]
-        for p in parts[1:]:
-            if func in _FULL_MAX:
-                acc = torch.maximum(acc, p)
-            elif func in _FULL_MIN:
-                acc = torch.minimum(acc, p)
-            elif func in _FULL_ALL:
-                acc = acc & p
-            else:
-                acc = acc | p
-        return acc
+        op = (torch.maximum if func in _FULL_MAX else
+              torch.minimum if func in _FULL_MIN else
+              torch.logical_and if func in _FULL_ALL else torch.logical_or)
+        return _combine(outs, mesh, op)
 
     def __getattr__(self, name):
         if name.startswith("__"):
@@ -918,7 +1059,7 @@ class Blocks:
 
     @property
     def device(self) -> torch.device:
-        return self.mesh.devices[0]
+        return self.mesh.home
 
     @property
     def shape(self) -> torch.Size:
@@ -958,30 +1099,30 @@ for _name in ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__",
 
 def split_blocks(x: torch.Tensor, mesh: SlabMesh) -> Blocks:
     """Split an ordered [n_pad, ...] tensor into ``mesh.size`` contiguous
-    block ranges, each on its device (a view where it already lies
-    there)."""
+    block ranges and keep this process's, each on its device (a view
+    where it already lies there)."""
     n = x.shape[0]
     D = mesh.size
     if n % D:
         raise ValueError(f"{n} blocks not divisible by the mesh size {D}")
     B = n // D
-    return Blocks([x[d * B:(d + 1) * B].to(dev).contiguous()
-                   for d, dev in enumerate(mesh.devices)], mesh)
+    return Blocks([x[d * B:(d + 1) * B].to(mesh.devices[d]).contiguous()
+                   for d in mesh.local], mesh)
 
 
 def gather_blocks(b: Blocks, device=None) -> torch.Tensor:
     """The whole ordered tensor of split blocks, joined along their block
-    axis, on ``device`` (default ``mesh.devices[0]``)."""
+    axis, on ``device`` (default ``mesh.home``); an all-gather under a
+    world."""
     if b.axis is None:
         raise TypeError("split blocks whose block axis is unknown: gather "
                         "them before the op that hid it")
-    dev = b.device if device is None else torch.device(device)
-    return torch.cat([p.to(dev) for p in b.parts], dim=b.axis)
+    return torch.cat(all_shards(b.parts, b.mesh, device), dim=b.axis)
 
 
 def block_reducers(dt_, sum_dtype):
     """``poisson._reducers`` for split blocks: (dot, linf, zeros_like). A
-    dot product gathers its operands onto ``mesh.devices[0]`` and runs
+    dot product gathers its operands onto ``mesh.home`` and runs
     the whole-field dot, so that it adds the same terms in the same order
     as the unsplit solve; linf combines the shards' maxima."""
     from ..poisson import _reducers
@@ -1084,37 +1225,54 @@ def _index(a, dev) -> torch.Tensor:
 
 
 def _pack_parts(pack, mesh: SlabMesh) -> list:
-    """Per device e, its send index tensors (one per offset) on e."""
-    return [[_index(p[e], dev) for p in pack]
+    """Per shard e, its send index tensors (one per offset) on e's device;
+    None for another rank's shard."""
+    return [None if dev is None else [_index(p[e], dev) for p in pack]
             for e, dev in enumerate(mesh.devices)]
 
 
 def _exchange_surface(parts, t) -> list:
-    """The surface exchange of one split operand (``parts[d]`` [B, ...] on
-    device d): per receiver d the received surface blocks [R, ...] on its
-    device, to append after its own B blocks. "ppermute": per offset, the
-    pairs that send copy their packed blocks; a receiver outside an
-    offset's pairs gets zeros in that slot. "allgather": every owner's
-    packed surface set, in owner order."""
-    devs = t.mesh.devices
+    """The surface exchange of one split operand (``parts[i]`` [B, ...] of
+    local shard ``mesh.local[i]``, on its device): per local receiver the
+    received surface blocks [R, ...] on its device, to append after its
+    own B blocks. "ppermute": per offset, the pairs that send copy their
+    packed blocks (a message between ranks, in the plan's global order,
+    one batch a call); a receiver outside an offset's pairs gets zeros in
+    that slot. "allgather": every owner's packed surface set, in owner
+    order (one all-gather under a world)."""
+    mesh = t.mesh
+    pos = {d: i for i, d in enumerate(mesh.local)}
     tail = parts[0].shape[1:]
     if t.mode == "allgather":
-        bufs = [parts[e].index_select(0, t.pack_dev[e][0])
-                for e in range(len(parts))]
-        return [torch.cat([b.to(dev) for b in bufs]) for dev in devs]
-    chunks = [[] for _ in devs]
+        bufs = [parts[i].index_select(0, t.pack_dev[e][0])
+                for i, e in enumerate(mesh.local)]
+        whole = torch.cat(all_shards(bufs, mesh))
+        return [whole.to(mesh.devices[d]) for d in mesh.local]
+    chunks = [[] for _ in mesh.local]
+    msgs, tag = [], 0
     for oi, off in enumerate(t.offsets):
         size = t.pack[oi].shape[1]
-        src = {e: r for (e, r) in t.perms[oi]}
-        for d, dev in enumerate(devs):
+        tags = {}
+        for e, r in t.perms[oi]:
+            tags[e] = tag
+            tag += 1
+            if e in pos and r not in pos:
+                msgs.append((True, mesh.owners[r], parts[pos[e]]
+                             .index_select(0, t.pack_dev[e][oi]), tags[e]))
+        for i, d in enumerate(mesh.local):
             e = d - off
-            if e in src:
-                buf = parts[e].index_select(0, t.pack_dev[e][oi])
-                chunks[d].append(buf.to(dev))
+            if e not in tags:
+                chunks[i].append(parts[i].new_zeros((size,) + tail))
+            elif e in pos:
+                buf = parts[pos[e]].index_select(0, t.pack_dev[e][oi])
+                chunks[i].append(buf.to(mesh.devices[d]))
             else:
-                chunks[d].append(parts[d].new_zeros((size,) + tail))
-    return [torch.cat(c) if c else parts[d].new_zeros((0,) + tail)
-            for d, c in enumerate(chunks)]
+                buf = parts[i].new_empty((size,) + tail)
+                msgs.append((False, mesh.owners[e], buf, tags[e]))
+                chunks[i].append(buf)
+    _send_recv(msgs)
+    return [torch.cat(c) if c else parts[i].new_zeros((0,) + tail)
+            for i, c in enumerate(chunks)]
 
 
 class _LabRows(NamedTuple):
@@ -1313,6 +1471,10 @@ def shard_tables(t, n_pad: int, mesh: SlabMesh, dtype,
                                                      w_r_))
     rows = []
     for d, dev in enumerate(mesh.devices):
+        if dev is None:          # another rank's shard
+            rows.append(None)
+            continue
+
         def split(dst):
             dst = np.asarray(dst[d], np.int64)
             return _index(dst // LL, dev), _index(dst % LL, dev)
@@ -1351,7 +1513,8 @@ def _assemble_sharded(x: Blocks, t: ShardTables) -> Blocks:
     bs = L - 2 * g
     recvs = _exchange_surface(x.parts, t)
     out = []
-    for d, (x_loc, rw) in enumerate(zip(x.parts, t.rows)):
+    for i, (d, x_loc) in enumerate(zip(x.mesh.local, x.parts)):
+        rw = t.rows[d]
         flat_l = x_loc.transpose(0, 1).reshape(dim, -1)
         simple_l = flat_l[:, rw.src_l].T * rw.sign_l
         general_l = _weighted(flat_l, rw.idx_l, rw.w_l)
@@ -1363,7 +1526,7 @@ def _assemble_sharded(x: Blocks, t: ShardTables) -> Blocks:
         lf = labs.view(B + 1, dim, L * L)
         lf[rw.sl_blk, :, rw.sl_cell] = simple_l
         lf[rw.gl_blk, :, rw.gl_cell] = general_l
-        blocks = torch.cat([x_loc, recvs[d]], dim=0)
+        blocks = torch.cat([x_loc, recvs[i]], dim=0)
         flat = blocks.transpose(0, 1).reshape(dim, -1)
         lf[rw.sr_blk, :, rw.sr_cell] = flat[:, rw.src_r].T * rw.sign_r
         lf[rw.gr_blk, :, rw.gr_cell] = _weighted(flat, rw.idx_r, rw.w_r)
@@ -1498,6 +1661,9 @@ def shard_poisson_op(op, n_pad: int, mesh: SlabMesh, dtype,
                  for k in ("wc0", "wc1", "mcl", "mfr", "d2own"))
     dev = []
     for d, device in enumerate(mesh.devices):
+        if device is None:       # another rank's shard
+            dev.append(None)
+            continue
         rows = tuple(
             _index(host[k][d], device) if k in ("nba", "nbb") else
             torch.as_tensor(host[k][d], device=device).to(dtype)
@@ -1516,9 +1682,9 @@ def _poisson_apply_sharded(x: Blocks, t: ShardPoissonOp) -> Blocks:
     (``cup2d_tpu/parallel/shard_halo.py:940-965``)."""
     recvs = _exchange_surface(x.parts, t)
     out = []
-    for d, x_loc in enumerate(x.parts):
+    for i, (d, x_loc) in enumerate(zip(x.mesh.local, x.parts)):
         rows, mats = t.dev[d]
-        blocks = torch.cat([x_loc, recvs[d]], dim=0)
+        blocks = torch.cat([x_loc, recvs[i]], dim=0)
         out.append(_structured_lap(x_loc, blocks, *rows, mats))
     return Blocks(out, x.mesh)
 
@@ -1532,16 +1698,17 @@ def overlap_block_jacobi_sweeps(e: Blocks, r: Blocks, p_inv: torch.Tensor,
     received] and ``hopper_kernels.fused_block_jacobi_update`` on its
     [B, BS, BS] rows (the kernel on the card, its twin on the CPU): the
     unoverlapped composition term for term."""
-    p_inv_d = [p_inv.to(dev) for dev in e.mesh.devices]
+    p_inv_d = [p_inv.to(dev) for dev in e.mesh.local_devices]
     for _ in range(n):
         recvs = _exchange_surface(e.parts, t)
         out = []
-        for d, (e_loc, r_loc) in enumerate(zip(e.parts, r.parts)):
+        for i, (d, e_loc, r_loc) in enumerate(zip(e.mesh.local, e.parts,
+                                                  r.parts)):
             rows, mats = t.dev[d]
-            blocks = torch.cat([e_loc, recvs[d]], dim=0)
+            blocks = torch.cat([e_loc, recvs[i]], dim=0)
             lap = _structured_lap(e_loc, blocks, *rows, mats)
             out.append(fused_block_jacobi_update(e_loc, r_loc, lap,
-                                                 p_inv_d[d]))
+                                                 p_inv_d[i]))
         e = Blocks(out, e.mesh)
     return e
 
@@ -1641,6 +1808,7 @@ def shard_flux_corr(corr, n_pad: int, mesh: SlabMesh, bs: int, dtype,
         (_index(pk_dest[d], device), _index(pk_c[d], device),
          _index(pk_f1[d], device), _index(pk_f2[d], device),
          torch.as_tensor(pk_v[d], device=device).to(dtype))
+        if device is not None else None
         for d, device in enumerate(mesh.devices))
     return ShardFluxCorr(
         pack=pack, dest=pk_dest, cidx=pk_c, fidx1=pk_f1, fidx2=pk_f2,
@@ -1656,10 +1824,11 @@ def _apply_corr_sharded(values: Blocks, deposits: Blocks,
     plus one scratch cell (``cup2d_tpu/parallel/shard_halo.py:1058-1084``)."""
     recvs = _exchange_surface(deposits.parts, t)
     out = []
-    for d, (v_loc, d_loc) in enumerate(zip(values.parts, deposits.parts)):
+    for i, (d, v_loc, d_loc) in enumerate(zip(
+            values.mesh.local, values.parts, deposits.parts)):
         dest, cidx, f1, f2, valid = t.dev[d]
         k = t.n_first[d]
-        dep = torch.cat([d_loc, recvs[d]], dim=0)
+        dep = torch.cat([d_loc, recvs[i]], dim=0)
         if v_loc.dim() == 4:
             n, dim, bs, _ = v_loc.shape
             df = dep.reshape(-1, dim)

@@ -120,7 +120,7 @@ cycle and in the fused sweep chains alike.
     edge column, then sweeps every slab: the halo kernel under
     ``fused_smoother``, its plain twin in the bf16 cycle) while the slabs
     stay even and at least ``MIN_SPLIT_WIDTH`` wide, and below that the
-    level gathered onto ``mesh.devices[0]`` (a one-shard mesh, the same
+    level gathered onto ``mesh.home`` (a one-shard mesh, the same
     sweeps without an exchange), where D launches and an exchange per
     sweep of a few hundred cells cost more than the sweep. Sweeps,
     restriction and prolongation are pointwise, so the split cycle equals

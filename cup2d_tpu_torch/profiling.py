@@ -163,7 +163,8 @@ class TraceWindow:
     (with the post-step counter); ``>=`` comparisons keep a restarted run
     from arming a window its step range already passed. ``close`` stops a
     still-open trace at loop exit. The trace lands in
-    ``logdir/trace_<start>_<stop>.json``."""
+    ``logdir/trace_<start>_<stop>.json`` (``...json.r<rank>`` from the
+    ranks past 0 of a world: each rank traces its own card)."""
 
     def __init__(self, start: int, stop: int, logdir: str = "trace"):
         if not (0 <= int(start) < int(stop)):
@@ -221,8 +222,11 @@ class TraceWindow:
 
     def _stop(self, step_count) -> None:
         self._prof.stop()
-        _export(self._prof, self.logdir,
-                f"trace_{self.start}_{self.stop}.json")
+        from .parallel.launch import rank
+        name = f"trace_{self.start}_{self.stop}.json"
+        if rank() > 0:
+            name += f".r{rank()}"
+        _export(self._prof, self.logdir, name)
         self._prof = None
         self.active = False
         self.done = True
@@ -374,8 +378,8 @@ def _device_of(sim):
 
 class MetricsRecorder:
     """Assembles one ``METRICS_KEYS`` record per step and streams it
-    through ``sink`` (a ``resilience.EventLog``; None returns records
-    without writing). The record reads nothing from the device: the
+    through ``sink`` (a ``resilience.EventLog``, which writes from rank 0
+    only under a world; None returns records without writing). The record reads nothing from the device: the
     diagnostics arrive as host values from the step's own read (a diag
     still holding tensors costs ONE counted ``pull``), the forest
     histogram is host numpy cached per topology version, and counters and

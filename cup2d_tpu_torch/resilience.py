@@ -32,7 +32,11 @@
   eviction (no disk rung: a disk restore would rewind the healthy
   members).
 - ``PreemptionGuard``: SIGTERM latches a flag the loop polls at step
-  boundaries; single process, so ``agree()`` is the local flag.
+  boundaries; ``agree()`` is the local flag in one process and, under a
+  ``torch.distributed`` world, the minimum of every rank's flag (one
+  all-gather), so every rank stops at the same step boundary.
+- Under a world (``parallel.launch``) the ``EventLog`` writes from rank 0
+  only: the decisions it records are the same on every rank.
 
 The port's solvers read their flags on the host, so a step's iteration
 count is a host int when the step returns, lagged or not: the production
@@ -60,6 +64,27 @@ import torch
 from . import tracing
 
 # ---------------------------------------------------------------------------
+# the distributed world
+# ---------------------------------------------------------------------------
+
+def dist_initialized() -> bool:
+    """A ``torch.distributed`` world is up in this process (torch answers
+    in every version, so the JAX package's fallback latch,
+    ``note_distributed_initialized``, has no counterpart)."""
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def is_writer() -> bool:
+    """This process writes the run's shared files: always without a world,
+    rank 0 under one."""
+    if not dist_initialized():
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
+# ---------------------------------------------------------------------------
 # JSONL event log
 # ---------------------------------------------------------------------------
 
@@ -68,7 +93,9 @@ class EventLog:
     dying process keeps its tail). ``rotate_mb`` caps the file: crossing
     the cap renames it to the next numbered segment ``<path>.N`` and
     reopens it fresh; ``profiling.load_metrics`` reads the segments back
-    in write order."""
+    in write order. Once a world is up only rank 0 writes (the ranks'
+    decisions are the same, so N copies would only interleave); events
+    before it formed (a connect retry) come from every process."""
 
     # recovery-critical events are fsynced at emit
     _DURABLE_EVENTS = frozenset({
@@ -87,6 +114,8 @@ class EventLog:
         self._f = open(path, "a")
 
     def emit(self, **fields) -> None:
+        if not is_writer():
+            return
         fields.setdefault("wall", time.time())
         self._f.write(json.dumps(fields, sort_keys=True,
                                  default=float) + "\n")
@@ -1004,10 +1033,24 @@ class PreemptionGuard:
         return self
 
     def agree(self) -> bool:
-        """The stop decision at a step boundary: one process, so the local
-        flag (the JAX package's cross-process agreement waits for item
-        8)."""
-        return self.triggered
+        """The stop decision at a step boundary. Without a world, the local
+        flag. Under one, ranks preempted at different instants must not
+        enter mismatched collectives (one stepping while another starts
+        the collective checkpoint save hangs both): every rank gathers
+        every rank's flag (one all-gather of one int) and the run stops
+        once all of them are set, at the same boundary on every rank. A
+        collective under a world: call it at the same loop point on every
+        rank."""
+        if not dist_initialized():
+            return self.triggered
+        import torch.distributed as dist
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend() == "nccl" else torch.device("cpu"))
+        me = torch.tensor([int(self.triggered)], dtype=torch.int32,
+                          device=dev)
+        flags = [torch.empty_like(me) for _ in range(dist.get_world_size())]
+        dist.all_gather(flags, me)
+        return bool(torch.cat(flags).min().item() > 0)
 
     def uninstall(self) -> None:
         for s, h in self._prev.items():

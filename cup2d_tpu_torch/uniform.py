@@ -238,9 +238,9 @@ class UniformGrid:
             periodic=self._paxes)
 
     def attach_mesh(self, mesh) -> None:
-        """Split the step along x over ``mesh`` (a ``SlabMesh`` whose first
-        device is this grid's): the fields it takes and returns are then
-        ``Slabs``. The advection runs the halo-mode substage per shard,
+        """Split the step along x over ``mesh`` (a ``SlabMesh`` whose home
+        device, its first local shard's, is this grid's): the fields it
+        takes and returns are then ``Slabs``. The advection runs the halo-mode substage per shard,
         the multigrid hierarchy (the FAS solver's and the bf16
         preconditioner's) is rebuilt on split fields, the projection
         epilogue is plain per-slab code (the correction kernel stays off,
@@ -267,7 +267,7 @@ class UniformGrid:
         if self.nx % mesh.size:
             raise ValueError(f"Nx={self.nx} not divisible by mesh size "
                              f"{mesh.size}")
-        if mesh.devices[0] != canonical_device(self.device):
+        if mesh.home != canonical_device(self.device):
             raise ValueError(f"mesh {mesh} does not start on the grid's "
                              f"device {self.device}")
         self.mesh = mesh

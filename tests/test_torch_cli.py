@@ -296,15 +296,19 @@ def test_nan_restart_aborts_with_postmortem(tmp_path):
     assert ev[0]["postmortem"] == pm
 
 
+# the multi-process flags bring up a world for -mesh (tests/test_torch_dist.py)
+_WORLD_NEEDS_MESH = "bring up a world for -mesh"
 REFUSALS = [
     (["-serve", "6"], "-serve N needs -fleet B (the slot pool it serves "
                       "through)"),
     (["-mesh", "4", "-fleet", "2"], "-fleet has its own placement policy "
                                     "(fleet.py) and does not combine with "
                                     "-mesh"),
-    (["-coordinator", "h:1"], 8),
-    (["-meshHosts", "2"], 8), (["-processId", "0"], 8),
-    (["-connectAttempts", "3"], 8), (["-connectBackoff", "1"], 8),
+    (["-coordinator", "h:1"], _WORLD_NEEDS_MESH),
+    (["-meshHosts", "2"], _WORLD_NEEDS_MESH),
+    (["-processId", "0"], _WORLD_NEEDS_MESH),
+    (["-connectAttempts", "3"], _WORLD_NEEDS_MESH),
+    (["-connectBackoff", "1"], _WORLD_NEEDS_MESH),
     (["-elastic"], 8), (["-elastic", "-mesh", "4"], 8),
     (["-simHosts", "2"], 8), (["-heartbeatMissK", "2"], 8),
     (["-heartbeatTimeout", "5"], 8), (["-mirror"], 8),

@@ -1595,3 +1595,37 @@ def test_tables_and_bf16_forest_on_the_card_match_cpu(cuda, monkeypatch):
         rel = float((a[card.forest.order()] - b[cpu.forest.order()])
                     .abs().max() / b.abs().max())
         assert rel <= bar, (pois, prec, rel)
+
+
+def test_world_on_cards_equals_one_process_over_the_same_cards(cuda,
+                                                               tmp_path):
+    """One NCCL rank a card (``torch.distributed.run``) against one
+    process over the same cards (``cup2d_tpu_torch.dist_check``): the
+    split uniform step (512^2, default and fas) and the split vortex
+    forest (levels 3-5, structured and fas) bit for bit, equal
+    iterations, edge columns and surfaces sent point to point."""
+    import json
+    import os
+    import subprocess
+    import sys
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs at least 2 cards: one NCCL rank a card")
+    from cup2d_tpu_torch.dist_check import compare
+    common = ["--size", "512", "--forest-target", "300", "--forest-levels",
+              "3", "5", "--steps", "2", "--out", str(tmp_path)]
+    runs = [[sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(n), "-m", "cup2d_tpu_torch.dist_check",
+             "--layout", "ranks"] + common,
+            [sys.executable, "-m", "cup2d_tpu_torch.dist_check", "--layout",
+             "mesh"] + common]
+    for cmd in runs:
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        assert p.returncode == 0, p.stderr[-3000:]
+    assert compare(str(tmp_path)) == 0
+    with open(tmp_path / "ranks.json") as f:
+        ranks = json.load(f)
+    assert ranks["shards"] == n
+    for name, run in ranks["runs"].items():
+        assert run["comm_per_step"]["allgathers"] > 0, name
+        assert run["comm_per_step"]["p2p_messages"] > 0, name
