@@ -7,8 +7,9 @@ NVIDIA card. Run from the repository root with no arguments:
 Phases, one output line or more each; any failure exits non-zero before
 the result lines:
 
-1. build the nine Hopper kernel sources from ``cup2d_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, in parallel; ``tridiag.cu`` among them) and
+1. build the ten Hopper kernel sources from ``cup2d_tpu_torch/ops/csrc``
+   (one ``nvcc`` per source, in parallel; ``tridiag.cu`` and
+   ``group_sum.cu`` among them) and
    print the card and every instance's registers and spills;
 2. each kernel against its plain PyTorch twin on the card, f32, with the
    bounds stated below (the forest lab RHS per h class, at the path's nu
@@ -18,7 +19,11 @@ the result lines:
    and twin times (CUDA events) and, for the block-Jacobi update (at 1,
    1000 and 16384 blocks), the time of ``torch.addmm``; the sweep chain at every level of
    the 8192^2 V-cycle hierarchy with the chains a cycle launches there
-   (graph replays: ms, bound and launches per level and per cycle); the
+   (graph replays: ms, bound and launches per level and per cycle);
+   ``group_sum.cu`` bit for bit its twin at 1, 8, 256 and 1,024 groups
+   (the forest's dot into f64 partials, an f32 and an f64 sum) and timed
+   at the forest's [16384, 8, 8] beside ``torch.sum``, and kernel 8 as
+   P_inv r beside ``torch.mm``; the
    four redesigned kernels' times beside their earlier designs', and the
    substage pairs' bounds at the face-sharing design's operation count
    on their own inputs beside the fixed per-cell count of the earlier
@@ -85,7 +90,8 @@ the result lines:
    startup steps (exact solves), 5 production steps and one ``adapt()``,
    each timed, with the forest kernels' launch counts set to 0 before
    each run and read after it (2 lab-RHS launches per step; one
-   block-Jacobi launch per production FAS cycle, none under the default).
+   block-Jacobi launch per production FAS cycle and one per P_inv r,
+   which both solvers apply through kernel 8; group partials launched).
    The default run is made twice from the same state and must repeat
    itself bit for bit; the lab RHS is timed on the fas run's own labs
    (its last call), with the reconstructions per cell and component the
@@ -846,7 +852,83 @@ def phase_kernels(dev):
             ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
             library_ms=lms)
         del sets, e, r, lap, got, ref
+    phase_precond_and_partials(dev, res, rn, p_inv)
     return res
+
+
+def phase_precond_and_partials(dev, res, rn, p_inv, n: int = 16384) -> None:
+    """Phase 2, the forest's reductions and preconditioner at the phase-5
+    forest's 16384 blocks. Kernel 8 as P_inv r (``hk.block_precond``,
+    e = lap = 0) against its twin, timed (6 operand sets by graph
+    replay); library: one mm, TF32 off; bound: r read, the result
+    written, and the 64 x 64 product's operations. ``group_sum.cu``: bit
+    for bit its twin at 1, 8, 256 and 1,024 groups of 16 blocks (1,024
+    values a group) of the dot (f32 products, f64 partials), the f32 sum
+    and the f64 sum of the energy's [N, 2, 8, 8]; the dot timed at 1,024
+    groups; library: ``torch.sum(a * c, dtype=torch.float64)``; bound:
+    both operands read once, the partials written."""
+    sets = [rn(n, 8, 8) for _ in range(6)]
+    zero = torch.zeros_like(sets[0])
+    got = hk.block_precond(sets[0], p_inv, zero)
+    ref = hk.block_precond_plain(sets[0], p_inv)
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    check(rel <= BLOCK_JACOBI_REL, f"block_precond [{n},8,8]: rel {rel} > "
+          f"{BLOCK_JACOBI_REL}")
+    ms = graph_ms([lambda r=r: hk.block_precond(r, p_inv, zero)
+                   for r in sets])
+    pms = graph_ms([lambda r=r: hk.block_precond_plain(r, p_inv)
+                    for r in sets])
+    pt = p_inv.T
+    lms = graph_ms([lambda r=r: torch.mm(r.reshape(n, 64), pt)
+                    for r in sets])
+    b = bound(2 * 4 * 64 * n + 4 * 64 * 64, 2 * 64 * 64 * n)
+    res["fused_block_jacobi_update+pinv"].update(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        library_ms=lms)
+    print(f"phase 2 block_precond [{n},8,8] (kernel 8, e = lap = 0): "
+          f"max_abs_err {err} (rel {rel}) kernel_ms {ms} twin_ms {pms} "
+          f"mm_ms {lms} bound_ms {b[0]} ({b[1]})", flush=True)
+    del sets, zero, got, ref
+
+    a, c = rn(n, 8, 8), rn(n, 8, 8)
+    e64 = rn(n, 2, 8, 8).double()
+    gerr = 0.0
+    for G in (1, 8, 256, 1024):
+        x = a[:16 * G].reshape(G, 1024)
+        y = c[:16 * G].reshape(G, 1024)
+        z = e64[:16 * G].reshape(G, 2048)
+        for form, args, acc in (("dot", (x, y), torch.float64),
+                                ("f32 sum", (x, None), torch.float32),
+                                ("f64 sum", (z, None), torch.float64)):
+            got = hk.group_sum(*args, acc)
+            ref = hk.group_sum_plain(*args, acc)
+            same = bool(torch.equal(got, ref))
+            gerr = max(gerr, float((got - ref).abs().max()))
+            print(f"phase 2 group_sum {form} G={G}: bit for bit the twin "
+                  f"{same}", flush=True)
+            check(same, f"group_sum {form} at {G} groups differs from its "
+                  "twin")
+    x, y = a.reshape(1024, 1024), c.reshape(1024, 1024)
+    got = hk.group_sum(x, y, torch.float64)
+    lib = torch.sum(a * c, dtype=torch.float64)
+    lib_err = float((torch.sum(got) - lib).abs())
+    ops = [(u.reshape(1024, 1024), w.reshape(1024, 1024))
+           for u, w in ((rn(n, 8, 8), rn(n, 8, 8)) for _ in range(4))]
+    ms = graph_ms([lambda o=o: hk.group_sum(*o, torch.float64)
+                   for o in ops])
+    pms = graph_ms([lambda o=o: hk.group_sum_plain(*o, torch.float64)
+                    for o in ops], reps=6)
+    lms = graph_ms([lambda o=o: torch.sum(o[0] * o[1], dtype=torch.float64)
+                    for o in ops])
+    b = bound(2 * 4 * 64 * n + 8 * 1024, 2 * 64 * n)
+    res["group_sum"].update(max_abs_err=gerr, ms=ms, plain_ms=pms,
+                            bound_ms=b[0], bound_by=b[1], library_ms=lms)
+    print(f"phase 2 group_sum dot [{n},8,8] f32 -> 1024 f64 partials: "
+          f"max_abs_err against the twin {gerr}, |sum of partials - "
+          f"torch.sum| {lib_err} kernel_ms {ms} twin_ms "
+          f"{pms} library_ms {lms} bound_ms {b[0]} ({b[1]})", flush=True)
+    del a, c, e64, ops, got
 
 
 def phase_bc_kernels(dev, res, size: int = 8192) -> None:
@@ -1784,6 +1866,12 @@ def phase_trajectory(dev):
     check(rel <= TRAJ_REL, f"trajectory: card vs CPU {rel} > {TRAJ_REL}")
 
 
+# the forest's kernels: the lab RHS, block-Jacobi (its P_inv r form too)
+# and the group partials
+FOREST_KEYS = ("fused_lab_rhs", "fused_block_jacobi_update",
+               "fused_block_jacobi_update+pinv", "group_sum")
+
+
 def run_forest(sim, label: str) -> dict:
     """10 startup steps, 5 production steps and one adapt() of one forest
     sim, each timed; the forest kernels' counts run from 0."""
@@ -1810,8 +1898,7 @@ def run_forest(sim, label: str) -> dict:
     sim._refresh()     # the table rebuild the next step would pay
     sync(dev)
     adapt_s = time.perf_counter() - t0
-    launches = {k: hk.launches[k] for k in
-                ("fused_lab_rhs", "fused_block_jacobi_update")}
+    launches = {k: hk.launches[k] for k in FOREST_KEYS}
     out = {"mode": sim.poisson_mode, "blocks": n_blocks, "n_pad": n_pad,
            "startup_ms_per_step": sum(times[:10]) / 10 * 1e3,
            "ms_per_step": sum(times[10:]) / 5 * 1e3,
@@ -1826,9 +1913,12 @@ def run_forest(sim, label: str) -> dict:
     check(launches["fused_lab_rhs"] == 2 * 15,
           f"forest {label}: lab-RHS launches {launches} != 2/step")
     fas_cycles = sum(iters[10:]) if label == "fas" else 0
-    check(launches["fused_block_jacobi_update"] == fas_cycles,
-          f"forest {label}: block-Jacobi launches {launches} != {fas_cycles}"
-          " (one per production FAS cycle)")
+    pinv = launches["fused_block_jacobi_update+pinv"]
+    check(launches["fused_block_jacobi_update"] == fas_cycles + pinv
+          and pinv > 0, f"forest {label}: block-Jacobi launches {launches}"
+          f" != {fas_cycles} (one per production FAS cycle) + the P_inv r "
+          "launches (> 0)")
+    check(launches["group_sum"] > 0, f"forest {label}: no group_sum launch")
     return out
 
 
@@ -2537,7 +2627,7 @@ CANON_FLAGS = ("-AdaptSteps 20 -bpdx 2 -bpdy 1 -CFL 0.5 -Ctol 1 -extent 4 "
 CANON_LEVEL_MAX = 8
 CANON_LEVEL_START = 5
 CANON_CPU_LEVELS = (6, 3)    # levelMax, levelStart of the card-vs-CPU run
-CANON_KEYS = ("fused_lab_rhs", "fused_block_jacobi_update")
+CANON_KEYS = FOREST_KEYS
 # kernels 2, 3, 5, 6 and 7: no launch of any of their forms on the forest
 NOT_FOREST = ("fused_advect_heun", "advect_substage_halo",
               "fused_correction", "fused_jacobi_sweeps", "jacobi_halo_sweep")
@@ -2667,9 +2757,11 @@ def run_canonical(dev, pois=None, keep=None, start=None) -> tuple:
     check(la.get("fused_lab_rhs", 0) == 2 * len(rows),
           f"{label}: lab-RHS launches {la} != 2 a step")
     fas_cycles = sum(r["iters"] for r in prod) if pois == "fas" else 0
-    check(la.get("fused_block_jacobi_update", 0) == fas_cycles,
+    check(la.get("fused_block_jacobi_update", 0)
+          == fas_cycles + la.get("fused_block_jacobi_update+pinv", 0),
           f"{label}: block-Jacobi launches {la} != {fas_cycles} (one per "
-          "production FAS cycle)")
+          "production FAS cycle) + the P_inv r launches")
+    check(la.get("group_sum", 0) > 0, f"{label}: no group_sum launch")
     check(not any(hk.kernel_of(k) in NOT_FOREST for k in la),
           f"{label}: launches of a uniform or split kernel {la}")
     if keep is not None:
@@ -3774,7 +3866,8 @@ LAG_WARM = 2             # the first production steps: dt and trigger settle
 LAG_TRACE = (6, 7)       # the torch.profiler window: the last step
 SUPERVISED_KEYS = ("fused_advect_heun", "fused_lab_rhs", "fused_correction",
                    "fused_jacobi_sweeps", "fused_block_jacobi_update")
-FOREST_TWINS = TWINS + ("fused_lab_rhs_plain", "block_jacobi_plain")
+FOREST_TWINS = TWINS + ("fused_lab_rhs_plain", "block_jacobi_plain",
+                        "block_precond_plain", "group_sum_plain")
 
 
 def _events(out: str) -> list:
@@ -4190,7 +4283,7 @@ PHASE16_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # iterates every step
 FLEET_CURVES = (("tg", 256, (1, 8, 64)), ("tg", 1024, (1, 8, 32)),
                 ("turb2d", 1024, (1, 8, 32)))
-FLEET_WARM, FLEET_STEPS = 2, 5
+FLEET_WARM, FLEET_STEPS = 2, 3
 FLEET_KEYS = ("fused_advect_heun", "fused_correction", "fused_jacobi_sweeps")
 FLEET_SOLO_REL = 1e-5      # a member against its solo run (PERF.md §2)
 # the README's fleet flags at 1024^2 (-level 7), f32, 24 staggered
@@ -4575,7 +4668,8 @@ MESH_STEPS = 6           # production steps after the adapt: 2 warm, 3
 MESH_TIMED = (2, 5)      # timed to a synchronize, the last traced
 MESH_CLI_STEPS = 12      # the canonical CLI on the mesh: 10 startup, 2
 #                          production (phase 14 runs 22)
-FOREST_MESH_KEYS = ("fused_lab_rhs", "fused_block_jacobi_update")
+FOREST_MESH_KEYS = FOREST_KEYS
+MESH_REMESH_D = 2        # (a)'s re-mesh: MESH_D shards of the card to 2
 
 
 def _gathered(sim) -> dict:
@@ -4611,10 +4705,12 @@ def mesh_forest_run(sim, label: str, seen: dict | None = None) -> dict:
         for k in range(MESH_STEPS):
             if k == MESH_TIMED[0]:
                 sync(dev)
+                tsh.reset_comm_stats()
                 t_timed = time.perf_counter()
             if k == MESH_TIMED[1]:
                 sync(dev)
                 timed = time.perf_counter() - t_timed
+                joins = tsh.comm_by_kind(local=True)
                 prof = _profiled(trace)
                 prof.__enter__()
             hk.reset_launches()
@@ -4631,7 +4727,40 @@ def mesh_forest_run(sim, label: str, seen: dict | None = None) -> dict:
             "n_pad": sim._npad_hwm, "adapt_changed": changed,
             "adapt_s": adapt_s, "iters": iters,
             "ms_per_step": 1e3 * timed / n, "launches": launches,
+            "joined_per_step": {k: [c / n, b / n]
+                                for k, (c, b) in joins.items() if c},
             "trace": trace_summary(trace, 1)}
+
+
+def mesh_remesh(sim, cfg, dev, label: str) -> dict:
+    """(a)'s re-mesh: ``sim`` (split over ``MESH_D`` shards of the card)
+    re-meshed onto ``MESH_REMESH_D`` shards, then 2 production steps
+    beside a sim built on those shards from the same state
+    (``copy_amr_state``): equal iterations and topology, the state bit
+    for bit."""
+    mesh2 = make_mesh(devices=[dev] * MESH_REMESH_D)
+    fresh = ShardedAMRSim(cfg, mesh2, shapes=[])
+    copy_amr_state(sim, fresh)
+    sync(dev)
+    t0 = time.perf_counter()
+    sim.remesh(mesh2)
+    sync(dev)
+    remesh_s = time.perf_counter() - t0
+    iters = [(sim.step_once()["poisson_iters"],
+              fresh.step_once()["poisson_iters"]) for _ in range(2)]
+    a, b = _gathered(sim), _gathered(fresh)
+    same = (set(sim.forest.blocks) == set(fresh.forest.blocks)
+            and all(bool(torch.equal(a[k], b[k])) for k in a)
+            and all(x == y for x, y in iters))
+    row = {"shards": [MESH_D, MESH_REMESH_D], "remesh_s": remesh_s,
+           "iters": iters, "bit_for_bit": same,
+           "parts": len(sim._ordered_state()["vel"].parts)}
+    print(f"phase 17 mesh forest {label} remesh {json.dumps(row)}",
+          flush=True)
+    check(same and row["parts"] == MESH_REMESH_D,
+          f"mesh forest {label}: the re-meshed run differs from a run built "
+          f"on {MESH_REMESH_D} shards")
+    return row
 
 
 def phase_mesh_forest(dev, forest_start: tuple, card: str
@@ -4639,12 +4768,15 @@ def phase_mesh_forest(dev, forest_start: tuple, card: str
     """Phase 17 (a): phase 5's forest as a ``ShardedAMRSim`` on
     ``MESH_D`` shards of the card against the same forest solo, under the
     default solver and fas: one adapt and ``MESH_STEPS`` production steps
-    each; equal iterations and topologies, velocity and pressure within
-    ``SHARDED_REL`` of max |solo|; kernels 4 (and 8 under fas) launched
-    once per shard (lab RHS 2 x MESH_D a step); both held against their
-    twins on the last shard operands and timed at those shapes (by the
-    caller, outside its twin watch); halo bytes of one exchange. Returns
-    the runs, the split runs' launches and those operands."""
+    each; equal iterations and topologies, velocity and pressure bit for
+    bit; kernels 4, 8 (P_inv r, and the sweeps under fas) and
+    ``group_sum.cu`` launched once per shard where solo launches once (lab
+    RHS 2 x MESH_D a step); 4 and 8 held against their twins on the last
+    shard operands and timed at those shapes (by the caller, outside its
+    twin watch); halo bytes of one exchange; the bytes joined on the home
+    a step by kind (the reductions' group partials only); after the
+    default run, a re-mesh 4 -> 2 shards (``mesh_remesh``). Returns the
+    runs, the split runs' launches and those operands."""
     cfg, snap = forest_start
     mesh = make_mesh(devices=[dev] * MESH_D)
     out, total, seen = {}, {k: 0 for k in FOREST_MESH_KEYS}, {}
@@ -4664,6 +4796,8 @@ def phase_mesh_forest(dev, forest_start: tuple, card: str
             runs[label]["state"] = _gathered(sim)
             if label == "split":
                 runs[label]["comm"] = dict(sim._comm_stats)
+                if not pois:
+                    remesh = mesh_remesh(sim, cfg, dev, name)
             del sim
         solo, split = runs["solo"], runs["split"]
         rel = max(float((split["state"][k] - solo["state"][k]).abs().max()
@@ -4680,8 +4814,11 @@ def phase_mesh_forest(dev, forest_start: tuple, card: str
                "split_idle_share": split["trace"]["idle_share"],
                "solo_idle_share": solo["trace"]["idle_share"],
                "split_trace": split["trace"], "comm": split["comm"],
+               "joined_per_step": split["joined_per_step"],
                "launches_per_step": split["launches"][-1],
                "solo_launches_per_step": solo["launches"][-1]}
+        if not pois:
+            row["remesh"] = remesh
         print(f"phase 17 mesh forest {name} {json.dumps(row)}; card {card}",
               flush=True)
         check(split["keys"] == solo["keys"],
@@ -4689,19 +4826,26 @@ def phase_mesh_forest(dev, forest_start: tuple, card: str
         check(split["iters"] == solo["iters"],
               f"mesh forest {name}: iterations {split['iters']} != solo "
               f"{solo['iters']}")
-        check(rel <= SHARDED_REL, f"mesh forest {name}: split vs solo "
-              f"{rel} > {SHARDED_REL}")
+        check(rel == 0.0, f"mesh forest {name}: split vs solo {rel}, not "
+              "bit for bit")
+        joined = split["joined_per_step"]
+        check("preconditioner" not in joined
+              and joined["reductions"][1] <= joined["reductions"][0]
+              * split["n_pad"] // 16 * 8,
+              f"mesh forest {name}: a whole operand joined a step {joined}")
         for k, (ls, lo, it) in enumerate(zip(split["launches"],
                                              solo["launches"],
                                              split["iters"])):
             check(ls["fused_lab_rhs"] == MESH_D * lo["fused_lab_rhs"] == 2 *
                   MESH_D, f"mesh forest {name} step {k}: lab-RHS launches "
                   f"{ls} (solo {lo}) != 2 x {MESH_D}")
-            want = MESH_D * lo["fused_block_jacobi_update"]
-            check(ls["fused_block_jacobi_update"] == want
-                  and (want > 0) == (pois == "fas" and it > 0),
-                  f"mesh forest {name} step {k}: block-Jacobi launches {ls}"
-                  f" (solo {lo})")
+            for key in ("fused_block_jacobi_update",
+                        "fused_block_jacobi_update+pinv", "group_sum"):
+                want = MESH_D * lo[key]
+                check(ls[key] == want and (want > 0) == (
+                    it > 0 or key == "group_sum"),
+                      f"mesh forest {name} step {k}: {key} launches {ls} "
+                      f"(solo {lo})")
         for k in FOREST_MESH_KEYS:
             total[k] += sum(ls[k] for ls in split["launches"])
         out[name] = row
@@ -5386,7 +5530,8 @@ PHASE19_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 DIST_STEPS = 3            # (a): production steps after the startup step
 DIST_FOREST_STEPS = 4     # (b): production steps after the adapt
 DIST_KEYS = ("advect_substage_halo", "jacobi_halo_sweep", "fused_lab_rhs",
-             "fused_block_jacobi_update")
+             "fused_block_jacobi_update", "fused_block_jacobi_update+pinv",
+             "group_sum")
 # the split uniform step's twins and the forest's, each once
 DIST_TWINS = tuple(dict.fromkeys(SPLIT_TWINS + FOREST_TWINS))
 
@@ -5431,8 +5576,7 @@ def dist_forest(dev, forest_start: tuple, pois: str, mesh) -> tuple:
     sim.adapt()
     iters = [sim.step_once()["poisson_iters"]]
     sync(dev)
-    tsh.comm_stats.update(allgathers=0, allgather_bytes=0, p2p_messages=0,
-                          p2p_bytes=0)
+    tsh.reset_comm_stats()
     t0 = time.perf_counter()
     for _ in range(DIST_FOREST_STEPS - 1):
         d = sim.step_once()
@@ -5506,10 +5650,12 @@ def phase_dist(dev, forest_start: tuple, card: str, size: int = 8192
     after its warm-up step (``forest_start``: phase 15's start) on 4
     shards, an adapt and ``DIST_FOREST_STEPS`` production steps under each
     solver bit for bit the single-controller run (phase 17's), with the
-    bytes its replicated whole work all-gathers a step; (c) a collective
+    bytes it all-gathers a step by kind (the reductions' group partials
+    only, no preconditioner operand; the transfers whole); (c) a collective
     ``save_checkpoint`` / ``load_checkpoint`` round trip of (b)'s fas run
     whose arrays, meta and shapes bytes equal the no-world save. Launches
-    of kernels 3, 4, 7 and 8 from 0 over the world runs alone; no twin on
+    of kernels 3, 4, 7, 8 and ``group_sum.cu`` from 0 over the world runs
+    alone; no twin on
     the card's operands. The group is torn down before the smoke goes
     on."""
     from cup2d_tpu_torch.parallel.launch import (init_distributed,
@@ -5537,8 +5683,7 @@ def phase_dist(dev, forest_start: tuple, card: str, size: int = 8192
                 name = pois or "default"
                 solo_sim, solo = dist_tgv(dev, pois, smesh, size)
                 hk.reset_launches()
-                tsh.comm_stats.update(allgathers=0, allgather_bytes=0,
-                                      p2p_messages=0, p2p_bytes=0)
+                tsh.reset_comm_stats()
                 sim, row = dist_tgv(dev, pois, wmesh, size)
                 for k in DIST_KEYS:
                     launches[k] += hk.launches[k]
@@ -5569,18 +5714,28 @@ def phase_dist(dev, forest_start: tuple, card: str, size: int = 8192
                 same = (row["keys"] == solo["keys"]
                         and _same(row["state"], solo["state"],
                                   row["state"].keys()))
+                by_kind = tsh.comm_by_kind(row["comm_per_step"])
                 out["forest"][name] = {
                     "blocks": row["blocks"], "iters": row["iters"],
                     "solo_iters": solo["iters"], "bit_for_bit": same,
                     "ms_per_step": row["ms_per_step"],
                     "solo_ms_per_step": solo["ms_per_step"],
-                    "comm_per_step": row["comm_per_step"]}
+                    "comm_per_step": {k: row["comm_per_step"][k] for k in (
+                        "allgathers", "allgather_bytes", "p2p_messages",
+                        "p2p_bytes")},
+                    "allgathered_mb_per_step_by_kind": {
+                        k: [c, b / 1e6] for k, (c, b) in by_kind.items()}}
                 print(f"phase 19 (b) forest {name} "
                       f"{json.dumps(out['forest'][name])}; card {card}",
                       flush=True)
                 check(same and row["iters"] == solo["iters"],
                       f"phase 19 (b) {name}: the world run differs from "
                       "the single-controller run")
+                red_n, red_b = by_kind["reductions"]
+                check(by_kind["preconditioner"] == (0, 0) and red_n > 0
+                      and red_b <= red_n * sim._npad_hwm // 16 * 8,
+                      f"phase 19 (b) {name}: a whole operand all-gathered "
+                      f"{by_kind}")
                 if pois == "fas":
                     out["checkpoint"] = dist_checkpoint(sim, solo_sim,
                                                         row["state"])

@@ -41,8 +41,12 @@ Device policy: ``AMRSim`` runs on ``cuda`` unless given ``device="cpu"``;
 without a card and without a device it raises. The card runs f32 state
 only. On the card the two forest kernels always run, on the CPU their
 plain twins. ``torch.backends.cuda.matmul.allow_tf32`` is set False on the
-card: the structured operator's strip maps, the DCT base solve and the
-block-Jacobi GEMM are full-f32 products in the reference.
+card: the structured operator's strip maps and the DCT base solve are
+full-f32 products in the reference (the block-Jacobi product P_inv r runs
+as kernel 8, ``hopper_kernels.block_precond``, in f32). Every full
+reduction over the ordered blocks is ``shard_halo.block_sum`` (16-block
+group partials, ``group_sum.cu`` on the card), in one order whether the
+forest is split over a mesh or not.
 
 Environment, latched once per sim as the reference does: ``CUP2D_POIS``
 (unset/structured: BiCGSTAB + block-Jacobi with the iters>15 two-level
@@ -83,16 +87,16 @@ from .halo import (_TopoIndex, _bucket, assemble_labs,
 from .ops.collision import merged_overlap_integrals, \
     pairwise_collision_update
 from .ops.forces import surface_forces_blocks
-from .ops.hopper_kernels import fused_block_jacobi_update, fused_lab_rhs
+from .ops.hopper_kernels import (block_precond, fused_block_jacobi_update,
+                                 fused_lab_rhs)
 from .ops.obstacle import (chi_from_sdf, midline_udef_packed, pack_midline,
                            pack_polygon_segments, penalization_integrals,
                            polygon_sdf_seg, shape_integrals,
                            solve_rigid_momentum)
 from .ops.stencil import (divergence, dt_from_umax, heun_substage,
                           laplacian5, pressure_gradient_update, vorticity)
-from .parallel.shard_halo import per_shard
-from .poisson import (ForestFASCycle, _down2_mean, _reducers, _up2_bilinear,
-                      apply_block_precond_blocks, bicgstab,
+from .parallel.shard_halo import block_reducers, block_sum, per_shard
+from .poisson import (ForestFASCycle, _down2_mean, _up2_bilinear, bicgstab,
                       block_precond_matrix, coarse_neumann_solve_dct,
                       dct_neumann_operators, mg_solve)
 from .shapes_host import ShapeHostMixin, pull, pull_diag
@@ -230,8 +234,8 @@ class AMRSim(ShapeHostMixin):
                 raise ValueError(
                     f"dtype {cfg.dtype} on {self.device}: the card runs "
                     "f32 state only (f64 runs on device='cpu')")
-            # the strip maps, the DCT solve and the block-Jacobi GEMM are
-            # full-f32 products in the reference
+            # the strip maps and the DCT solve are full-f32 products in
+            # the reference
             torch.backends.cuda.matmul.allow_tf32 = False
         self.forest.add_field("vel", 2)
         self.forest.add_field("pres", 1)
@@ -240,6 +244,8 @@ class AMRSim(ShapeHostMixin):
         self.time = 0.0
         self.step_count = 0
         self.p_inv = self._tensor(block_precond_matrix(cfg.bs))
+        # (key, zero operand) of _precond's kernel-8 call
+        self._pinv_zero = None
         # f32 fields take their Krylov dot products in f64
         self.sum_dtype = (torch.float64 if self.dtype == torch.float32
                           else None)
@@ -658,7 +664,8 @@ class AMRSim(ShapeHostMixin):
 
         # initial-guess subtraction through A itself
         b = b - A(pord)
-        reducers = self._reducers()
+        # the forest's group partials: the same bits whole or split
+        reducers = block_reducers
         M = self._precond
 
         if tcoarse is not None:
@@ -733,9 +740,9 @@ class AMRSim(ShapeHostMixin):
             )
 
         # volume-weighted mean removal (main.cpp:7120-7173)
-        wsum = torch.sum(hsq) * cfg.bs ** 2
-        dp = res.x - torch.sum(res.x * hsq) / wsum
-        p_new = dp + pord - torch.sum(pord * hsq) / wsum
+        wsum = block_sum(hsq) * cfg.bs ** 2
+        dp = res.x - block_sum(res.x * hsq) / wsum
+        p_new = dp + pord - block_sum(pord * hsq) / wsum
 
         # projection with per-block h, gradient fluxes corrected
         # (pressureCorrectionKernel + fillcases, main.cpp:7174-7187)
@@ -871,22 +878,24 @@ class AMRSim(ShapeHostMixin):
 
         return paint_fine, base_solve, extract_all
 
-    @staticmethod
-    def _reducers():
-        """The solves' (dot, linf, zeros_like) factory
-        (``poisson._reducers``)."""
-        return _reducers
-
     def _precond(self, r):
-        """z = P_inv r per block: the block-Jacobi preconditioner's GEMM
-        (``poisson.apply_block_precond_blocks``)."""
-        return apply_block_precond_blocks(r, self.p_inv)
+        """z = P_inv r per block, on the device (each shard's rows on its
+        own) where r lives: ``hopper_kernels.block_precond``, kernel 8
+        with e = lap = 0: on the card its f32 FMA chain, a row's bits
+        whatever the rows of the call; on the CPU its twin's fixed-shape
+        products. The card runs f32 forests only (``AMRSim`` refuses f64
+        there), which the kernel takes; f64 runs on the CPU, through the
+        twin. The zero operand is kept from call to call."""
+        key = (tuple(r.shape), r.dtype, getattr(r, "mesh", r.device))
+        if self._pinv_zero is None or self._pinv_zero[0] != key:
+            self._pinv_zero = (key, torch.zeros_like(r))
+        return per_shard(block_precond, r, self.p_inv, self._pinv_zero[1])
 
     def _fas_block_smoother(self, A, tpois=None):
         """Composite-level smoother of the forest FAS cycle: damped
         block-Jacobi sweeps e += P_inv (r - A e). Each sweep's update is
         ``fused_block_jacobi_update`` (the kernel on the card); the
-        from-zero head is a bare ``apply_block_precond_blocks``."""
+        from-zero head is ``_precond``."""
         p_inv = self.p_inv
 
         def smooth(e, r, n, from_zero=False):
@@ -953,7 +962,7 @@ class AMRSim(ShapeHostMixin):
 
     def _energy(self, v, hsq):
         vv = v.to(self.sum_dtype) if self.sum_dtype is not None else v
-        return 0.5 * torch.sum(vv * vv * hsq[:, None].to(vv.dtype))
+        return 0.5 * block_sum(vv * vv * hsq[:, None].to(vv.dtype))
 
     @staticmethod
     def _finite_flag(v, p_new, maskv):
@@ -1010,7 +1019,7 @@ class AMRSim(ShapeHostMixin):
                 yr = yc - obs.com[k, 1]
                 sums = penalization_integrals(
                     v_cf, obs.chi_s[k], obs.udef_s[k], xr, yr,
-                    cfg.lam * dt, hsq)
+                    cfg.lam * dt, hsq, total=block_sum)
                 uvw.append(solve_rigid_momentum(*sums))
             else:
                 uvw.append(prescribed[k])
@@ -1020,7 +1029,8 @@ class AMRSim(ShapeHostMixin):
         # overlap integrals, then the pairwise impulses on the device
         if S > 1:
             colls = merged_overlap_integrals(
-                obs.chi_s, obs.sdf_s, obs.udef_s, uvw, obs.com, xc, yc)
+                obs.chi_s, obs.sdf_s, obs.udef_s, uvw, obs.com, xc, yc,
+                total=block_sum)
             lengths = self._tensor([s.length for s in self.shapes])
             uvw = pairwise_collision_update(
                 colls, uvw, obs.mass, obs.inertia, obs.com, lengths)
@@ -1120,9 +1130,9 @@ class AMRSim(ShapeHostMixin):
             chi_k = chi_from_sdf(slab, sdf_k, h3)
 
             # CoM correction (main.cpp:4468-4487); zero-mass guard
-            m0 = torch.sum(chi_k * hsq)
-            dcx = torch.sum(chi_k * hsq * (xc - com[0]))
-            dcy = torch.sum(chi_k * hsq * (yc - com[1]))
+            m0 = block_sum(chi_k * hsq)
+            dcx = block_sum(chi_k * hsq * (xc - com[0]))
+            dcy = block_sum(chi_k * hsq * (yc - com[1]))
             safe = torch.where(m0 > 0, m0, 1.0)
             com_n = com + torch.where(
                 m0 > 0, torch.stack([dcx, dcy]) / safe, 0.0)
@@ -1132,7 +1142,7 @@ class AMRSim(ShapeHostMixin):
             xr = xc - com_n[0]
             yr = yc - com_n[1]
             _, _, m, j, iu, iv, ia = shape_integrals(
-                chi_k, udef_k, xr, yr, hsq)
+                chi_k, udef_k, xr, yr, hsq, total=block_sum)
             corr = torch.stack([iu - ia * yr, iv + ia * xr])
             ud = wm_k[None, :, None, None] * (udef_k - corr)
 
@@ -1212,7 +1222,8 @@ class AMRSim(ShapeHostMixin):
         return [surface_forces_blocks(
             velp, pord, chip, sdfp, obs.udef_s[k].transpose(0, 1),
             obs.sdf_s[k], xc, yc, obs.com[k], uvw[k], self.cfg.nu, hflat,
-            G=4, apply=per_shard) for k in range(len(self.shapes))]
+            G=4, apply=per_shard, total=block_sum)
+            for k in range(len(self.shapes))]
 
     def _prolong_impl(self, field, parents, order, t):
         """Parent blocks -> [R, 4, dim, BS, BS] children by the

@@ -18,12 +18,15 @@ adapt, one warm-up and ``--steps`` timed production steps under each
 solver. Each layout writes ``DIR/<layout>.json`` (rank 0 under a world):
 per run ms a production step (host clock to a synchronize), iterations,
 the sha256 of the final whole state, and under ``ranks`` the bytes rank 0
-receives by all-gathers and sends point to point a step
-(``shard_halo.comm_stats``). ``--compare`` prints one JSON line a run
-with the layouts side by side, and, where ``DIR/cli_ranks`` and
-``DIR/cli_mesh`` hold the dumps of two CLI runs, whether every dump is
-byte-equal; it exits 1 when ``mesh`` and ``ranks`` differ anywhere (the
-``solo`` layout sums its reductions unsplit and is reported beside them).
+receives by all-gathers, in total and by kind (reductions, the
+preconditioner, image transfers, regrid, surface exchange, levels,
+state), and sends point to point a step (``shard_halo.comm_stats``).
+``--compare`` prints one JSON line a run with the layouts side by side,
+and, where ``DIR/cli_ranks`` and ``DIR/cli_mesh`` hold the dumps of two
+CLI runs, whether every dump is byte-equal; it exits 1 when ``mesh`` and
+``ranks`` differ anywhere. The ``solo`` layout is reported beside them:
+the solo forest takes the split forest's reductions in its order
+(``solo_eq_ranks``), the uniform step sums its slabs' partials instead.
 Every number is the card's; the script refuses to run without one.
 """
 
@@ -79,8 +82,7 @@ class _latched:
 
 
 def _reset_comm() -> None:
-    shard_halo.comm_stats.update(allgathers=0, allgather_bytes=0,
-                                 p2p_messages=0, p2p_bytes=0)
+    shard_halo.reset_comm_stats()
 
 
 def uniform_runs(mesh, dev, size: int, steps: int) -> dict:
@@ -219,7 +221,13 @@ def compare(out_dir: str) -> int:
                 continue
             row[layout] = {k: run[k] for k in ("ms_per_step", "iters")}
             if layout == "ranks":
-                row[layout]["comm_per_step"] = run["comm_per_step"]
+                comm = run["comm_per_step"]
+                row[layout]["comm_per_step"] = {
+                    k: comm[k] for k in ("allgathers", "allgather_bytes",
+                                         "p2p_messages", "p2p_bytes")}
+                row[layout]["allgathered_mb_per_step_by_kind"] = {
+                    k: [c, b / 1e6] for k, (c, b) in
+                    shard_halo.comm_by_kind(comm).items() if c}
         runs = {k: r["runs"].get(name) for k, r in got.items()}
         if runs.get("mesh") and runs.get("ranks"):
             row["mesh_eq_ranks"] = (runs["mesh"]["sha256"]

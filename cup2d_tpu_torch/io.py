@@ -50,8 +50,13 @@ barrier keeps the others from racing past an incomplete file. Every rank
 loads the same bytes.
 
 Every device read goes through ``shapes_host.pull``; ``state_gathers``
-counts ``_gather_state`` calls (``profiling.HostCounters``). Not ported:
-the mirror tier (ROADMAP queue 1 item 8).
+counts ``_gather_state`` calls (``profiling.HostCounters``).
+
+The elastic resume's two halves: ``snapshot_covers`` (whether a device
+snapshot survives the loss of some processes: the owner rule) and
+``restore_snapshot_resharded`` (a snapshot installed into a sim that was
+re-meshed since, ``ShardedUniformSim.remesh`` / ``ShardedAMRSim.remesh``).
+Not ported: the mirror tier (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -655,6 +660,24 @@ def _restore_cache(sim, snap: DeviceSnapshot, fver=None) -> None:
         sim._coarse_on = bool(meta.get("coarse_on", False))
 
 
+def _n_blocks(v) -> int:
+    """The ordered blocks of a forest field, split (``Blocks``) or whole."""
+    mesh = getattr(v, "mesh", None)
+    return v.shape[0] * (mesh.size if mesh is not None else 1)
+
+
+def _placed(sim, v):
+    """An ordered forest field in the sim's current placement: ``v`` where
+    it lies there already (split over the sim's mesh, or whole where the
+    sim is not split), else gathered and placed anew (a snapshot taken
+    before a ``remesh``)."""
+    mesh = getattr(v, "mesh", None)
+    split = getattr(sim, "_split", False)
+    if (split and mesh is sim.mesh) or (not split and mesh is None):
+        return v
+    return sim._put_ordered(whole(v))
+
+
 def restore_snapshot_device(sim, snap: DeviceSnapshot) -> None:
     """Install fresh clones of a device snapshot into ``sim``.
 
@@ -667,11 +690,12 @@ def restore_snapshot_device(sim, snap: DeviceSnapshot) -> None:
     if meta["kind"] == "forest":
         f = sim.forest
         if meta["forest_version"] == f.version and sim._ord is not None \
-                and next(iter(snap.payload.values())).shape[0] \
-                == next(iter(sim._ord.values())).shape[0]:
+                and _n_blocks(next(iter(snap.payload.values()))) \
+                == _n_blocks(next(iter(sim._ord.values()))):
             sim.time = float(meta["time"])
             sim.step_count = int(meta["step_count"])
-            sim._ord = {k: v.clone() for k, v in snap.payload.items()}
+            sim._ord = {k: _placed(sim, v.clone())
+                        for k, v in snap.payload.items()}
             # the restored ordered state is the truth; the slot fields
             # are stale until the next sync_fields()
             sim._ord_key = (f.version, f.fields.wver)
@@ -714,3 +738,54 @@ def restore_snapshot_device(sim, snap: DeviceSnapshot) -> None:
     if getattr(sim, "shapes", None) and snap.shapes_pkl is not None:
         sim.shapes[:] = pickle.loads(snap.shapes_pkl)
         sim._initialized = True
+
+
+# ---------------------------------------------------------------------------
+# elastic topology resume: snapshot coverage and the resharded restore
+# (cup2d_tpu/io.py:756-862)
+# ---------------------------------------------------------------------------
+
+def snapshot_covers(snap: DeviceSnapshot, lost_processes=(), *,
+                    lost_hosts=(), shards_destroyed=False,
+                    mirror=True) -> bool:
+    """True iff a device snapshot can seed an elastic resume after a
+    topology loss: every payload shard still readable from its owner
+    (``cup2d_tpu/io.py:756-818``). A split field's shard belongs to the
+    rank its part lives on (``SlabMesh.owners``; every shard of a
+    single-controller mesh to this process), so the owner rule fails
+    where a lost process owned one; ``shards_destroyed`` (the simulated
+    real loss, a ``shard_loss`` fault) voids owner coverage whenever a
+    host or process is named lost. The mirror rung (``mirror``: a lost
+    shard covered by its ring neighbour's mirror) needs a snapshot that
+    carries a mirror, and no snapshot of the port does (the mirror tier,
+    ROADMAP queue 1 item 8), so it never covers, as the JAX package's does
+    not without one."""
+    lost = set(lost_processes)
+    dead = set(lost_hosts) | lost
+    owner_ok = not (shards_destroyed and dead)
+    if owner_ok and lost:
+        for v in snap.payload.values():
+            mesh = getattr(v, "mesh", None)
+            if mesh is not None and mesh.distributed \
+                    and lost & set(mesh.owners):
+                owner_ok = False
+                break
+    if owner_ok:
+        return True
+    return bool(mirror and dead and getattr(snap, "mirror", None))
+
+
+def restore_snapshot_resharded(sim, snap: DeviceSnapshot) -> None:
+    """Install a device snapshot into a sim whose mesh changed since the
+    capture (after ``remesh``; ``cup2d_tpu/io.py:820-862``): the device
+    restore first (which installs a forest's ordered working state in the
+    sim's current placement already), then the uniform state re-split over
+    the sim's current mesh through ``set_state`` and a cached device dt
+    moved to the mesh's home. Valid where ``snapshot_covers`` says so."""
+    restore_snapshot_device(sim, snap)
+    if not hasattr(sim, "forest") and hasattr(sim, "set_state"):
+        sim.set_state(type(sim.state)(*(whole(v) for v in sim.state)))
+    mesh = getattr(sim, "mesh", None)
+    nd = getattr(sim, "_next_dt", None)
+    if mesh is not None and torch.is_tensor(nd):
+        sim._next_dt = nd.to(mesh.home)

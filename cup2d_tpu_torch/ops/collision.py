@@ -19,7 +19,7 @@ from .stencil import pad_scalar, shift
 _EPS = 1e-21  # reference impulse denominator guard (main.cpp:282)
 
 
-def _overlap_sums(w, sdf_i, udef_i, uvw_i, com_i, x, y):
+def _overlap_sums(w, sdf_i, udef_i, uvw_i, com_i, x, y, total=torch.sum):
     """The 7 chi-weighted overlap sums of one shape given its per-cell
     weight ``w`` (main.cpp:6733-6815): mass, position, momentum (rigid
     plus deformation) and the own-SDF gradient (the contact normal).
@@ -32,13 +32,13 @@ def _overlap_sums(w, sdf_i, udef_i, uvw_i, com_i, x, y):
     gx = 0.5 * (shift(lab, 1, 0, 1) - shift(lab, 1, 0, -1))
     gy = 0.5 * (shift(lab, 1, 1, 0) - shift(lab, 1, -1, 0))
     return torch.stack([
-        torch.sum(w),
-        torch.sum(w * x),
-        torch.sum(w * y),
-        torch.sum(w * (uvw_i[0] + ur_x + udef_i[0])),
-        torch.sum(w * (uvw_i[1] + ur_y + udef_i[1])),
-        torch.sum(w * gx),
-        torch.sum(w * gy),
+        total(w),
+        total(w * x),
+        total(w * y),
+        total(w * (uvw_i[0] + ur_x + udef_i[0])),
+        total(w * (uvw_i[1] + ur_y + udef_i[1])),
+        total(w * gx),
+        total(w * gy),
     ])
 
 
@@ -49,12 +49,15 @@ def overlap_integrals(chi_i, chi_j, sdf_i, udef_i, uvw_i, com_i, x, y):
     return _overlap_sums(w, sdf_i, udef_i, uvw_i, com_i, x, y)
 
 
-def merged_overlap_integrals(chi_s, sdf_s, udef_s, uvw, com, x, y):
+def merged_overlap_integrals(chi_s, sdf_s, udef_s, uvw, com, x, y,
+                             total=torch.sum):
     """Every shape's opponent-merged overlap sums: shape i's cells
     weighted by chi_i times the number of opponents with chi_j > 0 there,
     which equals summing ``overlap_integrals`` over the opponents
     (main.cpp:6733-6815) in O(S N) field work. chi_s/sdf_s: [S, ...];
-    udef_s: [S, 2, ...]; uvw: [S, 3]; com: [S, 2]. Returns [S, 7]."""
+    udef_s: [S, 2, ...]; uvw: [S, 3]; com: [S, 2]. Returns [S, 7];
+    ``total`` is the full sum of one shape's field (the forest passes
+    ``shard_halo.block_sum``)."""
     cnt = torch.sum(chi_s > 0.0, dim=0)
     out = []
     for k in range(chi_s.shape[0]):
@@ -62,7 +65,7 @@ def merged_overlap_integrals(chi_s, sdf_s, udef_s, uvw, com, x, y):
         others = (cnt - (chi_i > 0.0).to(cnt.dtype)).to(chi_i.dtype)
         w = torch.where(chi_i > 0.0, chi_i, 0.0) * others
         out.append(_overlap_sums(w, sdf_s[k], udef_s[k], uvw[k], com[k],
-                                 x, y))
+                                 x, y, total))
     return torch.stack(out)
 
 

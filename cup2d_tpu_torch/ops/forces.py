@@ -235,18 +235,19 @@ def surface_forces_block_sums(*args, **kw) -> tuple:
 
 
 def surface_forces_blocks(velp, pres, chip, sdfp, udef, own_sdf, xc, yc,
-                          com, uvw, nu, h, G=4, apply=None):
+                          com, uvw, nu, h, G=4, apply=None, total=torch.sum):
     """Forest path: the core over [N] blocks at once (velp [N, 2, L, L],
     labs [N, L, L], interiors [N, ...], udef [N, 2, BS, BS], h [N]; com,
     uvw and nu shared), each block's partial sums then summed over the
     blocks. ``apply(fn, *args, **kw)`` runs the per-block core (each
     block reads its own lab only: ``parallel.shard_halo.per_shard`` runs
-    it once per shard of split blocks). Returns the 19 ``FORCE_KEYS`` as
-    0-dim tensors."""
+    it once per shard of split blocks); ``total`` sums the per-block sums
+    over the blocks (the forest passes ``shard_halo.block_sum``). Returns
+    the 19 ``FORCE_KEYS`` as 0-dim tensors."""
     sums = (apply or _call)(surface_forces_block_sums, velp, pres, chip,
                             sdfp, udef, own_sdf, xc, yc, com, uvw, nu, h,
                             G)
-    return _finish({k: torch.sum(v) for k, v in zip(BLOCK_SUM_KEYS, sums)},
+    return _finish({k: total(v) for k, v in zip(BLOCK_SUM_KEYS, sums)},
                    uvw)
 
 

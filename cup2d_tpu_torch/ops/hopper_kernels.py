@@ -39,6 +39,11 @@ wrapper                        replaces                         source
 ``tridiag_scan``               no Pallas kernel: the fftd       ``tridiag.cu``
                                solve's two ``lax.scan``s
                                (batched Thomas, complex64)
+``group_sum``                  no Pallas kernel: the forest's   ``group_sum.cu``
+                               full reductions, XLA's in the
+                               JAX package (per 16-block
+                               group, one fixed tree; f32 or
+                               f64)
 =============================  ===============================  ===================
 
 The four WENO kernels share their arithmetic through ``csrc/weno.cuh``;
@@ -80,6 +85,12 @@ the slab list's edge-column sources close into a ring). The FFT direct
 solve's batched Thomas scans
 (``tridiag_scan``, ``tridiag.cu``) replace no TPU kernel: the JAX package
 runs them as ``lax.scan`` (``FFTDiagPlan.solve``), which PyTorch lacks.
+The forest's group partials (``group_sum``, ``group_sum.cu``) replace no
+TPU kernel either: every full reduction of the forest over its ordered
+blocks sums fixed groups of 16 blocks by one tree
+(``parallel.shard_halo.block_sum``), so that a shard's partials are the
+solo run's bit for bit, which PyTorch's reductions, choosing their order
+from the size of the call, do not promise.
 
 Four kernels also have a bf16 storage form, the ``CUP2D_PREC=bf16`` tier
 (bf16 operands, f32 arithmetic; a C entry of its own in the same source):
@@ -110,8 +121,10 @@ smoother, over every slab of a device (``jacobi_halo_sweep_slabs``) or of
 one slab (``jacobi_halo_sweep``), one per call for the others); a launch
 counts under its kernel's name and again under the name with the suffix
 of each form it is: ``+bc`` (a boundary table), ``+bf16`` (bf16
-storage), ``+bc+bf16`` (both) and ``+pd`` (the wrap form of a periodic
-table, which counts under ``+bc`` too). Twin calls do not count. A launch runs
+storage), ``+bc+bf16`` (both), ``+pd`` (the wrap form of a periodic
+table, which counts under ``+bc`` too) and ``+pinv`` (kernel 8 as the
+forest's block-Jacobi preconditioner, ``block_precond``). Twin calls do
+not count. A launch runs
 on the current stream of its tensors' device.
 """
 
@@ -163,6 +176,7 @@ _ENTRIES = {
     "advect_rhs": ("cup2d_advect_rhs", [_P, _P, _P, _I, _I, _I, _I, _I,
                                         _P]),
     "tridiag": ("cup2d_tridiag_scan", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "group_sum": ("cup2d_group_sum", [_P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 
@@ -284,7 +298,8 @@ launches = {"fused_advect_heun": 0, "fused_correction": 0,
             "jacobi_halo_sweep+bc+bf16": 0, "fused_advect_heun+pd": 0,
             "fused_correction+pd": 0, "fused_jacobi_sweeps+pd": 0,
             "advect_substage_halo+pd": 0, "jacobi_halo_sweep+pd": 0,
-            "tridiag_scan": 0}
+            "tridiag_scan": 0, "group_sum": 0,
+            "fused_block_jacobi_update+pinv": 0}
 
 # the TPU kernel each wrapper replaces, for reports (a boundary-table or
 # bf16 form is a form of its kernel: ``kernel_of``)
@@ -299,6 +314,9 @@ REPLACES = {
     "advect_diffuse_rhs": "cup2d_tpu/ops/pallas_kernels.py:130",
     # no Pallas kernel: the two lax.scan's of FFTDiagPlan.solve
     "tridiag_scan": "cup2d_tpu/poisson.py:1028",
+    # no Pallas kernel: XLA's jnp.sum of the forest's dots, means and
+    # integrals
+    "group_sum": "cup2d_tpu/poisson.py:519",
 }
 SOURCES = {
     "fused_advect_heun": "cup2d_tpu_torch/ops/csrc/advect_heun.cu",
@@ -310,6 +328,7 @@ SOURCES = {
     "jacobi_halo_sweep": "cup2d_tpu_torch/ops/csrc/jacobi_halo.cu",
     "advect_diffuse_rhs": "cup2d_tpu_torch/ops/csrc/advect_rhs.cu",
     "tridiag_scan": "cup2d_tpu_torch/ops/csrc/tridiag.cu",
+    "group_sum": "cup2d_tpu_torch/ops/csrc/group_sum.cu",
 }
 
 JACOBI_MAX_SWEEPS = 6
@@ -940,12 +959,35 @@ def fused_lab_rhs(lab, h, nu, dt):
 # K8: one forest block-Jacobi update e + P_inv (r - lap)
 # ---------------------------------------------------------------------------
 
+# blocks of one fixed-shape product in the twin (the forest's reduction
+# group, parallel.shard_halo.GROUP_BLOCKS)
+PRECOND_ROWS = 16
+
+
+def block_precond_plain(d, p_inv):
+    """P_inv d on an [N, BS, BS] block stack (``apply_block_precond_blocks``)
+    as products of one fixed shape: each whole group of ``PRECOND_ROWS``
+    blocks is one [16, BS^2] x [BS^2, BS^2] product of a batched product,
+    the blocks past the last whole group one more product. A block's
+    product then has the same operands and shape whatever N, so a shard's
+    blocks give the solo forest's bits (a product over all N rows lets the
+    library pick its blocking, and so its order, from N)."""
+    n, bs, _ = d.shape
+    k = bs * bs
+    g = n // PRECOND_ROWS
+    flat = d.reshape(n, k)
+    head = flat[:g * PRECOND_ROWS].reshape(g, PRECOND_ROWS, k)
+    out = torch.bmm(head, p_inv.T.expand(g, k, k)).reshape(-1, k)
+    if g * PRECOND_ROWS < n:
+        out = torch.cat([out, flat[g * PRECOND_ROWS:] @ p_inv.T])
+    return out.reshape(n, bs, bs)
+
+
 def block_jacobi_plain(e, r, lap, p_inv):
-    """Plain twin: ``e + apply_block_precond_blocks(r - lap, p_inv)`` on
-    [N, BS, BS] block stacks (the JAX package's XLA composition)."""
-    n, bs, _ = r.shape
-    d = r - lap
-    return e + (d.reshape(n, bs * bs) @ p_inv.T).reshape(n, bs, bs)
+    """Plain twin: ``e + P_inv (r - lap)`` on [N, BS, BS] block stacks (the
+    JAX package's XLA composition), the product as
+    ``block_precond_plain``'s fixed-shape products."""
+    return e + block_precond_plain(r - lap, p_inv)
 
 
 def fused_block_jacobi_update(e, r, lap, p_inv):
@@ -973,6 +1015,21 @@ def fused_block_jacobi_update(e, r, lap, p_inv):
             r.data_ptr(), lap.data_ptr(), out.data_ptr(), n,
             block_jacobi_grid(n, _sm_count(e.device)))
     launches["fused_block_jacobi_update"] += 1
+    return out
+
+
+def block_precond(r, p_inv, zero):
+    """P_inv r on [N, 8, 8] blocks as kernel 8 with e = lap = ``zero`` (a
+    zero tensor of r's shape, kept by the caller): exact, since r - 0 = r
+    and 0 + y = y. On CUDA tensors one launch of ``block_jacobi.cu``,
+    counted under ``fused_block_jacobi_update`` and its ``+pinv`` form:
+    one f32 FMA chain a row, k in order, so a row's bits do not depend on
+    how many rows the call holds (a cuBLAS GEMM may pick a split-K plan
+    from N). On CPU tensors the twin (``block_precond_plain``'s
+    fixed-shape products)."""
+    out = fused_block_jacobi_update(zero, r, zero, p_inv)
+    if _on_cuda(r) and r.shape[0]:
+        launches["fused_block_jacobi_update+pinv"] += 1
     return out
 
 
@@ -1369,3 +1426,63 @@ def tridiag_scan(b, inv_denom, cp):
             cp.data_ptr(), x.data_ptr(), L, n_s, nk)
     launches["tridiag_scan"] += 1
     return x
+
+
+# ---------------------------------------------------------------------------
+# The forest's group partials (no TPU kernel: XLA's reductions in the JAX
+# package)
+# ---------------------------------------------------------------------------
+
+# the most values one row of a group_sum launch takes (group_sum.cu)
+GROUP_SUM_MAX = 8192
+
+
+def group_sum_plain(a, c=None, acc_dtype=None):
+    """Plain twin: per row of a [R, m] (the dot form: of a * c, rounded in
+    a's dtype), widened to ``acc_dtype`` (default a's), the sum by
+    ``group_sum.cu``'s pairwise tree (while m > 1: h = ceil(m / 2),
+    x[j] + x[j + h] for j < m - h, x[h - 1] kept where m is odd) written
+    as elementwise ops on the [R, m] view. Each add rounds each element
+    on its own, so a row's bits are fixed by the tree alone, whatever R,
+    the device or the thread count. Returns [R]."""
+    x = a if c is None else a * c
+    x = x.to(acc_dtype or a.dtype)
+    m = x.shape[-1]
+    while m > 1:
+        h = (m + 1) // 2
+        s = x[..., :m - h] + x[..., h:m]
+        x = s if m == 2 * h else torch.cat([s, x[..., m - h:h]], dim=-1)
+        m = h
+    return x[..., 0]
+
+
+def group_sum(a, c=None, acc_dtype=None):
+    """Per row of a [R, m] (f32 or f64), its sum (``c`` None) or its dot
+    with c (same shape and dtype), accumulated in ``acc_dtype`` (default
+    a's; an f64 operand takes f64): ``group_sum.cu`` for CUDA tensors (one
+    launch; a row's bits the same at any R), the twin for CPU ones. Same
+    result as ``group_sum_plain``, bit for bit."""
+    acc = acc_dtype or a.dtype
+    if not _on_cuda(a, c):
+        return group_sum_plain(a, c, acc)
+    if a.dim() != 2 or (c is not None and c.shape != a.shape):
+        raise ValueError(f"group_sum: a {tuple(a.shape)}, c "
+                         f"{None if c is None else tuple(c.shape)}: "
+                         "expected [R, m] (and c of a's shape)")
+    _check("group_sum", (torch.float32, torch.float64), a=a, c=c)
+    if acc not in (torch.float32, torch.float64) or (
+            a.dtype == torch.float64 and acc != torch.float64):
+        raise TypeError(f"group_sum: {a.dtype} operands accumulate in f32 "
+                        f"or f64 (f64 ones in f64), not {acc}")
+    R, m = a.shape
+    if not 1 <= m <= GROUP_SUM_MAX:
+        raise ValueError(f"group_sum: rows of {m} values: the kernel takes "
+                         f"1 .. {GROUP_SUM_MAX}")
+    out = torch.empty((R,), dtype=acc, device=a.device)
+    if R == 0:
+        return out
+    _launch("group_sum", a.device, a.data_ptr(),
+            None if c is None else c.data_ptr(), out.data_ptr(), R, m,
+            int(a.dtype == torch.float64), int(acc == torch.float64))
+    launches["group_sum"] += 1
+    return out

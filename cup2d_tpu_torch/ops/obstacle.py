@@ -204,18 +204,19 @@ def scatter_window_set(field, win, oy: int, ox: int):
     return field
 
 
-def shape_integrals(chi, udef, xrel, yrel, hsq):
+def shape_integrals(chi, udef, xrel, yrel, hsq, total=torch.sum):
     """The 7 penalization-frame integrals (main.cpp:4489-4533): (x, y, m,
     j, u, v, a), with u, v and a already normalized by m, m and j.
-    xrel/yrel are cell centres minus the CoM. 0-dim tensors."""
+    xrel/yrel are cell centres minus the CoM. 0-dim tensors. ``total`` is
+    the full sum (the forest passes ``shard_halo.block_sum``)."""
     w = chi * hsq
-    m = torch.sum(w)
-    x = torch.sum(w * xrel)
-    y = torch.sum(w * yrel)
-    j = torch.sum(w * (xrel * xrel + yrel * yrel))
-    u = torch.sum(w * udef[0])
-    v = torch.sum(w * udef[1])
-    a = torch.sum(w * (xrel * udef[1] - yrel * udef[0]))
+    m = total(w)
+    x = total(w * xrel)
+    y = total(w * yrel)
+    j = total(w * (xrel * xrel + yrel * yrel))
+    u = total(w * udef[0])
+    v = total(w * udef[1])
+    a = total(w * (xrel * udef[1] - yrel * udef[0]))
     # a body thinner than a cell can have zero chi mass: zero mean motion
     # rather than NaN in every field downstream
     u = torch.where(m > 0, u / (m + _EPS), 0.0)
@@ -224,21 +225,23 @@ def shape_integrals(chi, udef, xrel, yrel, hsq):
     return x, y, m, j, u, v, a
 
 
-def penalization_integrals(vel, chi, udef, xrel, yrel, lamdt, hsq):
+def penalization_integrals(vel, chi, udef, xrel, yrel, lamdt, hsq,
+                           total=torch.sum):
     """The 7 sums of the rigid-momentum system (main.cpp:6647-6692):
     F = h^2 Xlamdt / (1 + Xlamdt), Xlamdt = lambda dt where chi >= 0.5.
-    Returns (PM, PJ, PX, PY, UM, VM, AM), 0-dim tensors."""
+    Returns (PM, PJ, PX, PY, UM, VM, AM), 0-dim tensors; ``total`` as in
+    ``shape_integrals``."""
     xlamdt = torch.where(chi >= 0.5, lamdt, 0.0)
     f = hsq * xlamdt / (1.0 + xlamdt)
     udx = vel[0] - udef[0]
     udy = vel[1] - udef[1]
-    pm = torch.sum(f)
-    pj = torch.sum(f * (xrel * xrel + yrel * yrel))
-    px = torch.sum(f * xrel)
-    py = torch.sum(f * yrel)
-    um = torch.sum(f * udx)
-    vm = torch.sum(f * udy)
-    am = torch.sum(f * (xrel * udy - yrel * udx))
+    pm = total(f)
+    pj = total(f * (xrel * xrel + yrel * yrel))
+    px = total(f * xrel)
+    py = total(f * yrel)
+    um = total(f * udx)
+    vm = total(f * udy)
+    am = total(f * (xrel * udy - yrel * udx))
     return pm, pj, px, py, um, vm, am
 
 

@@ -20,36 +20,42 @@ and the hot-loop tables: the halo sets (``ShardTables``, with the
 shard-local face-copy paint), the Poisson operator (``ShardPoissonOp``,
 or the lab-table form under ``CUP2D_POIS=tables``) and the flux
 correction (``ShardFluxCorr``). The lab RHS runs kernel 4 once per shard
-on that shard's labs, and under fas the composite smoother runs kernel 8
-once per shard and sweep (``overlap_block_jacobi_sweeps``).
+on that shard's labs; the block-Jacobi preconditioner P_inv r runs kernel
+8 once per shard on its rows (``AMRSim._precond``: one f32 FMA chain a
+row, so a shard's rows take the solo forest's bits), and under fas the
+composite smoother runs kernel 8 once per shard and sweep
+(``overlap_block_jacobi_sweeps``). Every full reduction over the ordered
+blocks (the Krylov dots, the projection's means, the energy, the
+obstacle and force integrals) is ``shard_halo.block_sum``: each shard
+sums its own groups of 16 blocks (``group_sum.cu``, one fixed tree a
+group) and only the group partials travel to ``mesh.home``, where one
+``torch.sum`` adds them in block order. The solo ``AMRSim`` sums the same
+groups in the same order, so the split forest is the solo forest bit for
+bit, through the stalled startup solves too; under a world every rank
+adds the same partials. Max, min, all and any combine the shards'
+partials (exact in any order).
 
 Whole on ``mesh.home`` (under a world: on every rank, computed there
 replicated from all-gathered operands, so every rank holds the same
-bits): the slot-layout fields (the regrid's truth, read
-by the prolongation and restriction through the replicated ``vec1t`` /
-``sca1t`` sets), the two-level and FAS transfer images and the DCT base
-solve (each transfer gathers its ordered operand there and splits its
-result back), the block-Jacobi preconditioner's GEMM (``_precond``, which
-gathers its operand and splits the result), a shape's window SDF and
-deformation velocity (each shard then scatters the rows that land in its
-range), and every scalar. Max, min, all and any combine the shards'
-partials there; every Krylov or FAS dot (``block_reducers``) and every
-full ``sum`` gathers its whole operand there and reduces it in the
-unsplit step's order, so the split step is the solo step bit for bit.
-Per-shard partial sums would part the forest's stalled startup solves
-from the solo run's (``shard_halo.Blocks``). The price: each dot and
-each preconditioner application ships whole vectors to every rank's
-home (``shard_halo.comm_stats`` counts the bytes), so across cards the
-split solve cannot scale (ROADMAP queue 1 item 8, per-shard partials).
-The regrid's tags are one all-gathered vector (``AMRSim.adapt`` through
-``_gather``), so every rank commits the same topology.
+bits): the slot-layout fields (the regrid's truth, read by the
+prolongation and restriction through the replicated ``vec1t`` / ``sca1t``
+sets), the two-level and FAS transfer images and the DCT base solve (each
+transfer gathers its ordered operand there and splits its result back;
+``shard_halo.comm_stats`` counts their bytes as "transfers"), a shape's
+window SDF and deformation velocity (each shard then scatters the rows
+that land in its range), and every scalar. The regrid's tags are one
+all-gathered vector (``AMRSim.adapt`` through ``_gather``), so every rank
+commits the same topology.
 
 Regrid-time migration is re-placement: after a topology change the
-ordered state is gathered from the slot fields and split anew. Where
-n_pad is not divisible by D, the tables stay whole and the step runs as
-``AMRSim`` on ``devices[0]`` (the reference's replicated fallback).
-``CUP2D_SHARD_EXCHANGE`` (ppermute | allgather) is latched once per sim.
-The elastic ``remesh`` is not ported (ROADMAP queue 1 item 8).
+ordered state is gathered from the slot fields and split anew. Where the
+shards would not each hold whole reduction groups (n_pad not divisible by
+16 D; D = 3, or more shards than n_pad / 16), the tables stay whole and
+the step runs as ``AMRSim`` on ``devices[0]`` (the reference's replicated
+fallback). ``remesh`` re-places a run onto another mesh of the same
+controller or ranks. ``CUP2D_SHARD_EXCHANGE`` (ppermute | allgather) is
+latched once per sim. The elastic guard and the re-init of a world are
+not ported (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -64,9 +70,8 @@ from ..config import SimConfig
 from ..flux import (build_flux_corr, build_poisson_structured,
                     build_poisson_tables)
 from ..halo import lab_tables, pad_tables
-from ..poisson import apply_block_precond_blocks
-from .shard_halo import (Blocks, ShardPoissonOp, SlabMesh, block_reducers,
-                         exchange_padding_stats, gather_blocks,
+from .shard_halo import (GROUP_BLOCKS, Blocks, ShardPoissonOp, SlabMesh,
+                         check_remesh, exchange_padding_stats, gather_blocks,
                          overlap_block_jacobi_sweeps, shard_flux_corr,
                          shard_poisson_op, shard_tables, split_blocks)
 
@@ -101,6 +106,36 @@ class ShardedAMRSim(AMRSim):
         super().__init__(cfg, shapes=shapes, device=mesh.home)
 
     # -- placement -------------------------------------------------------
+    def remesh(self, mesh: SlabMesh) -> None:
+        """Re-place the forest onto ``mesh`` in place
+        (``cup2d_tpu/parallel/forest_mesh.py:67-112``): the tables are
+        rebuilt for the new mesh although the topology did not move (every
+        per-device plan, the operator, the flux correction; the replicated
+        fallback where the new shards would not each hold whole reduction
+        groups), the per-block operands split anew, and the ordered working
+        state gathered and split over the new mesh, its key re-anchored.
+        The slot fields stay whole on the home device. A rebuild that is no
+        topology change keeps the padding's hysteresis and the two-level
+        trigger as they were. Raises ``ValueError`` where the new home is
+        not the sim's device, ``NotImplementedError`` (item 8) for a mesh
+        over other ranks (``shard_halo.check_remesh``)."""
+        check_remesh(self.mesh, mesh)
+        if mesh.home != self.device:
+            raise ValueError(f"re-mesh onto {mesh}: its home is not the "
+                             f"sim's device {self.device}")
+        whole = None if self._ord is None else {
+            k: self._gather(v) for k, v in self._ord.items()}
+        kept = (self._npad_quiet, self._coarse_on, self._last_iters)
+        self.mesh = mesh
+        self._npad_quiet = 0
+        self._tables_version = -1      # force the rebuild
+        self._refresh()
+        self._npad_quiet, self._coarse_on, self._last_iters = kept
+        self._pinv_zero = None
+        if whole is not None:
+            self._ord = {k: self._put_ordered(v) for k, v in whole.items()}
+            self._ord_key = (self.forest.version, self.forest.fields.wver)
+
     def _refresh_impl(self):
         super()._refresh_impl()
         if self._split:
@@ -113,12 +148,10 @@ class ShardedAMRSim(AMRSim):
 
     @staticmethod
     def _gather(x):
-        return gather_blocks(x) if isinstance(x, Blocks) else x
-
-    def _reducers(self):
-        """Split blocks take ``block_reducers``: a dot gathers its operands
-        onto ``mesh.home`` (see the module docstring)."""
-        return block_reducers if self._split else super()._reducers()
+        """The whole ordered tensor (the regrid's tags, the migration, the
+        slot fields): an all-gather of kind "regrid" under a world."""
+        return gather_blocks(x, kind="regrid") if isinstance(x, Blocks) \
+            else x
 
     # -- tables ----------------------------------------------------------
     def _finalize_tables(self, raw: dict, n_pad: int, fc) -> dict:
@@ -128,7 +161,8 @@ class ShardedAMRSim(AMRSim):
         (``cup2d_tpu/parallel/forest_mesh.py:138-177``). Also refreshes
         ``_comm_stats`` from the ``vec3`` plan."""
         D = self.mesh.size
-        self._split = n_pad % D == 0
+        # whole reduction groups on every shard, or the replicated fallback
+        self._split = n_pad % (D * GROUP_BLOCKS) == 0
         if not self._split:
             self._comm_stats = None
             return super()._finalize_tables(raw, n_pad, fc)
@@ -180,7 +214,7 @@ class ShardedAMRSim(AMRSim):
         n_pad = self._npad_hwm
 
         def _deposit(rp):
-            return deposit(gather_blocks(rp))
+            return deposit(gather_blocks(rp, kind="transfers"))
 
         def _interp(ec, like):
             zeros = ec.new_zeros((n_pad,) + tuple(like.shape[1:]))
@@ -195,25 +229,15 @@ class ShardedAMRSim(AMRSim):
             return paint_fine, base_solve, extract_all
 
         def _paint(rdiv):
-            return paint_fine(gather_blocks(rdiv))
+            return paint_fine(gather_blocks(rdiv, kind="transfers"))
 
         def _base(rdiv, racc):
-            return base_solve(gather_blocks(rdiv), racc)
+            return base_solve(gather_blocks(rdiv, kind="transfers"), racc)
 
         def _extract(ec, es):
             return split_blocks(extract_all(ec, es), self.mesh)
 
         return _paint, _base, _extract
-
-    def _precond(self, r):
-        """P_inv r on the whole operand on ``mesh.home``, split back:
-        cuBLAS may pick a split-K GEMM for a shard's few rows (a
-        canonical-run shard holds 256), which reorders the 64-term sums;
-        whole, the GEMM repeats the unsplit step's bits."""
-        if not isinstance(r, Blocks):
-            return super()._precond(r)
-        return split_blocks(apply_block_precond_blocks(
-            gather_blocks(r), self.p_inv), self.mesh)
 
     def _fas_block_smoother(self, A, tpois=None):
         """The composite smoother on the mesh: each sweep one surface

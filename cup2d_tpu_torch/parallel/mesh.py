@@ -12,8 +12,11 @@ and ``parallel.shard_halo`` writes every exchange and reduction out.
 ``ShardedUniformSim`` runs the same numerics and host loop as
 ``UniformSim`` on that layout, under any boundary table (a periodic x
 closes the slabs into a ring); ``fleet.FleetSim(mesh=)`` places a fleet
-on a single-controller mesh. The elastic re-mesh, the mirror tier and
-fleets across processes are not ported (ROADMAP queue 1 item 8).
+on a single-controller mesh. ``ShardedUniformSim.remesh`` re-splits a
+run onto another mesh (``shard_halo.check_remesh``: the same controller
+or the same ranks). The elastic guard with the re-init of a world, the
+mirror tier and fleets across processes are not ported (ROADMAP queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 from ..config import SimConfig
 from ..uniform import FlowState, UniformSim
-from .shard_halo import SlabMesh, gather_x, split_x
+from .shard_halo import SlabMesh, check_remesh, gather_x, split_x
 
 __all__ = ["ShardedUniformSim", "SlabMesh", "make_mesh", "shard_state",
            "unshard_state"]
@@ -95,3 +98,21 @@ class ShardedUniformSim(UniformSim):
     def set_state(self, state: FlowState) -> None:
         """Split a whole state over the mesh and take it."""
         self.state = shard_state(state, self.mesh)
+
+    def remesh(self, mesh: SlabMesh) -> None:
+        """Re-split the run onto ``mesh`` in place
+        (``cup2d_tpu/parallel/mesh.py:126-160``): the state gathered and
+        split anew (``attach_mesh`` rebuilds the split hierarchy), a
+        cached device dt moved to the new home. Raises ``ValueError``
+        (``attach_mesh``) where Nx does not divide by the new mesh's size
+        or its home is not the grid's device, and ``NotImplementedError``
+        (item 8) for a mesh
+        over other ranks (``shard_halo.check_remesh``). The steps that
+        follow equal those of a sim built on ``mesh`` from this state."""
+        check_remesh(self.mesh, mesh)
+        whole = unshard_state(self.state)
+        self.grid.attach_mesh(mesh)
+        self.mesh = mesh
+        self.state = shard_state(whole, mesh)
+        if torch.is_tensor(self._next_dt):
+            self._next_dt = self._next_dt.to(mesh.home)

@@ -35,6 +35,10 @@ shards in two ways only:
    Under a world the partials are all-gathered first (``all_shards``), so
    every rank adds the same terms in the same order and holds the same
    bits: the same dt, residuals and verdicts, so every host branch agrees.
+   The forest's full sums (``block_sum``) take the partials of fixed
+   16-block groups instead, whose order does not depend on the mesh.
+   ``comm_stats`` counts the all-gathers by what they carry
+   (``COMM_KINDS``).
 
 Every stencil the step applies to a split field is written out here: the
 JAX package's GSPMD partitioner inserted the halo exchanges of its
@@ -60,7 +64,7 @@ from ..halo import _paint_regions, _weighted, filter_face_rows
 from ..ops.hopper_kernels import (HALO_MAX_SLABS, _signs, _substage_facs,
                                   _wrap_axes,
                                   advect_substage_halo,
-                                  fused_block_jacobi_update,
+                                  fused_block_jacobi_update, group_sum,
                                   jacobi_halo_sweep,
                                   jacobi_halo_sweep_plain,
                                   jacobi_halo_sweep_slabs)
@@ -78,12 +82,49 @@ MIN_SPLIT_WIDTH = 8
 # both to 0 reads them against the kernel's launch count
 sweep_stats = {"sweeps": 0, "exchanges": 0}
 
-# the traffic between ranks since the counts were last zeroed: all-gathers
-# (reductions, whole operands, gathered levels; the bytes every rank
-# receives, its own part included) and point-to-point messages (edge
-# columns, surface blocks; the bytes this rank sends)
-comm_stats = {"allgathers": 0, "allgather_bytes": 0,
-              "p2p_messages": 0, "p2p_bytes": 0}
+# what an all-gather carries (``all_shards``' ``kind``): reduction partials,
+# the block-Jacobi preconditioner's operand (none since it runs per shard),
+# the forest's two-level and FAS image transfers and base solve, the
+# regrid's tags and migration (slot fields, the shaped start's blend), the
+# forest's surface exchange in "allgather" mode, the uniform step's
+# gathered multigrid levels, and whole fields (dumps, checkpoints, tests)
+COMM_KINDS = ("reductions", "preconditioner", "transfers", "regrid",
+              "surface", "levels", "state")
+
+# the traffic between ranks since the counts were last zeroed
+# (``reset_comm_stats``): all-gathers (the bytes every rank receives, its
+# own part included), in total and by kind (``allgathers.<kind>``,
+# ``allgather_bytes.<kind>``), and point-to-point messages (edge columns,
+# surface blocks; the bytes this rank sends). A single-controller mesh has
+# no such traffic; there ``local_gathers.<kind>`` and
+# ``local_gather_bytes.<kind>`` count the same joins, made by copies onto
+# the home device (every part's bytes)
+comm_stats: dict = {}
+
+
+def reset_comm_stats() -> None:
+    """Zero every count of ``comm_stats``."""
+    comm_stats.clear()
+    comm_stats.update(allgathers=0, allgather_bytes=0, p2p_messages=0,
+                      p2p_bytes=0)
+    for k in COMM_KINDS:
+        for key in ("allgathers", "allgather_bytes", "local_gathers",
+                    "local_gather_bytes"):
+            comm_stats[f"{key}.{k}"] = 0
+
+
+reset_comm_stats()
+
+
+def comm_by_kind(stats: Optional[dict] = None, local: bool = False
+                 ) -> dict:
+    """{kind: (all-gathers, bytes)} of ``stats`` (default ``comm_stats``;
+    any dict of its keys, e.g. per-step means); with ``local`` the joins
+    of a single-controller mesh instead."""
+    st = comm_stats if stats is None else stats
+    a, b = ("local_gathers", "local_gather_bytes") if local else \
+        ("allgathers", "allgather_bytes")
+    return {k: (st[f"{a}.{k}"], st[f"{b}.{k}"]) for k in COMM_KINDS}
 
 
 def canonical_device(d) -> torch.device:
@@ -160,17 +201,39 @@ class SlabMesh:
         return f"SlabMesh({[str(d) for d in self.devices]})"
 
 
-def all_shards(parts, mesh: SlabMesh, device=None) -> list:
+def check_remesh(old: SlabMesh, new: SlabMesh) -> None:
+    """The re-mesh rule: a single-controller mesh may be replaced by any
+    other single-controller mesh, a world's mesh by another over the same
+    ranks (say with another number of shards a rank). A mesh over other
+    ranks, or between a single controller and a world, needs the elastic
+    re-init of the process group, which is not ported."""
+    same = (old.distributed == new.distributed
+            and (not old.distributed
+                 or (old.world == new.world and old.rank == new.rank
+                     and set(old.owners) == set(new.owners))))
+    if not same:
+        raise NotImplementedError(
+            f"re-mesh from {old} onto {new}: a mesh over other ranks needs "
+            "reinit_distributed, which is not ported yet (ROADMAP queue 1 "
+            "item 8)")
+
+
+def all_shards(parts, mesh: SlabMesh, device=None,
+               kind: str = "state") -> list:
     """Every shard's tensor, in shard order, on ``device`` (default
     ``mesh.home``), from this process's ``parts`` (one per local shard,
     or one per local shard and field; under a world as many on every rank,
     each of one shape and dtype): the parts moved there
     on a single-controller mesh, else one all-gather of every rank's
     stacked parts (gathered on ``home``, the rank's own device, so NCCL
-    sees its card). A collective under a world: every rank calls it in
+    sees its card), counted in ``comm_stats`` under ``kind`` (one of
+    ``COMM_KINDS``). A collective under a world: every rank calls it in
     the same order."""
     dev = mesh.home if device is None else torch.device(device)
     if not mesh.distributed:
+        comm_stats[f"local_gathers.{kind}"] += 1
+        comm_stats[f"local_gather_bytes.{kind}"] += sum(
+            p.numel() * p.element_size() for p in parts)
         return [p.to(dev) for p in parts]
     x = torch.stack([p.to(mesh.home) for p in parts])
     flag = x.dtype == torch.bool
@@ -178,8 +241,11 @@ def all_shards(parts, mesh: SlabMesh, device=None) -> list:
         x = x.to(torch.uint8)
     bufs = [torch.empty_like(x) for _ in range(mesh.world)]
     dist.all_gather(bufs, x)
+    nbytes = mesh.world * x.numel() * x.element_size()
     comm_stats["allgathers"] += 1
-    comm_stats["allgather_bytes"] += mesh.world * x.numel() * x.element_size()
+    comm_stats["allgather_bytes"] += nbytes
+    comm_stats[f"allgathers.{kind}"] += 1
+    comm_stats[f"allgather_bytes.{kind}"] += nbytes
     out = torch.cat(bufs)
     if flag:
         out = out.to(torch.bool)
@@ -293,10 +359,10 @@ def split_x(t: torch.Tensor, mesh: SlabMesh) -> Slabs:
     return Slabs(parts, mesh)
 
 
-def gather_x(s: Slabs, device=None) -> torch.Tensor:
+def gather_x(s: Slabs, device=None, kind: str = "state") -> torch.Tensor:
     """The whole field of a split one, on ``device`` (default
-    ``mesh.home``); an all-gather under a world."""
-    return torch.cat(all_shards(s.parts, s.mesh, device), dim=-1)
+    ``mesh.home``); an all-gather (of ``kind``) under a world."""
+    return torch.cat(all_shards(s.parts, s.mesh, device, kind), dim=-1)
 
 
 def reshard(s: Slabs, mesh: SlabMesh) -> Slabs:
@@ -305,8 +371,8 @@ def reshard(s: Slabs, mesh: SlabMesh) -> Slabs:
     if mesh is s.mesh:
         return s
     if mesh.size == 1:
-        return Slabs([gather_x(s, mesh.devices[0])], mesh)
-    return split_x(gather_x(s), mesh)
+        return Slabs([gather_x(s, mesh.devices[0], "levels")], mesh)
+    return split_x(gather_x(s, kind="levels"), mesh)
 
 
 def _neighbours(d: int, D: int, ring: bool):
@@ -393,7 +459,7 @@ def _walls(s: Slabs, ring: bool = False):
 def _combine(partials, mesh: SlabMesh, op=torch.add):
     """The partials of every shard folded by ``op`` in shard order: sums
     in that order on every rank; max, min, and, or exact in any."""
-    acc, *rest = all_shards(partials, mesh)
+    acc, *rest = all_shards(partials, mesh, kind="reductions")
     for p in rest:
         acc = op(acc, p)
     return acc
@@ -997,15 +1063,17 @@ class Blocks:
     block-local step code runs unchanged on split operands; ``shape`` is
     the per-shard shape. A full reduction lands on ``mesh.home``, where
     every scalar of a step lives (on every rank, from an all-gather of
-    the partials or of the operand under a world): ``amax``/``max``, ``amin``/``min``,
+    the partials under a world): ``amax``/``max``, ``amin``/``min``,
     ``all`` and ``any`` without ``dim`` combine the shards' partials (exact
-    in any order); ``sum`` without ``dim`` gathers its operand there and
-    sums it whole, in the unsplit step's order. Per-shard partial sums would
-    part the forest's stalled startup solves from the unsplit run's: they
-    amplify a last-bit difference into an O(1) one within 14 canonical
-    steps. ``axis`` is the block axis of each part (0 for the ordered
-    layout, 1 for a stack of per-shape fields), followed through every
-    op: an op that acts along it (a reduction or ``cat`` over it, an
+    in any order). ``sum`` without ``dim`` refuses: the forest's full sums
+    go through ``block_sum``, whose group partials each shard computes on
+    its own and whose order is the solo forest's, so that a split sum is
+    the unsplit one bit for bit (a sum of per-shard partials in shard
+    order would part the forest's stalled startup solves from the unsplit
+    run's: they amplify a last-bit difference into an O(1) one within 14
+    canonical steps). ``axis`` is the block axis of each part (0 for the
+    ordered layout, 1 for a stack of per-shape fields), followed through
+    every op: an op that acts along it (a reduction or ``cat`` over it, an
     index, ``index_select``, ``gather`` or ``narrow`` on it, a reshape that
     merges it) would see one shard's blocks only and raises
     ``TypeError``; None where an op's result cannot tell (no check then).
@@ -1029,8 +1097,10 @@ class Blocks:
                             "blocks has no per-shard form: gather first")
         full = func in _REDUCTIONS and _full_reduction(func, args, kwargs)
         if full and func in _FULL_SUM:
-            # the whole operand, summed as the unsplit step sums it
-            return func(gather_blocks(args[0]), *args[1:], **kwargs)
+            raise TypeError(
+                "a full sum of split blocks has no per-shard form of the "
+                "solo run's order: use parallel.shard_halo.block_sum (the "
+                "forest's group partials), or gather first")
         first = _first_blocks((args, tuple(kwargs.values())))
         mesh = first.mesh
         outs = _per_part(func, args, kwargs, mesh)
@@ -1110,26 +1180,79 @@ def split_blocks(x: torch.Tensor, mesh: SlabMesh) -> Blocks:
                    for d in mesh.local], mesh)
 
 
-def gather_blocks(b: Blocks, device=None) -> torch.Tensor:
+def gather_blocks(b: Blocks, device=None, kind: str = "state"
+                  ) -> torch.Tensor:
     """The whole ordered tensor of split blocks, joined along their block
-    axis, on ``device`` (default ``mesh.home``); an all-gather under a
-    world."""
+    axis, on ``device`` (default ``mesh.home``); an all-gather (of
+    ``kind``) under a world."""
     if b.axis is None:
         raise TypeError("split blocks whose block axis is unknown: gather "
                         "them before the op that hid it")
-    return torch.cat(all_shards(b.parts, b.mesh, device), dim=b.axis)
+    return torch.cat(all_shards(b.parts, b.mesh, device, kind), dim=b.axis)
+
+
+# ordered blocks per reduction group: 1,024 cells at BS 8; n_pad (a power
+# of two, at least 128) over D <= 8 shards gives whole groups per shard
+GROUP_BLOCKS = 16
+
+
+def _group_partials(a, c, acc, axis: int) -> torch.Tensor:
+    """The [P, G] group partials of one local tensor whose block axis
+    ``axis`` holds G whole groups (P the product of the dims before it):
+    each group's values (with c: its products) summed by ``group_sum``'s
+    tree in ``acc``."""
+    if c is not None:
+        a, c = torch.broadcast_tensors(a, c)
+    shape = a.shape
+    n = shape[axis]
+    if n % GROUP_BLOCKS:
+        raise ValueError(f"{n} blocks along axis {axis}: a full forest "
+                         f"reduction takes whole groups of {GROUP_BLOCKS}")
+    P = math.prod(shape[:axis])
+    G = n // GROUP_BLOCKS
+    rows = (P * G, GROUP_BLOCKS * math.prod(shape[axis + 1:]))
+    a = a.contiguous().reshape(rows)
+    if c is not None:
+        c = c.contiguous().reshape(rows)
+    return group_sum(a, c, acc).reshape(P, G)
+
+
+def block_sum(a, c=None, dtype=None, axis: int = 0):
+    """The full sum of a forest operand over its ordered blocks (with
+    ``c``, of the products a * c, each rounded in a's dtype), accumulated
+    in ``dtype`` (default a's): the partials of the groups of
+    ``GROUP_BLOCKS`` consecutive blocks (``group_sum``: one fixed tree a
+    group), then one ``torch.sum`` of them, in block order, on the home
+    device. Split ``Blocks`` compute their own groups' partials on their
+    devices, and only the partial vectors are gathered (one all-gather
+    under a world, P x n_pad / 16 values), so a split forest adds the solo
+    forest's terms in its order, bit for bit, and every rank holds the
+    same bits. ``axis`` is a plain tensor's block axis (``Blocks`` know
+    theirs). The one form of every full reduction of the forest: the
+    solves' dots, the projection's means, the energy, the obstacle and
+    force integrals."""
+    b = a if isinstance(a, Blocks) else c if isinstance(c, Blocks) else None
+    acc = dtype or a.dtype
+    if b is None:
+        return torch.sum(_group_partials(a, c, acc, axis))
+    if b.axis is None:
+        raise TypeError("split blocks whose block axis is unknown: a full "
+                        "sum needs it")
+    ax = b.axis
+    parts = _per_part(lambda x, y=None: _group_partials(x, y, acc, ax),
+                      (a,) if c is None else (a, c), {}, b.mesh)
+    return torch.sum(torch.cat(all_shards(parts, b.mesh, kind="reductions"),
+                               dim=1))
 
 
 def block_reducers(dt_, sum_dtype):
-    """``poisson._reducers`` for split blocks: (dot, linf, zeros_like). A
-    dot product gathers its operands onto ``mesh.home`` and runs
-    the whole-field dot, so that it adds the same terms in the same order
-    as the unsplit solve; linf combines the shards' maxima."""
-    from ..poisson import _reducers
-    whole_dot = _reducers(dt_, sum_dtype)[0]
-
+    """``poisson._reducers`` of the forest's ordered blocks, split or
+    whole: (dot, linf, zeros_like). A dot is ``block_sum``'s dot form in
+    ``sum_dtype`` (default the field dtype), cast back to the field dtype;
+    linf combines the shards' maxima. The solo and the split forest take
+    the same dots bit for bit."""
     def dot(a, c):
-        return whole_dot(gather_blocks(a), gather_blocks(c))
+        return block_sum(a, c, sum_dtype or dt_).to(dt_)
 
     def linf(a):
         return torch.amax(torch.abs(a))
@@ -1246,7 +1369,7 @@ def _exchange_surface(parts, t) -> list:
     if t.mode == "allgather":
         bufs = [parts[i].index_select(0, t.pack_dev[e][0])
                 for i, e in enumerate(mesh.local)]
-        whole = torch.cat(all_shards(bufs, mesh))
+        whole = torch.cat(all_shards(bufs, mesh, kind="surface"))
         return [whole.to(mesh.devices[d]) for d in mesh.local]
     chunks = [[] for _ in mesh.local]
     msgs, tag = [], 0

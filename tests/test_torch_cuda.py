@@ -46,12 +46,14 @@ pass indexes past every block's lab without a device-side assert. The
 device snapshot ring: a snapshot clones every field and reads nothing,
 the lagged guard is bit for bit the eager run, and one entry restores
 twice, each restore and replay bit for bit the uninterrupted steps. The
-forest on four shards of the card follows the solo forest (equal
-topologies and iterations, 1e-5 relative; bit for bit in practice) with
-the lab RHS launched once a shard and stage and the block-Jacobi update
-once a shard and sweep; both kernels hold their twins on one shard's
-operands; the C regrid helper builds on the card's host and adapts as
-the Python sweep; ``CUP2D_POIS=tables`` and the bf16 FAS legs follow the
+forest on four shards of the card follows the solo forest bit for bit
+(equal topologies and iterations) with the lab RHS launched once a shard
+and stage, the block-Jacobi update once a shard and sweep and once a shard
+and P_inv r, and the group partials once a shard and reduction; both
+kernels hold their twins on one shard's operands; ``group_sum.cu`` is its
+twin bit for bit at any number of rows, and kernel 8's P_inv r form gives
+a block the same bits in calls of any size; the C regrid helper builds
+on the card's host and adapts as the Python sweep; ``CUP2D_POIS=tables`` and the bf16 FAS legs follow the
 CPU (1e-4, and the 2e-2 bf16 band). The periodic tables on the split
 step: the halo substage's wrap form over a ring exchange and the halo
 sweep's y-wrap forms (per slab and as the slab list) reproduce the solo
@@ -1479,11 +1481,12 @@ def _vortex_start(cuda):
 @pytest.mark.parametrize("pois", ["structured", "fas"])
 def test_sharded_forest_on_one_card_matches_solo(cuda, monkeypatch, pois):
     """A ShardedAMRSim on four shards of the card follows the solo AMRSim
-    through an adapt and six production steps: equal topologies and
-    iterations, state within 1e-5 relative (bit for bit where the card's
-    GEMMs and reductions repeat their order at the shard's block count),
-    the lab RHS launched once a shard and stage, the block-Jacobi update
-    once a shard and sweep under fas."""
+    through an adapt and six production steps bit for bit: equal
+    topologies and iterations, the same state (every full reduction takes
+    the group partials of ``group_sum.cu`` in one order, P_inv r runs as
+    kernel 8 per shard); the lab RHS, kernel 8 (the P_inv r form too) and
+    the group partials launched once a shard where solo launches once,
+    the block-Jacobi sweeps only under fas."""
     from cup2d_tpu_torch.amr import AMRSim
     from cup2d_tpu_torch.parallel.forest_mesh import ShardedAMRSim
     cfg, snap = _vortex_start(cuda)
@@ -1503,12 +1506,13 @@ def test_sharded_forest_on_one_card_matches_solo(cuda, monkeypatch, pois):
     (it_a, la, ka, sa), (it_b, lb, kb, sb) = out["solo"], out["split"]
     assert ka == kb and it_a == it_b
     for k in ("vel", "pres"):
-        rel = float((sb[k] - sa[k]).abs().max() / sa[k].abs().max())
-        assert rel <= 1e-5, (k, rel)
+        assert torch.equal(sb[k], sa[k]), k
     assert lb["fused_lab_rhs"] == 4 * la["fused_lab_rhs"] == 4 * 12
-    assert lb["fused_block_jacobi_update"] \
-        == 4 * la["fused_block_jacobi_update"]
-    assert (lb["fused_block_jacobi_update"] > 0) == (pois == "fas")
+    for k in ("fused_block_jacobi_update", "fused_block_jacobi_update+pinv",
+              "group_sum"):
+        assert lb[k] == 4 * la[k] > 0, k
+    assert (la["fused_block_jacobi_update"]
+            > la["fused_block_jacobi_update+pinv"]) == (pois == "fas")
 
 
 def test_per_shard_kernels_match_twins(cuda):
@@ -1547,6 +1551,77 @@ def test_per_shard_kernels_match_twins(cuda):
         ref = hk.block_jacobi_plain(e.parts[d], r.parts[d], lap, p_inv)
         assert float((got - ref).abs().max()) \
             <= 2e-6 * float(ref.abs().max())
+
+
+GROUP_FORMS = [(torch.float32, torch.float32),
+               (torch.float32, torch.float64),
+               (torch.float64, torch.float64)]
+
+
+@pytest.mark.parametrize("dot", [False, True], ids=["sum", "dot"])
+@pytest.mark.parametrize("ind,acc", GROUP_FORMS,
+                         ids=["f32", "f32-into-f64", "f64"])
+@pytest.mark.parametrize("m", [1024, 2048, 16, 7])
+def test_group_sum_kernel_is_its_twin_bit_for_bit(cuda, dot, ind, acc, m):
+    """group_sum.cu against its twin at 1, 8, 256 and 1,024 rows: the same
+    bits, and a row's bits whatever the rows of the launch."""
+    g = torch.Generator(device="cpu").manual_seed(m)
+    a = torch.randn(1024, m, generator=g).to(ind).to(cuda)
+    c = torch.randn(1024, m, generator=g).to(ind).to(cuda) if dot else None
+    hk.reset_launches()
+    first = hk.group_sum(a[:1], None if c is None else c[:1], acc)
+    for G in (1, 8, 256, 1024):
+        args = (a[:G], None if c is None else c[:G])
+        got = hk.group_sum(*args, acc)
+        assert got.dtype == acc and torch.equal(
+            got, hk.group_sum_plain(*args, acc)), G
+        assert torch.equal(got[:1], first), G
+    torch.cuda.synchronize()
+    assert hk.launches["group_sum"] == 5
+
+
+def test_group_sum_refuses_what_the_kernel_does_not_take(cuda):
+    a = torch.zeros(4, 16, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        hk.group_sum(a, None, torch.float32)
+    with pytest.raises(ValueError):
+        hk.group_sum(torch.zeros(2, 9000, device=cuda))
+    with pytest.raises(ValueError):
+        hk.group_sum(torch.zeros(4, 16, device=cuda).t())
+
+
+def test_block_precond_kernel_rows_whatever_n(cuda):
+    """Kernel 8 as P_inv r (e = lap = 0): within 2e-6 relative of its twin,
+    and a block's bits the same in calls of 16, 1,000 and 16,384 blocks
+    (the solo forest's and a shard's)."""
+    p_inv = torch.tensor(block_precond_matrix(8), dtype=torch.float32,
+                         device=cuda)
+    r = _rand((16384, 8, 8), 7, cuda)
+    zero = torch.zeros_like(r)
+    hk.reset_launches()
+    want = hk.block_precond(r, p_inv, zero)
+    ref = hk.block_precond_plain(r, p_inv)
+    assert float((want - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
+    for n in (16, 1000):
+        got = hk.block_precond(r[:n].contiguous(), p_inv, zero[:n])
+        assert torch.equal(got, want[:n]), n
+    torch.cuda.synchronize()
+    assert hk.launches["fused_block_jacobi_update+pinv"] == 3
+    assert hk.launches["fused_block_jacobi_update"] == 3
+
+
+def test_block_sum_on_four_shards_of_the_card_equals_solo(cuda):
+    """``shard_halo.block_sum`` of blocks split over four shards of the
+    card (each shard's group partials, then one sum) is the whole
+    operand's bit for bit, the dot (f32 products, f64 partials) and the
+    sum."""
+    from cup2d_tpu_torch.parallel.shard_halo import block_sum, split_blocks
+    x, y = _rand((2048, 8, 8), 8, cuda), _rand((2048, 8, 8), 9, cuda)
+    mesh = make_mesh(devices=[cuda] * 4)
+    bx, by = split_blocks(x, mesh), split_blocks(y, mesh)
+    assert torch.equal(block_sum(bx, by, torch.float64),
+                       block_sum(x, y, torch.float64))
+    assert torch.equal(block_sum(bx), block_sum(x))
 
 
 def test_native_regrid_helper_on_the_card_host(cuda):

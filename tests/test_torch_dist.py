@@ -24,6 +24,10 @@ on the CPU: worlds of 2 ranks, 2 shards each, spawned with
   byte-equal to the single-process ``-mesh 4`` run's, one metrics record a
   step, and its two-process restart, whose checkpoint and dumps equal the
   uninterrupted single-process run's.
+* A world re-meshed mid-run from 2 shards a rank to 1 (the forest and
+  Taylor-Green): bit for bit the single-process run re-meshed from 4
+  shards to 2; its forest step gathered group partials only, and no
+  preconditioner operand.
 * The refusals that stay (item 8), and a world whose peer never comes,
   which fails inside its timeout with the expected process count."""
 
@@ -111,6 +115,50 @@ def vortex_run(mesh, exchange: str) -> dict:
                                 for _ in range(2)])}
     for k, v in sim._ordered_state().items():
         out[k] = sim._gather(v)[:sim._n_real].numpy()
+    return out
+
+
+def remesh_run(mesh, smaller) -> dict:
+    """A world re-meshed mid-run from 2 shards a rank to 1 (``smaller()``
+    builds the new mesh): the vortex forest of ``vortex_run`` under the
+    default solver (an adapt, a production step whose all-gathers are
+    counted by kind, the re-mesh, 2 steps) and Taylor-Green (a step, the
+    re-mesh, 2 steps); the whole states and iterations after each step."""
+    from cup2d_tpu_torch.amr import vortex_forest
+    from cup2d_tpu_torch.convert import forest_from_numpy, forest_to_numpy
+    from cup2d_tpu_torch.parallel import shard_halo
+    from cup2d_tpu_torch.parallel.forest_mesh import ShardedAMRSim
+    from cup2d_tpu_torch.parallel.mesh import ShardedUniformSim, unshard_state
+    from cup2d_tpu_torch.uniform import taylor_green_state
+    f = vortex_forest(target=300, level_start=3, level_max=5, device="cpu",
+                      dtype="float64")
+    cfg, snap = f.cfg, forest_to_numpy(f)
+    sim = ShardedAMRSim(cfg, mesh, shapes=[])
+    forest_from_numpy(sim, *snap)
+    sim.step_count = 10
+    sim.adapt()
+    shard_halo.reset_comm_stats()
+    its = [sim.step_once()["poisson_iters"]]
+    out = {"forest/npad": np.asarray(sim._npad_hwm)}
+    out.update({f"forest/comm/{k}": np.asarray(v) for k, v in
+                shard_halo.comm_by_kind().items()})
+    new = smaller()
+    sim.remesh(new)
+    its += [sim.step_once()["poisson_iters"] for _ in range(2)]
+    out["forest/iters"] = np.asarray(its)
+    out["forest/parts"] = np.asarray(len(sim._ordered_state()["vel"].parts))
+    for k, v in sim._ordered_state().items():
+        out[f"forest/{k}"] = sim._gather(v)[:sim._n_real].numpy()
+    tg = ShardedUniformSim(_tg_cfg(), mesh, level=LEVEL)
+    tg.set_state(taylor_green_state(tg.grid))
+    tg.step_count = 10
+    tg.step_once()
+    tg.remesh(new)
+    for k in range(2):
+        tg.step_once()
+        st = unshard_state(tg.state)
+        out[f"tg/{k}/vel"] = st.vel.numpy()
+        out[f"tg/{k}/pres"] = st.pres.numpy()
     return out
 
 
@@ -281,6 +329,8 @@ def _worker(scenario: str, rank: int, world: int, port: int,
             for mode in ("allgather", "ppermute"):
                 arrays.update({f"vortex-{mode}/{k}": v for k, v in
                                vortex_run(mesh, mode).items()})
+            arrays.update({f"remesh/{k}": v for k, v in remesh_run(
+                mesh, lambda: world_mesh(2, "cpu")).items()})
             np.savez(os.path.join(outdir, f"uniform.r{rank}.npz"), **arrays)
         elif scenario == "forest":
             res.update(forest_run(mesh, outdir, rank))
@@ -396,6 +446,28 @@ def test_forest_surface_exchange_modes_across_ranks(uniform_world, mode):
         for r in ranks:
             np.testing.assert_array_equal(r[f"vortex-{mode}/{k}"], v,
                                           err_msg=k)
+
+
+def test_world_remesh_to_one_shard_a_rank(uniform_world):
+    """A 2-rank world re-meshed from 2 shards a rank to 1 mid-run, the
+    forest and Taylor-Green: bit for bit the single-process run re-meshed
+    from 4 shards to 2, and the same on both ranks. The forest's
+    production step before it gathered no preconditioner operand and, per
+    reduction, at most one f64 partial per 16-block group."""
+    from cup2d_tpu_torch.parallel.mesh import make_mesh
+    _, ranks = uniform_world
+    solo = remesh_run(_cpu4(), lambda: make_mesh(devices=["cpu"] * 2))
+    for k, v in solo.items():
+        if "/comm/" in k or k.endswith("/parts"):   # per process
+            continue
+        for r in ranks:
+            np.testing.assert_array_equal(r[f"remesh/{k}"], v, err_msg=k)
+    for r in ranks:
+        assert int(r["remesh/forest/parts"]) == 1
+        n, nbytes = r["remesh/forest/comm/preconditioner"]
+        assert n == 0 and nbytes == 0
+        n, nbytes = r["remesh/forest/comm/reductions"]
+        assert n > 0 and nbytes <= n * int(r["remesh/forest/npad"]) // 16 * 8
 
 
 def _jax_run(case: str, pois: str) -> dict:

@@ -20,9 +20,11 @@ the CPU, the shards on ``["cpu"] * D``.
   operator): velocity and pressure <= 1e-10, equal iterations, equal
   block sets. The JAX package's own ``ShardedAMRSim`` trajectory is
   no oracle here: its sharded smoother fails under jax 0.9.0.
-* Against the port's own ``AMRSim`` (<= 1e-11; the split step sums every
-  full reduction whole, so it is bit for bit on the CPU): D = 3 (the
-  replicated fallback), the ``allgather`` exchange, and the shaped
+* Against the port's own ``AMRSim`` (<= 1e-11; every full reduction of
+  both sums the same 16-block group partials in the same order
+  (``shard_halo.block_sum``), so the split step is bit for bit on the
+  CPU): D = 3 (the replicated fallback), the ``allgather`` exchange, and
+  the shaped
   canonical forest at levelMax 6 through ``initialize()``, the exact
   startup steps and an adapt.
 * Split snapshots: the device ring clones every shard, and a restore
@@ -476,6 +478,11 @@ def test_blocks_ops_beside_the_block_axis_follow_it():
         got = fn(b)
         assert got.axis == axis
         assert torch.equal(tsh.gather_blocks(got), fn(x))
-    # full reductions still combine every shard
-    assert torch.equal(torch.sum(b), torch.sum(x))
+    # full reductions still combine every shard: a sum through the
+    # forest's group partials (whole groups of 16 blocks on each shard),
+    # bit for bit the helper's solo value; a bare full sum refuses
+    xg, bg = _split_pair(n=64)
+    assert torch.equal(tsh.block_sum(bg), tsh.block_sum(xg))
+    with pytest.raises(TypeError, match="block_sum"):
+        torch.sum(bg)
     assert torch.equal(torch.amax(b), torch.amax(x))
