@@ -282,8 +282,8 @@ the result lines:
    phase 5's forest (after one production step: its cold solve paid
    once) and the 8192^2 ``UniformSim`` (``bench_state``),
    under both solvers, 7 production steps eager and under
-   ``StepGuard(snap_every=4)``, four runs in turns (eager, lagged, lagged,
-   eager): bit for bit (fields, clock, step count), the reads of each
+   ``StepGuard(snap_every=4)``, two runs in turns (eager, lagged): bit
+   for bit (fields, clock, step count), the reads of each
    step (the lagged runs no more in all), host ms a step, ms a step over
    steps 3-6 between two synchronizes, the card's idle share over a
    ``torch.profiler`` window of the last step, the ring's bytes, then
@@ -295,13 +295,13 @@ the result lines:
    f32 operands. Files under build/phase15, removed at the end.
 16. fleets and the serving pool (``fleet.FleetSim``, ``FleetServer``):
    bench.run_fleet's arm (the amplitude-laddered Taylor-Green fleet,
-   production steps, 2 warm-up steps, one synchronized window of 5, f32)
+   production steps, 1 warm-up step, one synchronized window of 3, f32)
    at 256^2 with B = 1, 8, 64 and at 1024^2 with B = 1, 8, 32, under the
    default solver and fas: ms a step, member-steps/s and the idle share
    of one ``torch.profiler`` step at each B (no bar). The card bars: B = 1
    bit for bit ``UniformSim`` at 256^2 through 4 steps from t = 0, with
    no more reads; each member of a B = 8 fleet at 1024^2 (the benchmark
-   velocity at amplitudes 0.8**m, 3 production steps) within 1e-5
+   velocity at amplitudes 0.8**m, 2 production steps) within 1e-5
    relative of its solo run with equal iterations, both solvers; a B = 4
    fleet at 64^2, 12 steps, card against CPU within 1e-4. Serving:
    ``main()`` in process, ``-fleet 8 -serve 24`` at 1024^2 (the README's
@@ -373,11 +373,11 @@ the result lines:
    a one-rank NCCL world in this process (NCCL takes no two ranks on one
    card) and its 4-shard world mesh on the card, whose reductions and
    gathers all go through NCCL all-gathers: (a) ``tgv_periodic`` at
-   8192^2, default and fas, the exact startup step and 3 production
+   8192^2, default and fas, the exact startup step and 2 production
    steps, bit for bit (state and iterations) the same run on a
    single-controller 4-slab mesh (phase 18 (b)'s run); (b) phase 5's
    forest after its warm-up step (phase 15's start) on 4 shards, an
-   adapt and 4 production steps under each solver, bit for bit
+   adapt and 3 production steps under each solver, bit for bit
    (topology, state, iterations) the
    single-controller run (phase 17's), with the bytes its replicated
    whole work all-gathers a step; (c) a collective ``save_checkpoint`` /
@@ -387,12 +387,30 @@ the result lines:
    launches of kernels 3, 4, 7 and 8 from 0 over the world runs alone,
    each > 0; no twin called on the card's operands; the group torn down
    at the end (files under build/phase19, removed).
+20. elastic recovery (``resilience.TopologyGuard``,
+   ``StepGuard.elastic_recover``, the mirror tier): ``MESH_D`` = 4 shards
+   of the card grouped into 2 simulated hosts, ``miss_k`` 1, from a
+   checkpoint at step 10 with the loss at the next boundary, each drill
+   bit for bit (state, clock) a fresh 2-shard run restarted from that
+   checkpoint to step 12: (a) phase 7's uniform 8192^2 run under both
+   solvers loses host 1 (``host_exit``) and resumes from the ring; (b)
+   with the mirror on and the host's bytes destroyed (``shard_loss``),
+   from the mirror; (c) with the mirrors corrupted first
+   (``mirror_corrupt``), one ``mirror_reject`` and the disk rung; (d) 6
+   steps with the mirror off, then on, bit-equal with equal device reads,
+   the mirror's bytes, its capture's host ms and the step ms each way;
+   (e) phase 5's forest after its warm-up (phase 15's start), default
+   solver, from the ring, the mirror latched off for its payload. Each
+   drill's re-mesh ms; launches of kernels 3, 7, 4, 8 (P_inv r) and
+   ``group_sum.cu`` after the re-meshes, each > 0; counts from 0 over the
+   phase; no twin called on the card's operands (files under
+   build/phase20, removed).
 
 Then one JSON line of per-kernel numbers (with, per kernel, its launches
 on the two flagship runs, the two canonical runs, phase 13's runs,
 phase 15's supervised runs, phase 16's fleet runs, phase 17's split
-forest runs, phase 18's split periodic and placed fleet runs and phase
-19's world runs and, for the
+forest runs, phase 18's split periodic and placed fleet runs, phase
+19's world runs and phase 20's elastic drills and, for the
 flagship's and the canonical run's kernels, their
 numbers at those shapes), the card's name and power limit
 as nvidia-smi prints them, and the result line
@@ -3864,6 +3882,9 @@ DRILLS = (("retry", f"nan_vel@{DRILL_STEP}", None, ["retry"], 0),
 LAG_STEPS = 7            # with snap_every 4: the anchor after 4, 3 replayed
 LAG_WARM = 2             # the first production steps: dt and trigger settle
 LAG_TRACE = (6, 7)       # the torch.profiler window: the last step
+# the runs in turns, lagged or not (eager, lagged, lagged, eager was cut
+# to these two to make room for phase 20)
+LAG_TURNS = (False, True)
 SUPERVISED_KEYS = ("fused_advect_heun", "fused_lab_rhs", "fused_correction",
                    "fused_jacobi_sweeps", "fused_block_jacobi_update")
 FOREST_TWINS = TWINS + ("fused_lab_rhs_plain", "block_jacobi_plain",
@@ -4132,14 +4153,14 @@ def lag_run(sim, guarded: bool, trace: str) -> dict:
 
 
 def lag_pair(dev, label: str, mk, card: str) -> dict:
-    """Four runs of one obstacle-free driver from the same state, in
-    turns: eager, lagged, lagged, eager. Each bit for bit the first (the
+    """Runs of one obstacle-free driver from the same state, in turns
+    (``LAG_TURNS``: eager, lagged). Each bit for bit the first (the
     fields, the clock, the step count), the lagged ones with no more reads
     than the eager and no gather; then the first lagged run's anchor
     restored and its 3 steps replayed: bit for bit again."""
     base = os.path.join(PHASE15_DIR, label.replace(" ", "_"))
     runs, ref, first_lagged = [], None, None
-    for k, guarded in enumerate((False, True, True, False)):
+    for k, guarded in enumerate(LAG_TURNS):
         sim = mk()
         r = lag_run(sim, guarded, f"{base}_{k}.json")
         guard = r.pop("guard")
@@ -4176,15 +4197,13 @@ def lag_pair(dev, label: str, mk, card: str) -> dict:
     out = {"eager": runs[0], "lagged": runs[1], "bit_for_bit": True,
            "replay_bit_for_bit": True, **first_lagged,
            "timed_ms_in_turns": {
-               "eager": [runs[0]["timed_ms_per_step"],
-                         runs[3]["timed_ms_per_step"]],
-               "lagged": [runs[1]["timed_ms_per_step"],
-                          runs[2]["timed_ms_per_step"]]},
+               name: [r["timed_ms_per_step"] for r, g in
+                      zip(runs, LAG_TURNS) if g == guarded]
+               for name, guarded in (("eager", False), ("lagged", True))},
            "idle_in_turns": {
-               "eager": [runs[0]["trace"]["idle_share"],
-                         runs[3]["trace"]["idle_share"]],
-               "lagged": [runs[1]["trace"]["idle_share"],
-                          runs[2]["trace"]["idle_share"]]},
+               name: [r["trace"]["idle_share"] for r, g in
+                      zip(runs, LAG_TURNS) if g == guarded]
+               for name, guarded in (("eager", False), ("lagged", True))},
            "card": card}
     del ref
     print(f"phase 15 lag {label} {json.dumps(out)}", flush=True)
@@ -4283,9 +4302,10 @@ PHASE16_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # iterates every step
 FLEET_CURVES = (("tg", 256, (1, 8, 64)), ("tg", 1024, (1, 8, 32)),
                 ("turb2d", 1024, (1, 8, 32)))
-FLEET_WARM, FLEET_STEPS = 2, 3
+FLEET_WARM, FLEET_STEPS = 1, 3
 FLEET_KEYS = ("fused_advect_heun", "fused_correction", "fused_jacobi_sweeps")
 FLEET_SOLO_REL = 1e-5      # a member against its solo run (PERF.md §2)
+FLEET_BAR_STEPS = 2        # the B = 8 bar's production steps
 # the README's fleet flags at 1024^2 (-level 7), f32, 24 staggered
 # sessions through 8 slots: horizons 0.003..0.006 at dt ~2.4e-4 (the
 # diffusive limit), 13-25 steps a session, three sessions a slot
@@ -4376,7 +4396,8 @@ def fleet_card_bars(dev) -> dict:
     """B = 1 against ``UniformSim`` at 256^2 from t = 0 (4 of the exact
     startup solves): bit for bit, clocks equal, no more reads; each
     member of a B = 8 fleet at 1024^2 (the benchmark velocity at
-    amplitudes 0.8**m, 3 production steps) against its solo run:
+    amplitudes 0.8**m, ``FLEET_BAR_STEPS`` production steps) against its
+    solo run:
     <= FLEET_SOLO_REL relative with equal iterations; a B = 4 fleet at
     64^2, 12 steps from t = 0, card against CPU <= TRAJ_REL."""
     from cup2d_tpu_torch import shapes_host
@@ -4421,7 +4442,7 @@ def fleet_card_bars(dev) -> dict:
             s.step_count = 20
             solos.append(s)
         worst, iters_equal, iters = 0.0, True, []
-        for _ in range(3):
+        for _ in range(FLEET_BAR_STEPS):
             d = f.step_once()
             ds = [s.step_once() for s in solos]
             iters.append(d["poisson_iters"].tolist())
@@ -5527,8 +5548,8 @@ def phase_periodic_mesh(dev, res, card: str, fleet16: dict
 
 PHASE19_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "phase19")
-DIST_STEPS = 3            # (a): production steps after the startup step
-DIST_FOREST_STEPS = 4     # (b): production steps after the adapt
+DIST_STEPS = 2            # (a): production steps after the startup step
+DIST_FOREST_STEPS = 3     # (b): production steps after the adapt
 DIST_KEYS = ("advect_substage_halo", "jacobi_halo_sweep", "fused_lab_rhs",
              "fused_block_jacobi_update", "fused_block_jacobi_update+pinv",
              "group_sum")
@@ -5757,6 +5778,314 @@ def phase_dist(dev, forest_start: tuple, card: str, size: int = 8192
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: elastic recovery (resilience.TopologyGuard, StepGuard.
+# elastic_recover, the mirror tier)
+# ---------------------------------------------------------------------------
+
+PHASE20_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase20")
+# from step 10 (production solves): the checkpoint of the start (the
+# benchmark state, the same for both solvers, so written once), the loss
+# at the next boundary (the step in flight on the lost topology is
+# dropped, so the ring's anchor, the guard's seed, and the checkpoint hold
+# the same step), 2 steps on the survivors
+ELASTIC_START = ELASTIC_CK = 10
+ELASTIC_END = 12
+ELASTIC_SPEC = f"host_exit@{ELASTIC_CK + 1}"
+ELASTIC_ONOFF_STEPS = 6    # (d): steps with the mirror off, then on
+# the kernels a resumed run launches: the split uniform step's (7 under
+# fas only) and the split forest's under the default solver
+ELASTIC_UNIFORM_KEYS = ("advect_substage_halo", "jacobi_halo_sweep")
+ELASTIC_FOREST_KEYS = ("fused_lab_rhs", "fused_block_jacobi_update+pinv",
+                       "group_sum")
+
+
+def elastic_events(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(x) for x in f if x.strip()]
+
+
+def elastic_drill(dev, sim, spec: str, ck: str, save, mirror: bool,
+                  label: str) -> dict:
+    """Drive ``sim`` (split over ``MESH_D`` shards of the card, grouped
+    into 2 simulated hosts) under a ``StepGuard`` from ``ELASTIC_START``
+    to ``ELASTIC_END``: the checkpoint ``ck`` at ``ELASTIC_CK`` (written
+    by ``save(ck)`` where given), the faults ``spec`` at the boundaries,
+    the loss recovered in place. Returns the rung, the events, the re-mesh
+    ms, the launches made after the re-mesh and the final whole state."""
+    from cup2d_tpu_torch.faults import FaultPlan
+    from cup2d_tpu_torch.resilience import (EventLog, PreemptionGuard,
+                                            StepGuard, TopologyGuard)
+    log_path = os.path.join(PHASE20_DIR, f"{label}.events.jsonl")
+    log = EventLog(log_path)
+    plan = FaultPlan(spec)
+    topo = TopologyGuard(sim.mesh, sim_hosts=2, miss_k=1, faults=plan,
+                         event_log=log)
+    guard = StepGuard(sim, ckpt_dir=ck, event_log=log, faults=plan,
+                      snap_every=1, mirror_hosts=2 if mirror else None)
+    stop = PreemptionGuard()
+    saved, before, remesh_s = False, None, None
+    mirror_bytes = 0
+    while sim.step_count < ELASTIC_END:
+        if not saved and sim.step_count == ELASTIC_CK:
+            guard.drain()
+            if save is not None:
+                save(ck)
+            saved = True
+        beat = topo.step_boundary(stop, sim.step_count)
+        check(not beat.hung and not beat.self_lost,
+              f"phase 20 {label}: beat {beat}")
+        if beat.lost:
+            # the anchor's and the step in flight's mirrors
+            mirror_bytes = guard.mirror_nbytes()
+            sync(dev)
+            t0 = time.perf_counter()
+            guard.elastic_recover(topo)
+            sync(dev)
+            remesh_s = time.perf_counter() - t0
+            before = dict(hk.launches)
+            continue
+        guard.step()
+    guard.drain()
+    sync(dev)
+    log.close()
+    check(before is not None, f"phase 20 {label}: no loss was declared")
+    ev = elastic_events(log_path)
+    remesh = [e for e in ev if e["event"] == "remesh"]
+    return {"source": guard.restore_source,
+            "remesh_ms": guard.remesh_ms_total, "remesh_s": remesh_s,
+            "mirror_rejects": sum(e["event"] == "mirror_reject" for e in ev),
+            "remesh_event": {k: remesh[0][k] for k in
+                             ("source", "step", "devices", "epoch")}
+            if len(remesh) == 1 else remesh,
+            "mirror_bytes": mirror_bytes,
+            "mirror_latched_off": guard.mirror_hosts is None,
+            "shards_after": sim.mesh.size,
+            "launches_after_remesh": {k: hk.launches[k] - before[k]
+                                      for k in hk.launches
+                                      if hk.launches[k] > before[k]},
+            "state": _elastic_state(sim), "time": sim.time,
+            "step": sim.step_count}
+
+
+def _elastic_state(sim) -> dict:
+    if hasattr(sim, "forest"):
+        st = _gathered(sim)
+        return {k: v[:sim._n_real] for k, v in st.items()} | {
+            "__keys": torch.as_tensor(
+                np.asarray(sorted(sim.forest.blocks), np.int64))}
+    return {k: gather_x(v) for k, v in sim.state._asdict().items()}
+
+
+def elastic_restart(sim, ck: str) -> dict:
+    """The fresh run on 2 shards from the checkpoint: ``sim`` built there,
+    the checkpoint loaded and stepped under a guard to ``ELASTIC_END``."""
+    from cup2d_tpu_torch.io import load_checkpoint
+    from cup2d_tpu_torch.resilience import StepGuard
+    load_checkpoint(ck, sim)
+    check(sim.step_count == ELASTIC_CK, "phase 20: checkpoint step")
+    g = StepGuard(sim, snap_every=1)
+    while sim.step_count < ELASTIC_END:
+        g.step()
+    g.drain()
+    return {"state": _elastic_state(sim), "time": sim.time}
+
+
+def elastic_same(label: str, row: dict, ref: dict) -> bool:
+    same = (row["time"] == ref["time"]
+            and row["state"].keys() == ref["state"].keys()
+            and all(torch.equal(row["state"][k], ref["state"][k])
+                    for k in ref["state"]))
+    row["bit_for_bit"] = same
+    check(same, f"phase 20 {label}: the resumed run differs from the "
+          "restart from the checkpoint on 2 shards")
+    return same
+
+
+def elastic_start(sim, mesh) -> None:
+    """Put a split uniform sim back at the drills' start: on ``mesh`` (a
+    re-mesh from the survivors' 2 shards), the benchmark state at step
+    ``ELASTIC_START``, no cached dt."""
+    if sim.mesh is not mesh:
+        sim.remesh(mesh)
+    sim.set_state(bench_start(sim.grid))
+    sim.step_count, sim.time, sim._next_dt = ELASTIC_START, 0.0, None
+
+
+def elastic_onoff(dev, sim, mesh) -> dict:
+    """(d): ``ELASTIC_ONOFF_STEPS`` guarded steps of the split default
+    run with the mirror off, then on, from the same state on one sim: the
+    states bit-equal and the device reads equal; the mirror's bytes, its
+    capture's host ms a step and the step ms each way."""
+    from cup2d_tpu_torch.profiling import HostCounters
+    from cup2d_tpu_torch.resilience import StepGuard
+    out, states = {}, {}
+    for on in (False, True):
+        elastic_start(sim, mesh)
+        guard = StepGuard(sim, snap_every=1, mirror_hosts=2 if on else None)
+        counters = HostCounters().install()
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(ELASTIC_ONOFF_STEPS):
+            guard.step()
+        guard.drain()
+        sync(dev)
+        ms = 1e3 * (time.perf_counter() - t0) / ELASTIC_ONOFF_STEPS
+        counters.uninstall()
+        name = "on" if on else "off"
+        out[name] = {"ms_per_step": ms,
+                     "device_gets": counters.snapshot()["device_gets"],
+                     "mirror_bytes": guard.mirror_nbytes(),
+                     "capture_host_ms_per_step":
+                         guard.mirror_ms_total / ELASTIC_ONOFF_STEPS}
+        states[name] = _elastic_state(sim)
+        del guard
+    out["bit_equal"] = all(torch.equal(states["on"][k], states["off"][k])
+                           for k in states["off"])
+    check(out["bit_equal"] and out["on"]["device_gets"]
+          == out["off"]["device_gets"] and out["on"]["mirror_bytes"] > 0
+          and out["off"]["mirror_bytes"] == 0,
+          f"phase 20 (d): mirror on against off {out}")
+    return out
+
+
+def phase_elastic(dev, forest_warm: tuple, card: str, size: int = 8192
+                  ) -> tuple[dict, dict]:
+    """Phase 20: elastic recovery on the card, 4 shards of one card in 2
+    simulated hosts (``TopologyGuard(sim_hosts=2)``, ``miss_k`` 1), each
+    drill bit for bit a fresh 2-shard run restarted from the step-10
+    checkpoint: (a) the uniform 8192^2 run (phase 7's) under both solvers
+    loses host 1 (``host_exit``) and resumes from the ring; (b) with the
+    mirror on and ``shard_loss``, from the mirror; (c) with the mirror
+    corrupted first, one ``mirror_reject`` and the disk rung; (d) mirror on
+    against off; (e) phase 5's forest after its warm-up, from the ring
+    (the mirror latches off for it). One split sim a solver serves every
+    uniform drill, put back on 4 shards between them (``remesh``), and one
+    2-shard sim a solver the restart. Launches of kernels 3, 7, 4, 8 and
+    ``group_sum.cu`` after each re-mesh; the counts over the phase."""
+    from cup2d_tpu_torch.io import save_checkpoint
+    shutil.rmtree(PHASE20_DIR, ignore_errors=True)
+    os.makedirs(PHASE20_DIR)
+    cfg, level = bench_cfg(size, size)
+    mesh4 = make_mesh(devices=[dev] * MESH_D)
+    out = {"uniform": {}}
+    secs = {"build": 0.0, "save": 0.0, "restart": 0.0}
+    launches_after = {}
+    t0 = time.perf_counter()
+
+    def build(pois, shards, make=None):
+        tb = time.perf_counter()
+        mesh = mesh4 if shards == MESH_D else make_mesh(devices=[dev] * 2)
+        with latched(pois):
+            sim = (make(mesh) if make is not None else
+                   ShardedUniformSim(cfg, mesh, level=level))
+        secs["build"] += time.perf_counter() - tb
+        return sim
+
+    def note(label, row):
+        for k, n in row.pop("launches_after_remesh").items():
+            launches_after[k] = launches_after.get(k, 0) + n
+        row.pop("state")
+        print(f"phase 20 {label} {json.dumps(row)}; card {card}",
+              flush=True)
+
+    def saved(ck):
+        # the checkpoint is written inside the drill: time it here
+        tb = time.perf_counter()
+        save_checkpoint(ck, sim)
+        secs["save"] += time.perf_counter() - tb
+
+    def restart(ref_sim, ck):
+        tb = time.perf_counter()
+        r = elastic_restart(ref_sim, ck)
+        secs["restart"] += time.perf_counter() - tb
+        return r
+
+    with twin_watch(DIST_TWINS) as tw:
+        for pois in ("", "fas"):
+            name = pois or "default"
+            # the default drill writes the start's checkpoint; the fas
+            # drills start from the same state and step
+            ck = os.path.join(PHASE20_DIR, "ck_uniform")
+            sim = build(pois, MESH_D)
+            elastic_start(sim, mesh4)
+            row = elastic_drill(dev, sim, ELASTIC_SPEC, ck,
+                                None if pois else saved, False,
+                                f"a_{name}")
+            ref = restart(build(pois, 2), ck)
+            elastic_same(f"(a) {name}", row, ref)
+            check(row["source"] == "ring" and row["shards_after"] == 2,
+                  f"phase 20 (a) {name}: rung {row['source']}")
+            rows = {"a": row}
+            if not pois:
+                elastic_start(sim, mesh4)
+                row = elastic_drill(
+                    dev, sim, f"{ELASTIC_SPEC},shard_loss@{ELASTIC_CK + 1}",
+                    ck, None, True, "b")
+                elastic_same("(b)", row, ref)
+                check(row["source"] == "mirror" and row["mirror_rejects"]
+                      == 0 and row["mirror_bytes"] > 0,
+                      f"phase 20 (b): rung {row['source']}")
+                rows["b"] = row
+                elastic_start(sim, mesh4)
+                row = elastic_drill(
+                    dev, sim, f"mirror_corrupt@{ELASTIC_CK},{ELASTIC_SPEC},"
+                    f"shard_loss@{ELASTIC_CK + 1}", ck, None, True, "c")
+                elastic_same("(c)", row, ref)
+                check(row["source"] == "disk"
+                      and row["mirror_rejects"] == 1,
+                      f"phase 20 (c): rung {row['source']}, "
+                      f"{row['mirror_rejects']} rejects")
+                rows["c"] = row
+                t1 = time.perf_counter()
+                out["onoff"] = elastic_onoff(dev, sim, mesh4)
+                t_onoff = time.perf_counter() - t1
+                print(f"phase 20 (d) mirror on/off "
+                      f"{json.dumps(out['onoff'])}; card {card}", flush=True)
+            for k, r in rows.items():
+                note(f"({k}) uniform {size}^2 {name}", r)
+            out["uniform"][name] = rows
+            del ref, rows, row, sim
+            torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        fcfg, fsnap = forest_warm
+
+        def forest(shards):
+            fsim = build("structured", shards,
+                         lambda mesh: ShardedAMRSim(fcfg, mesh, shapes=[]))
+            forest_from_numpy(fsim, *fsnap)
+            fsim.step_count = ELASTIC_START
+            return fsim
+
+        sim = forest(MESH_D)
+        ck = os.path.join(PHASE20_DIR, "ck_forest")
+        row = elastic_drill(dev, sim, ELASTIC_SPEC, ck, saved, True, "e")
+        del sim
+        ref = restart(forest(2), ck)
+        elastic_same("(e) forest", row, ref)
+        check(row["source"] == "ring" and row["mirror_latched_off"],
+              f"phase 20 (e): rung {row['source']}")
+        note("(e) forest default", row)
+        out["forest"] = row
+        del ref
+        t3 = time.perf_counter()
+    check(not any(tw.calls.values()),
+          f"phase 20: twins called on the card's operands {tw.calls}")
+    shutil.rmtree(PHASE20_DIR, ignore_errors=True)
+    for k in ELASTIC_UNIFORM_KEYS + ELASTIC_FOREST_KEYS:
+        check(launches_after.get(k, 0) > 0, f"{k}: launched no time after "
+              "a re-mesh")
+    out["launches_after_remesh"] = launches_after
+    out["seconds"] = {"uniform": t2 - t0 - t_onoff, "onoff": t_onoff,
+                      "forest": t3 - t2, **{f"of which {k}": v
+                                            for k, v in secs.items()}}
+    print(f"phase 20 seconds {json.dumps(out['seconds'])}; launches after "
+          f"the re-meshes {json.dumps(launches_after)}; card {card}",
+          flush=True)
+    return out, dict(hk.launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5899,6 +6228,13 @@ def main() -> int:
     t0 = time.perf_counter()
     dist_runs, dist_launches = phase_dist(dev, forest_warm, card)
     print(f"phase 19 took {time.perf_counter() - t0} s", flush=True)
+    t0 = time.perf_counter()
+    hk.reset_launches()
+    elastic_runs, elastic_launches = phase_elastic(dev, forest_warm, card)
+    print(f"phase 20 took {time.perf_counter() - t0} s", flush=True)
+    for k in ELASTIC_UNIFORM_KEYS + ELASTIC_FOREST_KEYS:
+        check(elastic_launches[k] > 0, f"{k}: launched no time on the "
+              "elastic drills")
     check("jax" not in sys.modules, "the smoke imported jax")
     check("validation" not in sys.modules, "the smoke imported validation")
 
@@ -5921,6 +6257,7 @@ def main() -> int:
                     forest_mesh=mesh_runs["forest"]["kernels"].get(k),
                     periodic_mesh_launches=pd_launches.get(k, 0),
                     dist_launches=dist_launches.get(k, 0),
+                    elastic_launches=elastic_launches.get(k, 0),
                     **({k2: res[k][k2] for k2 in ("ulps", "fft_ms",
                                                   "aux_ms")
                         if k2 in res[k]}))
@@ -5941,6 +6278,7 @@ def main() -> int:
     print(f"forest mesh summary: {json.dumps(mesh_runs)}")
     print(f"periodic mesh and placed fleets summary: {json.dumps(pd_mesh)}")
     print(f"multi-process summary: {json.dumps(dist_runs)}")
+    print(f"elastic recovery summary: {json.dumps(elastic_runs)}")
     print(f"total {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -82,13 +82,31 @@ rank 0; every rank takes the same steps and regrids, and a SIGTERM stops
 every rank at the same step once every rank has it. A world that does
 not form fails the run (rc 1), never a silent single-process run.
 
+Elastic recovery, as the JAX CLI (``cup2d_tpu/__main__.py:330-375``,
+:527-570): ``-elastic`` on a ``-mesh`` of 2 or more shards arms
+``resilience.TopologyGuard``, whose heartbeat rides the step boundary's
+SIGTERM all-gather (``-heartbeatTimeout S`` its deadline, default 10; a
+host is lost after ``-heartbeatMissK K`` missed beats, default 3).
+``-simHosts H`` groups one process's shards into H simulated hosts, whose
+losses ``CUP2D_FAULTS`` injects (``host_exit@N``, ``host_hang@N``,
+``shard_loss@N``, ``mirror_corrupt@N``): a declared loss re-meshes the
+survivors and resumes in place (``StepGuard.elastic_recover``: ring,
+mirror, disk, abort), with ``topology_lost`` and ``remesh`` events and the
+metrics' elastic fields. Over 2 or more hosts the mirror tier is on
+(``-noMirror`` turns it off, ``-mirror`` asks for it, ``-mirrorEvery N``
+mirrors every Nth snapshot). Under a world (no ``-simHosts``) a rank armed
+with ``host_exit`` announces it and exits with code 17, and a survivor that
+sees a loss or a missed deadline aborts the world and exits 1 (in-place
+resume across ranks is the library's ``parallel.launch.reinit_distributed``
+with ``elastic_recover``). ``-elastic`` without a mesh of 2 or more, or in
+one process without ``-simHosts``, exits 2 with the JAX CLI's messages.
+
 What the port cannot do yet is refused with rc 2 before any work, naming
-its ROADMAP queue 1 item: the elastic and mirror flags and a fleet across
-processes (item 8);
+its ROADMAP queue 1 item: a fleet across processes (item 8);
 ``-profile``, ``-spansLog`` and span ring capacities in ``CUP2D_SPANS``
 (item 9). The JAX CLI's usage errors exit 2 with its messages.
 Flags that only turn off what the port lacks (``-noSpans``,
-``-noMemLedger``, ``-noMirror``) are accepted.
+``-noMemLedger``) are accepted.
 """
 
 from __future__ import annotations
@@ -106,12 +124,6 @@ _PREFIX = "cup2d_tpu_torch"
 
 # flag -> (ROADMAP queue 1 item, what it asks for)
 _REFUSED = {
-    "elastic": (8, "the elastic topology guard"),
-    "simHosts": (8, "the elastic topology guard"),
-    "heartbeatMissK": (8, "the elastic topology guard"),
-    "heartbeatTimeout": (8, "the elastic topology guard"),
-    "mirror": (8, "the host-redundant mirror tier"),
-    "mirrorEvery": (8, "the host-redundant mirror tier"),
     "profile": (9, "per-phase timers"),
     "spansLog": (9, "the flight recorder's span timeline"),
 }
@@ -130,6 +142,10 @@ _FLEET_ACROSS = "-fleet across processes: " + _not_ported(
     "a fleet whose mesh spans processes", 8)
 
 
+_ELASTIC_NEEDS_MESH = ("-elastic needs -mesh with at least 2 devices "
+                       "(nothing to re-mesh onto otherwise)")
+
+
 def _refusal(p) -> str | None:
     """The usage error of this command line, or None. The reference's own
     usage errors first (naming the item where their flag waits for one),
@@ -141,8 +157,7 @@ def _refusal(p) -> str | None:
                 "<output>/sessions/<client>), not from a whole-fleet "
                 "-restart")
     if p.has("elastic") and not p.has("mesh"):
-        return ("-elastic needs -mesh with at least 2 devices; "
-                + _not_ported("the elastic topology guard", 8))
+        return _ELASTIC_NEEDS_MESH
     if p.has("fleet") and p.has("mesh") and not p.has("case"):
         return ("-fleet has its own placement policy (fleet.py) and does "
                 "not combine with -mesh")
@@ -162,6 +177,13 @@ def _refusal(p) -> str | None:
     if os.environ.get("CUP2D_SPANS", "0") != "0":
         return "CUP2D_SPANS: " + _not_ported("the span ring", 9)
     return None
+
+
+def _abort_world() -> None:
+    """Abort a world with a lost or hung member (a destroy could wait on
+    it); no-op without one."""
+    from .parallel.launch import shutdown_distributed
+    shutdown_distributed(abort=True)
 
 
 def _say(msg: str) -> None:
@@ -254,6 +276,19 @@ def _main(argv=None) -> int:
             mesh = make_mesh(devices=[device] * int(spec))
         else:
             mesh = make_mesh(None if spec == "all" else int(spec))
+    if p.has("elastic"):
+        from .resilience import dist_initialized
+        if mesh is None or mesh.size < 2:
+            print(f"{_PREFIX}: {_ELASTIC_NEEDS_MESH}", file=sys.stderr)
+            return 2
+        if not p.has("simHosts") and not dist_initialized():
+            # one process without a simulated topology: its heartbeat
+            # would watch a one-host world whose only loss is itself
+            print(f"{_PREFIX}: -elastic on a single-process run needs "
+                  "-simHosts H (H >= 2) to stand up a simulated "
+                  "topology; real heartbeats need a multi-process "
+                  "bring-up (-coordinator/-meshHosts)", file=sys.stderr)
+            return 2
     from .resilience import is_writer
     os.makedirs(outdir, exist_ok=True)
 
@@ -365,6 +400,24 @@ def _main(argv=None) -> int:
             dump_forest(path, sim.time, sim.forest)
 
     ckpt_path = os.path.join(outdir, "checkpoint")
+    topo = None
+    if p.has("elastic"):
+        from .resilience import TopologyGuard
+        topo = TopologyGuard(
+            mesh,
+            sim_hosts=(p("simHosts").asInt()
+                       if p.has("simHosts") else None),
+            miss_k=(p("heartbeatMissK").asInt()
+                    if p.has("heartbeatMissK") else 3),
+            timeout=(p("heartbeatTimeout").asDouble()
+                     if p.has("heartbeatTimeout") else 10.0),
+            faults=plan, event_log=log)
+    # the mirror tier: on where the elastic guard watches 2 or more hosts
+    # (-mirror asks for it, still with a topology; -noMirror turns it off)
+    mirror_hosts = None
+    if topo is not None and not p.has("noMirror"):
+        if topo.n_hosts >= 2 and (p.has("mirror") or p.has("elastic")):
+            mirror_hosts = topo.n_hosts
     guard_cls = FleetStepGuard if fleet_n else StepGuard
     guard = guard_cls(
         sim,
@@ -376,7 +429,10 @@ def _main(argv=None) -> int:
         recover=not p.has("noSupervise"),
         watchdog=None if p.has("noWatchdog") else PhysicsWatchdog(),
         snap_every=p("snapEvery").asInt() if p.has("snapEvery") else 1,
-        lag=not p.has("noLag"))
+        lag=not p.has("noLag"),
+        mirror_hosts=mirror_hosts,
+        mirror_every=(p("mirrorEvery").asInt()
+                      if p.has("mirrorEvery") else 1))
 
     # -serve N: N staggered-horizon sessions through the B-slot pool (the
     # server wires the guard's eviction rung)
@@ -484,7 +540,43 @@ def _main(argv=None) -> int:
                     drain()
                     continue
                 break
-            if stop.agree():
+            # under -elastic the heartbeat rides the same step-boundary
+            # all-gather as the SIGTERM agreement (one collective)
+            if topo is not None:
+                beat = topo.step_boundary(stop, sim.step_count)
+                if beat.self_lost:
+                    # a real host_exit: die as a lost host would, at once,
+                    # writing nothing
+                    os._exit(17)
+                if beat.hung:
+                    # every surviving rank says so: rank 0 may be the one
+                    # that hangs
+                    print(f"{_PREFIX}: heartbeat collective missed its "
+                          f"{topo.timeout:.1f}s deadline at step "
+                          f"{sim.step_count} — a peer died mid-step. The "
+                          "old world's collectives are unusable; in-place "
+                          "resume needs a runtime re-init "
+                          "(parallel.launch.reinit_distributed, "
+                          "orchestrator-driven). Aborting with the last "
+                          "checkpoint intact.", file=sys.stderr)
+                    _abort_world()
+                    return 1
+                if beat.lost:
+                    if topo.sim_hosts is None:
+                        print(f"{_PREFIX}: hosts {list(beat.lost)} left the "
+                              "program — aborting (in-place resume across "
+                              "ranks is the library's reinit_distributed "
+                              "path)", file=sys.stderr)
+                        _abort_world()
+                        return 1
+                    # a simulated topology: re-mesh the survivors and
+                    # resume in place
+                    guard.elastic_recover(topo)
+                    continue
+                stop_now = beat.stop
+            else:
+                stop_now = stop.agree()
+            if stop_now:
                 drain()
                 save_checkpoint(ckpt_path, sim)
                 log.emit(event="sigterm_checkpoint", step=sim.step_count,

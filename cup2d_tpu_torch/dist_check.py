@@ -28,6 +28,28 @@ CLI runs, whether every dump is byte-equal; it exits 1 when ``mesh`` and
 the solo forest takes the split forest's reductions in its order
 (``solo_eq_ranks``), the uniform step sums its slabs' partials instead.
 Every number is the card's; the script refuses to run without one.
+
+Elastic recovery across cards (``--elastic``, four or more cards): the
+script builds the kernels, then starts its own processes, one a card,
+each with its own environment:
+
+    python -m cup2d_tpu_torch.dist_check --elastic --out DIR
+
+(1) ``exit``: 4 NCCL ranks run the split uniform step at ``--size``^2
+(the benchmark velocity, default solver, production solves from step
+10, the mirror on over the 4 ranks); ranks 2 and 3 arm ``host_exit@12`` in
+their own ``CUP2D_FAULTS``, announce it in the beat at step 12 and exit
+with code 17. Ranks 0 and 1 see the loss in that beat, re-form a 2-rank
+world on a fresh port (``reinit_distributed``), re-mesh from 4 shards to
+2, one a rank, and resume from the step-11 checkpoint on disk to step 13.
+(2) ``restart``: a fresh 2-rank world loads that checkpoint and steps to
+13; its final state's sha256 and clock must equal (1)'s. (3) ``hang``: 2
+ranks, rank 1 armed with ``host_hang@2``; rank 0's next beat must report
+``hung`` inside its deadline, and the world is aborted (the script kills
+rank 1). One JSON line each, the re-init seconds and re-mesh ms among
+them, and the card's name and power limit; exit 1 when a check fails.
+The checkpoint (``DIR/elastic_ck``) is removed at the end; the events
+stay in ``DIR/elastic_events.jsonl``.
 """
 
 from __future__ import annotations
@@ -248,6 +270,296 @@ def compare(out_dir: str) -> int:
     return int(rc)
 
 
+# ---------------------------------------------------------------------------
+# elastic recovery across cards
+# ---------------------------------------------------------------------------
+
+ELASTIC_START, ELASTIC_CK, ELASTIC_END = 10, 11, 13
+HANG_AT, HANG_DEADLINE = 2, 5.0
+ELASTIC_WORLD = 4
+ELASTIC_LOST = (2, 3)
+ELASTIC_TIMEOUT = 600      # seconds a spawned world may take
+
+
+def _card_line() -> str:
+    import subprocess
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    return r.stdout.strip().splitlines()[0] if r.stdout.strip() else "?"
+
+
+def _elastic_sim(mesh, size: int):
+    level = (size // 8).bit_length() - 1
+    cfg = SimConfig(bpdx=1, bpdy=1, level_max=1, level_start=0, extent=1.0,
+                    nu=4e-5, cfl=0.5, dtype="float32")
+    with _latched(""):
+        sim = ShardedUniformSim(cfg, mesh, level=level)
+    sim.set_state(sim.grid.zero_state()._replace(
+        vel=bench_state(sim.grid).vel))
+    sim.step_count = ELASTIC_START
+    return sim
+
+
+def _whole_sha(sim) -> str:
+    return _sha(*(gather_x(v) for v in sim.state))
+
+
+def _elastic_exit(rank_: int, port2: int, out_dir: str, size: int) -> dict:
+    """(1) on one rank of the 4-rank world."""
+    from .faults import FaultPlan
+    from .io import save_checkpoint
+    from .parallel.launch import reinit_distributed
+    from .resilience import (EventLog, PreemptionGuard, StepGuard,
+                             TopologyGuard, set_event_log)
+    dev = _worker_device()
+    log = EventLog(os.path.join(out_dir, "elastic_events.jsonl"))
+    set_event_log(log)
+    plan = FaultPlan.from_env()
+    mesh = world_mesh(ELASTIC_WORLD, dev)
+    sim = _elastic_sim(mesh, size)
+    ck = os.path.join(out_dir, "elastic_ck")
+    guard = StepGuard(sim, ckpt_dir=ck, event_log=log, faults=plan,
+                      snap_every=1, mirror_hosts=ELASTIC_WORLD)
+    topo = TopologyGuard(mesh, timeout=120.0, faults=plan, event_log=log)
+    stop = PreemptionGuard()
+    saved, reinit_s, mirror_bytes = False, None, 0
+    iters = []
+    while sim.step_count < ELASTIC_END:
+        if not saved and sim.step_count == ELASTIC_CK:
+            guard.drain()
+            save_checkpoint(ck, sim)
+            saved = True
+            mirror_bytes = guard.mirror_nbytes()
+        beat = topo.step_boundary(stop, sim.step_count)
+        if beat.self_lost:
+            os._exit(17)                 # the dying rank writes nothing
+        if beat.hung:
+            raise RuntimeError(f"rank {rank_}: heartbeat hung at step "
+                               f"{sim.step_count}")
+        if beat.lost:
+            alive = [h for h in range(topo.n_hosts) if topo.alive[h]]
+            t0 = time.perf_counter()
+            reinit_distributed(f"127.0.0.1:{port2}", len(alive),
+                               alive.index(rank_), device=dev)
+            reinit_s = time.perf_counter() - t0
+            guard.elastic_recover(topo)
+            continue
+        rec = guard.step()
+        if rec is not None:
+            iters.append(int(rec["poisson_iters"]))
+    for rec in guard.drain():
+        iters.append(int(rec["poisson_iters"]))
+    _sync()
+    sha = _whole_sha(sim)
+    log.close()
+    return {"world": world_size(), "shards": sim.mesh.size,
+            "source": guard.restore_source, "epoch": guard.topology_epoch,
+            "reinit_s": reinit_s, "remesh_ms": guard.remesh_ms_total,
+            "lost": list(topo.lost_process_indices()),
+            "mirror_bytes": mirror_bytes, "iters": iters,
+            "step": sim.step_count, "time": sim.time, "sha256": sha}
+
+
+def _elastic_restart(out_dir: str, size: int) -> dict:
+    """(2) on one rank of the fresh 2-rank world."""
+    from .io import load_checkpoint
+    from .resilience import StepGuard
+    dev = _worker_device()
+    sim = _elastic_sim(world_mesh(world_size(), dev), size)
+    load_checkpoint(os.path.join(out_dir, "elastic_ck"), sim)
+    g = StepGuard(sim, snap_every=1)
+    iters = []
+    while sim.step_count < ELASTIC_END:
+        rec = g.step()
+        if rec is not None:
+            iters.append(int(rec["poisson_iters"]))
+    for rec in g.drain():
+        iters.append(int(rec["poisson_iters"]))
+    _sync()
+    return {"world": world_size(), "iters": iters, "step": sim.step_count,
+            "time": sim.time, "sha256": _whole_sha(sim)}
+
+
+def _elastic_hang(rank_: int) -> dict:
+    """(3) on one rank of the 2-rank world: beats alone, rank 1 hanging
+    after its beat at ``HANG_AT``."""
+    from .faults import FaultPlan
+    from .parallel.launch import shutdown_distributed
+    from .resilience import PreemptionGuard, TopologyGuard
+    dev = _worker_device()
+    topo = TopologyGuard(world_mesh(world_size(), dev),
+                         timeout=HANG_DEADLINE, faults=FaultPlan.from_env())
+    stop = PreemptionGuard()
+    for k in range(HANG_AT + 3):
+        t0 = time.perf_counter()
+        beat = topo.step_boundary(stop, k)
+        if beat.hung:
+            seen = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            shutdown_distributed(abort=True)
+            return {"hung_at": k, "seconds": seen, "deadline":
+                    HANG_DEADLINE,
+                    "abort_s": time.perf_counter() - t1,
+                    "world_after_abort": bool(
+                        torch.distributed.is_initialized())}
+    return {"hung_at": None}
+
+
+# where the elastic workers run: the card (NCCL), or, to try the drills'
+# plumbing without cards, the CPU (gloo; ``--device cpu``)
+_WORKER_DEVICE = ["cuda"]
+
+
+def _worker_device() -> torch.device:
+    if _WORKER_DEVICE[0] == "cpu":
+        return torch.device("cpu")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def elastic_worker(kind: str, rank_: int, world: int, port: int,
+                   port2: int, out_dir: str, size: int,
+                   device: str = "cuda") -> None:
+    _WORKER_DEVICE[0] = device
+    init_distributed(f"127.0.0.1:{port}", world, rank_,
+                     expected_processes=world, device=device, timeout=300.0)
+    if kind == "exit":
+        res = _elastic_exit(rank_, port2, out_dir, size)
+    elif kind == "restart":
+        res = _elastic_restart(out_dir, size)
+    else:
+        res = _elastic_hang(rank_)
+    if rank() == 0 or kind == "hang":
+        res["rank"] = rank_
+        print(json.dumps(res), flush=True)
+    if kind != "hang":
+        shutdown_distributed()
+    # a hung gather's thread is left to the abort
+    os._exit(0)
+
+
+def _spawn(kind: str, world: int, out_dir: str, size: int,
+           faults: dict, device: str = "cuda") -> list:
+    import socket
+    import subprocess
+
+    def port():
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            return sk.getsockname()[1]
+
+    p1, p2 = port(), port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ)
+        env.pop("CUP2D_FAULTS", None)
+        if r in faults:
+            env["CUP2D_FAULTS"] = faults[r]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "cup2d_tpu_torch.dist_check",
+             "--elastic-worker", kind, "--rank", str(r), "--world",
+             str(world), "--port", str(p1), "--port2", str(p2),
+             "--out", out_dir, "--size", str(size), "--device", device],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env))
+    return procs
+
+
+def _collect(procs, timeout: float) -> list:
+    import subprocess
+    outs = []
+    deadline = time.time() + timeout
+    for p in procs:
+        try:
+            out, err = p.communicate(
+                timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        outs.append((p.returncode, out, err))
+    return outs
+
+
+def _last_json(out: str):
+    for line in reversed(out.strip().splitlines()):
+        if line.startswith("{"):
+            return json.loads(line)
+    return None
+
+
+def elastic_check(out_dir: str, size: int, device: str = "cuda") -> int:
+    """``--elastic``: drills (1)-(3) of the module docstring."""
+    from .ops import hopper_kernels as hk
+    os.makedirs(out_dir, exist_ok=True)
+    if device == "cpu":
+        card = "cpu (gloo), no card"
+    else:
+        if torch.cuda.device_count() < ELASTIC_WORLD:
+            raise SystemExit(f"dist_check --elastic: needs "
+                             f"{ELASTIC_WORLD} cards")
+        hk.build()      # once here, so the ranks load the built kernels
+        card = _card_line()
+    rc = 0
+    t0 = time.perf_counter()
+    outs = _collect(_spawn("exit", ELASTIC_WORLD, out_dir, size,
+                           {r: f"host_exit@{ELASTIC_CK + 1}"
+                            for r in ELASTIC_LOST}, device),
+                    ELASTIC_TIMEOUT)
+    exit_s = time.perf_counter() - t0
+    codes = [c for c, _, _ in outs]
+    res = _last_json(outs[0][1])
+    want = [0 if r not in ELASTIC_LOST else 17
+            for r in range(ELASTIC_WORLD)]
+    ok = (codes == want and res is not None and res["source"] == "disk"
+          and res["world"] == 2 and res["shards"] == 2
+          and res["lost"] == list(ELASTIC_LOST)
+          and res["step"] == ELASTIC_END)
+    print(json.dumps({"run": "elastic exit", "ok": ok, "rcs": codes,
+                      "seconds": exit_s, "card": card, **(res or {})}),
+          flush=True)
+    if not ok:
+        rc = 1
+        for c, _, err in outs:
+            print(f"rc {c}: {err[-3000:]}", file=sys.stderr)
+    outs = _collect(_spawn("restart", 2, out_dir, size, {}, device),
+                    ELASTIC_TIMEOUT)
+    ref = _last_json(outs[0][1])
+    same = (res is not None and ref is not None
+            and ref["sha256"] == res["sha256"]
+            and ref["time"] == res["time"]
+            and ref["iters"] == res["iters"][-len(ref["iters"]):])
+    print(json.dumps({"run": "elastic restart", "bit_for_bit": same,
+                      "rcs": [c for c, _, _ in outs], "card": card,
+                      **(ref or {})}), flush=True)
+    if not same:
+        rc = 1
+        for c, _, err in outs:
+            print(f"rc {c}: {err[-3000:]}", file=sys.stderr)
+    procs = _spawn("hang", 2, out_dir, size, {1: f"host_hang@{HANG_AT}"},
+                   device)
+    try:
+        outs = _collect(procs[:1], 180)
+        hung_alive = procs[1].poll() is None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    res = _last_json(outs[0][1])
+    ok = (outs[0][0] == 0 and hung_alive and res is not None
+          and res["hung_at"] == HANG_AT + 1
+          and res["seconds"] < HANG_DEADLINE + 5)
+    print(json.dumps({"run": "elastic hang", "ok": ok,
+                      "hung_rank_alive": hung_alive, "card": card,
+                      **(res or {})}), flush=True)
+    if not ok:
+        rc = 1
+        print(f"rc {outs[0][0]}: {outs[0][2][-3000:]}", file=sys.stderr)
+    import shutil
+    shutil.rmtree(os.path.join(out_dir, "elastic_ck"), ignore_errors=True)
+    return rc
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layout", choices=LAYOUTS)
@@ -259,7 +571,24 @@ def main(argv=None) -> int:
                     metavar=("START", "MAX"),
                     help="vortex_forest's level_start and level_max")
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--elastic", action="store_true",
+                    help="the elastic recovery drills across 4 cards")
+    ap.add_argument("--elastic-worker", choices=("exit", "restart", "hang"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--port2", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="--elastic's ranks on cards (NCCL) or, to try "
+                    "the drills without cards, on the CPU (gloo)")
     a = ap.parse_args(argv)
+    if a.elastic_worker:
+        elastic_worker(a.elastic_worker, a.rank, a.world, a.port, a.port2,
+                       a.out, a.size, a.device)
+        return 0
+    if a.elastic:
+        return elastic_check(a.out, a.size, a.device)
     if a.compare:
         return compare(a.compare)
     if not a.layout:

@@ -18,13 +18,35 @@ the JAX package parses them (a typo raises instead of arming nothing)::
     crash_in_save         raise :class:`InjectedCrash` between the
                           checkpoint park and install renames
                           (io.save_checkpoint's crash window)
-    host_exit@N, host_hang@N, shard_loss@N, mirror_corrupt@N
-                          parsed and stored as in the JAX package. Their
-                          consumers are the elastic topology guard and the
-                          mirror tier (ROADMAP queue 1 item 8), which the
-                          port has not yet, so, as in the JAX package
-                          without an elastic guard or a mirror, they never
-                          fire.
+    host_exit@N           a host leaves the run at step N's boundary
+                          (graceful). On a simulated topology
+                          (resilience.TopologyGuard with sim_hosts=H) the
+                          highest-index alive simulated host is marked
+                          dead; under a torch.distributed world the
+                          directive belongs to the process it is armed on,
+                          as sigterm@N does: that rank announces its exit
+                          in its last heartbeat and then exits hard
+                          (os._exit, writing nothing)
+    host_hang@N           a host stops beating without an announcement: a
+                          simulated host misses beats; a real rank blocks
+                          for good after its beat at step N, so the
+                          survivors' next bounded heartbeat misses its
+                          deadline
+    shard_loss@N          the loss declared at step N's boundary takes its
+                          shard slices with it: the live state, every held
+                          snapshot and the mirror slices the dead host held
+                          are zeroed before recovery (io.destroy_shards),
+                          so a resumed run provably came from the
+                          survivors' mirror copies or from disk
+    mirror_corrupt@N      negate one element of every host block of every
+                          held mirror at step N's dispatch
+                          (io.corrupt_mirror), its stored checksums left as
+                          they were, so the mirror rung rejects it
+                          (mirror_reject event) and falls to the disk rung
+
+The host-loss and shard-loss tokens are consumed by the TopologyGuard at
+a step boundary, mirror_corrupt by the StepGuard at dispatch; without an
+elastic guard or a mirror they never fire.
 
 ``*K`` repeats the fault for K consecutive attempts of that step, which is
 how a drill climbs the ladder: ``*1`` recovers at the retry rung, ``*2``
@@ -182,6 +204,36 @@ class FaultPlan:
         if step in self.sigterm_steps:
             self.sigterm_steps.discard(step)
             os.kill(os.getpid(), signal.SIGTERM)
+
+    def host_loss_at(self, step: int) -> list:
+        """Consume the host-loss directives armed for ``step`` ('exit' /
+        'hang'), the TopologyGuard's lookup at each boundary; none fire
+        during a replay (a replay must not lose a host twice)."""
+        if self._suspended:
+            return []
+        return self.host_loss.pop(step, [])
+
+    def shard_loss_at(self, step: int) -> bool:
+        """Consume one shard-destruction count of ``step`` if armed: the
+        loss declared at this boundary takes its shards with it."""
+        if self._suspended:
+            return False
+        c = self.shard_loss.get(step, 0)
+        if c <= 0:
+            return False
+        self.shard_loss[step] = c - 1
+        return True
+
+    def mirror_corrupt_at(self, step: int) -> bool:
+        """Consume one mirror corruption of ``step`` if armed (the
+        StepGuard's lookup at each dispatch)."""
+        if self._suspended:
+            return False
+        c = self.mirror_corrupt.get(step, 0)
+        if c <= 0:
+            return False
+        self.mirror_corrupt[step] = c - 1
+        return True
 
     def fire_crash_point(self, name: str) -> None:
         c = self.crash_points.get(name, 0)

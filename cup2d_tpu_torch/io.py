@@ -52,11 +52,18 @@ loads the same bytes.
 Every device read goes through ``shapes_host.pull``; ``state_gathers``
 counts ``_gather_state`` calls (``profiling.HostCounters``).
 
-The elastic resume's two halves: ``snapshot_covers`` (whether a device
-snapshot survives the loss of some processes: the owner rule) and
+The elastic resume (``resilience.StepGuard.elastic_recover``):
+``snapshot_covers`` (whether a device snapshot survives the loss of some
+hosts: its owners, or the ring neighbours holding its mirror) and
 ``restore_snapshot_resharded`` (a snapshot installed into a sim that was
 re-meshed since, ``ShardedUniformSim.remesh`` / ``ShardedAMRSim.remesh``).
-Not ported: the mirror tier (ROADMAP queue 1 item 8).
+The host-redundant mirror tier rides the device snapshots of a split
+uniform run: ``mirror_snapshot`` ships every host's block of slabs to its
+ring neighbour (``parallel.mesh.host_ring_shift``) with a per-block
+checksum kept on the device, ``verify_mirror`` checks it on the cold path
+(one read), ``restore_snapshot_mirrored`` rebuilds the lost hosts' columns
+from the survivors' mirror copies; ``destroy_shards`` and
+``corrupt_mirror`` are the ``shard_loss`` and ``mirror_corrupt`` drills.
 """
 
 from __future__ import annotations
@@ -573,13 +580,14 @@ class DeviceSnapshot(NamedTuple):
     ``dev`` holds the dt-cache entries that are device scalars at capture
     (the lagged drivers keep ``_next_dt`` / ``_next_umax`` on the device);
     ``meta['time']`` is settled by the StepGuard at verdict time on the
-    lagged paths. The JAX package's ``mirror`` slot belongs to the
-    host-redundant mirror tier, ROADMAP queue 1 item 8."""
+    lagged paths. ``mirror``: the ``MirroredSnapshot`` of the
+    host-redundant tier (None unless the StepGuard mirrors)."""
 
     payload: dict        # field name -> device clone
     meta: dict           # host scalars (+ forest keys for a topology restore)
     dev: dict            # dt-cache entries still on the device
     shapes_pkl: object   # bytes | None
+    mirror: object = None   # MirroredSnapshot | None
 
 
 def _split_cache(meta: dict, dev: dict, name: str, val) -> None:
@@ -749,17 +757,23 @@ def snapshot_covers(snap: DeviceSnapshot, lost_processes=(), *,
                     lost_hosts=(), shards_destroyed=False,
                     mirror=True) -> bool:
     """True iff a device snapshot can seed an elastic resume after a
-    topology loss: every payload shard still readable from its owner
-    (``cup2d_tpu/io.py:756-818``). A split field's shard belongs to the
-    rank its part lives on (``SlabMesh.owners``; every shard of a
-    single-controller mesh to this process), so the owner rule fails
-    where a lost process owned one; ``shards_destroyed`` (the simulated
-    real loss, a ``shard_loss`` fault) voids owner coverage whenever a
-    host or process is named lost. The mirror rung (``mirror``: a lost
-    shard covered by its ring neighbour's mirror) needs a snapshot that
-    carries a mirror, and no snapshot of the port does (the mirror tier,
-    ROADMAP queue 1 item 8), so it never covers, as the JAX package's does
-    not without one."""
+    topology loss (``cup2d_tpu/io.py:756-818``): every payload shard still
+    readable from its owner, or from the ring neighbour that holds its
+    mirror. A split field's shard belongs to the rank its part lives on
+    (``SlabMesh.owners``; every shard of a single-controller mesh to this
+    process), so the owner rule fails where a lost process owned one;
+    ``shards_destroyed`` (the simulated real loss, a ``shard_loss`` fault)
+    voids owner coverage whenever a host or process is named lost.
+
+    Mirror coverage (``mirror``, the default): a lost host's block is
+    still covered when the snapshot carries a ``MirroredSnapshot`` and the
+    host's ring neighbour, which holds its mirror, is alive (two adjacent
+    losses take a block and its only mirror), and the mirror's slabs are
+    readable from this process: never after a real rank loss, whose
+    cross-rank slabs need the lost world (as the JAX package's arrays are
+    not fully addressable then). ``lost_hosts`` names the dead hosts by
+    ring index (simulated hosts or ranks). ``mirror=False`` asks about the
+    owner rule alone (the plain ring rung)."""
     lost = set(lost_processes)
     dead = set(lost_hosts) | lost
     owner_ok = not (shards_destroyed and dead)
@@ -772,7 +786,17 @@ def snapshot_covers(snap: DeviceSnapshot, lost_processes=(), *,
                 break
     if owner_ok:
         return True
-    return bool(mirror and dead and getattr(snap, "mirror", None))
+    m = getattr(snap, "mirror", None)
+    if not mirror or m is None or not dead:
+        return False
+    for h in dead:
+        if (h + 1) % m.n_hosts in dead:
+            return False
+    for v in m.payload.values():
+        mesh = getattr(v, "mesh", None)
+        if mesh is not None and not mesh.all_local:
+            return False
+    return True
 
 
 def restore_snapshot_resharded(sim, snap: DeviceSnapshot) -> None:
@@ -789,3 +813,240 @@ def restore_snapshot_resharded(sim, snap: DeviceSnapshot) -> None:
     nd = getattr(sim, "_next_dt", None)
     if mesh is not None and torch.is_tensor(nd):
         sim._next_dt = nd.to(mesh.home)
+
+
+# ---------------------------------------------------------------------------
+# the host-redundant mirror tier (cup2d_tpu/io.py:864-1143): in-memory
+# recovery from a real host loss. A device snapshot's slabs die with their
+# host; the mirror ships every host's block of slabs to its ring neighbour
+# at capture (parallel.mesh.host_ring_shift), with one checksum per host
+# block kept on the device, so a lost host's block is rebuilt from its
+# neighbour's copy, and a torn or corrupt copy is found at restore instead
+# of installed.
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+
+
+class MirroredSnapshot(NamedTuple):
+    """The neighbour-held copy of one ``DeviceSnapshot``.
+
+    ``payload[k]`` is split over the same mesh as the field it mirrors but
+    moved one host block along the ring: the slabs on host h hold host
+    h-1's columns (globally ``roll(x, +Nx/H)`` along x). ``sums[k]`` holds
+    the capture-time checksum of each local slab (int64 in [0, 2^32), on
+    the mesh's home device), from which each host block's uint32 sum
+    follows; nothing is read until a restore compares them."""
+
+    payload: dict        # field name -> ring-shifted Slabs
+    sums: dict           # field name -> [local slabs] int64 checksums
+    n_hosts: int         # ring size at capture
+
+
+def _bits_sum(t: torch.Tensor) -> torch.Tensor:
+    """The wrap-sum (mod 2^32) of ``t``'s bit patterns as 32-bit words (a
+    bf16 field's as 16-bit words), int64 in [0, 2^32) on ``t``'s device:
+    any flipped byte moves it."""
+    t = t.contiguous()
+    if t.element_size() == 2:
+        w = t.view(torch.int16).to(torch.int64) & 0xFFFF
+        return w.sum() & _MASK32
+    return t.view(torch.int32).sum(dtype=torch.int64) & _MASK32
+
+
+def _block_sums(v: torch.Tensor, h: int) -> torch.Tensor:
+    """The per-host-block checksum of a whole field
+    (``cup2d_tpu/io.py:906-917``): the x axis cut into ``h`` blocks, each
+    block's 32-bit words summed mod 2^32. [h] int64 in [0, 2^32) on the
+    field's device, equal to the JAX package's uint32 sums."""
+    w = v.shape[-1] // h
+    return torch.stack([_bits_sum(v[..., i * w:(i + 1) * w])
+                        for i in range(h)])
+
+
+def _slab_sums(s) -> torch.Tensor:
+    """[local slabs] checksums of a split field, on its home device."""
+    home = s.mesh.home
+    return torch.stack([_bits_sum(p).to(home) for p in s.parts])
+
+
+def _host_sums(slab_sums: torch.Tensor, mesh, n_hosts: int) -> torch.Tensor:
+    """Each host block's checksum from every slab's ([n_hosts] on the
+    home device): the slabs' sums of every rank in shard order (one
+    all-gather under a world), then summed mod 2^32 per block of D/H."""
+    from .parallel.shard_halo import all_shards
+    every = torch.stack(all_shards(list(slab_sums.unbind(0)), mesh,
+                                   kind="state"))
+    return every.view(n_hosts, -1).sum(1) & _MASK32
+
+
+def _mirrorable(v, n_hosts: int) -> bool:
+    from .parallel.shard_halo import Slabs
+    return (isinstance(v, Slabs) and len(v.shape) >= 2
+            and v.shape[-1] % n_hosts == 0 and v.mesh.size % n_hosts == 0)
+
+
+def mirror_snapshot(snap: DeviceSnapshot, mesh, n_hosts: int):
+    """The host-redundant mirror of ``snap``: every payload field moved
+    one host block along the ring (``host_ring_shift``, fresh tensors)
+    and every slab of the copy checksummed, all on the device: no host
+    read, and, on one process, no collective. Returns None for a payload
+    the tier does not cover: a forest's (its block-leading layout keeps
+    the disk rung for a real loss, as in the JAX package) or one whose
+    fields or mesh do not divide into ``n_hosts`` blocks. The copies are
+    enqueued on the current stream after the snapshot's clones, so the
+    next step's writes cannot reach them."""
+    from .parallel.mesh import host_ring_shift
+    if snap.meta.get("kind") != "uniform":
+        return None
+    if not all(_mirrorable(v, n_hosts) for v in snap.payload.values()):
+        return None
+    payload = {k: host_ring_shift(v, n_hosts)
+               for k, v in snap.payload.items()}
+    sums = {k: _slab_sums(v) for k, v in payload.items()}
+    return MirroredSnapshot(payload=payload, sums=sums,
+                            n_hosts=int(n_hosts))
+
+
+def mirror_nbytes(snap) -> int:
+    """Device bytes of a snapshot's mirror payload (0 without one); tensor
+    metadata, no read."""
+    m = getattr(snap, "mirror", None)
+    if m is None:
+        return 0
+    return int(sum(p.numel() * p.element_size()
+                   for v in m.payload.values() for p in v.parts))
+
+
+def _lost_col_mask(nx: int, lost_hosts, n_hosts: int) -> np.ndarray:
+    """Boolean [nx] mask of the x columns the lost hosts own (the
+    contiguous block h*Nx/H .. (h+1)*Nx/H, the TopologyGuard's grouping)."""
+    w = nx // n_hosts
+    mask = np.zeros(nx, bool)
+    for h in lost_hosts:
+        mask[h * w:(h + 1) * w] = True
+    return mask
+
+
+def _lost_slabs(mesh, lost_hosts, n_hosts: int) -> set:
+    """The slabs of the lost hosts (host of slab d: d * H // D)."""
+    lost = set(lost_hosts)
+    return {d for d in range(mesh.size) if d * n_hosts // mesh.size in lost}
+
+
+def verify_mirror(snap: DeviceSnapshot, lost_hosts) -> list:
+    """The lost hosts' mirror holders' blocks checked against their
+    capture-time sums. Returns the rejects (field, block, expected,
+    actual); [] means the mirror may be installed. One read of the small
+    sum vectors, on the cold restore path only."""
+    from .shapes_host import pull
+    m = snap.mirror
+    holders = sorted({(h + 1) % m.n_hosts for h in lost_hosts})
+    names = sorted(m.payload)
+    vecs = []
+    for k in names:
+        mesh = m.payload[k].mesh
+        vecs.append(_host_sums(m.sums[k], mesh, m.n_hosts))
+        vecs.append(_host_sums(_slab_sums(m.payload[k]), mesh, m.n_hosts))
+    got = pull(torch.stack(vecs), keep_dtype=True)[0]
+    bad = []
+    for i, k in enumerate(names):
+        expect, actual = got[2 * i], got[2 * i + 1]
+        for h in holders:
+            if int(expect[h]) != int(actual[h]):
+                bad.append({"field": k, "block": int(h),
+                            "expected": int(expect[h]),
+                            "actual": int(actual[h])})
+    return bad
+
+
+def corrupt_mirror(snap: DeviceSnapshot) -> bool:
+    """The ``mirror_corrupt`` drill: negate the first element of every host
+    block of every mirror field (which moves the block's word sum whatever
+    the value; the two zeros' patterns differ too), its stored sums left
+    as they were, so ``verify_mirror`` rejects whichever holder block a
+    restore asks about. The payload dict takes new tensors; no tensor of a
+    snapshot is written. False when the snapshot carries no mirror."""
+    from .parallel.shard_halo import Slabs
+    m = snap.mirror
+    if m is None:
+        return False
+    payload = {}
+    for k, v in m.payload.items():
+        D = v.mesh.size
+        firsts = {h * D // m.n_hosts for h in range(m.n_hosts)}
+        parts = []
+        for d, p in zip(v.mesh.local, v.parts):
+            if d in firsts:
+                p = p.clone()
+                p[(0,) * p.dim()] *= -1
+            parts.append(p)
+        payload[k] = Slabs(parts, v.mesh)
+    m.payload.clear()
+    m.payload.update(payload)
+    return True
+
+
+def _wipe(v, lost_hosts, n_hosts: int):
+    """``v`` with the lost hosts' shards zeroed as new tensors: a split
+    field's slabs or blocks of those hosts, a whole field's x columns."""
+    from .parallel.shard_halo import Blocks, Slabs
+    if isinstance(v, (Slabs, Blocks)):
+        lost = _lost_slabs(v.mesh, lost_hosts, n_hosts)
+        parts = [torch.zeros_like(p) if d in lost else p
+                 for d, p in zip(v.mesh.local, v.parts)]
+        if isinstance(v, Blocks):
+            return Blocks(parts, v.mesh, v.axis)
+        return Slabs(parts, v.mesh)
+    mask = torch.as_tensor(_lost_col_mask(v.shape[-1], lost_hosts,
+                                          n_hosts), device=v.device)
+    return torch.where(mask, torch.zeros((), dtype=v.dtype,
+                                         device=v.device), v)
+
+
+def destroy_shards(sim, snaps, lost_hosts, n_hosts: int) -> list:
+    """The ``shard_loss`` drill (``cup2d_tpu/io.py:1083-1111``): zero the
+    lost hosts' x-column blocks in the live state of a uniform run, in
+    every snapshot's payload and in the mirror slabs those hosts held,
+    which is what a real host loss takes with it, so a resumed run can
+    only have come from the survivors' mirror copies or from disk. New
+    tensors throughout: no snapshot tensor is written. Returns the new
+    snapshot list."""
+    if hasattr(sim, "state") and not hasattr(sim, "forest"):
+        sim.state = type(sim.state)(
+            **{k: _wipe(v, lost_hosts, n_hosts)
+               for k, v in sim.state._asdict().items()})
+    out = []
+    for s in snaps:
+        payload = {k: _wipe(v, lost_hosts, n_hosts)
+                   for k, v in s.payload.items()}
+        m = s.mirror
+        if m is not None:
+            m = m._replace(payload={k: _wipe(v, lost_hosts, n_hosts)
+                                    for k, v in m.payload.items()})
+        out.append(s._replace(payload=payload, mirror=m))
+    return out
+
+
+def restore_snapshot_mirrored(sim, snap: DeviceSnapshot,
+                              lost_hosts) -> None:
+    """The mirror rung (``cup2d_tpu/io.py:1114-1143``): the lost hosts'
+    blocks rebuilt from their ring neighbours' mirror slabs, then installed
+    through ``restore_snapshot_resharded``. The mirror is the field moved
+    +Nx/H along the ring, so slab j's realigned copy is mirror slab
+    (j + D/H) % D (``permute_slabs``); the lost slabs take it, every other
+    slab keeps the snapshot's own. Valid where ``snapshot_covers`` said so
+    with the mirror and ``verify_mirror`` found no reject."""
+    from .parallel.shard_halo import Slabs, permute_slabs
+    m = snap.mirror
+    payload = {}
+    for k, v in snap.payload.items():
+        D = v.mesh.size
+        dph = D // m.n_hosts
+        lost = _lost_slabs(v.mesh, lost_hosts, m.n_hosts)
+        back = permute_slabs(m.payload[k], lambda j: (j + dph) % D)
+        payload[k] = Slabs([b if d in lost else p for d, p, b in
+                            zip(v.mesh.local, v.parts, back.parts)],
+                           v.mesh)
+    restore_snapshot_resharded(
+        sim, snap._replace(payload=payload, mirror=None))

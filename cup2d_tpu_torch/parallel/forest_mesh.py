@@ -53,9 +53,11 @@ shards would not each hold whole reduction groups (n_pad not divisible by
 16 D; D = 3, or more shards than n_pad / 16), the tables stay whole and
 the step runs as ``AMRSim`` on ``devices[0]`` (the reference's replicated
 fallback). ``remesh`` re-places a run onto another mesh of the same
-controller or ranks. ``CUP2D_SHARD_EXCHANGE`` (ppermute | allgather) is
-latched once per sim. The elastic guard and the re-init of a world are
-not ported (ROADMAP queue 1 item 8).
+controller or ranks, or onto the world re-formed from the survivors of a
+lost one (``parallel.launch.reinit_distributed``); the SFC partition
+re-splits by construction, which is what
+``resilience.StepGuard.elastic_recover`` relies on after a host loss.
+``CUP2D_SHARD_EXCHANGE`` (ppermute | allgather) is latched once per sim.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ from ..flux import (build_flux_corr, build_poisson_structured,
 from ..halo import lab_tables, pad_tables
 from .shard_halo import (GROUP_BLOCKS, Blocks, ShardPoissonOp, SlabMesh,
                          check_remesh, exchange_padding_stats, gather_blocks,
+                         world_reformed,
                          overlap_block_jacobi_sweeps, shard_flux_corr,
                          shard_poisson_op, shard_tables, split_blocks)
 
@@ -116,13 +119,19 @@ class ShardedAMRSim(AMRSim):
         state gathered and split over the new mesh, its key re-anchored.
         The slot fields stay whole on the home device. A rebuild that is no
         topology change keeps the padding's hysteresis and the two-level
-        trigger as they were. Raises ``ValueError`` where the new home is
-        not the sim's device, ``NotImplementedError`` (item 8) for a mesh
-        over other ranks (``shard_halo.check_remesh``)."""
+        trigger as they were. Onto a mesh over a world re-formed since this
+        one's was lost (``shard_halo.world_reformed``) nothing is read
+        through the lost world: the ordered state is dropped, for the
+        caller to restore (``elastic_recover``'s disk rung). Raises
+        ``ValueError`` where the new home is not the sim's device,
+        ``NotImplementedError`` for a mesh over other ranks of a live world
+        (``shard_halo.check_remesh``)."""
         check_remesh(self.mesh, mesh)
         if mesh.home != self.device:
             raise ValueError(f"re-mesh onto {mesh}: its home is not the "
                              f"sim's device {self.device}")
+        if world_reformed(self.mesh, mesh):
+            self._ord = None
         whole = None if self._ord is None else {
             k: self._gather(v) for k, v in self._ord.items()}
         kept = (self._npad_quiet, self._coarse_on, self._last_iters)

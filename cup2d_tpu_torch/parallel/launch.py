@@ -21,9 +21,13 @@ reductions are all-gathered and combined in shard order, the regrid tags
 are one all-gathered vector), so the ranks enter every collective in the
 same order. A world that does not form fails the run with a message: the
 connect is bounded (``timeout``) and retried a bounded number of times,
-and a run never falls back to a single process. The elastic re-init
-(``reinit_distributed`` in the JAX package) waits for the elastic guard
-(ROADMAP queue 1 item 8).
+and a run never falls back to a single process.
+
+After a host loss (``resilience.TopologyGuard``) the old world's
+collectives are dead: ``reinit_distributed`` aborts it and forms the
+survivors' world on a fresh port, with its own connect budget; a mesh
+built over it (``world_mesh``) is one ``remesh`` accepts, and
+``resilience.StepGuard.elastic_recover`` resumes on it.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch.distributed as dist
 from ..resilience import dist_initialized, record_event
 from .shard_halo import SlabMesh
 
-__all__ = ["global_mesh", "init_distributed", "rank",
+__all__ = ["global_mesh", "init_distributed", "rank", "reinit_distributed",
            "shutdown_distributed", "world_mesh", "world_size"]
 
 
@@ -146,12 +150,24 @@ def init_distributed(coordinator_address: Optional[str] = None,
             "init_distributed: a world needs the coordinator address, the "
             "number of processes and this process's id (-coordinator, "
             "-meshHosts, -processId, or torchrun's environment)")
+    _form_world(address, int(world), int(me), device,
+                env.get("local_rank", me), timeout, connect_attempts,
+                connect_backoff, expected_processes)
+    return dist.get_rank()
+
+
+def _form_world(address: str, world: int, me: int, device, local: int,
+                timeout: float, connect_attempts: int,
+                connect_backoff: float, expected_processes) -> None:
+    """Form the world of ``world`` processes at ``address`` as rank ``me``
+    on ``device`` (a card: NCCL, a bare ``cuda`` taking card ``local``
+    modulo the card count; else gloo), with a bounded, retried connect and
+    the handshake."""
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
     device = torch.device(device)
     if device.type == "cuda":
         if device.index is None:
-            local = env.get("local_rank", me)
             device = torch.device("cuda", local % torch.cuda.device_count())
         torch.cuda.set_device(device)
         backend = "nccl"
@@ -179,13 +195,64 @@ def init_distributed(coordinator_address: Optional[str] = None,
         raise RuntimeError(
             f"distributed runtime has {got} processes, expected "
             f"{expected_processes} — partial bring-up")
+
+
+def shutdown_distributed(abort: bool = False) -> None:
+    """Tear the world down (a no-op without one). ``abort``: a member is
+    gone or a collective hangs, so the world is aborted
+    (``ncclCommAbort`` under NCCL, which also ends a kernel that waits on
+    the dead peer) instead of destroyed, which could wait on it."""
+    if not dist_initialized():
+        return
+    if abort:
+        from torch.distributed import distributed_c10d as c10d
+        abort_fn = getattr(c10d, "_abort_process_group", None)
+        if abort_fn is not None:
+            abort_fn()
+            if not dist_initialized():
+                return
+    dist.destroy_process_group()
+
+
+def reinit_distributed(coordinator_address: str, num_processes: int,
+                       process_id: int, connect_attempts: int = 10,
+                       connect_backoff: float = 0.5, device=None,
+                       timeout: float = 300.0) -> int:
+    """Form the survivors' world after a topology loss
+    (``cup2d_tpu/parallel/launch.py:173-218``): once a peer is gone every
+    collective of the old world hangs, so the old world is aborted
+    (``shutdown_distributed(abort=True)``; a failure there is logged and
+    the new world's connect is the judge) and a new one of
+    ``num_processes`` forms at ``coordinator_address``. The survivors
+    renumber in old-rank order, so the new rank 0, the coordinator, is the
+    lowest surviving rank; the address names it, on a fresh port (the old
+    coordinator may be gone, or its port still in TIME_WAIT). The connect
+    budget is this function's own (more attempts at a shorter backoff than
+    ``init_distributed``'s: a re-init races only survivors already up).
+    ``device`` defaults to this rank's current card, else the CPU, so the
+    backend stays the old world's. Meshes built afterwards
+    (``world_mesh``) are over the new world (``shard_halo.world_epoch``).
+    Records a ``reinit_distributed`` event; returns the new rank."""
+    from . import shard_halo
+    if device is None:
+        device = _rank_device(None)
+    t0 = time.perf_counter()
+    try:
+        shutdown_distributed(abort=True)
+    except Exception as e:
+        print(f"cup2d_tpu_torch: distributed shutdown during re-init "
+              f"failed: {e}", file=sys.stderr)
+        record_event(event="reinit_shutdown_failed", error=str(e))
+        if dist_initialized():
+            dist.destroy_process_group()
+    _form_world(coordinator_address, int(num_processes), int(process_id),
+                device, int(process_id), timeout, connect_attempts,
+                connect_backoff, int(num_processes))
+    shard_halo.world_epoch += 1
+    record_event(event="reinit_distributed", num_processes=num_processes,
+                 process_id=process_id,
+                 seconds=time.perf_counter() - t0)
     return dist.get_rank()
-
-
-def shutdown_distributed() -> None:
-    """Tear the world down (a no-op without one)."""
-    if dist_initialized():
-        dist.destroy_process_group()
 
 
 def _rank_device(device) -> torch.device:

@@ -13,10 +13,14 @@ and ``parallel.shard_halo`` writes every exchange and reduction out.
 ``UniformSim`` on that layout, under any boundary table (a periodic x
 closes the slabs into a ring); ``fleet.FleetSim(mesh=)`` places a fleet
 on a single-controller mesh. ``ShardedUniformSim.remesh`` re-splits a
-run onto another mesh (``shard_halo.check_remesh``: the same controller
-or the same ranks). The elastic guard with the re-init of a world, the
-mirror tier and fleets across processes are not ported (ROADMAP queue 1
-item 8).
+run onto another mesh (``shard_halo.check_remesh``: the same controller,
+the same ranks, or the world that ``parallel.launch.reinit_distributed``
+formed from the survivors of a lost one), which is what
+``resilience.StepGuard.elastic_recover`` does after a host loss.
+``host_ring_shift`` moves every host's block of slabs to its ring
+neighbour, the exchange of the host-redundant mirror tier
+(``io.mirror_snapshot``). Fleets across processes are not ported (ROADMAP
+queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -27,10 +31,11 @@ import torch
 
 from ..config import SimConfig
 from ..uniform import FlowState, UniformSim
-from .shard_halo import SlabMesh, check_remesh, gather_x, split_x
+from .shard_halo import (Slabs, SlabMesh, check_remesh, gather_x,
+                         permute_slabs, split_x, world_reformed)
 
-__all__ = ["ShardedUniformSim", "SlabMesh", "make_mesh", "shard_state",
-           "unshard_state"]
+__all__ = ["ShardedUniformSim", "SlabMesh", "host_ring_shift", "make_mesh",
+           "shard_state", "unshard_state"]
 
 
 def make_mesh(n_devices: Optional[int] = None, devices=None) -> SlabMesh:
@@ -54,6 +59,23 @@ def make_mesh(n_devices: Optional[int] = None, devices=None) -> SlabMesh:
                 f"need {n_devices} devices, have {len(devices)}")
         devices = devices[:n_devices]
     return SlabMesh(devices)
+
+
+def host_ring_shift(x: Slabs, n_hosts: int) -> Slabs:
+    """The mirror exchange (``cup2d_tpu/parallel/mesh.py:179-205``): the
+    D slabs of ``x`` grouped into ``n_hosts`` contiguous hosts of D/H
+    slabs, every slab's contents move to slot (i + D/H) % D, so host h's
+    columns land on host h+1 and the whole field is ``roll(x, +Nx/H)``
+    along x. Fresh tensors (``shard_halo.permute_slabs``: a copy on one
+    card, a peer copy across cards, a message across ranks); no host
+    read. Raises ``ValueError`` where H < 2 or H does not divide D."""
+    n_dev = x.mesh.size
+    if n_hosts < 2 or n_dev % n_hosts != 0:
+        raise ValueError(
+            f"host ring needs >=2 hosts dividing the mesh "
+            f"(n_hosts={n_hosts}, devices={n_dev})")
+    dph = n_dev // n_hosts
+    return permute_slabs(x, lambda j: (j - dph) % n_dev)
 
 
 def shard_state(state: FlowState, mesh: SlabMesh) -> FlowState:
@@ -103,16 +125,23 @@ class ShardedUniformSim(UniformSim):
         """Re-split the run onto ``mesh`` in place
         (``cup2d_tpu/parallel/mesh.py:126-160``): the state gathered and
         split anew (``attach_mesh`` rebuilds the split hierarchy), a
-        cached device dt moved to the new home. Raises ``ValueError``
-        (``attach_mesh``) where Nx does not divide by the new mesh's size
-        or its home is not the grid's device, and ``NotImplementedError``
-        (item 8) for a mesh
-        over other ranks (``shard_halo.check_remesh``). The steps that
-        follow equal those of a sim built on ``mesh`` from this state."""
+        cached device dt moved to the new home. Onto a mesh over a world
+        re-formed since this one's was lost (``shard_halo.world_reformed``)
+        nothing is read through the lost world: the state is zeroed, for
+        the caller to restore (``elastic_recover``'s disk rung). Raises
+        ``ValueError`` (``attach_mesh``) where Nx does not divide by the
+        new mesh's size or its home is not the grid's device, and
+        ``NotImplementedError`` for a mesh over other ranks of a live
+        world (``shard_halo.check_remesh``). The steps that follow equal
+        those of a sim built on ``mesh`` from this state."""
         check_remesh(self.mesh, mesh)
-        whole = unshard_state(self.state)
+        lost = world_reformed(self.mesh, mesh)
+        whole = (self.grid.zero_state() if lost
+                 else unshard_state(self.state))
         self.grid.attach_mesh(mesh)
         self.mesh = mesh
         self.state = shard_state(whole, mesh)
-        if torch.is_tensor(self._next_dt):
+        if lost:
+            self._next_dt = None
+        elif torch.is_tensor(self._next_dt):
             self._next_dt = self._next_dt.to(mesh.home)

@@ -127,6 +127,13 @@ def comm_by_kind(stats: Optional[dict] = None, local: bool = False
     return {k: (st[f"{a}.{k}"], st[f"{b}.{k}"]) for k in COMM_KINDS}
 
 
+# how many times this process's world was re-formed
+# (``parallel.launch.reinit_distributed``); a world's mesh records the
+# count it was built under, so a mesh over the re-formed world is told
+# from one over the world that was lost
+world_epoch = 0
+
+
 def canonical_device(d) -> torch.device:
     """``d`` with its index: a bare ``cuda`` is the current card."""
     d = torch.device(d)
@@ -175,6 +182,7 @@ class SlabMesh:
         mesh.world = ws
         mesh.distributed = True
         mesh.local = tuple(range(r * per, (r + 1) * per))
+        mesh.epoch = world_epoch
         return mesh
 
     @property
@@ -204,18 +212,29 @@ class SlabMesh:
 def check_remesh(old: SlabMesh, new: SlabMesh) -> None:
     """The re-mesh rule: a single-controller mesh may be replaced by any
     other single-controller mesh, a world's mesh by another over the same
-    ranks (say with another number of shards a rank). A mesh over other
-    ranks, or between a single controller and a world, needs the elastic
-    re-init of the process group, which is not ported."""
+    ranks (say with another number of shards a rank), or by one over the
+    world that ``parallel.launch.reinit_distributed`` formed from the
+    survivors since (the elastic recovery: ``remesh`` then reads nothing
+    through the lost world). Any other mesh over other ranks, or a change
+    between a single controller and a world, raises: such a mesh needs the
+    world re-formed first."""
     same = (old.distributed == new.distributed
             and (not old.distributed
                  or (old.world == new.world and old.rank == new.rank
                      and set(old.owners) == set(new.owners))))
-    if not same:
-        raise NotImplementedError(
-            f"re-mesh from {old} onto {new}: a mesh over other ranks needs "
-            "reinit_distributed, which is not ported yet (ROADMAP queue 1 "
-            "item 8)")
+    if same or world_reformed(old, new):
+        return
+    raise NotImplementedError(
+        f"re-mesh from {old} onto {new}: a mesh over other ranks needs the "
+        "world re-formed over them first (parallel.launch."
+        "reinit_distributed)")
+
+
+def world_reformed(old: SlabMesh, new: SlabMesh) -> bool:
+    """``new`` is a mesh over the world re-formed since ``old``'s world
+    was built: ``old``'s collectives died with that world."""
+    return (old.distributed and new.distributed
+            and getattr(new, "epoch", 0) > getattr(old, "epoch", 0))
 
 
 def all_shards(parts, mesh: SlabMesh, device=None,
@@ -373,6 +392,32 @@ def reshard(s: Slabs, mesh: SlabMesh) -> Slabs:
     if mesh.size == 1:
         return Slabs([gather_x(s, mesh.devices[0], "levels")], mesh)
     return split_x(gather_x(s, kind="levels"), mesh)
+
+
+def permute_slabs(s: Slabs, src_of) -> Slabs:
+    """A new field whose slab j holds slab ``src_of(j)``'s contents, as
+    fresh tensors on slab j's device: a copy between local shards (a peer
+    copy between cards of one process), a message between ranks through
+    ``_send_recv``, listed by source slab in one global order on every
+    rank (a collective under a world: every rank calls it)."""
+    mesh = s.mesh
+    D = mesh.size
+    pos = {d: i for i, d in enumerate(mesh.local)}
+    out = [None] * len(mesh.local)
+    msgs = []
+    for j in range(D):
+        i = src_of(j)
+        if i in pos and j in pos:
+            src = s.parts[pos[i]]
+            out[pos[j]] = src.to(mesh.devices[j], copy=True)
+        elif i in pos:
+            msgs.append((True, mesh.owners[j], s.parts[pos[i]], i))
+        elif j in pos:
+            ref = s.parts[pos[j]]
+            out[pos[j]] = ref.new_empty(ref.shape)
+            msgs.append((False, mesh.owners[i], out[pos[j]], i))
+    _send_recv(msgs)
+    return Slabs(out, mesh)
 
 
 def _neighbours(d: int, D: int, ring: bool):

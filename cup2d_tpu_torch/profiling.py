@@ -406,6 +406,8 @@ class MetricsRecorder:
         self._last_phase: dict = dict(timers.acc) if timers else {}
         self._last_regrid = (0, 0)
         self._last_replayed = 0
+        self._last_remesh_ms = 0.0
+        self._last_mirror_ms = 0.0
         self._lvl_cache = (None, None, None)   # (version, hist, n)
 
     def prime(self, sim) -> None:
@@ -559,23 +561,34 @@ class MetricsRecorder:
 
     def _guard_fields(self) -> dict:
         """Supervision telemetry, host state on the guard: the live
-        snapshot ring's device bytes and the replayed-step delta. The
-        elastic group and the mirror group (item 8) hold what the
-        reference's guard reports without a mesh or a mirror: epoch 0, no
-        re-mesh, no mirror, no restore source."""
+        snapshot ring's device bytes, the replayed-step delta, the elastic
+        group (epoch, cumulative re-mesh count, this record's re-mesh ms)
+        and the mirror group (held mirror bytes while mirroring, this
+        record's capture ms, the last elastic rung)."""
         if self.guard is None:
             return {"snap_ring_bytes": None, "replayed_steps": None,
                     "topology_epoch": None, "remesh_count": None,
                     "remesh_ms": None, "mirror_bytes": None,
                     "mirror_ms": None, "restore_source": None}
-        cur = int(self.guard.replayed_steps)
+        g = self.guard
+        cur = int(g.replayed_steps)
         delta = cur - self._last_replayed
         self._last_replayed = cur
-        return {"snap_ring_bytes": int(self.guard.ring_nbytes()),
+        ms_delta = g.remesh_ms_total - self._last_remesh_ms
+        self._last_remesh_ms = g.remesh_ms_total
+        mir_delta = g.mirror_ms_total - self._last_mirror_ms
+        self._last_mirror_ms = g.mirror_ms_total
+        return {"snap_ring_bytes": int(g.ring_nbytes()),
                 "replayed_steps": delta,
-                "topology_epoch": 0, "remesh_count": 0,
-                "remesh_ms": None, "mirror_bytes": None,
-                "mirror_ms": None, "restore_source": None}
+                "topology_epoch": int(g.topology_epoch),
+                "remesh_count": int(g.remesh_count),
+                "remesh_ms": (round(ms_delta, 3)
+                              if ms_delta > 0 else None),
+                "mirror_bytes": (int(g.mirror_nbytes())
+                                 if g.mirror_hosts is not None else None),
+                "mirror_ms": (round(mir_delta, 3)
+                              if mir_delta > 0 else None),
+                "restore_source": g.restore_source}
 
     def _phase_fields(self) -> Optional[dict]:
         if self.timers is None:

@@ -38,13 +38,34 @@
 - Under a world (``parallel.launch``) the ``EventLog`` writes from rank 0
   only: the decisions it records are the same on every rank.
 
+A loss that changes the topology (a host, or a rank of a world, dropping
+out of a split run) is the elastic half:
+
+- ``TopologyGuard``: detection and agreement. A device of the guard is one
+  shard slot of a ``SlabMesh``; a host is a contiguous group of slots
+  (``sim_hosts=H``, simulated in one process, the losses injected by
+  ``faults`` ``host_exit@N`` / ``host_hang@N``) or, under a world, the rank
+  owning them. The heartbeat ``[sigterm, epoch, exiting]`` rides the one
+  all-gather ``PreemptionGuard.agree`` makes at each step boundary, under
+  ``bounded_call``'s deadline, so a dead peer shows as a missed deadline
+  (``Beat.hung``) instead of a hang. A host missing ``miss_k`` beats, or
+  announcing its exit in its last one, is declared lost; every survivor
+  computes the same survivors and epoch from the same evidence, and emits
+  one ``topology_lost`` event.
+- ``StepGuard.elastic_recover``: the survivors become a new mesh (after
+  ``parallel.launch.reinit_distributed`` under a world), the sim is
+  re-meshed in place (``remesh``) and resumes down the ladder ring (the
+  newest snapshot, where the survivors still own it), mirror (the lost
+  hosts' blocks from their ring neighbours' copies, checksummed:
+  ``mirror_hosts``), disk, abort; one ``remesh`` event (and a
+  ``mirror_reject`` for a corrupt mirror).
+
 The port's solvers read their flags on the host, so a step's iteration
 count is a host int when the step returns, lagged or not: the production
 two-level trigger of the forest sees it at the next dispatch in both
 modes, and the JAX guard's trigger-freshness drain and ``_last_iters_dev``
 have nothing to settle here. The guard opens no tracing spans (the span
-recorder is ROADMAP queue 1 item 9). Not ported: the mirror tier and the
-elastic topology guard (item 8).
+recorder is ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -336,8 +357,7 @@ class _Pending:
 
 
 class StepGuard:
-    """Wraps ``sim.step_once`` with the verdict and the recovery ladder,
-    the JAX package's ``StepGuard`` without its mirror tier.
+    """Wraps ``sim.step_once`` with the verdict and the recovery ladder.
 
     ``sim``: ``Simulation``, ``AMRSim`` or ``UniformSim``. ``ring``: the
     confirmed device snapshots kept (the ladder restores the newest; under
@@ -354,8 +374,14 @@ class StepGuard:
     verdict on the drivers that have ``async_diag``; the obstacle-free
     steps then keep their diagnostics on the device and the guard reads
     step N's after dispatching N+1 (the shaped steps verdict eagerly).
-    ``mirror_hosts``/``mirror_every``: the host-redundant mirror tier,
-    ROADMAP queue 1 item 8; anything but off raises."""
+    ``mirror_hosts``: the host ring of the host-redundant mirror tier
+    (None or < 2: off, and the guard dispatches and reads exactly as
+    without it). Each snapshot of a split uniform run then also ships each
+    host's block to its ring neighbour with on-device checksums
+    (``io.mirror_snapshot``: copies on the device, no read), and
+    ``elastic_recover`` gains the mirror rung; a forest's payload latches
+    the tier off. ``mirror_every``: mirror every Nth snapshot only; a loss
+    at an anchor without a mirror falls to the disk rung."""
 
     def __init__(self, sim, *, ring: int = 1, ckpt_dir: Optional[str] = None,
                  postmortem_dir: Optional[str] = None,
@@ -364,12 +390,6 @@ class StepGuard:
                  snap_every: int = 1, lag: bool = True,
                  mirror_hosts: Optional[int] = None,
                  mirror_every: int = 1):
-        if (mirror_hosts and int(mirror_hosts) >= 2) \
-                or int(mirror_every) != 1:
-            raise NotImplementedError(
-                f"StepGuard(mirror_hosts={mirror_hosts}, mirror_every="
-                f"{mirror_every}): the host-redundant mirror tier is not "
-                "ported yet (ROADMAP queue 1 item 8)")
         self.sim = sim
         self.ring: deque = deque(maxlen=max(1, int(ring)))
         self.ckpt_dir = ckpt_dir
@@ -382,6 +402,18 @@ class StepGuard:
         self.lag = bool(lag)
         self.recoveries = 0       # completed recovery actions (telemetry)
         self.replayed_steps = 0   # cumulative replayed steps (telemetry)
+        # the elastic group, advanced by elastic_recover alone
+        self.topology_epoch = 0
+        self.remesh_count = 0
+        self.remesh_ms_total = 0.0
+        # the mirror tier; None keeps every mirror path dormant
+        self.mirror_hosts = (int(mirror_hosts)
+                             if mirror_hosts and int(mirror_hosts) >= 2
+                             else None)
+        self.mirror_every = max(1, int(mirror_every))
+        self.mirror_ms_total = 0.0   # host ms spent enqueueing captures
+        self.restore_source = None   # the last elastic rung: ring|mirror|disk
+        self._mirror_tick = 0
         self._pendings: list = []
         self._replay: list = []   # (dt, exact, trig) good steps since anchor
         self._since_snap = 0
@@ -391,8 +423,25 @@ class StepGuard:
 
     # -- snapshots (device-resident, io.py) ----------------------------
     def _snapshot(self):
-        from .io import snapshot_state_device
-        return snapshot_state_device(self.sim)
+        from .io import mirror_snapshot, snapshot_state_device
+        snap = snapshot_state_device(self.sim)
+        mesh = getattr(self.sim, "mesh", None)
+        if self.mirror_hosts is not None and mesh is not None:
+            self._mirror_tick += 1
+            if self._mirror_tick >= self.mirror_every:
+                t0 = time.perf_counter()
+                m = mirror_snapshot(snap, mesh, self.mirror_hosts)
+                if m is None:
+                    # a payload the tier does not cover (the forest's):
+                    # latch it off rather than probe every capture
+                    self.mirror_hosts = None
+                else:
+                    snap = snap._replace(mirror=m)
+                    self._mirror_tick = 0
+                # the enqueue's cost; the copies run on the device behind
+                # the step
+                self.mirror_ms_total += (time.perf_counter() - t0) * 1e3
+        return snap
 
     def ring_nbytes(self) -> int:
         """Device bytes of every live snapshot (anchors + pending)."""
@@ -400,6 +449,21 @@ class StepGuard:
         n = sum(snapshot_nbytes(s) for s in self.ring)
         return n + sum(snapshot_nbytes(p.snap) for p in self._pendings
                        if p.snap is not None)
+
+    def mirror_nbytes(self) -> int:
+        """Device bytes of the held mirror payloads (anchors + pending)."""
+        from .io import mirror_nbytes
+        n = sum(mirror_nbytes(s) for s in self.ring)
+        return n + sum(mirror_nbytes(p.snap) for p in self._pendings
+                       if p.snap is not None)
+
+    def _held_mirror_snaps(self) -> list:
+        """Every held snapshot that carries a mirror, newest first (the
+        ``mirror_corrupt`` drill's targets)."""
+        out = [p.snap for p in reversed(self._pendings)
+               if p.snap is not None and p.snap.mirror is not None]
+        out += [s for s in reversed(self.ring) if s.mirror is not None]
+        return out
 
     @property
     def pending(self) -> bool:
@@ -492,6 +556,15 @@ class StepGuard:
             pend.snap = self._snapshot()
             self._since_snap = 0
         self._pendings.append(pend)
+        # mirror_corrupt@N spoils every held mirror at step N's dispatch,
+        # whichever anchor the next loss lands on (suspended in a replay,
+        # keyed on the pre-step count like apply_pre_step)
+        if self.faults is not None \
+                and getattr(self.faults, "mirror_corrupt", None) \
+                and self.faults.mirror_corrupt_at(step0):
+            from .io import corrupt_mirror
+            for snap in self._held_mirror_snaps():
+                corrupt_mirror(snap)
 
     def _resolve_oldest(self) -> dict:
         pend = self._pendings.pop(0)
@@ -721,6 +794,112 @@ class StepGuard:
         raise ResilienceAbort(
             f"step {step}: {v.reason}; recovery ladder exhausted"
             + (f" (post-mortem checkpoint: {pm})" if pm else ""))
+
+
+    # -- elastic topology recovery -------------------------------------
+    def elastic_recover(self, topo: "TopologyGuard") -> None:
+        """Re-mesh the survivors and resume in place after ``topo``
+        declared a loss (``cup2d_tpu/resilience.py:1140-1297``), no
+        process relaunch:
+
+        1. every dispatch in flight was issued on the lost topology: it is
+           dropped and its fault counts refunded, as the ladder does (even
+           a good one, so the resume point is a confirmed anchor);
+        2. the survivors become a new mesh (``topo.survivor_mesh``: their
+           slots on one process; under a world one over the world that
+           ``parallel.launch.reinit_distributed`` formed from them), and
+           ``sim.remesh`` rebuilds the split step over it (the forest's SFC
+           partition re-splits by construction);
+        3. the state comes down the ladder: **ring**, the newest anchor
+           where the survivors still own every shard (``snapshot_covers``
+           without the mirror; a ``shard_loss`` drill voids it), installed
+           on the new mesh (``restore_snapshot_resharded``) and the
+           recorded steps since replayed; **mirror**, the anchor's mirror
+           where every lost host's ring neighbour lives, checked
+           (``verify_mirror``: a bad sum emits one ``mirror_reject`` event
+           and falls through), the lost blocks rebuilt from it
+           (``restore_snapshot_mirrored``) and replayed likewise; **disk**,
+           the last checkpoint, the watchdog's window reset; **abort**.
+
+        Then the ring is re-anchored on the new mesh, the mirror tier
+        resized to the surviving hosts (off below two), and one ``remesh``
+        event emitted (epoch, source, devices, step, replayed, ms)."""
+        sim = self.sim
+        t0 = time.perf_counter()
+        # no fence: torch runs a device's launches in the order they were
+        # enqueued, and a copy between cards is ordered after the source
+        # card's work, so the recovery's reads and copies follow the
+        # dropped dispatches on every stream without waiting on them here;
+        # no collective of the lost world is issued from here on
+        self._discard_pendings()
+        from .io import (destroy_shards, load_checkpoint,
+                         restore_snapshot_mirrored,
+                         restore_snapshot_resharded, snapshot_covers,
+                         verify_mirror)
+        # the simulated real loss: zero what the dead hosts held before a
+        # rung is chosen, so a resume provably came from the survivors
+        destroyed = tuple(topo.destroyed_hosts())
+        lost_hosts = tuple(topo.lost_host_indices())
+        if destroyed:
+            wiped = destroy_shards(sim, list(self.ring), destroyed,
+                                   topo.n_hosts)
+            self.ring.clear()
+            self.ring.extend(wiped)
+        anchor = self.ring[-1] if self.ring else None
+        lost_p = topo.lost_process_indices()
+        dead = tuple(sorted(set(lost_hosts) | set(lost_p)))
+        use_ring = anchor is not None and not destroyed \
+            and snapshot_covers(anchor, lost_p, mirror=False)
+        use_mirror = False
+        if not use_ring and anchor is not None and snapshot_covers(
+                anchor, lost_p, lost_hosts=lost_hosts,
+                shards_destroyed=bool(destroyed)):
+            bad = verify_mirror(anchor, dead)
+            if bad:
+                # never install a torn or corrupt mirror
+                if self.event_log is not None:
+                    self.event_log.emit(
+                        event="mirror_reject", step=int(sim.step_count),
+                        n_rejects=len(bad), rejects=bad[:8])
+            else:
+                use_mirror = True
+        if not use_ring and not use_mirror and not self._disk_available():
+            self._abort(sim.step_count, StepVerdict(False, "topology_lost"),
+                        {}, float("nan"))
+        mesh = topo.survivor_mesh()
+        sim.remesh(mesh)
+        replayed = 0
+        if use_ring:
+            restore_snapshot_resharded(sim, anchor)
+            replayed = self._replay_recorded()
+            source = "ring"
+        elif use_mirror:
+            restore_snapshot_mirrored(sim, anchor, dead)
+            replayed = self._replay_recorded()
+            source = "mirror"
+        else:
+            load_checkpoint(self.ckpt_dir, sim)
+            if self.watchdog is not None:
+                # the window describes steps past the restored point
+                self.watchdog.reset()
+            source = "disk"
+        self.restore_source = source
+        if self.mirror_hosts is not None:
+            alive = topo.alive_host_count()
+            self.mirror_hosts = alive if alive >= 2 else None
+        self.ring.clear()
+        self._reanchor()
+        self.topology_epoch = int(topo.epoch)
+        self.remesh_count += 1
+        ms = 1e3 * (time.perf_counter() - t0)
+        self.remesh_ms_total += ms
+        self.recoveries += 1
+        if self.event_log is not None:
+            self.event_log.emit(
+                event="remesh", epoch=int(topo.epoch), source=source,
+                devices=int(mesh.size), step=int(sim.step_count),
+                sim_time=float(sim.time), replayed=replayed,
+                ms=round(ms, 3))
 
 
 # ---------------------------------------------------------------------------
@@ -1043,16 +1222,338 @@ class PreemptionGuard:
         rank."""
         if not dist_initialized():
             return self.triggered
-        import torch.distributed as dist
-        dev = (torch.device("cuda", torch.cuda.current_device())
-               if dist.get_backend() == "nccl" else torch.device("cpu"))
-        me = torch.tensor([int(self.triggered)], dtype=torch.int32,
-                          device=dev)
-        flags = [torch.empty_like(me) for _ in range(dist.get_world_size())]
-        dist.all_gather(flags, me)
-        return bool(torch.cat(flags).min().item() > 0)
+        flags = _gather_ints([int(self.triggered)], _beat_device())
+        return bool(flags.min() > 0)
 
     def uninstall(self) -> None:
         for s, h in self._prev.items():
             signal.signal(s, h)
         self._prev.clear()
+
+
+# ---------------------------------------------------------------------------
+# elastic topology: detection and agreement (cup2d_tpu/resilience.py:
+# 1719-1971)
+# ---------------------------------------------------------------------------
+
+def _beat_device() -> torch.device:
+    """Where this rank's step-boundary all-gather runs: its card under
+    NCCL, the CPU under gloo."""
+    import torch.distributed as dist
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _gather_ints(vals, dev: torch.device) -> np.ndarray:
+    """Every rank's ``vals`` ([world, len(vals)] int host array) by one
+    all-gather on ``dev``. On a card the gather runs on a side stream of
+    its own, set current in the calling thread (the card too: a thread
+    starts on card 0): the process group then makes only that stream
+    wait on the collective, so a gather blocked on a dead peer holds no
+    stream of the step, and the read that waits for it waits on that
+    stream alone."""
+    import torch.distributed as dist
+    ws = dist.get_world_size()
+    if dev.type != "cuda":
+        me = torch.tensor(vals, dtype=torch.int32, device=dev)
+        out = [torch.empty_like(me) for _ in range(ws)]
+        dist.all_gather(out, me)
+        return torch.stack(out).numpy()
+    torch.cuda.set_device(dev)
+    side = torch.cuda.Stream(device=dev)
+    with torch.cuda.stream(side):
+        me = torch.tensor(vals, dtype=torch.int32, device=dev)
+        out = [torch.empty_like(me) for _ in range(ws)]
+        dist.all_gather(out, me)
+        return torch.stack(out).cpu().numpy()
+
+
+def bounded_call(fn, timeout: float):
+    """Run ``fn()`` with a deadline: ``(True, result)`` when it returns
+    within ``timeout`` seconds, ``(False, None)`` when it is still blocked
+    then (the heartbeat's hang watchdog: a collective blocked on a dead
+    peer becomes evidence instead of a hang). The worker is a daemon
+    thread: a blocked collective cannot be cancelled from here, only left
+    to the world's abort (``parallel.launch.shutdown_distributed(abort=
+    True)``, which ends an NCCL kernel waiting on the dead peer). An
+    exception inside ``fn`` is raised here."""
+    import threading
+    box: dict = {}
+
+    def _run():
+        try:
+            box["result"] = fn()
+        except BaseException as e:   # surfaced to the caller below
+            box["error"] = e
+
+    th = threading.Thread(target=_run, daemon=True)
+    th.start()
+    th.join(timeout)
+    if th.is_alive():
+        return False, None
+    if "error" in box:
+        raise box["error"]
+    return True, box.get("result")
+
+
+class Beat(NamedTuple):
+    """One step-boundary heartbeat (``TopologyGuard.step_boundary``)."""
+
+    stop: bool          # the SIGTERM agreement (PreemptionGuard's)
+    lost: tuple         # hosts declared lost at this beat (mostly empty)
+    self_lost: bool     # under a world: this rank was told to exit
+    hung: bool          # the bounded collective missed its deadline
+
+
+class TopologyGuard:
+    """The detection and agreement half of elastic recovery.
+
+    ``devices``: the shard slots watched, a ``SlabMesh`` or a sequence of
+    devices (a single-controller mesh's, repeats allowed, e.g.
+    ``["cuda:0"] * 4``); default: one slot a rank under a world, else
+    every visible card. Two modes share one protocol:
+
+    - **simulated** (``sim_hosts=H``, one process): the slots grouped into H
+      contiguous hosts. ``faults`` ``host_exit@N`` / ``host_hang@N`` mark
+      the highest-index alive host dead at step N's boundary; each
+      ``poll`` after is one missed beat, and ``miss_k`` misses declare it
+      lost (``shard_loss@N`` at the same boundary takes its shards with
+      it: ``destroyed_hosts``). Every slot stays addressable, so the ring
+      and mirror rungs run end to end in one process.
+    - **real** (a world of more than one rank, no ``sim_hosts``): a host is
+      the rank owning its slots. The heartbeat ``[sigterm, epoch,
+      exiting]`` rides the one all-gather of ``PreemptionGuard.agree``,
+      under ``bounded_call`` with ``timeout``. A rank armed with
+      ``host_exit@N`` announces its exit in that beat (after finishing its
+      in-flight work, so the peers' matching collectives complete), and
+      every survivor declares it in the same beat; a dead or hung peer
+      shows as the deadline missed (``Beat.hung``), after which the old
+      world's collectives are unusable. Resuming in place then needs the
+      world re-formed (``parallel.launch.reinit_distributed``) before
+      ``StepGuard.elastic_recover``.
+
+    The decision is deterministic on the same evidence: the survivors are
+    the alive hosts in their original order, and the epoch rises by one a
+    declaration, each emitting one ``topology_lost`` event."""
+
+    def __init__(self, devices=None, *, sim_hosts: Optional[int] = None,
+                 miss_k: int = 3, timeout: float = 10.0,
+                 faults=None, event_log=None):
+        from .parallel.shard_halo import SlabMesh
+        if devices is None:
+            if dist_initialized():
+                import torch.distributed as dist
+                from .parallel.launch import _rank_device
+                devices = SlabMesh.over_world(dist.get_world_size(),
+                                              _rank_device(None))
+            else:
+                devices = [torch.device("cuda", i)
+                           for i in range(torch.cuda.device_count())]
+        if isinstance(devices, SlabMesh):
+            self.devices = list(devices.devices)
+            self._owners = tuple(devices.owners)
+            self._world_mesh = devices.distributed
+            self._home = devices.home
+        else:
+            self.devices = [torch.device(d) for d in devices]
+            self._owners = (0,) * len(self.devices)
+            self._world_mesh = False
+            self._home = self.devices[0] if self.devices else None
+        self.miss_k = max(1, int(miss_k))
+        self.timeout = float(timeout)
+        self.faults = faults
+        self.event_log = event_log
+        self.epoch = 0
+        self.hung = False
+        self._exiting = False
+        self._lost_processes: set = set()
+        if sim_hosts is not None:
+            h = int(sim_hosts)
+            if h < 2 or len(self.devices) % h:
+                raise ValueError(
+                    f"sim_hosts={h}: need >= 2 simulated hosts (losing "
+                    "the only host leaves nothing to re-mesh onto) "
+                    f"dividing the {len(self.devices)}-device set into "
+                    "equal contiguous groups")
+            self.sim_hosts = h
+            self._n = h
+        else:
+            self.sim_hosts = None
+            self._n = max(self._owners) + 1 if self._world_mesh else 1
+        # the hosts of the current world's ranks, in rank order (the
+        # survivors once the world is re-formed)
+        self._ranks = list(range(self._n))
+        self.alive = [True] * self._n
+        self._dead: dict = {}      # host -> fault kind, not yet declared
+        self._missed: dict = {}    # host -> consecutive missed beats
+        self._destroyed: set = set()
+
+    # -- topology bookkeeping -----------------------------------------
+    @property
+    def n_hosts(self) -> int:
+        return self._n
+
+    def _host_of(self, idx: int) -> int:
+        """The host owning slot ``idx`` (contiguous groups)."""
+        if self.sim_hosts is not None:
+            return idx * self.sim_hosts // len(self.devices)
+        return self._owners[idx]
+
+    def survivor_devices(self) -> list:
+        """The slots of the alive hosts, in their original (contiguous)
+        order: the same on every survivor. Under a world a slot of
+        another rank is None."""
+        return [d for i, d in enumerate(self.devices)
+                if self.alive[self._host_of(i)]]
+
+    def survivor_mesh(self):
+        """The mesh the survivors re-mesh onto: their slots on one
+        process; over a world, as many shards over the current world
+        (one re-formed from the survivors after a real loss)."""
+        surv = self.survivor_devices()
+        if not surv:
+            raise ResilienceAbort("topology loss left no survivor "
+                                  "devices — nothing to re-mesh onto")
+        if not self._world_mesh:
+            from .parallel.mesh import make_mesh
+            return make_mesh(devices=surv)
+        import torch.distributed as dist
+        from .parallel.shard_halo import SlabMesh
+        if not dist_initialized():
+            raise RuntimeError("the survivors' mesh needs a world: form "
+                               "it with parallel.launch.reinit_distributed")
+        ws = dist.get_world_size()
+        if self.sim_hosts is None and ws != self.alive_host_count():
+            raise RuntimeError(
+                f"the world has {ws} ranks for {self.alive_host_count()} "
+                "surviving hosts: re-form it over the survivors first "
+                "(parallel.launch.reinit_distributed)")
+        if len(surv) % ws:
+            raise ValueError(f"{len(surv)} surviving slots do not divide "
+                             f"over {ws} ranks")
+        return SlabMesh.over_world(len(surv), self._home)
+
+    def lost_process_indices(self) -> tuple:
+        """The ranks declared lost (real mode; simulated hosts lose no
+        process), for ``io.snapshot_covers``."""
+        return tuple(sorted(self._lost_processes))
+
+    def lost_host_indices(self) -> tuple:
+        """Ring indices of every declared-lost host, both modes."""
+        return tuple(h for h in range(len(self.alive))
+                     if not self.alive[h])
+
+    def destroyed_hosts(self) -> tuple:
+        """Declared-lost hosts whose shards died with them (``shard_loss``
+        at the loss's boundary), for ``io.destroy_shards``."""
+        return tuple(sorted(h for h in self._destroyed
+                            if not self.alive[h]))
+
+    def alive_host_count(self) -> int:
+        return sum(1 for a in self.alive if a)
+
+    # -- detection -----------------------------------------------------
+    def poll(self, step: int) -> tuple:
+        """One simulated heartbeat at the boundary of ``step``: consume a
+        host-loss fault armed for it, count one missed beat per dead but
+        undeclared host, and declare those at ``miss_k`` misses. Returns
+        the hosts declared at this beat."""
+        if self.faults is not None:
+            for kind in self.faults.host_loss_at(step):
+                h = self._highest_alive_undead()
+                if h is not None:
+                    self._dead[h] = kind
+                    if self.faults.shard_loss_at(step):
+                        self._destroyed.add(h)
+        newly = []
+        for h in self._dead:
+            if not self.alive[h]:
+                continue
+            self._missed[h] = self._missed.get(h, 0) + 1
+            if self._missed[h] >= self.miss_k:
+                newly.append(h)
+        if newly:
+            self._declare(newly, step)
+        return tuple(newly)
+
+    def _highest_alive_undead(self):
+        for h in range(self.n_hosts - 1, -1, -1):
+            if self.alive[h] and h not in self._dead:
+                return h
+        return None
+
+    def _declare(self, hosts, step) -> None:
+        for h in hosts:
+            self.alive[h] = False
+            if self.sim_hosts is None:
+                self._lost_processes.add(h)
+        self.epoch += 1
+        if self.event_log is not None:
+            self.event_log.emit(
+                event="topology_lost", epoch=self.epoch,
+                hosts=[int(h) for h in hosts],
+                kinds=[str(self._dead.get(h, "?")) for h in hosts],
+                step=int(step), miss_k=self.miss_k,
+                survivors=len(self.survivor_devices()))
+
+    def step_boundary(self, stop: PreemptionGuard, step: int) -> Beat:
+        """The step boundary's one call: the SIGTERM agreement and the
+        heartbeat in the one all-gather the loop makes there (real mode),
+        or the local flag and the simulated poll (one process)."""
+        if self.sim_hosts is not None or not dist_initialized() \
+                or self._n == 1:
+            return Beat(stop=stop.agree(), lost=self.poll(step),
+                        self_lost=False, hung=False)
+        import torch.distributed as dist
+        ws = dist.get_world_size()
+        if ws != len(self._ranks):
+            # the world was re-formed over the survivors, in rank order
+            self._ranks = [h for h in range(self._n) if self.alive[h]]
+            if len(self._ranks) != ws:
+                raise RuntimeError(
+                    f"heartbeat over a world of {ws} ranks for "
+                    f"{len(self._ranks)} alive hosts")
+        me = self._ranks[dist.get_rank()]
+        self_kind = None
+        if self.faults is not None:
+            kinds = self.faults.host_loss_at(step)
+            if kinds:
+                self_kind = kinds[-1]
+                if self_kind == "exit":
+                    self._exiting = True
+                    # finish what this rank has in flight first: the
+                    # peers' collectives and messages of the steps
+                    # already dispatched then complete without it
+                    if torch.cuda.is_available():
+                        torch.cuda.synchronize()
+        payload = [1 if stop.triggered else 0, self.epoch,
+                   1 if self._exiting else 0]
+        dev = _beat_device()
+        done, flags = bounded_call(lambda: _gather_ints(payload, dev),
+                                   self.timeout)
+        if not done:
+            self.hung = True
+            if self.event_log is not None:
+                self.event_log.emit(event="topology_hang", step=int(step),
+                                    timeout_s=self.timeout,
+                                    epoch=self.epoch)
+            return Beat(stop=False, lost=(), self_lost=False, hung=True)
+        flags = np.asarray(flags).reshape(ws, 3)
+        exiting = [self._ranks[p] for p in range(ws)
+                   if flags[p, 2] and self.alive[self._ranks[p]]
+                   and self._ranks[p] != me]
+        if exiting:
+            for h in exiting:
+                self._dead[h] = "exit"
+            self._declare(exiting, step)
+        alive_rows = [p for p in range(ws) if self.alive[self._ranks[p]]]
+        stop_agreed = bool(alive_rows) and bool(
+            np.min(flags[alive_rows, 0]) > 0)
+        if self_kind == "hang":
+            # the hard-loss flavour: this rank stops beating and keeps its
+            # process; the survivors' next beat misses its deadline
+            while True:
+                time.sleep(3600)
+        return Beat(stop=stop_agreed, lost=tuple(exiting),
+                    self_lost=(self_kind == "exit"), hung=False)

@@ -309,10 +309,17 @@ REFUSALS = [
     (["-processId", "0"], _WORLD_NEEDS_MESH),
     (["-connectAttempts", "3"], _WORLD_NEEDS_MESH),
     (["-connectBackoff", "1"], _WORLD_NEEDS_MESH),
-    (["-elastic"], 8), (["-elastic", "-mesh", "4"], 8),
-    (["-simHosts", "2"], 8), (["-heartbeatMissK", "2"], 8),
-    (["-heartbeatTimeout", "5"], 8), (["-mirror"], 8),
-    (["-mirrorEvery", "2"], 8),
+    # the elastic and mirror flags as the JAX CLI takes them
+    # (cup2d_tpu/__main__.py:205-208, :330-375): two usage errors, and the
+    # flags that only tune an elastic guard are accepted (and idle) without
+    # -elastic
+    (["-elastic"], "-elastic needs -mesh with at least 2 devices (nothing "
+                   "to re-mesh onto otherwise)"),
+    (["-elastic", "-mesh", "4"], "-elastic on a single-process run needs "
+                                 "-simHosts H (H >= 2)"),
+    (["-simHosts", "2"], None), (["-heartbeatMissK", "2"], None),
+    (["-heartbeatTimeout", "5"], None), (["-mirror"], None),
+    (["-mirrorEvery", "2"], None),
     (["-profile"], 9), (["-spansLog", "s.jsonl"], 9),
 ]
 
@@ -324,10 +331,20 @@ def test_refused_flag_exits_2_naming_its_item(flags, item, tmp_path,
     """A flag the port cannot give names its ROADMAP item; a usage error of
     the JAX CLI gives its message. ``-fleet`` with ``-mesh`` is one only
     without ``-case`` (``-case cavity`` places its fleet on the mesh:
-    tests/test_torch_fleet_mesh.py)."""
+    tests/test_torch_fleet_mesh.py). ``item`` None: a flag the JAX CLI
+    accepts here, where it has no effect without ``-elastic``; the run
+    exits 0 as the JAX CLI's does (tests/test_torch_elastic.py drives
+    the flags with ``-elastic``)."""
     base = CAVITY
     if "-fleet" in flags and "-mesh" in flags:
         base = [a for a in CAVITY if a not in ("-case", "cavity")]
+    if item is None:
+        assert tmain.main(base + flags + ["-maxSteps", "1", "-tdump", "0",
+                                          "-output", str(tmp_path)]) == 0
+        assert "done at" in capsys.readouterr().err
+        assert [r["step"] for r in
+                _records(str(tmp_path / "metrics.jsonl"))] == [1]
+        return
     assert tmain.main(base + flags + ["-output", str(tmp_path)]) == 2
     err = capsys.readouterr().err
     assert (f"item {item}" if isinstance(item, int) else item) in err
@@ -385,8 +402,9 @@ def test_usage_errors_and_accepted_switches(tmp_path, monkeypatch, capsys):
     argv = [a for a in CAVITY if a not in ("-device", "cpu")]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tmain.main(argv + ["-output", str(tmp_path / "card")])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tres.StepGuard(object(), mirror_hosts=2)
+    # the mirror tier arms from 2 hosts, as the JAX package's guard does
+    assert tres.StepGuard(object(), mirror_hosts=2).mirror_hosts == 2
+    assert tres.StepGuard(object(), mirror_hosts=1).mirror_hosts is None
 
 
 def test_verdict_and_watchdog_match_jax():

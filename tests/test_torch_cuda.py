@@ -253,8 +253,10 @@ def test_forest_kernels_refuse_bad_operands(cuda):
 
 def test_forest_step_on_the_card_launches_both_kernels(cuda, monkeypatch):
     """A short forest step on the card under CUP2D_POIS=fas: the lab RHS
-    twice a step, the block-Jacobi update once a production cycle; the
-    state agrees with the CPU run of the same forest to 1e-4 relative."""
+    twice a step, the block-Jacobi update once a production cycle besides
+    its P_inv r launches (kernel 8 counts both, the ``+pinv`` form the
+    latter); the state agrees with the CPU run of the same forest to 1e-4
+    relative."""
     monkeypatch.setenv("CUP2D_POIS", "fas")
     cpu = multilevel_forest(bpd=2, level_max=4, dtype="float32",
                             device="cpu")
@@ -266,7 +268,9 @@ def test_forest_step_on_the_card_launches_both_kernels(cuda, monkeypatch):
     cpu.step_once()
     torch.cuda.synchronize()
     assert hk.launches["fused_lab_rhs"] == 2
-    assert hk.launches["fused_block_jacobi_update"] == d["poisson_iters"] > 0
+    cycles = (hk.launches["fused_block_jacobi_update"]
+              - hk.launches["fused_block_jacobi_update+pinv"])
+    assert cycles == d["poisson_iters"] > 0
     a = card.fields()["vel"].cpu()[
         torch.as_tensor(card.forest.order(), dtype=torch.long)]
     b = cpu.fields()["vel"][
@@ -278,7 +282,8 @@ def test_forest_default_solver_on_the_card_matches_cpu(cuda, monkeypatch):
     """Two forest steps on the card under the default BiCGSTAB (block
     Jacobi, then the two-level M once a solve took > 15 iterations),
     against the CPU: 1e-4 relative at tolerances 1e-6/1e-5, where a
-    convergence test on its edge cannot move the states apart."""
+    convergence test on its edge cannot move the states apart. Every
+    kernel-8 launch is a P_inv r (``+pinv``): no FAS cycle."""
     monkeypatch.delenv("CUP2D_POIS", raising=False)
     cpu = multilevel_forest(bpd=2, level_max=4, dtype="float32",
                             tol=1e-6, tol_rel=1e-5, device="cpu")
@@ -291,7 +296,8 @@ def test_forest_default_solver_on_the_card_matches_cpu(cuda, monkeypatch):
         cpu.step_once()
     torch.cuda.synchronize()
     assert hk.launches["fused_lab_rhs"] == 4
-    assert hk.launches["fused_block_jacobi_update"] == 0
+    assert hk.launches["fused_block_jacobi_update"] \
+        == hk.launches["fused_block_jacobi_update+pinv"] > 0
     assert card.poisson_mode == "bicgstab+twolevel"
     a = card.fields()["vel"].cpu()[
         torch.as_tensor(card.forest.order(), dtype=torch.long)]
@@ -1288,7 +1294,8 @@ def test_disk_forest_on_the_card_matches_cpu(cuda, monkeypatch, pois):
     with an ``adapt()`` after the second: equal block keys and
     iterations, velocity and the disk's (u, v, omega) within 1e-4
     relative, forces on. Two lab-RHS launches a step on the card,
-    block-Jacobi updates under fas only, no uniform kernel."""
+    block-Jacobi cycle updates under fas only (P_inv r, kernel 8's
+    ``+pinv`` form, under both), no uniform kernel."""
     from cup2d_tpu_torch.amr import AMRSim
     from cup2d_tpu_torch.convert import copy_amr_state
     from cup2d_tpu_torch.models import DiskShape
@@ -1332,7 +1339,12 @@ def test_disk_forest_on_the_card_matches_cpu(cuda, monkeypatch, pois):
     assert abs(p.forces["forcex"] - q.forces["forcex"]) <= 1e-3 * max(
         abs(q.forces["forcex"]), 1e-3)
     assert hk.launches["fused_lab_rhs"] == 2 * 15
-    assert (hk.launches["fused_block_jacobi_update"] > 0) == (pois == "fas")
+    # FAS cycles launch kernel 8 under fas only; P_inv r, its +pinv form,
+    # under both solvers
+    cycles = (hk.launches["fused_block_jacobi_update"]
+              - hk.launches["fused_block_jacobi_update+pinv"])
+    assert (cycles > 0) == (pois == "fas")
+    assert hk.launches["fused_block_jacobi_update+pinv"] > 0
     for k in ("fused_advect_heun", "fused_correction", "fused_jacobi_sweeps",
               "advect_substage_halo", "jacobi_halo_sweep"):
         assert hk.launches[k] == 0, k

@@ -28,8 +28,10 @@ on the CPU: worlds of 2 ranks, 2 shards each, spawned with
   Taylor-Green): bit for bit the single-process run re-meshed from 4
   shards to 2; its forest step gathered group partials only, and no
   preconditioner operand.
-* The refusals that stay (item 8), and a world whose peer never comes,
-  which fails inside its timeout with the expected process count."""
+* The refusal that stays (a fleet across processes, item 8), the elastic
+  and mirror flags as the JAX CLI takes them, and a world whose peer never
+  comes, which fails inside its timeout with the expected process count.
+  The elastic recovery across ranks is tests/test_torch_dist_elastic.py."""
 
 import hashlib
 import json
@@ -642,16 +644,31 @@ def test_missing_peer_fails_inside_its_timeout(tmp_path):
 
 
 def test_refusals_that_stay(tmp_path, capsys):
+    """The fleet across processes still refuses, naming item 8; the
+    elastic and mirror flags behave as in the JAX CLI
+    (``cup2d_tpu/__main__.py:205-208``, :330-375): ``-elastic`` in one
+    process without ``-simHosts`` is a usage error, and the other flags
+    alone are accepted runs."""
     from cup2d_tpu_torch.__main__ import main
-    base = ["-bpdx", "1", "-bpdy", "1", "-levelMax", "2", "-level", "2",
-            "-tend", "0.01", "-device", "cpu", "-output", str(tmp_path)]
-    for flags in (["-mesh", "4", "-elastic"], ["-mirror"],
-                  ["-mesh", "4", "-simHosts", "2"],
-                  ["-heartbeatMissK", "1"], ["-heartbeatTimeout", "3"],
-                  ["-case", "cavity", "-fleet", "2", "-mesh", "2",
-                   "-meshHosts", "2"]):
-        assert main(base + flags) == 2, flags
-        assert "item 8" in capsys.readouterr().err, flags
+    base = ["-bpdx", "2", "-bpdy", "1", "-levelMax", "1", "-levelStart",
+            "0", "-level", "2", "-extent", "2", "-CFL", "0.4", "-tend",
+            "0.01", "-nu", "1e-3", "-poissonTol", "1e-3", "-poissonTolRel",
+            "1e-2", "-maxPoissonRestarts", "0", "-maxPoissonIterations",
+            "200", "-AdaptSteps", "20", "-Rtol", "2", "-Ctol", "1",
+            "-lambda", "1e6", "-tdump", "0",
+            "-dtype", "float64", "-maxSteps", "2", "-device", "cpu"]
+    for k, (flags, rc, text) in enumerate((
+            (["-mesh", "4", "-elastic"], 2,
+             "-elastic on a single-process run needs -simHosts"),
+            (["-mirror"], 0, "done at"),
+            (["-mesh", "4", "-simHosts", "2"], 0, "done at"),
+            (["-heartbeatMissK", "1"], 0, "done at"),
+            (["-heartbeatTimeout", "3"], 0, "done at"),
+            (["-case", "cavity", "-fleet", "2", "-mesh", "2",
+              "-meshHosts", "2"], 2, "item 8"))):
+        out = str(tmp_path / str(k))
+        assert main(base + flags + ["-output", out]) == rc, flags
+        assert text in capsys.readouterr().err, flags
 
 
 if __name__ == "__main__":
