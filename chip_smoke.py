@@ -295,7 +295,7 @@ the result lines:
    f32 operands. Files under build/phase15, removed at the end.
 16. fleets and the serving pool (``fleet.FleetSim``, ``FleetServer``):
    bench.run_fleet's arm (the amplitude-laddered Taylor-Green fleet,
-   production steps, 1 warm-up step, one synchronized window of 3, f32)
+   production steps, 1 warm-up step, one synchronized window of 2, f32)
    at 256^2 with B = 1, 8, 64 and at 1024^2 with B = 1, 8, 32, under the
    default solver and fas: ms a step, member-steps/s and the idle share
    of one ``torch.profiler`` step at each B (no bar). The card bars: B = 1
@@ -313,9 +313,16 @@ the result lines:
    first retirement on, occupancy, admissions, retirements, evictions
    and the pool's ``serving_latency`` percentiles printed; a session
    parked at half its horizon and admitted again from its checkpoint
-   bit for bit the straight run (1024^2). Launches of kernels 2, 5 and 6
-   from 0 over the phase, each > 0; no twin called on the card's f32
-   operands. Files under build/phase16, removed at the end.
+   bit for bit the straight run (1024^2). The unfaulted run goes twice:
+   plain (``-noSpans -noMemLedger``) and observed (``-profile -spansLog
+   PATH``: the phase timers, the span timeline and the allocator peaks),
+   every session checkpoint and event bit-equal, equal device reads and
+   kernel builds over each whole run (``shapes_host.pulls``,
+   ``hopper_kernels.build_events``), the profile's throughput line
+   printed, and ``post --trace PATH`` writing a ``trace.json`` with the
+   admit and retire spans on one track a client. Launches of kernels 2,
+   5 and 6 from 0 over the phase, each > 0; no twin called on the card's
+   f32 operands. Files under build/phase16, removed at the end.
 17. the forest on a mesh and the forest's left-overs, on ``MESH_D`` = 4
    shards of the card (four cards cut to one, as phase 7): (a) phase 5's
    10,529-block forest, after one production step (its cold solve paid
@@ -383,10 +390,16 @@ the result lines:
    whole work all-gathers a step; (c) a collective ``save_checkpoint`` /
    ``load_checkpoint`` round trip of (b)'s fas run, its arrays, meta and
    shapes bytes equal to the single-controller save and the restore bit
-   for bit. ms a step of each beside the single-controller run's;
-   launches of kernels 3, 4, 7 and 8 from 0 over the world runs alone,
-   each > 0; no twin called on the card's operands; the group torn down
-   at the end (files under build/phase19, removed).
+   for bit; (d) phase 18 (c)'s ``turb2d`` fleet (1024^2, B = 8) on the
+   world mesh, member placement (2 a shard) and spatial, default and fas,
+   a warm-up and 3 steps from the same start, bit for bit (the final
+   state, kept on the card, and the per-member iterations) phase 18 (c)'s
+   single-controller placed fleets, member-steps/s beside them and the
+   bytes all-gathered a step. ms a step of each beside the
+   single-controller run's; launches of kernels 3, 4, 7 and 8 from 0
+   over (a)-(c) alone and of 2, 3, 5, 6 and 7 over (d)'s world fleets
+   alone, each > 0; no twin called on the card's operands; the group
+   torn down at the end (files under build/phase19, removed).
 20. elastic recovery (``resilience.TopologyGuard``,
    ``StepGuard.elastic_recover``, the mirror tier): ``MESH_D`` = 4 shards
    of the card grouped into 2 simulated hosts, ``miss_k`` 1, from a
@@ -4302,7 +4315,7 @@ PHASE16_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # iterates every step
 FLEET_CURVES = (("tg", 256, (1, 8, 64)), ("tg", 1024, (1, 8, 32)),
                 ("turb2d", 1024, (1, 8, 32)))
-FLEET_WARM, FLEET_STEPS = 1, 3
+FLEET_WARM, FLEET_STEPS = 1, 2
 FLEET_KEYS = ("fused_advect_heun", "fused_correction", "fused_jacobi_sweeps")
 FLEET_SOLO_REL = 1e-5      # a member against its solo run (PERF.md §2)
 FLEET_BAR_STEPS = 2        # the B = 8 bar's production steps
@@ -4472,12 +4485,15 @@ def fleet_card_bars(dev) -> dict:
     return out
 
 
-def serve_run(out: str, faults: str | None = None) -> dict:
-    """``main()`` in process with ``SERVE_FLAGS`` into ``out`` (and
-    ``CUP2D_FAULTS=faults``), its pool starting at ``SERVE_FIRST_STEP``:
-    rc, seconds, metrics records, events and the ``serving_latency``
-    record."""
+def serve_run(out: str, faults: str | None = None, extra=()) -> dict:
+    """``main()`` in process with ``SERVE_FLAGS`` and ``extra`` into
+    ``out`` (and ``CUP2D_FAULTS=faults``), its pool starting at
+    ``SERVE_FIRST_STEP``: rc, seconds, metrics records, events, the
+    ``serving_latency`` record, and the device reads and kernel builds
+    over the whole run (``shapes_host.pulls``,
+    ``hopper_kernels.build_events``)."""
     from cup2d_tpu_torch import __main__ as tmain
+    from cup2d_tpu_torch import shapes_host
     from cup2d_tpu_torch.fleet import FleetSim
     from cup2d_tpu_torch.profiling import load_metrics
     if faults:
@@ -4489,20 +4505,88 @@ def serve_run(out: str, faults: str | None = None) -> dict:
         sim.step_count = SERVE_FIRST_STEP
 
     FleetSim.__init__ = production_pool
+    reads0, builds0 = shapes_host.pulls, hk.build_events
     t0 = time.perf_counter()
     try:
-        rc = tmain.main(SERVE_FLAGS.split() + ["-output", out])
+        rc = tmain.main(SERVE_FLAGS.split() + list(extra) + ["-output", out])
     finally:
         FleetSim.__init__ = init
         os.environ.pop("CUP2D_FAULTS", None)
     secs = time.perf_counter() - t0
+    reads, builds = shapes_host.pulls - reads0, hk.build_events - builds0
     check(rc == 0, f"phase 16 serve {out}: rc {rc}")
     rows = load_metrics(os.path.join(out, "metrics.jsonl"))
     recs = [r for r in rows if r.get("event") == "metrics"]
     lat = [r for r in rows if r.get("event") == "serving_latency"]
     check(len(lat) == 1, "phase 16 serve: no serving_latency record")
     return {"seconds": secs, "records": recs, "events": _events(out),
-            "latency": lat[0], "out": out}
+            "latency": lat[0], "out": out, "reads": reads,
+            "builds": builds,
+            "ledger": [r for r in rows if r.get("event") == "compile_ledger"]}
+
+
+# the plain serving run turns the flight recorder's spans and allocator
+# peaks off; the observed one times the phases and writes the spans
+SERVE_PLAIN = ("-noSpans", "-noMemLedger")
+SERVE_OBSERVED = ("-profile", "-spansLog")
+
+
+def serve_observed(card: str, plain: dict) -> dict:
+    """The unfaulted serving run again with ``-profile -spansLog PATH``
+    against ``plain`` (``SERVE_PLAIN``): every session checkpoint and
+    event bit-equal, equal device reads and kernel builds over each whole
+    run, the same device reads in every record; then ``post --trace`` on
+    the span file. Returns the row printed."""
+    from cup2d_tpu_torch import post as tpost
+    d = os.path.join(PHASE16_DIR, "serve_obs")
+    spans = os.path.join(PHASE16_DIR, "spans_obs.jsonl")
+    obs = serve_run(d, extra=SERVE_OBSERVED + (spans,))
+    # the plain run's sessions, kept for phase_fleet's faulted comparison
+    sp, so = _sessions(plain["out"]), _sessions(d)
+    plain["sessions"] = sp
+    same = sorted(sp) == sorted(so) and all(
+        all(np.array_equal(sp[c][0][k], so[c][0][k]) for k in sp[c][0])
+        and sp[c][1]["time"] == so[c][1]["time"]
+        and sp[c][1]["next_dt"] == so[c][1]["next_dt"] for c in sp)
+
+    def evs(run):
+        return [{k: v for k, v in e.items()
+                 if k not in ("wall", "checkpoint")} for e in run["events"]]
+    same &= evs(plain) == evs(obs)
+    gets = ([r["device_gets"] for r in plain["records"]]
+            == [r["device_gets"] for r in obs["records"]])
+    check(tpost.main(["--trace", spans]) == 0, "phase 16: post --trace")
+    with open(os.path.join(PHASE16_DIR, "trace.json")) as f:
+        trace = json.load(f)["traceEvents"]
+    names = {e["name"] for e in trace}
+    clients = sum(e["ph"] == "M" and e["pid"] >= 1 << 20 for e in trace)
+    phases = {k for r in obs["records"] for k in (r["phase_ms"] or {})}
+    ledger = obs["ledger"][0] if obs["ledger"] else {}
+    row = {"bit_for_bit": bool(same), "reads": [plain["reads"],
+                                                obs["reads"]],
+           "builds": [plain["builds"], obs["builds"]],
+           "record_reads_equal": gets,
+           "seconds": [plain["seconds"], obs["seconds"]],
+           "median_wall_ms": [float(np.median([r["wall_ms"] for r in
+                                               run["records"]]))
+                              for run in (plain, obs)],
+           "span_count": obs["records"][-1]["span_count"],
+           "hbm_exec_bytes": ledger.get("hbm_exec_bytes"),
+           "trace_events": len(trace), "client_tracks": clients,
+           "phases": sorted(phases)}
+    print(f"phase 16 observed serving {json.dumps(row)}; card {card}",
+          flush=True)
+    check(same and gets and plain["reads"] == obs["reads"]
+          and plain["builds"] == obs["builds"] == 0,
+          f"phase 16: the observed serving run differs from the plain "
+          f"one {row}")
+    flags = SERVE_FLAGS.split()
+    n_serve = int(flags[flags.index("-serve") + 1])
+    check({"admit", "retire", "fleet.step", "step"} <= names
+          and clients == n_serve and phases == {"step"}
+          and (ledger.get("hbm_exec_bytes") or 0) > 0,
+          f"phase 16: the observed run's trace, phases or ledger {row}")
+    return row
 
 
 def serve_summary(run: dict) -> dict:
@@ -4614,8 +4698,10 @@ def phase_fleet(dev, card: str) -> tuple[dict, dict]:
             out["curves"] = fleet_curves(dev, card)
             t1 = time.perf_counter()
             runs = {"unfaulted": serve_run(os.path.join(PHASE16_DIR,
-                                                        "serve"))}
+                                                        "serve"),
+                                           extra=SERVE_PLAIN)}
             t2 = time.perf_counter()
+            observed = serve_observed(card, runs["unfaulted"])
             out["resume"] = serve_resume(dev)
             print(f"phase 16 seconds: curves {t1 - t0}, serving {t2 - t1}, "
                   f"resume {time.perf_counter() - t2}", flush=True)
@@ -4649,8 +4735,8 @@ def phase_fleet(dev, card: str) -> tuple[dict, dict]:
           and f["retired"] == n_serve - 1,
           f"phase 16 faulted serve: evicted {evicted}, {f['retired']} "
           "retired")
-    su, sf = (_sessions(r["out"]) for r in (runs["unfaulted"],
-                                            runs["faulted"]))
+    su = runs["unfaulted"].pop("sessions")
+    sf = _sessions(runs["faulted"]["out"])
     check(sorted(sf) == sorted(c for c in su if c not in evicted),
           "phase 16: the faulted run's sessions")
     same = all(all(np.array_equal(su[c][0][k], sf[c][0][k])
@@ -4675,6 +4761,7 @@ def phase_fleet(dev, card: str) -> tuple[dict, dict]:
           f"solo member steps, L = 1) {json.dumps(faulted)}; card {card}",
           flush=True)
     out["faulted_serve_launches"] = faulted
+    out["observed_serve"] = observed
     shutil.rmtree(PHASE16_DIR)
     return out, launches
 
@@ -5424,7 +5511,7 @@ def phase_placed_fleets(dev, card: str, fleet16: dict) -> tuple[dict, dict]:
     start = cases.make_sim(case, level=(size // 8).bit_length() - 1,
                            members=b, device=dev).state
     mesh = make_mesh(devices=[dev] * MESH_D)
-    out, launches = {}, {}
+    out, launches, digests = {}, {}, {}
     for pois in ("", "fas"):
         rows, states = {}, {}
         for label, kw in (("unplaced", {}),
@@ -5469,6 +5556,11 @@ def phase_placed_fleets(dev, card: str, fleet16: dict) -> tuple[dict, dict]:
                     launches[k] = launches.get(k, 0) + c
             states[label] = [whole(f) for f in (sim.state.vel,
                                                 sim.state.pres)]
+            if label != "unplaced":
+                # phase 19 (d) holds the world fleets to these (kept on
+                # the card: 96 MB a run)
+                digests[(pois, label)] = (states[label], iters,
+                                          rows[label]["step_ms"])
             del sim
         for label in ("member", "spatial"):
             rel = max(float((a - u).abs().max() / u.abs().max())
@@ -5512,6 +5604,7 @@ def phase_placed_fleets(dev, card: str, fleet16: dict) -> tuple[dict, dict]:
                                               for k, r in runs.items()}}
     print(f"phase 18 cli {json.dumps(out['cli'])}", flush=True)
     shutil.rmtree(PHASE18_DIR)
+    out["digests"] = digests
     return out, launches
 
 
@@ -5553,6 +5646,11 @@ DIST_FOREST_STEPS = 3     # (b): production steps after the adapt
 DIST_KEYS = ("advect_substage_halo", "jacobi_halo_sweep", "fused_lab_rhs",
              "fused_block_jacobi_update", "fused_block_jacobi_update+pinv",
              "group_sum")
+# (d): the kernels of the world fleets (member: 2, 5, fas 6; spatial: the
+# wrap forms of 3 and, fas, 7), counted over (d) alone
+DIST_FLEET_KEYS = ("fused_advect_heun", "fused_correction",
+                   "fused_jacobi_sweeps", "advect_substage_halo",
+                   "jacobi_halo_sweep")
 # the split uniform step's twins and the forest's, each once
 DIST_TWINS = tuple(dict.fromkeys(SPLIT_TWINS + FOREST_TWINS))
 
@@ -5659,8 +5757,66 @@ def dist_checkpoint(sim, solo_sim, before: dict) -> dict:
     return row
 
 
-def phase_dist(dev, forest_start: tuple, card: str, size: int = 8192
-               ) -> tuple[dict, dict]:
+def dist_fleets(dev, wmesh, digests: dict, card: str) -> tuple:
+    """(d): phase 18 (c)'s ``turb2d`` fleet on the world mesh, member and
+    spatial, default and fas, the same warm-up and ``FLEET18_STEPS``
+    steps from the same start: the final state bit for bit and the
+    per-member iterations equal phase 18 (c)'s single-controller runs
+    (``digests``: their final vel and pres, kept on the card, their
+    iterations and ms a step). Returns (rows, launches from 0 over these
+    runs)."""
+    case, size, b = FLEET18
+    start = cases.make_sim(case, level=(size // 8).bit_length() - 1,
+                           members=b, device=dev).state
+    rows, launches = {}, {k: 0 for k in DIST_FLEET_KEYS}
+    for pois in ("", "fas"):
+        for label, cap in (("member", 1 << 22), ("spatial", 0)):
+            sim = fleet18(dev, pois, start, mesh=wmesh, cap=cap)
+            check(sim.placement == label and sim.mesh.distributed,
+                  f"phase 19 (d) {label}: placement {sim.placement}")
+            hk.reset_launches()
+            tsh.reset_comm_stats()
+            iters = [sim.step_once()["poisson_iters"].tolist()]
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(FLEET18_STEPS):
+                d = sim.step_once()
+                iters.append(d["poisson_iters"].tolist())
+            sync(dev)
+            wall = time.perf_counter() - t0
+            for k in DIST_FLEET_KEYS:
+                launches[k] += hk.launches[k]
+            n = FLEET18_STEPS + 1
+            comm = {k: tsh.comm_stats[k] / n for k in (
+                "allgathers", "allgather_bytes")}
+            ref_state, ref_iters, ref_ms = digests.pop((pois, label))
+            same = all(torch.equal(whole(a), b) for a, b in zip(
+                (sim.state.vel, sim.state.pres), ref_state))
+            del ref_state
+            name = f"{label} {pois or 'default'}"
+            rows[name] = {
+                "bit_for_bit": same, "iters": iters,
+                "iters_equal": iters == ref_iters,
+                "step_ms": 1e3 * wall / FLEET18_STEPS,
+                "single_controller_step_ms": ref_ms,
+                "member_steps_per_s": b * FLEET18_STEPS / wall,
+                "finite": bool(d["finite"].all()),
+                "allgathers_per_step": comm["allgathers"],
+                "allgather_kb_per_step": comm["allgather_bytes"] / 1e3}
+            print(f"phase 19 (d) world fleet {case} {size}^2 B={b} {name} "
+                  f"{json.dumps(rows[name])}; card {card}", flush=True)
+            check(rows[name]["bit_for_bit"] and rows[name]["iters_equal"]
+                  and rows[name]["finite"],
+                  f"phase 19 (d) {name}: the world fleet differs from the "
+                  "single-controller placed fleet")
+            del sim
+    del start
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def phase_dist(dev, forest_start: tuple, card: str, size: int = 8192,
+               fleet_digests: dict | None = None) -> tuple[dict, dict]:
     """Phase 19: the multi-process code paths through a one-rank NCCL
     world in this process (``parallel.launch.init_distributed``; NCCL
     takes no two ranks on one card), whose 4-shard world mesh sends every
@@ -5674,11 +5830,12 @@ def phase_dist(dev, forest_start: tuple, card: str, size: int = 8192
     bytes it all-gathers a step by kind (the reductions' group partials
     only, no preconditioner operand; the transfers whole); (c) a collective
     ``save_checkpoint`` / ``load_checkpoint`` round trip of (b)'s fas run
-    whose arrays, meta and shapes bytes equal the no-world save. Launches
-    of kernels 3, 4, 7, 8 and ``group_sum.cu`` from 0 over the world runs
-    alone; no twin on
-    the card's operands. The group is torn down before the smoke goes
-    on."""
+    whose arrays, meta and shapes bytes equal the no-world save; (d)
+    ``dist_fleets`` against phase 18 (c)'s digests (``fleet_digests``).
+    Launches of kernels 3, 4, 7, 8 and ``group_sum.cu`` from 0 over
+    (a)-(c) alone, and of 2, 3, 5, 6 and 7 over (d) alone (returned under
+    their names; 3 and 7 sum both); no twin on the card's operands. The
+    group is torn down before the smoke goes on."""
     from cup2d_tpu_torch.parallel.launch import (init_distributed,
                                                  shutdown_distributed,
                                                  world_mesh)
@@ -5762,6 +5919,11 @@ def phase_dist(dev, forest_start: tuple, card: str, size: int = 8192
                                                         row["state"])
                 del row, solo, sim, solo_sim
             t4 = time.perf_counter()
+            fleet_launches = None
+            if fleet_digests is not None:
+                out["fleets"], fleet_launches = dist_fleets(
+                    dev, wmesh, fleet_digests, card)
+            t5 = time.perf_counter()
         check(not any(tw.calls.values()),
               f"phase 19: twins called on the card's operands {tw.calls}")
     finally:
@@ -5771,8 +5933,13 @@ def phase_dist(dev, forest_start: tuple, card: str, size: int = 8192
           "outlived the phase")
     for k in DIST_KEYS:
         check(launches[k] > 0, f"{k}: launched no time on the world runs")
+    if fleet_launches is not None:
+        for k, n in fleet_launches.items():
+            check(n > 0, f"{k}: launched no time on the world fleets")
+            launches[k] = launches.get(k, 0) + n
+        out["fleet_launches"] = fleet_launches
     out["seconds"] = {"bring_up": t_up, "uniform": t3 - t1,
-                      "forest": t4 - t3}
+                      "forest": t4 - t3, "fleets": t5 - t4}
     print(f"phase 19 seconds {json.dumps(out['seconds'])}; launches "
           f"{json.dumps(launches)}; card {card}", flush=True)
     return out, launches
@@ -6226,7 +6393,9 @@ def main() -> int:
               "split periodic path")
     launches.update({k: pd_launches[k] for k in SPLIT_PD_KEYS})
     t0 = time.perf_counter()
-    dist_runs, dist_launches = phase_dist(dev, forest_warm, card)
+    dist_runs, dist_launches = phase_dist(
+        dev, forest_warm, card, fleet_digests=pd_mesh["fleets"].pop(
+            "digests"))
     print(f"phase 19 took {time.perf_counter() - t0} s", flush=True)
     t0 = time.perf_counter()
     hk.reset_launches()

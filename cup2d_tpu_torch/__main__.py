@@ -46,10 +46,23 @@ drain, whose disk restore may rewind the clock. ``CUP2D_FAULTS`` (latched
 once, ``faults.FaultPlan``) arms fault injection. Also: dumps on the
 catch-up ``-tdump`` schedule; the adapt schedule (steps <= 10, then
 every ``AdaptSteps``); ``forces.csv`` (appended on a restart); one
-``metrics.jsonl`` record a step (schema 12, flight-recorder fields null,
-no ``spans.jsonl``); SIGTERM writes ``<output>/checkpoint`` and exits 0.
-``CUP2D_TRACE=start:stop[:logdir]`` wraps steps [start, stop) in
-``torch.profiler``.
+``metrics.jsonl`` record a step (schema 12, with the flight recorder's
+span count, build ms and allocator peak); SIGTERM writes
+``<output>/checkpoint`` and exits 0. ``CUP2D_TRACE=start:stop[:logdir]``
+wraps steps [start, stop) in ``torch.profiler``.
+
+Observability, as the JAX CLI (``cup2d_tpu/__main__.py:295-297``,
+:422-445, :630-654): every metrics-on run installs a flight recorder
+(``tracing.FlightRecorder.from_env``, the one read of ``CUP2D_SPANS``:
+``0`` turns the span ring off, an integer sets its capacity) whose spans go
+to ``-spansLog PATH`` (default ``<output>/spans.jsonl``; under a world
+rank r > 0 writes ``PATH.p<r>``), and a ``compile_ledger`` record (the
+kernel builds by label, ms and allocator peak) closes the metrics stream;
+``-noSpans`` turns the spans off, ``-noMemLedger`` the allocator peaks.
+``python -m cup2d_tpu_torch.post --trace spans.jsonl`` writes the
+Perfetto ``trace.json``. ``-profile`` times the driver's phases
+(``profiling.PhaseTimers``) and prints their summary and the throughput
+at exit.
 
 ``-mesh N|all`` splits the run over a device mesh (the JAX CLI's
 branches, ``cup2d_tpu/__main__.py:182-289``): the forest path builds
@@ -79,8 +92,11 @@ over the ranks (N divisible by the world size), each rank's on its device:
 ``processId`` modulo the card count). The progress lines, the metrics,
 the event log, ``forces.csv``, the dumps and the checkpoints come from
 rank 0; every rank takes the same steps and regrids, and a SIGTERM stops
-every rank at the same step once every rank has it. A world that does
-not form fails the run (rc 1), never a silent single-process run.
+every rank at the same step once every rank has it. ``-case cavity -fleet
+B [-serve N]`` places the fleet across the ranks (``FleetSim`` on the
+world mesh; its per-member dumps, session checkpoints and events come from
+rank 0, the per-member verdicts are agreed). A world that does not form
+fails the run (rc 1), never a silent single-process run.
 
 Elastic recovery, as the JAX CLI (``cup2d_tpu/__main__.py:330-375``,
 :527-570): ``-elastic`` on a ``-mesh`` of 2 or more shards arms
@@ -101,12 +117,7 @@ resume across ranks is the library's ``parallel.launch.reinit_distributed``
 with ``elastic_recover``). ``-elastic`` without a mesh of 2 or more, or in
 one process without ``-simHosts``, exits 2 with the JAX CLI's messages.
 
-What the port cannot do yet is refused with rc 2 before any work, naming
-its ROADMAP queue 1 item: a fleet across processes (item 8);
-``-profile``, ``-spansLog`` and span ring capacities in ``CUP2D_SPANS``
-(item 9). The JAX CLI's usage errors exit 2 with its messages.
-Flags that only turn off what the port lacks (``-noSpans``,
-``-noMemLedger``) are accepted.
+The JAX CLI's usage errors exit 2 with its messages.
 """
 
 from __future__ import annotations
@@ -122,24 +133,9 @@ from .io import dump_forest, dump_uniform, load_checkpoint, save_checkpoint
 
 _PREFIX = "cup2d_tpu_torch"
 
-# flag -> (ROADMAP queue 1 item, what it asks for)
-_REFUSED = {
-    "profile": (9, "per-phase timers"),
-    "spansLog": (9, "the flight recorder's span timeline"),
-}
-
-
 # the flags of a multi-process world
 _WORLD_FLAGS = ("coordinator", "meshHosts", "processId", "connectAttempts",
                 "connectBackoff")
-
-
-def _not_ported(what: str, item: int) -> str:
-    return f"{what} is not ported yet (ROADMAP queue 1 item {item})"
-
-
-_FLEET_ACROSS = "-fleet across processes: " + _not_ported(
-    "a fleet whose mesh spans processes", 8)
 
 
 _ELASTIC_NEEDS_MESH = ("-elastic needs -mesh with at least 2 devices "
@@ -147,9 +143,7 @@ _ELASTIC_NEEDS_MESH = ("-elastic needs -mesh with at least 2 devices "
 
 
 def _refusal(p) -> str | None:
-    """The usage error of this command line, or None. The reference's own
-    usage errors first (naming the item where their flag waits for one),
-    then every flag and variable whose effect the port cannot give."""
+    """The usage error of this command line (the JAX CLI's), or None."""
     if p.has("serve") and not p.has("fleet"):
         return "-serve N needs -fleet B (the slot pool it serves through)"
     if p.has("serve") and p.has("restart"):
@@ -161,8 +155,6 @@ def _refusal(p) -> str | None:
     if p.has("fleet") and p.has("mesh") and not p.has("case"):
         return ("-fleet has its own placement policy (fleet.py) and does "
                 "not combine with -mesh")
-    if p.has("fleet") and any(p.has(f) for f in _WORLD_FLAGS):
-        return _FLEET_ACROSS
     if not p.has("mesh") and any(p.has(f) for f in _WORLD_FLAGS):
         return ("-coordinator/-meshHosts/-processId/-connectAttempts/"
                 "-connectBackoff bring up a world for -mesh; give -mesh "
@@ -171,11 +163,6 @@ def _refusal(p) -> str | None:
             and p("mesh").asString() == "all":
         return ("-mesh all takes every visible card; with -device, give "
                 "the shard count (-mesh N puts N shards on that device)")
-    for flag, (item, what) in _REFUSED.items():
-        if p.has(flag):
-            return f"-{flag}: " + _not_ported(what, item)
-    if os.environ.get("CUP2D_SPANS", "0") != "0":
-        return "CUP2D_SPANS: " + _not_ported("the span ring", 9)
     return None
 
 
@@ -265,9 +252,6 @@ def _main(argv=None) -> int:
         from .resilience import dist_initialized
         spec = p("mesh").asString()
         if dist_initialized():
-            if fleet_n:      # a torchrun world
-                print(f"{_PREFIX}: {_FLEET_ACROSS}", file=sys.stderr)
-                return 2
             if device.type == "cuda":
                 device = torch.device("cuda", torch.cuda.current_device())
             mesh = (global_mesh(device) if spec == "all"
@@ -371,6 +355,9 @@ def _main(argv=None) -> int:
         sim = AMRSim(cfg, device=device)
     if p.has("restart"):
         load_checkpoint(p("restart").asString(), sim)
+    if p.has("profile"):
+        from .profiling import PhaseTimers
+        sim.timers = PhaseTimers()
 
     if not fleet_n and hasattr(type(sim), "force_log_header") \
             and is_writer():
@@ -463,14 +450,28 @@ def _main(argv=None) -> int:
     metrics_log = None
     recorder = None
     counters = None
+    flight = None
+    spans_log = None
     if not p.has("noMetrics"):
         metrics_path = p("metricsLog").asString() if p.has("metricsLog") \
             else os.path.join(outdir, "metrics.jsonl")
         metrics_log = EventLog(metrics_path, rotate_mb=rotate_mb)
         counters = HostCounters().install()
+        # the flight recorder: the span timeline (spans.jsonl, one file a
+        # process) and the build and memory ledger (a compile_ledger
+        # record at exit); it reads nothing from the device
+        from .tracing import FlightRecorder
+        spans_path = p("spansLog").asString() if p.has("spansLog") \
+            else os.path.join(outdir, "spans.jsonl")
+        spans_log = EventLog(spans_path, rotate_mb=rotate_mb,
+                             all_writers=True)
+        flight = FlightRecorder.from_env(
+            spans=not p.has("noSpans"),
+            capture_memory=not p.has("noMemLedger"),
+            sink=spans_log).install()
         recorder = MetricsRecorder(sink=metrics_log, counters=counters,
                                    timers=sim.timers, guard=guard,
-                                   server=server)
+                                   server=server, flight=flight)
         recorder.prime(sim)
 
     def record(rec, wall_ms=None):
@@ -634,6 +635,15 @@ def _main(argv=None) -> int:
                 # the serving latency distributions, for post --metrics
                 metrics_log.emit(event="serving_latency",
                                  **server.latency.report())
+            if flight is not None:
+                # the build blame ledger rides the metrics stream
+                metrics_log.emit(event="compile_ledger",
+                                 **flight.ledger_report())
+        if flight is not None:
+            flight.close()      # flushes the span ring into spans_log
+        if spans_log is not None:
+            spans_log.close()
+        if metrics_log is not None:
             metrics_log.close()
         set_event_log(None)
         log.close()
@@ -642,6 +652,12 @@ def _main(argv=None) -> int:
 
     if not uniform:
         sim.sync_fields()   # leave the slot fields current
+    if sim.timers is not None:
+        from .profiling import throughput
+        from .resilience import is_writer
+        if is_writer():
+            print(sim.timers.summary(), file=sys.stderr)
+        _say(f"{throughput(sim)}")
     _say(f"done at t={sim.time:.6f} "
          f"after {sim.step_count} steps")
     return 0

@@ -60,7 +60,9 @@ legs in bf16, ``poisson.ForestFASCycle(leg_dtype=)``).
 ``async_diag`` (set by ``resilience.StepGuard(lag=True)``) makes the
 obstacle-free step read nothing: dt stays a device scalar and the guard's
 lagged verdict settles the clock; the shaped step verdicts eagerly.
-``timers`` (item 9) refuses when set.
+``timers`` (a ``profiling.PhaseTimers``, opt-in) times the JAX package's
+phases: "tables" (with "tables/build", "tables/put", "tables/corr"), "dt",
+"flow", "kinematics", "rasterize", "forces" and "adapt".
 ``fftd`` and non-free-slip boundary tables refuse as in the reference.
 """
 
@@ -74,7 +76,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from . import native
+from . import native, tracing
 from .config import SimConfig
 from .flux import (apply_flux_corr, build_flux_corr,
                    build_poisson_structured, build_poisson_tables,
@@ -96,6 +98,7 @@ from .ops.obstacle import (chi_from_sdf, midline_udef_packed, pack_midline,
 from .ops.stencil import (divergence, dt_from_umax, heun_substage,
                           laplacian5, pressure_gradient_update, vorticity)
 from .parallel.shard_halo import block_reducers, block_sum, per_shard
+from .profiling import NULL_TIMERS
 from .poisson import (ForestFASCycle, _down2_mean, _up2_bilinear, bicgstab,
                       block_precond_matrix, coarse_neumann_solve_dct,
                       dct_neumann_operators, mg_solve)
@@ -290,17 +293,9 @@ class AMRSim(ShapeHostMixin):
         # obstacle-free step keeps dt and its diagnostics on the device
         # and leaves the clock to the guard; the shaped step ignores it
         self.async_diag = False
-
-    @property
-    def timers(self):
-        return None
-
-    @timers.setter
-    def timers(self, value) -> None:
-        if value is not None:
-            raise NotImplementedError(
-                "timers (profiling.PhaseTimers) are not ported yet "
-                "(ROADMAP queue 1 item 9); read phase_seconds instead")
+        # profiling.PhaseTimers, opt-in (the JAX package's phases,
+        # cup2d_tpu/amr.py:372-453, :1925-2107, :2314)
+        self.timers = None
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).to(
@@ -320,7 +315,8 @@ class AMRSim(ShapeHostMixin):
     # ------------------------------------------------------------------
     def _refresh(self):
         if self._tables_version != self.forest.version:
-            self._refresh_impl()
+            with (self.timers or NULL_TIMERS).phase("tables"):
+                self._refresh_impl()
 
     def _refresh_impl(self):
         f = self.forest
@@ -354,25 +350,34 @@ class AMRSim(ShapeHostMixin):
         self._n_real = n_real
         self._mask = np.arange(n_pad) < n_real
 
+        tm = self.timers or NULL_TIMERS
         # one dense topology index shared by every table build
         topo = _TopoIndex(f, self._order)
-        raw = {
-            "vec3": build_tables(f, self._order, 3, True, 2, topo=topo),
-            "vec1": build_tables(f, self._order, 1, False, 2, topo=topo),
-            "sca1": build_tables(f, self._order, 1, False, 1, topo=topo),
-            "vec1t": build_tables(f, self._order, 1, True, 2, topo=topo),
-            "sca1t": build_tables(f, self._order, 1, True, 1, topo=topo),
-        }
-        if self.shapes:
-            # chi tags (g = 4 scalar) and forces (g = 4 vector)
-            raw["sca4t"] = build_tables(f, self._order, 4, True, 1,
-                                        topo=topo)
-            raw["vec4t"] = build_tables(f, self._order, 4, True, 2,
-                                        topo=topo)
-        fc = build_face_copy(f, self._order, n_pad, topo)
-        self._tables = self._finalize_tables(raw, n_pad, fc)
-        self._tables["pois"] = self._build_pois(topo, n_pad)
-        self._corr = self._finalize_corr(topo, n_pad)
+        with tm.phase("tables/build"):
+            raw = {
+                "vec3": build_tables(f, self._order, 3, True, 2,
+                                     topo=topo),
+                "vec1": build_tables(f, self._order, 1, False, 2,
+                                     topo=topo),
+                "sca1": build_tables(f, self._order, 1, False, 1,
+                                     topo=topo),
+                "vec1t": build_tables(f, self._order, 1, True, 2,
+                                      topo=topo),
+                "sca1t": build_tables(f, self._order, 1, True, 1,
+                                      topo=topo),
+            }
+            if self.shapes:
+                # chi tags (g = 4 scalar) and forces (g = 4 vector)
+                raw["sca4t"] = build_tables(f, self._order, 4, True, 1,
+                                            topo=topo)
+                raw["vec4t"] = build_tables(f, self._order, 4, True, 2,
+                                            topo=topo)
+        with tm.phase("tables/put"):
+            fc = build_face_copy(f, self._order, n_pad, topo)
+            self._tables = self._finalize_tables(raw, n_pad, fc)
+            self._tables["pois"] = self._build_pois(topo, n_pad)
+        with tm.phase("tables/corr"):
+            self._corr = self._finalize_corr(topo, n_pad)
         # topology changed: the two-level trigger re-arms from scratch,
         # iteration evidence included (it described the old forest).
         # Startup (steps < 10) always uses the coarse maps; production
@@ -1468,9 +1473,10 @@ class AMRSim(ShapeHostMixin):
 
     def compute_dt(self) -> float:
         # masked: ordered pad rows carry stale (finite) data
-        umax = torch.amax(
-            torch.abs(self._ordered_state()["vel"]) * self._maskv)
-        return float(pull(self._dt_from_umax(umax, self._hmin()))[0])
+        with tracing.label("amr.dt"):
+            umax = torch.amax(
+                torch.abs(self._ordered_state()["vel"]) * self._maskv)
+            return float(pull(self._dt_from_umax(umax, self._hmin()))[0])
 
     def _use_coarse(self, exact: bool):
         """Coarse-correction maps for the next solve: always for the
@@ -1499,41 +1505,48 @@ class AMRSim(ShapeHostMixin):
         if self.shapes:
             return self._step_shaped(dt)
         f = self.forest
+        tm = self.timers or NULL_TIMERS
         ordf = self._ordered_state()
         if dt is None:
-            if self._next_umax is not None:
-                fac = (1.0 if self._next_umax_version == f.version
-                       else 1.05)
-                dt = self._dt_from_umax(fac * self._next_umax,
-                                        self._hmin())
-                if not self.async_diag:
-                    dt = float(pull(dt)[0])
-            else:
-                dt = self.compute_dt()
+            with tm.phase("dt"):
+                if self._next_umax is not None:
+                    fac = (1.0 if self._next_umax_version == f.version
+                           else 1.05)
+                    dt = self._dt_from_umax(fac * self._next_umax,
+                                            self._hmin())
+                    if not self.async_diag:
+                        dt = float(pull(dt)[0])
+                else:
+                    dt = self.compute_dt()
         exact = self.step_count < 10 or self._force_exact
         dt_dev = torch.as_tensor(dt, dtype=self.dtype, device=self.device)
-        vel, pres, diag = self._step_impl(
-            ordf["vel"], ordf["pres"], dt_dev, self._h, self._hsq_flat,
-            self._maskv, self._tables["vec3"], self._tables["vec1"],
-            self._tables["sca1"], self._tables["pois"], self._corr,
-            self._use_coarse(exact), exact_poisson=exact)
-        self._set_ordered(vel=vel, pres=pres)
-        self._next_umax = diag["umax"]
-        self._next_umax_version = f.version
-        if not exact:
-            # the production two-level trigger, from the solver's count (a
-            # host int: the solvers read their flags on the host).
-            # Exact-startup counts converge deeper with another M and must
-            # not trip it.
-            self._last_iters = int(diag["poisson_iters"])
-        if self.async_diag:
-            # no read: the guard's lagged verdict pulls the diagnostics
-            # and settles the clock from the dt used
-            diag["dt"] = dt_dev
-            self.step_count += 1
-            return diag
-        diag, _ = pull_diag(diag)
-        diag["dt"] = float(dt)
+        with tm.phase("flow"):
+            with tracing.label("amr.step"):
+                vel, pres, diag = self._step_impl(
+                    ordf["vel"], ordf["pres"], dt_dev, self._h,
+                    self._hsq_flat, self._maskv, self._tables["vec3"],
+                    self._tables["vec1"], self._tables["sca1"],
+                    self._tables["pois"], self._corr,
+                    self._use_coarse(exact), exact_poisson=exact)
+            self._set_ordered(vel=vel, pres=pres)
+            self._next_umax = diag["umax"]
+            self._next_umax_version = f.version
+            if not exact:
+                # the production two-level trigger, from the solver's
+                # count (a host int: the solvers read their flags on the
+                # host). Exact-startup counts converge deeper with another
+                # M and must not trip it.
+                self._last_iters = int(diag["poisson_iters"])
+            if self.async_diag:
+                # no read: the guard's lagged verdict pulls the
+                # diagnostics and settles the clock from the dt used; no
+                # fence (a fence waits for the device)
+                diag["dt"] = dt_dev
+                self.step_count += 1
+                return diag
+            diag, _ = pull_diag(diag)
+            diag["dt"] = float(dt)
+            tm.fence("flow", vel)
         self.time += dt
         self.step_count += 1
         return diag
@@ -1552,6 +1565,7 @@ class AMRSim(ShapeHostMixin):
             self._refresh()
         # an external slot write drops the cached dt before it is used
         self._ordered_state()
+        tm = self.timers or NULL_TIMERS
         if dt is None:
             if self._next_dt is not None \
                     and self._next_dt_version == f.version:
@@ -1559,20 +1573,24 @@ class AMRSim(ShapeHostMixin):
             elif self._next_umax is not None:
                 # after a regrid: the same water on a new grid; the 1.05
                 # factor bounds the prolongation's overshoot of umax
-                dt = min(float(pull(self._dt_from_umax(
-                    torch.tensor(1.05 * float(self._next_umax),
-                                 dtype=self.dtype, device=self.device),
-                    self._hmin()))[0]), self._kinematic_dt_cap())
+                with tm.phase("dt"):
+                    dt = min(float(pull(self._dt_from_umax(
+                        torch.tensor(1.05 * float(self._next_umax),
+                                     dtype=self.dtype, device=self.device),
+                        self._hmin()))[0]), self._kinematic_dt_cap())
             else:
-                dt = min(self.compute_dt(), self._kinematic_dt_cap())
+                with tm.phase("dt"):
+                    dt = min(self.compute_dt(), self._kinematic_dt_cap())
         t0 = time.perf_counter()
 
         # ongrid host part (main.cpp:3992-4207)
-        for s in self.shapes:
-            s.advect(dt, cfg.extents)
-            s.midline(self.time)
+        with tm.phase("kinematics"):
+            for s in self.shapes:
+                s.advect(dt, cfg.extents)
+                s.midline(self.time)
         t1 = time.perf_counter()
-        inputs = self._shape_inputs()
+        with tm.phase("rasterize"):
+            inputs = self._shape_inputs()
         prescribed = self._tensor([[s.u, s.v, s.omega]
                                    for s in self.shapes])
         exact = self.step_count < 10 or self._force_exact
@@ -1583,21 +1601,25 @@ class AMRSim(ShapeHostMixin):
         ordf = self._ordered_state()
         dt_dev = torch.tensor(dt, dtype=self.dtype, device=self.device)
         tb = self._tables
-        vel, pres, chi_new, scalars, forces = self._megastep_impl(
-            ordf["vel"], ordf["pres"], inputs, prescribed, dt_dev, hmin,
-            self._h, self._hsq_flat, self._maskv, self._xc, self._yc,
-            tb["vec3"], tb["vec1"], tb["sca1"], tb["pois"], tb["vec4t"],
-            tb["sca4t"], self._corr, self._use_coarse(exact),
-            exact_poisson=exact, with_forces=with_forces)
-        t2 = self._t_forces
-        self._set_ordered(vel=vel, pres=pres, chi=chi_new)
-        uvw, com, mass, inertia, dt_next, diag = scalars
-        extra = [uvw, com, mass, inertia, dt_next]
-        if with_forces:
-            extra.append(self.stack_forces(forces))
-        # the one read of the step
-        diag, vals = pull_diag(diag, *extra)
-        diag["dt"] = float(dt)
+        with tm.phase("flow"):
+            with tracing.label("amr.megastep"):
+                vel, pres, chi_new, scalars, forces = self._megastep_impl(
+                    ordf["vel"], ordf["pres"], inputs, prescribed, dt_dev,
+                    hmin, self._h, self._hsq_flat, self._maskv, self._xc,
+                    self._yc, tb["vec3"], tb["vec1"], tb["sca1"],
+                    tb["pois"], tb["vec4t"], tb["sca4t"], self._corr,
+                    self._use_coarse(exact), exact_poisson=exact,
+                    with_forces=with_forces)
+            t2 = self._t_forces
+            self._set_ordered(vel=vel, pres=pres, chi=chi_new)
+            uvw, com, mass, inertia, dt_next, diag = scalars
+            extra = [uvw, com, mass, inertia, dt_next]
+            if with_forces:
+                extra.append(self.stack_forces(forces))
+            # the one read of the step
+            diag, vals = pull_diag(diag, *extra)
+            diag["dt"] = float(dt)
+            tm.fence("flow", vel)
         uvw_np, com_np, mass_np, inertia_np, dt_next_np = vals[:5]
         self._sync_shape_scalars_np(com_np, mass_np, inertia_np)
         for k, s in enumerate(self.shapes):
@@ -1611,7 +1633,8 @@ class AMRSim(ShapeHostMixin):
             # the production two-level trigger, fed from this read
             self._last_iters = int(diag["poisson_iters"])
         if with_forces:
-            self._record_forces_np(vals[5])
+            with tm.phase("forces"):
+                self._record_forces_np(vals[5])
         t3 = time.perf_counter()
         self.phase_seconds = {"kinematics": t1 - t0, "megastep": t2 - t1,
                               "forces": t3 - t2}
@@ -1622,8 +1645,19 @@ class AMRSim(ShapeHostMixin):
     # -- regrid --------------------------------------------------------
     def adapt(self) -> bool:
         """Tag / 2:1-balance / refine / coarsen (main.cpp:4657-5440).
-        Returns whether the topology changed."""
+        Returns whether the topology changed. The tables are refreshed
+        before the "adapt" phase opens, so their time lands in "tables"
+        alone (``profiling.throughput`` sums the top-level phases)."""
         self._refresh()
+        tm = self.timers or NULL_TIMERS
+        with tm.phase("adapt"), \
+                tracing.span("regrid", step=int(self.step_count)):
+            changed = self._adapt_impl()
+            if self.timers is not None:
+                self.timers.fence("adapt", dict(self.forest.fields))
+        return changed
+
+    def _adapt_impl(self) -> bool:
         f = self.forest
         cfg = self.cfg
         ordf = self._ordered_state()
@@ -1664,7 +1698,8 @@ class AMRSim(ShapeHostMixin):
         groups = self._compress_groups(lv, biv, bjv, st)
         if not refine and not groups:
             return False
-        self._apply_regrid(refine, groups)
+        with tracing.label("amr.regrid"):
+            self._apply_regrid(refine, groups)
         return True
 
     def _fix_states(self, lv, biv, bjv, st):

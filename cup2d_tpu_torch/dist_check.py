@@ -15,7 +15,12 @@ h/2, one warm-up and ``--steps`` timed steps) under the default solver
 and fas; the forest of ``amr.vortex_forest(target=--forest-target)``
 (chip_smoke phase 5's at 10,000) split over the layout's shards, one
 adapt, one warm-up and ``--steps`` timed production steps under each
-solver. Each layout writes ``DIR/<layout>.json`` (rank 0 under a world):
+solver; and the ``turb2d`` fleet (chip_smoke phase 18 (c)'s:
+``--fleet-size``^2, ``--fleet-members`` members, from step 20) unplaced on
+``solo`` and placed on the layout's mesh, member (B/N a card) and spatial
+placement, under each solver: one warm-up and ``--steps`` timed steps.
+``--runs`` picks among ``uniform``, ``forest`` and ``fleet`` (default
+all). Each layout writes ``DIR/<layout>.json`` (rank 0 under a world):
 per run ms a production step (host clock to a synchronize), iterations,
 the sha256 of the final whole state, and under ``ranks`` the bytes rank 0
 receives by all-gathers, in total and by kind (reductions, the
@@ -64,6 +69,7 @@ import time
 import numpy as np
 import torch
 
+from . import cases
 from .amr import AMRSim, vortex_forest
 from .config import SimConfig
 from .convert import forest_from_numpy, forest_to_numpy
@@ -187,8 +193,57 @@ def forest_runs(mesh, dev, target: int, steps: int, levels=(6, 8)) -> dict:
     return out
 
 
+def fleet_runs(mesh, dev, size: int, members: int, steps: int) -> dict:
+    """The ``turb2d`` fleet at size^2 with ``members`` members (f32, the
+    catalog's seeded members), unplaced on ``mesh`` None, else placed on
+    it, member and spatial, under each solver: a warm-up and ``steps``
+    timed steps from step 20."""
+    from .fleet import FleetSim
+    from .io import whole
+    level = (size // 8).bit_length() - 1
+    start = cases.make_sim("turb2d", level=level, members=members,
+                           device=dev).state
+    start = type(start)(*(whole(f).cpu() for f in start))
+    out = {}
+    for pois in ("", "fas"):
+        for pl in (("single",) if mesh is None else ("member", "spatial")):
+            cfg = cases._periodic_cfg(1e-4, "float32", 0.4)
+            with _latched(pois):
+                if mesh is None:
+                    sim = FleetSim(cfg, level=level, members=members,
+                                   device=dev, bc=cases.periodic_table())
+                else:
+                    sim = FleetSim(cfg, level=level, members=members,
+                                   mesh=mesh, placement=pl,
+                                   bc=cases.periodic_table())
+            sim.set_state(type(start)(*(f.to(sim.grid.device)
+                                        for f in start)))
+            sim.step_count = 20
+            iters = [sim.step_once()["poisson_iters"].tolist()]
+            _sync()
+            _reset_comm()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                iters.append(sim.step_once()["poisson_iters"].tolist())
+            _sync()
+            ms = 1e3 * (time.perf_counter() - t0) / steps
+            comm = {k: v / steps for k, v in shard_halo.comm_stats.items()}
+            vel, pres = whole(sim.state.vel), whole(sim.state.pres)
+            name = f"fleet turb2d {size}^2 B={members} " + (
+                "unplaced" if mesh is None else pl) + f" {pois or 'default'}"
+            out[name] = {"ms_per_step": ms, "iters": iters,
+                         "member_steps_per_s": 1e3 * members / ms,
+                         "times": [float(t) for t in sim.times],
+                         "sha256": _sha(vel, pres), "comm_per_step": comm}
+            del sim, vel, pres
+            torch.cuda.empty_cache()
+    return out
+
+
 def run_layout(layout: str, out_dir: str, size: int, target: int,
-               steps: int, levels=(6, 8)) -> None:
+               steps: int, levels=(6, 8), runs=("uniform", "forest",
+                                                  "fleet"),
+               fleet=(1024, 8)) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("dist_check: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -205,8 +260,14 @@ def run_layout(layout: str, out_dir: str, size: int, target: int,
         res = {"layout": layout, "card": torch.cuda.get_device_name(0),
                "shards": 1 if mesh is None else mesh.size,
                "torch": torch.__version__, "runs": {}}
-        res["runs"].update(uniform_runs(mesh, dev, size, steps))
-        res["runs"].update(forest_runs(mesh, dev, target, steps, levels))
+        if "uniform" in runs:
+            res["runs"].update(uniform_runs(mesh, dev, size, steps))
+        if "forest" in runs:
+            res["runs"].update(forest_runs(mesh, dev, target, steps,
+                                           levels))
+        if "fleet" in runs:
+            res["runs"].update(fleet_runs(mesh, dev, fleet[0], fleet[1],
+                                          steps))
         res["seconds"] = time.perf_counter() - t0
     finally:
         shutdown_distributed()
@@ -242,6 +303,8 @@ def compare(out_dir: str) -> int:
             if run is None:
                 continue
             row[layout] = {k: run[k] for k in ("ms_per_step", "iters")}
+            if "member_steps_per_s" in run:
+                row[layout]["member_steps_per_s"] = run["member_steps_per_s"]
             if layout == "ranks":
                 comm = run["comm_per_step"]
                 row[layout]["comm_per_step"] = {
@@ -571,6 +634,11 @@ def main(argv=None) -> int:
                     metavar=("START", "MAX"),
                     help="vortex_forest's level_start and level_max")
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--runs", nargs="+", default=("uniform", "forest",
+                                                  "fleet"),
+                    choices=("uniform", "forest", "fleet"))
+    ap.add_argument("--fleet-size", type=int, default=1024)
+    ap.add_argument("--fleet-members", type=int, default=8)
     ap.add_argument("--elastic", action="store_true",
                     help="the elastic recovery drills across 4 cards")
     ap.add_argument("--elastic-worker", choices=("exit", "restart", "hang"),
@@ -594,7 +662,8 @@ def main(argv=None) -> int:
     if not a.layout:
         ap.error("give --layout or --compare")
     run_layout(a.layout, a.out, a.size, a.forest_target, a.steps,
-               tuple(a.forest_levels))
+               tuple(a.forest_levels), tuple(a.runs),
+               (a.fleet_size, a.fleet_members))
     return 0
 
 

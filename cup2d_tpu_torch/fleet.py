@@ -42,8 +42,20 @@ member axis riding the halo kernels). Checkpoints, dumps and session
 checkpoints keep the global layout, so a placed fleet restarts unplaced
 and the other way round; the guard and the server drive a placed fleet
 through its member accessors, its solo member steps on the member's own
-device (or split, on spatial placement). A mesh over a multi-process world
-refuses (fleets across processes: ROADMAP queue 1 item 8).
+device (or split, on spatial placement).
+
+A mesh over a ``torch.distributed`` world (``parallel.launch.world_mesh``)
+places the fleet across processes. Every rank runs the same host schedule
+and enters every collective in one global order: a rank builds, places and
+steps only its own shards' members (member placement) or its own x slabs
+of every member (spatial); the per-member reductions combine their shard
+partials in shard order through ``shard_halo.all_shards``, so every rank
+holds the same bits and the fleet is the one-process placed fleet bit for
+bit. A member's slice (``member_state``) is one all-gather of each shard's
+slot at the member's local index, whole on every rank; a slot write
+(``set_member_state``, ``admit_member``) changes the owning rank's shard
+only. The host state (clocks, mask, dt row, counters) is the same on every
+rank.
 """
 
 from __future__ import annotations
@@ -61,12 +73,14 @@ from . import tracing
 from .config import SimConfig
 from .ops.hopper_kernels import fused_advect_heun
 from .parallel.shard_halo import (Blocks, Slabs, _part_of, _wrap,
-                                  canonical_device, gather_blocks,
+                                  all_shards, canonical_device,
+                                  gather_blocks,
                                   project_correct_x, slab_member_finite,
                                   slab_member_reducers, slab_member_sum,
                                   split_blocks, split_x)
 from .poisson import (BiCGSTABResult, bicgstab, fft_diag_solve, mg_solve,
                       project_correct)
+from .profiling import NULL_TIMERS
 from .shapes_host import pull
 from .uniform import FlowState, UniformGrid, taylor_green_state
 
@@ -107,10 +121,11 @@ def _host_diag(diag: dict) -> dict:
 
 class _PerDevice:
     """A member-placed fleet's view of a per-device operator: ``fn(grid,
-    *parts)`` once per shard of its ``Blocks`` arguments (every plain
-    tensor moved to the shard's device), with the grid of that shard's
-    device (``FleetSim._grid_on``); the results are ``Blocks`` along the
-    member axis."""
+    *parts)`` once per local shard of its ``Blocks`` arguments (every
+    plain tensor moved to the shard's device; under a world this rank's
+    shards only), with the grid of that shard's device
+    (``FleetSim._grid_on``); the results are ``Blocks`` along the member
+    axis."""
 
     def __init__(self, sim, fn):
         self.sim = sim
@@ -118,8 +133,8 @@ class _PerDevice:
 
     def __call__(self, *args):
         mesh = self.sim.mesh
-        outs = [self.fn(self.sim._grid_on(dev), *_part_of(args, d, dev))
-                for d, dev in enumerate(mesh.devices)]
+        outs = [self.fn(self.sim._grid_on(dev), *_part_of(args, i, dev))
+                for i, dev in enumerate(mesh.local_devices)]
         return _wrap(outs, mesh, 0)
 
 
@@ -159,6 +174,8 @@ class FleetSim:
     ``ShardedUniformSim`` does (the fields are ``shard_halo.Slabs`` of
     [B, ..., Nx/D]; the halo kernels run at L = B, the epilogue is the
     plain split one, as the JAX package keeps its XLA epilogue there);
+    a mesh over a world (``parallel.launch.world_mesh``) places the fleet
+    across the ranks in either way (see the module docstring);
     ``"auto"`` takes member placement where B divides by the mesh size
     and one member has at most ``member_cells_cap`` cells, else spatial.
     Without a mesh ``placement`` is ``"single"``. The dt row, the clocks,
@@ -181,18 +198,13 @@ class FleetSim:
         nx = cfg.bpdx * cfg.bs << lvl
         ny = cfg.bpdy * cfg.bs << lvl
         if mesh is not None:
-            if mesh.distributed:
-                raise NotImplementedError(
-                    "FleetSim(mesh=) over a multi-process world: fleets "
-                    "across processes are not ported yet (ROADMAP queue 1 "
-                    "item 8)")
             if device is not None and \
-                    canonical_device(device) != mesh.devices[0]:
+                    canonical_device(device) != mesh.home:
                 raise ValueError(
                     f"FleetSim: device {device} and mesh {mesh}: pass a "
                     "mesh or a device, not both (the mesh's first device "
                     "is the fleet's)")
-            device = mesh.devices[0]
+            device = mesh.home
             ndev = mesh.size
             if placement == "auto":
                 placement = ("member"
@@ -227,7 +239,7 @@ class FleetSim:
         self._per = self.members
         if placement == "member":
             self._per //= mesh.size
-            for d in mesh.devices:
+            for d in mesh.local_devices:
                 self._grid_on(d)
         self.state = self._place(stack_states(
             [g.zero_state() for _ in range(self.members)]))
@@ -244,6 +256,9 @@ class FleetSim:
         self._next_dt: Optional[torch.Tensor] = None   # [B], device
         self._force_exact = False
         self.async_diag = False
+        # profiling.PhaseTimers, opt-in: one "step" phase
+        # (cup2d_tpu/fleet.py:499-519)
+        self.timers = None
         # one index tensor a slot, made once: slot gathers and scatters
         # take it as an operand; ``_rows`` index the whole [B] rows on the
         # first device, ``_idx`` the fields (a member-placed slot's index
@@ -256,17 +271,6 @@ class FleetSim:
             for m in range(self.members)]
 
     # -- telemetry latches (the grid's) ---------------------------------
-    @property
-    def timers(self):
-        return None
-
-    @timers.setter
-    def timers(self, value) -> None:
-        if value is not None:
-            raise NotImplementedError(
-                "timers (profiling.PhaseTimers) are not ported into the "
-                "drivers yet (ROADMAP queue 1 item 9)")
-
     @property
     def poisson_mode(self) -> str:
         return self.grid.poisson_mode
@@ -289,8 +293,11 @@ class FleetSim:
 
     # -- placement --------------------------------------------------------
     def _member_device(self, m: int) -> torch.device:
+        """Where member ``m``'s slice lives: its shard's device (member
+        placement; the rank's own device for another rank's member, where
+        ``member_state`` gathers it), else the fleet's."""
         if self.placement == "member":
-            return self.mesh.devices[m // self._per]
+            return self.mesh.devices[m // self._per] or self.mesh.home
         return self.grid.device
 
     def _grid_on(self, device) -> UniformGrid:
@@ -526,21 +533,30 @@ class FleetSim:
         device, the clocks are the caller's)."""
         g = self.grid
         if dt is None:
-            dt = (self._next_dt if self._next_dt is not None
-                  else self._dt(self.state.vel))
+            if self._next_dt is not None:
+                dt = self._next_dt
+            else:
+                with tracing.label("fleet.dt"):
+                    dt = self._dt(self.state.vel)
         dt_dev = torch.as_tensor(dt, dtype=g.dtype, device=g.device)
         if dt_dev.ndim == 0:
             dt_dev = dt_dev.expand(self.members).contiguous()
         exact = self.step_count < 10 or self._force_exact
-        self.state, diag = self._step_impl(self.state, dt_dev, self._active,
-                                           exact_poisson=exact)
-        if "dt" not in diag:
-            diag["dt"] = dt_dev   # every slot advanced by the dt it ran
-        self._next_dt = diag["dt_next"]
-        if self.async_diag:
-            self.step_count += 1
-            return diag
-        diag = _host_diag(diag)
+        timers = self.timers or NULL_TIMERS
+        with timers.phase("step"):
+            with tracing.label("fleet.step"):
+                self.state, diag = self._step_impl(
+                    self.state, dt_dev, self._active, exact_poisson=exact)
+            if "dt" not in diag:
+                diag["dt"] = dt_dev   # every slot advanced by the dt it ran
+            self._next_dt = diag["dt_next"]
+            if self.async_diag:
+                # with timers on the phase still fences (the cost of
+                # profiling, as on the other drivers)
+                timers.fence("step", self.state.vel)
+                self.step_count += 1
+                return diag
+            diag = _host_diag(diag)   # the phase's natural fence
         self.times = self.times + np.asarray(diag["dt"], np.float64)
         self.time = self._fleet_time()
         self.step_count += 1
@@ -579,6 +595,12 @@ class FleetSim:
         (spatial), or whole."""
         idx = self._idx[m]
         if isinstance(a, Blocks):
+            if a.mesh.distributed:
+                # every shard's slot at m's local index, one all-gather;
+                # shard m // per's is member m, whole on every rank
+                return all_shards(
+                    [p.index_select(0, idx)[0] for p in a.parts], a.mesh,
+                    kind="state")[m // self._per]
             return a.parts[m // self._per].index_select(0, idx)[0]
         if isinstance(a, Slabs):
             return Slabs([p.index_select(0, idx.to(p.device))[0]
@@ -598,9 +620,12 @@ class FleetSim:
                           for p, q in zip(a.parts, v.parts)], a.mesh)
         if isinstance(a, Blocks):
             d = m // self._per
+            if d not in a.mesh.local:
+                return a          # another rank's member: its owner writes
             parts = list(a.parts)
-            p = parts[d]
-            parts[d] = p.index_copy(0, idx, torch.as_tensor(
+            i = a.mesh.local.index(d)
+            p = parts[i]
+            parts[i] = p.index_copy(0, idx, torch.as_tensor(
                 v, dtype=p.dtype, device=p.device)[None])
             return Blocks(parts, a.mesh, a.axis)
         return a.index_copy(0, idx, torch.as_tensor(v, dtype=a.dtype,
@@ -609,7 +634,9 @@ class FleetSim:
     def member_state(self, m: int, state=None) -> FlowState:
         """Member ``m``'s slice of ``state`` (default the fleet's; a
         snapshot payload dict too) as a solo FlowState of new tensors: on
-        the member's device, split along x on spatial placement."""
+        the member's device, split along x on spatial placement. A
+        collective on a member-placed fleet across processes (every rank
+        gets the member whole)."""
         state = self.state if state is None else state
         if isinstance(state, dict):
             state = FlowState(**state)
@@ -618,7 +645,9 @@ class FleetSim:
     def set_member_state(self, m: int, st: FlowState) -> None:
         """Install a solo FlowState (whole, or in the layout
         ``member_state`` gives) into member ``m``'s slice; every other
-        member's values pass through unchanged."""
+        member's values pass through unchanged. Across processes only the
+        rank that owns the member's shard (member placement) or each
+        rank's own slabs (spatial) change."""
         self.state = FlowState(*(self._with_member(a, m, v)
                                  for a, v in zip(self.state, st)))
 
@@ -663,11 +692,13 @@ class FleetSim:
         g = self._member_grid(m)
         st = self.member_state(m)
         if dt is None:
-            dt = float(pull(g.compute_dt(st.vel))[0])
-        st, diag = g.step(st, torch.as_tensor(dt, dtype=g.dtype,
-                                              device=g.device),
-                          exact_poisson=bool(exact),
-                          obstacle_terms=self.shaped)
+            with tracing.label("fleet.solo_dt"):
+                dt = float(pull(g.compute_dt(st.vel))[0])
+        with tracing.label("fleet.solo_ladder"):
+            st, diag = g.step(st, torch.as_tensor(dt, dtype=g.dtype,
+                                                  device=g.device),
+                              exact_poisson=bool(exact),
+                              obstacle_terms=self.shaped)
         self.set_member_state(m, st)
         diag = dict(diag)
         diag["dt"] = float(dt)

@@ -520,7 +520,10 @@ def _install_state(sim, data, meta: dict, shapes) -> None:
 # session can also be resumed alone.
 
 def save_member_checkpoint(dirpath: str, sim, m: int) -> None:
-    """Serialize fleet member ``m``'s session to ``dirpath`` (one read)."""
+    """Serialize fleet member ``m``'s session to ``dirpath`` (one read).
+    Collective under a world (``cup2d_tpu/io.py:476-514``): every rank
+    gathers the member, rank 0 writes, all meet at a barrier."""
+    from .resilience import is_writer
     st = sim.member_state(m)
     names = list(st._fields)
     nd = sim._next_dt
@@ -542,7 +545,9 @@ def save_member_checkpoint(dirpath: str, sim, m: int) -> None:
                    if not k.startswith("_")},
         "next_dt": next_dt,
     }
-    _write_installed(dirpath, dict(zip(names, vals)), meta, None)
+    if is_writer():
+        _write_installed(dirpath, dict(zip(names, vals)), meta, None)
+    _sync_processes()
 
 
 def load_member_checkpoint(dirpath: str, grid):

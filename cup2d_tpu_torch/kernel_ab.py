@@ -147,14 +147,14 @@ def build_other(csrc: Path) -> tuple[dict, set]:
     forms they define, under their ``hopper_kernels._FORM_ENTRIES`` keys)
     and the stems whose entry point takes today's arguments (the others
     take ``_LEGACY``'s)."""
-    hk.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    hk.build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for stem in _STEMS:
         src = csrc / f"{stem}.cu"
         tag = hashlib.sha256(src.read_bytes() + b"".join(
             h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
         ).hexdigest()[:16]
-        so = hk.BUILD_DIR / f"other-{stem}-{tag}.so"
+        so = hk.build_dir() / f"other-{stem}-{tag}.so"
         cmd = [hk._nvcc(), *hk.NVCC_FLAGS, "-o", str(so), str(src)]
         procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,

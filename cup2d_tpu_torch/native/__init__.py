@@ -5,7 +5,8 @@ copy of ``cup2d_tpu.native``.
 ``AMRSim.adapt`` (the reference's C++ bookkeeping, main.cpp:4717-4861).
 It is compiled at first use with the system C compiler (``$CC``, default
 ``cc -O2 -shared -fPIC``) into ``build/torch_ext/`` at the repository
-root, under a name that hashes the source, and loaded with ctypes. The
+root (``CUP2D_CACHE`` where set, ``cache.build_dir``), under a name
+that hashes the source, and loaded with ctypes. The
 same path serves the CPU and the card's host. A failed build raises with
 the compiler's output: nothing falls back to the Python sweep
 (``AMRSim._fix_states_py``), which stays as the helper's twin in the
@@ -32,7 +33,8 @@ _lib = None
 def _lib_path() -> Path:
     tag = hashlib.sha256(_SRC.read_bytes()
                          + " ".join(CFLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libamr_host-{tag[:16]}.so"
+    from ..cache import build_dir
+    return build_dir(BUILD_DIR) / f"libamr_host-{tag[:16]}.so"
 
 
 def load():
@@ -43,7 +45,7 @@ def load():
         return _lib
     so = _lib_path()
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        so.parent.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cc = os.environ.get("CC", "cc")
         try:

@@ -152,6 +152,8 @@ from .stencil import (NEUMANN_SIGNS, _edge_ones, _shift_bc, _zshift,
                       pad_vector_slab)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
+# the default build directory; ``CUP2D_CACHE`` takes its place
+# (``cache.build_dir``, read once at the first build)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -401,16 +403,26 @@ def _lib_path(stem: str) -> Path:
     src = (_CSRC / f"{stem}.cu").read_bytes() + b"".join(
         h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{stem}-{tag[:16]}.so"
+    return build_dir() / f"lib{stem}-{tag[:16]}.so"
+
+
+def build_dir() -> Path:
+    """Where the kernel libraries build and load: ``CUP2D_CACHE`` where
+    set (read once, at the first build), else ``BUILD_DIR``."""
+    from ..cache import build_dir as _cache_dir
+    return _cache_dir(BUILD_DIR)
 
 
 def build() -> dict:
     """Compile every kernel source not yet built (one ``nvcc`` each, all
     started together), load them, and return ``{stem: log}`` with the
     compiler's resource report for the sources built now and, last, the
-    seconds its ``nvcc`` ran (``nvcc ... s``)."""
+    seconds its ``nvcc`` ran (``nvcc ... s``). Each build and each load
+    is one ``build_events`` and one row of the flight recorder's build
+    ledger (``tracing.note_build``, on the innermost open label)."""
     global build_events
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    from .. import tracing
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     for stem in _ENTRIES:
@@ -450,17 +462,20 @@ def build() -> dict:
             failed.append(f"{stem}.cu (rc {p.returncode}):\n{out}")
         else:
             os.replace(tmp, so)
+        tracing.note_build(secs[stem])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     entries = {k: (k, *v) for k, v in _ENTRIES.items()}
     entries.update(_FORM_ENTRIES)
     for key, (stem, name, argtypes) in entries.items():
         if key not in _fns:
+            t_load = time.perf_counter()
             fn = getattr(ctypes.CDLL(str(_lib_path(stem))), name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _fns[key] = fn
             build_events += 1
+            tracing.note_build(time.perf_counter() - t_load)
     return logs
 
 

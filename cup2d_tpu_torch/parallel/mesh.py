@@ -12,15 +12,14 @@ and ``parallel.shard_halo`` writes every exchange and reduction out.
 ``ShardedUniformSim`` runs the same numerics and host loop as
 ``UniformSim`` on that layout, under any boundary table (a periodic x
 closes the slabs into a ring); ``fleet.FleetSim(mesh=)`` places a fleet
-on a single-controller mesh. ``ShardedUniformSim.remesh`` re-splits a
+on a mesh of either kind. ``ShardedUniformSim.remesh`` re-splits a
 run onto another mesh (``shard_halo.check_remesh``: the same controller,
 the same ranks, or the world that ``parallel.launch.reinit_distributed``
 formed from the survivors of a lost one), which is what
 ``resilience.StepGuard.elastic_recover`` does after a host loss.
 ``host_ring_shift`` moves every host's block of slabs to its ring
 neighbour, the exchange of the host-redundant mirror tier
-(``io.mirror_snapshot``). Fleets across processes are not ported (ROADMAP
-queue 1 item 8).
+(``io.mirror_snapshot``).
 """
 
 from __future__ import annotations

@@ -33,7 +33,13 @@ per-face signs) and the forest.
 The JAX package runs both solvers as on-device ``lax.while_loop``s. Here
 they are host loops that read the iteration's few control bits from the
 device once or twice per iteration, so they take exactly the branches the
-JAX loop takes and their iteration counts are equal.
+JAX loop takes and their iteration counts are equal. The member forms read
+one stacked flag row an iteration (``_member_flags``); on a member-placed
+fleet across processes that read is one all-gather of the ranks' [k, B/D]
+flag stacks in member order and then one ``pull`` on every rank (counted
+once in each process's ``device_gets``, the all-gather in
+``shard_halo.comm_stats`` under "reductions"), so every rank takes the same
+refresh, restart and stall branches.
 """
 
 from __future__ import annotations
@@ -48,8 +54,10 @@ from .ops.hopper_kernels import (_signs, _wrap_axes, fused_correction,
                                  fused_jacobi_sweeps, jacobi_sweeps_plain,
                                  tridiag_scan)
 from .ops.stencil import laplacian5_bc, laplacian5_neumann
-from .parallel.shard_halo import (laplacian5_bc_x, level_meshes,
-                                  overlap_jacobi_sweeps, reshard)
+from . import tracing
+from .parallel.shard_halo import (Blocks, all_shards, laplacian5_bc_x,
+                                  level_meshes, overlap_jacobi_sweeps,
+                                  reshard)
 from .shapes_host import pull
 
 
@@ -285,6 +293,24 @@ def _member_reducers(dt_, sum_dtype):
     return dot, linf, torch.zeros_like, torch.where
 
 
+def _member_flags(*masks) -> np.ndarray:
+    """For each of ``masks`` (member masks, [B, ...] whole or split
+    ``Blocks`` along the members) whether any member's entry is set, as
+    host bools in one ``pull``. Split masks are joined first: each shard's
+    [k, B/D] stack, one all-gather in member order under a world (copies
+    onto the home device on one process), so every rank reads the same
+    bits and takes the same host branch."""
+    first = next((m for m in masks if isinstance(m, Blocks)), None)
+    if first is None:
+        flags = torch.stack([m.any() for m in masks])
+    else:
+        parts = [torch.stack([m.parts[i].reshape(-1) for m in masks])
+                 for i in range(len(first.parts))]
+        flags = torch.cat(all_shards(parts, first.mesh, kind="reductions"),
+                          dim=1).any(dim=1)
+    return pull(flags)[0].astype(bool)
+
+
 def _reducers(dt_, sum_dtype):
     """(dot, linf, zeros_like) of whole fields; dot products accumulate in
     ``sum_dtype`` (default the field dtype). They run as the member form
@@ -344,6 +370,7 @@ def bicgstab(
     asks for one. ``iters``, ``residual``, ``converged`` and ``stalled``
     come back as [B] device tensors. One member gives the solo solve's
     iterate bit for bit."""
+    tracing.note_component("poisson.bicgstab")
     if M is None:
         M = lambda v: v  # noqa: E731
     if member_axis:
@@ -481,7 +508,7 @@ def _bicgstab_members(A, b, M, x0, tol, tol_rel, max_iter, max_restarts,
     restarts = best_it = impr_it = it_m = zi
     done = norm0 <= target
     it = 0
-    running = bool(pull((~done).any())[0])
+    running = bool(_member_flags(~done)[0])
     any_refresh = False      # it - best_it = 0 < refresh_every at it = 0
 
     def keep(frozen, old, new):
@@ -552,10 +579,8 @@ def _bicgstab_members(A, b, M, x0, tol, tol_rel, max_iter, max_restarts,
         it_m = keep(frozen, it_m, it_m + 1)
         done = frozen | done_n
         it += 1
-        (flags,) = pull(torch.stack([
-            (~done).any(),
-            (((it - best_it) >= refresh_every) & ~done).any()]))
-        running, any_refresh = bool(flags[0]), bool(flags[1])
+        running, any_refresh = (bool(f) for f in _member_flags(
+            ~done, ((it - best_it) >= refresh_every) & ~done))
 
     final_norm = linf(r)
     use_x = final_norm <= norm_opt
@@ -595,6 +620,7 @@ def mg_solve(
     converged member frozen by ``torch.where`` while the loop runs for the
     others, one flag read a cycle, and [B] device results, as in
     ``bicgstab``."""
+    tracing.note_component("poisson.mg_solve")
     if member_axis:
         return _mg_solve_members(
             A, b, mg, x0, tol, tol_rel, max_cycles, stall_cycles, stall_rtol,
@@ -660,7 +686,7 @@ def _mg_solve_members(A, b, mg, x0, tol, tol_rel, max_cycles, stall_cycles,
     best = norm
     no_impr = torch.zeros_like(it_m)
     done = norm <= target
-    running = bool(pull((~done).any())[0])
+    running = bool(_member_flags(~done)[0])
     while running and it < max_cycles:
         frozen = done
         x_n = x + mg(r)
@@ -679,7 +705,7 @@ def _mg_solve_members(A, b, mg, x0, tol, tol_rel, max_cycles, stall_cycles,
         it_m = torch.where(frozen, it_m, it_m + 1)
         done = frozen | done_n
         it += 1
-        running = bool(pull((~done).any())[0])
+        running = bool(_member_flags(~done)[0])
     converged = norm <= target
     stalled = ~converged & (no_impr >= stall_cycles)
     return BiCGSTABResult(x=x, iters=it_m.reshape(-1).to(torch.int32),
@@ -810,6 +836,7 @@ def fft_diag_solve(
     ``bicgstab``'s stall exit does). ``member_axis``: b [B, Ny, Nx] holds
     B independent systems solved through one transform; iters, residual,
     converged and stalled are then [B] tensors."""
+    tracing.note_component("poisson.fft_diag_solve")
     x = plan.solve(b)
     r = b - A(x)
     if member_axis:

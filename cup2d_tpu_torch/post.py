@@ -8,11 +8,14 @@ card's machine has no matplotlib, so nothing there calls it.
 plus the torn-line count and the source path, the keys of the JAX
 package's summary; a serving run's per-client streams (``clients/`` beside
 the metrics file) are summarized per client under ``clients``.
-``--trace`` (the span timeline's Perfetto export) waits for the flight
-recorder (ROADMAP queue 1 item 9) and exits 2.
+``--trace`` exports a flight recorder's span stream (``spans.jsonl``, with
+the per-process siblings ``spans.jsonl.p<rank>`` and rotated segments
+folded in) to a Chrome/Perfetto ``trace.json`` beside it, or to the
+``.json`` path given after it (``tracing.spans_to_perfetto``).
 
 Usage:  python -m cup2d_tpu_torch.post out/vel.00000012.xdmf2 [...]
         python -m cup2d_tpu_torch.post --metrics out/metrics.jsonl [...]
+        python -m cup2d_tpu_torch.post --trace out/spans.jsonl [trace.json]
 """
 
 from __future__ import annotations
@@ -78,11 +81,43 @@ def metrics_summary(path: str) -> dict:
     return out
 
 
+def trace_export(path: str, out_path: str | None = None) -> str:
+    """Export a span stream to Perfetto trace JSON
+    (``cup2d_tpu/post.py:98-126``): ``path`` is rank 0's ``spans.jsonl``;
+    the other ranks' ``<path>.p<r>`` and the rotated segments of each are
+    folded in. Returns the written path (default ``trace.json`` beside
+    ``path``)."""
+    import glob
+    import os
+    import re
+
+    from .profiling import load_metrics
+    from .tracing import spans_to_perfetto
+
+    # the live per-process siblings only: load_metrics folds in each
+    # one's rotated segments (.pN.M, or .M on the base path)
+    sibs = [q for q in sorted(glob.glob(path + ".p[0-9]*"))
+            if re.fullmatch(r"\.p\d+", q[len(path):])]
+    rows = []
+    for q in [path] + sibs:
+        try:
+            rows.extend(load_metrics(q))
+        except FileNotFoundError:
+            continue
+    trace = spans_to_perfetto(rows)
+    out = out_path or os.path.join(
+        os.path.dirname(os.path.abspath(path)) or ".", "trace.json")
+    with open(out, "w") as f:
+        json.dump(trace, f)
+    return out
+
+
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
     if not args:
         print("usage: python -m cup2d_tpu_torch.post <dump>[.xdmf2] ... | "
-              "--metrics <metrics.jsonl> ...", file=sys.stderr)
+              "--metrics <metrics.jsonl> ... | "
+              "--trace <spans.jsonl> ... [out.json]", file=sys.stderr)
         return 2
     if args[0] == "--metrics":
         if not args[1:]:
@@ -93,10 +128,17 @@ def main(argv=None) -> int:
             print(json.dumps(metrics_summary(a)))
         return 0
     if args[0] == "--trace":
-        print("cup2d_tpu_torch.post: --trace exports the flight recorder's "
-              "span timeline, which is not ported yet (ROADMAP queue 1 "
-              "item 9); the port writes no spans.jsonl", file=sys.stderr)
-        return 2
+        ins = args[1:]
+        out = None
+        if len(ins) == 2 and ins[1].endswith(".json"):
+            ins, out = ins[:1], ins[1]
+        if not ins:
+            print("usage: python -m cup2d_tpu_torch.post --trace "
+                  "<spans.jsonl> ... [out.json]", file=sys.stderr)
+            return 2
+        for a in ins:
+            print(trace_export(a, out))
+        return 0
     for a in args:
         print(render(a))
     return 0

@@ -9,8 +9,8 @@ run does not.
   health, dt/umax, the fused physics invariants, the forest's shape, the
   host counters, HBM peak, phase times), streamed as JSONL through a
   ``resilience.EventLog``. The key set and schema version are the JAX
-  package's, letter for letter; what does not apply to the port (comm
-  volume, the flight recorder) is null. A fleet's [B] diagnostics fold
+  package's, letter for letter; what does not apply to a run is null
+  (the flight recorder's gauges without one). A fleet's [B] diagnostics fold
   into the scalar slots as the JAX package's aggregates, with the rows in
   ``member_health``; a serving pool adds its gauges, and with per-client
   streams (``ClientStreams``) the rows go to one JSONL file a client.
@@ -20,13 +20,15 @@ run does not.
   the CPU), ``device_gets`` device-to-host reads (``shapes_host.pulls``),
   ``state_gathers`` full state gathers (``io._gather_state``).
   ``hbm_peak_bytes`` is ``torch.cuda.max_memory_allocated`` on the card,
-  None on the CPU.
+  None on the CPU. With a flight recorder (``tracing.FlightRecorder``)
+  each record carries its span count, build ms and allocator peak.
 - ``TraceWindow``: ``CUP2D_TRACE=start:stop[:logdir]`` wraps exactly steps
   [start, stop) in ``torch.profiler``, which writes a Chrome trace into
   logdir; ``trace(logdir)`` wraps a block.
-- ``PhaseTimers``: per-phase wall time; ``fence`` synchronizes the card so
-  a phase is charged its own device time. ``throughput(sim)``: cells x
-  steps per second.
+- ``PhaseTimers``: per-phase wall time, opt-in on every driver
+  (``sim.timers``; the JAX package's phase names); ``fence`` synchronizes
+  the cards of a phase's tensors so a phase is charged its own device
+  time (no read). ``throughput(sim)``: cells x steps per second.
 - ``load_metrics``, ``load_metrics_report``, ``summarize_metrics``,
   ``summarize_client``: the streams' readers (``post --metrics``).
 """
@@ -63,11 +65,12 @@ class PhaseTimers:
             self.count[name] += 1
 
     def fence(self, name: str, *tensors):
-        """Wait for the card to finish the work queued for ``tensors`` so
-        the enclosing ``phase(name)`` block is charged its device time;
-        returns them unchanged. Anything but a CUDA tensor passes."""
-        for dev in {t.device for t in tensors
-                    if torch.is_tensor(t) and t.is_cuda}:
+        """Wait for the cards to finish the work queued for ``tensors``
+        (tensors, split fields, or tuples, lists and dicts of them) so the
+        enclosing ``phase(name)`` block is charged its device time; each
+        card is synchronized once, and nothing is read from it. Returns
+        the arguments unchanged; anything but a CUDA tensor passes."""
+        for dev in sorted(_cuda_devices(tensors), key=str):
             torch.cuda.synchronize(dev)
         return tensors
 
@@ -86,6 +89,24 @@ class PhaseTimers:
                 f"{v['mean_ms']:8.2f}ms/call x{v['count']}"
                 for k, v in self.report().items()]
         return "\n".join(rows)
+
+
+def _cuda_devices(obj, out=None) -> set:
+    """The CUDA devices the tensors in ``obj`` live on (split fields by
+    their parts, containers element by element)."""
+    out = set() if out is None else out
+    if torch.is_tensor(obj):
+        if obj.is_cuda:
+            out.add(obj.device)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            _cuda_devices(v, out)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            _cuda_devices(v, out)
+    elif hasattr(obj, "parts"):
+        _cuda_devices(obj.parts, out)
+    return out
 
 
 def throughput(sim) -> dict:
@@ -386,8 +407,8 @@ class MetricsRecorder:
     timers are host state. ``guard``: a ``resilience.StepGuard`` (its
     ring and replays); ``server``: a ``fleet.FleetServer`` (the schema-v7
     gauges and, with its ``clients`` streams, one row a client a step);
-    ``flight``: the flight recorder's slot, ROADMAP queue 1 item 9, which
-    raises when given."""
+    ``flight``: a ``tracing.FlightRecorder`` (its cumulative span count,
+    build milliseconds and allocator peak ride every record)."""
 
     def __init__(self, sink=None, counters: Optional[HostCounters] = None,
                  timers: Optional[PhaseTimers] = None, guard=None,
@@ -396,10 +417,7 @@ class MetricsRecorder:
         self.counters = counters
         self.timers = timers
         self.server = server
-        if flight is not None:
-            raise NotImplementedError(
-                "MetricsRecorder(flight=...): the flight recorder is "
-                "ROADMAP item 9")
+        self.flight = flight
         self.guard = guard
         self._last_time: Optional[float] = None
         self._last_counters = counters.snapshot() if counters else None
@@ -488,9 +506,7 @@ class MetricsRecorder:
             self._emit_client_rows(rec, member_health)
             member_health = None
         rec["member_health"] = member_health
-        # the flight recorder (item 9)
-        rec.update(span_count=None, compile_ms_total=None,
-                   hbm_exec_bytes=None)
+        rec.update(self._flight_fields())
         rec["phase_ms"] = self._phase_fields()
         if self.sink is not None:
             self.sink.emit(event="metrics", **rec)
@@ -590,6 +606,18 @@ class MetricsRecorder:
                               if mir_delta > 0 else None),
                 "restore_source": g.restore_source}
 
+    def _flight_fields(self) -> dict:
+        """The flight recorder's gauges (``cup2d_tpu/profiling.py:
+        738-749``): cumulative spans, build ms and allocator peak."""
+        f = self.flight
+        if f is None:
+            return {"span_count": None, "compile_ms_total": None,
+                    "hbm_exec_bytes": None}
+        hbm = f.hbm_exec_bytes()
+        return {"span_count": int(f.span_count),
+                "compile_ms_total": round(f.compile_ms_total, 3),
+                "hbm_exec_bytes": int(hbm) if hbm else None}
+
     def _phase_fields(self) -> Optional[dict]:
         if self.timers is None:
             return None
@@ -631,6 +659,10 @@ class ClientStreams:
         return os.path.join(self.dir, self._fname(cid))
 
     def emit(self, cid, rec: dict) -> None:
+        from .resilience import is_writer
+        if not is_writer():
+            # one writer under a world: the ranks' rows are the same
+            return
         f = self._files.get(cid)
         if f is None:
             f = open(self.path_of(cid), "a")

@@ -64,8 +64,15 @@ The port's solvers read their flags on the host, so a step's iteration
 count is a host int when the step returns, lagged or not: the production
 two-level trigger of the forest sees it at the next dispatch in both
 modes, and the JAX guard's trigger-freshness drain and ``_last_iters_dev``
-have nothing to settle here. The guard opens no tracing spans (the span
-recorder is ROADMAP queue 1 item 9).
+have nothing to settle here.
+
+With a flight recorder installed (``tracing.FlightRecorder``) the guard
+opens the reference's spans: ``step`` around each supervised step, nesting
+``dispatch``, ``verdict``, ``snapshot`` (and ``mirror``), ``recover`` with
+one span a ladder rung (``retry``, ``escalate``, ``disk_restore``,
+``abort``), and ``remesh`` around an elastic recovery; the dispatch stamps
+the step and the latch token onto the build ledger (``note_step``,
+``note_token``). Spans read host clocks only.
 """
 
 from __future__ import annotations
@@ -116,7 +123,10 @@ class EventLog:
     reopens it fresh; ``profiling.load_metrics`` reads the segments back
     in write order. Once a world is up only rank 0 writes (the ranks'
     decisions are the same, so N copies would only interleave); events
-    before it formed (a connect retry) come from every process."""
+    before it formed (a connect retry) come from every process.
+    ``all_writers`` (the span timeline's sink) opts out of that gate:
+    spans are per process, so every rank writes, to ``<path>.p<rank>``
+    past rank 0 (``cup2d_tpu/resilience.py:196-203``)."""
 
     # recovery-critical events are fsynced at emit
     _DURABLE_EVENTS = frozenset({
@@ -124,7 +134,12 @@ class EventLog:
         "mirror_reject",
     })
 
-    def __init__(self, path: str, rotate_mb=None):
+    def __init__(self, path: str, rotate_mb=None, all_writers: bool = False):
+        self._all_writers = bool(all_writers)
+        if self._all_writers and dist_initialized():
+            import torch.distributed as dist
+            if dist.get_rank() > 0:
+                path = f"{path}.p{dist.get_rank()}"
         self.path = path
         d = os.path.dirname(path)
         if d:
@@ -135,7 +150,7 @@ class EventLog:
         self._f = open(path, "a")
 
     def emit(self, **fields) -> None:
-        if not is_writer():
+        if not (self._all_writers or is_writer()):
             return
         fields.setdefault("wall", time.time())
         self._f.write(json.dumps(fields, sort_keys=True,
@@ -423,6 +438,10 @@ class StepGuard:
 
     # -- snapshots (device-resident, io.py) ----------------------------
     def _snapshot(self):
+        with tracing.span("snapshot", step=int(self.sim.step_count)):
+            return self._snapshot_impl()
+
+    def _snapshot_impl(self):
         from .io import mirror_snapshot, snapshot_state_device
         snap = snapshot_state_device(self.sim)
         mesh = getattr(self.sim, "mesh", None)
@@ -430,7 +449,8 @@ class StepGuard:
             self._mirror_tick += 1
             if self._mirror_tick >= self.mirror_every:
                 t0 = time.perf_counter()
-                m = mirror_snapshot(snap, mesh, self.mirror_hosts)
+                with tracing.span("mirror", step=int(self.sim.step_count)):
+                    m = mirror_snapshot(snap, mesh, self.mirror_hosts)
                 if m is None:
                     # a payload the tier does not cover (the forest's):
                     # latch it off rather than probe every capture
@@ -482,6 +502,10 @@ class StepGuard:
         (host scalars + ``step``/``t``/``dt`` and the dispatch-time
         ``poisson_mode``/``kernel_tier``), or None while the first lagged
         dispatch is still in flight."""
+        with tracing.span("step", step=int(self.sim.step_count)):
+            return self._step_guarded(dt)
+
+    def _step_guarded(self, dt) -> Optional[dict]:
         self._seed()
         out = None
         self._dispatch(dt)
@@ -538,6 +562,16 @@ class StepGuard:
     def _dispatch(self, dt) -> None:
         sim = self.sim
         step0, t0 = sim.step_count, sim.time
+        if tracing.recorder() is not None:
+            # the build ledger's context (host strings, recorder on only):
+            # the trigger step and the dispatch-time latch token a build
+            # fired by this dispatch is charged with
+            tracing.note_step(step0)
+            mode = getattr(sim, "poisson_mode", None)
+            tier = getattr(sim, "kernel_tier", None)
+            if mode is not None or tier is not None:
+                tracing.note_token("/".join(
+                    str(x) for x in (mode, tier) if x is not None))
         trig = self._trigger_state()
         diag = self._attempt(dt, exact=False)
         pend = _Pending(
@@ -568,9 +602,11 @@ class StepGuard:
 
     def _resolve_oldest(self) -> dict:
         pend = self._pendings.pop(0)
-        # the step's one read (host values already on the eager paths)
-        vals = _host_scalars(pend.diag, _PULL_KEYS)
-        v = self._verdict_from(vals, pend.step0)
+        with tracing.span("verdict", step=int(pend.step0)):
+            # the step's one read (host values already on the eager
+            # paths): where the diag is on the device the span covers it
+            vals = _host_scalars(pend.diag, _PULL_KEYS)
+            v = self._verdict_from(vals, pend.step0)
         if v.ok:
             return self._commit(pend, vals)
         return self._recover(pend, vals, v)
@@ -645,57 +681,74 @@ class StepGuard:
         dt_used = self._dt_of(pend, vals)
         rung = 0
         retry_dt: Optional[float] = None
-        while True:
-            action = self._next_action(rung)
-            if action == "abort":
-                self._abort(step0, v, vals, dt_used)
-            replayed = 0
-            if action in ("retry", "escalate"):
-                replayed = self._rewind_replay()
-                if pend.trig is not None:
-                    # the retry consults the trigger with the inputs the
-                    # failed step's dispatch saw
-                    sim._coarse_on, sim._last_iters = pend.trig
-                if action == "retry":
-                    # half the failed dt; a nonfinite one (a fault at a
-                    # cold cache) falls back to a fresh CFL dt
-                    retry_dt = (0.5 * dt_used
-                                if np.isfinite(dt_used) and dt_used > 0
-                                else None)
-            else:   # disk_restore: rewind possibly many steps
-                from .io import load_checkpoint
-                load_checkpoint(self.ckpt_dir, sim)
-                self.ring.clear()
-                self._reanchor()
-                if self.watchdog is not None:
-                    # the window describes steps past the restored point
-                    self.watchdog.reset()
-                retry_dt = None
-            self._emit(step=step0, verdict=v.reason, action=action,
-                       dt=dt_used, rung=rung, replayed=replayed)
-            self.recoveries += 1
-            # the retry verdicts at once: recovery is the cold path
-            t0, s0 = sim.time, sim.step_count
-            exact_retry = action == "escalate"
-            trig = self._trigger_state()
-            diag = self._attempt(retry_dt, exact=exact_retry)
-            advanced = sim.time != t0
-            vals = _host_scalars(diag, _PULL_KEYS)
-            v2 = self._verdict_from(vals, s0)
-            p2 = _Pending(
-                step0=s0, t0=t0, diag=diag,
-                exact=bool(s0 < 10 or exact_retry),
-                dt_host=(sim.time - t0 if advanced else None),
-                advanced=advanced, trig=trig)
-            if v2.ok:
-                # recovered: a fresh anchor, so the replay list restarts
-                # from a clean base
-                p2.snap = self._snapshot()
-                self._since_snap = 0
-                return self._commit(p2, vals)
-            v = v2
-            dt_used = self._dt_of(p2, vals)
-            rung += 1
+        with tracing.span("recover", step=int(step0), verdict=v.reason):
+            while True:
+                action = self._next_action(rung)
+                # one span a rung, named by its action; an aborting rung
+                # keeps its interval (marked), so the timeline shows where
+                # the ladder died
+                with tracing.span(action, step=int(step0), rung=rung):
+                    out = self._rung(pend, action, rung, v, vals, dt_used,
+                                     retry_dt)
+                if out[0] is not None:
+                    return out[0]
+                v, vals, dt_used, retry_dt = out[1:]
+                rung += 1
+
+    def _rung(self, pend: _Pending, action: str, rung: int,
+              v: StepVerdict, vals: dict, dt_used: float, retry_dt):
+        """One rung of ``_recover``: (the committed record, ...) when it
+        recovered, else (None, its verdict, its host values, its dt, the
+        next rung's retry dt)."""
+        sim = self.sim
+        step0 = pend.step0
+        if action == "abort":
+            self._abort(step0, v, vals, dt_used)
+        replayed = 0
+        if action in ("retry", "escalate"):
+            replayed = self._rewind_replay()
+            if pend.trig is not None:
+                # the retry consults the trigger with the inputs the
+                # failed step's dispatch saw
+                sim._coarse_on, sim._last_iters = pend.trig
+            if action == "retry":
+                # half the failed dt; a nonfinite one (a fault at a
+                # cold cache) falls back to a fresh CFL dt
+                retry_dt = (0.5 * dt_used
+                            if np.isfinite(dt_used) and dt_used > 0
+                            else None)
+        else:   # disk_restore: rewind possibly many steps
+            from .io import load_checkpoint
+            load_checkpoint(self.ckpt_dir, sim)
+            self.ring.clear()
+            self._reanchor()
+            if self.watchdog is not None:
+                # the window describes steps past the restored point
+                self.watchdog.reset()
+            retry_dt = None
+        self._emit(step=step0, verdict=v.reason, action=action,
+                   dt=dt_used, rung=rung, replayed=replayed)
+        self.recoveries += 1
+        # the retry verdicts at once: recovery is the cold path
+        t0, s0 = sim.time, sim.step_count
+        exact_retry = action == "escalate"
+        trig = self._trigger_state()
+        diag = self._attempt(retry_dt, exact=exact_retry)
+        advanced = sim.time != t0
+        vals = _host_scalars(diag, _PULL_KEYS)
+        v2 = self._verdict_from(vals, s0)
+        p2 = _Pending(
+            step0=s0, t0=t0, diag=diag,
+            exact=bool(s0 < 10 or exact_retry),
+            dt_host=(sim.time - t0 if advanced else None),
+            advanced=advanced, trig=trig)
+        if v2.ok:
+            # recovered: a fresh anchor, so the replay list restarts
+            # from a clean base
+            p2.snap = self._snapshot()
+            self._since_snap = 0
+            return self._commit(p2, vals), None, None, None, None
+        return None, v2, vals, self._dt_of(p2, vals), retry_dt
 
     def _rewind_replay(self) -> int:
         """Restore the newest anchor, then replay the recorded good steps
@@ -745,11 +798,15 @@ class StepGuard:
                             if self.faults is not None else ())
         if exact:
             sim._force_exact = True
-        try:
-            return sim.step_once(dt=dt)
-        finally:
-            if exact:
-                sim._force_exact = False
+        # the enqueue: on the lagged paths the step returns with its
+        # diagnostics still on the device, and the verdict span covers
+        # the read
+        with tracing.span("dispatch", step=int(sim.step_count)):
+            try:
+                return sim.step_once(dt=dt)
+            finally:
+                if exact:
+                    sim._force_exact = False
 
     def _next_action(self, rung: int) -> str:
         if not self.recover:
@@ -824,6 +881,11 @@ class StepGuard:
         Then the ring is re-anchored on the new mesh, the mirror tier
         resized to the surviving hosts (off below two), and one ``remesh``
         event emitted (epoch, source, devices, step, replayed, ms)."""
+        with tracing.span("remesh", step=int(self.sim.step_count),
+                          epoch=int(topo.epoch)):
+            return self._elastic_recover(topo)
+
+    def _elastic_recover(self, topo: "TopologyGuard") -> None:
         sim = self.sim
         t0 = time.perf_counter()
         # no fence: torch runs a device's launches in the order they were
@@ -927,7 +989,15 @@ class FleetStepGuard(StepGuard):
     ``fleet.FleetServer``): an exhausted ladder evicts the one member (a
     ``member_aborted`` event, the callback frees the slot) instead of
     raising ``ResilienceAbort``. Slots the server masked inactive are
-    neither classified nor watched."""
+    neither classified nor watched.
+
+    A fleet across processes (``FleetSim`` on a world mesh) reads the same
+    diagnostics on every rank, so the ranks reach the same verdicts; they
+    are agreed all the same (``cup2d_tpu/resilience.py``'s rule for every
+    decision that picks a collective path): the per-member bad flags go
+    through one ``_gather_ints`` and a member is bad where any rank says
+    so, for the step's verdicts and for each solo retry's. Events go out
+    from rank 0 only (``EventLog``)."""
 
     def __init__(self, sim, *, watchdog=None, on_member_abort=None, **kw):
         kw["lag"] = False     # eager by design, see the docstring
@@ -986,14 +1056,28 @@ class FleetStepGuard(StepGuard):
         return v
 
     def _member_verdicts(self, vals: dict, step: int) -> list:
-        return [
+        return self._agreed([
             self._one_member_verdict(
                 m, {k: v[m] for k, v in vals.items() if np.ndim(v) >= 1},
                 step)
             if self._member_active(m)
             # a parked slot's lane is select-frozen identity
             else StepVerdict(True, "inactive")
-            for m in range(self.sim.members)]
+            for m in range(self.sim.members)])
+
+    @staticmethod
+    def _agreed(verdicts: list) -> list:
+        """The verdicts every rank of a world takes: one all-gather of the
+        bad flags (``_gather_ints``), a verdict bad where any rank's is.
+        Without a world, the verdicts as they are."""
+        if not dist_initialized():
+            return verdicts
+        flags = _gather_ints([int(not v.ok) for v in verdicts],
+                             _beat_device())
+        bad = flags.max(axis=0)
+        return [v if v.ok == (not b) else
+                StepVerdict(False, "peer_verdict") if b else v
+                for v, b in zip(verdicts, bad)]
 
     def _commit(self, pend: _Pending, vals: dict) -> dict:
         sim = self.sim
@@ -1102,7 +1186,8 @@ class FleetStepGuard(StepGuard):
                     diag = sim.member_step_once(
                         m, dt=retry_dt, exact=(exact or step0 < 10))
                     mv = _host_scalars(diag, _PULL_KEYS)
-                    v2 = self._one_member_verdict(m, mv, step0)
+                    (v2,) = self._agreed(
+                        [self._one_member_verdict(m, mv, step0)])
                     if v2.ok:
                         sim.times[m] += float(mv["dt"])
                         sim.time = float(sim.times.min())

@@ -36,8 +36,10 @@ clock. The shaped branch verdicts eagerly whatever the flag. The guard's
 escalation rung sets ``_force_exact`` (an exact solve for one attempt).
 
 Device policy as ``UniformGrid``: ``cuda`` unless ``device="cpu"`` is
-given; no card and no device raises. ``timers`` (ROADMAP queue 1 item 9)
-refuses when set.
+given; no card and no device raises. ``timers`` (a
+``profiling.PhaseTimers``, opt-in) times the JAX package's phases: "dt",
+"flow", "kinematics", "rasterize", "forces"; each ends with a ``fence`` of
+its tensors (none under ``async_diag``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from . import tracing
 from .config import SimConfig
 from .models import DiskShape, FishShape
 from .ops.collision import merged_overlap_integrals, \
@@ -59,6 +62,7 @@ from .ops.obstacle import (chi_from_sdf, midline_udef,
                            shape_integrals, solve_rigid_momentum,
                            window_coords, window_of)
 from .ops.stencil import pad_scalar
+from .profiling import NULL_TIMERS
 from .shapes_host import ShapeHostMixin, pull, pull_diag
 from .uniform import FlowState, UniformGrid
 
@@ -137,17 +141,9 @@ class Simulation(ShapeHostMixin):
         # shaped branch ignores it (its uvw/CoM read feeds the next step's
         # host kinematics)
         self.async_diag = False
-
-    @property
-    def timers(self):
-        return None
-
-    @timers.setter
-    def timers(self, value) -> None:
-        if value is not None:
-            raise NotImplementedError(
-                "timers (profiling.PhaseTimers) are not ported yet "
-                "(ROADMAP queue 1 item 9); read phase_seconds instead")
+        # profiling.PhaseTimers, opt-in: "dt", "flow", "kinematics",
+        # "rasterize", "forces" (cup2d_tpu/sim.py:404-500)
+        self.timers = None
 
     @property
     def poisson_mode(self) -> str:
@@ -402,26 +398,38 @@ class Simulation(ShapeHostMixin):
         alone, on the obstacle-free branch under ``async_diag``)."""
         g = self.grid
         cfg = self.cfg
+        tm = self.timers or NULL_TIMERS
         if not self.shapes:
             # obstacle-free: the plain uniform step, no rasterization
             if dt is None:
-                dt = (self._next_dt if self._next_dt is not None
-                      else float(pull(g.compute_dt(self.state.vel))[0]))
+                if self._next_dt is not None:
+                    dt = self._next_dt
+                else:
+                    with tm.phase("dt"), tracing.label("sim.dt"):
+                        dt = float(pull(g.compute_dt(self.state.vel))[0])
             exact = self.step_count < 10 or self._force_exact
             dt_dev = torch.as_tensor(dt, dtype=g.dtype, device=g.device)
-            self.state, diag = g.step(self.state, dt_dev,
-                                      exact_poisson=exact,
-                                      obstacle_terms=False)
             if self.async_diag:
                 # no read: dt_next stays a device scalar fed to the next
-                # dispatch, and the guard's verdict settles the clock
+                # dispatch, and the guard's verdict settles the clock; no
+                # fence either (a fence waits for the device)
+                with tracing.label("sim.flow_step_empty"):
+                    self.state, diag = g.step(self.state, dt_dev,
+                                              exact_poisson=exact,
+                                              obstacle_terms=False)
                 diag["dt"] = dt_dev
                 self._next_dt = diag["dt_next"]
                 self.step_count += 1
                 return diag
-            diag, _ = pull_diag(diag)
-            diag["dt"] = float(dt)
-            self._next_dt = float(diag["dt_next"])
+            with tm.phase("flow"):
+                with tracing.label("sim.flow_step_empty"):
+                    self.state, diag = g.step(self.state, dt_dev,
+                                              exact_poisson=exact,
+                                              obstacle_terms=False)
+                diag, _ = pull_diag(diag)
+                diag["dt"] = float(dt)
+                self._next_dt = float(diag["dt_next"])
+                tm.fence("flow", self.state)
             self.time += dt
             self.step_count += 1
             return diag
@@ -431,29 +439,37 @@ class Simulation(ShapeHostMixin):
             if self._next_dt is not None:
                 dt = min(self._next_dt, self._kinematic_dt_cap())
             else:
-                dt = min(float(pull(g.compute_dt(self.state.vel))[0]),
-                         self._kinematic_dt_cap())
+                with tm.phase("dt"), tracing.label("sim.dt"):
+                    dt = min(float(pull(g.compute_dt(self.state.vel))[0]),
+                             self._kinematic_dt_cap())
         t0 = time.perf_counter()
 
         # ongrid host part (main.cpp:3992-4207)
-        for s in self.shapes:
-            s.advect(dt, cfg.extents)
-            s.midline(self.time)
+        with tm.phase("kinematics"):
+            for s in self.shapes:
+                s.advect(dt, cfg.extents)
+                s.midline(self.time)
         t1 = time.perf_counter()
 
-        obs = self._rasterize_impl(self._shape_inputs())
-        self._sync_shape_scalars(obs)
+        with tm.phase("rasterize"):
+            with tracing.label("sim.rasterize"):
+                obs = self._rasterize_impl(self._shape_inputs())
+            self._sync_shape_scalars(obs)
+            tm.fence("rasterize", obs)
         t2 = time.perf_counter()
 
         prescribed = g.tensor([[s.u, s.v, s.omega] for s in self.shapes])
         exact = self.step_count < 10 or self._force_exact
-        self.state, uvw, diag = self._flow_step_impl(
-            self.state, obs, prescribed,
-            torch.as_tensor(dt, dtype=g.dtype, device=g.device),
-            exact_poisson=exact)
-        diag, (uvw_np,) = pull_diag(diag, uvw)
-        diag["dt"] = float(dt)
-        self._next_dt = float(diag["dt_next"])
+        with tm.phase("flow"):
+            with tracing.label("sim.flow_step"):
+                self.state, uvw, diag = self._flow_step_impl(
+                    self.state, obs, prescribed,
+                    torch.as_tensor(dt, dtype=g.dtype, device=g.device),
+                    exact_poisson=exact)
+            diag, (uvw_np,) = pull_diag(diag, uvw)
+            diag["dt"] = float(dt)
+            self._next_dt = float(diag["dt_next"])
+            tm.fence("flow", self.state)
         for k, s in enumerate(self.shapes):
             if s.free:
                 s.u, s.v, s.omega = (float(c) for c in uvw_np[k])
@@ -461,7 +477,8 @@ class Simulation(ShapeHostMixin):
 
         if self.compute_forces_every and \
                 self.step_count % self.compute_forces_every == 0:
-            self._log_forces(obs, uvw)
+            with tm.phase("forces"), tracing.label("sim.forces"):
+                self._log_forces(obs, uvw)
         t4 = time.perf_counter()
         self.phase_seconds = {"kinematics": t1 - t0, "rasterize": t2 - t1,
                               "flow": t3 - t2, "forces": t4 - t3}

@@ -59,6 +59,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .bc import (FREE_SLIP, BCTable, divergence_affine_bc,
                  divergence_coeffs, pad_vector_bc, periodic_axes,
                  pressure_signs)
@@ -551,17 +552,9 @@ class UniformSim:
         self._next_dt = None
         self._force_exact = False
         self.async_diag = False
-
-    @property
-    def timers(self):
-        return None
-
-    @timers.setter
-    def timers(self, value) -> None:
-        if value is not None:
-            raise NotImplementedError(
-                "timers (profiling.PhaseTimers) are not ported into the "
-                "drivers yet (ROADMAP queue 1 item 9)")
+        # profiling.PhaseTimers, opt-in; this driver opens no phase (as
+        # cup2d_tpu/uniform.py:676)
+        self.timers = None
 
     @property
     def poisson_mode(self) -> str:
@@ -594,11 +587,14 @@ class UniformSim:
             if self._next_dt is not None:
                 dt = self._next_dt
             else:
-                dt = float(pull(g.compute_dt(self.state.vel))[0])
+                with tracing.label("uniform.dt"):
+                    dt = float(pull(g.compute_dt(self.state.vel))[0])
         exact = self.step_count < 10 or self._force_exact
         dt_dev = torch.as_tensor(dt, dtype=g.dtype, device=g.device)
-        self.state, diag = g.step(self.state, dt_dev, exact_poisson=exact,
-                                  obstacle_terms=False)
+        with tracing.label("uniform.step"):
+            self.state, diag = g.step(self.state, dt_dev,
+                                      exact_poisson=exact,
+                                      obstacle_terms=False)
         if self.async_diag:
             diag["dt"] = dt_dev
             self._next_dt = diag["dt_next"]

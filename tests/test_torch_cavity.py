@@ -27,6 +27,7 @@ and projection epilogue, the case catalog, and whole trajectories.
   refusals (a periodic table on a mesh; the split cavity builds)."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -476,7 +477,9 @@ def test_waiting_cases_refuse(name, item):
     a fleet on a mesh (tests/test_torch_fleet.py holds their fleets
     against JAX's, tests/test_torch_mesh_periodic.py and
     tests/test_torch_fleet_mesh.py their split runs); ``item`` names the
-    ROADMAP item their split step and placed fleets once waited for."""
+    ROADMAP item their split step and placed fleets once waited for, whose
+    last entry (fleets across processes) no longer refuses anywhere in
+    the package (tests/test_torch_fleet_dist.py runs them)."""
     from cup2d_tpu_torch.fleet import FleetSim
     fleet = tcases.make_sim(name, level=2, device="cpu", dtype="float64",
                             members=2)
@@ -493,6 +496,14 @@ def test_waiting_cases_refuse(name, item):
     assert placed.placement == "member" and placed.case == name
     assert placed.step_once()["finite"].all()
     assert item == "queue 1 item 8"
+    import cup2d_tpu_torch
+    pkg = os.path.dirname(cup2d_tpu_torch.__file__)
+    for root, _, files in os.walk(pkg):
+        for fn in files:
+            if fn.endswith(".py"):
+                with open(os.path.join(root, fn)) as f:
+                    src = f.read()
+                assert "item 8" not in src and "item 9" not in src, fn
     sim = tcases.make_sim(name, level=2, device="cpu", dtype="float64")
     assert sim.case == name and sim.bc_table == "pd,pd,pd,pd"
     d = sim.step_once()

@@ -194,7 +194,9 @@ def test_cli_metrics_stream(cli_runs):
         assert r["schema"] == tprof.METRICS_SCHEMA_VERSION == \
             jprof.METRICS_SCHEMA_VERSION == 12
         assert r["jit_compiles"] == 0 and r["hbm_peak_bytes"] is None
-        assert r["span_count"] is None and r["state_gathers"] == 0
+        # the flight recorder is on in every metrics-on run, its spans
+        # off here (-noSpans)
+        assert r["span_count"] == 0 and r["state_gathers"] == 0
     assert tprof.METRICS_KEYS == jprof.METRICS_KEYS
     # the reads of a production step with a cached dt: the (com, mass,
     # inertia), (diag, uvw) and forces reads, and BiCGSTAB's: the initial
@@ -206,7 +208,12 @@ def test_cli_metrics_stream(cli_runs):
             tdir, f"vel.{r['step'] - 1:08d}.xdmf2"))
         assert r["device_gets"] == 3 + 2 + 2 * r["poisson_iters"] \
             + dumped + (r["step"] == 11), r
-    assert not os.path.exists(os.path.join(tdir, "spans.jsonl"))
+    assert tprof.load_metrics(os.path.join(tdir, "spans.jsonl")) == []
+    ledger = [r for r in tprof.load_metrics(os.path.join(
+        tdir, "metrics.jsonl")) if r.get("event") == "compile_ledger"]
+    assert len(ledger) == 1 and ledger[0]["compiles"] == 0
+    labels = {r["label"] for r in ledger[0]["executables"]}
+    assert "sim.flow_step" in labels and ledger[0]["hbm_exec_bytes"] is None
     # post --metrics: the JAX post's summary keys
     from cup2d_tpu import post as jpost
     path = os.path.join(tdir, "metrics.jsonl")
@@ -320,25 +327,28 @@ REFUSALS = [
     (["-simHosts", "2"], None), (["-heartbeatMissK", "2"], None),
     (["-heartbeatTimeout", "5"], None), (["-mirror"], None),
     (["-mirrorEvery", "2"], None),
-    (["-profile"], 9), (["-spansLog", "s.jsonl"], 9),
+    (["-profile"], None), (["-spansLog", "s.jsonl"], None),
 ]
 
 
 @pytest.mark.parametrize("flags,item", REFUSALS,
                          ids=[" ".join(f) for f, _ in REFUSALS])
 def test_refused_flag_exits_2_naming_its_item(flags, item, tmp_path,
-                                              capsys):
+                                              capsys, monkeypatch):
     """A flag the port cannot give names its ROADMAP item; a usage error of
     the JAX CLI gives its message. ``-fleet`` with ``-mesh`` is one only
     without ``-case`` (``-case cavity`` places its fleet on the mesh:
     tests/test_torch_fleet_mesh.py). ``item`` None: a flag the JAX CLI
-    accepts here, where it has no effect without ``-elastic``; the run
-    exits 0 as the JAX CLI's does (tests/test_torch_elastic.py drives
-    the flags with ``-elastic``)."""
+    accepts here, where it has no effect without ``-elastic``, or one the
+    port now gives (``-profile``, ``-spansLog``:
+    tests/test_torch_tracing.py holds them); the run exits 0 as the JAX
+    CLI's does (tests/test_torch_elastic.py drives the elastic flags with
+    ``-elastic``)."""
     base = CAVITY
     if "-fleet" in flags and "-mesh" in flags:
         base = [a for a in CAVITY if a not in ("-case", "cavity")]
     if item is None:
+        monkeypatch.chdir(tmp_path)      # a relative -spansLog lands here
         assert tmain.main(base + flags + ["-maxSteps", "1", "-tdump", "0",
                                           "-output", str(tmp_path)]) == 0
         assert "done at" in capsys.readouterr().err
@@ -354,10 +364,17 @@ def test_refused_flag_exits_2_naming_its_item(flags, item, tmp_path,
 @pytest.mark.parametrize("env,item", [({"CUP2D_SPANS": "64"}, 9)])
 def test_refused_supervision_and_env(env, item, tmp_path, monkeypatch,
                                      capsys):
+    """``CUP2D_SPANS`` (ROADMAP queue 1 item ``item``, the span ring) now
+    sets the ring's capacity as the JAX CLI reads it: the run exits 0 and
+    writes its spans."""
+    assert item == 9
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    assert tmain.main(CAVITY + ["-output", str(tmp_path)]) == 2
-    assert f"item {item}" in capsys.readouterr().err
+    assert tmain.main(CAVITY + ["-maxSteps", "2", "-tdump", "0",
+                                "-output", str(tmp_path)]) == 0
+    assert "done at" in capsys.readouterr().err
+    spans = tprof.load_metrics(str(tmp_path / "spans.jsonl"))
+    assert {"step", "verdict"} <= {s["name"] for s in spans}
 
 
 SUPERVISED = [(["-guardRing", "2"], {}), (["-snapEvery", "3"], {}),
@@ -390,8 +407,8 @@ def test_supervised_runs(flags, env, tmp_path, monkeypatch):
 def test_usage_errors_and_accepted_switches(tmp_path, monkeypatch, capsys):
     assert tmain.main(["-case", "nope", "-noSupervise"]) == 2
     assert "catalog: cavity" in capsys.readouterr().err
-    assert tpost.main(["--trace", "spans.jsonl"]) == 2
-    assert "item 9" in capsys.readouterr().err
+    assert tpost.main(["--trace"]) == 2
+    assert "--trace <spans.jsonl>" in capsys.readouterr().err
     monkeypatch.setenv("CUP2D_SPANS", "0")
     assert tmain.main(CAVITY + ["-maxSteps", "1", "-noLag", "-noSpans",
                                 "-noMemLedger", "-noMirror", "-noMetrics",
@@ -482,10 +499,18 @@ def test_streams_rotate_and_read_back(tmp_path):
 
 @pytest.mark.parametrize("kw,item", [("flight", 9)])
 def test_recorder_slots_of_later_items_refuse(kw, item):
-    """``MetricsRecorder``'s flight-recorder slot: a value raises, naming
-    its ROADMAP item; without one the group is null."""
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tprof.MetricsRecorder(**{kw: object()})
+    """``MetricsRecorder``'s flight-recorder slot (ROADMAP queue 1 item
+    ``item``, which once refused it): with a ``tracing.FlightRecorder`` the
+    record carries its span count, build ms and allocator peak (none on
+    the CPU); without one the group is null."""
+    from cup2d_tpu_torch.tracing import FlightRecorder
+    assert item == 9
+    fl = FlightRecorder()
+    fl.span_count = 5
+    rec = tprof.MetricsRecorder(**{kw: fl}).record_step(step=1, t=0.1,
+                                                         diag={})
+    assert (rec["span_count"], rec["compile_ms_total"],
+            rec["hbm_exec_bytes"]) == (5, 0.0, None)
     rec = tprof.MetricsRecorder().record_step(step=1, t=0.1, diag={})
     assert all(rec[k] is None for k in
                ("span_count", "compile_ms_total", "hbm_exec_bytes"))

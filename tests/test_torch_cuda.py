@@ -1688,9 +1688,11 @@ def test_world_on_cards_equals_one_process_over_the_same_cards(cuda,
                                                                tmp_path):
     """One NCCL rank a card (``torch.distributed.run``) against one
     process over the same cards (``cup2d_tpu_torch.dist_check``): the
-    split uniform step (512^2, default and fas) and the split vortex
-    forest (levels 3-5, structured and fas) bit for bit, equal
-    iterations, edge columns and surfaces sent point to point."""
+    split uniform step (512^2, default and fas), the split vortex forest
+    (levels 3-5, structured and fas) and the ``turb2d`` fleet (128^2, B =
+    4, member and spatial placement, both solvers) bit for bit, equal
+    iterations, edge columns and surfaces sent point to point (the
+    member-placed fleet sends none: its members stay on their card)."""
     import json
     import os
     import subprocess
@@ -1700,7 +1702,8 @@ def test_world_on_cards_equals_one_process_over_the_same_cards(cuda,
         pytest.skip("needs at least 2 cards: one NCCL rank a card")
     from cup2d_tpu_torch.dist_check import compare
     common = ["--size", "512", "--forest-target", "300", "--forest-levels",
-              "3", "5", "--steps", "2", "--out", str(tmp_path)]
+              "3", "5", "--steps", "2", "--fleet-size", "128",
+              "--fleet-members", "4", "--out", str(tmp_path)]
     runs = [[sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc_per_node", str(n), "-m", "cup2d_tpu_torch.dist_check",
              "--layout", "ranks"] + common,
@@ -1713,6 +1716,109 @@ def test_world_on_cards_equals_one_process_over_the_same_cards(cuda,
     with open(tmp_path / "ranks.json") as f:
         ranks = json.load(f)
     assert ranks["shards"] == n
+    assert any(name.startswith("fleet") for name in ranks["runs"])
     for name, run in ranks["runs"].items():
         assert run["comm_per_step"]["allgathers"] > 0, name
-        assert run["comm_per_step"]["p2p_messages"] > 0, name
+        if " member " not in name:
+            assert run["comm_per_step"]["p2p_messages"] > 0, name
+
+
+# ---------------------------------------------------------------------------
+# the flight recorder and the phase timers on the card
+# ---------------------------------------------------------------------------
+
+def _tg_sim(cuda):
+    from cup2d_tpu_torch.uniform import taylor_green_state
+    cfg = SimConfig(bpdx=1, bpdy=1, level_max=1, level_start=0, extent=1.0,
+                    nu=1e-3, cfl=0.4, dtype="float32",
+                    max_poisson_iterations=100, poisson_tol=1e-5,
+                    poisson_tol_rel=1e-4)
+    sim = UniformSim(cfg, level=4, device=cuda)
+    sim.state = taylor_green_state(sim.grid)
+    return sim
+
+
+def test_recorder_attributes_every_kernel_build_on_the_card(cuda,
+                                                            monkeypatch):
+    """The counterpart of the JAX package's
+    ``test_uniform_sim_compiles_fully_attributed``: with the loaded
+    kernel entries dropped, a recorded, supervised ``UniformSim`` reloads
+    them inside its labeled step entry points, every build event lands on
+    a label (none ``<unattributed>``), and the allocator peak read at the
+    labels' exits is nonzero."""
+    from cup2d_tpu_torch import tracing
+    from cup2d_tpu_torch.resilience import StepGuard
+    hk.build()
+    sim = _tg_sim(cuda)
+    monkeypatch.setattr(hk, "_fns", {})
+    rec = tracing.FlightRecorder().install()
+    try:
+        b0 = hk.build_events
+        guard = StepGuard(sim, lag=False)
+        for _ in range(3):
+            guard.step()
+        builds = hk.build_events - b0
+        rep = rec.ledger_report()
+    finally:
+        rec.uninstall()
+    rows = {r["label"]: r for r in rep["executables"]}
+    assert builds > 0 and rep["compiles"] == builds
+    assert "<unattributed>" not in rows
+    assert rows["uniform.step"]["compiles"] > 0
+    assert rows["uniform.step"]["first_step"] == 0
+    assert rep["hbm_exec_bytes"] > 0
+    assert rows["uniform.step"]["memory"]["peak_allocated_bytes"] > 0
+
+
+def test_recorder_on_is_bit_identical_on_the_card(cuda):
+    """Recorder on against off on the card: the same state bits, the same
+    device reads, no build and the same launches."""
+    from cup2d_tpu_torch import shapes_host, tracing
+    from cup2d_tpu_torch.resilience import StepGuard
+    hk.build()
+    out = []
+    for on in (False, True):
+        sim = _tg_sim(cuda)
+        rec = tracing.FlightRecorder().install() if on else None
+        hk.reset_launches()
+        g0, b0 = shapes_host.pulls, hk.build_events
+        guard = StepGuard(sim)
+        for _ in range(4):
+            guard.step()
+        guard.drain()
+        torch.cuda.synchronize()
+        out.append((sim, shapes_host.pulls - g0, hk.build_events - b0,
+                    dict(hk.launches)))
+        if rec is not None:
+            rec.uninstall()
+    (a, ga, ba, la), (b, gb, bb, lb) = out
+    assert all(torch.equal(x, y) for x, y in zip(a.state, b.state))
+    assert (ga, ba, la) == (gb, bb, lb) and ba == 0
+
+
+def test_timers_fence_adds_no_read_on_the_card(cuda):
+    """The phase timers on the card: the fence synchronizes and reads
+    nothing, so a timed run makes the untimed run's reads and bits."""
+    from cup2d_tpu_torch import shapes_host
+    from cup2d_tpu_torch.fleet import FleetSim, taylor_green_fleet
+    from cup2d_tpu_torch.profiling import PhaseTimers
+    hk.build()
+    out = []
+    for timed in (False, True):
+        sim = FleetSim(_tg_sim(cuda).cfg, level=4, members=3, device=cuda)
+        sim.set_state(taylor_green_fleet(sim.grid, 3))
+        if timed:
+            sim.timers = PhaseTimers()
+        g0 = shapes_host.pulls
+        for _ in range(3):
+            sim.step_once()
+        out.append((sim, shapes_host.pulls - g0))
+    (a, ga), (b, gb) = out
+    assert ga == gb
+    assert all(torch.equal(x, y) for x, y in zip(a.state, b.state))
+    rep = b.timers.report()
+    assert set(rep) == {"step"} and rep["step"]["count"] == 3
+    tm = PhaseTimers()
+    g0 = shapes_host.pulls
+    tm.fence("x", b.state, {"v": b.state.vel})
+    assert shapes_host.pulls == g0

@@ -28,9 +28,11 @@ on the CPU: worlds of 2 ranks, 2 shards each, spawned with
   Taylor-Green): bit for bit the single-process run re-meshed from 4
   shards to 2; its forest step gathered group partials only, and no
   preconditioner operand.
-* The refusal that stays (a fleet across processes, item 8), the elastic
-  and mirror flags as the JAX CLI takes them, and a world whose peer never
-  comes, which fails inside its timeout with the expected process count.
+* A fleet given the world flags without a coordinator, which fails to
+  connect as every world run does, the elastic and mirror flags as the JAX
+  CLI takes them, and a world whose peer never comes, which fails inside
+  its timeout with the expected process count. Fleets across processes
+  are tests/test_torch_fleet_dist.py.
   The elastic recovery across ranks is tests/test_torch_dist_elastic.py."""
 
 import hashlib
@@ -621,7 +623,9 @@ def test_cli_two_processes_dump_what_one_process_dumps(cli_runs):
     # one writer: three records, progress lines from rank 0 only
     recs = [json.loads(x) for x in open(os.path.join(head,
                                                      "metrics.jsonl"))]
-    assert [r["step"] for r in recs] == [1, 2, 3]
+    assert [r["step"] for r in recs if r["event"] == "metrics"] \
+        == [1, 2, 3]
+    assert recs[-1]["event"] == "compile_ledger"
     assert "done at" in outs[0][2] and "done at" not in outs[1][2]
 
 
@@ -644,8 +648,10 @@ def test_missing_peer_fails_inside_its_timeout(tmp_path):
 
 
 def test_refusals_that_stay(tmp_path, capsys):
-    """The fleet across processes still refuses, naming item 8; the
-    elastic and mirror flags behave as in the JAX CLI
+    """A fleet with the world flags now brings up a world as the other
+    world runs do (tests/test_torch_fleet_dist.py runs one), so
+    ``-meshHosts 2`` without a coordinator fails to connect (rc 1) before
+    any work; the elastic and mirror flags behave as in the JAX CLI
     (``cup2d_tpu/__main__.py:205-208``, :330-375): ``-elastic`` in one
     process without ``-simHosts`` is a usage error, and the other flags
     alone are accepted runs."""
@@ -665,7 +671,8 @@ def test_refusals_that_stay(tmp_path, capsys):
             (["-heartbeatMissK", "1"], 0, "done at"),
             (["-heartbeatTimeout", "3"], 0, "done at"),
             (["-case", "cavity", "-fleet", "2", "-mesh", "2",
-              "-meshHosts", "2"], 2, "item 8"))):
+              "-meshHosts", "2"], 1,
+             "a world needs the coordinator address"))):
         out = str(tmp_path / str(k))
         assert main(base + flags + ["-output", out]) == rc, flags
         assert text in capsys.readouterr().err, flags

@@ -530,7 +530,7 @@ def test_cli_elastic_simulated_drill(flags, tmp_path, monkeypatch, capsys):
     assert ev[0]["hosts"] == [1] and ev[0]["step"] == 6 + k - 1
     assert ev[0]["miss_k"] == k
     assert ev[1]["source"] == "ring" and ev[1]["devices"] == 2
-    ms = _events(os.path.join(out, "metrics.jsonl"))
+    ms = _events(os.path.join(out, "metrics.jsonl"), "metrics")
     assert ms[-1]["step"] == 12
     assert ms[-1]["topology_epoch"] == 1 and ms[-1]["remesh_count"] == 1
     assert ms[-1]["restore_source"] == "ring"

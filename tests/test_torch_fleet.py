@@ -450,8 +450,10 @@ def test_fleet_refusals():
     sim = FleetSim(cfg, level=LVL, members=2, device="cpu")
     with pytest.raises(ValueError, match="active mask shape"):
         sim.set_active([True])
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        sim.timers = object()
+    from cup2d_tpu_torch.profiling import PhaseTimers
+    sim.timers = PhaseTimers()
+    sim.step_once()
+    assert set(sim.timers.report()) == {"step"}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             FleetSim(cfg, level=LVL, members=2)

@@ -164,8 +164,8 @@ def test_obstacle_free_simulation_is_the_uniform_step():
 def test_simulation_refusals(monkeypatch):
     """No card and no device raises; f64 on the card refuses; the
     ``async_diag`` attribute is accepted and the shaped step still
-    returns host diagnostics; the unported phase timers refuse when set,
-    naming their ROADMAP item."""
+    returns host diagnostics; the phase timers time the JAX package's
+    phases of the shaped step."""
     cfg = config_from_dict(dataclasses.asdict(_cfg()))
     sim = Simulation(cfg, shapes=[DiskShape(0.1, 0.5, 0.5)], level=2,
                      device="cpu")
@@ -175,8 +175,11 @@ def test_simulation_refusals(monkeypatch):
     d = sim.step_once()
     assert sim.step_count == 1 and sim.time > 0
     assert not any(torch.is_tensor(v) for v in d.values())
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        sim.timers = object()
+    from cup2d_tpu_torch.profiling import PhaseTimers
+    sim.timers = PhaseTimers()
+    sim.step_once()
+    assert set(sim.timers.report()) == {"kinematics", "rasterize", "flow",
+                                        "forces"}
     with pytest.raises(ValueError, match="f32 state only"):
         Simulation(cfg, level=2, device="cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

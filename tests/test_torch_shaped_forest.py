@@ -445,8 +445,13 @@ def test_shaped_run_logs_forces():
     d = sim.step_once()
     assert sim.step_count == 4 and d["finite"]
     assert not any(torch.is_tensor(v) for v in d.values())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sim.timers = object()
+    from cup2d_tpu_torch.profiling import PhaseTimers
+    sim.timers = PhaseTimers()
+    sim.async_diag = False
+    sim.step_once()
+    sim.adapt()
+    assert {"kinematics", "rasterize", "flow", "forces", "adapt"} \
+        <= set(sim.timers.report())
 
 
 # ---------------------------------------------------------------------------
