@@ -22,8 +22,9 @@ the result lines:
    (graph replays: ms, bound and launches per level and per cycle);
    ``group_sum.cu`` bit for bit its twin at 1, 8, 256 and 1,024 groups
    (the forest's dot into f64 partials, an f32 and an f64 sum) and timed
-   at the forest's [16384, 8, 8] beside ``torch.sum``, and kernel 8 as
-   P_inv r beside ``torch.mm``; the
+   at the forest's [16384, 8, 8] beside ``torch.sum``, and kernel 8's
+   preconditioner forms, P_inv r beside ``torch.mm`` and e + P_inv r
+   beside ``torch.addmm``; the
    four redesigned kernels' times beside their earlier designs', and the
    substage pairs' bounds at the face-sharing design's operation count
    on their own inputs beside the fixed per-cell count of the earlier
@@ -95,7 +96,11 @@ the result lines:
    The default run is made twice from the same state and must repeat
    itself bit for bit; the lab RHS is timed on the fas run's own labs
    (its last call), with the reconstructions per cell and component the
-   face sharing needs there;
+   face sharing needs there. Then the default solver's two-level
+   production: one production step from the cold pressure (its solve
+   takes > 15 iterations and engages the trigger) and 5 timed steps,
+   each application of the additive M one launch of kernel 8's E form
+   (``+pinv+e`` launches = the steps' preconditioner cycles);
 6. a multilevel forest (``amr.multilevel_forest``, levelMax 5) on the
    card and on the CPU, f32, 5 steps with an ``adapt()`` after the
    second: equal block key sets and velocity relative Linf <= 1e-4, once
@@ -428,10 +433,20 @@ flagship's and the canonical run's kernels, their
 numbers at those shapes), the card's name and power limit
 as nvidia-smi prints them, and the result line
 ``{"ok": true, "device": {...}}`` last. Needs no network; imports no JAX.
+
+    python3 chip_smoke.py --phases 2,5,13
+
+runs phase 1, the phases named (``a-b`` names a range) and the phases
+they draw on (``PHASE_NEEDS``: phase 2's results for 13 and 18, phase
+5's forest start for 15, 17, 19 and 20, phase 14's runs for 15); a
+phase whose other inputs did not run reports without them. It prints
+the per-kernel line if phase 2 ran (launches null for the paths that did
+not run) and the result line with the phases it ran.
 """
 
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import os
@@ -543,7 +558,11 @@ EARLIER_MS = {"fused_jacobi_sweeps": 0.681,
               "jacobi_halo_sweep+bc": 0.410,
               "jacobi_halo_sweep+bc+bf16": 0.366,
               "fused_lab_rhs": 0.0457,
-              "advect_diffuse_rhs": 1.940}
+              "advect_diffuse_rhs": 1.940,
+              # kernel 8 with zero e and lap (kernel_ab times it and the
+              # separate add of the E form's composition in turns)
+              "fused_block_jacobi_update+pinv": 0.00829,
+              "tridiag_scan": 0.884}
 
 # operations per cell, counting each add, multiply, compare, select, max,
 # integer op and reciprocal as one: one WENO5 reconstruction is 83 (33
@@ -889,38 +908,49 @@ def phase_kernels(dev):
 
 def phase_precond_and_partials(dev, res, rn, p_inv, n: int = 16384) -> None:
     """Phase 2, the forest's reductions and preconditioner at the phase-5
-    forest's 16384 blocks. Kernel 8 as P_inv r (``hk.block_precond``,
-    e = lap = 0) against its twin, timed (6 operand sets by graph
-    replay); library: one mm, TF32 off; bound: r read, the result
+    forest's 16384 blocks. Kernel 8's P form (P_inv r, ``hk.block_precond``)
+    and E form (e + P_inv r, the additive two-level preconditioner)
+    against their twins, timed (6 operand sets by graph replay); library:
+    one mm and one addmm, TF32 off; bound: the operands read, the result
     written, and the 64 x 64 product's operations. ``group_sum.cu``: bit
     for bit its twin at 1, 8, 256 and 1,024 groups of 16 blocks (1,024
     values a group) of the dot (f32 products, f64 partials), the f32 sum
     and the f64 sum of the energy's [N, 2, 8, 8]; the dot timed at 1,024
     groups; library: ``torch.sum(a * c, dtype=torch.float64)``; bound:
     both operands read once, the partials written."""
-    sets = [rn(n, 8, 8) for _ in range(6)]
-    zero = torch.zeros_like(sets[0])
-    got = hk.block_precond(sets[0], p_inv, zero)
-    ref = hk.block_precond_plain(sets[0], p_inv)
-    err = float((got - ref).abs().max())
-    rel = err / float(ref.abs().max())
-    check(rel <= BLOCK_JACOBI_REL, f"block_precond [{n},8,8]: rel {rel} > "
-          f"{BLOCK_JACOBI_REL}")
-    ms = graph_ms([lambda r=r: hk.block_precond(r, p_inv, zero)
-                   for r in sets])
-    pms = graph_ms([lambda r=r: hk.block_precond_plain(r, p_inv)
-                    for r in sets])
+    sets = [(rn(n, 8, 8), rn(n, 8, 8)) for _ in range(6)]
     pt = p_inv.T
-    lms = graph_ms([lambda r=r: torch.mm(r.reshape(n, 64), pt)
-                    for r in sets])
-    b = bound(2 * 4 * 64 * n + 4 * 64 * 64, 2 * 64 * 64 * n)
-    res["fused_block_jacobi_update+pinv"].update(
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
-        library_ms=lms)
-    print(f"phase 2 block_precond [{n},8,8] (kernel 8, e = lap = 0): "
-          f"max_abs_err {err} (rel {rel}) kernel_ms {ms} twin_ms {pms} "
-          f"mm_ms {lms} bound_ms {b[0]} ({b[1]})", flush=True)
-    del sets, zero, got, ref
+    forms = (
+        ("fused_block_jacobi_update+pinv", "P_inv r", 2,
+         lambda e, r: hk.block_precond(r, p_inv),
+         lambda e, r: hk.block_precond_form_plain(r, p_inv),
+         lambda e, r: torch.mm(r.reshape(n, 64), pt), "mm"),
+        ("fused_block_jacobi_update+pinv+e", "e + P_inv r", 3,
+         lambda e, r: hk.block_precond(r, p_inv, e),
+         lambda e, r: hk.block_precond_form_plain(r, p_inv, e),
+         lambda e, r: torch.addmm(e.reshape(n, 64), r.reshape(n, 64), pt),
+         "addmm"))
+    for key, form, streams, kern, twin, lib, lib_name in forms:
+        got, ref = kern(*sets[0]), twin(*sets[0])
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        check(rel <= BLOCK_JACOBI_REL, f"block_precond {form} [{n},8,8]: "
+              f"rel {rel} > {BLOCK_JACOBI_REL}")
+        ms = graph_ms([lambda o=o: kern(*o) for o in sets])
+        pms = graph_ms([lambda o=o: twin(*o) for o in sets])
+        lms = graph_ms([lambda o=o: lib(*o) for o in sets])
+        b = bound(streams * 4 * 64 * n + 4 * 64 * 64,
+                  (2 * 64 + streams - 2) * 64 * n)
+        res[key].update(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0],
+                        bound_by=b[1], library_ms=lms)
+        earlier = (f" (earlier design {EARLIER_MS[key]})"
+                   if key in EARLIER_MS else "")
+        print(f"phase 2 block_precond {form} [{n},8,8] (kernel 8, "
+              f"{streams} streams): max_abs_err {err} (rel {rel}) kernel_ms "
+              f"{ms}{earlier} twin_ms {pms} {lib_name}_ms {lms} bound_ms "
+              f"{b[0]} ({b[1]})", flush=True)
+        del got, ref
+    del sets
 
     a, c = rn(n, 8, 8), rn(n, 8, 8)
     e64 = rn(n, 2, 8, 8).double()
@@ -1897,10 +1927,12 @@ def phase_trajectory(dev):
     check(rel <= TRAJ_REL, f"trajectory: card vs CPU {rel} > {TRAJ_REL}")
 
 
-# the forest's kernels: the lab RHS, block-Jacobi (its P_inv r form too)
-# and the group partials
+# the forest's kernels: the lab RHS, block-Jacobi (its preconditioner
+# forms too) and the group partials; phase 5 also counts the E form, which
+# its default runs' two-level steps launch
 FOREST_KEYS = ("fused_lab_rhs", "fused_block_jacobi_update",
                "fused_block_jacobi_update+pinv", "group_sum")
+PINV_E = "fused_block_jacobi_update+pinv+e"
 
 
 def run_forest(sim, label: str) -> dict:
@@ -1929,7 +1961,7 @@ def run_forest(sim, label: str) -> dict:
     sim._refresh()     # the table rebuild the next step would pay
     sync(dev)
     adapt_s = time.perf_counter() - t0
-    launches = {k: hk.launches[k] for k in FOREST_KEYS}
+    launches = {k: hk.launches[k] for k in FOREST_KEYS + (PINV_E,)}
     out = {"mode": sim.poisson_mode, "blocks": n_blocks, "n_pad": n_pad,
            "startup_ms_per_step": sum(times[:10]) / 10 * 1e3,
            "ms_per_step": sum(times[10:]) / 5 * 1e3,
@@ -1953,9 +1985,49 @@ def run_forest(sim, label: str) -> dict:
     return out
 
 
+def run_forest_twolevel(sim, steps: int = 5) -> dict:
+    """The default solver's two-level production steps: one production
+    step from the cold pressure (its solve, > 15 iterations, engages the
+    trigger), then ``steps`` timed ones, each applying the additive M,
+    kernel 8's E form, once a preconditioner application; counts from 0."""
+    dev = sim.device
+    hk.reset_launches()
+    sim.step_count = 10
+    sync(dev)
+    t0 = time.perf_counter()
+    d = sim.step_once()
+    sync(dev)
+    cold = {"ms": (time.perf_counter() - t0) * 1e3,
+            "iters": d["poisson_iters"], "mode_after": sim.poisson_mode}
+    times, iters, cycles = [], [], []
+    for k in range(steps):
+        t0 = time.perf_counter()
+        d = sim.step_once()
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        iters.append(d["poisson_iters"])
+        cycles.append(d["precond_cycles"])
+        check(d["finite"], f"forest two-level: non-finite state at step {k}")
+    launches = {k: hk.launches[k] for k in FOREST_KEYS + (PINV_E,)}
+    out = {"mode": sim.poisson_mode, "blocks": len(sim.forest.blocks),
+           "cold_step": cold, "ms_per_step": sum(times) / steps * 1e3,
+           "iters": iters, "precond_cycles": cycles, "launches": launches}
+    print(f"phase 5 forest default two-level {json.dumps(out)}", flush=True)
+    check(sim.poisson_mode == "bicgstab+twolevel" and cold["iters"] > 15,
+          f"forest two-level: the cold step took {cold['iters']} "
+          f"iterations, mode {sim.poisson_mode}")
+    check(launches[PINV_E] == sum(cycles) > 0
+          and launches["fused_block_jacobi_update"]
+          == launches["fused_block_jacobi_update+pinv"],
+          f"forest two-level: kernel 8 launches {launches} against "
+          f"{sum(cycles)} additive M applications (one E form each)")
+    return out
+
+
 def phase_forest(dev, target=FOREST_TARGET, **kw
                  ) -> tuple[list, dict, tuple]:
-    """Phase 5: the forest main path under both solvers. Returns the runs,
+    """Phase 5: the forest main path under both solvers, and the default
+    solver's two-level production steps. Returns the runs,
     the forest kernels' launch counts summed over them and the adapted
     forest's (config, (blocks, fields)) on the host, phase 15's start."""
     os.environ.pop("CUP2D_POIS", None)
@@ -2008,6 +2080,7 @@ def phase_forest(dev, target=FOREST_TARGET, **kw
         tamr.fused_lab_rhs = lab_rhs
     if torch.device(dev).type == "cuda":
         forest_labs_timing(**seen)
+    runs.append(run_forest_twolevel(fresh()))
     total = {k: sum(r["launches"][k] for r in runs)
              for k in runs[0]["launches"]}
     return runs, total, (cfg, snap)
@@ -3226,7 +3299,8 @@ def phase_periodic_kernels(dev, res, size: int = 8192) -> None:
     xr = torch.randn(size, size, generator=gen, device=dev)
     fft_ms = cuda_ms(lambda: torch.fft.irfft(torch.fft.rfft(xr, dim=-1),
                                              n=size, dim=-1), 10)
-    print(f"phase 13 tridiag_scan {list(bh.shape)}: kernel_ms {ms} twin_ms "
+    print(f"phase 13 tridiag_scan {list(bh.shape)}: kernel_ms {ms} "
+          f"(earlier design {EARLIER_MS['tridiag_scan']}) twin_ms "
           f"{pms} bound_ms {b[0]} ({b[1]}; the Thomas design's own bytes, "
           f"dp written and read back: {b_thomas[0]}); library: none (no "
           f"PyTorch call "
@@ -3901,7 +3975,8 @@ LAG_TURNS = (False, True)
 SUPERVISED_KEYS = ("fused_advect_heun", "fused_lab_rhs", "fused_correction",
                    "fused_jacobi_sweeps", "fused_block_jacobi_update")
 FOREST_TWINS = TWINS + ("fused_lab_rhs_plain", "block_jacobi_plain",
-                        "block_precond_plain", "group_sum_plain")
+                        "block_precond_plain", "block_precond_form_plain",
+                        "group_sum_plain")
 
 
 def _events(out: str) -> list:
@@ -5189,7 +5264,7 @@ def phase_mesh(dev, forest_start: tuple, forest_warm: tuple, card: str
     out["leftovers_s"] = time.perf_counter() - t0
     print(f"phase 17 took (a) {out['forest_s']} s (b) {out['cli_s']} s "
           f"(c) {out['leftovers_s']} s", flush=True)
-    shutil.rmtree(PHASE14_DIR)
+    shutil.rmtree(PHASE14_DIR, ignore_errors=True)
     shutil.rmtree(PHASE17_DIR)
     return out, launches
 
@@ -6253,7 +6328,40 @@ def phase_elastic(dev, forest_warm: tuple, card: str, size: int = 8192
     return out, dict(hk.launches)
 
 
-def main() -> int:
+# phase -> the phases whose results it cannot run without
+PHASE_NEEDS = {13: (2,), 15: (5, 14), 17: (5,), 18: (2,), 19: (5,),
+               20: (5,)}
+PHASES = range(2, 21)
+
+
+def phases_of(argv: list) -> set:
+    """The phases to run: all (no arguments), or ``--phases`` a,b-c with
+    what they need (``PHASE_NEEDS``, transitively)."""
+    ap = argparse.ArgumentParser(description="chip smoke of the port")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases or ranges (2,5,13-15); "
+                    "default: every phase")
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return set(PHASES)
+    want = set()
+    for part in args.phases.split(","):
+        a, _, b = part.partition("-")
+        want.update(range(int(a), int(b or a) + 1))
+    if not want <= set(PHASES) | {1}:
+        ap.error(f"--phases: {sorted(want - set(PHASES) - {1})} are not "
+                 f"phases 1-{PHASES[-1]}")
+    todo = sorted(want)
+    while todo:
+        for k in PHASE_NEEDS.get(todo.pop(), ()):
+            if k not in want:
+                want.add(k)
+                todo.append(k)
+    return want - {1}
+
+
+def main(argv=None) -> int:
+    run = phases_of(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -6264,7 +6372,7 @@ def main() -> int:
     secs = time.perf_counter() - t_start
     card = card_line()
     print(f"phase 1 build {secs} s; card {card}; torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
+          f"cuda {torch.version.cuda}; phases {sorted(run)}", flush=True)
     for stem, log in logs.items():
         fn = ""
         for line in log.splitlines():
@@ -6276,184 +6384,228 @@ def main() -> int:
             elif line.startswith("nvcc "):
                 print(f"phase 1 {stem}.cu: {line}", flush=True)
 
-    t2 = time.perf_counter()
-    res = phase_kernels(dev)
-    phase_halo_kernels(dev, res)
-    phase_bc_kernels(dev, res)
-    t0 = time.perf_counter()
-    phase_bf16_kernels(dev, res)
-    print(f"phase 2 bf16 forms took {time.perf_counter() - t0} s",
-          flush=True)
-    t0 = time.perf_counter()
-    phase_split_bc_kernels(dev, res)
-    print(f"phase 2 split boundary-table forms took "
-          f"{time.perf_counter() - t0} s", flush=True)
-    t0 = time.perf_counter()
-    phase_halo_sweep_levels(dev, res)
-    print(f"phase 2 halo sweep levels took {time.perf_counter() - t0} s",
-          flush=True)
-    print(f"phase 2 took {time.perf_counter() - t2} s", flush=True)
-    t0 = time.perf_counter()
-
-    uniform = ("fused_advect_heun", "fused_correction",
-               "fused_jacobi_sweeps")
-    hk.reset_launches()
-    runs = [run_main_path(dev, p) for p in ("", "fas")]
-    launches = {k: hk.launches[k] for k in uniform}
-    for k, n in launches.items():
-        check(n > 0, f"{k}: launched no time on the uniform main path")
-
-    phase_trajectory(dev)
-    print(f"phases 3-4 took {time.perf_counter() - t0} s", flush=True)
+    launches = {}
+    res = None
+    if 2 in run:
+        t2 = time.perf_counter()
+        res = phase_kernels(dev)
+        phase_halo_kernels(dev, res)
+        phase_bc_kernels(dev, res)
+        t0 = time.perf_counter()
+        phase_bf16_kernels(dev, res)
+        print(f"phase 2 bf16 forms took {time.perf_counter() - t0} s",
+              flush=True)
+        t0 = time.perf_counter()
+        phase_split_bc_kernels(dev, res)
+        print(f"phase 2 split boundary-table forms took "
+              f"{time.perf_counter() - t0} s", flush=True)
+        t0 = time.perf_counter()
+        phase_halo_sweep_levels(dev, res)
+        print(f"phase 2 halo sweep levels took {time.perf_counter() - t0} s",
+              flush=True)
+        print(f"phase 2 took {time.perf_counter() - t2} s", flush=True)
+        # the single-op RHS lies on no path: its launches are phase 2's
+        launches["advect_diffuse_rhs"] = res["advect_diffuse_rhs"][
+            "launches"]
     t0 = time.perf_counter()
 
-    forest_runs, forest_launches, forest_start = phase_forest(dev)
-    for k, n in forest_launches.items():
-        check(n > 0, f"{k}: launched no time on the forest main path")
-    launches.update(forest_launches)
-
-    phase_forest_cpu(dev, "fas")
-    phase_forest_cpu(dev, tol=1e-6, tol_rel=1e-5)
-    print(f"phases 5-6 took {time.perf_counter() - t0} s", flush=True)
+    runs = None
+    if 3 in run:
+        uniform = ("fused_advect_heun", "fused_correction",
+                   "fused_jacobi_sweeps")
+        hk.reset_launches()
+        runs = [run_main_path(dev, p) for p in ("", "fas")]
+        launches.update({k: hk.launches[k] for k in uniform})
+        for k in uniform:
+            check(launches[k] > 0,
+                  f"{k}: launched no time on the uniform main path")
+    if 4 in run:
+        phase_trajectory(dev)
+    if run & {3, 4}:
+        print(f"phases 3-4 took {time.perf_counter() - t0} s", flush=True)
     t0 = time.perf_counter()
 
-    sharded = phase_sharded(dev)
-    for k in ("advect_substage_halo", "jacobi_halo_sweep"):
-        launches[k] = sum(r["sharded"]["launches"][k] for r in sharded)
-        check(launches[k] > 0, f"{k}: launched no time on the split path")
-    # the single-op RHS lies on no path: its launches are phase 2's
-    launches["advect_diffuse_rhs"] = res["advect_diffuse_rhs"]["launches"]
+    forest_runs = forest_start = forest_warm = None
+    if 5 in run:
+        forest_runs, forest_launches, forest_start = phase_forest(dev)
+        for k, n in forest_launches.items():
+            check(n > 0, f"{k}: launched no time on the forest main path")
+        launches.update(forest_launches)
+    if 6 in run:
+        phase_forest_cpu(dev, "fas")
+        phase_forest_cpu(dev, tol=1e-6, tol_rel=1e-5)
+    if run & {5, 6}:
+        print(f"phases 5-6 took {time.perf_counter() - t0} s", flush=True)
 
-    print(f"phase 7 took {time.perf_counter() - t0} s", flush=True)
-    t0 = time.perf_counter()
-    walled, walled_launches = phase_walled(dev)
-    print(f"phase 8 took {time.perf_counter() - t0} s", flush=True)
-    for k, n in walled_launches.items():
-        check(n > 0, f"{k}: launched no time on the wall-bounded path")
-    launches.update(walled_launches)
+    sharded = None
+    if 7 in run:
+        t0 = time.perf_counter()
+        sharded = phase_sharded(dev)
+        for k in ("advect_substage_halo", "jacobi_halo_sweep"):
+            launches[k] = sum(r["sharded"]["launches"][k] for r in sharded)
+            check(launches[k] > 0, f"{k}: launched no time on the split "
+                  "path")
+        print(f"phase 7 took {time.perf_counter() - t0} s", flush=True)
 
-    t0 = time.perf_counter()
-    bf16_runs, bf16_launches = phase_bf16(dev)
-    print(f"phase 9 took {time.perf_counter() - t0} s", flush=True)
-    for k, n in bf16_launches.items():
-        check(n > 0, f"{k}: launched no time on the bf16 main path")
-    launches.update(bf16_launches)
+    side = {}
+    for k_phase, label, fn in (
+            (8, "the wall-bounded path", phase_walled),
+            (9, "the bf16 main path", phase_bf16),
+            (10, "the split wall-bounded path", phase_split_walled)):
+        if k_phase not in run:
+            continue
+        t0 = time.perf_counter()
+        out, got = fn(dev)
+        print(f"phase {k_phase} took {time.perf_counter() - t0} s",
+              flush=True)
+        for k, n in got.items():
+            check(n > 0, f"{k}: launched no time on {label}")
+        launches.update(got)
+        side[k_phase] = out
+    walled, bf16_runs, split_walled = (side.get(k) for k in (8, 9, 10))
 
-    t0 = time.perf_counter()
-    split_walled, split_walled_launches = phase_split_walled(dev)
-    print(f"phase 10 took {time.perf_counter() - t0} s", flush=True)
-    for k, n in split_walled_launches.items():
-        check(n > 0, f"{k}: launched no time on the split wall-bounded "
-              "path")
-    launches.update(split_walled_launches)
+    shaped, shaped_launches = {"kernels": {}}, {}
+    if 11 in run:
+        t0 = time.perf_counter()
+        shaped, shaped_launches = phase_shaped(dev)
+        print(f"phase 11 took {time.perf_counter() - t0} s", flush=True)
+        for k, n in shaped_launches.items():
+            check(n > 0, f"{k}: launched no time on the flagship step")
 
-    t0 = time.perf_counter()
-    shaped, shaped_launches = phase_shaped(dev)
-    print(f"phase 11 took {time.perf_counter() - t0} s", flush=True)
-    for k, n in shaped_launches.items():
-        check(n > 0, f"{k}: launched no time on the flagship step")
+    canon, canon_launches = {"kernels": {}}, {}
+    if 12 in run:
+        t0 = time.perf_counter()
+        canon, canon_launches = phase_canonical(dev)
+        print(f"phase 12 took {time.perf_counter() - t0} s", flush=True)
+        for k, n in canon_launches.items():
+            check(n > 0, f"{k}: launched no time on the canonical forest")
 
-    t0 = time.perf_counter()
-    canon, canon_launches = phase_canonical(dev)
-    print(f"phase 12 took {time.perf_counter() - t0} s", flush=True)
-    for k, n in canon_launches.items():
-        check(n > 0, f"{k}: launched no time on the canonical forest")
-    t0 = time.perf_counter()
-    periodic, periodic_launches = phase_periodic(dev, res)
-    print(f"phase 13 took {time.perf_counter() - t0} s", flush=True)
-    for k, n in periodic_launches.items():
-        check(n > 0, f"{k}: launched no time on the periodic main path")
-    launches.update(periodic_launches)
-    t0 = time.perf_counter()
-    cli, _ = phase_cli(
-        dev, canon["canonical"][0]["production"]["ms_per_step"],
-        shaped["flagship"][0]["production"]["ms_per_step"])
-    print(f"phase 14 took {time.perf_counter() - t0} s", flush=True)
-    t0 = time.perf_counter()
-    forest_warm = warm_forest(dev, forest_start)
-    supervised, sup_launches = phase_supervised(
-        dev, forest_warm, cli["canonical"]["production_ms_per_step"], card)
-    print(f"phase 15 took {time.perf_counter() - t0} s", flush=True)
-    t0 = time.perf_counter()
-    fleet, fleet_launches = phase_fleet(dev, card)
-    print(f"phase 16 took {time.perf_counter() - t0} s", flush=True)
-    t0 = time.perf_counter()
-    mesh_runs, mesh_launches = phase_mesh(dev, forest_start, forest_warm,
-                                          card)
-    print(f"phase 17 took {time.perf_counter() - t0} s", flush=True)
-    for k in FOREST_MESH_KEYS:
-        check(mesh_launches[k] > 0, f"{k}: launched no time on the forest "
-              "mesh path")
-    t0 = time.perf_counter()
-    pd_mesh, pd_launches = phase_periodic_mesh(dev, res, card,
-                                               fleet["curves"])
-    print(f"phase 18 took {time.perf_counter() - t0} s", flush=True)
-    for k in SPLIT_PD_KEYS:
-        check(pd_launches.get(k, 0) > 0, f"{k}: launched no time on the "
-              "split periodic path")
-    launches.update({k: pd_launches[k] for k in SPLIT_PD_KEYS})
-    t0 = time.perf_counter()
-    dist_runs, dist_launches = phase_dist(
-        dev, forest_warm, card, fleet_digests=pd_mesh["fleets"].pop(
-            "digests"))
-    print(f"phase 19 took {time.perf_counter() - t0} s", flush=True)
-    t0 = time.perf_counter()
-    hk.reset_launches()
-    elastic_runs, elastic_launches = phase_elastic(dev, forest_warm, card)
-    print(f"phase 20 took {time.perf_counter() - t0} s", flush=True)
-    for k in ELASTIC_UNIFORM_KEYS + ELASTIC_FOREST_KEYS:
-        check(elastic_launches[k] > 0, f"{k}: launched no time on the "
-              "elastic drills")
+    periodic, periodic_launches = None, {}
+    if 13 in run:
+        t0 = time.perf_counter()
+        periodic, periodic_launches = phase_periodic(dev, res)
+        print(f"phase 13 took {time.perf_counter() - t0} s", flush=True)
+        for k, n in periodic_launches.items():
+            check(n > 0, f"{k}: launched no time on the periodic main path")
+        launches.update(periodic_launches)
+
+    cli = None
+    if 14 in run:
+        t0 = time.perf_counter()
+        cli, _ = phase_cli(
+            dev, canon["canonical"][0]["production"]["ms_per_step"]
+            if 12 in run else None,
+            shaped["flagship"][0]["production"]["ms_per_step"]
+            if 11 in run else None)
+        print(f"phase 14 took {time.perf_counter() - t0} s", flush=True)
+
+    if run & {15, 17, 19, 20}:
+        forest_warm = warm_forest(dev, forest_start)
+    supervised, sup_launches = None, {}
+    if 15 in run:
+        t0 = time.perf_counter()
+        supervised, sup_launches = phase_supervised(
+            dev, forest_warm, cli["canonical"]["production_ms_per_step"],
+            card)
+        print(f"phase 15 took {time.perf_counter() - t0} s", flush=True)
+
+    fleet, fleet_launches = {"curves": {}}, {}
+    if 16 in run:
+        t0 = time.perf_counter()
+        fleet, fleet_launches = phase_fleet(dev, card)
+        print(f"phase 16 took {time.perf_counter() - t0} s", flush=True)
+
+    mesh_runs, mesh_launches = {"forest": {"kernels": {}}}, {}
+    if 17 in run:
+        t0 = time.perf_counter()
+        mesh_runs, mesh_launches = phase_mesh(dev, forest_start,
+                                              forest_warm, card)
+        print(f"phase 17 took {time.perf_counter() - t0} s", flush=True)
+        for k in FOREST_MESH_KEYS:
+            check(mesh_launches[k] > 0, f"{k}: launched no time on the "
+                  "forest mesh path")
+
+    pd_mesh, pd_launches = None, {}
+    if 18 in run:
+        t0 = time.perf_counter()
+        pd_mesh, pd_launches = phase_periodic_mesh(dev, res, card,
+                                                   fleet["curves"])
+        print(f"phase 18 took {time.perf_counter() - t0} s", flush=True)
+        for k in SPLIT_PD_KEYS:
+            check(pd_launches.get(k, 0) > 0, f"{k}: launched no time on "
+                  "the split periodic path")
+        launches.update({k: pd_launches[k] for k in SPLIT_PD_KEYS})
+
+    dist_runs, dist_launches = None, {}
+    if 19 in run:
+        t0 = time.perf_counter()
+        dist_runs, dist_launches = phase_dist(
+            dev, forest_warm, card, fleet_digests=(
+                pd_mesh["fleets"].pop("digests") if 18 in run else None))
+        print(f"phase 19 took {time.perf_counter() - t0} s", flush=True)
+
+    elastic_runs, elastic_launches = None, {}
+    if 20 in run:
+        t0 = time.perf_counter()
+        hk.reset_launches()
+        elastic_runs, elastic_launches = phase_elastic(dev, forest_warm,
+                                                       card)
+        print(f"phase 20 took {time.perf_counter() - t0} s", flush=True)
+        for k in ELASTIC_UNIFORM_KEYS + ELASTIC_FOREST_KEYS:
+            check(elastic_launches[k] > 0, f"{k}: launched no time on the "
+                  "elastic drills")
+    shutil.rmtree(PHASE14_DIR, ignore_errors=True)
     check("jax" not in sys.modules, "the smoke imported jax")
     check("validation" not in sys.modules, "the smoke imported validation")
 
-    kernels = [dict(name=k, route="cuda", source=hk.SOURCES[hk.kernel_of(k)],
-                    replaces=hk.REPLACES[hk.kernel_of(k)],
-                    launches=launches[k],
-                    max_abs_err=res[k]["max_abs_err"], ms=res[k]["ms"],
-                    plain_ms=res[k]["plain_ms"], bound_ms=res[k]["bound_ms"],
-                    bound_by=res[k]["bound_by"],
-                    library_ms=res[k].get("library_ms"),
-                    on_main_path=k != "advect_diffuse_rhs",
-                    flagship_launches=shaped_launches.get(k, 0),
-                    flagship=shaped["kernels"].get(k),
-                    canonical_launches=canon_launches.get(k, 0),
-                    canonical=canon["kernels"].get(k),
-                    periodic_launches=periodic_launches.get(k, 0),
-                    supervised_launches=sup_launches.get(k, 0),
-                    fleet_launches=fleet_launches.get(k, 0),
-                    forest_mesh_launches=mesh_launches.get(k, 0),
-                    forest_mesh=mesh_runs["forest"]["kernels"].get(k),
-                    periodic_mesh_launches=pd_launches.get(k, 0),
-                    dist_launches=dist_launches.get(k, 0),
-                    elastic_launches=elastic_launches.get(k, 0),
-                    **({k2: res[k][k2] for k2 in ("ulps", "fft_ms",
-                                                  "aux_ms")
-                        if k2 in res[k]}))
-               for k in hk.launches]
-    print(f"main path summary: {json.dumps(runs)}")
-    print(f"forest main path summary: {json.dumps(forest_runs)}")
-    print(f"sharded main path summary: {json.dumps(sharded)}")
-    print(f"wall-bounded main path summary: {json.dumps(walled)}")
-    print(f"bf16 main path summary: {json.dumps(bf16_runs)}")
-    print(f"split wall-bounded main path summary: "
-          f"{json.dumps(split_walled)}")
-    print(f"flagship step summary: {json.dumps(shaped)}")
-    print(f"canonical shaped forest summary: {json.dumps(canon)}")
-    print(f"periodic main path summary: {json.dumps(periodic)}")
-    print(f"run driver summary: {json.dumps(cli)}")
-    print(f"supervised runs summary: {json.dumps(supervised)}")
-    print(f"fleet summary: {json.dumps(fleet)}")
-    print(f"forest mesh summary: {json.dumps(mesh_runs)}")
-    print(f"periodic mesh and placed fleets summary: {json.dumps(pd_mesh)}")
-    print(f"multi-process summary: {json.dumps(dist_runs)}")
-    print(f"elastic recovery summary: {json.dumps(elastic_runs)}")
+    for label, summary in (
+            ("main path", runs), ("forest main path", forest_runs),
+            ("sharded main path", sharded),
+            ("wall-bounded main path", walled),
+            ("bf16 main path", bf16_runs),
+            ("split wall-bounded main path", split_walled),
+            ("flagship step", shaped if 11 in run else None),
+            ("canonical shaped forest", canon if 12 in run else None),
+            ("periodic main path", periodic), ("run driver", cli),
+            ("supervised runs", supervised),
+            ("fleet", fleet if 16 in run else None),
+            ("forest mesh", mesh_runs if 17 in run else None),
+            ("periodic mesh and placed fleets", pd_mesh),
+            ("multi-process", dist_runs),
+            ("elastic recovery", elastic_runs)):
+        if summary is not None:
+            print(f"{label} summary: {json.dumps(summary)}")
     print(f"total {time.perf_counter() - t_start} s")
-    print(json.dumps({"kernels": kernels}))
+    if res is not None:
+        kernels = [dict(
+            name=k, route="cuda", source=hk.SOURCES[hk.kernel_of(k)],
+            replaces=hk.REPLACES[hk.kernel_of(k)],
+            launches=launches.get(k),
+            **{k2: res[k].get(k2) for k2 in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            on_main_path=k != "advect_diffuse_rhs",
+            flagship_launches=shaped_launches.get(k, 0),
+            flagship=shaped["kernels"].get(k),
+            canonical_launches=canon_launches.get(k, 0),
+            canonical=canon["kernels"].get(k),
+            periodic_launches=periodic_launches.get(k, 0),
+            supervised_launches=sup_launches.get(k, 0),
+            fleet_launches=fleet_launches.get(k, 0),
+            forest_mesh_launches=mesh_launches.get(k, 0),
+            forest_mesh=mesh_runs["forest"]["kernels"].get(k),
+            periodic_mesh_launches=pd_launches.get(k, 0),
+            dist_launches=dist_launches.get(k, 0),
+            elastic_launches=elastic_launches.get(k, 0),
+            **({k2: res[k][k2] for k2 in ("ulps", "fft_ms", "aux_ms")
+                if k2 in res[k]}))
+            for k in hk.launches]
+        print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()},
+        **({} if run == set(PHASES) else {"phases": sorted(run)})}))
     return 0
 
 

@@ -42,8 +42,10 @@ without a card and without a device it raises. The card runs f32 state
 only. On the card the two forest kernels always run, on the CPU their
 plain twins. ``torch.backends.cuda.matmul.allow_tf32`` is set False on the
 card: the structured operator's strip maps and the DCT base solve are
-full-f32 products in the reference (the block-Jacobi product P_inv r runs
-as kernel 8, ``hopper_kernels.block_precond``, in f32). Every full
+full-f32 products in the reference (the block-Jacobi product P_inv r,
+with the two-level forms' sums around it, runs as kernel 8,
+``hopper_kernels.block_precond``, in f32: one launch a shard and
+application). Every full
 reduction over the ordered blocks is ``shard_halo.block_sum`` (16-block
 group partials, ``group_sum.cu`` on the card), in one order whether the
 forest is split over a mesh or not.
@@ -247,8 +249,6 @@ class AMRSim(ShapeHostMixin):
         self.time = 0.0
         self.step_count = 0
         self.p_inv = self._tensor(block_precond_matrix(cfg.bs))
-        # (key, zero operand) of _precond's kernel-8 call
-        self._pinv_zero = None
         # f32 fields take their Krylov dot products in f64
         self.sum_dtype = (torch.float64 if self.dtype == torch.float32
                           else None)
@@ -689,7 +689,7 @@ class AMRSim(ShapeHostMixin):
                     rc = _deposit(r * cih2)
                     ec = coarse_neumann_solve_dct(
                         rc, dctops, self._coarse_h2)
-                    return _interp(ec, r) + self._precond(r)
+                    return self._precond(r, _interp(ec, r))
             elif form == "mg2":
                 def M(r):
                     e = self._precond(r)
@@ -698,14 +698,14 @@ class AMRSim(ShapeHostMixin):
                     ec = coarse_neumann_solve_dct(
                         rc, dctops, self._coarse_h2)
                     e = e + _interp(ec, r)
-                    return e + self._precond(r - A(e))
+                    return self._precond(r, e, A(e))
             else:
                 def M(r):
                     rc = _deposit(r * cih2)
                     ec = coarse_neumann_solve_dct(
                         rc, dctops, self._coarse_h2)
                     e = _interp(ec, r)
-                    return e + self._precond(r - A(e))
+                    return self._precond(r, e, A(e))
 
         if self._pois_mode in ("fas", "fas-f") and not exact_poisson:
             # the forest FAS hierarchy as the production solver;
@@ -883,18 +883,19 @@ class AMRSim(ShapeHostMixin):
 
         return paint_fine, base_solve, extract_all
 
-    def _precond(self, r):
-        """z = P_inv r per block, on the device (each shard's rows on its
-        own) where r lives: ``hopper_kernels.block_precond``, kernel 8
-        with e = lap = 0: on the card its f32 FMA chain, a row's bits
-        whatever the rows of the call; on the CPU its twin's fixed-shape
-        products. The card runs f32 forests only (``AMRSim`` refuses f64
-        there), which the kernel takes; f64 runs on the CPU, through the
-        twin. The zero operand is kept from call to call."""
-        key = (tuple(r.shape), r.dtype, getattr(r, "mesh", r.device))
-        if self._pinv_zero is None or self._pinv_zero[0] != key:
-            self._pinv_zero = (key, torch.zeros_like(r))
-        return per_shard(block_precond, r, self.p_inv, self._pinv_zero[1])
+    def _precond(self, r, e=None, lap=None):
+        """The block-Jacobi preconditioner per block, on the device (each
+        shard's rows on its own) where r lives, as ONE launch of
+        ``hopper_kernels.block_precond`` a shard: P_inv r, e + P_inv r
+        (the additive two-level form, e its coarse correction) or
+        e + P_inv (r - lap) (the mg2 and multiplicative tails, lap = A e).
+        On the card kernel 8's f32 FMA chain, a row's bits whatever the
+        rows of the call; on the CPU its twin's fixed-shape products.
+        Either way the product is added to 0 before e, the bits of the
+        P_inv r and separate sums these forms replace. The card runs f32
+        forests only (``AMRSim`` refuses f64 there), which the kernel
+        takes; f64 runs on the CPU, through the twin."""
+        return per_shard(block_precond, r, self.p_inv, e, lap)
 
     def _fas_block_smoother(self, A, tpois=None):
         """Composite-level smoother of the forest FAS cycle: damped

@@ -2,14 +2,18 @@
 on the card: bit for bit, and in time.
 
     python -m cup2d_tpu_torch.kernel_ab --other DIR [--out FILE]
+        [--only precond,tridiag,...]
 
 ``DIR`` is a ``csrc`` directory of an earlier tree (for instance the
 ``cup2d_tpu_torch/ops/csrc`` of ``git archive <commit>`` unpacked under
 ``build/``) that holds ``jacobi.cu``, ``block_jacobi.cu``,
 ``advect_heun.cu``, ``advect_heun_halo.cu``, ``lab_rhs.cu``,
-``advect_rhs.cu``, ``correction.cu`` and ``jacobi_halo.cu`` with their
-headers. Each earlier C entry point takes
-today's arguments (it then runs behind today's wrapper) or, for the two
+``advect_rhs.cu``, ``correction.cu``, ``jacobi_halo.cu`` and
+``tridiag.cu`` with their headers (``--only`` runs the comparisons it
+names, ``SECTIONS``, and builds only their sources). Each earlier C entry
+point takes
+today's arguments (it then runs behind today's wrapper; kernel 8 on the
+earlier launch plan, ``other_block_jacobi``) or, for the two
 substage kernels and the single-op RHS, those of their per-cell design,
 without a launch plan (``_LEGACY``): ``cup2d_advect_substage(v, vold,
 out, facs, L, ny, nx, cfac, ih2, stream)``,
@@ -19,7 +23,13 @@ ny, nx, stream)``. Both builds run on the same operands:
 
 1. bit for bit: every chain of the 8192^2 V-cycle hierarchy, the test
    shapes (ragged tiles, member stacks, rows that are not whole 16-byte
-   words) and the block-Jacobi update at 1, 33 and 16384 blocks; both
+   words); the block-Jacobi update at 1, 33 and 16384 blocks, and this
+   tree's preconditioner forms of kernel 8 (P_inv r, e + P_inv r and
+   e + P_inv (r - lap)) against the compositions they replace, built
+   from the earlier kernel 8 with zero operands and torch sums, on
+   normal operands and on a set whose products round to -0; the Thomas
+   scans (``tridiag.cu``) on the card tests' ragged shapes and the
+   periodic channel's [1, 8192, 4097]; both
    substages (vold absent and given) of the solo kernel on the 8192^2
    benchmark state, a member stack, ragged shapes and adversarial winds
    (``wind_field``), and of the halo kernel under the four wall
@@ -41,8 +51,12 @@ ny, nx, stream)``. Both builds run on the same operands:
    ragged slabs, from e and from zero. The largest distance in ulp must
    be 0;
 2. time, in turns (earlier, this, this, earlier) within the one process:
-   device time from graph replays of each V-cycle chain per level, of the
-   block-Jacobi update at 16384 blocks over 6 operand sets, and of each
+   device time from graph replays of each V-cycle chain per level, of
+   kernel 8 at 16384 blocks over 6 operand sets (the update form and the
+   three preconditioner forms against the compositions they replace,
+   with one ``torch.mm``/``addmm`` of the same function as a yardstick,
+   and each form of this tree against its persistent grid, 1 to 6 CTAs
+   per SM), of the Thomas scans at [1, 8192, 4097], and of each
    substage at the main paths' shapes (8192^2 solo, and 4 slabs of
    8192 x 2048 for the halo kernel), of the correction on 8192^2, of the
    solo BC pair (cavity) and bf16 pair on 8192^2, of one halo sweep on
@@ -103,7 +117,17 @@ _LEGACY = {"advect_heun": ("cup2d_advect_substage",
                                  _I, _I, _P]),
            "advect_rhs": ("cup2d_advect_rhs", [_P, _P, _P, _I, _I, _I, _P])}
 _STEMS = ("jacobi", "block_jacobi", "advect_heun", "advect_heun_halo",
-          "lab_rhs", "advect_rhs", "correction", "jacobi_halo")
+          "lab_rhs", "advect_rhs", "correction", "jacobi_halo", "tridiag")
+# the comparisons ``--only`` selects, and the earlier sources each builds
+SECTIONS = {"substage": ("advect_heun", "advect_heun_halo"),
+            "rhs": ("lab_rhs", "advect_rhs"),
+            "sweeps": ("jacobi",),
+            "correction": ("correction",),
+            "forms": ("advect_heun", "advect_heun_halo", "jacobi",
+                      "jacobi_halo", "correction"),
+            "halo": ("jacobi_halo",),
+            "precond": ("block_jacobi",),
+            "tridiag": ("tridiag",)}
 
 WIND_PATTERNS = ("normal", "random_sign", "zeros", "positive", "negative",
                  "checker")
@@ -141,15 +165,15 @@ def _arity(src: str, name: str) -> int:
     return decl[:decl.index(")")].count(",") + 1
 
 
-def build_other(csrc: Path) -> tuple[dict, set]:
-    """Compile the earlier sources (one nvcc each, together) and return
-    their loaded C entry points (and those of the boundary-table and bf16
-    forms they define, under their ``hopper_kernels._FORM_ENTRIES`` keys)
-    and the stems whose entry point takes today's arguments (the others
-    take ``_LEGACY``'s)."""
+def build_other(csrc: Path, stems=_STEMS) -> tuple[dict, set]:
+    """Compile the earlier sources of ``stems`` (one nvcc each, together)
+    and return their loaded C entry points (and those of the
+    boundary-table and bf16 forms they define, under their
+    ``hopper_kernels._FORM_ENTRIES`` keys) and the stems whose entry point
+    takes today's arguments (the others take ``_LEGACY``'s)."""
     hk.build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
-    for stem in _STEMS:
+    for stem in stems:
         src = csrc / f"{stem}.cu"
         tag = hashlib.sha256(src.read_bytes() + b"".join(
             h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
@@ -196,7 +220,10 @@ def _stream() -> int:
 def earlier(fns, current, stem, wrapper, legacy=None):
     """The earlier build of ``stem`` behind ``wrapper``'s interface: the
     wrapper itself routed to it where its C interface is today's, else
-    ``legacy(fns)``, a wrapper of the ``_LEGACY`` interface."""
+    ``legacy(fns)``, a wrapper of the ``_LEGACY`` interface; None where
+    the earlier source was not built."""
+    if stem not in fns:
+        return None
     if stem not in current:
         return legacy(fns)
 
@@ -252,6 +279,29 @@ def other_substage_halo(fns):
     return substage
 
 
+# the launch plan of the earlier (CTA-tile) block-Jacobi design: two
+# persistent CTAs per SM over 32-block tiles (it runs with its own plan,
+# as its wrapper launched it)
+EARLIER_BLOCK_JACOBI_CTAS_PER_SM = 2
+
+
+def other_block_jacobi(fns):
+    """The earlier kernel 8 (update form) behind
+    ``fused_block_jacobi_update``'s interface, on its own launch plan."""
+    def update(e, r, lap, p_inv):
+        n = e.shape[0]
+        out = torch.empty_like(e)
+        sms = torch.cuda.get_device_properties(e.device).multi_processor_count
+        grid = min(-(-n // 32), EARLIER_BLOCK_JACOBI_CTAS_PER_SM * sms)
+        rc = fns["block_jacobi"](p_inv.data_ptr(), e.data_ptr(), r.data_ptr(),
+                                 lap.data_ptr(), out.data_ptr(), n, grid,
+                                 _stream())
+        if rc:
+            raise RuntimeError(f"earlier block_jacobi launch failed: {rc}")
+        return out
+    return update
+
+
 def other_advect_rhs(fns):
     """The earlier single-op RHS behind ``advect_diffuse_rhs``'s
     interface."""
@@ -286,7 +336,7 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
                 - b.view(torch.int32).long()).abs().max())
 
 
-def bit_checks(sweeps_o, bj_o, dev) -> list[dict]:
+def bit_checks(sweeps_o, dev) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = []
     shapes = [((1, s, s), n, fz) for s, chains in vcycle_chains(8192)
@@ -303,15 +353,59 @@ def bit_checks(sweeps_o, bj_o, dev) -> list[dict]:
         rows.append({"kernel": "fused_jacobi_sweeps", "shape": list(shape),
                      "n": n, "from_zero": fz, "ulps": u})
         del e, r
-    p = torch.tensor(block_precond_matrix(8), dtype=torch.float32,
-                     device=dev)
+    return rows
+
+
+def _pinv(dev) -> torch.Tensor:
+    return torch.tensor(block_precond_matrix(8), dtype=torch.float32,
+                        device=dev)
+
+
+def signed_zero_blocks(n: int, p: torch.Tensor) -> tuple:
+    """(e, r, lap) at n blocks whose P_inv r product is -0 in row b % 64
+    of block b: r_k = -sign(P_ik) times the least subnormal where that
+    product underflows (|P_ik| < 0.5), else -0 times sign(P_ik), so every
+    term of the chain rounds to -0; e = -0 and lap = 0. Where a form adds
+    the product to e without adding it to 0 first, -0 + -0 stays -0."""
+    tiny = torch.tensor(1.4e-45, device=p.device)
+    rows = p[torch.arange(n, device=p.device) % 64]          # [n, 64]
+    r = torch.where(rows.abs() < 0.5, -torch.sign(rows) * tiny,
+                    -torch.copysign(torch.zeros_like(rows), rows))
+    return (torch.full((n, 8, 8), -0.0, device=p.device),
+            r.reshape(n, 8, 8).contiguous(),
+            torch.zeros(n, 8, 8, device=p.device))
+
+
+def precond_bit_checks(bj_o, dev) -> list[dict]:
+    """Kernel 8 at 1, 33 and 16384 blocks, on standard normal operands and
+    on ``signed_zero_blocks``: the update form against its earlier build,
+    and this tree's three preconditioner forms (``block_precond``) against
+    the compositions they replace, built from the earlier build: kernel 8
+    with e = lap = 0 on r (or on r - lap), then e + z in torch."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p = _pinv(dev)
+
+    def composed(r, e=None, lap=None):
+        d = r if lap is None else r - lap
+        zero = torch.zeros_like(d)
+        z = bj_o(zero, d, zero, p)
+        return z if e is None else e + z
+
+    rows = []
     for nb in (1, 33, 16384):
-        e, r, lap = (torch.randn(nb, 8, 8, generator=gen, device=dev)
-                     for _ in range(3))
-        u = ulps(hk.fused_block_jacobi_update(e, r, lap, p),
-                 bj_o(e, r, lap, p))
-        rows.append({"kernel": "fused_block_jacobi_update", "blocks": nb,
-                     "ulps": u})
+        sets = {"normal": tuple(torch.randn(nb, 8, 8, generator=gen,
+                                            device=dev) for _ in range(3)),
+                "signed_zero": signed_zero_blocks(nb, p)}
+        for kind, (e, r, lap) in sets.items():
+            u = ulps(hk.fused_block_jacobi_update(e, r, lap, p),
+                     bj_o(e, r, lap, p))
+            rows.append({"kernel": "fused_block_jacobi_update",
+                         "blocks": nb, "operands": kind, "ulps": u})
+            for form, args in (("P_inv r", ()), ("e + P_inv r", (e,)),
+                               ("e + P_inv (r - lap)", (e, lap))):
+                u = ulps(hk.block_precond(r, p, *args), composed(r, *args))
+                rows.append({"kernel": "block_precond", "form": form,
+                             "blocks": nb, "operands": kind, "ulps": u})
     return rows
 
 
@@ -872,15 +966,132 @@ def substage_times(sub_o, halo_o, dev, size: int = 8192,
 
 
 def block_jacobi_times(bj_o, dev, n: int = 16384) -> dict:
+    """Device ms of kernel 8 at n blocks over 6 operand sets (graph
+    replays), in turns (earlier, this, library, library, this, earlier):
+    the update form against its earlier build, and each preconditioner
+    form of ``block_precond`` against the composition it replaces
+    (earlier kernel 8 with zero operands; for e + P_inv r a torch add
+    after it; for the tail a torch difference before and an add after);
+    the library: one ``torch.mm``/``torch.addmm`` of the same function
+    (TF32 off), timed beside them and used nowhere in the port."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(4)
-    p = torch.tensor(block_precond_matrix(8), dtype=torch.float32,
-                     device=dev)
+    p = _pinv(dev)
+    pt = p.T
     sets = [tuple(torch.randn(n, 8, 8, generator=gen, device=dev)
                   for _ in range(3)) for _ in range(6)]
+    zero = torch.zeros(n, 8, 8, device=dev)
+
+    def flat(t):
+        return t.reshape(n, 64)
+
+    arms = {
+        "update": (lambda e, r, lap: bj_o(e, r, lap, p),
+                   lambda e, r, lap: hk.fused_block_jacobi_update(
+                       e, r, lap, p),
+                   lambda e, r, lap: torch.addmm(flat(e), flat(r)
+                                                 - flat(lap), pt)),
+        "P_inv r": (lambda e, r, lap: bj_o(zero, r, zero, p),
+                    lambda e, r, lap: hk.block_precond(r, p),
+                    lambda e, r, lap: torch.mm(flat(r), pt)),
+        "e + P_inv r": (lambda e, r, lap: e + bj_o(zero, r, zero, p),
+                        lambda e, r, lap: hk.block_precond(r, p, e),
+                        lambda e, r, lap: torch.addmm(flat(e), flat(r),
+                                                      pt)),
+        "e + P_inv (r - lap)": (
+            lambda e, r, lap: e + bj_o(zero, r - lap, zero, p),
+            lambda e, r, lap: hk.block_precond(r, p, e, lap),
+            lambda e, r, lap: torch.addmm(flat(e), flat(r) - flat(lap),
+                                          pt))}
+    out = {k: {"earlier": [], "this": [], "library": []} for k in arms}
+    for who in ("earlier", "this", "library", "library", "this", "earlier"):
+        k_who = ("earlier", "this", "library").index(who)
+        for k, fns in arms.items():
+            fn = fns[k_who]
+            out[k][who].append(graph_ms([lambda o=o: fn(*o) for o in sets]))
+    return out
+
+
+def block_jacobi_grid_times(dev, n: int = 16384) -> list[dict]:
+    """Device ms of each kernel-8 form of this tree at n blocks against
+    the grid, 1 to 6 CTAs per SM (one CTA per ``BLOCK_JACOBI_TILE``
+    blocks at most): the evidence for
+    ``hopper_kernels.BLOCK_JACOBI_CTAS_PER_SM``."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    p = _pinv(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sets = [tuple(torch.randn(n, 8, 8, generator=gen, device=dev)
+                  for _ in range(3)) for _ in range(6)]
+    out = torch.empty(n, 8, 8, device=dev)
+    hk.build()
+    rows = []
+    for operands, form in ((1, "P_inv r"), (2, "e + P_inv r"),
+                           (3, "update")):
+        for c in range(1, 7):
+            grid = min(-(-n // hk.BLOCK_JACOBI_TILE), c * sms)
+
+            def call(e, r, lap, grid=grid, operands=operands):
+                key = "block_jacobi" if operands == 3 else "block_jacobi+pinv"
+                hk._launch(key, dev, p.data_ptr(),
+                           e.data_ptr() if operands > 1 else None,
+                           r.data_ptr(),
+                           lap.data_ptr() if operands > 2 else None,
+                           out.data_ptr(), n, grid)
+            rows.append({"block_jacobi_grid": form, "ctas_per_sm": c,
+                         "grid": grid,
+                         "plan": grid == hk.block_jacobi_grid(n, sms),
+                         "ms": graph_ms([lambda o=o: call(*o)
+                                         for o in sets])})
+    return rows
+
+
+def tridiag_operands(L: int, n_s: int, nk: int, seed: int, dev) -> tuple:
+    """b [L, n_s, nk] complex64 standard normal and the coefficients of a
+    diagonally dominant system (|cp| < 1), as tests/test_torch_cuda.py
+    builds them."""
+    rng = np.random.default_rng(seed)
+    b = torch.tensor(rng.standard_normal((L, n_s, nk))
+                     + 1j * rng.standard_normal((L, n_s, nk)),
+                     dtype=torch.complex64, device=dev)
+    d = -2.0 - 2.0 * rng.random((n_s, nk))
+    cp, idn = np.empty((n_s, nk)), np.empty((n_s, nk))
+    idn[0], cp[0] = 1.0 / d[0], 1.0 / d[0]
+    for j in range(1, n_s):
+        idn[j] = 1.0 / (d[j] - cp[j - 1])
+        cp[j] = idn[j]
+    cp[-1] = 0.0
+    return (b, torch.tensor(idn, dtype=torch.float32, device=dev),
+            torch.tensor(cp, dtype=torch.float32, device=dev))
+
+
+# the card tests' shapes (ragged mode groups and row tiles) and the
+# periodic channel's plan at 8192^2
+TRIDIAG_SHAPES = ((1, 64, 33), (3, 37, 20), (2, 9, 1), (1, 1024, 513),
+                  (1, 70, 33), (2, 129, 65), (1, 8192, 4097))
+
+
+def tridiag_bit_checks(tri_o, dev) -> list[dict]:
+    """``tridiag.cu`` against its earlier build on ``TRIDIAG_SHAPES``."""
+    rows = []
+    for k, shape in enumerate(TRIDIAG_SHAPES):
+        b, idn, cp = tridiag_operands(*shape, 60 + k, dev)
+        u = ulps(torch.view_as_real(hk.tridiag_scan(b, idn, cp)),
+                 torch.view_as_real(tri_o(b, idn, cp)))
+        rows.append({"kernel": "tridiag_scan", "shape": list(shape),
+                     "ulps": u})
+    return rows
+
+
+def tridiag_times(tri_o, dev, shape=(1, 8192, 4097)) -> dict:
+    """Device ms of one scan at the periodic channel's [1, 8192, 4097] in
+    turns (earlier, this, this, earlier), graph replays over 2 operand
+    sets (each 268 MB of b, beyond the L2)."""
+    ops = [tridiag_operands(*shape, 70 + k, dev) for k in range(2)]
     out = {"earlier": [], "this": []}
     for who in ("earlier", "this", "this", "earlier"):
-        fn = bj_o if who == "earlier" else hk.fused_block_jacobi_update
-        out[who].append(graph_ms([lambda o=o: fn(*o, p) for o in sets]))
+        fn = tri_o if who == "earlier" else hk.tridiag_scan
+        out[who].append(graph_ms([lambda o=o: fn(*o) for o in ops],
+                                 reps=4))
     return out
 
 
@@ -890,16 +1101,23 @@ def main(argv=None) -> int:
                     help="csrc directory of the earlier design")
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the JSON lines to this file")
+    ap.add_argument("--only", default=",".join(SECTIONS),
+                    help="comma-separated comparisons to run (default: "
+                    "all): " + ", ".join(SECTIONS))
     args = ap.parse_args(argv)
+    want = args.only.split(",")
+    unknown = sorted(set(want) - set(SECTIONS))
+    if unknown:
+        ap.error(f"--only: unknown {unknown}; choose from {list(SECTIONS)}")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     hk.build()
-    fns, current = build_other(args.other)
+    stems = [t for t in _STEMS if any(t in SECTIONS[w] for w in want)]
+    fns, current = build_other(args.other, stems)
     sweeps_o = earlier(fns, current, "jacobi", hk.fused_jacobi_sweeps)
-    bj_o = earlier(fns, current, "block_jacobi",
-                   hk.fused_block_jacobi_update)
+    bj_o = other_block_jacobi(fns) if "block_jacobi" in fns else None
     sub_o = earlier(fns, current, "advect_heun", hk.advect_substage,
                     other_substage)
     halo_o = earlier(fns, current, "advect_heun_halo",
@@ -907,6 +1125,7 @@ def main(argv=None) -> int:
     corr_o = earlier(fns, current, "correction", hk.fused_correction)
     rhs_o = earlier(fns, current, "advect_rhs", hk.advect_diffuse_rhs,
                     other_advect_rhs)
+    tri_o = earlier(fns, current, "tridiag", hk.tridiag_scan)
     lines = []
 
     def emit(obj):
@@ -914,67 +1133,86 @@ def main(argv=None) -> int:
         lines.append(line)
         print(line, flush=True)
 
-    bits = (substage_bit_checks(sub_o, halo_o, dev)
-            + rhs_bit_checks(fns, rhs_o, dev)
-            + bit_checks(sweeps_o, bj_o, dev)
-            + correction_bit_checks(corr_o, dev)
-            + form_bit_checks(fns, current, dev)
-            + halo_slab_checks(fns, current, dev))
+    checks = {"substage": lambda: substage_bit_checks(sub_o, halo_o, dev),
+              "rhs": lambda: rhs_bit_checks(fns, rhs_o, dev),
+              "sweeps": lambda: bit_checks(sweeps_o, dev),
+              "precond": lambda: precond_bit_checks(bj_o, dev),
+              "correction": lambda: correction_bit_checks(corr_o, dev),
+              "forms": lambda: form_bit_checks(fns, current, dev),
+              "halo": lambda: halo_slab_checks(fns, current, dev),
+              "tridiag": lambda: tridiag_bit_checks(tri_o, dev)}
+    bits = [row for k, run in checks.items() if k in want for row in run()]
     for row in bits:
         emit({"bits": row})
     worst = max(row["ulps"] for row in bits)
-    tables = {"earlier": [], "this": []}
-    for who in ("earlier", "this", "this", "earlier"):
-        fn = sweeps_o if who == "earlier" else hk.fused_jacobi_sweeps
-        tables[who].append(sweep_level_table(fn, dev))
-    for k, (size, _) in enumerate(vcycle_chains(8192)):
-        emit({"level": size,
-              "earlier_ms": [t[k]["ms"] for t in tables["earlier"]],
-              "this_ms": [t[k]["ms"] for t in tables["this"]],
-              "bound_ms": tables["this"][0][k]["bound_ms"],
-              "launches": tables["this"][0][k]["launches"],
-              "chains": {who: [[c["ms"] for c in t[k]["chains"]]
-                               for t in tables[who]] for who in tables}})
-    bj = block_jacobi_times(bj_o, dev)
-    emit({"block_jacobi_16384_ms": bj})
-    sub = substage_times(sub_o, halo_o, dev)
-    for k, row in sub.items():
-        emit({"substage": k, **row})
-    corr = correction_times(corr_o, dev)
-    emit({"correction_8192_ms": corr})
-    forms = bc_form_times(dev)
-    for k, row in forms.items():
-        emit({"bc_form": k, **row})
-    earlier_forms = form_times(fns, current, dev)
-    for k, row in earlier_forms.items():
-        emit({"form": k, **row})
-    halo = halo_slab_times(fns, current, dev)
-    for row in halo:
-        emit(row)
-    lab = lab_rhs_times(fns, dev)
-    for n, row in lab.items():
-        emit({"lab_rhs_blocks": n, **row})
-    rhs = advect_rhs_times(rhs_o, dev)
-    for k, row in rhs.items():
-        emit({"advect_rhs_lab": k, **row})
-    emit({"summary": {
-        "card": torch.cuda.get_device_name(0), "worst_ulps": worst,
-        "substage_pair_ms": {
+    summary = {"card": torch.cuda.get_device_name(0), "worst_ulps": worst,
+               "operand_sets": len(bits)}
+    if "sweeps" in want:
+        tables = {"earlier": [], "this": []}
+        for who in ("earlier", "this", "this", "earlier"):
+            fn = sweeps_o if who == "earlier" else hk.fused_jacobi_sweeps
+            tables[who].append(sweep_level_table(fn, dev))
+        for k, (size, _) in enumerate(vcycle_chains(8192)):
+            emit({"level": size,
+                  "earlier_ms": [t[k]["ms"] for t in tables["earlier"]],
+                  "this_ms": [t[k]["ms"] for t in tables["this"]],
+                  "bound_ms": tables["this"][0][k]["bound_ms"],
+                  "launches": tables["this"][0][k]["launches"],
+                  "chains": {who: [[c["ms"] for c in t[k]["chains"]]
+                                   for t in tables[who]]
+                             for who in tables}})
+        summary["cycle_ms"] = {who: [sum(r["ms"] for r in t)
+                                     for t in tables[who]]
+                               for who in tables}
+        summary["cycle_bound_ms"] = sum(r["bound_ms"]
+                                        for r in tables["this"][0])
+    if "precond" in want:
+        bj = block_jacobi_times(bj_o, dev)
+        for form, row in bj.items():
+            emit({"block_jacobi_16384_ms": form, **row})
+        for row in block_jacobi_grid_times(dev):
+            emit(row)
+        summary["block_jacobi_16384_ms"] = bj
+    if "substage" in want:
+        sub = substage_times(sub_o, halo_o, dev)
+        for k, row in sub.items():
+            emit({"substage": k, **row})
+        summary["substage_pair_ms"] = {
             mode: {who: [a + b for a, b in zip(
                 sub[f"{mode}_first"][who], sub[f"{mode}_second"][who])]
-                for who in ("earlier", "this")} for mode in ("solo", "halo")},
-        "cycle_ms": {who: [sum(r["ms"] for r in t) for t in tables[who]]
-                     for who in tables},
-        "correction_ms": corr,
-        "bc_form_ms": forms,
-        "form_ms": earlier_forms,
-        "halo_sweep_finest_ms": {
+                for who in ("earlier", "this")} for mode in ("solo", "halo")}
+    if "correction" in want:
+        corr = correction_times(corr_o, dev)
+        emit({"correction_8192_ms": corr})
+        summary["correction_ms"] = corr
+    if "forms" in want:
+        forms = bc_form_times(dev)
+        for k, row in forms.items():
+            emit({"bc_form": k, **row})
+        earlier_forms = form_times(fns, current, dev)
+        for k, row in earlier_forms.items():
+            emit({"form": k, **row})
+        summary.update(bc_form_ms=forms, form_ms=earlier_forms)
+    if "halo" in want:
+        halo = halo_slab_times(fns, current, dev)
+        for row in halo:
+            emit(row)
+        summary["halo_sweep_finest_ms"] = {
             row["halo_sweep"]: {who: row[who] for who in ("earlier", "this")}
-            for row in halo if row["level"] == 8192},
-        "lab_rhs_ms": lab,
-        "advect_rhs_ms": rhs,
-        "operand_sets": len(bits),
-        "cycle_bound_ms": sum(r["bound_ms"] for r in tables["this"][0])}})
+            for row in halo if row["level"] == 8192}
+    if "rhs" in want:
+        lab = lab_rhs_times(fns, dev)
+        for n, row in lab.items():
+            emit({"lab_rhs_blocks": n, **row})
+        rhs = advect_rhs_times(rhs_o, dev)
+        for k, row in rhs.items():
+            emit({"advect_rhs_lab": k, **row})
+        summary.update(lab_rhs_ms=lab, advect_rhs_ms=rhs)
+    if "tridiag" in want:
+        tri = tridiag_times(tri_o, dev)
+        emit({"tridiag_8192_ms": tri})
+        summary["tridiag_ms"] = tri
+    emit({"summary": summary})
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("\n".join(lines) + "\n")

@@ -1,35 +1,56 @@
-// One sweep of the forest's damped block-Jacobi smoother, after the
-// operator has been applied:
-//   out[n, i] = e[n, i] + sum_k (r[n, k] - lap[n, k]) * P_inv[i, k]
-// over [N, 64] f32 block stacks (BS 8), P_inv a 64 x 64 f32 matrix.
+// The forest's block-Jacobi preconditioner and smoother, P_inv a 64 x 64
+// f32 matrix over [N, 64] f32 block stacks (BS 8), in three forms that
+// stream only the operands they have (d = r, or d = r - lap):
+//   P form       out[n, i] = 0 + sum_k r[n, k] * P_inv[i, k]
+//   E form       out[n, i] = e[n, i] + (0 + sum_k r[n, k] * P_inv[i, k])
+//   update form  out[n, i] = e[n, i] + sum_k (r - lap)[n, k] * P_inv[i, k]
+// The update form is one sweep of the damped block-Jacobi smoother after
+// the operator has been applied; a preconditioner's update (the two-level
+// forms' tails) adds 0 to the product first, as the P form does.
 //
 // Replaces: cup2d_tpu/ops/pallas_kernels.py _block_jacobi_kernel (reached
-// from fused_block_jacobi_update), f32.
+// from fused_block_jacobi_update), f32; the P and E forms are its
+// function with e = lap = 0 and with lap = 0 (the JAX package's
+// apply_block_precond_blocks and the sums around it).
 //
-// Bound on this card: per block 3 x 256 bytes read and 256 written against
-// 64 x (2 x 64 + 2) operations, about 8 per byte, under the H100's f32
-// balance point (~20 per byte): memory bounds it. At N = 16384 the product
-// is 134 MFLOP, ~2 us of f32 FMA peak, under the ~5 us byte bound.
+// Bound on this card: per block 256 bytes read for each operand and 256
+// written (2 streams in the P form, 3 in the E form, 4 in the update
+// form) against 64 x (2 x 64 + 2) operations, 4 to 8 per byte, under the
+// H100's f32 balance point (~20 per byte): memory bounds it. At N = 16384
+// the product is 134 MFLOP, ~2 us of f32 FMA peak, under the 2.5-5 us
+// byte bounds.
 //
 // Design:
-// - CUDA cores, not tensor cores: the product is below the byte bound
-//   already, and TF32 would break the f32 contract (the Pallas kernel
-//   runs the MXU at full f32; the twin bar assumes f32 products).
-// - Persistent CTAs, two per SM (the caller sizes the grid; at N = 16384
-//   each walks two tiles, so one tile's copies overlap the other's
-//   products): each stages P_inv once, transposed (pt[k][i], row pitch 68
-//   words: 16-byte rows for the float4 reads, at most 4-way conflicts in
-//   the one-off staging), while its first tile is in flight, then walks
-//   tiles of TB = 32 consecutive blocks.
-// - A tile of e, r and lap is one contiguous 8 KB span each,
-//   brought in by 16-byte cp.async into a two-stage ring: the next tile's
-//   copies are in flight during this tile's products.
-// - Register tiling: each thread owns 4 blocks x 4 rows of P_inv (16
-//   outputs); one k-quad costs 4 float4 reads of d and 4 of pt for 64
-//   FMAs, and the outputs leave as float4 stores.
-// - Each output is one f32 FMA chain, k in order from 0, then e + z, as
-//   in the first, one-element-per-thread design: no atomics, so the
-//   result is the same bit for bit from run to run and between designs.
+// - CUDA cores, not tensor cores: TF32 would break the f32 contract (the
+//   Pallas kernel runs the MXU at full f32; the twin bar assumes f32
+//   products).
+// - CTAs of WARPS warps, a few per SM (the caller's grid; a CTA walks
+//   more rounds where the grid is smaller). Each CTA copies P_inv once
+//   into shared memory by 16-byte cp.async, row-major with each row's
+//   float4 slots XOR-swizzled by its row quad, so that the product's
+//   reads of four rows at one k-quad take the least wavefronts (two for
+//   a warp); the copy is in flight with the first operands, where a
+//   transposed copy would pass through registers first.
+// - Each warp walks its own chunks of CB = 8 consecutive blocks through
+//   its own ring of stages (cp.async 16 bytes at a time, each block's 64
+//   values on a 68-word row, the products reading d straight from the
+//   ring) with no barrier but __syncwarp: the warps of an SM drift apart,
+//   so one warp's products overlap another's copies and stores, where a
+//   CTA-wide tile moved the whole SM from loading to computing to
+//   storing in step. The update form first overwrites r with r - lap in
+//   place. A form's ring holds only its operands (the P form streams 2
+//   of kernel 8's 4).
+// - Register tiling: each lane owns 4 blocks x 4 rows of P_inv (16
+//   outputs); one k-quad costs 4 float4 reads of d (two addresses a
+//   warp) and 4 of P_inv for 64 FMAs, and the outputs leave as float4
+//   stores.
+// - Each output is one f32 FMA chain from 0, k in order from 0, then the
+//   form's sums, in every form and in every design since the first
+//   (one element a thread): no atomics, so a block's bits do not depend on
+//   N, on the run or on the form that computed its product. The
+//   preconditioner forms add the product to 0 first (__fadd_rn: a -0
+//   product becomes +0), as kernel 8 did with a zero e: the same bits as
+//   the compositions they replace.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,13 +58,20 @@
 namespace {
 
 constexpr int M = 64;                 // BS * BS values per block
-constexpr int PITCH = M + 4;          // shared row pitch of P_inv and d
+constexpr int PITCH = M + 4;          // shared row pitch of a ring's block
+constexpr int CB = 8;                 // blocks per warp chunk
+constexpr int CHUNK = CB * M;         // floats of one operand's chunk
+constexpr int PCHUNK = CB * PITCH;    // shared floats of one operand's chunk
+constexpr int WARPS = 4;              // warps per CTA
+constexpr int THREADS = 32 * WARPS;
+constexpr int STAGES = 2;             // chunks of a warp's ring
 
-constexpr int TB = 32;                // blocks per tile
-constexpr int TILE = TB * M;          // floats of one operand's tile
-constexpr int THREADS = 16 * (TB / 4);  // a thread per 4 rows x 4 blocks
-constexpr int RING = 2 * 3 * TILE;    // two stages of e, r and lap
-constexpr size_t SMEM = sizeof(float) * (M * PITCH + RING + TB * PITCH);
+// P_inv (M * M floats), then each warp's ring; a stage holds r, then e,
+// then lap
+template <int NOPS>
+constexpr size_t smem_bytes() {
+    return sizeof(float) * (M * M + WARPS * STAGES * NOPS * PCHUNK);
+}
 
 __device__ __forceinline__ void cp16(float* dst, const float* src) {
     uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
@@ -60,126 +88,149 @@ __device__ __forceinline__ void cp_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Issue the copies of tile t's e, r and lap (the blocks that exist) into
-// one stage of the ring.
-__device__ __forceinline__ void load_tile(float* st, const float* e,
-                                          const float* r, const float* lap,
-                                          int t, int n) {
-    const int nb = min(TB, n - t * TB);
-    const size_t g = (size_t)t * TILE;
-    for (int c = 4 * threadIdx.x; c < nb * M; c += 4 * THREADS) {
-        cp16(st + c, e + g + c);
-        cp16(st + TILE + c, r + g + c);
-        cp16(st + 2 * TILE + c, lap + g + c);
+// The shared float4 slot of P_inv's row i, k-quad kq: row-major, the
+// k-quads of row i XOR-swizzled by (i / 4) mod 8.
+__device__ __forceinline__ int p_slot(int i, int kq) {
+    return i * (M / 4) + (kq ^ ((i >> 2) & 7));
+}
+
+// The shared offset of the float4 q of a chunk: block q / 16 on its row.
+__device__ __forceinline__ int pitched(int q) {
+    return (q / (M / 4)) * PITCH + 4 * (q % (M / 4));
+}
+
+// Issue this lane's copies of chunk c's operands (the blocks that exist)
+// into one stage of its warp's ring.
+template <int NOPS>
+__device__ __forceinline__ void load_chunk(float* st, const float* r,
+                                           const float* e, const float* lap,
+                                           int c, int n, int lane) {
+    const int nb = min(CB, n - c * CB);
+    const size_t g = (size_t)c * CHUNK;
+    for (int q = lane; q < nb * (M / 4); q += 32) {
+        const int s = pitched(q);
+        cp16(st + s, r + g + 4 * q);
+        if (NOPS > 1) cp16(st + PCHUNK + s, e + g + 4 * q);
+        if (NOPS > 2) cp16(st + 2 * PCHUNK + s, lap + g + 4 * q);
     }
 }
 
-__device__ __forceinline__ float lane(const float4& v, int c) {
+__device__ __forceinline__ float lane_of(const float4& v, int c) {
     return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w));
 }
 
+// NOPS 1: the P form (r); 2: the E form (r, e); 3: the update form (r, e,
+// lap). PINV: the product is added to 0 first (the preconditioner forms).
+template <int NOPS, bool PINV>
 __global__ void __launch_bounds__(THREADS)
 block_jacobi_kernel(const float* __restrict__ p_inv,
                     const float* __restrict__ e, const float* __restrict__ r,
                     const float* __restrict__ lap, float* __restrict__ out,
                     int n) {
+    constexpr int S = STAGES;
+    constexpr int STAGE = NOPS * PCHUNK;
     extern __shared__ float4 smem4[];
-    float* pt = reinterpret_cast<float*>(smem4);  // pt[k * PITCH + i]
-    float* ring = pt + M * PITCH;
-    float* d = ring + RING;                    // d[b * PITCH + k]
-    const int tiles = (n + TB - 1) / TB;
-    int t = blockIdx.x;
-    load_tile(ring, e, r, lap, t, n);
+    const float4* p4 = smem4;                     // P_inv, swizzled
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    float* ring = reinterpret_cast<float*>(smem4 + M * M / 4)
+        + w * S * STAGE;
+    const int chunks = (n + CB - 1) / CB;
+    const int gw = blockIdx.x * WARPS + w, nw = gridDim.x * WARPS;
+    // P_inv first (the oldest copy group), then this warp's first S - 1
+    // chunks (a group each)
+    for (int q = threadIdx.x; q < M * M / 4; q += THREADS)
+        cp16(reinterpret_cast<float*>(smem4 + p_slot(q / (M / 4),
+                                                     q % (M / 4))),
+             p_inv + 4 * q);
     cp_commit();
-    // P_inv staged transposed while the first tile is in flight: all of a
-    // thread's loads first, then its stores
-    constexpr int PQ = M * M / 4 / THREADS;    // float4 per thread
-    float4 pv0[PQ];
 #pragma unroll
-    for (int u = 0; u < PQ; ++u)
-        pv0[u] = reinterpret_cast<const float4*>(p_inv)[threadIdx.x
-                                                        + u * THREADS];
-#pragma unroll
-    for (int u = 0; u < PQ; ++u) {
-        const int q = threadIdx.x + u * THREADS;
-        const int i = q / (M / 4), k = 4 * (q % (M / 4));
-        pt[k * PITCH + i] = pv0[u].x;
-        pt[(k + 1) * PITCH + i] = pv0[u].y;
-        pt[(k + 2) * PITCH + i] = pv0[u].z;
-        pt[(k + 3) * PITCH + i] = pv0[u].w;
-    }
-    const int i0 = 4 * (threadIdx.x % 16);        // rows i0 .. i0 + 3
-    const int b0 = 4 * (threadIdx.x / 16);        // blocks b0 .. b0 + 3
-    for (int s = 0; t < tiles; t += gridDim.x, s ^= 1) {
-        const float* st = ring + s * 3 * TILE;
-        if (t + (int)gridDim.x < tiles)
-            load_tile(ring + (s ^ 1) * 3 * TILE, e, r, lap,
-                         t + gridDim.x, n);
+    for (int u = 0; u < S - 1; ++u) {
+        if (gw + u * nw < chunks)
+            load_chunk<NOPS>(ring + u * STAGE, r, e, lap, gw + u * nw, n,
+                             lane);
         cp_commit();
-        cp_wait<1>();
-        __syncthreads();
-        for (int q = threadIdx.x; q < TILE / 4; q += THREADS) {
-            const float4 a =
-                reinterpret_cast<const float4*>(st + TILE)[q];
-            const float4 c =
-                reinterpret_cast<const float4*>(st + 2 * TILE)[q];
-            const float4 v = make_float4(a.x - c.x, a.y - c.y, a.z - c.z,
-                                         a.w - c.w);
-            const int b = q / (M / 4), k = 4 * (q % (M / 4));
-            *reinterpret_cast<float4*>(d + b * PITCH + k) = v;
+    }
+    cp_wait<S - 1>();
+    __syncthreads();                              // P_inv has landed
+    const int i0 = 4 * (lane % 16);               // rows i0 .. i0 + 3
+    const int b0 = 4 * (lane / 16);               // blocks b0 .. b0 + 3
+    const int sw = (lane % 16) & 7;               // their swizzle
+    for (int c = gw, it = 0; c < chunks; c += nw, ++it) {
+        float* st = ring + (it % S) * STAGE;
+        if (c + (S - 1) * nw < chunks)
+            load_chunk<NOPS>(ring + ((it + S - 1) % S) * STAGE, r, e, lap,
+                             c + (S - 1) * nw, n, lane);
+        cp_commit();
+        cp_wait<S - 1>();
+        __syncwarp();
+        if constexpr (NOPS == 3) {
+            // d = r - lap, in place of r
+            for (int q = lane; q < CHUNK / 4; q += 32) {
+                float4* a = reinterpret_cast<float4*>(st + pitched(q));
+                const float4 l = *reinterpret_cast<const float4*>(
+                    st + 2 * PCHUNK + pitched(q));
+                const float4 v = *a;
+                *a = make_float4(v.x - l.x, v.y - l.y, v.z - l.z, v.w - l.w);
+            }
+            __syncwarp();
         }
-        __syncthreads();
+        const float* d = st;                      // d[b * PITCH + k]
         float z[4][4];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) z[j][c] = 0.0f;
-#pragma unroll 4
-        for (int k = 0; k < M; k += 4) {
+            for (int ii = 0; ii < 4; ++ii) z[j][ii] = 0.0f;
+#pragma unroll
+        for (int kq = 0; kq < M / 4; ++kq) {
             float4 dv[4], pv[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j)
                 dv[j] = *reinterpret_cast<const float4*>(
-                    d + (b0 + j) * PITCH + k);
+                    d + (b0 + j) * PITCH + 4 * kq);
 #pragma unroll
-            for (int c = 0; c < 4; ++c)
-                pv[c] = *reinterpret_cast<const float4*>(
-                    pt + (k + c) * PITCH + i0);
+            for (int ii = 0; ii < 4; ++ii)         // P_inv[i0 + ii][4 kq ..]
+                pv[ii] = p4[(i0 + ii) * (M / 4) + (kq ^ sw)];
 #pragma unroll
-            for (int c = 0; c < 4; ++c)
+            for (int cc = 0; cc < 4; ++cc)
 #pragma unroll
                 for (int j = 0; j < 4; ++j)
 #pragma unroll
                     for (int ii = 0; ii < 4; ++ii)
-                        z[j][ii] = fmaf(lane(dv[j], c), lane(pv[c], ii),
-                                        z[j][ii]);
+                        z[j][ii] = fmaf(lane_of(dv[j], cc),
+                                        lane_of(pv[ii], cc), z[j][ii]);
         }
-        const size_t g = (size_t)t * TILE;
+        const size_t g = (size_t)c * CHUNK;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            if (t * TB + b0 + j < n) {
-                const int o = (b0 + j) * M + i0;
-                const float4 ev = *reinterpret_cast<const float4*>(st + o);
-                *reinterpret_cast<float4*>(out + g + o) = make_float4(
-                    ev.x + z[j][0], ev.y + z[j][1], ev.z + z[j][2],
-                    ev.w + z[j][3]);
+            if (c * CB + b0 + j < n) {
+                float v[4];
+#pragma unroll
+                for (int ii = 0; ii < 4; ++ii)
+                    v[ii] = PINV ? __fadd_rn(0.0f, z[j][ii]) : z[j][ii];
+                if constexpr (NOPS > 1) {
+                    const float4 ev = *reinterpret_cast<const float4*>(
+                        st + PCHUNK + (b0 + j) * PITCH + i0);
+                    v[0] = ev.x + v[0];
+                    v[1] = ev.y + v[1];
+                    v[2] = ev.z + v[2];
+                    v[3] = ev.w + v[3];
+                }
+                *reinterpret_cast<float4*>(out + g + (b0 + j) * M + i0) =
+                    make_float4(v[0], v[1], v[2], v[3]);
             }
         }
-        __syncthreads();   // this stage is refilled by the next iteration
+        __syncwarp();      // this stage is refilled by a later iteration
     }
     cp_wait<0>();
 }
 
-}  // namespace
-
-// grid: persistent CTAs, 1 .. the number of 32-block tiles.
-extern "C" int cup2d_block_jacobi(const float* p_inv, const float* e,
-                                  const float* r, const float* lap,
-                                  float* out, int n, int grid,
-                                  void* stream) {
+template <int NOPS, bool PINV>
+int launch(const float* p_inv, const float* e, const float* r,
+           const float* lap, float* out, int n, int grid, void* stream) {
     if (n <= 0) return 0;
-    const int tiles = (n + TB - 1) / TB;
-    if (grid < 1 || grid > tiles) return (int)cudaErrorInvalidValue;
+    const int rounds = (n + CB * WARPS - 1) / (CB * WARPS);
+    if (grid < 1 || grid > rounds) return (int)cudaErrorInvalidValue;
+    constexpr size_t SMEM = smem_bytes<NOPS>();
     // above 48 KB of shared memory once per device (a bit per ordinal)
     static unsigned long long opted_in = 0;
     int dev = 0;
@@ -187,12 +238,40 @@ extern "C" int cup2d_block_jacobi(const float* p_inv, const float* e,
     if (err != cudaSuccess) return (int)err;
     if (!(dev < 64 && (opted_in >> dev & 1))) {
         err = cudaFuncSetAttribute(
-            block_jacobi_kernel,
+            block_jacobi_kernel<NOPS, PINV>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
         if (err != cudaSuccess) return (int)err;
         if (dev < 64) opted_in |= 1ull << dev;
     }
-    block_jacobi_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
-        p_inv, e, r, lap, out, n);
+    block_jacobi_kernel<NOPS, PINV>
+        <<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(p_inv, e, r, lap,
+                                                        out, n);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The update form. grid: persistent CTAs, 1 .. the number of 32-block
+// rounds (a chunk of 8 blocks for each warp of a CTA).
+extern "C" int cup2d_block_jacobi(const float* p_inv, const float* e,
+                                  const float* r, const float* lap,
+                                  float* out, int n, int grid,
+                                  void* stream) {
+    return launch<3, false>(p_inv, e, r, lap, out, n, grid, stream);
+}
+
+// The preconditioner forms: the P form where e is null (lap null too),
+// the E form where lap alone is null, else the update form adding its
+// product to 0 first. grid as above.
+extern "C" int cup2d_block_precond(const float* p_inv, const float* e,
+                                   const float* r, const float* lap,
+                                   float* out, int n, int grid,
+                                   void* stream) {
+    if (e == nullptr)
+        return lap == nullptr
+            ? launch<1, true>(p_inv, e, r, lap, out, n, grid, stream)
+            : (int)cudaErrorInvalidValue;
+    if (lap == nullptr)
+        return launch<2, true>(p_inv, e, r, lap, out, n, grid, stream);
+    return launch<3, true>(p_inv, e, r, lap, out, n, grid, stream);
 }

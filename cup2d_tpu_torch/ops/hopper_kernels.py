@@ -22,7 +22,9 @@ wrapper                        replaces                         source
                                signs, f32 or bf16)
 ``fused_lab_rhs``              ``_lab_kernel`` (forest labs,    ``lab_rhs.cu``
                                f32)
-``fused_block_jacobi_update``  ``_block_jacobi_kernel`` (f32)   ``block_jacobi.cu``
+``fused_block_jacobi_update``  ``_block_jacobi_kernel`` (f32;   ``block_jacobi.cu``
+``block_precond``              the update, P_inv r and
+                               e + P_inv r forms)
 ``advect_substage_halo``       ``_sharded_substage_kernel``     ``advect_heun_halo.cu``
                                (one substage on an x slab,
                                free-slip, a table's ghosts or a
@@ -123,8 +125,10 @@ counts under its kernel's name and again under the name with the suffix
 of each form it is: ``+bc`` (a boundary table), ``+bf16`` (bf16
 storage), ``+bc+bf16`` (both), ``+pd`` (the wrap form of a periodic
 table, which counts under ``+bc`` too) and ``+pinv`` (kernel 8 as the
-forest's block-Jacobi preconditioner, ``block_precond``). Twin calls do
-not count. A launch runs
+forest's block-Jacobi preconditioner, ``block_precond``: its P form
+P_inv r, its E form e + P_inv r, which counts under ``+pinv+e`` too, and
+its update form inside a preconditioner). Twin calls do not count. A
+launch runs
 on the current stream of its tensors' device.
 """
 
@@ -285,6 +289,8 @@ _FORM_ENTRIES = {
     "jacobi_halo+slabs+wrap": ("jacobi_halo",
                                "cup2d_jacobi_halo_sweep_slabs_wrap",
                                [_P, _I, _I, _I, _F, _I, _F, _F, _F, _F, _P]),
+    "block_jacobi+pinv": ("block_jacobi", "cup2d_block_precond",
+                          [_P, _P, _P, _P, _P, _I, _I, _P]),
 }
 
 launches = {"fused_advect_heun": 0, "fused_correction": 0,
@@ -301,7 +307,8 @@ launches = {"fused_advect_heun": 0, "fused_correction": 0,
             "fused_correction+pd": 0, "fused_jacobi_sweeps+pd": 0,
             "advect_substage_halo+pd": 0, "jacobi_halo_sweep+pd": 0,
             "tridiag_scan": 0, "group_sum": 0,
-            "fused_block_jacobi_update+pinv": 0}
+            "fused_block_jacobi_update+pinv": 0,
+            "fused_block_jacobi_update+pinv+e": 0}
 
 # the TPU kernel each wrapper replaces, for reports (a boundary-table or
 # bf16 form is a form of its kernel: ``kernel_of``)
@@ -343,9 +350,11 @@ BF16_CHAIN = (6, 2, 1)
 JACOBI_TILES = {True: (64, 128), False: (16, 32)}
 JACOBI_CTAS_PER_SM = {True: 1, False: 4}
 JACOBI_BIG_ROUNDS = 4
-# block_jacobi.cu's blocks per tile (fixed in the kernel) and CTAs per SM
+# block_jacobi.cu's blocks per CTA round (a chunk of 8 for each of its 4
+# warps, fixed in the kernel) and CTAs per SM, every form (kernel_ab's
+# grid sweep)
 BLOCK_JACOBI_TILE = 32
-BLOCK_JACOBI_CTAS_PER_SM = 2
+BLOCK_JACOBI_CTAS_PER_SM = 4
 # the substage kernels' tile (rows, columns out; csrc/substage.cuh) and
 # CTAs per SM (96 KB of shared memory and 128 registers a thread each)
 SUBSTAGE_TILE = (32, 128)
@@ -888,8 +897,9 @@ def jacobi_plan(L: int, ny: int, nx: int, n: int, sms: int,
 
 
 def block_jacobi_grid(n: int, sms: int) -> int:
-    """Persistent CTAs of ``block_jacobi.cu`` for n blocks: two per SM, or
-    one per tile of ``BLOCK_JACOBI_TILE`` blocks where there are fewer."""
+    """CTAs of ``block_jacobi.cu`` for n blocks, every form:
+    ``BLOCK_JACOBI_CTAS_PER_SM`` per SM, or one per round of
+    ``BLOCK_JACOBI_TILE`` blocks where there are fewer."""
     return min(_cdiv(n, BLOCK_JACOBI_TILE), BLOCK_JACOBI_CTAS_PER_SM * sms)
 
 
@@ -971,7 +981,8 @@ def fused_lab_rhs(lab, h, nu, dt):
 
 
 # ---------------------------------------------------------------------------
-# K8: one forest block-Jacobi update e + P_inv (r - lap)
+# K8: the forest's block-Jacobi update e + P_inv (r - lap) and its
+# preconditioner forms P_inv r and e + P_inv r
 # ---------------------------------------------------------------------------
 
 # blocks of one fixed-shape product in the twin (the forest's reduction
@@ -1005,46 +1016,80 @@ def block_jacobi_plain(e, r, lap, p_inv):
     return e + block_precond_plain(r - lap, p_inv)
 
 
+def block_precond_form_plain(r, p_inv, e=None, lap=None):
+    """Plain twin of ``block_precond``: ``0 + P_inv r`` (e None),
+    ``e + (0 + P_inv r)`` (lap None) or ``e + (0 + P_inv (r - lap))``, the
+    product as ``block_precond_plain``'s fixed-shape products; the 0 makes
+    a -0 product +0, as kernel 8 with a zero e did."""
+    z = block_precond_plain(r if lap is None else r - lap, p_inv) + 0.0
+    return z if e is None else e + z
+
+
+def _block_jacobi_operands(name, e, r, lap, p_inv) -> int:
+    """Check kernel 8's operands (the absent ones None) and return N."""
+    n = r.shape[0]
+    ts = {"e": e, "r": r, "lap": lap}
+    if (any(t is not None and t.shape != (n, 8, 8) for t in ts.values())
+            or p_inv.shape != (64, 64)):
+        raise ValueError(
+            f"{name}: " + ", ".join(f"{k} {tuple(t.shape)}"
+                                    for k, t in ts.items() if t is not None)
+            + f", p_inv {tuple(p_inv.shape)}: expected [N, 8, 8] block "
+            "stacks and [64, 64]")
+    _check(name, **ts, p_inv=p_inv)
+    if not _aligned_copies(e, r, lap, p_inv):
+        raise ValueError(f"{name}: operands must start on 16-byte "
+                         "boundaries (the kernel copies 16 bytes at a time)")
+    return n
+
+
 def fused_block_jacobi_update(e, r, lap, p_inv):
     """e + P_inv (r - lap) over [N, 8, 8] f32 stacks, P_inv [64, 64]: the
     kernel for CUDA tensors (an f32 FMA chain, no TF32; every operand
     16-byte aligned), the twin for CPU ones."""
     if not _on_cuda(e, r, lap, p_inv):
         return block_jacobi_plain(e, r, lap, p_inv)
-    n = e.shape[0]
-    if (e.shape != (n, 8, 8) or r.shape != e.shape or lap.shape != e.shape
-            or p_inv.shape != (64, 64)):
-        raise ValueError(
-            f"fused_block_jacobi_update: e {tuple(e.shape)}, r "
-            f"{tuple(r.shape)}, lap {tuple(lap.shape)}, p_inv "
-            f"{tuple(p_inv.shape)}: expected [N, 8, 8] x3 and [64, 64]")
-    _check("fused_block_jacobi_update", e=e, r=r, lap=lap, p_inv=p_inv)
-    if not _aligned_copies(e, r, lap, p_inv):
-        raise ValueError("fused_block_jacobi_update: operands must start on "
-                         "16-byte boundaries (the kernel copies 16 bytes at "
-                         "a time)")
-    out = torch.empty_like(e)
+    n = _block_jacobi_operands("fused_block_jacobi_update", e, r, lap,
+                               p_inv)
+    out = torch.empty_like(r)
     if n == 0:
         return out
-    _launch("block_jacobi", e.device, p_inv.data_ptr(), e.data_ptr(),
+    _launch("block_jacobi", r.device, p_inv.data_ptr(), e.data_ptr(),
             r.data_ptr(), lap.data_ptr(), out.data_ptr(), n,
-            block_jacobi_grid(n, _sm_count(e.device)))
+            block_jacobi_grid(n, _sm_count(r.device)))
     launches["fused_block_jacobi_update"] += 1
     return out
 
 
-def block_precond(r, p_inv, zero):
-    """P_inv r on [N, 8, 8] blocks as kernel 8 with e = lap = ``zero`` (a
-    zero tensor of r's shape, kept by the caller): exact, since r - 0 = r
-    and 0 + y = y. On CUDA tensors one launch of ``block_jacobi.cu``,
-    counted under ``fused_block_jacobi_update`` and its ``+pinv`` form:
-    one f32 FMA chain a row, k in order, so a row's bits do not depend on
-    how many rows the call holds (a cuBLAS GEMM may pick a split-K plan
-    from N). On CPU tensors the twin (``block_precond_plain``'s
-    fixed-shape products)."""
-    out = fused_block_jacobi_update(zero, r, zero, p_inv)
-    if _on_cuda(r) and r.shape[0]:
-        launches["fused_block_jacobi_update+pinv"] += 1
+def block_precond(r, p_inv, e=None, lap=None):
+    """The forest's block-Jacobi preconditioner on [N, 8, 8] blocks as one
+    launch of kernel 8 in the form that streams only the operands given:
+    ``0 + P_inv r`` (the P form: r in, z out), ``e + (0 + P_inv r)`` (the
+    E form, lap None) or ``e + (0 + P_inv (r - lap))`` (the update form
+    inside a preconditioner). Adding the product to 0 first gives the bits
+    of kernel 8 with a zero e and lap and a separate add, which the forms
+    replace. On CUDA tensors each launch counts under
+    ``fused_block_jacobi_update`` and its ``+pinv`` form (the E form also
+    under ``+pinv+e``): one f32 FMA chain a row, k in order, so a row's
+    bits do not depend on how many rows the call holds (a cuBLAS GEMM may
+    pick a split-K plan from N). On CPU tensors the twin
+    (``block_precond_form_plain``)."""
+    if lap is not None and e is None:
+        raise ValueError("block_precond: lap without e")
+    if not _on_cuda(e, r, lap, p_inv):
+        return block_precond_form_plain(r, p_inv, e, lap)
+    n = _block_jacobi_operands("block_precond", e, r, lap, p_inv)
+    out = torch.empty_like(r)
+    if n == 0:
+        return out
+    _launch("block_jacobi+pinv", r.device, p_inv.data_ptr(),
+            None if e is None else e.data_ptr(), r.data_ptr(),
+            None if lap is None else lap.data_ptr(), out.data_ptr(), n,
+            block_jacobi_grid(n, _sm_count(r.device)))
+    launches["fused_block_jacobi_update"] += 1
+    launches["fused_block_jacobi_update+pinv"] += 1
+    if e is not None and lap is None:
+        launches["fused_block_jacobi_update+pinv+e"] += 1
     return out
 
 

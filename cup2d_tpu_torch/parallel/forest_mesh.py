@@ -20,9 +20,10 @@ and the hot-loop tables: the halo sets (``ShardTables``, with the
 shard-local face-copy paint), the Poisson operator (``ShardPoissonOp``,
 or the lab-table form under ``CUP2D_POIS=tables``) and the flux
 correction (``ShardFluxCorr``). The lab RHS runs kernel 4 once per shard
-on that shard's labs; the block-Jacobi preconditioner P_inv r runs kernel
-8 once per shard on its rows (``AMRSim._precond``: one f32 FMA chain a
-row, so a shard's rows take the solo forest's bits), and under fas the
+on that shard's labs; the block-Jacobi preconditioner (P_inv r, and the
+two-level forms' e + P_inv r and e + P_inv (r - A e)) runs kernel 8 once
+per shard on its rows (``AMRSim._precond``: one f32 FMA chain a row, so
+a shard's rows take the solo forest's bits), and under fas the
 composite smoother runs kernel 8 once per shard and sweep
 (``overlap_block_jacobi_sweeps``). Every full reduction over the ordered
 blocks (the Krylov dots, the projection's means, the energy, the
@@ -140,7 +141,6 @@ class ShardedAMRSim(AMRSim):
         self._tables_version = -1      # force the rebuild
         self._refresh()
         self._npad_quiet, self._coarse_on, self._last_iters = kept
-        self._pinv_zero = None
         if whole is not None:
             self._ord = {k: self._put_ordered(v) for k, v in whole.items()}
             self._ord_key = (self.forest.version, self.forest.fields.wver)

@@ -14,7 +14,10 @@ one warm-up production ``step_once`` at the CFL dt, then ``--steps``.
 Forest (``--forest``): builds ``amr.vortex_forest`` (the ~1e4-block
 synthetic-vortex forest of the canonical domain), runs its 10 startup
 steps and one production step unprofiled, then ``--steps`` production
-``AMRSim.step_once`` steps under the profiler. Prints per solver: the
+``AMRSim.step_once`` steps under the profiler; ``--twolevel`` (default
+solver only) skips the startup steps and takes one production step from
+the cold pressure instead, whose solve (> 15 iterations) engages the
+two-level preconditioner for the profiled steps. Prints per solver: the
 wall time per step, the device-busy share (sum of kernel times over the
 wall time of the window), the device operations (kernels and copies)
 launched per step, the Poisson iterations, and the kernels that take the
@@ -24,6 +27,7 @@ most device time. The Chrome trace of each window goes to
     python -m cup2d_tpu_torch.profile_step --size 8192 --steps 3
     python -m cup2d_tpu_torch.profile_step --size 8192 --mesh 4
     python -m cup2d_tpu_torch.profile_step --forest --steps 3
+    python -m cup2d_tpu_torch.profile_step --forest --twolevel --steps 5
     python -m cup2d_tpu_torch.profile_step --channel --mesh 4
 """
 
@@ -50,10 +54,12 @@ def _summary(prof, steps, wall_ms, top):
 
 
 def profile_forest(steps: int, pois: str, out_dir: str, top: int,
-                   start=None) -> tuple[dict, tuple]:
-    """Profile ``steps`` production steps of the forest under ``pois``.
-    ``start`` = (cfg, blocks, fields) of a forest built earlier, or None
-    to build ``vortex_forest``; returns the summary and the start."""
+                   start=None, twolevel: bool = False) -> tuple[dict, tuple]:
+    """Profile ``steps`` production steps of the forest under ``pois``
+    (after the startup steps, or with ``twolevel`` after one cold
+    production step). ``start`` = (cfg, blocks, fields) of a forest built
+    earlier, or None to build ``vortex_forest``; returns the summary and
+    the start."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -72,8 +78,12 @@ def profile_forest(steps: int, pois: str, out_dir: str, top: int,
             forest_from_numpy(sim, start[1], start[2])
     finally:
         os.environ.pop("CUP2D_POIS", None)
-    for _ in range(11):
+    if twolevel:
+        sim.step_count = 10
         sim.step_once()
+    else:
+        for _ in range(11):
+            sim.step_once()
     torch.cuda.synchronize()
     iters = []
     with profile(activities=[ProfilerActivity.CPU,
@@ -208,7 +218,12 @@ def main(argv=None) -> int:
                          "the one card")
     ap.add_argument("--channel", action="store_true",
                     help="profile the parabolic channel under fas instead")
+    ap.add_argument("--twolevel", action="store_true",
+                    help="with --forest: the default solver's two-level "
+                         "steps, after one cold production step")
     args = ap.parse_args(argv)
+    if args.twolevel and not args.forest:
+        ap.error("--twolevel profiles the forest: add --forest")
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
     card = subprocess.run(
@@ -217,12 +232,13 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip()
     print(f"card: {card}")
     start = None
-    for pois in ("fas",) if args.channel else ("", "fas"):
+    for pois in (("fas",) if args.channel else
+                 ("",) if args.twolevel else ("", "fas")):
         if args.channel:
             res = profile_channel(args.steps, args.out, args.top, args.mesh)
         elif args.forest:
             res, start = profile_forest(args.steps, pois, args.out,
-                                        args.top, start)
+                                        args.top, start, args.twolevel)
         else:
             res = profile_solver(args.size, args.steps, pois, args.out,
                                  args.top, args.mesh)

@@ -614,7 +614,8 @@ def test_jacobi_wrap_kernel_shapes_vs_twin(cuda, name, shape, from_zero):
 
 
 @pytest.mark.parametrize("shape", [(1, 64, 33), (3, 37, 20), (2, 9, 1),
-                                   (1, 1024, 513)])
+                                   (1, 1024, 513), (1, 70, 33),
+                                   (2, 129, 65), (1, 1000, 4097)])
 def test_tridiag_scan_kernel_vs_twin(cuda, shape):
     L, n_s, nk = shape
     rng = np.random.default_rng(47)
@@ -1603,23 +1604,94 @@ def test_group_sum_refuses_what_the_kernel_does_not_take(cuda):
 
 
 def test_block_precond_kernel_rows_whatever_n(cuda):
-    """Kernel 8 as P_inv r (e = lap = 0): within 2e-6 relative of its twin,
-    and a block's bits the same in calls of 16, 1,000 and 16,384 blocks
-    (the solo forest's and a shard's)."""
+    """Kernel 8's P form (P_inv r): within 2e-6 relative of its twin, and
+    a block's bits the same in calls of 16, 1,000 and 16,384 blocks (the
+    solo forest's and a shard's)."""
     p_inv = torch.tensor(block_precond_matrix(8), dtype=torch.float32,
                          device=cuda)
     r = _rand((16384, 8, 8), 7, cuda)
-    zero = torch.zeros_like(r)
     hk.reset_launches()
-    want = hk.block_precond(r, p_inv, zero)
+    want = hk.block_precond(r, p_inv)
     ref = hk.block_precond_plain(r, p_inv)
     assert float((want - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
     for n in (16, 1000):
-        got = hk.block_precond(r[:n].contiguous(), p_inv, zero[:n])
+        got = hk.block_precond(r[:n].contiguous(), p_inv)
         assert torch.equal(got, want[:n]), n
     torch.cuda.synchronize()
     assert hk.launches["fused_block_jacobi_update+pinv"] == 3
     assert hk.launches["fused_block_jacobi_update"] == 3
+    assert hk.launches["fused_block_jacobi_update+pinv+e"] == 0
+
+
+@pytest.mark.parametrize("form", ["P_inv r", "e + P_inv r",
+                                  "e + P_inv (r - lap)", "update"])
+def test_block_jacobi_forms_vs_twin_whatever_n(cuda, form):
+    """Each kernel-8 form within 2e-6 relative of its twin (the product's
+    summation order), and a block's bits the same in calls of 16, 1,000
+    and 16,384 blocks; the preconditioner forms count under ``+pinv``,
+    the E form also under ``+pinv+e``."""
+    p_inv = torch.tensor(block_precond_matrix(8), dtype=torch.float32,
+                         device=cuda)
+    e, r, lap = (_rand((16384, 8, 8), s, cuda) for s in (30, 31, 32))
+
+    def run(n):
+        o = [t[:n].contiguous() for t in (e, r, lap)]
+        if form == "update":
+            return (hk.fused_block_jacobi_update(*o, p_inv),
+                    hk.block_jacobi_plain(*o, p_inv))
+        args = {"P_inv r": (), "e + P_inv r": (o[0],),
+                "e + P_inv (r - lap)": (o[0], o[2])}[form]
+        return (hk.block_precond(o[1], p_inv, *args),
+                hk.block_precond_form_plain(o[1], p_inv, *args))
+
+    hk.reset_launches()
+    want, ref = run(16384)
+    assert float((want - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
+    for n in (16, 1000):
+        got, ref = run(n)
+        assert float((got - ref).abs().max()) \
+            <= 2e-6 * float(ref.abs().max()), n
+        assert torch.equal(got, want[:n]), n
+    torch.cuda.synchronize()
+    assert hk.launches["fused_block_jacobi_update"] == 3
+    assert hk.launches["fused_block_jacobi_update+pinv"] == (
+        0 if form == "update" else 3)
+    assert hk.launches["fused_block_jacobi_update+pinv+e"] == (
+        3 if form == "e + P_inv r" else 0)
+
+
+def test_block_precond_forms_are_the_compositions_they_replace(cuda):
+    """On the card, each preconditioner form gives the bits of kernel 8
+    with zero operands plus the torch sums it replaces, sign of zero
+    included (a set whose products round to -0, e = -0)."""
+    from cup2d_tpu_torch.kernel_ab import signed_zero_blocks, ulps
+    p_inv = torch.tensor(block_precond_matrix(8), dtype=torch.float32,
+                         device=cuda)
+    sets = [tuple(_rand((1000, 8, 8), s, cuda) for s in (33, 34, 35)),
+            signed_zero_blocks(1000, p_inv)]
+    for e, r, lap in sets:
+        zero = torch.zeros_like(r)
+        z = hk.fused_block_jacobi_update(zero, r, zero, p_inv)
+        zl = hk.fused_block_jacobi_update(zero, r - lap, zero, p_inv)
+        assert ulps(hk.block_precond(r, p_inv), z) == 0
+        assert ulps(hk.block_precond(r, p_inv, e), e + z) == 0
+        assert ulps(hk.block_precond(r, p_inv, e, lap), e + zl) == 0
+    # the -0 products stayed -0 in the update form: the set is adversarial
+    e, r, lap = sets[1]
+    assert bool(torch.signbit(hk.fused_block_jacobi_update(
+        e, r, lap, p_inv)).any())
+
+
+def test_block_precond_refuses_bad_operands(cuda):
+    p = torch.zeros(64, 64, device=cuda)
+    r = torch.zeros(8, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="expected"):
+        hk.block_precond(r, p, torch.zeros(9, 8, 8, device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        hk.block_precond(r.double(), p.double())
+    flat = torch.zeros(3 * 64 + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        hk.block_precond(flat[1:].view(3, 8, 8), p)
 
 
 def test_block_sum_on_four_shards_of_the_card_equals_solo(cuda):

@@ -72,7 +72,7 @@ def test_launch_plans_never_exceed_the_tiles():
 
 
 @pytest.mark.parametrize("n, grid", [(1, 1), (32, 1), (33, 2), (1000, 32),
-                                     (16384, 2 * SMS)])
+                                     (16384, 512), (65536, 4 * SMS)])
 def test_block_jacobi_grid(n, grid):
     assert hk.block_jacobi_grid(n, SMS) == grid
 
