@@ -423,6 +423,12 @@ the result lines:
    ``group_sum.cu`` after the re-meshes, each > 0; counts from 0 over the
    phase; no twin called on the card's operands (files under
    build/phase20, removed).
+21. lint (``cup2d_tpu_torch.analysis``, the port's graftlint): the
+   package linted in process (``lint_package``) and by ``python -m
+   cup2d_tpu_torch.analysis --json`` as a subprocess under this
+   interpreter; fails on any finding or an rc other than 0; prints the
+   files scanned, the findings, the suppressed count per rule and the
+   seconds of each run. Launches no kernel.
 
 Then one JSON line of per-kernel numbers (with, per kernel, its launches
 on the two flagship runs, the two canonical runs, phase 13's runs,
@@ -6328,10 +6334,49 @@ def phase_elastic(dev, forest_warm: tuple, card: str, size: int = 8192
     return out, dict(hk.launches)
 
 
+def phase_lint(card: str) -> dict:
+    """The port's lint over its own package, in process and as the CLI's
+    ``--json`` subprocess: both must be clean, the subprocess rc 0, and
+    both must scan every ``.py`` of the package."""
+    from cup2d_tpu_torch.analysis import lint_package
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    report = lint_package()
+    secs_in = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cup2d_tpu_torch.analysis", "--json"],
+        cwd=root, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": root})
+    secs_cli = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    cli = json.loads(lines[-1]) if lines else {}
+    n_py = sum(fn.endswith(".py") for d, _, fns in os.walk(
+        os.path.join(root, "cup2d_tpu_torch")) if "__pycache__" not in d
+        for fn in fns)
+    out = {"files": report.files_scanned, "py_files": n_py,
+           "findings": len(report.findings),
+           "suppressed": dict(report.suppressed),
+           "cli_rc": proc.returncode, "cli_files": cli.get("files_scanned"),
+           "cli_findings": len(cli.get("findings", [])) if cli else None,
+           "seconds": {"in_process": secs_in, "cli": secs_cli}}
+    print(f"phase 21 lint {json.dumps(out)}; card {card}", flush=True)
+    for f in report.findings:
+        print(f"phase 21 finding {f}", flush=True)
+    check(report.clean, f"lint: {len(report.findings)} findings in process")
+    check(proc.returncode == 0 and cli.get("clean") is True,
+          f"lint CLI: rc {proc.returncode}: {proc.stdout[-2000:]}"
+          f"{proc.stderr[-2000:]}")
+    check(report.files_scanned == cli.get("files_scanned") == n_py,
+          f"lint scanned {report.files_scanned} / {cli.get('files_scanned')}"
+          f" files of {n_py}")
+    return out
+
+
 # phase -> the phases whose results it cannot run without
 PHASE_NEEDS = {13: (2,), 15: (5, 14), 17: (5,), 18: (2,), 19: (5,),
                20: (5,)}
-PHASES = range(2, 21)
+PHASES = range(2, 22)
 
 
 def phases_of(argv: list) -> set:
@@ -6554,6 +6599,11 @@ def main(argv=None) -> int:
         for k in ELASTIC_UNIFORM_KEYS + ELASTIC_FOREST_KEYS:
             check(elastic_launches[k] > 0, f"{k}: launched no time on the "
                   "elastic drills")
+    lint = None
+    if 21 in run:
+        t0 = time.perf_counter()
+        lint = phase_lint(card)
+        print(f"phase 21 took {time.perf_counter() - t0} s", flush=True)
     shutil.rmtree(PHASE14_DIR, ignore_errors=True)
     check("jax" not in sys.modules, "the smoke imported jax")
     check("validation" not in sys.modules, "the smoke imported validation")
@@ -6572,7 +6622,7 @@ def main(argv=None) -> int:
             ("forest mesh", mesh_runs if 17 in run else None),
             ("periodic mesh and placed fleets", pd_mesh),
             ("multi-process", dist_runs),
-            ("elastic recovery", elastic_runs)):
+            ("elastic recovery", elastic_runs), ("lint", lint)):
         if summary is not None:
             print(f"{label} summary: {json.dumps(summary)}")
     print(f"total {time.perf_counter() - t_start} s")

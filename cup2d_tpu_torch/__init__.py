@@ -25,10 +25,29 @@ The port imports torch and numpy only, never jax and nothing of
 ``device="cpu"``.
 """
 
-from .amr import AMRSim
-from .config import SimConfig
-from .sim import Simulation
-from .uniform import FlowState, UniformGrid, UniformSim
+# the entry points load torch, so they are exposed lazily: the lint
+# (``cup2d_tpu_torch.analysis``) imports this package and must run where
+# torch is not installed
+_LAZY = {
+    "AMRSim": ("cup2d_tpu_torch.amr", "AMRSim"),
+    "FlowState": ("cup2d_tpu_torch.uniform", "FlowState"),
+    "SimConfig": ("cup2d_tpu_torch.config", "SimConfig"),
+    "Simulation": ("cup2d_tpu_torch.sim", "Simulation"),
+    "UniformGrid": ("cup2d_tpu_torch.uniform", "UniformGrid"),
+    "UniformSim": ("cup2d_tpu_torch.uniform", "UniformSim"),
+}
 
-__all__ = ["AMRSim", "FlowState", "SimConfig", "Simulation", "UniformGrid",
-           "UniformSim"]
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        mod, attr = _LAZY[name]
+        return getattr(importlib.import_module(mod), attr)
+    raise AttributeError(
+        f"module 'cup2d_tpu_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_LAZY))

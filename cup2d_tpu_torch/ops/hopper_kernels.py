@@ -765,6 +765,7 @@ def fused_correction_plain(x, pres_old, vel, scal, ih2, grad_signs=None,
     px, py = periodic
     sx_lo, sx_hi, sy_lo, sy_hi = grad_signs or (1.0, 1.0, 1.0, 1.0)
     s = scal.reshape(-1, 3, 1, 1)
+    # lint: allow[leading-dim] -- s is scal flattened to [L, 3, 1, 1] above: axis 1 is the coefficient axis whatever the lead
     pres = ((x - s[:, 0]) + pres_old) - s[:, 1]
     gx = _edge_ones(nx, x.dtype, x.device, lo=-sx_lo, hi=sx_hi)
     gy = _edge_ones(ny, x.dtype, x.device, lo=-sy_lo, hi=sy_hi)
@@ -773,6 +774,7 @@ def fused_correction_plain(x, pres_old, vel, scal, ih2, grad_signs=None,
         return _shift_bc(pres, dy, dx, px, py)
     dpx = (zs(0, 1) - zs(0, -1)) + pres * gx[None, :]
     dpy = (zs(1, 0) - zs(-1, 0)) + pres * gy[:, None]
+    # lint: allow[leading-dim] -- s is scal flattened to [L, 3, 1, 1]: axis 1 is the coefficient axis whatever the lead
     dv = s[:, 2:3] * torch.stack([dpx, dpy], dim=-3)
     return pres, vel + dv * ih2
 
@@ -1116,12 +1118,14 @@ def advect_substage_halo_plain(v, vold, aux, facs, cfac, ih2, is_lo, is_hi,
     in ``advect_substage_plain``."""
     out_dtype = _out_dtype("advect_substage_halo", v, out_dtype)
     v, vold, aux = _widen(v, vold, aux)
+    # lint: allow[leading-dim] -- facs is the flat [L, 3] factor table of the C entry, one row per flattened lead
     afac = facs[:, 0].reshape(-1, 1, 1, 1)
-    dfac = facs[:, 1].reshape(-1, 1, 1, 1)
+    dfac = facs[:, 1].reshape(-1, 1, 1, 1)  # lint: allow[leading-dim] -- the flat [L, 3] factor table
     if bc is None:
         lab = pad_vector_slab(v, aux, 3, is_lo, is_hi)
     else:
         lab = pad_vector_bc_slab(v, aux, 3, bc, h,
+                                 # lint: allow[leading-dim] -- the flat [L, 3] factor table of the C entry
                                  facs[:, 2].reshape(-1, 1, 1, 1), col0,
                                  nx_tot, is_lo, is_hi)
     rhs = advect_diffuse_core(lab, 3, afac, dfac)
@@ -1429,6 +1433,7 @@ def advect_diffuse_rhs(vlab, h, nu, dt):
     ny, nx = vlab.shape[-2] - 6, vlab.shape[-1] - 6
     L = math.prod(vlab.shape[:-3])
     _check("advect_diffuse_rhs", vlab=vlab)
+    # lint: allow[cache-key] -- the single-op RHS lies on no production path (chip_smoke and kernel_ab call it); a new dt costs one of the 64 entries and one small copy
     facs = _rhs_facs(vlab.device, float(-dt * h), float(nu * dt))
     out = vlab.new_empty(vlab.shape[:-2] + (ny, nx))
     vec, grid = advect_rhs_plan(L, ny, nx, _sm_count(vlab.device),

@@ -1961,6 +1961,7 @@ def shard_flux_corr(corr, n_pad: int, mesh: SlabMesh, bs: int, dtype,
     pk_c = np.zeros((D, M), np.int32)
     pk_f1 = np.zeros((D, M), np.int32)
     pk_f2 = np.zeros((D, M), np.int32)
+    # lint: allow[host-sync] -- a 0-d tensor on the CPU, made only to name dtype's numpy dtype: no card memory is read
     pk_v = np.zeros((D, M), torch.empty((), dtype=dtype).numpy().dtype)
     n_first = []
     for d in range(D):

@@ -773,15 +773,15 @@ class FFTDiagPlan:
         nk = n_t // 2 + 1
         lam = 2.0 * np.cos(2.0 * np.pi * np.arange(nk) / n_t) - 2.0
         d = np.tile(lam[None, :], (n_s, 1)) - 2.0
-        d[0, :] += s_lo
-        d[-1, :] += s_hi
+        d[0, :] += s_lo    # lint: allow[leading-dim] -- host numpy precompute, fixed [n_s, nk] matrix rows, never batched
+        d[-1, :] += s_hi   # lint: allow[leading-dim] -- host numpy precompute, fixed [n_s, nk] matrix rows, never batched
         c = np.ones((n_s, nk))
-        c[-1, :] = 0.0
+        c[-1, :] = 0.0     # lint: allow[leading-dim] -- host numpy precompute: no superdiagonal on the last row
         self.pin = s_lo == 1.0 and s_hi == 1.0
         if self.pin:
             # the singular k = 0 all-Neumann mode: row 0 -> identity
-            d[0, 0] = 1.0
-            c[0, 0] = 0.0
+            d[0, 0] = 1.0  # lint: allow[leading-dim] -- host numpy precompute of the k=0 nullspace pin
+            c[0, 0] = 0.0  # lint: allow[leading-dim] -- host numpy precompute of the k=0 nullspace pin
         # forward elimination on the fixed matrix (unit subdiagonal):
         # denom_j = d_j - cp_{j-1}, cp_j = c_j / denom_j
         denom = np.empty((n_s, nk))

@@ -238,7 +238,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
             "cup2d_tpu_torch.fleet, cup2d_tpu_torch.tracing, "
             "cup2d_tpu_torch.parallel.forest_mesh, "
             "cup2d_tpu_torch.parallel.launch, "
-            "cup2d_tpu_torch.native; "
+            "cup2d_tpu_torch.native, cup2d_tpu_torch.analysis; "
             "from cup2d_tpu_torch.sim import Simulation; "
             f"cfg = cup2d_tpu_torch.SimConfig(**{_fish_kw()!r}); "
             "sim = Simulation(cfg, level=3, device='cpu'); "
