@@ -210,7 +210,7 @@ the result lines:
    with an adapt after the second, equal keys and iterations, velocity
    and each fish's (u, v, omega) within 1e-4 relative, under fas and
    under the default solver at its production tolerances (printed beside
-   it, not held: the default solver at 1e-6/1e-5, 2 production steps,
+   it, not held: the default solver at 1e-6/1e-5, 1 production step,
    which does not converge on the shaped RHS); and the two-disk collision
    of
    validation/golden_collision.py at f32 (body 0's u flips from > 0.1 to
@@ -304,11 +304,12 @@ the result lines:
    at 256^2 with B = 1, 8, 64 and at 1024^2 with B = 1, 8, 32, under the
    default solver and fas: ms a step, member-steps/s and the idle share
    of one ``torch.profiler`` step at each B (no bar). The card bars: B = 1
-   bit for bit ``UniformSim`` at 256^2 through 4 steps from t = 0, with
-   no more reads; each member of a B = 8 fleet at 1024^2 (the benchmark
+   bit for bit ``UniformSim`` at 256^2 through 2 steps from step 9 (an
+   exact startup solve and a production step), with no more reads; each member of a B = 8 fleet at 1024^2 (the benchmark
    velocity at amplitudes 0.8**m, 2 production steps) within 1e-5
    relative of its solo run with equal iterations, both solvers; a B = 4
-   fleet at 64^2, 12 steps, card against CPU within 1e-4. Serving:
+   fleet at 64^2, 6 steps from step 6, card against CPU within 1e-4.
+   Serving:
    ``main()`` in process, ``-fleet 8 -serve 24`` at 1024^2 (the README's
    fleet flags at ``-level 7``, ``-tend 0.006``: every session admitted
    and retired, three a slot; the pool starts at step ``SERVE_FIRST_STEP``
@@ -378,8 +379,16 @@ the result lines:
    iterations, member-steps/s beside phase 16's, kernels 2 and 5 once a
    shard (member) or the wrap halo forms (spatial); then ``main(["-case",
    "cavity", "-level", "4", "-fleet", "4", "-mesh", "4", ...])`` against
-   the unplaced CLI's dumps (within ``SHARDED_REL``). No twin called on
-   the card's f32 operands in (b) and (c). Files under build/phase18,
+   the unplaced CLI's dumps (within ``SHARDED_REL``); and a shaped fleet
+   (frozen disks, the obstacle terms) of 4 members at 4096 x 2048,
+   unplaced and placed by ``auto`` on 4 slabs (spatial: a member is above
+   the 2048^2 cap), default and fas, a warm-up and 1 timed production
+   step: every member within ``SHARDED_REL`` of the unplaced fleet with
+   equal per-member iterations, member-steps/s of both layouts, the
+   launches of kernels 3 (two a step and slab), 7 (fas, on the split
+   levels and on those gathered onto one slab) and 6 (none: no level of
+   the spatial hierarchy runs it) counted from 0 per run. No twin called
+   on the card's f32 operands in (b) and (c). Files under build/phase18,
    removed at the end.
 19. multi-process runs on ``torch.distributed`` (``parallel.launch``):
    a one-rank NCCL world in this process (NCCL takes no two ranks on one
@@ -3093,7 +3102,7 @@ def phase_canonical(dev) -> tuple[dict, dict]:
     runs["card_vs_cpu"] = [phase_canonical_cpu(dev, "fas", start=start),
                            phase_canonical_cpu(dev, None, start=start),
                            phase_canonical_cpu(dev, None, 1e-6, 1e-5,
-                                               hold=False, steps=2)]
+                                               hold=False, steps=1)]
     del start
     print(f"phase 12 card vs CPU took {time.perf_counter() - t0} s",
           flush=True)
@@ -4487,27 +4496,31 @@ def fleet_curves(dev, card: str) -> dict:
 
 
 def fleet_card_bars(dev) -> dict:
-    """B = 1 against ``UniformSim`` at 256^2 from t = 0 (4 of the exact
-    startup solves): bit for bit, clocks equal, no more reads; each
+    """B = 1 against ``UniformSim`` at 256^2 from step 9 (the last exact
+    startup solve and a production step): bit for bit, clocks equal, no
+    more reads; each
     member of a B = 8 fleet at 1024^2 (the benchmark velocity at
     amplitudes 0.8**m, ``FLEET_BAR_STEPS`` production steps) against its
     solo run:
     <= FLEET_SOLO_REL relative with equal iterations; a B = 4 fleet at
-    64^2, 12 steps from t = 0, card against CPU <= TRAJ_REL."""
+    64^2, 6 steps from step 6 (4 exact startup solves, 2 production
+    steps), card against CPU <= TRAJ_REL."""
     from cup2d_tpu_torch import shapes_host
     from cup2d_tpu_torch.fleet import FleetSim, stack_states
     cfg = SimConfig(bpdx=1, bpdy=1, level_max=1, level_start=0,
                     extent=1.0, nu=4e-5, cfl=0.5, dtype="float32")
-    out = {}
+    out, secs = {}, {}
     for pois in ("", "fas"):
         name = pois or "default"
+        t0 = time.perf_counter()
         with latched(pois):
             f = FleetSim(cfg, level=5, members=1, device=dev)
             u = UniformSim(cfg, level=5, device=dev)
         f.state = stack_states([taylor_green_state(f.grid)])
         u.state = taylor_green_state(u.grid)
+        f.step_count = u.step_count = 9
         reads = [0, 0]
-        for _ in range(4):
+        for _ in range(2):
             p0 = shapes_host.pulls
             u.step_once()
             p1 = shapes_host.pulls
@@ -4520,6 +4533,8 @@ def fleet_card_bars(dev) -> dict:
         check(same, f"phase 16 B=1 {name}: not bit for bit UniformSim")
         check(reads[1] <= reads[0], f"phase 16 B=1 {name}: reads {reads}")
         out[f"b1 {name}"] = {"bit_for_bit": same, "reads_solo_fleet": reads}
+        secs[f"b1 {name}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
 
         cfg8, level8 = bench_cfg(1024, 1024)
         with latched(pois):
@@ -4552,9 +4567,12 @@ def fleet_card_bars(dev) -> dict:
               f"phase 16 B=8 {name}: rel {worst}, iterations equal "
               f"{iters_equal}")
         out[f"b8 vs solo {name}"] = {"rel": worst, "iters": iters}
+        secs[f"b8 {name}"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     card, cpu = (fleet_sim(d, 64, 4) for d in (dev, "cpu"))
-    for _ in range(12):
+    card.step_count = cpu.step_count = 6
+    for _ in range(6):
         card.step_once()
         cpu.step_once()
     rel = float((card.state.vel.cpu() - cpu.state.vel).abs().max()
@@ -4563,6 +4581,8 @@ def fleet_card_bars(dev) -> dict:
     out["b4 64^2 card vs cpu"] = {"rel": rel,
                                   "times_rel": float(np.max(np.abs(
                                       card.times - cpu.times) / cpu.times))}
+    secs["card vs cpu"] = time.perf_counter() - t0
+    out["seconds"] = secs
     return out
 
 
@@ -5292,6 +5312,11 @@ FLEET18 = ("turb2d", 1024, 8)   # (c): the case, size, members
 FLEET18_STEPS = 3         # timed fleet steps of (c), after a warm-up
 CLI18_FLAGS = ["-case", "cavity", "-level", "4", "-fleet", "4",
                "-maxSteps", "2", "-tdump", "1e-6", "-noWatchdog"]
+# (c)'s shaped fleet: 4096 x 2048 (8.39 M cells a member, above the
+# 2048^2 member_cells_cap, so "auto" places it spatially), B members with
+# frozen disks; a warm-up and SHAPED18_STEPS timed production steps
+SHAPED18 = (2048, 4)      # ny (nx = 2 ny) and members
+SHAPED18_STEPS = 1
 
 
 def periodic_start(grid, kind: str):
@@ -5577,6 +5602,120 @@ def fleet18(dev, pois: str, state, mesh=None, cap: int = 1 << 22):
     return sim
 
 
+def shaped18_start(grid, members: int):
+    """The shaped fleet's start on ``grid``'s device: per member m the
+    recipe of tests/test_fleet_server.py's ``_shaped_state`` with its disk
+    scaled to the box (centre (0.35 + 0.1 m) lx, ly / 2, radius 0.15 ly),
+    the Taylor-Green flow at amplitude 0.8**m, the solid translating at
+    (0.2, 0.05) and a deformation field 0.02 (sin 2 pi y/ly, cos 2 pi
+    x/lx) inside it."""
+    from cup2d_tpu_torch.fleet import stack_states
+    lx, ly = grid.cfg.extents
+    kw = dict(dtype=torch.float64, device=grid.device)
+    xs = (torch.arange(grid.nx, **kw) + 0.5) * grid.h
+    ys = (torch.arange(grid.ny, **kw) + 0.5) * grid.h
+    Y, X = torch.meshgrid(ys, xs, indexing="ij")
+    base = taylor_green_state(grid)
+    out = []
+    for m in range(members):
+        chi = (((X - (0.35 + 0.1 * m) * lx) ** 2 + (Y - 0.5 * ly) ** 2)
+               < (0.15 * ly) ** 2).to(torch.float64)
+        us = torch.stack([0.2 * chi, 0.05 * chi])
+        udef = 0.02 * torch.stack([chi * torch.sin(2 * np.pi * Y / ly),
+                                   chi * torch.cos(2 * np.pi * X / lx)])
+        out.append(base._replace(vel=base.vel * (0.8 ** m),
+                                 **{k: v.to(grid.dtype) for k, v in
+                                    (("chi", chi), ("us", us),
+                                     ("udef", udef))}))
+    return stack_states(out)
+
+
+def placed_shaped_fleet(dev, card: str, mesh) -> tuple[dict, dict]:
+    """(c)'s shaped fleet: ``SHAPED18`` members at 4096 x 2048, f32,
+    unplaced and placed by ``auto`` on ``mesh`` (spatial: a member is
+    above the cap), default and fas, a warm-up and ``SHAPED18_STEPS``
+    timed production steps each from the same start: every member within
+    ``SHARDED_REL`` of the unplaced fleet with equal per-member
+    iterations; member-steps/s of both layouts; the launches from 0 per
+    run (unplaced: kernels 2 and 5, fas 6; spatial: 3 two a step and
+    slab, fas 7, also on the levels gathered onto one slab, and no 6);
+    no twin on the card.
+    Returns the rows and the spatial runs' launches."""
+    from cup2d_tpu_torch.fleet import FleetSim
+    ny, b = SHAPED18
+    level = (ny // 8).bit_length() - 1
+    cfg = SimConfig(bpdx=2, bpdy=1, level_max=1, level_start=0,
+                    extent=1.0, nu=1e-3, cfl=0.4, lam=1e6, dtype="float32")
+    out, launches, start = {}, {}, None
+    n = SHAPED18_STEPS + 1
+    for pois in ("", "fas"):
+        name = pois or "default"
+        rows, states = {}, {}
+        for label, m in (("unplaced", None), ("auto", mesh)):
+            with latched(pois):
+                sim = FleetSim(cfg, level=level, members=b, shaped=True,
+                               device=None if m else dev, mesh=m)
+            if start is None:
+                start = shaped18_start(sim.grid, b)
+            sim.set_state(type(start)(*(f.clone() for f in start)))
+            sim.step_count = 20
+            hk.reset_launches()
+            with twin_watch(SPLIT_TWINS) as tw:
+                iters = [sim.step_once()["poisson_iters"].tolist()]
+                sync(dev)
+                t0 = time.perf_counter()
+                for _ in range(SHAPED18_STEPS):
+                    d = sim.step_once()
+                    iters.append(d["poisson_iters"].tolist())
+                sync(dev)
+            wall = time.perf_counter() - t0
+            la = {k: c for k, c in hk.launches.items() if c}
+            rows[label] = {"placement": sim.placement,
+                           "step_ms": 1e3 * wall / SHAPED18_STEPS,
+                           "member_steps_per_s": b * SHAPED18_STEPS / wall,
+                           "iters": iters, "finite": bool(d["finite"].all()),
+                           "launches": la, "twin_calls": tw.calls}
+            check(rows[label]["finite"] and not any(tw.calls.values())
+                  and sim.placement == ("single" if m is None
+                                        else "spatial"),
+                  f"phase 18 shaped fleet {label} {name}: {rows[label]}")
+            if m is None:
+                check(la.get("fused_advect_heun", 0) == 2 * n
+                      and la.get("fused_correction", 0) == n
+                      and (la.get("fused_jacobi_sweeps", 0) > 0)
+                      == (pois == "fas"),
+                      f"phase 18 shaped fleet unplaced {name}: launches {la}")
+            else:
+                check(la.get("advect_substage_halo", 0) == 2 * MESH_D * n
+                      and (la.get("jacobi_halo_sweep", 0) > 0)
+                      == (pois == "fas")
+                      and "fused_jacobi_sweeps" not in la
+                      and "fused_advect_heun" not in la
+                      and "fused_correction" not in la,
+                      f"phase 18 shaped fleet auto {name}: launches {la}")
+                for k, c in la.items():
+                    launches[k] = launches.get(k, 0) + c
+            states[label] = [whole(f) for f in (sim.state.vel,
+                                                sim.state.pres)]
+            del sim
+        rel = [max(float((a[k] - u[k]).abs().max() / u[k].abs().max())
+                   for a, u in zip(states["auto"], states["unplaced"]))
+               for k in range(b)]
+        rows["auto"]["rel_to_unplaced"] = rel
+        check(max(rel) <= SHARDED_REL
+              and rows["auto"]["iters"] == rows["unplaced"]["iters"],
+              f"phase 18 shaped fleet {name}: rel {rel}, iterations "
+              f"{rows['auto']['iters']} vs {rows['unplaced']['iters']}")
+        out[name] = rows
+        print(f"phase 18 shaped fleet {2 * ny}x{ny} B={b} {name} "
+              f"{json.dumps(rows)}; card {card}", flush=True)
+        del states
+        torch.cuda.empty_cache()
+    del start
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def phase_placed_fleets(dev, card: str, fleet16: dict) -> tuple[dict, dict]:
     """Phase 18 (c): ``FLEET18`` (turb2d 1024^2, B = 8) unplaced and on
     MESH_D shards of one card, member placement (2 a shard) and spatial
@@ -5587,7 +5726,8 @@ def phase_placed_fleets(dev, card: str, fleet16: dict) -> tuple[dict, dict]:
     launches from 0 per run (member: kernels 2 and 5 once a shard, fas 6;
     spatial: the wrap forms of 3 and, fas, 7); no twin on the card. Then
     the ``-case cavity -fleet 4 -mesh 4`` CLI against the unplaced CLI's
-    dumps (within ``SHARDED_REL``)."""
+    dumps (within ``SHARDED_REL``). Last, the shaped fleet placed by
+    ``auto`` (``placed_shaped_fleet``)."""
     case, size, b = FLEET18
     start = cases.make_sim(case, level=(size // 8).bit_length() - 1,
                            members=b, device=dev).state
@@ -5685,6 +5825,12 @@ def phase_placed_fleets(dev, card: str, fleet16: dict) -> tuple[dict, dict]:
                                               for k, r in runs.items()}}
     print(f"phase 18 cli {json.dumps(out['cli'])}", flush=True)
     shutil.rmtree(PHASE18_DIR)
+    t0 = time.perf_counter()
+    out["shaped"], sl = placed_shaped_fleet(dev, card, mesh)
+    print(f"phase 18 shaped fleet seconds {time.perf_counter() - t0}",
+          flush=True)
+    for k, c in sl.items():
+        launches[k] = launches.get(k, 0) + c
     out["digests"] = digests
     return out, launches
 
@@ -6588,6 +6734,9 @@ def main(argv=None) -> int:
             dev, forest_warm, card, fleet_digests=(
                 pd_mesh["fleets"].pop("digests") if 18 in run else None))
         print(f"phase 19 took {time.perf_counter() - t0} s", flush=True)
+    if pd_mesh is not None:
+        # phase 18's fleet digests (tensors on the card) serve phase 19 only
+        pd_mesh["fleets"].pop("digests", None)
 
     elastic_runs, elastic_launches = None, {}
     if 20 in run:

@@ -241,8 +241,14 @@ LEADING_DIM_SCOPES = {
         "jacobi_halo_sweep", "jacobi_halo_sweep_plain"),
     # the split step's substage pair (flattens any leading shape before
     # the slab loop, so fleet spatial pools and the solo split sim share
-    # it) and the halo smoother behind overlap_jacobi_sweeps
+    # it), the halo smoother behind overlap_jacobi_sweeps, and the split
+    # Poisson RHS with its obstacle term (a solo [2, ny, w] slab and a
+    # spatial fleet's [B, 2, ny, w] one, dt a scalar or [B, 1, 1])
     "parallel/shard_halo.py": ("fused_advect_heun_sharded",
                                "overlap_jacobi_sweeps", "sweep_slabs",
-                               "sweep_exchanged"),
+                               "sweep_exchanged", "divergence_bc_x",
+                               "_divergence_x"),
+    # the obstacle terms' two entry points: one penalization and one RHS
+    # for the solo step, every fleet layout and the split step's slabs
+    "uniform.py": ("UniformGrid.penalize", "UniformGrid.poisson_rhs"),
 }

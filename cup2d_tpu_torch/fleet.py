@@ -181,8 +181,8 @@ class FleetSim:
     Without a mesh ``placement`` is ``"single"``. The dt row, the clocks,
     the active mask and the diagnostics stay whole on the first device;
     ``set_state`` takes a whole fleet state (the global layout of
-    checkpoints and dumps) and places it. Shaped fleets take no spatial
-    placement (the split step has no obstacle terms)."""
+    checkpoints and dumps) and places it. A shaped fleet takes either
+    placement: its chi, us and udef are placed like the flow fields."""
 
     def __init__(self, cfg: SimConfig, level: Optional[int] = None,
                  members: int = 1, shaped: bool = False, bc=None,
@@ -222,10 +222,6 @@ class FleetSim:
             if placement not in ("member", "spatial"):
                 raise ValueError(f"placement {placement!r}: expected "
                                  "auto|member|spatial")
-            if placement == "spatial" and self.shaped:
-                raise NotImplementedError(
-                    "a shaped fleet on spatial placement: the split step "
-                    "has no obstacle terms (use member placement)")
         else:
             placement = "single"
         self.placement = placement
@@ -422,10 +418,8 @@ class FleetSim:
         if self.shaped:
             # Brinkman penalization on the member axis, the scalar chain
             # of UniformGrid.step's obstacle terms
-            alpha = torch.where(state.chi > 0.5,
-                                1.0 / (1.0 + g.cfg.lam * dt3),
-                                torch.ones_like(state.chi))
-            vel = alpha[:, None] * vel + (1.0 - alpha)[:, None] * state.us
+            vel = on(lambda gd, *a: gd.penalize(*a))(
+                vel, state.chi, state.us, dt3)
             b = on(lambda gd, *a: gd.poisson_rhs(*a))(
                 vel, state.chi, state.udef, dt3)
         else:
@@ -490,7 +484,8 @@ class FleetSim:
         """``_step_impl`` on fields split along x (``Slabs`` of
         [B, ..., Nx/D]): the split step of ``ShardedUniformSim`` with the
         member axis riding along (the halo kernels at L = B, a dt per
-        member in their facs), the member solvers on
+        member in their facs), a shaped fleet's penalization slab by slab
+        and its chi-weighted RHS in the split form, the member solvers on
         ``slab_member_reducers``, the split epilogue's means per member,
         and every per-member reduction combined across the slabs onto the
         first device."""
@@ -501,7 +496,12 @@ class FleetSim:
         if active is not None:
             dt = torch.where(active, dt, torch.ones_like(dt))
         vel = g.advect_heun(state.vel, dt)
-        b = g.poisson_rhs(vel, None, None, dt[:, None, None])
+        dt3 = dt[:, None, None]
+        if self.shaped:
+            vel = g.penalize(vel, state.chi, state.us, dt3)
+            b = g.poisson_rhs(vel, state.chi, state.udef, dt3)
+        else:
+            b = g.poisson_rhs(vel, None, None, dt3)
         div_linf = self._member_linf(b) * (dt / (h * h))
         b = b - g.laplacian(state.pres)
         if active is not None:

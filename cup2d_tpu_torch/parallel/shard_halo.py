@@ -580,27 +580,40 @@ def laplacian5_bc_x(p: Slabs, signs=None,
                   in enumerate(zip(p.parts, _walls(p, px)))], p.mesh)
 
 
-def divergence_bc_x(v: Slabs, h, dt, coeffs=None,
-                    affine: Slabs = None, periodic=(False, False)) -> Slabs:
-    """The obstacle-free pressure RHS (h/2dt) [div(u*) + affine] of a split
-    velocity (``UniformGrid.poisson_rhs`` with chi None): one edge column
-    of u exchanged, then ``divergence_bc_slab`` with a table's
-    ``coeffs`` (bc.divergence_coeffs; None: free-slip) on every shard, the
-    x wall terms on the wall shards only; ``affine`` is the table's
-    constant term of prescribed wall-normal velocities
-    (bc.divergence_affine_bc, split like the field), added scaled as the
-    whole-field RHS adds it. ``periodic`` as in ``laplacian5_bc_x``. dt
-    is a scalar, or [B, 1, 1] for a member stack [B, 2, Ny, w]."""
-    coeffs = FREE_SLIP_COEFFS if coeffs is None else coeffs
+def _divergence_x(v: Slabs, coeffs, periodic) -> Slabs:
+    """``ops.stencil.divergence_bc`` of a split velocity: one edge column
+    of u exchanged, then ``divergence_bc_slab`` on every shard."""
     px, py = periodic
     aux = exchange_x(v, 1, px)
-    div = Slabs([divergence_bc_slab(part, aux[d], coeffs, lo, hi, py)
-                 for d, (part, (lo, hi))
-                 in enumerate(zip(v.parts, _walls(v, px)))], v.mesh)
+    return Slabs([divergence_bc_slab(part, aux[d], coeffs, lo, hi, py)
+                  for d, (part, (lo, hi))
+                  in enumerate(zip(v.parts, _walls(v, px)))], v.mesh)
+
+
+def divergence_bc_x(v: Slabs, h, dt, coeffs=None,
+                    affine: Slabs = None, periodic=(False, False),
+                    chi: Slabs = None, udef: Slabs = None) -> Slabs:
+    """The pressure RHS (h/2dt) [div(u*) + affine - chi div(u_def)] of a
+    split velocity (``UniformGrid.poisson_rhs``): one edge column of u
+    exchanged, then ``divergence_bc_slab`` with a table's ``coeffs``
+    (bc.divergence_coeffs; None: free-slip) on every shard, the x wall
+    terms on the wall shards only; ``affine`` is the table's constant term
+    of prescribed wall-normal velocities (bc.divergence_affine_bc, split
+    like the field), added scaled as the whole-field RHS adds it. ``chi``
+    (cellwise, read per slab) and ``udef`` (one more edge column
+    exchanged, the same divergence with no affine term) add the obstacle
+    term; None drops it. The terms come in the whole-field order
+    (``ops.stencil.divergence_rhs_fused`` on the free-slip table), so the
+    split RHS equals the whole one bit for bit. ``periodic`` as in
+    ``laplacian5_bc_x``. dt is a scalar, or [B, 1, 1] for member stacks
+    [B, 2, Ny, w] and [B, Ny, w]."""
+    coeffs = FREE_SLIP_COEFFS if coeffs is None else coeffs
     fac = 0.5 * h / dt
-    b = fac * div
+    b = fac * _divergence_x(v, coeffs, periodic)
     if affine is not None:
         b = b + fac * affine
+    if chi is not None:
+        b = b - (fac * chi) * _divergence_x(udef, coeffs, periodic)
     return b
 
 

@@ -5,7 +5,9 @@ a script (``python tests/test_torch_fleet_dist.py <scenario> <rank>
 <world> <port> <dir>``), and every world has a hard timeout.
 
 * Member and spatial placement, default and fas, of Taylor-Green and
-  ``turb2d`` fleets (B = 4, 32^2, f64) carried from the JAX package's
+  ``turb2d`` fleets, and spatial placement of a shaped Taylor-Green fleet
+  (frozen disks, the obstacle terms on the split step) (B = 4, 32^2,
+  f64) carried from the JAX package's
   state after its exact startup step (``convert.copy_fleet_state``): two
   production steps bit for bit the one-process 4-shard placed fleet and
   the same on both ranks, within 1e-10 of the single-device JAX
@@ -44,7 +46,9 @@ SHARDS = 4
 JAX_BAR = 1e-10
 PROD_STEPS = 2
 RUNS = [(case, mode, pl) for case in ("tg", "turb2d")
-        for mode in ("default", "fas") for pl in ("member", "spatial")]
+        for mode in ("default", "fas") for pl in ("member", "spatial")] + [
+    ("shaped", mode, "spatial") for mode in ("default", "fas")]
+CASES = ("tg", "turb2d", "shaped")
 FIELDS = ("vel", "pres")
 
 
@@ -77,10 +81,10 @@ def _fleet(case, mesh, placement):
     from cup2d_tpu_torch import cases
     from cup2d_tpu_torch.config import SimConfig
     from cup2d_tpu_torch.fleet import FleetSim, taylor_green_fleet
-    if case == "tg":
+    if case in ("tg", "shaped"):
         sim = FleetSim(SimConfig(**_tg_kw()), level=LVL, members=B,
-                       mesh=mesh, placement=placement,
-                       device=None if mesh else "cpu")
+                       shaped=case == "shaped", mesh=mesh,
+                       placement=placement, device=None if mesh else "cpu")
         sim.set_state(taylor_green_fleet(sim.grid, B))
         return sim
     ref = cases.make_sim(case, level=LVL, dtype="float64", members=B,
@@ -324,6 +328,19 @@ def _cpu4():
 # fleets: the world against one process and the JAX package
 # ---------------------------------------------------------------------------
 
+def _shaped_fields(grid, m):
+    """Member m's frozen obstacle (the recipe of tests/test_fleet_server.py
+    ``_shaped_state``): chi, us, udef as numpy arrays."""
+    xs = (np.arange(grid.nx) + 0.5) * grid.h
+    ys = (np.arange(grid.ny) + 0.5) * grid.h
+    X, Y = np.meshgrid(xs, ys)
+    chi = (((X - (0.35 + 0.1 * m)) ** 2 + (Y - 0.5) ** 2)
+           < 0.15 ** 2).astype(np.float64)
+    udef = 0.02 * np.stack([chi * np.sin(2 * np.pi * Y),
+                            chi * np.cos(2 * np.pi * X)])
+    return chi, np.stack([0.2 * chi, 0.05 * chi]), udef
+
+
 def _jax_carry_and_steps(case: str, mode: str) -> tuple:
     """The single-device JAX fleet's state after its exact startup step
     (from step 9) and its per-step fields, iterations and dt rows over the
@@ -336,9 +353,14 @@ def _jax_carry_and_steps(case: str, mode: str) -> tuple:
     from cup2d_tpu.fleet import taylor_green_fleet as jtg_fleet
     _pois(mode)
     try:
-        if case == "tg":
-            js = JFleet(JConfig(**_tg_kw()), level=LVL, members=B)
+        if case in ("tg", "shaped"):
+            js = JFleet(JConfig(**_tg_kw()), level=LVL, members=B,
+                        shaped=case == "shaped")
             js.state = jtg_fleet(js.grid, B)
+            if case == "shaped":
+                chi, us, udef = (np.stack(f) for f in zip(
+                    *(_shaped_fields(js.grid, m) for m in range(B))))
+                js.state = js.state._replace(chi=chi, us=us, udef=udef)
         else:
             js = jcases.make_sim(case, level=LVL, dtype="float64",
                                  members=B)
@@ -363,7 +385,7 @@ def _jax_carry_and_steps(case: str, mode: str) -> tuple:
 def fleet_world(tmp_path_factory):
     d = tmp_path_factory.mktemp("fleet")
     jax_steps = {}
-    for case in ("tg", "turb2d"):
+    for case in CASES:
         for mode in ("default", "fas"):
             carry, steps = _jax_carry_and_steps(case, mode)
             np.savez(d / f"carry-{case}-{mode}.npz", **carry)
@@ -406,6 +428,10 @@ def test_world_fleet_equals_one_process_and_jax(fleet_world, case, mode,
                 (tag, k, name)
     if case == "turb2d":
         assert (jsteps[-1][1] > 0).all()
+    if case == "shaped":
+        # the obstacle fields rode the split step untouched
+        assert np.array_equal(ranks[0][f"{tag}/1/chi"], carry["chi"])
+        assert carry["chi"].sum() > 0 and (jsteps[-1][1] > 0).all()
 
 
 def test_world_catalog_fleets_equal_one_process(fleet_world):

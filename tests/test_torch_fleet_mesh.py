@@ -10,7 +10,7 @@ member_cells_cap=)``), f64 on CPU meshes at 32^2, B = 4.
   unplaced port fleet bit for bit (member placement) or <= 1e-12 (spatial:
   the per-member reductions combine per-shard partials).
 * ``auto`` placement and the reference's placement errors, message for
-  message.
+  message; a shaped fleet takes spatial placement.
 * A placed fleet's checkpoint loads into an unplaced fleet and the other
   way round, bit for bit.
 * On member placement a ``FleetStepGuard`` eviction drill and a
@@ -215,9 +215,10 @@ def test_placement_policy_and_errors():
                  placement="rows")
     with pytest.raises(ValueError, match="not both"):
         FleetSim(tcfg, level=LVL, members=4, mesh=_mesh(2), device="meta")
-    with pytest.raises(NotImplementedError, match="obstacle"):
-        FleetSim(tcfg, level=LVL, members=4, mesh=_mesh(2), shaped=True,
-                 placement="spatial")
+    shaped = FleetSim(tcfg, level=LVL, members=4, mesh=_mesh(2),
+                      shaped=True, placement="spatial")
+    assert shaped.placement == "spatial"
+    assert all(isinstance(f, Slabs) for f in shaped.state)
 
 
 @pytest.mark.parametrize("placement", ["member", "spatial"])

@@ -11,8 +11,9 @@
   startup solve (at the default 1e-3 they converge in 0 iterations).
 * The split V-cycle, F-cycle and FAS cycle equal the solo ones bit for
   bit (every level split, or the coarse ones gathered).
-* The state lives as slabs of width Nx/D; the refusals are loud (a
-  periodic table refuses on a mesh; a wall-bounded one runs)."""
+* The state lives as slabs of width Nx/D; the refusals are loud (fftd
+  refuses a mesh; wall-bounded and periodic tables run, and so do the
+  obstacle terms)."""
 
 import dataclasses
 import functools
@@ -211,7 +212,13 @@ def test_geometry_and_table_refusals(monkeypatch):
     with pytest.raises(ValueError, match="cannot attach a device mesh"):
         ShardedUniformSim(_tcfg(), _cpu_mesh(2), level=LEVEL, bc=pd_fs)
     monkeypatch.delenv("CUP2D_POIS")
+    # the split step takes the obstacle terms (tests/test_torch_split_
+    # obstacle.py): with no solid (chi = 0) they leave it unchanged
     sh = ShardedUniformSim(_tcfg(), _cpu_mesh(2), level=LEVEL)
-    with pytest.raises(NotImplementedError, match="obstacle"):
-        sh.grid.step(sh.state, 1e-3)
+    sh.set_state(taylor_green_state(UniformSim(_tcfg(), level=LEVEL,
+                                               device="cpu").grid))
+    with_terms, _ = sh.grid.step(sh.state, 1e-3)
+    without, _ = sh.grid.step(sh.state, 1e-3, obstacle_terms=False)
+    for a, b in zip(unshard_state(with_terms), unshard_state(without)):
+        assert torch.equal(a, b)
 
