@@ -438,6 +438,32 @@ the result lines:
    interpreter; fails on any finding or an rc other than 0; prints the
    files scanned, the findings, the suppressed count per rule and the
    seconds of each run. Launches no kernel.
+22. f64 state on the card: (a) the f64 forms of kernels 2 (free-slip,
+   the cavity table, the doubly periodic table), 5 and 6 (Neumann,
+   signed, wrap) at 8192^2, 4 at [16384, 2, 14, 14] (per h class, nu
+   4e-5 and 1) and 8 at [16384, 8, 8] (the update, P, E and tail forms)
+   against their twins, <= 1e-12 relative to max |ref|, with kernel ms,
+   twin ms, the bound at 8 bytes a value (the FP64 operation bound for 2
+   and 4, ``timing.PEAK_F64``) and, for kernel 8, the f64 ``torch.addmm``
+   / ``torch.mm``; (b) the 8192^2 benchmark step at f64 and at f32
+   under both solvers (a warm-up and 3 timed steps each: ms a step, the
+   f64/f32 ratio, iterations, the allocator's peak); (c) ``entry()``'s
+   two fish at 1024 x 512 (initialize, 5 production steps a solver) and
+   phase 5's forest (2 production steps a solver) at f64; the f64 forms'
+   launches counted over (b) and (c), each > 0, and no twin called on an
+   f64 card tensor there (the sweep chain's twin watched under fas: the
+   default solver's preconditioner cycle is plain code by design); (d)
+   the card's f64 runs against the port's CPU f64 runs from one carried
+   state, production steps, <= 1e-10 relative with equal iterations:
+   ``UniformSim`` at 128^2 (10 steps), the flagship at 512 x 256 (its
+   startup on the card) under both solvers, phase 6's 355-block forest
+   under both (an adapt after step 2) and the cavity at 128^2 under fas;
+   (e) the split step, a spatially placed fleet and fftd at f64 on the
+   card refuse, naming ROADMAP.md's note (c), and the bf16 tier with f64
+   state refuses as in the JAX package; the CLI runs ``-dtype float64``
+   on the forest (levelMax 6) and with ``-level 5``, 2 steps each (files
+   under build/phase22, removed). ``--phases 22`` runs it alone (with
+   phases 2 and 5, which it draws on).
 
 Then one JSON line of per-kernel numbers (with, per kernel, its launches
 on the two flagship runs, the two canonical runs, phase 13's runs,
@@ -462,6 +488,7 @@ not run) and the result line with the phases it ran.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -482,13 +509,14 @@ from cup2d_tpu_torch import cases  # noqa: E402
 from cup2d_tpu_torch import amr as tamr  # noqa: E402
 from cup2d_tpu_torch.amr import (AMRSim, multilevel_forest,  # noqa: E402
                                  vortex_forest)
+from cup2d_tpu_torch import fleet as tfleet  # noqa: E402
 from cup2d_tpu_torch.convert import (copy_amr_state,  # noqa: E402
                                      copy_simulation_state,
                                      forest_from_numpy, forest_to_numpy)
 from cup2d_tpu_torch.io import whole  # noqa: E402
 from cup2d_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from cup2d_tpu_torch.ops.timing import (OPS_SWEEP_CELL,  # noqa: E402
-                                        advect_rhs_ops, bound,
+                                        PEAK_F64, advect_rhs_ops, bound,
                                         cuda_ms, graph_ms,
                                         halo_sweep_level_table,
                                         lab_weno_faces,
@@ -3128,12 +3156,14 @@ TWINS = ("advect_substage_plain", "fused_correction_plain",
 
 
 class twin_watch:
-    """Count calls of the kernels' plain twins on CUDA f32 / complex64
-    operands while the block runs (``hk``, ``poisson`` and ``shard_halo``
-    hold them)."""
+    """Count calls of the kernels' plain twins on CUDA operands of
+    ``dtypes`` (f32 / complex64 by default) while the block runs (``hk``,
+    ``poisson`` and ``shard_halo`` hold them)."""
 
-    def __init__(self, names=TWINS):
+    def __init__(self, names=TWINS,
+                 dtypes=(torch.float32, torch.complex64)):
         self.names = names
+        self.dtypes = dtypes
         self.calls = {k: 0 for k in names}
 
     def __enter__(self):
@@ -3151,7 +3181,7 @@ class twin_watch:
         def call(*args, **kw):
             t = next((a for a in args if torch.is_tensor(a)), None)
             if (t is not None and t.device.type == "cuda"
-                    and t.dtype in (torch.float32, torch.complex64)):
+                    and t.dtype in self.dtypes):
                 self.calls[name] += 1
             return fn(*args, **kw)
         return call
@@ -6519,10 +6549,555 @@ def phase_lint(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: f64 state on the card
+# ---------------------------------------------------------------------------
+
+PHASE22_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase22")
+F64_REL = 1e-12        # an f64 form against its twin, relative to max |ref|
+F64_TRAJ_REL = 1e-10   # the card's f64 run against the port's CPU f64 run
+F64_KEYS = ("fused_advect_heun+f64", "fused_correction+f64",
+            "fused_jacobi_sweeps+f64", "fused_lab_rhs+f64",
+            "fused_block_jacobi_update+f64")
+# the twins an f64 step on the card must not call on f64 operands; the
+# sweep chain's twin is watched under fas only: the default solver's
+# preconditioner cycle runs it as plain code by design (the JAX package's
+# XLA cycle, which the f32 step runs on bf16 legs)
+F64_TWINS = ("advect_substage_plain", "fused_correction_plain",
+             "fused_lab_rhs_plain", "block_jacobi_plain",
+             "block_precond_plain", "block_precond_form_plain",
+             "group_sum_plain", "advect_substage_halo_plain",
+             "jacobi_halo_sweep_plain", "tridiag_scan_plain")
+F64_UNIFORM_STEPS = 3
+F64_FLAGSHIP_STEPS = 5
+F64_FOREST_STEPS = 2
+F64_CLI_STEPS = 2
+
+
+def cfg64(cfg) -> SimConfig:
+    """``cfg`` with f64 state."""
+    return dataclasses.replace(cfg, dtype="float64")
+
+
+def f64_close(label: str, got, ref, bar: float = F64_REL) -> float:
+    """Hold an f64 output to its twin's, relative to max |ref|; returns the
+    largest absolute difference."""
+    check(got.dtype == torch.float64, f"{label}: {got.dtype} out")
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    print(f"phase 22 {label}: max_abs_err {err} (rel {rel})", flush=True)
+    check(rel <= bar, f"{label}: rel {rel} > {bar}")
+    return err
+
+
+def phase_f64_kernels(dev, res) -> None:
+    """Phase 22 (a): each f64 form against its twin on the card at the f32
+    phases' shapes (8192^2 for 2, 5 and 6, in every form; [16384, 2, 14,
+    14] and [16384, 8, 8] for 4 and 8), <= 1e-12 relative; card ms, the
+    bound at 8 bytes a value (and the FP64 operations for 2 and 4), the
+    twin's ms and, for kernel 8, the f64 library call's."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def rn(*s):
+        return torch.randn(*s, generator=gen, device=dev,
+                           dtype=torch.float64)
+
+    def note(key, err, **kw):
+        r = res.setdefault(key, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+        r.update(kw)
+
+    n8 = 8192
+    cells = n8 * n8
+    # K2: the benchmark's 8192^2 velocity widened to f64, dt = h/2
+    g32 = bench_grid(n8, n8, dev)
+    h = g32.h
+    v = bench_start(g32).vel[None].double()
+    dt = torch.tensor([0.5 * h], dtype=torch.float64, device=dev)
+    ih2 = 1.0 / (h * h)
+    for name, table in (("free-slip", None), ("cavity", BC_TABLES["cavity"]),
+                        ("doubly periodic", cases.periodic_table())):
+        got = hk.fused_advect_heun(v, h, 4e-5, dt, bc=table)
+        ref = hk.fused_advect_heun_plain(v, h, 4e-5, dt, bc=table)
+        err = f64_close(f"fused_advect_heun f64 {name} [1,2,8192,8192]",
+                        got, ref)
+        del got, ref
+        ms = cuda_ms(lambda: hk.fused_advect_heun(v, h, 4e-5, dt, bc=table),
+                     5)
+        if table is not None:
+            print(f"phase 22 fused_advect_heun f64 {name}: kernel_ms {ms}",
+                  flush=True)
+            note("fused_advect_heun+f64", err)
+            continue
+        pms = cuda_ms(lambda: hk.fused_advect_heun_plain(v, h, 4e-5, dt),
+                      1)
+        facs = hk._substage_facs(dt, h, 4e-5, (1,), 1, torch.float64, dev)
+        v1 = hk.advect_substage(v, None, facs, 0.5, ih2)
+        b = bound(80.0 * cells, substage_ops(v) + substage_ops(v1),
+                  PEAK_F64)
+        del v1
+        print(f"phase 22 fused_advect_heun f64 [1,2,8192,8192] both "
+              f"substages: kernel_ms {ms} twin_ms {pms} bound_ms {b[0]} "
+              f"({b[1]}, FP64)", flush=True)
+        note("fused_advect_heun+f64", err, ms=ms, plain_ms=pms,
+             bound_ms=b[0], bound_by=b[1], library_ms=None)
+    del v
+    torch.cuda.empty_cache()
+    # K5: unit-scale operands, pfac = -dt h / 2 at dt = h/2
+    x, p, vel = rn(1, n8, n8), rn(1, n8, n8), rn(1, 2, n8, n8)
+    scal = torch.stack([x.mean(), p.mean(), torch.tensor(
+        -0.25 * h * h, dtype=torch.float64, device=dev)]).reshape(1, 3)
+    for name, signs in (("Neumann", None), ("signed", EDGE_SIGNS),
+                        ("wrap", (0.0, 0.0, 0.0, 0.0))):
+        periodic = (signs is not None and signs[0] == 0.0,) * 2
+        got = hk.fused_correction(x, p, vel, scal, ih2, signs)
+        ref = hk.fused_correction_plain(x, p, vel, scal, ih2, signs,
+                                        periodic)
+        err = max(f64_close(f"fused_correction f64 {name} {k} "
+                            "[1,8192,8192]", a, c)
+                  for k, a, c in zip(("pres", "vel"), got, ref))
+        del got, ref
+        ms = cuda_ms(lambda: hk.fused_correction(x, p, vel, scal, ih2,
+                                                 signs), 10)
+        if signs is not None:
+            print(f"phase 22 fused_correction f64 {name}: kernel_ms {ms}",
+                  flush=True)
+            note("fused_correction+f64", err)
+            continue
+        pms = cuda_ms(lambda: hk.fused_correction_plain(
+            x, p, vel, scal, ih2), 3)
+        b = bound(56.0 * cells, OPS_CORRECTION_CELL * cells, PEAK_F64)
+        print(f"phase 22 fused_correction f64 [1,8192,8192]: kernel_ms {ms}"
+              f" twin_ms {pms} bound_ms {b[0]} ({b[1]})", flush=True)
+        note("fused_correction+f64", err, ms=ms, plain_ms=pms,
+             bound_ms=b[0], bound_by=b[1], library_ms=None)
+    del x, p, vel
+    # K6: two sweeps (the fas legs' n) from e and from zero
+    e, r = rn(n8, n8), rn(n8, n8)
+    for name, signs in (("Neumann", None), ("signed", EDGE_SIGNS),
+                        ("wrap", (0.0, 0.0, 0.0, 0.0))):
+        periodic = (signs is not None and signs[0] == 0.0,) * 2
+        for fz in (False, True):
+            got = hk.fused_jacobi_sweeps(e, r, 0.8, 2, fz, signs)
+            ref = hk.jacobi_sweeps_plain(e, r, 0.8, 2, fz, signs, periodic)
+            err = f64_close(f"fused_jacobi_sweeps f64 {name} n=2 from_zero="
+                            f"{fz} [8192,8192]", got, ref)
+            del got, ref
+            note("fused_jacobi_sweeps+f64", err)
+        ms = cuda_ms(lambda: hk.fused_jacobi_sweeps(e, r, 0.8, 2,
+                                                    edge_signs=signs), 10)
+        if signs is not None:
+            print(f"phase 22 fused_jacobi_sweeps f64 {name} n=2: kernel_ms "
+                  f"{ms}", flush=True)
+            continue
+        pms = cuda_ms(lambda: hk.jacobi_sweeps_plain(e, r, 0.8, 2), 3)
+        b = bound(24.0 * cells, OPS_SWEEP_CELL * 2 * cells, PEAK_F64)
+        print(f"phase 22 fused_jacobi_sweeps f64 [8192,8192] n=2: kernel_ms"
+              f" {ms} twin_ms {pms} bound_ms {b[0]} ({b[1]})", flush=True)
+        note("fused_jacobi_sweeps+f64", 0.0, ms=ms, plain_ms=pms,
+             bound_ms=b[0], bound_by=b[1], library_ms=None)
+    del e, r
+    torch.cuda.empty_cache()
+    # K4: labs of unit-scale velocity with phase 2's three h classes, held
+    # per class at the path's nu and at nu = 1
+    n = 16384
+    h6 = 4.0 / 2 / 8 / 64
+    dtl = torch.tensor(0.25 * h6, dtype=torch.float64, device=dev)
+    labs = [rn(n, 2, 14, 14) for _ in range(3)]
+    lab = labs[0]
+    cls = torch.arange(n, device=dev) % 3
+    hl = torch.tensor([h6, h6 / 2, 1.0], dtype=torch.float64,
+                      device=dev)[cls].reshape(n, 1, 1, 1)
+    err = 0.0
+    for nu in (4e-5, 1.0):
+        got = hk.fused_lab_rhs(lab, hl, nu, dtl)
+        ref = hk.fused_lab_rhs_plain(lab, hl, nu, dtl)
+        for c in range(3):
+            err = max(err, f64_close(
+                f"fused_lab_rhs f64 [{n},2,14,14] nu={nu} h class {c}",
+                got[cls == c], ref[cls == c]))
+    ms = graph_ms([lambda x=x: hk.fused_lab_rhs(x, hl, 4e-5, dtl)
+                   for x in labs])
+    pms = graph_ms([lambda x=x: hk.fused_lab_rhs_plain(x, hl, 4e-5, dtl)
+                    for x in labs], reps=6)
+    b = bound(2 * BYTES_LAB_RHS_BLOCK * n, advect_rhs_ops(lab), PEAK_F64)
+    print(f"phase 22 fused_lab_rhs f64 [{n},2,14,14]: kernel_ms {ms} twin_ms"
+          f" {pms} bound_ms {b[0]} ({b[1]}, FP64)", flush=True)
+    note("fused_lab_rhs+f64", err, ms=ms, plain_ms=pms, bound_ms=b[0],
+         bound_by=b[1], library_ms=None)
+    del labs, lab, got, ref
+    # K8: every form with the forest's P_inv at f64; the library's f64
+    # addmm / mm beside each
+    p_inv = torch.tensor(block_precond_matrix(8), dtype=torch.float64,
+                         device=dev)
+    pt = p_inv.T
+    sets = [(rn(n, 8, 8), rn(n, 8, 8), rn(n, 8, 8)) for _ in range(6)]
+    e, r, lap = sets[0]
+    err = f64_close(f"fused_block_jacobi_update f64 [{n},8,8]",
+                    hk.fused_block_jacobi_update(e, r, lap, p_inv),
+                    hk.block_jacobi_plain(e, r, lap, p_inv))
+    for name, args in (("P_inv r", ()), ("e + P_inv r", (e,)),
+                       ("e + P_inv (r - lap)", (e, lap))):
+        err = max(err, f64_close(
+            f"block_precond f64 {name} [{n},8,8]",
+            hk.block_precond(r, p_inv, *args),
+            hk.block_precond_form_plain(r, p_inv, *args)))
+    ms = graph_ms([lambda o=o: hk.fused_block_jacobi_update(*o, p_inv)
+                   for o in sets])
+    pms = graph_ms([lambda o=o: hk.block_jacobi_plain(*o, p_inv)
+                    for o in sets])
+    lms = graph_ms([lambda o=o: torch.addmm(
+        o[0].reshape(n, 64), o[1].reshape(n, 64) - o[2].reshape(n, 64), pt)
+        for o in sets])
+    p_ms = graph_ms([lambda o=o: hk.block_precond(o[1], p_inv)
+                     for o in sets])
+    p_lms = graph_ms([lambda o=o: torch.mm(o[1].reshape(n, 64), pt)
+                      for o in sets])
+    e_ms = graph_ms([lambda o=o: hk.block_precond(o[1], p_inv, o[0])
+                     for o in sets])
+    e_lms = graph_ms([lambda o=o: torch.addmm(o[0].reshape(n, 64),
+                                              o[1].reshape(n, 64), pt)
+                      for o in sets])
+    b = bound(8.0 * (4 * 64 * n + 64 * 64), OPS_BLOCK_JACOBI_ELEM * 64 * n,
+              PEAK_F64)
+    bp = bound(8.0 * (2 * 64 * n + 64 * 64), 2 * 64 * 64 * n, PEAK_F64)
+    be = bound(8.0 * (3 * 64 * n + 64 * 64), (2 * 64 + 1) * 64 * n,
+               PEAK_F64)
+    print(f"phase 22 fused_block_jacobi_update f64 [{n},8,8]: update "
+          f"kernel_ms {ms} twin_ms {pms} addmm_ms {lms} bound_ms {b[0]} "
+          f"({b[1]}); P kernel_ms {p_ms} mm_ms {p_lms} bound_ms {bp[0]} "
+          f"({bp[1]}); E kernel_ms {e_ms} addmm_ms {e_lms} bound_ms "
+          f"{be[0]} ({be[1]})", flush=True)
+    note("fused_block_jacobi_update+f64", err, ms=ms, plain_ms=pms,
+         bound_ms=b[0], bound_by=b[1], library_ms=lms, p_ms=p_ms,
+         p_library_ms=p_lms, e_ms=e_ms, e_library_ms=e_lms)
+    del sets, e, r, lap
+    torch.cuda.empty_cache()
+
+
+def f64_uniform(dev, pois: str, dtype: str,
+                steps: int = F64_UNIFORM_STEPS) -> dict:
+    """Phase 22 (b): the 8192^2 benchmark step in ``dtype`` under one
+    solver, a warm-up and ``steps`` timed steps; the launches counted over
+    them."""
+    cfg, level = bench_cfg(8192, 8192)
+    with latched(pois):
+        g = UniformGrid(dataclasses.replace(cfg, dtype=dtype), level=level,
+                        device=dev)
+    state = g.zero_state()._replace(
+        vel=bench_start(bench_grid(8192, 8192, dev)).vel.to(g.dtype))
+    dt = torch.tensor(0.5 * g.h, dtype=g.dtype, device=dev)
+    fresh_peak()
+    before = dict(hk.launches)
+    state, diag = g.step(state, dt, obstacle_terms=False)
+    torch.cuda.synchronize()
+    iters = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, diag = g.step(state, dt, obstacle_terms=False)
+        iters.append(diag["poisson_iters"])
+    torch.cuda.synchronize()
+    out = {"dtype": dtype, "mode": g.poisson_mode,
+           "smoother": g.smoother_tier,
+           "ms_per_step": (time.perf_counter() - t0) / steps * 1e3,
+           "iters": iters, "umax": float(diag["umax"]),
+           "finite": bool(torch.isfinite(state.vel).all()),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": {k: hk.launches[k] - before[k] for k in hk.launches
+                        if hk.launches[k] != before[k]}}
+    del state, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def f64_flagship(dev, pois: str) -> dict:
+    """Phase 22 (c): ``entry()``'s two fish at 1024 x 512 in f64 under one
+    solver: ``initialize()``, then ``F64_FLAGSHIP_STEPS`` production steps
+    (the exact startup solves skipped), each timed to its end."""
+    with latched(pois):
+        sim = Simulation(entry_cfg(dtype="float64"), level=ENTRY_LEVEL,
+                         device=dev)
+    sim.initialize()
+    sim.step_count = 10
+    ms, iters, finite = [], [], True
+    for _ in range(F64_FLAGSHIP_STEPS):
+        t0 = time.perf_counter()
+        d = sim.step_once()
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        iters.append(d["poisson_iters"])
+        finite = finite and d["finite"]
+    uvw = [[s.u, s.v, s.omega] for s in sim.shapes]
+    out = {"mode": sim.poisson_mode, "shape": [sim.grid.ny, sim.grid.nx],
+           "ms_per_step": sum(ms) / len(ms), "iters": iters, "uvw": uvw,
+           "finite": bool(finite and np.isfinite(uvw).all())}
+    check(out["finite"], f"flagship f64 {pois or 'default'}: non-finite")
+    return out
+
+
+def f64_forest(dev, forest_start: tuple, pois) -> dict:
+    """Phase 22 (c): phase 5's forest in f64 under one solver, from its
+    start state, ``F64_FOREST_STEPS`` production steps timed to their
+    end."""
+    cfg, snap = forest_start
+    if pois:
+        os.environ["CUP2D_POIS"] = pois
+    try:
+        sim = AMRSim(cfg64(cfg), shapes=[], device=dev)
+    finally:
+        os.environ.pop("CUP2D_POIS", None)
+    forest_from_numpy(sim, *snap)
+    sim.step_count = 10
+    ms, iters = [], []
+    for k in range(F64_FOREST_STEPS):
+        t0 = time.perf_counter()
+        d = sim.step_once()
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        iters.append(d["poisson_iters"])
+        check(d["finite"], f"forest f64 {pois or 'default'}: non-finite at "
+              f"step {k}")
+    return {"mode": sim.poisson_mode, "blocks": len(sim.forest.blocks),
+            "ms": ms, "iters": iters}
+
+
+def f64_pair(label: str, card, cpu, steps: int, adapt_at=None) -> dict:
+    """Phase 22 (d): ``steps`` steps of a card sim and a CPU sim from one
+    state (an adapt before step ``adapt_at``); equal iterations and the
+    card's state within F64_TRAJ_REL of the CPU's."""
+    iters = {"card": [], "cpu": []}
+    for k in range(steps):
+        if k == adapt_at:
+            a, b = card.adapt(), cpu.adapt()
+            check(a == b and set(card.forest.blocks) == set(
+                cpu.forest.blocks), f"{label}: the adapts differ")
+        iters["card"].append(card.step_once()["poisson_iters"])
+        iters["cpu"].append(cpu.step_once()["poisson_iters"])
+    if isinstance(card, AMRSim):
+        (kc, a), (kp, b) = _ordered_vel(card), _ordered_vel(cpu)
+        check(kc == kp, f"{label}: ordered block keys differ")
+    else:
+        a, b = card.state.vel.cpu(), cpu.state.vel
+    rel = float((a - b).abs().max() / b.abs().max())
+    out = {"iters": iters, "vel_rel_linf": rel}
+    if hasattr(card, "shapes") and card.shapes:
+        out["uvw_rel"] = max(
+            float(np.abs(np.subtract([p.u, p.v, p.omega],
+                                     [q.u, q.v, q.omega])).max()
+                  / np.abs([q.u, q.v, q.omega]).max())
+            for p, q in zip(card.shapes, cpu.shapes))
+    print(f"phase 22 card vs CPU f64 {label} {json.dumps(out)}", flush=True)
+    check(bool(torch.isfinite(a).all()), f"{label}: non-finite")
+    check(iters["card"] == iters["cpu"], f"{label}: iterations {iters}")
+    check(rel <= F64_TRAJ_REL and out.get("uvw_rel", 0.0) <= F64_TRAJ_REL,
+          f"{label}: card vs CPU {out} > {F64_TRAJ_REL}")
+    return out
+
+
+def carry_uniform(cpu, card) -> None:
+    """One CPU production step of ``cpu`` (the solve from zero pressure),
+    then its state, clocks and cached dt given to ``card``."""
+    cpu.step_count = 10
+    cpu.step_once()
+    card.state = type(cpu.state)(*(t.to(card.grid.device)
+                                   for t in cpu.state))
+    card.time, card.step_count = cpu.time, cpu.step_count
+    card._next_dt = cpu._next_dt
+
+
+def phase_f64_cpu(dev) -> dict:
+    """Phase 22 (d): the card's f64 runs against the port's CPU f64 runs
+    from one carried state, production steps only: the exact startup
+    solves stall at the floor, and the first production solve from zero
+    pressure takes 34-92 iterations, which carry a one-ulp difference of
+    the input to 1e-9..1e-6 (on the CPU alone), where after it a one-ulp
+    difference stays below 1e-13. So the CPU makes that step and the card
+    takes its state (``carry_uniform``, ``copy_amr_state``); the flagship
+    makes its startup on the card and the CPU takes it. One start serves
+    both solvers' pairs. The runs: ``UniformSim`` at 128^2 for 10 steps,
+    the flagship at 512 x 256 under both solvers, phase 6's 355-block
+    forest under both with an adapt, and the cavity at 128^2 under fas."""
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    cfg, level = bench_cfg(128, 128)
+    card, cpu = (UniformSim(cfg64(cfg), level=level, device=d)
+                 for d in (dev, "cpu"))
+    cpu.state = bench_state(cpu.grid)
+    carry_uniform(cpu, card)
+    out["uniform 128^2"] = f64_pair("uniform 128^2", card, cpu, 10)
+    secs["uniform"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with latched(""):
+        start = Simulation(entry_cfg(dtype="float64"),
+                           level=SHAPED_CPU_LEVEL, device=dev)
+    start.initialize()
+    for _ in range(10):
+        start.step_once()
+    for pois in ("", "fas"):
+        with latched(pois):
+            card, cpu = (Simulation(entry_cfg(dtype="float64"),
+                                    level=SHAPED_CPU_LEVEL, device=d)
+                         for d in (dev, "cpu"))
+        copy_simulation_state(start, card)
+        copy_simulation_state(start, cpu)
+        out[f"flagship 512x256 {pois or 'default'}"] = f64_pair(
+            f"flagship 512x256 {pois or 'default'}", card, cpu, 5)
+    secs["flagship"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = multilevel_forest(dtype="float64", device="cpu", tol=1e-6,
+                             tol_rel=1e-5)
+    warm.step_once()
+    for pois in (None, "fas"):
+        if pois:
+            os.environ["CUP2D_POIS"] = pois
+        try:
+            card, cpu = (AMRSim(warm.cfg, shapes=[], device=d)
+                         for d in (dev, "cpu"))
+        finally:
+            os.environ.pop("CUP2D_POIS", None)
+        copy_amr_state(warm, card)
+        copy_amr_state(warm, cpu)
+        out[f"forest {len(cpu.forest.blocks)} blocks {pois or 'default'}"] \
+            = f64_pair(f"forest {pois or 'default'}", card, cpu, 5,
+                       adapt_at=2)
+    secs["forest"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with latched("fas"):
+        card, cpu = (cases.make_sim("cavity", level=4, dtype="float64",
+                                    device=d) for d in (dev, "cpu"))
+    cpu.state = cpu.grid.zero_state()._replace(
+        vel=bench_state(cpu.grid).vel)
+    carry_uniform(cpu, card)
+    out["cavity 128^2 fas"] = f64_pair("cavity 128^2 fas", card, cpu, 5)
+    secs["cavity"] = time.perf_counter() - t0
+    out["seconds"] = secs
+    print(f"phase 22 card vs CPU f64 runs took {json.dumps(secs)} s",
+          flush=True)
+    return out
+
+
+def phase_f64_refusals(dev) -> dict:
+    """Phase 22 (e): what still refuses f64 on the card raises at
+    construction, naming the ROADMAP entry (the bf16 tier with f64 state
+    as the JAX package words it); the CLI runs ``-dtype float64`` on the
+    forest default and with ``-level N`` for a few steps."""
+    from cup2d_tpu_torch import __main__ as tmain
+    cfg, level = bench_cfg(128, 128)
+    c64 = cfg64(cfg)
+    mesh = make_mesh(devices=[dev] * 2)
+    tries = {
+        "split step": lambda: ShardedUniformSim(c64, mesh, level=level),
+        "spatial fleet": lambda: tfleet.FleetSim(
+            c64, level=level, members=2, mesh=mesh, placement="spatial"),
+        "fftd": lambda: UniformGrid(c64, level=level, device=dev,
+                                    bc=cases.periodic_table()),
+        "bf16": lambda: UniformGrid(c64, level=level, device=dev)}
+    env = {"fftd": ("fftd", "f32"), "bf16": ("", "bf16")}
+    out = {}
+    for name, build in tries.items():
+        msg = None
+        with latched(*env.get(name, ("", "f32"))):
+            try:
+                build()
+            except ValueError as e:
+                msg = str(e)
+        out[name] = msg
+        print(f"phase 22 refusal {name}: {msg}", flush=True)
+        check(msg is not None, f"{name} at f64 on the card did not refuse")
+        check(("note (c)" in msg) != (name == "bf16"),
+              f"{name}: the refusal names no ROADMAP entry: {msg}")
+    shutil.rmtree(PHASE22_DIR, ignore_errors=True)
+    canon = CANON_FLAGS.format(lm=CANON_CPU_LEVELS[0],
+                               ls=CANON_CPU_LEVELS[1], tol=1e-3,
+                               rel=1e-2).split()
+    uni = FLAGSHIP_FLAGS.split()
+    for argv in (canon, uni):
+        argv[argv.index("-dtype") + 1] = "float64"
+    uni[uni.index("-level") + 1] = str(SHAPED_CPU_LEVEL)
+    for name, argv in (("forest", canon), ("uniform", uni)):
+        d = os.path.join(PHASE22_DIR, name)
+        t0 = time.perf_counter()
+        rc = tmain.main(argv + ["-shapes", ENTRY_SHAPES, "-maxSteps",
+                                str(F64_CLI_STEPS), "-output", d])
+        secs = time.perf_counter() - t0
+        from cup2d_tpu_torch.profiling import load_metrics
+        recs = [r for r in load_metrics(os.path.join(d, "metrics.jsonl"))
+                if r.get("event") == "metrics"]
+        out[f"cli {name}"] = {"rc": rc, "seconds": secs, "steps": len(recs)}
+        print(f"phase 22 CLI -dtype float64 ({name}): rc {rc}, {len(recs)} "
+              f"steps in {secs} s", flush=True)
+        check(rc == 0 and len(recs) == F64_CLI_STEPS,
+              f"CLI -dtype float64 ({name}): rc {rc}, {len(recs)} records")
+    shutil.rmtree(PHASE22_DIR, ignore_errors=True)
+    return out
+
+
+def phase_f64(dev, res, forest_start: tuple, card: str
+              ) -> tuple[dict, dict]:
+    """Phase 22: f64 state on the card. (a) the f64 forms against their
+    twins; (b) the 8192^2 step at f64 beside f32 under both solvers; (c)
+    the flagship step and phase 5's forest at f64; (d) the card's f64 runs
+    against the port's CPU f64 runs; (e) the refusals that remain and the
+    CLI. The f64 forms' launches are counted over (b) and (c), where no
+    twin may run on an f64 card tensor. Returns the summary and those
+    launch counts."""
+    t0 = time.perf_counter()
+    phase_f64_kernels(dev, res)
+    secs = {"a": time.perf_counter() - t0}
+    hk.reset_launches()
+    uniform, flagship, forest = {}, {}, {}
+    t0 = time.perf_counter()
+    for pois in ("", "fas"):
+        names = F64_TWINS + (("jacobi_sweeps_plain",) if pois else ())
+        with twin_watch(names, (torch.float64,)) as tw:
+            f64 = f64_uniform(dev, pois, "float64")
+        f32 = f64_uniform(dev, pois, "float32")
+        uniform[pois or "default"] = {"f64": f64, "f32": f32,
+                                      "ratio": f64["ms_per_step"]
+                                      / f32["ms_per_step"],
+                                      "twin_calls": tw.calls}
+        print(f"phase 22 uniform 8192^2 {pois or 'default'} "
+              f"{json.dumps(uniform[pois or 'default'])}; card {card}",
+              flush=True)
+        check(f64["finite"], f"uniform f64 {pois}: non-finite")
+        check(not any(tw.calls.values()),
+              f"uniform f64 {pois}: twins on the card {tw.calls}")
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for pois in ("", "fas"):
+        names = F64_TWINS + (("jacobi_sweeps_plain",) if pois else ())
+        with twin_watch(names, (torch.float64,)) as tw:
+            flagship[pois or "default"] = f64_flagship(dev, pois)
+            forest[pois or "default"] = f64_forest(dev, forest_start,
+                                                   pois or None)
+        check(not any(tw.calls.values()),
+              f"flagship / forest f64 {pois}: twins on the card {tw.calls}")
+    launches = {k: hk.launches[k] for k in F64_KEYS}
+    print(f"phase 22 flagship f64 {json.dumps(flagship)}", flush=True)
+    print(f"phase 22 forest f64 {json.dumps(forest)}", flush=True)
+    print(f"phase 22 f64 launches over (b) and (c) {json.dumps(launches)}",
+          flush=True)
+    for k, n in launches.items():
+        check(n > 0, f"{k}: launched no time on the f64 paths")
+    secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    versus = phase_f64_cpu(dev)
+    secs["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refusals = phase_f64_refusals(dev)
+    secs["e"] = time.perf_counter() - t0
+    print(f"phase 22 sections took {json.dumps(secs)} s", flush=True)
+    return ({"uniform": uniform, "flagship": flagship, "forest": forest,
+             "card_vs_cpu": versus, "refusals": refusals, "seconds": secs},
+            launches)
+
+
 # phase -> the phases whose results it cannot run without
 PHASE_NEEDS = {13: (2,), 15: (5, 14), 17: (5,), 18: (2,), 19: (5,),
-               20: (5,)}
-PHASES = range(2, 22)
+               20: (5,), 22: (2, 5)}
+PHASES = range(2, 23)
 
 
 def phases_of(argv: list) -> set:
@@ -6753,6 +7328,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         lint = phase_lint(card)
         print(f"phase 21 took {time.perf_counter() - t0} s", flush=True)
+    f64_runs = None
+    if 22 in run:
+        t0 = time.perf_counter()
+        f64_runs, f64_launches = phase_f64(dev, res, forest_start, card)
+        launches.update(f64_launches)
+        print(f"phase 22 took {time.perf_counter() - t0} s", flush=True)
     shutil.rmtree(PHASE14_DIR, ignore_errors=True)
     check("jax" not in sys.modules, "the smoke imported jax")
     check("validation" not in sys.modules, "the smoke imported validation")
@@ -6771,16 +7352,17 @@ def main(argv=None) -> int:
             ("forest mesh", mesh_runs if 17 in run else None),
             ("periodic mesh and placed fleets", pd_mesh),
             ("multi-process", dist_runs),
-            ("elastic recovery", elastic_runs), ("lint", lint)):
+            ("elastic recovery", elastic_runs), ("lint", lint),
+            ("f64 on the card", f64_runs)):
         if summary is not None:
             print(f"{label} summary: {json.dumps(summary)}")
     print(f"total {time.perf_counter() - t_start} s")
     if res is not None:
         kernels = [dict(
-            name=k, route="cuda", source=hk.SOURCES[hk.kernel_of(k)],
+            name=k, route="cuda", source=hk.source_of(k),
             replaces=hk.REPLACES[hk.kernel_of(k)],
             launches=launches.get(k),
-            **{k2: res[k].get(k2) for k2 in (
+            **{k2: res.get(k, {}).get(k2) for k2 in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
             on_main_path=k != "advect_diffuse_rhs",
@@ -6796,8 +7378,10 @@ def main(argv=None) -> int:
             periodic_mesh_launches=pd_launches.get(k, 0),
             dist_launches=dist_launches.get(k, 0),
             elastic_launches=elastic_launches.get(k, 0),
-            **({k2: res[k][k2] for k2 in ("ulps", "fft_ms", "aux_ms")
-                if k2 in res[k]}))
+            **({k2: res[k][k2] for k2 in ("ulps", "fft_ms", "aux_ms",
+                                          "p_ms", "p_library_ms", "e_ms",
+                                          "e_library_ms")
+                if k2 in res.get(k, {})}))
             for k in hk.launches]
         print(json.dumps({"kernels": kernels}))
     print(card)

@@ -38,8 +38,9 @@ levelMax rounds, then blends the initial velocity with the deformation
 velocity by chi.
 
 Device policy: ``AMRSim`` runs on ``cuda`` unless given ``device="cpu"``;
-without a card and without a device it raises. The card runs f32 state
-only. On the card the two forest kernels always run, on the CPU their
+without a card and without a device it raises. Both devices run f32 or
+f64 state: the forest's kernels (4, 8 and ``group_sum.cu``) have f64
+forms. On the card the two forest kernels always run, on the CPU their
 plain twins. ``torch.backends.cuda.matmul.allow_tf32`` is set False on the
 card: the structured operator's strip maps and the DCT base solve are
 full-f32 products in the reference (the block-Jacobi product P_inv r,
@@ -235,12 +236,9 @@ class AMRSim(ShapeHostMixin):
         self.forest = Forest(cfg, self.device)
         self.dtype = self.forest.dtype
         if self.device.type == "cuda":
-            if self.dtype != torch.float32:
-                raise ValueError(
-                    f"dtype {cfg.dtype} on {self.device}: the card runs "
-                    "f32 state only (f64 runs on device='cpu')")
             # the strip maps and the DCT solve are full-f32 products in
-            # the reference
+            # the reference (f64 state runs kernels 4 and 8 in their f64
+            # forms)
             torch.backends.cuda.matmul.allow_tf32 = False
         self.forest.add_field("vel", 2)
         self.forest.add_field("pres", 1)
@@ -892,9 +890,8 @@ class AMRSim(ShapeHostMixin):
         On the card kernel 8's f32 FMA chain, a row's bits whatever the
         rows of the call; on the CPU its twin's fixed-shape products.
         Either way the product is added to 0 before e, the bits of the
-        P_inv r and separate sums these forms replace. The card runs f32
-        forests only (``AMRSim`` refuses f64 there), which the kernel
-        takes; f64 runs on the CPU, through the twin."""
+        P_inv r and separate sums these forms replace. f64 forests run
+        kernel 8's f64 forms on the card, the twin on the CPU."""
         return per_shard(block_precond, r, self.p_inv, e, lap)
 
     def _fas_block_smoother(self, A, tpois=None):
@@ -1706,10 +1703,19 @@ class AMRSim(ShapeHostMixin):
     def _fix_states(self, lv, biv, bjv, st):
         """2:1 balance sweeps on ``st`` (int8) in place: the native C
         helper (``native.fix_states``, the JAX package's
-        ``cup2d_tpu/native/amr_host.c``)."""
+        ``cup2d_tpu/native/amr_host.c``) where it builds, else its Python
+        twin ``_fix_states_py``, as the JAX package falls back
+        (``native.available`` warns once and remembers the failure)."""
         cfg = self.cfg
-        native.fix_states(lv, biv, bjv, st, cfg.level_max, cfg.bpdx,
-                          cfg.bpdy)
+        if native.available():
+            native.fix_states(lv, biv, bjv, st, cfg.level_max, cfg.bpdx,
+                              cfg.bpdy)
+            return
+        keys = [(int(lv[k]), int(biv[k]), int(bjv[k]))
+                for k in range(len(st))]
+        state = {key: int(s) for key, s in zip(keys, st)}
+        self._fix_states_py(state)
+        st[:] = [state[key] for key in keys]
 
     def _fix_states_py(self, state):
         """The native helper's Python twin, on a {(l, i, j): state} dict

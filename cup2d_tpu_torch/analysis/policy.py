@@ -56,6 +56,10 @@ ENV_LATCH_SITES = {
     # the kernel build directory: latched at the first call into the
     # module-level _LATCHED list (a path, not a numerics gate)
     ("cache.py", "build_dir"): {"CUP2D_CACHE"},
+    # the regrid helper's build directory, as the JAX package reads it:
+    # latched at the first build into the module-level _CACHE list (a
+    # path, not a numerics gate; unset, cache.build_dir's)
+    ("native/__init__.py", "_lib_path"): {"CUP2D_NATIVE_CACHE"},
     # measurement entry points, not the library: dist_check's _latched
     # sets CUP2D_POIS around the construction of the sims it compares
     # and pops it after, so the latch above reads the solver the run

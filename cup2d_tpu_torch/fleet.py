@@ -82,7 +82,8 @@ from .poisson import (BiCGSTABResult, bicgstab, fft_diag_solve, mg_solve,
                       project_correct)
 from .profiling import NULL_TIMERS
 from .shapes_host import pull
-from .uniform import FlowState, UniformGrid, taylor_green_state
+from .uniform import (FlowState, UniformGrid, check_card_f64,
+                      taylor_green_state)
 
 __all__ = ["FleetRequest", "FleetServer", "FleetSim", "FlowState",
            "stack_states", "taylor_green_fleet"]
@@ -224,6 +225,9 @@ class FleetSim:
                                  "auto|member|spatial")
         else:
             placement = "single"
+        if placement == "spatial":
+            check_card_f64(device, cfg.dtype, "a fleet on spatial placement "
+                           "(the x-split step's kernels 3 and 7)")
         self.placement = placement
         self.grid = UniformGrid(cfg, level, device=device, bc=bc)
         g = self.grid

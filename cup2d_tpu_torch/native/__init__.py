@@ -4,13 +4,19 @@ copy of ``cup2d_tpu.native``.
 ``amr_host.c`` holds ``fix_states``, the 2:1-balance sweeps of
 ``AMRSim.adapt`` (the reference's C++ bookkeeping, main.cpp:4717-4861).
 It is compiled at first use with the system C compiler (``$CC``, default
-``cc -O2 -shared -fPIC``) into ``build/torch_ext/`` at the repository
-root (``CUP2D_CACHE`` where set, ``cache.build_dir``), under a name
-that hashes the source, and loaded with ctypes. The
-same path serves the CPU and the card's host. A failed build raises with
-the compiler's output: nothing falls back to the Python sweep
-(``AMRSim._fix_states_py``), which stays as the helper's twin in the
-tests.
+``cc -O2 -shared -fPIC``) into ``CUP2D_NATIVE_CACHE`` where set (read
+once, as the JAX package reads it), else ``build/torch_ext/`` at the
+repository root (``CUP2D_CACHE`` where set, ``cache.build_dir``), under a
+name that hashes the source, and loaded with ctypes. The same path serves
+the CPU and the card's host.
+
+``load`` raises with the compiler's output when the build fails.
+``available`` is what the regrid asks: it calls ``load`` once and, where
+that fails, remembers the failure (the JAX package's poisoned flag), warns
+once and charges the failed build to the flight recorder's build ledger
+(label ``native.fix_states``), so that ``AMRSim._fix_states`` runs the
+Python sweep (``AMRSim._fix_states_py``, the same result) and no adapt
+calls a failing compiler again.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -28,11 +36,19 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 CFLAGS = ("-O2", "-shared", "-fPIC")
 
 _lib = None
+# the first failed build's message (``available``), None while none failed
+_failure = None
+_CACHE: list = []       # [] until the first build, then [Path or None]
 
 
 def _lib_path() -> Path:
     tag = hashlib.sha256(_SRC.read_bytes()
                          + " ".join(CFLAGS).encode()).hexdigest()
+    if not _CACHE:
+        raw = os.environ.get("CUP2D_NATIVE_CACHE", "").strip()
+        _CACHE.append(Path(raw).expanduser().resolve() if raw else None)
+    if _CACHE[0] is not None:
+        return _CACHE[0] / f"libamr_host-{tag[:16]}.so"
     from ..cache import build_dir
     return build_dir(BUILD_DIR) / f"libamr_host-{tag[:16]}.so"
 
@@ -68,6 +84,30 @@ def load():
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32]
     _lib = lib
     return lib
+
+
+def available() -> bool:
+    """True when the helper loads (built on first use). The first failure
+    is kept: it warns once and writes one row to the build ledger, and
+    every later call returns False without running the compiler again."""
+    global _failure
+    if _lib is not None:
+        return True
+    if _failure is not None:
+        return False
+    from .. import tracing
+    t0 = time.perf_counter()
+    try:
+        load()
+        return True
+    except (RuntimeError, OSError) as e:
+        _failure = str(e)
+        with tracing.label("native.fix_states"):
+            tracing.note_build(time.perf_counter() - t0)
+        warnings.warn(f"{_failure}\nthe regrid runs the Python 2:1 sweep "
+                      "(AMRSim._fix_states_py, the same result) for the rest "
+                      "of the process", RuntimeWarning, stacklevel=2)
+        return False
 
 
 def fix_states(lvl, bi, bj, state: np.ndarray, level_max: int, bpdx: int,

@@ -15,7 +15,11 @@
 // (substage 2), facs f32. The periodic tables (cup2d_advect_substage_wrap,
 // f32) have no Pallas form: the JAX package runs them as its XLA chain
 // (uniform.py's pad_vector_field -> advect_diffuse_rhs -> heun_substage,
-// bc.pad_vector_bc's wrap), whose function this form computes.
+// bc.pad_vector_bc's wrap), whose function this form computes. The f64
+// forms (cup2d_advect_substage_f64, _bc_f64, _wrap_f64) are the three
+// above with every operand and all arithmetic in f64: the JAX package's
+// XLA chain at x64, which its Pallas gate (fused_tier_supported, f32 only)
+// sends f64 state to.
 //
 // Bound on this card: the arithmetic of the WENO reconstructions, about
 // 2 per cell and component once each face is reconstructed once (193
@@ -110,6 +114,52 @@ extern "C" int cup2d_advect_substage_wrap(const float* v, const float* vold,
             || wy != (faces.y_hi.kind == substage::PERIODIC))
         return (int)cudaErrorInvalidValue;
     return substage::launch_form<true, float, float, true>(
+        v, vold, nullptr, out, facs, L, ny, nx, cfac, ih2, 1, 1, faces, h, 0,
+        nx, vec, grid, stream);
+}
+
+// The f64 forms: v, vold, out, facs f64 and every scalar f64 (the faces'
+// wall velocities too: substage::Faces64); vec 2 for 16-byte copies (nx
+// even, v 16-byte aligned), 1 for 8-byte ones; one CTA an SM.
+extern "C" int cup2d_advect_substage_f64(const double* v, const double* vold,
+                                         double* out, const double* facs,
+                                         int L, int ny, int nx, double cfac,
+                                         double ih2, int vec, int grid,
+                                         void* stream) {
+    return substage::launch_form<false, double, double>(
+        v, vold, nullptr, out, facs, L, ny, nx, cfac, ih2, 1, 1,
+        substage::Faces64{}, 0.0, 0, nx, vec, grid, stream);
+}
+
+extern "C" int cup2d_advect_substage_bc_f64(const double* v,
+                                            const double* vold, double* out,
+                                            const double* facs, int L,
+                                            int ny, int nx, double cfac,
+                                            double ih2, double h,
+                                            substage::Faces64 faces, int vec,
+                                            int grid, void* stream) {
+    if (ny < 2 || nx < 2) return (int)cudaErrorInvalidValue;
+    return substage::launch_form<true, double, double>(
+        v, vold, nullptr, out, facs, L, ny, nx, cfac, ih2, 1, 1, faces, h, 0,
+        nx, vec, grid, stream);
+}
+
+extern "C" int cup2d_advect_substage_wrap_f64(const double* v,
+                                              const double* vold,
+                                              double* out,
+                                              const double* facs, int L,
+                                              int ny, int nx, double cfac,
+                                              double ih2, double h,
+                                              substage::Faces64 faces,
+                                              int vec, int grid,
+                                              void* stream) {
+    const bool wx = faces.x_lo.kind == substage::PERIODIC;
+    const bool wy = faces.y_lo.kind == substage::PERIODIC;
+    if (ny < 2 || nx < 2 || !(wx || wy)
+            || wx != (faces.x_hi.kind == substage::PERIODIC)
+            || wy != (faces.y_hi.kind == substage::PERIODIC))
+        return (int)cudaErrorInvalidValue;
+    return substage::launch_form<true, double, double, true>(
         v, vold, nullptr, out, facs, L, ny, nx, cfac, ih2, 1, 1, faces, h, 0,
         nx, vec, grid, stream);
 }

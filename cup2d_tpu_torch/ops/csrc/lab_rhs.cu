@@ -7,7 +7,12 @@
 // masks them.
 //
 // Replaces: cup2d_tpu/ops/pallas_kernels.py _lab_kernel (reached from
-// fused_lab_rhs), f32.
+// fused_lab_rhs), f32; and the JAX package's XLA chain at x64
+// (advect_diffuse_rhs over the labs, which its Pallas gate
+// lab_tier_supported sends f64 state to): cup2d_lab_rhs_f64, lab, h, dt,
+// nu and out f64, the same kernel on the arithmetic type T (weno.cuh's f64
+// form), 4 labs a CTA (BPC): the labs and faces of 8 would take 61 KB of
+// static shared memory, past the 48 KB a static array may hold.
 //
 // Bound on this card: per block 2 x 196 lab values read and 2 x 64 RHS
 // values written (2084 bytes with h). The arithmetic is the WENO
@@ -63,8 +68,10 @@ constexpr int BS = 8;
 constexpr int G = 3;
 constexpr int L = BS + 2 * G;                 // 14
 constexpr int PLANE = L * L;                  // 196
-constexpr int LAB = 2 * PLANE;                // floats per lab
-constexpr int BPC = 8;                        // labs per CTA
+constexpr int LAB = 2 * PLANE;                // values per lab
+// labs per CTA: 8 in f32, 4 in f64 (the same shared bytes)
+template <class T>
+constexpr int BPC_OF = sizeof(T) == sizeof(float) ? 8 : 4;
 constexpr int NF = BS + 1;                    // faces along a line
 constexpr int LINE_FACES = BS * NF;           // 72 per axis and component
 constexpr int LAB_FACES = 4 * LINE_FACES;     // 288
@@ -75,15 +82,17 @@ constexpr int FACE_WORDS = 2 * LAB_FACES;
 // labs whose face slot a thread reconstructs together, and the most
 // slots that can need a second reconstruction (the interior faces)
 constexpr int GROUP = 4;
-constexpr int QMAX = BPC * 4 * BS * (NF - 2);
+template <class T>
+constexpr int QMAX = BPC_OF<T> * 4 * BS * (NF - 2);
 // queued reconstructions a thread takes together
 constexpr int QGROUP = 4;
 static_assert(LAB % 4 == 0, "a lab is a whole number of 16-byte words");
-static_assert(BPC % GROUP == 0, "whole groups of labs");
-static_assert(BPC * LAB_FACES <= 65536, "slots fit the queue's words");
-static_assert(BPC * LAB_FACES <= 65536, "slots fit the queue's words");
+static_assert(BPC_OF<float> % GROUP == 0 && BPC_OF<double> % GROUP == 0,
+              "whole groups of labs");
+static_assert(BPC_OF<float> * LAB_FACES <= 65536,
+              "slots fit the queue's words");
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
     uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                  :: "r"(s), "l"(src) : "memory");
@@ -121,39 +130,48 @@ __device__ __forceinline__ Slot slot_of(int rem) {
 
 // the reconstruction of a slot's face in lab blk with wind sign pos, from
 // the six values at offsets -3 .. 2 from cell f (both faces' operands)
-__device__ __forceinline__ cup2d::Weno5Part face_part(const float* blk,
-                                                      const Slot& S,
-                                                      bool pos) {
-    const float* q = blk + S.at;
+template <class T>
+__device__ __forceinline__ cup2d::Weno5PartT<T> face_part(const T* blk,
+                                                          const Slot& S,
+                                                          bool pos) {
+    const T* q = blk + S.at;
     const int st = S.st;
     return cup2d::weno_face_part(pos, q[-3 * st], q[-2 * st], q[-st], q[0],
                                  q[st], q[2 * st]);
 }
 
+// T: float (the f32 form) or double (the f64 form), every operand and the
+// arithmetic; BPC<T> labs a CTA.
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-lab_rhs_kernel(const float* __restrict__ lab, const float* __restrict__ h,
-               const float* __restrict__ dt, float nu,
-               float* __restrict__ out, int n, int vec) {
-    __shared__ __align__(16) float s[BPC * LAB];
-    __shared__ float fs[BPC * FACE_WORDS];
-    __shared__ unsigned short queue[QMAX];
-    __shared__ float afac[BPC];
-    __shared__ float dfac;
+lab_rhs_kernel(const T* __restrict__ lab, const T* __restrict__ h,
+               const T* __restrict__ dt, T nu, T* __restrict__ out, int n,
+               int vec) {
+    constexpr int BPC = BPC_OF<T>;
+    constexpr int VW = 16 / sizeof(T);           // values a 16-byte copy
+    __shared__ __align__(16) T s[BPC * LAB];
+    __shared__ T fs[BPC * FACE_WORDS];
+    __shared__ unsigned short queue[QMAX<T>];
+    __shared__ T afac[BPC];
+    __shared__ T dfac;
     __shared__ int queued;
     const int n0 = blockIdx.x * BPC;
     const int nb = min(BPC, n - n0);
     const int lane = threadIdx.x & 31;
-    const float* src = lab + (size_t)n0 * LAB;
+    const T* src = lab + (size_t)n0 * LAB;
     if (vec) {
-        for (int k = threadIdx.x; k < nb * LAB / 4; k += THREADS)
-            cp_async16(s + 4 * k, src + 4 * k);
-    } else {
+        for (int k = threadIdx.x; k < nb * LAB / VW; k += THREADS)
+            cp_async16(s + VW * k, src + VW * k);
+    } else if constexpr (sizeof(T) == sizeof(float)) {
         for (int k = threadIdx.x; k < nb * LAB; k += THREADS)
             cp_async4(s + k, src + k);
+    } else {
+        for (int k = threadIdx.x; k < nb * LAB; k += THREADS)
+            storage::cp_async8(s + k, src + k);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     if (threadIdx.x < nb) {
-        const float dtv = __ldg(dt);
+        const T dtv = __ldg(dt);
         afac[threadIdx.x] = -dtv * __ldg(h + n0 + threadIdx.x);
         if (threadIdx.x == 0) {
             dfac = nu * dtv;
@@ -170,20 +188,20 @@ lab_rhs_kernel(const float* __restrict__ lab, const float* __restrict__ h,
     // cells' signs differ joins the CTA's queue
     const Slot S = slot_of(threadIdx.x);
     for (int g = 0; g < BPC; g += GROUP) {
-        cup2d::Weno5Part pa[GROUP];
+        cup2d::Weno5PartT<T> pa[GROUP];
         bool second[GROUP];
 #pragma unroll
         for (int j = 0; j < GROUP; ++j) {
-            const float* blk = s + (g + j) * LAB;
-            const bool pos_f = blk[S.wind] > 0.0f;
-            const bool pos_m = blk[S.wind - S.st] > 0.0f;
+            const T* blk = s + (g + j) * LAB;
+            const bool pos_f = blk[S.wind] > (T)0.0;
+            const bool pos_m = blk[S.wind - S.st] > (T)0.0;
             second[j] = g + j < nb && S.f > 0 && S.f < BS && pos_m != pos_f;
             pa[j] = face_part(blk, S, S.f < BS ? pos_f : pos_m);
         }
 #pragma unroll
         for (int j = 0; j < GROUP; ++j) {
-            const float a = cup2d::weno5_blend(pa[j]);
-            float* fo = fs + (g + j) * FACE_WORDS + threadIdx.x;
+            const T a = cup2d::weno5_blend(pa[j]);
+            T* fo = fs + (g + j) * FACE_WORDS + threadIdx.x;
             if (g + j < nb) {
                 if (S.f < BS) fo[0] = a;
                 if (S.f > 0 && !second[j]) fo[LAB_FACES] = a;
@@ -206,21 +224,21 @@ lab_rhs_kernel(const float* __restrict__ lab, const float* __restrict__ h,
     // f - 1, with its sign), QGROUP a thread at a time
     const int nq = queued;
     for (int t0 = 0; t0 < nq; t0 += THREADS * QGROUP) {
-        cup2d::Weno5Part pb[QGROUP];
+        cup2d::Weno5PartT<T> pb[QGROUP];
         int dst[QGROUP];
 #pragma unroll
         for (int j = 0; j < QGROUP; ++j) {
             const int t = t0 + j * THREADS + threadIdx.x;
             const int q = t < nq ? queue[t] : 0;
             const int b = q / LAB_FACES, rem = q - b * LAB_FACES;
-            const Slot T = slot_of(rem);
-            const float* blk = s + b * LAB;
-            pb[j] = face_part(blk, T, blk[T.wind - T.st] > 0.0f);
+            const Slot Q = slot_of(rem);
+            const T* blk = s + b * LAB;
+            pb[j] = face_part(blk, Q, blk[Q.wind - Q.st] > (T)0.0);
             dst[j] = t < nq ? b * FACE_WORDS + LAB_FACES + rem : -1;
         }
 #pragma unroll
         for (int j = 0; j < QGROUP; ++j) {
-            const float v = cup2d::weno5_blend(pb[j]);
+            const T v = cup2d::weno5_blend(pb[j]);
             if (dst[j] >= 0) fs[dst[j]] = v;
         }
     }
@@ -233,14 +251,14 @@ lab_rhs_kernel(const float* __restrict__ lab, const float* __restrict__ h,
         const int c = (j / (BS * BS)) & 1;
         const int cell = j % (BS * BS);
         const int y = cell / BS, x = cell % BS;
-        const float* fl = fs + b * FACE_WORDS + c * LINE_FACES;
-        const float* fr = fl + LAB_FACES;
-        const float dx = fr[y * NF + x + 1] - fl[y * NF + x];
-        const float dy = fr[2 * LINE_FACES + (y + 1) * BS + x]
-                       - fl[2 * LINE_FACES + y * BS + x];
-        const float* blk = s + b * LAB;
+        const T* fl = fs + b * FACE_WORDS + c * LINE_FACES;
+        const T* fr = fl + LAB_FACES;
+        const T dx = fr[y * NF + x + 1] - fl[y * NF + x];
+        const T dy = fr[2 * LINE_FACES + (y + 1) * BS + x]
+                   - fl[2 * LINE_FACES + y * BS + x];
+        const T* blk = s + b * LAB;
         const int at = (y + G) * L + (x + G);
-        const float* q = blk + c * PLANE + at;
+        const T* q = blk + c * PLANE + at;
         out[((size_t)(n0 + b) * 2 + c) * (BS * BS) + cell] =
             cup2d::advect_diffuse_rhs(q[0], q[-1], q[1], q[-L], q[L],
                                       blk[at], blk[PLANE + at], dx, dy,
@@ -248,14 +266,27 @@ lab_rhs_kernel(const float* __restrict__ lab, const float* __restrict__ h,
     }
 }
 
+template <class T>
+int launch(const T* lab, const T* h, const T* dt, T nu, T* out, int n,
+           void* stream) {
+    if (n <= 0) return 0;
+    const int vec = reinterpret_cast<uintptr_t>(lab) % 16 == 0;
+    lab_rhs_kernel<T><<<(n + BPC_OF<T> - 1) / BPC_OF<T>, THREADS, 0,
+                        (cudaStream_t)stream>>>(lab, h, dt, nu, out, n, vec);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int cup2d_lab_rhs(const float* lab, const float* h,
                              const float* dt, float nu, float* out, int n,
                              void* stream) {
-    if (n <= 0) return 0;
-    const int vec = reinterpret_cast<uintptr_t>(lab) % 16 == 0;
-    lab_rhs_kernel<<<(n + BPC - 1) / BPC, THREADS, 0,
-                     (cudaStream_t)stream>>>(lab, h, dt, nu, out, n, vec);
-    return (int)cudaGetLastError();
+    return launch<float>(lab, h, dt, nu, out, n, stream);
+}
+
+// The f64 form: lab, h, dt, out f64, nu f64.
+extern "C" int cup2d_lab_rhs_f64(const double* lab, const double* h,
+                                 const double* dt, double nu, double* out,
+                                 int n, void* stream) {
+    return launch<double>(lab, h, dt, nu, out, n, stream);
 }

@@ -116,6 +116,14 @@
 //   slab: along a periodic x the host passes no wall and aux holds the
 //   ring's columns, whose y rows wrap (a periodic y) or are painted at
 //   their source column's profile (the periodic channel).
+// - f64 (TI = TO = double; the free-slip, BC and wrap forms of the whole
+//   field): the arithmetic type R (storage::compute_t) is double, so the
+//   stage, the walk's registers, the queue's values, facs, cfac, ih2, h
+//   and the faces' wall velocities (FaceT<double>) are f64 and weno.cuh
+//   runs its f64 form, in the f32 form's order of operations. The stage
+//   doubles: 187 KB of shared memory a CTA, so one CTA an SM
+//   (substage_ctas), and the copies are 16 bytes (two values; nx even,
+//   v 16-byte aligned) or 8.
 
 #pragma once
 
@@ -135,15 +143,21 @@ namespace substage {
 enum FaceKind { FREE_SLIP = 0, NO_SLIP = 1, INFLOW = 2, OUTFLOW = 3,
                 PERIODIC = 4 };
 
-struct Face {
+template <class R>
+struct FaceT {
     int kind;
     int parabolic;
-    float u, v;
+    R u, v;
 };
 
-struct Faces {
-    Face x_lo, x_hi, y_lo, y_hi;
+template <class R>
+struct FacesT {
+    FaceT<R> x_lo, x_hi, y_lo, y_hi;
 };
+
+using Face = FaceT<float>;
+using Faces = FacesT<float>;
+using Faces64 = FacesT<double>;
 
 // Internal linkage for the rest in each source that includes this: two
 // libraries that shared these templates would also share launch_vec's
@@ -167,9 +181,24 @@ constexpr int CELLS = W * H;             // one component of one stage
 constexpr int QCELLS = 32;
 constexpr int QREQ = 4 * QCELLS;
 constexpr int QWORDS = QCELLS + QREQ + 8 * QCELLS;
+// a warp's queue in bytes: the cells' and requests' ints, then the values
+// in the arithmetic type R (QWORDS words for f32)
+template <class R>
+constexpr size_t QBYTES = sizeof(int) * (QCELLS + QREQ)
+                          + sizeof(R) * 8 * QCELLS;
+// the same in values of R (QWORDS for f32)
+template <class R>
+constexpr int QWORDS_OF = (int)(QBYTES<R> / sizeof(R));
+static_assert(QWORDS_OF<float> == QWORDS
+              && QBYTES<double> % sizeof(double) == 0,
+              "a warp's queue is a whole number of values");
 // two stages of (u, v) and the warps' queues
-constexpr size_t SMEM = sizeof(float) * (2 * 2 * CELLS + WARPS * QWORDS);
-constexpr int CTAS_PER_SM = 2;
+template <class R>
+constexpr size_t SMEM = sizeof(R) * (2 * 2 * CELLS + WARPS * QWORDS_OF<R>);
+// CTAs per SM: two for the f32 and bf16 forms, one for f64 (its stages
+// take 187 KB)
+template <class TI>
+constexpr int substage_ctas = storage::is_f64<TI> ? 1 : 2;
 static_assert(2 * RW <= 32, "the boundary pass puts both components of a "
                             "warp's rows on its 32 lanes");
 static_assert(TX % 32 == 0 && W % 4 == 0 && CELLS % 4 == 0,
@@ -201,11 +230,17 @@ __device__ __forceinline__ int wrap(int k, int n) {
     return m < 0 ? m + n : m;
 }
 
-template <int VEC>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+// a copy of VEC values of T: 16 bytes (four f32 or two f64 values), 8
+// (one f64) or 4 (one f32)
+template <int VEC, class T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+    constexpr int BYTES = VEC * (int)sizeof(T);
     uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-    if (VEC == 4)
+    if constexpr (BYTES == 16)
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                     :: "r"(s), "l"(src) : "memory");
+    else if constexpr (BYTES == 8)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
                      :: "r"(s), "l"(src) : "memory");
     else
         asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
@@ -230,15 +265,16 @@ __device__ __forceinline__ void cp_wait0() {
 // then nx..nx+2). Shared column i holds global x0 - XO + i. WRAP: along a
 // periodic axis (wx, wy) the cells outside the field too, from the
 // wrapped index (a slab's aux columns wrap their rows along y; a slab
-// passes wx false, its x halo being aux's).
-template <int VEC, bool WRAP = false>
-__device__ __forceinline__ void load_tile(float* st, const float* v,
-                                          const float* aux, const Tile& T,
+// passes wx false, its x halo being aux's). T: f32 (VEC 4 or 1) or f64
+// (VEC 2 or 1).
+template <int VEC, bool WRAP = false, class T_>
+__device__ __forceinline__ void load_tile(T_* st, const T_* v,
+                                          const T_* aux, const Tile& T,
                                           int ny, int nx, int is_lo,
                                           int is_hi, bool wx = false,
                                           bool wy = false) {
     const size_t plane = (size_t)ny * nx;
-    const float* src = v + (size_t)T.l * 2 * plane;
+    const T_* src = v + (size_t)T.l * 2 * plane;
     constexpr int CW = W / VEC;          // copies per shared row
     for (int q = threadIdx.x; q < 2 * H * CW; q += THREADS) {
         const int row = q / CW;          // component c, row j
@@ -265,7 +301,7 @@ __device__ __forceinline__ void load_tile(float* st, const float* v,
     const bool lo = T.x0 == 0 && !is_lo;
     const bool hi = T.x0 - XO + W > nx && !is_hi;
     if (!lo && !hi) return;
-    const float* a = aux + (size_t)T.l * 2 * ny * 2 * G;
+    const T_* a = aux + (size_t)T.l * 2 * ny * 2 * G;
     for (int q = threadIdx.x; q < 2 * H * 2 * G; q += THREADS) {
         const int row = q / (2 * G), k = q - row * (2 * G);
         const int c = row >= H;
@@ -397,11 +433,12 @@ __device__ __forceinline__ bool paints(const Tile& T, int ny, int nx,
 // Paint the free-slip ghosts of a stage whose copies have landed: the y
 // ghosts over every column, then the x ghosts of the walled sides from
 // the y-completed edge column. Ends synchronised.
-__device__ __forceinline__ void paint_ghosts(float* st, const Tile& T,
+template <class R>
+__device__ __forceinline__ void paint_ghosts(R* st, const Tile& T,
                                              int ny, int nx, bool wall_lo,
                                              bool wall_hi) {
-    float* u = st;
-    float* w = st + CELLS;
+    R* u = st;
+    R* w = st + CELLS;
     const int jhi = ny - 1 - T.y0 + G;   // shared row of gy = ny - 1
     for (int q = threadIdx.x; q < 2 * G * W; q += THREADS) {
         const int r = q / W, i = q - r * W;
@@ -439,19 +476,22 @@ __device__ __forceinline__ void paint_ghosts(float* st, const Tile& T,
 }
 
 // 4 s (1 - s), rounded as the plain profile is
-__device__ __forceinline__ float parabola(float s) {
-    return __fmul_rn(__fmul_rn(4.0f, s), __fsub_rn(1.0f, s));
+template <class R>
+__device__ __forceinline__ R parabola(R s) {
+    return storage::mul_rn(storage::mul_rn((R)4.0, s),
+                           storage::sub_rn((R)1.0, s));
 }
 
 // A face's wall velocity at profile value p: parabolic inflow scales its
 // nonzero components by p.
-__device__ __forceinline__ void wall_velocity(const Face& f, float p,
-                                              float& wu, float& wv) {
+template <class R>
+__device__ __forceinline__ void wall_velocity(const FaceT<R>& f, R p, R& wu,
+                                              R& wv) {
     wu = f.u;
     wv = f.v;
     if (f.kind == INFLOW && f.parabolic) {
-        if (wu != 0.0f) wu = __fmul_rn(wu, p);
-        if (wv != 0.0f) wv = __fmul_rn(wv, p);
+        if (wu != (R)0.0) wu = storage::mul_rn(wu, p);
+        if (wv != (R)0.0) wv = storage::mul_rn(wv, p);
     }
 }
 
@@ -461,24 +501,24 @@ __device__ __forceinline__ void wall_velocity(const Face& f, float p,
 // (no contraction): the mirror; 2 uw - edge; or edge + c (edge - inner)
 // with c = clip(sign * edge_n * dt / h, 0, 1), the outflow speed taken
 // from the edge cell, not from a ghost.
-__device__ __forceinline__ void bc_ghost(const Face& f, int nc, float sign,
-                                         float eu, float ev, float iu,
-                                         float iv, float wu, float wv,
-                                         float dt, float h, float& gu,
-                                         float& gv) {
+template <class R>
+__device__ __forceinline__ void bc_ghost(const FaceT<R>& f, int nc, R sign,
+                                         R eu, R ev, R iu, R iv, R wu, R wv,
+                                         R dt, R h, R& gu, R& gv) {
+    using namespace storage;
     if (f.kind == FREE_SLIP) {
         gu = nc == 0 ? -eu : eu;
         gv = nc == 1 ? -ev : ev;
     } else if (f.kind == OUTFLOW) {
-        const float en = nc == 0 ? eu : ev;
-        const float c = fminf(fmaxf(__fdiv_rn(__fmul_rn(__fmul_rn(sign, en),
-                                                        dt), h), 0.0f),
-                              1.0f);
-        gu = __fadd_rn(eu, __fmul_rn(c, __fsub_rn(eu, iu)));
-        gv = __fadd_rn(ev, __fmul_rn(c, __fsub_rn(ev, iv)));
+        const R en = nc == 0 ? eu : ev;
+        const R c = vmin(vmax(div_rn(mul_rn(mul_rn(sign, en), dt), h),
+                              (R)0.0),
+                         (R)1.0);
+        gu = add_rn(eu, mul_rn(c, sub_rn(eu, iu)));
+        gv = add_rn(ev, mul_rn(c, sub_rn(ev, iv)));
     } else {
-        gu = __fsub_rn(__fmul_rn(2.0f, wu), eu);
-        gv = __fsub_rn(__fmul_rn(2.0f, wv), ev);
+        gu = sub_rn(mul_rn((R)2.0, wu), eu);
+        gv = sub_rn(mul_rn((R)2.0, wv), ev);
     }
 }
 
@@ -497,16 +537,17 @@ __device__ __forceinline__ void bc_ghost(const Face& f, int nc, float sign,
 // where x is (wx) the x faces are off (wall_lo = wall_hi = false) and a
 // wrapped column's profile is its source column's (global column col0 + gx
 // mod nx_tot: a slab's ring halo columns too). Ends synchronised.
-template <bool WRAP = false>
-__device__ __forceinline__ void paint_ghosts_bc(float* st, const Tile& T,
+template <bool WRAP = false, class R>
+__device__ __forceinline__ void paint_ghosts_bc(R* st, const Tile& T,
                                                 int ny, int nx,
-                                                const Faces& F, float dt,
-                                                float h, int col0,
+                                                const FacesT<R>& F, R dt,
+                                                R h, int col0,
                                                 int nx_tot, bool wall_lo,
                                                 bool wall_hi, bool wx = false,
                                                 bool wy = false) {
-    float* u = st;
-    float* w = st + CELLS;
+    using namespace storage;
+    R* u = st;
+    R* w = st + CELLS;
     const int jhi = ny - 1 - T.y0 + G;   // shared row of gy = ny - 1
     for (int q = threadIdx.x; q < 2 * G * W; q += THREADS) {
         if constexpr (WRAP) {
@@ -526,16 +567,15 @@ __device__ __forceinline__ void paint_ghosts_bc(float* st, const Tile& T,
             e = jhi;
             in = jhi - 1;
         }
-        const Face f = lo ? F.y_lo : F.y_hi;
+        const FaceT<R> f = lo ? F.y_lo : F.y_hi;
         int gx = col0 + T.x0 - XO + i;       // the global column
         if constexpr (WRAP) {
             if (wx) gx = wrap(gx, nx_tot);
         }
-        const float p = parabola(__fdiv_rn(
-            __fadd_rn((float)gx, 0.5f), (float)nx_tot));
-        float wu, wv, gu, gv;
+        const R p = parabola(div_rn(add_rn((R)gx, (R)0.5), (R)nx_tot));
+        R wu, wv, gu, gv;
         wall_velocity(f, p, wu, wv);
-        bc_ghost(f, 1, lo ? -1.0f : 1.0f, u[e * W + i], w[e * W + i],
+        bc_ghost(f, 1, lo ? (R)-1.0 : (R)1.0, u[e * W + i], w[e * W + i],
                  u[in * W + i], w[in * W + i], wu, wv, dt, h, gu, gv);
         u[j * W + i] = gu;
         w[j * W + i] = gv;
@@ -557,13 +597,12 @@ __device__ __forceinline__ void paint_ghosts_bc(float* st, const Tile& T,
             e = ihi;
             in = ihi - 1;
         }
-        const Face f = lo ? F.x_lo : F.x_hi;
-        const float s = __fdiv_rn(__fadd_rn((float)(T.y0 - G + j), 0.5f),
-                                  (float)ny);
-        const float p = parabola(fminf(fmaxf(s, 0.0f), 1.0f));
-        float wu, wv, gu, gv;
+        const FaceT<R> f = lo ? F.x_lo : F.x_hi;
+        const R s = div_rn(add_rn((R)(T.y0 - G + j), (R)0.5), (R)ny);
+        const R p = parabola(vmin(vmax(s, (R)0.0), (R)1.0));
+        R wu, wv, gu, gv;
         wall_velocity(f, p, wu, wv);
-        bc_ghost(f, 0, lo ? -1.0f : 1.0f, u[j * W + e], w[j * W + e],
+        bc_ghost(f, 0, lo ? (R)-1.0 : (R)1.0, u[j * W + e], w[j * W + e],
                  u[j * W + in], w[j * W + in], wu, wv, dt, h, gu, gv);
         u[j * W + i] = gu;
         w[j * W + i] = gv;
@@ -574,40 +613,39 @@ __device__ __forceinline__ void paint_ghosts_bc(float* st, const Tile& T,
 // A warp's queue of deferred cells in shared memory: cells whose left x or
 // lower y face splits between two wind signs, so that the face its
 // neighbour reconstructed is not the one it needs.
+template <class R>
 struct Queue {
     int* cell;     // (row << 5) | lane
     int* req;      // (slot << 2) | (dir << 1) | component; dir 1: y
-    float* val;    // [8][QCELLS]: r0 r1 t0 t1 l0 l1 d0 d1 of each slot
+    R* val;        // [8][QCELLS]: r0 r1 t0 t1 l0 l1 d0 d1 of each slot
     int ncell, nreq;
 };
 
 // A cell's two results at o and o + plane: the update vold + cfac * rhs *
 // ih2 (one fma of cfac * rhs, rounded once to TO) or, in the single-op RHS
 // form (LAB), rhs itself.
-template <bool LAB, class TO>
+template <bool LAB, class TO, class R>
 __device__ __forceinline__ void store(TO* __restrict__ out, size_t o,
-                                      size_t plane, float rhs0, float rhs1,
-                                      float vo0, float vo1, float cfac,
-                                      float ih2) {
+                                      size_t plane, R rhs0, R rhs1, R vo0,
+                                      R vo1, R cfac, R ih2) {
     if constexpr (LAB) {
         out[o] = rhs0;
         out[o + plane] = rhs1;
     } else {
-        out[o] = storage::narrow<TO>(__fmaf_rn(cfac * rhs0, ih2, vo0));
-        out[o + plane] = storage::narrow<TO>(__fmaf_rn(cfac * rhs1, ih2,
-                                                       vo1));
+        out[o] = storage::narrow<TO>(storage::fma_rn(cfac * rhs0, ih2, vo0));
+        out[o + plane] = storage::narrow<TO>(storage::fma_rn(cfac * rhs1,
+                                                             ih2, vo1));
     }
 }
 
 // Finish the queued cells: each lane reconstructs queued faces (a cell's
 // left x or lower y face, with the cell's own sign), then finishes one
 // queued cell as the row walk finishes the others. Leaves it empty.
-template <bool LAB, class TI, class TO>
+template <bool LAB, class TI, class TO, class R>
 __device__ __forceinline__ void flush_queue(
-        Queue& Q, const float* U, const float* V, int k0,
+        Queue<R>& Q, const R* U, const R* V, int k0,
         const TI* __restrict__ vold, TO* __restrict__ out, size_t ob,
-        size_t plane, int nx, float afac, float dfac, float cfac,
-        float ih2) {
+        size_t plane, int nx, R afac, R dfac, R cfac, R ih2) {
     const int lane = threadIdx.x & 31;
     __syncwarp();
     for (int r = lane; r < Q.nreq; r += 32) {
@@ -616,8 +654,8 @@ __device__ __forceinline__ void flush_queue(
         const int cell = Q.cell[slot];
         const int kk = k0 + (cell >> 5) * W + (cell & 31);
         const int s = dir ? W : 1;
-        const float* q = (comp ? V : U) + kk;
-        const bool pos = (dir ? V : U)[kk] > 0.0f;
+        const R* q = (comp ? V : U) + kk;
+        const bool pos = (dir ? V : U)[kk] > (R)0.0;
         Q.val[(4 + 2 * dir + comp) * QCELLS + slot] = cup2d::weno_face(
             pos, q[-3 * s], q[-2 * s], q[-s], q[0], q[s], q[2 * s]);
     }
@@ -625,18 +663,18 @@ __device__ __forceinline__ void flush_queue(
     if (lane < Q.ncell) {
         const int cell = Q.cell[lane];
         const int kk = k0 + (cell >> 5) * W + (cell & 31);
-        const float* f = Q.val + lane;
+        const R* f = Q.val + lane;
         const size_t o = ob + (size_t)(cell >> 5) * nx + (cell & 31);
-        const float wu = U[kk], wv = V[kk];
-        float vo0 = wu, vo1 = wv;
+        const R wu = U[kk], wv = V[kk];
+        R vo0 = wu, vo1 = wv;
         if constexpr (!LAB) {
             vo0 = vold != nullptr ? storage::widen(vold[o]) : wu;
             vo1 = vold != nullptr ? storage::widen(vold[o + plane]) : wv;
         }
-        const float rhs0 = cup2d::advect_diffuse_rhs(
+        const R rhs0 = cup2d::advect_diffuse_rhs(
             wu, U[kk - 1], U[kk + 1], U[kk - W], U[kk + W], wu, wv,
             f[0] - f[4 * QCELLS], f[2 * QCELLS] - f[6 * QCELLS], afac, dfac);
-        const float rhs1 = cup2d::advect_diffuse_rhs(
+        const R rhs1 = cup2d::advect_diffuse_rhs(
             wv, V[kk - 1], V[kk + 1], V[kk - W], V[kk + W], wu, wv,
             f[QCELLS] - f[5 * QCELLS], f[3 * QCELLS] - f[7 * QCELLS], afac,
             dfac);
@@ -652,11 +690,11 @@ __device__ __forceinline__ void flush_queue(
 // rolled down a row at a time) and loading the row's six other x values.
 // No barrier inside: warps return early where their columns or rows lie
 // past the field. LAB: the single-op RHS's stage (load_lab) and results.
-template <bool LAB, class TI, class TO>
+template <bool LAB, class TI, class TO, class R>
 __device__ __forceinline__ void compute_tile(
-        const float* st, float* queues, const Tile& T, int ny, int nx,
+        const R* st, R* queues, const Tile& T, int ny, int nx,
         const TI* __restrict__ vold, TO* __restrict__ out,
-        float afac, float dfac, float cfac, float ih2) {
+        R afac, R dfac, R cfac, R ih2) {
     constexpr unsigned FULL = 0xffffffffu;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int wx = warp % WARPS_X, wy = warp / WARPS_X;
@@ -664,40 +702,40 @@ __device__ __forceinline__ void compute_tile(
     const int y = T.y0 + wy * RW;        // and first row
     if (x >= nx || y >= ny) return;
     const int rows = min(RW, ny - y);
-    const float* U = st;
-    const float* V = st + CELLS;
+    const R* U = st;
+    const R* V = st + CELLS;
     constexpr int X0 = LAB ? G : XO;     // the stage column of global x0
     const int k0 = (wy * RW + G) * W + wx * 32 + X0;   // lane 0, row 0
-    Queue Q;
-    Q.cell = reinterpret_cast<int*>(queues + warp * QWORDS);
+    Queue<R> Q;
+    Q.cell = reinterpret_cast<int*>(queues + warp * QWORDS_OF<R>);
     Q.req = Q.cell + QCELLS;
-    Q.val = reinterpret_cast<float*>(Q.req + QREQ);
+    Q.val = reinterpret_cast<R*>(Q.req + QREQ);
     Q.ncell = Q.nreq = 0;
 
     // lane 0's left faces: lane k < RW holds row k of u, lane RW + k row k
     // of v, reconstructed with that row's own u sign
-    float lb;
+    R lb;
     {
         const int kb = k0 + (lane % RW) * W;
-        const float* q = (lane < RW ? U : V) + kb;
-        lb = cup2d::weno_face(U[kb] > 0.0f, q[-3], q[-2], q[-1], q[0], q[1],
+        const R* q = (lane < RW ? U : V) + kb;
+        lb = cup2d::weno_face(U[kb] > (R)0.0, q[-3], q[-2], q[-1], q[0], q[1],
                               q[2]);
     }
     // the column windows at row 0, and its lower faces with its own v sign
     const int k = k0 + lane;
-    float yu[2 * G + 1], yv[2 * G + 1];
+    R yu[2 * G + 1], yv[2 * G + 1];
 #pragma unroll
     for (int m = 0; m <= 2 * G; ++m) {
         yu[m] = U[k + (m - G) * W];
         yv[m] = V[k + (m - G) * W];
     }
-    bool py = yv[G] > 0.0f;
-    const cup2d::Weno5Part pd0 = cup2d::weno_face_part(
+    bool py = yv[G] > (R)0.0;
+    const cup2d::Weno5PartT<R> pd0 = cup2d::weno_face_part(
         py, yu[0], yu[1], yu[2], yu[3], yu[4], yu[5]);
-    const cup2d::Weno5Part pd1 = cup2d::weno_face_part(
+    const cup2d::Weno5PartT<R> pd1 = cup2d::weno_face_part(
         py, yv[0], yv[1], yv[2], yv[3], yv[4], yv[5]);
-    float d0 = cup2d::weno5_blend(pd0);
-    float d1 = cup2d::weno5_blend(pd1);
+    R d0 = cup2d::weno5_blend(pd0);
+    R d1 = cup2d::weno5_blend(pd1);
 
     const size_t plane = (size_t)ny * nx;
     const size_t ob = (size_t)T.l * 2 * plane + (size_t)y * nx + x;
@@ -714,44 +752,44 @@ __device__ __forceinline__ void compute_tile(
             yu[2 * G] = U[kj + G * W];
             yv[2 * G] = V[kj + G * W];
         }
-        float xu[2 * G + 1], xv[2 * G + 1];
+        R xu[2 * G + 1], xv[2 * G + 1];
 #pragma unroll
         for (int m = 0; m <= 2 * G; ++m) {
             xu[m] = m == G ? yu[G] : U[kj + m - G];
             xv[m] = m == G ? yv[G] : V[kj + m - G];
         }
         const size_t o = ob + (size_t)j * nx + lane;
-        float vo0 = yu[G], vo1 = yv[G];
+        R vo0 = yu[G], vo1 = yv[G];
         if constexpr (!LAB) {
             if (vold != nullptr && xin) {
                 vo0 = storage::widen(vold[o]);
                 vo1 = storage::widen(vold[o + plane]);
             }
         }
-        const float wu = yu[G], wv = yv[G];
-        const bool px = wu > 0.0f, pyj = wv > 0.0f;
+        const R wu = yu[G], wv = yv[G];
+        const bool px = wu > (R)0.0, pyj = wv > (R)0.0;
         // right and upper faces, with this cell's signs: the four parts,
         // then the four blends (weno.cuh)
-        const cup2d::Weno5Part pr0 = cup2d::weno_face_part(
+        const cup2d::Weno5PartT<R> pr0 = cup2d::weno_face_part(
             px, xu[1], xu[2], xu[3], xu[4], xu[5], xu[6]);
-        const cup2d::Weno5Part pr1 = cup2d::weno_face_part(
+        const cup2d::Weno5PartT<R> pr1 = cup2d::weno_face_part(
             px, xv[1], xv[2], xv[3], xv[4], xv[5], xv[6]);
-        const cup2d::Weno5Part pt0 = cup2d::weno_face_part(
+        const cup2d::Weno5PartT<R> pt0 = cup2d::weno_face_part(
             pyj, yu[1], yu[2], yu[3], yu[4], yu[5], yu[6]);
-        const cup2d::Weno5Part pt1 = cup2d::weno_face_part(
+        const cup2d::Weno5PartT<R> pt1 = cup2d::weno_face_part(
             pyj, yv[1], yv[2], yv[3], yv[4], yv[5], yv[6]);
-        const float r0 = cup2d::weno5_blend(pr0);
-        const float r1 = cup2d::weno5_blend(pr1);
-        const float t0 = cup2d::weno5_blend(pt0);
-        const float t1 = cup2d::weno5_blend(pt1);
+        const R r0 = cup2d::weno5_blend(pr0);
+        const R r1 = cup2d::weno5_blend(pr1);
+        const R t0 = cup2d::weno5_blend(pt0);
+        const R t1 = cup2d::weno5_blend(pt1);
         // left faces: the left lane's right faces (lane 0: the boundary
         // pass's); lower faces: the previous row's upper faces. A cell
         // whose sign differs from the neighbour's joins the queue
         const unsigned signs = __ballot_sync(FULL, px);
-        float l0 = __shfl_up_sync(FULL, r0, 1);
-        float l1 = __shfl_up_sync(FULL, r1, 1);
-        const float b0 = __shfl_sync(FULL, lb, j);
-        const float b1 = __shfl_sync(FULL, lb, j + RW);
+        R l0 = __shfl_up_sync(FULL, r0, 1);
+        R l1 = __shfl_up_sync(FULL, r1, 1);
+        const R b0 = __shfl_sync(FULL, lb, j);
+        const R b1 = __shfl_sync(FULL, lb, j + RW);
         if (lane == 0) {
             l0 = b0;
             l1 = b1;
@@ -771,7 +809,7 @@ __device__ __forceinline__ void compute_tile(
             if (xm || ym) {
                 const int slot = Q.ncell + __popc(bc & below);
                 Q.cell[slot] = (j << 5) | lane;
-                float* f = Q.val + slot;
+                R* f = Q.val + slot;
                 f[0] = r0;
                 f[QCELLS] = r1;
                 f[2 * QCELLS] = t0;
@@ -794,10 +832,10 @@ __device__ __forceinline__ void compute_tile(
             Q.nreq += nr;
         }
         if (xin && !xm && !ym) {
-            const float rhs0 = cup2d::advect_diffuse_rhs(
+            const R rhs0 = cup2d::advect_diffuse_rhs(
                 yu[G], xu[G - 1], xu[G + 1], yu[G - 1], yu[G + 1], wu, wv,
                 r0 - l0, t0 - d0, afac, dfac);
-            const float rhs1 = cup2d::advect_diffuse_rhs(
+            const R rhs1 = cup2d::advect_diffuse_rhs(
                 yv[G], xv[G - 1], xv[G + 1], yv[G - 1], yv[G + 1], wu, wv,
                 r1 - l1, t1 - d1, afac, dfac);
             store<LAB>(out, o, plane, rhs0, rhs1, vo0, vo1, cfac, ih2);
@@ -821,21 +859,28 @@ __device__ __forceinline__ void compute_tile(
 // launch argument vec (4: 8 bytes, 1: 2 bytes). LAB (f32, VEC 0, not BC):
 // the single-op RHS, v a lab [L, 2, ny + 6, nx + 6] copied by vec (2: 8
 // bytes, 1: 4 bytes), facs [2] shared by the members, out = rhs. WRAP
-// (f32, BC): the wrap form, the faces of kind PERIODIC making their axes
-// wrap; of a slab (aux given), x comes from aux and only y wraps.
+// (f32 or f64, BC): the wrap form, the faces of kind PERIODIC making their
+// axes wrap; of a slab (aux given), x comes from aux and only y wraps.
+// f64 (TI = TO = double, VEC 2: 16 bytes, 1: 8 bytes): everything in f64,
+// facs, cfac, ih2, h and faces too (R = storage::compute_t<TI>).
 template <int VEC, bool BC, class TI, class TO, bool LAB = false,
           bool WRAP = false>
-__global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
+__global__ void __launch_bounds__(THREADS, substage_ctas<TI>)
 substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
                 const TI* __restrict__ aux, TO* __restrict__ out,
-                const float* __restrict__ facs, int L, int ny, int nx,
-                float cfac, float ih2, int is_lo, int is_hi, Faces faces,
-                float h, int col0, int nx_tot, int vec) {
-    static_assert(!WRAP || (BC && !LAB && storage::is_f32<TI>),
-                  "the wrap form is an f32 boundary-table substage");
+                const storage::compute_t<TI>* __restrict__ facs, int L,
+                int ny, int nx, storage::compute_t<TI> cfac,
+                storage::compute_t<TI> ih2, int is_lo, int is_hi,
+                FacesT<storage::compute_t<TI>> faces,
+                storage::compute_t<TI> h, int col0, int nx_tot, int vec) {
+    using R = storage::compute_t<TI>;
+    static_assert(!WRAP || (BC && !LAB && !storage::is_bf16<TI>),
+                  "the wrap form is an f32 or f64 boundary-table substage");
+    static_assert(!storage::is_f64<TI> || (!LAB && storage::is_f64<TO>),
+                  "an f64 substage reads and writes f64");
     constexpr int FS = LAB ? 0 : BC ? 3 : 2;   // facs per member
     extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
+    R* smem = reinterpret_cast<R*>(smem4);
     const int tiles = L * ((ny + TY - 1) / TY) * ((nx + TX - 1) / TX);
     int t = blockIdx.x;
     if (t >= tiles) return;
@@ -847,7 +892,7 @@ substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
     // only a whole field wraps x inside its own columns
     const bool lwx = wx && aux == nullptr;
     Tile T = tile_at(t, ny, nx);
-    if constexpr (storage::is_f32<TI>) {
+    if constexpr (!storage::is_bf16<TI>) {
         if constexpr (LAB)
             load_lab(smem, v, T, ny, nx, vec == 2);
         else
@@ -855,7 +900,7 @@ substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
                                  wy);
         cp_commit();
         for (int s = 0; t < tiles; t += gridDim.x, s ^= 1) {
-            float* st = smem + s * 2 * CELLS;
+            R* st = smem + s * 2 * CELLS;
             const int nt = t + gridDim.x;
             Tile N = T;
             if (nt < tiles) {
@@ -926,11 +971,11 @@ substage_kernel(const TI* __restrict__ v, const TI* __restrict__ vold,
 // Launch on a stream: the grid's persistent CTAs, 1 .. the number of tiles.
 // Returns the CUDA error code.
 template <int VEC, bool BC, class TI, class TO, bool LAB = false,
-          bool WRAP = false>
+          bool WRAP = false, class R = storage::compute_t<TI>>
 int launch_vec(const TI* v, const TI* vold, const TI* aux, TO* out,
-               const float* facs, int L, int ny, int nx, float cfac,
-               float ih2, int is_lo, int is_hi, const Faces& fc, float h,
-               int col0, int nx_tot, int vec, int grid, cudaStream_t st) {
+               const R* facs, int L, int ny, int nx, R cfac, R ih2,
+               int is_lo, int is_hi, const FacesT<R>& fc, R h, int col0,
+               int nx_tot, int vec, int grid, cudaStream_t st) {
     // above 48 KB of shared memory once per device (a bit per ordinal)
     static unsigned long long opted_in = 0;
     int dev = 0;
@@ -939,29 +984,43 @@ int launch_vec(const TI* v, const TI* vold, const TI* aux, TO* out,
     if (!(dev < 64 && (opted_in >> dev & 1))) {
         err = cudaFuncSetAttribute(
             substage_kernel<VEC, BC, TI, TO, LAB, WRAP>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM<R>);
         if (err != cudaSuccess) return (int)err;
         if (dev < 64) opted_in |= 1ull << dev;
     }
     substage_kernel<VEC, BC, TI, TO, LAB, WRAP>
-        <<<grid, THREADS, SMEM, st>>>(
+        <<<grid, THREADS, SMEM<R>, st>>>(
         v, vold, aux, out, facs, L, ny, nx, cfac, ih2, is_lo, is_hi, fc, h,
         col0, nx_tot, vec);
     return (int)cudaGetLastError();
 }
 
 // vec 4: 16-byte copies for f32 (nx a multiple of 4, v 16-byte aligned),
-// 8-byte ones for bf16 (nx a multiple of 4, v 8-byte aligned); vec 1:
-// 4-byte copies for f32, 2-byte loads for bf16. WRAP: the wrap form (f32).
-template <bool BC, class TI, class TO, bool WRAP = false>
+// 8-byte ones for bf16 (nx a multiple of 4, v 8-byte aligned); vec 2:
+// 16-byte copies for f64 (nx even, v 16-byte aligned); vec 1: 4-byte
+// copies for f32, 8-byte ones for f64, 2-byte loads for bf16. WRAP: the
+// wrap form (f32 or f64).
+template <bool BC, class TI, class TO, bool WRAP = false,
+          class R = storage::compute_t<TI>>
 int launch_form(const TI* v, const TI* vold, const TI* aux, TO* out,
-                const float* facs, int L, int ny, int nx, float cfac,
-                float ih2, int is_lo, int is_hi, const Faces& fc, float h,
-                int col0, int nx_tot, int vec, int grid, void* stream) {
-    if (L < 1 || ny < 1 || nx < 1 || grid < 1 || (vec == 4 && nx % 4))
+                const R* facs, int L, int ny, int nx, R cfac, R ih2,
+                int is_lo, int is_hi, const FacesT<R>& fc, R h, int col0,
+                int nx_tot, int vec, int grid, void* stream) {
+    if (L < 1 || ny < 1 || nx < 1 || grid < 1 || (vec == 4 && nx % 4)
+            || (vec == 2 && nx % 2))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    if constexpr (storage::is_f32<TI>) {
+    if constexpr (storage::is_f64<TI>) {
+        if (vec == 2)
+            return launch_vec<2, BC, TI, TO, false, WRAP>(
+                v, vold, aux, out, facs, L, ny, nx, cfac, ih2, is_lo, is_hi,
+                fc, h, col0, nx_tot, vec, grid, st);
+        if (vec == 1)
+            return launch_vec<1, BC, TI, TO, false, WRAP>(
+                v, vold, aux, out, facs, L, ny, nx, cfac, ih2, is_lo, is_hi,
+                fc, h, col0, nx_tot, vec, grid, st);
+        return (int)cudaErrorInvalidValue;
+    } else if constexpr (storage::is_f32<TI>) {
         if (vec == 4)
             return launch_vec<4, BC, TI, TO, false, WRAP>(
                 v, vold, aux, out, facs, L, ny, nx, cfac, ih2, is_lo, is_hi,

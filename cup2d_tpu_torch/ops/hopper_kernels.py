@@ -104,6 +104,19 @@ bf16 slabs (aux in bf16; free-slip or a table), and ``fused_jacobi_sweeps`` and
 The dtype of the operands selects the form. Their twins widen to f32, run
 the f32 twin and round where the kernel rounds.
 
+Five kernels also have an f64 form, for f64 state on the card (a C entry
+of its own, in the same source but for the sweep chain's,
+``jacobi_f64.cu``; the arithmetic type a template parameter of the
+kernel, in the f32 form's order of operations): the free-slip,
+boundary-table and wrap forms of ``fused_advect_heun``, ``fused_correction``
+and ``fused_jacobi_sweeps``, and ``fused_lab_rhs``,
+``fused_block_jacobi_update`` and ``block_precond`` (every form). The JAX
+package runs f64 state on its XLA chains (its Pallas gates take f32
+only), whose function these forms compute; their twins are the f32 forms'
+twins, which run at the operands' dtype. The halo kernels (3, 7) and
+``tridiag.cu`` take no f64: the split steps and fftd refuse f64 state on
+the card before they allocate (``uniform.check_card_f64``).
+
 Dispatch is by the device of the tensors alone: CPU tensors run the plain
 twin (the same op sequence as the JAX package's XLA chain, which the CPU
 tests hold against JAX); CUDA tensors launch the kernel or raise. There is
@@ -127,9 +140,9 @@ storage), ``+bc+bf16`` (both), ``+pd`` (the wrap form of a periodic
 table, which counts under ``+bc`` too) and ``+pinv`` (kernel 8 as the
 forest's block-Jacobi preconditioner, ``block_precond``: its P form
 P_inv r, its E form e + P_inv r, which counts under ``+pinv+e`` too, and
-its update form inside a preconditioner). Twin calls do not count. A
-launch runs
-on the current stream of its tensors' device.
+its update form inside a preconditioner) and ``+f64`` (an f64 form). Twin
+calls do not count. A launch runs on the current stream of its tensors'
+device.
 """
 
 from __future__ import annotations
@@ -163,7 +176,8 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # source stem -> (C entry point, ctypes argtypes)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_F, _D = ctypes.c_float, ctypes.c_double
 _ENTRIES = {
     "advect_heun": ("cup2d_advect_substage",
                     [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P]),
@@ -183,6 +197,10 @@ _ENTRIES = {
                                         _P]),
     "tridiag": ("cup2d_tridiag_scan", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "group_sum": ("cup2d_group_sum", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    # the f64 forms of the sweep chain (jacobi.cuh's kernel), a source of
+    # their own so that they compile beside jacobi.cu's instances
+    "jacobi_f64": ("cup2d_jacobi_sweeps_f64",
+                   [_P, _P, _P, _I, _I, _I, _I, _D, _I, _I, _I, _I, _P]),
 }
 
 
@@ -195,6 +213,19 @@ class _Face(ctypes.Structure):
 class _Faces(ctypes.Structure):
     """``substage::Faces``: x_lo, x_hi, y_lo, y_hi, passed by value."""
     _fields_ = [(name, _Face) for name in ("x_lo", "x_hi", "y_lo", "y_hi")]
+
+
+class _Face64(ctypes.Structure):
+    """``substage::FaceT<double>``: the f64 forms' face, its wall velocity
+    in f64."""
+    _fields_ = [("kind", ctypes.c_int), ("parabolic", ctypes.c_int),
+                ("u", ctypes.c_double), ("v", ctypes.c_double)]
+
+
+class _Faces64(ctypes.Structure):
+    """``substage::Faces64``: the f64 forms' face table, by value."""
+    _fields_ = [(name, _Face64)
+                for name in ("x_lo", "x_hi", "y_lo", "y_hi")]
 
 
 _FACE_KINDS = {"free_slip": 0, "no_slip": 1, "inflow": 2, "outflow": 3,
@@ -291,6 +322,37 @@ _FORM_ENTRIES = {
                                [_P, _I, _I, _I, _F, _I, _F, _F, _F, _F, _P]),
     "block_jacobi+pinv": ("block_jacobi", "cup2d_block_precond",
                           [_P, _P, _P, _P, _P, _I, _I, _P]),
+    # the f64 forms (f64 operands and scalars; the signs stay f32)
+    "advect_heun+f64": ("advect_heun", "cup2d_advect_substage_f64",
+                        [_P, _P, _P, _P, _I, _I, _I, _D, _D, _I, _I, _P]),
+    "advect_heun+bc+f64": ("advect_heun", "cup2d_advect_substage_bc_f64",
+                           [_P, _P, _P, _P, _I, _I, _I, _D, _D, _D,
+                            _Faces64, _I, _I, _P]),
+    "advect_heun+wrap+f64": ("advect_heun", "cup2d_advect_substage_wrap_f64",
+                             [_P, _P, _P, _P, _I, _I, _I, _D, _D, _D,
+                              _Faces64, _I, _I, _P]),
+    "correction+f64": ("correction", "cup2d_fused_correction_f64",
+                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _P]),
+    "correction+bc+f64": ("correction", "cup2d_fused_correction_signed_f64",
+                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _F, _F,
+                           _F, _F, _P]),
+    "correction+wrap+f64": ("correction", "cup2d_fused_correction_wrap_f64",
+                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _F, _F,
+                             _F, _F, _P]),
+    "jacobi+f64": ("jacobi_f64", "cup2d_jacobi_sweeps_f64",
+                   [_P, _P, _P, _I, _I, _I, _I, _D, _I, _I, _I, _I, _P]),
+    "jacobi+bc+f64": ("jacobi_f64", "cup2d_jacobi_sweeps_signed_f64",
+                      [_P, _P, _P, _I, _I, _I, _I, _D, _I, _I, _I, _I, _F,
+                       _F, _F, _F, _P]),
+    "jacobi+wrap+f64": ("jacobi_f64", "cup2d_jacobi_sweeps_wrap_f64",
+                        [_P, _P, _P, _I, _I, _I, _I, _D, _I, _I, _I, _I, _F,
+                         _F, _F, _F, _P]),
+    "lab_rhs+f64": ("lab_rhs", "cup2d_lab_rhs_f64",
+                    [_P, _P, _P, _D, _P, _I, _P]),
+    "block_jacobi+f64": ("block_jacobi", "cup2d_block_jacobi_f64",
+                         [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "block_jacobi+pinv+f64": ("block_jacobi", "cup2d_block_precond_f64",
+                              [_P, _P, _P, _P, _P, _I, _I, _P]),
 }
 
 launches = {"fused_advect_heun": 0, "fused_correction": 0,
@@ -308,7 +370,10 @@ launches = {"fused_advect_heun": 0, "fused_correction": 0,
             "advect_substage_halo+pd": 0, "jacobi_halo_sweep+pd": 0,
             "tridiag_scan": 0, "group_sum": 0,
             "fused_block_jacobi_update+pinv": 0,
-            "fused_block_jacobi_update+pinv+e": 0}
+            "fused_block_jacobi_update+pinv+e": 0,
+            "fused_advect_heun+f64": 0, "fused_correction+f64": 0,
+            "fused_jacobi_sweeps+f64": 0, "fused_lab_rhs+f64": 0,
+            "fused_block_jacobi_update+f64": 0}
 
 # the TPU kernel each wrapper replaces, for reports (a boundary-table or
 # bf16 form is a form of its kernel: ``kernel_of``)
@@ -338,16 +403,19 @@ SOURCES = {
     "advect_diffuse_rhs": "cup2d_tpu_torch/ops/csrc/advect_rhs.cu",
     "tridiag_scan": "cup2d_tpu_torch/ops/csrc/tridiag.cu",
     "group_sum": "cup2d_tpu_torch/ops/csrc/group_sum.cu",
+    # a form built from a source of its own
+    "fused_jacobi_sweeps+f64": "cup2d_tpu_torch/ops/csrc/jacobi_f64.cu",
 }
 
 JACOBI_MAX_SWEEPS = 6
-# the sweeps a bf16 or a wrap chain launch may take (jacobi.cu builds
+# the sweeps a bf16, wrap or f64 chain launch may take (jacobi.cu builds
 # those alone for these forms)
 BF16_CHAIN = (6, 2, 1)
 # jacobi.cu's two tiles, (rows out, shared columns), and the CTAs of each
 # that fit on an SM (shared memory for the big one, registers for the
-# small one)
+# small one); the f64 forms' big tile has half the rows
 JACOBI_TILES = {True: (64, 128), False: (16, 32)}
+JACOBI_TILES_F64 = {True: (32, 128), False: (16, 32)}
 JACOBI_CTAS_PER_SM = {True: 1, False: 4}
 JACOBI_BIG_ROUNDS = 4
 # block_jacobi.cu's blocks per CTA round (a chunk of 8 for each of its 4
@@ -355,10 +423,17 @@ JACOBI_BIG_ROUNDS = 4
 # grid sweep)
 BLOCK_JACOBI_TILE = 32
 BLOCK_JACOBI_CTAS_PER_SM = 4
+# the f64 forms' CTAs per SM, by the operands a form streams (P 1, E 2,
+# update 3): as many as their shared memory lets an SM hold (P_inv and the
+# rings in f64 take 68, 102 and 137 KB a CTA), so that no CTA waits for a
+# second wave
+BLOCK_JACOBI_CTAS_PER_SM_F64 = {1: 3, 2: 2, 3: 1}
 # the substage kernels' tile (rows, columns out; csrc/substage.cuh) and
-# CTAs per SM (96 KB of shared memory and 128 registers a thread each)
+# CTAs per SM (96 KB of shared memory and 128 registers a thread each; the
+# f64 form's 187 KB, one)
 SUBSTAGE_TILE = (32, 128)
 SUBSTAGE_CTAS_PER_SM = 2
+SUBSTAGE_CTAS_PER_SM_F64 = 1
 
 _fns: dict = {}          # source stem (or _FORM_ENTRIES key) -> C entry
 # kernel-library builds and loads since import: one per nvcc run and one
@@ -379,9 +454,17 @@ def kernel_of(name: str) -> str:
     return name.split("+")[0]
 
 
+def source_of(name: str) -> str:
+    """The source a launch counter's form builds from: its own
+    ``SOURCES`` row where it has one, else its kernel's."""
+    return SOURCES.get(name, SOURCES[kernel_of(name)])
+
+
 def _count(name: str, bc: bool = False, bf16: bool = False,
-           pd: bool = False) -> None:
+           pd: bool = False, f64: bool = False) -> None:
     launches[name] += 1
+    if f64:
+        launches[name + "+f64"] += 1
     if pd:
         launches[name + "+pd"] += 1
     if bc:
@@ -521,18 +604,18 @@ def _wrap_axes(signs) -> tuple:
     return tuple(signs[k:k + 2] == (0.0, 0.0) for k in (0, 2))
 
 
-def _faces(bc) -> _Faces:
+def _faces(bc, f64: bool = False):
     """The kernel's by-value face table of a ``BCTable`` (a periodic face
-    is kind 4: the wrap form)."""
-    faces = _Faces()
+    is kind 4: the wrap form); ``f64``: the f64 forms' table."""
+    faces, face = (_Faces64(), _Face64) if f64 else (_Faces(), _Face)
     for name, f in zip(("x_lo", "x_hi", "y_lo", "y_hi"), bc):
         if f.kind not in _FACE_KINDS:
             raise ValueError(f"boundary table {bc.token}: face {name} of kind "
                              f"{f.kind!r} has no kernel form")
-        setattr(faces, name, _Face(_FACE_KINDS[f.kind],
-                                   int(f.kind == "inflow"
-                                       and f.profile == "parabolic"),
-                                   float(f.u_wall[0]), float(f.u_wall[1])))
+        setattr(faces, name, face(_FACE_KINDS[f.kind],
+                                  int(f.kind == "inflow"
+                                      and f.profile == "parabolic"),
+                                  float(f.u_wall[0]), float(f.u_wall[1])))
     return faces
 
 
@@ -552,8 +635,9 @@ def _sm_count(device: torch.device) -> int:
 
 def _aligned_copies(*ts) -> bool:
     """True where the operands start on the boundary of the kernels' wide
-    copies: 16 bytes for f32 (four values), 8 for bf16 (four values)."""
-    return all(t.data_ptr() % (4 * t.element_size()) == 0
+    copies: 16 bytes for f32 (four values) and f64 (two), 8 for bf16 (four
+    values)."""
+    return all(t.data_ptr() % min(4 * t.element_size(), 16) == 0
                for t in ts if t is not None)
 
 
@@ -575,6 +659,9 @@ def _on_cuda(*ts) -> bool:
 
 _F32 = (torch.float32,)
 _STORAGE = (torch.float32, torch.bfloat16)
+# the five kernels with an f64 form (2, 5, 6, 4, 8)
+_WIDE = (torch.float32, torch.float64)
+_STORAGE_WIDE = (torch.float32, torch.bfloat16, torch.float64)
 
 
 def _check(name: str, allowed=_F32, **ts) -> None:
@@ -642,16 +729,21 @@ def advect_substage_plain(v, vold, facs, cfac, ih2, bc=None, h=None,
 
 
 @functools.lru_cache(maxsize=4096)
-def substage_plan(L: int, ny: int, nx: int, sms: int,
-                  aligned: bool) -> tuple[int, int]:
+def substage_plan(L: int, ny: int, nx: int, sms: int, aligned: bool,
+                  f64: bool = False) -> tuple[int, int]:
     """Launch plan of the substage kernels (``advect_heun.cu``,
     ``advect_heun_halo.cu``) for L members of ny x nx (a slab's width for
     the halo kernel) on a card of ``sms`` SMs: (vec, grid). Copies of four
     values (16 bytes in f32, 8 in bf16) where rows are whole such words
     and v is ``aligned`` to them, else of one; persistent CTAs, as many as
-    the tiles up to the SMs' room."""
+    the tiles up to the SMs' room. ``f64``: copies of two values (16
+    bytes) where nx is even and v ``aligned``, else of one, and one CTA an
+    SM."""
     ty, tx = SUBSTAGE_TILE
     tiles = L * _cdiv(ny, ty) * _cdiv(nx, tx)
+    if f64:
+        vec = 2 if nx % 2 == 0 and aligned else 1
+        return vec, min(tiles, sms * SUBSTAGE_CTAS_PER_SM_F64)
     vec = 4 if nx % 4 == 0 and aligned else 1
     return vec, min(tiles, sms * SUBSTAGE_CTAS_PER_SM)
 
@@ -660,9 +752,9 @@ def advect_substage(v, vold, facs, cfac, ih2, bc=None, h=None,
                     out_dtype=None):
     """One substage: the kernel for CUDA tensors (its boundary-table form
     where ``bc`` is given, its wrap form where the table has a periodic
-    axis, its bf16 form for bf16 v and vold), the twin for CPU ones. Same
-    arguments and result as the twin; a periodic table has no bf16
-    form."""
+    axis, its bf16 form for bf16 v and vold, its f64 form for f64 v, vold
+    and facs), the twin for CPU ones. Same arguments and result as the
+    twin; a periodic table has no bf16 form."""
     if not _on_cuda(v, vold, facs):
         return advect_substage_plain(v, vold, facs, cfac, ih2, bc, h,
                                      out_dtype)
@@ -675,29 +767,30 @@ def advect_substage(v, vold, facs, cfac, ih2, bc=None, h=None,
                          f"[L,{cols}] (a table's ghosts need Ny, Nx >= 2)")
     if vold is not None and vold.shape != v.shape:
         raise ValueError("advect_substage: vold shape differs from v")
-    _check("advect_substage", _STORAGE, v=v, vold=vold)
-    _check("advect_substage", facs=facs)
+    _check("advect_substage", _STORAGE_WIDE, v=v, vold=vold)
+    f64 = v.dtype == torch.float64
+    _check("advect_substage", (torch.float64,) if f64 else _F32, facs=facs)
     out_dtype = _out_dtype("advect_substage", v, out_dtype)
     bf16 = v.dtype == torch.bfloat16
     wrap = bc is not None and any(periodic_axes(bc))
     if wrap and bf16:
         raise ValueError(f"advect_substage: boundary table {bc.token}: a "
                          "periodic table has no bf16 form")
-    faces = None if bc is None else _faces(bc)
+    faces = None if bc is None else _faces(bc, f64)
     out = torch.empty(v.shape, dtype=out_dtype, device=v.device)
     vec, grid = substage_plan(L, ny, nx, _sm_count(v.device),
-                              _aligned_copies(v))
+                              _aligned_copies(v), f64)
     args = (v.data_ptr(), None if vold is None else vold.data_ptr(),
             out.data_ptr(), facs.data_ptr(), L, ny, nx, float(cfac),
             float(ih2))
     form = (int(out_dtype == torch.bfloat16),) if bf16 else ()
     key = ("advect_heun" + ("" if bc is None else "+wrap" if wrap else "+bc")
-           + ("+bf16" if bf16 else ""))
+           + ("+bf16" if bf16 else "") + ("+f64" if f64 else ""))
     if bc is None:
         _launch(key, v.device, *args, *form, vec, grid)
     else:
         _launch(key, v.device, *args, float(h), faces, *form, vec, grid)
-    _count("fused_advect_heun", bc is not None, bf16, wrap)
+    _count("fused_advect_heun", bc is not None, bf16, wrap, f64)
     return out
 
 
@@ -736,7 +829,7 @@ def fused_advect_heun(vel, h, nu, dt, bc=None, bf16=False):
     """Both Heun substages (main.cpp:6607-6642). vel [..., 2, Ny, Nx]; dt a
     scalar or shaped like the leading dims (per-member dt); ``bc`` a
     ``BCTable`` (None or free-slip: the free-slip kernel; a periodic table:
-    the wrap form, f32 only).
+    the wrap form, f32 or f64). f64 state runs the f64 forms.
     ``bf16`` (f32 state only): substage 1 reads a bf16 copy vb of the
     state and writes bf16, substage 2 reads that and vb (as vold) and
     writes the f32 state; facs stay f32."""
@@ -782,8 +875,9 @@ def fused_correction_plain(x, pres_old, vel, scal, ih2, grad_signs=None,
 def fused_correction(x, pres_old, vel, scal, ih2, grad_signs=None):
     """Correction epilogue: the kernel for CUDA tensors (its signed form
     where ``grad_signs`` is given, its wrap form where they have a periodic
-    axis's (0, 0) pair), the twin for CPU ones (with those axes). Same
-    arguments and result as ``fused_correction_plain``."""
+    axis's (0, 0) pair; f32 or f64 operands, one dtype), the twin for CPU
+    ones (with those axes). Same arguments and result as
+    ``fused_correction_plain``."""
     signs = None if grad_signs is None else _signs(grad_signs)
     px, py = (False, False) if signs is None else _wrap_axes(signs)
     if not _on_cuda(x, pres_old, vel, scal):
@@ -796,19 +890,22 @@ def fused_correction(x, pres_old, vel, scal, ih2, grad_signs=None):
             f"fused_correction: x {tuple(x.shape)}, pres_old "
             f"{tuple(pres_old.shape)}, vel {tuple(vel.shape)}, scal "
             f"{tuple(scal.shape)}: expected [L,Ny,Nx] x2, [L,2,Ny,Nx], [L,3]")
-    _check("fused_correction", x=x, pres_old=pres_old, vel=vel, scal=scal)
+    _check("fused_correction", _WIDE, x=x, pres_old=pres_old, vel=vel,
+           scal=scal)
+    f64 = x.dtype == torch.float64
+    tag = "+f64" if f64 else ""
     pres = torch.empty_like(x)
     vout = torch.empty_like(vel)
     args = (x.data_ptr(), pres_old.data_ptr(), vel.data_ptr(),
             scal.data_ptr(), pres.data_ptr(), vout.data_ptr(), L, ny, nx,
             float(ih2))
     if signs is None:
-        _launch("correction", x.device, *args)
-        _count("fused_correction")
+        _launch("correction" + tag, x.device, *args)
+        _count("fused_correction", f64=f64)
         return pres, vout
-    _launch("correction+wrap" if px or py else "correction+bc", x.device,
-            *args, *signs)
-    _count("fused_correction", True, pd=px or py)
+    _launch(("correction+wrap" if px or py else "correction+bc") + tag,
+            x.device, *args, *signs)
+    _count("fused_correction", True, pd=px or py, f64=f64)
     return pres, vout
 
 
@@ -859,15 +956,16 @@ def jacobi_sweeps_bf16_plain(e, r, omega, n, from_zero=False,
     return e if cur is None else cur.to(torch.bfloat16)
 
 
-def sweep_chain(n: int, bf16: bool = False, wrap: bool = False) -> list[int]:
+def sweep_chain(n: int, bf16: bool = False, wrap: bool = False,
+                f64: bool = False) -> list[int]:
     """The sweeps of each launch of an n-sweep chain: launches of
     ``JACOBI_MAX_SWEEPS`` and one of the rest, in that order; in bf16 of
     the sizes ``BF16_CHAIN``, largest first (a bf16 chain rounds every
     sweep wherever it keeps it, so the cut does not change its result),
-    and so in the wrap form (an f32 sweep keeps in shared memory what it
-    would store in device memory: the same holds)."""
+    and so in the wrap and f64 forms (an f32 or f64 sweep keeps in shared
+    memory what it would store in device memory: the same holds)."""
     n = int(n)
-    if bf16 or wrap:
+    if bf16 or wrap or f64:
         out = []
         for k in BF16_CHAIN:
             out += [k] * (n // k)
@@ -878,8 +976,8 @@ def sweep_chain(n: int, bf16: bool = False, wrap: bool = False) -> list[int]:
 
 
 @functools.lru_cache(maxsize=4096)
-def jacobi_plan(L: int, ny: int, nx: int, n: int, sms: int,
-                aligned: bool) -> tuple[bool, int, int]:
+def jacobi_plan(L: int, ny: int, nx: int, n: int, sms: int, aligned: bool,
+                f64: bool = False) -> tuple[bool, int, int]:
     """Launch plan of ``jacobi.cu`` for an n-sweep launch on L members of
     ny x nx on a card of ``sms`` SMs: (big, vec, grid). The 128-column
     tile where the level has at least ``JACOBI_BIG_ROUNDS`` per SM (fewer
@@ -887,30 +985,39 @@ def jacobi_plan(L: int, ny: int, nx: int, n: int, sms: int,
     one (each puts out its width less twice the x halo, n rounded up to 4);
     copies of four values (16 bytes in f32, 8 in bf16) where rows are whole
     such words and the pointers ``aligned`` to them, else of one;
-    persistent CTAs, as many as the tiles up to the SMs' room."""
+    persistent CTAs, as many as the tiles up to the SMs' room. ``f64``:
+    the f64 tiles (``JACOBI_TILES_F64``) and copies of two values (16
+    bytes) where nx is even and the pointers ``aligned``."""
     hx = 4 * _cdiv(n, 4)
+    shapes = JACOBI_TILES_F64 if f64 else JACOBI_TILES
 
     def tiles(big):
-        ty, w = JACOBI_TILES[big]
+        ty, w = shapes[big]
         return L * _cdiv(ny, ty) * _cdiv(nx, w - 2 * hx)
     big = tiles(True) >= JACOBI_BIG_ROUNDS * sms
-    vec = 4 if nx % 4 == 0 and aligned else 1
+    if f64:
+        vec = 2 if nx % 2 == 0 and aligned else 1
+    else:
+        vec = 4 if nx % 4 == 0 and aligned else 1
     return big, vec, min(tiles(big), sms * JACOBI_CTAS_PER_SM[big])
 
 
-def block_jacobi_grid(n: int, sms: int) -> int:
-    """CTAs of ``block_jacobi.cu`` for n blocks, every form:
-    ``BLOCK_JACOBI_CTAS_PER_SM`` per SM, or one per round of
+def block_jacobi_grid(n: int, sms: int,
+                      ctas: int = BLOCK_JACOBI_CTAS_PER_SM) -> int:
+    """CTAs of ``block_jacobi.cu`` for n blocks: ``ctas`` per SM (every
+    f32 form ``BLOCK_JACOBI_CTAS_PER_SM``, an f64 form its
+    ``BLOCK_JACOBI_CTAS_PER_SM_F64``), or one per round of
     ``BLOCK_JACOBI_TILE`` blocks where there are fewer."""
-    return min(_cdiv(n, BLOCK_JACOBI_TILE), BLOCK_JACOBI_CTAS_PER_SM * sms)
+    return min(_cdiv(n, BLOCK_JACOBI_TILE), ctas * sms)
 
 
 def fused_jacobi_sweeps(e, r, omega, n, from_zero=False, edge_signs=None):
     """n sweeps: on CUDA tensors as launches of at most six sweeps each
     (``sweep_chain``; the first carries ``from_zero``; the signed form where
-    ``edge_signs`` is given; the wrap form, f32, where they have a periodic
-    axis's (0, 0) pair; the bf16 form for bf16 e and r), on CPU tensors the
-    twin (``jacobi_sweeps_bf16_plain`` for bf16) with those axes."""
+    ``edge_signs`` is given; the wrap form, f32 or f64, where they have a
+    periodic axis's (0, 0) pair; the bf16 form for bf16 e and r, the f64
+    form for f64 ones), on CPU tensors the twin
+    (``jacobi_sweeps_bf16_plain`` for bf16) with those axes."""
     bf16 = r.dtype == torch.bfloat16
     signs = () if edge_signs is None else _signs(edge_signs)
     px, py = _wrap_axes(signs) if signs else (False, False)
@@ -923,22 +1030,24 @@ def fused_jacobi_sweeps(e, r, omega, n, from_zero=False, edge_signs=None):
     if not from_zero and e.shape != r.shape:
         raise ValueError(f"fused_jacobi_sweeps: e {tuple(e.shape)} vs r "
                          f"{tuple(r.shape)}")
-    _check("fused_jacobi_sweeps", _STORAGE, r=r,
+    _check("fused_jacobi_sweeps", _STORAGE_WIDE, r=r,
            e=None if from_zero else e)
     if wrap and bf16:
-        raise ValueError("fused_jacobi_sweeps: the wrap form is f32 only")
+        raise ValueError("fused_jacobi_sweeps: the wrap form is f32 or f64 "
+                         "only")
+    f64 = r.dtype == torch.float64
     key = (("jacobi+wrap" if wrap else "jacobi+bc") if signs else "jacobi"
-           ) + ("+bf16" if bf16 else "")
+           ) + ("+bf16" if bf16 else "") + ("+f64" if f64 else "")
     cur = None if from_zero else e
     sms = _sm_count(r.device)
-    for k in sweep_chain(n, bf16, wrap):
+    for k in sweep_chain(n, bf16, wrap, f64):
         out = torch.empty_like(r)
         big, vec, grid = jacobi_plan(L, ny, nx, k, sms,
-                                     _aligned_copies(cur, r))
+                                     _aligned_copies(cur, r), f64)
         _launch(key, r.device, None if cur is None else cur.data_ptr(),
                 r.data_ptr(), out.data_ptr(), L, ny, nx, k, float(omega),
                 int(cur is None), int(big), vec, grid, *signs)
-        _count("fused_jacobi_sweeps", bool(signs), bf16, wrap)
+        _count("fused_jacobi_sweeps", bool(signs), bf16, wrap, f64)
         cur = out
     return cur
 
@@ -956,9 +1065,10 @@ def fused_lab_rhs_plain(lab, h, nu, dt):
 def fused_lab_rhs(lab, h, nu, dt):
     """WENO5 advect-diffuse RHS over pre-assembled forest labs
     [N, 2, BS+6, BS+6] -> [N, 2, BS, BS] with per-block h ([N, 1, 1, 1]
-    or [N]) and a scalar dt: the kernel for CUDA tensors, the twin for
-    CPU ones. The kernel forms afac = -dt h and dfac = nu dt itself, from
-    device operands, so a call is one launch."""
+    or [N]) and a scalar dt: the kernel for CUDA tensors (f32, or its f64
+    form for f64 labs; h and dt of the labs' dtype), the twin for CPU ones.
+    The kernel forms afac = -dt h and dfac = nu dt itself, from device
+    operands, so a call is one launch."""
     if not _on_cuda(lab):
         return fused_lab_rhs_plain(lab, h, nu, dt)
     n, two, hp, wp = lab.shape
@@ -966,19 +1076,20 @@ def fused_lab_rhs(lab, h, nu, dt):
         raise ValueError(f"fused_lab_rhs: lab {tuple(lab.shape)}: expected "
                          "[N, 2, 14, 14] (BS 8, 3 ghost cells)")
     if not torch.is_tensor(h):
-        h = torch.full((n,), float(h), device=lab.device)
+        h = torch.full((n,), float(h), dtype=lab.dtype, device=lab.device)
     if not torch.is_tensor(dt):
-        dt = torch.tensor(float(dt), device=lab.device)
+        dt = torch.tensor(float(dt), dtype=lab.dtype, device=lab.device)
     h = h.reshape(-1)
     if h.shape != (n,) or dt.numel() != 1:
         raise ValueError(f"fused_lab_rhs: h {tuple(h.shape)} / dt "
                          f"{tuple(dt.shape)}: expected one h per block and "
                          "a scalar dt")
-    _check("fused_lab_rhs", lab=lab, h=h, dt=dt)
+    _check("fused_lab_rhs", _WIDE, lab=lab, h=h, dt=dt)
+    f64 = lab.dtype == torch.float64
     out = lab.new_empty((n, 2, 8, 8))
-    _launch("lab_rhs", lab.device, lab.data_ptr(), h.data_ptr(),
-            dt.data_ptr(), float(nu), out.data_ptr(), n)
-    launches["fused_lab_rhs"] += 1
+    _launch("lab_rhs+f64" if f64 else "lab_rhs", lab.device, lab.data_ptr(),
+            h.data_ptr(), dt.data_ptr(), float(nu), out.data_ptr(), n)
+    _count("fused_lab_rhs", f64=f64)
     return out
 
 
@@ -1038,7 +1149,7 @@ def _block_jacobi_operands(name, e, r, lap, p_inv) -> int:
                                     for k, t in ts.items() if t is not None)
             + f", p_inv {tuple(p_inv.shape)}: expected [N, 8, 8] block "
             "stacks and [64, 64]")
-    _check(name, **ts, p_inv=p_inv)
+    _check(name, _WIDE, **ts, p_inv=p_inv)
     if not _aligned_copies(e, r, lap, p_inv):
         raise ValueError(f"{name}: operands must start on 16-byte "
                          "boundaries (the kernel copies 16 bytes at a time)")
@@ -1047,8 +1158,9 @@ def _block_jacobi_operands(name, e, r, lap, p_inv) -> int:
 
 def fused_block_jacobi_update(e, r, lap, p_inv):
     """e + P_inv (r - lap) over [N, 8, 8] f32 stacks, P_inv [64, 64]: the
-    kernel for CUDA tensors (an f32 FMA chain, no TF32; every operand
-    16-byte aligned), the twin for CPU ones."""
+    kernel for CUDA tensors (an f32 FMA chain, no TF32; its f64 form for
+    f64 operands; every operand 16-byte aligned), the twin for CPU
+    ones."""
     if not _on_cuda(e, r, lap, p_inv):
         return block_jacobi_plain(e, r, lap, p_inv)
     n = _block_jacobi_operands("fused_block_jacobi_update", e, r, lap,
@@ -1056,10 +1168,14 @@ def fused_block_jacobi_update(e, r, lap, p_inv):
     out = torch.empty_like(r)
     if n == 0:
         return out
-    _launch("block_jacobi", r.device, p_inv.data_ptr(), e.data_ptr(),
-            r.data_ptr(), lap.data_ptr(), out.data_ptr(), n,
-            block_jacobi_grid(n, _sm_count(r.device)))
-    launches["fused_block_jacobi_update"] += 1
+    f64 = r.dtype == torch.float64
+    ctas = BLOCK_JACOBI_CTAS_PER_SM_F64[3] if f64 else \
+        BLOCK_JACOBI_CTAS_PER_SM
+    _launch("block_jacobi+f64" if f64 else "block_jacobi", r.device,
+            p_inv.data_ptr(), e.data_ptr(), r.data_ptr(), lap.data_ptr(),
+            out.data_ptr(), n, block_jacobi_grid(n, _sm_count(r.device),
+                                                 ctas))
+    _count("fused_block_jacobi_update", f64=f64)
     return out
 
 
@@ -1072,10 +1188,10 @@ def block_precond(r, p_inv, e=None, lap=None):
     of kernel 8 with a zero e and lap and a separate add, which the forms
     replace. On CUDA tensors each launch counts under
     ``fused_block_jacobi_update`` and its ``+pinv`` form (the E form also
-    under ``+pinv+e``): one f32 FMA chain a row, k in order, so a row's
-    bits do not depend on how many rows the call holds (a cuBLAS GEMM may
-    pick a split-K plan from N). On CPU tensors the twin
-    (``block_precond_form_plain``)."""
+    under ``+pinv+e``, an f64 form also under ``+f64``): one f32 (f64) FMA
+    chain a row, k in order, so a row's bits do not depend on how many rows
+    the call holds (a cuBLAS GEMM may pick a split-K plan from N). On CPU
+    tensors the twin (``block_precond_form_plain``)."""
     if lap is not None and e is None:
         raise ValueError("block_precond: lap without e")
     if not _on_cuda(e, r, lap, p_inv):
@@ -1084,11 +1200,16 @@ def block_precond(r, p_inv, e=None, lap=None):
     out = torch.empty_like(r)
     if n == 0:
         return out
-    _launch("block_jacobi+pinv", r.device, p_inv.data_ptr(),
-            None if e is None else e.data_ptr(), r.data_ptr(),
-            None if lap is None else lap.data_ptr(), out.data_ptr(), n,
-            block_jacobi_grid(n, _sm_count(r.device)))
-    launches["fused_block_jacobi_update"] += 1
+    f64 = r.dtype == torch.float64
+    nops = 1 + (e is not None) + (lap is not None)
+    ctas = BLOCK_JACOBI_CTAS_PER_SM_F64[nops] if f64 else \
+        BLOCK_JACOBI_CTAS_PER_SM
+    _launch("block_jacobi+pinv+f64" if f64 else "block_jacobi+pinv",
+            r.device, p_inv.data_ptr(), None if e is None else e.data_ptr(),
+            r.data_ptr(), None if lap is None else lap.data_ptr(),
+            out.data_ptr(), n, block_jacobi_grid(n, _sm_count(r.device),
+                                                 ctas))
+    _count("fused_block_jacobi_update", f64=f64)
     launches["fused_block_jacobi_update+pinv"] += 1
     if e is not None and lap is None:
         launches["fused_block_jacobi_update+pinv+e"] += 1

@@ -12,10 +12,11 @@ import torch
 
 from .hopper_kernels import fused_jacobi_sweeps, sweep_chain
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
-# f32 operations/s outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, and
+# f32 and f64 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12
 OPS_SWEEP_CELL = 9           # 5 Laplacian, 4 update
 # WENO substage operations, counting each add, multiply, compare, select,
 # max, integer op and reciprocal as one: a reconstruction is 83 (33
@@ -90,10 +91,12 @@ def sweep_bytes(cells: int, from_zero: bool, itemsize: int = 4) -> float:
     return (2.0 if from_zero else 3.0) * itemsize * cells
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time in ms for ``nbytes`` moved and ``ops`` f32 operations,
-    and which of the two sets it."""
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+def bound(nbytes: float, ops: float,
+          peak: float = PEAK_F32) -> tuple[float, str]:
+    """Least time in ms for ``nbytes`` moved and ``ops`` operations at
+    ``peak`` operations/s (f32 by default; ``PEAK_F64`` for the f64
+    forms), and which of the two sets it."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 

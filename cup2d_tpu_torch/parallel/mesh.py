@@ -29,7 +29,7 @@ from typing import Optional
 import torch
 
 from ..config import SimConfig
-from ..uniform import FlowState, UniformSim
+from ..uniform import FlowState, UniformSim, check_card_f64
 from .shard_halo import (Slabs, SlabMesh, check_remesh, gather_x,
                          permute_slabs, split_x, world_reformed)
 
@@ -111,6 +111,8 @@ class ShardedUniformSim(UniformSim):
 
     def __init__(self, cfg: SimConfig, mesh: SlabMesh,
                  level: Optional[int] = None, bc=None):
+        check_card_f64(mesh.home, cfg.dtype,
+                       "ShardedUniformSim, the x-split step (kernels 3 and 7)")
         super().__init__(cfg, level, device=mesh.home, bc=bc)
         self.mesh = mesh
         self.grid.attach_mesh(mesh)

@@ -10,9 +10,11 @@ Poisson solve, ``project_correct``) and the step diagnostics.
 
 Device policy: ``UniformGrid`` and ``UniformSim`` run on ``cuda`` unless
 the caller passes ``device="cpu"``; with no device given and no card they
-raise. The card runs f32 state only; the CPU runs f32 or f64. On the card
-the Hopper kernels always run (there is no kernel-tier switch), on the
-CPU their plain twins.
+raise. Both devices run f32 or f64 state: the kernels of the one-card step
+(2, 5, 6) have f64 forms. On the card the split step and ``CUP2D_POIS=
+fftd`` take f32 state only (kernels 3, 7 and ``tridiag.cu`` have no f64
+form yet: ``check_card_f64``). On the card the Hopper kernels always run
+(there is no kernel-tier switch), on the CPU their plain twins.
 
 Boundary tables (``bc=``, a ``bc.BCTable``): the free-slip table runs the
 free-slip code unchanged. Any other validated table paints its ghosts in
@@ -89,6 +91,25 @@ __all__ = ["FlowState", "UniformGrid", "UniformSim", "bench_state",
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
+# the ROADMAP entry of the paths that refuse f64 state on the card
+F64_NEXT_SLICE = ("ROADMAP.md queue 2, note (c): the f64 forms of kernels 3 "
+                  "and 7 and of tridiag.cu are the next slice")
+
+
+def check_card_f64(device, dtype, what: str) -> None:
+    """Refuse f64 state on the card for ``what``, a path that launches a
+    kernel with no f64 form (the halo substage and sweep of the split
+    step, ``tridiag.cu`` of fftd). Called at construction, before anything
+    is allocated; f64 runs such paths on ``device="cpu"``."""
+    if isinstance(dtype, str):
+        dtype = _DTYPES.get(dtype, dtype)
+    if torch.device(device).type == "cuda" and dtype == torch.float64:
+        raise ValueError(
+            f"{what} at float64 on {device}: a kernel it launches has no "
+            f"f64 form ({F64_NEXT_SLICE}); run it at float32, or at "
+            "float64 on device='cpu'")
+
+
 def resolve_device(device=None) -> torch.device:
     """``cuda`` unless the caller names a device; no card and no device
     given raises instead of dropping to the CPU."""
@@ -152,10 +173,6 @@ class UniformGrid:
         if cfg.dtype not in _DTYPES:
             raise ValueError(f"dtype {cfg.dtype!r}: expected float32|float64")
         self.dtype = _DTYPES[cfg.dtype]
-        if self.device.type == "cuda" and self.dtype != torch.float32:
-            raise ValueError(
-                f"dtype {cfg.dtype} on {self.device}: the card runs f32 "
-                "state only (f64 runs on device='cpu')")
         bc = FREE_SLIP if bc is None else bc
         if not isinstance(bc, BCTable):
             raise TypeError(
@@ -185,6 +202,9 @@ class UniformGrid:
                             else "fas" if pois in ("fas", "fas-f")
                             else "bicgstab")
         self.fas_fmg = pois == "fas-f"
+        if self.solver_mode == "fftd":
+            check_card_f64(self.device, self.dtype,
+                           "CUP2D_POIS=fftd (tridiag.cu takes complex64)")
         lvl = cfg.level_start if level is None else level
         self.level = lvl
         self.nx = cfg.bpdx * cfg.bs << lvl
@@ -264,6 +284,8 @@ class UniformGrid:
         RHS adds chi div(u_def) in the split form. fftd refuses (its
         transforms and scans are whole-array), as in the JAX package; Nx
         must divide by the mesh size."""
+        check_card_f64(self.device, self.dtype,
+                       "the x-split step (kernels 3 and 7)")
         if self.solver_mode == "fftd":
             raise ValueError(
                 "CUP2D_POIS=fftd cannot attach a device mesh: the x-split "

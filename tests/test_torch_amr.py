@@ -199,8 +199,13 @@ def test_no_device_without_cuda_raises(monkeypatch):
         TSim(_vortex_cfg(), shapes=[])
 
 
-def test_f64_on_the_card_refuses():
-    with pytest.raises(ValueError, match="f32 state only"):
+def test_f64_on_the_card_refuses(monkeypatch):
+    """The forest runs f64 on the card (kernels 4 and 8 have f64 forms);
+    the bf16 FAS legs with f64 state refuse, as in the JAX package, at
+    construction, before any allocation (this box has no card)."""
+    monkeypatch.setenv("CUP2D_POIS", "fas")
+    monkeypatch.setenv("CUP2D_PREC", "bf16")
+    with pytest.raises(ValueError, match="f32 solver state"):
         TSim(_vortex_cfg(), shapes=[], device="cuda")
 
 

@@ -183,9 +183,14 @@ def test_jacobi_kernel_repeats_bit_for_bit(cuda, shape):
 
 
 def test_kernel_refuses_f64(cuda):
+    """The halo sweep (kernel 7) has no f64 form: f64 operands raise, as
+    do the sweep chain's mixed f32 and f64 operands."""
     e = torch.zeros(16, 16, dtype=torch.float64, device=cuda)
+    aux = torch.zeros(16, 2, dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError, match="float32"):
-        hk.fused_jacobi_sweeps(e, e, 0.8, 2)
+        hk.jacobi_halo_sweep(e, e, aux, 0.8, True, True)
+    with pytest.raises(TypeError, match="one storage dtype"):
+        hk.fused_jacobi_sweeps(e.float(), e, 0.8, 2)
 
 
 @pytest.mark.parametrize("n", [3, 128])
@@ -232,9 +237,17 @@ def test_block_jacobi_kernel_repeats_bit_for_bit(cuda):
 
 
 def test_forest_kernels_refuse_bad_operands(cuda):
+    """Mixed dtypes, strided operands and operands off the 16-byte grid
+    raise; so does an f64 operand of ``tridiag.cu``, which has no f64
+    form."""
     lab = torch.zeros(4, 2, 14, 14, dtype=torch.float64, device=cuda)
-    with pytest.raises(TypeError, match="float32"):
-        hk.fused_lab_rhs(lab, 0.1, 4e-5, 1e-3)
+    with pytest.raises(TypeError, match="one storage dtype"):
+        hk.fused_lab_rhs(lab, torch.full((4,), 0.1, device=cuda), 4e-5,
+                         torch.tensor(1e-3, device=cuda))
+    b = torch.zeros(1, 8, 5, dtype=torch.complex128, device=cuda)
+    c = torch.zeros(8, 5, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="complex64"):
+        hk.tridiag_scan(b, c, c)
     lab = torch.zeros(4, 2, 14, 28, device=cuda)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         hk.fused_lab_rhs(lab, 0.1, 4e-5, 1e-3)
@@ -242,9 +255,9 @@ def test_forest_kernels_refuse_bad_operands(cuda):
     p = torch.zeros(64, 64, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         hk.fused_block_jacobi_update(e, e, e, p)
-    with pytest.raises(TypeError, match="float32"):
-        hk.fused_block_jacobi_update(e.double(), e.double(), e.double(),
-                                     p.double())
+    with pytest.raises(TypeError, match="one storage dtype"):
+        hk.fused_block_jacobi_update(e.contiguous().double(),
+                                     e.contiguous(), e.contiguous(), p)
     flat = torch.zeros(3 * 64 + 1, device=cuda)
     e = flat[1:].view(3, 8, 8)
     with pytest.raises(ValueError, match="16-byte"):
@@ -533,7 +546,7 @@ def test_bc_kernel_forms_refuse_periodic(cuda):
     e = torch.zeros(16, 16, device=cuda)
     with pytest.raises(ValueError, match="periodic"):
         hk.fused_jacobi_sweeps(e, e, 0.8, 2, edge_signs=(0, 1, 1, 1))
-    with pytest.raises(ValueError, match="f32 only"):
+    with pytest.raises(ValueError, match="f32 or f64 only"):
         hk.fused_jacobi_sweeps(e.bfloat16(), e.bfloat16(), 0.8, 2,
                                edge_signs=(0, 0, 1, 1))
 
@@ -1687,8 +1700,8 @@ def test_block_precond_refuses_bad_operands(cuda):
     r = torch.zeros(8, 8, 8, device=cuda)
     with pytest.raises(ValueError, match="expected"):
         hk.block_precond(r, p, torch.zeros(9, 8, 8, device=cuda))
-    with pytest.raises(TypeError, match="float32"):
-        hk.block_precond(r.double(), p.double())
+    with pytest.raises(TypeError, match="one storage dtype"):
+        hk.block_precond(r.double(), p)
     flat = torch.zeros(3 * 64 + 1, device=cuda)
     with pytest.raises(ValueError, match="16-byte"):
         hk.block_precond(flat[1:].view(3, 8, 8), p)
@@ -1894,3 +1907,238 @@ def test_timers_fence_adds_no_read_on_the_card(cuda):
     g0 = shapes_host.pulls
     tm.fence("x", b.state, {"v": b.state.vel})
     assert shapes_host.pulls == g0
+
+
+# ---------------------------------------------------------------------------
+# f64 forms (kernels 2, 5, 6, 4 and 8): each against its twin at f64,
+# <= 1e-12 relative to max |ref| (FMA contraction alone separates them)
+# ---------------------------------------------------------------------------
+
+F64_BAR = 1e-12
+
+
+def _rand64(shape, seed, device):
+    a = np.random.default_rng(seed).standard_normal(shape)
+    return torch.tensor(a, dtype=torch.float64, device=device)
+
+
+def _rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+F64_SUBSTAGE_TABLES = dict({"free_slip": None}, **BC_TABLES, **{
+    "wrap_" + k: t for k, t in WRAP_TABLES.items()})
+# one tile, odd rows (the 8-byte route), a member stack, several tiles,
+# and a field narrower than the halo (the wrap spans several periods)
+F64_SUBSTAGE_SHAPES = [(1, 2, 24, 100), (1, 2, 37, 151), (3, 2, 40, 72),
+                       (1, 2, 130, 260), (1, 2, 8, 8)]
+
+
+@pytest.mark.parametrize("name", sorted(F64_SUBSTAGE_TABLES))
+@pytest.mark.parametrize("shape", F64_SUBSTAGE_SHAPES)
+def test_advect_heun_f64_kernel_vs_twin(cuda, name, shape):
+    bc = F64_SUBSTAGE_TABLES[name]
+    h = 1.0 / shape[-1]
+    v = _rand64(shape, 51, cuda)
+    dt = torch.tensor([0.5 * h, 0.35 * h, 0.27 * h][:shape[0]],
+                      dtype=torch.float64, device=cuda)
+    hk.reset_launches()
+    got = hk.fused_advect_heun(v, h, 4e-5, dt, bc=bc)
+    ref = hk.fused_advect_heun_plain(v, h, 4e-5, dt, bc=bc)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64
+    assert hk.launches["fused_advect_heun+f64"] == 2
+    assert hk.launches["fused_advect_heun+bc"] == (0 if bc is None else 2)
+    assert _rel(got, ref) <= F64_BAR
+
+
+@pytest.mark.parametrize("name", ["neumann", "signed"]
+                         + sorted("wrap_" + k for k in WRAP_TABLES))
+@pytest.mark.parametrize("shape", [(2, 48, 80), (1, 8, 8), (1, 37, 151)])
+def test_correction_f64_kernel_vs_twin(cuda, name, shape):
+    if name == "neumann":
+        signs, paxes = None, (False, False)
+    elif name == "signed":
+        signs, paxes = (1.0, -1.0, 1.0, 1.0), (False, False)
+    else:
+        signs, paxes = _wrap_signs(WRAP_TABLES[name[5:]])
+    L = shape[0]
+    x, p = _rand64(shape, 52, cuda), _rand64(shape, 53, cuda)
+    v = _rand64((L, 2) + shape[1:], 54, cuda)
+    scal = torch.stack([x.mean((1, 2)), p.mean((1, 2)),
+                        torch.full((L,), -1e-4, dtype=torch.float64,
+                                   device=cuda)], -1).contiguous()
+    hk.reset_launches()
+    got = hk.fused_correction(x, p, v, scal, 6400.0, signs)
+    ref = hk.fused_correction_plain(x, p, v, scal, 6400.0, signs, paxes)
+    torch.cuda.synchronize()
+    assert hk.launches["fused_correction+f64"] == 1
+    for a, b in zip(got, ref):
+        assert _rel(a, b) <= F64_BAR
+
+
+@pytest.mark.parametrize("form", ["neumann", "signed", "doubly",
+                                  "periodic_x", "periodic_y"])
+@pytest.mark.parametrize("shape", JACOBI_SHAPES)
+@pytest.mark.parametrize("from_zero", [False, True])
+def test_jacobi_f64_kernel_shapes_vs_twin(cuda, form, shape, from_zero):
+    if form == "neumann":
+        signs, paxes = None, (False, False)
+    elif form == "signed":
+        signs, paxes = (1.0, -1.0, 1.0, 1.0), (False, False)
+    else:
+        signs, paxes = _wrap_signs(WRAP_TABLES[form])
+    L, ny, nx, n = shape
+    e, r = _rand64((L, ny, nx), 55, cuda), _rand64((L, ny, nx), 56, cuda)
+    hk.reset_launches()
+    got = hk.fused_jacobi_sweeps(e, r, 0.8, n, from_zero, signs)
+    ref = hk.jacobi_sweeps_plain(e, r, 0.8, n, from_zero, signs, paxes)
+    torch.cuda.synchronize()
+    assert hk.launches["fused_jacobi_sweeps+f64"] == len(
+        hk.sweep_chain(n, f64=True))
+    assert _rel(got, ref) <= F64_BAR
+
+
+def test_jacobi_f64_kernel_misaligned_operands(cuda):
+    """f64 operands 8 bytes past a 16-byte boundary take the 8-byte copy
+    route and give the aligned operands' bits."""
+    flat = _rand64((2 * 64 * 96 + 1,), 57, cuda)
+    e = flat[1:1 + 64 * 96].view(64, 96)
+    r = flat[1 + 64 * 96:].view(64, 96)
+    assert e.data_ptr() % 16 and r.data_ptr() % 16
+    got = hk.fused_jacobi_sweeps(e, r, 0.8, 2)
+    assert torch.equal(got, hk.fused_jacobi_sweeps(e.clone(), r.clone(),
+                                                   0.8, 2))
+    assert _rel(got, hk.jacobi_sweeps_plain(e, r, 0.8, 2)) <= F64_BAR
+
+
+@pytest.mark.parametrize("n", [3, 128, 1001])
+@pytest.mark.parametrize("nu", [4e-5, 1.0])
+def test_lab_rhs_f64_kernel_vs_twin(cuda, n, nu):
+    """Held per h class, relative to that class's max |ref|, as the f32
+    form."""
+    lab = _rand64((n, 2, 14, 14), 58, cuda)
+    cls = torch.arange(n, device=cuda) % 3
+    h = torch.tensor([1 / 64, 1 / 128, 1.0], dtype=torch.float64,
+                     device=cuda)[cls].reshape(n, 1, 1, 1)
+    dt = torch.tensor(0.5 / 128, dtype=torch.float64, device=cuda)
+    hk.reset_launches()
+    got = hk.fused_lab_rhs(lab, h, nu, dt)
+    ref = hk.fused_lab_rhs_plain(lab, h, nu, dt)
+    torch.cuda.synchronize()
+    assert hk.launches["fused_lab_rhs+f64"] == 1
+    for c in range(min(n, 3)):
+        assert _rel(got[cls == c], ref[cls == c]) <= F64_BAR
+
+
+@pytest.mark.parametrize("form", ["P_inv r", "e + P_inv r",
+                                  "e + P_inv (r - lap)", "update"])
+@pytest.mark.parametrize("n", [1, 33, 4099])
+def test_block_jacobi_f64_forms_vs_twin(cuda, form, n):
+    p_inv = torch.tensor(block_precond_matrix(8), dtype=torch.float64,
+                         device=cuda)
+    e, r, lap = (_rand64((n, 8, 8), s, cuda) for s in (59, 60, 61))
+    hk.reset_launches()
+    if form == "update":
+        got = hk.fused_block_jacobi_update(e, r, lap, p_inv)
+        ref = hk.block_jacobi_plain(e, r, lap, p_inv)
+    else:
+        args = {"P_inv r": (), "e + P_inv r": (e,),
+                "e + P_inv (r - lap)": (e, lap)}[form]
+        got = hk.block_precond(r, p_inv, *args)
+        ref = hk.block_precond_form_plain(r, p_inv, *args)
+    torch.cuda.synchronize()
+    assert hk.launches["fused_block_jacobi_update+f64"] == 1
+    assert hk.launches["fused_block_jacobi_update+pinv"] == (
+        form != "update")
+    assert _rel(got, ref) <= F64_BAR
+
+
+@pytest.mark.parametrize("pois", ["", "fas"])
+def test_uniform_f64_on_the_card_matches_cpu(cuda, monkeypatch, pois):
+    """A 64^2 Taylor-Green run at f64: the card's steps within 1e-10
+    relative of the CPU's, equal iterations, each f64 form launched."""
+    from cup2d_tpu_torch.uniform import taylor_green_state
+    monkeypatch.setenv("CUP2D_POIS", pois)
+    cfg = SimConfig(bpdx=1, bpdy=1, level_max=1, level_start=0, extent=1.0,
+                    nu=1e-3, cfl=0.4, dtype="float64",
+                    max_poisson_iterations=100, poisson_tol=1e-9,
+                    poisson_tol_rel=1e-8)
+    runs = []
+    for dev in ("cpu", cuda):
+        sim = UniformSim(cfg, level=3, device=dev)
+        sim.state = taylor_green_state(sim.grid)
+        sim.step_count = 10
+        hk.reset_launches()
+        iters = [sim.step_once()["poisson_iters"] for _ in range(4)]
+        runs.append((sim, iters, dict(hk.launches)))
+    (c, ic, _), (g, ig, lg) = runs
+    assert ic == ig
+    ref = c.state.vel
+    assert _rel(g.state.vel.cpu(), ref) <= 1e-10
+    assert lg["fused_advect_heun+f64"] == 8
+    assert lg["fused_correction+f64"] == 4
+    assert (lg["fused_jacobi_sweeps+f64"] > 0) == (pois == "fas")
+
+
+@pytest.mark.parametrize("pois", ["structured", "fas"])
+def test_forest_f64_on_the_card_matches_cpu(cuda, monkeypatch, pois):
+    """The 355-block forest at f64, card against CPU over three steps from
+    the CPU's state after its first production step (whose solve from zero
+    pressure, 34-92 iterations under the default solver, carries a one-ulp
+    difference of its input to 1e-9..1e-6): <= 1e-10 relative with equal
+    iterations, kernels 4 and 8 in their f64 forms."""
+    from cup2d_tpu_torch.amr import AMRSim
+    from cup2d_tpu_torch.convert import copy_amr_state
+    monkeypatch.setenv("CUP2D_POIS", pois)
+    cpu = multilevel_forest(dtype="float64", device="cpu", tol=1e-6,
+                            tol_rel=1e-5)
+    cpu.step_once()
+    card = AMRSim(cpu.cfg, shapes=[], device=cuda)
+    copy_amr_state(cpu, card)
+    hk.reset_launches()
+    for _ in range(3):
+        assert (card.step_once()["poisson_iters"]
+                == cpu.step_once()["poisson_iters"])
+    a = card.fields()["vel"].cpu()
+    b = cpu.fields()["vel"]
+    assert _rel(a[card.forest.order()], b[cpu.forest.order()]) <= 1e-10
+    assert hk.launches["fused_lab_rhs+f64"] == 6
+    assert hk.launches["fused_block_jacobi_update+f64"] > 0
+    assert hk.launches["fused_lab_rhs"] == 6
+
+
+@pytest.mark.parametrize("pois", ["structured", "fas"])
+def test_sharded_forest_f64_on_one_card_matches_solo(cuda, monkeypatch,
+                                                      pois):
+    """The split forest at f64: a ShardedAMRSim on four shards of the card
+    follows the solo f64 AMRSim through an adapt and three production
+    steps bit for bit, kernels 4 and 8 in their f64 forms once a shard
+    where solo launches once."""
+    import dataclasses
+    from cup2d_tpu_torch.amr import AMRSim
+    from cup2d_tpu_torch.parallel.forest_mesh import ShardedAMRSim
+    cfg, snap = _vortex_start(cuda)
+    cfg = dataclasses.replace(cfg, dtype="float64")
+    monkeypatch.setenv("CUP2D_POIS", pois)
+    solo = AMRSim(cfg, shapes=[], device=cuda)
+    split = ShardedAMRSim(cfg, make_mesh(devices=[cuda] * 4), shapes=[])
+    out = {}
+    for name, sim in (("solo", solo), ("split", split)):
+        forest_from_numpy(sim, *snap)
+        sim.step_count = 10
+        sim.adapt()
+        hk.reset_launches()
+        iters = [sim.step_once()["poisson_iters"] for _ in range(3)]
+        out[name] = (iters, dict(hk.launches),
+                     {k: sim._gather(v)
+                      for k, v in sim._ordered_state().items()})
+    (it_a, la, sa), (it_b, lb, sb) = out["solo"], out["split"]
+    assert it_a == it_b
+    for k in ("vel", "pres"):
+        assert sa[k].dtype == torch.float64
+        assert torch.equal(sb[k], sa[k]), k
+    for k in ("fused_lab_rhs+f64", "fused_block_jacobi_update+f64",
+              "group_sum"):
+        assert lb[k] == 4 * la[k] > 0, k
+    assert la["fused_lab_rhs+f64"] == la["fused_lab_rhs"] == 6

@@ -162,7 +162,8 @@ def test_obstacle_free_simulation_is_the_uniform_step():
 
 
 def test_simulation_refusals(monkeypatch):
-    """No card and no device raises; f64 on the card refuses; the
+    """No card and no device raises; fftd at f64 on the card refuses
+    (``tridiag.cu`` has no f64 form yet); the
     ``async_diag`` attribute is accepted and the shaped step still
     returns host diagnostics; the phase timers time the JAX package's
     phases of the shaped step."""
@@ -180,8 +181,10 @@ def test_simulation_refusals(monkeypatch):
     sim.step_once()
     assert set(sim.timers.report()) == {"kinematics", "rasterize", "flow",
                                         "forces"}
-    with pytest.raises(ValueError, match="f32 state only"):
-        Simulation(cfg, level=2, device="cuda")
+    monkeypatch.setenv("CUP2D_POIS", "fftd")
+    with pytest.raises(ValueError, match=r"tridiag\.cu.*note \(c\)"):
+        Simulation(cfg, level=2, device="cuda", bc=cases.periodic_table())
+    monkeypatch.delenv("CUP2D_POIS")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Simulation(cfg, level=2)

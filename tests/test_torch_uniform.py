@@ -158,9 +158,20 @@ def test_no_device_without_cuda_raises(monkeypatch):
         TSim(TConfig(**_tg_kw()))
 
 
-def test_f64_on_the_card_refuses():
-    with pytest.raises(ValueError, match="f32 state only"):
-        TGrid(TConfig(**_tg_kw()), device="cuda")
+def test_f64_on_the_card_refuses(monkeypatch):
+    """f64 state runs on the card (kernels 2, 5 and 6 have f64 forms),
+    except where a path launches a kernel with none yet: the x-split step
+    (kernels 3 and 7) and fftd (``tridiag.cu``) refuse at construction,
+    before any allocation (this box has no card), naming the ROADMAP
+    entry."""
+    from cup2d_tpu_torch import cases as tcases
+    from cup2d_tpu_torch.parallel.mesh import ShardedUniformSim, make_mesh
+    cfg = TConfig(**_tg_kw())
+    with pytest.raises(ValueError, match=r"kernels 3 and 7.*note \(c\)"):
+        ShardedUniformSim(cfg, make_mesh(devices=["cuda:0"] * 2))
+    monkeypatch.setenv("CUP2D_POIS", "fftd")
+    with pytest.raises(ValueError, match=r"tridiag\.cu.*note \(c\)"):
+        TGrid(cfg, device="cuda", bc=tcases.periodic_table())
 
 
 @pytest.mark.parametrize("env,value,exc", [
